@@ -1,0 +1,68 @@
+"""Parameters from the JAX package into the port.
+
+:func:`params_from_jax` takes a JAX model's parameter tree with its leaves
+as numpy arrays (``jax.tree.map(np.asarray, model.params)``) and returns
+the port module's ``state_dict``:
+
+* a ``Dense`` kernel ``[in, out]`` becomes ``Linear.weight`` ``[out, in]``;
+* ``Embed_0/embedding`` becomes ``nn.Embedding.weight``;
+* the packed LSTM parameters (``cell_impl="pallas"``: ``lstm_wx``,
+  ``lstm_wh``, ``lstm_b``) go across as they are;
+* a per-gate ``OptimizedLSTMCell`` tree (``cell_impl="xla"``) is packed
+  through :func:`~distkeras_tpu_torch.ops.kernels.lstm.pack_lstm_params`
+  first, so both JAX layouts serve through the same port module.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from distkeras_tpu_torch.models.lstm import LSTMClassifier
+from distkeras_tpu_torch.ops.kernels.lstm import pack_lstm_params
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _lstm_classifier(tree: dict) -> dict:
+    if "lstm_wx" in tree:
+        wx, wh, b = (_t(tree[k]) for k in ("lstm_wx", "lstm_wh", "lstm_b"))
+    else:
+        wx, wh, b = pack_lstm_params(tree["OptimizedLSTMCell_0"])
+    dense = tree["Dense_0"]
+    return {
+        "embed.weight": _t(tree["Embed_0"]["embedding"]),
+        "lstm_wx": wx,
+        "lstm_wh": wh,
+        "lstm_b": b,
+        "head.weight": _t(dense["kernel"]).t().contiguous(),
+        "head.bias": _t(dense["bias"]),
+    }
+
+
+_CONVERTERS = {LSTMClassifier: _lstm_classifier}
+
+
+def params_from_jax(tree: dict, module: nn.Module) -> dict:
+    """``module``'s ``state_dict`` filled from the JAX parameter ``tree``
+    (numpy leaves), on the module's device and checked against its shapes.
+    Load it with ``module.load_state_dict(...)``."""
+    convert = _CONVERTERS.get(type(module))
+    if convert is None:
+        raise NotImplementedError(
+            f"no JAX parameter conversion for {type(module).__name__}")
+    out = convert(tree)
+    ref = module.state_dict()
+    if set(out) != set(ref):
+        raise KeyError(f"converted keys {sorted(out)} != module keys "
+                       f"{sorted(ref)}")
+    for k, v in out.items():
+        if tuple(v.shape) != tuple(ref[k].shape):
+            raise ValueError(
+                f"{k}: JAX parameter has shape {tuple(v.shape)}, the module "
+                f"expects {tuple(ref[k].shape)}")
+        out[k] = v.to(device=ref[k].device, dtype=ref[k].dtype)
+    return out

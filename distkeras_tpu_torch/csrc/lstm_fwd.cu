@@ -1,0 +1,164 @@
+// Whole-sequence LSTM forward in one launch, f32, for Hopper (sm_90a).
+//
+// Replaces: distkeras_tpu/ops/pallas/lstm.py:_fwd_kernel (pl.pallas_call in
+// _run_fwd) with stash=False, the inference forward that lstm_seq runs.
+// Gate math is flax's OptimizedLSTMCell, gates packed i,f,g,o along 4H:
+//   pre = b + x_t . Wx + h . Wh          [rows, 4H]
+//   c'  = sigmoid(f) * c + sigmoid(i) * tanh(g)
+//   h'  = sigmoid(o) * tanh(c'),  hs[:, t] = h'      (h0 = c0 = 0)
+//
+// What bounds it on this card: the T-step serial dependency, not bytes or
+// FLOPs. Step t+1 needs all of h_t, so each step is one [rows, E+H] by
+// [E+H, 4H] product followed by a block-wide barrier. At the serving shapes
+// (E=64, H=128, T=200) the call is 2*T*B*(E+H)*4H FLOP (10.1 GFLOP at
+// B=256, 0.04 GFLOP at B=1) and ~39 MB of x + hs at B=256: a few percent of
+// a millisecond at the card's f32 rate and memory rate. What each step
+// costs is the latency of every thread's 192 weight loads: the f32 weights
+// (Wx + Wh = 384 KiB) do not fit in shared memory (227 KB per block), so
+// they are re-read from L2 every step.
+//
+// What the design does about it. Batch rows are independent and only time
+// is serial, so (unlike the TPU kernel, whose grid is the time axis and
+// whose carry lives in revisited output blocks) one thread block owns R
+// batch rows and loops over t inside the block:
+//   * h and the staged x_t of its rows live in shared memory ([k][r], so a
+//     thread reads a k's R values side by side), c lives in the registers
+//     of the thread that owns the hidden unit;
+//   * one thread per gate column j < 4H sums b[j] + x_t[r,:].Wx[:,j] +
+//     h[r,:].Wh[:,j] for its rows; the loops are unrolled 32 deep so 32
+//     independent L2 loads (coalesced across j, row-major weights) are in
+//     flight per thread, which is what the step latency is made of;
+//   * a barrier, then H threads combine i,f,g,o, update c, write h to shared
+//     memory and to hs, and stage x_{t+1}; a second barrier ends the step.
+// R is 1 up to 128 rows (one block per row, at most one block per SM on
+// the 132 SMs) and 2 above (half the blocks and half the L2 weight
+// traffic, at the price of R FMAs per weight load). Tuning R and the
+// unroll depth, keeping the weights resident on chip (bf16 in shared
+// memory, or split over a thread-block cluster) and tensor cores are later
+// work.
+//
+// Ragged batches: the last block masks rows >= B (no padding copy).
+// Precise expf/tanhf; build without --use_fast_math.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxThreads = 512;  // one thread per gate column: 4H <= 512
+
+__device__ __forceinline__ float sigmoid_f(float v) {
+  return 1.0f / (1.0f + expf(-v));
+}
+
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads)
+lstm_fwd_kernel(const float* __restrict__ x,   // [B, T, E]
+                const float* __restrict__ wx,  // [E, 4H]
+                const float* __restrict__ wh,  // [H, 4H]
+                const float* __restrict__ b,   // [4H]
+                float* __restrict__ hs,        // [B, T, H]
+                int B, int T, int E, int H) {
+  extern __shared__ float smem[];
+  const int G = 4 * H;
+  float* xs = smem;          // [E][R]  x_t of this block's rows
+  float* hsm = xs + E * R;   // [H][R]  h_{t-1}
+  float* gsm = hsm + H * R;  // [R][G]  gate pre-activations
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * R;
+  const int rows = min(R, B - row0);
+
+  for (int i = tid; i < H * R; i += blockDim.x) hsm[i] = 0.0f;
+  for (int i = tid; i < R * E; i += blockDim.x) {
+    const int r = i / E;
+    const int e = i - r * E;
+    xs[e * R + r] = r < rows ? x[(size_t)(row0 + r) * T * E + e] : 0.0f;
+  }
+  float c[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) c[r] = 0.0f;
+  const float bj = tid < G ? b[tid] : 0.0f;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    if (tid < G) {
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = bj;
+#pragma unroll 32
+      for (int e = 0; e < E; ++e) {
+        const float w = wx[(size_t)e * G + tid];
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(xs[e * R + r], w, acc[r]);
+      }
+#pragma unroll 32
+      for (int k = 0; k < H; ++k) {
+        const float w = wh[(size_t)k * G + tid];
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(hsm[k * R + r], w, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) gsm[r * G + tid] = acc[r];
+    }
+    __syncthreads();
+
+    if (tid < H) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < rows) {
+          const float* g = gsm + r * G;
+          const float ig = sigmoid_f(g[tid]);
+          const float fg = sigmoid_f(g[H + tid]);
+          const float gg = tanhf(g[2 * H + tid]);
+          const float og = sigmoid_f(g[3 * H + tid]);
+          c[r] = fg * c[r] + ig * gg;
+          const float h = og * tanhf(c[r]);
+          hsm[tid * R + r] = h;
+          hs[((size_t)(row0 + r) * T + t) * H + tid] = h;
+        }
+      }
+    }
+    if (t + 1 < T) {
+      for (int i = tid; i < R * E; i += blockDim.x) {
+        const int r = i / E;
+        const int e = i - r * E;
+        xs[e * R + r] =
+            r < rows ? x[((size_t)(row0 + r) * T + t + 1) * E + e] : 0.0f;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int R>
+int launch(const float* x, const float* wx, const float* wh, const float* b,
+           float* hs, int B, int T, int E, int H, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)R * (E + H + 4 * H);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lstm_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int threads = (4 * H + 31) / 32 * 32;
+  const int grid = (B + R - 1) / R;
+  lstm_fwd_kernel<R><<<grid, threads, smem, stream>>>(x, wx, wh, b, hs, B, T,
+                                                      E, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// hs[B, T, H] = LSTM over x[B, T, E] (all f32, contiguous, on the device).
+// Returns the cudaError_t of the launch (0 = launched).
+extern "C" int lstm_fwd_f32(const float* x, const float* wx, const float* wh,
+                            const float* b, float* hs, int B, int T, int E,
+                            int H, void* stream) {
+  if (E <= 0 || H <= 0 || 4 * H > kMaxThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B <= 0 || T <= 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 128) return launch<1>(x, wx, wh, b, hs, B, T, E, H, s);
+  return launch<2>(x, wx, wh, b, hs, B, T, E, H, s);
+}

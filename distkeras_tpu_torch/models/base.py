@@ -1,0 +1,108 @@
+"""Model abstraction of the port (counterpart of ``distkeras_tpu/models/base.py``).
+
+A :class:`Model` is a PyTorch module on one device plus what serving needs
+to know about its inputs: ``sample_spec``, the per-input shape and dtype of
+the build-time sample (the serving warmup builds each bucket's zeros from
+it), and the ``normalize_uint8`` flag of the one input-normalization rule
+(:func:`normalize_features`). Parameters live in the module; there is no
+separate parameter tree as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from distkeras_tpu_torch.runtime.device import resolve_device
+
+#: ``class name -> module class`` for every ``@register_model`` module.
+MODEL_CLASSES: dict = {}
+
+
+def register_model(cls: type) -> type:
+    """Class decorator: make ``cls`` reconstructible by name."""
+    MODEL_CLASSES[cls.__name__] = cls
+    return cls
+
+
+class TensorSpec(NamedTuple):
+    """Shape and numpy dtype of one model input."""
+
+    shape: tuple
+    dtype: np.dtype
+
+
+_uint8_warned = [False]
+
+
+def _warn_uint8_rescale() -> None:
+    """One-time (per process) notice that the uint8 ``/255`` rule fired, so
+    a byte-valued NON-image input is never rescaled without a trace."""
+    if _uint8_warned[0]:
+        return
+    _uint8_warned[0] = True
+    import warnings
+
+    warnings.warn(
+        "uint8 features detected: applying the raw-image-bytes rule "
+        "(x / 255 as float32) on every predict path. If these bytes are "
+        "NOT an image, opt out with normalize_uint8=False on the Model.",
+        stacklevel=3)
+
+
+def normalize_features(x: torch.Tensor,
+                       normalize_uint8: bool = True) -> torch.Tensor:
+    """uint8 feature tensors are raw image bytes: ``x/255`` as float32.
+
+    The same rule as the JAX package's ``normalize_features``: integer
+    token/label inputs (int32/int64) pass through untouched, and
+    ``normalize_uint8=False`` opts byte-valued non-image inputs out."""
+    if normalize_uint8 and x.dtype == torch.uint8:
+        _warn_uint8_rescale()
+        return x.to(torch.float32) / 255.0
+    return x
+
+
+@dataclasses.dataclass
+class Model:
+    """A module on ``device`` with its input signature."""
+
+    module: nn.Module
+    device: torch.device
+    sample_spec: tuple
+    normalize_uint8: bool = True
+
+    @classmethod
+    def build(cls, module: nn.Module, sample_input: Any,
+              device: Optional[Union[str, torch.device]] = None,
+              normalize_uint8: bool = True) -> "Model":
+        """Move ``module`` (already initialised by its constructor) to
+        ``device`` in eval mode and record the shapes and dtypes of
+        ``sample_input`` (one array or a tuple of arrays). ``device=None``
+        is the first CUDA device, and raises where there is none."""
+        dev = resolve_device(device)
+        inputs = sample_input if isinstance(sample_input, tuple) else (
+            sample_input,)
+        spec = tuple(TensorSpec(tuple(np.shape(a)), np.asarray(a).dtype)
+                     for a in inputs)
+        module.to(dev).eval()
+        return cls(module=module, device=dev, sample_spec=spec,
+                   normalize_uint8=normalize_uint8)
+
+    def apply(self, *inputs) -> torch.Tensor:
+        """Forward pass on the model's device. Inputs may be numpy arrays or
+        tensors; uint8 inputs are normalized ``x/255`` first."""
+        xs = tuple(
+            normalize_features(torch.as_tensor(a, device=self.device),
+                               self.normalize_uint8)
+            for a in inputs)
+        return self.module(*xs)
+
+    def predict(self, *inputs) -> torch.Tensor:
+        """:meth:`apply` under ``torch.inference_mode()``."""
+        with torch.inference_mode():
+            return self.apply(*inputs)

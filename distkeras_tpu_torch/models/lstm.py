@@ -1,0 +1,85 @@
+"""LSTM sentiment classifier — the reference's IMDB workload (BASELINE
+config #4), counterpart of ``distkeras_tpu/models/lstm.py`` with
+``cell_impl="pallas"``: embedding, the packed-parameter recurrence of
+``ops/kernels/lstm.py`` (one CUDA launch for the whole sequence on the
+card), the last hidden state, and a dense head.
+
+Parameter names follow the JAX module where it names them itself
+(``lstm_wx``, ``lstm_wh``, ``lstm_b``); the embedding is ``nn.Embedding``
+and the head ``nn.Linear``. ``convert.params_from_jax`` maps the JAX
+package's parameter trees (packed or per-gate) onto this module.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from distkeras_tpu_torch.models.base import Model, register_model
+from distkeras_tpu_torch.ops.kernels.lstm import lstm_seq, orthogonal_gates
+
+#: stddev of a unit normal truncated to [-2, 2] (flax's variance-scaling
+#: "normal" divides by it so the truncated draw keeps the target variance).
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal(shape: tuple, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Truncated-normal draw with variance ``1/fan_in`` (flax's
+    ``lecun_normal`` and its default embedding init)."""
+    z = torch.randn(shape, generator=generator)
+    bad = z.abs() > 2.0
+    while bad.any():
+        z[bad] = torch.randn(int(bad.sum()), generator=generator)
+        bad = z.abs() > 2.0
+    return z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
+@register_model
+class LSTMClassifier(nn.Module):
+    """``tokens [B, T] int -> logits [B, num_outputs]``. Parameters are
+    drawn on the CPU from ``torch.Generator().manual_seed(seed)``, so one
+    seed gives the same weights on every device."""
+
+    def __init__(self, vocab_size: int = 20000, embed_dim: int = 128,
+                 hidden_size: int = 128, num_outputs: int = 2,
+                 seed: int = 0):
+        super().__init__()
+        self.config = dict(vocab_size=vocab_size, embed_dim=embed_dim,
+                           hidden_size=hidden_size, num_outputs=num_outputs)
+        E, H = embed_dim, hidden_size
+        g = torch.Generator().manual_seed(seed)
+        self.embed = nn.Embedding(vocab_size, E)
+        self.lstm_wx = nn.Parameter(_lecun_normal((E, 4 * H), E, g))
+        self.lstm_wh = nn.Parameter(orthogonal_gates(H, g))
+        self.lstm_b = nn.Parameter(torch.zeros(4 * H))
+        self.head = nn.Linear(H, num_outputs)
+        with torch.no_grad():
+            self.embed.weight.copy_(_lecun_normal((vocab_size, E), E, g))
+            self.head.weight.copy_(
+                _lecun_normal((H, num_outputs), H, g).t())
+            self.head.bias.zero_()
+
+    def get_config(self) -> dict:
+        return dict(self.config)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed(tokens)                                   # [B, T, E]
+        hs = lstm_seq(self.lstm_wx, self.lstm_wh, self.lstm_b, x)
+        return self.head(hs[:, -1, :])                # last hidden state
+
+
+def imdb_lstm(vocab_size: int = 20000, embed_dim: int = 128,
+              hidden_size: int = 128, seq_len: int = 80, seed: int = 0,
+              device: Optional[Union[str, torch.device]] = None) -> Model:
+    """The IMDB classifier on ``device`` (default: the first CUDA device;
+    raises where there is none — pass ``device="cpu"`` for the CPU)."""
+    module = LSTMClassifier(vocab_size=vocab_size, embed_dim=embed_dim,
+                            hidden_size=hidden_size, num_outputs=2,
+                            seed=seed)
+    return Model.build(module, np.zeros((1, seq_len), np.int32),
+                       device=device)

@@ -1,0 +1,342 @@
+"""The hardened wire protocol: length-prefixed, checksummed binary frames
+(the port's copy of the JAX package's ``netps/wire.py``; frames are
+byte-compatible, so either package's client talks to either package's
+server). One frame::
+
+    MAGIC(2)='DK'  VERSION(1)  KIND(1)  CRC32(4)  LENGTH(4)  BODY(LENGTH)
+
+and BODY is ``HLEN(4) + JSON header (HLEN bytes, utf-8) + raw array
+buffers`` — array dtype/shape ride in the header (``arrays`` field), the
+buffers follow in order, so a reply is one contiguous write with zero
+pickling.
+
+:func:`send_frame` scatter-gathers the prefix/header and every array
+buffer straight out of their owning arrays via ``socket.sendmsg`` (crc32
+computed incrementally over the same views), and :func:`read_frame` reads
+into ONE preallocated buffer via ``recv_into`` and hands back numpy views
+over it. The decoded arrays alias that per-frame buffer: treat them as
+read-only inputs and copy before long-term mutation.
+
+**Per-tensor codecs** (``DKTPU_NET_COMPRESS``): a float32 tensor may ride
+the wire as ``bf16`` (top-16-bit truncation) or ``int8`` (per-tensor
+symmetric scale); the spec records the wire dtype plus ``codec`` (and
+``scale``) so :func:`decode_frame` transparently dequantizes to float32.
+
+Hardening, in the order a stray peer meets it: magic + version (a desync
+fails in the first 3 bytes), a bounded length (``DKTPU_NET_MAX_FRAME``,
+checked before any allocation), crc32 over the body, and request ids that
+replies echo so a duplicated frame cannot desynchronize the stream. After
+any :class:`ProtocolError` the connection is dead by contract.
+"""
+
+from __future__ import annotations
+
+import json
+import socket
+import struct
+import zlib
+from typing import Optional, Sequence
+
+import numpy as np
+
+from distkeras_tpu_torch.netps.errors import ProtocolError
+from distkeras_tpu_torch.runtime import config
+
+MAGIC = b"DK"
+VERSION = 1
+#: frame kinds — the one-byte fast-reject before the JSON header is parsed.
+KIND_REQUEST = 1
+KIND_REPLY = 2
+
+_PREFIX = struct.Struct("!2sBBII")  # magic, version, kind, crc32, body length
+PREFIX_SIZE = _PREFIX.size
+
+#: sendmsg scatter-gather batch bound (POSIX IOV_MAX is >= 1024).
+_IOV_MAX = 1024
+
+#: tensor codecs the wire speaks (``DKTPU_NET_COMPRESS``).
+CODEC_NONE = "none"
+CODEC_BF16 = "bf16"
+CODEC_INT8 = "int8"
+CODECS = (CODEC_NONE, CODEC_BF16, CODEC_INT8)
+
+#: capabilities THIS build advertises — only what the port implements: the
+#: tensor codecs and the serving ops (``infer``/``stats``). The JAX
+#: package's other bits (striping, shm, replication, sharding, tuner,
+#: tracing, tree, mesh) are absent, so a peer that gates a dialect on them
+#: speaks the plain one to the port.
+CAPS = {"codecs": list(CODECS), "serving": True}
+
+#: serving-plane ops carried in ``header["op"]``.
+OP_INFER = "infer"
+OP_STATS = "stats"
+
+
+def max_frame_bytes() -> int:
+    return config.env_int("DKTPU_NET_MAX_FRAME")
+
+
+def net_codec() -> str:
+    """The configured tensor codec (``DKTPU_NET_COMPRESS``), validated."""
+    codec = config.env_str("DKTPU_NET_COMPRESS")
+    if codec not in CODECS:
+        raise ValueError(
+            f"DKTPU_NET_COMPRESS={codec!r} is not a known codec; "
+            f"known: {list(CODECS)}")
+    return codec
+
+
+# ---------------------------------------------------------------------------
+# Per-tensor codecs
+# ---------------------------------------------------------------------------
+
+def codec_encode(a: np.ndarray, codec: str) -> tuple[np.ndarray, dict]:
+    """``a`` -> ``(wire array, spec extras)`` under ``codec``.
+
+    Only float32 tensors compress (integer/bool tensors and any tensor with
+    a non-finite value pass through untouched with empty extras)."""
+    a = np.ascontiguousarray(a)
+    if codec == CODEC_NONE or a.dtype != np.float32 or a.size == 0:
+        return a, {}
+    if codec == CODEC_BF16:
+        wire16 = (a.view(np.uint32) >> np.uint32(16)).astype(np.uint16)
+        return wire16, {"codec": CODEC_BF16}
+    if codec == CODEC_INT8:
+        amax = float(np.max(np.abs(a)))
+        if not np.isfinite(amax):
+            return a, {}
+        if amax == 0.0:
+            return np.zeros(a.shape, np.int8), {"codec": CODEC_INT8,
+                                                "scale": 0.0}
+        scale = amax / 127.0
+        q = np.clip(np.rint(a / scale), -127, 127).astype(np.int8)
+        return q, {"codec": CODEC_INT8, "scale": scale}
+    raise ValueError(f"unknown codec {codec!r}")
+
+
+def codec_decode(a: np.ndarray, spec: dict) -> np.ndarray:
+    """Invert :func:`codec_encode` from the wire array + its spec -> f32.
+    Arrays without a ``codec`` key pass through (zero-copy)."""
+    codec = spec.get("codec")
+    if not codec:
+        return a
+    if codec == CODEC_BF16:
+        return (np.ascontiguousarray(a).astype(np.uint32)
+                << np.uint32(16)).view(np.float32)
+    if codec == CODEC_INT8:
+        try:
+            scale = float(spec["scale"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ProtocolError(f"int8 array spec without a scale: {e}")
+        return a.astype(np.float32) * np.float32(scale)
+    raise ProtocolError(f"unknown codec {codec!r} in array spec")
+
+
+def _byte_view(buf) -> memoryview:
+    """A flat, 1-byte-itemsize view of any buffer (arrays included)."""
+    if isinstance(buf, np.ndarray):
+        return memoryview(buf.reshape(-1).view(np.uint8))
+    view = memoryview(buf)
+    if view.ndim != 1 or view.itemsize != 1:
+        view = view.cast("B")
+    return view
+
+
+def _frame_buffers(kind: int, header: dict, arrays) -> tuple[list, int]:
+    """``(buffers, total_bytes)`` for one frame — zero-copy: the packed
+    prefix+header bytes followed by flat views into the caller's arrays.
+    ``arrays`` items are ``ndarray`` or ``(ndarray, spec_extras)``."""
+    items = []
+    for it in arrays:
+        a, extras = it if isinstance(it, tuple) else (it, {})
+        items.append((np.ascontiguousarray(a), extras))
+    header = dict(header)
+    header["arrays"] = [
+        dict({"dtype": a.dtype.str, "shape": list(a.shape)}, **extras)
+        for a, extras in items]
+    hjson = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    views = [_byte_view(a) for a, _ in items]
+    hlen = struct.pack("!I", len(hjson))
+    crc = zlib.crc32(hjson, zlib.crc32(hlen))
+    for v in views:
+        crc = zlib.crc32(v, crc)
+    length = 4 + len(hjson) + sum(v.nbytes for v in views)
+    head = _PREFIX.pack(MAGIC, VERSION, kind, crc, length) + hlen + hjson
+    return [memoryview(head), *views], PREFIX_SIZE + length
+
+
+def encode_frame(kind: int, header: dict,
+                 arrays: Sequence = ()) -> bytes:
+    """Serialize ``header`` + ``arrays`` into one contiguous checksummed
+    frame (tests; the RPC path sends the same buffers via
+    :func:`send_frame`)."""
+    buffers, _total = _frame_buffers(kind, header, arrays)
+    return b"".join(bytes(b) for b in buffers)
+
+
+def parse_prefix(prefix: bytes,
+                 max_frame: Optional[int] = None) -> tuple[int, int, int]:
+    """Validate a 12-byte frame prefix -> (kind, crc32, body_length)."""
+    magic, version, kind, crc, length = _PREFIX.unpack(prefix)
+    if magic != MAGIC:
+        raise ProtocolError(f"bad magic {magic!r}")
+    if version != VERSION:
+        raise ProtocolError(f"unsupported protocol version {version}")
+    if kind not in (KIND_REQUEST, KIND_REPLY):
+        raise ProtocolError(f"unknown frame kind {kind}")
+    limit = max_frame if max_frame is not None else max_frame_bytes()
+    if length > limit:
+        raise ProtocolError(
+            f"frame of {length} bytes exceeds DKTPU_NET_MAX_FRAME={limit}")
+    return kind, crc, length
+
+
+def decode_frame(raw: bytes) -> tuple[int, dict, list]:
+    """Verify + decode one whole raw frame: ``(kind, header, arrays)``."""
+    kind, crc, length = parse_prefix(raw[:PREFIX_SIZE],
+                                     max_frame=len(raw))
+    body = raw[PREFIX_SIZE:]
+    if len(body) != length:
+        raise ProtocolError(
+            f"frame declares {length} body bytes, got {len(body)}")
+    if zlib.crc32(body) != crc:
+        raise ProtocolError("frame checksum mismatch (corrupt or truncated)")
+    header, arrays = _decode_body(body)
+    return kind, header, arrays
+
+
+def _decode_body(body) -> tuple[dict, list]:
+    if len(body) < 4:
+        raise ProtocolError(f"frame body too short ({len(body)} bytes)")
+    (hlen,) = struct.unpack_from("!I", body)
+    if 4 + hlen > len(body):
+        raise ProtocolError(
+            f"header length {hlen} exceeds body ({len(body)} bytes)")
+    try:
+        header = json.loads(bytes(body[4:4 + hlen]).decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ProtocolError(f"undecodable frame header: {e}") from e
+    arrays: list[np.ndarray] = []
+    off = 4 + hlen
+    for spec in header.get("arrays", ()):
+        # Every decode error on untrusted header bytes surfaces as the
+        # typed ProtocolError (a crafted negative dim would otherwise slip
+        # past the truncation check and escape as a raw numpy ValueError).
+        try:
+            dt = np.dtype(spec["dtype"])
+            shape = tuple(int(s) for s in spec["shape"])
+        except (TypeError, ValueError, KeyError) as e:
+            raise ProtocolError(f"bad array spec {spec!r}: {e}") from e
+        if any(s < 0 for s in shape):
+            raise ProtocolError(f"negative dimension in array spec {spec!r}")
+        count = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        n = dt.itemsize * count
+        if off + n > len(body):
+            raise ProtocolError(
+                f"array section truncated: need {n} bytes at offset {off}, "
+                f"body is {len(body)}")
+        try:
+            raw_arr = np.frombuffer(body, dtype=dt, count=count,
+                                    offset=off).reshape(shape)
+            arrays.append(codec_decode(raw_arr, spec))
+        except ValueError as e:
+            raise ProtocolError(f"undecodable array {spec!r}: {e}") from e
+        off += n
+    if off != len(body):
+        raise ProtocolError(
+            f"{len(body) - off} trailing bytes after declared arrays")
+    return header, arrays
+
+
+def recv_exact_into(sock: socket.socket, view: memoryview) -> None:
+    """Fill ``view`` exactly from ``sock`` or raise: ``ConnectionError`` on
+    EOF, ``socket.timeout`` per the socket's timeout."""
+    got, n = 0, len(view)
+    while got < n:
+        r = sock.recv_into(view[got:])
+        if not r:
+            raise ConnectionError(
+                f"connection closed mid-frame ({got}/{n} bytes)")
+        got += r
+
+
+def recv_exact(sock: socket.socket, n: int) -> bytes:
+    """Read exactly ``n`` bytes (one preallocated buffer)."""
+    buf = bytearray(n)
+    recv_exact_into(sock, memoryview(buf))
+    return bytes(buf)
+
+
+def finish_frame(sock: socket.socket, prefix: bytes,
+                 max_frame: Optional[int] = None,
+                 ) -> tuple[int, int, dict, list]:
+    """Given an already-received prefix, read + verify + decode the rest:
+    ``(kind, total_frame_bytes, header, arrays)`` — the server handler's
+    half of :func:`read_frame` (it polls for the prefix itself so
+    ``close()`` can interrupt it)."""
+    kind, crc, length = parse_prefix(prefix, max_frame)
+    body = bytearray(length)
+    recv_exact_into(sock, memoryview(body))
+    if zlib.crc32(body) != crc:
+        raise ProtocolError("frame checksum mismatch (corrupt or truncated)")
+    header, arrays = _decode_body(body)
+    return kind, PREFIX_SIZE + length, header, arrays
+
+
+def read_frame(sock: socket.socket, max_frame: Optional[int] = None,
+               ) -> tuple[int, dict, list[np.ndarray]]:
+    """Read + verify + decode one frame: ``(kind, header, arrays)``."""
+    prefix = recv_exact(sock, PREFIX_SIZE)
+    kind, _nbytes, header, arrays = finish_frame(sock, prefix, max_frame)
+    return kind, header, arrays
+
+
+def send_frame(sock: socket.socket, kind: int, header: dict,
+               arrays: Sequence = ()) -> int:
+    """Scatter-gather send of one frame; returns bytes written."""
+    buffers, total = _frame_buffers(kind, header, arrays)
+    _sendmsg_all(sock, buffers)
+    return total
+
+
+def _sendmsg_all(sock: socket.socket, buffers: list) -> None:
+    """``sendmsg`` the buffer list fully, re-slicing across partial sends
+    and chunking at ``_IOV_MAX``; falls back to per-buffer ``sendall``
+    where the platform has no ``sendmsg``."""
+    if not hasattr(sock, "sendmsg"):  # pragma: no cover - non-POSIX
+        for b in buffers:
+            sock.sendall(b)
+        return
+    # Zero-length views carry no wire bytes and would spin the advance
+    # loop below; the header's shape entry round-trips an empty tensor.
+    views = [v for v in (_byte_view(b) for b in buffers) if v.nbytes]
+    i = 0
+    while i < len(views):
+        sent = sock.sendmsg(views[i:i + _IOV_MAX])
+        while sent:
+            n = views[i].nbytes
+            if sent >= n:
+                sent -= n
+                i += 1
+            else:
+                views[i] = views[i][sent:]
+                sent = 0
+
+
+def split_endpoint(endpoint: str) -> tuple[str, int]:
+    """``"host:port"`` -> (host, port) with a typed error on malformed input."""
+    host, sep, port = endpoint.rpartition(":")
+    if not sep or not host or not port.isdigit():
+        raise ValueError(
+            f"malformed endpoint {endpoint!r}: expected 'host:port'")
+    return host, int(port)
+
+
+def split_endpoints(endpoints: str) -> list[tuple[str, int]]:
+    """``"host:port[,host:port...]"`` -> ordered (host, port) list — the
+    client-failover form (primary first, then the rest)."""
+    out = [split_endpoint(e.strip())
+           for e in endpoints.split(",") if e.strip()]
+    if not out:
+        raise ValueError(f"no endpoints in {endpoints!r}")
+    return out

@@ -1,0 +1,156 @@
+"""The typed ``DKTPU_*`` environment-variable registry (the port's copy).
+
+Each variable the port reads is declared once as an :class:`EnvVar`
+(name, type, default, doc, category) and read through the typed ``env_*``
+accessors below; this is the only module of the port that touches
+``os.environ``. Names, kinds and defaults are the same as in the JAX
+package's ``runtime/config.py``, so one environment configures both
+packages alike. Only the keys the port reads are declared here; a later
+slice adds its own rows when it ports the code that reads them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvVar:
+    """One declared environment variable: the registry row.
+
+    ``kind`` is the accessor family (``bool``/``int``/``float``/``str``);
+    ``default`` is what an unset or empty variable reads as (``None`` means
+    "no value configured"). ``doc`` is one self-contained sentence.
+    """
+
+    name: str
+    kind: str
+    default: object
+    doc: str
+    # "observability" | "network" | "serving"
+    category: str
+
+
+def _declare(*vars_: EnvVar) -> dict:
+    reg: dict = {}
+    for v in vars_:
+        if v.name in reg:
+            raise ValueError(f"duplicate EnvVar {v.name!r}")
+        reg[v.name] = v
+    return reg
+
+
+ENV_REGISTRY: dict = _declare(
+    EnvVar("DKTPU_TELEMETRY", "bool", True,
+           "Master switch for the telemetry registry; `0` swaps every "
+           "span/counter/gauge/histogram for a no-op singleton.",
+           "observability"),
+    EnvVar("DKTPU_NET_TIMEOUT", "float", 30.0,
+           "Per-attempt RPC deadline (seconds) for every network "
+           "operation: connect, send, and the full reply all fit inside it.",
+           "network"),
+    EnvVar("DKTPU_NET_RETRIES", "int", 5,
+           "Retries after the first attempt for a retryable RPC failure "
+           "(timeout, connection loss, framing error); typed rejections "
+           "never retry.",
+           "network"),
+    EnvVar("DKTPU_NET_BACKOFF", "float", 0.05,
+           "Base of the retry backoff: each retry sleeps a full-jitter "
+           "draw from [0, base * 2^attempt), capped.",
+           "network"),
+    EnvVar("DKTPU_NET_MAX_FRAME", "int", 1 << 30,
+           "Largest wire frame (bytes) either side will accept; oversized "
+           "frames are rejected before any allocation.",
+           "network"),
+    EnvVar("DKTPU_NET_COMPRESS", "str", "none",
+           "Delta codec for commits: `none` (f32), `bf16` (truncate), or "
+           "`int8` (per-tensor scale).",
+           "network"),
+    EnvVar("DKTPU_PS_LEASE", "float", 10.0,
+           "Membership lease (seconds); the endpoint walker's patience "
+           "window for a multi-endpoint list is twice this plus one RPC "
+           "deadline.",
+           "network"),
+    EnvVar("DKTPU_SERVE_MAX_WAIT_MS", "float", 5.0,
+           "Latency budget (milliseconds) the serving micro-batcher waits "
+           "to coalesce concurrent requests into one batch before "
+           "dispatching whatever it holds; 0 = dispatch immediately.",
+           "serving"),
+    EnvVar("DKTPU_SERVE_BUCKETS", "str", "1,4,16,64,256",
+           "Comma-separated ascending batch-size buckets the serving "
+           "frontend pads every micro-batch up to; each bucket's forward "
+           "runs once at warmup, so ragged request batches never meet an "
+           "unseen shape. The largest bucket is also the per-batch row cap.",
+           "serving"),
+    EnvVar("DKTPU_SERVE_QUEUE", "int", 256,
+           "Admission-control bound on rows queued in the serving "
+           "frontend; a request that would overflow it is shed with a "
+           "typed `overloaded` reply BEFORE being accepted.",
+           "serving"),
+    EnvVar("DKTPU_SERVE_DEADLINE_MS", "float", None,
+           "Optional per-request serving deadline (milliseconds, measured "
+           "from admission): a queued request older than this is answered "
+           "with a typed `deadline` reply instead of being computed. "
+           "Unset = no deadline.",
+           "serving"),
+    EnvVar("DKTPU_SERVE_POLL_S", "float", 2.0,
+           "Seconds between ModelRegistry checkpoint-directory polls for "
+           "hot-swap candidates.",
+           "serving"),
+)
+
+_FALSE_STRINGS = frozenset({"0", "false", "no", "off"})
+
+
+def _registered(name: str) -> EnvVar:
+    var = ENV_REGISTRY.get(name)
+    if var is None:
+        raise KeyError(
+            f"{name!r} is not a registered environment variable; declare it "
+            "in distkeras_tpu_torch.runtime.config.ENV_REGISTRY")
+    return var
+
+
+def _entry(name: str, kind: str) -> EnvVar:
+    var = _registered(name)
+    if var.kind != kind:
+        raise TypeError(
+            f"{name} is registered as kind={var.kind!r}; read it with "
+            f"env_{var.kind}()")
+    return var
+
+
+def _raw(name: str) -> str:
+    return os.environ.get(name, "").strip()
+
+
+def env_bool(name: str) -> bool:
+    """Registered boolean: unset/empty reads the declared default; any other
+    value is truthy unless it is one of ``0/false/no/off``."""
+    var = _entry(name, "bool")
+    raw = _raw(name)
+    if not raw:
+        return bool(var.default)
+    return raw.lower() not in _FALSE_STRINGS
+
+
+def env_int(name: str) -> int:
+    var = _entry(name, "int")
+    raw = _raw(name)
+    return int(raw) if raw else int(var.default)
+
+
+def env_float(name: str) -> Optional[float]:
+    """Registered float; a ``None`` default means "unset reads as None"."""
+    var = _entry(name, "float")
+    raw = _raw(name)
+    if raw:
+        return float(raw)
+    return None if var.default is None else float(var.default)
+
+
+def env_str(name: str) -> str:
+    var = _entry(name, "str")
+    return os.environ.get(name, "").strip() or str(var.default)

@@ -1,0 +1,70 @@
+"""The port stands alone: ``distkeras_tpu_torch``, ``chip_smoke.py`` and
+the card's tests import neither JAX nor the JAX package, and the port's
+entry points refuse to fall back to the CPU when no card is there and
+none was asked for."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "distkeras_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distkeras_tpu")
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import distkeras_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print(len([k for k in sys.modules "
+        "if k.startswith('distkeras_tpu_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # every submodule was imported
+
+
+def _imports(path: pathlib.Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_no_source_file_imports_jax_or_the_jax_package():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "test_torch_cuda.py"]
+    assert len(files) > 20
+    for f in files:
+        bad = _imports(f) & set(FORBIDDEN)
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.models import Model
+    from distkeras_tpu_torch.serving import ModelRegistry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = dict(vocab_size=10, embed_dim=4, hidden_size=4, seq_len=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        imdb_lstm(**small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model.build(torch.nn.Linear(2, 2), np.zeros((1, 2), np.float32))
+    model = imdb_lstm(**small, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelRegistry(model, (1, 4))
+    assert model.device.type == "cpu"  # the refused registry moved nothing
