@@ -5,23 +5,33 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``::
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing JSON lines; any failure exits non-zero:
 
 1. ``card`` / ``build`` — the card's name and power limit, then every CUDA
    kernel of the port built from ``distkeras_tpu_torch/csrc/`` into
    ``build/kernels/`` (one ``nvcc`` per source, all started together).
 2. ``kernel`` — each kernel's wrapper against its plain PyTorch version on
-   the same CUDA tensors, at the shapes serving gives it (the IMDB LSTM at
-   full width: T=200, E=64, H=128, f32, batch buckets 1, 16 and 256), with
-   the tolerance stated; the kernel, the plain version and one PyTorch
-   library call of the same function (``torch.nn.LSTM``, a yardstick the
-   port never calls) timed with CUDA events.
-3. ``serve`` — the port's serving path as a user drives it:
-   ``imdb_lstm(device="cuda")`` -> ``ModelRegistry`` -> ``ServingFrontend``
-   -> ``ServeClient.infer`` with ragged and concurrent requests. Every
-   answer is held against the same weights run through the plain path on
-   the CPU; the kernels' launch counts are set to 0 just before and read
-   just after, and must cover every batch served.
+   the same CUDA tensors, at the shapes its path gives it (the IMDB LSTM at
+   full width: T=200, E=64, H=128, f32): the forward at the serving buckets
+   1, 16 and 256; the stash forward at 256 and 2048; the BPTT backward at
+   1, 131 (ragged), 256 and 2048, also against autograd through the plain
+   forward. Each row states its tolerance and carries the kernel's, the
+   plain version's and one PyTorch library call's time (``torch.nn.LSTM``,
+   a yardstick the port never calls), by CUDA events, beside its bound.
+3. ``train`` — the port's training path as a user drives it:
+   ``DynSGD(imdb_lstm(...)).train(imdb(...))`` at config #4's width and
+   batch (4 workers, window 4, batch 2048, 3 rounds, f32). The launch
+   counts are set to 0 just before and read just after: the stash forward
+   and the backward must each have launched once per local step. Then the
+   split of one step's time, and a parity run: the same trainer at full
+   width and batch 32 on the card and on the CPU (the plain twins), from
+   the same weights, whose centers must agree.
+4. ``serve`` — the port's serving path as a user drives it, on the weights
+   ``train`` returned: ``ModelRegistry`` -> ``ServingFrontend`` ->
+   ``ServeClient.infer`` with ragged and concurrent requests. Every answer
+   is held against the same weights run through the plain path on the
+   CPU; the launch counts are set to 0 just before and read just after,
+   and must cover every batch served.
 
 Then the ``kernels`` line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -42,10 +52,29 @@ import numpy as np
 VOCAB, EMBED, HIDDEN, SEQ_LEN = 20000, 64, 128, 200
 BUCKETS = (1, 4, 16, 64, 256)
 KERNEL_BATCHES = (1, 16, 256)
+STASH_BATCHES = (256, 2048)
+BWD_BATCHES = (1, 131, 256, 2048)
+# Config #4's training run (bench.py: DynSGD, batch 2048, window 4, sgd,
+# lr 0.01), cut to 4 workers and 3 rounds.
+TRAIN = dict(num_workers=4, batch_size=2048, communication_window=4,
+             learning_rate=0.01)
+TRAIN_ROUNDS = 3
+PARITY = dict(num_workers=2, batch_size=32, communication_window=2,
+              learning_rate=0.01)
+PARITY_ROUNDS = 2
 
 #: kernel vs plain on hs in (-1, 1): the same f32 arithmetic summed in
-#: another order (192-term gate sums), over a 200-step recurrence.
+#: another order (192-term gate sums), over a 200-step recurrence. The
+#: stash forward's cs and gates carry the same error.
 KERNEL_ATOL = 1e-5
+#: backward vs plain and vs autograd, as a share of each gradient's
+#: largest magnitude: dWx/dWh/db are sums over B*T = up to 409,600 rows and
+#: dx/dh over 512 gate columns, in another order than the plain twin's
+#: matrix products (f32 carries about 7 digits).
+BWD_RTOL = 1e-4
+#: trained center, card vs CPU: 8 SGD steps at lr 0.01 on gradients that
+#: agree to about 1e-6 of their size.
+PARITY_ATOL = 1e-5
 #: served logits vs the plain CPU forward of the same weights: the kernel's
 #: hs error above, carried through the 128-wide head, plus CPU-vs-card
 #: float32 matmul order in the head.
@@ -101,17 +130,55 @@ def lstm_bound_ms(B: int, T: int, E: int, H: int) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def stash_bound_ms(B: int, T: int, E: int, H: int) -> tuple[float, str]:
+    """The stash forward: the forward's reads and FLOPs, and hs, cs and
+    gates written once."""
+    nbytes = 4 * (B * T * E + (E + H + 1) * 4 * H + B * T * (2 * H + 4 * H))
+    flops = 2 * T * B * (E + H) * 4 * H + T * B * 4 * H
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bwd_bound_ms(B: int, T: int, E: int, H: int) -> tuple[float, str]:
+    """The BPTT backward: dhs, x, hs, cs, gates, Wx and Wh read once, dx,
+    dWx, dWh and db written once (the kernel's dpre workspace is its own
+    choice and not counted), against the four products of 2*T*B*(E+H)*4H
+    FLOPs' worth each pair (dx and dh; dWx and dWh) at the f32 rate."""
+    nbytes = 4 * (B * T * (3 * H + E + 4 * H) + 2 * (E + H) * 4 * H
+                  + B * T * E + 4 * H)
+    flops = 4 * T * B * (E + H) * 4 * H
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_lstm(torch, m):
+    """``torch.nn.LSTM`` (cuDNN) loaded with the model's packed weights: the
+    yardstick the kernel rows time, never called by the port."""
+    lib = torch.nn.LSTM(EMBED, HIDDEN, batch_first=True).cuda()
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(m.lstm_wx.detach().t())
+        lib.weight_hh_l0.copy_(m.lstm_wh.detach().t())
+        lib.bias_ih_l0.copy_(m.lstm_b.detach())
+        lib.bias_hh_l0.zero_()
+    return lib
+
+
+def rel_err(torch, got, ref) -> float:
+    """Largest error as a share of the reference's largest magnitude."""
+    return ((got - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-30)).item()
+
+
 def kernel_phase(torch, K, model, rng) -> dict:
     """The LSTM kernel against its plain version at the serving shapes, on
     the served model's own weights and embedded tokens."""
     m = model.module
     wx, wh, b = m.lstm_wx.detach(), m.lstm_wh.detach(), m.lstm_b.detach()
-    lib = torch.nn.LSTM(EMBED, HIDDEN, batch_first=True).cuda()
-    with torch.no_grad():
-        lib.weight_ih_l0.copy_(wx.t())
-        lib.weight_hh_l0.copy_(wh.t())
-        lib.bias_ih_l0.copy_(b)
-        lib.bias_hh_l0.zero_()
+    lib = library_lstm(torch, m)
     rows = []
     with torch.inference_mode():
         for B in KERNEL_BATCHES:
@@ -145,6 +212,260 @@ def kernel_phase(torch, K, model, rng) -> dict:
     return {r["B"]: r for r in rows}
 
 
+def stash_phase(torch, K, model, rng) -> dict:
+    """The stash forward against its plain version on hs, cs and gates, at
+    the training batch and below, on the model's weights and embedded
+    tokens; the library row is ``torch.nn.LSTM``'s forward with a gradient
+    wanted (cuDNN then keeps its own backward workspace)."""
+    m = model.module
+    wx, wh, b = m.lstm_wx.detach(), m.lstm_wh.detach(), m.lstm_b.detach()
+    lib = library_lstm(torch, m)
+    rows = {}
+    for B in STASH_BATCHES:
+        tokens = torch.as_tensor(rng.integers(0, VOCAB, (B, SEQ_LEN)),
+                                 device="cuda")
+        with torch.no_grad():
+            x = m.embed(tokens).contiguous()
+            got = K.lstm_fwd_stash_cuda(wx, wh, b, x)
+            torch.cuda.synchronize()
+            ref = K.lstm_fwd_stash_plain(wx, wh, b, x)
+            err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+            del got, ref
+            ms = cuda_ms(torch, lambda: K.lstm_fwd_stash_cuda(wx, wh, b, x),
+                         10)
+            plain_ms = cuda_ms(
+                torch, lambda: K.lstm_fwd_stash_plain(wx, wh, b, x), 3)
+        xg = x.clone().requires_grad_()
+        library_ms = cuda_ms(torch, lambda: lib(xg), 10)
+        bound, bound_by = stash_bound_ms(B, SEQ_LEN, EMBED, HIDDEN)
+        row = {"phase": "kernel", "name": "lstm_fwd_stash", "B": B,
+               "T": SEQ_LEN, "E": EMBED, "H": HIDDEN, "dtype": "float32",
+               "max_abs_err": err, "atol": KERNEL_ATOL,
+               "compared": "hs, cs, gates vs lstm_fwd_stash_plain",
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound, "bound_by": bound_by}
+        emit(row)
+        if not err <= KERNEL_ATOL:
+            fail(f"lstm_fwd_stash disagrees with lstm_fwd_stash_plain at "
+                 f"B={B}: max abs err {err} > {KERNEL_ATOL}")
+        rows[B] = row
+    return rows
+
+
+def bwd_phase(torch, K, model, rng) -> dict:
+    """The BPTT kernel on the stash forward's residuals and a dense random
+    dhs, held against the plain twin and against autograd through the
+    plain forward, on dx, dWx, dWh and db; the library row is
+    ``torch.nn.LSTM``'s backward alone (``autograd.grad`` on a retained
+    graph)."""
+    m = model.module
+    wx, wh, b = m.lstm_wx.detach(), m.lstm_wh.detach(), m.lstm_b.detach()
+    lib = library_lstm(torch, m)
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    rows = {}
+    for B in BWD_BATCHES:
+        tokens = torch.as_tensor(rng.integers(0, VOCAB, (B, SEQ_LEN)),
+                                 device="cuda")
+        with torch.no_grad():
+            x = m.embed(tokens).contiguous()
+            hs, cs, gates = K.lstm_fwd_stash_cuda(wx, wh, b, x)
+        dhs = torch.randn((B, SEQ_LEN, HIDDEN), device="cuda",
+                          generator=gen) / 10
+        got = K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
+        again = K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
+        torch.cuda.synchronize()
+        plain = K.lstm_bwd_plain(wx, wh, x, hs, cs, gates, dhs)
+        leaves = [t.clone().requires_grad_() for t in (wx, wh, b, x)]
+        # dwx, dwh, db, dx: the leaves' order
+        auto = torch.autograd.grad(
+            (K.lstm_seq_plain(*leaves) * dhs).sum(), leaves)
+        names = ("dwx", "dwh", "db", "dx")
+        rel_plain = {n: rel_err(torch, a, r)
+                     for n, a, r in zip(names, got, plain)}
+        rel_auto = {n: rel_err(torch, a, r)
+                    for n, a, r in zip(names, got, auto)}
+        abs_err = max((a - r).abs().max().item() for a, r in zip(got, plain))
+        repeatable = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        del plain, auto, leaves, again
+        ms = cuda_ms(torch, lambda: K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates,
+                                                    dhs), 10)
+        plain_ms = cuda_ms(torch, lambda: K.lstm_bwd_plain(
+            wx, wh, x, hs, cs, gates, dhs), 3)
+        xg = x.clone().requires_grad_()
+        out = lib(xg)[0]
+        lib_inputs = [xg, *lib.parameters()]
+        library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, lib_inputs, dhs, retain_graph=True), 10)
+        del out
+        bound, bound_by = bwd_bound_ms(B, SEQ_LEN, EMBED, HIDDEN)
+        row = {"phase": "kernel", "name": "lstm_bwd", "B": B, "T": SEQ_LEN,
+               "E": EMBED, "H": HIDDEN, "dtype": "float32",
+               "max_abs_err": abs_err, "rel_err_vs_plain": rel_plain,
+               "rel_err_vs_autograd": rel_auto, "rtol": BWD_RTOL,
+               "repeatable_bits": repeatable,
+               "splits": K.bwd_splits(B * SEQ_LEN),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound, "bound_by": bound_by}
+        emit(row)
+        worst = max(max(rel_plain.values()), max(rel_auto.values()))
+        if not worst <= BWD_RTOL:
+            fail(f"lstm_bwd disagrees at B={B}: relative error {worst} > "
+                 f"{BWD_RTOL} (vs plain {rel_plain}, vs autograd "
+                 f"{rel_auto})")
+        if not repeatable:
+            fail(f"lstm_bwd gave different bits on two calls at B={B}")
+        rows[B] = row
+    return rows
+
+
+def step_split(torch, model, df, steps: int = 3) -> dict:
+    """Milliseconds of one local training step at the training batch, split
+    by CUDA events into the forward (embedding, stash forward kernel,
+    head), the loss, the backward (BPTT kernel, head and embedding
+    gradients) and the optimizer update; the mean of ``steps`` steps after
+    a warm one."""
+    from torch.func import functional_call
+
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import apply_updates, sgd
+
+    B = TRAIN["batch_size"]
+    x = torch.as_tensor(df["features"][:B], device="cuda")
+    y = torch.as_tensor(df["label"][:B], device="cuda")
+    loss_fn = get_loss("sparse_categorical_crossentropy")
+    tx = sgd(TRAIN["learning_rate"])
+    params = model.params
+    opt = tx.init(params)
+    module = model.module
+    module.train()
+    parts = {"forward": 0.0, "loss": 0.0, "backward": 0.0, "update": 0.0}
+    try:
+        for i in range(steps + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            out = functional_call(module, leaves, (x,))
+            ev[1].record()
+            loss = loss_fn(out, y)
+            ev[2].record()
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+            ev[3].record()
+            updates, opt = tx.update(grads, opt, params)
+            params = apply_updates(params, updates)
+            ev[4].record()
+            torch.cuda.synchronize()
+            if i:
+                for j, k in enumerate(parts):
+                    parts[k] += ev[j].elapsed_time(ev[j + 1]) / steps
+    finally:
+        module.eval()
+    parts["step"] = sum(parts.values())
+    return parts
+
+
+def train_phase(torch, K, gpu: str, seed: int):
+    """Train as a user would; returns the trained model and the launch
+    counts of the run."""
+    from distkeras_tpu_torch import imdb_lstm, telemetry
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    W, Kw, B = (TRAIN["num_workers"], TRAIN["communication_window"],
+                TRAIN["batch_size"])
+    df = imdb(n=TRAIN_ROUNDS * W * Kw * B, vocab_size=VOCAB, seq_len=SEQ_LEN,
+              seed=seed)
+    trainer = DynSGD(model, worker_optimizer="sgd",
+                     loss="sparse_categorical_crossentropy", **TRAIN)
+    telemetry.reset()
+    torch.cuda.synchronize()
+    K.reset_launches()  # counts start at 0 just before the main path runs
+    t0 = time.perf_counter()
+    trained = trainer.train(df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    hist = trainer.get_history()
+    steps = TRAIN_ROUNDS * W * Kw
+    moved = max((trained.params[k] - v).abs().max().item()
+                for k, v in model.params.items())
+    split = step_split(torch, trained, df)
+    snap = telemetry.get().snapshot()
+    emit({"phase": "train", "gpu": gpu, "trainer": "DynSGD",
+          "rounds": TRAIN_ROUNDS, **TRAIN, "dtype": "float32",
+          "seconds": wall, "samples_per_s": steps * B / wall,
+          "ms_per_local_step": wall / steps * 1e3,
+          "history": [float(v) for v in hist],
+          "worker_histories": trainer.get_worker_histories().tolist(),
+          "launches": launches, "local_steps": steps,
+          "center_max_abs_change": moved,
+          "input_stall_s": snap["counters"].get("input_stall_seconds"),
+          # per-round wall time: each round ends in the NaN guard's host
+          # read of the [W] losses, so a dispatch span is a whole round.
+          "spans_s": {k: {f: v.get(f) for f in ("count", "total", "min",
+                                                 "max")}
+                      for k, v in snap["spans"].items()
+                      if k.startswith("engine_run")},
+          "step_split_ms": split,
+          "step_split": "one local step at B=2048 by CUDA events, outside "
+                        "the trainer (mean of 3 after a warm step)"})
+    if not np.all(np.isfinite(trainer.get_worker_histories())):
+        fail(f"non-finite training loss: {hist}")
+    if not moved > 0:
+        fail("the trained center equals its initialization")
+    for name in ("lstm_fwd_stash", "lstm_bwd"):
+        if launches[name] < steps:
+            fail(f"{name} launched {launches[name]} times in {steps} local "
+                 f"steps")
+    if launches["lstm_fwd"] != 0:
+        fail(f"training launched the inference forward "
+             f"{launches['lstm_fwd']} times")
+    return trained, launches
+
+
+def parity_phase(torch, seed: int) -> None:
+    """The same trainer, full width at batch 32, once on the card and once
+    on the CPU (the plain twins), from the same weights."""
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    W, Kw, B = (PARITY["num_workers"], PARITY["communication_window"],
+                PARITY["batch_size"])
+    df = imdb(n=PARITY_ROUNDS * W * Kw * B, vocab_size=VOCAB,
+              seq_len=SEQ_LEN, seed=seed + 1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
+                          hidden_size=HIDDEN, seq_len=SEQ_LEN, seed=seed + 1,
+                          device=dev)
+        init = {k: v.detach().cpu().clone() for k, v in model.params.items()}
+        t = DynSGD(model, worker_optimizer="sgd",
+                   loss="sparse_categorical_crossentropy", **PARITY)
+        trained = t.train(df)
+        out[dev] = ({k: v.cpu() for k, v in trained.params.items()},
+                    t.get_worker_histories())
+    center_err = max((out["cuda"][0][k] - v).abs().max().item()
+                     for k, v in out["cpu"][0].items())
+    hist_err = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    # How far training moved the center, beside the tolerance, so a reader
+    # can judge what a gradient fault would have to exceed to be caught.
+    change = max((v - init[k]).abs().max().item()
+                 for k, v in out["cpu"][0].items())
+    emit({"phase": "train_parity", "trainer": "DynSGD", **PARITY,
+          "rounds": PARITY_ROUNDS, "center_max_abs_err_card_vs_cpu":
+              center_err, "center_max_abs_change": change,
+          "history_max_abs_err": hist_err, "atol": PARITY_ATOL})
+    if not change > 0:
+        fail("the parity run's center did not move from its init")
+    if not (center_err <= PARITY_ATOL and hist_err <= PARITY_ATOL):
+        fail(f"card and CPU training disagree: center {center_err}, "
+             f"history {hist_err} > {PARITY_ATOL}")
+
+
 def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
     """Serve through the port's entry points; return the LSTM launches of
     this run."""
@@ -158,7 +479,7 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
     )
 
     telemetry.reset()
-    K.launches = 0  # counts start at 0 just before the main path runs
+    K.reset_launches()  # counts start at 0 just before the main path runs
     registry = ModelRegistry(model, BUCKETS, device="cuda")
     frontend = ServingFrontend(registry).start()
     records, errors = [], []
@@ -207,7 +528,8 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
     finally:
         frontend.close()
         registry.close()
-    launches = K.launches
+    counts = K.launch_counts()
+    launches = counts["lstm_fwd"]
     counters = telemetry.get().snapshot()["counters"]
     batches = int(counters.get("serving.batches", 0))
     retrace = int(counters.get("serving.retrace_after_warmup", 0))
@@ -244,6 +566,8 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
         fail(f"serving.retrace_after_warmup = {retrace}")
     if batches <= 0 or launches < batches:
         fail(f"lstm_fwd launched {launches} times for {batches} batches")
+    if counts["lstm_fwd_stash"] or counts["lstm_bwd"]:
+        fail(f"serving launched training kernels: {counts}")
     return launches
 
 
@@ -271,7 +595,7 @@ def main() -> None:
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
-    libs = build.build(["lstm_fwd"])
+    libs = build.build(["lstm_fwd", "lstm_bwd"])
     ptxas = {k: [ln.strip() for ln in v.with_suffix(".log").read_text()
                  .splitlines() if "Used" in ln or "spill" in ln]
              for k, v in libs.items() if v.with_suffix(".log").exists()}
@@ -283,26 +607,44 @@ def main() -> None:
     rng = np.random.default_rng(args.seed)
     model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
                       seq_len=SEQ_LEN, seed=args.seed, device="cuda")
+    fwd = kernel_phase(torch, K, model, rng)
+    stash = stash_phase(torch, K, model, rng)
+    bwd = bwd_phase(torch, K, model, rng)
+    del model
+    torch.cuda.empty_cache()
+
+    trained, train_launches = train_phase(torch, K, gpu, args.seed)
+    parity_phase(torch, args.seed)
+
     cpu_model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
-                          hidden_size=HIDDEN, seq_len=SEQ_LEN, seed=args.seed,
-                          device="cpu")
+                          hidden_size=HIDDEN, seq_len=SEQ_LEN, device="cpu")
     cpu_model.module.load_state_dict(
-        {k: v.cpu() for k, v in model.module.state_dict().items()})
+        {k: v.cpu() for k, v in trained.module.state_dict().items()})
+    serve_launches = serve_phase(torch, K, trained, cpu_model, rng, gpu)
 
-    by_b = kernel_phase(torch, K, model, rng)
-    launches = serve_phase(torch, K, model, cpu_model, rng, gpu)
+    def entry(name, source, replaces, rows, launches, err_key):
+        top = rows[max(rows)]
+        return {"name": name, "route": "cuda",
+                "source": f"distkeras_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r[err_key] for r in rows.values()),
+                "ms": top["ms"], "plain_ms": top["plain_ms"],
+                "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                "library_ms": top["library_ms"],
+                "shape": f"B={top['B']},T={SEQ_LEN},E={EMBED},H={HIDDEN} "
+                         "float32"}
 
-    top = by_b[max(by_b)]
-    emit({"kernels": [{
-        "name": "lstm_fwd", "route": "cuda",
-        "source": "distkeras_tpu_torch/csrc/lstm_fwd.cu",
-        "replaces": "distkeras_tpu/ops/pallas/lstm.py:189",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in by_b.values()),
-        "ms": top["ms"], "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-        "library_ms": top["library_ms"],
-        "shape": f"B={top['B']},T={SEQ_LEN},E={EMBED},H={HIDDEN} float32"}]})
+    emit({"kernels": [
+        entry("lstm_fwd", "lstm_fwd.cu",
+              "distkeras_tpu/ops/pallas/lstm.py:189", fwd, serve_launches,
+              "max_abs_err"),
+        entry("lstm_fwd_stash", "lstm_fwd.cu",
+              "distkeras_tpu/ops/pallas/lstm.py:189", stash,
+              train_launches["lstm_fwd_stash"], "max_abs_err"),
+        entry("lstm_bwd", "lstm_bwd.cu",
+              "distkeras_tpu/ops/pallas/lstm.py:230", bwd,
+              train_launches["lstm_bwd"], "max_abs_err"),
+    ]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,30 @@ in CUDA C++ (``csrc/``), built with ``nvcc`` at first use. Entry points run
 on the first CUDA device unless the caller passes ``device="cpu"``, and
 raise where there is no card.
 
-Ported so far: serving the IMDB LSTM classifier —
-``imdb_lstm(device="cuda")`` -> ``serving.ModelRegistry`` ->
-``serving.ServingFrontend`` -> ``serving.ServeClient.infer``.
+Ported so far, for the IMDB LSTM classifier:
+
+* training — ``DynSGD(imdb_lstm(device="cuda"), ...).train(imdb(...))``
+  and the other discipline trainers (DOWNPOUR, ADAG, AEASGD, EAMSGD), with
+  the recurrence's forward and BPTT backward in CUDA kernels;
+* serving — ``imdb_lstm(device="cuda")`` -> ``serving.ModelRegistry`` ->
+  ``serving.ServingFrontend`` -> ``serving.ServeClient.infer``.
 """
 
+from distkeras_tpu_torch.data import DataFrame
 from distkeras_tpu_torch.models import LSTMClassifier, Model, imdb_lstm
+from distkeras_tpu_torch.trainers import (
+    ADAG,
+    AEASGD,
+    DOWNPOUR,
+    EAMSGD,
+    AsynchronousDistributedTrainer,
+    DistributedTrainer,
+    DynSGD,
+    Trainer,
+)
 
-__all__ = ["LSTMClassifier", "Model", "imdb_lstm"]
+__all__ = [
+    "ADAG", "AEASGD", "AsynchronousDistributedTrainer", "DOWNPOUR",
+    "DataFrame", "DistributedTrainer", "DynSGD", "EAMSGD", "LSTMClassifier",
+    "Model", "Trainer", "imdb_lstm",
+]

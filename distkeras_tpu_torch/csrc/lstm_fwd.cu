@@ -1,7 +1,9 @@
 // Whole-sequence LSTM forward in one launch, f32, for Hopper (sm_90a).
 //
 // Replaces: distkeras_tpu/ops/pallas/lstm.py:_fwd_kernel (pl.pallas_call in
-// _run_fwd) with stash=False, the inference forward that lstm_seq runs.
+// _run_fwd), both modes: stash=False, the inference forward lstm_seq runs
+// (lstm_fwd_f32), and stash=True, the training forward that also writes the
+// BPTT residuals cs and the activated gates (lstm_fwd_stash_f32).
 // Gate math is flax's OptimizedLSTMCell, gates packed i,f,g,o along 4H:
 //   pre = b + x_t . Wx + h . Wh          [rows, 4H]
 //   c'  = sigmoid(f) * c + sigmoid(i) * tanh(g)
@@ -37,6 +39,13 @@
 // memory, or split over a thread-block cluster) and tensor cores are later
 // work.
 //
+// Stash mode (the STASH template flag): the thread that owns hidden unit k
+// already holds c and the four activated gates in registers, so it also
+// writes cs[b,t,k] and gates[b,t,{0,1,2,3}*H+k] (i,f,g,o). The layout stays
+// batch-major [B,T,.]; csrc/lstm_bwd.cu is the only reader. The extra
+// stores are 5H floats a row a step against hs's H, so the stash call moves
+// about 6x the output bytes of the plain call but does the same FLOPs.
+//
 // Ragged batches: the last block masks rows >= B (no padding copy).
 // Precise expf/tanhf; build without --use_fast_math.
 
@@ -50,13 +59,15 @@ __device__ __forceinline__ float sigmoid_f(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-template <int R>
+template <int R, bool STASH>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_fwd_kernel(const float* __restrict__ x,   // [B, T, E]
                 const float* __restrict__ wx,  // [E, 4H]
                 const float* __restrict__ wh,  // [H, 4H]
                 const float* __restrict__ b,   // [4H]
                 float* __restrict__ hs,        // [B, T, H]
+                float* __restrict__ cs,        // [B, T, H]   (STASH only)
+                float* __restrict__ gates,     // [B, T, 4H]  (STASH only)
                 int B, int T, int E, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
@@ -113,8 +124,17 @@ lstm_fwd_kernel(const float* __restrict__ x,   // [B, T, E]
           const float og = sigmoid_f(g[3 * H + tid]);
           c[r] = fg * c[r] + ig * gg;
           const float h = og * tanhf(c[r]);
+          const size_t bt = (size_t)(row0 + r) * T + t;
           hsm[tid * R + r] = h;
-          hs[((size_t)(row0 + r) * T + t) * H + tid] = h;
+          hs[bt * H + tid] = h;
+          if (STASH) {
+            cs[bt * H + tid] = c[r];
+            float* gt = gates + bt * G;
+            gt[tid] = ig;
+            gt[H + tid] = fg;
+            gt[2 * H + tid] = gg;
+            gt[3 * H + tid] = og;
+          }
         }
       }
     }
@@ -130,21 +150,37 @@ lstm_fwd_kernel(const float* __restrict__ x,   // [B, T, E]
   }
 }
 
-template <int R>
+template <int R, bool STASH>
 int launch(const float* x, const float* wx, const float* wh, const float* b,
-           float* hs, int B, int T, int E, int H, cudaStream_t stream) {
+           float* hs, float* cs, float* gates, int B, int T, int E, int H,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)R * (E + H + 4 * H);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lstm_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lstm_fwd_kernel<R, STASH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int threads = (4 * H + 31) / 32 * 32;
   const int grid = (B + R - 1) / R;
-  lstm_fwd_kernel<R><<<grid, threads, smem, stream>>>(x, wx, wh, b, hs, B, T,
-                                                      E, H);
+  lstm_fwd_kernel<R, STASH><<<grid, threads, smem, stream>>>(
+      x, wx, wh, b, hs, cs, gates, B, T, E, H);
   return (int)cudaGetLastError();
+}
+
+template <bool STASH>
+int dispatch(const float* x, const float* wx, const float* wh, const float* b,
+             float* hs, float* cs, float* gates, int B, int T, int E, int H,
+             void* stream) {
+  if (E <= 0 || H <= 0 || 4 * H > kMaxThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B <= 0 || T <= 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 128) {
+    return launch<1, STASH>(x, wx, wh, b, hs, cs, gates, B, T, E, H, s);
+  }
+  return launch<2, STASH>(x, wx, wh, b, hs, cs, gates, B, T, E, H, s);
 }
 
 }  // namespace
@@ -154,11 +190,15 @@ int launch(const float* x, const float* wx, const float* wh, const float* b,
 extern "C" int lstm_fwd_f32(const float* x, const float* wx, const float* wh,
                             const float* b, float* hs, int B, int T, int E,
                             int H, void* stream) {
-  if (E <= 0 || H <= 0 || 4 * H > kMaxThreads) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (B <= 0 || T <= 0) return (int)cudaSuccess;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 128) return launch<1>(x, wx, wh, b, hs, B, T, E, H, s);
-  return launch<2>(x, wx, wh, b, hs, B, T, E, H, s);
+  return dispatch<false>(x, wx, wh, b, hs, nullptr, nullptr, B, T, E, H,
+                         stream);
+}
+
+// The same, also writing the BPTT residuals: cs[B, T, H] (cell states) and
+// gates[B, T, 4H] (activated i, f, g, o).
+extern "C" int lstm_fwd_stash_f32(const float* x, const float* wx,
+                                  const float* wh, const float* b, float* hs,
+                                  float* cs, float* gates, int B, int T,
+                                  int E, int H, void* stream) {
+  return dispatch<true>(x, wx, wh, b, hs, cs, gates, B, T, E, H, stream);
 }

@@ -4,12 +4,15 @@ A :class:`Model` is a PyTorch module on one device plus what serving needs
 to know about its inputs: ``sample_spec``, the per-input shape and dtype of
 the build-time sample (the serving warmup builds each bucket's zeros from
 it), and the ``normalize_uint8`` flag of the one input-normalization rule
-(:func:`normalize_features`). Parameters live in the module; there is no
-separate parameter tree as in the JAX package.
+(:func:`normalize_features`). Parameters live in the module. What the
+training engine needs is a functional view of them: :attr:`Model.params`
+(named tensors, the counterpart of the JAX ``Model.params`` tree, run
+through ``torch.func.functional_call``) and :meth:`Model.with_params`.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, NamedTuple, Optional, Union
 
@@ -106,3 +109,28 @@ class Model:
         """:meth:`apply` under ``torch.inference_mode()``."""
         with torch.inference_mode():
             return self.apply(*inputs)
+
+    @property
+    def params(self) -> dict:
+        """``{name: tensor}`` of the module's parameters, detached (the
+        tensors share storage with the module; the engine copies them)."""
+        return {k: v.detach() for k, v in self.module.named_parameters()}
+
+    def with_params(self, params: dict) -> "Model":
+        """The same model with ``params`` (a :attr:`params`-shaped dict) in
+        a copy of the module, on this model's device."""
+        module = copy.deepcopy(self.module)
+        own = dict(module.named_parameters())
+        if set(own) != set(params):
+            raise KeyError(f"params {sorted(params)} do not match the "
+                           f"module's {sorted(own)}")
+        with torch.no_grad():
+            for k, p in own.items():
+                p.copy_(params[k])
+        return dataclasses.replace(self, module=module)
+
+    @property
+    def state_collections(self) -> tuple:
+        """Names of the mutable collections: ``("buffers",)`` for a module
+        with buffers (BatchNorm running statistics), ``()`` otherwise."""
+        return ("buffers",) if any(True for _ in self.module.buffers()) else ()

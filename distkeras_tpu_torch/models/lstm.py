@@ -2,7 +2,8 @@
 config #4), counterpart of ``distkeras_tpu/models/lstm.py`` with
 ``cell_impl="pallas"``: embedding, the packed-parameter recurrence of
 ``ops/kernels/lstm.py`` (one CUDA launch for the whole sequence on the
-card), the last hidden state, and a dense head.
+card, forward and backward), the last hidden state, optional dropout in
+train mode, and a dense head.
 
 Parameter names follow the JAX module where it names them itself
 (``lstm_wx``, ``lstm_wh``, ``lstm_b``); the embedding is ``nn.Embedding``
@@ -47,10 +48,12 @@ class LSTMClassifier(nn.Module):
 
     def __init__(self, vocab_size: int = 20000, embed_dim: int = 128,
                  hidden_size: int = 128, num_outputs: int = 2,
-                 seed: int = 0):
+                 dropout_rate: float = 0.0, seed: int = 0):
         super().__init__()
         self.config = dict(vocab_size=vocab_size, embed_dim=embed_dim,
-                           hidden_size=hidden_size, num_outputs=num_outputs)
+                           hidden_size=hidden_size, num_outputs=num_outputs,
+                           dropout_rate=dropout_rate)
+        self.dropout_rate = float(dropout_rate)
         E, H = embed_dim, hidden_size
         g = torch.Generator().manual_seed(seed)
         self.embed = nn.Embedding(vocab_size, E)
@@ -67,19 +70,32 @@ class LSTMClassifier(nn.Module):
     def get_config(self) -> dict:
         return dict(self.config)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """In train mode with ``dropout_rate > 0``, the last hidden state is
+        dropped out (flax's ``nn.Dropout``: keep with probability
+        ``1 - rate``, scale kept units by ``1/(1 - rate)``) with masks drawn
+        from ``rng``, a generator on the module's device (None: torch's
+        default generator). Eval mode never drops."""
         x = self.embed(tokens)                                   # [B, T, E]
         hs = lstm_seq(self.lstm_wx, self.lstm_wh, self.lstm_b, x)
-        return self.head(hs[:, -1, :])                # last hidden state
+        h = hs[:, -1, :]                                  # last hidden state
+        if self.training and self.dropout_rate > 0.0:
+            keep = 1.0 - self.dropout_rate
+            mask = torch.rand(h.shape, generator=rng, device=h.device) < keep
+            h = torch.where(mask, h / keep, torch.zeros_like(h))
+        return self.head(h)
 
 
 def imdb_lstm(vocab_size: int = 20000, embed_dim: int = 128,
               hidden_size: int = 128, seq_len: int = 80, seed: int = 0,
-              device: Optional[Union[str, torch.device]] = None) -> Model:
+              device: Optional[Union[str, torch.device]] = None,
+              dropout_rate: float = 0.0) -> Model:
     """The IMDB classifier on ``device`` (default: the first CUDA device;
-    raises where there is none — pass ``device="cpu"`` for the CPU)."""
+    raises where there is none — pass ``device="cpu"`` for the CPU), in
+    eval mode; the trainers switch it to train mode while they train."""
     module = LSTMClassifier(vocab_size=vocab_size, embed_dim=embed_dim,
                             hidden_size=hidden_size, num_outputs=2,
-                            seed=seed)
+                            dropout_rate=dropout_rate, seed=seed)
     return Model.build(module, np.zeros((1, seq_len), np.int32),
                        device=device)

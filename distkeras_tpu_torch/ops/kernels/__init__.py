@@ -2,5 +2,6 @@
 
 | module | kernel source | replaces |
 |---|---|---|
-| ``lstm`` | ``csrc/lstm_fwd.cu`` | ``distkeras_tpu/ops/pallas/lstm.py:_fwd_kernel`` |
+| ``lstm`` | ``csrc/lstm_fwd.cu`` (plain and stash forward) | ``distkeras_tpu/ops/pallas/lstm.py:_fwd_kernel`` |
+| ``lstm`` | ``csrc/lstm_bwd.cu`` (BPTT backward) | ``distkeras_tpu/ops/pallas/lstm.py:_bwd_kernel`` |
 """

@@ -1,11 +1,24 @@
-"""Whole-sequence LSTM forward: the CUDA kernel, its wrapper and its plain
-PyTorch twin (the port's counterpart of ``distkeras_tpu/ops/pallas/lstm.py``).
+"""Whole-sequence LSTM, forward and BPTT backward: the CUDA kernels, their
+wrappers and their plain PyTorch twins (the port's counterpart of
+``distkeras_tpu/ops/pallas/lstm.py``).
 
 :func:`lstm_seq` takes ``x [B, T, E]`` and the packed ``(Wx [E, 4H],
-Wh [H, 4H], b [4H])`` and returns ``hs [B, T, H]`` with h0 = c0 = 0. On
-CUDA tensors it launches ``csrc/lstm_fwd.cu`` (one launch for all T steps;
-the design note is in that file) or raises; it takes
-:func:`lstm_seq_plain` only for tensors that lie on the CPU.
+Wh [H, 4H], b [4H])`` and returns ``hs [B, T, H]`` with h0 = c0 = 0.
+
+* Without a gradient (``no_grad``, ``inference_mode``, or no input that
+  requires one) it runs the plain forward: ``csrc/lstm_fwd.cu``'s
+  ``lstm_fwd_f32`` on CUDA tensors (one launch for all T steps; the design
+  note is in that file).
+* With one, it goes through :class:`LSTMSeq`, the counterpart of the JAX
+  package's ``custom_vjp``: the stash forward (``lstm_fwd_stash_f32``,
+  which also writes the residuals ``cs`` and ``gates``) and the BPTT
+  backward (``csrc/lstm_bwd.cu``).
+
+Each kernel has a plain twin here (:func:`lstm_seq_plain`,
+:func:`lstm_fwd_stash_plain`, :func:`lstm_bwd_plain`). A wrapper takes its
+twin only for tensors that lie on the CPU; on CUDA tensors it launches its
+kernel or raises. Ragged batches are masked inside the kernels; nothing is
+padded.
 
 Gate math follows flax's ``OptimizedLSTMCell`` exactly (i,f,g,o order,
 ``c' = f*c + i*g``, ``h' = o*tanh(c')``); :func:`pack_lstm_params` turns
@@ -25,37 +38,60 @@ from distkeras_tpu_torch.ops.kernels import build
 
 GATES = ("i", "f", "g", "o")
 
-#: kernel launches so far in this process (one per wrapper call that
-#: launched); a run sets it to 0 and reads it back to show that its path
-#: went through the kernel.
-launches = 0
+#: kernel launches so far in this process, one per wrapper call that
+#: launched, by kernel: ``lstm_fwd`` (``lstm_fwd_f32``), ``lstm_fwd_stash``
+#: (``lstm_fwd_stash_f32``) and ``lstm_bwd`` (``lstm_bwd_f32``). A run sets
+#: them to 0 (:func:`reset_launches`) and reads them back
+#: (:func:`launch_counts`) to show that its path went through the kernels.
+_launches = {"lstm_fwd": 0, "lstm_fwd_stash": 0, "lstm_bwd": 0}
 _COUNT_LOCK = threading.Lock()
 
-_SIG = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C entry point -> (source, argtypes)
+_ENTRIES = {
+    "lstm_fwd_f32": ("lstm_fwd", [_P] * 5 + [_I] * 4 + [_P]),
+    "lstm_fwd_stash_f32": ("lstm_fwd", [_P] * 7 + [_I] * 4 + [_P]),
+    "lstm_bwd_f32": ("lstm_bwd", [_P] * 13 + [_I] * 5 + [_P]),
+}
+_FNS: dict = {}
 
 
-def _kernel():
-    """The ``lstm_fwd_f32`` C entry point, built and typed at first use."""
-    global _SIG
-    if _SIG is None:
-        fn = build.load("lstm_fwd").lstm_fwd_f32
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, p]
+def _kernel(entry: str = "lstm_fwd_f32"):
+    """A C entry point of ``csrc/``, built and typed at first use."""
+    fn = _FNS.get(entry)
+    if fn is None:
+        source, argtypes = _ENTRIES[entry]
+        fn = getattr(build.load(source), entry)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _SIG = fn
-    return _SIG
+        _FNS[entry] = fn
+    return fn
 
 
-def lstm_seq_plain(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
-                   x: torch.Tensor) -> torch.Tensor:
-    """The same function in plain PyTorch: a loop over t. The CPU path of
-    :func:`lstm_seq`, and the reference its kernel is held against."""
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        _launches[name] += 1
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    with _COUNT_LOCK:
+        for name in _launches:
+            _launches[name] = 0
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches}`` for the three LSTM kernels."""
+    with _COUNT_LOCK:
+        return dict(_launches)
+
+
+def _fwd_plain(wx, wh, b, x, stash: bool):
     B, T, _E = x.shape
     H = wh.shape[0]
     h = x.new_zeros(B, H)
     c = x.new_zeros(B, H)
-    out = []
+    hs, cs, gates = [], [], []
     for t in range(T):
         pre = x[:, t] @ wx + h @ wh + b
         i = torch.sigmoid(pre[:, 0 * H:1 * H])
@@ -64,8 +100,61 @@ def lstm_seq_plain(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
         o = torch.sigmoid(pre[:, 3 * H:4 * H])
         c = f * c + i * g
         h = o * torch.tanh(c)
-        out.append(h)
-    return torch.stack(out, dim=1)
+        hs.append(h)
+        if stash:
+            cs.append(c)
+            gates.append(torch.cat([i, f, g, o], dim=1))
+    if not stash:
+        return torch.stack(hs, dim=1)
+    return (torch.stack(hs, dim=1), torch.stack(cs, dim=1),
+            torch.stack(gates, dim=1))
+
+
+def lstm_seq_plain(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """The same function in plain PyTorch: a loop over t. The CPU path of
+    :func:`lstm_seq`, and the reference its kernel is held against."""
+    return _fwd_plain(wx, wh, b, x, stash=False)
+
+
+def lstm_fwd_stash_plain(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
+                         x: torch.Tensor) -> tuple:
+    """The stash forward in plain PyTorch: ``hs, cs [B, T, H]`` and
+    ``gates [B, T, 4H]``, the activated i, f, g, o concatenated along 4H
+    (the JAX kernel's ``stash=True`` outputs, batch-major)."""
+    return _fwd_plain(wx, wh, b, x, stash=True)
+
+
+def lstm_bwd_plain(wx: torch.Tensor, wh: torch.Tensor, x: torch.Tensor,
+                   hs: torch.Tensor, cs: torch.Tensor, gates: torch.Tensor,
+                   dhs: torch.Tensor) -> tuple:
+    """BPTT through :func:`lstm_fwd_stash_plain`'s residuals in plain
+    PyTorch, the reverse-time math of the JAX package's ``_bwd_kernel``:
+    returns ``dwx [E, 4H], dwh [H, 4H], db [4H], dx [B, T, E]``."""
+    B, T, E = x.shape
+    H = wh.shape[0]
+    dh = x.new_zeros(B, H)
+    dc = x.new_zeros(B, H)
+    dpres, dxs = [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        i, f, g, o = gates[:, t].split(H, dim=1)
+        c_t = cs[:, t]
+        c_prev = cs[:, t - 1] if t > 0 else torch.zeros_like(c_t)
+        dh = dh + dhs[:, t]
+        tanh_c = torch.tanh(c_t)
+        do = dh * tanh_c
+        dc = dh * o * (1.0 - tanh_c * tanh_c) + dc
+        dpre = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                          dc * i * (1.0 - g * g), do * o * (1.0 - o)], dim=1)
+        dc = dc * f
+        dxs[t] = dpre @ wx.t()
+        dh = dpre @ wh.t()
+        dpres[t] = dpre
+    dpre = torch.stack(dpres, dim=1).reshape(B * T, 4 * H)
+    h_prev = torch.cat([hs.new_zeros(B, 1, H), hs[:, :-1]], dim=1)
+    dwx = x.reshape(B * T, E).t() @ dpre
+    dwh = h_prev.reshape(B * T, H).t() @ dpre
+    return dwx, dwh, dpre.sum(dim=0), torch.stack(dxs, dim=1)
 
 
 def _check(wx, wh, b, x) -> None:
@@ -81,54 +170,154 @@ def _check(wx, wh, b, x) -> None:
             f"{tuple(wh.shape)}, b {tuple(b.shape)}")
 
 
+def _check_cuda(tensors, what: str) -> None:
+    """The kernels take f32, contiguous tensors on one CUDA device, and
+    4H <= 512 (``tensors[1]`` is Wh [H, 4H]); anything else raises (nothing
+    falls back to the plain path)."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{what} needs all of its tensors on one CUDA device (or all on "
+            f"the CPU); got {[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(
+            f"the CUDA LSTM kernels take float32 only; {what} got "
+            f"{[str(t.dtype) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"the CUDA LSTM kernels need contiguous tensors "
+                         f"({what})")
+    H = tensors[1].shape[0]
+    if 4 * H > 512:
+        raise ValueError(
+            f"the CUDA LSTM kernels take 4H <= 512 (one thread per gate "
+            f"column), got H={H}")
+
+
+def _launch(entry: str, *args) -> None:
+    dev = args[0].device
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _kernel(entry)(*ptrs, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+
+
+def lstm_fwd_cuda(wx, wh, b, x) -> torch.Tensor:
+    """``lstm_fwd_f32``: hs of the forward on the card."""
+    _check_cuda((x, wh, wx, b), "lstm_fwd")
+    B, T, E = x.shape
+    H = wh.shape[0]
+    hs = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
+    _launch("lstm_fwd_f32", x, wx, wh, b, hs, B, T, E, H)
+    _count("lstm_fwd")
+    return hs
+
+
+def lstm_fwd_stash_cuda(wx, wh, b, x) -> tuple:
+    """``lstm_fwd_stash_f32``: ``hs, cs, gates`` of the forward on the card
+    (the same outputs as :func:`lstm_fwd_stash_plain`)."""
+    _check_cuda((x, wh, wx, b), "lstm_fwd_stash")
+    B, T, E = x.shape
+    H = wh.shape[0]
+    hs = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
+    cs = torch.empty_like(hs)
+    gates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
+    _launch("lstm_fwd_stash_f32", x, wx, wh, b, hs, cs, gates, B, T, E, H)
+    _count("lstm_fwd_stash")
+    return hs, cs, gates
+
+
+#: reduction chunks of the weight-gradient kernel: enough 64x64 output
+#: tiles times chunks to fill the card's 132 SMs several times over, each
+#: chunk at least 256 rows of the B*T reduction.
+_MAX_SPLITS = 64
+
+
+def bwd_splits(rows: int) -> int:
+    """Chunks the B*T rows of the weight-gradient reduction are cut into."""
+    return max(1, min(_MAX_SPLITS, rows // 256))
+
+
+def lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs) -> tuple:
+    """``lstm_bwd_f32``: ``dwx, dwh, db, dx`` on the card (the same outputs
+    as :func:`lstm_bwd_plain`). Allocates the kernel's scratch: the dpre
+    workspace [B, T, 4H] and the weight-gradient partials."""
+    _check_cuda((x, wh, wx, hs, cs, gates, dhs), "lstm_bwd")
+    B, T, E = x.shape
+    H = wh.shape[0]
+    if (tuple(hs.shape) != (B, T, H) or tuple(cs.shape) != (B, T, H)
+            or tuple(dhs.shape) != (B, T, H)
+            or tuple(gates.shape) != (B, T, 4 * H)):
+        raise ValueError(
+            f"lstm_bwd residuals must be hs, cs, dhs [B, T, H] and gates "
+            f"[B, T, 4H] for x {tuple(x.shape)}; got hs {tuple(hs.shape)}, cs "
+            f"{tuple(cs.shape)}, dhs {tuple(dhs.shape)}, gates "
+            f"{tuple(gates.shape)}")
+    dev = x.device
+    splits = bwd_splits(B * T)
+    wxt = wx.t().contiguous()          # layout copies: coalesced reads
+    wht = wh.t().contiguous()
+    dx = torch.empty_like(x)
+    dwx = torch.empty_like(wx)
+    dwh = torch.empty_like(wh)
+    db = torch.empty((4 * H,), dtype=torch.float32, device=dev)
+    dpre = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
+    partial = torch.empty((splits, E + H + 1, 4 * H), dtype=torch.float32,
+                          device=dev)
+    _launch("lstm_bwd_f32", dhs, x, hs, cs, gates, wxt, wht, dx, dwx, dwh, db,
+            dpre, partial, B, T, E, H, splits)
+    _count("lstm_bwd")
+    return dwx, dwh, db, dx
+
+
+def _on_cpu(tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+class LSTMSeq(torch.autograd.Function):
+    """The differentiable whole-sequence LSTM (the counterpart of the JAX
+    package's ``custom_vjp`` around ``_lstm_tbe``): the stash forward saves
+    ``(wx, wh, x, hs, cs, gates)``; ``backward`` runs BPTT and returns
+    ``dwx, dwh, db, dx``. CUDA tensors go to the kernels, CPU tensors to the
+    plain twins, so the CPU tests exercise the same wiring."""
+
+    @staticmethod
+    def forward(ctx, wx, wh, b, x):
+        if _on_cpu((wx, wh, b, x)):
+            hs, cs, gates = lstm_fwd_stash_plain(wx, wh, b, x)
+        else:
+            hs, cs, gates = lstm_fwd_stash_cuda(wx, wh, b, x)
+        ctx.save_for_backward(wx, wh, x, hs, cs, gates)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        wx, wh, x, hs, cs, gates = ctx.saved_tensors
+        # The head reads hs[:, -1] only, so dhs is mostly zeros; autograd
+        # may hand it over in any layout. Make it the kernel's.
+        dhs = dhs.contiguous()
+        if _on_cpu((wx, wh, x, hs, cs, gates, dhs)):
+            return lstm_bwd_plain(wx, wh, x, hs, cs, gates, dhs)
+        return lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
+
+
 def lstm_seq(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
     """Full-sequence LSTM: ``x [B, T, E] -> hs [B, T, H]`` (h0 = c0 = 0).
 
-    CPU tensors take the plain path. CUDA tensors must be float32,
-    contiguous and on one device; anything else raises, and so does a
-    failed build or launch. The CUDA path is inference-only: the BPTT
-    backward kernel is not ported yet, so a call that would need a
-    gradient raises instead of returning a result autograd cannot
-    differentiate."""
-    global launches
+    Differentiable: when autograd needs a gradient of any input, the call
+    goes through :class:`LSTMSeq` (stash forward, BPTT backward). Otherwise
+    it runs the forward alone. CPU tensors take the plain twins. CUDA
+    tensors must be float32, contiguous and on one device; anything else
+    raises, and so does a failed build or launch."""
     tensors = (wx, wh, b, x)
     _check(*tensors)
-    if all(t.device.type == "cpu" for t in tensors):
-        return lstm_seq_plain(wx, wh, b, x)
-    dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(
-            "lstm_seq needs all of Wx, Wh, b, x on one CUDA device (or all "
-            f"on the CPU); got {[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(
-            "the CUDA LSTM kernel takes float32 only; got "
-            f"{[str(t.dtype) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the CUDA LSTM kernel needs contiguous tensors")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the CUDA LSTM path is forward-only (the BPTT backward kernel "
-            "is not ported yet); call it under torch.inference_mode() or "
-            "torch.no_grad()")
-    B, T, E = x.shape
-    H = wh.shape[0]
-    if 4 * H > 512:
-        raise ValueError(
-            f"the CUDA LSTM kernel takes 4H <= 512 (one thread per gate "
-            f"column), got H={H}")
-    hs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(x.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
-                hs.data_ptr(), B, T, E, H, stream)
-    if rc != 0:
-        raise RuntimeError(f"lstm_fwd_f32 launch failed: cudaError {rc}")
-    with _COUNT_LOCK:
-        launches += 1
-    return hs
+        return LSTMSeq.apply(wx, wh, b, x)
+    if _on_cpu(tensors):
+        return lstm_seq_plain(wx, wh, b, x)
+    return lstm_fwd_cuda(wx, wh, b, x)
 
 
 def pack_lstm_params(cell_params) -> tuple:

@@ -1,0 +1,201 @@
+"""The async-discipline engine: K local steps per worker + one fold per
+round (the port's counterpart of ``distkeras_tpu/parallel/engine.py``
+``AsyncEngine``)::
+
+    round(center, locals, opt_state, batch[W, K, B, ...]):
+        per worker: K minibatch steps              (workers.py)
+        fold: the commits, summed in worker order  (disciplines.py)
+
+State (:class:`EngineState`):
+
+* ``center``    — the parameter server's center variable, a dict of tensors;
+* ``locals_``   — ``[W]`` per-worker params (pull-based disciplines hand
+  every worker the center at each fold; elastic ones keep their own);
+* ``opt_state`` — ``[W]`` per-worker optimizer states (each reference worker
+  compiled its own optimizer);
+* ``fold_state`` and ``rng``: the discipline's round state and an int seed.
+
+All W logical workers are multiplexed on the model's one device, one after
+the other, as the JAX package's ``_multiplexed`` round runs the workers a
+chip carries; the all-reduce over chips (multi-card NCCL) is a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from distkeras_tpu_torch import telemetry
+from distkeras_tpu_torch.data.batching import BatchPlan
+from distkeras_tpu_torch.data.prefetch import RoundFeeder
+from distkeras_tpu_torch.ops.losses import get_loss
+from distkeras_tpu_torch.ops.optimizers import get_optimizer
+from distkeras_tpu_torch.parallel.disciplines import Discipline
+from distkeras_tpu_torch.resilience.guard import nan_guard_enabled, note_losses
+from distkeras_tpu_torch.runtime import config
+from distkeras_tpu_torch.workers import derive_seed, make_local_loop
+
+
+class EngineState(NamedTuple):
+    center: Any
+    locals_: list
+    opt_state: list
+    fold_state: Any
+    rng: int
+
+
+class AsyncEngine:
+    """Runs a :class:`Discipline` over ``num_workers`` logical workers on
+    the model's device."""
+
+    def __init__(
+        self,
+        model,
+        optimizer,
+        loss,
+        discipline: Discipline,
+        window: int,
+        num_workers: int = 1,
+        learning_rate: float = 0.01,
+        compute_dtype=None,
+        seed: int = 0,
+        per_worker_init: bool = False,
+        grad_accum: int = 1,
+        device_transform=None,
+        nan_guard: Optional[bool] = None,
+        divergence_reset: Optional[float] = None,
+    ):
+        if per_worker_init:
+            raise NotImplementedError(
+                "per_worker_init (per-replica re-initialization, the "
+                "Ensemble trainer's) is not ported yet")
+        if (divergence_reset is not None
+                or config.env_float("DKTPU_DIVERGENCE_RESET") is not None):
+            raise NotImplementedError(
+                "divergence_reset (DKTPU_DIVERGENCE_RESET) is not ported "
+                "yet; the divergent-worker reset comes with the resilience "
+                "slice")
+        if int(num_workers) < 1:
+            raise ValueError(f"num_workers must be >= 1, got {num_workers}")
+        self.model = model
+        self.discipline = discipline
+        self.window = int(window)
+        self.num_workers = int(num_workers)
+        self.seed = seed
+        #: NaN/Inf round skip: when any worker's round loss is non-finite
+        #: the round keeps the previous state (one host read of the [W]
+        #: loss vector per round). Default from DKTPU_NAN_GUARD.
+        self.nan_guard = (nan_guard_enabled() if nan_guard is None
+                          else bool(nan_guard))
+        self.tx = get_optimizer(optimizer, learning_rate)
+        self.loss_fn = get_loss(loss)
+        self._local_loop = make_local_loop(
+            model.module, self.loss_fn, self.tx, compute_dtype=compute_dtype,
+            state_collections=model.state_collections, grad_accum=grad_accum,
+            input_transform=device_transform,
+            normalize_uint8=getattr(model, "normalize_uint8", True),
+        )
+
+    def init_state(self) -> EngineState:
+        """Every worker starts from a copy of the model's parameters, with
+        a fresh optimizer state."""
+        center = {k: v.clone() for k, v in self.model.params.items()}
+        W = self.num_workers
+        return EngineState(
+            center=center,
+            locals_=[center] * W,
+            opt_state=[self.tx.init(center) for _ in range(W)],
+            fold_state=self.discipline.init_state(center),
+            rng=int(self.seed),
+        )
+
+    def _round_fn(self, state: EngineState, xs: torch.Tensor,
+                  ys: torch.Tensor):
+        """One fold round on ``[W, K, B, ...]`` batches: returns the new
+        state and the ``[W]`` per-worker window-mean losses."""
+        disc = self.discipline
+        new_locals, new_opts, losses = [], [], []
+        for w in range(self.num_workers):
+            start = state.center if disc.pulls_center else state.locals_[w]
+            params, opt, _, step_losses = self._local_loop(
+                start, state.opt_state[w], xs[w], ys[w],
+                rng=derive_seed(state.rng, w))
+            new_locals.append(params)
+            new_opts.append(opt)
+            losses.append(step_losses.mean())
+        loss = torch.stack(losses)
+        next_rng = derive_seed(state.rng)
+        if self.nan_guard and not bool(torch.isfinite(loss).all()):
+            # One worker's non-finite commit would poison the center for
+            # every worker: the whole round is discarded, the previous state
+            # carries forward, and the loss keeps the NaN for accounting.
+            return state._replace(rng=next_rng), loss
+        fold = disc.fold(state.center, new_locals, state.fold_state,
+                         window=self.window, num_workers=self.num_workers)
+        return EngineState(fold.center, fold.locals_, new_opts,
+                           fold.fold_state, next_rng), loss
+
+    def _put_batch(self, xs: np.ndarray, ys: np.ndarray):
+        dev = self.model.device
+        return torch.as_tensor(xs).to(dev), torch.as_tensor(ys).to(dev)
+
+    def run(
+        self,
+        plan: BatchPlan,
+        state: Optional[EngineState] = None,
+        start_round: int = 0,
+        on_round: Optional[Callable] = None,
+        rounds_per_program: "int | str" = 1,
+    ):
+        """Execute fold rounds ``start_round..num_rounds``; returns
+        ``(state, losses)`` with ``losses`` a ``[rounds, W]`` numpy array,
+        one loss curve per worker. ``on_round(r, loss, state)`` fires after
+        each round.
+
+        ``rounds_per_program`` (an int >= 1 or ``"auto"``, checked by the
+        trainer that takes it from the user) is accepted as in the JAX
+        package and, as there, does not change the result. It has nothing
+        to block here: eager PyTorch compiles no program, so every round is
+        one host iteration whatever its value."""
+        if plan.num_workers != self.num_workers:
+            raise ValueError(
+                f"plan built for {plan.num_workers} workers, the engine has "
+                f"{self.num_workers}")
+        if state is None:
+            state = self.init_state()
+        with telemetry.get().span("engine_run"):
+            state, losses = run_per_round(self, plan, state, start_round,
+                                          on_round)
+        note_losses(losses)
+        return state, losses
+
+
+def run_per_round(engine, plan, state, start_round, on_round):
+    """One round per host iteration, with the next rounds' batches gathered
+    and copied to the device by a :class:`RoundFeeder`. Returns ``(state,
+    losses)``, ``losses`` the ``[rounds, W]`` host array."""
+    tele = telemetry.get()
+    losses = []
+    feeder = RoundFeeder(plan.num_rounds,
+                         lambda r: engine._put_batch(*plan.round(r)),
+                         start_round=start_round)
+    try:
+        for r, (xs, ys) in feeder:
+            with tele.span("dispatch[per-round]"):
+                state, loss = engine._round_fn(state, xs, ys)
+            losses.append(loss)
+            if on_round is not None:
+                on_round(r, loss, state)
+    finally:
+        feeder.close()
+        # input_stall: the time the run loop sat blocked on the data plane,
+        # the compute-vs-data split.
+        stall = tele.histogram("input_stall")
+        for w in feeder.waits:
+            stall.observe(w)
+        tele.counter("input_stall_seconds").add(float(feeder.wait_seconds))
+    host = (torch.stack(losses).cpu().numpy() if losses
+            else np.zeros((0, engine.num_workers), np.float32))
+    return state, host

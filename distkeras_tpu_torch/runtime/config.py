@@ -1,4 +1,9 @@
-"""The typed ``DKTPU_*`` environment-variable registry (the port's copy).
+"""Run-level configuration and the typed ``DKTPU_*`` environment-variable
+registry (the port's copy of ``distkeras_tpu/runtime/config.py``).
+
+:class:`RunConfig` is the frozen dataclass the trainers normalize their
+hyperparameter kwargs into; its ``dtype`` maps ``compute_dtype`` to a torch
+dtype.
 
 Each variable the port reads is declared once as an :class:`EnvVar`
 (name, type, default, doc, category) and read through the typed ``env_*``
@@ -15,6 +20,31 @@ import dataclasses
 import os
 from typing import Optional
 
+import torch
+
+_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    batch_size: int = 32
+    num_epoch: int = 1
+    communication_window: int = 5
+    learning_rate: float = 0.01
+    num_workers: Optional[int] = None  # None -> one worker per device
+    compute_dtype: Optional[str] = None  # params and master state stay f32
+    seed: int = 0
+    shuffle: bool = False
+    drop_remainder: bool = True
+
+    @property
+    def dtype(self) -> Optional[torch.dtype]:
+        return _DTYPES[self.compute_dtype]
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class EnvVar:
@@ -29,7 +59,7 @@ class EnvVar:
     kind: str
     default: object
     doc: str
-    # "observability" | "network" | "serving"
+    # "observability" | "resilience" | "network" | "serving"
     category: str
 
 
@@ -47,6 +77,27 @@ ENV_REGISTRY: dict = _declare(
            "Master switch for the telemetry registry; `0` swaps every "
            "span/counter/gauge/histogram for a no-op singleton.",
            "observability"),
+    EnvVar("DKTPU_NAN_GUARD", "bool", True,
+           "On-device NaN/Inf round skip in the engine round bodies; `0` "
+           "disables (poisoned rounds then propagate into the center).",
+           "resilience"),
+    EnvVar("DKTPU_FEEDER_WARN", "float", 1.0,
+           "Seconds of input-pipeline silence before the first stall "
+           "warning; later warnings back off exponentially (2x, 4x, ...).",
+           "resilience"),
+    EnvVar("DKTPU_FEEDER_TIMEOUT", "float", 300.0,
+           "Seconds of input-pipeline silence after which the RoundFeeder "
+           "declares the data plane dead with `FeederStalledError`.",
+           "resilience"),
+    EnvVar("DKTPU_FEEDER_RETRIES", "int", 0,
+           "Retries (exponential backoff) for a *failed* feeder stage call "
+           "before the error propagates; 0 = off.",
+           "resilience"),
+    EnvVar("DKTPU_DIVERGENCE_RESET", "float", None,
+           "Divergent-worker reset threshold: a worker whose round loss "
+           "strays further than this from the worker mean re-adopts the "
+           "center. Unset = off.",
+           "resilience"),
     EnvVar("DKTPU_NET_TIMEOUT", "float", 30.0,
            "Per-attempt RPC deadline (seconds) for every network "
            "operation: connect, send, and the full reply all fit inside it.",
@@ -67,6 +118,13 @@ ENV_REGISTRY: dict = _declare(
     EnvVar("DKTPU_NET_COMPRESS", "str", "none",
            "Delta codec for commits: `none` (f32), `bf16` (truncate), or "
            "`int8` (per-tensor scale).",
+           "network"),
+    EnvVar("DKTPU_PS_ENDPOINT", "str", "",
+           "Endpoint(s) of a running netps parameter server: `host:port`, "
+           "or a comma-separated `primary:port,standby:port` list the "
+           "client walks on failure/`not_primary` (failover); async "
+           "trainers use it when `remote=` is not passed explicitly "
+           "(`Job` sets it for every launched worker).",
            "network"),
     EnvVar("DKTPU_PS_LEASE", "float", 10.0,
            "Membership lease (seconds); the endpoint walker's patience "

@@ -65,9 +65,9 @@ def test_pack_lstm_params_matches_jax():
 def test_cpu_wrapper_leaves_launches_unchanged():
     x, _cell, _vars, cell_np = _setup(SHAPES[0])
     wx, wh, b = K.pack_lstm_params(cell_np)
-    before = K.launches
+    before = K.launch_counts()["lstm_fwd"]
     K.lstm_seq(wx, wh, b, torch.from_numpy(x))
-    assert K.launches == before
+    assert K.launch_counts()["lstm_fwd"] == before
 
 
 def test_wrapper_raises_on_bad_inputs():
