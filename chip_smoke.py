@@ -9,7 +9,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. ``card`` / ``build`` — the card's name and power limit, then every CUDA
    kernel of the port built from ``distkeras_tpu_torch/csrc/`` into
-   ``build/kernels/`` (one ``nvcc`` per source, all started together).
+   ``build/kernels/`` (one ``nvcc`` per source, all started together):
+   ``lstm_fwd.cu``, ``lstm_bwd.cu`` and ``groupnorm.cu``.
 2. ``kernel`` — each kernel's wrapper against its plain PyTorch version on
    the same CUDA tensors, at the shapes its path gives it (the IMDB LSTM at
    full width: T=200, E=64, H=128, f32): the forward at the serving buckets
@@ -32,6 +33,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
    is held against the same weights run through the plain path on the
    CPU; the launch counts are set to 0 just before and read just after,
    and must cover every batch served.
+
+5. ``gn_kernel`` — the GroupNorm kernels against their plain twins at
+   every distinct ResNet-50 slab at B=128 (with the ReLU flag the model
+   uses there): forward and backward errors, two backward calls' bits,
+   kernel, plain and ``F.group_norm`` (+ReLU, forward and autograd
+   backward; a yardstick the port never calls) times by CUDA events,
+   beside the bound (bytes over 3.35 TB/s).
+6. ``resnet_train`` — BASELINE config #5 as a user drives it:
+   ``SynchronousDistributedTrainer(resnet50(norm_impl="pallas"))`` at
+   224x224, 1000 classes, batch 128, ``steps_per_program=2``, 3 rounds, f32
+   (random images as ``bench.py`` makes them). The launch counts are set to
+   0 just before and read just after: every local step must launch each
+   GroupNorm kernel 53 times. Then the split of one step by CUDA events
+   (forward and its GroupNorm share, backward and its GroupNorm share,
+   update), and a parity run (``resnet_parity``): the same trainer at full
+   width, batch 2, 2 steps, on the card and on the CPU (the plain twins),
+   from the same weights.
 
 Then the ``kernels`` line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -79,6 +97,44 @@ PARITY_ATOL = 1e-5
 #: hs error above, carried through the 128-wide head, plus CPU-vs-card
 #: float32 matmul order in the head.
 SERVE_ATOL = 1e-4
+
+# ResNet-50 (BASELINE config #5, bench.py: "sync", batch 128, window 2,
+# sgd, lr 0.01, 224x224x3, 1000 classes), f32, cut to 3 rounds.
+RESNET = dict(batch_size=128, steps_per_program=2, num_workers=1,
+              learning_rate=0.01)
+RESNET_ROUNDS = 3
+RESNET_PARITY = dict(batch_size=2, steps_per_program=2, num_workers=1,
+                     learning_rate=0.01)
+#: every distinct GroupNorm slab of ResNet-50 at 224x224: (N = H*W, C,
+#: fused ReLU, GroupNorms of that slab in one forward). 53 in all: the
+#: stem, three in each of the 16 blocks, one residual projection a stage.
+GN_SLABS = ((112 * 112, 64, True, 1), (56 * 56, 64, True, 6),
+            (56 * 56, 256, False, 4), (56 * 56, 128, True, 1),
+            (28 * 28, 128, True, 7), (28 * 28, 512, False, 5),
+            (28 * 28, 256, True, 1), (14 * 14, 256, True, 11),
+            (14 * 14, 1024, False, 7), (14 * 14, 512, True, 1),
+            (7 * 7, 512, True, 5), (7 * 7, 2048, False, 4))
+GN_PER_STEP = sum(n for *_, n in GN_SLABS)
+GN_GROUPS = 32
+#: GroupNorm forward vs the plain twin on unit-normal x: f32 statistics
+#: over up to 25,088 elements a group summed in another order, outputs
+#: of a few units.
+GN_ATOL = 1e-5
+#: GroupNorm backward vs the plain twin, as a share of each gradient's
+#: largest magnitude: dgamma and dbeta are sums over B*N = up to 1.6 M
+#: rows, in another order.
+GN_BWD_RTOL = 1e-4
+#: ResNet-50 at its random init, batch 2, in f32 is ill-conditioned: ReLU
+#: inputs within rounding of 0 flip with the summation order, and on the
+#: CPU the f32 gradients of one step differ from the f64 ones by 2.5 % of
+#: their size with either GroupNorm impl. So the card's trained center is
+#: held to a float64 CPU run from the same weights and data: its error may
+#: be at most this many times the CPU f32 run's error (a wrong gradient
+#: strays by a share of the whole update, which is printed beside it).
+RESNET_PARITY_FACTOR = 4.0
+#: the round loss, card vs CPU, as a share of itself: the forward alone,
+#: 53 normalized layers of f32 convolutions summed in another order.
+RESNET_LOSS_RTOL = 1e-4
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
 #: float32 outside the tensor cores.
@@ -318,29 +374,48 @@ def bwd_phase(torch, K, model, rng) -> dict:
     return rows
 
 
-def step_split(torch, model, df, steps: int = 3) -> dict:
-    """Milliseconds of one local training step at the training batch, split
-    by CUDA events into the forward (embedding, stash forward kernel,
-    head), the loss, the backward (BPTT kernel, head and embedding
-    gradients) and the optimizer update; the mean of ``steps`` steps after
-    a warm one."""
+def step_split(torch, model, x, y, lr: float, steps: int = 3,
+               gn=None) -> dict:
+    """Milliseconds of one local training step on ``x, y``, split by CUDA
+    events into the forward, the loss, the backward and the sgd update;
+    the mean of ``steps`` steps after a warm one. With ``gn`` (the
+    GroupNorm kernel module) it also sums CUDA events around every
+    GroupNorm kernel call inside the forward and the backward
+    (``gn_forward``, ``gn_backward``)."""
     from torch.func import functional_call
 
     from distkeras_tpu_torch.ops.losses import get_loss
     from distkeras_tpu_torch.ops.optimizers import apply_updates, sgd
 
-    B = TRAIN["batch_size"]
-    x = torch.as_tensor(df["features"][:B], device="cuda")
-    y = torch.as_tensor(df["label"][:B], device="cuda")
     loss_fn = get_loss("sparse_categorical_crossentropy")
-    tx = sgd(TRAIN["learning_rate"])
+    tx = sgd(lr)
     params = model.params
     opt = tx.init(params)
     module = model.module
+    spans = {"gn_forward": [], "gn_backward": []}
+    patched = {}
+    if gn is not None:
+        def timed(fn, key):
+            def call(*args):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = fn(*args)
+                ev[1].record()
+                spans[key].append(ev)
+                return out
+            return call
+
+        patched = {"group_norm_fwd_cuda": gn.group_norm_fwd_cuda,
+                   "group_norm_bwd_cuda": gn.group_norm_bwd_cuda}
+        gn.group_norm_fwd_cuda = timed(gn.group_norm_fwd_cuda, "gn_forward")
+        gn.group_norm_bwd_cuda = timed(gn.group_norm_bwd_cuda, "gn_backward")
     module.train()
     parts = {"forward": 0.0, "loss": 0.0, "backward": 0.0, "update": 0.0}
+    gn_ms = {k: 0.0 for k in spans}
     try:
         for i in range(steps + 1):
+            for v in spans.values():
+                v.clear()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
             ev[0].record()
             leaves = {k: v.detach().requires_grad_(True)
@@ -359,9 +434,16 @@ def step_split(torch, model, df, steps: int = 3) -> dict:
             if i:
                 for j, k in enumerate(parts):
                     parts[k] += ev[j].elapsed_time(ev[j + 1]) / steps
+                for k, v in spans.items():
+                    gn_ms[k] += sum(a.elapsed_time(b) for a, b in v) / steps
     finally:
         module.eval()
+        for name, fn in patched.items():
+            setattr(gn, name, fn)
     parts["step"] = sum(parts.values())
+    if gn is not None:
+        parts.update(gn_ms)
+        parts["gn_calls"] = {k: len(v) for k, v in spans.items()}
     return parts
 
 
@@ -392,7 +474,10 @@ def train_phase(torch, K, gpu: str, seed: int):
     steps = TRAIN_ROUNDS * W * Kw
     moved = max((trained.params[k] - v).abs().max().item()
                 for k, v in model.params.items())
-    split = step_split(torch, trained, df)
+    split = step_split(torch, trained,
+                       torch.as_tensor(df["features"][:B], device="cuda"),
+                       torch.as_tensor(df["label"][:B], device="cuda"),
+                       TRAIN["learning_rate"])
     snap = telemetry.get().snapshot()
     emit({"phase": "train", "gpu": gpu, "trainer": "DynSGD",
           "rounds": TRAIN_ROUNDS, **TRAIN, "dtype": "float32",
@@ -571,6 +656,246 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
     return launches
 
 
+def gn_bound_ms(B: int, N: int, C: int, backward: bool) -> tuple:
+    """Least time for one GroupNorm on this card: the forward reads x and
+    writes y, the backward reads x and dy and writes dx (gamma, beta,
+    dgamma and dbeta, 4 C floats, included), over 3.35 TB/s. A dozen FLOPs
+    an element at 67 TFLOP/s is under a tenth of that."""
+    nbytes = 4 * ((3 if backward else 2) * B * N * C + 4 * C)
+    flops = (12 if backward else 6) * B * N * C
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def relu_margin(torch, G, x, dy, gamma, beta, margin: float = 1e-3):
+    """``dy`` with zeros where the pre-ReLU output lies within ``margin``
+    of 0. The kernel and the plain twin compute the statistics in another
+    order, so an element that close to the ReLU's edge may be masked by
+    one and not the other; among 10^8 elements some are, and one such
+    element moves dx by about |inv * dy * gamma|. With dy zero there, both
+    masks give the same gradient, and the comparison holds the kernel to
+    its arithmetic everywhere else."""
+    pre = G.group_norm_fwd_plain(x, gamma, beta, GN_GROUPS, False)
+    return torch.where(pre.abs() > margin, dy, torch.zeros_like(dy))
+
+
+def gn_kernel_phase(torch, G, seed: int) -> list:
+    """The GroupNorm kernels against their plain twins at every ResNet-50
+    slab at B=128, with ``F.group_norm`` (+ReLU) on an NCHW copy of the
+    same input as the library yardstick."""
+    import torch.nn.functional as F
+
+    B = RESNET["batch_size"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for N, C, relu, per_step in GN_SLABS:
+        x, dy = (torch.randn((B, N, C), device="cuda", generator=gen)
+                 for _ in range(2))
+        gamma, beta = (torch.randn(C, device="cuda", generator=gen)
+                       for _ in range(2))
+        args = (gamma, beta, GN_GROUPS, relu)
+        if relu:
+            dy = relu_margin(torch, G, x, dy, gamma, beta)
+        y = G.group_norm_fwd_cuda(x, *args)
+        got = G.group_norm_bwd_cuda(x, dy, *args)
+        again = G.group_norm_bwd_cuda(x, dy, *args)
+        torch.cuda.synchronize()
+        fwd_err = (y - G.group_norm_fwd_plain(x, *args)).abs().max().item()
+        plain = G.group_norm_bwd_plain(x, dy, *args)
+        bwd_rel = {n: rel_err(torch, a, r) for n, a, r in
+                   zip(("dx", "dgamma", "dbeta"), got, plain)}
+        bwd_abs = max((a - r).abs().max().item() for a, r in zip(got, plain))
+        repeatable = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        del y, got, again, plain
+        ms = cuda_ms(torch, lambda: G.group_norm_fwd_cuda(x, *args), 10)
+        bwd_ms = cuda_ms(torch, lambda: G.group_norm_bwd_cuda(x, dy, *args),
+                         10)
+        plain_ms = cuda_ms(torch, lambda: G.group_norm_fwd_plain(x, *args),
+                           3)
+        plain_bwd_ms = cuda_ms(
+            torch, lambda: G.group_norm_bwd_plain(x, dy, *args), 3)
+        xc = x.transpose(1, 2).contiguous().requires_grad_()  # [B, C, N]
+        dyc = dy.transpose(1, 2).contiguous()
+        lib_leaves = [xc, gamma.clone().requires_grad_(),
+                      beta.clone().requires_grad_()]
+
+        def lib_fwd():
+            out = F.group_norm(xc, GN_GROUPS, lib_leaves[1], lib_leaves[2],
+                               G.EPS)
+            return F.relu(out) if relu else out
+
+        with torch.no_grad():
+            library_ms = cuda_ms(torch, lib_fwd, 10)
+        out = lib_fwd()
+        library_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, lib_leaves, dyc, retain_graph=True), 10)
+        del out, xc, dyc, lib_leaves
+        bound, bound_by = gn_bound_ms(B, N, C, backward=False)
+        bwd_bound, bwd_bound_by = gn_bound_ms(B, N, C, backward=True)
+        row = {"phase": "gn_kernel", "B": B, "N": N, "C": C,
+               "groups": GN_GROUPS, "relu": relu, "per_step": per_step,
+               "dtype": "float32",
+               "fwd_max_abs_err": fwd_err, "atol": GN_ATOL,
+               "bwd_max_abs_err": bwd_abs, "bwd_rel_err": bwd_rel,
+               "rtol": GN_BWD_RTOL, "repeatable_bits": repeatable,
+               "rows_per_chunk": G.rows_per_chunk(N, C),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound, "bound_by": bound_by,
+               "bwd_ms": bwd_ms, "bwd_plain_ms": plain_bwd_ms,
+               "bwd_library_ms": library_bwd_ms, "bwd_bound_ms": bwd_bound,
+               "bwd_bound_by": bwd_bound_by}
+        emit(row)
+        if not fwd_err <= GN_ATOL:
+            fail(f"group_norm_fwd disagrees with its plain twin at N={N}, "
+                 f"C={C}: max abs err {fwd_err} > {GN_ATOL}")
+        if not max(bwd_rel.values()) <= GN_BWD_RTOL:
+            fail(f"group_norm_bwd disagrees with its plain twin at N={N}, "
+                 f"C={C}: relative errors {bwd_rel} > {GN_BWD_RTOL}")
+        if not repeatable:
+            fail(f"group_norm_bwd gave different bits on two calls at N={N}, "
+                 f"C={C}")
+        rows.append(row)
+        del x, dy
+        torch.cuda.empty_cache()
+    return rows
+
+
+def resnet_data(n: int, seed: int):
+    """Random 224x224x3 f32 images in [0, 1) and labels in [0, 1000), as
+    ``bench.py`` makes them for config #5."""
+    from distkeras_tpu_torch.data import DataFrame
+
+    rng = np.random.default_rng(seed)
+    x = rng.random(size=(n, 224, 224, 3), dtype=np.float32)
+    y = rng.integers(0, 1000, size=n).astype(np.int32)
+    return DataFrame({"features": x, "label": y})
+
+
+def resnet_train_phase(torch, G, gpu: str, seed: int) -> dict:
+    """Train config #5 as a user would; returns the launch counts."""
+    from distkeras_tpu_torch import SynchronousDistributedTrainer, resnet50
+    from distkeras_tpu_torch import telemetry
+
+    B, Kw = RESNET["batch_size"], RESNET["steps_per_program"]
+    steps = RESNET_ROUNDS * Kw
+    t0 = time.perf_counter()
+    model = resnet50(norm_impl="pallas", seed=seed, device="cuda")
+    df = resnet_data(steps * B, seed)
+    setup_s = time.perf_counter() - t0
+    trainer = SynchronousDistributedTrainer(
+        model, "sgd", "sparse_categorical_crossentropy", **RESNET)
+    telemetry.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    G.reset_launches()  # counts start at 0 just before the main path runs
+    t0 = time.perf_counter()
+    trained = trainer.train(df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = G.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.get_history()
+    moved = max((trained.params[k] - v).abs().max().item()
+                for k, v in model.params.items())
+    snap = telemetry.get().snapshot()
+    split = step_split(torch, trained,
+                       torch.as_tensor(df["features"][:B], device="cuda"),
+                       torch.as_tensor(df["label"][:B], device="cuda"),
+                       RESNET["learning_rate"], gn=G)
+    emit({"phase": "resnet_train", "gpu": gpu,
+          "trainer": "SynchronousDistributedTrainer",
+          "model": "resnet50(norm_impl='pallas')", "image": [224, 224, 3],
+          "classes": 1000, "rounds": RESNET_ROUNDS, **RESNET,
+          "dtype": "float32", "setup_s": setup_s, "seconds": wall,
+          "samples_per_s": steps * B / wall,
+          "ms_per_local_step": wall / steps * 1e3,
+          "history": [float(v) for v in hist],
+          "worker_histories": trainer.get_worker_histories(),
+          "launches": launches, "local_steps": steps,
+          "gn_per_step": GN_PER_STEP, "center_max_abs_change": moved,
+          "peak_memory_gb": peak / 1e9,
+          "input_stall_s": snap["counters"].get("input_stall_seconds"),
+          "spans_s": {k: {f: v.get(f) for f in ("count", "total", "min",
+                                                 "max")}
+                      for k, v in snap["spans"].items()
+                      if k.startswith("engine_run")},
+          "step_split_ms": split,
+          "step_split": "one local step at B=128 by CUDA events, outside "
+                        "the trainer (mean of 3 after a warm step); "
+                        "gn_forward/gn_backward: events around each "
+                        "GroupNorm kernel call"})
+    if not np.all(np.isfinite(hist)):
+        fail(f"non-finite ResNet-50 training loss: {hist}")
+    if not moved > 0:
+        fail("the trained ResNet-50 equals its initialization")
+    want = GN_PER_STEP * steps
+    if launches != {"group_norm_fwd": want, "group_norm_bwd": want}:
+        fail(f"GroupNorm launches {launches} in {steps} local steps; "
+             f"want {GN_PER_STEP} of each a step ({want})")
+    if split["gn_calls"] != {"gn_forward": GN_PER_STEP,
+                             "gn_backward": GN_PER_STEP}:
+        fail(f"the step split timed {split['gn_calls']} GroupNorm calls")
+    return launches
+
+
+def resnet_parity_phase(torch, seed: int) -> None:
+    """The same trainer at full width, batch 2, 2 steps, from the same
+    weights: on the card, on the CPU (the plain twins), and on the CPU in
+    float64 as the reference both f32 runs are measured against."""
+    from distkeras_tpu_torch import SynchronousDistributedTrainer, resnet50
+    from distkeras_tpu_torch.data import DataFrame
+
+    n = RESNET_PARITY["batch_size"] * RESNET_PARITY["steps_per_program"]
+    df = resnet_data(n, seed + 1)
+    df64 = DataFrame({"features": df["features"].astype(np.float64),
+                      "label": df["label"]})
+    out = {}
+    for run, dev, frame in (("cuda", "cuda", df), ("cpu", "cpu", df),
+                            ("cpu_f64", "cpu", df64)):
+        model = resnet50(norm_impl="pallas", seed=seed + 1, device=dev)
+        if run == "cpu_f64":
+            model.module.double()
+        init = {k: v.detach().cpu().double()
+                for k, v in model.params.items()}
+        t = SynchronousDistributedTrainer(
+            model, "sgd", "sparse_categorical_crossentropy", **RESNET_PARITY)
+        trained = t.train(frame)
+        out[run] = ({k: v.cpu().double() for k, v in trained.params.items()},
+                    t.get_history())
+
+    def center_err(a, b):
+        return max((out[a][0][k] - v).abs().max().item()
+                   for k, v in out[b][0].items())
+
+    card_vs_cpu = center_err("cuda", "cpu")
+    card_vs_f64 = center_err("cuda", "cpu_f64")
+    cpu_vs_f64 = center_err("cpu", "cpu_f64")
+    loss_rel = float(np.abs(out["cuda"][1] - out["cpu"][1]).max()
+                     / np.abs(out["cpu"][1]).max())
+    change = max((v - init[k]).abs().max().item()
+                 for k, v in out["cpu_f64"][0].items())
+    limit = RESNET_PARITY_FACTOR * cpu_vs_f64
+    emit({"phase": "resnet_parity", "trainer": "SynchronousDistributedTrainer",
+          "model": "resnet50(norm_impl='pallas')", **RESNET_PARITY,
+          "rounds": 1, "center_max_abs_err_card_vs_cpu": card_vs_cpu,
+          "center_max_abs_err_card_vs_cpu_f64": card_vs_f64,
+          "center_max_abs_err_cpu_vs_cpu_f64": cpu_vs_f64,
+          "center_max_abs_change": change, "limit_card_vs_cpu_f64": limit,
+          "history_card": [float(v) for v in out["cuda"][1]],
+          "history_cpu": [float(v) for v in out["cpu"][1]],
+          "history_cpu_f64": [float(v) for v in out["cpu_f64"][1]],
+          "history_rel_err": loss_rel, "loss_rtol": RESNET_LOSS_RTOL})
+    if not change > 0:
+        fail("the ResNet-50 parity run's center did not move from its init")
+    if not (0 < cpu_vs_f64 and card_vs_f64 <= limit
+            and loss_rel <= RESNET_LOSS_RTOL):
+        fail(f"ResNet-50 card training strays from the f64 reference: "
+             f"{card_vs_f64} > {RESNET_PARITY_FACTOR} x the CPU f32 run's "
+             f"{cpu_vs_f64}, or loss {loss_rel} > {RESNET_LOSS_RTOL}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -583,6 +908,7 @@ def main() -> None:
         fail("no CUDA device is available")
     try:
         from distkeras_tpu_torch.ops.kernels import build
+        from distkeras_tpu_torch.ops.kernels import groupnorm as G
         from distkeras_tpu_torch.ops.kernels import lstm as K
         from distkeras_tpu_torch import imdb_lstm
     except ImportError as e:
@@ -595,7 +921,7 @@ def main() -> None:
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
-    libs = build.build(["lstm_fwd", "lstm_bwd"])
+    libs = build.build(["lstm_fwd", "lstm_bwd", "groupnorm"])
     ptxas = {k: [ln.strip() for ln in v.with_suffix(".log").read_text()
                  .splitlines() if "Used" in ln or "spill" in ln]
              for k, v in libs.items() if v.with_suffix(".log").exists()}
@@ -621,6 +947,12 @@ def main() -> None:
     cpu_model.module.load_state_dict(
         {k: v.cpu() for k, v in trained.module.state_dict().items()})
     serve_launches = serve_phase(torch, K, trained, cpu_model, rng, gpu)
+    del trained, cpu_model
+    torch.cuda.empty_cache()
+
+    gn_rows = gn_kernel_phase(torch, G, args.seed)
+    gn_launches = resnet_train_phase(torch, G, gpu, args.seed)
+    resnet_parity_phase(torch, args.seed)
 
     def entry(name, source, replaces, rows, launches, err_key):
         top = rows[max(rows)]
@@ -634,6 +966,32 @@ def main() -> None:
                 "shape": f"B={top['B']},T={SEQ_LEN},E={EMBED},H={HIDDEN} "
                          "float32"}
 
+    def gn_entry(name, key, bwd):
+        """The largest slab's row (the stem's, 112x112x64), and the sum
+        over one step's 53 GroupNorms of the per-slab times and bounds."""
+        top = gn_rows[0]
+        pre = "bwd_" if bwd else ""
+        err_key = "bwd_max_abs_err" if bwd else "fwd_max_abs_err"
+
+        def step_sum(k):
+            return sum(r[k] * r["per_step"] for r in gn_rows)
+
+        return {"name": name, "route": "cuda",
+                "source": "distkeras_tpu_torch/csrc/groupnorm.cu",
+                "replaces": f"distkeras_tpu/ops/pallas/groupnorm.py:{key}",
+                "launches": gn_launches[name],
+                "max_abs_err": max(r[err_key] for r in gn_rows),
+                "ms": top[f"{pre}ms"], "plain_ms": top[f"{pre}plain_ms"],
+                "bound_ms": top[f"{pre}bound_ms"],
+                "bound_by": top[f"{pre}bound_by"],
+                "library_ms": top[f"{pre}library_ms"],
+                "shape": f"B={top['B']},N={top['N']},C={top['C']},"
+                         f"G={GN_GROUPS},relu={top['relu']} float32",
+                "step_ms": step_sum(f"{pre}ms"),
+                "step_plain_ms": step_sum(f"{pre}plain_ms"),
+                "step_library_ms": step_sum(f"{pre}library_ms"),
+                "step_bound_ms": step_sum(f"{pre}bound_ms")}
+
     emit({"kernels": [
         entry("lstm_fwd", "lstm_fwd.cu",
               "distkeras_tpu/ops/pallas/lstm.py:189", fwd, serve_launches,
@@ -644,6 +1002,8 @@ def main() -> None:
         entry("lstm_bwd", "lstm_bwd.cu",
               "distkeras_tpu/ops/pallas/lstm.py:230", bwd,
               train_launches["lstm_bwd"], "max_abs_err"),
+        gn_entry("group_norm_fwd", 239, bwd=False),
+        gn_entry("group_norm_bwd", 262, bwd=True),
     ]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,17 +8,29 @@ in CUDA C++ (``csrc/``), built with ``nvcc`` at first use. Entry points run
 on the first CUDA device unless the caller passes ``device="cpu"``, and
 raise where there is no card.
 
-Ported so far, for the IMDB LSTM classifier:
+Ported so far:
 
-* training — ``DynSGD(imdb_lstm(device="cuda"), ...).train(imdb(...))``
-  and the other discipline trainers (DOWNPOUR, ADAG, AEASGD, EAMSGD), with
-  the recurrence's forward and BPTT backward in CUDA kernels;
-* serving — ``imdb_lstm(device="cuda")`` -> ``serving.ModelRegistry`` ->
-  ``serving.ServingFrontend`` -> ``serving.ServeClient.infer``.
+* the IMDB LSTM classifier, trained with
+  ``DynSGD(imdb_lstm(device="cuda"), ...).train(imdb(...))`` and the other
+  discipline trainers (DOWNPOUR, ADAG, AEASGD, EAMSGD), with the
+  recurrence's forward and BPTT backward in CUDA kernels, and served with
+  ``imdb_lstm(device="cuda")`` -> ``serving.ModelRegistry`` ->
+  ``serving.ServingFrontend`` -> ``serving.ServeClient.infer``;
+* ResNet with GroupNorm, trained with
+  ``SynchronousDistributedTrainer(resnet50(norm_impl="pallas"), ...)
+  .train(df)`` (or ``SingleTrainer``), with every GroupNorm's forward and
+  backward in CUDA kernels.
 """
 
 from distkeras_tpu_torch.data import DataFrame
-from distkeras_tpu_torch.models import LSTMClassifier, Model, imdb_lstm
+from distkeras_tpu_torch.models import (
+    LSTMClassifier,
+    Model,
+    ResNet,
+    imdb_lstm,
+    resnet50,
+    tiny_resnet,
+)
 from distkeras_tpu_torch.trainers import (
     ADAG,
     AEASGD,
@@ -27,11 +39,14 @@ from distkeras_tpu_torch.trainers import (
     AsynchronousDistributedTrainer,
     DistributedTrainer,
     DynSGD,
+    SingleTrainer,
+    SynchronousDistributedTrainer,
     Trainer,
 )
 
 __all__ = [
     "ADAG", "AEASGD", "AsynchronousDistributedTrainer", "DOWNPOUR",
     "DataFrame", "DistributedTrainer", "DynSGD", "EAMSGD", "LSTMClassifier",
-    "Model", "Trainer", "imdb_lstm",
+    "Model", "ResNet", "SingleTrainer", "SynchronousDistributedTrainer",
+    "Trainer", "imdb_lstm", "resnet50", "tiny_resnet",
 ]

@@ -10,7 +10,11 @@ the port module's ``state_dict``:
   ``lstm_wh``, ``lstm_b``) go across as they are;
 * a per-gate ``OptimizedLSTMCell`` tree (``cell_impl="xla"``) is packed
   through :func:`~distkeras_tpu_torch.ops.kernels.lstm.pack_lstm_params`
-  first, so both JAX layouts serve through the same port module.
+  first, so both JAX layouts serve through the same port module;
+* a ResNet's ``Conv_k/kernel`` ``[kh, kw, in, out]`` (flax's HWIO) becomes
+  ``Conv_k.weight`` ``[out, in, kh, kw]`` (OIHW), ``GN_k/scale`` and
+  ``GN_k/bias`` go across as they are, and the ``stage{i}_block{j}``
+  subtrees keep their names.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 
 from distkeras_tpu_torch.models.lstm import LSTMClassifier
+from distkeras_tpu_torch.models.resnet import ResNet
 from distkeras_tpu_torch.ops.kernels.lstm import pack_lstm_params
 
 
@@ -27,23 +32,47 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _dense(prefix: str, dense: dict) -> dict:
+    return {f"{prefix}weight": _t(dense["kernel"]).t().contiguous(),
+            f"{prefix}bias": _t(dense["bias"])}
+
+
 def _lstm_classifier(tree: dict) -> dict:
     if "lstm_wx" in tree:
         wx, wh, b = (_t(tree[k]) for k in ("lstm_wx", "lstm_wh", "lstm_b"))
     else:
         wx, wh, b = pack_lstm_params(tree["OptimizedLSTMCell_0"])
-    dense = tree["Dense_0"]
     return {
         "embed.weight": _t(tree["Embed_0"]["embedding"]),
         "lstm_wx": wx,
         "lstm_wh": wh,
         "lstm_b": b,
-        "head.weight": _t(dense["kernel"]).t().contiguous(),
-        "head.bias": _t(dense["bias"]),
+        **_dense("head.", tree["Dense_0"]),
     }
 
 
-_CONVERTERS = {LSTMClassifier: _lstm_classifier}
+def _resnet(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for name, sub in tree.items():
+        if name.startswith("Conv_"):
+            out[f"{prefix}{name}.weight"] = _t(sub["kernel"]).permute(
+                3, 2, 0, 1)
+        elif name.startswith("GN_"):
+            out[f"{prefix}{name}.scale"] = _t(sub["scale"])
+            out[f"{prefix}{name}.bias"] = _t(sub["bias"])
+        elif name.startswith("Dense_"):
+            out.update(_dense(f"{prefix}{name}.", sub))
+        elif name.startswith("stage"):
+            out.update(_resnet(sub, f"{prefix}{name}."))
+        else:
+            raise KeyError(
+                f"unknown ResNet module {prefix}{name} (a legacy "
+                f"BottleneckBlock_n/GroupNorm_k tree needs "
+                f"models.resnet.remap_legacy_params first)")
+    return out
+
+
+_CONVERTERS = {LSTMClassifier: _lstm_classifier, ResNet: _resnet}
 
 
 def params_from_jax(tree: dict, module: nn.Module) -> dict:

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the :class:`Model` wrapper and the IMDB LSTM
-classifier. The other models come with their slices."""
+"""Model zoo of the port: the :class:`Model` wrapper, the IMDB LSTM
+classifier and the GroupNorm ResNet. The other models come with their
+slices."""
 
 from distkeras_tpu_torch.models.base import (
     MODEL_CLASSES,
@@ -9,8 +10,10 @@ from distkeras_tpu_torch.models.base import (
     register_model,
 )
 from distkeras_tpu_torch.models.lstm import LSTMClassifier, imdb_lstm
+from distkeras_tpu_torch.models.resnet import ResNet, resnet50, tiny_resnet
 
 __all__ = [
     "MODEL_CLASSES", "Model", "TensorSpec", "normalize_features",
-    "register_model", "LSTMClassifier", "imdb_lstm",
+    "register_model", "LSTMClassifier", "imdb_lstm", "ResNet", "resnet50",
+    "tiny_resnet",
 ]

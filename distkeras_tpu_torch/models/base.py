@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Any, NamedTuple, Optional, Union
 
 import numpy as np
@@ -30,6 +31,24 @@ def register_model(cls: type) -> type:
     """Class decorator: make ``cls`` reconstructible by name."""
     MODEL_CLASSES[cls.__name__] = cls
     return cls
+
+
+#: stddev of a unit normal truncated to [-2, 2] (flax's variance-scaling
+#: "normal" divides by it so the truncated draw keeps the target variance).
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal(shape: tuple, fan_in: int,
+                 generator: torch.Generator) -> torch.Tensor:
+    """Truncated-normal draw with variance ``1/fan_in`` (flax's
+    ``lecun_normal``, the default kernel init of ``Dense`` and ``Conv``,
+    and its default embedding init)."""
+    z = torch.randn(shape, generator=generator)
+    bad = z.abs() > 2.0
+    while bad.any():
+        z[bad] = torch.randn(int(bad.sum()), generator=generator)
+        bad = z.abs() > 2.0
+    return z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
 
 
 class TensorSpec(NamedTuple):

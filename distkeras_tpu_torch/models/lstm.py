@@ -13,32 +13,18 @@ package's parameter trees (packed or per-gate) onto this module.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from distkeras_tpu_torch.models.base import Model, register_model
+from distkeras_tpu_torch.models.base import (
+    Model,
+    lecun_normal,
+    register_model,
+)
 from distkeras_tpu_torch.ops.kernels.lstm import lstm_seq, orthogonal_gates
-
-#: stddev of a unit normal truncated to [-2, 2] (flax's variance-scaling
-#: "normal" divides by it so the truncated draw keeps the target variance).
-_TRUNC_STD = 0.87962566103423978
-
-
-def _lecun_normal(shape: tuple, fan_in: int,
-                  generator: torch.Generator) -> torch.Tensor:
-    """Truncated-normal draw with variance ``1/fan_in`` (flax's
-    ``lecun_normal`` and its default embedding init)."""
-    z = torch.randn(shape, generator=generator)
-    bad = z.abs() > 2.0
-    while bad.any():
-        z[bad] = torch.randn(int(bad.sum()), generator=generator)
-        bad = z.abs() > 2.0
-    return z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
-
 
 @register_model
 class LSTMClassifier(nn.Module):
@@ -57,14 +43,14 @@ class LSTMClassifier(nn.Module):
         E, H = embed_dim, hidden_size
         g = torch.Generator().manual_seed(seed)
         self.embed = nn.Embedding(vocab_size, E)
-        self.lstm_wx = nn.Parameter(_lecun_normal((E, 4 * H), E, g))
+        self.lstm_wx = nn.Parameter(lecun_normal((E, 4 * H), E, g))
         self.lstm_wh = nn.Parameter(orthogonal_gates(H, g))
         self.lstm_b = nn.Parameter(torch.zeros(4 * H))
         self.head = nn.Linear(H, num_outputs)
         with torch.no_grad():
-            self.embed.weight.copy_(_lecun_normal((vocab_size, E), E, g))
+            self.embed.weight.copy_(lecun_normal((vocab_size, E), E, g))
             self.head.weight.copy_(
-                _lecun_normal((H, num_outputs), H, g).t())
+                lecun_normal((H, num_outputs), H, g).t())
             self.head.bias.zero_()
 
     def get_config(self) -> dict:

@@ -4,4 +4,6 @@
 |---|---|---|
 | ``lstm`` | ``csrc/lstm_fwd.cu`` (plain and stash forward) | ``distkeras_tpu/ops/pallas/lstm.py:_fwd_kernel`` |
 | ``lstm`` | ``csrc/lstm_bwd.cu`` (BPTT backward) | ``distkeras_tpu/ops/pallas/lstm.py:_bwd_kernel`` |
+| ``groupnorm`` | ``csrc/groupnorm.cu`` (``group_norm_fwd_f32``) | ``distkeras_tpu/ops/pallas/groupnorm.py:_fwd_kernel`` |
+| ``groupnorm`` | ``csrc/groupnorm.cu`` (``group_norm_bwd_f32``) | ``distkeras_tpu/ops/pallas/groupnorm.py:_bwd_kernel`` |
 """

@@ -5,7 +5,9 @@ is compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` beside the
 package (a directory git ignores), then loaded with ``ctypes``. The library
 file name carries a digest of its source, so an edited source is rebuilt
 and a stale library is never loaded. :func:`build` starts one ``nvcc`` per
-source, all at once, and waits for all of them.
+source, all at once, and waits for all of them. :class:`KernelLib` binds a
+kernel module's C entry points, launches them on PyTorch's current stream
+and counts the launches.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine class has no ``nvcc``.
@@ -22,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Iterable
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -92,3 +96,86 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
         return lib
+
+
+#: ctypes argument types of the C entry points: a pointer (a tensor's
+#: ``data_ptr()`` or the stream) and an ``int``.
+PTR, INT = ctypes.c_void_p, ctypes.c_int
+
+
+class KernelLib:
+    """The C entry points of one kernel module, and its launch counts.
+
+    ``entries`` maps each C entry point to ``(source, argtypes)``, the
+    arguments before the trailing stream; each is built, loaded and typed at
+    first use. ``counted`` names the kernels whose launches the module
+    counts: a wrapper calls :meth:`count` once where it launches its
+    kernel, and a run sets the counts to 0 (:meth:`reset`) and reads them
+    back (:meth:`counts`) to show that its path went through the kernels."""
+
+    def __init__(self, entries: dict, counted: Iterable[str]):
+        self._entries = entries
+        self._fns: dict = {}
+        self._launches = dict.fromkeys(counted, 0)
+        self._lock = threading.Lock()
+
+    def _fn(self, entry: str):
+        fn = self._fns.get(entry)
+        if fn is None:
+            source, argtypes = self._entries[entry]
+            fn = getattr(load(source), entry)
+            fn.argtypes = [*argtypes, PTR]
+            fn.restype = ctypes.c_int
+            self._fns[entry] = fn
+        return fn
+
+    def launch(self, entry: str, *args) -> None:
+        """Call ``entry`` on the current stream of the first tensor's
+        device: tensors pass their ``data_ptr()``, ints as they are. Raises
+        if the C function returns a CUDA error (a refused launch)."""
+        dev = args[0].device
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = self._fn(entry)(*ptrs, stream)
+        if rc != 0:
+            raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+
+    def count(self, name: str) -> None:
+        with self._lock:
+            self._launches[name] += 1
+
+    def reset(self) -> None:
+        """Set every kernel's launch count to 0."""
+        with self._lock:
+            for name in self._launches:
+                self._launches[name] = 0
+
+    def counts(self) -> dict:
+        """``{kernel name: launches}``."""
+        with self._lock:
+            return dict(self._launches)
+
+
+def on_cpu(tensors) -> bool:
+    """True when every tensor lies on the CPU: the wrappers' one rule for
+    taking a kernel's plain twin."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def check_cuda_f32(tensors, what: str, family: str) -> None:
+    """The kernels take f32, contiguous tensors on one CUDA device;
+    anything else raises (nothing falls back to the plain path)."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{what} needs all of its tensors on one CUDA device (or all on "
+            f"the CPU); got {[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(
+            f"the CUDA {family} kernels take float32 only; {what} got "
+            f"{[str(t.dtype) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"the CUDA {family} kernels need contiguous tensors "
+                         f"({what})")

@@ -28,9 +28,6 @@ JAX package's LSTM layouts serve through this one function.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import numpy as np
 import torch
 
@@ -38,52 +35,26 @@ from distkeras_tpu_torch.ops.kernels import build
 
 GATES = ("i", "f", "g", "o")
 
-#: kernel launches so far in this process, one per wrapper call that
-#: launched, by kernel: ``lstm_fwd`` (``lstm_fwd_f32``), ``lstm_fwd_stash``
-#: (``lstm_fwd_stash_f32``) and ``lstm_bwd`` (``lstm_bwd_f32``). A run sets
-#: them to 0 (:func:`reset_launches`) and reads them back
-#: (:func:`launch_counts`) to show that its path went through the kernels.
-_launches = {"lstm_fwd": 0, "lstm_fwd_stash": 0, "lstm_bwd": 0}
-_COUNT_LOCK = threading.Lock()
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-#: C entry point -> (source, argtypes)
-_ENTRIES = {
-    "lstm_fwd_f32": ("lstm_fwd", [_P] * 5 + [_I] * 4 + [_P]),
-    "lstm_fwd_stash_f32": ("lstm_fwd", [_P] * 7 + [_I] * 4 + [_P]),
-    "lstm_bwd_f32": ("lstm_bwd", [_P] * 13 + [_I] * 5 + [_P]),
-}
-_FNS: dict = {}
-
-
-def _kernel(entry: str = "lstm_fwd_f32"):
-    """A C entry point of ``csrc/``, built and typed at first use."""
-    fn = _FNS.get(entry)
-    if fn is None:
-        source, argtypes = _ENTRIES[entry]
-        fn = getattr(build.load(source), entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[entry] = fn
-    return fn
-
-
-def _count(name: str) -> None:
-    with _COUNT_LOCK:
-        _launches[name] += 1
+#: the C entry points -> (source, argtypes), and the launches so far in
+#: this process, one per wrapper call that launched, by kernel:
+#: ``lstm_fwd`` (``lstm_fwd_f32``), ``lstm_fwd_stash``
+#: (``lstm_fwd_stash_f32``) and ``lstm_bwd`` (``lstm_bwd_f32``).
+_P, _I = build.PTR, build.INT
+_LIB = build.KernelLib({
+    "lstm_fwd_f32": ("lstm_fwd", [_P] * 5 + [_I] * 4),
+    "lstm_fwd_stash_f32": ("lstm_fwd", [_P] * 7 + [_I] * 4),
+    "lstm_bwd_f32": ("lstm_bwd", [_P] * 13 + [_I] * 5),
+}, ("lstm_fwd", "lstm_fwd_stash", "lstm_bwd"))
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    with _COUNT_LOCK:
-        for name in _launches:
-            _launches[name] = 0
+    """Set every LSTM kernel's launch count to 0."""
+    _LIB.reset()
 
 
 def launch_counts() -> dict:
     """``{kernel name: launches}`` for the three LSTM kernels."""
-    with _COUNT_LOCK:
-        return dict(_launches)
+    return _LIB.counts()
 
 
 def _fwd_plain(wx, wh, b, x, stash: bool):
@@ -174,33 +145,12 @@ def _check_cuda(tensors, what: str) -> None:
     """The kernels take f32, contiguous tensors on one CUDA device, and
     4H <= 512 (``tensors[1]`` is Wh [H, 4H]); anything else raises (nothing
     falls back to the plain path)."""
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(
-            f"{what} needs all of its tensors on one CUDA device (or all on "
-            f"the CPU); got {[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(
-            f"the CUDA LSTM kernels take float32 only; {what} got "
-            f"{[str(t.dtype) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"the CUDA LSTM kernels need contiguous tensors "
-                         f"({what})")
+    build.check_cuda_f32(tensors, what, "LSTM")
     H = tensors[1].shape[0]
     if 4 * H > 512:
         raise ValueError(
             f"the CUDA LSTM kernels take 4H <= 512 (one thread per gate "
             f"column), got H={H}")
-
-
-def _launch(entry: str, *args) -> None:
-    dev = args[0].device
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel(entry)(*ptrs, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
 
 
 def lstm_fwd_cuda(wx, wh, b, x) -> torch.Tensor:
@@ -209,8 +159,8 @@ def lstm_fwd_cuda(wx, wh, b, x) -> torch.Tensor:
     B, T, E = x.shape
     H = wh.shape[0]
     hs = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
-    _launch("lstm_fwd_f32", x, wx, wh, b, hs, B, T, E, H)
-    _count("lstm_fwd")
+    _LIB.launch("lstm_fwd_f32", x, wx, wh, b, hs, B, T, E, H)
+    _LIB.count("lstm_fwd")
     return hs
 
 
@@ -223,8 +173,9 @@ def lstm_fwd_stash_cuda(wx, wh, b, x) -> tuple:
     hs = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
     cs = torch.empty_like(hs)
     gates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
-    _launch("lstm_fwd_stash_f32", x, wx, wh, b, hs, cs, gates, B, T, E, H)
-    _count("lstm_fwd_stash")
+    _LIB.launch("lstm_fwd_stash_f32", x, wx, wh, b, hs, cs, gates, B, T, E,
+                H)
+    _LIB.count("lstm_fwd_stash")
     return hs, cs, gates
 
 
@@ -265,14 +216,10 @@ def lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs) -> tuple:
     dpre = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
     partial = torch.empty((splits, E + H + 1, 4 * H), dtype=torch.float32,
                           device=dev)
-    _launch("lstm_bwd_f32", dhs, x, hs, cs, gates, wxt, wht, dx, dwx, dwh, db,
-            dpre, partial, B, T, E, H, splits)
-    _count("lstm_bwd")
+    _LIB.launch("lstm_bwd_f32", dhs, x, hs, cs, gates, wxt, wht, dx, dwx, dwh,
+                db, dpre, partial, B, T, E, H, splits)
+    _LIB.count("lstm_bwd")
     return dwx, dwh, db, dx
-
-
-def _on_cpu(tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
 
 
 class LSTMSeq(torch.autograd.Function):
@@ -284,7 +231,7 @@ class LSTMSeq(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, wx, wh, b, x):
-        if _on_cpu((wx, wh, b, x)):
+        if build.on_cpu((wx, wh, b, x)):
             hs, cs, gates = lstm_fwd_stash_plain(wx, wh, b, x)
         else:
             hs, cs, gates = lstm_fwd_stash_cuda(wx, wh, b, x)
@@ -297,7 +244,7 @@ class LSTMSeq(torch.autograd.Function):
         # The head reads hs[:, -1] only, so dhs is mostly zeros; autograd
         # may hand it over in any layout. Make it the kernel's.
         dhs = dhs.contiguous()
-        if _on_cpu((wx, wh, x, hs, cs, gates, dhs)):
+        if build.on_cpu((wx, wh, x, hs, cs, gates, dhs)):
             return lstm_bwd_plain(wx, wh, x, hs, cs, gates, dhs)
         return lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
 
@@ -315,7 +262,7 @@ def lstm_seq(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
     _check(*tensors)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return LSTMSeq.apply(wx, wh, b, x)
-    if _on_cpu(tensors):
+    if build.on_cpu(tensors):
         return lstm_seq_plain(wx, wh, b, x)
     return lstm_fwd_cuda(wx, wh, b, x)
 

@@ -18,6 +18,10 @@ State (:class:`EngineState`):
 All W logical workers are multiplexed on the model's one device, one after
 the other, as the JAX package's ``_multiplexed`` round runs the workers a
 chip carries; the all-reduce over chips (multi-card NCCL) is a later slice.
+
+:class:`RoundEngine` is what this engine shares with
+``parallel/sync.py SyncEngine``: the host copy of a round's batches and the
+run loop (:func:`run_per_round`).
 """
 
 from __future__ import annotations
@@ -46,7 +50,50 @@ class EngineState(NamedTuple):
     rng: int
 
 
-class AsyncEngine:
+class RoundEngine:
+    """The round loop both engines share. A subclass sets ``model`` and
+    ``num_workers``, and defines ``init_state()``, ``_round_fn(state, xs,
+    ys) -> (state, loss)`` on ``[W, K, B, ...]`` device batches, and
+    ``round_loss_shape``, the shape of one round's loss."""
+
+    round_loss_shape: tuple = ()
+
+    def _put_batch(self, xs: np.ndarray, ys: np.ndarray):
+        dev = self.model.device
+        return torch.as_tensor(xs).to(dev), torch.as_tensor(ys).to(dev)
+
+    def run(
+        self,
+        plan: BatchPlan,
+        state=None,
+        start_round: int = 0,
+        on_round: Optional[Callable] = None,
+        rounds_per_program: "int | str" = 1,
+    ):
+        """Execute rounds ``start_round..num_rounds``; returns ``(state,
+        losses)`` with ``losses`` a numpy array of the rounds' losses,
+        ``[rounds, *round_loss_shape]``. ``on_round(r, loss, state)`` fires
+        after each round.
+
+        ``rounds_per_program`` (an int >= 1 or ``"auto"``, checked by the
+        trainer that takes it from the user) is accepted as in the JAX
+        package and, as there, does not change the result. It has nothing
+        to block here: eager PyTorch compiles no program, so every round is
+        one host iteration whatever its value."""
+        if plan.num_workers != self.num_workers:
+            raise ValueError(
+                f"plan built for {plan.num_workers} workers, the engine has "
+                f"{self.num_workers}")
+        if state is None:
+            state = self.init_state()
+        with telemetry.get().span("engine_run"):
+            state, losses = run_per_round(self, plan, state, start_round,
+                                          on_round)
+        note_losses(losses)
+        return state, losses
+
+
+class AsyncEngine(RoundEngine):
     """Runs a :class:`Discipline` over ``num_workers`` logical workers on
     the model's device."""
 
@@ -89,6 +136,7 @@ class AsyncEngine:
         #: loss vector per round). Default from DKTPU_NAN_GUARD.
         self.nan_guard = (nan_guard_enabled() if nan_guard is None
                           else bool(nan_guard))
+        self.round_loss_shape = (self.num_workers,)
         self.tx = get_optimizer(optimizer, learning_rate)
         self.loss_fn = get_loss(loss)
         self._local_loop = make_local_loop(
@@ -137,45 +185,12 @@ class AsyncEngine:
         return EngineState(fold.center, fold.locals_, new_opts,
                            fold.fold_state, next_rng), loss
 
-    def _put_batch(self, xs: np.ndarray, ys: np.ndarray):
-        dev = self.model.device
-        return torch.as_tensor(xs).to(dev), torch.as_tensor(ys).to(dev)
-
-    def run(
-        self,
-        plan: BatchPlan,
-        state: Optional[EngineState] = None,
-        start_round: int = 0,
-        on_round: Optional[Callable] = None,
-        rounds_per_program: "int | str" = 1,
-    ):
-        """Execute fold rounds ``start_round..num_rounds``; returns
-        ``(state, losses)`` with ``losses`` a ``[rounds, W]`` numpy array,
-        one loss curve per worker. ``on_round(r, loss, state)`` fires after
-        each round.
-
-        ``rounds_per_program`` (an int >= 1 or ``"auto"``, checked by the
-        trainer that takes it from the user) is accepted as in the JAX
-        package and, as there, does not change the result. It has nothing
-        to block here: eager PyTorch compiles no program, so every round is
-        one host iteration whatever its value."""
-        if plan.num_workers != self.num_workers:
-            raise ValueError(
-                f"plan built for {plan.num_workers} workers, the engine has "
-                f"{self.num_workers}")
-        if state is None:
-            state = self.init_state()
-        with telemetry.get().span("engine_run"):
-            state, losses = run_per_round(self, plan, state, start_round,
-                                          on_round)
-        note_losses(losses)
-        return state, losses
-
 
 def run_per_round(engine, plan, state, start_round, on_round):
     """One round per host iteration, with the next rounds' batches gathered
     and copied to the device by a :class:`RoundFeeder`. Returns ``(state,
-    losses)``, ``losses`` the ``[rounds, W]`` host array."""
+    losses)``, ``losses`` the ``[rounds, *engine.round_loss_shape]`` host
+    array."""
     tele = telemetry.get()
     losses = []
     feeder = RoundFeeder(plan.num_rounds,
@@ -197,5 +212,5 @@ def run_per_round(engine, plan, state, start_round, on_round):
             stall.observe(w)
         tele.counter("input_stall_seconds").add(float(feeder.wait_seconds))
     host = (torch.stack(losses).cpu().numpy() if losses
-            else np.zeros((0, engine.num_workers), np.float32))
+            else np.zeros((0, *engine.round_loss_shape), np.float32))
     return state, host

@@ -2,18 +2,22 @@
 
 Same names, same constructor kwargs, same ``train(dataframe) -> model``
 entry point. Underneath, ``num_workers`` logical workers run on the model's
-one device through :class:`~distkeras_tpu_torch.parallel.engine.AsyncEngine`
-(``parallel/disciplines.py`` folds, ``workers.py`` local steps), on the
-card unless the model was built with ``device="cpu"``.
+one device, on the card unless the model was built with ``device="cpu"``:
+through :class:`~distkeras_tpu_torch.parallel.engine.AsyncEngine`
+(``parallel/disciplines.py`` folds, ``workers.py`` local steps) for the
+discipline trainers, and through
+:class:`~distkeras_tpu_torch.parallel.sync.SyncEngine` (one merged batch
+per step) for the single and synchronous ones.
 
-Ported in this slice: ``Trainer``, ``DistributedTrainer``,
-``AsynchronousDistributedTrainer`` and the discipline trainers DOWNPOUR,
-ADAG, DynSGD, AEASGD and EAMSGD. Refused with ``NotImplementedError`` until
-their slices: checkpoints (``checkpoint_dir``), the metrics log
+Ported: ``Trainer``, ``DistributedTrainer``,
+``AsynchronousDistributedTrainer``, the discipline trainers DOWNPOUR, ADAG,
+DynSGD, AEASGD and EAMSGD, ``SingleTrainer`` and
+``SynchronousDistributedTrainer``. Refused with ``NotImplementedError``
+until their slices: checkpoints (``checkpoint_dir``), the metrics log
 (``metrics_path``), the networked parameter server (``remote`` /
 ``DKTPU_PS_ENDPOINT``), model-parallel submeshes (``parallel``) and any
-``compute_dtype`` other than float32. The synchronous, single, averaging and
-ensemble trainers come with later slices.
+``compute_dtype`` other than float32. The averaging and ensemble trainers
+come with a later slice.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from distkeras_tpu_torch.parallel.disciplines import (
     EAMSGDFold,
 )
 from distkeras_tpu_torch.parallel.engine import AsyncEngine
+from distkeras_tpu_torch.parallel.sync import SyncEngine
 from distkeras_tpu_torch.runtime import config as runtime_config
 from distkeras_tpu_torch.runtime.config import RunConfig
 
@@ -164,7 +169,9 @@ class Trainer:
         return self.config.dtype
 
     def _execute(self, engine, plan):
-        """Shared run harness: run every round and keep the histories."""
+        """Shared run harness: run every round and keep the histories (per
+        worker for the async engines' ``[rounds, W]`` losses; none for the
+        sync engine's ``[rounds]``, whose workers never diverge)."""
         on_round = None
         if self.on_round is not None:
             def on_round(r, loss, st):
@@ -173,9 +180,35 @@ class Trainer:
             plan, on_round=on_round,
             rounds_per_program=self.rounds_per_program)
         losses = np.asarray(losses)
-        self.worker_histories = losses.T
-        self.history = losses.mean(axis=1)
+        if losses.ndim == 2:
+            self.worker_histories = losses.T
+            self.history = losses.mean(axis=1)
+        else:
+            self.worker_histories = None
+            self.history = losses
         return state
+
+    def _train_sync(self, dataframe: DataFrame, shuffle: bool,
+                    num_workers: int, steps_per_program: int) -> Model:
+        """Train through :class:`SyncEngine`; returns the trained params as
+        a :class:`Model` on the model's device."""
+        self.record_training_start()
+        engine = SyncEngine(
+            self.model, self.worker_optimizer, self.loss,
+            num_workers=num_workers, learning_rate=self.learning_rate,
+            compute_dtype=self.compute_dtype, seed=self.seed,
+            grad_accum=self.grad_accum,
+            device_transform=self.device_transform,
+        )
+        plan = make_batches(
+            dataframe, self.features_col, self.label_col, self.batch_size,
+            num_workers=num_workers, window=steps_per_program,
+            num_epoch=self.num_epoch, shuffle=shuffle, seed=self.seed,
+            transform=self.transform,
+        )
+        state = self._execute(engine, plan)
+        self.record_training_stop()
+        return self.model.with_params(state.params)
 
     # -- timing parity (reference Trainer.record_training_start/stop) -------
     def record_training_start(self):
@@ -192,11 +225,27 @@ class Trainer:
         return self.history
 
     def get_worker_histories(self) -> Optional[np.ndarray]:
-        """Per-worker loss curves, ``[num_workers, rounds]``."""
+        """Per-worker loss curves, ``[num_workers, rounds]``; ``None`` for
+        the sync engine, whose workers never diverge."""
         return self.worker_histories
 
     def train(self, dataframe: DataFrame, shuffle: bool = False) -> Model:
         raise NotImplementedError
+
+
+class SingleTrainer(Trainer):
+    """One-replica baseline (reference ``SingleTrainer``): one worker,
+    plain minibatch SGD, no communication; ``steps_per_program`` steps a
+    round."""
+
+    def __init__(self, *args, steps_per_program: int = 8, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.steps_per_program = steps_per_program
+
+    def train(self, dataframe: DataFrame, shuffle: bool = False) -> Model:
+        """Train on ``dataframe``; returns the trained model on the model's
+        device."""
+        return self._train_sync(dataframe, shuffle, 1, self.steps_per_program)
 
 
 class DistributedTrainer(Trainer):
@@ -209,6 +258,23 @@ class DistributedTrainer(Trainer):
     def __init__(self, *args, num_workers: Optional[int] = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.config = self.config.replace(num_workers=num_workers)
+
+
+class SynchronousDistributedTrainer(DistributedTrainer):
+    """Per-step gradient mean over all workers (reference
+    ``SynchronousDistributedTrainer``; BASELINE config #5's "synchronous
+    DOWNPOUR"): the ``num_workers`` logical workers' batches merge into one
+    batch a step; ``steps_per_program`` steps a round."""
+
+    def __init__(self, *args, steps_per_program: int = 8, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.steps_per_program = steps_per_program
+
+    def train(self, dataframe: DataFrame, shuffle: bool = False) -> Model:
+        """Train on ``dataframe``; returns the trained model on the model's
+        device."""
+        return self._train_sync(dataframe, shuffle, self.num_workers or 1,
+                                self.steps_per_program)
 
 
 class AsynchronousDistributedTrainer(DistributedTrainer):

@@ -7,9 +7,11 @@ that has none (``tests/conftest.py`` imports JAX, hence ``--noconftest``)::
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
+from distkeras_tpu_torch.ops.kernels import groupnorm as G
 from distkeras_tpu_torch.ops.kernels import lstm as K
 
 pytestmark = pytest.mark.cuda
@@ -118,3 +120,75 @@ def test_backward_matches_plain_on_card(packed, B):
     for a, a2, r in zip(got, again, ref):
         assert torch.equal(a, a2)
         assert _grad_err(a, r) <= 1e-4
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.parametrize("B,N,C,relu", [(3, 56 * 56, 64, True),
+                                        (2, 7 * 7, 2048, False)])
+def test_group_norm_kernels_match_plain_on_card(card, B, N, C, relu):
+    """ResNet-50 slabs with C = 64 and C = 2048 (32 groups): y within atol
+    1e-5 of the plain twin (f32 statistics over up to 6,272 elements a
+    group, summed in another order); dx, dgamma, dbeta within 1e-4 of each
+    output's largest magnitude; two backward calls give the same bits."""
+    g = torch.Generator().manual_seed(0)
+    x, dy = (torch.randn(B, N, C, generator=g).cuda() for _ in range(2))
+    gamma, beta = (torch.randn(C, generator=g).cuda() for _ in range(2))
+    # dy = 0 where the pre-ReLU output is within 1e-3 of 0: there the two
+    # versions' statistics, summed in another order, may mask differently.
+    pre = G.group_norm_fwd_plain(x, gamma, beta, 32, False)
+    dy = torch.where(pre.abs() > 1e-3, dy, torch.zeros_like(dy))
+    before = G.launch_counts()
+    y = G.group_norm_fwd_cuda(x, gamma, beta, 32, relu)
+    got = G.group_norm_bwd_cuda(x, dy, gamma, beta, 32, relu)
+    again = G.group_norm_bwd_cuda(x, dy, gamma, beta, 32, relu)
+    torch.cuda.synchronize()
+    after = G.launch_counts()
+    assert after["group_norm_fwd"] == before["group_norm_fwd"] + 1
+    assert after["group_norm_bwd"] == before["group_norm_bwd"] + 2
+    torch.testing.assert_close(
+        y, G.group_norm_fwd_plain(x, gamma, beta, 32, relu), rtol=0,
+        atol=1e-5)
+    ref = G.group_norm_bwd_plain(x, dy, gamma, beta, 32, relu)
+    for a, a2, r in zip(got, again, ref):
+        assert torch.equal(a, a2)
+        assert _grad_err(a, r) <= 1e-4
+
+
+def test_group_norm_refuses_what_it_does_not_take(card):
+    x = torch.randn(2, 4, 4, 64, device="cuda")
+    gamma, beta = torch.ones(64, device="cuda"), torch.zeros(64,
+                                                            device="cuda")
+    before = G.launch_counts()
+    with pytest.raises(TypeError, match="float32"):
+        G.group_norm(x.double(), gamma.double(), beta.double(), groups=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.group_norm(x.transpose(1, 2), gamma, beta, groups=8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        G.group_norm(x, gamma.cpu(), beta, groups=8)
+    assert G.launch_counts() == before
+
+
+def test_tiny_resnet_step_on_card_launches_the_group_norm_kernels(card):
+    """One SingleTrainer step of tiny_resnet (9 GroupNorms: the stem, three
+    in each of two blocks, two residual projections) launches each
+    GroupNorm kernel 9 times, and the trained weights are finite."""
+    from distkeras_tpu_torch import SingleTrainer, tiny_resnet
+    from distkeras_tpu_torch.data import DataFrame
+
+    model = tiny_resnet(norm_impl="pallas", device="cuda")
+    rng = np.random.default_rng(0)
+    df = DataFrame({"features": rng.uniform(size=(8, 32, 32, 3)).astype(
+        np.float32), "label": rng.integers(0, 10, 8).astype(np.int32)})
+    G.reset_launches()
+    out = SingleTrainer(model, loss="sparse_categorical_crossentropy",
+                        batch_size=8, steps_per_program=1).train(df)
+    torch.cuda.synchronize()
+    assert G.launch_counts() == {"group_norm_fwd": 9, "group_norm_bwd": 9}
+    assert all(torch.isfinite(p).all() for p in out.params.values())

@@ -54,7 +54,7 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
-    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch import imdb_lstm, resnet50
     from distkeras_tpu_torch.models import Model
     from distkeras_tpu_torch.serving import ModelRegistry
 
@@ -62,6 +62,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     small = dict(vocab_size=10, embed_dim=4, hidden_size=4, seq_len=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         imdb_lstm(**small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet50(norm_impl="pallas")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model.build(torch.nn.Linear(2, 2), np.zeros((1, 2), np.float32))
     model = imdb_lstm(**small, device="cpu")
