@@ -10,7 +10,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
 1. ``card`` / ``build`` — the card's name and power limit, then every CUDA
    kernel of the port built from ``distkeras_tpu_torch/csrc/`` into
    ``build/kernels/`` (one ``nvcc`` per source, all started together):
-   ``lstm_fwd.cu``, ``lstm_bwd.cu`` and ``groupnorm.cu``.
+   ``lstm_fwd.cu``, ``lstm_bwd.cu``, ``groupnorm.cu`` and ``fold.cu``.
 2. ``kernel`` — each kernel's wrapper against its plain PyTorch version on
    the same CUDA tensors, at the shapes its path gives it (the IMDB LSTM at
    full width: T=200, E=64, H=128, f32): the forward at the serving buckets
@@ -51,6 +51,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
    width, batch 2, 2 steps, on the card and on the CPU (the plain twins),
    from the same weights.
 
+7. ``fold_kernel`` — the dequant-fused fold kernel (``csrc/fold.cu``)
+   against its plain twin on the same CUDA tensors, bit for bit, at every
+   tensor shape of config #4's model and ResNet-50's two largest tensors,
+   both codecs, commit scales 1 and 1/3 (one row also against the JAX
+   package's numpy oracle, copied into the port, on the host copy); kernel,
+   plain and ``c.add_(q, alpha=s)`` times by CUDA events with L2 flushed
+   by a read before every call (the server finds a center cold), beside
+   the bound (bytes over 3.35 TB/s) and the floor (one 1-element launch
+   after the same flush); then the sum over one whole commit of each
+   model.
+8. ``remote_train`` — remote training as a user drives it: a
+   ``PSServer(discipline="dynsgd")`` with its center on the card and
+   ``DynSGD(imdb_lstm(...), remote=srv.endpoint)`` at config #4's width and
+   batch (4 workers, window 4, batch 2048, 3 rounds) with
+   ``DKTPU_NET_COMPRESS=int8``, then a 2-round run with ``bf16``. The
+   launch counts are set to 0 just before each run and read just after:
+   one fold launch per compressed tensor per folded commit, and the stash
+   forward and the backward once per local step; the model returned is the
+   server's center bit for bit.
+9. ``remote_parity`` — one worker, batch 32, 2 rounds, full width, from
+   the same weights: server and model on the card against both on the CPU,
+   with codec ``none`` (centers within 1e-5) and ``int8`` (centers within
+   the sum of each commit's largest quantization step; the losses within
+   that plus 1e-5).
+
 Then the ``kernels`` line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.
 """
@@ -58,7 +83,9 @@ last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -135,6 +162,25 @@ RESNET_PARITY_FACTOR = 4.0
 #: the round loss, card vs CPU, as a share of itself: the forward alone,
 #: 53 normalized layers of f32 convolutions summed in another order.
 RESNET_LOSS_RTOL = 1e-4
+
+#: The fold's commit scales (DynSGD at staleness 0 and 2); its shapes are
+#: every tensor of config #4's model and ResNet-50's two largest (3x3x512x512
+#: conv kernels, 2,359,296 elements each), read off the models themselves.
+FOLD_SCALES = (1.0, 1.0 / 3.0)
+FOLD_RESNET_TENSORS = 2
+FOLD_REPS = 20
+#: the remote runs: config #4's training run (as ``train``) against the
+#: port's parameter server, int8 commits, then a shorter one in bf16.
+REMOTE = dict(TRAIN)
+REMOTE_ROUNDS = {"int8": 3, "bf16": 2}
+REMOTE_PARITY = dict(num_workers=1, batch_size=32, communication_window=2,
+                     learning_rate=0.01)
+REMOTE_PARITY_ROUNDS = 2
+#: remote card vs CPU with codec none: the same limit as ``train_parity``.
+REMOTE_PARITY_ATOL = 1e-5
+#: L2 is 50 MB: reading this many bytes between timed calls leaves a
+#: center and its delta cold, as the server finds them between commits.
+FLUSH_BYTES = 256 << 20
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
 #: float32 outside the tensor cores.
@@ -896,6 +942,366 @@ def resnet_parity_phase(torch, seed: int) -> None:
              f"{cpu_vs_f64}, or loss {loss_rel} > {RESNET_LOSS_RTOL}")
 
 
+def fold_bound_ms(n: int, codec: str) -> tuple[float, str]:
+    """Least time for one fold on this card: the center read and written
+    once and the wire tensor read once, (4 + 4 + 1) n bytes in int8 and
+    (4 + 4 + 2) n in bf16, over 3.35 TB/s, against 2 n FLOPs at the f32
+    rate."""
+    nbytes = (9 if codec == "int8" else 10) * n
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = 2 * n / PEAK_F32_FLOPS * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cuda_ms_cold(torch, fn, reps: int, flush) -> float:
+    """Mean milliseconds of ``fn`` by CUDA events around each call alone,
+    with ``flush`` summed before every call so the call finds its inputs
+    outside L2 (after one warm call). The flush reads, so the lines it
+    leaves in L2 are clean and the timed call writes none of them back."""
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        flush.sum()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def fold_inputs(torch, center, codec: str, rng):
+    """A commit's tensor for ``center`` as the client sends it: a random
+    delta encoded by the port's ``wire.codec_encode``, on the card."""
+    from distkeras_tpu_torch.netps import fold as nfold
+    from distkeras_tpu_torch.netps import wire
+
+    d = (rng.normal(size=center.numel()) * 1e-3).astype(np.float32)
+    enc, spec = wire.codec_encode(d, codec)
+    return enc, spec, nfold.wire_tensor(enc).cuda()
+
+
+def library_fold(torch, center, q, codec: str, s: float):
+    """One PyTorch call for the same function, ``c.add_(q, alpha=s)`` (the
+    yardstick; the port never calls it, as it may contract into an FMA)."""
+    other = q if codec == "int8" else q.view(torch.bfloat16)
+    return center.add_(other, alpha=s)
+
+
+def fold_kernel_phase(torch, F, seed: int) -> list:
+    """The fold kernel against its plain twin at every tensor of config
+    #4's model and ResNet-50's largest two, both codecs, scales 1 and 1/3;
+    then one whole commit of each model."""
+    from distkeras_tpu_torch import imdb_lstm, resnet50
+    from distkeras_tpu_torch.netps import fold as nfold
+
+    rng = np.random.default_rng(seed)
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    models = {
+        "imdb_lstm": imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
+                               hidden_size=HIDDEN, seq_len=SEQ_LEN,
+                               seed=seed, device="cuda").params,
+        "resnet50": resnet50(norm_impl="pallas", seed=seed,
+                             device="cuda").params}
+    largest = sorted(models["resnet50"].items(),
+                     key=lambda kv: -kv[1].numel())[:FOLD_RESNET_TENSORS]
+    tensors = [(f"imdb_lstm.{k}", v)
+               for k, v in models["imdb_lstm"].items()]
+    tensors += [(f"resnet50.{k}", v) for k, v in largest]
+    # The floor of every cold time below: one 1-element PyTorch launch
+    # timed after the same flush.
+    tiny = torch.zeros(1, device="cuda")
+    floor_ms = cuda_ms_cold(torch, tiny.zero_, FOLD_REPS, flush)
+    emit({"phase": "fold_floor", "cold_launch_floor_ms": floor_ms,
+          "timing": "CUDA events around one 1-element launch, L2 flushed "
+                    "(by a read) before it"})
+    rows = []
+    for i, (name, param) in enumerate(tensors):
+        c0 = param.detach().reshape(-1).clone()
+        n = c0.numel()
+        for codec in ("int8", "bf16"):
+            enc, spec, q = fold_inputs(torch, c0, codec, rng)
+            for scale in FOLD_SCALES:
+                s = F.fold_scale(codec, spec, scale)
+                got = F.fold_compressed_(c0.clone(), q, spec, scale)
+                ref = F.fold_compressed_plain_(c0.clone(), q, codec, s)
+                lib = library_fold(torch, c0.clone(), q, codec, s)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                row = {"phase": "fold_kernel", "tensor": name,
+                       "shape": list(param.shape), "n": n, "codec": codec,
+                       "commit_scale": scale, "s": s, "max_abs_err": err,
+                       "bit_equal_to_plain": bool(torch.equal(got, ref)),
+                       "library_max_abs_err": (lib - ref).abs().max().item()}
+                if i == 0:
+                    host = c0.cpu().numpy()
+                    nfold.fold_compressed_numpy(host, enc, spec, scale)
+                    row["bit_equal_to_numpy_oracle"] = bool(
+                        np.array_equal(got.cpu().numpy(), host))
+                work = c0.clone()
+                row["ms"] = cuda_ms_cold(
+                    torch, lambda: F.fold_compressed_(work, q, spec, scale),
+                    FOLD_REPS, flush)
+                row["warm_ms"] = cuda_ms(
+                    torch, lambda: F.fold_compressed_(work, q, spec, scale),
+                    FOLD_REPS)
+                row["plain_ms"] = cuda_ms_cold(
+                    torch, lambda: F.fold_compressed_plain_(work, q, codec, s),
+                    FOLD_REPS, flush)
+                row["library_ms"] = cuda_ms_cold(
+                    torch, lambda: library_fold(torch, work, q, codec, s),
+                    FOLD_REPS, flush)
+                row["bound_ms"], row["bound_by"] = fold_bound_ms(n, codec)
+                row["cold_launch_floor_ms"] = floor_ms
+                row["timing"] = ("CUDA events around each call, L2 flushed "
+                                 "(by a read) before it; warm_ms back to "
+                                 "back")
+                emit(row)
+                if not (row["bit_equal_to_plain"]
+                        and row.get("bit_equal_to_numpy_oracle", True)):
+                    fail(f"the fold kernel is not bit-equal to its plain "
+                         f"twin (or the oracle) on {name} {codec} "
+                         f"scale={scale}: {row}")
+                rows.append(row)
+    for model, params in models.items():
+        centers = [p.detach().reshape(-1).clone() for p in params.values()]
+        for codec in ("int8", "bf16"):
+            inputs = [fold_inputs(torch, c, codec, rng) for c in centers]
+
+            def commit(fold):
+                for c, (_e, spec, q) in zip(centers, inputs):
+                    fold(c, q, spec)
+
+            times = {
+                "ms": lambda c, q, spec: F.fold_compressed_(c, q, spec, 1.0),
+                "plain_ms": lambda c, q, spec: F.fold_compressed_plain_(
+                    c, q, codec, F.fold_scale(codec, spec, 1.0)),
+                "library_ms": lambda c, q, spec: library_fold(
+                    torch, c, q, codec, F.fold_scale(codec, spec, 1.0))}
+            row = {"phase": "fold_commit", "model": model, "codec": codec,
+                   "tensors": len(centers),
+                   "params": sum(c.numel() for c in centers),
+                   "bound_ms": sum(fold_bound_ms(c.numel(), codec)[0]
+                                   for c in centers),
+                   "cold_launch_floor_ms": floor_ms,
+                   "timing": "one whole commit, every tensor's fold back to "
+                             "back, L2 flushed (by a read) before it"}
+            for key, fold in times.items():
+                row[key] = cuda_ms_cold(torch, lambda: commit(fold), 5, flush)
+            emit(row)
+            rows.append(row)
+    del models, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Set environment variables for the ``with`` block, then restore."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def quant_steps():
+    """Record, for every commit the port's server folds in the block, its
+    largest quantization step ``spec["scale"] * commit_scale`` (0 for a
+    commit with no int8 tensor)."""
+    from distkeras_tpu_torch.netps import server as server_mod
+    from distkeras_tpu_torch.netps.fold import commit_scale, split_entry
+
+    steps = []
+    real = server_mod.fold_delta
+
+    def recording(center, delta, discipline, staleness):
+        scale = commit_scale(discipline, staleness)
+        steps.append(max((float(spec.get("scale", 0.0)) * scale
+                          for _a, spec in map(split_entry, delta) if spec),
+                         default=0.0))
+        return real(center, delta, discipline, staleness)
+
+    server_mod.fold_delta = recording
+    try:
+        yield steps
+    finally:
+        server_mod.fold_delta = real
+
+
+def remote_train_phase(torch, K, F, gpu: str, seed: int, codec: str) -> dict:
+    """``DynSGD(imdb_lstm(...), remote=srv.endpoint).train(df)`` against a
+    ``PSServer(discipline="dynsgd")`` on the card, commits in ``codec``;
+    returns the fold launch counts of the run."""
+    from distkeras_tpu_torch import imdb_lstm, telemetry
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.netps import PSClient, PSServer
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    W, Kw, B = (REMOTE["num_workers"], REMOTE["communication_window"],
+                REMOTE["batch_size"])
+    rounds = REMOTE_ROUNDS[codec]
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    df = imdb(n=rounds * W * Kw * B, vocab_size=VOCAB, seq_len=SEQ_LEN,
+              seed=seed)
+    srv = PSServer(discipline="dynsgd", device="cuda").start()
+    try:
+        with env_set(DKTPU_NET_COMPRESS=codec):
+            trainer = DynSGD(model, worker_optimizer="sgd",
+                             loss="sparse_categorical_crossentropy",
+                             remote=srv.endpoint, **REMOTE)
+            telemetry.reset()
+            torch.cuda.synchronize()
+            # counts start at 0 just before the main path runs
+            K.reset_launches()
+            F.reset_launches()
+            t0 = time.perf_counter()
+            trained = trainer.train(df)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lstm, fold = K.launch_counts(), F.launch_counts()
+        with PSClient(srv.endpoint) as observer:
+            stats = observer.stats()
+        center = srv.center()
+        log = list(srv.commit_log)
+        fold_s, evictions = srv.fold_seconds, srv.evictions
+    finally:
+        srv.close()
+    snap = telemetry.get().snapshot()
+    spans = snap["spans"]
+
+    def total(name):
+        return spans.get(name, {}).get("total", 0.0)
+
+    steps = rounds * W * Kw
+    tensors = len(center)
+    moved = max(float(np.abs(c - p.cpu().numpy()).max())
+                for c, p in zip(center, model.params.values()))
+    same = all(np.array_equal(p.cpu().numpy(), c)
+               for p, c in zip(trained.params.values(), center))
+    hist = trainer.get_worker_histories()
+    comms = total("netps.rpc.pull") + total("netps.rpc.commit")
+    emit({"phase": "remote_train", "gpu": gpu, "trainer": "DynSGD",
+          "server": "PSServer(discipline='dynsgd', device='cuda')",
+          "codec": codec, "rounds": rounds, **REMOTE, "dtype": "float32",
+          "seconds": wall, "samples_per_s": steps * B / wall,
+          "history": [float(v) for v in trainer.get_history()],
+          "worker_histories": hist.tolist(), "commits": len(log),
+          "staleness": [st for _w, _s, st in log], "evictions": evictions,
+          "fold_backend": stats.get("fold_backend"),
+          "launches": {**lstm, **fold}, "local_steps": steps,
+          "tensors_per_commit": tensors, "center_max_abs_change": moved,
+          "model_equals_server_center": same,
+          "worker_comms_s": comms,
+          "worker_pull_s": total("netps.rpc.pull"),
+          "worker_commit_s": total("netps.rpc.commit"),
+          "worker_local_window_s": total("netps.remote.local_window"),
+          "server_fold_ms_per_commit": fold_s / max(1, len(log)) * 1e3,
+          "server_commit_ms_per_commit":
+              total("netps.server.commit") / max(1, len(log)) * 1e3,
+          "bytes_sent": snap["counters"].get("netps.bytes_sent"),
+          "bytes_precompress": snap["counters"].get(
+              "netps.bytes_precompress"),
+          "timing": "host clock; worker_* are sums over the W worker "
+                    "threads (each blocks through its own pull and commit "
+                    "RPCs); the local window ends when its delta is on the "
+                    "host"})
+    if stats.get("fold_backend") != "cuda":
+        fail(f"the server folded with {stats.get('fold_backend')!r}, not "
+             f"the CUDA kernel")
+    if not np.all(np.isfinite(hist)):
+        fail(f"non-finite remote training loss: {hist}")
+    if not moved > 0:
+        fail("the remote run's center did not move")
+    if not same:
+        fail("the trained model is not the server's center")
+    if len(log) != W * rounds:
+        fail(f"{len(log)} commits folded of {W * rounds} ({evictions} "
+             f"evictions)")
+    other = "bf16" if codec == "int8" else "int8"
+    if fold != {f"fold_{codec}": tensors * len(log), f"fold_{other}": 0}:
+        fail(f"fold launches {fold} for {len(log)} commits of {tensors} "
+             f"{codec} tensors")
+    if not (lstm["lstm_fwd_stash"] == lstm["lstm_bwd"] == steps
+            and lstm["lstm_fwd"] == 0):
+        fail(f"LSTM launches {lstm} in {steps} local steps")
+    return fold
+
+
+def remote_parity_phase(torch, seed: int) -> None:
+    """One worker at full width, batch 32: server and model on the card,
+    then both on the CPU, from the same weights, codec none and int8."""
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.netps import PSServer
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    W, Kw, B = (REMOTE_PARITY["num_workers"],
+                REMOTE_PARITY["communication_window"],
+                REMOTE_PARITY["batch_size"])
+    df = imdb(n=REMOTE_PARITY_ROUNDS * W * Kw * B, vocab_size=VOCAB,
+              seq_len=SEQ_LEN, seed=seed + 2)
+    for codec in ("none", "int8"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
+                              hidden_size=HIDDEN, seq_len=SEQ_LEN,
+                              seed=seed + 2, device=dev)
+            init = {k: v.detach().cpu().clone()
+                    for k, v in model.params.items()}
+            srv = PSServer(discipline="dynsgd", device=dev).start()
+            try:
+                with env_set(DKTPU_NET_COMPRESS=codec), \
+                        quant_steps() as steps:
+                    t = DynSGD(model, worker_optimizer="sgd",
+                               loss="sparse_categorical_crossentropy",
+                               remote=srv.endpoint, **REMOTE_PARITY)
+                    trained = t.train(df)
+            finally:
+                srv.close()
+            out[dev] = ({k: v.cpu() for k, v in trained.params.items()},
+                        t.get_worker_histories(), steps)
+        center_err = max((out["cuda"][0][k] - v).abs().max().item()
+                         for k, v in out["cpu"][0].items())
+        hist_err = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+        change = max((v - init[k]).abs().max().item()
+                     for k, v in out["cpu"][0].items())
+        step_sum = sum(max(a, b) for a, b in zip(out["cuda"][2],
+                                                  out["cpu"][2]))
+        # int8: the centers are the same init plus integer multiples of
+        # each commit's step, so they can differ by a flipped rounding, at
+        # most one step per commit. The losses also carry the f32 noise.
+        limit = step_sum if codec == "int8" else REMOTE_PARITY_ATOL
+        hist_limit = REMOTE_PARITY_ATOL + step_sum
+        emit({"phase": "remote_parity", "trainer": "DynSGD", "codec": codec,
+              **REMOTE_PARITY, "rounds": REMOTE_PARITY_ROUNDS,
+              "center_max_abs_err_card_vs_cpu": center_err,
+              "history_max_abs_err": hist_err,
+              "center_max_abs_change": change,
+              "quant_steps_per_commit": {d: out[d][2] for d in out},
+              "quant_step_sum": step_sum, "limit": limit,
+              "history_limit": hist_limit})
+        if not change > 0:
+            fail("the remote parity run's center did not move")
+        if len(out["cuda"][2]) != len(out["cpu"][2]):
+            fail(f"remote parity runs folded {len(out['cuda'][2])} and "
+                 f"{len(out['cpu'][2])} commits")
+        if not (center_err <= limit and hist_err <= hist_limit):
+            fail(f"remote card and CPU runs disagree with codec {codec}: "
+                 f"center {center_err} (limit {limit}), history {hist_err} "
+                 f"(limit {hist_limit})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -908,6 +1314,7 @@ def main() -> None:
         fail("no CUDA device is available")
     try:
         from distkeras_tpu_torch.ops.kernels import build
+        from distkeras_tpu_torch.ops.kernels import fold as F
         from distkeras_tpu_torch.ops.kernels import groupnorm as G
         from distkeras_tpu_torch.ops.kernels import lstm as K
         from distkeras_tpu_torch import imdb_lstm
@@ -921,7 +1328,7 @@ def main() -> None:
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
-    libs = build.build(["lstm_fwd", "lstm_bwd", "groupnorm"])
+    libs = build.build(["lstm_fwd", "lstm_bwd", "groupnorm", "fold"])
     ptxas = {k: [ln.strip() for ln in v.with_suffix(".log").read_text()
                  .splitlines() if "Used" in ln or "spill" in ln]
              for k, v in libs.items() if v.with_suffix(".log").exists()}
@@ -953,6 +1360,15 @@ def main() -> None:
     gn_rows = gn_kernel_phase(torch, G, args.seed)
     gn_launches = resnet_train_phase(torch, G, gpu, args.seed)
     resnet_parity_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+
+    fold_rows = fold_kernel_phase(torch, F, args.seed)
+    fold_launches = {}
+    for codec in ("int8", "bf16"):
+        fold_launches.update(
+            {k: v for k, v in remote_train_phase(
+                torch, K, F, gpu, args.seed, codec).items() if v})
+    remote_parity_phase(torch, args.seed)
 
     def entry(name, source, replaces, rows, launches, err_key):
         top = rows[max(rows)]
@@ -992,6 +1408,29 @@ def main() -> None:
                 "step_library_ms": step_sum(f"{pre}library_ms"),
                 "step_bound_ms": step_sum(f"{pre}bound_ms")}
 
+    def fold_entry(codec):
+        """The largest tensor's row (ResNet-50's 3x3x512x512 kernel) at
+        commit scale 1/3, and one whole IMDB commit's sums."""
+        rows = [r for r in fold_rows
+                if r["phase"] == "fold_kernel" and r["codec"] == codec]
+        top = max(rows, key=lambda r: (r["n"], -r["commit_scale"]))
+        commit = next(r for r in fold_rows if r["phase"] == "fold_commit"
+                      and r["model"] == "imdb_lstm" and r["codec"] == codec)
+        return {"name": f"fold_{codec}", "route": "cuda",
+                "source": "distkeras_tpu_torch/csrc/fold.cu",
+                "replaces": "distkeras_tpu/ops/pallas/fold.py:68",
+                "launches": fold_launches[f"fold_{codec}"],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": top["ms"], "plain_ms": top["plain_ms"],
+                "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                "library_ms": top["library_ms"],
+                "cold_launch_floor_ms": top["cold_launch_floor_ms"],
+                "shape": f"{top['tensor']} n={top['n']} {codec} into f32",
+                "imdb_commit_ms": commit["ms"],
+                "imdb_commit_plain_ms": commit["plain_ms"],
+                "imdb_commit_library_ms": commit["library_ms"],
+                "imdb_commit_bound_ms": commit["bound_ms"]}
+
     emit({"kernels": [
         entry("lstm_fwd", "lstm_fwd.cu",
               "distkeras_tpu/ops/pallas/lstm.py:189", fwd, serve_launches,
@@ -1004,6 +1443,8 @@ def main() -> None:
               train_launches["lstm_bwd"], "max_abs_err"),
         gn_entry("group_norm_fwd", 239, bwd=False),
         gn_entry("group_norm_bwd", 262, bwd=True),
+        fold_entry("int8"),
+        fold_entry("bf16"),
     ]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,3 +1,42 @@
-"""The wire layer of the port: frames byte-compatible with the JAX
-package's ``netps`` protocol, its typed errors and the endpoint walker.
-The parameter server itself comes with the training slices."""
+"""netps — the networked parameter server of the port, with its center on
+the card (the JAX package's ``netps``; frames byte-compatible both ways).
+
+* :mod:`~distkeras_tpu_torch.netps.wire` — length-prefixed,
+  crc-checksummed binary frames with magic/version/size checks, request-id
+  echo and the per-tensor delta codecs (``DKTPU_NET_COMPRESS=bf16|int8``);
+* :mod:`~distkeras_tpu_torch.netps.server` — :class:`PSServer`: one
+  handler thread per connection, idempotent ``(worker_id, seq)`` commits,
+  lease-based elastic membership, graceful drain; the center is f32
+  tensors on ``device`` and compressed commits fold into it through the
+  CUDA fold kernel (``ops/kernels/fold.py``);
+* :mod:`~distkeras_tpu_torch.netps.client` — :class:`PSClient`: deadline
+  per RPC, bounded retries with full-jitter backoff, reconnect on failure,
+  automatic rejoin after eviction, codec negotiation and the int8
+  error-feedback residual;
+* :mod:`~distkeras_tpu_torch.netps.fold` — the fold's discipline
+  semantics and the numpy oracle;
+* :mod:`~distkeras_tpu_torch.netps.remote` — the worker loop the async
+  trainers run under ``remote="host:port"``;
+* :mod:`~distkeras_tpu_torch.netps.endpoints` — the failover walk every
+  wire client rides.
+
+``python -m distkeras_tpu_torch.netps`` runs a standalone server.
+"""
+
+from distkeras_tpu_torch.netps.client import CommitResult, PSClient
+from distkeras_tpu_torch.netps.errors import (
+    LeaseExpiredError,
+    NetPSError,
+    ProtocolError,
+    RPCTimeoutError,
+    ServerClosedError,
+    ServerDrainingError,
+)
+from distkeras_tpu_torch.netps.fold import commit_scale, fold_delta
+from distkeras_tpu_torch.netps.server import PSServer
+
+__all__ = [
+    "CommitResult", "LeaseExpiredError", "NetPSError", "PSClient",
+    "PSServer", "ProtocolError", "RPCTimeoutError", "ServerClosedError",
+    "ServerDrainingError", "commit_scale", "fold_delta",
+]

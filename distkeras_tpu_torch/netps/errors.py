@@ -1,5 +1,6 @@
-"""Typed failure taxonomy of the wire transport (the port's copy of the JAX
-package's ``netps/errors.py``).
+"""Typed failure taxonomy of the wire transport and the parameter server
+(the port's copy of the JAX package's ``netps/errors.py``; the failover and
+sharding errors come with those slices).
 
 Every way an RPC over the wire can fail is one of these, so callers and
 tests match on type — never on message strings.
@@ -29,3 +30,20 @@ class RPCTimeoutError(NetPSError):
     def __init__(self, message: str, attempts: int = 0):
         super().__init__(message)
         self.attempts = attempts
+
+
+class ServerDrainingError(NetPSError):
+    """The server is draining (``close()`` was called): it no longer accepts
+    commits. Deliberately **not retryable** — a draining server never comes
+    back, so the client surfaces this to the worker loop immediately."""
+
+
+class LeaseExpiredError(NetPSError):
+    """The server evicted this worker (its lease expired) before the RPC
+    arrived. The hardened client reacts by re-joining; the worker loop
+    discards the in-flight window and continues from a fresh pull."""
+
+
+class ServerClosedError(NetPSError):
+    """A parameter-server client was used after ``close()``. Worker threads
+    blocked on it must exit, not commit into a dead center forever."""

@@ -20,7 +20,10 @@ read-only inputs and copy before long-term mutation.
 **Per-tensor codecs** (``DKTPU_NET_COMPRESS``): a float32 tensor may ride
 the wire as ``bf16`` (top-16-bit truncation) or ``int8`` (per-tensor
 symmetric scale); the spec records the wire dtype plus ``codec`` (and
-``scale``) so :func:`decode_frame` transparently dequantizes to float32.
+``scale``) so :func:`decode_frame` transparently dequantizes to float32,
+or, through :func:`finish_frame` with ``decode=False`` (the parameter
+server's compressed-domain fold), hands each array back as a ``(wire
+array, spec)`` pair.
 
 Hardening, in the order a stray peer meets it: magic + version (a desync
 fails in the first 3 bytes), a bounded length (``DKTPU_NET_MAX_FRAME``,
@@ -67,7 +70,15 @@ CODECS = (CODEC_NONE, CODEC_BF16, CODEC_INT8)
 #: speaks the plain one to the port.
 CAPS = {"codecs": list(CODECS), "serving": True}
 
-#: serving-plane ops carried in ``header["op"]``.
+#: the core parameter-server ops carried in ``header["op"]``.
+OP_JOIN = "join"
+OP_PULL = "pull"
+OP_COMMIT = "commit"
+OP_HEARTBEAT = "heartbeat"
+OP_LEAVE = "leave"
+
+#: serving-plane ops carried in ``header["op"]`` (``stats`` is also the
+#: parameter server's membership-free scrape).
 OP_INFER = "infer"
 OP_STATS = "stats"
 
@@ -205,7 +216,11 @@ def decode_frame(raw: bytes) -> tuple[int, dict, list]:
     return kind, header, arrays
 
 
-def _decode_body(body) -> tuple[dict, list]:
+def _decode_body(body, decode: bool = True) -> tuple[dict, list]:
+    """``decode=False`` keeps codec'd tensors in their *wire* dtype: every
+    array comes back as an ``(array, spec)`` pair (a plain tensor's spec
+    has no codec) — the server's compressed-domain fold consumes the pairs
+    directly."""
     if len(body) < 4:
         raise ProtocolError(f"frame body too short ({len(body)} bytes)")
     (hlen,) = struct.unpack_from("!I", body)
@@ -238,7 +253,8 @@ def _decode_body(body) -> tuple[dict, list]:
         try:
             raw_arr = np.frombuffer(body, dtype=dt, count=count,
                                     offset=off).reshape(shape)
-            arrays.append(codec_decode(raw_arr, spec))
+            arrays.append(codec_decode(raw_arr, spec) if decode
+                          else (raw_arr, spec))
         except ValueError as e:
             raise ProtocolError(f"undecodable array {spec!r}: {e}") from e
         off += n
@@ -268,18 +284,19 @@ def recv_exact(sock: socket.socket, n: int) -> bytes:
 
 
 def finish_frame(sock: socket.socket, prefix: bytes,
-                 max_frame: Optional[int] = None,
+                 max_frame: Optional[int] = None, decode: bool = True,
                  ) -> tuple[int, int, dict, list]:
     """Given an already-received prefix, read + verify + decode the rest:
     ``(kind, total_frame_bytes, header, arrays)`` — the server handler's
     half of :func:`read_frame` (it polls for the prefix itself so
-    ``close()`` can interrupt it)."""
+    ``close()`` can interrupt it). ``decode=False`` returns every array as
+    an ``(array, spec)`` pair in its wire dtype."""
     kind, crc, length = parse_prefix(prefix, max_frame)
     body = bytearray(length)
     recv_exact_into(sock, memoryview(body))
     if zlib.crc32(body) != crc:
         raise ProtocolError("frame checksum mismatch (corrupt or truncated)")
-    header, arrays = _decode_body(body)
+    header, arrays = _decode_body(body, decode=decode)
     return kind, PREFIX_SIZE + length, header, arrays
 
 

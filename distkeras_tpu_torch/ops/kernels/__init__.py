@@ -6,4 +6,5 @@
 | ``lstm`` | ``csrc/lstm_bwd.cu`` (BPTT backward) | ``distkeras_tpu/ops/pallas/lstm.py:_bwd_kernel`` |
 | ``groupnorm`` | ``csrc/groupnorm.cu`` (``group_norm_fwd_f32``) | ``distkeras_tpu/ops/pallas/groupnorm.py:_fwd_kernel`` |
 | ``groupnorm`` | ``csrc/groupnorm.cu`` (``group_norm_bwd_f32``) | ``distkeras_tpu/ops/pallas/groupnorm.py:_bwd_kernel`` |
+| ``fold`` | ``csrc/fold.cu`` (``fold_int8_f32``, ``fold_bf16_f32``) | ``distkeras_tpu/ops/pallas/fold.py:_fold_kernel`` |
 """

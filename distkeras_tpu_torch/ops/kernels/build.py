@@ -57,6 +57,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def all_sources() -> list:
+    """The name of every CUDA source of the port (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
 def build(names: Iterable[str]) -> dict:
     """Compile every named source whose library is missing, one ``nvcc``
     each, all started together. Returns ``{name: library path}``; raises
@@ -99,8 +104,10 @@ def load(name: str) -> ctypes.CDLL:
 
 
 #: ctypes argument types of the C entry points: a pointer (a tensor's
-#: ``data_ptr()`` or the stream) and an ``int``.
+#: ``data_ptr()`` or the stream), an ``int``, an ``int64_t`` (an element
+#: count past 2^31) and a ``float`` (a scale rounded to f32 on the host).
 PTR, INT = ctypes.c_void_p, ctypes.c_int
+I64, F32 = ctypes.c_int64, ctypes.c_float
 
 
 class KernelLib:
@@ -129,10 +136,17 @@ class KernelLib:
             self._fns[entry] = fn
         return fn
 
+    def bind(self) -> None:
+        """Build, load and type every entry point now, not at its first
+        launch."""
+        for entry in self._entries:
+            self._fn(entry)
+
     def launch(self, entry: str, *args) -> None:
         """Call ``entry`` on the current stream of the first tensor's
-        device: tensors pass their ``data_ptr()``, ints as they are. Raises
-        if the C function returns a CUDA error (a refused launch)."""
+        device: tensors pass their ``data_ptr()``, numbers as they are (the
+        entry's argtypes convert them). Raises if the C function returns a
+        CUDA error (a refused launch)."""
         dev = args[0].device
         ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                 for a in args]

@@ -115,6 +115,32 @@ ENV_REGISTRY: dict = _declare(
            "Largest wire frame (bytes) either side will accept; oversized "
            "frames are rejected before any allocation.",
            "network"),
+    EnvVar("DKTPU_NET_INFLIGHT", "int", 1,
+           "Max un-ACKed netps commits a remote worker may have in flight "
+           "while it computes ahead (compute/comms overlap); 1 = the serial "
+           "pull -> compute -> commit loop. Staleness accounting always "
+           "reflects the realized in-flight delay.",
+           "network"),
+    EnvVar("DKTPU_NET_SHARDS", "int", 1,
+           "Connections a netps client stripes each pull/commit's tensors "
+           "across; 1 = one socket. The port does not stripe: its remote "
+           "loop raises above 1.",
+           "network"),
+    EnvVar("DKTPU_NET_TRANSPORT", "str", "tcp",
+           "netps wire dialect: `tcp` (default), `shm` (a shared-memory "
+           "ring between colocated peers) or `mesh` (same-runtime peers "
+           "fold straight into the device center). The port serves only "
+           "`tcp`; its remote loop raises for the others.",
+           "network"),
+    EnvVar("DKTPU_NET_HIER", "bool", False,
+           "Hierarchical two-level folds through a per-host aggregator. "
+           "Not ported: the port's remote loop raises when it is set.",
+           "network"),
+    EnvVar("DKTPU_NET_AUTOTUNE", "bool", False,
+           "Self-tuning data plane (codec probes and an online control "
+           "loop). Not ported: the port's remote loop raises when it is "
+           "set.",
+           "network"),
     EnvVar("DKTPU_NET_COMPRESS", "str", "none",
            "Delta codec for commits: `none` (f32), `bf16` (truncate), or "
            "`int8` (per-tensor scale).",

@@ -12,10 +12,12 @@ per step) for the single and synchronous ones.
 Ported: ``Trainer``, ``DistributedTrainer``,
 ``AsynchronousDistributedTrainer``, the discipline trainers DOWNPOUR, ADAG,
 DynSGD, AEASGD and EAMSGD, ``SingleTrainer`` and
-``SynchronousDistributedTrainer``. Refused with ``NotImplementedError``
+``SynchronousDistributedTrainer``. With ``remote="host:port"`` (or
+``DKTPU_PS_ENDPOINT``) the discipline trainers train against a networked
+parameter server instead (``netps/remote.py``: W worker threads, each
+pull -> K local steps -> commit). Refused with ``NotImplementedError``
 until their slices: checkpoints (``checkpoint_dir``), the metrics log
-(``metrics_path``), the networked parameter server (``remote`` /
-``DKTPU_PS_ENDPOINT``), model-parallel submeshes (``parallel``) and any
+(``metrics_path``), model-parallel submeshes (``parallel``) and any
 ``compute_dtype`` other than float32. The averaging and ensemble trainers
 come with a later slice.
 """
@@ -31,7 +33,8 @@ import numpy as np
 from distkeras_tpu_torch.data.batching import make_batches
 from distkeras_tpu_torch.data.dataframe import DataFrame
 from distkeras_tpu_torch.models.base import Model
-from distkeras_tpu_torch.ops.optimizers import sgd
+from distkeras_tpu_torch.ops.losses import get_loss
+from distkeras_tpu_torch.ops.optimizers import get_optimizer, sgd
 from distkeras_tpu_torch.parallel.disciplines import (
     ADAGFold,
     AEASGDFold,
@@ -48,6 +51,25 @@ from distkeras_tpu_torch.runtime.config import RunConfig
 #: Socket-era reference kwargs with no meaning here (no master address or
 #: port to bind): accepted and ignored, with a warning, as in the JAX package.
 _LEGACY_SOCKET_KWARGS = frozenset({"master_port", "master_host", "master", "port"})
+
+#: Discipline-fold class -> the wire name the parameter server folds under
+#: (subclass before base: EAMSGDFold is an AEASGDFold).
+_FOLD_WIRE_NAMES = (
+    (EAMSGDFold, "eamsgd"),
+    (AEASGDFold, "aeasgd"),
+    (DynSGDFold, "dynsgd"),
+    (ADAGFold, "adag"),
+    (DownpourFold, "downpour"),
+)
+
+
+def _fold_wire_name(disc: Discipline) -> str:
+    for cls, name in _FOLD_WIRE_NAMES:
+        if isinstance(disc, cls):
+            return name
+    raise ValueError(
+        f"{type(disc).__name__} has no networked parameter-server "
+        "equivalent (only the communicating PS disciplines do)")
 
 
 def _config_prop(name: str) -> property:
@@ -291,12 +313,20 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         super().__init__(*args, **kwargs)
         self.config = self.config.replace(
             communication_window=communication_window)
+        if parallel and (remote
+                         or runtime_config.env_str("DKTPU_PS_ENDPOINT")):
+            raise ValueError(
+                "remote= or DKTPU_PS_ENDPOINT (networked parameter server) "
+                "and parallel= (model-parallel submeshes) cannot combine: "
+                "the remote worker loop runs whole-model replicas")
         if parallel:
             raise _not_ported("parallel= (model-parallel submeshes)",
                               "model-parallel engines")
-        if remote:
-            raise _not_ported("remote= (the networked parameter server)",
-                              "netps")
+        #: ``"host:port"`` of a networked parameter server: the worker loop
+        #: becomes pull -> K local steps -> commit through the hardened TCP
+        #: client instead of the in-process fold. Defaults from
+        #: DKTPU_PS_ENDPOINT.
+        self.remote = remote
         self.divergence_reset = divergence_reset
 
     def _discipline(self) -> Discipline:
@@ -321,13 +351,55 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         )
         return self._execute(engine, plan)
 
+    def _remote_endpoint(self) -> Optional[str]:
+        return (self.remote or runtime_config.env_str("DKTPU_PS_ENDPOINT")
+                or None)
+
+    def _train_remote(self, dataframe: DataFrame, shuffle: bool,
+                      endpoint: str) -> Model:
+        """The networked-PS path: W worker threads, each pull -> K local
+        steps -> commit over TCP through the hardened client
+        (``netps/remote.py``); returns the server's final center."""
+        from distkeras_tpu_torch.netps.remote import run_remote
+
+        if self.device_transform is not None:
+            raise NotImplementedError(
+                "device_transform= (input_transform, on-device "
+                "augmentation) is not ported yet")
+        if (self.divergence_reset is not None or runtime_config.env_float(
+                "DKTPU_DIVERGENCE_RESET") is not None):
+            raise _not_ported("divergence_reset (DKTPU_DIVERGENCE_RESET)",
+                              "resilience")
+        W = self.num_workers or 1
+        plan = make_batches(
+            dataframe, self.features_col, self.label_col, self.batch_size,
+            num_workers=W, window=self.communication_window,
+            num_epoch=self.num_epoch, shuffle=shuffle, seed=self.seed,
+            transform=self.transform,
+        )
+        disc = self._discipline()
+        params, losses = run_remote(
+            endpoint=endpoint, model=self.model,
+            tx=get_optimizer(self.worker_optimizer, self.learning_rate),
+            loss_fn=get_loss(self.loss), plan=plan,
+            discipline=_fold_wire_name(disc),
+            window=self.communication_window,
+            alpha=getattr(disc, "alpha", 0.05), seed=self.seed,
+            compute_dtype=self.compute_dtype, grad_accum=self.grad_accum,
+        )
+        self.worker_histories = losses.T
+        self.history = np.nanmean(losses, axis=1)
+        return self.model.with_params(params)
+
     def train(self, dataframe: DataFrame, shuffle: bool = False) -> Model:
         """Train on ``dataframe``; returns the trained center as a
         :class:`Model` on the model's device."""
-        if runtime_config.env_str("DKTPU_PS_ENDPOINT"):
-            raise _not_ported("DKTPU_PS_ENDPOINT (the networked parameter "
-                              "server)", "netps")
         self.record_training_start()
+        endpoint = self._remote_endpoint()
+        if endpoint:
+            model = self._train_remote(dataframe, shuffle, endpoint)
+            self.record_training_stop()
+            return model
         state = self._run(dataframe, shuffle)
         self.record_training_stop()
         return self.model.with_params(state.center)

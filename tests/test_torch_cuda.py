@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from distkeras_tpu_torch.ops.kernels import fold as F
 from distkeras_tpu_torch.ops.kernels import groupnorm as G
 from distkeras_tpu_torch.ops.kernels import lstm as K
 
@@ -192,3 +193,89 @@ def test_tiny_resnet_step_on_card_launches_the_group_norm_kernels(card):
     torch.cuda.synchronize()
     assert G.launch_counts() == {"group_norm_fwd": 9, "group_norm_bwd": 9}
     assert all(torch.isfinite(p).all() for p in out.params.values())
+
+
+def _wire(codec: str, n: int, g: torch.Generator):
+    """A random wire tensor of ``codec`` on the card and its spec."""
+    if codec == "int8":
+        q = torch.randint(-127, 128, (n,), generator=g, dtype=torch.int8)
+        return q.cuda(), {"codec": "int8", "scale": 0.0123}
+    bits = (torch.randn(n, generator=g) / 100).view(torch.int32) >> 16
+    return bits.to(torch.int16).cuda(), {"codec": "bf16"}
+
+
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+@pytest.mark.parametrize("n,offset", [(1_000_003, 0), (4099, 0), (3, 0),
+                                      (70_001, 1), (70_001, 3)])
+def test_fold_kernel_bit_equal_to_plain_on_card(card, codec, n, offset):
+    """The fold kernel against its plain twin, bit for bit (the product
+    and the sum rounded apart, no FMA): a ragged n (not a multiple of the
+    8-element vector), and centers that start 1 or 3 floats into their
+    storage, so the pointers are misaligned and the scalar path runs."""
+    g = torch.Generator().manual_seed(n + offset)
+    base = torch.randn(n + offset, generator=g).cuda()
+    center = base[offset:]
+    head = base[:offset].clone()
+    q, spec = _wire(codec, n, g)
+    ref = center.clone()
+    s = F.fold_scale(codec, spec, 1.0 / 3.0)
+    F.fold_compressed_plain_(ref, q, codec, s)
+    before = F.launch_counts()[f"fold_{codec}"]
+    F.fold_compressed_(center, q, spec, 1.0 / 3.0)
+    torch.cuda.synchronize()
+    assert F.launch_counts()[f"fold_{codec}"] == before + 1
+    assert torch.equal(center, ref)
+    assert torch.equal(base[:offset], head)  # nothing before it written
+
+
+def test_fold_refuses_what_it_does_not_take(card):
+    q = torch.ones(8, dtype=torch.int8, device="cuda")
+    spec = {"codec": "int8", "scale": 1.0}
+    before = F.launch_counts()
+    with pytest.raises(ValueError, match="one device"):
+        F.fold_compressed_(torch.ones(8, device="cuda"), q.cpu(), spec, 1.0)
+    with pytest.raises(TypeError, match="float32"):
+        F.fold_compressed_(torch.ones(8, device="cuda").half(), q, spec, 1.0)
+    assert F.launch_counts() == before
+
+
+def test_remote_run_on_card_folds_every_commit_through_the_kernel(
+        card, monkeypatch):
+    """A 2-round DynSGD remote= run with the server and the model on the
+    card, int8 commits: one fold launch per tensor per folded commit, the
+    LSTM kernels once per local step, and the model is the center."""
+    from distkeras_tpu_torch import DynSGD, imdb_lstm
+    from distkeras_tpu_torch.data import DataFrame
+    from distkeras_tpu_torch.netps import PSClient, PSServer
+
+    monkeypatch.setenv("DKTPU_NET_COMPRESS", "int8")
+    W, Kw, B, rounds = 2, 2, 8, 2
+    model = imdb_lstm(vocab_size=50, embed_dim=8, hidden_size=8, seq_len=6,
+                      device="cuda")
+    rng = np.random.default_rng(0)
+    n = W * Kw * B * rounds
+    df = DataFrame({"features": rng.integers(0, 50, (n, 6)).astype(np.int32),
+                    "label": rng.integers(0, 2, n).astype(np.int32)})
+    srv = PSServer(discipline="dynsgd", device="cuda").start()
+    try:
+        F.reset_launches()
+        K.reset_launches()
+        out = DynSGD(model, worker_optimizer="sgd",
+                     loss="sparse_categorical_crossentropy", num_workers=W,
+                     batch_size=B, communication_window=Kw,
+                     learning_rate=0.1, remote=srv.endpoint).train(df)
+        torch.cuda.synchronize()
+        with PSClient(srv.endpoint) as observer:
+            assert observer.stats()["fold_backend"] == "cuda"
+        center = srv.center()
+        commits = len(srv.commit_log)
+    finally:
+        srv.close()
+    tensors = len(model.params)
+    assert commits == W * rounds, f"{srv.evictions} evictions"
+    assert F.launch_counts() == {"fold_int8": tensors * commits,
+                                 "fold_bf16": 0}
+    counts = K.launch_counts()
+    assert counts["lstm_fwd_stash"] == counts["lstm_bwd"] == W * rounds * Kw
+    for p, c in zip(out.params.values(), center):
+        assert np.array_equal(p.cpu().numpy(), c)

@@ -1,0 +1,176 @@
+"""The slice as a whole: ``DynSGD``/``ADAG``/``AEASGD(..., remote=...)``
+of the port against the port's own parameter server, held to the same
+trainers of the JAX package against the JAX server, from the same weights
+on the same DataFrame. One worker, so commit order is fixed; the JAX model
+runs ``cell_impl="pallas"`` (its Pallas LSTM kernels in interpret mode),
+the port its plain twins on a CPU center.
+
+Tolerances: codec ``none`` within rtol = atol = 1e-5 (f32 sums in another
+order, as ``tests/test_torch_trainers.py``). ``int8``: a delta that differs
+by ~1e-7 can round to a neighbouring int8 step, so the centers may differ
+by up to the sum over commits of each commit's largest quantization step
+(``spec["scale"] * commit_scale``), plus the 1e-5."""
+
+import jax
+import numpy as np
+import pytest
+
+import distkeras_tpu as dk
+from distkeras_tpu.data.dataframe import DataFrame as JaxDataFrame
+from distkeras_tpu.models.lstm import imdb_lstm as jax_imdb_lstm
+from distkeras_tpu.netps import PSServer as JaxPSServer
+from distkeras_tpu_torch import imdb_lstm
+from distkeras_tpu_torch import trainers as T
+from distkeras_tpu_torch.convert import params_from_jax
+from distkeras_tpu_torch.data import DataFrame
+from distkeras_tpu_torch.netps import PSClient, PSServer
+from distkeras_tpu_torch.netps import server as server_mod
+from distkeras_tpu_torch.netps.fold import commit_scale, split_entry
+from distkeras_tpu_torch.ops.kernels import fold as F
+from distkeras_tpu_torch.ops.kernels import lstm as K
+
+SMALL = dict(vocab_size=50, embed_dim=8, hidden_size=8, seq_len=6)
+K_STEPS, B, ROUNDS = 2, 5, 3
+
+
+def _columns(W, rounds=ROUNDS, seed=0):
+    rng = np.random.default_rng(seed)
+    n = W * K_STEPS * B * rounds
+    return {"features": rng.integers(0, 50, (n, 6)).astype(np.int32),
+            "label": rng.integers(0, 2, n).astype(np.int32)}
+
+
+def _kw(W):
+    return dict(worker_optimizer="sgd",
+                loss="sparse_categorical_crossentropy", num_workers=W,
+                batch_size=B, communication_window=K_STEPS,
+                learning_rate=0.1)
+
+
+def _port_model(jm):
+    pm = imdb_lstm(**SMALL, device="cpu")
+    pm.module.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jm.params), pm.module))
+    return pm
+
+
+def _quant_steps(monkeypatch) -> list:
+    """Record, for every commit the port server folds, its largest int8
+    step ``spec["scale"] * commit_scale``."""
+    steps = []
+    real = server_mod.fold_delta
+
+    def recording(center, delta, discipline, staleness):
+        scale = commit_scale(discipline, staleness)
+        steps.append(max((float(spec.get("scale", 0.0)) * scale
+                          for _a, spec in map(split_entry, delta) if spec),
+                         default=0.0))
+        return real(center, delta, discipline, staleness)
+
+    monkeypatch.setattr(server_mod, "fold_delta", recording)
+    return steps
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+@pytest.mark.parametrize("name,discipline", [("DynSGD", "dynsgd"),
+                                             ("ADAG", "adag"),
+                                             ("AEASGD", "aeasgd")])
+def test_remote_trainer_matches_jax(monkeypatch, name, discipline, codec):
+    monkeypatch.setenv("DKTPU_NET_COMPRESS", codec)
+    steps = _quant_steps(monkeypatch)
+    cols = _columns(1)
+    jm = jax_imdb_lstm(**SMALL, cell_impl="pallas", seed=1)
+    pm = _port_model(jm)
+    jsrv = JaxPSServer(discipline=discipline).start()
+    tsrv = PSServer(discipline=discipline, device="cpu").start()
+    try:
+        jt = getattr(dk, name)(jm, **_kw(1), remote=jsrv.endpoint)
+        jout = jt.train(JaxDataFrame(cols))
+        pt = getattr(T, name)(pm, **_kw(1), remote=tsrv.endpoint)
+        before = (K.launch_counts(), F.launch_counts())
+        pout = pt.train(DataFrame(cols))
+        assert (K.launch_counts(), F.launch_counts()) == before  # CPU
+        assert len(tsrv.commit_log) == len(jsrv.commit_log) == ROUNDS
+    finally:
+        jsrv.close()
+        tsrv.close()
+    assert pt.get_worker_histories().shape == (1, ROUNDS)
+    assert pt.get_history().shape == (ROUNDS,)
+    bound = 1e-5 + (sum(steps) if codec == "int8" else 0.0)
+    assert (codec == "int8") == (len(steps) == ROUNDS and min(steps) > 0)
+    ref = params_from_jax(jax.tree_util.tree_map(np.asarray, jout.params),
+                          pm.module)
+    got = pout.module.state_dict()
+    for k, v in ref.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-5,
+                                   atol=bound)
+    np.testing.assert_allclose(pt.get_worker_histories(),
+                               np.asarray(jt.get_worker_histories()),
+                               rtol=1e-5, atol=bound)
+    for p, c in zip(pout.params.values(), tsrv.center()):
+        np.testing.assert_array_equal(p.numpy(), c)
+
+
+def test_two_workers_train_and_the_model_is_the_center(monkeypatch):
+    monkeypatch.setenv("DKTPU_NET_COMPRESS", "int8")
+    W, rounds = 2, 6
+    cols = _columns(W, rounds=rounds, seed=3)
+    cols["label"] = (cols["features"][:, 0] < 25).astype(np.int32)
+    pm = imdb_lstm(**SMALL, device="cpu", seed=2)
+    srv = PSServer(discipline="dynsgd", device="cpu").start()
+    try:
+        t = T.DynSGD(pm, **{**_kw(W), "learning_rate": 0.5},
+                     remote=srv.endpoint)
+        out = t.train(DataFrame(cols))
+        assert len(srv.commit_log) == W * rounds
+        assert sorted(w for w, _s, _st in srv.commit_log) == [0] * rounds \
+            + [1] * rounds
+        for (name, p), c in zip(out.params.items(), srv.center()):
+            np.testing.assert_array_equal(p.numpy(), c, err_msg=name)
+        with PSClient(srv.endpoint) as observer:
+            assert observer.stats()["fold_backend"] == "torch-cpu"
+    finally:
+        srv.close()
+    hist = t.get_worker_histories()
+    assert hist.shape == (W, rounds) and np.isfinite(hist).all()
+    assert t.get_history()[-1] < t.get_history()[0]
+
+
+def test_remote_with_parallel_is_a_value_error(monkeypatch):
+    pm = imdb_lstm(**SMALL, device="cpu")
+    with pytest.raises(ValueError, match="cannot combine"):
+        T.DynSGD(pm, **_kw(1), remote="127.0.0.1:1",
+                 parallel={"model": 2})
+    monkeypatch.setenv("DKTPU_PS_ENDPOINT", "127.0.0.1:1")
+    with pytest.raises(ValueError, match="cannot combine"):
+        T.ADAG(pm, **_kw(1), parallel={"model": 2})
+
+
+def test_ps_endpoint_env_routes_to_the_server(monkeypatch):
+    srv = PSServer(discipline="adag", device="cpu").start()
+    try:
+        monkeypatch.setenv("DKTPU_PS_ENDPOINT", srv.endpoint)
+        pm = imdb_lstm(**SMALL, device="cpu")
+        t = T.ADAG(pm, **_kw(1))
+        t.train(DataFrame(_columns(1)))
+        assert [w for w, _s, _st in srv.commit_log] == [0] * ROUNDS
+    finally:
+        srv.close()
+
+
+@pytest.mark.parametrize("env,match", [
+    ({"DKTPU_NET_INFLIGHT": "2"}, "DKTPU_NET_INFLIGHT"),
+    ({"DKTPU_NET_SHARDS": "2"}, "DKTPU_NET_SHARDS"),
+    ({"DKTPU_NET_HIER": "1"}, "DKTPU_NET_HIER"),
+    ({"DKTPU_NET_AUTOTUNE": "1"}, "DKTPU_NET_AUTOTUNE"),
+    ({"DKTPU_NET_TRANSPORT": "shm"}, "DKTPU_NET_TRANSPORT"),
+    ({"DKTPU_NET_TRANSPORT": "mesh"}, "DKTPU_NET_TRANSPORT"),
+    ({"DKTPU_PS_ENDPOINT": "127.0.0.1:1;127.0.0.1:2"}, "sharded"),
+])
+def test_unported_remote_options_raise(monkeypatch, env, match):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    pm = imdb_lstm(**SMALL, device="cpu")
+    remote = None if "DKTPU_PS_ENDPOINT" in env else "127.0.0.1:1"
+    with pytest.raises(NotImplementedError, match=match):
+        T.DynSGD(pm, **_kw(1), remote=remote).train(DataFrame(_columns(1)))

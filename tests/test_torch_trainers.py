@@ -88,7 +88,9 @@ def test_on_round_and_rounds_per_program():
     ({"checkpoint_dir": "/nonexistent"}, "checkpoint"),
     ({"metrics_path": "m.jsonl"}, "metrics"),
     ({"compute_dtype": "bfloat16"}, "compute_dtype"),
-    ({"remote": "127.0.0.1:1"}, "remote"),
+    # remote= itself is ported (tests/test_torch_remote.py); a sharded
+    # endpoint matrix is not.
+    ({"remote": "127.0.0.1:1;127.0.0.1:2"}, "remote"),
     ({"parallel": {"model": 2}}, "parallel"),
     ({"divergence_reset": 1.0}, "divergence_reset"),
     ({"device_transform": lambda rng, x, y: (x, y)}, "input_transform"),
@@ -103,7 +105,10 @@ def test_ps_endpoint_env_and_unknown_kwargs_raise(monkeypatch):
     pm = imdb_lstm(**SMALL, device="cpu")
     with pytest.raises(TypeError, match="unexpected kwargs"):
         T.DynSGD(pm, **KW, bogus=1)
-    monkeypatch.setenv("DKTPU_PS_ENDPOINT", "127.0.0.1:1")
+    # DKTPU_PS_ENDPOINT routes to the remote loop
+    # (tests/test_torch_remote.py); a sharded endpoint matrix there is not
+    # ported.
+    monkeypatch.setenv("DKTPU_PS_ENDPOINT", "127.0.0.1:1;127.0.0.1:2")
     with pytest.raises(NotImplementedError, match="DKTPU_PS_ENDPOINT"):
         T.DynSGD(pm, **KW).train(DataFrame(_columns()))
 
