@@ -10,7 +10,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
 1. ``card`` / ``build`` — the card's name and power limit, then every CUDA
    kernel of the port built from ``distkeras_tpu_torch/csrc/`` into
    ``build/kernels/`` (one ``nvcc`` per source, all started together):
-   ``lstm_fwd.cu``, ``lstm_bwd.cu``, ``groupnorm.cu`` and ``fold.cu``.
+   ``lstm_fwd.cu``, ``lstm_bwd.cu``, ``groupnorm.cu``, ``fold.cu`` and
+   ``flash_attn.cu``.
 2. ``kernel`` — each kernel's wrapper against its plain PyTorch version on
    the same CUDA tensors, at the shapes its path gives it (the IMDB LSTM at
    full width: T=200, E=64, H=128, f32): the forward at the serving buckets
@@ -75,6 +76,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
    with codec ``none`` (centers within 1e-5) and ``int8`` (centers within
    the sum of each commit's largest quantization step; the losses within
    that plus 1e-5).
+
+10. ``flash_kernel`` — the causal flash attention kernels (forward, dQ,
+    dK/dV; ``csrc/flash_attn.cu``) against their plain twins on the same
+    CUDA tensors, in f32 and bf16, at config #7's shape [8, 2048, 16, 64]
+    and ragged ones (L = 40 and 200, D = 32, B*H = 1): errors with their
+    limits, two backward calls' bits, kernel and plain times by CUDA
+    events, ``F.scaled_dot_product_attention``'s (bf16, a yardstick the
+    port never calls), beside the bound (bytes over 3.35 TB/s against the
+    causal products at 989 TFLOP/s bf16).
+11. ``transformer_train`` — BASELINE config #7 as a user drives it:
+    ``AEASGD(small_transformer_lm(vocab 32768, 8 layers, d_model 1024,
+    16 heads, d_ff 4096, seq 2048, attn_impl="flash", remat=True), "adam",
+    ...)`` at batch 8, window 8, lr 1e-4, rho 500, f32, 2 rounds. The
+    launch counts are set to 0 just before and read just after: each
+    local step must launch the forward 16 times (8 layers, twice with
+    remat) and dQ and dK/dV 8 times each. Then tokens/s, the rounds apart,
+    the peak memory and the split of one step by CUDA events (forward,
+    loss, backward, adam update, and the flash kernels' share).
+12. ``transformer_parity`` — a small transformer (2 layers, d_model 128,
+    4 heads, L 256) from one seed: logits and the center after one AEASGD
+    round, on the card and on the CPU (the twins), held within a quarter
+    (logits) and a half (center) of the CPU run's flash-vs-dense
+    distance.
 
 Then the ``kernels`` line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -182,10 +206,56 @@ REMOTE_PARITY_ATOL = 1e-5
 #: center and its delta cold, as the server finds them between commits.
 FLUSH_BYTES = 256 << 20
 
-#: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
-#: float32 outside the tensor cores.
+#: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s,
+#: float32 outside the tensor cores, and bf16 on the tensor cores (the
+#: flash kernels' products: bf16 operands, f32 sums).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+
+# The flash transformer at full width (BASELINE config #7, bench.py:
+# TransformerLM(vocab 32768, 8 layers, d_model 1024, 16 heads, d_ff 4096,
+# seq 2048, attn_impl="flash", remat=True) as one AEASGD worker, adam,
+# lr 1e-4, rho 500 (alpha 0.05), batch 8, window 8), f32 where the bench
+# runs bf16, cut to 2 rounds (16 local steps).
+LM = dict(vocab_size=32768, num_layers=8, d_model=1024, num_heads=16,
+          d_ff=4096, max_seq_len=2048)
+LM_SEQ = 2048
+LM_TRAIN = dict(num_workers=1, batch_size=8, communication_window=8,
+                learning_rate=1e-4, rho=500.0)
+LM_ROUNDS = 2
+#: the flash kernels' shapes [B, L, H, D]: config #7's, then ragged ones
+#: (L not a tile multiple, D = 32, B*H = 1).
+FLASH_SHAPES = ((8, LM_SEQ, 16, 64), (2, 40, 4, 64), (2, 200, 4, 64),
+                (2, 256, 4, 32), (1, LM_SEQ, 1, 64))
+#: flash kernels vs their twins, as shares of the twin's largest (``top``)
+#: and mean (``mean``) magnitude. f32: the same bf16 rounding points and
+#: only the order of the f32 sums differs, so the mean error is f32 level;
+#: where the order flips the bf16 rounding of one p or ds, that element
+#: moves by one bf16 step (2^-8 of itself), which ``top`` allows. bf16
+#: outputs add their own rounding (2^-8 of each element). lse in absolute
+#: terms (f32 sums of up to 2048 terms near log(2048)).
+FLASH_LIMITS = {"float32": {"top": 2e-3, "mean": 1e-5},
+                "bfloat16": {"top": 1e-2, "mean": 1e-3}}
+FLASH_LSE_ATOL = 1e-5
+#: the small transformer run on the card and on the CPU from one seed
+#: (2 layers, d_model 128, 4 heads of 32, d_ff 512, vocab 1024, L 256,
+#: batch 2, one AEASGD round of window 2): the card-vs-CPU distance may
+#: be at most a share of the CPU run's flash-vs-dense-f32 distance (the
+#: rounding the design puts in: bf16 operands). A quarter for the logits
+#: (a forward: the two differ only where an f32 sum order flips a bf16
+#: rounding of p). Half for the center after training: ds = bf16(p * (dp
+#: - delta)) rounds a difference that cancels at random init, so sum-order
+#: noise flips ds's rounding often, and on the CPU the JAX package's flash
+#: run and the port's, the same arithmetic in another order, already read
+#: 0.24-0.33 of their flash-vs-dense distance on the center.
+LM_PARITY = dict(vocab_size=1024, num_layers=2, d_model=128, num_heads=4,
+                 d_ff=512, max_seq_len=256)
+LM_PARITY_SEQ = 256
+LM_PARITY_TRAIN = dict(num_workers=1, batch_size=2, communication_window=2,
+                       learning_rate=1e-4, rho=500.0)
+LM_PARITY_LOGITS_SHARE = 0.25
+LM_PARITY_CENTER_SHARE = 0.5
 
 
 def emit(obj) -> None:
@@ -420,28 +490,28 @@ def bwd_phase(torch, K, model, rng) -> dict:
     return rows
 
 
-def step_split(torch, model, x, y, lr: float, steps: int = 3,
-               gn=None) -> dict:
-    """Milliseconds of one local training step on ``x, y``, split by CUDA
-    events into the forward, the loss, the backward and the sgd update;
-    the mean of ``steps`` steps after a warm one. With ``gn`` (the
-    GroupNorm kernel module) it also sums CUDA events around every
-    GroupNorm kernel call inside the forward and the backward
-    (``gn_forward``, ``gn_backward``)."""
+def step_split(torch, model, x, y, tx, steps: int = 3, timed=None) -> dict:
+    """Milliseconds of one local training step on ``x, y`` with the
+    optimizer ``tx``, split by CUDA events into the forward, the loss, the
+    backward and the update; the mean of ``steps`` steps after a warm one.
+    With ``timed = (module, {wrapper name: key})`` it also sums CUDA events
+    around every call of each named kernel wrapper of ``module`` inside
+    the step (``key`` in the result, and its calls a step under
+    ``calls``)."""
     from torch.func import functional_call
 
     from distkeras_tpu_torch.ops.losses import get_loss
-    from distkeras_tpu_torch.ops.optimizers import apply_updates, sgd
+    from distkeras_tpu_torch.ops.optimizers import apply_updates
 
     loss_fn = get_loss("sparse_categorical_crossentropy")
-    tx = sgd(lr)
     params = model.params
     opt = tx.init(params)
     module = model.module
-    spans = {"gn_forward": [], "gn_backward": []}
+    kmod, names = timed if timed is not None else (None, {})
+    spans = {key: [] for key in names.values()}
     patched = {}
-    if gn is not None:
-        def timed(fn, key):
+    if kmod is not None:
+        def wrap(fn, key):
             def call(*args):
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
@@ -451,13 +521,12 @@ def step_split(torch, model, x, y, lr: float, steps: int = 3,
                 return out
             return call
 
-        patched = {"group_norm_fwd_cuda": gn.group_norm_fwd_cuda,
-                   "group_norm_bwd_cuda": gn.group_norm_bwd_cuda}
-        gn.group_norm_fwd_cuda = timed(gn.group_norm_fwd_cuda, "gn_forward")
-        gn.group_norm_bwd_cuda = timed(gn.group_norm_bwd_cuda, "gn_backward")
+        for name, key in names.items():
+            patched[name] = getattr(kmod, name)
+            setattr(kmod, name, wrap(patched[name], key))
     module.train()
     parts = {"forward": 0.0, "loss": 0.0, "backward": 0.0, "update": 0.0}
-    gn_ms = {k: 0.0 for k in spans}
+    kernel_ms = {k: 0.0 for k in spans}
     try:
         for i in range(steps + 1):
             for v in spans.values():
@@ -472,24 +541,27 @@ def step_split(torch, model, x, y, lr: float, steps: int = 3,
             ev[2].record()
             grads = dict(zip(leaves, torch.autograd.grad(
                 loss, list(leaves.values()))))
+            del out, loss
             ev[3].record()
             updates, opt = tx.update(grads, opt, params)
             params = apply_updates(params, updates)
+            del grads, updates
             ev[4].record()
             torch.cuda.synchronize()
             if i:
                 for j, k in enumerate(parts):
                     parts[k] += ev[j].elapsed_time(ev[j + 1]) / steps
                 for k, v in spans.items():
-                    gn_ms[k] += sum(a.elapsed_time(b) for a, b in v) / steps
+                    kernel_ms[k] += sum(a.elapsed_time(b)
+                                        for a, b in v) / steps
     finally:
         module.eval()
         for name, fn in patched.items():
-            setattr(gn, name, fn)
+            setattr(kmod, name, fn)
     parts["step"] = sum(parts.values())
-    if gn is not None:
-        parts.update(gn_ms)
-        parts["gn_calls"] = {k: len(v) for k, v in spans.items()}
+    if kmod is not None:
+        parts.update(kernel_ms)
+        parts["calls"] = {k: len(v) for k, v in spans.items()}
     return parts
 
 
@@ -498,6 +570,7 @@ def train_phase(torch, K, gpu: str, seed: int):
     counts of the run."""
     from distkeras_tpu_torch import imdb_lstm, telemetry
     from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.ops.optimizers import sgd
     from distkeras_tpu_torch.trainers import DynSGD
 
     model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
@@ -523,7 +596,7 @@ def train_phase(torch, K, gpu: str, seed: int):
     split = step_split(torch, trained,
                        torch.as_tensor(df["features"][:B], device="cuda"),
                        torch.as_tensor(df["label"][:B], device="cuda"),
-                       TRAIN["learning_rate"])
+                       sgd(TRAIN["learning_rate"]))
     snap = telemetry.get().snapshot()
     emit({"phase": "train", "gpu": gpu, "trainer": "DynSGD",
           "rounds": TRAIN_ROUNDS, **TRAIN, "dtype": "float32",
@@ -823,6 +896,7 @@ def resnet_train_phase(torch, G, gpu: str, seed: int) -> dict:
     """Train config #5 as a user would; returns the launch counts."""
     from distkeras_tpu_torch import SynchronousDistributedTrainer, resnet50
     from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.ops.optimizers import sgd
 
     B, Kw = RESNET["batch_size"], RESNET["steps_per_program"]
     steps = RESNET_ROUNDS * Kw
@@ -849,7 +923,9 @@ def resnet_train_phase(torch, G, gpu: str, seed: int) -> dict:
     split = step_split(torch, trained,
                        torch.as_tensor(df["features"][:B], device="cuda"),
                        torch.as_tensor(df["label"][:B], device="cuda"),
-                       RESNET["learning_rate"], gn=G)
+                       sgd(RESNET["learning_rate"]),
+                       timed=(G, {"group_norm_fwd_cuda": "gn_forward",
+                                  "group_norm_bwd_cuda": "gn_backward"}))
     emit({"phase": "resnet_train", "gpu": gpu,
           "trainer": "SynchronousDistributedTrainer",
           "model": "resnet50(norm_impl='pallas')", "image": [224, 224, 3],
@@ -880,9 +956,9 @@ def resnet_train_phase(torch, G, gpu: str, seed: int) -> dict:
     if launches != {"group_norm_fwd": want, "group_norm_bwd": want}:
         fail(f"GroupNorm launches {launches} in {steps} local steps; "
              f"want {GN_PER_STEP} of each a step ({want})")
-    if split["gn_calls"] != {"gn_forward": GN_PER_STEP,
-                             "gn_backward": GN_PER_STEP}:
-        fail(f"the step split timed {split['gn_calls']} GroupNorm calls")
+    if split["calls"] != {"gn_forward": GN_PER_STEP,
+                          "gn_backward": GN_PER_STEP}:
+        fail(f"the step split timed {split['calls']} GroupNorm calls")
     return launches
 
 
@@ -1302,6 +1378,330 @@ def remote_parity_phase(torch, seed: int) -> None:
                  f"(limit {hist_limit})")
 
 
+def flash_bound_ms(B: int, L: int, H: int, D: int, itemsize: int,
+                   kernel: str) -> tuple[float, str]:
+    """Least time for one flash kernel on this card: its [B, L, H, D]
+    inputs read once and outputs written once (forward: q, k, v in, out
+    and the f32 lse out; dq: q, k, v, dO, lse, delta in, dq out; dkv: the
+    same in, dk and dv out), over 3.35 TB/s, against the causal products
+    this input needs (L(L+1)/2 query-key pairs a head; forward QK^T and PV,
+    dq adds dO V^T and dS K, dkv QK^T, dO V^T, P^T dO and dS^T Q) at the
+    tensor cores' bf16 rate."""
+    big, rows = B * L * H * D * itemsize, B * H * L * 4
+    nbytes = {"fwd": 4 * big + rows, "dq": 5 * big + 2 * rows,
+              "dkv": 6 * big + 2 * rows}[kernel]
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
+    flops = products * 2 * B * H * (L * (L + 1) // 2) * D
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_kernel_phase(torch, FA, seed: int) -> list:
+    """The three flash kernels against their plain twins, on the same
+    CUDA tensors, at config #7's shape and the ragged ones, f32 and bf16;
+    dq and dkv are held alone (their twins take the kernel's lse and
+    delta). The library yardstick is ``F.scaled_dot_product_attention``
+    (causal, scale 1, bf16 [B, H, L, D]): its forward for the forward row,
+    its backward (dq, dk and dv together) for the dq and dkv rows; the
+    port never calls it."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for B, L, H, D in FLASH_SHAPES:
+        big = L == LM_SEQ and B * H > 1
+        base = [torch.randn((B, L, H, D), device="cuda", generator=gen)
+                for _ in range(4)]
+        base[0] = base[0] / D ** 0.5
+        lib = [t.to(torch.bfloat16).transpose(1, 2).contiguous()
+               .requires_grad_() for t in base[:3]]
+        lib_do = base[3].to(torch.bfloat16).transpose(1, 2).contiguous()
+        with torch.no_grad():
+            lib_fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                *lib, is_causal=True, scale=1.0), 10)
+        lib_out = F.scaled_dot_product_attention(*lib, is_causal=True,
+                                                 scale=1.0)
+        lib_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib, lib_do, retain_graph=True), 10)
+        del lib, lib_do, lib_out
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            q, k, v, do = (t.to(dtype) for t in base)
+            out, lse = FA.flash_fwd_cuda(q, k, v)
+            delta = FA.attention_delta(do, out)
+            dq = FA.flash_dq_cuda(q, k, v, do, lse, delta)
+            dk, dv = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
+            dq2 = FA.flash_dq_cuda(q, k, v, do, lse, delta)
+            dk2, dv2 = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = FA.flash_fwd_plain(q, k, v)
+            lse_err = (lse - ref_lse).abs().max().item()
+            del ref_lse
+            refs = {"fwd": [(out, ref_out)],
+                    "dq": [(dq, FA.flash_dq_plain(q, k, v, do, lse, delta))],
+                    "dkv": list(zip((dk, dv), FA.flash_dkv_plain(
+                        q, k, v, do, lse, delta)))}
+            repeatable = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                          and torch.equal(dv, dv2))
+            del dq2, dk2, dv2
+            calls = {
+                "fwd": (lambda: FA.flash_fwd_cuda(q, k, v),
+                        lambda: FA.flash_fwd_plain(q, k, v), lib_fwd_ms),
+                "dq": (lambda: FA.flash_dq_cuda(q, k, v, do, lse, delta),
+                       lambda: FA.flash_dq_plain(q, k, v, do, lse, delta),
+                       lib_bwd_ms),
+                "dkv": (lambda: FA.flash_dkv_cuda(q, k, v, do, lse, delta),
+                        lambda: FA.flash_dkv_plain(q, k, v, do, lse, delta),
+                        lib_bwd_ms)}
+            lim = FLASH_LIMITS[name]
+            for kernel, pairs in refs.items():
+                errs = []
+                for got, ref in pairs:
+                    d = (got.float() - ref.float()).abs()
+                    r = ref.float().abs()
+                    errs.append((d.max().item(), d.max().item()
+                                 / max(r.max().item(), 1e-30),
+                                 d.mean().item() / max(r.mean().item(),
+                                                       1e-30)))
+                kern, plain, library_ms = calls[kernel]
+                bound, bound_by = flash_bound_ms(B, L, H, D,
+                                                 q.element_size(), kernel)
+                row = {"phase": "flash_kernel", "name": f"flash_{kernel}",
+                       "B": B, "L": L, "H": H, "D": D, "dtype": name,
+                       "max_abs_err": max(e[0] for e in errs),
+                       "max_err_share": max(e[1] for e in errs),
+                       "mean_err_share": max(e[2] for e in errs),
+                       "limit_max_share": lim["top"],
+                       "limit_mean_share": lim["mean"],
+                       "ms": cuda_ms(torch, kern, 10 if big else 20),
+                       "plain_ms": cuda_ms(torch, plain, 2 if big else 5),
+                       "library_ms": library_ms,
+                       "library": "F.scaled_dot_product_attention bf16 "
+                                  "[B,H,L,D] causal, "
+                                  + ("forward" if kernel == "fwd" else
+                                     "backward (dq, dk, dv together)"),
+                       "bound_ms": bound, "bound_by": bound_by}
+                if kernel == "fwd":
+                    row.update(lse_max_abs_err=lse_err,
+                               lse_atol=FLASH_LSE_ATOL)
+                else:
+                    row["repeatable_bits"] = repeatable
+                emit(row)
+                if not (row["max_err_share"] <= lim["top"]
+                        and row["mean_err_share"] <= lim["mean"]):
+                    fail(f"flash_{kernel} disagrees with its plain twin at "
+                         f"{(B, L, H, D)} {name}: {row}")
+                if kernel == "fwd" and not lse_err <= FLASH_LSE_ATOL:
+                    fail(f"flash_fwd's lse is {lse_err} from its twin's at "
+                         f"{(B, L, H, D)} {name}")
+                if kernel != "fwd" and not repeatable:
+                    fail(f"flash_{kernel} gave other bits on a second call "
+                         f"at {(B, L, H, D)} {name}")
+                rows.append(row)
+            del refs, calls, q, k, v, do, out, lse, delta, dq, dk, dv
+            torch.cuda.empty_cache()
+        del base
+    return rows
+
+
+def lm_frame(rows: int, vocab: int, seq: int, seed: int):
+    """Tokens and next-token labels as ``bench.py`` makes config #7's."""
+    from distkeras_tpu_torch.data import DataFrame
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, size=(rows, seq))
+    return DataFrame({"features": toks.astype(np.int32),
+                      "label": np.roll(toks, -1, 1).astype(np.int32)})
+
+
+@contextlib.contextmanager
+def last_center():
+    """Keep, in the yielded dict, the center of the last state the async
+    engine's round returned in the block."""
+    from distkeras_tpu_torch.parallel.engine import AsyncEngine
+
+    seen = {}
+    real = AsyncEngine._round_fn
+
+    def recording(self, state, xs, ys):
+        new, loss = real(self, state, xs, ys)
+        seen["center"] = new.center
+        return new, loss
+
+    AsyncEngine._round_fn = recording
+    try:
+        yield seen
+    finally:
+        AsyncEngine._round_fn = real
+
+
+def transformer_train_phase(torch, FA, gpu: str, seed: int) -> dict:
+    """Train config #7 as a user would; returns the launch counts."""
+    from distkeras_tpu_torch import AEASGD, small_transformer_lm
+    from distkeras_tpu_torch.ops.optimizers import adam
+
+    W, Kw, B = (LM_TRAIN["num_workers"], LM_TRAIN["communication_window"],
+                LM_TRAIN["batch_size"])
+    steps = LM_ROUNDS * W * Kw
+    t0 = time.perf_counter()
+    model = small_transformer_lm(**LM, seq_len=LM_SEQ, attn_impl="flash",
+                                 remat=True, seed=seed, device="cuda")
+    df = lm_frame(steps * B, LM["vocab_size"], LM_SEQ, seed)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.params.values())
+    round_ends = []
+
+    def on_round(r, loss):
+        torch.cuda.synchronize()
+        round_ends.append(time.perf_counter())
+
+    trainer = AEASGD(model, "adam", "sparse_categorical_crossentropy",
+                     on_round=on_round, **LM_TRAIN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with last_center() as seen:
+        FA.reset_launches()  # counts start at 0 just before the main path
+        t0 = time.perf_counter()
+        trained = trainer.train(df)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = FA.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.get_worker_histories()
+    moved = max((trained.params[k] - v).abs().max().item()
+                for k, v in model.params.items())
+    holds_center = all(torch.equal(trained.params[k], v)
+                       for k, v in seen["center"].items())
+    del seen
+    rounds_s = [b - a for a, b in zip([t0] + round_ends, round_ends)]
+    x = torch.as_tensor(df["features"][:B], device="cuda")
+    y = torch.as_tensor(df["label"][:B], device="cuda")
+    del model
+    torch.cuda.empty_cache()
+    split = step_split(torch, trained, x, y, adam(LM_TRAIN["learning_rate"]),
+                       timed=(FA, {"flash_fwd_cuda": "flash_fwd",
+                                   "flash_dq_cuda": "flash_dq",
+                                   "flash_dkv_cuda": "flash_dkv"}))
+    per_step = {"flash_fwd": 2 * LM["num_layers"],
+                "flash_dq": LM["num_layers"], "flash_dkv": LM["num_layers"]}
+    want = {k: v * steps for k, v in per_step.items()}
+    tokens = steps * B * LM_SEQ
+    emit({"phase": "transformer_train", "gpu": gpu, "trainer": "AEASGD",
+          "model": "TransformerLM(attn_impl='flash', remat=True)", **LM,
+          "seq_len": LM_SEQ, "params": n_params, "optimizer": "adam",
+          **LM_TRAIN, "rounds": LM_ROUNDS, "dtype": "float32",
+          "reduced": "2 rounds of window 8 (16 local steps); float32 where "
+                     "bench.py runs bfloat16",
+          "setup_s": setup_s, "seconds": wall,
+          "tokens_per_s": tokens / wall,
+          "ms_per_local_step": wall / steps * 1e3,
+          "round_s": rounds_s,
+          "tokens_per_s_second_round": Kw * B * LM_SEQ / rounds_s[-1],
+          "history": [float(v) for v in trainer.get_history()],
+          "worker_histories": hist.tolist(), "launches": launches,
+          "launches_wanted": want, "local_steps": steps,
+          "center_max_abs_change": moved,
+          "model_holds_final_center": holds_center,
+          "peak_memory_gb": peak / 1e9,
+          "step_split_ms": split,
+          "step_split": "one local step at B=8, L=2048 by CUDA events, "
+                        "outside the trainer (mean of 3 after a warm "
+                        "step); flash_*: events around each kernel "
+                        "wrapper call, the recompute's forward inside "
+                        "the backward included"})
+    if not np.all(np.isfinite(hist)):
+        fail(f"non-finite transformer training loss: {hist}")
+    if not moved > 0:
+        fail("the trained transformer's center equals its initialization")
+    if not holds_center:
+        fail("the model AEASGD returned does not hold the engine's final "
+             "center")
+    if launches != want:
+        fail(f"flash launches {launches} in {steps} local steps; want "
+             f"{want} (remat: the forward twice a layer a step)")
+    if split["calls"] != per_step:
+        fail(f"the step split timed {split['calls']} flash calls a step; "
+             f"want {per_step}")
+    return launches
+
+
+def transformer_parity_phase(torch, seed: int) -> None:
+    """A small transformer from one seed: logits, then one AEASGD round,
+    on the card (the kernels) and on the CPU (the twins), and on the CPU
+    with dense f32 attention, the yardstick for the rounding the design
+    puts in."""
+    from distkeras_tpu_torch import AEASGD, small_transformer_lm
+
+    W, Kw, B = (LM_PARITY_TRAIN["num_workers"],
+                LM_PARITY_TRAIN["communication_window"],
+                LM_PARITY_TRAIN["batch_size"])
+    df = lm_frame(W * Kw * B, LM_PARITY["vocab_size"], LM_PARITY_SEQ,
+                  seed + 3)
+    probe = df["features"][:B]
+    out = {}
+    for run, dev, impl in (("card", "cuda", "flash"), ("cpu", "cpu", "flash"),
+                           ("cpu_dense", "cpu", "dense")):
+        model = small_transformer_lm(**LM_PARITY, seq_len=LM_PARITY_SEQ,
+                                     attn_impl=impl, seed=seed + 3,
+                                     device=dev)
+        logits = model.predict(probe).cpu()
+        init = {k: v.detach().cpu().clone() for k, v in model.params.items()}
+        t = AEASGD(model, "adam", "sparse_categorical_crossentropy",
+                   **LM_PARITY_TRAIN)
+        trained = t.train(df)
+        out[run] = (logits, {k: v.cpu() for k, v in trained.params.items()},
+                    t.get_history())
+
+    def dist(a, b, i, how):
+        x, y = out[a][i], out[b][i]
+        if i == 0:
+            d = (x - y).abs()
+            return (d.max() if how == "max" else d.mean()).item()
+        d = [(x[k] - y[k]).abs() for k in y]
+        if how == "max":
+            return max(v.max().item() for v in d)
+        return (sum(v.sum() for v in d) / sum(v.numel() for v in d)).item()
+
+    logits_card = dist("card", "cpu", 0, "max")
+    logits_design = dist("cpu", "cpu_dense", 0, "max")
+    center_card = dist("card", "cpu", 1, "mean")
+    center_design = dist("cpu", "cpu_dense", 1, "mean")
+    change = max((v - init[k]).abs().max().item()
+                 for k, v in out["cpu"][1].items())
+    emit({"phase": "transformer_parity", "trainer": "AEASGD",
+          "model": "TransformerLM(attn_impl='flash')", **LM_PARITY,
+          "seq_len": LM_PARITY_SEQ, **LM_PARITY_TRAIN, "rounds": 1,
+          "logits_max_abs_err_card_vs_cpu": logits_card,
+          "logits_max_abs_err_cpu_flash_vs_dense": logits_design,
+          "center_mean_abs_err_card_vs_cpu": center_card,
+          "center_mean_abs_err_cpu_flash_vs_dense": center_design,
+          "center_max_abs_err_card_vs_cpu": dist("card", "cpu", 1, "max"),
+          "center_max_abs_err_cpu_flash_vs_dense":
+              dist("cpu", "cpu_dense", 1, "max"),
+          "center_max_abs_change": change,
+          "logits_share": LM_PARITY_LOGITS_SHARE,
+          "center_share": LM_PARITY_CENTER_SHARE,
+          "history": {k: [float(h) for h in v[2]] for k, v in out.items()},
+          "compared": "logits by their largest error; the center by its "
+                      "mean error (adam turns gradients that are rounding "
+                      "noise into steps of about lr of either sign, so a "
+                      "few elements differ by that in every pair of runs)"})
+    if not change > 0:
+        fail("the transformer parity run's center did not move")
+    if not (0 < logits_design and logits_card
+            <= LM_PARITY_LOGITS_SHARE * logits_design):
+        fail(f"transformer logits, card vs CPU {logits_card} > "
+             f"{LM_PARITY_LOGITS_SHARE} x the CPU flash-vs-dense "
+             f"{logits_design}")
+    if not (0 < center_design and center_card
+            <= LM_PARITY_CENTER_SHARE * center_design):
+        fail(f"transformer center, card vs CPU {center_card} > "
+             f"{LM_PARITY_CENTER_SHARE} x the CPU flash-vs-dense "
+             f"{center_design}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1314,6 +1714,7 @@ def main() -> None:
         fail("no CUDA device is available")
     try:
         from distkeras_tpu_torch.ops.kernels import build
+        from distkeras_tpu_torch.ops.kernels import flash_attention as FA
         from distkeras_tpu_torch.ops.kernels import fold as F
         from distkeras_tpu_torch.ops.kernels import groupnorm as G
         from distkeras_tpu_torch.ops.kernels import lstm as K
@@ -1328,7 +1729,8 @@ def main() -> None:
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
-    libs = build.build(["lstm_fwd", "lstm_bwd", "groupnorm", "fold"])
+    libs = build.build(["lstm_fwd", "lstm_bwd", "groupnorm", "fold",
+                        "flash_attn"])
     ptxas = {k: [ln.strip() for ln in v.with_suffix(".log").read_text()
                  .splitlines() if "Used" in ln or "spill" in ln]
              for k, v in libs.items() if v.with_suffix(".log").exists()}
@@ -1369,6 +1771,11 @@ def main() -> None:
             {k: v for k, v in remote_train_phase(
                 torch, K, F, gpu, args.seed, codec).items() if v})
     remote_parity_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+
+    flash_rows = flash_kernel_phase(torch, FA, args.seed)
+    flash_launches = transformer_train_phase(torch, FA, gpu, args.seed)
+    transformer_parity_phase(torch, args.seed)
 
     def entry(name, source, replaces, rows, launches, err_key):
         top = rows[max(rows)]
@@ -1431,6 +1838,29 @@ def main() -> None:
                 "imdb_commit_library_ms": commit["library_ms"],
                 "imdb_commit_bound_ms": commit["bound_ms"]}
 
+    def flash_entry(kernel, line):
+        """Config #7's shape in f32 (the path's); the largest error over
+        every f32 row, and the bf16 row's times beside."""
+        rows = [r for r in flash_rows if r["name"] == f"flash_{kernel}"]
+        f32 = [r for r in rows if r["dtype"] == "float32"]
+        top = f32[0]
+        bf16 = next(r for r in rows if r["dtype"] == "bfloat16"
+                    and (r["B"], r["L"]) == (top["B"], top["L"]))
+        return {"name": f"flash_{kernel}", "route": "cuda",
+                "source": "distkeras_tpu_torch/csrc/flash_attn.cu",
+                "replaces": f"distkeras_tpu/ops/pallas/flash_attention.py:"
+                            f"{line}",
+                "launches": flash_launches[f"flash_{kernel}"],
+                "max_abs_err": max(r["max_abs_err"] for r in f32),
+                "ms": top["ms"], "plain_ms": top["plain_ms"],
+                "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                "library_ms": top["library_ms"],
+                "shape": f"B={top['B']},L={top['L']},H={top['H']},"
+                         f"D={top['D']} float32",
+                "bf16_ms": bf16["ms"], "bf16_bound_ms": bf16["bound_ms"],
+                "bf16_max_abs_err": max(r["max_abs_err"] for r in rows
+                                        if r["dtype"] == "bfloat16")}
+
     emit({"kernels": [
         entry("lstm_fwd", "lstm_fwd.cu",
               "distkeras_tpu/ops/pallas/lstm.py:189", fwd, serve_launches,
@@ -1445,6 +1875,9 @@ def main() -> None:
         gn_entry("group_norm_bwd", 262, bwd=True),
         fold_entry("int8"),
         fold_entry("bf16"),
+        flash_entry("fwd", 213),
+        flash_entry("dq", 249),
+        flash_entry("dkv", 261),
     ]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,7 +19,11 @@ Ported so far:
 * ResNet with GroupNorm, trained with
   ``SynchronousDistributedTrainer(resnet50(norm_impl="pallas"), ...)
   .train(df)`` (or ``SingleTrainer``), with every GroupNorm's forward and
-  backward in CUDA kernels.
+  backward in CUDA kernels;
+* the transformer LM with flash attention, trained with
+  ``AEASGD(small_transformer_lm(..., attn_impl="flash", device="cuda"),
+  "adam", ...).train(df)`` (BASELINE config #7), with the causal
+  attention's forward, dQ and dK/dV in CUDA kernels.
 """
 
 from distkeras_tpu_torch.data import DataFrame
@@ -27,8 +31,10 @@ from distkeras_tpu_torch.models import (
     LSTMClassifier,
     Model,
     ResNet,
+    TransformerLM,
     imdb_lstm,
     resnet50,
+    small_transformer_lm,
     tiny_resnet,
 )
 from distkeras_tpu_torch.trainers import (
@@ -48,5 +54,6 @@ __all__ = [
     "ADAG", "AEASGD", "AsynchronousDistributedTrainer", "DOWNPOUR",
     "DataFrame", "DistributedTrainer", "DynSGD", "EAMSGD", "LSTMClassifier",
     "Model", "ResNet", "SingleTrainer", "SynchronousDistributedTrainer",
-    "Trainer", "imdb_lstm", "resnet50", "tiny_resnet",
+    "Trainer", "TransformerLM", "imdb_lstm", "resnet50",
+    "small_transformer_lm", "tiny_resnet",
 ]

@@ -14,7 +14,13 @@ the port module's ``state_dict``:
 * a ResNet's ``Conv_k/kernel`` ``[kh, kw, in, out]`` (flax's HWIO) becomes
   ``Conv_k.weight`` ``[out, in, kh, kw]`` (OIHW), ``GN_k/scale`` and
   ``GN_k/bias`` go across as they are, and the ``stage{i}_block{j}``
-  subtrees keep their names.
+  subtrees keep their names;
+* a TransformerLM's attention projections are ``DenseGeneral``: the
+  ``query``/``key``/``value`` kernels ``[D, H, Dh]`` become
+  ``Linear.weight`` ``kernel.reshape(D, H*Dh).T`` with biases ``[H, Dh]``
+  flattened, and ``out``'s ``[H, Dh, D]`` becomes ``kernel.reshape(H*Dh,
+  D).T``; a LayerNorm's ``scale`` and ``bias`` become ``weight`` and
+  ``bias``; the ``block_{i}`` subtrees keep their names.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from torch import nn
 
 from distkeras_tpu_torch.models.lstm import LSTMClassifier
 from distkeras_tpu_torch.models.resnet import ResNet
+from distkeras_tpu_torch.models.transformer import TransformerLM
 from distkeras_tpu_torch.ops.kernels.lstm import pack_lstm_params
 
 
@@ -72,7 +79,41 @@ def _resnet(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-_CONVERTERS = {LSTMClassifier: _lstm_classifier, ResNet: _resnet}
+def _dense_general(prefix: str, dense: dict) -> dict:
+    """A ``DenseGeneral`` over the heads: ``[D, H, Dh]`` (bias ``[H, Dh]``)
+    into the heads, or ``[H, Dh, D]`` (bias ``[D]``) out of them."""
+    kernel, bias = _t(dense["kernel"]), _t(dense["bias"])
+    out_features = bias.numel()
+    return {f"{prefix}weight": kernel.reshape(-1, out_features).t()
+            .contiguous(),
+            f"{prefix}bias": bias.reshape(out_features)}
+
+
+def _layer_norm(prefix: str, ln: dict) -> dict:
+    return {f"{prefix}weight": _t(ln["scale"]), f"{prefix}bias": _t(ln["bias"])}
+
+
+def _transformer_lm(tree: dict) -> dict:
+    out = {"tok_embed.weight": _t(tree["tok_embed"]["embedding"]),
+           "pos_embed.weight": _t(tree["pos_embed"]["embedding"]),
+           **_layer_norm("ln_final.", tree["ln_final"]),
+           **_dense("lm_head.", tree["lm_head"])}
+    for name, block in tree.items():
+        if not name.startswith("block_"):
+            continue
+        p = f"{name}."
+        out.update(_layer_norm(f"{p}ln_attn.", block["ln_attn"]))
+        out.update(_layer_norm(f"{p}ln_mlp.", block["ln_mlp"]))
+        out.update(_dense(f"{p}mlp_up.", block["mlp_up"]))
+        out.update(_dense(f"{p}mlp_down.", block["mlp_down"]))
+        for proj in ("query", "key", "value", "out"):
+            out.update(_dense_general(f"{p}attn.{proj}.",
+                                      block["attn"][proj]))
+    return out
+
+
+_CONVERTERS = {LSTMClassifier: _lstm_classifier, ResNet: _resnet,
+               TransformerLM: _transformer_lm}
 
 
 def params_from_jax(tree: dict, module: nn.Module) -> dict:

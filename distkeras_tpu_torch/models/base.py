@@ -20,6 +20,8 @@ from typing import Any, NamedTuple, Optional, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from distkeras_tpu_torch.runtime.device import resolve_device
 
@@ -49,6 +51,24 @@ def lecun_normal(shape: tuple, fan_in: int,
         z[bad] = torch.randn(int(bad.sum()), generator=generator)
         bad = z.abs() > 2.0
     return z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
+def checkpointed(module: nn.Module, *args):
+    """``module(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in the backward instead of saved. The
+    module's parameters go in as explicit inputs and the recompute runs on
+    those same tensors. The training loop calls the model through
+    ``torch.func.functional_call``, which swaps its parameters in only
+    while the forward runs; a recompute that read ``module``'s attributes
+    in the backward would see the module's own weights instead and give
+    wrong gradients without an error."""
+    names, params = zip(*module.named_parameters())
+    n = len(names)
+
+    def run(*flat):
+        return functional_call(module, dict(zip(names, flat[:n])), flat[n:])
+
+    return checkpoint(run, *params, *args, use_reentrant=False)
 
 
 class TensorSpec(NamedTuple):

@@ -35,10 +35,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from distkeras_tpu_torch.models.base import (
     Model,
+    checkpointed,
     lecun_normal,
     register_model,
 )
@@ -213,7 +213,7 @@ class ResNet(nn.Module):
         for name in self.blocks:
             block = getattr(self, name)
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpointed(block, x)
             else:
                 x = block(x)
         return self.Dense_0(x.mean(dim=(2, 3)))   # global average pool

@@ -1,0 +1,307 @@
+"""Causal flash attention, forward and backward: the CUDA kernels, their
+wrappers and their plain PyTorch twins (the port's counterpart of
+``distkeras_tpu/ops/pallas/flash_attention.py``).
+
+:func:`flash_attention` takes ``q, k, v [B, L, H, D]`` (the model's layout,
+q pre-scaled by ``1/sqrt(D)``) and returns ``[B, L, H, D]`` in q's dtype,
+float32 or bfloat16. The kernels read that strided layout directly (a row
+of a (batch, head) slice is D contiguous elements), so nothing is copied or
+transposed on the way in or out; the logsumexp and delta rows are
+``[B*H, L]`` float32, where the TPU kernel keeps ``[BH, nq, 1, block_q]``
+for its tiling.
+
+* Without a gradient it runs the forward alone: ``csrc/flash_attn.cu``'s
+  ``flash_fwd_*`` on CUDA tensors (the design note is in that file).
+* With one, it goes through :class:`FlashAttentionFn`, the counterpart of
+  the JAX package's ``custom_vjp``: the same forward, saving ``(q, k, v,
+  out, lse)``; the backward computes ``delta = sum(dO * O)`` in f32 in
+  torch (XLA's, not a kernel, in the JAX package), then launches dQ, then
+  dK/dV.
+
+Numerics are the TPU kernels': q, k, v, dO and p are rounded to bf16
+before each product, products accumulate in f32, and ds is rounded to
+bf16 before it multiplies K or Q. Each kernel has a plain twin here
+(:func:`flash_fwd_plain`, :func:`flash_dq_plain`, :func:`flash_dkv_plain`)
+with the same rounding points. The forward's result depends on its k-tile
+(the online softmax rounds ``p`` to bf16 against the running max of the
+tiles seen so far): the twin's ``block_k`` defaults to the kernel's 64 and
+can be set to the JAX kernel's own to compare the two arithmetics.
+
+A wrapper takes its twin only for tensors that lie on the CPU; on CUDA
+tensors it launches its kernel or raises. Any ``L >= 1`` works (the kernels
+mask their ragged edge); ``D`` must be a multiple of 16, at most 128. The
+JAX wrapper's ``block_size``/``block_k`` divisibility rule is a TPU tiling
+constraint and has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from distkeras_tpu_torch.ops.kernels import build
+
+#: the kernels' query-row and key tile (and the twins' default k-tile).
+BLOCK = 64
+#: the running max's start and the masked score (``_NEG`` of the TPU kernel).
+NEG = -1e30
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+#: the C entry points -> (source, argtypes), and the launches so far in
+#: this process by kernel: ``flash_fwd``, ``flash_dq`` and ``flash_dkv``,
+#: one per wrapper call whatever the dtype.
+_P, _I = build.PTR, build.INT
+_LIB = build.KernelLib({
+    **{f"flash_fwd_{s}": ("flash_attn", [_P] * 5 + [_I] * 4)
+       for s in _DTYPES.values()},
+    **{f"flash_dq_{s}": ("flash_attn", [_P] * 7 + [_I] * 4)
+       for s in _DTYPES.values()},
+    **{f"flash_dkv_{s}": ("flash_attn", [_P] * 8 + [_I] * 4)
+       for s in _DTYPES.values()},
+}, ("flash_fwd", "flash_dq", "flash_dkv"))
+
+
+def reset_launches() -> None:
+    """Set the three flash kernels' launch counts to 0."""
+    _LIB.reset()
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches}`` for ``flash_fwd``, ``flash_dq`` and
+    ``flash_dkv``."""
+    return _LIB.counts()
+
+
+def check_head_dim(D: int) -> None:
+    """The kernels take a head dim that is a multiple of 16, at most 128
+    (one bf16 k-step of the tensor cores' product; the widest tile a block
+    keeps in shared memory)."""
+    if D % 16 or not 16 <= D <= 128:
+        raise ValueError(f"flash attention takes a head dim that is a "
+                         f"multiple of 16 in [16, 128]; got {D}")
+
+
+def _bf16_bhld(x: torch.Tensor) -> torch.Tensor:
+    """``[B, L, H, D]`` -> ``[B*H, L, D]`` f32, rounded to bf16 first (the
+    kernels' and the TPU kernel's ``.astype(bfloat16)``)."""
+    B, L, H, D = x.shape
+    return (x.to(torch.bfloat16).to(torch.float32).permute(0, 2, 1, 3)
+            .reshape(B * H, L, D))
+
+
+def _to_blhd(x: torch.Tensor, B: int, H: int, dtype) -> torch.Tensor:
+    BH, L, D = x.shape
+    return x.reshape(B, H, L, D).permute(0, 2, 1, 3).to(dtype).contiguous()
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    block_k: int = BLOCK) -> tuple:
+    """The forward in plain PyTorch: ``(out [B, L, H, D] in q's dtype,
+    lse [B*H, L] f32)``, the TPU ``_fwd_kernel``'s arithmetic with k-tiles
+    of ``block_k`` keys. Each row visits the k-tiles from the first to the
+    one that holds its diagonal, in order, as the kernel's block does; the
+    rows that need a k-tile are updated together (a row's earlier tiles
+    leave it unchanged by a fully masked one, so skipping those is exact).
+    The CPU path of :func:`flash_attention` and the reference the kernel is
+    held against."""
+    B, L, H, D = q.shape
+    qb, kb, vb = (_bf16_bhld(x) for x in (q, k, v))
+    BH = qb.shape[0]
+    m = torch.full((BH, L), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((BH, L), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((BH, L, D), dtype=torch.float32, device=q.device)
+    rows = torch.arange(L, device=q.device)
+    for j0 in range(0, L, block_k):
+        j1 = min(j0 + block_k, L)
+        s = torch.matmul(qb[:, j0:], kb[:, j0:j1].transpose(1, 2))
+        mask = rows[j0:j1][None, :] <= rows[j0:][:, None]    # key <= query
+        s = torch.where(mask, s, NEG)
+        m_old = m[:, j0:]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m_old - m_new)
+        l[:, j0:] = l[:, j0:] * corr + p.sum(dim=-1)
+        acc[:, j0:] = acc[:, j0:] * corr[..., None] + torch.matmul(
+            _bf16(p), vb[:, j0:j1])
+        m[:, j0:] = m_new
+    out = _to_blhd(acc / l[..., None], B, H, q.dtype)
+    return out, m + torch.log(l)
+
+
+def _chunks(BH: int, L: int):
+    """Slices of the ``B*H`` axis whose dense ``[n, L, L]`` f32 scores stay
+    near 256 MB, so the backward twins run at full width on the card."""
+    n = max(1, (1 << 26) // (L * L))
+    return [slice(i, min(i + n, BH)) for i in range(0, BH, n)]
+
+
+def _probs(qb, kb, lse):
+    """``p = exp(s - lse)`` with ``s = q k^T``, causally masked (the
+    masked scores never reach the exponent's result)."""
+    L = qb.shape[1]
+    s = torch.matmul(qb, kb.transpose(1, 2))
+    rows = torch.arange(L, device=qb.device)
+    mask = rows[None, :] <= rows[:, None]
+    return torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+
+
+def flash_dq_plain(q, k, v, do, lse, delta) -> torch.Tensor:
+    """dq in plain PyTorch, the TPU ``_dq_kernel``'s arithmetic: ``p =
+    exp(s - lse)`` (masked), ``dp = dO V^T``, ``ds = bf16(p * (dp -
+    delta))``, ``dq = ds K`` in f32; returned in q's dtype."""
+    B, L, H, D = q.shape
+    qb, kb, vb, dob = (_bf16_bhld(x) for x in (q, k, v, do))
+    dq = torch.empty_like(qb)
+    for c in _chunks(B * H, L):
+        p = _probs(qb[c], kb[c], lse[c])
+        dp = torch.matmul(dob[c], vb[c].transpose(1, 2))
+        ds = _bf16(p * (dp - delta[c][..., None]))
+        dq[c] = torch.matmul(ds, kb[c])
+    return _to_blhd(dq, B, H, q.dtype)
+
+
+def flash_dkv_plain(q, k, v, do, lse, delta) -> tuple:
+    """dk and dv in plain PyTorch, the TPU ``_dkv_kernel``'s arithmetic:
+    ``dv = bf16(p)^T dO``, ``dk = ds^T Q`` with ``ds`` as in
+    :func:`flash_dq_plain`; returned in k's and v's dtypes."""
+    B, L, H, D = q.shape
+    qb, kb, vb, dob = (_bf16_bhld(x) for x in (q, k, v, do))
+    dk, dv = torch.empty_like(kb), torch.empty_like(vb)
+    for c in _chunks(B * H, L):
+        p = _probs(qb[c], kb[c], lse[c])
+        dv[c] = torch.matmul(_bf16(p).transpose(1, 2), dob[c])
+        dp = torch.matmul(dob[c], vb[c].transpose(1, 2))
+        ds = _bf16(p * (dp - delta[c][..., None]))
+        dk[c] = torch.matmul(ds.transpose(1, 2), qb[c])
+    return _to_blhd(dk, B, H, k.dtype), _to_blhd(dv, B, H, v.dtype)
+
+
+def _check_cuda(tensors, rows, what: str) -> str:
+    """One CUDA device, one dtype of float32 or bfloat16, ``[B, L, H, D]``
+    contiguous and 16-byte aligned (the kernels load 16 bytes at a time),
+    a head dim the kernels take; ``rows`` (lse, delta) f32 ``[B*H, L]``.
+    Returns the entry points' dtype suffix."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in (*tensors, *rows)):
+        raise ValueError(
+            f"{what} needs all of its tensors on one CUDA device (or all on "
+            f"the CPU); got {[str(t.device) for t in (*tensors, *rows)]}")
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(
+            f"the CUDA flash kernels take float32 or bfloat16, one dtype for "
+            f"all of q, k, v (and dO); {what} got "
+            f"{[str(t.dtype) for t in tensors]}")
+    shape = tuple(tensors[0].shape)
+    if len(shape) != 4 or any(tuple(t.shape) != shape for t in tensors):
+        raise ValueError(f"{what} takes [B, L, H, D] tensors of one shape; "
+                         f"got {[tuple(t.shape) for t in tensors]}")
+    check_head_dim(shape[3])
+    B, L, H, _ = shape
+    for t in rows:
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B * H, L)
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: lse and delta must be contiguous "
+                             f"float32 [B*H={B * H}, L={L}]")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError(f"the CUDA flash kernels need contiguous, 16-byte "
+                         f"aligned tensors ({what})")
+    return _DTYPES[dtype]
+
+
+def flash_fwd_cuda(q, k, v) -> tuple:
+    """``flash_fwd_*``: ``(out, lse)`` of the forward on the card."""
+    suffix = _check_cuda((q, k, v), (), "flash_fwd")
+    B, L, H, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B * H, L), dtype=torch.float32, device=q.device)
+    _LIB.launch(f"flash_fwd_{suffix}", q, k, v, out, lse, B, L, H, D)
+    _LIB.count("flash_fwd")
+    return out, lse
+
+
+def flash_dq_cuda(q, k, v, do, lse, delta) -> torch.Tensor:
+    """``flash_dq_*``: dq on the card (the output of
+    :func:`flash_dq_plain`)."""
+    suffix = _check_cuda((q, k, v, do), (lse, delta), "flash_dq")
+    B, L, H, D = q.shape
+    dq = torch.empty_like(q)
+    _LIB.launch(f"flash_dq_{suffix}", q, k, v, do, lse, delta, dq, B, L, H,
+                D)
+    _LIB.count("flash_dq")
+    return dq
+
+
+def flash_dkv_cuda(q, k, v, do, lse, delta) -> tuple:
+    """``flash_dkv_*``: dk and dv on the card (the outputs of
+    :func:`flash_dkv_plain`)."""
+    suffix = _check_cuda((q, k, v, do), (lse, delta), "flash_dkv")
+    B, L, H, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _LIB.launch(f"flash_dkv_{suffix}", q, k, v, do, lse, delta, dk, dv, B,
+                L, H, D)
+    _LIB.count("flash_dkv")
+    return dk, dv
+
+
+def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``delta = sum(dO * O)`` over the head dim in f32, as ``[B*H, L]``
+    (XLA's in the JAX package, not a kernel)."""
+    B, L, H, _ = out.shape
+    return ((do.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
+            .permute(0, 2, 1).reshape(B * H, L).contiguous())
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable causal attention on ``q, k, v [B, L, H, D]`` (the
+    counterpart of the JAX package's ``custom_vjp``): the forward saves
+    ``(q, k, v, out, lse)``; the backward launches dQ, then dK/dV. CUDA
+    tensors go to the kernels, CPU tensors to the plain twins."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if build.on_cpu((q, k, v)):
+            out, lse = flash_fwd_plain(q, k, v)
+        else:
+            out, lse = flash_fwd_cuda(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        delta = attention_delta(do, out)
+        if build.on_cpu((q, k, v, do)):
+            dq = flash_dq_plain(q, k, v, do, lse, delta)
+            dk, dv = flash_dkv_plain(q, k, v, do, lse, delta)
+        else:
+            dq = flash_dq_cuda(q, k, v, do, lse, delta)
+            dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta)
+        return dq, dk, dv
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal flash attention on ``q, k, v [B, L, H, D]``, q pre-scaled by
+    ``1/sqrt(D)``; returns ``[B, L, H, D]`` in q's dtype.
+
+    Differentiable: when autograd needs a gradient of any input, the call
+    goes through :class:`FlashAttentionFn`. CPU tensors take the plain
+    twins. CUDA tensors must be float32 or bfloat16 (one dtype), on one
+    device, with a head dim the kernels take; anything else raises, and so
+    does a failed build or launch."""
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash_attention takes q, k, v [B, L, H, D] of one "
+                         f"shape; got {[tuple(t.shape) for t in (q, k, v)]}")
+    check_head_dim(q.shape[3])
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v)
+    if build.on_cpu((q, k, v)):
+        return flash_fwd_plain(q, k, v)[0]
+    return flash_fwd_cuda(q, k, v)[0]

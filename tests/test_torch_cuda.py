@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from distkeras_tpu_torch.ops.kernels import flash_attention as FA
 from distkeras_tpu_torch.ops.kernels import fold as F
 from distkeras_tpu_torch.ops.kernels import groupnorm as G
 from distkeras_tpu_torch.ops.kernels import lstm as K
@@ -279,3 +280,95 @@ def test_remote_run_on_card_folds_every_commit_through_the_kernel(
     assert counts["lstm_fwd_stash"] == counts["lstm_bwd"] == W * rounds * Kw
     for p, c in zip(out.params.values(), center):
         assert np.array_equal(p.cpu().numpy(), c)
+
+
+def _flash_inputs(B, L, H, D, dtype, seed=0):
+    """q (pre-scaled), k, v and a cotangent [B, L, H, D] on the card."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=g) for _ in range(4))
+    return [t.to(dtype).cuda() for t in (q / D ** 0.5, k, v, do)]
+
+
+def _flash_err(got, ref):
+    """Largest and mean error, each as a share of the reference's largest
+    and mean magnitude."""
+    d = (got.float() - ref.float()).abs()
+    r = ref.float().abs()
+    return ((d.max() / r.max().clamp_min(1e-30)).item(),
+            (d.mean() / r.mean().clamp_min(1e-30)).item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,D", [(2, 40, 2, 32), (1, 200, 3, 64),
+                                     (2, 128, 2, 128), (1, 1, 1, 16),
+                                     (1, 256, 2, 48)])
+def test_flash_kernels_match_plain_on_card(card, B, L, H, D, dtype):
+    """The three flash kernels against their plain twins (the same bf16
+    rounding points, k-tile 64), ragged L and every head-dim pad. f32
+    outputs: mean error within 1e-5 of the mean magnitude (only the order
+    of f32 sums differs) and the largest within 2e-3 (an order-flipped
+    bf16 rounding of one p or ds moves it by one bf16 step); bf16 outputs
+    add their own rounding: mean within 1e-3, largest within 1e-2. lse
+    within 1e-5; two calls give the same bits."""
+    q, k, v, do = _flash_inputs(B, L, H, D, dtype)
+    FA.reset_launches()
+    out, lse = FA.flash_fwd_cuda(q, k, v)
+    delta = FA.attention_delta(do, out)
+    dq = FA.flash_dq_cuda(q, k, v, do, lse, delta)
+    dk, dv = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
+    again = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert FA.launch_counts() == {"flash_fwd": 1, "flash_dq": 1,
+                                  "flash_dkv": 2}
+    ref_out, ref_lse = FA.flash_fwd_plain(q, k, v)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5)
+    refs = [ref_out, FA.flash_dq_plain(q, k, v, do, lse, delta),
+            *FA.flash_dkv_plain(q, k, v, do, lse, delta)]
+    top, mean = (2e-3, 1e-5) if dtype == torch.float32 else (1e-2, 1e-3)
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv),
+                              refs):
+        assert got.dtype == dtype and got.shape == q.shape
+        err_max, err_mean = _flash_err(got, ref)
+        assert err_max <= top and err_mean <= mean, (name, err_max,
+                                                     err_mean)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+
+
+def test_flash_refuses_what_it_does_not_take(card):
+    q = torch.randn(1, 8, 1, 32, device="cuda")
+    before = FA.launch_counts()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="CUDA device"):
+        FA.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(q[..., :8], q[..., :8], q[..., :8])
+    assert FA.launch_counts() == before
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_transformer_step_on_card_launches_the_flash_kernels(card, remat):
+    """One AEASGD local step of a 2-layer flash transformer on the card:
+    each layer launches dQ and dK/dV once and the forward once, or twice
+    with remat (the backward recomputes the block); the weights stay
+    finite."""
+    from distkeras_tpu_torch import AEASGD, small_transformer_lm
+    from distkeras_tpu_torch.data import DataFrame
+
+    model = small_transformer_lm(vocab_size=64, num_layers=2, d_model=64,
+                                 num_heads=2, d_ff=64, max_seq_len=128,
+                                 seq_len=128, attn_impl="flash", remat=remat,
+                                 device="cuda")
+    toks = np.random.default_rng(0).integers(0, 64, (2, 128))
+    df = DataFrame({"features": toks.astype(np.int32),
+                    "label": np.roll(toks, -1, 1).astype(np.int32)})
+    FA.reset_launches()
+    out = AEASGD(model, "adam", "sparse_categorical_crossentropy",
+                 num_workers=1, batch_size=2, communication_window=1,
+                 learning_rate=1e-4, rho=500.0).train(df)
+    torch.cuda.synchronize()
+    assert FA.launch_counts() == {"flash_fwd": 4 if remat else 2,
+                                  "flash_dq": 2, "flash_dkv": 2}
+    assert all(torch.isfinite(p).all() for p in out.params.values())

@@ -1,0 +1,192 @@
+"""The port's causal flash attention (``distkeras_tpu_torch/ops/kernels/
+flash_attention.py``) on the CPU, where the wrappers take the kernels'
+plain twins through the same autograd Function the card uses, against the
+JAX package's ``flash_attention`` with its Pallas kernels in interpret
+mode, on the same seeded numpy inputs.
+
+Tolerances, and why:
+
+* twin vs the JAX kernel at the JAX kernel's own k-tile (``block_k``): the
+  same bf16 rounding points and the same running max, so only the order of
+  the f32 sums differs. The mean error of out, dq, dk and dv is within 1e-5
+  of their mean magnitude (f32 level; it reads 1e-8 to 1.2e-6) and lse
+  within 1e-5. Where the order flips a bf16 rounding of one p or ds, that
+  element moves by one bf16 step (2^-8 of itself), so the largest error
+  is held only within 2e-3 of the output's largest magnitude;
+* twin at the kernel's 64-key tile vs the JAX kernel (L >= 128): the online
+  softmax rounds p to bf16 against another running max, so the two differ
+  at bf16 level (mean error 7e-5 to 4e-4): largest error within 1e-2;
+* twins vs float64 dense causal attention: the JAX tests' own limits
+  (``tests/test_flash_attention.py``: 5e-2 forward; atol 0.35, rtol 0.02
+  backward), the distance bf16 operands put between the two.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distkeras_tpu.ops.pallas.flash_attention import (
+    flash_attention as jax_flash,
+)
+from distkeras_tpu_torch.ops.kernels import flash_attention as FA
+
+H = 2
+
+
+def _inputs(L, D, B=2, seed=0):
+    """q (pre-scaled), k, v and a cotangent, [B, L, H, D] f32."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.normal(size=(B, L, H, D)).astype(np.float32)
+                   for _ in range(4))
+    return q / np.sqrt(D, dtype=np.float32), k, v, do
+
+
+def _jax_tiles(L):
+    """The JAX model's q-block (``min(128, L)``) and the JAX wrapper's
+    default k-chunk for it."""
+    bq = min(128, L)
+    bk = bq
+    for mult in range(2, 9):
+        if L % (bq * mult) == 0:
+            bk = bq * mult
+    return bq, bk
+
+
+def _jax(q, k, v, do):
+    """out and dq, dk, dv through the JAX kernel in interpret mode."""
+    bq, _ = _jax_tiles(q.shape[1])
+
+    def f(q, k, v):
+        return jax_flash(q, k, v, block_size=bq, interpret=True)
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    grads = vjp(jnp.asarray(do))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _jax_lse(q, k):
+    """The logsumexp of the causal scores on bf16-rounded q, k in float64
+    (the JAX kernel keeps its lse private; its value is this)."""
+    qb, kb = (np.asarray(jnp.asarray(a).astype(jnp.bfloat16), np.float64)
+              for a in (q, k))
+    s = np.einsum("bqhd,bkhd->bhqk", qb, kb)
+    L = q.shape[1]
+    s = np.where(np.tril(np.ones((L, L), bool)), s, -np.inf)
+    mx = s.max(axis=-1, keepdims=True)
+    lse = mx[..., 0] + np.log(np.exp(s - mx).sum(axis=-1))
+    B, Hh = q.shape[0], q.shape[2]
+    return lse.reshape(B * Hh, L)
+
+
+def _port_grads(q, k, v, do, block_k=FA.BLOCK):
+    """out and dq, dk, dv through the port's twins with the forward at
+    ``block_k``."""
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    out, lse = FA.flash_fwd_plain(*t[:3], block_k=block_k)
+    delta = FA.attention_delta(t[3], out)
+    dq = FA.flash_dq_plain(*t, lse, delta)
+    dk, dv = FA.flash_dkv_plain(*t, lse, delta)
+    return out.numpy(), lse.numpy(), [g.numpy() for g in (dq, dk, dv)]
+
+
+def _scaled_err(got, ref):
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def _mean_err(got, ref):
+    return float(np.abs(got - ref).mean() / max(np.abs(ref).mean(), 1e-30))
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("L", [40, 64, 128, 256])
+def test_twins_match_the_jax_kernel_at_its_tiling(L, D):
+    q, k, v, do = _inputs(L, D)
+    ref_out, ref_grads = _jax(q, k, v, do)
+    _, bk = _jax_tiles(L)
+    out, lse, grads = _port_grads(q, k, v, do, block_k=bk)
+    np.testing.assert_allclose(lse, _jax_lse(q, k), rtol=0, atol=1e-5)
+    for name, g, r in zip(("out", "dq", "dk", "dv"), [out, *grads],
+                          [ref_out, *ref_grads]):
+        assert _mean_err(g, r) <= 1e-5, name
+        assert _scaled_err(g, r) <= 2e-3, name
+
+
+@pytest.mark.parametrize("L", [128, 256])
+def test_twin_at_the_kernel_tile_matches_the_jax_kernel_at_bf16_level(L):
+    q, k, v, do = _inputs(L, 64, seed=1)
+    ref_out, ref_grads = _jax(q, k, v, do)
+    out, _, grads = _port_grads(q, k, v, do)
+    for g, r in zip([out, *grads], [ref_out, *ref_grads]):
+        assert _scaled_err(g, r) <= 1e-2
+
+
+def _dense64(q, k, v):
+    q, k, v = (a.astype(np.float64) for a in (q, k, v))
+    s = np.einsum("bqhd,bkhd->bhqk", q, k)
+    L = q.shape[1]
+    s = np.where(np.tril(np.ones((L, L), bool)), s, -np.inf)
+    p = np.exp(s - s.max(axis=-1, keepdims=True))
+    p /= p.sum(axis=-1, keepdims=True)
+    return np.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+@pytest.mark.parametrize("L", [40, 200])
+def test_autograd_function_matches_float64_dense_attention(L):
+    """Forward and the gradients of ``sum(out^2)`` through
+    :class:`FlashAttentionFn` against float64 dense causal attention
+    (gradients by torch autograd in float64), at the JAX tests' limits."""
+    q, k, v, _ = _inputs(L, 32, seed=2)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    before = FA.launch_counts()
+    out = FA.flash_attention(*leaves)
+    grads = torch.autograd.grad(out.square().sum(), leaves)
+    assert FA.launch_counts() == before  # CPU: the plain twins
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    np.testing.assert_allclose(out.detach().numpy(), _dense64(q, k, v),
+                               atol=5e-2)
+    ref_leaves = [torch.from_numpy(a).double().requires_grad_()
+                  for a in (q, k, v)]
+    s = torch.einsum("bqhd,bkhd->bhqk", *ref_leaves[:2])
+    s = s.masked_fill(~torch.ones(L, L, dtype=torch.bool).tril(),
+                      float("-inf"))
+    ref = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), ref_leaves[2])
+    ref_grads = torch.autograd.grad(ref.square().sum(), ref_leaves)
+    for g, r in zip(grads, ref_grads):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=0.35,
+                                   rtol=0.02)
+
+
+def test_bf16_inputs_give_bf16_outputs_and_gradients():
+    q, k, v, do = _inputs(40, 32, seed=3)
+    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+              for a in (q, k, v)]
+    out = FA.flash_attention(*leaves)
+    assert out.dtype == torch.bfloat16
+    grads = torch.autograd.grad(out, leaves,
+                                torch.from_numpy(do).to(torch.bfloat16))
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    # bf16 inputs are what the f32 path rounds them to: the same result,
+    # up to out's own rounding to bf16.
+    f32 = FA.flash_fwd_plain(*(t.detach().float() for t in leaves))[0]
+    np.testing.assert_allclose(out.detach().float().numpy(), f32.numpy(),
+                               rtol=2 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("D", [8, 24, 144])
+def test_unsupported_head_dim_raises(D):
+    q = torch.zeros(1, 4, 1, D)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(q, q, q)
+
+
+def test_forward_without_grad_takes_the_plain_twin_on_the_cpu():
+    q, k, v, _ = _inputs(64, 32, seed=4)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    FA.reset_launches()
+    with torch.no_grad():
+        out = FA.flash_attention(*t)
+    assert torch.equal(out, FA.flash_fwd_plain(*t)[0])
+    assert FA.launch_counts() == {"flash_fwd": 0, "flash_dq": 0,
+                                  "flash_dkv": 0}

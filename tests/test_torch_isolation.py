@@ -54,7 +54,12 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
-    from distkeras_tpu_torch import imdb_lstm, resnet50
+    from distkeras_tpu_torch import (
+        TransformerLM,
+        imdb_lstm,
+        resnet50,
+        small_transformer_lm,
+    )
     from distkeras_tpu_torch.models import Model
     from distkeras_tpu_torch.serving import ModelRegistry
 
@@ -66,6 +71,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         resnet50(norm_impl="pallas")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model.build(torch.nn.Linear(2, 2), np.zeros((1, 2), np.float32))
+    tiny_lm = dict(vocab_size=16, num_layers=1, d_model=32, num_heads=2,
+                   d_ff=32, max_seq_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        small_transformer_lm(**tiny_lm, seq_len=8, attn_impl="flash")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model.build(TransformerLM(**tiny_lm), np.zeros((1, 8), np.int32))
     model = imdb_lstm(**small, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelRegistry(model, (1, 4))

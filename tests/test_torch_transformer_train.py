@@ -1,0 +1,88 @@
+"""The transformer slice as a whole: ``AEASGD(small transformer LM).train(df)``
+in the port against the JAX package's AEASGD on the same frame and
+weights, as BASELINE config #7 trains (one worker, elastic rate
+``rho * lr``, token labels ``np.roll(tokens, -1, 1)``), cut to 2 layers,
+d_model 64, 2 heads, d_ff 128, vocab 256, L = 64 (the JAX flash kernel's
+tile is then the port's), window 2, batch 2, 2 rounds. The JAX model runs
+``attn_impl="flash"`` with its Pallas kernels in interpret mode inside the
+engine; the port runs its plain twins on the CPU.
+
+Tolerances, and why:
+
+* the per-round history within 1e-4 (the LM loss, about 5.5, through
+  f32 and bf16 arithmetic summed in another order);
+* ``sgd``: the center within 1e-5 (4 steps of lr 0.05 on gradients that
+  agree at bf16 level, see ``tests/test_torch_transformer.py``);
+* ``adam``: adam's normalised step ``m / (sqrt(v) + eps)`` turns a
+  gradient that is rounding noise (the key bias's is 0 in exact
+  arithmetic) into a step of about ``lr`` of either sign, so an element
+  may differ by up to the steps' sum: ``2 * lr`` a step, 8e-4 over 4
+  steps, beside the center's own largest move (printed by the assertion).
+  The mean difference must stay within 1e-2 of the center's mean move:
+  only noise-fed elements may differ by that much.
+"""
+
+import jax
+import numpy as np
+import pytest
+
+import distkeras_tpu as dk
+from distkeras_tpu.data.dataframe import DataFrame as JaxDataFrame
+from distkeras_tpu.models.base import Model as JaxModel
+from distkeras_tpu.models.transformer import TransformerLM as JaxLM
+from distkeras_tpu_torch import AEASGD, small_transformer_lm
+from distkeras_tpu_torch.convert import params_from_jax
+from distkeras_tpu_torch.data import DataFrame
+from distkeras_tpu_torch.ops.kernels import flash_attention as FA
+
+SMALL = dict(vocab_size=256, num_layers=2, d_model=64, num_heads=2,
+             d_ff=128, max_seq_len=64)
+L, WINDOW, BATCH, ROUNDS = 64, 2, 2, 2
+
+
+def _columns(seed=0):
+    """Tokens and next-token labels as ``bench.py`` makes config #7's."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, SMALL["vocab_size"],
+                        (ROUNDS * WINDOW * BATCH, L))
+    return {"features": toks.astype(np.int32),
+            "label": np.roll(toks, -1, 1).astype(np.int32)}
+
+
+@pytest.mark.parametrize("optimizer,lr", [("adam", 1e-4), ("sgd", 0.05)])
+def test_aeasgd_transformer_matches_jax(optimizer, lr):
+    cols = _columns()
+    jm = JaxModel.build(JaxLM(**SMALL, attn_impl="flash", remat=True),
+                        jax.numpy.zeros((1, 1), jax.numpy.int32), seed=2)
+    pm = small_transformer_lm(**SMALL, attn_impl="flash", remat=True,
+                              seq_len=L, device="cpu")
+    pm.module.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jm.params), pm.module))
+    init = {k: v.clone() for k, v in pm.module.state_dict().items()}
+    kw = dict(num_workers=1, batch_size=BATCH, communication_window=WINDOW,
+              learning_rate=lr, rho=500.0 if optimizer == "adam" else 1.0)
+    jt = dk.AEASGD(jm, optimizer, "sparse_categorical_crossentropy", **kw)
+    jout = jt.train(JaxDataFrame(cols))
+    pt = AEASGD(pm, optimizer, "sparse_categorical_crossentropy", **kw)
+    before = FA.launch_counts()
+    pout = pt.train(DataFrame(cols))
+    assert FA.launch_counts() == before  # CPU: the plain twins
+    np.testing.assert_allclose(pt.get_history(),
+                               np.asarray(jt.get_history()), rtol=0,
+                               atol=1e-4)
+    ref = params_from_jax(jax.tree_util.tree_map(np.asarray, jout.params),
+                          pm.module)
+    got = pout.module.state_dict()
+    diff = {k: (got[k] - v).abs() for k, v in ref.items()}
+    move = {k: (v - init[k]).abs() for k, v in ref.items()}
+    change = max(m.max().item() for m in move.values())
+    assert change > 0
+    worst = max(d.max().item() for d in diff.values())
+    if optimizer == "sgd":
+        assert worst <= 1e-5, (worst, change)
+    else:
+        steps = ROUNDS * WINDOW
+        assert worst <= 2 * lr * steps, (worst, change)
+        mean = (sum(d.sum() for d in diff.values())
+                / sum(m.sum() for m in move.values())).item()
+        assert mean <= 1e-2, (mean, worst, change)
