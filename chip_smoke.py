@@ -5,7 +5,14 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``::
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each printing JSON lines; any failure exits non-zero:
+Phases, each printing JSON lines; any failure exits non-zero. Every
+kernel phase has a bf16 row beside each f32 row, at the same shapes, held
+to the bf16 plain twin (the rounding points of the mixed-precision step,
+``compute_dtype="bfloat16"``) and timed beside the library call in bf16;
+every training phase runs once more at ``compute_dtype="bfloat16"`` with
+the same launch checks (and only the ``*_bf16`` entry points launched),
+and every parity phase holds the card's bf16 run to the CPU's within
+``BF16_PARITY_SHARE`` of the CPU's own bf16-vs-f32 distance:
 
 1. ``card`` / ``build`` — the card's name and power limit, then every CUDA
    kernel of the port built from ``distkeras_tpu_torch/csrc/`` into
@@ -22,12 +29,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    a yardstick the port never calls), by CUDA events, beside its bound.
 3. ``train`` — the port's training path as a user drives it:
    ``DynSGD(imdb_lstm(...)).train(imdb(...))`` at config #4's width and
-   batch (4 workers, window 4, batch 2048, 3 rounds, f32). The launch
-   counts are set to 0 just before and read just after: the stash forward
-   and the backward must each have launched once per local step. Then the
-   split of one step's time, and a parity run: the same trainer at full
-   width and batch 32 on the card and on the CPU (the plain twins), from
-   the same weights, whose centers must agree.
+   batch (4 workers, window 4, batch 2048, 3 rounds, f32; then 3 rounds
+   at bf16). The launch counts are set to 0 just before and read just
+   after: the stash forward and the backward must each have launched once
+   per local step. Then the split of one step's time, and a parity run:
+   the same trainer at full width and batch 32 on the card and on the CPU
+   (the plain twins), from the same weights, whose centers must agree.
 4. ``serve`` — the port's serving path as a user drives it, on the weights
    ``train`` returned: ``ModelRegistry`` -> ``ServingFrontend`` ->
    ``ServeClient.infer`` with ragged and concurrent requests. Every answer
@@ -43,8 +50,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    beside the bound (bytes over 3.35 TB/s).
 6. ``resnet_train`` — BASELINE config #5 as a user drives it:
    ``SynchronousDistributedTrainer(resnet50(norm_impl="pallas"))`` at
-   224x224, 1000 classes, batch 128, ``steps_per_program=2``, 3 rounds, f32
-   (random images as ``bench.py`` makes them). The launch counts are set to
+   224x224, 1000 classes, batch 128, ``steps_per_program=2``, 3 rounds, f32,
+   then bf16 (random images as ``bench.py`` makes them). The launch counts are set to
    0 just before and read just after: every local step must launch each
    GroupNorm kernel 53 times. Then the split of one step by CUDA events
    (forward and its GroupNorm share, backward and its GroupNorm share,
@@ -88,7 +95,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
 11. ``transformer_train`` — BASELINE config #7 as a user drives it:
     ``AEASGD(small_transformer_lm(vocab 32768, 8 layers, d_model 1024,
     16 heads, d_ff 4096, seq 2048, attn_impl="flash", remat=True), "adam",
-    ...)`` at batch 8, window 8, lr 1e-4, rho 500, f32, 2 rounds. The
+    ...)`` at batch 8, window 8, lr 1e-4, rho 500, 2 rounds, f32 then
+    bf16 (the bench's dtype). The
     launch counts are set to 0 just before and read just after: each
     local step must launch the forward 16 times (8 layers, twice with
     remat) and dQ and dK/dV 8 times each. Then tokens/s, the rounds apart,
@@ -149,6 +157,36 @@ PARITY_ATOL = 1e-5
 #: float32 matmul order in the head.
 SERVE_ATOL = 1e-4
 
+#: the dtypes of the kernel rows: float32, and bfloat16, the
+#: mixed-precision step's (``compute_dtype="bfloat16"``).
+DTYPES = ("float32", "bfloat16")
+#: one bf16 unit in the last place, as a share of the value (8 bits).
+BF16_ULP = 2.0 ** -8
+#: bf16 LSTM kernels vs their bf16 twins, as shares of the twin's largest
+#: (``top``) and mean (``mean``) magnitude. Both round at the same points
+#: (bf16 operands, f32 sums and carry, bf16 stores); the f32 sums run in
+#: another order, so a rounding now and then flips by one ulp, and the
+#: recurrence feeds the rounded h (forward) and dpre (backward) on, so a
+#: flip moves later sums and flips more: a few ulps at the top, about an
+#: ulp in the mean.
+LSTM_BF16 = {"top": 8 * BF16_ULP, "mean": 2 * BF16_ULP}
+#: bf16 GroupNorm kernels vs their bf16 twins: no carry, f32 statistics
+#: and sums on the same bf16 values, so one flipped rounding of one
+#: output, at most one ulp of the largest magnitude (dy zeroed within 1e-2
+#: of the ReLU edge, as for f32).
+GN_BF16_TOP = BF16_ULP
+#: the bf16 parity runs (``*_parity`` phases, ``compute_dtype=
+#: "bfloat16"``): the card's bf16 run against the CPU's bf16 run (the plain
+#: twins) from the same weights and data, each distance as a share of the
+#: CPU's own bf16-vs-f32 distance (the size of bf16's rounding in that
+#: run). The two bf16 runs round at the same points, but their f32 sums
+#: run in another order, so roundings flip and the runs decorrelate: two
+#: independent bf16 roundings sit up to sqrt(2) ~ 1.41 of one rounding's
+#: distance from f32 apart. A wrong gradient strays by a share of the
+#: whole update, printed beside. Written before the first run of these
+#: phases.
+BF16_PARITY_SHARE = 1.5
+
 # ResNet-50 (BASELINE config #5, bench.py: "sync", batch 128, window 2,
 # sgd, lr 0.01, 224x224x3, 1000 classes), f32, cut to 3 rounds.
 RESNET = dict(batch_size=128, steps_per_program=2, num_workers=1,
@@ -208,7 +246,8 @@ FLUSH_BYTES = 256 << 20
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s,
 #: float32 outside the tensor cores, and bf16 on the tensor cores (the
-#: flash kernels' products: bf16 operands, f32 sums).
+#: flash kernels' products, and the bf16 LSTM's: bf16 operands, f32
+#: sums).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -290,216 +329,291 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def lstm_bound_ms(B: int, T: int, E: int, H: int) -> tuple[float, str]:
-    """Least time for the LSTM forward on this card: x, the weights and b
-    read once and hs written once, against the gate products and bias adds
-    at the float32 rate."""
-    nbytes = 4 * (B * T * E + (E + H + 1) * 4 * H + B * T * H)
-    flops = 2 * T * B * (E + H) * 4 * H + T * B * 4 * H
+def bound(nbytes: float, flops: float, peak_flops: float) -> tuple:
+    """The larger of the bytes over the memory rate and the FLOPs over
+    ``peak_flops``, in ms, and which of the two it is."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def stash_bound_ms(B: int, T: int, E: int, H: int) -> tuple[float, str]:
+def lstm_peak(itemsize: int) -> float:
+    """The rate the LSTM's products could run at: f32 outside the tensor
+    cores for f32 operands, the tensor cores' bf16 rate for bf16 ones."""
+    return PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
+
+
+def lstm_bound_ms(B: int, T: int, E: int, H: int,
+                  itemsize: int = 4) -> tuple[float, str]:
+    """Least time for the LSTM forward on this card: x, the weights and b
+    read once and hs written once (``itemsize`` bytes each), against the
+    gate products and bias adds at :func:`lstm_peak`."""
+    nbytes = itemsize * (B * T * E + (E + H + 1) * 4 * H + B * T * H)
+    flops = 2 * T * B * (E + H) * 4 * H + T * B * 4 * H
+    return bound(nbytes, flops, lstm_peak(itemsize))
+
+
+def stash_bound_ms(B: int, T: int, E: int, H: int,
+                   itemsize: int = 4) -> tuple[float, str]:
     """The stash forward: the forward's reads and FLOPs, and hs, cs and
     gates written once."""
-    nbytes = 4 * (B * T * E + (E + H + 1) * 4 * H + B * T * (2 * H + 4 * H))
+    nbytes = itemsize * (B * T * E + (E + H + 1) * 4 * H
+                         + B * T * (2 * H + 4 * H))
     flops = 2 * T * B * (E + H) * 4 * H + T * B * 4 * H
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound(nbytes, flops, lstm_peak(itemsize))
 
 
-def bwd_bound_ms(B: int, T: int, E: int, H: int) -> tuple[float, str]:
+def bwd_bound_ms(B: int, T: int, E: int, H: int,
+                 itemsize: int = 4) -> tuple[float, str]:
     """The BPTT backward: dhs, x, hs, cs, gates, Wx and Wh read once, dx,
     dWx, dWh and db written once (the kernel's dpre workspace is its own
     choice and not counted), against the four products of 2*T*B*(E+H)*4H
-    FLOPs' worth each pair (dx and dh; dWx and dWh) at the f32 rate."""
-    nbytes = 4 * (B * T * (3 * H + E + 4 * H) + 2 * (E + H) * 4 * H
-                  + B * T * E + 4 * H)
+    FLOPs' worth each pair (dx and dh; dWx and dWh) at
+    :func:`lstm_peak`."""
+    nbytes = itemsize * (B * T * (3 * H + E + 4 * H) + 2 * (E + H) * 4 * H
+                         + B * T * E + 4 * H)
     flops = 4 * T * B * (E + H) * 4 * H
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound(nbytes, flops, lstm_peak(itemsize))
 
 
-def library_lstm(torch, m):
-    """``torch.nn.LSTM`` (cuDNN) loaded with the model's packed weights: the
-    yardstick the kernel rows time, never called by the port."""
+def library_lstm(torch, m, dtype=None):
+    """``torch.nn.LSTM`` (cuDNN) loaded with the model's packed weights, in
+    ``dtype`` (default f32): the yardstick the kernel rows time, never
+    called by the port."""
     lib = torch.nn.LSTM(EMBED, HIDDEN, batch_first=True).cuda()
     with torch.no_grad():
         lib.weight_ih_l0.copy_(m.lstm_wx.detach().t())
         lib.weight_hh_l0.copy_(m.lstm_wh.detach().t())
         lib.bias_ih_l0.copy_(m.lstm_b.detach())
         lib.bias_hh_l0.zero_()
-    return lib
+    return lib.to(dtype or torch.float32)
 
 
 def rel_err(torch, got, ref) -> float:
     """Largest error as a share of the reference's largest magnitude."""
-    return ((got - ref).abs().max()
-            / ref.abs().max().clamp_min(1e-30)).item()
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def shares(got, ref) -> tuple:
+    """(largest abs error, as a share of the largest magnitude, mean error
+    as a share of the mean magnitude), in f32."""
+    d = (got.float() - ref.float()).abs()
+    r = ref.float().abs()
+    return (d.max().item(), d.max().item() / max(r.max().item(), 1e-30),
+            d.mean().item() / max(r.mean().item(), 1e-30))
+
+
+def check_bf16_lstm(name: str, B: int, pairs) -> dict:
+    """The bf16 LSTM rows' error fields over (got, ref) pairs; fails past
+    :data:`LSTM_BF16`."""
+    errs = [shares(a, r) for a, r in pairs]
+    out = {"max_abs_err": max(e[0] for e in errs),
+           "max_err_share": max(e[1] for e in errs),
+           "mean_err_share": max(e[2] for e in errs),
+           "limit_max_share": LSTM_BF16["top"],
+           "limit_mean_share": LSTM_BF16["mean"]}
+    if not (out["max_err_share"] <= LSTM_BF16["top"]
+            and out["mean_err_share"] <= LSTM_BF16["mean"]):
+        fail(f"{name} bf16 disagrees with its plain twin at B={B}: {out}")
+    return out
 
 
 def kernel_phase(torch, K, model, rng) -> dict:
     """The LSTM kernel against its plain version at the serving shapes, on
-    the served model's own weights and embedded tokens."""
+    the served model's own weights and embedded tokens, in f32 and in bf16
+    (the weights and x cast). Returns ``{dtype: {B: row}}``."""
     m = model.module
-    wx, wh, b = m.lstm_wx.detach(), m.lstm_wh.detach(), m.lstm_b.detach()
-    lib = library_lstm(torch, m)
-    rows = []
+    rows = {dt: {} for dt in DTYPES}
     with torch.inference_mode():
         for B in KERNEL_BATCHES:
             tokens = torch.as_tensor(
                 rng.integers(0, VOCAB, (B, SEQ_LEN)), device="cuda")
-            x = m.embed(tokens).contiguous()
-            got = K.lstm_seq(wx, wh, b, x)
-            torch.cuda.synchronize()
-            ref = K.lstm_seq_plain(wx, wh, b, x)
-            lib_out = lib(x)[0]
-            err = (got - ref).abs().max().item()
-            rel = err / max(ref.abs().max().item(), 1e-30)
-            lib_err = (lib_out - ref).abs().max().item()
-            reps = 20 if B <= 16 else 10
-            ms = cuda_ms(torch, lambda: K.lstm_seq(wx, wh, b, x), reps)
-            plain_ms = cuda_ms(torch, lambda: K.lstm_seq_plain(wx, wh, b, x),
-                               5)
-            library_ms = cuda_ms(torch, lambda: lib(x), reps)
-            bound, bound_by = lstm_bound_ms(B, SEQ_LEN, EMBED, HIDDEN)
-            row = {"phase": "kernel", "name": "lstm_fwd", "B": B,
-                   "T": SEQ_LEN, "E": EMBED, "H": HIDDEN, "dtype": "float32",
-                   "max_abs_err": err, "max_rel_err": rel,
-                   "atol": KERNEL_ATOL, "library_max_abs_err": lib_err,
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": bound, "bound_by": bound_by}
-            emit(row)
-            if not err <= KERNEL_ATOL:
-                fail(f"lstm_fwd disagrees with lstm_seq_plain at B={B}: "
-                     f"max abs err {err} > {KERNEL_ATOL}")
-            rows.append(row)
-    return {r["B"]: r for r in rows}
+            x32 = m.embed(tokens).contiguous()
+            for name in DTYPES:
+                dt = getattr(torch, name)
+                wx, wh, b, x = (t.detach().to(dt) for t in (
+                    m.lstm_wx, m.lstm_wh, m.lstm_b, x32))
+                lib = library_lstm(torch, m, dt)
+                got = K.lstm_seq(wx, wh, b, x)
+                torch.cuda.synchronize()
+                ref = K.lstm_seq_plain(wx, wh, b, x)
+                lib_err = (lib(x)[0] - ref).abs().max().item()
+                reps = 20 if B <= 16 else 10
+                row = {"phase": "kernel", "name": "lstm_fwd", "B": B,
+                       "T": SEQ_LEN, "E": EMBED, "H": HIDDEN, "dtype": name,
+                       "library_max_abs_err": lib_err}
+                if name == "float32":
+                    err = (got - ref).abs().max().item()
+                    row.update(max_abs_err=err, atol=KERNEL_ATOL,
+                               max_rel_err=err / max(
+                                   ref.abs().max().item(), 1e-30))
+                    if not err <= KERNEL_ATOL:
+                        fail(f"lstm_fwd disagrees with lstm_seq_plain at "
+                             f"B={B}: max abs err {err} > {KERNEL_ATOL}")
+                else:
+                    row.update(check_bf16_lstm("lstm_fwd", B, [(got, ref)]))
+                bound_ms, bound_by = lstm_bound_ms(
+                    B, SEQ_LEN, EMBED, HIDDEN, x.element_size())
+                row.update(
+                    ms=cuda_ms(torch, lambda: K.lstm_seq(wx, wh, b, x), reps),
+                    plain_ms=cuda_ms(
+                        torch, lambda: K.lstm_seq_plain(wx, wh, b, x), 5),
+                    library_ms=cuda_ms(torch, lambda: lib(x), reps),
+                    bound_ms=bound_ms, bound_by=bound_by)
+                emit(row)
+                rows[name][B] = row
+    return rows
 
 
 def stash_phase(torch, K, model, rng) -> dict:
     """The stash forward against its plain version on hs, cs and gates, at
     the training batch and below, on the model's weights and embedded
-    tokens; the library row is ``torch.nn.LSTM``'s forward with a gradient
-    wanted (cuDNN then keeps its own backward workspace)."""
+    tokens, in f32 and bf16; the library row is ``torch.nn.LSTM``'s
+    forward with a gradient wanted (cuDNN then keeps its own backward
+    workspace). Returns ``{dtype: {B: row}}``."""
     m = model.module
-    wx, wh, b = m.lstm_wx.detach(), m.lstm_wh.detach(), m.lstm_b.detach()
-    lib = library_lstm(torch, m)
-    rows = {}
+    rows = {dt: {} for dt in DTYPES}
     for B in STASH_BATCHES:
         tokens = torch.as_tensor(rng.integers(0, VOCAB, (B, SEQ_LEN)),
                                  device="cuda")
         with torch.no_grad():
-            x = m.embed(tokens).contiguous()
-            got = K.lstm_fwd_stash_cuda(wx, wh, b, x)
-            torch.cuda.synchronize()
-            ref = K.lstm_fwd_stash_plain(wx, wh, b, x)
-            err = max((a - r).abs().max().item() for a, r in zip(got, ref))
-            del got, ref
-            ms = cuda_ms(torch, lambda: K.lstm_fwd_stash_cuda(wx, wh, b, x),
-                         10)
-            plain_ms = cuda_ms(
-                torch, lambda: K.lstm_fwd_stash_plain(wx, wh, b, x), 3)
-        xg = x.clone().requires_grad_()
-        library_ms = cuda_ms(torch, lambda: lib(xg), 10)
-        bound, bound_by = stash_bound_ms(B, SEQ_LEN, EMBED, HIDDEN)
-        row = {"phase": "kernel", "name": "lstm_fwd_stash", "B": B,
-               "T": SEQ_LEN, "E": EMBED, "H": HIDDEN, "dtype": "float32",
-               "max_abs_err": err, "atol": KERNEL_ATOL,
-               "compared": "hs, cs, gates vs lstm_fwd_stash_plain",
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound, "bound_by": bound_by}
-        emit(row)
-        if not err <= KERNEL_ATOL:
-            fail(f"lstm_fwd_stash disagrees with lstm_fwd_stash_plain at "
-                 f"B={B}: max abs err {err} > {KERNEL_ATOL}")
-        rows[B] = row
+            x32 = m.embed(tokens).contiguous()
+        for name in DTYPES:
+            dt = getattr(torch, name)
+            wx, wh, b, x = (t.detach().to(dt) for t in (
+                m.lstm_wx, m.lstm_wh, m.lstm_b, x32))
+            lib = library_lstm(torch, m, dt)
+            with torch.no_grad():
+                got = K.lstm_fwd_stash_cuda(wx, wh, b, x)
+                torch.cuda.synchronize()
+                ref = K.lstm_fwd_stash_plain(wx, wh, b, x)
+                row = {"phase": "kernel", "name": "lstm_fwd_stash", "B": B,
+                       "T": SEQ_LEN, "E": EMBED, "H": HIDDEN, "dtype": name,
+                       "compared": "hs, cs, gates vs lstm_fwd_stash_plain"}
+                if name == "float32":
+                    err = max((a - r).abs().max().item()
+                              for a, r in zip(got, ref))
+                    row.update(max_abs_err=err, atol=KERNEL_ATOL)
+                    if not err <= KERNEL_ATOL:
+                        fail(f"lstm_fwd_stash disagrees with "
+                             f"lstm_fwd_stash_plain at B={B}: max abs err "
+                             f"{err} > {KERNEL_ATOL}")
+                else:
+                    row.update(check_bf16_lstm("lstm_fwd_stash", B,
+                                               zip(got, ref)))
+                del got, ref
+                ms = cuda_ms(torch,
+                             lambda: K.lstm_fwd_stash_cuda(wx, wh, b, x), 10)
+                plain_ms = cuda_ms(
+                    torch, lambda: K.lstm_fwd_stash_plain(wx, wh, b, x), 3)
+            xg = x.clone().requires_grad_()
+            bound_ms, bound_by = stash_bound_ms(B, SEQ_LEN, EMBED, HIDDEN,
+                                                x.element_size())
+            row.update(ms=ms, plain_ms=plain_ms,
+                       library_ms=cuda_ms(torch, lambda: lib(xg), 10),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            emit(row)
+            rows[name][B] = row
     return rows
 
 
 def bwd_phase(torch, K, model, rng) -> dict:
     """The BPTT kernel on the stash forward's residuals and a dense random
-    dhs, held against the plain twin and against autograd through the
-    plain forward, on dx, dWx, dWh and db; the library row is
-    ``torch.nn.LSTM``'s backward alone (``autograd.grad`` on a retained
-    graph)."""
+    dhs, held against the plain twin (and, in f32, against autograd
+    through the plain forward), on dx, dWx, dWh and db, in f32 and bf16;
+    the library row is ``torch.nn.LSTM``'s backward alone
+    (``autograd.grad`` on a retained graph). Returns ``{dtype: {B:
+    row}}``."""
     m = model.module
-    wx, wh, b = m.lstm_wx.detach(), m.lstm_wh.detach(), m.lstm_b.detach()
-    lib = library_lstm(torch, m)
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
-    rows = {}
+    rows = {dt: {} for dt in DTYPES}
+    names = ("dwx", "dwh", "db", "dx")
     for B in BWD_BATCHES:
         tokens = torch.as_tensor(rng.integers(0, VOCAB, (B, SEQ_LEN)),
                                  device="cuda")
         with torch.no_grad():
-            x = m.embed(tokens).contiguous()
-            hs, cs, gates = K.lstm_fwd_stash_cuda(wx, wh, b, x)
-        dhs = torch.randn((B, SEQ_LEN, HIDDEN), device="cuda",
-                          generator=gen) / 10
-        got = K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
-        again = K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
-        torch.cuda.synchronize()
-        plain = K.lstm_bwd_plain(wx, wh, x, hs, cs, gates, dhs)
-        leaves = [t.clone().requires_grad_() for t in (wx, wh, b, x)]
-        # dwx, dwh, db, dx: the leaves' order
-        auto = torch.autograd.grad(
-            (K.lstm_seq_plain(*leaves) * dhs).sum(), leaves)
-        names = ("dwx", "dwh", "db", "dx")
-        rel_plain = {n: rel_err(torch, a, r)
-                     for n, a, r in zip(names, got, plain)}
-        rel_auto = {n: rel_err(torch, a, r)
-                    for n, a, r in zip(names, got, auto)}
-        abs_err = max((a - r).abs().max().item() for a, r in zip(got, plain))
-        repeatable = all(torch.equal(a, a2) for a, a2 in zip(got, again))
-        del plain, auto, leaves, again
-        ms = cuda_ms(torch, lambda: K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates,
-                                                    dhs), 10)
-        plain_ms = cuda_ms(torch, lambda: K.lstm_bwd_plain(
-            wx, wh, x, hs, cs, gates, dhs), 3)
-        xg = x.clone().requires_grad_()
-        out = lib(xg)[0]
-        lib_inputs = [xg, *lib.parameters()]
-        library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-            out, lib_inputs, dhs, retain_graph=True), 10)
-        del out
-        bound, bound_by = bwd_bound_ms(B, SEQ_LEN, EMBED, HIDDEN)
-        row = {"phase": "kernel", "name": "lstm_bwd", "B": B, "T": SEQ_LEN,
-               "E": EMBED, "H": HIDDEN, "dtype": "float32",
-               "max_abs_err": abs_err, "rel_err_vs_plain": rel_plain,
-               "rel_err_vs_autograd": rel_auto, "rtol": BWD_RTOL,
-               "repeatable_bits": repeatable,
-               "splits": K.bwd_splits(B * SEQ_LEN),
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound, "bound_by": bound_by}
-        emit(row)
-        worst = max(max(rel_plain.values()), max(rel_auto.values()))
-        if not worst <= BWD_RTOL:
-            fail(f"lstm_bwd disagrees at B={B}: relative error {worst} > "
-                 f"{BWD_RTOL} (vs plain {rel_plain}, vs autograd "
-                 f"{rel_auto})")
-        if not repeatable:
-            fail(f"lstm_bwd gave different bits on two calls at B={B}")
-        rows[B] = row
+            x32 = m.embed(tokens).contiguous()
+        dhs32 = torch.randn((B, SEQ_LEN, HIDDEN), device="cuda",
+                            generator=gen) / 10
+        for name in DTYPES:
+            dt = getattr(torch, name)
+            wx, wh, b, x, dhs = (t.detach().to(dt) for t in (
+                m.lstm_wx, m.lstm_wh, m.lstm_b, x32, dhs32))
+            lib = library_lstm(torch, m, dt)
+            with torch.no_grad():
+                hs, cs, gates = K.lstm_fwd_stash_cuda(wx, wh, b, x)
+            got = K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
+            again = K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
+            torch.cuda.synchronize()
+            plain = K.lstm_bwd_plain(wx, wh, x, hs, cs, gates, dhs)
+            repeatable = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+            row = {"phase": "kernel", "name": "lstm_bwd", "B": B,
+                   "T": SEQ_LEN, "E": EMBED, "H": HIDDEN, "dtype": name,
+                   "repeatable_bits": repeatable,
+                   "splits": K.bwd_splits(B * SEQ_LEN)}
+            if name == "float32":
+                leaves = [t.clone().requires_grad_() for t in (wx, wh, b, x)]
+                # dwx, dwh, db, dx: the leaves' order
+                auto = torch.autograd.grad(
+                    (K.lstm_seq_plain(*leaves) * dhs).sum(), leaves)
+                rel_plain = {n: rel_err(torch, a, r)
+                             for n, a, r in zip(names, got, plain)}
+                rel_auto = {n: rel_err(torch, a, r)
+                            for n, a, r in zip(names, got, auto)}
+                del auto, leaves
+                row.update(max_abs_err=max((a - r).abs().max().item()
+                                           for a, r in zip(got, plain)),
+                           rel_err_vs_plain=rel_plain,
+                           rel_err_vs_autograd=rel_auto, rtol=BWD_RTOL)
+                worst = max(max(rel_plain.values()), max(rel_auto.values()))
+                if not worst <= BWD_RTOL:
+                    fail(f"lstm_bwd disagrees at B={B}: relative error "
+                         f"{worst} > {BWD_RTOL} (vs plain {rel_plain}, vs "
+                         f"autograd {rel_auto})")
+            else:
+                row.update(check_bf16_lstm("lstm_bwd", B, zip(got, plain)))
+            if not repeatable:
+                fail(f"lstm_bwd gave different bits on two calls at B={B} "
+                     f"{name}")
+            del plain, again, got
+            ms = cuda_ms(torch, lambda: K.lstm_bwd_cuda(wx, wh, x, hs, cs,
+                                                        gates, dhs), 10)
+            plain_ms = cuda_ms(torch, lambda: K.lstm_bwd_plain(
+                wx, wh, x, hs, cs, gates, dhs), 3)
+
+            def library_bwd():
+                xg = x.clone().requires_grad_()
+                out = lib(xg)[0]
+                inputs = [xg, *lib.parameters()]
+                return cuda_ms(torch, lambda: torch.autograd.grad(
+                    out, inputs, dhs, retain_graph=True), 10)
+
+            bound_ms, bound_by = bwd_bound_ms(B, SEQ_LEN, EMBED, HIDDEN,
+                                              x.element_size())
+            row.update(ms=ms, plain_ms=plain_ms,
+                       library_ms=library_bwd(),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            emit(row)
+            rows[name][B] = row
     return rows
 
 
-def step_split(torch, model, x, y, tx, steps: int = 3, timed=None) -> dict:
+def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
+               dtype=None) -> dict:
     """Milliseconds of one local training step on ``x, y`` with the
     optimizer ``tx``, split by CUDA events into the forward, the loss, the
     backward and the update; the mean of ``steps`` steps after a warm one.
     With ``timed = (module, {wrapper name: key})`` it also sums CUDA events
     around every call of each named kernel wrapper of ``module`` inside
     the step (``key`` in the result, and its calls a step under
-    ``calls``)."""
+    ``calls``). ``dtype`` (bf16) is the mixed-precision step: the f32
+    leaves and a float ``x`` cast inside the forward, as the local loop
+    does."""
     from torch.func import functional_call
 
+    from distkeras_tpu_torch.ops import cast_floats
     from distkeras_tpu_torch.ops.losses import get_loss
     from distkeras_tpu_torch.ops.optimizers import apply_updates
 
@@ -535,9 +649,10 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None) -> dict:
             ev[0].record()
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in params.items()}
-            out = functional_call(module, leaves, (x,))
+            out = functional_call(module, cast_floats(leaves, dtype),
+                                  (cast_floats(x, dtype),))
             ev[1].record()
-            loss = loss_fn(out, y)
+            loss = loss_fn(out.float(), y)
             ev[2].record()
             grads = dict(zip(leaves, torch.autograd.grad(
                 loss, list(leaves.values()))))
@@ -565,9 +680,19 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None) -> dict:
     return parts
 
 
-def train_phase(torch, K, gpu: str, seed: int):
-    """Train as a user would; returns the trained model and the launch
-    counts of the run."""
+def only_dtype(name: str, entries: dict, dtype: str) -> None:
+    """Fail unless every entry point launched in a run is of ``dtype``'s
+    instantiation (``*_f32`` or ``*_bf16``)."""
+    suffix = {"float32": "_f32", "bfloat16": "_bf16"}[dtype]
+    other = {k: v for k, v in entries.items() if v and not k.endswith(suffix)}
+    if other:
+        fail(f"the {dtype} {name} run launched other instantiations: {other}")
+
+
+def train_phase(torch, K, gpu: str, seed: int, dtype: str = "float32",
+                rounds: int = TRAIN_ROUNDS):
+    """Train as a user would, at ``compute_dtype=dtype``; returns the
+    trained model and the launch counts of the run."""
     from distkeras_tpu_torch import imdb_lstm, telemetry
     from distkeras_tpu_torch.datasets import imdb
     from distkeras_tpu_torch.ops.optimizers import sgd
@@ -577,29 +702,36 @@ def train_phase(torch, K, gpu: str, seed: int):
                       seq_len=SEQ_LEN, seed=seed, device="cuda")
     W, Kw, B = (TRAIN["num_workers"], TRAIN["communication_window"],
                 TRAIN["batch_size"])
-    df = imdb(n=TRAIN_ROUNDS * W * Kw * B, vocab_size=VOCAB, seq_len=SEQ_LEN,
+    df = imdb(n=rounds * W * Kw * B, vocab_size=VOCAB, seq_len=SEQ_LEN,
               seed=seed)
     trainer = DynSGD(model, worker_optimizer="sgd",
-                     loss="sparse_categorical_crossentropy", **TRAIN)
+                     loss="sparse_categorical_crossentropy", **TRAIN,
+                     compute_dtype=dtype)
     telemetry.reset()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     K.reset_launches()  # counts start at 0 just before the main path runs
     t0 = time.perf_counter()
     trained = trainer.train(df)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.launch_counts()
+    entries = K.launch_counts(by_entry=True)
+    peak = torch.cuda.max_memory_allocated()
     hist = trainer.get_history()
-    steps = TRAIN_ROUNDS * W * Kw
+    steps = rounds * W * Kw
     moved = max((trained.params[k] - v).abs().max().item()
                 for k, v in model.params.items())
     split = step_split(torch, trained,
                        torch.as_tensor(df["features"][:B], device="cuda"),
                        torch.as_tensor(df["label"][:B], device="cuda"),
-                       sgd(TRAIN["learning_rate"]))
+                       sgd(TRAIN["learning_rate"]),
+                       dtype=getattr(torch, dtype))
     snap = telemetry.get().snapshot()
     emit({"phase": "train", "gpu": gpu, "trainer": "DynSGD",
-          "rounds": TRAIN_ROUNDS, **TRAIN, "dtype": "float32",
+          "rounds": rounds, **TRAIN, "dtype": dtype,
+          "compute_dtype": dtype, "launches_by_entry": entries,
+          "peak_memory_gb": peak / 1e9,
           "seconds": wall, "samples_per_s": steps * B / wall,
           "ms_per_local_step": wall / steps * 1e3,
           "history": [float(v) for v in hist],
@@ -627,12 +759,50 @@ def train_phase(torch, K, gpu: str, seed: int):
     if launches["lstm_fwd"] != 0:
         fail(f"training launched the inference forward "
              f"{launches['lstm_fwd']} times")
+    only_dtype("DynSGD", entries, dtype)
     return trained, launches
 
 
+def center_dist(a: dict, b: dict, how: str) -> float:
+    """The largest (``how="max"``) or mean elementwise distance between two
+    parameter dicts, in float64."""
+    d = [(a[k].double() - v.double()).abs() for k, v in b.items()]
+    if how == "max":
+        return max(x.max().item() for x in d)
+    return (sum(x.sum() for x in d) / sum(x.numel() for x in d)).item()
+
+
+def bf16_parity(phase: str, out: dict, change: float, extra=None) -> None:
+    """Hold the card's bf16 run to the CPU's: ``out[run] = (center, ...)``
+    for runs ``cuda_bf16``, ``cpu_bf16`` and ``cpu`` (f32); the center's
+    mean distance card-vs-CPU at bf16 within :data:`BF16_PARITY_SHARE` of
+    the CPU's bf16-vs-f32 distance. ``extra`` adds ``{name: (card, design)}``
+    pairs held to the same share."""
+    pairs = {"center_mean": (
+        center_dist(out["cuda_bf16"][0], out["cpu_bf16"][0], "mean"),
+        center_dist(out["cpu_bf16"][0], out["cpu"][0], "mean"))}
+    pairs.update(extra or {})
+    row = {"phase": phase, "dtype": "bfloat16", "share": BF16_PARITY_SHARE,
+           "center_max_abs_err_card_vs_cpu_bf16": center_dist(
+               out["cuda_bf16"][0], out["cpu_bf16"][0], "max"),
+           "center_max_abs_err_cpu_bf16_vs_f32": center_dist(
+               out["cpu_bf16"][0], out["cpu"][0], "max"),
+           "center_max_abs_change": change}
+    for name, (card, design) in pairs.items():
+        row[f"{name}_card_vs_cpu_bf16"] = card
+        row[f"{name}_cpu_bf16_vs_f32"] = design
+        row[f"{name}_share"] = card / design if design else None
+    emit(row)
+    for name, (card, design) in pairs.items():
+        if not (0 < design and card <= BF16_PARITY_SHARE * design):
+            fail(f"{phase}: {name} card vs CPU at bf16 {card} > "
+                 f"{BF16_PARITY_SHARE} x the CPU bf16-vs-f32 {design}")
+
+
 def parity_phase(torch, seed: int) -> None:
-    """The same trainer, full width at batch 32, once on the card and once
-    on the CPU (the plain twins), from the same weights."""
+    """The same trainer, full width at batch 32, on the card and on the
+    CPU (the plain twins), from the same weights, in f32 and at
+    ``compute_dtype="bfloat16"``."""
     from distkeras_tpu_torch import imdb_lstm
     from distkeras_tpu_torch.datasets import imdb
     from distkeras_tpu_torch.trainers import DynSGD
@@ -642,18 +812,20 @@ def parity_phase(torch, seed: int) -> None:
     df = imdb(n=PARITY_ROUNDS * W * Kw * B, vocab_size=VOCAB,
               seq_len=SEQ_LEN, seed=seed + 1)
     out = {}
-    for dev in ("cuda", "cpu"):
+    for run, dev, dtype in (("cuda", "cuda", None), ("cpu", "cpu", None),
+                            ("cuda_bf16", "cuda", "bfloat16"),
+                            ("cpu_bf16", "cpu", "bfloat16")):
         model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
                           hidden_size=HIDDEN, seq_len=SEQ_LEN, seed=seed + 1,
                           device=dev)
         init = {k: v.detach().cpu().clone() for k, v in model.params.items()}
         t = DynSGD(model, worker_optimizer="sgd",
-                   loss="sparse_categorical_crossentropy", **PARITY)
+                   loss="sparse_categorical_crossentropy", **PARITY,
+                   compute_dtype=dtype)
         trained = t.train(df)
-        out[dev] = ({k: v.cpu() for k, v in trained.params.items()},
+        out[run] = ({k: v.cpu() for k, v in trained.params.items()},
                     t.get_worker_histories())
-    center_err = max((out["cuda"][0][k] - v).abs().max().item()
-                     for k, v in out["cpu"][0].items())
+    center_err = center_dist(out["cuda"][0], out["cpu"][0], "max")
     hist_err = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
     # How far training moved the center, beside the tolerance, so a reader
     # can judge what a gradient fault would have to exceed to be caught.
@@ -668,6 +840,7 @@ def parity_phase(torch, seed: int) -> None:
     if not (center_err <= PARITY_ATOL and hist_err <= PARITY_ATOL):
         fail(f"card and CPU training disagree: center {center_err}, "
              f"history {hist_err} > {PARITY_ATOL}")
+    bf16_parity("train_parity", out, change)
 
 
 def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
@@ -775,17 +948,16 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
     return launches
 
 
-def gn_bound_ms(B: int, N: int, C: int, backward: bool) -> tuple:
+def gn_bound_ms(B: int, N: int, C: int, backward: bool,
+                itemsize: int = 4) -> tuple:
     """Least time for one GroupNorm on this card: the forward reads x and
     writes y, the backward reads x and dy and writes dx (gamma, beta,
-    dgamma and dbeta, 4 C floats, included), over 3.35 TB/s. A dozen FLOPs
-    an element at 67 TFLOP/s is under a tenth of that."""
-    nbytes = 4 * ((3 if backward else 2) * B * N * C + 4 * C)
+    dgamma and dbeta, 4 C values, included), ``itemsize`` bytes each, over
+    3.35 TB/s. A dozen f32 FLOPs an element (the statistics are f32 in
+    either dtype) at 67 TFLOP/s is under a tenth of that."""
+    nbytes = itemsize * ((3 if backward else 2) * B * N * C + 4 * C)
     flops = (12 if backward else 6) * B * N * C
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound(nbytes, flops, PEAK_F32_FLOPS)
 
 
 def relu_margin(torch, G, x, dy, gamma, beta, margin: float = 1e-3):
@@ -796,87 +968,108 @@ def relu_margin(torch, G, x, dy, gamma, beta, margin: float = 1e-3):
     element moves dx by about |inv * dy * gamma|. With dy zero there, both
     masks give the same gradient, and the comparison holds the kernel to
     its arithmetic everywhere else."""
-    pre = G.group_norm_fwd_plain(x, gamma, beta, GN_GROUPS, False)
+    pre = G.group_norm_fwd_plain(x, gamma, beta, GN_GROUPS, False).float()
     return torch.where(pre.abs() > margin, dy, torch.zeros_like(dy))
 
 
-def gn_kernel_phase(torch, G, seed: int) -> list:
+def gn_kernel_phase(torch, G, seed: int) -> dict:
     """The GroupNorm kernels against their plain twins at every ResNet-50
-    slab at B=128, with ``F.group_norm`` (+ReLU) on an NCHW copy of the
-    same input as the library yardstick."""
+    slab at B=128, in f32 and bf16, with ``F.group_norm`` (+ReLU) on an
+    NCHW copy of the same input, in the same dtype, as the library
+    yardstick. Returns ``{dtype: [row per slab]}``."""
     import torch.nn.functional as F
 
     B = RESNET["batch_size"]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = []
+    rows = {dt: [] for dt in DTYPES}
     for N, C, relu, per_step in GN_SLABS:
-        x, dy = (torch.randn((B, N, C), device="cuda", generator=gen)
-                 for _ in range(2))
-        gamma, beta = (torch.randn(C, device="cuda", generator=gen)
-                       for _ in range(2))
-        args = (gamma, beta, GN_GROUPS, relu)
-        if relu:
-            dy = relu_margin(torch, G, x, dy, gamma, beta)
-        y = G.group_norm_fwd_cuda(x, *args)
-        got = G.group_norm_bwd_cuda(x, dy, *args)
-        again = G.group_norm_bwd_cuda(x, dy, *args)
-        torch.cuda.synchronize()
-        fwd_err = (y - G.group_norm_fwd_plain(x, *args)).abs().max().item()
-        plain = G.group_norm_bwd_plain(x, dy, *args)
-        bwd_rel = {n: rel_err(torch, a, r) for n, a, r in
-                   zip(("dx", "dgamma", "dbeta"), got, plain)}
-        bwd_abs = max((a - r).abs().max().item() for a, r in zip(got, plain))
-        repeatable = all(torch.equal(a, a2) for a, a2 in zip(got, again))
-        del y, got, again, plain
-        ms = cuda_ms(torch, lambda: G.group_norm_fwd_cuda(x, *args), 10)
-        bwd_ms = cuda_ms(torch, lambda: G.group_norm_bwd_cuda(x, dy, *args),
-                         10)
-        plain_ms = cuda_ms(torch, lambda: G.group_norm_fwd_plain(x, *args),
-                           3)
-        plain_bwd_ms = cuda_ms(
-            torch, lambda: G.group_norm_bwd_plain(x, dy, *args), 3)
-        xc = x.transpose(1, 2).contiguous().requires_grad_()  # [B, C, N]
-        dyc = dy.transpose(1, 2).contiguous()
-        lib_leaves = [xc, gamma.clone().requires_grad_(),
-                      beta.clone().requires_grad_()]
+        x32, dy32 = (torch.randn((B, N, C), device="cuda", generator=gen)
+                     for _ in range(2))
+        g32, b32 = (torch.randn(C, device="cuda", generator=gen)
+                    for _ in range(2))
+        for name in DTYPES:
+            x, dy, gamma, beta = (t.to(getattr(torch, name))
+                                  for t in (x32, dy32, g32, b32))
+            args = (gamma, beta, GN_GROUPS, relu)
+            if relu:
+                dy = relu_margin(torch, G, x, dy, gamma, beta,
+                                 1e-3 if name == "float32" else 1e-2)
+            y = G.group_norm_fwd_cuda(x, *args)
+            got = G.group_norm_bwd_cuda(x, dy, *args)
+            again = G.group_norm_bwd_cuda(x, dy, *args)
+            torch.cuda.synchronize()
+            y_ref = G.group_norm_fwd_plain(x, *args)
+            plain = G.group_norm_bwd_plain(x, dy, *args)
+            fwd_err = (y.float() - y_ref.float()).abs().max().item()
+            bwd_rel = {n: rel_err(torch, a, r) for n, a, r in
+                       zip(("dx", "dgamma", "dbeta"), got, plain)}
+            bwd_abs = max((a.float() - r.float()).abs().max().item()
+                          for a, r in zip(got, plain))
+            repeatable = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+            fwd_rel = rel_err(torch, y, y_ref)
+            del y, y_ref, got, again, plain
+            ms = cuda_ms(torch, lambda: G.group_norm_fwd_cuda(x, *args), 10)
+            bwd_ms = cuda_ms(
+                torch, lambda: G.group_norm_bwd_cuda(x, dy, *args), 10)
+            plain_ms = cuda_ms(
+                torch, lambda: G.group_norm_fwd_plain(x, *args), 3)
+            plain_bwd_ms = cuda_ms(
+                torch, lambda: G.group_norm_bwd_plain(x, dy, *args), 3)
+            xc = x.transpose(1, 2).contiguous().requires_grad_()  # [B, C, N]
+            dyc = dy.transpose(1, 2).contiguous()
+            lib_leaves = [xc, gamma.clone().requires_grad_(),
+                          beta.clone().requires_grad_()]
 
-        def lib_fwd():
-            out = F.group_norm(xc, GN_GROUPS, lib_leaves[1], lib_leaves[2],
-                               G.EPS)
-            return F.relu(out) if relu else out
+            def lib_fwd():
+                out = F.group_norm(xc, GN_GROUPS, lib_leaves[1],
+                                   lib_leaves[2], G.EPS)
+                return F.relu(out) if relu else out
 
-        with torch.no_grad():
-            library_ms = cuda_ms(torch, lib_fwd, 10)
-        out = lib_fwd()
-        library_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-            out, lib_leaves, dyc, retain_graph=True), 10)
-        del out, xc, dyc, lib_leaves
-        bound, bound_by = gn_bound_ms(B, N, C, backward=False)
-        bwd_bound, bwd_bound_by = gn_bound_ms(B, N, C, backward=True)
-        row = {"phase": "gn_kernel", "B": B, "N": N, "C": C,
-               "groups": GN_GROUPS, "relu": relu, "per_step": per_step,
-               "dtype": "float32",
-               "fwd_max_abs_err": fwd_err, "atol": GN_ATOL,
-               "bwd_max_abs_err": bwd_abs, "bwd_rel_err": bwd_rel,
-               "rtol": GN_BWD_RTOL, "repeatable_bits": repeatable,
-               "rows_per_chunk": G.rows_per_chunk(N, C),
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound, "bound_by": bound_by,
-               "bwd_ms": bwd_ms, "bwd_plain_ms": plain_bwd_ms,
-               "bwd_library_ms": library_bwd_ms, "bwd_bound_ms": bwd_bound,
-               "bwd_bound_by": bwd_bound_by}
-        emit(row)
-        if not fwd_err <= GN_ATOL:
-            fail(f"group_norm_fwd disagrees with its plain twin at N={N}, "
-                 f"C={C}: max abs err {fwd_err} > {GN_ATOL}")
-        if not max(bwd_rel.values()) <= GN_BWD_RTOL:
-            fail(f"group_norm_bwd disagrees with its plain twin at N={N}, "
-                 f"C={C}: relative errors {bwd_rel} > {GN_BWD_RTOL}")
-        if not repeatable:
-            fail(f"group_norm_bwd gave different bits on two calls at N={N}, "
-                 f"C={C}")
-        rows.append(row)
-        del x, dy
+            def lib_bwd():
+                out = lib_fwd()
+                return cuda_ms(torch, lambda: torch.autograd.grad(
+                    out, lib_leaves, dyc, retain_graph=True), 10)
+
+            with torch.no_grad():
+                library_ms = cuda_ms(torch, lib_fwd, 10)
+            library_bwd_ms = lib_bwd()
+            del xc, dyc, lib_leaves
+            size = x.element_size()
+            bound_ms, bound_by = gn_bound_ms(B, N, C, False, size)
+            bwd_bound, bwd_bound_by = gn_bound_ms(B, N, C, True, size)
+            row = {"phase": "gn_kernel", "B": B, "N": N, "C": C,
+                   "groups": GN_GROUPS, "relu": relu, "per_step": per_step,
+                   "dtype": name,
+                   "fwd_max_abs_err": fwd_err, "fwd_rel_err": fwd_rel,
+                   "bwd_max_abs_err": bwd_abs, "bwd_rel_err": bwd_rel,
+                   "repeatable_bits": repeatable,
+                   "rows_per_chunk": G.rows_per_chunk(N, C),
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bwd_ms": bwd_ms, "bwd_plain_ms": plain_bwd_ms,
+                   "bwd_library_ms": library_bwd_ms,
+                   "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_bound_by}
+            if name == "float32":
+                row.update(atol=GN_ATOL, rtol=GN_BWD_RTOL)
+                fwd_ok = fwd_err <= GN_ATOL
+                bwd_ok = max(bwd_rel.values()) <= GN_BWD_RTOL
+            else:
+                row.update(limit_max_share=GN_BF16_TOP)
+                fwd_ok = fwd_rel <= GN_BF16_TOP
+                bwd_ok = max(bwd_rel.values()) <= GN_BF16_TOP
+            emit(row)
+            if not fwd_ok:
+                fail(f"group_norm_fwd disagrees with its plain twin at N={N}, "
+                     f"C={C} {name}: {row}")
+            if not bwd_ok:
+                fail(f"group_norm_bwd disagrees with its plain twin at N={N}, "
+                     f"C={C} {name}: relative errors {bwd_rel}")
+            if not repeatable:
+                fail(f"group_norm_bwd gave different bits on two calls at "
+                     f"N={N}, C={C} {name}")
+            rows[name].append(row)
+            del x, dy
+        del x32, dy32
         torch.cuda.empty_cache()
     return rows
 
@@ -892,20 +1085,23 @@ def resnet_data(n: int, seed: int):
     return DataFrame({"features": x, "label": y})
 
 
-def resnet_train_phase(torch, G, gpu: str, seed: int) -> dict:
-    """Train config #5 as a user would; returns the launch counts."""
+def resnet_train_phase(torch, G, gpu: str, seed: int, dtype: str = "float32",
+                       rounds: int = RESNET_ROUNDS) -> dict:
+    """Train config #5 as a user would, at ``compute_dtype=dtype``;
+    returns the launch counts."""
     from distkeras_tpu_torch import SynchronousDistributedTrainer, resnet50
     from distkeras_tpu_torch import telemetry
     from distkeras_tpu_torch.ops.optimizers import sgd
 
     B, Kw = RESNET["batch_size"], RESNET["steps_per_program"]
-    steps = RESNET_ROUNDS * Kw
+    steps = rounds * Kw
     t0 = time.perf_counter()
     model = resnet50(norm_impl="pallas", seed=seed, device="cuda")
     df = resnet_data(steps * B, seed)
     setup_s = time.perf_counter() - t0
     trainer = SynchronousDistributedTrainer(
-        model, "sgd", "sparse_categorical_crossentropy", **RESNET)
+        model, "sgd", "sparse_categorical_crossentropy", **RESNET,
+        compute_dtype=dtype)
     telemetry.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -915,6 +1111,7 @@ def resnet_train_phase(torch, G, gpu: str, seed: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = G.launch_counts()
+    entries = G.launch_counts(by_entry=True)
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.get_history()
     moved = max((trained.params[k] - v).abs().max().item()
@@ -925,12 +1122,15 @@ def resnet_train_phase(torch, G, gpu: str, seed: int) -> dict:
                        torch.as_tensor(df["label"][:B], device="cuda"),
                        sgd(RESNET["learning_rate"]),
                        timed=(G, {"group_norm_fwd_cuda": "gn_forward",
-                                  "group_norm_bwd_cuda": "gn_backward"}))
+                                  "group_norm_bwd_cuda": "gn_backward"}),
+                       dtype=getattr(torch, dtype))
     emit({"phase": "resnet_train", "gpu": gpu,
           "trainer": "SynchronousDistributedTrainer",
           "model": "resnet50(norm_impl='pallas')", "image": [224, 224, 3],
-          "classes": 1000, "rounds": RESNET_ROUNDS, **RESNET,
-          "dtype": "float32", "setup_s": setup_s, "seconds": wall,
+          "classes": 1000, "rounds": rounds, **RESNET,
+          "dtype": dtype, "compute_dtype": dtype,
+          "launches_by_entry": entries,
+          "setup_s": setup_s, "seconds": wall,
           "samples_per_s": steps * B / wall,
           "ms_per_local_step": wall / steps * 1e3,
           "history": [float(v) for v in hist],
@@ -959,6 +1159,7 @@ def resnet_train_phase(torch, G, gpu: str, seed: int) -> dict:
     if split["calls"] != {"gn_forward": GN_PER_STEP,
                           "gn_backward": GN_PER_STEP}:
         fail(f"the step split timed {split['calls']} GroupNorm calls")
+    only_dtype("ResNet-50", entries, dtype)
     return launches
 
 
@@ -974,22 +1175,25 @@ def resnet_parity_phase(torch, seed: int) -> None:
     df64 = DataFrame({"features": df["features"].astype(np.float64),
                       "label": df["label"]})
     out = {}
-    for run, dev, frame in (("cuda", "cuda", df), ("cpu", "cpu", df),
-                            ("cpu_f64", "cpu", df64)):
+    for run, dev, frame, dtype in (
+            ("cuda", "cuda", df, None), ("cpu", "cpu", df, None),
+            ("cpu_f64", "cpu", df64, None),
+            ("cuda_bf16", "cuda", df, "bfloat16"),
+            ("cpu_bf16", "cpu", df, "bfloat16")):
         model = resnet50(norm_impl="pallas", seed=seed + 1, device=dev)
         if run == "cpu_f64":
             model.module.double()
         init = {k: v.detach().cpu().double()
                 for k, v in model.params.items()}
         t = SynchronousDistributedTrainer(
-            model, "sgd", "sparse_categorical_crossentropy", **RESNET_PARITY)
+            model, "sgd", "sparse_categorical_crossentropy", **RESNET_PARITY,
+            compute_dtype=dtype)
         trained = t.train(frame)
         out[run] = ({k: v.cpu().double() for k, v in trained.params.items()},
                     t.get_history())
 
     def center_err(a, b):
-        return max((out[a][0][k] - v).abs().max().item()
-                   for k, v in out[b][0].items())
+        return center_dist(out[a][0], out[b][0], "max")
 
     card_vs_cpu = center_err("cuda", "cpu")
     card_vs_f64 = center_err("cuda", "cpu_f64")
@@ -1016,6 +1220,7 @@ def resnet_parity_phase(torch, seed: int) -> None:
         fail(f"ResNet-50 card training strays from the f64 reference: "
              f"{card_vs_f64} > {RESNET_PARITY_FACTOR} x the CPU f32 run's "
              f"{cpu_vs_f64}, or loss {loss_rel} > {RESNET_LOSS_RTOL}")
+    bf16_parity("resnet_parity", out, change)
 
 
 def fold_bound_ms(n: int, codec: str) -> tuple[float, str]:
@@ -1023,11 +1228,7 @@ def fold_bound_ms(n: int, codec: str) -> tuple[float, str]:
     once and the wire tensor read once, (4 + 4 + 1) n bytes in int8 and
     (4 + 4 + 2) n in bf16, over 3.35 TB/s, against 2 n FLOPs at the f32
     rate."""
-    nbytes = (9 if codec == "int8" else 10) * n
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = 2 * n / PEAK_F32_FLOPS * 1e3
-    return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound((9 if codec == "int8" else 10) * n, 2 * n, PEAK_F32_FLOPS)
 
 
 def cuda_ms_cold(torch, fn, reps: int, flush) -> float:
@@ -1392,10 +1593,7 @@ def flash_bound_ms(B: int, L: int, H: int, D: int, itemsize: int,
               "dkv": 6 * big + 2 * rows}[kernel]
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
     flops = products * 2 * B * H * (L * (L + 1) // 2) * D
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound(nbytes, flops, PEAK_BF16_FLOPS)
 
 
 def flash_kernel_phase(torch, FA, seed: int) -> list:
@@ -1537,14 +1735,17 @@ def last_center():
         AsyncEngine._round_fn = real
 
 
-def transformer_train_phase(torch, FA, gpu: str, seed: int) -> dict:
-    """Train config #7 as a user would; returns the launch counts."""
+def transformer_train_phase(torch, FA, gpu: str, seed: int,
+                            dtype: str = "float32",
+                            rounds: int = LM_ROUNDS) -> dict:
+    """Train config #7 as a user would, at ``compute_dtype=dtype``;
+    returns the launch counts."""
     from distkeras_tpu_torch import AEASGD, small_transformer_lm
     from distkeras_tpu_torch.ops.optimizers import adam
 
     W, Kw, B = (LM_TRAIN["num_workers"], LM_TRAIN["communication_window"],
                 LM_TRAIN["batch_size"])
-    steps = LM_ROUNDS * W * Kw
+    steps = rounds * W * Kw
     t0 = time.perf_counter()
     model = small_transformer_lm(**LM, seq_len=LM_SEQ, attn_impl="flash",
                                  remat=True, seed=seed, device="cuda")
@@ -1558,7 +1759,7 @@ def transformer_train_phase(torch, FA, gpu: str, seed: int) -> dict:
         round_ends.append(time.perf_counter())
 
     trainer = AEASGD(model, "adam", "sparse_categorical_crossentropy",
-                     on_round=on_round, **LM_TRAIN)
+                     on_round=on_round, **LM_TRAIN, compute_dtype=dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with last_center() as seen:
@@ -1568,6 +1769,7 @@ def transformer_train_phase(torch, FA, gpu: str, seed: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = FA.launch_counts()
+        entries = FA.launch_counts(by_entry=True)
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.get_worker_histories()
     moved = max((trained.params[k] - v).abs().max().item()
@@ -1583,7 +1785,8 @@ def transformer_train_phase(torch, FA, gpu: str, seed: int) -> dict:
     split = step_split(torch, trained, x, y, adam(LM_TRAIN["learning_rate"]),
                        timed=(FA, {"flash_fwd_cuda": "flash_fwd",
                                    "flash_dq_cuda": "flash_dq",
-                                   "flash_dkv_cuda": "flash_dkv"}))
+                                   "flash_dkv_cuda": "flash_dkv"}),
+                       dtype=getattr(torch, dtype))
     per_step = {"flash_fwd": 2 * LM["num_layers"],
                 "flash_dq": LM["num_layers"], "flash_dkv": LM["num_layers"]}
     want = {k: v * steps for k, v in per_step.items()}
@@ -1591,14 +1794,16 @@ def transformer_train_phase(torch, FA, gpu: str, seed: int) -> dict:
     emit({"phase": "transformer_train", "gpu": gpu, "trainer": "AEASGD",
           "model": "TransformerLM(attn_impl='flash', remat=True)", **LM,
           "seq_len": LM_SEQ, "params": n_params, "optimizer": "adam",
-          **LM_TRAIN, "rounds": LM_ROUNDS, "dtype": "float32",
-          "reduced": "2 rounds of window 8 (16 local steps); float32 where "
-                     "bench.py runs bfloat16",
+          **LM_TRAIN, "rounds": rounds, "dtype": dtype,
+          "compute_dtype": dtype, "launches_by_entry": entries,
+          "reduced": f"{rounds} round(s) of window 8 ({steps} local steps)"
+                     + ("; float32 where bench.py runs bfloat16"
+                        if dtype == "float32" else ""),
           "setup_s": setup_s, "seconds": wall,
           "tokens_per_s": tokens / wall,
           "ms_per_local_step": wall / steps * 1e3,
           "round_s": rounds_s,
-          "tokens_per_s_second_round": Kw * B * LM_SEQ / rounds_s[-1],
+          "tokens_per_s_last_round": Kw * B * LM_SEQ / rounds_s[-1],
           "history": [float(v) for v in trainer.get_history()],
           "worker_histories": hist.tolist(), "launches": launches,
           "launches_wanted": want, "local_steps": steps,
@@ -1624,7 +1829,20 @@ def transformer_train_phase(torch, FA, gpu: str, seed: int) -> dict:
     if split["calls"] != per_step:
         fail(f"the step split timed {split['calls']} flash calls a step; "
              f"want {per_step}")
+    only_dtype("transformer", entries, dtype)
     return launches
+
+
+def bf16_forward(torch, model, x):
+    """The model's forward as the bf16 training step runs it: parameters
+    cast to bf16, logits back in f32."""
+    from torch.func import functional_call
+
+    from distkeras_tpu_torch.ops import cast_floats
+
+    x = torch.as_tensor(x, device=model.device)
+    return functional_call(model.module, cast_floats(
+        model.params, torch.bfloat16), (x,)).float()
 
 
 def transformer_parity_phase(torch, seed: int) -> None:
@@ -1641,15 +1859,22 @@ def transformer_parity_phase(torch, seed: int) -> None:
                   seed + 3)
     probe = df["features"][:B]
     out = {}
-    for run, dev, impl in (("card", "cuda", "flash"), ("cpu", "cpu", "flash"),
-                           ("cpu_dense", "cpu", "dense")):
+    for run, dev, impl, dtype in (
+            ("card", "cuda", "flash", None), ("cpu", "cpu", "flash", None),
+            ("cpu_dense", "cpu", "dense", None),
+            ("card_bf16", "cuda", "flash", "bfloat16"),
+            ("cpu_bf16", "cpu", "flash", "bfloat16")):
         model = small_transformer_lm(**LM_PARITY, seq_len=LM_PARITY_SEQ,
                                      attn_impl=impl, seed=seed + 3,
                                      device=dev)
-        logits = model.predict(probe).cpu()
+        if dtype is None:
+            logits = model.predict(probe).cpu()
+        else:   # the forward of the bf16 step: the parameters cast
+            with torch.inference_mode():
+                logits = bf16_forward(torch, model, probe).cpu()
         init = {k: v.detach().cpu().clone() for k, v in model.params.items()}
         t = AEASGD(model, "adam", "sparse_categorical_crossentropy",
-                   **LM_PARITY_TRAIN)
+                   **LM_PARITY_TRAIN, compute_dtype=dtype)
         trained = t.train(df)
         out[run] = (logits, {k: v.cpu() for k, v in trained.params.items()},
                     t.get_history())
@@ -1700,6 +1925,11 @@ def transformer_parity_phase(torch, seed: int) -> None:
         fail(f"transformer center, card vs CPU {center_card} > "
              f"{LM_PARITY_CENTER_SHARE} x the CPU flash-vs-dense "
              f"{center_design}")
+    bf16 = {"cuda_bf16": (out["card_bf16"][1],), "cpu_bf16": (
+        out["cpu_bf16"][1],), "cpu": (out["cpu"][1],)}
+    bf16_parity("transformer_parity", bf16, change, extra={
+        "logits_max": (dist("card_bf16", "cpu_bf16", 0, "max"),
+                       dist("cpu_bf16", "cpu", 0, "max"))})
 
 
 def main() -> None:
@@ -1749,6 +1979,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     trained, train_launches = train_phase(torch, K, gpu, args.seed)
+    bf16_trained, bf16_train_launches = train_phase(
+        torch, K, gpu, args.seed, "bfloat16")
+    del bf16_trained
     parity_phase(torch, args.seed)
 
     cpu_model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
@@ -1761,6 +1994,9 @@ def main() -> None:
 
     gn_rows = gn_kernel_phase(torch, G, args.seed)
     gn_launches = resnet_train_phase(torch, G, gpu, args.seed)
+    torch.cuda.empty_cache()
+    bf16_gn_launches = resnet_train_phase(torch, G, gpu, args.seed,
+                                          "bfloat16")
     resnet_parity_phase(torch, args.seed)
     torch.cuda.empty_cache()
 
@@ -1775,45 +2011,70 @@ def main() -> None:
 
     flash_rows = flash_kernel_phase(torch, FA, args.seed)
     flash_launches = transformer_train_phase(torch, FA, gpu, args.seed)
+    torch.cuda.empty_cache()
+    bf16_flash_launches = transformer_train_phase(torch, FA, gpu, args.seed,
+                                                  "bfloat16")
     transformer_parity_phase(torch, args.seed)
 
-    def entry(name, source, replaces, rows, launches, err_key):
-        top = rows[max(rows)]
+    def entry(name, source, replaces, rows, launches, bf16_launches):
+        """The largest batch's f32 row, the largest error over every f32
+        row, and the bf16 row at that batch beside."""
+        f32, bf16 = rows["float32"], rows["bfloat16"]
+        top, top16 = f32[max(f32)], bf16[max(f32)]
         return {"name": name, "route": "cuda",
                 "source": f"distkeras_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": max(r[err_key] for r in rows.values()),
+                "max_abs_err": max(r["max_abs_err"] for r in f32.values()),
                 "ms": top["ms"], "plain_ms": top["plain_ms"],
                 "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                 "library_ms": top["library_ms"],
                 "shape": f"B={top['B']},T={SEQ_LEN},E={EMBED},H={HIDDEN} "
-                         "float32"}
+                         "float32",
+                "bf16_launches": bf16_launches,
+                "bf16_ms": top16["ms"], "bf16_plain_ms": top16["plain_ms"],
+                "bf16_bound_ms": top16["bound_ms"],
+                "bf16_bound_by": top16["bound_by"],
+                "bf16_library_ms": top16["library_ms"],
+                "bf16_max_abs_err": max(r["max_abs_err"]
+                                        for r in bf16.values())}
 
     def gn_entry(name, key, bwd):
         """The largest slab's row (the stem's, 112x112x64), and the sum
-        over one step's 53 GroupNorms of the per-slab times and bounds."""
-        top = gn_rows[0]
+        over one step's 53 GroupNorms of the per-slab times and bounds;
+        the bf16 rows' beside."""
         pre = "bwd_" if bwd else ""
         err_key = "bwd_max_abs_err" if bwd else "fwd_max_abs_err"
 
-        def step_sum(k):
-            return sum(r[k] * r["per_step"] for r in gn_rows)
+        def step_sum(rows, k):
+            return sum(r[k] * r["per_step"] for r in rows)
 
+        f32, bf16 = gn_rows["float32"], gn_rows["bfloat16"]
+        top, top16 = f32[0], bf16[0]
         return {"name": name, "route": "cuda",
                 "source": "distkeras_tpu_torch/csrc/groupnorm.cu",
                 "replaces": f"distkeras_tpu/ops/pallas/groupnorm.py:{key}",
                 "launches": gn_launches[name],
-                "max_abs_err": max(r[err_key] for r in gn_rows),
+                "max_abs_err": max(r[err_key] for r in f32),
                 "ms": top[f"{pre}ms"], "plain_ms": top[f"{pre}plain_ms"],
                 "bound_ms": top[f"{pre}bound_ms"],
                 "bound_by": top[f"{pre}bound_by"],
                 "library_ms": top[f"{pre}library_ms"],
                 "shape": f"B={top['B']},N={top['N']},C={top['C']},"
                          f"G={GN_GROUPS},relu={top['relu']} float32",
-                "step_ms": step_sum(f"{pre}ms"),
-                "step_plain_ms": step_sum(f"{pre}plain_ms"),
-                "step_library_ms": step_sum(f"{pre}library_ms"),
-                "step_bound_ms": step_sum(f"{pre}bound_ms")}
+                "step_ms": step_sum(f32, f"{pre}ms"),
+                "step_plain_ms": step_sum(f32, f"{pre}plain_ms"),
+                "step_library_ms": step_sum(f32, f"{pre}library_ms"),
+                "step_bound_ms": step_sum(f32, f"{pre}bound_ms"),
+                "bf16_launches": bf16_gn_launches[name],
+                "bf16_ms": top16[f"{pre}ms"],
+                "bf16_plain_ms": top16[f"{pre}plain_ms"],
+                "bf16_bound_ms": top16[f"{pre}bound_ms"],
+                "bf16_bound_by": top16[f"{pre}bound_by"],
+                "bf16_library_ms": top16[f"{pre}library_ms"],
+                "bf16_max_abs_err": max(r[err_key] for r in bf16),
+                "bf16_step_ms": step_sum(bf16, f"{pre}ms"),
+                "bf16_step_library_ms": step_sum(bf16, f"{pre}library_ms"),
+                "bf16_step_bound_ms": step_sum(bf16, f"{pre}bound_ms")}
 
     def fold_entry(codec):
         """The largest tensor's row (ResNet-50's 3x3x512x512 kernel) at
@@ -1857,20 +2118,24 @@ def main() -> None:
                 "library_ms": top["library_ms"],
                 "shape": f"B={top['B']},L={top['L']},H={top['H']},"
                          f"D={top['D']} float32",
+                "bf16_launches": bf16_flash_launches[f"flash_{kernel}"],
                 "bf16_ms": bf16["ms"], "bf16_bound_ms": bf16["bound_ms"],
+                "bf16_bound_by": bf16["bound_by"],
+                "bf16_library_ms": bf16["library_ms"],
                 "bf16_max_abs_err": max(r["max_abs_err"] for r in rows
                                         if r["dtype"] == "bfloat16")}
 
     emit({"kernels": [
         entry("lstm_fwd", "lstm_fwd.cu",
               "distkeras_tpu/ops/pallas/lstm.py:189", fwd, serve_launches,
-              "max_abs_err"),
+              None),
         entry("lstm_fwd_stash", "lstm_fwd.cu",
               "distkeras_tpu/ops/pallas/lstm.py:189", stash,
-              train_launches["lstm_fwd_stash"], "max_abs_err"),
+              train_launches["lstm_fwd_stash"],
+              bf16_train_launches["lstm_fwd_stash"]),
         entry("lstm_bwd", "lstm_bwd.cu",
               "distkeras_tpu/ops/pallas/lstm.py:230", bwd,
-              train_launches["lstm_bwd"], "max_abs_err"),
+              train_launches["lstm_bwd"], bf16_train_launches["lstm_bwd"]),
         gn_entry("group_norm_fwd", 239, bwd=False),
         gn_entry("group_norm_bwd", 262, bwd=True),
         fold_entry("int8"),

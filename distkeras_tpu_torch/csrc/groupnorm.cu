@@ -1,4 +1,4 @@
-// GroupNorm (+ReLU), forward and backward, f32, for Hopper (sm_90a).
+// GroupNorm (+ReLU), forward and backward, f32 or bf16, for Hopper (sm_90a).
 //
 // Replaces: distkeras_tpu/ops/pallas/groupnorm.py:_fwd_kernel (the
 // pl.pallas_call in _fwd, :239) and :_bwd_kernel (the one in _bwd, :262),
@@ -39,15 +39,40 @@
 // twice. Simple and right first; one pass with a (sample, group) slab in
 // shared memory (at most 25,088 floats at ResNet-50's shapes) and vector
 // loads are later work.
+//
+// bf16 (group_norm_fwd_bf16, group_norm_bwd_bf16; the storage type T of
+// one templated body, T, as the TPU kernel runs one body for both): x, dy,
+// gamma and beta are bf16 and widen exactly on load; the statistics, the
+// ReLU mask, the partial sums and the scratch stay f32 (the TPU kernel
+// reads bf16 and computes in f32, ops/pallas/groupnorm.py:241); y and dx
+// are rounded to bf16 (nearest even) as they are stored (:264), and dgamma
+// and dbeta, f32 sums over the batch, once at the end (gamma's dtype,
+// :290-291). The kernels move half the bytes of the f32 ones.
 // inv is 1.0f / sqrtf (correctly rounded), not the approximate rsqrtf;
 // build without --use_fast_math.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr float kEps = 1e-6f;
+
+// Storage <-> f32: bf16 widens exactly on load and rounds to nearest even
+// on store; f32 passes through.
+__device__ __forceinline__ float load_f(float v) { return v; }
+__device__ __forceinline__ float load_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T store_f(float v);
+template <>
+__device__ __forceinline__ float store_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 store_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // How a block's threads cover its tile: `ct` channel lanes side by side,
 // `rpar` rows in parallel (C < 256 leaves room for several rows at once).
@@ -90,8 +115,9 @@ __device__ void block_partials(float a0, float a1, const Tiling& t, int C,
 }
 
 // grid (S row chunks, channel tiles, B). partial planes: sum x, sum x^2.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_stats_partial(const float* __restrict__ x, float* __restrict__ partial,
+gn_stats_partial(const T* __restrict__ x, float* __restrict__ partial,
                  int N, int C, int rows, int S, size_t plane) {
   const Tiling t(C);
   const int b = blockIdx.z;
@@ -99,9 +125,9 @@ gn_stats_partial(const float* __restrict__ x, float* __restrict__ partial,
   const int n1 = min(N, n0 + rows);
   float s = 0.0f, ss = 0.0f;
   if (t.active(C)) {
-    const float* xb = x + (size_t)b * N * C + t.c;
+    const T* xb = x + (size_t)b * N * C + t.c;
     for (int n = n0 + t.sub; n < n1; n += t.rpar) {
-      const float v = xb[(size_t)n * C];
+      const float v = load_f(xb[(size_t)n * C]);
       s += v;
       ss += v * v;
     }
@@ -151,10 +177,11 @@ __global__ void gn_group_stats(const float* __restrict__ persample,
 }
 
 // grid as gn_stats_partial. y = x*a_c + b_c (+ReLU, NaN kept).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_apply(const float* __restrict__ x, const float* __restrict__ gamma,
-         const float* __restrict__ beta, const float* __restrict__ stats,
-         float* __restrict__ y, int B, int N, int C, int G, int rows,
+gn_apply(const T* __restrict__ x, const T* __restrict__ gamma,
+         const T* __restrict__ beta, const float* __restrict__ stats,
+         T* __restrict__ y, int B, int N, int C, int G, int rows,
          int relu) {
   const Tiling t(C);
   if (!t.active(C)) return;
@@ -162,25 +189,26 @@ gn_apply(const float* __restrict__ x, const float* __restrict__ gamma,
   const int g = t.c / (C / G);
   const float mean = stats[b * G + g];
   const float inv = stats[B * G + b * G + g];
-  const float a = inv * gamma[t.c];
-  const float sh = beta[t.c] - mean * inv * gamma[t.c];
+  const float ga = load_f(gamma[t.c]);
+  const float a = inv * ga;
+  const float sh = load_f(beta[t.c]) - mean * inv * ga;
   const int n0 = blockIdx.x * rows;
   const int n1 = min(N, n0 + rows);
   const size_t base = (size_t)b * N * C + t.c;
   for (int n = n0 + t.sub; n < n1; n += t.rpar) {
     const size_t o = base + (size_t)n * C;
-    float v = x[o] * a + sh;
+    float v = load_f(x[o]) * a + sh;
     if (relu && v < 0.0f) v = 0.0f;
-    y[o] = v;
+    y[o] = store_f<T>(v);
   }
 }
 
 // The backward's row reductions: partial planes sum dy and sum dy*xhat,
 // dy masked by the recomputed ReLU.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_bwd_partial(const float* __restrict__ x, const float* __restrict__ dy,
-               const float* __restrict__ gamma,
-               const float* __restrict__ beta,
+gn_bwd_partial(const T* __restrict__ x, const T* __restrict__ dy,
+               const T* __restrict__ gamma, const T* __restrict__ beta,
                const float* __restrict__ stats, float* __restrict__ partial,
                int B, int N, int C, int G, int rows, int S, int relu,
                size_t plane) {
@@ -191,15 +219,15 @@ gn_bwd_partial(const float* __restrict__ x, const float* __restrict__ dy,
     const int g = t.c / (C / G);
     const float mean = stats[b * G + g];
     const float inv = stats[B * G + b * G + g];
-    const float ga = gamma[t.c];
-    const float be = beta[t.c];
+    const float ga = load_f(gamma[t.c]);
+    const float be = load_f(beta[t.c]);
     const int n0 = blockIdx.x * rows;
     const int n1 = min(N, n0 + rows);
     const size_t base = (size_t)b * N * C + t.c;
     for (int n = n0 + t.sub; n < n1; n += t.rpar) {
       const size_t o = base + (size_t)n * C;
-      const float xh = (x[o] - mean) * inv;
-      float d = dy[o];
+      const float xh = (load_f(x[o]) - mean) * inv;
+      float d = load_f(dy[o]);
       if (relu && !(xh * ga + be > 0.0f)) d = 0.0f;
       sdy += d;
       sdx += d * xh;
@@ -209,8 +237,9 @@ gn_bwd_partial(const float* __restrict__ x, const float* __restrict__ dy,
 }
 
 // coeffs[0][b][g] = m1, coeffs[1][b][g] = m2. One thread per (b, g).
+template <typename T>
 __global__ void gn_group_coeffs(const float* __restrict__ persample,
-                                const float* __restrict__ gamma,
+                                const T* __restrict__ gamma,
                                 float* __restrict__ coeffs, int B, int C,
                                 int G, float inv_n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -220,20 +249,22 @@ __global__ void gn_group_coeffs(const float* __restrict__ persample,
   const int cg = C / G;
   const float* sdy = persample + (size_t)b * C + g * cg;
   const float* sdx = sdy + (size_t)B * C;
-  const float* ga = gamma + g * cg;
+  const T* ga = gamma + g * cg;
   float a0 = 0.0f, a1 = 0.0f;
   for (int k = 0; k < cg; ++k) {
-    a0 += ga[k] * sdy[k];
-    a1 += ga[k] * sdx[k];
+    a0 += load_f(ga[k]) * sdy[k];
+    a1 += load_f(ga[k]) * sdx[k];
   }
   coeffs[i] = a0 * inv_n;
   coeffs[B * G + i] = a1 * inv_n;
 }
 
-// dbeta[c] = sum_b Sdy[b][c], dgamma[c] = sum_b Sdx[b][c], in sample order.
+// dbeta[c] = sum_b Sdy[b][c], dgamma[c] = sum_b Sdx[b][c], in sample order,
+// stored in T.
+template <typename T>
 __global__ void gn_param_grads(const float* __restrict__ persample,
-                               float* __restrict__ dgamma,
-                               float* __restrict__ dbeta, int B, int C) {
+                               T* __restrict__ dgamma, T* __restrict__ dbeta,
+                               int B, int C) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   float a0 = 0.0f, a1 = 0.0f;
@@ -241,16 +272,17 @@ __global__ void gn_param_grads(const float* __restrict__ persample,
     a0 += persample[(size_t)b * C + c];
     a1 += persample[(size_t)(B + b) * C + c];
   }
-  dbeta[c] = a0;
-  dgamma[c] = a1;
+  dbeta[c] = store_f<T>(a0);
+  dgamma[c] = store_f<T>(a1);
 }
 
 // grid as gn_stats_partial. dx = inv*(dy*gamma - m1 - xhat*m2).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_bwd_dx(const float* __restrict__ x, const float* __restrict__ dy,
-          const float* __restrict__ gamma, const float* __restrict__ beta,
+gn_bwd_dx(const T* __restrict__ x, const T* __restrict__ dy,
+          const T* __restrict__ gamma, const T* __restrict__ beta,
           const float* __restrict__ stats, const float* __restrict__ coeffs,
-          float* __restrict__ dx, int B, int N, int C, int G, int rows,
+          T* __restrict__ dx, int B, int N, int C, int G, int rows,
           int relu) {
   const Tiling t(C);
   if (!t.active(C)) return;
@@ -261,17 +293,17 @@ gn_bwd_dx(const float* __restrict__ x, const float* __restrict__ dy,
   const float inv = stats[B * G + bg];
   const float m1 = coeffs[bg];
   const float m2 = coeffs[B * G + bg];
-  const float ga = gamma[t.c];
-  const float be = beta[t.c];
+  const float ga = load_f(gamma[t.c]);
+  const float be = load_f(beta[t.c]);
   const int n0 = blockIdx.x * rows;
   const int n1 = min(N, n0 + rows);
   const size_t base = (size_t)b * N * C + t.c;
   for (int n = n0 + t.sub; n < n1; n += t.rpar) {
     const size_t o = base + (size_t)n * C;
-    const float xh = (x[o] - mean) * inv;
-    float d = dy[o];
+    const float xh = (load_f(x[o]) - mean) * inv;
+    float d = load_f(dy[o]);
     if (relu && !(xh * ga + be > 0.0f)) d = 0.0f;
-    dx[o] = inv * (d * ga - m1 - xh * m2);
+    dx[o] = store_f<T>(inv * (d * ga - m1 - xh * m2));
   }
 }
 
@@ -290,14 +322,14 @@ dim3 tile_grid(int B, int N, int C, int rows) {
 
 // The statistics of x into stats [2][B][G] (mean, inv), through partial
 // [2][B][S][C] and persample [2][B][C].
-int launch_stats(const float* x, float* partial, float* persample,
-                 float* stats, int B, int N, int C, int G, int rows,
-                 cudaStream_t s) {
+template <typename T>
+int launch_stats(const T* x, float* partial, float* persample, float* stats,
+                 int B, int N, int C, int G, int rows, cudaStream_t s) {
   const dim3 grid = tile_grid(B, N, C, rows);
   const int S = (int)grid.x;
   const size_t plane = (size_t)B * S * C;
-  gn_stats_partial<<<grid, kThreads, 0, s>>>(x, partial, N, C, rows, S,
-                                             plane);
+  gn_stats_partial<T><<<grid, kThreads, 0, s>>>(x, partial, N, C, rows, S,
+                                                plane);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gn_sum_chunks<<<(B * C + kThreads - 1) / kThreads, kThreads, 0, s>>>(
@@ -310,25 +342,82 @@ int launch_stats(const float* x, float* partial, float* persample,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int fwd(const T* x, const T* gamma, const T* beta, T* y, float* partial,
+        float* persample, float* stats, int B, int N, int C, int G, int rows,
+        int relu, void* stream) {
+  int rc = check_shape(B, N, C, G, rows);
+  if (rc != 0) return rc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rc = launch_stats<T>(x, partial, persample, stats, B, N, C, G, rows, s);
+  if (rc != 0) return rc;
+  gn_apply<T><<<tile_grid(B, N, C, rows), kThreads, 0, s>>>(
+      x, gamma, beta, stats, y, B, N, C, G, rows, relu);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd(const T* x, const T* dy, const T* gamma, const T* beta, T* dx,
+        T* dgamma, T* dbeta, float* partial, float* persample, float* stats,
+        float* coeffs, int B, int N, int C, int G, int rows, int relu,
+        void* stream) {
+  int rc = check_shape(B, N, C, G, rows);
+  if (rc != 0) return rc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rc = launch_stats<T>(x, partial, persample, stats, B, N, C, G, rows, s);
+  if (rc != 0) return rc;
+  const dim3 grid = tile_grid(B, N, C, rows);
+  const int S = (int)grid.x;
+  const size_t plane = (size_t)B * S * C;
+  gn_bwd_partial<T><<<grid, kThreads, 0, s>>>(x, dy, gamma, beta, stats,
+                                              partial, B, N, C, G, rows, S,
+                                              relu, plane);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gn_sum_chunks<<<(B * C + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      partial, persample, B, C, S, plane);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const float inv_n = 1.0f / ((float)N * (float)(C / G));
+  gn_group_coeffs<T><<<(B * G + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      persample, gamma, coeffs, B, C, G, inv_n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gn_param_grads<T><<<(C + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      persample, dgamma, dbeta, B, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gn_bwd_dx<T><<<grid, kThreads, 0, s>>>(x, dy, gamma, beta, stats, coeffs,
+                                         dx, B, N, C, G, rows, relu);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // GroupNorm(+ReLU) forward (all f32, contiguous, on the device): x [B,N,C],
-// gamma, beta [C] -> y [B,N,C]. Scratch the caller allocates: partial
-// [2, B, S, C] with S = ceil(N / rows), persample [2, B, C], stats [2, B, G]
-// (left holding mean and inv). Returns the cudaError_t of the launches.
+// gamma, beta [C] -> y [B,N,C]. Scratch the caller allocates, f32: partial
+// [2, B, S, C] with S = ceil(N / rows), persample [2, B, C], stats
+// [2, B, G] (left holding mean and inv). Returns the cudaError_t of the
+// launches.
 extern "C" int group_norm_fwd_f32(const float* x, const float* gamma,
                                   const float* beta, float* y,
                                   float* partial, float* persample,
                                   float* stats, int B, int N, int C, int G,
                                   int rows, int relu, void* stream) {
-  int rc = check_shape(B, N, C, G, rows);
-  if (rc != 0) return rc;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rc = launch_stats(x, partial, persample, stats, B, N, C, G, rows, s);
-  if (rc != 0) return rc;
-  gn_apply<<<tile_grid(B, N, C, rows), kThreads, 0, s>>>(
-      x, gamma, beta, stats, y, B, N, C, G, rows, relu);
-  return (int)cudaGetLastError();
+  return fwd<float>(x, gamma, beta, y, partial, persample, stats, B, N, C, G,
+                    rows, relu, stream);
+}
+
+// The same with x, gamma, beta and y in bf16 (the scratch stays f32).
+extern "C" int group_norm_fwd_bf16(const __nv_bfloat16* x,
+                                   const __nv_bfloat16* gamma,
+                                   const __nv_bfloat16* beta,
+                                   __nv_bfloat16* y, float* partial,
+                                   float* persample, float* stats, int B,
+                                   int N, int C, int G, int rows, int relu,
+                                   void* stream) {
+  return fwd<__nv_bfloat16>(x, gamma, beta, y, partial, persample, stats, B,
+                            N, C, G, rows, relu, stream);
 }
 
 // The backward of group_norm_fwd_f32: x, dy [B,N,C], gamma, beta [C] ->
@@ -341,33 +430,21 @@ extern "C" int group_norm_bwd_f32(const float* x, const float* dy,
                                   float* stats, float* coeffs, int B, int N,
                                   int C, int G, int rows, int relu,
                                   void* stream) {
-  int rc = check_shape(B, N, C, G, rows);
-  if (rc != 0) return rc;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rc = launch_stats(x, partial, persample, stats, B, N, C, G, rows, s);
-  if (rc != 0) return rc;
-  const dim3 grid = tile_grid(B, N, C, rows);
-  const int S = (int)grid.x;
-  const size_t plane = (size_t)B * S * C;
-  gn_bwd_partial<<<grid, kThreads, 0, s>>>(x, dy, gamma, beta, stats,
-                                           partial, B, N, C, G, rows, S,
-                                           relu, plane);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gn_sum_chunks<<<(B * C + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      partial, persample, B, C, S, plane);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const float inv_n = 1.0f / ((float)N * (float)(C / G));
-  gn_group_coeffs<<<(B * G + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      persample, gamma, coeffs, B, C, G, inv_n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gn_param_grads<<<(C + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      persample, dgamma, dbeta, B, C);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gn_bwd_dx<<<grid, kThreads, 0, s>>>(x, dy, gamma, beta, stats, coeffs, dx,
-                                      B, N, C, G, rows, relu);
-  return (int)cudaGetLastError();
+  return bwd<float>(x, dy, gamma, beta, dx, dgamma, dbeta, partial,
+                    persample, stats, coeffs, B, N, C, G, rows, relu, stream);
+}
+
+// The same with x, dy, gamma, beta, dx, dgamma and dbeta in bf16.
+extern "C" int group_norm_bwd_bf16(const __nv_bfloat16* x,
+                                   const __nv_bfloat16* dy,
+                                   const __nv_bfloat16* gamma,
+                                   const __nv_bfloat16* beta,
+                                   __nv_bfloat16* dx, __nv_bfloat16* dgamma,
+                                   __nv_bfloat16* dbeta, float* partial,
+                                   float* persample, float* stats,
+                                   float* coeffs, int B, int N, int C, int G,
+                                   int rows, int relu, void* stream) {
+  return bwd<__nv_bfloat16>(x, dy, gamma, beta, dx, dgamma, dbeta, partial,
+                            persample, stats, coeffs, B, N, C, G, rows, relu,
+                            stream);
 }

@@ -64,7 +64,9 @@ class LSTMClassifier(nn.Module):
         from ``rng``, a generator on the module's device (None: torch's
         default generator). Eval mode never drops."""
         x = self.embed(tokens)                                   # [B, T, E]
-        hs = lstm_seq(self.lstm_wx, self.lstm_wh, self.lstm_b, x)
+        # the packed weights in x's dtype, as the JAX model casts them
+        hs = lstm_seq(*(w.to(x.dtype) for w in (
+            self.lstm_wx, self.lstm_wh, self.lstm_b)), x)
         h = hs[:, -1, :]                                  # last hidden state
         if self.training and self.dropout_rate > 0.0:
             keep = 1.0 - self.dropout_rate

@@ -118,12 +118,16 @@ class KernelLib:
     first use. ``counted`` names the kernels whose launches the module
     counts: a wrapper calls :meth:`count` once where it launches its
     kernel, and a run sets the counts to 0 (:meth:`reset`) and reads them
-    back (:meth:`counts`) to show that its path went through the kernels."""
+    back (:meth:`counts`) to show that its path went through the kernels.
+    The calls of each entry point are counted beside them
+    (:meth:`entry_counts`), so a run can also show which dtype's
+    instantiation it launched."""
 
     def __init__(self, entries: dict, counted: Iterable[str]):
         self._entries = entries
         self._fns: dict = {}
         self._launches = dict.fromkeys(counted, 0)
+        self._entry_launches = dict.fromkeys(entries, 0)
         self._lock = threading.Lock()
 
     def _fn(self, entry: str):
@@ -155,6 +159,8 @@ class KernelLib:
             rc = self._fn(entry)(*ptrs, stream)
         if rc != 0:
             raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+        with self._lock:
+            self._entry_launches[entry] += 1
 
     def count(self, name: str) -> None:
         with self._lock:
@@ -163,13 +169,19 @@ class KernelLib:
     def reset(self) -> None:
         """Set every kernel's launch count to 0."""
         with self._lock:
-            for name in self._launches:
-                self._launches[name] = 0
+            for counts in (self._launches, self._entry_launches):
+                for name in counts:
+                    counts[name] = 0
 
     def counts(self) -> dict:
         """``{kernel name: launches}``."""
         with self._lock:
             return dict(self._launches)
+
+    def entry_counts(self) -> dict:
+        """``{C entry point: successful calls}`` (``lstm_bwd_bf16``, ...)."""
+        with self._lock:
+            return dict(self._entry_launches)
 
 
 def on_cpu(tensors) -> bool:
@@ -178,18 +190,35 @@ def on_cpu(tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def check_cuda_f32(tensors, what: str, family: str) -> None:
-    """The kernels take f32, contiguous tensors on one CUDA device;
-    anything else raises (nothing falls back to the plain path)."""
+#: the dtype suffix of a kernel's C entry points, by the tensors' dtype.
+SUFFIXES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def check_cuda(tensors, what: str, family: str) -> str:
+    """The kernels take contiguous tensors on one CUDA device, all float32
+    or all bfloat16; anything else raises (nothing falls back to the plain
+    path or to another dtype). Returns the entry points' suffix for that
+    dtype (``"f32"`` or ``"bf16"``).
+
+    One call never mixes dtypes among ``tensors``: the Pallas kernels take
+    x, the weights and the incoming gradient in one dtype. Where a TPU
+    kernel does mix them, the wrapper leaves the tensors that keep their
+    own dtype out of ``tensors`` and checks them itself: flash attention's
+    float32 logsumexp and delta rows beside bf16 q, k, v
+    (``flash_attention._check_cuda``), and the fold's float32 center beside
+    its int8 or bf16 wire tensor (``fold._check``)."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(
             f"{what} needs all of its tensors on one CUDA device (or all on "
             f"the CPU); got {[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
+    dtype = tensors[0].dtype
+    if dtype not in SUFFIXES or any(t.dtype != dtype for t in tensors):
         raise TypeError(
-            f"the CUDA {family} kernels take float32 only; {what} got "
+            f"the CUDA {family} kernels take float32 or bfloat16, one dtype "
+            f"for every tensor of a call; {what} got "
             f"{[str(t.dtype) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"the CUDA {family} kernels need contiguous tensors "
                          f"({what})")
+    return SUFFIXES[dtype]

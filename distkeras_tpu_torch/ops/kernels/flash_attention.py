@@ -44,7 +44,6 @@ from distkeras_tpu_torch.ops.kernels import build
 BLOCK = 64
 #: the running max's start and the masked score (``_NEG`` of the TPU kernel).
 NEG = -1e30
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 #: the C entry points -> (source, argtypes), and the launches so far in
 #: this process by kernel: ``flash_fwd``, ``flash_dq`` and ``flash_dkv``,
@@ -52,11 +51,11 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I = build.PTR, build.INT
 _LIB = build.KernelLib({
     **{f"flash_fwd_{s}": ("flash_attn", [_P] * 5 + [_I] * 4)
-       for s in _DTYPES.values()},
+       for s in build.SUFFIXES.values()},
     **{f"flash_dq_{s}": ("flash_attn", [_P] * 7 + [_I] * 4)
-       for s in _DTYPES.values()},
+       for s in build.SUFFIXES.values()},
     **{f"flash_dkv_{s}": ("flash_attn", [_P] * 8 + [_I] * 4)
-       for s in _DTYPES.values()},
+       for s in build.SUFFIXES.values()},
 }, ("flash_fwd", "flash_dq", "flash_dkv"))
 
 
@@ -65,10 +64,11 @@ def reset_launches() -> None:
     _LIB.reset()
 
 
-def launch_counts() -> dict:
+def launch_counts(by_entry: bool = False) -> dict:
     """``{kernel name: launches}`` for ``flash_fwd``, ``flash_dq`` and
-    ``flash_dkv``."""
-    return _LIB.counts()
+    ``flash_dkv``, or with ``by_entry`` the calls of each C entry point
+    (``flash_fwd_bf16``, ...)."""
+    return _LIB.entry_counts() if by_entry else _LIB.counts()
 
 
 def check_head_dim(D: int) -> None:
@@ -190,7 +190,7 @@ def _check_cuda(tensors, rows, what: str) -> str:
             f"{what} needs all of its tensors on one CUDA device (or all on "
             f"the CPU); got {[str(t.device) for t in (*tensors, *rows)]}")
     dtype = tensors[0].dtype
-    if dtype not in _DTYPES or any(t.dtype != dtype for t in tensors):
+    if dtype not in build.SUFFIXES or any(t.dtype != dtype for t in tensors):
         raise TypeError(
             f"the CUDA flash kernels take float32 or bfloat16, one dtype for "
             f"all of q, k, v (and dO); {what} got "
@@ -210,7 +210,7 @@ def _check_cuda(tensors, rows, what: str) -> str:
                for t in tensors):
         raise ValueError(f"the CUDA flash kernels need contiguous, 16-byte "
                          f"aligned tensors ({what})")
-    return _DTYPES[dtype]
+    return build.SUFFIXES[dtype]
 
 
 def flash_fwd_cuda(q, k, v) -> tuple:

@@ -7,12 +7,20 @@ Wh [H, 4H], b [4H])`` and returns ``hs [B, T, H]`` with h0 = c0 = 0.
 
 * Without a gradient (``no_grad``, ``inference_mode``, or no input that
   requires one) it runs the plain forward: ``csrc/lstm_fwd.cu``'s
-  ``lstm_fwd_f32`` on CUDA tensors (one launch for all T steps; the design
-  note is in that file).
+  ``lstm_fwd_f32`` or ``lstm_fwd_bf16`` on CUDA tensors (one launch for
+  all T steps; the design note is in that file).
 * With one, it goes through :class:`LSTMSeq`, the counterpart of the JAX
-  package's ``custom_vjp``: the stash forward (``lstm_fwd_stash_f32``,
-  which also writes the residuals ``cs`` and ``gates``) and the BPTT
-  backward (``csrc/lstm_bwd.cu``).
+  package's ``custom_vjp``: the stash forward (``lstm_fwd_stash_*``, which
+  also writes the residuals ``cs`` and ``gates``) and the BPTT backward
+  (``csrc/lstm_bwd.cu``, ``lstm_bwd_*``).
+
+float32 and bfloat16 take the same path; all four tensors of a call share
+one dtype. In bf16 (the mixed-precision step) the TPU kernels' rounding
+points hold, in the kernels and in the twins alike: products of bf16
+values summed in f32, the h/c carry f32 with h rounded to bf16 before the
+recurrent product, hs/cs/gates and dx stored in bf16; the backward rounds
+dpre to bf16 for dx, the dh carry, dWx and dWh but sums db from the f32
+dpre, and returns dWx, dWh, db as f32 sums rounded to bf16.
 
 Each kernel has a plain twin here (:func:`lstm_seq_plain`,
 :func:`lstm_fwd_stash_plain`, :func:`lstm_bwd_plain`). A wrapper takes its
@@ -32,18 +40,22 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.ops.kernels import build
+from distkeras_tpu_torch.ops.precision import widen
 
 GATES = ("i", "f", "g", "o")
 
 #: the C entry points -> (source, argtypes), and the launches so far in
 #: this process, one per wrapper call that launched, by kernel:
-#: ``lstm_fwd`` (``lstm_fwd_f32``), ``lstm_fwd_stash``
-#: (``lstm_fwd_stash_f32``) and ``lstm_bwd`` (``lstm_bwd_f32``).
+#: ``lstm_fwd`` (``lstm_fwd_f32``, ``lstm_fwd_bf16``), ``lstm_fwd_stash``
+#: (``lstm_fwd_stash_*``) and ``lstm_bwd`` (``lstm_bwd_*``).
 _P, _I = build.PTR, build.INT
 _LIB = build.KernelLib({
-    "lstm_fwd_f32": ("lstm_fwd", [_P] * 5 + [_I] * 4),
-    "lstm_fwd_stash_f32": ("lstm_fwd", [_P] * 7 + [_I] * 4),
-    "lstm_bwd_f32": ("lstm_bwd", [_P] * 13 + [_I] * 5),
+    **{f"lstm_fwd_{s}": ("lstm_fwd", [_P] * 5 + [_I] * 4)
+       for s in build.SUFFIXES.values()},
+    **{f"lstm_fwd_stash_{s}": ("lstm_fwd", [_P] * 7 + [_I] * 4)
+       for s in build.SUFFIXES.values()},
+    **{f"lstm_bwd_{s}": ("lstm_bwd", [_P] * 13 + [_I] * 5)
+       for s in build.SUFFIXES.values()},
 }, ("lstm_fwd", "lstm_fwd_stash", "lstm_bwd"))
 
 
@@ -52,29 +64,36 @@ def reset_launches() -> None:
     _LIB.reset()
 
 
-def launch_counts() -> dict:
-    """``{kernel name: launches}`` for the three LSTM kernels."""
-    return _LIB.counts()
+def launch_counts(by_entry: bool = False) -> dict:
+    """``{kernel name: launches}`` for the three LSTM kernels, or with
+    ``by_entry`` the calls of each C entry point (``lstm_bwd_bf16``, ...)."""
+    return _LIB.entry_counts() if by_entry else _LIB.counts()
 
 
 def _fwd_plain(wx, wh, b, x, stash: bool):
+    """The forward in ``x``'s dtype, at the TPU kernel's rounding points:
+    the products of the stored values summed in the wide dtype, the h/c
+    carry wide, h rounded to Wh's dtype before the recurrent product, hs,
+    cs and gates stored in x's dtype."""
     B, T, _E = x.shape
     H = wh.shape[0]
-    h = x.new_zeros(B, H)
-    c = x.new_zeros(B, H)
+    dt = x.dtype
+    wxw, whw, bw = widen(wx), widen(wh), widen(b)
+    h = widen(x.new_zeros(B, H))
+    c = torch.zeros_like(h)
     hs, cs, gates = [], [], []
     for t in range(T):
-        pre = x[:, t] @ wx + h @ wh + b
+        pre = (widen(x[:, t]) @ wxw + widen(h.to(wh.dtype)) @ whw) + bw
         i = torch.sigmoid(pre[:, 0 * H:1 * H])
         f = torch.sigmoid(pre[:, 1 * H:2 * H])
         g = torch.tanh(pre[:, 2 * H:3 * H])
         o = torch.sigmoid(pre[:, 3 * H:4 * H])
         c = f * c + i * g
         h = o * torch.tanh(c)
-        hs.append(h)
+        hs.append(h.to(dt))
         if stash:
-            cs.append(c)
-            gates.append(torch.cat([i, f, g, o], dim=1))
+            cs.append(c.to(dt))
+            gates.append(torch.cat([i, f, g, o], dim=1).to(dt))
     if not stash:
         return torch.stack(hs, dim=1)
     return (torch.stack(hs, dim=1), torch.stack(cs, dim=1),
@@ -101,31 +120,41 @@ def lstm_bwd_plain(wx: torch.Tensor, wh: torch.Tensor, x: torch.Tensor,
                    dhs: torch.Tensor) -> tuple:
     """BPTT through :func:`lstm_fwd_stash_plain`'s residuals in plain
     PyTorch, the reverse-time math of the JAX package's ``_bwd_kernel``:
-    returns ``dwx [E, 4H], dwh [H, 4H], db [4H], dx [B, T, E]``."""
+    returns ``dwx [E, 4H], dwh [H, 4H], db [4H], dx [B, T, E]``.
+
+    In the wide dtype on the stored values, at the TPU kernel's rounding
+    points: dpre rounded to the weights' dtype for dx, the dh carry, dWx
+    and dWh, db summed from the unrounded dpre, dx stored in x's dtype and
+    dWx, dWh, db in the weights' (a no-op in f32)."""
     B, T, E = x.shape
     H = wh.shape[0]
-    dh = x.new_zeros(B, H)
-    dc = x.new_zeros(B, H)
-    dpres, dxs = [None] * T, [None] * T
+    wdt = wx.dtype
+    wxw, whw = widen(wx), widen(wh)
+    dh = widen(x.new_zeros(B, H))
+    dc = torch.zeros_like(dh)
+    dpres, dpres_c, dxs = [None] * T, [None] * T, [None] * T
     for t in range(T - 1, -1, -1):
-        i, f, g, o = gates[:, t].split(H, dim=1)
-        c_t = cs[:, t]
-        c_prev = cs[:, t - 1] if t > 0 else torch.zeros_like(c_t)
-        dh = dh + dhs[:, t]
+        i, f, g, o = widen(gates[:, t]).split(H, dim=1)
+        c_t = widen(cs[:, t])
+        c_prev = widen(cs[:, t - 1]) if t > 0 else torch.zeros_like(c_t)
+        dh = dh + widen(dhs[:, t])
         tanh_c = torch.tanh(c_t)
         do = dh * tanh_c
         dc = dh * o * (1.0 - tanh_c * tanh_c) + dc
         dpre = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
                           dc * i * (1.0 - g * g), do * o * (1.0 - o)], dim=1)
         dc = dc * f
-        dxs[t] = dpre @ wx.t()
-        dh = dpre @ wh.t()
-        dpres[t] = dpre
+        dpre_c = widen(dpre.to(wdt))
+        dxs[t] = (dpre_c @ wxw.t()).to(x.dtype)
+        dh = dpre_c @ whw.t()
+        dpres[t], dpres_c[t] = dpre, dpre_c
     dpre = torch.stack(dpres, dim=1).reshape(B * T, 4 * H)
+    dpre_c = torch.stack(dpres_c, dim=1).reshape(B * T, 4 * H)
     h_prev = torch.cat([hs.new_zeros(B, 1, H), hs[:, :-1]], dim=1)
-    dwx = x.reshape(B * T, E).t() @ dpre
-    dwh = h_prev.reshape(B * T, H).t() @ dpre
-    return dwx, dwh, dpre.sum(dim=0), torch.stack(dxs, dim=1)
+    dwx = widen(x.reshape(B * T, E)).t() @ dpre_c
+    dwh = widen(h_prev.reshape(B * T, H)).t() @ dpre_c
+    return (dwx.to(wdt), dwh.to(wdt), dpre.sum(dim=0).to(wdt),
+            torch.stack(dxs, dim=1))
 
 
 def _check(wx, wh, b, x) -> None:
@@ -141,40 +170,44 @@ def _check(wx, wh, b, x) -> None:
             f"{tuple(wh.shape)}, b {tuple(b.shape)}")
 
 
-def _check_cuda(tensors, what: str) -> None:
-    """The kernels take f32, contiguous tensors on one CUDA device, and
-    4H <= 512 (``tensors[1]`` is Wh [H, 4H]); anything else raises (nothing
-    falls back to the plain path)."""
-    build.check_cuda_f32(tensors, what, "LSTM")
+def _check_cuda(tensors, what: str) -> str:
+    """The kernels take contiguous tensors of one dtype, float32 or
+    bfloat16, on one CUDA device, and 4H <= 512 (``tensors[1]`` is Wh
+    [H, 4H]); anything else raises (nothing falls back to the plain path).
+    Returns the entry points' dtype suffix."""
+    suffix = build.check_cuda(tensors, what, "LSTM")
     H = tensors[1].shape[0]
     if 4 * H > 512:
         raise ValueError(
             f"the CUDA LSTM kernels take 4H <= 512 (one thread per gate "
             f"column), got H={H}")
+    return suffix
 
 
 def lstm_fwd_cuda(wx, wh, b, x) -> torch.Tensor:
-    """``lstm_fwd_f32``: hs of the forward on the card."""
-    _check_cuda((x, wh, wx, b), "lstm_fwd")
+    """``lstm_fwd_f32`` / ``lstm_fwd_bf16``: hs of the forward on the card,
+    in x's dtype."""
+    suffix = _check_cuda((x, wh, wx, b), "lstm_fwd")
     B, T, E = x.shape
     H = wh.shape[0]
-    hs = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
-    _LIB.launch("lstm_fwd_f32", x, wx, wh, b, hs, B, T, E, H)
+    hs = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
+    _LIB.launch(f"lstm_fwd_{suffix}", x, wx, wh, b, hs, B, T, E, H)
     _LIB.count("lstm_fwd")
     return hs
 
 
 def lstm_fwd_stash_cuda(wx, wh, b, x) -> tuple:
-    """``lstm_fwd_stash_f32``: ``hs, cs, gates`` of the forward on the card
-    (the same outputs as :func:`lstm_fwd_stash_plain`)."""
-    _check_cuda((x, wh, wx, b), "lstm_fwd_stash")
+    """``lstm_fwd_stash_f32`` / ``lstm_fwd_stash_bf16``: ``hs, cs, gates``
+    of the forward on the card, in x's dtype (the same outputs as
+    :func:`lstm_fwd_stash_plain`)."""
+    suffix = _check_cuda((x, wh, wx, b), "lstm_fwd_stash")
     B, T, E = x.shape
     H = wh.shape[0]
-    hs = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
+    hs = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
     cs = torch.empty_like(hs)
-    gates = torch.empty((B, T, 4 * H), dtype=torch.float32, device=x.device)
-    _LIB.launch("lstm_fwd_stash_f32", x, wx, wh, b, hs, cs, gates, B, T, E,
-                H)
+    gates = torch.empty((B, T, 4 * H), dtype=x.dtype, device=x.device)
+    _LIB.launch(f"lstm_fwd_stash_{suffix}", x, wx, wh, b, hs, cs, gates, B,
+                T, E, H)
     _LIB.count("lstm_fwd_stash")
     return hs, cs, gates
 
@@ -191,10 +224,11 @@ def bwd_splits(rows: int) -> int:
 
 
 def lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs) -> tuple:
-    """``lstm_bwd_f32``: ``dwx, dwh, db, dx`` on the card (the same outputs
-    as :func:`lstm_bwd_plain`). Allocates the kernel's scratch: the dpre
-    workspace [B, T, 4H] and the weight-gradient partials."""
-    _check_cuda((x, wh, wx, hs, cs, gates, dhs), "lstm_bwd")
+    """``lstm_bwd_f32`` / ``lstm_bwd_bf16``: ``dwx, dwh, db, dx`` on the
+    card in the inputs' dtype (the same outputs as :func:`lstm_bwd_plain`).
+    Allocates the kernel's f32 scratch: the dpre workspace [B, T, 4H] and
+    the weight-gradient partials."""
+    suffix = _check_cuda((x, wh, wx, hs, cs, gates, dhs), "lstm_bwd")
     B, T, E = x.shape
     H = wh.shape[0]
     if (tuple(hs.shape) != (B, T, H) or tuple(cs.shape) != (B, T, H)
@@ -212,12 +246,12 @@ def lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs) -> tuple:
     dx = torch.empty_like(x)
     dwx = torch.empty_like(wx)
     dwh = torch.empty_like(wh)
-    db = torch.empty((4 * H,), dtype=torch.float32, device=dev)
+    db = torch.empty((4 * H,), dtype=wx.dtype, device=dev)
     dpre = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
     partial = torch.empty((splits, E + H + 1, 4 * H), dtype=torch.float32,
                           device=dev)
-    _LIB.launch("lstm_bwd_f32", dhs, x, hs, cs, gates, wxt, wht, dx, dwx, dwh,
-                db, dpre, partial, B, T, E, H, splits)
+    _LIB.launch(f"lstm_bwd_{suffix}", dhs, x, hs, cs, gates, wxt, wht, dx,
+                dwx, dwh, db, dpre, partial, B, T, E, H, splits)
     _LIB.count("lstm_bwd")
     return dwx, dwh, db, dx
 
@@ -236,6 +270,7 @@ class LSTMSeq(torch.autograd.Function):
         else:
             hs, cs, gates = lstm_fwd_stash_cuda(wx, wh, b, x)
         ctx.save_for_backward(wx, wh, x, hs, cs, gates)
+        ctx.b_dtype = b.dtype
         return hs
 
     @staticmethod
@@ -245,8 +280,10 @@ class LSTMSeq(torch.autograd.Function):
         # may hand it over in any layout. Make it the kernel's.
         dhs = dhs.contiguous()
         if build.on_cpu((wx, wh, x, hs, cs, gates, dhs)):
-            return lstm_bwd_plain(wx, wh, x, hs, cs, gates, dhs)
-        return lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
+            dwx, dwh, db, dx = lstm_bwd_plain(wx, wh, x, hs, cs, gates, dhs)
+        else:
+            dwx, dwh, db, dx = lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
+        return dwx, dwh, db.to(ctx.b_dtype), dx
 
 
 def lstm_seq(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
@@ -256,8 +293,9 @@ def lstm_seq(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
     Differentiable: when autograd needs a gradient of any input, the call
     goes through :class:`LSTMSeq` (stash forward, BPTT backward). Otherwise
     it runs the forward alone. CPU tensors take the plain twins. CUDA
-    tensors must be float32, contiguous and on one device; anything else
-    raises, and so does a failed build or launch."""
+    tensors must be contiguous, on one device and all float32 or all
+    bfloat16; anything else raises, and so does a failed build or
+    launch."""
     tensors = (wx, wh, b, x)
     _check(*tensors)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):

@@ -40,6 +40,10 @@ class RunConfig:
 
     @property
     def dtype(self) -> Optional[torch.dtype]:
+        if self.compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{sorted(k for k in _DTYPES if k)} or None, "
+                             f"got {self.compute_dtype!r}")
         return _DTYPES[self.compute_dtype]
 
     def replace(self, **kw) -> "RunConfig":

@@ -15,11 +15,13 @@ DynSGD, AEASGD and EAMSGD, ``SingleTrainer`` and
 ``SynchronousDistributedTrainer``. With ``remote="host:port"`` (or
 ``DKTPU_PS_ENDPOINT``) the discipline trainers train against a networked
 parameter server instead (``netps/remote.py``: W worker threads, each
-pull -> K local steps -> commit). Refused with ``NotImplementedError``
-until their slices: checkpoints (``checkpoint_dir``), the metrics log
-(``metrics_path``), model-parallel submeshes (``parallel``) and any
-``compute_dtype`` other than float32. The averaging and ensemble trainers
-come with a later slice.
+pull -> K local steps -> commit). ``compute_dtype="bfloat16"`` (or a
+``torch.dtype``) trains in mixed precision on every one of them
+(``workers.make_local_loop``: f32 master state, the step in bf16).
+Refused with ``NotImplementedError`` until their slices: checkpoints
+(``checkpoint_dir``), the metrics log (``metrics_path``) and
+model-parallel submeshes (``parallel``). The averaging and ensemble
+trainers come with a later slice.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import warnings
 from typing import Optional, Union
 
 import numpy as np
+import torch
 
 from distkeras_tpu_torch.data.batching import make_batches
 from distkeras_tpu_torch.data.dataframe import DataFrame
@@ -112,7 +115,7 @@ class Trainer:
         batch_size: int = 32,
         num_epoch: int = 1,
         learning_rate: float = 0.01,
-        compute_dtype: Optional[str] = None,
+        compute_dtype: Union[str, torch.dtype, None] = None,
         seed: int = 0,
         metrics_path: Optional[str] = None,
         checkpoint_dir: Optional[str] = None,
@@ -139,8 +142,6 @@ class Trainer:
                 f"ignoring socket-era kwargs {sorted(legacy)}: there is no "
                 "master address/port (kept for reference-notebook "
                 "compatibility)", DeprecationWarning, stacklevel=2)
-        if compute_dtype not in (None, "float32"):
-            raise _not_ported(f"compute_dtype={compute_dtype!r}", "bf16")
         if checkpoint_dir:
             raise _not_ported("checkpoint_dir= (checkpoint/resume)",
                               "checkpoint")
@@ -156,10 +157,18 @@ class Trainer:
         self.loss = loss
         self.features_col = features_col
         self.label_col = label_col
+        if isinstance(compute_dtype, (str, type(None))):
+            dtype_str, self._dtype_override = compute_dtype, None
+        else:  # a concrete torch dtype: bypasses the string-keyed config
+            dtype_str, self._dtype_override = None, compute_dtype
         self.config = RunConfig(
             batch_size=batch_size, num_epoch=num_epoch,
-            learning_rate=learning_rate, compute_dtype=compute_dtype,
-            seed=seed)
+            learning_rate=learning_rate, compute_dtype=dtype_str, seed=seed)
+        dtype = self.compute_dtype  # an unknown name raises ValueError here
+        if dtype is not None and not (isinstance(dtype, torch.dtype)
+                                      and dtype.is_floating_point):
+            raise TypeError(f"compute_dtype must be a float dtype, got "
+                            f"{compute_dtype!r}")
         self.checkpoint_every = checkpoint_every
         self.resume = resume
         if rounds_per_program == "auto":
@@ -187,7 +196,10 @@ class Trainer:
         self._t_start: float | None = None
 
     @property
-    def compute_dtype(self):
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        """The step's dtype (``None``: float32 throughout)."""
+        if self._dtype_override is not None:
+            return self._dtype_override
         return self.config.dtype
 
     def _execute(self, engine, plan):

@@ -26,6 +26,7 @@ from distkeras_tpu_torch.ops.optimizers import (
     GradientTransformation,
     apply_updates,
 )
+from distkeras_tpu_torch.ops.precision import cast_floats
 
 
 def derive_seed(*parts: int) -> int:
@@ -65,16 +66,23 @@ def make_local_loop(
     with ``derive_seed(rng, k, i)``), handed to the module's ``forward`` as
     ``rng=`` when it takes one. The masks cannot match JAX's bits.
 
-    Not ported yet, and refused rather than ignored: ``compute_dtype``
-    other than float32 (the bf16 slice), ``state_collections`` (the
-    BatchNorm slice) and ``input_transform`` (on-device augmentation).
+    ``compute_dtype`` (``torch.bfloat16``; ``None`` or ``torch.float32``
+    is the plain f32 step) is mixed precision, the JAX loop's recipe:
+    inside the loss the parameters and the float inputs are cast to it
+    (uint8 inputs are divided by 255 in it), the model's output is cast to
+    f32 before the loss, and autograd carries the cast back, so the master
+    parameters, their gradients and the optimizer state stay f32.
+
+    Not ported yet, and refused rather than ignored: ``state_collections``
+    (the BatchNorm slice) and ``input_transform`` (on-device augmentation).
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype} is not ported yet (it comes with "
-            "the bf16 slice); train in float32")
+    if compute_dtype is not None and not (
+            isinstance(compute_dtype, torch.dtype)
+            and compute_dtype.is_floating_point):
+        raise TypeError(f"compute_dtype must be a float torch.dtype or None, "
+                        f"got {compute_dtype!r}")
     if tuple(state_collections or ()):
         raise NotImplementedError(
             f"state_collections={tuple(state_collections)} (mutable model "
@@ -88,8 +96,8 @@ def make_local_loop(
     def cast_input(x):
         if x.dtype == torch.uint8 and normalize_uint8:
             _warn_uint8_rescale()
-            return x.to(torch.float32) / 255.0
-        return x
+            return x.to(compute_dtype or torch.float32) / 255.0
+        return cast_floats(x, compute_dtype)
 
     def loss_and_grads(params, x, y, seed):
         leaves = {k: v.detach().requires_grad_(True)
@@ -99,7 +107,8 @@ def make_local_loop(
             gen = torch.Generator(device=x.device)
             gen.manual_seed(seed)
             kwargs["rng"] = gen
-        out = functional_call(module, leaves, (cast_input(x),), kwargs)
+        out = functional_call(module, cast_floats(leaves, compute_dtype),
+                              (cast_input(x),), kwargs)
         loss = loss_fn(out.to(torch.float32), y)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))

@@ -53,8 +53,10 @@ def test_kernel_refuses_what_it_does_not_take(packed):
     wx, wh, b, g = packed
     x = torch.randn(2, T, E, generator=g).cuda()
     before = K.launch_counts()
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="one dtype"):
         K.lstm_seq(wx, wh, b, x.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.lstm_seq(wx.half(), wh.half(), b.half(), x.half())
     with pytest.raises(ValueError, match="contiguous"):
         K.lstm_seq(wx, wh, b, x.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="CUDA device"):
@@ -168,7 +170,7 @@ def test_group_norm_refuses_what_it_does_not_take(card):
     gamma, beta = torch.ones(64, device="cuda"), torch.zeros(64,
                                                             device="cuda")
     before = G.launch_counts()
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         G.group_norm(x.double(), gamma.double(), beta.double(), groups=8)
     with pytest.raises(ValueError, match="contiguous"):
         G.group_norm(x.transpose(1, 2), gamma, beta, groups=8)
@@ -194,6 +196,182 @@ def test_tiny_resnet_step_on_card_launches_the_group_norm_kernels(card):
     torch.cuda.synchronize()
     assert G.launch_counts() == {"group_norm_fwd": 9, "group_norm_bwd": 9}
     assert all(torch.isfinite(p).all() for p in out.params.values())
+
+
+# -- bf16: the mixed-precision step's instantiations ----------------------
+
+#: bf16 kernels vs their bf16 twins on the card, as shares of the twin's
+#: largest (``top``) and mean (``mean``) magnitude. Both round at the same
+#: points; the f32 sums run in another order, so now and then one rounding
+#: flips by one bf16 ulp (2^-8 = 3.9e-3 of the value). GroupNorm has no
+#: carry: one ulp of the largest magnitude is the limit. The LSTM feeds
+#: the rounded h back for 200 steps and dh through the rounded dpre, so a
+#: flip moves the next steps' sums by about an ulp times a weight and
+#: flips more of them: the outputs drift by a few ulps (``top``), about an
+#: ulp in the mean.
+BF16_ULP = 2.0 ** -8
+LSTM_BF16 = {"top": 8 * BF16_ULP, "mean": 2 * BF16_ULP}
+
+
+def _bf16(*ts):
+    return [t.to(torch.bfloat16) for t in ts]
+
+
+@pytest.mark.parametrize("B", [1, 3, 131])
+def test_bf16_forward_kernels_match_plain_on_card(packed, B):
+    """``lstm_fwd_bf16`` and ``lstm_fwd_stash_bf16`` against the bf16
+    twins: hs (and cs, gates) in bf16 within ``LSTM_BF16``."""
+    wx, wh, b, g = packed
+    x = torch.randn(B, T, E, generator=g).cuda()
+    wx, wh, b, x = _bf16(wx, wh, b, x)
+    before = K.launch_counts(by_entry=True)
+    hs = K.lstm_seq(wx, wh, b, x)
+    stash = K.lstm_fwd_stash_cuda(wx, wh, b, x)
+    torch.cuda.synchronize()
+    after = K.launch_counts(by_entry=True)
+    assert after["lstm_fwd_bf16"] == before["lstm_fwd_bf16"] + 1
+    assert after["lstm_fwd_stash_bf16"] == before["lstm_fwd_stash_bf16"] + 1
+    ref = K.lstm_fwd_stash_plain(wx, wh, b, x)
+    for name, got, r in zip(("hs", "stash hs", "cs", "gates"),
+                            (hs, *stash), (ref[0], *ref)):
+        assert got.dtype == torch.bfloat16, name
+        top, mean = _flash_err(got, r)
+        assert top <= LSTM_BF16["top"] and mean <= LSTM_BF16["mean"], (
+            name, top, mean)
+
+
+@pytest.mark.parametrize("B", [1, 3, 131])
+def test_bf16_backward_matches_plain_on_card(packed, B):
+    """``lstm_bwd_bf16`` against the bf16 twin on the same bf16 residuals
+    and dhs: dwx, dwh, db, dx in bf16 within ``LSTM_BF16``; two calls give
+    the same bits."""
+    wx, wh, b, g = packed
+    x = torch.randn(B, T, E, generator=g).cuda()
+    dhs = (torch.randn(B, T, H, generator=g) / 10).cuda()
+    wx, wh, b, x, dhs = _bf16(wx, wh, b, x, dhs)
+    hs, cs, gates = K.lstm_fwd_stash_plain(wx, wh, b, x)
+    before = K.launch_counts(by_entry=True)["lstm_bwd_bf16"]
+    got = K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
+    again = K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
+    torch.cuda.synchronize()
+    assert K.launch_counts(by_entry=True)["lstm_bwd_bf16"] == before + 2
+    ref = K.lstm_bwd_plain(wx, wh, x, hs, cs, gates, dhs)
+    for name, a, a2, r in zip(("dwx", "dwh", "db", "dx"), got, again, ref):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, a2), name
+        top, mean = _flash_err(a, r)
+        assert top <= LSTM_BF16["top"] and mean <= LSTM_BF16["mean"], (
+            name, top, mean)
+
+
+@pytest.mark.parametrize("B,N,C,relu", [(3, 56 * 56, 64, True),
+                                        (2, 7 * 7, 2048, False)])
+def test_bf16_group_norm_kernels_match_plain_on_card(card, B, N, C, relu):
+    """``group_norm_fwd_bf16`` and ``group_norm_bwd_bf16`` against the
+    bf16 twins: y, dx, dgamma, dbeta in bf16 within one bf16 ulp of each
+    one's largest magnitude (dy zeroed within 1e-2 of the ReLU edge, where
+    a statistic summed in another order may mask otherwise)."""
+    g = torch.Generator().manual_seed(0)
+    x, dy = (torch.randn(B, N, C, generator=g).cuda() for _ in range(2))
+    gamma, beta = (torch.randn(C, generator=g).cuda() for _ in range(2))
+    x, dy, gamma, beta = _bf16(x, dy, gamma, beta)
+    pre = G.group_norm_fwd_plain(x, gamma, beta, 32, False).float()
+    dy = torch.where(pre.abs() > 1e-2, dy, torch.zeros_like(dy))
+    before = G.launch_counts(by_entry=True)
+    y = G.group_norm_fwd_cuda(x, gamma, beta, 32, relu)
+    got = G.group_norm_bwd_cuda(x, dy, gamma, beta, 32, relu)
+    again = G.group_norm_bwd_cuda(x, dy, gamma, beta, 32, relu)
+    torch.cuda.synchronize()
+    after = G.launch_counts(by_entry=True)
+    assert after["group_norm_fwd_bf16"] == before["group_norm_fwd_bf16"] + 1
+    assert after["group_norm_bwd_bf16"] == before["group_norm_bwd_bf16"] + 2
+    ref = (G.group_norm_fwd_plain(x, gamma, beta, 32, relu),
+           *G.group_norm_bwd_plain(x, dy, gamma, beta, 32, relu))
+    for name, a, r in zip(("y", "dx", "dgamma", "dbeta"), (y, *got), ref):
+        assert a.dtype == torch.bfloat16, name
+        assert _flash_err(a, r)[0] <= BF16_ULP, name
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+
+
+def test_mixed_dtypes_raise_on_card(packed):
+    """One dtype a call: a bf16 tensor among f32 ones (or the reverse)
+    raises in every wrapper of this slice, and nothing launches."""
+    wx, wh, b, g = packed
+    x = torch.randn(2, T, E, generator=g).cuda()
+    before = (K.launch_counts(by_entry=True), G.launch_counts(by_entry=True))
+    with pytest.raises(TypeError, match="one dtype"):
+        K.lstm_fwd_stash_cuda(wx.bfloat16(), wh, b, x)
+    hs, cs, gates = K.lstm_fwd_stash_plain(wx, wh, b, x)
+    with pytest.raises(TypeError, match="one dtype"):
+        K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, hs.bfloat16())
+    x3 = torch.randn(2, 16, 64, device="cuda")
+    ones = torch.ones(64, device="cuda")
+    with pytest.raises(TypeError, match="one dtype"):
+        G.group_norm(x3.bfloat16(), ones, ones, groups=8)
+    with pytest.raises(TypeError, match="one dtype"):
+        G.group_norm_bwd_cuda(x3, x3.bfloat16(), ones, ones, 8, False)
+    assert (K.launch_counts(by_entry=True),
+            G.launch_counts(by_entry=True)) == before
+
+
+def test_bf16_training_steps_launch_bf16_kernels_only(card):
+    """``compute_dtype="bfloat16"`` on the card: a DynSGD step of a small
+    LSTM, a SingleTrainer step of tiny_resnet and an AEASGD step of a
+    2-layer flash transformer launch each kernel of their path, and only
+    its bf16 instantiation; the master weights stay f32 and finite."""
+    from distkeras_tpu_torch import (
+        AEASGD,
+        DynSGD,
+        SingleTrainer,
+        imdb_lstm,
+        small_transformer_lm,
+        tiny_resnet,
+    )
+    from distkeras_tpu_torch.data import DataFrame
+
+    rng = np.random.default_rng(0)
+    runs = []
+    toks = rng.integers(0, 64, (4, 128))
+    lm = DataFrame({"features": toks.astype(np.int32),
+                    "label": np.roll(toks, -1, 1).astype(np.int32)})
+    # two steps of 2 layers: the forward twice a layer under remat
+    runs.append((FA, {"flash_fwd_bf16": 8, "flash_dq_bf16": 4,
+                      "flash_dkv_bf16": 4},
+                 lambda: AEASGD(small_transformer_lm(
+                     vocab_size=64, num_layers=2, d_model=64, num_heads=2,
+                     d_ff=64, max_seq_len=128, seq_len=128,
+                     attn_impl="flash", remat=True, device="cuda"),
+                     "adam", "sparse_categorical_crossentropy",
+                     num_workers=1, batch_size=2, communication_window=2,
+                     learning_rate=1e-4, rho=500.0,
+                     compute_dtype="bfloat16").train(lm)))
+    images = DataFrame({"features": rng.uniform(size=(8, 32, 32, 3)).astype(
+        np.float32), "label": rng.integers(0, 10, 8).astype(np.int32)})
+    runs.append((G, {"group_norm_fwd_bf16": 9, "group_norm_bwd_bf16": 9},
+                 lambda: SingleTrainer(
+                     tiny_resnet(norm_impl="pallas", device="cuda"),
+                     loss="sparse_categorical_crossentropy", batch_size=8,
+                     steps_per_program=1,
+                     compute_dtype="bfloat16").train(images)))
+    tokens = DataFrame({"features": rng.integers(0, 50, (16, 20)).astype(
+        np.int32), "label": rng.integers(0, 2, 16).astype(np.int32)})
+    runs.append((K, {"lstm_fwd_stash_bf16": 2, "lstm_bwd_bf16": 2},
+                 lambda: DynSGD(
+                     imdb_lstm(vocab_size=50, embed_dim=16, hidden_size=16,
+                               seq_len=20, device="cuda"),
+                     "sgd", "sparse_categorical_crossentropy",
+                     num_workers=1, batch_size=8, communication_window=2,
+                     learning_rate=0.1,
+                     compute_dtype="bfloat16").train(tokens)))
+    for mod, want, train in runs:
+        mod.reset_launches()
+        out = train()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in mod.launch_counts(by_entry=True).items()
+                    if v}
+        assert launched == want
+        assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                   for p in out.params.values())
 
 
 def _wire(codec: str, n: int, g: torch.Generator):

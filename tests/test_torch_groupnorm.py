@@ -4,9 +4,13 @@ the same autograd Function the card uses, against the JAX package's
 ``group_norm`` with its Pallas kernels in interpret mode, on the same
 seeded numpy inputs. Forward within atol 2e-5 and the gradients of
 ``sum(sin(y))`` within atol 3e-4 (the JAX package's own tolerances against
-flax: f32 statistics summed in another order, unit-scale inputs). The
-plain backward twin is also held against autograd through the plain
-forward in float64."""
+flax: f32 statistics summed in another order, unit-scale inputs). At bf16
+(the mixed-precision step's dtype) y, dx, dgamma and dbeta come out in
+bf16, each within one bf16 ulp of its largest magnitude: the same f32
+statistics and sums on the same bf16 values, rounded where the kernels
+store, so only a sum order that flips one rounding may differ, by one
+ulp. The plain backward twin is also held against autograd through the
+plain forward in float64."""
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +65,42 @@ def test_group_norm_matches_jax_kernel(shape, groups, relu):
     for name, got, ref in zip(("dx", "dgamma", "dbeta"), d, d_ref):
         np.testing.assert_allclose(got, ref, atol=3e-4, rtol=0,
                                    err_msg=name)
+
+
+def _within_bf16_ulp(got, ref, name):
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    err = np.abs(got - ref).max()
+    assert err <= ulp, (name, err, ulp)
+
+
+@pytest.mark.parametrize("shape,groups", [
+    ((3, 8, 8, 64), 16), ((2, 4, 4, 256), 32), ((2, 16, 128), 16)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_group_norm_bf16_matches_jax_kernel(shape, groups, relu):
+    """bf16 x, gamma and beta through both kernels (the JAX package's own
+    bf16 case, ``tests/test_pallas_groupnorm.py``, at the shapes above);
+    the loss ``sum(sin(y))`` is taken in f32 on both sides."""
+    x, g, b = _inputs(shape)
+    leaves = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+              for a in (x, g, b)]
+    args = tuple(jnp.asarray(t.detach().float().numpy(), jnp.bfloat16)
+                 for t in leaves)
+
+    def loss(a):
+        y = jax_group_norm(*a, groups=groups, relu=relu, interpret=True)
+        return jnp.sum(jnp.sin(y.astype(jnp.float32)))
+
+    y_ref = jax_group_norm(*args, groups=groups, relu=relu, interpret=True)
+    d_ref = jax.grad(loss)(args)
+    y = G.group_norm(*leaves, groups=groups, relu=relu)
+    d = torch.autograd.grad(torch.sin(y.float()).sum(), leaves)
+    assert y.dtype == torch.bfloat16
+    _within_bf16_ulp(y.detach().float().numpy(),
+                     np.asarray(y_ref.astype(jnp.float32)), "y")
+    for name, got, ref in zip(("dx", "dgamma", "dbeta"), d, d_ref):
+        assert got.dtype == torch.bfloat16, name
+        _within_bf16_ulp(got.float().numpy(),
+                         np.asarray(ref.astype(jnp.float32)), name)
 
 
 @pytest.mark.parametrize("relu", [False, True])

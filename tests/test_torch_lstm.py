@@ -2,7 +2,11 @@
 against the JAX package's: its CPU path (the plain PyTorch twin of the
 CUDA kernel) vs the Pallas kernel run in interpret mode and vs flax's
 ``OptimizedLSTMCell``, on the same numpy inputs. f32, rtol = atol = 1e-5:
-the same arithmetic summed in another order over a few steps.
+the same arithmetic summed in another order over a few steps. bf16 (the
+mixed-precision step's dtype): within one bf16 ulp of the output's
+largest magnitude, the same rounding points (bf16 products summed in
+f32, h rounded before the recurrent product, hs stored in bf16), where a
+sum order can flip one rounding by one ulp.
 
 The kernel itself runs only on a card: ``tests/test_torch_cuda.py``.
 """
@@ -42,6 +46,30 @@ def test_lstm_seq_matches_jax_pallas_interpret(shape):
                        jnp.asarray(x), interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                rtol=1e-5, atol=1e-5)
+
+
+def bf16_ulp(m: float) -> float:
+    """One bf16 unit in the last place at magnitude ``m`` (8 significant
+    bits)."""
+    return 2.0 ** (np.floor(np.log2(m)) - 7)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(4, 40, 16, 16)])
+def test_lstm_seq_bf16_matches_jax_pallas_interpret(shape):
+    """bf16 x and weights (the packed tree cast as the JAX model casts it)
+    through the plain forward and the Pallas kernel in interpret mode: hs
+    in bf16, within one bf16 ulp of its largest magnitude; T=40 lets a
+    rounding flip compound through the carry."""
+    x, _cell, _vars, cell_np = _setup(shape)
+    ws = [w.to(torch.bfloat16) for w in K.pack_lstm_params(cell_np)]
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = K.lstm_seq(*ws, xb)
+    assert got.dtype == torch.bfloat16
+    ref = jax_lstm_seq(*(jnp.asarray(a.float().numpy(), jnp.bfloat16)
+                         for a in (*ws, xb)), interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= bf16_ulp(np.abs(ref).max()), err
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -2,8 +2,8 @@
 the stash forward, the BPTT backward and the ``LSTMSeq`` autograd Function)
 against the JAX package's Pallas kernels in interpret mode and against
 flax's ``OptimizedLSTMCell``, on the same numpy inputs, on the CPU (where
-the Function dispatches to the plain twins). f32; each test states its
-tolerance.
+the Function dispatches to the plain twins). f32 and bf16; each test
+states its tolerance.
 
 The CUDA kernels themselves run only on a card: ``tests/test_torch_cuda.py``.
 """
@@ -38,6 +38,33 @@ def _t(*arrays):
     return [torch.from_numpy(a.copy()) for a in arrays]
 
 
+def _bf(*arrays):
+    """The arrays as bf16 tensors and as bf16 JAX arrays (the same bits)."""
+    ts = [torch.from_numpy(a.copy()).to(torch.bfloat16) for a in arrays]
+    return ts, [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in ts]
+
+
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _within_bf16_ulp(got, ref, name=""):
+    """``got`` within one bf16 ulp of ``ref``'s largest magnitude: the
+    port and the TPU kernel round at the same points, and a sum taken in
+    another order can flip one rounding by one ulp."""
+    got, ref = _f32(got), _f32(ref)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    err = np.abs(got - ref).max()
+    assert err <= ulp, (name, err, ulp)
+
+
+#: a longer sequence for the bf16 cases: a rounding flip can compound
+#: through the carry over 40 steps.
+BF16_SHAPES = SHAPES + [(4, 40, 16, 16)]
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_stash_forward_matches_jax_run_fwd(shape):
     """hs, cs, gates of the plain stash forward against JAX ``_run_fwd(...,
@@ -69,6 +96,66 @@ def test_bwd_plain_matches_jax_bwd_kernel(shape):
     for a, r in zip(got, (dwx, dwh, db, np.asarray(dx).transpose(1, 0, 2))):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_stash_forward_bf16_matches_jax_run_fwd(shape):
+    """bf16 hs, cs, gates (f32 carry inside, stored in bf16) against JAX
+    ``_run_fwd(..., stash=True, interpret=True)`` on the same bf16 inputs:
+    within one bf16 ulp of each output's largest magnitude."""
+    x, wx, wh, b, _ = _inputs(shape)
+    (twx, twh, tb, tx), (jwx, jwh, jb, jx) = _bf(wx, wh, b, x)
+    got = K.lstm_fwd_stash_plain(twx, twh, tb, tx)
+    ref = JL._run_fwd(jwx, jwh, jb, jnp.transpose(jx, (1, 0, 2)),
+                      interpret=True, stash=True)
+    for name, a, r in zip(("hs", "cs", "gates"), got, ref):
+        assert a.dtype == torch.bfloat16
+        _within_bf16_ulp(a, jnp.transpose(r, (1, 0, 2)), name)
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bwd_plain_bf16_matches_jax_bwd_kernel(shape):
+    """``lstm_bwd_plain`` at bf16 against the JAX ``_bwd_kernel`` on the
+    same bf16 residuals and dhs: dpre rounded to bf16 for dx, dh, dWx and
+    dWh, db from the f32 dpre; dx, dWx, dWh, db returned in bf16, each
+    within one bf16 ulp of its largest magnitude."""
+    x, wx, wh, b, dhs = _inputs(shape)
+    (twx, twh, tb, tx, tdhs), (jwx, jwh, jb, jx, jdhs) = _bf(
+        wx, wh, b, x, dhs)
+    hs, cs, gates = K.lstm_fwd_stash_plain(twx, twh, tb, tx)
+    got = K.lstm_bwd_plain(twx, twh, tx, hs, cs, gates, tdhs)
+
+    def tbe(a):
+        return jnp.transpose(jnp.asarray(_f32(a), jnp.bfloat16), (1, 0, 2))
+
+    res = (jwx, jwh, jb, tbe(tx), tbe(hs), tbe(cs), tbe(gates))
+    dwx, dwh, db, dx = JL._lstm_bwd(True, res, tbe(tdhs))
+    for name, a, r in zip(("dwx", "dwh", "db", "dx"), got,
+                          (dwx, dwh, db, jnp.transpose(dx, (1, 0, 2)))):
+        assert a.dtype == torch.bfloat16, name
+        _within_bf16_ulp(a, r, name)
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_autograd_function_bf16_matches_jax_grad_of_pallas_lstm_seq(shape):
+    """Gradients through ``LSTMSeq`` at bf16 against ``jax.grad`` of the
+    Pallas ``lstm_seq`` (interpret mode, its ``custom_vjp``) at bf16,
+    ragged B included: bf16 gradients within one bf16 ulp of each one's
+    largest magnitude."""
+    x, wx, wh, b, dhs = _inputs(shape)
+    (twx, twh, tb, tx, tdhs), (jwx, jwh, jb, jx, jdhs) = _bf(
+        wx, wh, b, x, dhs)
+    params = [t.requires_grad_() for t in (twx, twh, tb, tx)]
+    (K.lstm_seq(*params).float() * tdhs.float()).sum().backward()
+
+    def f(wx_, wh_, b_, x_):
+        hs = JL.lstm_seq(wx_, wh_, b_, x_, interpret=True)
+        return jnp.sum(hs.astype(jnp.float32) * jdhs.astype(jnp.float32))
+
+    ref = jax.grad(f, argnums=(0, 1, 2, 3))(jwx, jwh, jb, jx)
+    for name, p, r in zip(("dwx", "dwh", "db", "dx"), params, ref):
+        assert p.grad.dtype == torch.bfloat16, name
+        _within_bf16_ulp(p.grad, r, name)
 
 
 def _port_grads(wx, wh, b, x, dhs):

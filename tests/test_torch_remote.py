@@ -1,5 +1,6 @@
-"""The slice as a whole: ``DynSGD``/``ADAG``/``AEASGD(..., remote=...)``
-of the port against the port's own parameter server, held to the same
+"""The slice as a whole: ``DynSGD``/``ADAG``/``DOWNPOUR``/``AEASGD``/
+``EAMSGD(..., remote=...)`` of the port against the port's own parameter
+server, held to the same
 trainers of the JAX package against the JAX server, from the same weights
 on the same DataFrame. One worker, so commit order is fixed; the JAX model
 runs ``cell_impl="pallas"`` (its Pallas LSTM kernels in interpret mode),
@@ -9,7 +10,10 @@ Tolerances: codec ``none`` within rtol = atol = 1e-5 (f32 sums in another
 order, as ``tests/test_torch_trainers.py``). ``int8``: a delta that differs
 by ~1e-7 can round to a neighbouring int8 step, so the centers may differ
 by up to the sum over commits of each commit's largest quantization step
-(``spec["scale"] * commit_scale``), plus the 1e-5."""
+(``spec["scale"] * commit_scale``), plus the 1e-5. At bf16
+(``compute_dtype="bfloat16"``, codec ``none``) the center's mean
+difference is held within 0.6 of the JAX trainer's own bf16-vs-f32
+distance, as in process (``tests/test_torch_precision.py`` says why)."""
 
 import jax
 import numpy as np
@@ -74,7 +78,9 @@ def _quant_steps(monkeypatch) -> list:
 @pytest.mark.parametrize("codec", ["none", "int8"])
 @pytest.mark.parametrize("name,discipline", [("DynSGD", "dynsgd"),
                                              ("ADAG", "adag"),
-                                             ("AEASGD", "aeasgd")])
+                                             ("AEASGD", "aeasgd"),
+                                             ("DOWNPOUR", "downpour"),
+                                             ("EAMSGD", "eamsgd")])
 def test_remote_trainer_matches_jax(monkeypatch, name, discipline, codec):
     monkeypatch.setenv("DKTPU_NET_COMPRESS", codec)
     steps = _quant_steps(monkeypatch)
@@ -109,6 +115,45 @@ def test_remote_trainer_matches_jax(monkeypatch, name, discipline, codec):
                                rtol=1e-5, atol=bound)
     for p, c in zip(pout.params.values(), tsrv.center()):
         np.testing.assert_array_equal(p.numpy(), c)
+
+
+def test_remote_trainer_bf16_matches_jax(monkeypatch):
+    """DynSGD at ``compute_dtype="bfloat16"`` against each package's own
+    server, codec none: the model is the port server's center, whose mean
+    difference from the JAX run at bf16 is within 0.6 of the JAX run's
+    own bf16-vs-f32 distance."""
+    monkeypatch.setenv("DKTPU_NET_COMPRESS", "none")
+    cols = _columns(1)
+    jouts = []
+    for dtype in ("bfloat16", None):
+        jm = jax_imdb_lstm(**SMALL, cell_impl="pallas", seed=1)
+        jsrv = JaxPSServer(discipline="dynsgd").start()
+        try:
+            jouts.append(dk.DynSGD(jm, **_kw(1), remote=jsrv.endpoint,
+                                   compute_dtype=dtype).train(
+                JaxDataFrame(cols)))
+        finally:
+            jsrv.close()
+    pm = _port_model(jm)
+    tsrv = PSServer(discipline="dynsgd", device="cpu").start()
+    try:
+        pout = T.DynSGD(pm, **_kw(1), remote=tsrv.endpoint,
+                        compute_dtype="bfloat16").train(DataFrame(cols))
+        assert len(tsrv.commit_log) == ROUNDS
+    finally:
+        tsrv.close()
+    for p, c in zip(pout.params.values(), tsrv.center()):
+        np.testing.assert_array_equal(p.numpy(), c)
+    ref16, ref32 = (params_from_jax(jax.tree_util.tree_map(
+        np.asarray, o.params), pm.module) for o in jouts)
+    got = pout.module.state_dict()
+
+    def mean(a, b):
+        d = [(a[k].double() - b[k].double()).abs() for k in b]
+        return (sum(x.sum() for x in d) / sum(x.numel() for x in d)).item()
+
+    err, design = mean(got, ref16), mean(ref16, ref32)
+    assert 0 < err <= 0.6 * design, (err, design)
 
 
 def test_two_workers_train_and_the_model_is_the_center(monkeypatch):

@@ -5,7 +5,11 @@ JAX model runs ``norm_impl="pallas"`` (its Pallas GroupNorm in interpret
 mode) and ``"xla"``; the port runs both of its impls on the CPU. Logits
 within rtol 1e-4, atol 1e-5 (f32 convolutions and statistics summed in
 another order). The 7x7-stem case at 64x64 pins flax's asymmetric "SAME"
-padding (2 low, 3 high) of the strided stem and max-pool."""
+padding (2 low, 3 high) of the strided stem and max-pool. At bf16 (the
+parameters and images cast as the mixed-precision step casts them) the
+logits agree within one bf16 ulp of their largest magnitude: torch's and
+XLA's bf16 convolutions, and the two GroupNorms, round at the same
+points."""
 
 import warnings
 
@@ -58,6 +62,40 @@ def test_logits_match_jax(cfg, size, impl):
     assert G.launch_counts() == before  # CPU: the plain twins
     assert got.shape == (3, 10)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("cfg,size", [(TINY, 32), (STEM7, 64)],
+                         ids=["tiny", "stem7"])
+def test_bf16_logits_match_jax(cfg, size, impl, monkeypatch):
+    from torch.func import functional_call
+
+    from distkeras_tpu.ops.precision import cast_floats as jax_cast_floats
+    from distkeras_tpu_torch.ops.precision import cast_floats
+
+    seen = []
+    real = G.group_norm_fwd_plain
+
+    def recording(x3, *args):
+        seen.append(x3.dtype)
+        return real(x3, *args)
+
+    monkeypatch.setattr(G, "group_norm_fwd_plain", recording)
+    jm, pm = _pair(cfg, size, impl)
+    x = _images(3, size)
+    ref = jm.module.apply(
+        {"params": jax_cast_floats(jm.params, jnp.bfloat16)},
+        jnp.asarray(x, jnp.bfloat16))
+    with torch.no_grad():
+        got = functional_call(
+            pm.module, cast_floats(pm.params, torch.bfloat16),
+            (torch.from_numpy(x).to(torch.bfloat16),))
+    assert got.dtype == torch.bfloat16
+    # every GroupNorm took the bf16 activations (9 of them in these nets)
+    assert seen == ([torch.bfloat16] * 9 if impl == "pallas" else [])
+    ref = np.asarray(ref.astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    assert np.abs(got.float().numpy() - ref).max() <= ulp
 
 
 def test_tiny_resnet_is_the_jax_tiny_resnet():

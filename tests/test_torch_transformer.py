@@ -107,6 +107,57 @@ def test_logits_match_jax(attn_impl, L, flash_calls):
         assert err.max() <= 2e-3 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("attn_impl", ["dense", "flash"])
+@pytest.mark.parametrize("L", [40, 128])
+def test_bf16_logits_match_jax(attn_impl, L, monkeypatch):
+    """Parameters cast to bf16 as the mixed-precision step casts them: the
+    flash twin gets bf16 q, k, v and the logits come out bf16. The
+    kernels' own bf16 arithmetic is held bit-tight in their tests; here
+    torch and XLA round the model's other bf16 ops at other points (flax's
+    Dense rounds the product and then the bias add, torch's once; XLA
+    evaluates gelu and softmax op by op in bf16, torch in f32 inside and
+    rounds once), so the two bf16 runs may differ by about as much as
+    either differs from f32. Held: port vs JAX at bf16 within 1.5x the
+    JAX model's own bf16-vs-f32 distance, and the port's bf16-vs-f32
+    distance within 0.5x-2x of the JAX one (the step really ran in
+    bf16)."""
+    from torch.func import functional_call
+
+    from distkeras_tpu.ops.precision import cast_floats as jax_cast_floats
+    from distkeras_tpu_torch.ops.precision import cast_floats
+
+    seen = []
+    real = FA.flash_fwd_plain
+
+    def recording(q, k, v, *args, **kwargs):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return real(q, k, v, *args, **kwargs)
+
+    monkeypatch.setattr(FA, "flash_fwd_plain", recording)
+    jm, pm = _pair(attn_impl)
+    x = _tokens(2, L)
+    out = {}
+    for name, jdt, tdt in (("bf16", jnp.bfloat16, torch.bfloat16),
+                           ("f32", None, None)):
+        ref = jm.module.apply({"params": jax_cast_floats(jm.params, jdt)},
+                              jnp.asarray(x))
+        with torch.no_grad():
+            got = functional_call(pm.module, cast_floats(pm.params, tdt),
+                                  (torch.from_numpy(x),))
+        out[name] = (np.asarray(ref.astype(jnp.float32)),
+                     got.float().numpy(), got.dtype)
+    assert out["bf16"][2] == torch.bfloat16
+    bf = (torch.bfloat16,) * 3
+    assert seen == ([bf] * SMALL["num_layers"] + [(torch.float32,) * 3]
+                    * SMALL["num_layers"] if attn_impl == "flash" else [])
+    jax_design = np.abs(out["bf16"][0] - out["f32"][0]).max()
+    port_design = np.abs(out["bf16"][1] - out["f32"][1]).max()
+    err = np.abs(out["bf16"][1] - out["bf16"][0]).max()
+    assert err <= 1.5 * jax_design, (err, jax_design)
+    assert 0.5 * jax_design <= port_design <= 2.0 * jax_design, (
+        port_design, jax_design)
+
+
 def _port_grads(pm, x, y, params=None):
     module = pm.module
     leaves = {k: v.detach().clone().requires_grad_()

@@ -95,8 +95,8 @@ def test_unported_options_raise():
     _, pm = _pair()
     tx = get_optimizer("sgd", 0.1)
     loss = get_loss(LOSS)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        make_local_loop(pm.module, loss, tx, compute_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="compute_dtype"):
+        make_local_loop(pm.module, loss, tx, compute_dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="state_collections"):
         make_local_loop(pm.module, loss, tx, state_collections=("batch_stats",))
     with pytest.raises(NotImplementedError, match="input_transform"):
