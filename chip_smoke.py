@@ -87,11 +87,22 @@ and every parity phase holds the card's bf16 run to the CPU's within
 10. ``flash_kernel`` — the causal flash attention kernels (forward, dQ,
     dK/dV; ``csrc/flash_attn.cu``) against their plain twins on the same
     CUDA tensors, in f32 and bf16, at config #7's shape [8, 2048, 16, 64]
-    and ragged ones (L = 40 and 200, D = 32, B*H = 1): errors with their
-    limits, two backward calls' bits, kernel and plain times by CUDA
-    events, ``F.scaled_dot_product_attention``'s (bf16, a yardstick the
-    port never calls), beside the bound (bytes over 3.35 TB/s against the
-    causal products at 989 TFLOP/s bf16).
+    and ragged ones (L = 40, 72, 136 and 200, D = 32 and 128, B*H = 1,
+    L = 1024 and 512): errors with their limits, two backward calls' bits,
+    the f32 backward's errors at each of those shapes but config #7's and
+    at two with few rows (B*L*H 272 and 144) attributed row by row to bf16
+    rounding flips of p or ds (``flash_bwd_flips``: no row left over),
+    kernel and plain times by CUDA events,
+    ``F.scaled_dot_product_attention``'s (bf16, a yardstick the port never
+    calls), beside the bound (bytes over 3.35 TB/s against the causal
+    products at 989 TFLOP/s bf16). A ``flash_bwd`` row per shape and dtype
+    times the whole backward as the autograd Function runs it (f32 inputs
+    rounded to bf16 once, then dQ and dK/dV; the bits of the two wrappers'
+    outputs) against SDPA's backward, with the ratio and the share of the
+    backward's own bound (S and dP once: five causal products), the two
+    kernels' summed bounds beside it; the ``flash_bwd_build``
+    line before the phases gives the backward kernels' registers and
+    spills from the compiler's report.
 11. ``transformer_train`` — BASELINE config #7 as a user drives it:
     ``AEASGD(small_transformer_lm(vocab 32768, 8 layers, d_model 1024,
     16 heads, d_ff 4096, seq 2048, attn_impl="flash", remat=True), "adam",
@@ -118,6 +129,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -264,9 +276,16 @@ LM_TRAIN = dict(num_workers=1, batch_size=8, communication_window=8,
                 learning_rate=1e-4, rho=500.0)
 LM_ROUNDS = 2
 #: the flash kernels' shapes [B, L, H, D]: config #7's, then ragged ones
-#: (L not a tile multiple, D = 32, B*H = 1).
+#: (L not a tile multiple, D = 32, B*H = 1), then the backward design's
+#: edges: L not a multiple of a tile's rows (72, 136), a load ring wrapped
+#: many times (L = 1024, B*H = 2) and D = 128 (two column boxes, 32-query
+#: tiles in dK/dV) at L = 512; each of those at least 1024 rows (B*L*H),
+#: since one order-flipped bf16 rounding of p moves a whole output row and
+#: over fewer rows can alone pass the mean limit (the forward at [1, 72,
+#: 2, 64] f32 read 1.22e-5, its largest error 4.5e-4).
 FLASH_SHAPES = ((8, LM_SEQ, 16, 64), (2, 40, 4, 64), (2, 200, 4, 64),
-                (2, 256, 4, 32), (1, LM_SEQ, 1, 64))
+                (2, 256, 4, 32), (1, LM_SEQ, 1, 64), (4, 72, 4, 64),
+                (2, 136, 4, 128), (2, 1024, 1, 64), (1, 512, 2, 128))
 #: flash kernels vs their twins, as shares of the twin's largest (``top``)
 #: and mean (``mean``) magnitude. f32: the same bf16 rounding points and
 #: only the order of the f32 sums differs, so the mean error is f32 level;
@@ -277,6 +296,13 @@ FLASH_SHAPES = ((8, LM_SEQ, 16, 64), (2, 40, 4, 64), (2, 200, 4, 64),
 FLASH_LIMITS = {"float32": {"top": 2e-3, "mean": 1e-5},
                 "bfloat16": {"top": 1e-2, "mean": 1e-3}}
 FLASH_LSE_ATOL = 1e-5
+#: the shapes at which the f32 backward's errors against the twins are
+#: attributed to bf16 rounding flips (``flash_flips.backward_flips``): each
+#: of FLASH_SHAPES but config #7's, and two with few rows (B*L*H 272 and
+#: 144) where one flip of p or ds can alone pass the mean limit, so that
+#: only this measure, which rows cannot dilute, holds them.
+FLASH_FLIP_SHAPES = tuple(s for s in FLASH_SHAPES if s != FLASH_SHAPES[0]) \
+    + ((1, 136, 2, 128), (1, 72, 2, 64))
 #: the small transformer run on the card and on the CPU from one seed
 #: (2 layers, d_model 128, 4 heads of 32, d_ff 512, vocab 1024, L 256,
 #: batch 2, one AEASGD round of window 2): the card-vs-CPU distance may
@@ -1584,14 +1610,16 @@ def flash_bound_ms(B: int, L: int, H: int, D: int, itemsize: int,
     """Least time for one flash kernel on this card: its [B, L, H, D]
     inputs read once and outputs written once (forward: q, k, v in, out
     and the f32 lse out; dq: q, k, v, dO, lse, delta in, dq out; dkv: the
-    same in, dk and dv out), over 3.35 TB/s, against the causal products
-    this input needs (L(L+1)/2 query-key pairs a head; forward QK^T and PV,
-    dq adds dO V^T and dS K, dkv QK^T, dO V^T, P^T dO and dS^T Q) at the
-    tensor cores' bf16 rate."""
+    same in, dk and dv out; bwd, the whole backward: the same in, dq, dk
+    and dv out), over 3.35 TB/s, against the causal products this input
+    needs (L(L+1)/2 query-key pairs a head; forward QK^T and PV, dq adds
+    dO V^T and dS K, dkv QK^T, dO V^T, P^T dO and dS^T Q; bwd computes S
+    and dP once for all three gradients: QK^T, dO V^T, P^T dO, dS^T Q and
+    dS K) at the tensor cores' bf16 rate."""
     big, rows = B * L * H * D * itemsize, B * H * L * 4
     nbytes = {"fwd": 4 * big + rows, "dq": 5 * big + 2 * rows,
-              "dkv": 6 * big + 2 * rows}[kernel]
-    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
+              "dkv": 6 * big + 2 * rows, "bwd": 7 * big + 2 * rows}[kernel]
+    products = {"fwd": 2, "dq": 3, "dkv": 4, "bwd": 5}[kernel]
     flops = products * 2 * B * H * (L * (L + 1) // 2) * D
     return bound(nbytes, flops, PEAK_BF16_FLOPS)
 
@@ -1698,10 +1726,113 @@ def flash_kernel_phase(torch, FA, seed: int) -> list:
                     fail(f"flash_{kernel} gave other bits on a second call "
                          f"at {(B, L, H, D)} {name}")
                 rows.append(row)
+            rows.append(flash_bwd_row(torch, FA, (q, k, v, do, lse, delta),
+                                      (dq, dk, dv), rows[-2:], big))
             del refs, calls, q, k, v, do, out, lse, delta, dq, dk, dv
             torch.cuda.empty_cache()
         del base
-    return rows
+    return rows + [flash_flip_row(torch, FA, shape, seed)
+                   for shape in FLASH_FLIP_SHAPES]
+
+
+def flash_flip_row(torch, FA, shape, seed: int) -> dict:
+    """The f32 dQ and dK/dV kernels against their twins at ``shape``, every
+    output row with an element past f32 level attributed to one-step bf16
+    rounding flips of its own p or ds (``flash_flips.backward_flips``).
+    Fails if a row stays unexplained, if the mean error without the flips
+    passes FLASH_LIMITS' f32 mean, or if the largest error passes its
+    top; the mean error with the flips is shown beside. The inputs are
+    made on the host from ``seed`` as ``tests/test_torch_cuda.py`` makes
+    them, so at seed 0 a shape of both sees the same numbers."""
+    from distkeras_tpu_torch.ops.kernels.flash_flips import backward_flips
+
+    B, L, H, D = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g) for _ in range(4))
+    q, k, v, do = (t.cuda() for t in (q / D ** 0.5, k, v, do))
+    out, lse = FA.flash_fwd_cuda(q, k, v)
+    delta = FA.attention_delta(do, out)
+    got = {"dq": FA.flash_dq_cuda(q, k, v, do, lse, delta)}
+    got["dk"], got["dv"] = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
+    ref = {"dq": FA.flash_dq_plain(q, k, v, do, lse, delta)}
+    ref["dk"], ref["dv"] = FA.flash_dkv_plain(q, k, v, do, lse, delta)
+    found = backward_flips(q, k, v, do, lse, delta, got["dq"], got["dk"],
+                           got["dv"])
+    lim = FLASH_LIMITS["float32"]
+    for name, f in found.items():
+        d = (got[name] - ref[name]).abs()
+        f["max_err_share"] = (d.max() / ref[name].abs().max()).item()
+    row = {"phase": "flash_kernel", "name": "flash_bwd_flips", "B": B,
+           "L": L, "H": H, "D": D, "dtype": "float32", **found,
+           "limit_max_share": lim["top"], "limit_mean_share": lim["mean"]}
+    emit(row)
+    for name, f in found.items():
+        if (f["unexplained_rows"] or f["max_err_share"] > lim["top"]
+                or f["mean_err_share_without_flips"] > lim["mean"]):
+            fail(f"flash {name}'s errors at {shape} f32 are not bf16 "
+                 f"rounding flips of p or ds alone: {f}")
+    return row
+
+
+def flash_bwd_row(torch, FA, args, outs, kernel_rows, big) -> dict:
+    """The whole backward as ``FlashAttentionFn`` runs it on the card
+    (``flash_bwd_cuda``: f32 inputs rounded to bf16 once, then dQ and
+    dK/dV) beside SDPA's backward (dq, dk and dv together) from the same
+    call: its time, the ratio to SDPA's, the function's own bound (S and
+    dP counted once, as SDPA's backward computes them) and its share of
+    it; beside them, the sum of the two kernels' bounds, which counts S
+    and dP twice because dQ and dK/dV each recompute them. Its outputs
+    must be the bits of the two wrappers' (``outs``), so the dq and dkv
+    rows' errors are its own."""
+    dq_row, dkv_row = kernel_rows
+    got = FA.flash_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    ms = cuda_ms(torch, lambda: FA.flash_bwd_cuda(*args), 10 if big else 20)
+    q = args[0]
+    bound, bound_by = flash_bound_ms(*q.shape, q.element_size(), "bwd")
+    row = {"phase": "flash_kernel", "name": "flash_bwd",
+           **{k: dq_row[k] for k in ("B", "L", "H", "D", "dtype")},
+           **{k: max(dq_row[k], dkv_row[k])
+              for k in ("max_abs_err", "max_err_share", "mean_err_share")},
+           "same_bits_as_dq_and_dkv": all(
+               torch.equal(a, b) for a, b in zip(got, outs)),
+           "ms": ms, "dq_ms": dq_row["ms"], "dkv_ms": dkv_row["ms"],
+           "plain_ms": dq_row["plain_ms"] + dkv_row["plain_ms"],
+           "library_ms": dq_row["library_ms"],
+           "library": dq_row["library"],
+           "ratio_to_library": ms / dq_row["library_ms"],
+           "bound_ms": bound, "bound_by": bound_by,
+           "bound_share": bound / ms,
+           "kernels_bound_sum_ms": dq_row["bound_ms"] + dkv_row["bound_ms"]}
+    emit(row)
+    if not row["same_bits_as_dq_and_dkv"]:
+        fail(f"flash_bwd_cuda's gradients are not flash_dq_cuda's and "
+             f"flash_dkv_cuda's at {row}")
+    return row
+
+
+def flash_bwd_registers(log: str) -> list:
+    """The backward kernels' registers, stack and spills from the build's
+    ``-Xptxas -v`` report, one entry per instantiation."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(flash_d(?:q|kv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
+                      ln)
+        if "Compiling entry" in ln:
+            cur = None if m is None else {
+                "kernel": m.group(1),
+                "out": "bf16" if m.group(2) != "f" else "f32",
+                "DP": int(m.group(3))}
+            if cur:
+                out.append(cur)
+        elif cur is not None and "spill" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            cur.update(stack=nums[0], spill_stores=nums[1],
+                       spill_loads=nums[2])
+        elif cur is not None and "Used" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+    return out
 
 
 def lm_frame(rows: int, vocab: int, seq: int, seed: int):
@@ -1784,11 +1915,12 @@ def transformer_train_phase(torch, FA, gpu: str, seed: int,
     torch.cuda.empty_cache()
     split = step_split(torch, trained, x, y, adam(LM_TRAIN["learning_rate"]),
                        timed=(FA, {"flash_fwd_cuda": "flash_fwd",
-                                   "flash_dq_cuda": "flash_dq",
-                                   "flash_dkv_cuda": "flash_dkv"}),
+                                   "flash_bwd_cuda": "flash_bwd"}),
                        dtype=getattr(torch, dtype))
     per_step = {"flash_fwd": 2 * LM["num_layers"],
                 "flash_dq": LM["num_layers"], "flash_dkv": LM["num_layers"]}
+    split_calls = {"flash_fwd": 2 * LM["num_layers"],
+                   "flash_bwd": LM["num_layers"]}
     want = {k: v * steps for k, v in per_step.items()}
     tokens = steps * B * LM_SEQ
     emit({"phase": "transformer_train", "gpu": gpu, "trainer": "AEASGD",
@@ -1813,9 +1945,11 @@ def transformer_train_phase(torch, FA, gpu: str, seed: int,
           "step_split_ms": split,
           "step_split": "one local step at B=8, L=2048 by CUDA events, "
                         "outside the trainer (mean of 3 after a warm "
-                        "step); flash_*: events around each kernel "
-                        "wrapper call, the recompute's forward inside "
-                        "the backward included"})
+                        "step); flash_fwd: events around each forward "
+                        "call, the recompute's inside the backward "
+                        "included; flash_bwd: around each backward call "
+                        "(dQ and dK/dV, and the f32 inputs' one bf16 "
+                        "rounding)"})
     if not np.all(np.isfinite(hist)):
         fail(f"non-finite transformer training loss: {hist}")
     if not moved > 0:
@@ -1826,9 +1960,9 @@ def transformer_train_phase(torch, FA, gpu: str, seed: int,
     if launches != want:
         fail(f"flash launches {launches} in {steps} local steps; want "
              f"{want} (remat: the forward twice a layer a step)")
-    if split["calls"] != per_step:
+    if split["calls"] != split_calls:
         fail(f"the step split timed {split['calls']} flash calls a step; "
-             f"want {per_step}")
+             f"want {split_calls}")
     only_dtype("transformer", entries, dtype)
     return launches
 
@@ -1968,6 +2102,13 @@ def main() -> None:
           "per_source_s": dict(build.BUILD_SECONDS),
           "libraries": {k: str(v) for k, v in libs.items()},
           "ptxas": ptxas})
+    flash_log = libs["flash_attn"].with_suffix(".log")
+    bwd_regs = flash_bwd_registers(flash_log.read_text()
+                                   if flash_log.exists() else "")
+    emit({"phase": "flash_bwd_build", "kernels": bwd_regs})
+    if flash_log.exists() and len(bwd_regs) != 12:
+        fail(f"expected 12 flash backward instantiations in the build "
+             f"report, found {len(bwd_regs)}")
 
     rng = np.random.default_rng(args.seed)
     model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,

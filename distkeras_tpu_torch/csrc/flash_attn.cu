@@ -7,10 +7,12 @@
 // the custom-VJP triple behind flash_attention.
 //
 // Inputs q, k, v (and dO) are [B, L, H, D] in the model's own layout, q
-// pre-scaled, float32 or bfloat16 (all the same type); the kernels read
-// the strided layout directly, one row of D contiguous elements at a time,
-// so the wrapper copies and transposes nothing. lse and delta are
-// [B*H, L] float32. Outputs are written in the inputs' type.
+// pre-scaled; the kernels read the strided layout directly, so the wrapper
+// transposes nothing. lse and delta are [B*H, L] float32. The forward
+// takes float32 or bfloat16 (all the same type) and writes its inputs'
+// type. The backward takes bfloat16 inputs (the wrapper rounds an f32
+// caller's q, k, v and dO to bf16 once a backward, nearest even, the
+// rounding point of the TPU kernel) and writes f32 (flash_*_f32) or bf16.
 //
 // Numerics, as the TPU kernels compute them: q, k, v, dO and p are rounded
 // to bf16 (nearest even) before each product and every product
@@ -26,7 +28,10 @@
 //   flash_dkv: per k-tile, over q-tiles from the diagonal to the end:
 //     dv += bf16(p)^T dO, dk += ds^T Q.
 // Every output tile has one owner block, so there are no atomics and two
-// calls give the same bits.
+// calls give the same bits. The forward's expf and logf are the accurate
+// ones; the backward takes p = exp2f(s log2(e) - lse log2(e)) (2 ulp),
+// within the same limits against the twins' accurate exp. Build without
+// --use_fast_math.
 //
 // What bounds it on this card. At BASELINE config #7's shape (B=8, L=2048,
 // H=16, D=64) the forward moves 269 MB in f32 (q, k, v read, out written)
@@ -37,26 +42,52 @@
 // of K and V of a head in VMEM; a Hopper block cannot, and its blocks run
 // in parallel in no order.
 //
-// What the design does about it. One block of 4 warps per (64-row tile,
-// batch*head), each warp owning 16 rows; the longest rows are scheduled
-// first (tile index reversed for fwd and dq; dkv's k-tile 0 loops longest).
-// The products are mma.sync.m16n8k16 bf16 -> f32 on the tensor cores. The
-// accumulator layout of S (16 x 8 tiles) is the A-operand layout of P for
-// the next product, so s, p and ds stay in registers and never touch
-// shared memory; the running max and row sums are reduced over the 4
-// lanes of a quad. K, V (and Q, dO in dkv) tiles are staged in shared
-// memory as bf16 (the rounding point of the TPU kernel), rows padded by 8
-// elements so that every fragment load is free of bank conflicts; the
-// B operands that need the transposed tile are read as two 16-bit loads.
-// The head dim is padded to 32, 64 or 128 (zeros in the pad), and rows
-// past L are loaded as zeros, masked, and never written, so any L >= 1
-// works. Simple and right first: one tile in flight at a time, no
-// cp.async/TMA pipeline, no wgmma, no warp specialisation; those are the
-// next steps.
-// expf and logf are the accurate ones; build without --use_fast_math.
+// The forward (simple and right first; its redesign is the next step):
+// one block of 4 warps per (64-row tile, batch*head), each warp owning 16
+// rows, the longest rows first. Its products are mma.sync.m16n8k16 bf16
+// -> f32; the accumulator layout of S is the A layout of P for the next
+// product, so s and p stay in registers. K and V tiles are staged in
+// shared memory as bf16 by the threads, one tile in flight, rows padded by
+// 8 elements against bank conflicts; the head dim is padded to 32, 64 or
+// 128 and rows past L load as zeros.
+//
+// The backward is built for Hopper. Being bound by operations, it has to
+// keep the tensor cores fed, which the forward's design does not: 16-row
+// mma.sync products between __syncthreads, each tile loaded by the same
+// threads that multiply. So:
+// - Products are wgmma on 64-row warpgroup tiles, bf16 operands, f32
+//   accumulators. A block is one consumer warpgroup (warps 0-3) and one
+//   producer warp (warp 4); with two blocks on an SM (one at DP = 128) one
+//   block's exponentials overlap the other's products.
+// - Loads are TMA behind mbarriers. The producer's lane 0 issues every
+//   copy into a ring of kStages stages (dQ: the K and V tiles; dK/dV: the
+//   Q and dO tiles, with their lse and delta rows written by the producer's
+//   lanes) and waits on each stage's "empty" barrier; the consumers wait on
+//   its "full" barrier and free the stage after their last product on it.
+//   No __syncthreads around a product.
+// - The tensor maps are 4-D over the model's layout, dims (D, H, L, B),
+//   box (min(DP, 64), 1, rows, 1), encoded on the host from the wrapper's
+//   geometry (tma_geometry) with cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint (no -lcuda), and passed as __grid_constant__
+//   kernel parameters. TMA's zero fill past D and past L takes the place
+//   of padding. A tile lands in the 128-byte swizzle (64 bf16 a row; D =
+//   128 takes two column boxes) or, at DP = 32, the 64-byte one: the
+//   layouts wgmma's descriptors read.
+// - S = Q K^T and dP = dO V^T (dQ), S^T = K Q^T and dP^T = V dO^T (dK/dV)
+//   read both operands from shared memory, K-major. dq += ds K, dv +=
+//   bf16(p)^T dO and dk += ds^T Q take A from registers: the accumulator
+//   layout of the scores is wgmma's register A layout, so p and ds never
+//   touch shared memory; their B (K, dO, Q) is read MN-major through
+//   wgmma's transpose flag, no transposed copy and no 16-bit loads.
+// - dK/dV holds dk, dv, S^T and dP^T in registers: at DP = 128 its q-tile
+//   is 32 queries (64 + 64 + 16 + 16 floats a thread), else 64.
+// - Longest blocks first: dQ reverses the q-tile index; dK/dV's k-tile 0
+//   loops over every q-tile.
 
+#include <cuda.h>  // CUtensorMap and the encoder's types; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -173,31 +204,8 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// s[j] (j = 0..7, 64 columns) += A (the warp's 16 rows, DP deep, from
-// `at` at row `arow`) * B^T with B's 64 rows from `bt` ([n][k] layout).
-template <int DP>
-__device__ __forceinline__ void rows_times_tile_t(float (&s)[8][4],
-                                                  const bf16* at, int arow,
-                                                  const bf16* bt, int g,
-                                                  int t) {
-  constexpr int P = DP + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a[4];
-    ld_a(a, at, P, arow, kk * 16, g, t);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* p = bt + (j * 8 + g) * P + kk * 16 + 2 * t;
-      mma(s[j], a, ld32(p), ld32(p + 8));
-    }
-  }
-}
-
-// The same with the A operand already in registers.
+// s[j] (j = 0..7, 64 columns) += A (the warp's 16 rows, DP deep, as
+// fragments in registers) * B^T with B's 64 rows from `bt` ([n][k] layout).
 template <int DP>
 __device__ __forceinline__ void frags_times_tile_t(
     float (&s)[8][4], const uint32_t (&af)[DP / 16][4], const bf16* bt,
@@ -338,136 +346,551 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq,
-                int L, int H, int D) {
-  constexpr int P = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kTile * P;
-  const int bh = blockIdx.x, h = bh % H, b = bh / H;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const size_t rs = (size_t)H * D;
-  const size_t base = ((size_t)b * L * H + h) * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, row0 = warp * 16;
+// ---------------------------------------------------------------------------
+// The backward: wgmma on tiles that TMA brings into shared memory.
 
-  load_tile<T, DP>(ks, q + base, qt * kTile, L, D, rs);
-  load_tile<T, DP>(vs, dout + base, qt * kTile, L, D, rs);
-  __syncthreads();
-  uint32_t qf[DP / 16][4], df[DP / 16][4];
+constexpr int kStages = 3;        // depth of the load ring
+constexpr int kBwdThreads = 160;  // one consumer warpgroup + the producer warp
+constexpr int kProducer = 4;      // the producer's warp index
+// p = exp(s - lse) is taken as exp2f(s log2(e) - lse log2(e)), one fused
+// multiply-add and the hardware's base-2 exponential, where the accurate
+// expf costs a longer instruction sequence (flash_variants.py times both).
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The head dim a tile holds (zeros past D): 32, 64 or 128.
+template <int DP>
+__host__ __device__ constexpr int box_cols() {  // columns of a box
+  return DP < 64 ? DP : 64;
+}
+template <int DP>
+__host__ __device__ constexpr int swizzle_bytes() {  // 64 or 128
+  return 2 * box_cols<DP>();
+}
+// dK/dV's q-tile, the N of its score products, and the rows of every TMA
+// box: 64, or 32 at DP = 128 so that dK, dV and the two score tiles fit in
+// one thread's registers.
+template <int DP>
+__host__ __device__ constexpr int q_tile() { return DP == 128 ? 32 : 64; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity. A phase
+// that never completes (a lost copy) traps after about 2^28 tries, seconds
+// of waiting, so that the launch fails with an error instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, tries = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++tries == (1u << 28)) __trap();
+  } while (!done);
+}
+
+// One box of a [B, L, H, D] tensor map (dims D, H, L, B) into shared
+// memory at `dst`: columns c0.., head h, rows r0.., batch b. Elements past
+// D or L land as zeros.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int c0, int h, int r0,
+                                        int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(h), "r"(r0), "r"(b)
+      : "memory");
+}
+
+// Rows r0..r0+R-1 of one (batch, head) slice as an R x DP bf16 tile: one
+// [R][box_cols] block per column box, each row of it one swizzle span
+// (the 64- or 128-byte swizzle that wgmma's descriptors read). R * DP * 2
+// bytes arrive on `bar`.
+template <int DP, int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int h, int r0, int b) {
+  constexpr int BC = box_cols<DP>(), BR = q_tile<DP>();
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    ld_a(qf[kk], ks, P, row0, kk * 16, g, t);
-    ld_a(df[kk], vs, P, row0, kk * 16, g, t);
+  for (int cb = 0; cb < DP / BC; ++cb)
+#pragma unroll
+    for (int rb = 0; rb < R / BR; ++rb)
+      tma_box(dst + (cb * R + rb * BR) * BC * 2, map, bar, cb * BC, h,
+              r0 + rb * BR, b);
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets, and the swizzle (1 = 128 bytes, 2 = 64 bytes).
+template <int SW>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) |
+         ((uint64_t)(SW == 128 ? 1 : 2) << 62);
+}
+
+// k-step kk (16 columns) of an R x DP tile read K-major: the tile's rows
+// are the product's M or N, its columns the K. Within a swizzle span the
+// step moves the start by 32 bytes; 8-row groups lie a span * 8 apart.
+template <int DP, int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  constexpr int BC = box_cols<DP>(), RB = 2 * BC;
+  return desc<swizzle_bytes<DP>()>(
+      tile + (kk * 16 / BC) * R * RB + (kk * 16 % BC) * 2, 16, 8 * RB);
+}
+// k-step kk (16 rows) of an R x DP tile read MN-major (wgmma's transpose
+// flag): the tile's rows are the product's K, its columns the N. Groups of
+// 8 rows lie a span * 8 apart (stride offset), column boxes R spans apart
+// (leading offset).
+template <int DP, int R>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  constexpr int BC = box_cols<DP>(), RB = 2 * BC;
+  return desc<swizzle_bytes<DP>()>(tile + kk * 16 * RB, R * RB, 8 * RB);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (64 x N f32 over the warpgroup, N/2 a thread) (+)= A * B on one k-step
+// of 16: A and B from shared memory, both K-major (wgmma_ss); or A from
+// registers (the accumulator layout's pairs, as mma.sync's A fragment) and
+// B MN-major (wgmma_rs). scale_d = 0 overwrites d. Lane (g, t) of warp w
+// holds d[4j + e] = D[16w + g + 8(e/2)][8j + 2t + e%2].
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Keep the compiler from moving reads or writes of these registers across
+// this point: a wgmma's results exist only after its wait, and its A
+// registers must hold their values until then.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// bf16(x) as the A fragments of a product whose K is x's N: x is a 64 x K
+// accumulator, and its layout is the register A layout of wgmma, so x
+// never leaves registers.
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K / 4],
+                                       const float (&x)[K / 2]) {
+#pragma unroll
+  for (int i = 0; i < K / 4; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+}
+
+// acc (64 x DP over the warpgroup) += A * the R x DP tile at `tile`, read
+// MN-major (its R = K rows are the product's K), A in registers (pack_a).
+template <int DP, int R>
+__device__ __forceinline__ void frags_times_tile_mn(float (&acc)[DP / 2],
+                                                    const uint32_t (&a)[R / 4],
+                                                    uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < R / 16; ++kk) {
+    const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                           a[4 * kk + 3]};
+    wgmma_rs(acc, f, mnmajor<DP, R>(tile, kk), 1);
+  }
+}
+
+// s (64 x N) = A * B^T over DP: A the 64-row tile `at`, B the N-row tile
+// `bt`, both K-major.
+template <int DP, int N>
+__device__ __forceinline__ void tile_times_tile_t(float (&s)[N / 2],
+                                                  uint32_t at, uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss(s, kmajor<DP, kTile>(at, kk), kmajor<DP, N>(bt, kk), kk);
+}
+
+// Write the warpgroup's 64 x DP accumulator to a [B, L, H, D] output:
+// this thread's rows `row` (the tile's first row + 16w + g) and row + 8,
+// rows < L and columns < D.
+template <typename T, int DP>
+__device__ __forceinline__ void store_tile(T* dst, const float (&acc)[DP / 2],
+                                           int row, int L, int D, size_t rs,
+                                           int t) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (col >= D) continue;
+    if (row < L)
+      store_pair(dst + (size_t)row * rs + col, acc[4 * j], acc[4 * j + 1]);
+    if (row + 8 < L)
+      store_pair(dst + (size_t)(row + 8) * rs + col, acc[4 * j + 2],
+                 acc[4 * j + 3]);
+  }
+}
+
+// 1024-byte aligned shared memory (the 128-byte swizzle repeats every 8
+// rows of 128 bytes, and TMA and the descriptors assume that alignment).
+__device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw) {
+  return (smem_u32(raw) + 1023u) & ~1023u;
+}
+
+// dq for one 64-row q-tile of one (batch, head): the producer warp loads
+// the Q and dO tiles once, then the K and V tiles of k-tiles 0..the
+// diagonal into a ring of kStages; the consumer warpgroup computes
+// S = Q K^T and dP = dO V^T (wgmma, shared-memory operands), p =
+// exp(s - lse) (masked on the diagonal tile), ds = p (dp - delta), and
+// dq += bf16(ds) K (A from registers, K read MN-major), then frees the
+// stage.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kBwdThreads, DP == 128 ? 1 : 2)
+flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dq, int L,
+                int H, int D) {
+  constexpr uint32_t TILE = kTile * DP * 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t qs = aligned_smem(smem), dos = qs + TILE;
+  const uint32_t ring = qs + 2 * TILE;  // stage s: K at 2s, V at 2s + 1
+  const uint32_t bars = ring + 2 * kStages * TILE;
+  const uint32_t qbar = bars, full = bars + 8, empty = full + 8 * kStages;
+  const int bh = blockIdx.x, h = bh % H, b = bh / H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // the longest rows first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int qrow = qt * kTile + row0 + g;
-  float lr[2], dr[2];
+  if (warp == kProducer) {
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * TILE);
+      tma_tile<DP, kTile>(qs, &tq, qbar, h, qt * kTile, b);
+      tma_tile<DP, kTile>(dos, &tdo, qbar, h, qt * kTile, b);
+      for (int kt = 0; kt <= qt; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t f = full + 8 * s, st = ring + 2 * s * TILE;
+        mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(f, 2 * TILE);
+        tma_tile<DP, kTile>(st, &tk, f, h, kt * kTile, b);
+        tma_tile<DP, kTile>(st + TILE, &tv, f, h, kt * kTile, b);
+      }
+    }
+    return;
+  }
+
+  const int g = lane / 4, t = lane % 4;
+  const int qrow = qt * kTile + warp * 16 + g;  // and qrow + 8
+  float lr[2], dr[2];  // lse log2(e), delta of this thread's two rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qrow + 8 * r;
-    lr[r] = row < L ? lse[(size_t)bh * L + row] : 0.f;
+    lr[r] = row < L ? lse[(size_t)bh * L + row] * kLog2e : 0.f;
     dr[r] = row < L ? delta[(size_t)bh * L + row] : 0.f;
   }
-  float acc[DP / 8][4];
+  float acc[DP / 2];
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
+  mbar_wait(qbar, 0);
   for (int kt = 0; kt <= qt; ++kt) {
-    load_tile<T, DP>(ks, k + base, kt * kTile, L, D, rs);
-    load_tile<T, DP>(vs, v + base, kt * kTile, L, D, rs);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    frags_times_tile_t<DP>(s, qf, ks, g, t);
-    frags_times_tile_t<DP>(dp, df, vs, g, t);
-    const bool diag = kt == qt;
+    const int s = kt % kStages;
+    const uint32_t ks = ring + 2 * s * TILE, vs = ks + TILE;
+    mbar_wait(full + 8 * s, (kt / kStages) & 1);
+    float sc[32], dp[32];
+    wg_fence();
+    tile_times_tile_t<DP, kTile>(sc, qs, ks);
+    tile_times_tile_t<DP, kTile>(dp, dos, vs);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+    if (kt == qt) {  // the diagonal tile: a key after the query gets p = 0
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * 8 + 2 * t + (e & 1) > warp * 16 + g + 8 * (e >> 1))
+            sc[4 * j + e] = -CUDART_INF_F;
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const bool masked =
-            diag && kt * kTile + j * 8 + 2 * t + (e & 1) > qrow + 8 * r;
-        const float p = masked ? 0.f : expf(s[j][e] - lr[r]);
-        s[j][e] = p * (dp[j][e] - dr[r]);  // ds, rounded to bf16 below
+        const float p = exp2f(fmaf(sc[4 * j + e], kLog2e, -lr[r]));
+        sc[4 * j + e] = p * (dp[4 * j + e] - dr[r]);  // ds, bf16 below
       }
-    regs_times_tile<DP>(acc, s, ks, g, t);
-    __syncthreads();
+    uint32_t a[kTile / 4];
+    pack_a<kTile>(a, sc);
+    fence_regs(acc);
+    wg_fence();
+    frags_times_tile_mn<DP, kTile>(acc, a, ks);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(a);
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * s);
   }
-  store_rows<T, DP>(dq + base, acc, qt * kTile + row0, L, D, rs, g, t);
+  store_tile<T, DP>(dq + ((size_t)b * L * H + h) * D, acc, qrow, L, D,
+                    (size_t)H * D, t);
 }
 
+// dk and dv for one 64-key k-tile of one (batch, head): the producer warp
+// loads the K and V tiles once, then, for each q-tile from the diagonal to
+// the end, the Q and dO tiles and their lse and delta rows into the ring;
+// the consumer warpgroup computes the transposed scores S^T = K Q^T and
+// dP^T = V dO^T, p (masked where the query precedes the key or lies past
+// L), dv += bf16(p)^T dO and dk += ds^T Q (A from registers, dO and Q
+// read MN-major), then frees the stage.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+__global__ void __launch_bounds__(kBwdThreads, DP == 128 ? 1 : 2)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dk,
                  T* __restrict__ dv, int L, int H, int D) {
-  constexpr int P = DP + 8;
+  constexpr int QT = q_tile<DP>();
+  constexpr uint32_t KTILE = kTile * DP * 2, QTILE = QT * DP * 2;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kTile * P;
-  bf16* qs = vs + kTile * P;
-  bf16* dos = qs + kTile * P;
-  float* lse_s = reinterpret_cast<float*>(dos + kTile * P);
-  float* delta_s = lse_s + kTile;
+  const uint32_t ks = aligned_smem(smem), vs = ks + KTILE;
+  const uint32_t ring = ks + 2 * KTILE;  // stage s: Q at 2s, dO at 2s + 1
+  // stage s's rows: lse log2(e), then delta, QT floats each
+  const uint32_t rows = ring + 2 * kStages * QTILE;
+  float* rows_p = reinterpret_cast<float*>(smem + (rows - smem_u32(smem)));
+  const uint32_t bars = rows + 2 * kStages * QT * 4;
+  const uint32_t kvbar = bars, full = bars + 8, empty = full + 8 * kStages;
   const int bh = blockIdx.x, h = bh % H, b = bh / H;
   const int kt = blockIdx.y;  // k-tile 0 loops over every q-tile: first
-  const int nq = gridDim.y;
-  const size_t rs = (size_t)H * D;
-  const size_t base = ((size_t)b * L * H + h) * D;
+  const int q0 = kt * kTile / QT, nq = (L + QT - 1) / QT;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, row0 = warp * 16;
-  const int key = kt * kTile + row0 + g;  // and key + 8
 
-  load_tile<T, DP>(ks, k + base, kt * kTile, L, D, rs);
-  load_tile<T, DP>(vs, v + base, kt * kTile, L, D, rs);
-  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  for (int qt = kt; qt < nq; ++qt) {
-    load_tile<T, DP>(qs, q + base, qt * kTile, L, D, rs);
-    load_tile<T, DP>(dos, dout + base, qt * kTile, L, D, rs);
-    if (threadIdx.x < kTile) {
-      const int row = qt * kTile + threadIdx.x;
-      lse_s[threadIdx.x] = row < L ? lse[(size_t)bh * L + row] : 0.f;
-      delta_s[threadIdx.x] = row < L ? delta[(size_t)bh * L + row] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);  // every producer lane writes rows
+      mbar_init(empty + 8 * s, 128);
     }
-    __syncthreads();
-    // The transposed scores: rows are this warp's 16 keys, columns the
-    // tile's 64 queries.
-    float st[8][4], dpt[8][4];
-    rows_times_tile_t<DP>(st, ks, row0, qs, g, t);
-    rows_times_tile_t<DP>(dpt, vs, row0, dos, g, t);
-    const bool diag = qt == kt;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kProducer) {
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * KTILE);
+      tma_tile<DP, kTile>(ks, &tk, kvbar, h, kt * kTile, b);
+      tma_tile<DP, kTile>(vs, &tv, kvbar, h, kt * kTile, b);
+    }
+    for (int qi = q0; qi < nq; ++qi) {
+      const int i = qi - q0, s = i % kStages;
+      const uint32_t f = full + 8 * s, st = ring + 2 * s * QTILE;
+      mbar_wait(empty + 8 * s, ((i / kStages) & 1) ^ 1);
+      float* lrow = rows_p + 2 * s * QT;
+      for (int c = lane; c < QT; c += 32) {
+        const int row = qi * QT + c;
+        lrow[c] = row < L ? lse[(size_t)bh * L + row] * kLog2e : 0.f;
+        lrow[QT + c] = row < L ? delta[(size_t)bh * L + row] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(f, 2 * QTILE);
+        tma_tile<DP, QT>(st, &tq, f, h, qi * QT, b);
+        tma_tile<DP, QT>(st + QTILE, &tdo, f, h, qi * QT, b);
+      } else {
+        mbar_arrive(f);
+      }
+    }
+    return;
+  }
+
+  const int g = lane / 4, t = lane % 4;
+  const int key = kt * kTile + warp * 16 + g;  // and key + 8
+  float dk_acc[DP / 2], dv_acc[DP / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  for (int qi = q0; qi < nq; ++qi) {
+    const int i = qi - q0, s = i % kStages;
+    const uint32_t qs = ring + 2 * s * QTILE, dos = qs + QTILE;
+    const float* lrow = rows_p + 2 * s * QT;
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    // The transposed scores: rows are the tile's 64 keys, columns the
+    // q-tile's QT queries.
+    float st[QT / 2], dpt[QT / 2];
+    wg_fence();
+    tile_times_tile_t<DP, QT>(st, ks, qs);
+    tile_times_tile_t<DP, QT>(dpt, vs, dos);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+    // Masked (p = 0) where the query precedes the key (the q-tiles that
+    // reach into this k-tile) or lies past L (the last q-tile).
+    if (qi * QT < kt * kTile + kTile || qi * QT + QT > L) {
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qrow = qi * QT + j * 8 + 2 * t + (e & 1);
+          if (qrow >= L || qrow < key + 8 * (e >> 1))
+            st[4 * j + e] = -CUDART_INF_F;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < QT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1), qi = qt * kTile + c;
-        const bool masked = qi >= L || (diag && qi < key + 8 * (e >> 1));
-        const float p = masked ? 0.f : expf(st[j][e] - lse_s[c]);
-        st[j][e] = p;                           // bf16(p) below, for dv
-        dpt[j][e] = p * (dpt[j][e] - delta_s[c]);  // ds, bf16 below
+        const int c = j * 8 + 2 * t + (e & 1);
+        const float p = exp2f(fmaf(st[4 * j + e], kLog2e, -lrow[c]));
+        st[4 * j + e] = p;                                    // bf16 below
+        dpt[4 * j + e] = p * (dpt[4 * j + e] - lrow[QT + c]);  // ds
       }
-    regs_times_tile<DP>(dv_acc, st, dos, g, t);
-    regs_times_tile<DP>(dk_acc, dpt, qs, g, t);
-    __syncthreads();
+    uint32_t pa[QT / 4], da[QT / 4];
+    pack_a<QT>(pa, st);
+    pack_a<QT>(da, dpt);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wg_fence();
+    frags_times_tile_mn<DP, QT>(dv_acc, pa, dos);
+    frags_times_tile_mn<DP, QT>(dk_acc, da, qs);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(pa);
+    fence_regs(da);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    mbar_arrive(empty + 8 * s);
   }
-  store_rows<T, DP>(dk + base, dk_acc, kt * kTile + row0, L, D, rs, g, t);
-  store_rows<T, DP>(dv + base, dv_acc, kt * kTile + row0, L, D, rs, g, t);
+  const size_t base = ((size_t)b * L * H + h) * D, rs = (size_t)H * D;
+  store_tile<T, DP>(dk + base, dk_acc, key, L, D, rs, t);
+  store_tile<T, DP>(dv + base, dv_acc, key, L, D, rs, t);
 }
 
 int check_shape(int B, int L, int H, int D) {
@@ -477,8 +900,8 @@ int check_shape(int B, int L, int H, int D) {
   return 0;
 }
 
-// Dynamic shared memory of a block: `tiles` bf16 tiles (+ dkv's lse and
-// delta rows); above 48 KB the kernel has to be allowed it first.
+// A block's dynamic shared memory: above 48 KB the kernel has to be
+// allowed it first.
 template <typename K>
 int prepare(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -503,29 +926,119 @@ int fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B,
   return (int)cudaGetLastError();
 }
 
+// The tensor-map geometry the wrapper passes (ops/kernels/flash_attention.py
+// tma_geometry), twelve int64: the dims (D, H, L, B) of a [B, L, H, D]
+// bf16 tensor, the byte strides of dims 1-3, the box (columns, 1, rows, 1)
+// and the swizzle span in bytes.
+struct Geometry {
+  long long dims[4], strides[3], box[4], swizzle;
+};
+
+// The kernels of head dim DP take only the geometry they were written
+// for: the wrapper's helper and the kernels must agree.
+template <int DP>
+int check_geometry(const Geometry& g, int B, int L, int H, int D) {
+  const bool ok =
+      g.dims[0] == D && g.dims[1] == H && g.dims[2] == L && g.dims[3] == B &&
+      g.strides[0] == 2LL * D && g.strides[1] == 2LL * H * D &&
+      g.strides[2] == 2LL * L * H * D && g.box[0] == box_cols<DP>() &&
+      g.box[1] == 1 && g.box[2] == q_tile<DP>() && g.box[3] == 1 &&
+      g.swizzle == swizzle_bytes<DP>();
+  return ok ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// cuTensorMapEncodeTiled is a driver-API call: it is reached through the
+// runtime's cudaGetDriverEntryPoint, so the library links no libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over one [B, L, H, D] bf16 tensor. Elements past D and L
+// read as zeros. Returns 0, cudaErrorSymbolNotFound without the driver's
+// encoder, or 1000 + the CUresult when the driver refuses the map.
+int encode(CUtensorMap* map, const bf16* ptr, const Geometry& g) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = (cuuint64_t)g.dims[i];
+    box[i] = (cuuint32_t)g.box[i];
+  }
+  for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)g.strides[i];
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      g.swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// The four input maps (q, k, v, dO) of one backward call.
+template <int DP>
+int encode_inputs(CUtensorMap (&m)[4], const bf16* q, const bf16* k,
+                  const bf16* v, const bf16* dout, const Geometry& g, int B,
+                  int L, int H, int D) {
+  int rc = check_geometry<DP>(g, B, L, H, D);
+  const bf16* src[4] = {q, k, v, dout};
+  for (int i = 0; rc == 0 && i < 4; ++i) rc = encode(&m[i], src[i], g);
+  return rc;
+}
+
 template <typename T, int DP>
-int dq_(const T* q, const T* k, const T* v, const T* dout, const float* lse,
-        const float* delta, T* dq, int B, int L, int H, int D,
-        cudaStream_t s) {
-  const size_t bytes = 2 * tile_bytes<DP>();
-  int rc = prepare(flash_dq_kernel<T, DP>, bytes);
+int dq_(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+        const float* lse, const float* delta, T* dq, int B, int L, int H,
+        int D, const Geometry& g, cudaStream_t s) {
+  CUtensorMap m[4];
+  int rc = encode_inputs<DP>(m, q, k, v, dout, g, B, L, H, D);
+  if (rc != 0) return rc;
+  const size_t bytes =
+      1024 + (2 + 2 * kStages) * kTile * DP * 2 + 8 * (1 + 2 * kStages);
+  rc = prepare(flash_dq_kernel<T, DP>, bytes);
   if (rc != 0) return rc;
   const dim3 grid(B * H, (L + kTile - 1) / kTile);
-  flash_dq_kernel<T, DP><<<grid, kThreads, bytes, s>>>(
-      q, k, v, dout, lse, delta, dq, L, H, D);
+  flash_dq_kernel<T, DP><<<grid, kBwdThreads, bytes, s>>>(
+      m[0], m[1], m[2], m[3], lse, delta, dq, L, H, D);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DP>
-int dkv(const T* q, const T* k, const T* v, const T* dout, const float* lse,
-        const float* delta, T* dk, T* dv, int B, int L, int H, int D,
-        cudaStream_t s) {
-  const size_t bytes = 4 * tile_bytes<DP>() + 2 * kTile * sizeof(float);
-  int rc = prepare(flash_dkv_kernel<T, DP>, bytes);
+int dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+        const float* lse, const float* delta, T* dk, T* dv, int B, int L,
+        int H, int D, const Geometry& g, cudaStream_t s) {
+  CUtensorMap m[4];
+  int rc = encode_inputs<DP>(m, q, k, v, dout, g, B, L, H, D);
+  if (rc != 0) return rc;
+  constexpr int QT = q_tile<DP>();
+  const size_t bytes = 1024 + 2 * kTile * DP * 2 +
+                       kStages * (2 * QT * DP * 2 + 2 * QT * 4) +
+                       8 * (1 + 2 * kStages);
+  rc = prepare(flash_dkv_kernel<T, DP>, bytes);
   if (rc != 0) return rc;
   const dim3 grid(B * H, (L + kTile - 1) / kTile);
-  flash_dkv_kernel<T, DP><<<grid, kThreads, bytes, s>>>(
-      q, k, v, dout, lse, delta, dk, dv, L, H, D);
+  flash_dkv_kernel<T, DP><<<grid, kBwdThreads, bytes, s>>>(
+      m[0], m[1], m[2], m[3], lse, delta, dk, dv, L, H, D);
   return (int)cudaGetLastError();
 }
 
@@ -541,31 +1054,33 @@ int fwd_any(const T* q, const T* k, const T* v, T* out, float* lse, int B,
 }
 
 template <typename T>
-int dq_any(const T* q, const T* k, const T* v, const T* dout,
+int dq_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
            const float* lse, const float* delta, T* dq, int B, int L, int H,
-           int D, void* stream) {
+           int D, const long long* geometry, void* stream) {
   int rc = check_shape(B, L, H, D);
   if (rc != 0) return rc;
+  const Geometry& g = *reinterpret_cast<const Geometry*>(geometry);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 32)
-    return dq_<T, 32>(q, k, v, dout, lse, delta, dq, B, L, H, D, s);
+    return dq_<T, 32>(q, k, v, dout, lse, delta, dq, B, L, H, D, g, s);
   if (D <= 64)
-    return dq_<T, 64>(q, k, v, dout, lse, delta, dq, B, L, H, D, s);
-  return dq_<T, 128>(q, k, v, dout, lse, delta, dq, B, L, H, D, s);
+    return dq_<T, 64>(q, k, v, dout, lse, delta, dq, B, L, H, D, g, s);
+  return dq_<T, 128>(q, k, v, dout, lse, delta, dq, B, L, H, D, g, s);
 }
 
 template <typename T>
-int dkv_any(const T* q, const T* k, const T* v, const T* dout,
+int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
             const float* lse, const float* delta, T* dk, T* dv, int B, int L,
-            int H, int D, void* stream) {
+            int H, int D, const long long* geometry, void* stream) {
   int rc = check_shape(B, L, H, D);
   if (rc != 0) return rc;
+  const Geometry& g = *reinterpret_cast<const Geometry*>(geometry);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 32)
-    return dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, s);
+    return dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, g, s);
   if (D <= 64)
-    return dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, s);
-  return dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, s);
+    return dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, g, s);
+  return dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, g, s);
 }
 
 }  // namespace
@@ -583,32 +1098,41 @@ extern "C" int flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
   return fwd_any<bf16>(q, k, v, out, lse, B, L, H, D, stream);
 }
 
-// dq from q, k, v, dO [B, L, H, D] and lse, delta [B*H, L] f32.
-extern "C" int flash_dq_f32(const float* q, const float* k, const float* v,
-                            const float* dout, const float* lse,
+// dq from q, k, v, dO [B, L, H, D] bf16 (an f32 caller's rounded once) and
+// lse, delta [B*H, L] f32, written in f32 (flash_dq_f32) or bf16; geometry
+// is the wrapper's tensor-map geometry (twelve int64, see Geometry).
+// Returns a cudaError_t, or 1000 + the CUresult of a refused tensor map.
+extern "C" int flash_dq_f32(const bf16* q, const bf16* k, const bf16* v,
+                            const bf16* dout, const float* lse,
                             const float* delta, float* dq, int B, int L,
-                            int H, int D, void* stream) {
-  return dq_any<float>(q, k, v, dout, lse, delta, dq, B, L, H, D, stream);
+                            int H, int D, const long long* geometry,
+                            void* stream) {
+  return dq_any<float>(q, k, v, dout, lse, delta, dq, B, L, H, D, geometry,
+                       stream);
 }
 extern "C" int flash_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
                              const bf16* dout, const float* lse,
                              const float* delta, bf16* dq, int B, int L,
-                             int H, int D, void* stream) {
-  return dq_any<bf16>(q, k, v, dout, lse, delta, dq, B, L, H, D, stream);
+                             int H, int D, const long long* geometry,
+                             void* stream) {
+  return dq_any<bf16>(q, k, v, dout, lse, delta, dq, B, L, H, D, geometry,
+                      stream);
 }
 
 // dk and dv from the same inputs.
-extern "C" int flash_dkv_f32(const float* q, const float* k, const float* v,
-                             const float* dout, const float* lse,
+extern "C" int flash_dkv_f32(const bf16* q, const bf16* k, const bf16* v,
+                             const bf16* dout, const float* lse,
                              const float* delta, float* dk, float* dv, int B,
-                             int L, int H, int D, void* stream) {
+                             int L, int H, int D, const long long* geometry,
+                             void* stream) {
   return dkv_any<float>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D,
-                        stream);
+                        geometry, stream);
 }
 extern "C" int flash_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                               const bf16* dout, const float* lse,
                               const float* delta, bf16* dk, bf16* dv, int B,
-                              int L, int H, int D, void* stream) {
+                              int L, int H, int D, const long long* geometry,
+                              void* stream) {
   return dkv_any<bf16>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D,
-                       stream);
+                       geometry, stream);
 }

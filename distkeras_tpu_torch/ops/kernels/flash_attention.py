@@ -5,8 +5,9 @@ wrappers and their plain PyTorch twins (the port's counterpart of
 :func:`flash_attention` takes ``q, k, v [B, L, H, D]`` (the model's layout,
 q pre-scaled by ``1/sqrt(D)``) and returns ``[B, L, H, D]`` in q's dtype,
 float32 or bfloat16. The kernels read that strided layout directly (a row
-of a (batch, head) slice is D contiguous elements), so nothing is copied or
-transposed on the way in or out; the logsumexp and delta rows are
+of a (batch, head) slice is D contiguous elements), so nothing is
+transposed on the way in or out (the f32 backward's one bf16 copy of its
+inputs aside); the logsumexp and delta rows are
 ``[B*H, L]`` float32, where the TPU kernel keeps ``[BH, nq, 1, block_q]``
 for its tiling.
 
@@ -15,8 +16,9 @@ for its tiling.
 * With one, it goes through :class:`FlashAttentionFn`, the counterpart of
   the JAX package's ``custom_vjp``: the same forward, saving ``(q, k, v,
   out, lse)``; the backward computes ``delta = sum(dO * O)`` in f32 in
-  torch (XLA's, not a kernel, in the JAX package), then launches dQ, then
-  dK/dV.
+  torch (XLA's, not a kernel, in the JAX package), rounds f32 q, k, v and
+  dO to bf16 once (the rounding point of the kernels, which load by TMA
+  and cannot convert), then launches dQ, then dK/dV on those copies.
 
 Numerics are the TPU kernels': q, k, v, dO and p are rounded to bf16
 before each product, products accumulate in f32, and ds is rounded to
@@ -36,6 +38,8 @@ constraint and has no counterpart here.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from distkeras_tpu_torch.ops.kernels import build
@@ -52,9 +56,9 @@ _P, _I = build.PTR, build.INT
 _LIB = build.KernelLib({
     **{f"flash_fwd_{s}": ("flash_attn", [_P] * 5 + [_I] * 4)
        for s in build.SUFFIXES.values()},
-    **{f"flash_dq_{s}": ("flash_attn", [_P] * 7 + [_I] * 4)
+    **{f"flash_dq_{s}": ("flash_attn", [_P] * 7 + [_I] * 4 + [_P])
        for s in build.SUFFIXES.values()},
-    **{f"flash_dkv_{s}": ("flash_attn", [_P] * 8 + [_I] * 4)
+    **{f"flash_dkv_{s}": ("flash_attn", [_P] * 8 + [_I] * 4 + [_P])
        for s in build.SUFFIXES.values()},
 }, ("flash_fwd", "flash_dq", "flash_dkv"))
 
@@ -78,6 +82,53 @@ def check_head_dim(D: int) -> None:
     if D % 16 or not 16 <= D <= 128:
         raise ValueError(f"flash attention takes a head dim that is a "
                          f"multiple of 16 in [16, 128]; got {D}")
+
+
+def padded_head_dim(D: int) -> int:
+    """The head dim a kernel tile holds (zeros past ``D``): 32, 64 or
+    128."""
+    return 32 if D <= 32 else 64 if D <= 64 else 128
+
+
+def tma_geometry(B: int, L: int, H: int, D: int) -> dict:
+    """The tensor-map geometry of the backward kernels' TMA loads over one
+    ``[B, L, H, D]`` bf16 tensor, which the wrapper passes to the C entry
+    points (``csrc/flash_attn.cu`` checks it against the kernel it
+    launches and encodes the maps from it):
+
+    * ``dims``: ``(D, H, L, B)``, innermost first;
+    * ``strides``: the byte strides of dims 1-3, ``2D``, ``2HD``, ``2LHD``
+      (TMA takes multiples of 16 bytes; D is a multiple of 16);
+    * ``box``: ``(columns, 1, rows, 1)``: a box row is one swizzle span, so
+      ``columns`` is ``min(DP, 64)`` bf16 (``DP`` the padded head dim) and a
+      tile of ``DP = 128`` takes ``boxes = 2`` column boxes; ``rows`` is
+      the dK/dV kernel's q-tile, 64, or 32 at ``DP = 128``;
+    * ``swizzle``: the span in bytes, 128, or 64 at ``DP = 32``: the
+      shared-memory layouts that ``wgmma``'s descriptors read.
+
+    TMA fills zeros past ``D`` (up to ``DP``) and past ``L``."""
+    check_head_dim(D)
+    dp = padded_head_dim(D)
+    cols = min(dp, 64)
+    return {"dims": (D, H, L, B), "strides": (2 * D, 2 * H * D, 2 * L * H * D),
+            "box": (cols, 1, 32 if dp == 128 else 64, 1),
+            "swizzle": 2 * cols, "boxes": dp // cols, "padded": dp}
+
+
+def _geometry_arg(geometry: dict):
+    """The geometry as the twelve int64 the C entry points read."""
+    return (ctypes.c_longlong * 12)(*geometry["dims"], *geometry["strides"],
+                                    *geometry["box"], geometry["swizzle"])
+
+
+def bwd_operands(q, k, v, do) -> tuple:
+    """q, k, v and dO as the backward kernels read them: bf16, an f32
+    caller's rounded once (nearest even, the TPU kernel's
+    ``.astype(bfloat16)``), so that dQ and dK/dV share the copies; bf16
+    tensors as they are."""
+    if q.dtype == torch.bfloat16:
+        return q, k, v, do
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v, do))
 
 
 def _bf16_bhld(x: torch.Tensor) -> torch.Tensor:
@@ -224,28 +275,45 @@ def flash_fwd_cuda(q, k, v) -> tuple:
     return out, lse
 
 
+def _launch_bwd(kernel: str, ops: tuple, lse, delta, dtype) -> tuple:
+    """Launch ``flash_dq_*`` or ``flash_dkv_*`` on the bf16 operands
+    (:func:`bwd_operands`), writing ``dtype`` (the suffix's): returns dq, or
+    (dk, dv)."""
+    q = ops[0]
+    B, L, H, D = q.shape
+    outs = tuple(torch.empty(q.shape, dtype=dtype, device=q.device)
+                 for _ in range(1 if kernel == "flash_dq" else 2))
+    geometry = _geometry_arg(tma_geometry(B, L, H, D))
+    _LIB.launch(f"{kernel}_{build.SUFFIXES[dtype]}", *ops, lse, delta, *outs,
+                B, L, H, D, ctypes.addressof(geometry))
+    _LIB.count(kernel)
+    return outs
+
+
 def flash_dq_cuda(q, k, v, do, lse, delta) -> torch.Tensor:
     """``flash_dq_*``: dq on the card (the output of
-    :func:`flash_dq_plain`)."""
-    suffix = _check_cuda((q, k, v, do), (lse, delta), "flash_dq")
-    B, L, H, D = q.shape
-    dq = torch.empty_like(q)
-    _LIB.launch(f"flash_dq_{suffix}", q, k, v, do, lse, delta, dq, B, L, H,
-                D)
-    _LIB.count("flash_dq")
-    return dq
+    :func:`flash_dq_plain`), in q's dtype."""
+    _check_cuda((q, k, v, do), (lse, delta), "flash_dq")
+    return _launch_bwd("flash_dq", bwd_operands(q, k, v, do), lse, delta,
+                       q.dtype)[0]
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta) -> tuple:
     """``flash_dkv_*``: dk and dv on the card (the outputs of
-    :func:`flash_dkv_plain`)."""
-    suffix = _check_cuda((q, k, v, do), (lse, delta), "flash_dkv")
-    B, L, H, D = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _LIB.launch(f"flash_dkv_{suffix}", q, k, v, do, lse, delta, dk, dv, B,
-                L, H, D)
-    _LIB.count("flash_dkv")
-    return dk, dv
+    :func:`flash_dkv_plain`), in q's dtype."""
+    _check_cuda((q, k, v, do), (lse, delta), "flash_dkv")
+    return _launch_bwd("flash_dkv", bwd_operands(q, k, v, do), lse, delta,
+                       q.dtype)
+
+
+def flash_bwd_cuda(q, k, v, do, lse, delta) -> tuple:
+    """dq, dk and dv on the card as the backward runs them: the inputs
+    checked and rounded to bf16 once (an f32 caller's), the copies shared
+    by ``flash_dq_*`` and then ``flash_dkv_*``; in q's dtype."""
+    _check_cuda((q, k, v, do), (lse, delta), "flash_bwd")
+    ops = bwd_operands(q, k, v, do)
+    dq, = _launch_bwd("flash_dq", ops, lse, delta, q.dtype)
+    return (dq, *_launch_bwd("flash_dkv", ops, lse, delta, q.dtype))
 
 
 def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -280,8 +348,7 @@ class FlashAttentionFn(torch.autograd.Function):
             dq = flash_dq_plain(q, k, v, do, lse, delta)
             dk, dv = flash_dkv_plain(q, k, v, do, lse, delta)
         else:
-            dq = flash_dq_cuda(q, k, v, do, lse, delta)
-            dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta)
+            dq, dk, dv = flash_bwd_cuda(q, k, v, do, lse, delta)
         return dq, dk, dv
 
 

@@ -15,6 +15,7 @@ from distkeras_tpu_torch.ops.kernels import flash_attention as FA
 from distkeras_tpu_torch.ops.kernels import fold as F
 from distkeras_tpu_torch.ops.kernels import groupnorm as G
 from distkeras_tpu_torch.ops.kernels import lstm as K
+from distkeras_tpu_torch.ops.kernels.flash_flips import backward_flips
 
 pytestmark = pytest.mark.cuda
 
@@ -479,15 +480,25 @@ def _flash_err(got, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,H,D", [(2, 40, 2, 32), (1, 200, 3, 64),
                                      (2, 128, 2, 128), (1, 1, 1, 16),
-                                     (1, 256, 2, 48)])
+                                     (1, 256, 2, 48), (4, 72, 4, 64),
+                                     (2, 136, 4, 128), (2, 1024, 1, 64),
+                                     (1, 512, 2, 128)])
 def test_flash_kernels_match_plain_on_card(card, B, L, H, D, dtype):
     """The three flash kernels against their plain twins (the same bf16
-    rounding points, k-tile 64), ragged L and every head-dim pad. f32
-    outputs: mean error within 1e-5 of the mean magnitude (only the order
-    of f32 sums differs) and the largest within 2e-3 (an order-flipped
-    bf16 rounding of one p or ds moves it by one bf16 step); bf16 outputs
-    add their own rounding: mean within 1e-3, largest within 1e-2. lse
-    within 1e-5; two calls give the same bits."""
+    rounding points, k-tile 64), ragged L and every head-dim pad; L not a
+    multiple of a tile's rows (72, 136), long enough to wrap the backward's
+    load ring many times (1024 at B*H = 2), and D = 128 (two column boxes,
+    32-query tiles in dK/dV) at L = 512. f32 outputs: mean error within
+    1e-5 of the mean magnitude (only the order of f32 sums differs) and the
+    largest within 2e-3 (an order-flipped bf16 rounding of one p or ds
+    moves it by one bf16 step); bf16 outputs add their own rounding: mean
+    within 1e-3, largest within 1e-2. lse within 1e-5; two calls of dQ and
+    of dK/dV give the same bits. The shapes added for the backward's edges
+    hold at least 1024 rows (B*L*H): one such flip moves a whole output
+    row, and over fewer rows that alone can pass the mean limit (at
+    [1, 136, 2, 128] dv read 1.76e-5 while the largest error stayed at
+    7.1e-4); the test below holds those small shapes by a measure that
+    rows cannot dilute."""
     q, k, v, do = _flash_inputs(B, L, H, D, dtype)
     FA.reset_launches()
     out, lse = FA.flash_fwd_cuda(q, k, v)
@@ -495,8 +506,9 @@ def test_flash_kernels_match_plain_on_card(card, B, L, H, D, dtype):
     dq = FA.flash_dq_cuda(q, k, v, do, lse, delta)
     dk, dv = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
     again = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
+    dq_again = FA.flash_dq_cuda(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
-    assert FA.launch_counts() == {"flash_fwd": 1, "flash_dq": 1,
+    assert FA.launch_counts() == {"flash_fwd": 1, "flash_dq": 2,
                                   "flash_dkv": 2}
     ref_out, ref_lse = FA.flash_fwd_plain(q, k, v)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5)
@@ -510,6 +522,60 @@ def test_flash_kernels_match_plain_on_card(card, B, L, H, D, dtype):
         assert err_max <= top and err_mean <= mean, (name, err_max,
                                                      err_mean)
     assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    assert torch.equal(dq_again, dq)
+
+
+@pytest.mark.parametrize("B,L,H,D", [(1, 136, 2, 128), (1, 72, 2, 64),
+                                     (2, 40, 2, 32), (1, 200, 3, 64),
+                                     (1, 1, 1, 16)])
+def test_flash_backward_errors_are_bf16_flips_on_card(card, B, L, H, D):
+    """At few rows (B*H*L down to 1), where one bf16 rounding flip of p or
+    ds moves a whole output row and can alone pass the mean limit, the f32
+    dq, dk and dv are held by a measure that more rows cannot dilute:
+    every row with an element past f32 level against the twins is one to
+    three one-step bf16 flips of that row's own p or ds, each times the
+    operand row it scales (``flash_flips.backward_flips``); without those
+    flips the mean error is within the f32 limit, 1e-5 of the mean
+    magnitude, and the largest error is within 2e-3 as in the test
+    above."""
+    q, k, v, do = _flash_inputs(B, L, H, D, torch.float32)
+    out, lse = FA.flash_fwd_cuda(q, k, v)
+    delta = FA.attention_delta(do, out)
+    dq = FA.flash_dq_cuda(q, k, v, do, lse, delta)
+    dk, dv = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
+    found = backward_flips(q, k, v, do, lse, delta, dq, dk, dv)
+    refs = {"dq": FA.flash_dq_plain(q, k, v, do, lse, delta),
+            **dict(zip(("dk", "dv"), FA.flash_dkv_plain(q, k, v, do, lse,
+                                                        delta)))}
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        f = found[name]
+        assert f["unexplained_rows"] == 0, (name, f)
+        assert f["mean_err_share_without_flips"] <= 1e-5, (name, f)
+        assert _flash_err(got, refs[name])[0] <= 2e-3, (name, f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_shares_one_bf16_copy_on_card(card, dtype):
+    """The autograd backward rounds f32 inputs to bf16 once and runs dQ and
+    dK/dV on the copies: each kernel launches once, through the entry
+    point of the inputs' dtype, and the gradients equal the wrappers'
+    own (which round per call) bit for bit."""
+    q, k, v, do = _flash_inputs(2, 136, 2, 64, dtype, seed=1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = FA.flash_attention(*leaves)
+    FA.reset_launches()
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    counts = FA.launch_counts(by_entry=True)
+    assert counts[f"flash_dq_{sfx}"] == counts[f"flash_dkv_{sfx}"] == 1
+    assert sum(counts.values()) == 2
+    _, lse = FA.flash_fwd_cuda(q, k, v)
+    delta = FA.attention_delta(do, out.detach())
+    want = (FA.flash_dq_cuda(q, k, v, do, lse, delta),
+            *FA.flash_dkv_cuda(q, k, v, do, lse, delta))
+    for g, w in zip(grads, want):
+        assert g.dtype == dtype and torch.equal(g, w)
 
 
 def test_flash_refuses_what_it_does_not_take(card):

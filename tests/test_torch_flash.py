@@ -31,6 +31,8 @@ from distkeras_tpu.ops.pallas.flash_attention import (
     flash_attention as jax_flash,
 )
 from distkeras_tpu_torch.ops.kernels import flash_attention as FA
+from distkeras_tpu_torch.ops.kernels.flash_flips import (
+    backward_flips, flip_steps)
 
 H = 2
 
@@ -190,3 +192,119 @@ def test_forward_without_grad_takes_the_plain_twin_on_the_cpu():
     assert torch.equal(out, FA.flash_fwd_plain(*t)[0])
     assert FA.launch_counts() == {"flash_fwd": 0, "flash_dq": 0,
                                   "flash_dkv": 0}
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_tma_geometry_fits_the_backward_kernels(D):
+    """The backward kernels' tensor maps over [B, L, H, D] bf16 (the
+    wrapper's helper, which the C entry points check and encode): dims
+    innermost first, byte strides TMA takes (multiples of 16), a box row
+    that fits its swizzle span, column boxes that cover the padded head
+    dim (two at D > 64), and box rows that tile a 64-key tile."""
+    B, L, Hh = 3, 200, 5
+    g = FA.tma_geometry(B, L, Hh, D)
+    assert g["dims"] == (D, Hh, L, B)
+    assert g["strides"] == (2 * D, 2 * Hh * D, 2 * L * Hh * D)
+    assert all(s % 16 == 0 for s in g["strides"])
+    cols, one, rows, one_b = g["box"]
+    assert (one, one_b) == (1, 1)
+    assert cols * 2 <= g["swizzle"] and g["swizzle"] in (64, 128)
+    assert cols * 2 % 16 == 0 and FA.BLOCK % rows == 0
+    assert g["padded"] >= D and g["boxes"] * cols == g["padded"]
+    assert g["boxes"] == (2 if D > 64 else 1)
+    if D == 128:
+        assert (cols, rows, g["swizzle"]) == (64, 32, 128)
+
+
+@pytest.mark.parametrize("L,D", [(40, 32), (136, 64), (72, 128)])
+def test_one_bf16_rounding_of_the_inputs_gives_the_twins_bit_for_bit(L, D):
+    """The f32 backward rounds q, k, v and dO to bf16 once and feeds those
+    copies to both kernels. The twins round their inputs the same way
+    (nearest even), so fed the copies they give today's results bit for
+    bit: no rounding point moved."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(L, D, seed=5))
+    out, lse = FA.flash_fwd_plain(q, k, v)
+    delta = FA.attention_delta(do, out)
+    ops = FA.bwd_operands(q, k, v, do)
+    assert all(t.dtype == torch.bfloat16 for t in ops)
+    wide = [t.float() for t in ops]
+    assert torch.equal(FA.flash_dq_plain(*wide, lse, delta),
+                       FA.flash_dq_plain(q, k, v, do, lse, delta))
+    for a, b in zip(FA.flash_dkv_plain(*wide, lse, delta),
+                    FA.flash_dkv_plain(q, k, v, do, lse, delta)):
+        assert torch.equal(a, b)
+    bf16 = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+    assert all(a is b for a, b in zip(FA.bwd_operands(*bf16), bf16))
+
+
+def test_flip_steps_cross_the_nearest_bf16_midpoint():
+    """A flip moves an f32 value's bf16 rounding to the neighbour across
+    its nearest midpoint; a bf16 value has none to cross."""
+    x = torch.tensor([1 + 2 ** -8 + 2 ** -20, 1 + 2 ** -8 - 2 ** -20,
+                      -(1 + 2 ** -8 + 2 ** -20), 1.5, 0.0])
+    step, tie = flip_steps(x)
+    assert step.tolist() == [-2 ** -7, 2 ** -7, 2 ** -7, 0.0, 0.0]
+    assert torch.allclose(tie[:3], 2 ** -20 / x[:3].abs(), rtol=1e-3)
+
+
+def _perturbed_backward(q, k, v, do, lse, delta, seed=0):
+    """dq, dk, dv at the kernels' bf16 rounding points, from a p and dp
+    each off by up to 2^-18 of itself (more than another order of f32 sums
+    moves them, so that flips are many), with the products summed in
+    float64 and rounded to f32 (another order, as the kernels' is)."""
+    B, L, Hh, D = q.shape
+    qb, kb, vb, dob = (FA._bf16_bhld(t) for t in (q, k, v, do))
+    g = torch.Generator().manual_seed(seed)
+    jitter = lambda x: x * (1 + (torch.rand(x.shape, generator=g) * 2 - 1)
+                            * 2 ** -18)
+    p = jitter(FA._probs(qb, kb, lse))
+    dp = jitter(torch.matmul(dob, vb.mT))
+    ds = FA._bf16(p * (dp - delta[..., None])).double()
+    qb, kb, dob = qb.double(), kb.double(), dob.double()
+    grads = (torch.matmul(ds, kb), torch.matmul(ds.mT, qb),
+             torch.matmul(FA._bf16(p).double().mT, dob))
+    return [FA._to_blhd(g.float(), B, Hh, torch.float32) for g in grads]
+
+
+def _flip_case(B, L, Hh, D, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, L, Hh, D))
+                                    .astype(np.float32)) for _ in range(4))
+    q = q / D ** 0.5
+    out, lse = FA.flash_fwd_plain(q, k, v)
+    return q, k, v, do, lse, FA.attention_delta(do, out)
+
+
+@pytest.mark.parametrize("B,L,Hh,D", [(1, 136, 2, 128), (1, 72, 2, 64),
+                                      (2, 40, 2, 32)])
+def test_backward_flips_explain_a_perturbed_backward(B, L, Hh, D):
+    """A backward that keeps the kernels' bf16 rounding points but computes
+    p and dp a little otherwise differs from the twins past f32 level only
+    by one-step bf16 flips of p and ds: every such row is explained, flips
+    are found, and without them the mean error is within the card's f32
+    limit, 1e-5 of the mean magnitude (with them dq reads up to 4.1e-5 at
+    [1, 72, 2, 64])."""
+    args = _flip_case(B, L, Hh, D, seed=3)
+    found = backward_flips(*args, *_perturbed_backward(*args))
+    assert sum(f["flips"] for f in found.values()) > 0, found
+    for name, f in found.items():
+        assert f["unexplained_rows"] == 0, (name, f)
+        assert f["mean_err_share_without_flips"] <= 1e-5, (name, f)
+
+
+def test_backward_flips_leave_a_faulty_row_unexplained():
+    """The twins against themselves: nothing past f32 level. A lost last
+    query row of dq (as a ragged edge tile not stored) and a key row of dv
+    off by 1e-3 of its size are not bf16 flips, and stay unexplained."""
+    args = _flip_case(1, 72, 2, 64, seed=4)
+    dq = FA.flash_dq_plain(*args)
+    dk, dv = FA.flash_dkv_plain(*args)
+    clean = backward_flips(*args, dq, dk, dv)
+    assert all(f["elements_past_f32"] == 0 for f in clean.values()), clean
+    dq_bad, dv_bad = dq.clone(), dv.clone()
+    dq_bad[:, -1] = 0.0
+    dv_bad[:, 5, 1] *= 1 + 1e-3
+    bad = backward_flips(*args, dq_bad, dk, dv_bad)
+    assert bad["dq"]["unexplained_rows"] >= 1, bad
+    assert bad["dv"]["unexplained_rows"] == 1, bad
+    assert bad["dk"]["elements_past_f32"] == 0, bad

@@ -28,6 +28,20 @@ except adam's history: its second round reads replicas whose noise-fed
 elements already differ by up to ``2 * lr`` a step, which moved the
 one-worker history by 8.3e-5 and the two-worker mean by 1.0e-4 on the
 CPU, so that case is held within 2e-4.
+
+The non-elastic disciplines DOWNPOUR, ADAG and DynSGD (sgd, 0.05, no
+``rho``) fold the two workers' deltas into the center undamped, so their
+center moves about ten times as far as AEASGD's (1.0e-2 to 1.9e-2 against
+1.4e-3 on the CPU). The flash twin differs from the JAX kernel by bf16
+rounding flips of p and ds, whose effect on the center is a share of its
+move: 0.9e-3 to 1.5e-3 of the largest move in every flash case on the CPU,
+elastic or not, so the absolute 1e-5 (set against AEASGD's move) does not
+carry over. With flash attention these three are held within 3e-3 of the
+center's largest move: the share that the absolute limit leaves the
+elastic case that moves most (EAMSGD, 1e-5 against 2.8e-3). The same
+three also run the model's dense attention, which has no bf16 rounding
+point, and are held there at the absolute sgd limit (they read 1.2e-7 to
+2.4e-7): the second witness that the disciplines' folds are the JAX ones.
 """
 
 import jax
@@ -47,6 +61,11 @@ from distkeras_tpu_torch.ops.kernels import flash_attention as FA
 SMALL = dict(vocab_size=256, num_layers=2, d_model=64, num_heads=2,
              d_ff=128, max_seq_len=64)
 L, WINDOW, BATCH, ROUNDS = 64, 2, 2, 2
+#: the disciplines that take an elastic rate ``rho``; the others fold
+#: the workers' deltas into the center and take none.
+ELASTIC = ("AEASGD", "EAMSGD")
+#: the non-elastic flash cases' center limit, a share of its largest move.
+MOVE_SHARE = 3e-3
 
 
 def _columns(workers=1, seed=0):
@@ -63,26 +82,31 @@ def test_aeasgd_transformer_matches_jax(optimizer, lr):
     _check_against_jax("AEASGD", optimizer, lr, workers=1, hist_atol=1e-4)
 
 
-@pytest.mark.parametrize("name,optimizer,lr", [
-    ("AEASGD", "adam", 1e-4), ("AEASGD", "sgd", 0.05),
-    ("EAMSGD", "sgd", 0.05)])
-def test_two_worker_transformer_matches_jax(name, optimizer, lr):
+@pytest.mark.parametrize("name,optimizer,lr,attn", [
+    ("AEASGD", "adam", 1e-4, "flash"), ("AEASGD", "sgd", 0.05, "flash"),
+    ("EAMSGD", "sgd", 0.05, "flash"),
+    *((name, "sgd", 0.05, attn) for name in ("DOWNPOUR", "ADAG", "DynSGD")
+      for attn in ("flash", "dense"))])
+def test_two_worker_transformer_matches_jax(name, optimizer, lr, attn):
     _check_against_jax(name, optimizer, lr, workers=2,
-                       hist_atol=2e-4 if optimizer == "adam" else 1e-4)
+                       hist_atol=2e-4 if optimizer == "adam" else 1e-4,
+                       attn=attn)
 
 
-def _check_against_jax(name, optimizer, lr, workers, hist_atol):
+def _check_against_jax(name, optimizer, lr, workers, hist_atol,
+                       attn="flash"):
     cols = _columns(workers)
-    jm = JaxModel.build(JaxLM(**SMALL, attn_impl="flash", remat=True),
+    jm = JaxModel.build(JaxLM(**SMALL, attn_impl=attn, remat=True),
                         jax.numpy.zeros((1, 1), jax.numpy.int32), seed=2)
-    pm = small_transformer_lm(**SMALL, attn_impl="flash", remat=True,
+    pm = small_transformer_lm(**SMALL, attn_impl=attn, remat=True,
                               seq_len=L, device="cpu")
     pm.module.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.asarray, jm.params), pm.module))
     init = {k: v.clone() for k, v in pm.module.state_dict().items()}
     kw = dict(num_workers=workers, batch_size=BATCH,
-              communication_window=WINDOW, learning_rate=lr,
-              rho=500.0 if optimizer == "adam" else 1.0)
+              communication_window=WINDOW, learning_rate=lr)
+    if name in ELASTIC:
+        kw["rho"] = 500.0 if optimizer == "adam" else 1.0
     jt = getattr(dk, name)(jm, optimizer, "sparse_categorical_crossentropy",
                            **kw)
     jout = jt.train(JaxDataFrame(cols))
@@ -102,7 +126,9 @@ def _check_against_jax(name, optimizer, lr, workers, hist_atol):
     change = max(m.max().item() for m in move.values())
     assert change > 0
     worst = max(d.max().item() for d in diff.values())
-    if optimizer == "sgd":
+    if optimizer == "sgd" and attn == "flash" and name not in ELASTIC:
+        assert worst <= MOVE_SHARE * change, (worst, change)
+    elif optimizer == "sgd":
         assert worst <= 1e-5, (worst, change)
     else:
         steps = ROUNDS * WINDOW
