@@ -88,21 +88,24 @@ and every parity phase holds the card's bf16 run to the CPU's within
     dK/dV; ``csrc/flash_attn.cu``) against their plain twins on the same
     CUDA tensors, in f32 and bf16, at config #7's shape [8, 2048, 16, 64]
     and ragged ones (L = 40, 72, 136 and 200, D = 32 and 128, B*H = 1,
-    L = 1024 and 512): errors with their limits, two backward calls' bits,
-    the f32 backward's errors at each of those shapes but config #7's and
-    at two with few rows (B*L*H 272 and 144) attributed row by row to bf16
-    rounding flips of p or ds (``flash_bwd_flips``: no row left over),
-    kernel and plain times by CUDA events,
-    ``F.scaled_dot_product_attention``'s (bf16, a yardstick the port never
-    calls), beside the bound (bytes over 3.35 TB/s against the causal
-    products at 989 TFLOP/s bf16). A ``flash_bwd`` row per shape and dtype
+    L = 1024 and 512): errors with their limits, two calls' bits of each
+    kernel, the f32 forward's and backward's errors at each of those
+    shapes but config #7's and at two with few rows (B*L*H 272 and 144)
+    attributed row by row to bf16 rounding flips of p or ds
+    (``flash_fwd_flips``, ``flash_bwd_flips``: no row left over), kernel
+    and plain times by CUDA events, ``F.scaled_dot_product_attention``'s
+    (bf16, a yardstick the port never calls), beside the bound (bytes over
+    3.35 TB/s against the causal products at 989 TFLOP/s bf16). Each
+    ``flash_fwd`` row gives its share of the bound and its ratio to SDPA's
+    forward (and, in f32, the time of the inputs' one bf16 rounding, which
+    its own time includes). A ``flash_bwd`` row per shape and dtype
     times the whole backward as the autograd Function runs it (f32 inputs
     rounded to bf16 once, then dQ and dK/dV; the bits of the two wrappers'
     outputs) against SDPA's backward, with the ratio and the share of the
     backward's own bound (S and dP once: five causal products), the two
-    kernels' summed bounds beside it; the ``flash_bwd_build``
-    line before the phases gives the backward kernels' registers and
-    spills from the compiler's report.
+    kernels' summed bounds beside it; the ``flash_build`` line before the
+    phases gives the registers and spills of the 18 flash kernel
+    instantiations from the compiler's report (a spill fails the run).
 11. ``transformer_train`` — BASELINE config #7 as a user drives it:
     ``AEASGD(small_transformer_lm(vocab 32768, 8 layers, d_model 1024,
     16 heads, d_ff 4096, seq 2048, attn_impl="flash", remat=True), "adam",
@@ -276,12 +279,13 @@ LM_TRAIN = dict(num_workers=1, batch_size=8, communication_window=8,
                 learning_rate=1e-4, rho=500.0)
 LM_ROUNDS = 2
 #: the flash kernels' shapes [B, L, H, D]: config #7's, then ragged ones
-#: (L not a tile multiple, D = 32, B*H = 1), then the backward design's
-#: edges: L not a multiple of a tile's rows (72, 136), a load ring wrapped
-#: many times (L = 1024, B*H = 2) and D = 128 (two column boxes, 32-query
-#: tiles in dK/dV) at L = 512; each of those at least 1024 rows (B*L*H),
-#: since one order-flipped bf16 rounding of p moves a whole output row and
-#: over fewer rows can alone pass the mean limit (the forward at [1, 72,
+#: (L not a tile multiple, D = 32, B*H = 1), then the design's edges: L
+#: not a multiple of a tile's rows (72, 136; the forward's second
+#: warpgroup with and without rows before L), a load ring wrapped many
+#: times (L = 1024, B*H = 2) and D = 128 (two column boxes, 32-query tiles
+#: in dK/dV) at L = 512; each of those at least 1024 rows (B*L*H), since
+#: one order-flipped bf16 rounding of p moves a whole output row and over
+#: fewer rows can alone pass the mean limit (an earlier forward at [1, 72,
 #: 2, 64] f32 read 1.22e-5, its largest error 4.5e-4).
 FLASH_SHAPES = ((8, LM_SEQ, 16, 64), (2, 40, 4, 64), (2, 200, 4, 64),
                 (2, 256, 4, 32), (1, LM_SEQ, 1, 64), (4, 72, 4, 64),
@@ -296,11 +300,12 @@ FLASH_SHAPES = ((8, LM_SEQ, 16, 64), (2, 40, 4, 64), (2, 200, 4, 64),
 FLASH_LIMITS = {"float32": {"top": 2e-3, "mean": 1e-5},
                 "bfloat16": {"top": 1e-2, "mean": 1e-3}}
 FLASH_LSE_ATOL = 1e-5
-#: the shapes at which the f32 backward's errors against the twins are
-#: attributed to bf16 rounding flips (``flash_flips.backward_flips``): each
-#: of FLASH_SHAPES but config #7's, and two with few rows (B*L*H 272 and
-#: 144) where one flip of p or ds can alone pass the mean limit, so that
-#: only this measure, which rows cannot dilute, holds them.
+#: the shapes at which the f32 forward's and backward's errors against the
+#: twins are attributed to bf16 rounding flips (``flash_flips.
+#: forward_flips``, ``backward_flips``): each of FLASH_SHAPES but config
+#: #7's, and two with few rows (B*L*H 272 and 144) where one flip of p or
+#: ds can alone pass the mean limit, so that only this measure, which rows
+#: cannot dilute, holds them.
 FLASH_FLIP_SHAPES = tuple(s for s in FLASH_SHAPES if s != FLASH_SHAPES[0]) \
     + ((1, 136, 2, 128), (1, 72, 2, 64))
 #: the small transformer run on the card and on the CPU from one seed
@@ -652,10 +657,10 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
     patched = {}
     if kmod is not None:
         def wrap(fn, key):
-            def call(*args):
+            def call(*args, **kwargs):
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
-                out = fn(*args)
+                out = fn(*args, **kwargs)
                 ev[1].record()
                 spans[key].append(ev)
                 return out
@@ -1656,6 +1661,7 @@ def flash_kernel_phase(torch, FA, seed: int) -> list:
             name = str(dtype).split(".")[1]
             q, k, v, do = (t.to(dtype) for t in base)
             out, lse = FA.flash_fwd_cuda(q, k, v)
+            out2, lse2 = FA.flash_fwd_cuda(q, k, v)
             delta = FA.attention_delta(do, out)
             dq = FA.flash_dq_cuda(q, k, v, do, lse, delta)
             dk, dv = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
@@ -1669,9 +1675,11 @@ def flash_kernel_phase(torch, FA, seed: int) -> list:
                     "dq": [(dq, FA.flash_dq_plain(q, k, v, do, lse, delta))],
                     "dkv": list(zip((dk, dv), FA.flash_dkv_plain(
                         q, k, v, do, lse, delta)))}
-            repeatable = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                          and torch.equal(dv, dv2))
-            del dq2, dk2, dv2
+            repeatable = {
+                "fwd": torch.equal(out, out2) and torch.equal(lse, lse2),
+                "dq": torch.equal(dq, dq2),
+                "dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+            del out2, lse2, dq2, dk2, dv2
             calls = {
                 "fwd": (lambda: FA.flash_fwd_cuda(q, k, v),
                         lambda: FA.flash_fwd_plain(q, k, v), lib_fwd_ms),
@@ -1709,11 +1717,16 @@ def flash_kernel_phase(torch, FA, seed: int) -> list:
                                   + ("forward" if kernel == "fwd" else
                                      "backward (dq, dk, dv together)"),
                        "bound_ms": bound, "bound_by": bound_by}
+                row["repeatable_bits"] = repeatable[kernel]
                 if kernel == "fwd":
                     row.update(lse_max_abs_err=lse_err,
-                               lse_atol=FLASH_LSE_ATOL)
-                else:
-                    row["repeatable_bits"] = repeatable
+                               lse_atol=FLASH_LSE_ATOL,
+                               ratio_to_library=row["ms"] / library_ms,
+                               bound_share=bound / row["ms"])
+                    if dtype == torch.float32:
+                        row["rounding_ms"] = cuda_ms(
+                            torch, lambda: FA.bf16_operands(q, k, v),
+                            10 if big else 20)
                 emit(row)
                 if not (row["max_err_share"] <= lim["top"]
                         and row["mean_err_share"] <= lim["mean"]):
@@ -1722,7 +1735,7 @@ def flash_kernel_phase(torch, FA, seed: int) -> list:
                 if kernel == "fwd" and not lse_err <= FLASH_LSE_ATOL:
                     fail(f"flash_fwd's lse is {lse_err} from its twin's at "
                          f"{(B, L, H, D)} {name}")
-                if kernel != "fwd" and not repeatable:
+                if not repeatable[kernel]:
                     fail(f"flash_{kernel} gave other bits on a second call "
                          f"at {(B, L, H, D)} {name}")
                 rows.append(row)
@@ -1731,20 +1744,24 @@ def flash_kernel_phase(torch, FA, seed: int) -> list:
             del refs, calls, q, k, v, do, out, lse, delta, dq, dk, dv
             torch.cuda.empty_cache()
         del base
-    return rows + [flash_flip_row(torch, FA, shape, seed)
-                   for shape in FLASH_FLIP_SHAPES]
+    for shape in FLASH_FLIP_SHAPES:
+        rows += flash_flip_rows(torch, FA, shape, seed)
+    return rows
 
 
-def flash_flip_row(torch, FA, shape, seed: int) -> dict:
-    """The f32 dQ and dK/dV kernels against their twins at ``shape``, every
-    output row with an element past f32 level attributed to one-step bf16
-    rounding flips of its own p or ds (``flash_flips.backward_flips``).
-    Fails if a row stays unexplained, if the mean error without the flips
-    passes FLASH_LIMITS' f32 mean, or if the largest error passes its
-    top; the mean error with the flips is shown beside. The inputs are
-    made on the host from ``seed`` as ``tests/test_torch_cuda.py`` makes
-    them, so at seed 0 a shape of both sees the same numbers."""
-    from distkeras_tpu_torch.ops.kernels.flash_flips import backward_flips
+def flash_flip_rows(torch, FA, shape, seed: int) -> list:
+    """The f32 forward, dQ and dK/dV kernels against their twins at
+    ``shape``, every output row with an element past f32 level attributed
+    to one-step bf16 rounding flips of its own p or ds
+    (``flash_flips.forward_flips``, ``backward_flips``): a
+    ``flash_fwd_flips`` and a ``flash_bwd_flips`` row. Fails if a row stays
+    unexplained, if the mean error without the flips passes FLASH_LIMITS'
+    f32 mean, or if the largest error passes its top; the mean error with
+    the flips is shown beside. The inputs are made on the host from
+    ``seed`` as ``tests/test_torch_cuda.py`` makes them, so at seed 0 a
+    shape of both sees the same numbers."""
+    from distkeras_tpu_torch.ops.kernels.flash_flips import (
+        backward_flips, forward_flips)
 
     B, L, H, D = shape
     g = torch.Generator().manual_seed(seed)
@@ -1752,26 +1769,32 @@ def flash_flip_row(torch, FA, shape, seed: int) -> dict:
     q, k, v, do = (t.cuda() for t in (q / D ** 0.5, k, v, do))
     out, lse = FA.flash_fwd_cuda(q, k, v)
     delta = FA.attention_delta(do, out)
-    got = {"dq": FA.flash_dq_cuda(q, k, v, do, lse, delta)}
+    got = {"out": out, "dq": FA.flash_dq_cuda(q, k, v, do, lse, delta)}
     got["dk"], got["dv"] = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
-    ref = {"dq": FA.flash_dq_plain(q, k, v, do, lse, delta)}
+    ref = {"out": FA.flash_fwd_plain(q, k, v)[0],
+           "dq": FA.flash_dq_plain(q, k, v, do, lse, delta)}
     ref["dk"], ref["dv"] = FA.flash_dkv_plain(q, k, v, do, lse, delta)
-    found = backward_flips(q, k, v, do, lse, delta, got["dq"], got["dk"],
-                           got["dv"])
+    found = {"out": forward_flips(q, k, v, out),
+             **backward_flips(q, k, v, do, lse, delta, got["dq"], got["dk"],
+                              got["dv"])}
     lim = FLASH_LIMITS["float32"]
     for name, f in found.items():
         d = (got[name] - ref[name]).abs()
         f["max_err_share"] = (d.max() / ref[name].abs().max()).item()
-    row = {"phase": "flash_kernel", "name": "flash_bwd_flips", "B": B,
-           "L": L, "H": H, "D": D, "dtype": "float32", **found,
-           "limit_max_share": lim["top"], "limit_mean_share": lim["mean"]}
-    emit(row)
+    rows = []
+    for kernel, names in (("fwd", ("out",)), ("bwd", ("dq", "dk", "dv"))):
+        row = {"phase": "flash_kernel", "name": f"flash_{kernel}_flips",
+               "B": B, "L": L, "H": H, "D": D, "dtype": "float32",
+               **{n: found[n] for n in names},
+               "limit_max_share": lim["top"], "limit_mean_share": lim["mean"]}
+        emit(row)
+        rows.append(row)
     for name, f in found.items():
         if (f["unexplained_rows"] or f["max_err_share"] > lim["top"]
                 or f["mean_err_share_without_flips"] > lim["mean"]):
             fail(f"flash {name}'s errors at {shape} f32 are not bf16 "
                  f"rounding flips of p or ds alone: {f}")
-    return row
+    return rows
 
 
 def flash_bwd_row(torch, FA, args, outs, kernel_rows, big) -> dict:
@@ -1811,13 +1834,13 @@ def flash_bwd_row(torch, FA, args, outs, kernel_rows, big) -> dict:
     return row
 
 
-def flash_bwd_registers(log: str) -> list:
-    """The backward kernels' registers, stack and spills from the build's
+def flash_registers(log: str) -> list:
+    """The flash kernels' registers, stack and spills from the build's
     ``-Xptxas -v`` report, one entry per instantiation."""
     out, cur = [], None
     for ln in log.splitlines():
-        m = re.search(r"(flash_d(?:q|kv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
-                      ln)
+        m = re.search(
+            r"(flash_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E", ln)
         if "Compiling entry" in ln:
             cur = None if m is None else {
                 "kernel": m.group(1),
@@ -1946,10 +1969,11 @@ def transformer_train_phase(torch, FA, gpu: str, seed: int,
           "step_split": "one local step at B=8, L=2048 by CUDA events, "
                         "outside the trainer (mean of 3 after a warm "
                         "step); flash_fwd: events around each forward "
-                        "call, the recompute's inside the backward "
-                        "included; flash_bwd: around each backward call "
-                        "(dQ and dK/dV, and the f32 inputs' one bf16 "
-                        "rounding)"})
+                        "kernel call, the recompute's inside the backward "
+                        "included (the f32 inputs' one bf16 rounding, "
+                        "which the backward shares, is outside it); "
+                        "flash_bwd: around each backward call (dQ and "
+                        "dK/dV, and dO's bf16 rounding)"})
     if not np.all(np.isfinite(hist)):
         fail(f"non-finite transformer training loss: {hist}")
     if not moved > 0:
@@ -2103,12 +2127,16 @@ def main() -> None:
           "libraries": {k: str(v) for k, v in libs.items()},
           "ptxas": ptxas})
     flash_log = libs["flash_attn"].with_suffix(".log")
-    bwd_regs = flash_bwd_registers(flash_log.read_text()
-                                   if flash_log.exists() else "")
-    emit({"phase": "flash_bwd_build", "kernels": bwd_regs})
-    if flash_log.exists() and len(bwd_regs) != 12:
-        fail(f"expected 12 flash backward instantiations in the build "
-             f"report, found {len(bwd_regs)}")
+    flash_regs = flash_registers(flash_log.read_text()
+                                 if flash_log.exists() else "")
+    emit({"phase": "flash_build", "kernels": flash_regs})
+    if flash_log.exists() and len(flash_regs) != 18:
+        fail(f"expected 18 flash kernel instantiations in the build report, "
+             f"found {len(flash_regs)}")
+    spilled = [r for r in flash_regs
+               if r.get("spill_stores") or r.get("spill_loads")]
+    if spilled:
+        fail(f"flash kernels spill registers: {spilled}")
 
     rng = np.random.default_rng(args.seed)
     model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,

@@ -6,13 +6,12 @@
 //   flash_dkv  <- _dkv_kernel (the second one, :261)
 // the custom-VJP triple behind flash_attention.
 //
-// Inputs q, k, v (and dO) are [B, L, H, D] in the model's own layout, q
-// pre-scaled; the kernels read the strided layout directly, so the wrapper
-// transposes nothing. lse and delta are [B*H, L] float32. The forward
-// takes float32 or bfloat16 (all the same type) and writes its inputs'
-// type. The backward takes bfloat16 inputs (the wrapper rounds an f32
-// caller's q, k, v and dO to bf16 once a backward, nearest even, the
-// rounding point of the TPU kernel) and writes f32 (flash_*_f32) or bf16.
+// Inputs q, k, v (and dO) are [B, L, H, D] bf16 in the model's own layout,
+// q pre-scaled; the kernels read the strided layout directly, so the
+// wrapper transposes nothing. lse and delta are [B*H, L] float32. Every
+// kernel loads by TMA, which cannot convert, so the wrapper rounds an f32
+// caller's inputs to bf16 once (nearest even, the rounding point of the
+// TPU kernels) and the kernels write f32 (flash_*_f32) or bf16.
 //
 // Numerics, as the TPU kernels compute them: q, k, v, dO and p are rounded
 // to bf16 (nearest even) before each product and every product
@@ -20,51 +19,38 @@
 // rounded to bf16 before it multiplies K or Q. A bf16 x bf16 product is
 // exact in f32, so the results differ from the TPU kernels' only by the
 // order of the f32 sums.
-//   flash_fwd: online softmax over k-tiles 0..the diagonal, running max
-//     from -1e30, l summed from the f32 p, acc += bf16(p) V, then
-//     out = acc / l and lse = m + log(l). Only the diagonal tile masks.
+//   flash_fwd: online softmax over 64-key k-tiles 0..the diagonal, running
+//     max from -1e30, p = exp(s - m_new) rounded to bf16 against it, l
+//     summed from the f32 p, acc = acc corr + bf16(p) V, then out = acc / l
+//     and lse = m + log(l). Only the diagonal tile masks. The k-tile is
+//     part of the result (the running max p is taken against), so it stays
+//     the plain twin's 64.
 //   flash_dq:  per q-tile, over k-tiles 0..the diagonal: p = exp(s - lse)
 //     (masked), dp = dO V^T, ds = bf16(p * (dp - delta)), dq += ds K.
 //   flash_dkv: per k-tile, over q-tiles from the diagonal to the end:
 //     dv += bf16(p)^T dO, dk += ds^T Q.
 // Every output tile has one owner block, so there are no atomics and two
-// calls give the same bits. The forward's expf and logf are the accurate
-// ones; the backward takes p = exp2f(s log2(e) - lse log2(e)) (2 ulp),
-// within the same limits against the twins' accurate exp. Build without
-// --use_fast_math.
+// calls give the same bits. Every exponential is 2^(x log2(e) - m
+// log2(e)) (p = exp(s - m_new) and corr in the forward, p = exp(s - lse)
+// in the backward): exp2f (2 ulp) in the backward, the bare ex2.approx.ftz
+// in the forward (exp2_ftz); lse's logf is the accurate one. The results
+// stay within the same limits against the twins' accurate exp. Build
+// without --use_fast_math.
 //
-// What bounds it on this card. At BASELINE config #7's shape (B=8, L=2048,
-// H=16, D=64) the forward moves 269 MB in f32 (q, k, v read, out written)
-// against 69 GFLOP of causal products, and the backward kernels do 103 and
-// 137 GFLOP: at 3.35 TB/s and the tensor cores' 989 TFLOP/s the forward is
-// bound by bytes (0.080 ms) a little ahead of its operations (0.069 ms),
-// dq and dkv by operations (0.104 and 0.139 ms). The TPU kernel keeps all
-// of K and V of a head in VMEM; a Hopper block cannot, and its blocks run
-// in parallel in no order.
-//
-// The forward (simple and right first; its redesign is the next step):
-// one block of 4 warps per (64-row tile, batch*head), each warp owning 16
-// rows, the longest rows first. Its products are mma.sync.m16n8k16 bf16
-// -> f32; the accumulator layout of S is the A layout of P for the next
-// product, so s and p stay in registers. K and V tiles are staged in
-// shared memory as bf16 by the threads, one tile in flight, rows padded by
-// 8 elements against bank conflicts; the head dim is padded to 32, 64 or
-// 128 and rows past L load as zeros.
-//
-// The backward is built for Hopper. Being bound by operations, it has to
-// keep the tensor cores fed, which the forward's design does not: 16-row
-// mma.sync products between __syncthreads, each tile loaded by the same
-// threads that multiply. So:
+// What bounds them on this card. At BASELINE config #7's shape (B=8,
+// L=2048, H=16, D=64) the forward does 69 GFLOP of causal products and
+// the backward kernels 103 and 137: at the tensor cores' 989 TFLOP/s they
+// are bound by operations (0.069, 0.104 and 0.139 ms); the forward's f32
+// caller adds bytes (q, k, v read in f32, out written: 269 MB, 0.080 ms at
+// 3.35 TB/s). The TPU kernel keeps all of K and V of a head in VMEM; a
+// Hopper block cannot, and its blocks run in parallel in no order. So
+// every kernel is built to keep the tensor cores fed:
 // - Products are wgmma on 64-row warpgroup tiles, bf16 operands, f32
-//   accumulators. A block is one consumer warpgroup (warps 0-3) and one
-//   producer warp (warp 4); with two blocks on an SM (one at DP = 128) one
-//   block's exponentials overlap the other's products.
-// - Loads are TMA behind mbarriers. The producer's lane 0 issues every
-//   copy into a ring of kStages stages (dQ: the K and V tiles; dK/dV: the
-//   Q and dO tiles, with their lse and delta rows written by the producer's
-//   lanes) and waits on each stage's "empty" barrier; the consumers wait on
-//   its "full" barrier and free the stage after their last product on it.
-//   No __syncthreads around a product.
+//   accumulators.
+// - Loads are TMA behind mbarriers. A producer warp's lane 0 issues every
+//   copy into a ring of kStages stages and waits on each stage's "empty"
+//   barrier; the consumers wait on its "full" barrier and free the stage
+//   after their last product on it. No __syncthreads around a product.
 // - The tensor maps are 4-D over the model's layout, dims (D, H, L, B),
 //   box (min(DP, 64), 1, rows, 1), encoded on the host from the wrapper's
 //   geometry (tma_geometry) with cuTensorMapEncodeTiled, reached through
@@ -73,16 +59,42 @@
 //   of padding. A tile lands in the 128-byte swizzle (64 bf16 a row; D =
 //   128 takes two column boxes) or, at DP = 32, the 64-byte one: the
 //   layouts wgmma's descriptors read.
-// - S = Q K^T and dP = dO V^T (dQ), S^T = K Q^T and dP^T = V dO^T (dK/dV)
-//   read both operands from shared memory, K-major. dq += ds K, dv +=
-//   bf16(p)^T dO and dk += ds^T Q take A from registers: the accumulator
-//   layout of the scores is wgmma's register A layout, so p and ds never
-//   touch shared memory; their B (K, dO, Q) is read MN-major through
-//   wgmma's transpose flag, no transposed copy and no 16-bit loads.
-// - dK/dV holds dk, dv, S^T and dP^T in registers: at DP = 128 its q-tile
-//   is 32 queries (64 + 64 + 16 + 16 floats a thread), else 64.
-// - Longest blocks first: dQ reverses the q-tile index; dK/dV's k-tile 0
-//   loops over every q-tile.
+// - Scores (S = Q K^T, dP = dO V^T; S^T = K Q^T, dP^T = V dO^T in dK/dV)
+//   read both operands from shared memory, K-major. The products with p
+//   or ds (acc += bf16(p) V, dq += ds K, dv += bf16(p)^T dO, dk += ds^T Q)
+//   take A from registers: the accumulator layout of the scores is
+//   wgmma's register A layout, so p and ds never touch shared memory;
+//   their B (V, K, dO, Q) is read MN-major through wgmma's transpose flag,
+//   no transposed copy and no 16-bit loads.
+// - Longest blocks first: the forward and dQ reverse the q-tile index;
+//   dK/dV's k-tile 0 loops over every q-tile.
+//
+// The forward: a block is a 128-row q-tile, two consumer warpgroups of 64
+// rows (warps 0-7) and the producer warp (warp 8), 288 threads. The two
+// warpgroups share every K/V tile of the ring (its "empty" barrier counts
+// both), so a K/V tile crosses L2 once per 128 query rows. Warpgroup w's
+// diagonal k-tile is 2 qt + w: warpgroup 0 stops before the block's last
+// k-tile, which lies after all its rows; a block whose rows 64.. lie past
+// L runs warpgroup 0 alone. Each warpgroup in turn computes its scores,
+// waits, takes the online softmax and issues its P V product; the other
+// warpgroup, and a second block on the SM, fill the tensor cores
+// meanwhile. Two blocks fit at DP <= 64 only under 96 registers a thread
+// (18 warps, five on one of the SM's four 16K-register files): the
+// scores are zeroed before each product so that the last tile's stay
+// dead, and the kernel takes 95. That plain order was timed against two
+// levers on the H100 when the kernel was written (variants whose script
+// is not kept): a warpgroup queueing the next tile's scores behind this
+// tile's P V product (it needs about 107 registers, so one block an SM),
+// and ping-pong turns on named barriers between the two warpgroups; both
+// were slower.
+//
+// The backward: a block is one consumer warpgroup (warps 0-3) and the
+// producer warp (warp 4); with two blocks on an SM (one at DP = 128) one
+// block's exponentials overlap the other's products. The dQ ring holds the
+// K and V tiles; the dK/dV ring the Q and dO tiles, with their lse and
+// delta rows written by the producer's lanes. dK/dV holds dk, dv, S^T and
+// dP^T in registers: at DP = 128 its q-tile is 32 queries (64 + 64 + 16 +
+// 16 floats a thread), else 64.
 
 #include <cuda.h>  // CUtensorMap and the encoder's types; no libcuda link
 #include <cuda_bf16.h>
@@ -94,9 +106,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kTile = 64;               // query rows of a block, keys of a k-tile
-constexpr int kWarps = 4;               // each warp owns 16 rows of the tile
-constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 64;               // rows of a q-tile, keys of a k-tile
 constexpr float kNeg = -1e30f;          // _NEG of the TPU kernel
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -104,95 +114,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Two neighbouring bf16 of one row (an A fragment, or a B fragment read
-// from a tile stored [n][k]).
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// p[0] and p[stride] packed (a B fragment read from a tile stored [k][n]).
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p, int stride) {
-  const uint32_t lo = __bfloat16_as_ushort(p[0]);
-  const uint32_t hi = __bfloat16_as_ushort(p[stride]);
-  return lo | (hi << 16);
-}
-
-// c += a * b on one 16x8x16 tile: a row-major 16x16, b 16x8, c 16x8 f32.
-// Lane (g = lane/4, t = lane%4) holds a = {A[g][2t..], A[g+8][2t..],
-// A[g][2t+8..], A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]} and
-// c = {C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of 16 rows from `row` on, columns col..col+15, of a tile
-// in shared memory with row pitch P.
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile,
-                                     int P, int row, int col, int g, int t) {
-  const bf16* p0 = tile + (row + g) * P + col + 2 * t;
-  const bf16* p1 = p0 + 8 * P;
-  a[0] = ld32(p0);
-  a[1] = ld32(p1);
-  a[2] = ld32(p0 + 8);
-  a[3] = ld32(p1 + 8);
-}
-
-// Eight elements of one row, rounded to bf16.
-__device__ __forceinline__ uint4 load8(const float* p) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
-                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
-}
-__device__ __forceinline__ uint4 load8(const bf16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// Rows r0..r0+63 of one (batch, head) slice of a [B, L, H, D] tensor into
-// a bf16 tile [64][DP + 8] in shared memory: rows past L and columns past
-// D are zeros.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const T* src, int r0,
-                                          int L, int D, size_t rs) {
-  constexpr int kChunks = DP / 8;
-  constexpr int P = DP + 8;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L && c < D) v = load8(src + (size_t)(r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * P + c) = v;
-  }
-}
-
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Write a warp's 16 x DP accumulator (rows row..row+15 of the slice) to a
-// [B, L, H, D] output, rows < L and columns < D.
-template <typename T, int DP>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[DP / 8][4],
-                                           int row, int L, int D, size_t rs,
-                                           int g, int t) {
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (col >= D) continue;
-    if (row + g < L)
-      store_pair(dst + (size_t)(row + g) * rs + col, acc[n][0], acc[n][1]);
-    if (row + g + 8 < L)
-      store_pair(dst + (size_t)(row + g + 8) * rs + col, acc[n][2],
-                 acc[n][3]);
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -204,157 +130,20 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// s[j] (j = 0..7, 64 columns) += A (the warp's 16 rows, DP deep, as
-// fragments in registers) * B^T with B's 64 rows from `bt` ([n][k] layout).
-template <int DP>
-__device__ __forceinline__ void frags_times_tile_t(
-    float (&s)[8][4], const uint32_t (&af)[DP / 16][4], const bf16* bt,
-    int g, int t) {
-  constexpr int P = DP + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bf16* p = bt + (j * 8 + g) * P + kk * 16 + 2 * t;
-      mma(s[j], af[kk], ld32(p), ld32(p + 8));
-    }
-}
-
-// acc (16 x DP) += bf16(x) (16 x 64, in accumulator layout) * the tile
-// `bt` (64 x DP, [k][n] layout): the accumulator layout of x is the A
-// layout of the product, so x never leaves registers.
-template <int DP>
-__device__ __forceinline__ void regs_times_tile(float (&acc)[DP / 8][4],
-                                                const float (&x)[8][4],
-                                                const bf16* bt, int g, int t) {
-  constexpr int P = DP + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const bf16* p = bt + (kk * 16 + 2 * t) * P + n * 8 + g;
-      mma(acc[n], a, ld_pair(p, P), ld_pair(p + 8 * P, P));
-    }
-  }
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int L, int H, int D) {
-  constexpr int P = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kTile * P;
-  const int bh = blockIdx.x, h = bh % H, b = bh / H;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const size_t rs = (size_t)H * D;
-  const size_t base = ((size_t)b * L * H + h) * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, row0 = warp * 16;
-
-  load_tile<T, DP>(ks, q + base, qt * kTile, L, D, rs);
-  __syncthreads();
-  uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) ld_a(qf[kk], ks, P, row0, kk * 16, g, t);
-  __syncthreads();
-
-  const int qrow = qt * kTile + row0 + g;  // and qrow + 8
-  float o[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    load_tile<T, DP>(ks, k + base, kt * kTile, L, D, rs);
-    load_tile<T, DP>(vs, v + base, kt * kTile, L, D, rs);
-    __syncthreads();
-    float s[8][4];
-    frags_times_tile_t<DP>(s, qf, ks, g, t);
-    const bool diag = kt == qt;
-    if (diag) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (kt * kTile + j * 8 + 2 * t + (e & 1) > qrow + 8 * (e >> 1))
-            s[j][e] = kNeg;
-    }
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float mn[2], corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mn[r] = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = expf(m[r] - mn[r]);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = expf(s[j][e] - mn[r]);
-        if (diag && kt * kTile + j * 8 + 2 * t + (e & 1) > qrow + 8 * r)
-          p = 0.f;
-        s[j][e] = p;
-        sum[r] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = l[r] * corr[r] + quad_sum(sum[r]);
-      m[r] = mn[r];
-    }
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-    regs_times_tile<DP>(o, s, vs, g, t);
-    __syncthreads();
-  }
-  // out = acc / l, as the TPU kernel divides (not a multiply by 1/l).
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    o[n][0] /= l[0];
-    o[n][1] /= l[0];
-    o[n][2] /= l[1];
-    o[n][3] /= l[1];
-  }
-  store_rows<T, DP>(out + base, o, qt * kTile + row0, L, D, rs, g, t);
-  if (t == 0) {
-    float* lrow = lse + (size_t)bh * L;
-    if (qrow < L) lrow[qrow] = m[0] + logf(l[0]);
-    if (qrow + 8 < L) lrow[qrow + 8] = m[1] + logf(l[1]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The backward: wgmma on tiles that TMA brings into shared memory.
+// wgmma on tiles that TMA brings into shared memory.
 
 constexpr int kStages = 3;        // depth of the load ring
 constexpr int kBwdThreads = 160;  // one consumer warpgroup + the producer warp
-constexpr int kProducer = 4;      // the producer's warp index
-// p = exp(s - lse) is taken as exp2f(s log2(e) - lse log2(e)), one fused
+constexpr int kProducer = 4;      // the backward's producer warp
+constexpr int kQTile = 2 * kTile;  // query rows of a forward block
+constexpr int kFwdThreads = 288;  // two consumer warpgroups + the producer warp
+constexpr int kFwdProducer = 8;   // the forward's producer warp
+// exp(x - m) is taken as exp2f(x log2(e) - m log2(e)), one fused
 // multiply-add and the hardware's base-2 exponential, where the accurate
-// expf costs a longer instruction sequence (flash_variants.py times both).
+// expf costs a longer instruction sequence. The two were timed against
+// each other in the backward kernels on the H100 when they were written;
+// the script of that comparison is not kept.
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The head dim a tile holds (zeros past D): 32, 64 or 128.
@@ -651,6 +440,188 @@ __device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw) {
   return (smem_u32(raw) + 1023u) & ~1023u;
 }
 
+// 2^x by the exponential unit's own instruction, results below 2^-126
+// flushed to zero. exp2f adds a fix-up for such results; a p that small
+// moves neither bf16(p) V nor l at f32 level. On the H100 the forward
+// read the same errors against its twin at every test shape either way,
+// and the fix-up on every score cost it about a tenth of its time.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One k-tile of the online softmax on the scores s (a 64 x 64 accumulator
+// of the warpgroup; this thread's rows are wr and wr + 8 of its 64, with
+// the keys' columns 8j + 2t + e%2). On the diagonal tile a key after its
+// query is masked. The running max m and sum l advance; s becomes p =
+// exp(s - m_new) in f32, and corr = exp(m_old - m_new), the factor the
+// accumulator takes before this tile's bf16(p) V is added.
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&corr)[2], bool diag,
+                                               int wr, int t) {
+  if (diag) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j * 8 + 2 * t + (e & 1) > wr + 8 * (e >> 1))
+          s[4 * j + e] = -CUDART_INF_F;
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float ml[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = quad_max(mx[r]);
+    corr[r] = exp2_ftz((m[r] - mn) * kLog2e);
+    m[r] = mn;
+    ml[r] = mn * kLog2e;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_ftz(fmaf(s[4 * j + e], kLog2e, -ml[e >> 1]));
+      s[4 * j + e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+}
+
+template <int DP>
+__device__ __forceinline__ void rescale(float (&acc)[DP / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    acc[4 * i] *= corr[0];
+    acc[4 * i + 1] *= corr[0];
+    acc[4 * i + 2] *= corr[1];
+    acc[4 * i + 3] *= corr[1];
+  }
+}
+
+// out and lse for one 128-row q-tile of one (batch, head): the producer
+// warp loads the two 64-row Q tiles once, then the K and V tiles of the
+// k-tiles 0 .. 2 qt + 1 (none past L) into a ring of kStages; consumer
+// warpgroup w owns rows 64w .. 64w + 63 of the tile, whose diagonal k-tile
+// is 2 qt + w. Each k-tile: S = Q K^T (wgmma, shared-memory operands),
+// the online softmax, acc = acc corr + bf16(p) V (A from registers, V
+// read MN-major); both warpgroups free the stage. Then out = acc / l and
+// lse = m + log(l).
+template <typename T, int DP>
+__global__ void __launch_bounds__(kFwdThreads, DP == 128 ? 1 : 2)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, T* __restrict__ out,
+                 float* __restrict__ lse, int L, int H, int D) {
+  constexpr uint32_t TILE = kTile * DP * 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t qs = aligned_smem(smem);  // warpgroup w's Q at qs + w TILE
+  const uint32_t ring = qs + 2 * TILE;     // stage s: K at 2s, V at 2s + 1
+  const uint32_t bars = ring + 2 * kStages * TILE;
+  const uint32_t qbar = bars, full = bars + 8, empty = full + 8 * kStages;
+  const int bh = blockIdx.x, h = bh % H, b = bh / H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // the longest rows first
+  // The k-tiles that reach the block's rows, none past L; warpgroup 1 runs
+  // only where some of its rows lie before L.
+  const int nk = min(2 * qt + 2, (L + kTile - 1) / kTile);
+  const bool two = qt * kQTile + kTile < L;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, two ? 256 : 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kFwdProducer) {
+    if (lane == 0) {
+      mbar_expect_tx(qbar, (two ? 2 : 1) * TILE);
+      tma_tile<DP, kTile>(qs, &tq, qbar, h, qt * kQTile, b);
+      if (two)
+        tma_tile<DP, kTile>(qs + TILE, &tq, qbar, h, qt * kQTile + kTile, b);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t f = full + 8 * s, st = ring + 2 * s * TILE;
+        mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(f, 2 * TILE);
+        tma_tile<DP, kTile>(st, &tk, f, h, kt * kTile, b);
+        tma_tile<DP, kTile>(st + TILE, &tv, f, h, kt * kTile, b);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  if (wg == 1 && !two) return;
+  const int g = lane / 4, t = lane % 4, wr = (warp % 4) * 16 + g;
+  const int diag = 2 * qt + wg;  // this warpgroup's diagonal k-tile
+  // Warpgroup 0 stops at its diagonal: nothing waits for it to free the
+  // stage of k-tile 2 qt + 1, the last one loaded.
+  const int last = min(diag, nk - 1);
+  const int row = qt * kQTile + wg * kTile + wr;  // and row + 8
+  const uint32_t qw = qs + wg * TILE;
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, corr[2];
+  float sc[32];
+  uint32_t a[kTile / 4];
+
+  mbar_wait(qbar, 0);
+  for (int kt = 0; kt <= last; ++kt) {
+    const int s = kt % kStages;
+    const uint32_t ks = ring + 2 * s * TILE, vs = ks + TILE;
+    mbar_wait(full + 8 * s, (kt / kStages) & 1);
+    // The product overwrites sc; zeros tell the compiler that the last
+    // tile's scores (packed into a since) need not stay alive up to here.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wg_fence();
+    tile_times_tile_t<DP, kTile>(sc, qw, ks);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+    online_softmax(sc, m, l, corr, kt == diag, wr, t);
+    rescale<DP>(acc, corr);
+    pack_a<kTile>(a, sc);
+    fence_regs(acc);
+    wg_fence();
+    frags_times_tile_mn<DP, kTile>(acc, a, vs);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(a);
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * s);
+  }
+  // out = acc / l, as the TPU kernel divides (not a multiply by 1/l).
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    acc[4 * i] /= l[0];
+    acc[4 * i + 1] /= l[0];
+    acc[4 * i + 2] /= l[1];
+    acc[4 * i + 3] /= l[1];
+  }
+  store_tile<T, DP>(out + ((size_t)b * L * H + h) * D, acc, row, L, D,
+                    (size_t)H * D, t);
+  if (t == 0) {
+    float* lrow = lse + (size_t)bh * L;
+    if (row < L) lrow[row] = m[0] + logf(l[0]);
+    if (row + 8 < L) lrow[row + 8] = m[1] + logf(l[1]);
+  }
+}
+
 // dq for one 64-row q-tile of one (batch, head): the producer warp loads
 // the Q and dO tiles once, then the K and V tiles of k-tiles 0..the
 // diagonal into a ring of kStages; the consumer warpgroup computes
@@ -909,23 +880,6 @@ int prepare(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int DP>
-constexpr size_t tile_bytes() {
-  return (size_t)kTile * (DP + 8) * sizeof(bf16);
-}
-
-template <typename T, int DP>
-int fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B,
-        int L, int H, int D, cudaStream_t s) {
-  const size_t bytes = 2 * tile_bytes<DP>();
-  int rc = prepare(flash_fwd_kernel<T, DP>, bytes);
-  if (rc != 0) return rc;
-  const dim3 grid(B * H, (L + kTile - 1) / kTile);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, bytes, s>>>(q, k, v, out, lse,
-                                                        L, H, D);
-  return (int)cudaGetLastError();
-}
-
 // The tensor-map geometry the wrapper passes (ops/kernels/flash_attention.py
 // tma_geometry), twelve int64: the dims (D, H, L, B) of a [B, L, H, D]
 // bf16 tensor, the byte strides of dims 1-3, the box (columns, 1, rows, 1)
@@ -995,15 +949,30 @@ int encode(CUtensorMap* map, const bf16* ptr, const Geometry& g) {
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
-// The four input maps (q, k, v, dO) of one backward call.
-template <int DP>
-int encode_inputs(CUtensorMap (&m)[4], const bf16* q, const bf16* k,
-                  const bf16* v, const bf16* dout, const Geometry& g, int B,
-                  int L, int H, int D) {
+// The input maps of one call: q, k, v (and dO).
+template <int DP, int N>
+int encode_inputs(CUtensorMap (&m)[N], const bf16* const (&src)[N],
+                  const Geometry& g, int B, int L, int H, int D) {
   int rc = check_geometry<DP>(g, B, L, H, D);
-  const bf16* src[4] = {q, k, v, dout};
-  for (int i = 0; rc == 0 && i < 4; ++i) rc = encode(&m[i], src[i], g);
+  for (int i = 0; rc == 0 && i < N; ++i) rc = encode(&m[i], src[i], g);
   return rc;
+}
+
+template <typename T, int DP>
+int fwd(const bf16* q, const bf16* k, const bf16* v, T* out, float* lse,
+        int B, int L, int H, int D, const Geometry& g, cudaStream_t s) {
+  CUtensorMap m[3];
+  const bf16* const src[3] = {q, k, v};
+  int rc = encode_inputs<DP>(m, src, g, B, L, H, D);
+  if (rc != 0) return rc;
+  const size_t bytes =
+      1024 + (2 + 2 * kStages) * kTile * DP * 2 + 8 * (1 + 2 * kStages);
+  rc = prepare(flash_fwd_kernel<T, DP>, bytes);
+  if (rc != 0) return rc;
+  const dim3 grid(B * H, (L + kQTile - 1) / kQTile);
+  flash_fwd_kernel<T, DP><<<grid, kFwdThreads, bytes, s>>>(
+      m[0], m[1], m[2], out, lse, L, H, D);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int DP>
@@ -1011,7 +980,8 @@ int dq_(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
         const float* lse, const float* delta, T* dq, int B, int L, int H,
         int D, const Geometry& g, cudaStream_t s) {
   CUtensorMap m[4];
-  int rc = encode_inputs<DP>(m, q, k, v, dout, g, B, L, H, D);
+  const bf16* const src[4] = {q, k, v, dout};
+  int rc = encode_inputs<DP>(m, src, g, B, L, H, D);
   if (rc != 0) return rc;
   const size_t bytes =
       1024 + (2 + 2 * kStages) * kTile * DP * 2 + 8 * (1 + 2 * kStages);
@@ -1028,7 +998,8 @@ int dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
         const float* lse, const float* delta, T* dk, T* dv, int B, int L,
         int H, int D, const Geometry& g, cudaStream_t s) {
   CUtensorMap m[4];
-  int rc = encode_inputs<DP>(m, q, k, v, dout, g, B, L, H, D);
+  const bf16* const src[4] = {q, k, v, dout};
+  int rc = encode_inputs<DP>(m, src, g, B, L, H, D);
   if (rc != 0) return rc;
   constexpr int QT = q_tile<DP>();
   const size_t bytes = 1024 + 2 * kTile * DP * 2 +
@@ -1043,14 +1014,16 @@ int dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
 }
 
 template <typename T>
-int fwd_any(const T* q, const T* k, const T* v, T* out, float* lse, int B,
-            int L, int H, int D, void* stream) {
+int fwd_any(const bf16* q, const bf16* k, const bf16* v, T* out, float* lse,
+            int B, int L, int H, int D, const long long* geometry,
+            void* stream) {
   int rc = check_shape(B, L, H, D);
   if (rc != 0) return rc;
+  const Geometry& g = *reinterpret_cast<const Geometry*>(geometry);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return fwd<T, 32>(q, k, v, out, lse, B, L, H, D, s);
-  if (D <= 64) return fwd<T, 64>(q, k, v, out, lse, B, L, H, D, s);
-  return fwd<T, 128>(q, k, v, out, lse, B, L, H, D, s);
+  if (D <= 32) return fwd<T, 32>(q, k, v, out, lse, B, L, H, D, g, s);
+  if (D <= 64) return fwd<T, 64>(q, k, v, out, lse, B, L, H, D, g, s);
+  return fwd<T, 128>(q, k, v, out, lse, B, L, H, D, g, s);
 }
 
 template <typename T>
@@ -1085,17 +1058,21 @@ int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
 
 }  // namespace
 
-// The forward: q, k, v [B, L, H, D] -> out [B, L, H, D] (the inputs'
-// type) and lse [B*H, L] f32. Returns the cudaError_t of the launch.
-extern "C" int flash_fwd_f32(const float* q, const float* k, const float* v,
+// The forward: q, k, v [B, L, H, D] bf16 (an f32 caller's rounded once)
+// -> out [B, L, H, D], written in f32 (flash_fwd_f32) or bf16, and lse
+// [B*H, L] f32; geometry is the wrapper's tensor-map geometry (twelve
+// int64, see Geometry). Returns a cudaError_t, or 1000 + the CUresult of a
+// refused tensor map.
+extern "C" int flash_fwd_f32(const bf16* q, const bf16* k, const bf16* v,
                              float* out, float* lse, int B, int L, int H,
-                             int D, void* stream) {
-  return fwd_any<float>(q, k, v, out, lse, B, L, H, D, stream);
+                             int D, const long long* geometry, void* stream) {
+  return fwd_any<float>(q, k, v, out, lse, B, L, H, D, geometry, stream);
 }
 extern "C" int flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                               bf16* out, float* lse, int B, int L, int H,
-                              int D, void* stream) {
-  return fwd_any<bf16>(q, k, v, out, lse, B, L, H, D, stream);
+                              int D, const long long* geometry,
+                              void* stream) {
+  return fwd_any<bf16>(q, k, v, out, lse, B, L, H, D, geometry, stream);
 }
 
 // dq from q, k, v, dO [B, L, H, D] bf16 (an f32 caller's rounded once) and

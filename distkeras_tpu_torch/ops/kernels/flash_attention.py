@@ -6,19 +6,22 @@ wrappers and their plain PyTorch twins (the port's counterpart of
 q pre-scaled by ``1/sqrt(D)``) and returns ``[B, L, H, D]`` in q's dtype,
 float32 or bfloat16. The kernels read that strided layout directly (a row
 of a (batch, head) slice is D contiguous elements), so nothing is
-transposed on the way in or out (the f32 backward's one bf16 copy of its
+transposed on the way in or out (an f32 caller's one bf16 copy of its
 inputs aside); the logsumexp and delta rows are
 ``[B*H, L]`` float32, where the TPU kernel keeps ``[BH, nq, 1, block_q]``
 for its tiling.
 
 * Without a gradient it runs the forward alone: ``csrc/flash_attn.cu``'s
-  ``flash_fwd_*`` on CUDA tensors (the design note is in that file).
+  ``flash_fwd_*`` on CUDA tensors (the design note is in that file). The
+  kernels load by TMA, which cannot convert, so an f32 caller's q, k, v
+  are rounded to bf16 once first (nearest even: the rounding point of the
+  TPU kernels); out is written in the caller's dtype.
 * With one, it goes through :class:`FlashAttentionFn`, the counterpart of
-  the JAX package's ``custom_vjp``: the same forward, saving ``(q, k, v,
-  out, lse)``; the backward computes ``delta = sum(dO * O)`` in f32 in
-  torch (XLA's, not a kernel, in the JAX package), rounds f32 q, k, v and
-  dO to bf16 once (the rounding point of the kernels, which load by TMA
-  and cannot convert), then launches dQ, then dK/dV on those copies.
+  the JAX package's ``custom_vjp``: the same forward, saving the bf16 q,
+  k, v it read (an f32 caller's one copy), out and lse; the backward
+  computes ``delta = sum(dO * O)`` in f32 in torch (XLA's, not a kernel,
+  in the JAX package), rounds dO to bf16, then launches dQ, then dK/dV on
+  the saved copies, and returns the gradients in the caller's dtype.
 
 Numerics are the TPU kernels': q, k, v, dO and p are rounded to bf16
 before each product, products accumulate in f32, and ds is rounded to
@@ -54,7 +57,7 @@ NEG = -1e30
 #: one per wrapper call whatever the dtype.
 _P, _I = build.PTR, build.INT
 _LIB = build.KernelLib({
-    **{f"flash_fwd_{s}": ("flash_attn", [_P] * 5 + [_I] * 4)
+    **{f"flash_fwd_{s}": ("flash_attn", [_P] * 5 + [_I] * 4 + [_P])
        for s in build.SUFFIXES.values()},
     **{f"flash_dq_{s}": ("flash_attn", [_P] * 7 + [_I] * 4 + [_P])
        for s in build.SUFFIXES.values()},
@@ -91,7 +94,7 @@ def padded_head_dim(D: int) -> int:
 
 
 def tma_geometry(B: int, L: int, H: int, D: int) -> dict:
-    """The tensor-map geometry of the backward kernels' TMA loads over one
+    """The tensor-map geometry of the kernels' TMA loads over one
     ``[B, L, H, D]`` bf16 tensor, which the wrapper passes to the C entry
     points (``csrc/flash_attn.cu`` checks it against the kernel it
     launches and encodes the maps from it):
@@ -102,7 +105,8 @@ def tma_geometry(B: int, L: int, H: int, D: int) -> dict:
     * ``box``: ``(columns, 1, rows, 1)``: a box row is one swizzle span, so
       ``columns`` is ``min(DP, 64)`` bf16 (``DP`` the padded head dim) and a
       tile of ``DP = 128`` takes ``boxes = 2`` column boxes; ``rows`` is
-      the dK/dV kernel's q-tile, 64, or 32 at ``DP = 128``;
+      the dK/dV kernel's q-tile, 64, or 32 at ``DP = 128`` (the other
+      kernels' 64-row tiles take two such boxes);
     * ``swizzle``: the span in bytes, 128, or 64 at ``DP = 32``: the
       shared-memory layouts that ``wgmma``'s descriptors read.
 
@@ -121,14 +125,14 @@ def _geometry_arg(geometry: dict):
                                     *geometry["box"], geometry["swizzle"])
 
 
-def bwd_operands(q, k, v, do) -> tuple:
-    """q, k, v and dO as the backward kernels read them: bf16, an f32
-    caller's rounded once (nearest even, the TPU kernel's
-    ``.astype(bfloat16)``), so that dQ and dK/dV share the copies; bf16
-    tensors as they are."""
-    if q.dtype == torch.bfloat16:
-        return q, k, v, do
-    return tuple(t.to(torch.bfloat16) for t in (q, k, v, do))
+def bf16_operands(*tensors) -> tuple:
+    """q, k, v (and dO) as the kernels read them: bf16, an f32 caller's
+    rounded once (nearest even, the TPU kernel's ``.astype(bfloat16)``), so
+    that the forward, dQ and dK/dV can share the copies; bf16 tensors as
+    they are."""
+    if tensors[0].dtype == torch.bfloat16:
+        return tensors
+    return tuple(t.to(torch.bfloat16) for t in tensors)
 
 
 def _bf16_bhld(x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +153,7 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    block_k: int = BLOCK) -> tuple:
+                    block_k: int = BLOCK, tiles: list | None = None) -> tuple:
     """The forward in plain PyTorch: ``(out [B, L, H, D] in q's dtype,
     lse [B*H, L] f32)``, the TPU ``_fwd_kernel``'s arithmetic with k-tiles
     of ``block_k`` keys. Each row visits the k-tiles from the first to the
@@ -157,7 +161,14 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows that need a k-tile are updated together (a row's earlier tiles
     leave it unchanged by a fully masked one, so skipping those is exact).
     The CPU path of :func:`flash_attention` and the reference the kernel is
-    held against."""
+    held against.
+
+    With a list ``tiles``, each k-tile appends ``(j0, p, m)``: the f32 p
+    before its bf16 rounding, ``[B*H, L - j0, keys]`` for the rows from
+    the tile's first key ``j0`` on (0 where masked), and the running max
+    ``[B*H, L - j0]`` it was taken against (what
+    :func:`~distkeras_tpu_torch.ops.kernels.flash_flips.forward_flips`
+    reads)."""
     B, L, H, D = q.shape
     qb, kb, vb = (_bf16_bhld(x) for x in (q, k, v))
     BH = qb.shape[0]
@@ -178,6 +189,8 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc[:, j0:] = acc[:, j0:] * corr[..., None] + torch.matmul(
             _bf16(p), vb[:, j0:j1])
         m[:, j0:] = m_new
+        if tiles is not None:
+            tiles.append((j0, p, m_new))
     out = _to_blhd(acc / l[..., None], B, H, q.dtype)
     return out, m + torch.log(l)
 
@@ -264,21 +277,38 @@ def _check_cuda(tensors, rows, what: str) -> str:
     return build.SUFFIXES[dtype]
 
 
-def flash_fwd_cuda(q, k, v) -> tuple:
-    """``flash_fwd_*``: ``(out, lse)`` of the forward on the card."""
-    suffix = _check_cuda((q, k, v), (), "flash_fwd")
+def _out_dtype(dtype, q) -> torch.dtype:
+    """The outputs' dtype: ``dtype``, or q's where it is None; float32 or
+    bfloat16."""
+    dtype = q.dtype if dtype is None else dtype
+    if dtype not in build.SUFFIXES:
+        raise TypeError(f"the CUDA flash kernels write float32 or bfloat16; "
+                        f"asked for {dtype}")
+    return dtype
+
+
+def flash_fwd_cuda(q, k, v, dtype=None) -> tuple:
+    """``flash_fwd_*``: ``(out, lse)`` of the forward on the card, out in
+    ``dtype`` (default q's). f32 inputs are rounded to bf16 once here
+    (:func:`bf16_operands`); bf16 inputs are read as they are, so an f32
+    caller's copies with ``dtype=torch.float32`` give its result."""
+    _check_cuda((q, k, v), (), "flash_fwd")
+    dtype = _out_dtype(dtype, q)
     B, L, H, D = q.shape
-    out = torch.empty_like(q)
+    ops = bf16_operands(q, k, v)
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
     lse = torch.empty((B * H, L), dtype=torch.float32, device=q.device)
-    _LIB.launch(f"flash_fwd_{suffix}", q, k, v, out, lse, B, L, H, D)
+    geometry = _geometry_arg(tma_geometry(B, L, H, D))
+    _LIB.launch(f"flash_fwd_{build.SUFFIXES[dtype]}", *ops, out, lse,
+                B, L, H, D, ctypes.addressof(geometry))
     _LIB.count("flash_fwd")
     return out, lse
 
 
 def _launch_bwd(kernel: str, ops: tuple, lse, delta, dtype) -> tuple:
     """Launch ``flash_dq_*`` or ``flash_dkv_*`` on the bf16 operands
-    (:func:`bwd_operands`), writing ``dtype`` (the suffix's): returns dq, or
-    (dk, dv)."""
+    (:func:`bf16_operands`), writing ``dtype`` (the suffix's): returns dq,
+    or (dk, dv)."""
     q = ops[0]
     B, L, H, D = q.shape
     outs = tuple(torch.empty(q.shape, dtype=dtype, device=q.device)
@@ -294,7 +324,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta) -> torch.Tensor:
     """``flash_dq_*``: dq on the card (the output of
     :func:`flash_dq_plain`), in q's dtype."""
     _check_cuda((q, k, v, do), (lse, delta), "flash_dq")
-    return _launch_bwd("flash_dq", bwd_operands(q, k, v, do), lse, delta,
+    return _launch_bwd("flash_dq", bf16_operands(q, k, v, do), lse, delta,
                        q.dtype)[0]
 
 
@@ -302,18 +332,20 @@ def flash_dkv_cuda(q, k, v, do, lse, delta) -> tuple:
     """``flash_dkv_*``: dk and dv on the card (the outputs of
     :func:`flash_dkv_plain`), in q's dtype."""
     _check_cuda((q, k, v, do), (lse, delta), "flash_dkv")
-    return _launch_bwd("flash_dkv", bwd_operands(q, k, v, do), lse, delta,
+    return _launch_bwd("flash_dkv", bf16_operands(q, k, v, do), lse, delta,
                        q.dtype)
 
 
-def flash_bwd_cuda(q, k, v, do, lse, delta) -> tuple:
+def flash_bwd_cuda(q, k, v, do, lse, delta, dtype=None) -> tuple:
     """dq, dk and dv on the card as the backward runs them: the inputs
     checked and rounded to bf16 once (an f32 caller's), the copies shared
-    by ``flash_dq_*`` and then ``flash_dkv_*``; in q's dtype."""
+    by ``flash_dq_*`` and then ``flash_dkv_*``; in ``dtype`` (default
+    q's)."""
     _check_cuda((q, k, v, do), (lse, delta), "flash_bwd")
-    ops = bwd_operands(q, k, v, do)
-    dq, = _launch_bwd("flash_dq", ops, lse, delta, q.dtype)
-    return (dq, *_launch_bwd("flash_dkv", ops, lse, delta, q.dtype))
+    dtype = _out_dtype(dtype, q)
+    ops = bf16_operands(q, k, v, do)
+    dq, = _launch_bwd("flash_dq", ops, lse, delta, dtype)
+    return (dq, *_launch_bwd("flash_dkv", ops, lse, delta, dtype))
 
 
 def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -327,28 +359,36 @@ def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable causal attention on ``q, k, v [B, L, H, D]`` (the
     counterpart of the JAX package's ``custom_vjp``): the forward saves
-    ``(q, k, v, out, lse)``; the backward launches dQ, then dK/dV. CUDA
-    tensors go to the kernels, CPU tensors to the plain twins."""
+    the bf16 q, k, v the kernels read (an f32 caller's rounded once, see
+    :func:`bf16_operands`), out and lse, and the caller's dtype; the
+    backward rounds dO alone and launches dQ, then dK/dV, on the saved
+    copies, writing the caller's dtype. CUDA tensors go to the kernels, CPU
+    tensors to the plain twins (which round at the same points, so the
+    copies give them their f32 results bit for bit)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
+        ops = bf16_operands(q, k, v)
         if build.on_cpu((q, k, v)):
             out, lse = flash_fwd_plain(q, k, v)
         else:
-            out, lse = flash_fwd_cuda(q, k, v)
-        ctx.save_for_backward(q, k, v, out, lse)
+            out, lse = flash_fwd_cuda(*ops, dtype=q.dtype)
+        ctx.dtype = q.dtype
+        ctx.save_for_backward(*ops, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        do = do.to(q.dtype).contiguous()
+        do = do.to(ctx.dtype).contiguous()
         delta = attention_delta(do, out)
         if build.on_cpu((q, k, v, do)):
+            q, k, v = (t.to(ctx.dtype) for t in (q, k, v))
             dq = flash_dq_plain(q, k, v, do, lse, delta)
             dk, dv = flash_dkv_plain(q, k, v, do, lse, delta)
         else:
-            dq, dk, dv = flash_bwd_cuda(q, k, v, do, lse, delta)
+            dq, dk, dv = flash_bwd_cuda(q, k, v, do.to(q.dtype), lse, delta,
+                                        dtype=ctx.dtype)
         return dq, dk, dv
 
 

@@ -1,24 +1,31 @@
-"""The flash backward kernels' disagreement with their plain twins, told
-apart into bf16 rounding flips and anything else.
+"""The flash kernels' disagreement with their plain twins, told apart
+into bf16 rounding flips and anything else.
 
 The kernels (``csrc/flash_attn.cu``) and the twins
-(:func:`~distkeras_tpu_torch.ops.kernels.flash_attention.flash_dq_plain`,
-``flash_dkv_plain``) round ``p = exp(s - lse)`` and ``ds = p (dp - delta)``
-to bf16 at the same points, but compute s, p and dp in f32 in another
-order (and p by ``exp2f``). Where such an f32 value lies within that
-difference of a bf16 rounding midpoint, the two round it to neighbouring
-bf16 values: a flip. A flip of ``p[i, j]`` moves dv's row j by exactly one
-bf16 step of ``p[i, j]`` times dO's row i; a flip of ``ds[i, j]`` moves
-dq's row i by its step times K's row j, and dk's row j by its step times
-Q's row i. Over few rows, such whole-row moves can alone pass a mean
-limit, and a fault on a partial tile would be diluted by more rows just
-as much; :func:`backward_flips` is a measure that more rows cannot dilute.
+(:mod:`~distkeras_tpu_torch.ops.kernels.flash_attention`'s
+``flash_fwd_plain``, ``flash_dq_plain``, ``flash_dkv_plain``) round p and
+``ds = p (dp - delta)`` to bf16 at the same points, but compute s, p and
+dp in f32 in another order (and p by ``exp2f``). Where such an f32 value
+lies within that difference of a bf16 rounding midpoint, the two round it
+to neighbouring bf16 values: a flip. In the backward (``p = exp(s -
+lse)``) a flip of ``p[i, j]`` moves dv's row j by exactly one bf16 step of
+``p[i, j]`` times dO's row i; a flip of ``ds[i, j]`` moves dq's row i by
+its step times K's row j, and dk's row j by its step times Q's row i. In
+the forward, p of key j is taken in key j's k-tile against that tile's
+running max ``m_t`` of the row, so a flip of ``p[i, j]`` moves out's row i
+by its step times V's row j times ``exp(m_t - m) / l = exp(m_t - lse)``
+(the later tiles' rescales and the final division; l sums the f32 p, so
+no flip moves it). Over few rows, such whole-row moves can alone pass a
+mean limit, and a fault on a partial tile would be diluted by more rows
+just as much; :func:`forward_flips` and :func:`backward_flips` are a
+measure that more rows cannot dilute.
 
 An element is past f32 level when its error exceeds :data:`LEVEL` times
 the sum of its product's magnitudes, ``(|A| + W) |B|``. ``|A| |B|`` covers
 the f32 round-off of a sum of T terms in another order (about ``sqrt(T) *
-2**-24`` of it, 2**-19 at T = 1024). ``W`` is 0 for dv, whose coefficient
-``bf16(p)`` an f32 change of p can only flip; for dq and dk it is ``p
+2**-24`` of it, 2**-19 at T = 1024). ``W`` is 0 for out and dv, whose
+coefficient ``bf16(p)`` (times a factor of f32 level) an f32 change of p
+can only flip; for dq and dk it is ``p
 (|dp| + |delta|)``: where ``dp - delta`` cancels (always on the diagonal
 of query row 0, where ``delta = dp``), an f32 change of p or dp moves ds
 by more than its own size, by at most that share of W. Every row that
@@ -33,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from distkeras_tpu_torch.ops.kernels.flash_attention import (
-    _bf16, _bf16_bhld, _chunks, _probs)
+    _bf16, _bf16_bhld, _chunks, _probs, flash_fwd_plain)
 
 #: an error past this share of ``(|A| + W) |B|`` is past f32 level.
 LEVEL = 2.0 ** -14
@@ -77,10 +84,7 @@ def backward_flips(q, k, v, do, lse, delta, dq, dk, dv) -> dict:
     B, L, H, D = q.shape
     qb, kb, vb, dob = (_bf16_bhld(x) for x in (q, k, v, do))
     got = {"dq": _bhld(dq), "dk": _bhld(dk), "dv": _bhld(dv)}
-    tally = {n: {"elements_past_f32": 0, "rows_past_f32": 0,
-                 "unexplained_rows": 0, "flips": 0, "most_flips_in_a_row": 0,
-                 "largest_tie_distance": 0.0, "err": 0.0, "residual": 0.0,
-                 "ref": 0.0} for n in got}
+    tally = {n: _tally() for n in got}
     for c in _chunks(B * H, L):
         p = _probs(qb[c], kb[c], lse[c])
         dp = torch.matmul(dob[c], vb[c].transpose(1, 2))
@@ -99,13 +103,52 @@ def backward_flips(q, k, v, do, lse, delta, dq, dk, dv) -> dict:
             level = LEVEL * torch.matmul(scale, op.abs())
             _attribute(got[name][c] - ref, level, step, tie, op, tally[name])
             tally[name]["ref"] += ref.abs().sum().item()
-    out = {}
-    for name, t in tally.items():
-        ref = max(t.pop("ref"), 1e-30)
-        t["mean_err_share"] = t.pop("err") / ref
-        t["mean_err_share_without_flips"] = t.pop("residual") / ref
-        out[name] = t
-    return out
+    return {name: _shares(t) for name, t in tally.items()}
+
+
+def forward_flips(q, k, v, out) -> dict:
+    """Attribute the errors of the kernel's f32 ``out [B, L, H, D]``
+    against the twin's (``flash_fwd_plain`` at its 64-key k-tile, computed
+    here from the same ``q, k, v``) to bf16 flips of p, with the fields of
+    :func:`backward_flips` for one output. Out's row i is ``sum_j a[i, j]
+    V[j]`` with ``a[i, j] = bf16(p[i, j]) exp(m_t - lse_i)``; a flip of
+    ``p[i, j]`` changes ``a[i, j]`` by its step times that factor."""
+    B, L, H, D = q.shape
+    tiles = []
+    ref, lse = flash_fwd_plain(q, k, v, tiles=tiles)
+    BH = B * H
+    a, step, tie = (torch.zeros((BH, L, L), dtype=torch.float32,
+                                device=q.device) for _ in range(3))
+    for j0, p, m in tiles:
+        j1 = j0 + p.shape[-1]
+        w = torch.exp(m - lse[:, j0:])[..., None]
+        st, ti = flip_steps(p)
+        a[:, j0:, j0:j1] = _bf16(p) * w
+        step[:, j0:, j0:j1] = st * w
+        tie[:, j0:, j0:j1] = ti
+    del tiles
+    vb, ref = _bf16_bhld(v), _bhld(ref)
+    t = _tally()
+    level = LEVEL * torch.matmul(a.abs(), vb.abs())
+    _attribute(_bhld(out) - ref, level, step, tie, vb, t)
+    t["ref"] += ref.abs().sum().item()
+    return _shares(t)
+
+
+def _tally() -> dict:
+    return {"elements_past_f32": 0, "rows_past_f32": 0,
+            "unexplained_rows": 0, "flips": 0, "most_flips_in_a_row": 0,
+            "largest_tie_distance": 0.0, "err": 0.0, "residual": 0.0,
+            "ref": 0.0}
+
+
+def _shares(t: dict) -> dict:
+    """The tally with its error sums as shares of the twin's summed
+    magnitude."""
+    ref = max(t.pop("ref"), 1e-30)
+    t["mean_err_share"] = t.pop("err") / ref
+    t["mean_err_share_without_flips"] = t.pop("residual") / ref
+    return t
 
 
 def _attribute(err, level, step, tie, op, t) -> None:

@@ -15,7 +15,8 @@ from distkeras_tpu_torch.ops.kernels import flash_attention as FA
 from distkeras_tpu_torch.ops.kernels import fold as F
 from distkeras_tpu_torch.ops.kernels import groupnorm as G
 from distkeras_tpu_torch.ops.kernels import lstm as K
-from distkeras_tpu_torch.ops.kernels.flash_flips import backward_flips
+from distkeras_tpu_torch.ops.kernels.flash_flips import (
+    backward_flips, forward_flips)
 
 pytestmark = pytest.mark.cuda
 
@@ -492,8 +493,9 @@ def test_flash_kernels_match_plain_on_card(card, B, L, H, D, dtype):
     1e-5 of the mean magnitude (only the order of f32 sums differs) and the
     largest within 2e-3 (an order-flipped bf16 rounding of one p or ds
     moves it by one bf16 step); bf16 outputs add their own rounding: mean
-    within 1e-3, largest within 1e-2. lse within 1e-5; two calls of dQ and
-    of dK/dV give the same bits. The shapes added for the backward's edges
+    within 1e-3, largest within 1e-2. lse within 1e-5; two calls of the
+    forward, of dQ and of dK/dV give the same bits. The shapes added for
+    the kernels' edges
     hold at least 1024 rows (B*L*H): one such flip moves a whole output
     row, and over fewer rows that alone can pass the mean limit (at
     [1, 136, 2, 128] dv read 1.76e-5 while the largest error stayed at
@@ -507,8 +509,9 @@ def test_flash_kernels_match_plain_on_card(card, B, L, H, D, dtype):
     dk, dv = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
     again = FA.flash_dkv_cuda(q, k, v, do, lse, delta)
     dq_again = FA.flash_dq_cuda(q, k, v, do, lse, delta)
+    out_again, lse_again = FA.flash_fwd_cuda(q, k, v)
     torch.cuda.synchronize()
-    assert FA.launch_counts() == {"flash_fwd": 1, "flash_dq": 2,
+    assert FA.launch_counts() == {"flash_fwd": 2, "flash_dq": 2,
                                   "flash_dkv": 2}
     ref_out, ref_lse = FA.flash_fwd_plain(q, k, v)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5)
@@ -523,6 +526,7 @@ def test_flash_kernels_match_plain_on_card(card, B, L, H, D, dtype):
                                                      err_mean)
     assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
     assert torch.equal(dq_again, dq)
+    assert torch.equal(out_again, out) and torch.equal(lse_again, lse)
 
 
 @pytest.mark.parametrize("B,L,H,D", [(1, 136, 2, 128), (1, 72, 2, 64),
@@ -554,23 +558,51 @@ def test_flash_backward_errors_are_bf16_flips_on_card(card, B, L, H, D):
         assert _flash_err(got, refs[name])[0] <= 2e-3, (name, f)
 
 
+@pytest.mark.parametrize("B,L,H,D", [(1, 136, 2, 128), (1, 72, 2, 64),
+                                     (2, 40, 2, 32), (1, 200, 3, 64),
+                                     (1, 1, 1, 16)])
+def test_flash_forward_errors_are_bf16_flips_on_card(card, B, L, H, D):
+    """The f32 forward at the same few-row shapes: every row of out with an
+    element past f32 level against the twin is one to three one-step bf16
+    flips of that row's own p, each times the V row it scales and the
+    factor its k-tile's running max leaves on it
+    (``flash_flips.forward_flips``); without those flips the mean error is
+    within 1e-5 of the mean magnitude, and the largest error is within
+    2e-3 as in the test above."""
+    q, k, v, _ = _flash_inputs(B, L, H, D, torch.float32)
+    out, _ = FA.flash_fwd_cuda(q, k, v)
+    f = forward_flips(q, k, v, out)
+    assert f["unexplained_rows"] == 0, f
+    assert f["mean_err_share_without_flips"] <= 1e-5, f
+    assert _flash_err(out, FA.flash_fwd_plain(q, k, v)[0])[0] <= 2e-3, f
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_shares_one_bf16_copy_on_card(card, dtype):
-    """The autograd backward rounds f32 inputs to bf16 once and runs dQ and
-    dK/dV on the copies: each kernel launches once, through the entry
-    point of the inputs' dtype, and the gradients equal the wrappers'
-    own (which round per call) bit for bit."""
+    """The autograd forward rounds f32 inputs to bf16 once, launches the
+    forward on the copies and saves them; the backward rounds only dO and
+    runs dQ and dK/dV on the saved copies: each kernel launches once,
+    through the entry point of the inputs' dtype, and out and the
+    gradients equal the wrappers' own (which round per call) bit for
+    bit."""
     q, k, v, do = _flash_inputs(2, 136, 2, 64, dtype, seed=1)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    FA.reset_launches()
     out = FA.flash_attention(*leaves)
+    assert FA.launch_counts(by_entry=True)[f"flash_fwd_{sfx}"] == 1
+    saved = out.grad_fn.saved_tensors
+    for t, x in zip(saved[:3], (q, k, v)):
+        assert t.dtype == torch.bfloat16
+        assert torch.equal(t, x.to(torch.bfloat16))
     FA.reset_launches()
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    sfx = "f32" if dtype == torch.float32 else "bf16"
     counts = FA.launch_counts(by_entry=True)
     assert counts[f"flash_dq_{sfx}"] == counts[f"flash_dkv_{sfx}"] == 1
     assert sum(counts.values()) == 2
-    _, lse = FA.flash_fwd_cuda(q, k, v)
+    want_out, lse = FA.flash_fwd_cuda(q, k, v)
+    assert out.dtype == dtype and torch.equal(out.detach(), want_out)
     delta = FA.attention_delta(do, out.detach())
     want = (FA.flash_dq_cuda(q, k, v, do, lse, delta),
             *FA.flash_dkv_cuda(q, k, v, do, lse, delta))
