@@ -26,13 +26,20 @@ and every parity phase holds the card's bf16 run to the CPU's within
    1, 131 (ragged), 256 and 2048, also against autograd through the plain
    forward. Each row states its tolerance and carries the kernel's, the
    plain version's and one PyTorch library call's time (``torch.nn.LSTM``,
-   a yardstick the port never calls), by CUDA events, beside its bound.
+   a yardstick the port never calls), by CUDA events, beside its bound,
+   with ``ratio_to_library``, ``bound_share`` and ``us_per_step``. The
+   stash forward and the backward time the kernel and cuDNN in turns,
+   three readings each (the medians are ``ms`` and ``library_ms``); the
+   bf16 backward also times its two entry points apart (``recurrent_ms``,
+   ``wgrad_ms``). Before the rows, ``lstm_build`` gives the registers and
+   spills of the bf16 LSTM kernels (a spill fails the run).
 3. ``train`` — the port's training path as a user drives it:
    ``DynSGD(imdb_lstm(...)).train(imdb(...))`` at config #4's width and
    batch (4 workers, window 4, batch 2048, 3 rounds, f32; then 3 rounds
    at bf16). The launch counts are set to 0 just before and read just
    after: the stash forward and the backward must each have launched once
-   per local step. Then the split of one step's time, and a parity run:
+   per local step. Then the split of one step's time (the two LSTM
+   wrappers' calls timed inside it), and a parity run:
    the same trainer at full width and batch 32 on the card and on the CPU
    (the plain twins), from the same weights, whose centers must agree.
 4. ``serve`` — the port's serving path as a user drives it, on the weights
@@ -360,6 +367,27 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def interleaved_ms(torch, fns: dict, reps: int, readings: int = 3) -> dict:
+    """Each of ``fns`` timed ``readings`` times by :func:`cuda_ms`, in turns
+    (a, b, a, b, ...), so that a drift of the card's clock or of its
+    neighbours reaches all of them alike: ``{name: (median ms,
+    [readings])}``."""
+    got = {k: [] for k in fns}
+    for _ in range(readings):
+        for k, fn in fns.items():
+            got[k].append(cuda_ms(torch, fn, reps))
+    return {k: (float(np.median(v)), v) for k, v in got.items()}
+
+
+def lstm_speed(row: dict) -> dict:
+    """An LSTM row's ratio to the library call (below 1: faster than
+    cuDNN), its share of the bound (bound over kernel time) and its
+    microseconds a time step."""
+    return {"ratio_to_library": row["ms"] / row["library_ms"],
+            "bound_share": row["bound_ms"] / row["ms"],
+            "us_per_step": row["ms"] * 1e3 / row["T"]}
+
+
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple:
     """The larger of the bytes over the memory rate and the FLOPs over
     ``peak_flops``, in ms, and which of the two it is."""
@@ -493,6 +521,7 @@ def kernel_phase(torch, K, model, rng) -> dict:
                         torch, lambda: K.lstm_seq_plain(wx, wh, b, x), 5),
                     library_ms=cuda_ms(torch, lambda: lib(x), reps),
                     bound_ms=bound_ms, bound_by=bound_by)
+                row.update(lstm_speed(row))
                 emit(row)
                 rows[name][B] = row
     return rows
@@ -535,16 +564,24 @@ def stash_phase(torch, K, model, rng) -> dict:
                     row.update(check_bf16_lstm("lstm_fwd_stash", B,
                                                zip(got, ref)))
                 del got, ref
-                ms = cuda_ms(torch,
-                             lambda: K.lstm_fwd_stash_cuda(wx, wh, b, x), 10)
                 plain_ms = cuda_ms(
                     torch, lambda: K.lstm_fwd_stash_plain(wx, wh, b, x), 3)
             xg = x.clone().requires_grad_()
+
+            def kernel():
+                with torch.no_grad():
+                    return K.lstm_fwd_stash_cuda(wx, wh, b, x)
+
+            t = interleaved_ms(torch, {"kernel": kernel,
+                                       "library": lambda: lib(xg)}, 10)
             bound_ms, bound_by = stash_bound_ms(B, SEQ_LEN, EMBED, HIDDEN,
                                                 x.element_size())
-            row.update(ms=ms, plain_ms=plain_ms,
-                       library_ms=cuda_ms(torch, lambda: lib(xg), 10),
+            row.update(ms=t["kernel"][0], plain_ms=plain_ms,
+                       library_ms=t["library"][0],
+                       ms_readings=t["kernel"][1],
+                       library_readings=t["library"][1],
                        bound_ms=bound_ms, bound_by=bound_by)
+            row.update(lstm_speed(row))
             emit(row)
             rows[name][B] = row
     return rows
@@ -609,23 +646,35 @@ def bwd_phase(torch, K, model, rng) -> dict:
                 fail(f"lstm_bwd gave different bits on two calls at B={B} "
                      f"{name}")
             del plain, again, got
-            ms = cuda_ms(torch, lambda: K.lstm_bwd_cuda(wx, wh, x, hs, cs,
-                                                        gates, dhs), 10)
             plain_ms = cuda_ms(torch, lambda: K.lstm_bwd_plain(
                 wx, wh, x, hs, cs, gates, dhs), 3)
-
-            def library_bwd():
-                xg = x.clone().requires_grad_()
-                out = lib(xg)[0]
-                inputs = [xg, *lib.parameters()]
-                return cuda_ms(torch, lambda: torch.autograd.grad(
-                    out, inputs, dhs, retain_graph=True), 10)
-
+            # cuDNN's backward alone: autograd.grad on a retained graph.
+            xg = x.clone().requires_grad_()
+            out = lib(xg)[0]
+            inputs = [xg, *lib.parameters()]
+            fns = {"kernel": lambda: K.lstm_bwd_cuda(wx, wh, x, hs, cs,
+                                                     gates, dhs),
+                   "library": lambda: torch.autograd.grad(
+                       out, inputs, dhs, retain_graph=True)}
+            if name == "bfloat16":
+                # the two entry points apart, on the workspace of one call
+                dp, dbp = K.lstm_bwd_recurrent_cuda(wh, cs, gates, dhs)
+                fns["recurrent"] = lambda: K.lstm_bwd_recurrent_cuda(
+                    wh, cs, gates, dhs)
+                fns["wgrad"] = lambda: K.lstm_bwd_wgrad_cuda(wx, x, hs, dp,
+                                                             dbp)
+            t = interleaved_ms(torch, fns, 10)
+            del out, inputs, fns
             bound_ms, bound_by = bwd_bound_ms(B, SEQ_LEN, EMBED, HIDDEN,
                                               x.element_size())
-            row.update(ms=ms, plain_ms=plain_ms,
-                       library_ms=library_bwd(),
+            row.update(ms=t["kernel"][0], plain_ms=plain_ms,
+                       library_ms=t["library"][0],
+                       ms_readings=t["kernel"][1],
+                       library_readings=t["library"][1],
+                       recurrent_ms=t.get("recurrent", (None,))[0],
+                       wgrad_ms=t.get("wgrad", (None,))[0],
                        bound_ms=bound_ms, bound_by=bound_by)
+            row.update(lstm_speed(row))
             emit(row)
             rows[name][B] = row
     return rows
@@ -757,6 +806,8 @@ def train_phase(torch, K, gpu: str, seed: int, dtype: str = "float32",
                        torch.as_tensor(df["features"][:B], device="cuda"),
                        torch.as_tensor(df["label"][:B], device="cuda"),
                        sgd(TRAIN["learning_rate"]),
+                       timed=(K, {"lstm_fwd_stash_cuda": "lstm_fwd_stash_ms",
+                                  "lstm_bwd_cuda": "lstm_bwd_ms"}),
                        dtype=getattr(torch, dtype))
     snap = telemetry.get().snapshot()
     emit({"phase": "train", "gpu": gpu, "trainer": "DynSGD",
@@ -778,7 +829,8 @@ def train_phase(torch, K, gpu: str, seed: int, dtype: str = "float32",
                       if k.startswith("engine_run")},
           "step_split_ms": split,
           "step_split": "one local step at B=2048 by CUDA events, outside "
-                        "the trainer (mean of 3 after a warm step)"})
+                        "the trainer (mean of 3 after a warm step); the "
+                        "two LSTM wrappers' calls timed inside it"})
     if not np.all(np.isfinite(trainer.get_worker_histories())):
         fail(f"non-finite training loss: {hist}")
     if not moved > 0:
@@ -1834,18 +1886,14 @@ def flash_bwd_row(torch, FA, args, outs, kernel_rows, big) -> dict:
     return row
 
 
-def flash_registers(log: str) -> list:
-    """The flash kernels' registers, stack and spills from the build's
-    ``-Xptxas -v`` report, one entry per instantiation."""
+def ptxas_kernels(log: str, name) -> list:
+    """Registers, stack and spills of the kernels of a build's ``-Xptxas
+    -v`` report that ``name`` (an entry line -> a dict or None) picks, one
+    entry per instantiation."""
     out, cur = [], None
     for ln in log.splitlines():
-        m = re.search(
-            r"(flash_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E", ln)
         if "Compiling entry" in ln:
-            cur = None if m is None else {
-                "kernel": m.group(1),
-                "out": "bf16" if m.group(2) != "f" else "f32",
-                "DP": int(m.group(3))}
+            cur = name(ln)
             if cur:
                 out.append(cur)
         elif cur is not None and "spill" in ln:
@@ -1856,6 +1904,34 @@ def flash_registers(log: str) -> list:
             cur["registers"] = int(re.search(r"Used (\d+) registers",
                                              ln).group(1))
     return out
+
+
+def flash_registers(log: str) -> list:
+    """The 18 flash kernel instantiations' registers and spills."""
+    def name(ln):
+        m = re.search(
+            r"(flash_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E", ln)
+        return None if m is None else {
+            "kernel": m.group(1),
+            "out": "bf16" if m.group(2) != "f" else "f32",
+            "DP": int(m.group(3))}
+    return ptxas_kernels(log, name)
+
+
+#: the bf16 LSTM tensor-core kernels of csrc/lstm_fwd.cu (stash and plain)
+#: and csrc/lstm_bwd.cu.
+LSTM_TC_KERNELS = ("lstm_fwd_tc", "lstm_fwd_tc", "lstm_bwd_rec_tc",
+                   "lstm_bwd_wgrad_tc", "lstm_dx_tc", "lstm_wgrad_reduce_tc")
+
+
+def lstm_registers(log: str) -> list:
+    """The bf16 LSTM kernels' registers and spills."""
+    def name(ln):
+        m = re.search(r"\d(lstm_\w+_tc)(?:ILb([01])E)?E", ln)
+        return None if m is None else {
+            "kernel": m.group(1),
+            **({"stash": m.group(2) == "1"} if m.group(2) else {})}
+    return ptxas_kernels(log, name)
 
 
 def lm_frame(rows: int, vocab: int, seq: int, seed: int):
@@ -2138,6 +2214,19 @@ def main() -> None:
     if spilled:
         fail(f"flash kernels spill registers: {spilled}")
 
+    lstm_regs = [r for src in ("lstm_fwd", "lstm_bwd")
+                 if libs[src].with_suffix(".log").exists()
+                 for r in lstm_registers(
+                     libs[src].with_suffix(".log").read_text())]
+    emit({"phase": "lstm_build", "kernels": lstm_regs})
+    if sorted(r["kernel"] for r in lstm_regs) != sorted(LSTM_TC_KERNELS):
+        fail(f"expected the bf16 LSTM kernels {LSTM_TC_KERNELS} in the "
+             f"build report, found {lstm_regs}")
+    spilled = [r for r in lstm_regs
+               if r.get("spill_stores") or r.get("spill_loads")]
+    if spilled:
+        fail(f"bf16 LSTM kernels spill registers: {spilled}")
+
     rng = np.random.default_rng(args.seed)
     model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
                       seq_len=SEQ_LEN, seed=args.seed, device="cuda")
@@ -2205,7 +2294,12 @@ def main() -> None:
                 "bf16_bound_by": top16["bound_by"],
                 "bf16_library_ms": top16["library_ms"],
                 "bf16_max_abs_err": max(r["max_abs_err"]
-                                        for r in bf16.values())}
+                                        for r in bf16.values()),
+                **{f"{pre}{k}": row[k] for pre, row in (("", top),
+                                                        ("bf16_", top16))
+                   for k in ("ratio_to_library", "bound_share",
+                             "us_per_step", "recurrent_ms", "wgrad_ms")
+                   if k in row}}
 
     def gn_entry(name, key, bwd):
         """The largest slab's row (the stem's, 112x112x64), and the sum

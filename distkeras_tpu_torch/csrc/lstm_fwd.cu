@@ -10,101 +10,99 @@
 //   pre = b + x_t . Wx + h . Wh          [rows, 4H]
 //   c'  = sigmoid(f) * c + sigmoid(i) * tanh(g)
 //   h'  = sigmoid(o) * tanh(c'),  hs[:, t] = h'      (h0 = c0 = 0)
+// The two dtypes have two bodies.
 //
 // What bounds it on this card: the T-step serial dependency, not bytes or
 // FLOPs. Step t+1 needs all of h_t, so each step is one [rows, E+H] by
-// [E+H, 4H] product followed by a block-wide barrier. At the serving shapes
-// (E=64, H=128, T=200) the call is 2*T*B*(E+H)*4H FLOP (10.1 GFLOP at
-// B=256, 0.04 GFLOP at B=1) and ~39 MB of x + hs at B=256: a few percent of
-// a millisecond at the card's f32 rate and memory rate. What each step
-// costs is the latency of every thread's 192 weight loads: the f32 weights
-// (Wx + Wh = 384 KiB) do not fit in shared memory (227 KB per block), so
-// they are re-read from L2 every step.
+// [E+H, 4H] product, the gate epilogue and a barrier. At config #4's
+// widths (E=64, H=128, T=200) the call is 2*T*B*(E+H)*4H FLOP (80.5 GFLOP
+// at B=2048) and a few hundred MB at most: well under a millisecond at the
+// card's rates. A step costs the latency of its product, its epilogue
+// (three exponentials, three divisions and two tanh a cell, B*H cells a
+// step over the SMs in use) and its barrier.
 //
-// What the design does about it. Batch rows are independent and only time
-// is serial, so (unlike the TPU kernel, whose grid is the time axis and
-// whose carry lives in revisited output blocks) one thread block owns R
-// batch rows and loops over t inside the block:
-//   * h and the staged x_t of its rows live in shared memory ([k][r], so a
-//     thread reads a k's R values side by side), c lives in the registers
-//     of the thread that owns the hidden unit;
-//   * one thread per gate column j < 4H sums b[j] + x_t[r,:].Wx[:,j] +
-//     h[r,:].Wh[:,j] for its rows; the loops are unrolled 32 deep so 32
-//     independent L2 loads (coalesced across j, row-major weights) are in
-//     flight per thread, which is what the step latency is made of;
-//   * a barrier, then H threads combine i,f,g,o, update c, write h to shared
-//     memory and to hs, and stage x_{t+1}; a second barrier ends the step.
-// R is 1 up to 128 rows (one block per row, at most one block per SM on
-// the 132 SMs) and 2 above (half the blocks and half the L2 weight
-// traffic, at the price of R FMAs per weight load). Tuning R and the
-// unroll depth, keeping the weights resident on chip (bf16 in shared
-// memory, or split over a thread-block cluster) and tensor cores are later
-// work.
+// bf16 (lstm_fwd_bf16, lstm_fwd_stash_bf16: the tensor-core body). Batch
+// rows are independent and only time is serial, so one block of 16 warps
+// owns a 16-row batch tile (the mma.sync M) and loops over t itself; at
+// B = 2048 that is 128 blocks, one wave on the 132 SMs. What it does
+// about the per-step latency:
+//   * Resident weights. All of [Wx; Wh] in bf16 (192 KB at E=64, H=128)
+//     sits in the block's shared memory for all T steps, loaded once from
+//     a layout copy the wrapper makes (ops/kernels/lstm.py
+//     fwd_weight_layout): [4H][E+H], k contiguous (mma's B operand read by
+//     ldmatrix), rows padded by 16 bytes so the eight rows of an ldmatrix
+//     hit distinct banks.
+//   * Gate products on tensor cores: mma.sync m16n8k16, A = [x_t | h_{t-1}]
+//     (bf16 in shared memory), f32 accumulators in registers. Warp w owns
+//     hidden units 8w .. 8w+7: 16 warps read faster on the H100 than 8
+//     warps of 16 units (PERF.md), the epilogue's dependent exponentials
+//     wanting the extra warps.
+//   * Gate columns permuted in the layout copy: block column q*32 + gate*8
+//     + u holds gate `gate` of unit 8q+u. The four n-tiles of group q then
+//     put i, f, g and o of the same (row, unit) into the same lane's
+//     accumulators, so the epilogue runs in registers and the
+//     pre-activations never go through shared memory.
+//   * One barrier a step. h is written to a double-buffered tile and x_{t+1}
+//     is read into registers at the start of step t (its latency hidden by
+//     the step) and stored into the other x buffer before the barrier; hs
+//     (and cs, gates) leave as 4-byte stores from registers, off the chain.
+// What was hard: keeping a cell's four gates in one lane (the permutation
+// above) without a shared-memory round trip, and keeping every buffer a
+// barrier apart from its next writer with a single barrier a step (the
+// step writes h_t and x_{t+1} into the buffers that held h_{t-2} and
+// x_{t-1}, which the previous step's product read before its barrier).
+// The same design with a thread-block cluster over the hidden units (each
+// block a quarter of the weights and a 64-row tile, h all-gathered through
+// distributed shared memory) does the same work a step on each SM and adds
+// a cluster barrier; it was not built.
+// Rounding points (the TPU kernel's, ops/pallas/lstm.py:64-83): products of
+// bf16 values summed in f32, the bias added in f32, the h/c carry f32, h
+// rounded to bf16 where it enters the recurrent product (and stored so in
+// hs), cs and gates stored in bf16. Widths: E and H multiples of 16, E <=
+// 128, H <= 128, and the weights and tiles within 227 KB of shared memory
+// (fwd_smem_bytes); the wrapper raises on others.
 //
-// Stash mode (the STASH template flag): the thread that owns hidden unit k
-// already holds c and the four activated gates in registers, so it also
-// writes cs[b,t,k] and gates[b,t,{0,1,2,3}*H+k] (i,f,g,o). The layout stays
-// batch-major [B,T,.]; csrc/lstm_bwd.cu is the only reader. The extra
-// stores are 5H floats a row a step against hs's H, so the stash call moves
-// about 6x the output bytes of the plain call but does the same FLOPs.
+// f32 (lstm_fwd_f32, lstm_fwd_stash_f32: the scalar body, simple and right
+// first). The f32 weights (384 KiB) do not fit in shared memory and the
+// tensor cores would not keep f32's 1e-5 limit, so one thread per gate
+// column j < 4H sums b[j] + x_t[r,:].Wx[:,j] + h[r,:].Wh[:,j] for the
+// block's R rows from L2 (unrolled 32 deep, so 32 independent loads are in
+// flight), a barrier, then H threads combine i,f,g,o, update c (in their
+// registers), write h to shared memory and to hs, and stage x_{t+1}; a
+// second barrier ends the step. R is 1 up to 128 rows and 2 above. In
+// stash mode the thread that owns unit k also writes cs and the four
+// activated gates.
 //
-// bf16 (the storage type S, one template, as the TPU kernel runs one body
-// for both): x, Wx, Wh and b are bf16 and are converted to f32 as they are
-// loaded (a product of two bf16 values is exact in f32, and the sums are
-// f32). The h/c carry stays f32; h is rounded to bf16 (round to nearest
-// even) where it enters the recurrent product, as the TPU kernel casts h to
-// Wh's dtype (ops/pallas/lstm.py:67), so shared memory holds the rounded
-// h. hs, cs and gates are stored in bf16 (:80-83). The step's time is the
-// same chain of L2 loads at half the bytes.
-//
-// Ragged batches: the last block masks rows >= B (no padding copy).
-// Precise expf/tanhf; build without --use_fast_math.
+// Ragged batches: rows >= B are masked (no padding copy). Precise
+// expf/tanhf; build without --use_fast_math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 512;  // one thread per gate column: 4H <= 512
+constexpr int kMaxThreads = 512;  // f32: one thread per gate column
 
 __device__ __forceinline__ float sigmoid_f(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-// Storage <-> f32. f32 is stored as it is; bf16 is widened exactly on load
-// and rounded to nearest even on store. round_to<S> is the value a store
-// to S and a load back would give.
-__device__ __forceinline__ float load_f(float v) { return v; }
-__device__ __forceinline__ float load_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename S>
-__device__ __forceinline__ S store_f(float v);
-template <>
-__device__ __forceinline__ float store_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 store_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <typename S>
-__device__ __forceinline__ float round_to(float v) {
-  return load_f(store_f<S>(v));
-}
-
-template <typename S, int R, bool STASH>
+template <int R, bool STASH>
 __global__ void __launch_bounds__(kMaxThreads)
-lstm_fwd_kernel(const S* __restrict__ x,   // [B, T, E]
-                const S* __restrict__ wx,  // [E, 4H]
-                const S* __restrict__ wh,  // [H, 4H]
-                const S* __restrict__ b,   // [4H]
-                S* __restrict__ hs,        // [B, T, H]
-                S* __restrict__ cs,        // [B, T, H]   (STASH only)
-                S* __restrict__ gates,     // [B, T, 4H]  (STASH only)
+lstm_fwd_kernel(const float* __restrict__ x,   // [B, T, E]
+                const float* __restrict__ wx,  // [E, 4H]
+                const float* __restrict__ wh,  // [H, 4H]
+                const float* __restrict__ b,   // [4H]
+                float* __restrict__ hs,        // [B, T, H]
+                float* __restrict__ cs,        // [B, T, H]   (STASH only)
+                float* __restrict__ gates,     // [B, T, 4H]  (STASH only)
                 int B, int T, int E, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   float* xs = smem;          // [E][R]  x_t of this block's rows
-  float* hsm = xs + E * R;   // [H][R]  h_{t-1}, rounded to S
+  float* hsm = xs + E * R;   // [H][R]  h_{t-1}
   float* gsm = hsm + H * R;  // [R][G]  gate pre-activations
 
   const int tid = threadIdx.x;
@@ -115,13 +113,12 @@ lstm_fwd_kernel(const S* __restrict__ x,   // [B, T, E]
   for (int i = tid; i < R * E; i += blockDim.x) {
     const int r = i / E;
     const int e = i - r * E;
-    xs[e * R + r] =
-        r < rows ? load_f(x[(size_t)(row0 + r) * T * E + e]) : 0.0f;
+    xs[e * R + r] = r < rows ? x[(size_t)(row0 + r) * T * E + e] : 0.0f;
   }
   float c[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) c[r] = 0.0f;
-  const float bj = tid < G ? load_f(b[tid]) : 0.0f;
+  const float bj = tid < G ? b[tid] : 0.0f;
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
@@ -131,13 +128,13 @@ lstm_fwd_kernel(const S* __restrict__ x,   // [B, T, E]
       for (int r = 0; r < R; ++r) acc[r] = bj;
 #pragma unroll 32
       for (int e = 0; e < E; ++e) {
-        const float w = load_f(wx[(size_t)e * G + tid]);
+        const float w = wx[(size_t)e * G + tid];
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = fmaf(xs[e * R + r], w, acc[r]);
       }
 #pragma unroll 32
       for (int k = 0; k < H; ++k) {
-        const float w = load_f(wh[(size_t)k * G + tid]);
+        const float w = wh[(size_t)k * G + tid];
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = fmaf(hsm[k * R + r], w, acc[r]);
       }
@@ -158,15 +155,15 @@ lstm_fwd_kernel(const S* __restrict__ x,   // [B, T, E]
           c[r] = fg * c[r] + ig * gg;
           const float h = og * tanhf(c[r]);
           const size_t bt = (size_t)(row0 + r) * T + t;
-          hsm[tid * R + r] = round_to<S>(h);
-          hs[bt * H + tid] = store_f<S>(h);
+          hsm[tid * R + r] = h;
+          hs[bt * H + tid] = h;
           if (STASH) {
-            cs[bt * H + tid] = store_f<S>(c[r]);
-            S* gt = gates + bt * G;
-            gt[tid] = store_f<S>(ig);
-            gt[H + tid] = store_f<S>(fg);
-            gt[2 * H + tid] = store_f<S>(gg);
-            gt[3 * H + tid] = store_f<S>(og);
+            cs[bt * H + tid] = c[r];
+            float* gt = gates + bt * G;
+            gt[tid] = ig;
+            gt[H + tid] = fg;
+            gt[2 * H + tid] = gg;
+            gt[3 * H + tid] = og;
           }
         }
       }
@@ -176,44 +173,210 @@ lstm_fwd_kernel(const S* __restrict__ x,   // [B, T, E]
         const int r = i / E;
         const int e = i - r * E;
         xs[e * R + r] =
-            r < rows ? load_f(x[((size_t)(row0 + r) * T + t + 1) * E + e])
-                     : 0.0f;
+            r < rows ? x[((size_t)(row0 + r) * T + t + 1) * E + e] : 0.0f;
       }
     }
     __syncthreads();
   }
 }
 
-template <typename S, int R, bool STASH>
-int launch(const S* x, const S* wx, const S* wh, const S* b, S* hs, S* cs,
-           S* gates, int B, int T, int E, int H, cudaStream_t stream) {
+template <int R, bool STASH>
+int launch(const float* x, const float* wx, const float* wh, const float* b,
+           float* hs, float* cs, float* gates, int B, int T, int E, int H,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)R * (E + H + 4 * H);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lstm_fwd_kernel<S, R, STASH>,
+        lstm_fwd_kernel<R, STASH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int threads = (4 * H + 31) / 32 * 32;
   const int grid = (B + R - 1) / R;
-  lstm_fwd_kernel<S, R, STASH><<<grid, threads, smem, stream>>>(
+  lstm_fwd_kernel<R, STASH><<<grid, threads, smem, stream>>>(
       x, wx, wh, b, hs, cs, gates, B, T, E, H);
   return (int)cudaGetLastError();
 }
 
-template <typename S, bool STASH>
-int dispatch(const S* x, const S* wx, const S* wh, const S* b, S* hs, S* cs,
-             S* gates, int B, int T, int E, int H, void* stream) {
+template <bool STASH>
+int dispatch(const float* x, const float* wx, const float* wh,
+             const float* b, float* hs, float* cs, float* gates, int B,
+             int T, int E, int H, void* stream) {
   if (E <= 0 || H <= 0 || 4 * H > kMaxThreads) {
     return (int)cudaErrorInvalidValue;
   }
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 128) {
-    return launch<S, 1, STASH>(x, wx, wh, b, hs, cs, gates, B, T, E, H, s);
+    return launch<1, STASH>(x, wx, wh, b, hs, cs, gates, B, T, E, H, s);
   }
-  return launch<S, 2, STASH>(x, wx, wh, b, hs, cs, gates, B, T, E, H, s);
+  return launch<2, STASH>(x, wx, wh, b, hs, cs, gates, B, T, E, H, s);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores, weights resident in shared memory.
+
+using namespace mma_bf16;
+
+constexpr int kRows = 16;         // batch rows a block: the mma M
+constexpr int kWarps = 16;        // warp w owns hidden units 8w .. 8w+7
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPad = 8;           // bf16 of padding a shared-memory row
+constexpr int kMaxSmem = 232448;  // shared memory a block may use
+
+// Shared memory of the bf16 body: the weights [4H][E+H+8], two x tiles
+// [16][E+8] and two h tiles [16][H+8], bf16. Mirrored by
+// ops/kernels/lstm.py fwd_smem_bytes.
+size_t fwd_smem(int E, int H) {
+  return sizeof(bf16) * ((size_t)4 * H * (E + H + kPad) +
+                         2 * kRows * (E + kPad) + 2 * kRows * (H + kPad));
+}
+
+// The widths the bf16 body takes: E <= 128 (x_t of the tile is at most
+// 256 16-byte vectors, one a thread), 8 hidden units a warp (H <= 128),
+// k-tiles of 16 that do not straddle x and h.
+bool fwd_widths_ok(int E, int H) {
+  return E > 0 && H > 0 && E % 16 == 0 && H % 16 == 0 && E <= 128 &&
+         H <= 8 * kWarps && fwd_smem(E, H) <= (size_t)kMaxSmem;
+}
+
+template <bool STASH>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_tc(const bf16* __restrict__ x,   // [B, T, E]
+            const bf16* __restrict__ wt,  // [4H, E+H], gate columns permuted
+            const bf16* __restrict__ b,   // [4H]
+            bf16* __restrict__ hs,        // [B, T, H]
+            bf16* __restrict__ cs,        // [B, T, H]   (STASH only)
+            bf16* __restrict__ gates,     // [B, T, 4H]  (STASH only)
+            int B, int T, int E, int H) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int G = 4 * H, K = E + H;
+  const int KS = K + kPad, XS = E + kPad, HS = H + kPad;
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);  // [G][KS]
+  bf16* xs = ws + (size_t)G * KS;                // [2][kRows][XS]
+  bf16* hb = xs + 2 * kRows * XS;                // [2][kRows][HS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = blockIdx.x * kRows;
+  const bool active = warp < H / 8;  // owns unit group w
+
+  const int kv = K / 8;
+  for (int i = tid; i < G * kv; i += kThreads) {
+    const int n = i / kv, c = i - n * kv;
+    *reinterpret_cast<uint4*>(ws + (size_t)n * KS + c * 8) =
+        *reinterpret_cast<const uint4*>(wt + (size_t)n * K + c * 8);
+  }
+  for (int i = tid; i < 2 * kRows * HS; i += kThreads) {
+    hb[i] = __float2bfloat16_rn(0.0f);  // h_{-1} = 0
+  }
+  // x_t of the tile: thread tid moves one 16-byte vector (row xr, columns
+  // 8 xc ..); rows >= B stay zero.
+  const int xv = E / 8;
+  const int xr = tid / xv, xc = tid - xr * xv;
+  const bool xmine = tid < kRows * xv;
+  const bool xload = xmine && row0 + xr < B;
+  const bf16* xp = xload ? x + (size_t)(row0 + xr) * T * E + xc * 8 : x;
+  uint4 xreg = make_uint4(0, 0, 0, 0);
+  if (xload) xreg = *reinterpret_cast<const uint4*>(xp);
+  if (xmine) *reinterpret_cast<uint4*>(xs + xr * XS + xc * 8) = xreg;
+
+  // Lane (g, tq) of warp w holds the cells e = 2 rr + u of unit group w:
+  // row g + 8 rr, unit 8w + 2tq + u.
+  const int unit = 8 * warp + 2 * tq;
+  float bv[4][2], c[4];
+#pragma unroll
+  for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      bv[gate][u] = active ? __bfloat162float(b[gate * H + unit + u]) : 0.0f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = 0.0f;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const bool more = t + 1 < T;
+    if (more && xload) {
+      xreg = *reinterpret_cast<const uint4*>(xp + (size_t)(t + 1) * E);
+    }
+    if (active) {
+      float acc[4][4];  // [gate][e]
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+      const bf16* xa = xs + (t & 1) * kRows * XS;        // x_t
+      const bf16* ha = hb + ((t + 1) & 1) * kRows * HS;  // h_{t-1}
+      for (int k0 = 0; k0 < K; k0 += 16) {
+        uint32_t a[4];
+        ldsm_x4(a, k0 < E ? a_addr(xa, XS, 0, k0, lane)
+                          : a_addr(ha, HS, 0, k0 - E, lane));
+#pragma unroll
+        for (int gp = 0; gp < 2; ++gp) {  // gates (i, f), then (g, o)
+          uint32_t bf[4];
+          ldsm_x4(bf, b_addr(ws, KS, warp * 32 + gp * 16, k0, lane));
+          mma(acc[2 * gp], a, bf[0], bf[1]);
+          mma(acc[2 * gp + 1], a, bf[2], bf[3]);
+        }
+      }
+      float act[4][4], h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = e & 1;
+        act[0][e] = sigmoid_f(acc[0][e] + bv[0][u]);
+        act[1][e] = sigmoid_f(acc[1][e] + bv[1][u]);
+        act[2][e] = tanhf(acc[2][e] + bv[2][u]);
+        act[3][e] = sigmoid_f(acc[3][e] + bv[3][u]);
+        c[e] = act[1][e] * c[e] + act[0][e] * act[2][e];
+        h[e] = act[3][e] * tanhf(c[e]);
+      }
+      bf16* hn = hb + (t & 1) * kRows * HS;  // h_t
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = g + 8 * rr;
+        const uint32_t hp = pack(h[2 * rr], h[2 * rr + 1]);
+        *reinterpret_cast<uint32_t*>(hn + r * HS + unit) = hp;
+        if (row0 + r < B) {
+          const size_t bt = (size_t)(row0 + r) * T + t;
+          *reinterpret_cast<uint32_t*>(hs + bt * H + unit) = hp;
+          if (STASH) {
+            *reinterpret_cast<uint32_t*>(cs + bt * H + unit) =
+                pack(c[2 * rr], c[2 * rr + 1]);
+#pragma unroll
+            for (int gate = 0; gate < 4; ++gate) {
+              *reinterpret_cast<uint32_t*>(gates + bt * G + gate * H +
+                                           unit) =
+                  pack(act[gate][2 * rr], act[gate][2 * rr + 1]);
+            }
+          }
+        }
+      }
+    }
+    if (more && xmine) {
+      *reinterpret_cast<uint4*>(xs + ((t + 1) & 1) * kRows * XS + xr * XS +
+                                xc * 8) = xreg;
+    }
+    __syncthreads();
+  }
+}
+
+template <bool STASH>
+int dispatch_tc(const bf16* x, const bf16* wt, const bf16* b, bf16* hs,
+                bf16* cs, bf16* gates, int B, int T, int E, int H,
+                void* stream) {
+  if (!fwd_widths_ok(E, H)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return (int)cudaSuccess;
+  const size_t smem = fwd_smem(E, H);
+  const cudaError_t err = cudaFuncSetAttribute(
+      lstm_fwd_tc<STASH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (B + kRows - 1) / kRows;
+  lstm_fwd_tc<STASH><<<grid, kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      x, wt, b, hs, cs, gates, B, T, E, H);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -223,8 +386,8 @@ int dispatch(const S* x, const S* wx, const S* wh, const S* b, S* hs, S* cs,
 extern "C" int lstm_fwd_f32(const float* x, const float* wx, const float* wh,
                             const float* b, float* hs, int B, int T, int E,
                             int H, void* stream) {
-  return dispatch<float, false>(x, wx, wh, b, hs, nullptr, nullptr, B, T, E,
-                                H, stream);
+  return dispatch<false>(x, wx, wh, b, hs, nullptr, nullptr, B, T, E, H,
+                         stream);
 }
 
 // The same, also writing the BPTT residuals: cs[B, T, H] (cell states) and
@@ -233,25 +396,25 @@ extern "C" int lstm_fwd_stash_f32(const float* x, const float* wx,
                                   const float* wh, const float* b, float* hs,
                                   float* cs, float* gates, int B, int T,
                                   int E, int H, void* stream) {
-  return dispatch<float, true>(x, wx, wh, b, hs, cs, gates, B, T, E, H,
-                               stream);
+  return dispatch<true>(x, wx, wh, b, hs, cs, gates, B, T, E, H, stream);
 }
 
-// The bf16 instantiations: every tensor bf16 (f32 sums and carry inside).
-extern "C" int lstm_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wx,
-                             const __nv_bfloat16* wh, const __nv_bfloat16* b,
-                             __nv_bfloat16* hs, int B, int T, int E, int H,
-                             void* stream) {
-  return dispatch<__nv_bfloat16, false>(x, wx, wh, b, hs, nullptr, nullptr,
-                                        B, T, E, H, stream);
+// The bf16 forward: every tensor bf16 (f32 sums and carry inside). wt is
+// [Wx; Wh] in the layout of ops/kernels/lstm.py fwd_weight_layout: [4H,
+// E+H], row q*32 + gate*8 + u holding gate `gate` of unit 8q + u.
+extern "C" int lstm_fwd_bf16(const __nv_bfloat16* x,
+                             const __nv_bfloat16* wt,
+                             const __nv_bfloat16* b, __nv_bfloat16* hs,
+                             int B, int T, int E, int H, void* stream) {
+  return dispatch_tc<false>(x, wt, b, hs, nullptr, nullptr, B, T, E, H,
+                            stream);
 }
 
 extern "C" int lstm_fwd_stash_bf16(const __nv_bfloat16* x,
-                                   const __nv_bfloat16* wx,
-                                   const __nv_bfloat16* wh,
-                                   const __nv_bfloat16* b, __nv_bfloat16* hs,
-                                   __nv_bfloat16* cs, __nv_bfloat16* gates,
-                                   int B, int T, int E, int H, void* stream) {
-  return dispatch<__nv_bfloat16, true>(x, wx, wh, b, hs, cs, gates, B, T, E,
-                                       H, stream);
+                                   const __nv_bfloat16* wt,
+                                   const __nv_bfloat16* b,
+                                   __nv_bfloat16* hs, __nv_bfloat16* cs,
+                                   __nv_bfloat16* gates, int B, int T,
+                                   int E, int H, void* stream) {
+  return dispatch_tc<true>(x, wt, b, hs, cs, gates, B, T, E, H, stream);
 }

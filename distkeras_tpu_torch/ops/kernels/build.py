@@ -3,8 +3,9 @@
 Each ``distkeras_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and
 is compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` beside the
 package (a directory git ignores), then loaded with ``ctypes``. The library
-file name carries a digest of its source, so an edited source is rebuilt
-and a stale library is never loaded. :func:`build` starts one ``nvcc`` per
+file name carries a digest of its source and of the headers beside it
+(``csrc/*.cuh``), so an edited source or header is rebuilt and a stale
+library is never loaded. :func:`build` starts one ``nvcc`` per
 source, all at once, and waits for all of them. :class:`KernelLib` binds a
 kernel module's C entry points, launches them on PyTorch's current stream
 and counts the launches.
@@ -51,9 +52,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """``build/kernels/lib<name>-<digest of the source>.so``."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    """``build/kernels/lib<name>-<digest>.so``, the digest of the source
+    and of every header in ``csrc/``."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -12,7 +12,8 @@ Wh [H, 4H], b [4H])`` and returns ``hs [B, T, H]`` with h0 = c0 = 0.
 * With one, it goes through :class:`LSTMSeq`, the counterpart of the JAX
   package's ``custom_vjp``: the stash forward (``lstm_fwd_stash_*``, which
   also writes the residuals ``cs`` and ``gates``) and the BPTT backward
-  (``csrc/lstm_bwd.cu``, ``lstm_bwd_*``).
+  (``csrc/lstm_bwd.cu``: ``lstm_bwd_f32``, or ``lstm_bwd_recurrent_bf16``
+  then ``lstm_bwd_wgrad_bf16``).
 
 float32 and bfloat16 take the same path; all four tensors of a call share
 one dtype. In bf16 (the mixed-precision step) the TPU kernels' rounding
@@ -21,6 +22,18 @@ values summed in f32, the h/c carry f32 with h rounded to bf16 before the
 recurrent product, hs/cs/gates and dx stored in bf16; the backward rounds
 dpre to bf16 for dx, the dh carry, dWx and dWh but sums db from the f32
 dpre, and returns dWx, dWh, db as f32 sums rounded to bf16.
+
+The two dtypes have two kernel bodies. f32 takes any E and 4H <= 512. The
+bf16 body (tensor cores, weights resident in shared memory) takes E and H
+multiples of 16 with E <= 128, H <= 128 and the weights within a block's
+shared memory (:func:`check_bf16_widths`; config #4's E=64, H=128 runs);
+on other widths a bf16 call raises a ``ValueError`` naming the
+constraint. Its layouts are plain functions here, held against the twins
+on the CPU: the forward's permuted weight copy
+(:func:`fwd_weight_layout`), and the backward's split into a serial half
+(:func:`lstm_bwd_recurrent_plain`: a bf16 dpre workspace and f32 db
+partials a 16-row tile) and a parallel half (:func:`lstm_bwd_wgrad_plain`,
+with h_{t-1} from :func:`wgrad_rows_plain`).
 
 Each kernel has a plain twin here (:func:`lstm_seq_plain`,
 :func:`lstm_fwd_stash_plain`, :func:`lstm_bwd_plain`). A wrapper takes its
@@ -47,15 +60,17 @@ GATES = ("i", "f", "g", "o")
 #: the C entry points -> (source, argtypes), and the launches so far in
 #: this process, one per wrapper call that launched, by kernel:
 #: ``lstm_fwd`` (``lstm_fwd_f32``, ``lstm_fwd_bf16``), ``lstm_fwd_stash``
-#: (``lstm_fwd_stash_*``) and ``lstm_bwd`` (``lstm_bwd_*``).
+#: (``lstm_fwd_stash_*``) and ``lstm_bwd`` (``lstm_bwd_f32``, or
+#: ``lstm_bwd_recurrent_bf16`` then ``lstm_bwd_wgrad_bf16``).
 _P, _I = build.PTR, build.INT
 _LIB = build.KernelLib({
-    **{f"lstm_fwd_{s}": ("lstm_fwd", [_P] * 5 + [_I] * 4)
-       for s in build.SUFFIXES.values()},
-    **{f"lstm_fwd_stash_{s}": ("lstm_fwd", [_P] * 7 + [_I] * 4)
-       for s in build.SUFFIXES.values()},
-    **{f"lstm_bwd_{s}": ("lstm_bwd", [_P] * 13 + [_I] * 5)
-       for s in build.SUFFIXES.values()},
+    "lstm_fwd_f32": ("lstm_fwd", [_P] * 5 + [_I] * 4),
+    "lstm_fwd_stash_f32": ("lstm_fwd", [_P] * 7 + [_I] * 4),
+    "lstm_fwd_bf16": ("lstm_fwd", [_P] * 4 + [_I] * 4),
+    "lstm_fwd_stash_bf16": ("lstm_fwd", [_P] * 6 + [_I] * 4),
+    "lstm_bwd_f32": ("lstm_bwd", [_P] * 13 + [_I] * 5),
+    "lstm_bwd_recurrent_bf16": ("lstm_bwd", [_P] * 6 + [_I] * 3),
+    "lstm_bwd_wgrad_bf16": ("lstm_bwd", [_P] * 10 + [_I] * 5),
 }, ("lstm_fwd", "lstm_fwd_stash", "lstm_bwd"))
 
 
@@ -172,16 +187,175 @@ def _check(wx, wh, b, x) -> None:
 
 def _check_cuda(tensors, what: str) -> str:
     """The kernels take contiguous tensors of one dtype, float32 or
-    bfloat16, on one CUDA device, and 4H <= 512 (``tensors[1]`` is Wh
-    [H, 4H]); anything else raises (nothing falls back to the plain path).
-    Returns the entry points' dtype suffix."""
+    bfloat16, on one CUDA device (``tensors[0]`` is x [B, T, E],
+    ``tensors[1]`` Wh [H, 4H]); f32 takes 4H <= 512, bf16 the widths of
+    :func:`check_bf16_widths`. Anything else raises (nothing falls back to
+    the plain path or to the other body). Returns the entry points' dtype
+    suffix."""
     suffix = build.check_cuda(tensors, what, "LSTM")
-    H = tensors[1].shape[0]
-    if 4 * H > 512:
+    E, H = tensors[0].shape[2], tensors[1].shape[0]
+    if suffix == "bf16":
+        check_bf16_widths(E, H, what)
+    elif 4 * H > 512:
         raise ValueError(
-            f"the CUDA LSTM kernels take 4H <= 512 (one thread per gate "
+            f"the f32 CUDA LSTM kernels take 4H <= 512 (one thread per gate "
             f"column), got H={H}")
     return suffix
+
+
+# -- the bf16 tensor-core kernels' layouts ---------------------------------
+
+#: batch rows of a bf16 block (the mma.sync M), and the shared memory a
+#: block may use on the card.
+BF16_ROWS = 16
+_MAX_SMEM = 232448
+_PAD = 8  # bf16 of padding a shared-memory row
+
+
+def fwd_smem_bytes(E: int, H: int) -> int:
+    """Shared memory of the bf16 forward: the weights [4H][E+H+8], two x
+    tiles [16][E+8] and two h tiles [16][H+8] (``csrc/lstm_fwd.cu
+    fwd_smem``)."""
+    return 2 * (4 * H * (E + H + _PAD) + 2 * BF16_ROWS * (E + _PAD)
+                + 2 * BF16_ROWS * (H + _PAD))
+
+
+def rec_smem_bytes(H: int) -> int:
+    """Shared memory of the bf16 recurrent backward: Wh [H][4H+8] and two
+    dpre tiles [16][4H+8] (``csrc/lstm_bwd.cu rec_smem``)."""
+    return 2 * (H * (4 * H + _PAD) + 2 * BF16_ROWS * (4 * H + _PAD))
+
+
+def check_bf16_widths(E: int, H: int, what: str = "lstm") -> None:
+    """The widths the bf16 kernels take, or a ``ValueError`` naming the
+    constraint: E and H multiples of 16 (mma k-tiles), E <= 128 (x_t is one
+    16-byte vector a thread), H <= 128 (a warp owns at most 16 hidden
+    units), and the resident weights and tiles within a block's shared
+    memory. Config #4 (E=64, H=128) takes 218 KB."""
+    if E % 16 or H % 16:
+        raise ValueError(
+            f"{what}: the bf16 CUDA LSTM kernels take E and H multiples of "
+            f"16, got E={E}, H={H}")
+    if E > 128 or H > 128:
+        raise ValueError(
+            f"{what}: the bf16 CUDA LSTM kernels take E <= 128 and H <= 128, "
+            f"got E={E}, H={H}")
+    need = max(fwd_smem_bytes(E, H), rec_smem_bytes(H))
+    if need > _MAX_SMEM:
+        raise ValueError(
+            f"{what}: the bf16 CUDA LSTM kernels keep the weights in shared "
+            f"memory: E={E}, H={H} needs {need} bytes, more than a block's "
+            f"{_MAX_SMEM}")
+
+
+def gate_permutation(hidden: int) -> torch.Tensor:
+    """Column n of the bf16 forward's weight layout holds packed gate
+    column ``perm[n]``: n = 32 q + 8 gate + u is gate ``gate`` (i, f, g,
+    o) of hidden unit 8 q + u, so the four n-tiles of unit group q put a
+    cell's four gates into one lane's accumulators."""
+    n = torch.arange(4 * hidden)
+    q, gate, u = n // 32, (n % 32) // 8, n % 8
+    return gate * hidden + 8 * q + u
+
+
+def fwd_weight_layout(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """``[Wx; Wh]`` as the bf16 forward reads it: ``[4H, E+H]``, row n
+    holding packed gate column ``gate_permutation(H)[n]`` (k contiguous:
+    mma's B operand). A layout copy made once a call."""
+    perm = gate_permutation(wh.shape[0]).to(wx.device)
+    return torch.cat([wx, wh], dim=0)[:, perm].t().contiguous()
+
+
+def lstm_fwd_layout_plain(wt: torch.Tensor, b: torch.Tensor,
+                          x: torch.Tensor, stash: bool = False):
+    """The forward of :func:`_fwd_plain` read from
+    :func:`fwd_weight_layout`'s ``wt``: the gate pre-activations computed
+    in the permuted column order, as the kernel does, and read back
+    through the permutation."""
+    B, T, E = x.shape
+    H = wt.shape[0] // 4
+    perm = gate_permutation(H).to(x.device)
+    inv = torch.argsort(perm)
+    wxp = widen(wt[:, :E].t().contiguous())
+    whp = widen(wt[:, E:].t().contiguous())
+    bp = widen(b)[perm]
+    dt = x.dtype
+    h = widen(x.new_zeros(B, H))
+    c = torch.zeros_like(h)
+    hs, cs, gates = [], [], []
+    for t in range(T):
+        pre = ((widen(x[:, t]) @ wxp + widen(h.to(wt.dtype)) @ whp)
+               + bp)[:, inv]
+        i = torch.sigmoid(pre[:, 0 * H:1 * H])
+        f = torch.sigmoid(pre[:, 1 * H:2 * H])
+        g = torch.tanh(pre[:, 2 * H:3 * H])
+        o = torch.sigmoid(pre[:, 3 * H:4 * H])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs.append(h.to(dt))
+        if stash:
+            cs.append(c.to(dt))
+            gates.append(torch.cat([i, f, g, o], dim=1).to(dt))
+    if not stash:
+        return torch.stack(hs, dim=1)
+    return (torch.stack(hs, dim=1), torch.stack(cs, dim=1),
+            torch.stack(gates, dim=1))
+
+
+def wgrad_rows_plain(hs: torch.Tensor) -> torch.Tensor:
+    """h_{t-1} of each row n = b T + t of the weight-gradient reduction, as
+    the bf16 kernel indexes it: ``hs`` flattened to [B*T, H] and read one
+    row back, zero where n % T == 0 (t = 0), so a row never reads the
+    previous sequence's last step."""
+    B, T, H = hs.shape
+    flat = hs.reshape(B * T, H)
+    prev = torch.cat([flat.new_zeros(1, H), flat[:-1]], dim=0)
+    first = (torch.arange(B * T, device=hs.device) % T == 0)[:, None]
+    return torch.where(first, torch.zeros_like(prev), prev)
+
+
+def lstm_bwd_recurrent_plain(wh, cs, gates, dhs) -> tuple:
+    """The serial half of the bf16 backward's split, in plain PyTorch:
+    the workspace ``dpre_c [B, T, 4H]`` (dpre rounded to Wh's dtype) and
+    the f32 db partials ``[ceil(B / 16), 4H]`` of the kernel's 16-row
+    tiles, summed from the unrounded dpre."""
+    B, T, H = cs.shape
+    whw = widen(wh)
+    dh = widen(cs.new_zeros(B, H))
+    dc = torch.zeros_like(dh)
+    dpres, dpres_c = [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        i, f, g, o = widen(gates[:, t]).split(H, dim=1)
+        c_t = widen(cs[:, t])
+        c_prev = widen(cs[:, t - 1]) if t > 0 else torch.zeros_like(c_t)
+        dh = dh + widen(dhs[:, t])
+        tanh_c = torch.tanh(c_t)
+        do = dh * tanh_c
+        dc = dh * o * (1.0 - tanh_c * tanh_c) + dc
+        dpre = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                          dc * i * (1.0 - g * g), do * o * (1.0 - o)], dim=1)
+        dc = dc * f
+        dpre_c = dpre.to(wh.dtype)
+        dh = widen(dpre_c) @ whw.t()
+        dpres[t], dpres_c[t] = dpre, dpre_c
+    dpre = torch.stack(dpres, dim=1)
+    tiles = -(-B // BF16_ROWS)
+    pad = dpre.new_zeros(tiles * BF16_ROWS - B, T, 4 * H)
+    dbp = torch.cat([dpre, pad]).reshape(tiles, BF16_ROWS * T, 4 * H)
+    return torch.stack(dpres_c, dim=1), dbp.sum(dim=1)
+
+
+def lstm_bwd_wgrad_plain(wx, x, hs, dpre_c, dbp) -> tuple:
+    """The parallel half, in plain PyTorch: ``dwx, dwh, db, dx`` from the
+    workspace, with h_{t-1} from :func:`wgrad_rows_plain` and db the sum of
+    the tiles' partials."""
+    B, T, E = x.shape
+    H = hs.shape[2]
+    dp = widen(dpre_c.reshape(B * T, 4 * H))
+    dwx = widen(x.reshape(B * T, E)).t() @ dp
+    dwh = widen(wgrad_rows_plain(hs)).t() @ dp
+    dx = (dp @ widen(wx).t()).to(x.dtype).reshape(B, T, E)
+    return dwx.to(wx.dtype), dwh.to(wx.dtype), dbp.sum(dim=0).to(wx.dtype), dx
 
 
 def lstm_fwd_cuda(wx, wh, b, x) -> torch.Tensor:
@@ -191,7 +365,11 @@ def lstm_fwd_cuda(wx, wh, b, x) -> torch.Tensor:
     B, T, E = x.shape
     H = wh.shape[0]
     hs = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
-    _LIB.launch(f"lstm_fwd_{suffix}", x, wx, wh, b, hs, B, T, E, H)
+    if suffix == "bf16":
+        _LIB.launch("lstm_fwd_bf16", x, fwd_weight_layout(wx, wh), b, hs, B,
+                    T, E, H)
+    else:
+        _LIB.launch("lstm_fwd_f32", x, wx, wh, b, hs, B, T, E, H)
     _LIB.count("lstm_fwd")
     return hs
 
@@ -206,15 +384,19 @@ def lstm_fwd_stash_cuda(wx, wh, b, x) -> tuple:
     hs = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
     cs = torch.empty_like(hs)
     gates = torch.empty((B, T, 4 * H), dtype=x.dtype, device=x.device)
-    _LIB.launch(f"lstm_fwd_stash_{suffix}", x, wx, wh, b, hs, cs, gates, B,
-                T, E, H)
+    if suffix == "bf16":
+        _LIB.launch("lstm_fwd_stash_bf16", x, fwd_weight_layout(wx, wh), b,
+                    hs, cs, gates, B, T, E, H)
+    else:
+        _LIB.launch("lstm_fwd_stash_f32", x, wx, wh, b, hs, cs, gates, B, T,
+                    E, H)
     _LIB.count("lstm_fwd_stash")
     return hs, cs, gates
 
 
-#: reduction chunks of the weight-gradient kernel: enough 64x64 output
-#: tiles times chunks to fill the card's 132 SMs several times over, each
-#: chunk at least 256 rows of the B*T reduction.
+#: reduction chunks of the weight-gradient kernels: enough output tiles
+#: times chunks to fill the card's 132 SMs several times over, each chunk
+#: at least 256 rows of the B*T reduction.
 _MAX_SPLITS = 64
 
 
@@ -223,11 +405,57 @@ def bwd_splits(rows: int) -> int:
     return max(1, min(_MAX_SPLITS, rows // 256))
 
 
+def _check_bf16_half(tensors, what: str) -> None:
+    """A half of the bf16 backward takes bf16 tensors on one CUDA device;
+    its widths are :func:`lstm_bwd_cuda`'s to check (the kernel refuses
+    others with an error)."""
+    if build.check_cuda(tensors, what, "LSTM") != "bf16":
+        raise TypeError(f"{what} is a half of the bf16 backward; got "
+                        f"{tensors[0].dtype}")
+
+
+def lstm_bwd_recurrent_cuda(wh, cs, gates, dhs) -> tuple:
+    """``lstm_bwd_recurrent_bf16``, the serial half of the bf16 backward
+    (:func:`lstm_bwd_recurrent_plain` on the card): the bf16 workspace
+    ``dpre_c [B, T, 4H]`` and the f32 db partials ``[ceil(B / 16), 4H]``.
+    It counts no ``lstm_bwd``: :func:`lstm_bwd_cuda` counts one for both
+    halves."""
+    _check_bf16_half((cs, gates, dhs, wh), "lstm_bwd_recurrent")
+    B, T, H = cs.shape
+    dpre = torch.empty((B, T, 4 * H), dtype=cs.dtype, device=cs.device)
+    dbp = torch.empty((-(-B // BF16_ROWS), 4 * H), dtype=torch.float32,
+                      device=cs.device)
+    _LIB.launch("lstm_bwd_recurrent_bf16", dhs, cs, gates, wh, dpre, dbp, B,
+                T, H)
+    return dpre, dbp
+
+
+def lstm_bwd_wgrad_cuda(wx, x, hs, dpre, dbp) -> tuple:
+    """``lstm_bwd_wgrad_bf16``, the parallel half
+    (:func:`lstm_bwd_wgrad_plain` on the card): ``dwx, dwh, db, dx`` in
+    bf16 from the workspace and the db partials."""
+    _check_bf16_half((x, hs, wx, dpre), "lstm_bwd_wgrad")
+    B, T, E = x.shape
+    H = hs.shape[2]
+    splits = bwd_splits(B * T)
+    partial = torch.empty((splits, E + H, 4 * H), dtype=torch.float32,
+                          device=x.device)
+    dx = torch.empty_like(x)
+    dwx = torch.empty_like(wx)
+    dwh = torch.empty((H, 4 * H), dtype=wx.dtype, device=x.device)
+    db = torch.empty((4 * H,), dtype=wx.dtype, device=x.device)
+    _LIB.launch("lstm_bwd_wgrad_bf16", x, hs, wx, dpre, dbp, partial, dx,
+                dwx, dwh, db, B, T, E, H, splits)
+    return dwx, dwh, db, dx
+
+
 def lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs) -> tuple:
-    """``lstm_bwd_f32`` / ``lstm_bwd_bf16``: ``dwx, dwh, db, dx`` on the
-    card in the inputs' dtype (the same outputs as :func:`lstm_bwd_plain`).
-    Allocates the kernel's f32 scratch: the dpre workspace [B, T, 4H] and
-    the weight-gradient partials."""
+    """``lstm_bwd_f32``, or ``lstm_bwd_recurrent_bf16`` then
+    ``lstm_bwd_wgrad_bf16``: ``dwx, dwh, db, dx`` on the card in the
+    inputs' dtype (the same outputs as :func:`lstm_bwd_plain`), one
+    ``lstm_bwd`` launch. Allocates the kernels' scratch: the dpre
+    workspace [B, T, 4H] (f32, or bf16 for the bf16 body, which also keeps
+    f32 db partials a 16-row tile) and the weight-gradient partials."""
     suffix = _check_cuda((x, wh, wx, hs, cs, gates, dhs), "lstm_bwd")
     B, T, E = x.shape
     H = wh.shape[0]
@@ -239,19 +467,23 @@ def lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs) -> tuple:
             f"[B, T, 4H] for x {tuple(x.shape)}; got hs {tuple(hs.shape)}, cs "
             f"{tuple(cs.shape)}, dhs {tuple(dhs.shape)}, gates "
             f"{tuple(gates.shape)}")
-    dev = x.device
-    splits = bwd_splits(B * T)
-    wxt = wx.t().contiguous()          # layout copies: coalesced reads
-    wht = wh.t().contiguous()
-    dx = torch.empty_like(x)
-    dwx = torch.empty_like(wx)
-    dwh = torch.empty_like(wh)
-    db = torch.empty((4 * H,), dtype=wx.dtype, device=dev)
-    dpre = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
-    partial = torch.empty((splits, E + H + 1, 4 * H), dtype=torch.float32,
-                          device=dev)
-    _LIB.launch(f"lstm_bwd_{suffix}", dhs, x, hs, cs, gates, wxt, wht, dx,
-                dwx, dwh, db, dpre, partial, B, T, E, H, splits)
+    if suffix == "bf16":
+        dwx, dwh, db, dx = lstm_bwd_wgrad_cuda(
+            wx, x, hs, *lstm_bwd_recurrent_cuda(wh, cs, gates, dhs))
+    else:
+        dev = x.device
+        splits = bwd_splits(B * T)
+        dx = torch.empty_like(x)
+        dwx = torch.empty_like(wx)
+        dwh = torch.empty_like(wh)
+        db = torch.empty((4 * H,), dtype=wx.dtype, device=dev)
+        wxt = wx.t().contiguous()          # layout copies: coalesced reads
+        wht = wh.t().contiguous()
+        dpre = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
+        partial = torch.empty((splits, E + H + 1, 4 * H),
+                              dtype=torch.float32, device=dev)
+        _LIB.launch("lstm_bwd_f32", dhs, x, hs, cs, gates, wxt, wht, dx,
+                    dwx, dwh, db, dpre, partial, B, T, E, H, splits)
     _LIB.count("lstm_bwd")
     return dwx, dwh, db, dx
 

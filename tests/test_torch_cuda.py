@@ -219,7 +219,13 @@ def _bf16(*ts):
     return [t.to(torch.bfloat16) for t in ts]
 
 
-@pytest.mark.parametrize("B", [1, 3, 131])
+#: bf16 batches: ragged (1, 3, 131), one 16-row tile and a tile and a row
+#: (64, 65; the tile edges of the tensor-core bodies), and config #4's
+#: training batch (2048: 128 blocks, one wave).
+BF16_BATCHES = [1, 3, 64, 65, 131, 2048]
+
+
+@pytest.mark.parametrize("B", BF16_BATCHES)
 def test_bf16_forward_kernels_match_plain_on_card(packed, B):
     """``lstm_fwd_bf16`` and ``lstm_fwd_stash_bf16`` against the bf16
     twins: hs (and cs, gates) in bf16 within ``LSTM_BF16``."""
@@ -242,27 +248,76 @@ def test_bf16_forward_kernels_match_plain_on_card(packed, B):
             name, top, mean)
 
 
-@pytest.mark.parametrize("B", [1, 3, 131])
+@pytest.mark.parametrize("B", BF16_BATCHES)
 def test_bf16_backward_matches_plain_on_card(packed, B):
-    """``lstm_bwd_bf16`` against the bf16 twin on the same bf16 residuals
-    and dhs: dwx, dwh, db, dx in bf16 within ``LSTM_BF16``; two calls give
-    the same bits."""
+    """The bf16 backward (``lstm_bwd_recurrent_bf16`` then
+    ``lstm_bwd_wgrad_bf16``) against the bf16 twin on the same bf16
+    residuals and dhs: dwx, dwh, db, dx in bf16 within ``LSTM_BF16``; two
+    calls give the same bits."""
     wx, wh, b, g = packed
     x = torch.randn(B, T, E, generator=g).cuda()
     dhs = (torch.randn(B, T, H, generator=g) / 10).cuda()
     wx, wh, b, x, dhs = _bf16(wx, wh, b, x, dhs)
     hs, cs, gates = K.lstm_fwd_stash_plain(wx, wh, b, x)
-    before = K.launch_counts(by_entry=True)["lstm_bwd_bf16"]
+    before = K.launch_counts(by_entry=True)
     got = K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
     again = K.lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
     torch.cuda.synchronize()
-    assert K.launch_counts(by_entry=True)["lstm_bwd_bf16"] == before + 2
+    after = K.launch_counts(by_entry=True)
+    for entry in BWD_BF16_ENTRIES:
+        assert after[entry] == before[entry] + 2, entry
     ref = K.lstm_bwd_plain(wx, wh, x, hs, cs, gates, dhs)
     for name, a, a2, r in zip(("dwx", "dwh", "db", "dx"), got, again, ref):
         assert a.dtype == torch.bfloat16 and torch.equal(a, a2), name
         top, mean = _flash_err(a, r)
         assert top <= LSTM_BF16["top"] and mean <= LSTM_BF16["mean"], (
             name, top, mean)
+
+
+#: the bf16 backward's two C entry points, one launch each a backward.
+BWD_BF16_ENTRIES = ("lstm_bwd_recurrent_bf16", "lstm_bwd_wgrad_bf16")
+
+
+def test_bf16_backward_launches_each_entry_once(packed):
+    """One bf16 backward through autograd launches the stash forward once,
+    each of the backward's two entry points once and counts one
+    ``lstm_bwd``; nothing else of the LSTM launches."""
+    wx, wh, b, g = packed
+    x = torch.randn(5, T, E, generator=g).cuda()
+    params = [t.to(torch.bfloat16).requires_grad_() for t in (wx, wh, b, x)]
+    K.reset_launches()
+    hs = K.lstm_seq(*params)
+    torch.autograd.grad(hs[:, -1].float().square().sum(), params)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in K.launch_counts(by_entry=True).items() if v}
+    assert launched == {"lstm_fwd_stash_bf16": 1,
+                        **dict.fromkeys(BWD_BF16_ENTRIES, 1)}
+    assert K.launch_counts() == {"lstm_fwd": 0, "lstm_fwd_stash": 1,
+                                 "lstm_bwd": 1}
+
+
+@pytest.mark.parametrize("E_,H_,what", [(24, 128, "multiples of 16"),
+                                        (64, 40, "multiples of 16"),
+                                        (144, 64, "E <= 128"),
+                                        (64, 144, "H <= 128"),
+                                        (128, 128, "shared memory")])
+def test_bf16_widths_the_kernels_refuse_raise(card, E_, H_, what):
+    """Widths the f32 kernels take and the bf16 tensor-core kernels do not:
+    every bf16 wrapper raises a ValueError naming the constraint, and
+    nothing launches (no quiet switch to another body or to the twin)."""
+    g = torch.Generator().manual_seed(0)
+    wx, wh, b = (torch.randn(*s, generator=g).cuda().bfloat16()
+                 for s in ((E_, 4 * H_), (H_, 4 * H_), (4 * H_,)))
+    x = torch.randn(2, 3, E_, generator=g).cuda().bfloat16()
+    res = [torch.zeros(2, 3, n, device="cuda", dtype=torch.bfloat16)
+           for n in (H_, H_, 4 * H_, H_)]
+    before = K.launch_counts(by_entry=True)
+    for call in (lambda: K.lstm_fwd_cuda(wx, wh, b, x),
+                 lambda: K.lstm_fwd_stash_cuda(wx, wh, b, x),
+                 lambda: K.lstm_bwd_cuda(wx, wh, x, *res)):
+        with pytest.raises(ValueError, match=what):
+            call()
+    assert K.launch_counts(by_entry=True) == before
 
 
 @pytest.mark.parametrize("B,N,C,relu", [(3, 56 * 56, 64, True),
@@ -357,7 +412,8 @@ def test_bf16_training_steps_launch_bf16_kernels_only(card):
                      compute_dtype="bfloat16").train(images)))
     tokens = DataFrame({"features": rng.integers(0, 50, (16, 20)).astype(
         np.int32), "label": rng.integers(0, 2, 16).astype(np.int32)})
-    runs.append((K, {"lstm_fwd_stash_bf16": 2, "lstm_bwd_bf16": 2},
+    runs.append((K, {"lstm_fwd_stash_bf16": 2,
+                     **dict.fromkeys(BWD_BF16_ENTRIES, 2)},
                  lambda: DynSGD(
                      imdb_lstm(vocab_size=50, embed_dim=16, hidden_size=16,
                                seq_len=20, device="cuda"),
