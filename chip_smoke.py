@@ -30,9 +30,11 @@ and every parity phase holds the card's bf16 run to the CPU's within
    with ``ratio_to_library``, ``bound_share`` and ``us_per_step``. The
    stash forward and the backward time the kernel and cuDNN in turns,
    three readings each (the medians are ``ms`` and ``library_ms``); the
-   bf16 backward also times its two entry points apart (``recurrent_ms``,
-   ``wgrad_ms``). Before the rows, ``lstm_build`` gives the registers and
-   spills of the bf16 LSTM kernels (a spill fails the run).
+   backward also times its two entry points apart (``recurrent_ms``,
+   ``wgrad_ms``), and every f32 row gives the tiling it ran with (``R``
+   rows a tile, ``C`` blocks a cluster). Before the rows, ``lstm_build``
+   gives the registers and spills of the bf16 and f32 LSTM kernels (a
+   spill fails the run).
 3. ``train`` — the port's training path as a user drives it:
    ``DynSGD(imdb_lstm(...)).train(imdb(...))`` at config #4's width and
    batch (4 workers, window 4, batch 2048, 3 rounds, f32; then 3 rounds
@@ -479,6 +481,15 @@ def check_bf16_lstm(name: str, B: int, pairs) -> dict:
     return out
 
 
+def f32_tiling(K, B: int, kernel: str) -> dict:
+    """The tiling the f32 LSTM ``kernel`` runs at batch ``B``: the tile's
+    rows ``R`` and the cluster's blocks ``C`` (``K.f32_tiling``), the
+    clusters the call needs and the most the card holds at once."""
+    R, C = K.f32_tiling(B, HIDDEN)
+    return {"R": R, "C": C, "clusters": -(-B // R),
+            "max_active_clusters": K.f32_max_clusters(kernel, HIDDEN, R, C)}
+
+
 def kernel_phase(torch, K, model, rng) -> dict:
     """The LSTM kernel against its plain version at the serving shapes, on
     the served model's own weights and embedded tokens, in f32 and in bf16
@@ -504,6 +515,7 @@ def kernel_phase(torch, K, model, rng) -> dict:
                        "T": SEQ_LEN, "E": EMBED, "H": HIDDEN, "dtype": name,
                        "library_max_abs_err": lib_err}
                 if name == "float32":
+                    row.update(f32_tiling(K, B, "lstm_fwd"))
                     err = (got - ref).abs().max().item()
                     row.update(max_abs_err=err, atol=KERNEL_ATOL,
                                max_rel_err=err / max(
@@ -553,6 +565,7 @@ def stash_phase(torch, K, model, rng) -> dict:
                        "T": SEQ_LEN, "E": EMBED, "H": HIDDEN, "dtype": name,
                        "compared": "hs, cs, gates vs lstm_fwd_stash_plain"}
                 if name == "float32":
+                    row.update(f32_tiling(K, B, "lstm_fwd_stash"))
                     err = max((a - r).abs().max().item()
                               for a, r in zip(got, ref))
                     row.update(max_abs_err=err, atol=KERNEL_ATOL)
@@ -622,6 +635,7 @@ def bwd_phase(torch, K, model, rng) -> dict:
                    "repeatable_bits": repeatable,
                    "splits": K.bwd_splits(B * SEQ_LEN)}
             if name == "float32":
+                row.update(f32_tiling(K, B, "lstm_bwd_recurrent"))
                 leaves = [t.clone().requires_grad_() for t in (wx, wh, b, x)]
                 # dwx, dwh, db, dx: the leaves' order
                 auto = torch.autograd.grad(
@@ -656,23 +670,21 @@ def bwd_phase(torch, K, model, rng) -> dict:
                                                      gates, dhs),
                    "library": lambda: torch.autograd.grad(
                        out, inputs, dhs, retain_graph=True)}
-            if name == "bfloat16":
-                # the two entry points apart, on the workspace of one call
-                dp, dbp = K.lstm_bwd_recurrent_cuda(wh, cs, gates, dhs)
-                fns["recurrent"] = lambda: K.lstm_bwd_recurrent_cuda(
-                    wh, cs, gates, dhs)
-                fns["wgrad"] = lambda: K.lstm_bwd_wgrad_cuda(wx, x, hs, dp,
-                                                             dbp)
+            # the two entry points apart, on the workspace of one call
+            dp, dbp = K.lstm_bwd_recurrent_cuda(wh, cs, gates, dhs)
+            fns["recurrent"] = lambda: K.lstm_bwd_recurrent_cuda(
+                wh, cs, gates, dhs)
+            fns["wgrad"] = lambda: K.lstm_bwd_wgrad_cuda(wx, x, hs, dp, dbp)
             t = interleaved_ms(torch, fns, 10)
-            del out, inputs, fns
+            del out, inputs, fns, dp, dbp
             bound_ms, bound_by = bwd_bound_ms(B, SEQ_LEN, EMBED, HIDDEN,
                                               x.element_size())
             row.update(ms=t["kernel"][0], plain_ms=plain_ms,
                        library_ms=t["library"][0],
                        ms_readings=t["kernel"][1],
                        library_readings=t["library"][1],
-                       recurrent_ms=t.get("recurrent", (None,))[0],
-                       wgrad_ms=t.get("wgrad", (None,))[0],
+                       recurrent_ms=t["recurrent"][0],
+                       wgrad_ms=t["wgrad"][0],
                        bound_ms=bound_ms, bound_by=bound_by)
             row.update(lstm_speed(row))
             emit(row)
@@ -1922,15 +1934,31 @@ def flash_registers(log: str) -> list:
 #: and csrc/lstm_bwd.cu.
 LSTM_TC_KERNELS = ("lstm_fwd_tc", "lstm_fwd_tc", "lstm_bwd_rec_tc",
                    "lstm_bwd_wgrad_tc", "lstm_dx_tc", "lstm_wgrad_reduce_tc")
+#: the f32 LSTM kernels: x . Wx, the cluster recurrence at each tiling of
+#: ``K.F32_TILINGS`` (stash and plain), the cluster recurrent backward at
+#: each, and the weight-gradient, dx and reduce kernels.
+LSTM_F32_KERNELS = (("lstm_xproj_f32",)
+                    + ("lstm_fwd_cluster",) * 2 * 5
+                    + ("lstm_bwd_rec_cluster",) * 5
+                    + ("lstm_wgrad_f32", "lstm_dx_f32",
+                       "lstm_wgrad_reduce_f32"))
 
 
 def lstm_registers(log: str) -> list:
-    """The bf16 LSTM kernels' registers and spills."""
+    """The bf16 and f32 LSTM kernels' registers and spills."""
     def name(ln):
         m = re.search(r"\d(lstm_\w+_tc)(?:ILb([01])E)?E", ln)
-        return None if m is None else {
-            "kernel": m.group(1),
-            **({"stash": m.group(2) == "1"} if m.group(2) else {})}
+        if m is not None:
+            return {"kernel": m.group(1), "dtype": "bf16",
+                    **({"stash": m.group(2) == "1"} if m.group(2) else {})}
+        m = re.search(r"\d(lstm_\w+_cluster)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?",
+                      ln)
+        if m is not None:
+            return {"kernel": m.group(1), "dtype": "f32",
+                    "R": int(m.group(2)), "C": int(m.group(3)),
+                    **({"stash": m.group(4) == "1"} if m.group(4) else {})}
+        m = re.search(r"\d(lstm_\w+_f32)E", ln)
+        return None if m is None else {"kernel": m.group(1), "dtype": "f32"}
     return ptxas_kernels(log, name)
 
 
@@ -2219,13 +2247,14 @@ def main() -> None:
                  for r in lstm_registers(
                      libs[src].with_suffix(".log").read_text())]
     emit({"phase": "lstm_build", "kernels": lstm_regs})
-    if sorted(r["kernel"] for r in lstm_regs) != sorted(LSTM_TC_KERNELS):
-        fail(f"expected the bf16 LSTM kernels {LSTM_TC_KERNELS} in the "
-             f"build report, found {lstm_regs}")
+    want = sorted(LSTM_TC_KERNELS + LSTM_F32_KERNELS)
+    if sorted(r["kernel"] for r in lstm_regs) != want:
+        fail(f"expected the LSTM kernels {want} in the build report, found "
+             f"{lstm_regs}")
     spilled = [r for r in lstm_regs
                if r.get("spill_stores") or r.get("spill_loads")]
     if spilled:
-        fail(f"bf16 LSTM kernels spill registers: {spilled}")
+        fail(f"LSTM kernels spill registers: {spilled}")
 
     rng = np.random.default_rng(args.seed)
     model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
@@ -2298,7 +2327,8 @@ def main() -> None:
                 **{f"{pre}{k}": row[k] for pre, row in (("", top),
                                                         ("bf16_", top16))
                    for k in ("ratio_to_library", "bound_share",
-                             "us_per_step", "recurrent_ms", "wgrad_ms")
+                             "us_per_step", "recurrent_ms", "wgrad_ms", "R",
+                             "C")
                    if k in row}}
 
     def gn_entry(name, key, bwd):

@@ -16,10 +16,9 @@
 // FLOPs. Step t+1 needs all of h_t, so each step is one [rows, E+H] by
 // [E+H, 4H] product, the gate epilogue and a barrier. At config #4's
 // widths (E=64, H=128, T=200) the call is 2*T*B*(E+H)*4H FLOP (80.5 GFLOP
-// at B=2048) and a few hundred MB at most: well under a millisecond at the
-// card's rates. A step costs the latency of its product, its epilogue
-// (three exponentials, three divisions and two tanh a cell, B*H cells a
-// step over the SMs in use) and its barrier.
+// at B=2048) and a few hundred MB at most. A step costs the latency of its
+// product, its epilogue (three exponentials, three divisions and two tanh
+// a cell) and its barrier.
 //
 // bf16 (lstm_fwd_bf16, lstm_fwd_stash_bf16: the tensor-core body). Batch
 // rows are independent and only time is serial, so one block of 16 warps
@@ -51,10 +50,6 @@
 // barrier apart from its next writer with a single barrier a step (the
 // step writes h_t and x_{t+1} into the buffers that held h_{t-2} and
 // x_{t-1}, which the previous step's product read before its barrier).
-// The same design with a thread-block cluster over the hidden units (each
-// block a quarter of the weights and a 64-row tile, h all-gathered through
-// distributed shared memory) does the same work a step on each SM and adds
-// a cluster barrier; it was not built.
 // Rounding points (the TPU kernel's, ops/pallas/lstm.py:64-83): products of
 // bf16 values summed in f32, the bias added in f32, the h/c carry f32, h
 // rounded to bf16 where it enters the recurrent product (and stored so in
@@ -62,156 +57,67 @@
 // 128, H <= 128, and the weights and tiles within 227 KB of shared memory
 // (fwd_smem_bytes); the wrapper raises on others.
 //
-// f32 (lstm_fwd_f32, lstm_fwd_stash_f32: the scalar body, simple and right
-// first). The f32 weights (384 KiB) do not fit in shared memory and the
-// tensor cores would not keep f32's 1e-5 limit, so one thread per gate
-// column j < 4H sums b[j] + x_t[r,:].Wx[:,j] + h[r,:].Wh[:,j] for the
-// block's R rows from L2 (unrolled 32 deep, so 32 independent loads are in
-// flight), a barrier, then H threads combine i,f,g,o, update c (in their
-// registers), write h to shared memory and to hs, and stage x_{t+1}; a
-// second barrier ends the step. R is 1 up to 128 rows and 2 above. In
-// stash mode the thread that owns unit k also writes cs and the four
-// activated gates.
+// f32 (lstm_fwd_f32, lstm_fwd_stash_f32: the cluster body). f32 products
+// stay on the FP32 pipes (FFMA, f32 in, f32 sums: the TPU kernel's
+// arithmetic at f32; tensor cores would round to TF32). All of [Wx; Wh] in
+// f32 is 384 KiB at E=64, H=128, more than a block's 227 KB. Two launches:
+//   1. lstm_xproj_f32: pre = x . Wx + b for every (b, t), off the serial
+//      chain, as one FFMA tile product (128 x 128 tiles, 8 x 8 a thread,
+//      two blocks an SM) into an f32 scratch [B, T, H, 4]: a unit's four
+//      gates side by side (the wrapper's column order, f32_xproj_layout).
+//      The chain then carries only h . Wh, two thirds of the fused
+//      product, and holds no x.
+//   2. lstm_fwd_cluster: a thread-block cluster of C blocks owns a tile of
+//      R batch rows; block c owns the hidden units [c U, (c+1) U), U = H /
+//      C, and their four gate columns. Its Wh slice ([H][U][4] f32: 32 KiB
+//      at C=8, 128 KiB at C=2) stays in its shared memory for all T steps
+//      (f32_fwd_weight_layout). A thread owns one unit's four gates for RT
+//      rows (2 at R=16, 4 at R=32): a 16-byte weight read and an 8- or
+//      16-byte read of its rows' h feed 4 RT FFMAs, and the epilogue runs
+//      in its registers. At R=16 the product is cut over k between two
+//      thread groups where the threads allow (f32_fwd_ksplit): the second
+//      adds its sums in through shared memory before the epilogue, one
+//      block barrier a step (8 % off B=256 on the H100, PERF.md). Each step: the thread's pre (loaded a step ahead,
+//      off the chain) plus h_{t-1} . Wh, the epilogue (precise
+//      expf/tanhf), hs (and cs, gates) to memory, and h_t stored into the
+//      other h tile [H][R] of every block of the cluster by st.async,
+//      completing bytes on that block's mbarrier; a block waits on its
+//      mbarrier for the whole of h_t before the next product. The data
+//      dependency orders every write after the last read of its buffer
+//      (csrc/lstm_f32.cuh), so a step needs no block or cluster barrier.
+//   R and C come from the wrapper (ops/kernels/lstm.py f32_tiling, a plain
+//   function): R=16, C=8 up to B=1024 (latency-bound serving: 16 x 64
+//   gate columns x H FFMAs a block a step), R=32, C=2 above (config #4's
+//   training batch: 64 clusters of two blocks, one wave; the card holds 66
+//   at once, cudaOccupancyMaxActiveClusters). The tilings measured on the
+//   H100 (R=64 with C=4: 30 clusters fit, two waves; more rows or units a
+//   thread: slower) are in PERF.md. Clusters never wait on each other, so
+//   a grid over one wave is right, only slower.
+//   Exit rule: a block must not exit while a peer may still write into its
+//   shared memory; the kernel ends with a cluster barrier.
+// What was hard (f32): a step's latency, not its FLOPs, at every batch the
+// path sees, hence x . Wx off the chain, h handed over with no barrier a
+// step, and a training tiling whose clusters all fit the card at once
+// (the variants measured are in PERF.md).
+// Widths: E a multiple of 4 (16-byte x reads), H a multiple of 8 C (8
+// units a warp), at most 512 threads a block (U R / RT) and the Wh slice
+// and tiles within 227 KB (f32_fwd_smem); the wrapper raises on others
+// (check_f32_widths).
 //
 // Ragged batches: rows >= B are masked (no padding copy). Precise
 // expf/tanhf; build without --use_fast_math.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "lstm_f32.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 512;  // f32: one thread per gate column
-
 __device__ __forceinline__ float sigmoid_f(float v) {
   return 1.0f / (1.0f + expf(-v));
-}
-
-template <int R, bool STASH>
-__global__ void __launch_bounds__(kMaxThreads)
-lstm_fwd_kernel(const float* __restrict__ x,   // [B, T, E]
-                const float* __restrict__ wx,  // [E, 4H]
-                const float* __restrict__ wh,  // [H, 4H]
-                const float* __restrict__ b,   // [4H]
-                float* __restrict__ hs,        // [B, T, H]
-                float* __restrict__ cs,        // [B, T, H]   (STASH only)
-                float* __restrict__ gates,     // [B, T, 4H]  (STASH only)
-                int B, int T, int E, int H) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  float* xs = smem;          // [E][R]  x_t of this block's rows
-  float* hsm = xs + E * R;   // [H][R]  h_{t-1}
-  float* gsm = hsm + H * R;  // [R][G]  gate pre-activations
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * R;
-  const int rows = min(R, B - row0);
-
-  for (int i = tid; i < H * R; i += blockDim.x) hsm[i] = 0.0f;
-  for (int i = tid; i < R * E; i += blockDim.x) {
-    const int r = i / E;
-    const int e = i - r * E;
-    xs[e * R + r] = r < rows ? x[(size_t)(row0 + r) * T * E + e] : 0.0f;
-  }
-  float c[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) c[r] = 0.0f;
-  const float bj = tid < G ? b[tid] : 0.0f;
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    if (tid < G) {
-      float acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = bj;
-#pragma unroll 32
-      for (int e = 0; e < E; ++e) {
-        const float w = wx[(size_t)e * G + tid];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(xs[e * R + r], w, acc[r]);
-      }
-#pragma unroll 32
-      for (int k = 0; k < H; ++k) {
-        const float w = wh[(size_t)k * G + tid];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(hsm[k * R + r], w, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) gsm[r * G + tid] = acc[r];
-    }
-    __syncthreads();
-
-    if (tid < H) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (r < rows) {
-          const float* g = gsm + r * G;
-          const float ig = sigmoid_f(g[tid]);
-          const float fg = sigmoid_f(g[H + tid]);
-          const float gg = tanhf(g[2 * H + tid]);
-          const float og = sigmoid_f(g[3 * H + tid]);
-          c[r] = fg * c[r] + ig * gg;
-          const float h = og * tanhf(c[r]);
-          const size_t bt = (size_t)(row0 + r) * T + t;
-          hsm[tid * R + r] = h;
-          hs[bt * H + tid] = h;
-          if (STASH) {
-            cs[bt * H + tid] = c[r];
-            float* gt = gates + bt * G;
-            gt[tid] = ig;
-            gt[H + tid] = fg;
-            gt[2 * H + tid] = gg;
-            gt[3 * H + tid] = og;
-          }
-        }
-      }
-    }
-    if (t + 1 < T) {
-      for (int i = tid; i < R * E; i += blockDim.x) {
-        const int r = i / E;
-        const int e = i - r * E;
-        xs[e * R + r] =
-            r < rows ? x[((size_t)(row0 + r) * T + t + 1) * E + e] : 0.0f;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int R, bool STASH>
-int launch(const float* x, const float* wx, const float* wh, const float* b,
-           float* hs, float* cs, float* gates, int B, int T, int E, int H,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)R * (E + H + 4 * H);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lstm_fwd_kernel<R, STASH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int threads = (4 * H + 31) / 32 * 32;
-  const int grid = (B + R - 1) / R;
-  lstm_fwd_kernel<R, STASH><<<grid, threads, smem, stream>>>(
-      x, wx, wh, b, hs, cs, gates, B, T, E, H);
-  return (int)cudaGetLastError();
-}
-
-template <bool STASH>
-int dispatch(const float* x, const float* wx, const float* wh,
-             const float* b, float* hs, float* cs, float* gates, int B,
-             int T, int E, int H, void* stream) {
-  if (E <= 0 || H <= 0 || 4 * H > kMaxThreads) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (B <= 0 || T <= 0) return (int)cudaSuccess;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 128) {
-    return launch<1, STASH>(x, wx, wh, b, hs, cs, gates, B, T, E, H, s);
-  }
-  return launch<2, STASH>(x, wx, wh, b, hs, cs, gates, B, T, E, H, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -379,24 +285,408 @@ int dispatch_tc(const bf16* x, const bf16* wt, const bf16* b, bf16* hs,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32: x . Wx as one FFMA tile product, then the recurrence on a cluster
+// over the hidden units, FFMA products, h handed through distributed
+// shared memory behind mbarriers.
+
+namespace cg = cooperative_groups;
+
+using lstm_f32::Slot;
+using lstm_f32::ldg4;
+using lstm_f32::outer8;
+using lstm_f32::peer_addr;
+using lstm_f32::rows_per_thread;
+using lstm_f32::smem_addr;
+
+// The recurrence's product is cut over k into this many thread groups: two
+// at R=16 (latency-bound serving: twice the warps on a step's chain)
+// where the threads allow, else one.
+int f32_fwd_ksplit(int H, int R, int C) {
+  return R == 16 && 2 * (H / C) * (R / rows_per_thread(R)) <= lstm_f32::kThreads
+             ? 2
+             : 1;
+}
+
+// Shared memory of the f32 recurrence: two mbarriers, the block's Wh slice
+// [H][U][4], two h tiles [H][R] and, with the product cut over k, the
+// second group's sums [U R / RT][RT][4], f32. Mirrored by
+// ops/kernels/lstm.py f32_fwd_smem_bytes.
+size_t f32_fwd_smem(int H, int R, int C) {
+  const size_t U = H / C;
+  return 16 + sizeof(float) * (H * 4 * U + 2 * (size_t)H * R +
+                               (f32_fwd_ksplit(H, R, C) - 1) * 4 * U * R);
+}
+
+bool f32_widths_ok(int E, int H, int R, int C) {
+  return E > 0 && E % 4 == 0 && lstm_f32::tiling_ok(H, R, C) &&
+         f32_fwd_smem(H, R, C) <= (size_t)kMaxSmem;
+}
+
+constexpr int XN = 128, XC = 128, XK = 16;  // x . Wx tile: rows, columns, k
+constexpr int kXThreads = 256;
+
+// pre[n][c] = bp[c] + sum_e x[n][e] wxp[e][c] for rows n0 .. n0+127 and
+// columns c0 .. c0+127 (c = 4 unit + gate: the recurrence reads a cell's
+// four gates as one 16-byte load). Thread (ty = tid / 16, tx = tid % 16):
+// rows n0 + 4 ty + {0..3} and n0 + 64 + 4 ty + {0..3}, columns c0 + 4 tx +
+// {0..3} and c0 + 64 + 4 tx + {0..3}. x slabs are transposed into shared
+// memory, double-buffered through registers.
+__global__ void __launch_bounds__(kXThreads, 2)
+lstm_xproj_f32(const float* __restrict__ x,    // [N, E]
+               const float* __restrict__ wxp,  // [E, 4H]
+               const float* __restrict__ bp,   // [4H]
+               float* __restrict__ pre,        // [N, 4H]
+               long long N, int E, int G) {
+  __shared__ __align__(16) float Xs[2][XK][XN + 4];
+  __shared__ __align__(16) float Ws[2][XK][XC];
+  const long long n0 = (long long)blockIdx.x * XN;
+  const int c0 = blockIdx.y * XC;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // x slab: row lr + 64 k of vector lv; W slab: row wr + 8 k of vector wv.
+  const int lr = tid >> 2, lv = tid & 3, wr = tid >> 5, wv = tid & 31;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  auto load = [&](int e0, float4 (&xr)[2], float4 (&wq)[2]) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const long long n = n0 + lr + 64 * k;
+      const int e = e0 + 4 * lv;
+      xr[k] = n < N && e < E ? ldg4(x + n * E + e) : zero;
+      const int we = e0 + wr + 8 * k, c = c0 + 4 * wv;
+      wq[k] = we < E && c < G ? ldg4(wxp + (size_t)we * G + c) : zero;
+    }
+  };
+  auto store = [&](int buf, const float4 (&xr)[2], const float4 (&wq)[2]) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = lr + 64 * k;
+      Xs[buf][4 * lv][r] = xr[k].x;
+      Xs[buf][4 * lv + 1][r] = xr[k].y;
+      Xs[buf][4 * lv + 2][r] = xr[k].z;
+      Xs[buf][4 * lv + 3][r] = xr[k].w;
+      *reinterpret_cast<float4*>(&Ws[buf][wr + 8 * k][4 * wv]) = wq[k];
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.0f;
+  float4 xr[2], wq[2];
+  load(0, xr, wq);
+  store(0, xr, wq);
+  __syncthreads();
+  int buf = 0;
+  for (int e0 = 0; e0 < E; e0 += XK) {
+    const bool more = e0 + XK < E;
+    if (more) load(e0 + XK, xr, wq);
+#pragma unroll
+    for (int k = 0; k < XK; ++k) {
+      outer8(acc, *reinterpret_cast<const float4*>(&Xs[buf][k][4 * ty]),
+             *reinterpret_cast<const float4*>(&Xs[buf][k][64 + 4 * ty]),
+             *reinterpret_cast<const float4*>(&Ws[buf][k][4 * tx]),
+             *reinterpret_cast<const float4*>(&Ws[buf][k][64 + 4 * tx]));
+    }
+    if (more) store(buf ^ 1, xr, wq);
+    __syncthreads();
+    buf ^= 1;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = c0 + 64 * h + 4 * tx;
+    if (c >= G) continue;
+    const float4 bias = ldg4(bp + c);
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const long long n = n0 + (p < 4 ? 4 * ty + p : 64 + 4 * ty + p - 4);
+      if (n < N) {
+        *reinterpret_cast<float4*>(pre + n * G + c) =
+            make_float4(acc[p][4 * h] + bias.x, acc[p][4 * h + 1] + bias.y,
+                        acc[p][4 * h + 2] + bias.z,
+                        acc[p][4 * h + 3] + bias.w);
+      }
+    }
+  }
+}
+
+// The recurrence of one tile of R rows on a cluster of C blocks (tiling in
+// csrc/lstm_f32.cuh). Each step: the thread's cells start from pre (x_t .
+// Wx + b, loaded a step ahead), add h_{t-1} . Wh over the block's slice
+// (the h tile [H][R] holds all H units: the thread's RT rows are one 8- or
+// 16-byte read, its unit's four gates one 16-byte read), the epilogue in
+// registers, hs (and cs, gates) to memory, and h_t to every block's other
+// h tile by st.async.
+template <int R, int C, bool STASH>
+__global__ void __launch_bounds__(lstm_f32::kThreads, 1)
+lstm_fwd_cluster(const float* __restrict__ pre,  // [B, T, H, 4]
+                 const float* __restrict__ wl,   // [C][H][U][4]
+                 float* __restrict__ hs,         // [B, T, H]
+                 float* __restrict__ cs,         // [B, T, H]   (STASH only)
+                 float* __restrict__ gates,      // [B, T, 4H]  (STASH only)
+                 int B, int T, int H) {
+  constexpr int RT = rows_per_thread(R);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem_raw);  // [2]
+  float* ws = reinterpret_cast<float*>(smem_raw + 16);     // [H][U][4]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int U = H / C, G = 4 * H;
+  float* hb = ws + (size_t)H * U * 4;  // [2][H][R]
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (int)(blockIdx.x / C) * R;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  // kh: the thread's group of the k split (kh > 0 only sums its part of
+  // the product, which group 0 adds and carries on with); R=32 never
+  // splits, and its code keeps no trace of the split.
+  const int cells = U * (R / RT);
+  const int kh = R == 16 ? tid / cells : 0, ks = R == 16 ? nthr / cells : 1;
+  const Slot sl = lstm_f32::slot_of(tid - kh * cells, U);
+  const int r0 = sl.g * RT;       // the thread's first row in the tile
+  const int hu = rank * U + sl.s;  // its unit
+  const uint32_t tile_bytes = (uint32_t)(H * R * sizeof(float));
+  float4* red = reinterpret_cast<float4*>(hb + 2 * H * R) +
+                (tid - kh * cells) * RT;  // [cells][RT] gate sums
+  const int k0 = kh * (H / ks), k1 = k0 + H / ks;
+
+  {
+    const float4* src =
+        reinterpret_cast<const float4*>(wl + (size_t)rank * H * U * 4);
+    float4* dst = reinterpret_cast<float4*>(ws);
+    for (int i = tid; i < H * U; i += nthr) dst[i] = __ldg(src + i);
+    for (int i = tid; i < H * R; i += nthr) hb[i] = 0.0f;  // h_{-1}
+  }
+  const uint32_t bar0 = smem_addr(mbar), hb1 = smem_addr(hb + H * R);
+  if (tid == 0) {
+    lstm_f32::mbar_init(bar0, 1);
+    lstm_f32::mbar_init(bar0 + 8, 1);
+    lstm_f32::mbar_init_fence();
+    lstm_f32::mbar_expect_tx(bar0, tile_bytes);      // h_1
+    lstm_f32::mbar_expect_tx(bar0 + 8, tile_bytes);  // h_0
+  }
+  cluster.sync();  // every block runs, its barriers are armed
+
+  bool ok[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) ok[i] = row0 + r0 + i < B;
+  auto load_pre = [&](float4 (&v)[RT], int t) {
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      v[i] = ok[i] ? ldg4(pre + (((size_t)(row0 + r0 + i) * T + t) * H + hu) *
+                                    4)
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+  float4 pv[RT];
+  float c[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) pv[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (kh == 0) load_pre(pv, 0);
+#pragma unroll
+  for (int i = 0; i < RT; ++i) c[i] = 0.0f;
+
+  for (int t = 0; t < T; ++t) {
+    const int b = t & 1;
+    if (t > 0) {
+      lstm_f32::mbar_wait(bar0 + 8 * b, ((t - 1) >> 1) & 1);
+      if (tid == 0) lstm_f32::mbar_expect_tx(bar0 + 8 * b, tile_bytes);
+    }
+    float acc[RT][4];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      acc[i][0] = pv[i].x;
+      acc[i][1] = pv[i].y;
+      acc[i][2] = pv[i].z;
+      acc[i][3] = pv[i].w;
+    }
+    if (kh == 0 && t + 1 < T) load_pre(pv, t + 1);
+    const float* hp = hb + b * H * R + r0;
+    const float4* w4 = reinterpret_cast<const float4*>(ws) + sl.s;
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) {
+      float hv[RT];
+      lstm_f32::lds<RT>(hv, hp + k * R);
+      const float4 w = w4[k * U];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        acc[i][0] = fmaf(hv[i], w.x, acc[i][0]);
+        acc[i][1] = fmaf(hv[i], w.y, acc[i][1]);
+        acc[i][2] = fmaf(hv[i], w.z, acc[i][2]);
+        acc[i][3] = fmaf(hv[i], w.w, acc[i][3]);
+      }
+    }
+    if (ks > 1) {
+      // group 1's sums to group 0 through shared memory: written after this
+      // step's wait, read before group 0 sends h_t, which the next step's
+      // write waits for.
+      if (kh == 1) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          red[i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        }
+      }
+      __syncthreads();
+      if (kh == 1) continue;
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float4 q = red[i];
+        acc[i][0] += q.x;
+        acc[i][1] += q.y;
+        acc[i][2] += q.z;
+        acc[i][3] += q.w;
+      }
+    }
+    float hn[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float ig = sigmoid_f(acc[i][0]);
+      const float fg = sigmoid_f(acc[i][1]);
+      const float gg = tanhf(acc[i][2]);
+      const float og = sigmoid_f(acc[i][3]);
+      c[i] = fg * c[i] + ig * gg;
+      hn[i] = og * tanhf(c[i]);
+      if (ok[i]) {
+        const size_t bt = (size_t)(row0 + r0 + i) * T + t;
+        hs[bt * H + hu] = hn[i];
+        if (STASH) {
+          cs[bt * H + hu] = c[i];
+          float* gt = gates + bt * G + hu;
+          gt[0] = ig;
+          gt[H] = fg;
+          gt[2 * H] = gg;
+          gt[3 * H] = og;
+        }
+      }
+    }
+    if (t + 1 < T) {
+      // h_t into every block's other h tile, completing on its barrier.
+      const uint32_t dst = (b ? smem_addr(hb) : hb1) +
+                           (uint32_t)((hu * R + r0) * sizeof(float));
+      const uint32_t bar = bar0 + 8 * (b ^ 1);
+#pragma unroll
+      for (int p = 0; p < C; ++p) {
+        lstm_f32::st_async<RT>(peer_addr(dst, p), hn, peer_addr(bar, p));
+      }
+    }
+  }
+  cluster.sync();  // no block exits while a peer may still write into it
+}
+
+template <int R, int C, bool STASH>
+cudaError_t config_fwd_f32(cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute (&attr)[1], int B, int H) {
+  const size_t smem = f32_fwd_smem(H, R, C);
+  const cudaError_t err = cudaFuncSetAttribute(
+      lstm_fwd_cluster<R, C, STASH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = dim3((unsigned)((B + R - 1) / R * C));
+  cfg.blockDim = dim3((unsigned)(H / C * (R / rows_per_thread(R)) *
+                                 f32_fwd_ksplit(H, R, C)));
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return err;
+}
+
+template <int R, int C, bool STASH>
+int launch_fwd_f32(const float* pre, const float* wl, float* hs, float* cs,
+                   float* gates, int B, int T, int H, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = config_fwd_f32<R, C, STASH>(cfg, attr, B, H);
+  if (err != cudaSuccess) return (int)err;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, lstm_fwd_cluster<R, C, STASH>, pre, wl, hs,
+                           cs, gates, B, T, H);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The most clusters of lstm_fwd_cluster<R, C, STASH> the card holds at
+// once (cudaOccupancyMaxActiveClusters), or minus the cudaError_t.
+template <int R, int C, bool STASH>
+int max_clusters_f32(int H) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = config_fwd_f32<R, C, STASH>(cfg, attr, R, H);
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, lstm_fwd_cluster<R, C, STASH>,
+                                       &cfg);
+  return err != cudaSuccess ? -(int)err : n;
+}
+
+template <bool STASH>
+int dispatch_f32(const float* x, const float* wxp, const float* bp,
+                 const float* wl, float* pre, float* hs, float* cs,
+                 float* gates, int B, int T, int E, int H, int R, int C,
+                 void* stream) {
+  if (!f32_widths_ok(E, H, R, C)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long N = (long long)B * T;
+  const int G = 4 * H;
+  lstm_xproj_f32<<<dim3((unsigned)((N + XN - 1) / XN), (G + XC - 1) / XC),
+                   kXThreads, 0, s>>>(x, wxp, bp, pre, N, E, G);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+#define LSTM_FWD_F32(RR, CC)                                                \
+  if (R == RR && C == CC) {                                                 \
+    return launch_fwd_f32<RR, CC, STASH>(pre, wl, hs, cs, gates, B, T, H, s); \
+  }
+  LSTM_F32_TILINGS(LSTM_FWD_F32)
+#undef LSTM_FWD_F32
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// hs[B, T, H] = LSTM over x[B, T, E] (all f32, contiguous, on the device).
-// Returns the cudaError_t of the launch (0 = launched).
-extern "C" int lstm_fwd_f32(const float* x, const float* wx, const float* wh,
-                            const float* b, float* hs, int B, int T, int E,
-                            int H, void* stream) {
-  return dispatch<false>(x, wx, wh, b, hs, nullptr, nullptr, B, T, E, H,
-                         stream);
+// hs[B, T, H] = LSTM over x[B, T, E] (all f32, contiguous, on the device;
+// x 16-byte aligned), in two launches on the stream: pre = x . wxp + bp,
+// then the recurrence. wxp [E, 4H] and bp [4H] are Wx and b with the
+// columns in the order 4 unit + gate, wl [C][H][H/C][4] is Wh for the
+// cluster's blocks (ops/kernels/lstm.py f32_xproj_layout,
+// f32_fwd_weight_layout), pre [B, T, 4H] f32 scratch. R and C are the
+// tile's rows and the cluster's blocks (f32_tiling). Returns the
+// cudaError_t of the launches (0 = launched).
+extern "C" int lstm_fwd_f32(const float* x, const float* wxp, const float* bp,
+                            const float* wl, float* pre, float* hs, int B,
+                            int T, int E, int H, int R, int C, void* stream) {
+  return dispatch_f32<false>(x, wxp, bp, wl, pre, hs, nullptr, nullptr, B, T,
+                             E, H, R, C, stream);
 }
 
 // The same, also writing the BPTT residuals: cs[B, T, H] (cell states) and
 // gates[B, T, 4H] (activated i, f, g, o).
-extern "C" int lstm_fwd_stash_f32(const float* x, const float* wx,
-                                  const float* wh, const float* b, float* hs,
-                                  float* cs, float* gates, int B, int T,
-                                  int E, int H, void* stream) {
-  return dispatch<true>(x, wx, wh, b, hs, cs, gates, B, T, E, H, stream);
+extern "C" int lstm_fwd_stash_f32(const float* x, const float* wxp,
+                                  const float* bp, const float* wl,
+                                  float* pre, float* hs, float* cs,
+                                  float* gates, int B, int T, int E, int H,
+                                  int R, int C, void* stream) {
+  return dispatch_f32<true>(x, wxp, bp, wl, pre, hs, cs, gates, B, T, E, H,
+                            R, C, stream);
+}
+
+// The most clusters of the f32 recurrence (stash = 1: lstm_fwd_stash_f32)
+// at (R, C) that the card holds at once, for H; or minus the cudaError_t.
+// A grid of more clusters runs in waves. The stream is not used.
+extern "C" int lstm_fwd_f32_clusters(int H, int R, int C, int stash,
+                                     void* stream) {
+  (void)stream;
+  if (!f32_widths_ok(4, H, R, C)) return -(int)cudaErrorInvalidValue;
+#define LSTM_FWD_F32_CLUSTERS(RR, CC)                                  \
+  if (R == RR && C == CC) {                                            \
+    return stash ? max_clusters_f32<RR, CC, true>(H)                   \
+                 : max_clusters_f32<RR, CC, false>(H);                 \
+  }
+  LSTM_F32_TILINGS(LSTM_FWD_F32_CLUSTERS)
+#undef LSTM_FWD_F32_CLUSTERS
+  return -(int)cudaErrorInvalidValue;
 }
 
 // The bf16 forward: every tensor bf16 (f32 sums and carry inside). wt is

@@ -166,6 +166,12 @@ class KernelLib:
         with self._lock:
             self._entry_launches[entry] += 1
 
+    def query(self, entry: str, *args) -> int:
+        """Call an entry point that launches nothing (ints in, an int out;
+        the trailing stream argument is null) and return its result. Not
+        counted."""
+        return self._fn(entry)(*args, None)
+
     def count(self, name: str) -> None:
         with self._lock:
             self._launches[name] += 1

@@ -12,8 +12,8 @@ Wh [H, 4H], b [4H])`` and returns ``hs [B, T, H]`` with h0 = c0 = 0.
 * With one, it goes through :class:`LSTMSeq`, the counterpart of the JAX
   package's ``custom_vjp``: the stash forward (``lstm_fwd_stash_*``, which
   also writes the residuals ``cs`` and ``gates``) and the BPTT backward
-  (``csrc/lstm_bwd.cu``: ``lstm_bwd_f32``, or ``lstm_bwd_recurrent_bf16``
-  then ``lstm_bwd_wgrad_bf16``).
+  (``csrc/lstm_bwd.cu``: ``lstm_bwd_recurrent_*`` then
+  ``lstm_bwd_wgrad_*``, one ``lstm_bwd`` launch).
 
 float32 and bfloat16 take the same path; all four tensors of a call share
 one dtype. In bf16 (the mixed-precision step) the TPU kernels' rounding
@@ -23,17 +23,37 @@ recurrent product, hs/cs/gates and dx stored in bf16; the backward rounds
 dpre to bf16 for dx, the dh carry, dWx and dWh but sums db from the f32
 dpre, and returns dWx, dWh, db as f32 sums rounded to bf16.
 
-The two dtypes have two kernel bodies. f32 takes any E and 4H <= 512. The
-bf16 body (tensor cores, weights resident in shared memory) takes E and H
-multiples of 16 with E <= 128, H <= 128 and the weights within a block's
-shared memory (:func:`check_bf16_widths`; config #4's E=64, H=128 runs);
-on other widths a bf16 call raises a ``ValueError`` naming the
-constraint. Its layouts are plain functions here, held against the twins
-on the CPU: the forward's permuted weight copy
-(:func:`fwd_weight_layout`), and the backward's split into a serial half
-(:func:`lstm_bwd_recurrent_plain`: a bf16 dpre workspace and f32 db
-partials a 16-row tile) and a parallel half (:func:`lstm_bwd_wgrad_plain`,
-with h_{t-1} from :func:`wgrad_rows_plain`).
+The two dtypes have two kernel bodies, each with its layouts as plain
+functions here, held against the twins on the CPU.
+
+* f32 (FFMA on the FP32 pipes, f32 sums). The forward is x . Wx + b for
+  every (b, t) as one tile product (:func:`f32_xproj_layout`), then the
+  recurrence on a thread-block cluster of C blocks over the hidden units
+  of an R-row batch tile: each block's slice of Wh in its shared memory
+  (:func:`f32_fwd_weight_layout`), h handed to every block through
+  distributed shared memory behind mbarriers, no barrier a step, and a
+  cluster barrier at the end so that no block exits while a peer may write
+  into it. :func:`f32_tiling` picks R and C by batch. The backward's
+  serial half (:func:`lstm_bwd_recurrent_plain` at R rows a tile: an f32
+  dpre workspace and f32 db partials a tile; the cluster's own split in
+  :func:`lstm_bwd_recurrent_f32_layout_plain`) reads
+  :func:`f32_rec_weight_layout`, and its parallel half is
+  :func:`lstm_bwd_wgrad_plain`. It takes E a multiple of 4 and H a
+  multiple of 8 whose tilings fit 512 threads and a block's shared memory
+  (:func:`check_f32_widths`; config #4's E=64, H=128, E=H=8 and E=H=128
+  run). Widths the earlier scalar body took (any E, 4H <= 512) outside
+  that set, e.g. E=5, H=6 or H=72, raise a ``ValueError``.
+* bf16 (tensor cores, weights resident in shared memory) takes E and H
+  multiples of 16 with E <= 128, H <= 128 and the weights within a block's
+  shared memory (:func:`check_bf16_widths`; config #4's E=64, H=128 runs).
+  Its layouts: the forward's permuted weight copy
+  (:func:`fwd_weight_layout`), and the backward's split into a serial half
+  (:func:`lstm_bwd_recurrent_plain`: a bf16 dpre workspace and f32 db
+  partials a 16-row tile) and a parallel half
+  (:func:`lstm_bwd_wgrad_plain`, with h_{t-1} from
+  :func:`wgrad_rows_plain`).
+
+On other widths a call raises a ``ValueError`` naming the constraint.
 
 Each kernel has a plain twin here (:func:`lstm_seq_plain`,
 :func:`lstm_fwd_stash_plain`, :func:`lstm_bwd_plain`). A wrapper takes its
@@ -60,15 +80,16 @@ GATES = ("i", "f", "g", "o")
 #: the C entry points -> (source, argtypes), and the launches so far in
 #: this process, one per wrapper call that launched, by kernel:
 #: ``lstm_fwd`` (``lstm_fwd_f32``, ``lstm_fwd_bf16``), ``lstm_fwd_stash``
-#: (``lstm_fwd_stash_*``) and ``lstm_bwd`` (``lstm_bwd_f32``, or
-#: ``lstm_bwd_recurrent_bf16`` then ``lstm_bwd_wgrad_bf16``).
+#: (``lstm_fwd_stash_*``) and ``lstm_bwd`` (``lstm_bwd_recurrent_*`` then
+#: ``lstm_bwd_wgrad_*``).
 _P, _I = build.PTR, build.INT
 _LIB = build.KernelLib({
-    "lstm_fwd_f32": ("lstm_fwd", [_P] * 5 + [_I] * 4),
-    "lstm_fwd_stash_f32": ("lstm_fwd", [_P] * 7 + [_I] * 4),
+    "lstm_fwd_f32": ("lstm_fwd", [_P] * 6 + [_I] * 6),
+    "lstm_fwd_stash_f32": ("lstm_fwd", [_P] * 8 + [_I] * 6),
     "lstm_fwd_bf16": ("lstm_fwd", [_P] * 4 + [_I] * 4),
     "lstm_fwd_stash_bf16": ("lstm_fwd", [_P] * 6 + [_I] * 4),
-    "lstm_bwd_f32": ("lstm_bwd", [_P] * 13 + [_I] * 5),
+    "lstm_bwd_recurrent_f32": ("lstm_bwd", [_P] * 6 + [_I] * 5),
+    "lstm_bwd_wgrad_f32": ("lstm_bwd", [_P] * 10 + [_I] * 6),
     "lstm_bwd_recurrent_bf16": ("lstm_bwd", [_P] * 6 + [_I] * 3),
     "lstm_bwd_wgrad_bf16": ("lstm_bwd", [_P] * 10 + [_I] * 5),
 }, ("lstm_fwd", "lstm_fwd_stash", "lstm_bwd"))
@@ -188,19 +209,26 @@ def _check(wx, wh, b, x) -> None:
 def _check_cuda(tensors, what: str) -> str:
     """The kernels take contiguous tensors of one dtype, float32 or
     bfloat16, on one CUDA device (``tensors[0]`` is x [B, T, E],
-    ``tensors[1]`` Wh [H, 4H]); f32 takes 4H <= 512, bf16 the widths of
-    :func:`check_bf16_widths`. Anything else raises (nothing falls back to
-    the plain path or to the other body). Returns the entry points' dtype
-    suffix."""
+    ``tensors[1]`` Wh [H, 4H], ``tensors[2]`` Wx); f32 takes the widths of
+    :func:`check_f32_widths` and reads x and Wx in 16-byte vectors, bf16
+    the widths of :func:`check_bf16_widths`. Anything else raises (nothing
+    falls back to the plain path or to the other body). Returns the entry
+    points' dtype suffix."""
     suffix = build.check_cuda(tensors, what, "LSTM")
     E, H = tensors[0].shape[2], tensors[1].shape[0]
     if suffix == "bf16":
         check_bf16_widths(E, H, what)
-    elif 4 * H > 512:
-        raise ValueError(
-            f"the f32 CUDA LSTM kernels take 4H <= 512 (one thread per gate "
-            f"column), got H={H}")
+    else:
+        check_f32_widths(E, H, what)
+        _check_aligned((tensors[0], tensors[2]), what)
     return suffix
+
+
+def _check_aligned(tensors, what: str) -> None:
+    """The f32 kernels read these tensors in 16-byte vectors."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the f32 CUDA LSTM kernels need x, Wx and "
+                         f"hs to start on a 16-byte boundary")
 
 
 # -- the bf16 tensor-core kernels' layouts ---------------------------------
@@ -314,11 +342,14 @@ def wgrad_rows_plain(hs: torch.Tensor) -> torch.Tensor:
     return torch.where(first, torch.zeros_like(prev), prev)
 
 
-def lstm_bwd_recurrent_plain(wh, cs, gates, dhs) -> tuple:
-    """The serial half of the bf16 backward's split, in plain PyTorch:
-    the workspace ``dpre_c [B, T, 4H]`` (dpre rounded to Wh's dtype) and
-    the f32 db partials ``[ceil(B / 16), 4H]`` of the kernel's 16-row
-    tiles, summed from the unrounded dpre."""
+def lstm_bwd_recurrent_plain(wh, cs, gates, dhs, rows: int = BF16_ROWS
+                             ) -> tuple:
+    """The serial half of the backward's split, in plain PyTorch: the
+    workspace ``dpre_c [B, T, 4H]`` (dpre rounded to Wh's dtype: bf16 for
+    the bf16 body, no rounding in f32) and the f32 db partials
+    ``[ceil(B / rows), 4H]`` of the kernel's ``rows``-row tiles (16 for
+    bf16, :func:`f32_tiling`'s R for f32), summed from the unrounded
+    dpre."""
     B, T, H = cs.shape
     whw = widen(wh)
     dh = widen(cs.new_zeros(B, H))
@@ -338,11 +369,17 @@ def lstm_bwd_recurrent_plain(wh, cs, gates, dhs) -> tuple:
         dpre_c = dpre.to(wh.dtype)
         dh = widen(dpre_c) @ whw.t()
         dpres[t], dpres_c[t] = dpre, dpre_c
-    dpre = torch.stack(dpres, dim=1)
-    tiles = -(-B // BF16_ROWS)
-    pad = dpre.new_zeros(tiles * BF16_ROWS - B, T, 4 * H)
-    dbp = torch.cat([dpre, pad]).reshape(tiles, BF16_ROWS * T, 4 * H)
-    return torch.stack(dpres_c, dim=1), dbp.sum(dim=1)
+    return torch.stack(dpres_c, dim=1), _tile_sums(torch.stack(dpres, dim=1),
+                                                   rows)
+
+
+def _tile_sums(dpre: torch.Tensor, rows: int) -> torch.Tensor:
+    """The f32 db partials ``[ceil(B / rows), 4H]``: dpre summed over each
+    ``rows``-row tile's rows and all t."""
+    B, T, G = dpre.shape
+    tiles = -(-B // rows)
+    pad = dpre.new_zeros(tiles * rows - B, T, G)
+    return torch.cat([dpre, pad]).reshape(tiles, rows * T, G).sum(dim=1)
 
 
 def lstm_bwd_wgrad_plain(wx, x, hs, dpre_c, dbp) -> tuple:
@@ -358,6 +395,217 @@ def lstm_bwd_wgrad_plain(wx, x, hs, dpre_c, dbp) -> tuple:
     return dwx.to(wx.dtype), dwh.to(wx.dtype), dbp.sum(dim=0).to(wx.dtype), dx
 
 
+# -- the f32 cluster kernels' layouts ---------------------------------------
+
+#: the f32 tilings built (``csrc/lstm_f32.cuh``): (R rows a tile, C blocks
+#: a cluster), most preferred first within each R. R=16 runs up to 1024
+#: rows (latency-bound serving: little work a block a step), R=32 above
+#: (config #4's training batch of 2048: 64 clusters of two blocks, one
+#: wave). A thread owns one hidden unit's cells in RT rows.
+F32_TILINGS = ((16, 8), (16, 4), (16, 1), (32, 2), (32, 1))
+F32_SMALL_ROWS, F32_LARGE_ROWS = 16, 32
+F32_ROWS_PER_THREAD = {F32_SMALL_ROWS: 2, F32_LARGE_ROWS: 4}
+F32_LARGE_FROM = 1025
+#: the most threads of an f32 block (``lstm_f32::kThreads``)
+F32_MAX_THREADS = 512
+
+
+def f32_tiling(B: int, H: int) -> tuple:
+    """``(R, C)`` of the f32 kernels at batch ``B``: the tile's batch rows
+    and the blocks of its cluster, the most preferred C whose blocks'
+    units fill whole warps (H/C a multiple of 8), else C=1. Config #4
+    (H=128): R=16, C=8 up to B=1024 (B=256: 16 tiles x 8 = 128 blocks);
+    R=32, C=2 above (B=2048: 64 x 2 = 128 blocks)."""
+    R = F32_LARGE_ROWS if B >= F32_LARGE_FROM else F32_SMALL_ROWS
+    return R, next((c for r, c in F32_TILINGS if r == R and H % (8 * c) == 0),
+                   1)
+
+
+def f32_threads(H: int, R: int, C: int) -> int:
+    """Threads of an f32 block: H/C unit slots by R/RT row groups."""
+    return H // C * (R // F32_ROWS_PER_THREAD[R])
+
+
+def f32_fwd_ksplit(H: int, R: int, C: int) -> int:
+    """The thread groups the f32 recurrence cuts its product into over k
+    (``csrc/lstm_fwd.cu f32_fwd_ksplit``): two at R=16 where twice the
+    threads fit a block, else one."""
+    return 2 if R == F32_SMALL_ROWS and 2 * f32_threads(H, R, C) <= \
+        F32_MAX_THREADS else 1
+
+
+def f32_fwd_smem_bytes(H: int, R: int, C: int) -> int:
+    """Shared memory of the f32 recurrence: two mbarriers, the block's Wh
+    slice [H][H/C][4], two h tiles [H][R] and, with the product cut over
+    k, the second group's sums [H/C R][4] (``csrc/lstm_fwd.cu
+    f32_fwd_smem``)."""
+    U = H // C
+    return 16 + 4 * (H * 4 * U + 2 * H * R
+                     + (f32_fwd_ksplit(H, R, C) - 1) * 4 * U * R)
+
+
+def f32_rec_smem_bytes(H: int, R: int, C: int) -> int:
+    """Shared memory of the f32 recurrent backward: two mbarriers, the Wh
+    slice [4U][H], the dpre tile [4U][R] and two receive buffers [C][U][R],
+    U = H/C (``csrc/lstm_bwd.cu f32_rec_smem``)."""
+    U = H // C
+    return 16 + 4 * (4 * U * H + 4 * U * R + 2 * C * U * R)
+
+
+def check_f32_widths(E: int, H: int, what: str = "lstm") -> None:
+    """The widths the f32 kernels take, or a ``ValueError`` naming the
+    constraint: E a multiple of 4 (x moves in 16-byte vectors), H a
+    multiple of 8 (a warp spans 8 units), and at both tilings
+    (:func:`f32_tiling`) at most 512 threads a block and the weight slice
+    and tiles within a block's shared memory. Config #4 (E=64, H=128),
+    E=H=8, E=H=16 and E=H=128 run; H=72 does not."""
+    if E <= 0 or H <= 0 or E % 4 or H % 8:
+        raise ValueError(
+            f"{what}: the f32 CUDA LSTM kernels take E a multiple of 4 and H "
+            f"a multiple of 8, got E={E}, H={H}")
+    for B in (1, F32_LARGE_FROM):
+        R, C = f32_tiling(B, H)
+        threads = f32_threads(H, R, C)
+        if threads > F32_MAX_THREADS:
+            raise ValueError(
+                f"{what}: the f32 CUDA LSTM kernels take at most "
+                f"{F32_MAX_THREADS} threads a block: H={H} at {R}-row tiles "
+                f"over a cluster of {C} needs {threads}")
+        need = max(f32_fwd_smem_bytes(H, R, C), f32_rec_smem_bytes(H, R, C))
+        if need > _MAX_SMEM:
+            raise ValueError(
+                f"{what}: the f32 CUDA LSTM kernels keep the weights in shared "
+                f"memory: H={H} at {R}-row tiles over a cluster of {C} needs "
+                f"{need} bytes a block, more than {_MAX_SMEM}")
+
+
+#: the f32 kernels' occupancy queries: ints in, the most clusters the card
+#: holds at once out (nothing launches; not counted).
+_QUERY = build.KernelLib({
+    "lstm_fwd_f32_clusters": ("lstm_fwd", [_I] * 4),
+    "lstm_bwd_recurrent_f32_clusters": ("lstm_bwd", [_I] * 3),
+}, ())
+
+
+def f32_max_clusters(kernel: str, H: int, R: int, C: int) -> int:
+    """The most clusters of the f32 ``kernel`` (``"lstm_fwd"``,
+    ``"lstm_fwd_stash"`` or ``"lstm_bwd_recurrent"``) at tiling ``(R,
+    C)`` that the card holds at once (``cudaOccupancyMaxActiveClusters``):
+    a call needing ``ceil(B / R)`` clusters runs in that many over this
+    waves. Builds the kernels if needed; raises on a CUDA error."""
+    if kernel == "lstm_bwd_recurrent":
+        n = _QUERY.query("lstm_bwd_recurrent_f32_clusters", H, R, C)
+    else:
+        n = _QUERY.query("lstm_fwd_f32_clusters", H, R, C,
+                         int(kernel == "lstm_fwd_stash"))
+    if n < 0:
+        raise RuntimeError(f"{kernel} cluster query failed: cudaError {-n}")
+    return n
+
+
+def f32_xproj_layout(wx: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Wx and b as the f32 forward's x . Wx product writes its output:
+    ``wxp [E, 4H]`` and ``bp [4H]`` with column ``4 k + g`` holding packed
+    column ``g H + k`` (unit k's four gates side by side). A layout copy
+    made once a call."""
+    E, G = wx.shape
+    H = G // 4
+    wxp = wx.reshape(E, 4, H).transpose(1, 2).reshape(E, G).contiguous()
+    return wxp, b.reshape(4, H).t().reshape(G).contiguous()
+
+
+def f32_fwd_weight_layout(wh: torch.Tensor, C: int) -> torch.Tensor:
+    """Wh as the f32 recurrence's blocks read it: ``[C, H, H/C, 4]``,
+    ``[c, k, u, g]`` holding packed column ``g H + c H/C + u`` of row k, so
+    block c's slice is contiguous and a unit's four gates are one 16-byte
+    read. A layout copy made once a call."""
+    H = wh.shape[0]
+    return wh.reshape(H, 4, C, H // C).permute(2, 0, 3, 1).contiguous()
+
+
+def lstm_fwd_f32_layout_plain(wxp: torch.Tensor, bp: torch.Tensor,
+                              wl: torch.Tensor, x: torch.Tensor,
+                              stash: bool = False):
+    """The forward of :func:`_fwd_plain` as the f32 kernels split it: pre
+    = x . wxp + bp for every (b, t) first (:func:`f32_xproj_layout`), then
+    block c of a cluster adds h_{t-1} . Wh over its slice ``wl[c]``
+    (:func:`f32_fwd_weight_layout`) to the four gates of its units [c U,
+    (c+1) U), and the blocks' h are put together for the next step."""
+    C, H, U, _ = wl.shape
+    B, T, _E = x.shape
+    pre = (x @ wxp + bp).reshape(B, T, C, U, 4)
+    h = x.new_zeros(B, H)
+    c = torch.zeros_like(h)
+    hs, cs, gates = [], [], []
+    for t in range(T):
+        acts = torch.stack([pre[:, t, blk] + (h @ wl[blk].reshape(H, 4 * U))
+                            .reshape(B, U, 4) for blk in range(C)], dim=1)
+        i, f, g, o = (acts[..., k].reshape(B, H) for k in range(4))
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs.append(h)
+        if stash:
+            cs.append(c)
+            gates.append(torch.cat([i, f, g, o], dim=1))
+    if not stash:
+        return torch.stack(hs, dim=1)
+    return (torch.stack(hs, dim=1), torch.stack(cs, dim=1),
+            torch.stack(gates, dim=1))
+
+
+def f32_rec_weight_layout(wh: torch.Tensor, C: int) -> torch.Tensor:
+    """Wh as the f32 recurrent backward's blocks read it: ``[C, 4U, H]``,
+    row j = 4 u' + g of block c holding the weights of packed column ``g H
+    + c U + u'`` (block c's dpre column j) to every unit, ordered ``[h, s,
+    q]`` for unit ``s + U (h CV + q)``, CV = min(C, 4): the thread of slot
+    s reads its C outputs' weights as C/CV runs of CV contiguous floats. A
+    layout copy made once a call."""
+    H = wh.shape[0]
+    U, CV = H // C, min(C, 4)
+    w = wh.reshape(C // CV, CV, U, 4, C, U)  # [h, q, s, g, c, u']
+    return w.permute(4, 5, 3, 0, 2, 1).reshape(C, 4 * U, H).contiguous()
+
+
+def lstm_bwd_recurrent_f32_layout_plain(whl: torch.Tensor, cs, gates, dhs,
+                                        R: int) -> tuple:
+    """The serial half of the f32 backward as the cluster kernel splits it,
+    from :func:`f32_rec_weight_layout`'s ``whl``, at R rows a tile: block c
+    forms dpre of its units' four gate columns, multiplies them by its
+    slice into partials of dh_{t-1} for every unit, and each unit's dh is
+    its C partials summed in rank order, then dhs added. Returns
+    :func:`lstm_bwd_recurrent_plain`'s ``(dpre [B, T, 4H], db partials
+    [ceil(B / R), 4H])``."""
+    C, U4, H = whl.shape
+    U, CV = U4 // 4, min(C, 4)
+    B, T, _ = cs.shape
+    dh_carry = None
+    dc = cs.new_zeros(B, H)
+    dpres = [None] * T
+    for t in range(T - 1, -1, -1):
+        i, f, g, o = gates[:, t].split(H, dim=1)
+        c_t = cs[:, t]
+        c_prev = cs[:, t - 1] if t > 0 else torch.zeros_like(c_t)
+        dh = dhs[:, t] if dh_carry is None else dh_carry + dhs[:, t]
+        tanh_c = torch.tanh(c_t)
+        do = dh * tanh_c
+        dc = dh * o * (1.0 - tanh_c * tanh_c) + dc
+        dpre = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
+                          dc * i * (1.0 - g * g), do * o * (1.0 - o)], dim=1)
+        dc = dc * f
+        dpres[t] = dpre
+        cols = dpre.reshape(B, 4, C, U)  # [b, g, c, u']
+        dh_carry = None
+        for blk in range(C):
+            mine = cols[:, :, blk].transpose(1, 2).reshape(B, 4 * U)
+            part = (mine @ whl[blk]).reshape(B, C // CV, U, CV)  # [h, s, q]
+            part = part.permute(0, 1, 3, 2).reshape(B, H)  # s + U (h CV + q)
+            dh_carry = part if dh_carry is None else dh_carry + part
+    dpre = torch.stack(dpres, dim=1)
+    return dpre, _tile_sums(dpre, R)
+
+
 def lstm_fwd_cuda(wx, wh, b, x) -> torch.Tensor:
     """``lstm_fwd_f32`` / ``lstm_fwd_bf16``: hs of the forward on the card,
     in x's dtype."""
@@ -369,9 +617,18 @@ def lstm_fwd_cuda(wx, wh, b, x) -> torch.Tensor:
         _LIB.launch("lstm_fwd_bf16", x, fwd_weight_layout(wx, wh), b, hs, B,
                     T, E, H)
     else:
-        _LIB.launch("lstm_fwd_f32", x, wx, wh, b, hs, B, T, E, H)
+        R, C = f32_tiling(B, H)
+        _LIB.launch("lstm_fwd_f32", x, *f32_xproj_layout(wx, b),
+                    f32_fwd_weight_layout(wh, C), _pre_workspace(x, H), hs,
+                    B, T, E, H, R, C)
     _LIB.count("lstm_fwd")
     return hs
+
+
+def _pre_workspace(x: torch.Tensor, H: int) -> torch.Tensor:
+    """The f32 forward's scratch: x . Wx + b for every (b, t), [B, T, 4H]."""
+    return torch.empty((*x.shape[:2], 4 * H), dtype=torch.float32,
+                       device=x.device)
 
 
 def lstm_fwd_stash_cuda(wx, wh, b, x) -> tuple:
@@ -388,8 +645,10 @@ def lstm_fwd_stash_cuda(wx, wh, b, x) -> tuple:
         _LIB.launch("lstm_fwd_stash_bf16", x, fwd_weight_layout(wx, wh), b,
                     hs, cs, gates, B, T, E, H)
     else:
-        _LIB.launch("lstm_fwd_stash_f32", x, wx, wh, b, hs, cs, gates, B, T,
-                    E, H)
+        R, C = f32_tiling(B, H)
+        _LIB.launch("lstm_fwd_stash_f32", x, *f32_xproj_layout(wx, b),
+                    f32_fwd_weight_layout(wh, C), _pre_workspace(x, H), hs, cs,
+                    gates, B, T, E, H, R, C)
     _LIB.count("lstm_fwd_stash")
     return hs, cs, gates
 
@@ -405,36 +664,39 @@ def bwd_splits(rows: int) -> int:
     return max(1, min(_MAX_SPLITS, rows // 256))
 
 
-def _check_bf16_half(tensors, what: str) -> None:
-    """A half of the bf16 backward takes bf16 tensors on one CUDA device;
-    its widths are :func:`lstm_bwd_cuda`'s to check (the kernel refuses
-    others with an error)."""
-    if build.check_cuda(tensors, what, "LSTM") != "bf16":
-        raise TypeError(f"{what} is a half of the bf16 backward; got "
-                        f"{tensors[0].dtype}")
-
-
 def lstm_bwd_recurrent_cuda(wh, cs, gates, dhs) -> tuple:
-    """``lstm_bwd_recurrent_bf16``, the serial half of the bf16 backward
-    (:func:`lstm_bwd_recurrent_plain` on the card): the bf16 workspace
-    ``dpre_c [B, T, 4H]`` and the f32 db partials ``[ceil(B / 16), 4H]``.
-    It counts no ``lstm_bwd``: :func:`lstm_bwd_cuda` counts one for both
-    halves."""
-    _check_bf16_half((cs, gates, dhs, wh), "lstm_bwd_recurrent")
+    """``lstm_bwd_recurrent_f32`` / ``lstm_bwd_recurrent_bf16``, the serial
+    half of the backward (:func:`lstm_bwd_recurrent_plain` on the card):
+    the workspace ``dpre [B, T, 4H]`` (f32, or dpre rounded to bf16) and
+    the f32 db partials ``[ceil(B / R), 4H]`` of the R-row tiles (16 in
+    bf16, :func:`f32_tiling`'s R in f32). It counts no ``lstm_bwd``:
+    :func:`lstm_bwd_cuda` counts one for both halves."""
+    # The halves' widths are lstm_bwd_cuda's to check; the kernels refuse
+    # others with an error.
+    suffix = build.check_cuda((cs, gates, dhs, wh), "lstm_bwd_recurrent",
+                              "LSTM")
     B, T, H = cs.shape
+    if suffix == "bf16":
+        R, C = BF16_ROWS, None
+    else:
+        R, C = f32_tiling(B, H)
     dpre = torch.empty((B, T, 4 * H), dtype=cs.dtype, device=cs.device)
-    dbp = torch.empty((-(-B // BF16_ROWS), 4 * H), dtype=torch.float32,
+    dbp = torch.empty((-(-B // R), 4 * H), dtype=torch.float32,
                       device=cs.device)
-    _LIB.launch("lstm_bwd_recurrent_bf16", dhs, cs, gates, wh, dpre, dbp, B,
-                T, H)
+    if suffix == "bf16":
+        _LIB.launch("lstm_bwd_recurrent_bf16", dhs, cs, gates, wh, dpre, dbp,
+                    B, T, H)
+    else:
+        _LIB.launch("lstm_bwd_recurrent_f32", dhs, cs, gates,
+                    f32_rec_weight_layout(wh, C), dpre, dbp, B, T, H, R, C)
     return dpre, dbp
 
 
 def lstm_bwd_wgrad_cuda(wx, x, hs, dpre, dbp) -> tuple:
-    """``lstm_bwd_wgrad_bf16``, the parallel half
+    """``lstm_bwd_wgrad_f32`` / ``lstm_bwd_wgrad_bf16``, the parallel half
     (:func:`lstm_bwd_wgrad_plain` on the card): ``dwx, dwh, db, dx`` in
-    bf16 from the workspace and the db partials."""
-    _check_bf16_half((x, hs, wx, dpre), "lstm_bwd_wgrad")
+    x's dtype from the workspace and the db partials."""
+    suffix = build.check_cuda((x, hs, wx, dpre), "lstm_bwd_wgrad", "LSTM")
     B, T, E = x.shape
     H = hs.shape[2]
     splits = bwd_splits(B * T)
@@ -444,20 +706,25 @@ def lstm_bwd_wgrad_cuda(wx, x, hs, dpre, dbp) -> tuple:
     dwx = torch.empty_like(wx)
     dwh = torch.empty((H, 4 * H), dtype=wx.dtype, device=x.device)
     db = torch.empty((4 * H,), dtype=wx.dtype, device=x.device)
-    _LIB.launch("lstm_bwd_wgrad_bf16", x, hs, wx, dpre, dbp, partial, dx,
-                dwx, dwh, db, B, T, E, H, splits)
+    if suffix == "bf16":
+        _LIB.launch("lstm_bwd_wgrad_bf16", x, hs, wx, dpre, dbp, partial, dx,
+                    dwx, dwh, db, B, T, E, H, splits)
+    else:
+        _check_aligned((x, hs, wx), "lstm_bwd_wgrad")
+        _LIB.launch("lstm_bwd_wgrad_f32", x, hs, wx, dpre, dbp, partial, dx,
+                    dwx, dwh, db, B, T, E, H, splits, dbp.shape[0])
     return dwx, dwh, db, dx
 
 
 def lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs) -> tuple:
-    """``lstm_bwd_f32``, or ``lstm_bwd_recurrent_bf16`` then
-    ``lstm_bwd_wgrad_bf16``: ``dwx, dwh, db, dx`` on the card in the
-    inputs' dtype (the same outputs as :func:`lstm_bwd_plain`), one
-    ``lstm_bwd`` launch. Allocates the kernels' scratch: the dpre
-    workspace [B, T, 4H] (f32, or bf16 for the bf16 body, which also keeps
-    f32 db partials a 16-row tile) and the weight-gradient partials."""
-    suffix = _check_cuda((x, wh, wx, hs, cs, gates, dhs), "lstm_bwd")
-    B, T, E = x.shape
+    """``lstm_bwd_recurrent_*`` then ``lstm_bwd_wgrad_*``: ``dwx, dwh, db,
+    dx`` on the card in the inputs' dtype (the same outputs as
+    :func:`lstm_bwd_plain`), one ``lstm_bwd`` launch. The halves allocate
+    the kernels' scratch: the dpre workspace [B, T, 4H] (f32, or bf16 for
+    the bf16 body), f32 db partials an R-row tile and the weight-gradient
+    partials."""
+    _check_cuda((x, wh, wx, hs, cs, gates, dhs), "lstm_bwd")
+    B, T, _E = x.shape
     H = wh.shape[0]
     if (tuple(hs.shape) != (B, T, H) or tuple(cs.shape) != (B, T, H)
             or tuple(dhs.shape) != (B, T, H)
@@ -467,23 +734,8 @@ def lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs) -> tuple:
             f"[B, T, 4H] for x {tuple(x.shape)}; got hs {tuple(hs.shape)}, cs "
             f"{tuple(cs.shape)}, dhs {tuple(dhs.shape)}, gates "
             f"{tuple(gates.shape)}")
-    if suffix == "bf16":
-        dwx, dwh, db, dx = lstm_bwd_wgrad_cuda(
-            wx, x, hs, *lstm_bwd_recurrent_cuda(wh, cs, gates, dhs))
-    else:
-        dev = x.device
-        splits = bwd_splits(B * T)
-        dx = torch.empty_like(x)
-        dwx = torch.empty_like(wx)
-        dwh = torch.empty_like(wh)
-        db = torch.empty((4 * H,), dtype=wx.dtype, device=dev)
-        wxt = wx.t().contiguous()          # layout copies: coalesced reads
-        wht = wh.t().contiguous()
-        dpre = torch.empty((B, T, 4 * H), dtype=torch.float32, device=dev)
-        partial = torch.empty((splits, E + H + 1, 4 * H),
-                              dtype=torch.float32, device=dev)
-        _LIB.launch("lstm_bwd_f32", dhs, x, hs, cs, gates, wxt, wht, dx,
-                    dwx, dwh, db, dpre, partial, B, T, E, H, splits)
+    dwx, dwh, db, dx = lstm_bwd_wgrad_cuda(
+        wx, x, hs, *lstm_bwd_recurrent_cuda(wh, cs, gates, dhs))
     _LIB.count("lstm_bwd")
     return dwx, dwh, db, dx
 

@@ -38,9 +38,9 @@ def packed():
 
 @pytest.mark.parametrize("B", [1, 3, 131])
 def test_kernel_matches_plain_on_card(packed, B):
-    """One row per block (B <= 128) and two (B > 128, with a ragged last
-    block at 131); atol 1e-5 on hs in (-1, 1): the same f32 arithmetic
-    summed in another order over 200 steps."""
+    """Batches below one 16-row tile (1, 3) and a ragged last tile (131);
+    atol 1e-5 on hs in (-1, 1): the same f32 arithmetic summed in another
+    order over 200 steps."""
     wx, wh, b, g = packed
     x = torch.randn(B, T, E, generator=g).cuda()
     before = K.launch_counts()["lstm_fwd"]
@@ -126,6 +126,86 @@ def test_backward_matches_plain_on_card(packed, B):
     for a, a2, r in zip(got, again, ref):
         assert torch.equal(a, a2)
         assert _grad_err(a, r) <= 1e-4
+
+
+#: batches on each side of the f32 tiling's switch (``K.f32_tiling``),
+#: each with a ragged last tile: 1000 rows are 62 16-row tiles and 8 rows,
+#: 1100 are 34 32-row tiles and 12 rows.
+F32_SWITCH_BATCHES = [K.F32_LARGE_FROM - 25, K.F32_LARGE_FROM + 75]
+
+
+@pytest.mark.parametrize("B", F32_SWITCH_BATCHES)
+def test_f32_kernels_on_each_side_of_the_tiling_switch(packed, B):
+    """The f32 forward, stash forward and backward at a batch of each
+    tiling, ragged: hs, cs, gates within atol 1e-5 of the twins (as above);
+    dwx, dwh, db, dx within rtol 1e-4 of each output's largest magnitude of
+    the twin on the same residuals; two backward calls give the same
+    bits."""
+    wx, wh, b, g = packed
+    R, _C = K.f32_tiling(B, H)
+    assert B % R and R == (K.F32_LARGE_ROWS if B >= K.F32_LARGE_FROM
+                           else K.F32_SMALL_ROWS)
+    x = torch.randn(B, T, E, generator=g).cuda()
+    dhs = (torch.randn(B, T, H, generator=g) / 10).cuda()
+    hs = K.lstm_fwd_cuda(wx, wh, b, x)
+    stash = K.lstm_fwd_stash_cuda(wx, wh, b, x)
+    got = K.lstm_bwd_cuda(wx, wh, x, *stash, dhs)
+    again = K.lstm_bwd_cuda(wx, wh, x, *stash, dhs)
+    torch.cuda.synchronize()
+    ref = K.lstm_fwd_stash_plain(wx, wh, b, x)
+    for a, r in zip((hs, *stash), (ref[0], *ref)):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-5)
+    for a, a2, r in zip(got, again,
+                        K.lstm_bwd_plain(wx, wh, x, *stash, dhs)):
+        assert torch.equal(a, a2)
+        assert _grad_err(a, r) <= 1e-4
+
+
+#: the f32 body's C entry points: the forward, the stash forward and the
+#: backward's two halves.
+F32_ENTRIES = ("lstm_fwd_f32", "lstm_fwd_stash_f32", "lstm_bwd_recurrent_f32",
+               "lstm_bwd_wgrad_f32")
+
+
+def test_f32_entry_points_launch_once_per_wrapper_call(packed):
+    """Inference launches ``lstm_fwd_f32`` once; a gradient launches the
+    stash forward once and each half of the backward once, counted as one
+    ``lstm_bwd``; nothing else of the LSTM launches."""
+    wx, wh, b, g = packed
+    x = torch.randn(5, T, E, generator=g).cuda()
+    K.reset_launches()
+    with torch.inference_mode():
+        K.lstm_seq(wx, wh, b, x)
+    params = [t.clone().requires_grad_() for t in (wx, wh, b, x)]
+    hs = K.lstm_seq(*params)
+    torch.autograd.grad(hs[:, -1].square().sum(), params)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in K.launch_counts(by_entry=True).items() if v}
+    assert launched == dict.fromkeys(F32_ENTRIES, 1)
+    assert K.launch_counts() == {"lstm_fwd": 1, "lstm_fwd_stash": 1,
+                                 "lstm_bwd": 1}
+
+
+@pytest.mark.parametrize("E_,H_,what", [(6, 128, "multiple of 4"),
+                                        (64, 12, "multiple of 8"),
+                                        (64, 72, "512 threads"),
+                                        (8, 120, "512 threads")])
+def test_f32_widths_the_kernels_refuse_raise(card, E_, H_, what):
+    """Widths the earlier scalar f32 body took (4H <= 512) and the cluster
+    body does not: every f32 wrapper raises a ValueError naming the
+    constraint, and nothing launches (no other body, no twin)."""
+    g = torch.Generator().manual_seed(0)
+    wx, wh, b = (torch.randn(*s, generator=g).cuda()
+                 for s in ((E_, 4 * H_), (H_, 4 * H_), (4 * H_,)))
+    x = torch.randn(2, 3, E_, generator=g).cuda()
+    res = [torch.zeros(2, 3, n, device="cuda") for n in (H_, H_, 4 * H_, H_)]
+    before = K.launch_counts(by_entry=True)
+    for call in (lambda: K.lstm_fwd_cuda(wx, wh, b, x),
+                 lambda: K.lstm_fwd_stash_cuda(wx, wh, b, x),
+                 lambda: K.lstm_bwd_cuda(wx, wh, x, *res)):
+        with pytest.raises(ValueError, match=what):
+            call()
+    assert K.launch_counts(by_entry=True) == before
 
 
 @pytest.fixture
