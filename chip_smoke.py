@@ -44,6 +44,17 @@ and every parity phase holds the card's bf16 run to the CPU's within
    wrappers' calls timed inside it), and a parity run:
    the same trainer at full width and batch 32 on the card and on the CPU
    (the plain twins), from the same weights, whose centers must agree.
+   Then ``lstm_widths``: ``lstm_seq`` forward and gradient at widths the
+   kernels take only zero-padded or through the bf16 xw body (E=5, H=6 and
+   H=72 in both dtypes, bf16 E=H=128 at B=2048, f32 H=192 and 256 at both
+   tilings), against the twins at the kernel rows' limits, the launch
+   counts set to 0 before each call and read after; ``lstm_refused``
+   (f32 H=512 and bf16 H=144 raise a ``ValueError`` naming the
+   constraint, nothing launched); ``lstm_bf16_bodies`` (config #4's bf16
+   stash forward on the resident body its width picks and on the xw body,
+   timed in turns); and ``imdb_lstm()`` at its own defaults (E=H=128,
+   sequence 80) trained 2 rounds in bf16 as ``train`` trains config #4,
+   every stash forward on the xw body.
 4. ``serve`` — the port's serving path as a user drives it, on the weights
    ``train`` returned: ``ModelRegistry`` -> ``ServingFrontend`` ->
    ``ServeClient.infer`` with ragged and concurrent requests. Every answer
@@ -56,7 +67,13 @@ and every parity phase holds the card's bf16 run to the CPU's within
    uses there): forward and backward errors, two backward calls' bits,
    kernel, plain and ``F.group_norm`` (+ReLU, forward and autograd
    backward; a yardstick the port never calls) times by CUDA events,
-   beside the bound (bytes over 3.35 TB/s).
+   beside the bound (bytes over 3.35 TB/s), with the share of the bound,
+   the ratio to the library call and the tiling each call ran
+   (``gn_tiling``); before the phases, ``gn_build`` gives the GroupNorm
+   kernels' registers and spills (a spill fails the run). Then
+   ``gn_uncached``: the same checks (and two forward calls' bits) at a
+   slab whose rows outgrow 16 blocks' shared memory (``GN_UNCACHED``, the
+   stem of a 448x448 image), read again from L2 in each sweep.
 6. ``resnet_train`` — BASELINE config #5 as a user drives it:
    ``SynchronousDistributedTrainer(resnet50(norm_impl="pallas"))`` at
    224x224, 1000 classes, batch 128, ``steps_per_program=2``, 3 rounds, f32,
@@ -131,14 +148,16 @@ and every parity phase holds the card's bf16 run to the CPU's within
     (logits) and a half (center) of the CPU run's flash-vs-dense
     distance.
 
-Then the ``kernels`` line, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.
+Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
+card's name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import json
 import os
 import re
@@ -163,6 +182,9 @@ TRAIN_ROUNDS = 3
 PARITY = dict(num_workers=2, batch_size=32, communication_window=2,
               learning_rate=0.01)
 PARITY_ROUNDS = 2
+#: ``imdb_lstm()`` at its own defaults (E=H=128, seq_len 80), trained in
+#: bf16 as config #4's run is, cut to 2 rounds.
+IMDB_ROUNDS = 2
 
 #: kernel vs plain on hs in (-1, 1): the same f32 arithmetic summed in
 #: another order (192-term gate sums), over a 200-step recurrence. The
@@ -782,20 +804,24 @@ def only_dtype(name: str, entries: dict, dtype: str) -> None:
 
 
 def train_phase(torch, K, gpu: str, seed: int, dtype: str = "float32",
-                rounds: int = TRAIN_ROUNDS):
-    """Train as a user would, at ``compute_dtype=dtype``; returns the
-    trained model and the launch counts of the run."""
+                rounds: int = TRAIN_ROUNDS, widths: dict = None,
+                stash_entry: str = None):
+    """Train as a user would, at ``compute_dtype=dtype``, config #4's
+    model or ``imdb_lstm(**widths)``; returns the trained model and the
+    launch counts of the run. With ``stash_entry``, every stash forward of
+    the run must have launched that C entry point."""
     from distkeras_tpu_torch import imdb_lstm, telemetry
     from distkeras_tpu_torch.datasets import imdb
     from distkeras_tpu_torch.ops.optimizers import sgd
     from distkeras_tpu_torch.trainers import DynSGD
 
-    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
-                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    widths = widths or dict(vocab_size=VOCAB, embed_dim=EMBED,
+                            hidden_size=HIDDEN, seq_len=SEQ_LEN)
+    model = imdb_lstm(**widths, seed=seed, device="cuda")
     W, Kw, B = (TRAIN["num_workers"], TRAIN["communication_window"],
                 TRAIN["batch_size"])
-    df = imdb(n=rounds * W * Kw * B, vocab_size=VOCAB, seq_len=SEQ_LEN,
-              seed=seed)
+    df = imdb(n=rounds * W * Kw * B, vocab_size=widths["vocab_size"],
+              seq_len=widths["seq_len"], seed=seed)
     trainer = DynSGD(model, worker_optimizer="sgd",
                      loss="sparse_categorical_crossentropy", **TRAIN,
                      compute_dtype=dtype)
@@ -823,7 +849,8 @@ def train_phase(torch, K, gpu: str, seed: int, dtype: str = "float32",
                        dtype=getattr(torch, dtype))
     snap = telemetry.get().snapshot()
     emit({"phase": "train", "gpu": gpu, "trainer": "DynSGD",
-          "rounds": rounds, **TRAIN, "dtype": dtype,
+          "model": f"imdb_lstm({widths})", "rounds": rounds, **TRAIN,
+          "dtype": dtype,
           "compute_dtype": dtype, "launches_by_entry": entries,
           "peak_memory_gb": peak / 1e9,
           "seconds": wall, "samples_per_s": steps * B / wall,
@@ -854,8 +881,157 @@ def train_phase(torch, K, gpu: str, seed: int, dtype: str = "float32",
     if launches["lstm_fwd"] != 0:
         fail(f"training launched the inference forward "
              f"{launches['lstm_fwd']} times")
+    if stash_entry and entries[stash_entry] != launches["lstm_fwd_stash"]:
+        fail(f"imdb_lstm({widths}) ran {entries[stash_entry]} of its "
+             f"{launches['lstm_fwd_stash']} stash forwards on "
+             f"{stash_entry}")
     only_dtype("DynSGD", entries, dtype)
     return trained, launches
+
+
+#: widths the kernels refuse and the model boundary pads (``ops/kernels/
+#: lstm.py padded_widths``), run through ``lstm_seq`` as the model calls
+#: it, at ``imdb_lstm()``'s default sequence length (80): (dtype, B, E, H). The JAX package's own test width (5, 6) in
+#: both dtypes (f32 runs it at (8, 8), bf16 at (16, 16)), H=72 (both at
+#: 80), ``imdb_lstm()``'s E=H=128 in bf16 at the training batch (the xw
+#: body: x . Wx first, only Wh resident), and f32 H=192 and 256 at a
+#: serving and a training batch (both R).
+LSTM_WIDTHS = (("float32", 16, 5, 6), ("bfloat16", 16, 5, 6),
+               ("float32", 256, 64, 72), ("bfloat16", 256, 64, 72),
+               ("bfloat16", 2048, 128, 128),
+               ("float32", 256, 64, 192), ("float32", 2048, 64, 192),
+               ("float32", 256, 64, 256), ("float32", 2048, 64, 256))
+#: widths that stay refused on the card: (dtype, E, H, what the ValueError
+#: names); nothing may launch.
+LSTM_WIDTHS_SEQ = 80
+LSTM_REFUSED = (("float32", 64, 512, "shared memory"),
+                ("bfloat16", 64, 144, "H <= 128"))
+
+
+def lstm_widths_phase(torch, K, seed: int) -> list:
+    """``lstm_seq`` at :data:`LSTM_WIDTHS`, without a gradient (the
+    forward) and with one (the stash forward and the backward, through
+    ``LSTMSeq``), against the plain twins on the same inputs at the
+    unpadded widths, at the kernel rows' limits; the launch counts set to
+    0 just before each call and read just after. Then the refused widths,
+    and config #4's bf16 stash forward on both bf16 bodies in turns (the
+    resident one its width picks, and the xw body launched directly)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    names = ("dwx", "dwh", "db", "dx")
+    T = LSTM_WIDTHS_SEQ
+    for name, B, E, H in LSTM_WIDTHS:
+        dt = getattr(torch, name)
+
+        def draw(*size, scale=1.0):
+            return (torch.randn(size, device="cuda", generator=gen)
+                    * scale).to(dt)
+
+        wx, wh = draw(E, 4 * H, scale=E ** -0.5), draw(H, 4 * H,
+                                                        scale=H ** -0.5)
+        b, x, dhs = draw(4 * H, scale=0.1), draw(B, T, E), draw(B, T, H,
+                                                                scale=0.1)
+        row = {"phase": "lstm_widths", "dtype": name, "B": B, "T": T,
+               "E": E, "H": H, "padded": list(K.padded_widths(E, H, dt))}
+        K.reset_launches()
+        with torch.no_grad():
+            hs = K.lstm_seq(wx, wh, b, x)
+        torch.cuda.synchronize()
+        fwd_counts = K.launch_counts()
+        fwd_entries = {k: v for k, v in K.launch_counts(by_entry=True).items()
+                       if v}
+        leaves = [t.clone().requires_grad_() for t in (wx, wh, b, x)]
+        K.reset_launches()
+        grads = torch.autograd.grad(K.lstm_seq(*leaves), leaves, dhs)
+        torch.cuda.synchronize()
+        grad_counts = K.launch_counts()
+        grad_entries = {k: v for k, v in
+                        K.launch_counts(by_entry=True).items() if v}
+        row.update(fwd_launches=fwd_entries, grad_launches=grad_entries)
+        if fwd_counts != {"lstm_fwd": 1, "lstm_fwd_stash": 0,
+                          "lstm_bwd": 0} or grad_counts != {
+                "lstm_fwd": 0, "lstm_fwd_stash": 1, "lstm_bwd": 1}:
+            fail(f"lstm_seq at E={E}, H={H} {name} launched {fwd_counts} "
+                 f"(forward) and {grad_counts} (gradient)")
+        ref = K.lstm_seq_plain(wx, wh, b, x)
+        res = K.lstm_fwd_stash_plain(wx, wh, b, x)
+        plain = K.lstm_bwd_plain(wx, wh, x, *res, dhs)
+        del res
+        if name == "float32":
+            err = (hs - ref).abs().max().item()
+            rel = {n: rel_err(torch, a, r)
+                   for n, a, r in zip(names, grads, plain)}
+            row.update(max_abs_err=err, atol=KERNEL_ATOL, bwd_rel_err=rel,
+                       rtol=BWD_RTOL)
+            if not (err <= KERNEL_ATOL and max(rel.values()) <= BWD_RTOL):
+                fail(f"lstm_seq at E={E}, H={H} f32 disagrees with the "
+                     f"twins: {row}")
+        else:
+            row.update(fwd=check_bf16_lstm("lstm_fwd", B, [(hs, ref)]),
+                       bwd=check_bf16_lstm("lstm_bwd", B,
+                                           zip(grads, plain)))
+            row["max_abs_err"] = max(row["fwd"]["max_abs_err"],
+                                     row["bwd"]["max_abs_err"])
+        del hs, ref, plain, grads
+
+        def train_step():
+            return torch.autograd.grad(K.lstm_seq(*leaves), leaves, dhs)
+
+        with torch.no_grad():
+            row["ms"] = cuda_ms(torch, lambda: K.lstm_seq(wx, wh, b, x), 3)
+        row["grad_ms"] = cuda_ms(torch, train_step, 3)
+        emit(row)
+        rows.append(row)
+        del leaves, wx, wh, b, x, dhs
+        torch.cuda.empty_cache()
+
+    for name, E, H, what in LSTM_REFUSED:
+        dt = getattr(torch, name)
+        wx, wh, b = (torch.zeros(s, device="cuda", dtype=dt)
+                     for s in ((E, 4 * H), (H, 4 * H), (4 * H,)))
+        x = torch.zeros((2, 3, E), device="cuda", dtype=dt)
+        K.reset_launches()
+        try:
+            K.lstm_seq(wx, wh, b, x)
+            fail(f"lstm_seq ran E={E}, H={H} {name}, which the kernels "
+                 f"do not take")
+        except ValueError as e:
+            said = str(e)
+        if what not in said or any(K.launch_counts(by_entry=True).values()):
+            fail(f"lstm_seq at E={E}, H={H} {name} raised {said!r} and "
+                 f"launched {K.launch_counts(by_entry=True)}")
+        emit({"phase": "lstm_refused", "dtype": name, "E": E, "H": H,
+              "error": said})
+
+    # config #4 in bf16: the resident body (its width's) against the xw
+    # body, which the wrapper never picks there, launched directly.
+    B, T, E, H = STASH_BATCHES[-1], SEQ_LEN, EMBED, HIDDEN
+    dt = torch.bfloat16
+    wx = (torch.randn((E, 4 * H), device="cuda", generator=gen) / 8).to(dt)
+    wh = (torch.randn((H, 4 * H), device="cuda", generator=gen) / 11).to(dt)
+    b = (torch.randn(4 * H, device="cuda", generator=gen) / 10).to(dt)
+    x = torch.randn((B, T, E), device="cuda", generator=gen).to(dt)
+
+    def xw_stash():
+        hs = torch.empty((B, T, H), device="cuda", dtype=dt)
+        cs = torch.empty_like(hs)
+        gates = torch.empty((B, T, 4 * H), device="cuda", dtype=dt)
+        K._LIB.launch("lstm_fwd_stash_xw_bf16", x, K.xw_xproj_layout(wx),
+                      K.xw_rec_weight_layout(wh), b,
+                      K._pre_workspace(x, H), hs, cs, gates, B, T, E, H)
+        return hs, cs, gates
+
+    with torch.no_grad():
+        errs = check_bf16_lstm("lstm_fwd_stash_xw", B, zip(
+            xw_stash(), K.lstm_fwd_stash_plain(wx, wh, b, x)))
+        t = interleaved_ms(torch, {
+            "resident": lambda: K.lstm_fwd_stash_cuda(wx, wh, b, x),
+            "xw": xw_stash}, 10)
+    emit({"phase": "lstm_bf16_bodies", "B": B, "T": T, "E": E, "H": H,
+          "body": K.bf16_fwd_body(E, H), **errs,
+          "resident_ms": t["resident"][0], "xw_ms": t["xw"][0],
+          "resident_readings": t["resident"][1], "xw_readings": t["xw"][1]})
+    return rows
 
 
 def center_dist(a: dict, b: dict, how: str) -> float:
@@ -1138,12 +1314,19 @@ def gn_kernel_phase(torch, G, seed: int) -> dict:
                    "fwd_max_abs_err": fwd_err, "fwd_rel_err": fwd_rel,
                    "bwd_max_abs_err": bwd_abs, "bwd_rel_err": bwd_rel,
                    "repeatable_bits": repeatable,
-                   "rows_per_chunk": G.rows_per_chunk(N, C),
+                   "tiling": G.gn_tiling(N, C, GN_GROUPS, size,
+                                         False)._asdict(),
+                   "bwd_tiling": G.gn_tiling(N, C, GN_GROUPS, size,
+                                             True)._asdict(),
                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bwd_ms": bwd_ms, "bwd_plain_ms": plain_bwd_ms,
                    "bwd_library_ms": library_bwd_ms,
-                   "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_bound_by}
+                   "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_bound_by,
+                   "bound_share": bound_ms / ms,
+                   "bwd_bound_share": bwd_bound / bwd_ms,
+                   "ratio_to_library": ms / library_ms,
+                   "bwd_ratio_to_library": bwd_ms / library_bwd_ms}
             if name == "float32":
                 row.update(atol=GN_ATOL, rtol=GN_BWD_RTOL)
                 fwd_ok = fwd_err <= GN_ATOL
@@ -1167,6 +1350,78 @@ def gn_kernel_phase(torch, G, seed: int) -> dict:
         del x32, dy32
         torch.cuda.empty_cache()
     return rows
+
+
+#: a slab past what 16 blocks keep in shared memory: the stem of a
+#: 448x448 image (224x224x64, G=32, ReLU), at a batch of 16
+GN_UNCACHED = (16, 224 * 224, 64, True)
+
+
+def gn_uncached_phase(torch, G, seed: int) -> None:
+    """The GroupNorm kernels where a block's rows outgrow its shared
+    memory (``GN_UNCACHED``), at the wrappers' own tiling, in f32 and
+    bf16: part of each block's rows is read from global memory (L2) in
+    every sweep. Held to the plain twins at the slabs' limits, with
+    repeatable bits, and timed beside the bound."""
+    B, N, C, relu = GN_UNCACHED
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    x32, dy32 = (torch.randn((B, N, C), device="cuda", generator=gen)
+                 for _ in range(2))
+    g32, b32 = (torch.randn(C, device="cuda", generator=gen)
+                for _ in range(2))
+    for name in DTYPES:
+        x, dy, gamma, beta = (t.to(getattr(torch, name))
+                              for t in (x32, dy32, g32, b32))
+        size = x.element_size()
+        tilings = [G.gn_tiling(N, C, GN_GROUPS, size, bwd)
+                   for bwd in (False, True)]
+        if any(t.cached >= t.rows for t in tilings):
+            fail(f"GroupNorm at {GN_UNCACHED} {name} caches every row: "
+                 f"{tilings}")
+        args = (gamma, beta, GN_GROUPS, relu)
+        dy = relu_margin(torch, G, x, dy, gamma, beta,
+                         1e-3 if name == "float32" else 1e-2)
+        y = G.group_norm_fwd_cuda(x, *args)
+        y2 = G.group_norm_fwd_cuda(x, *args)
+        got = G.group_norm_bwd_cuda(x, dy, *args)
+        again = G.group_norm_bwd_cuda(x, dy, *args)
+        torch.cuda.synchronize()
+        y_ref = G.group_norm_fwd_plain(x, *args)
+        plain = G.group_norm_bwd_plain(x, dy, *args)
+        fwd_err = (y.float() - y_ref.float()).abs().max().item()
+        fwd_rel = rel_err(torch, y, y_ref)
+        bwd_rel = {n: rel_err(torch, a, r) for n, a, r in
+                   zip(("dx", "dgamma", "dbeta"), got, plain)}
+        repeatable = torch.equal(y, y2) and all(
+            torch.equal(a, a2) for a, a2 in zip(got, again))
+        del y, y2, y_ref, got, again, plain
+        ms = cuda_ms(torch, lambda: G.group_norm_fwd_cuda(x, *args), 10)
+        bwd_ms = cuda_ms(
+            torch, lambda: G.group_norm_bwd_cuda(x, dy, *args), 10)
+        bound_ms, _ = gn_bound_ms(B, N, C, False, size)
+        bwd_bound, _ = gn_bound_ms(B, N, C, True, size)
+        if name == "float32":
+            ok = fwd_err <= GN_ATOL and max(bwd_rel.values()) <= GN_BWD_RTOL
+        else:
+            ok = max(fwd_rel, *bwd_rel.values()) <= GN_BF16_TOP
+        emit({"phase": "gn_uncached", "B": B, "N": N, "C": C,
+              "groups": GN_GROUPS, "relu": relu, "dtype": name,
+              "tiling": tilings[0]._asdict(),
+              "bwd_tiling": tilings[1]._asdict(),
+              "fwd_max_abs_err": fwd_err, "fwd_rel_err": fwd_rel,
+              "bwd_rel_err": bwd_rel, "repeatable_bits": repeatable,
+              "ms": ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+              "bwd_ms": bwd_ms, "bwd_bound_ms": bwd_bound,
+              "bwd_bound_share": bwd_bound / bwd_ms, "ok": ok})
+        if not ok:
+            fail(f"GroupNorm past the cached rows disagrees with its plain "
+                 f"twins at {GN_UNCACHED} {name}")
+        if not repeatable:
+            fail(f"GroupNorm past the cached rows gave different bits on "
+                 f"two calls at {GN_UNCACHED} {name}")
+        del x, dy
+    del x32, dy32
+    torch.cuda.empty_cache()
 
 
 def resnet_data(n: int, seed: int):
@@ -1932,14 +2187,15 @@ def flash_registers(log: str) -> list:
 
 #: the bf16 LSTM tensor-core kernels of csrc/lstm_fwd.cu (stash and plain)
 #: and csrc/lstm_bwd.cu.
-LSTM_TC_KERNELS = ("lstm_fwd_tc", "lstm_fwd_tc", "lstm_bwd_rec_tc",
+LSTM_TC_KERNELS = ("lstm_fwd_tc", "lstm_fwd_tc", "lstm_xproj_tc",
+                   "lstm_fwd_xw_tc", "lstm_fwd_xw_tc", "lstm_bwd_rec_tc",
                    "lstm_bwd_wgrad_tc", "lstm_dx_tc", "lstm_wgrad_reduce_tc")
-#: the f32 LSTM kernels: x . Wx, the cluster recurrence at each tiling of
-#: ``K.F32_TILINGS`` (stash and plain), the cluster recurrent backward at
-#: each, and the weight-gradient, dx and reduce kernels.
+#: the f32 LSTM kernels: x . Wx, the cluster recurrence at each of the 8
+#: tilings of ``K.F32_TILINGS`` (stash and plain), the cluster recurrent
+#: backward at each, and the weight-gradient, dx and reduce kernels.
 LSTM_F32_KERNELS = (("lstm_xproj_f32",)
-                    + ("lstm_fwd_cluster",) * 2 * 5
-                    + ("lstm_bwd_rec_cluster",) * 5
+                    + ("lstm_fwd_cluster",) * 2 * 8
+                    + ("lstm_bwd_rec_cluster",) * 8
                     + ("lstm_wgrad_f32", "lstm_dx_f32",
                        "lstm_wgrad_reduce_f32"))
 
@@ -1959,6 +2215,24 @@ def lstm_registers(log: str) -> list:
                     **({"stash": m.group(4) == "1"} if m.group(4) else {})}
         m = re.search(r"\d(lstm_\w+_f32)E", ln)
         return None if m is None else {"kernel": m.group(1), "dtype": "f32"}
+    return ptxas_kernels(log, name)
+
+
+#: the GroupNorm kernels of csrc/groupnorm.cu: the forward and the
+#: backward's first kernel at each vector width (f32 1, 2, 4; bf16 1, 2, 4,
+#: 8) and the backward's parameter-gradient sum in each dtype.
+GN_KERNELS = 2 * 7 + 2
+
+
+def gn_registers(log: str) -> list:
+    """The GroupNorm kernels' registers and spills."""
+    def name(ln):
+        m = re.search(r"\d(gn_fwd|gn_bwd|gn_param_grads)I(13__nv_bfloat16|f)"
+                      r"(?:Li(\d+)E)?", ln)
+        return None if m is None else {
+            "kernel": m.group(1),
+            "dtype": "bf16" if m.group(2) != "f" else "f32",
+            **({"V": int(m.group(3))} if m.group(3) else {})}
     return ptxas_kernels(log, name)
 
 
@@ -2256,30 +2530,65 @@ def main() -> None:
     if spilled:
         fail(f"LSTM kernels spill registers: {spilled}")
 
+    gn_log = libs["groupnorm"].with_suffix(".log")
+    gn_regs = gn_registers(gn_log.read_text() if gn_log.exists() else "")
+    emit({"phase": "gn_build", "kernels": gn_regs})
+    if gn_log.exists() and len(gn_regs) != GN_KERNELS:
+        fail(f"expected {GN_KERNELS} GroupNorm kernels in the build report, "
+             f"found {gn_regs}")
+    spilled = [r for r in gn_regs
+               if r.get("spill_stores") or r.get("spill_loads")]
+    if spilled:
+        fail(f"GroupNorm kernels spill registers: {spilled}")
+
+    # seconds from each mark to the next, printed before the kernels line
+    laps, last = {}, [None, time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        if last[0] is not None:
+            laps[last[0]] = now - last[1]
+        last[:] = [name, now]
+
     rng = np.random.default_rng(args.seed)
     model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
                       seq_len=SEQ_LEN, seed=args.seed, device="cuda")
+    lap("lstm_kernels")
     fwd = kernel_phase(torch, K, model, rng)
     stash = stash_phase(torch, K, model, rng)
     bwd = bwd_phase(torch, K, model, rng)
     del model
     torch.cuda.empty_cache()
 
+    lap("train")
     trained, train_launches = train_phase(torch, K, gpu, args.seed)
     bf16_trained, bf16_train_launches = train_phase(
         torch, K, gpu, args.seed, "bfloat16")
     del bf16_trained
     parity_phase(torch, args.seed)
+    lap("lstm_widths")
+    lstm_widths_phase(torch, K, args.seed)
+    defaults = {k: v.default for k, v in
+                inspect.signature(imdb_lstm).parameters.items()
+                if k in ("vocab_size", "embed_dim", "hidden_size", "seq_len")}
+    imdb_trained, _ = train_phase(torch, K, gpu, args.seed, "bfloat16",
+                                  IMDB_ROUNDS, defaults,
+                                  "lstm_fwd_stash_xw_bf16")
+    del imdb_trained
+    torch.cuda.empty_cache()
 
     cpu_model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
                           hidden_size=HIDDEN, seq_len=SEQ_LEN, device="cpu")
     cpu_model.module.load_state_dict(
         {k: v.cpu() for k, v in trained.module.state_dict().items()})
+    lap("serve")
     serve_launches = serve_phase(torch, K, trained, cpu_model, rng, gpu)
     del trained, cpu_model
     torch.cuda.empty_cache()
 
+    lap("group_norm")
     gn_rows = gn_kernel_phase(torch, G, args.seed)
+    gn_uncached_phase(torch, G, args.seed)
     gn_launches = resnet_train_phase(torch, G, gpu, args.seed)
     torch.cuda.empty_cache()
     bf16_gn_launches = resnet_train_phase(torch, G, gpu, args.seed,
@@ -2287,6 +2596,7 @@ def main() -> None:
     resnet_parity_phase(torch, args.seed)
     torch.cuda.empty_cache()
 
+    lap("fold")
     fold_rows = fold_kernel_phase(torch, F, args.seed)
     fold_launches = {}
     for codec in ("int8", "bf16"):
@@ -2296,6 +2606,7 @@ def main() -> None:
     remote_parity_phase(torch, args.seed)
     torch.cuda.empty_cache()
 
+    lap("flash")
     flash_rows = flash_kernel_phase(torch, FA, args.seed)
     flash_launches = transformer_train_phase(torch, FA, gpu, args.seed)
     torch.cuda.empty_cache()
@@ -2418,6 +2729,9 @@ def main() -> None:
                 "bf16_max_abs_err": max(r["max_abs_err"] for r in rows
                                         if r["dtype"] == "bfloat16")}
 
+    lap(None)
+    emit({"phase": "seconds", "from_build": time.perf_counter() - t0,
+          "phases": laps})
     emit({"kernels": [
         entry("lstm_fwd", "lstm_fwd.cu",
               "distkeras_tpu/ops/pallas/lstm.py:189", fwd, serve_launches,

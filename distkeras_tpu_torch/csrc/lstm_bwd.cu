@@ -650,7 +650,7 @@ size_t f32_rec_smem(int H, int R, int C) {
 }
 
 bool f32_rec_widths_ok(int H, int R, int C) {
-  return lstm_f32::tiling_ok(H, R, C) &&
+  return lstm_f32::tiling_ok(H, R, C, lstm_f32::rec_max_threads(R, C)) &&
          f32_rec_smem(H, R, C) <= (size_t)kMaxSmem;
 }
 
@@ -665,7 +665,7 @@ struct StashF32 {
 // g RT .. + RT - 1 and unit s. Its dh product outputs are the partials of
 // units s + U m (m < C) for its rows: unit s + U m goes to block m.
 template <int R, int C>
-__global__ void __launch_bounds__(lstm_f32::kThreads, 1)
+__global__ void __launch_bounds__(lstm_f32::rec_max_threads(R, C), 1)
 lstm_bwd_rec_cluster(const float* __restrict__ dhs,    // [B, T, H]
                      const float* __restrict__ cs,     // [B, T, H]
                      const float* __restrict__ gates,  // [B, T, 4H]

@@ -38,18 +38,33 @@ __host__ __device__ constexpr int rows_per_thread(int R) {
   return R == 16 ? 2 : 4;
 }
 
+// The most threads a block of the recurrent backward at (R, C) is built
+// for: 256 at (32, 8), whose thread keeps 8 x 4 dh partials and two steps'
+// stash and needs more than the 128 registers of a 512-thread block (no
+// width past 256 threads fits its shared memory there), else kThreads.
+__host__ __device__ constexpr int rec_max_threads(int R, int C) {
+  return R == 32 && C == 8 ? 256 : kThreads;
+}
+
 // Whether (R, C) tiles H: U a multiple of 8 (a warp's slots), R of 4 RT
-// (its row groups), at most kThreads threads.
-inline bool tiling_ok(int H, int R, int C) {
+// (its row groups), at most kThreads threads (rec_max_threads(R, C) for
+// the recurrent backward).
+inline bool tiling_ok(int H, int R, int C, int max_threads = kThreads) {
   if (H <= 0 || C <= 0 || H % C != 0) return false;
   const int U = H / C, RT = rows_per_thread(R);
   if (U % 8 != 0 || R % (4 * RT) != 0) return false;
-  return U * (R / RT) <= kThreads;
+  return U * (R / RT) <= max_threads;
 }
 
-// The (R, C) pairs built, applied to a macro X(R, C); ops/kernels/lstm.py
-// F32_TILINGS names the same pairs.
-#define LSTM_F32_TILINGS(X) X(16, 8) X(16, 4) X(16, 1) X(32, 2) X(32, 1)
+// The (R, C) pairs built, applied to a macro X(R, C): C = 1, 2, 4, 8 (8 is
+// the largest portable cluster) at both R; ops/kernels/lstm.py
+// F32_TILINGS names the same pairs and f32_tiling picks one by batch and
+// by what holds H (whole warps of units, 512 threads, the shared memory):
+// H=80 runs at (16, 2) and (32, 2), H=192 at (16, 8) and (32, 4), H=256 at
+// (16, 8) and (32, 8).
+// clang-format off
+#define LSTM_F32_TILINGS(X) X(16, 8) X(16, 4) X(16, 2) X(16, 1) X(32, 8) X(32, 4) X(32, 2) X(32, 1)
+// clang-format on
 
 // The thread's slot and row group.
 struct Slot {

@@ -55,7 +55,28 @@
 // rounded to bf16 where it enters the recurrent product (and stored so in
 // hs), cs and gates stored in bf16. Widths: E and H multiples of 16, E <=
 // 128, H <= 128, and the weights and tiles within 227 KB of shared memory
-// (fwd_smem_bytes); the wrapper raises on others.
+// (fwd_smem_bytes: config #4's E=64, H=128 takes 218,112 bytes).
+//
+// bf16, the xw body (lstm_fwd_xw_bf16, lstm_fwd_stash_xw_bf16), for the
+// widths whose [Wx; Wh] does not fit (E=H=128, imdb_lstm()'s default,
+// needs 287,744 bytes; any E > 128). Two launches, as the f32 body:
+//   1. lstm_xproj_tc: x . Wx for every (b, t) as one mma.sync tile product
+//      (128 x 128 tiles, bf16 operands, f32 sums) into an f32 scratch [B,
+//      T, 4H], the columns in the recurrence's lane order (ops/kernels/
+//      lstm.py xw_permutation: a lane's two units' four gates are eight
+//      contiguous floats). pre stays f32: the TPU kernel's x . Wx is an
+//      f32 dot_general (preferred_element_type=f32) added to h . Wh and
+//      then to b in f32, never rounded to bf16.
+//   2. lstm_fwd_xw_tc: lstm_fwd_tc's block, lanes and epilogue with the
+//      product over h alone: Wh [4H][H+8] (147,968 bytes with the h tiles
+//      at H=128) resident, x . Wx read from the scratch a step ahead
+//      (two 16-byte loads a row, off the chain), the gate pre-activation
+//      (x . Wx + h . Wh) + b in the TPU kernel's order.
+// The body is chosen by width alone (ops/kernels/lstm.py bf16_fwd_body),
+// never on a failure: resident wherever [Wx; Wh] fits, since the scratch
+// costs a write and a read of 4H f32 a row (1.7 GB at config #4's B=2048,
+// about 0.5 ms at 3.35 TB/s beside the resident body's 0.91 ms for the
+// whole stash forward there; the two bodies timed there are in PERF.md).
 //
 // f32 (lstm_fwd_f32, lstm_fwd_stash_f32: the cluster body). f32 products
 // stay on the FP32 pipes (FFMA, f32 in, f32 sums: the TPU kernel's
@@ -282,6 +303,283 @@ int dispatch_tc(const bf16* x, const bf16* wt, const bf16* b, bf16* hs,
   lstm_fwd_tc<STASH><<<grid, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       x, wt, b, hs, cs, gates, B, T, E, H);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16, the xw body: x . Wx off the serial chain as one tensor-core tile
+// product into an f32 scratch, then the recurrence with only Wh resident.
+
+constexpr int QM = 128, QN = 128, QK = 32;  // x . Wx tile: rows, columns, k
+constexpr int QS = QK + kPad;               // a tile row in shared memory
+
+// pre[n][p] = sum_e x[n][e] wxt[p][e] (f32 sums of bf16 products, no bias)
+// for rows n0 .. n0+127 and columns p0 .. p0+127, the columns in the
+// recurrence's lane order (ops/kernels/lstm.py xw_permutation). Warp w:
+// rows 32 (w & 3) .. +31 (two m-tiles), columns 64 (w >> 2) .. +63 (eight
+// n-tiles). k slabs of 32 double-buffered through registers; E a multiple
+// of 16 (a slab's second half past E reads zeros).
+__global__ void __launch_bounds__(256, 2)
+lstm_xproj_tc(const bf16* __restrict__ x,    // [N, E]
+              const bf16* __restrict__ wxt,  // [4H, E]
+              float* __restrict__ pre,       // [N, 4H]
+              long long N, int E, int G) {
+  __shared__ __align__(16) bf16 As[2][QM][QS];
+  __shared__ __align__(16) bf16 Bs[2][QN][QS];
+  const long long n0 = (long long)blockIdx.x * QM;
+  const int p0 = blockIdx.y * QN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 64;
+  // Each slab: 128 rows x 32 k of each operand, 512 vectors: two a thread.
+  auto load = [&](int k0, uint4 (&a)[2], uint4 (&w)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + 256 * i;
+      const int r = idx >> 2, k = k0 + (idx & 3) * 8;
+      a[i] = n0 + r < N && k < E
+                 ? __ldg(reinterpret_cast<const uint4*>(x + (n0 + r) * E + k))
+                 : make_uint4(0, 0, 0, 0);
+      w[i] = p0 + r < G && k < E
+                 ? __ldg(reinterpret_cast<const uint4*>(
+                       wxt + (size_t)(p0 + r) * E + k))
+                 : make_uint4(0, 0, 0, 0);
+    }
+  };
+  auto store = [&](int buf, const uint4 (&a)[2], const uint4 (&w)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + 256 * i;
+      const int r = idx >> 2, k = (idx & 3) * 8;
+      *reinterpret_cast<uint4*>(&As[buf][r][k]) = a[i];
+      *reinterpret_cast<uint4*>(&Bs[buf][r][k]) = w[i];
+    }
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+  uint4 a[2], w[2];
+  load(0, a, w);
+  store(0, a, w);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < E; k0 += QK) {
+    const bool more = k0 + QK < E;
+    if (more) load(k0 + QK, a, w);
+#pragma unroll
+    for (int kk = 0; kk < QK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        ldsm_x4(af[mi], a_addr(&As[buf][0][0], QS, wm + 16 * mi, kk, lane));
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        ldsm_x4(bf, b_addr(&Bs[buf][0][0], QS, wn + 16 * np, kk, lane));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma(acc[mi][2 * np], af[mi], bf[0], bf[1]);
+          mma(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+        }
+      }
+    }
+    if (more) store(buf ^ 1, a, w);
+    __syncthreads();
+    buf ^= 1;
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const long long n = n0 + wm + 16 * mi + g + 8 * rr;
+        const int p = p0 + wn + 8 * ni + 2 * tq;
+        if (n < N && p < G) {
+          *reinterpret_cast<float2*>(pre + n * G + p) =
+              make_float2(acc[mi][ni][2 * rr], acc[mi][ni][2 * rr + 1]);
+        }
+      }
+}
+
+// Shared memory of the xw recurrence: Wh [4H][H+8] and two h tiles
+// [16][H+8], bf16. Mirrored by ops/kernels/lstm.py xw_smem_bytes.
+size_t xw_smem(int H) {
+  return sizeof(bf16) * ((size_t)4 * H * (H + kPad) + 2 * kRows * (H + kPad));
+}
+
+bool xw_widths_ok(int E, int H) {
+  return E > 0 && H > 0 && E % 16 == 0 && H % 16 == 0 && H <= 8 * kWarps &&
+         xw_smem(H) <= (size_t)kMaxSmem;
+}
+
+// The recurrence of the xw body: lstm_fwd_tc's tiling, lanes and
+// epilogue, with the product over h only (Wh resident, rows in the
+// gate_permutation order) and x . Wx read from pre, a step ahead. Lane
+// (g, tq) of warp w reads, for rows g and g + 8, the eight floats p = 32 w
+// + 8 tq .. + 7 of its row: gates i, f, g, o of units 8w + 2tq and + 1.
+// The gate pre-activation is (x . Wx + h . Wh) + b, the TPU kernel's order.
+template <bool STASH>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_xw_tc(const float* __restrict__ pre,  // [B, T, 4H], xw order
+               const bf16* __restrict__ wt,    // [4H, H], gate columns permuted
+               const bf16* __restrict__ b,     // [4H]
+               bf16* __restrict__ hs,          // [B, T, H]
+               bf16* __restrict__ cs,          // [B, T, H]   (STASH only)
+               bf16* __restrict__ gates,       // [B, T, 4H]  (STASH only)
+               int B, int T, int H) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int G = 4 * H, HS = H + kPad;
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);  // [G][HS]
+  bf16* hb = ws + (size_t)G * HS;                // [2][kRows][HS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int row0 = blockIdx.x * kRows;
+  const bool active = warp < H / 8;  // owns unit group w
+
+  const int kv = H / 8;
+  for (int i = tid; i < G * kv; i += kThreads) {
+    const int n = i / kv, c = i - n * kv;
+    *reinterpret_cast<uint4*>(ws + (size_t)n * HS + c * 8) =
+        *reinterpret_cast<const uint4*>(wt + (size_t)n * H + c * 8);
+  }
+  for (int i = tid; i < 2 * kRows * HS; i += kThreads) {
+    hb[i] = __float2bfloat16_rn(0.0f);  // h_{-1} = 0
+  }
+
+  const int unit = 8 * warp + 2 * tq;
+  bool ok[2];
+  const float* pp[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    ok[rr] = active && row0 + g + 8 * rr < B;
+    pp[rr] = ok[rr] ? pre + (size_t)(row0 + g + 8 * rr) * T * G + 32 * warp +
+                          8 * tq
+                    : pre;
+  }
+  // xv[rr][0] = (i, i, f, f), xv[rr][1] = (g, g, o, o) of the lane's two
+  // units in row g + 8 rr.
+  float4 xv[2][2];
+  auto load_pre = [&](int t) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      xv[rr][0] = ok[rr] ? __ldg(reinterpret_cast<const float4*>(
+                               pp[rr] + (size_t)t * G))
+                         : z;
+      xv[rr][1] = ok[rr] ? __ldg(reinterpret_cast<const float4*>(
+                               pp[rr] + (size_t)t * G + 4))
+                         : z;
+    }
+  };
+  float bv[4][2], c[4];
+#pragma unroll
+  for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      bv[gate][u] = active ? __bfloat162float(b[gate * H + unit + u]) : 0.0f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = 0.0f;
+  load_pre(0);
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    float xw[4][4];  // [gate][e], e = 2 rr + u
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      xw[0][2 * rr] = xv[rr][0].x;
+      xw[0][2 * rr + 1] = xv[rr][0].y;
+      xw[1][2 * rr] = xv[rr][0].z;
+      xw[1][2 * rr + 1] = xv[rr][0].w;
+      xw[2][2 * rr] = xv[rr][1].x;
+      xw[2][2 * rr + 1] = xv[rr][1].y;
+      xw[3][2 * rr] = xv[rr][1].z;
+      xw[3][2 * rr + 1] = xv[rr][1].w;
+    }
+    if (t + 1 < T) load_pre(t + 1);
+    if (active) {
+      float acc[4][4];  // [gate][e]
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+      const bf16* ha = hb + ((t + 1) & 1) * kRows * HS;  // h_{t-1}
+      for (int k0 = 0; k0 < H; k0 += 16) {
+        uint32_t a[4];
+        ldsm_x4(a, a_addr(ha, HS, 0, k0, lane));
+#pragma unroll
+        for (int gp = 0; gp < 2; ++gp) {  // gates (i, f), then (g, o)
+          uint32_t bf[4];
+          ldsm_x4(bf, b_addr(ws, HS, warp * 32 + gp * 16, k0, lane));
+          mma(acc[2 * gp], a, bf[0], bf[1]);
+          mma(acc[2 * gp + 1], a, bf[2], bf[3]);
+        }
+      }
+      float act[4][4], h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = e & 1;
+        act[0][e] = sigmoid_f((xw[0][e] + acc[0][e]) + bv[0][u]);
+        act[1][e] = sigmoid_f((xw[1][e] + acc[1][e]) + bv[1][u]);
+        act[2][e] = tanhf((xw[2][e] + acc[2][e]) + bv[2][u]);
+        act[3][e] = sigmoid_f((xw[3][e] + acc[3][e]) + bv[3][u]);
+        c[e] = act[1][e] * c[e] + act[0][e] * act[2][e];
+        h[e] = act[3][e] * tanhf(c[e]);
+      }
+      bf16* hn = hb + (t & 1) * kRows * HS;  // h_t
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = g + 8 * rr;
+        const uint32_t hp = pack(h[2 * rr], h[2 * rr + 1]);
+        *reinterpret_cast<uint32_t*>(hn + r * HS + unit) = hp;
+        if (row0 + r < B) {
+          const size_t bt = (size_t)(row0 + r) * T + t;
+          *reinterpret_cast<uint32_t*>(hs + bt * H + unit) = hp;
+          if (STASH) {
+            *reinterpret_cast<uint32_t*>(cs + bt * H + unit) =
+                pack(c[2 * rr], c[2 * rr + 1]);
+#pragma unroll
+            for (int gate = 0; gate < 4; ++gate) {
+              *reinterpret_cast<uint32_t*>(gates + bt * G + gate * H +
+                                           unit) =
+                  pack(act[gate][2 * rr], act[gate][2 * rr + 1]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <bool STASH>
+int dispatch_xw(const bf16* x, const bf16* wxt, const bf16* wht,
+                const bf16* b, float* pre, bf16* hs, bf16* cs, bf16* gates,
+                int B, int T, int E, int H, void* stream) {
+  if (!xw_widths_ok(E, H)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return (int)cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long N = (long long)B * T;
+  const int G = 4 * H;
+  lstm_xproj_tc<<<dim3((unsigned)((N + QM - 1) / QM), (G + QN - 1) / QN), 256,
+                  0, s>>>(x, wxt, pre, N, E, G);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = xw_smem(H);
+  err = cudaFuncSetAttribute(lstm_fwd_xw_tc<STASH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  lstm_fwd_xw_tc<STASH><<<(B + kRows - 1) / kRows, kThreads, smem, s>>>(
+      pre, wht, b, hs, cs, gates, B, T, H);
   return (int)cudaGetLastError();
 }
 
@@ -707,4 +1005,31 @@ extern "C" int lstm_fwd_stash_bf16(const __nv_bfloat16* x,
                                    __nv_bfloat16* gates, int B, int T,
                                    int E, int H, void* stream) {
   return dispatch_tc<true>(x, wt, b, hs, cs, gates, B, T, E, H, stream);
+}
+
+// The bf16 xw forward: x . Wx into the f32 scratch pre [B, T, 4H] (no
+// bias), then the recurrence with only Wh resident. wxt [4H, E] is Wx in
+// the layout of ops/kernels/lstm.py xw_xproj_layout (rows in xw_permutation
+// order), wht [4H, H] is Wh in xw_rec_weight_layout's (rows in
+// gate_permutation order). Any E a multiple of 16; H a multiple of 16 up to
+// 128. Returns the cudaError_t of the launches (0 = launched).
+extern "C" int lstm_fwd_xw_bf16(const __nv_bfloat16* x,
+                                const __nv_bfloat16* wxt,
+                                const __nv_bfloat16* wht,
+                                const __nv_bfloat16* b, float* pre,
+                                __nv_bfloat16* hs, int B, int T, int E,
+                                int H, void* stream) {
+  return dispatch_xw<false>(x, wxt, wht, b, pre, hs, nullptr, nullptr, B, T,
+                            E, H, stream);
+}
+
+extern "C" int lstm_fwd_stash_xw_bf16(const __nv_bfloat16* x,
+                                      const __nv_bfloat16* wxt,
+                                      const __nv_bfloat16* wht,
+                                      const __nv_bfloat16* b, float* pre,
+                                      __nv_bfloat16* hs, __nv_bfloat16* cs,
+                                      __nv_bfloat16* gates, int B, int T,
+                                      int E, int H, void* stream) {
+  return dispatch_xw<true>(x, wxt, wht, b, pre, hs, cs, gates, B, T, E, H,
+                           stream);
 }

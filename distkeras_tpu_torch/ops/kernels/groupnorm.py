@@ -31,6 +31,10 @@ fallback for slabs that do not fit the TPU's VMEM has no counterpart here.
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 
 from distkeras_tpu_torch.ops.kernels import build
@@ -40,18 +44,53 @@ EPS = 1e-6
 
 #: the C entry points -> (source, argtypes), and the launches so far in
 #: this process by kernel: ``group_norm_fwd`` (``group_norm_fwd_f32``,
-#: ``group_norm_fwd_bf16``) and ``group_norm_bwd`` (``group_norm_bwd_*``),
-#: one per wrapper call.
+#: ``group_norm_fwd_bf16``: one launch) and ``group_norm_bwd``
+#: (``group_norm_bwd_*``: two), one count per wrapper call.
 _P, _I = build.PTR, build.INT
 _LIB = build.KernelLib({
-    **{f"group_norm_fwd_{s}": ("groupnorm", [_P] * 7 + [_I] * 6)
+    **{f"group_norm_fwd_{s}": ("groupnorm", [_P] * 4 + [_I] * 10)
        for s in build.SUFFIXES.values()},
-    **{f"group_norm_bwd_{s}": ("groupnorm", [_P] * 11 + [_I] * 6)
+    **{f"group_norm_bwd_{s}": ("groupnorm", [_P] * 8 + [_I] * 10)
        for s in build.SUFFIXES.values()},
 }, ("group_norm_fwd", "group_norm_bwd"))
 
-#: elements of x one kernel block reads per row chunk: 32 per thread.
-_CHUNK_ELEMS = 8192
+#: the kernels' block: 512 threads where one block fills an SM's shared
+#: memory, 256 where two fit (an SM holds 233,472 bytes, 1,024 of them
+#: reserved a block); the shared memory a block may use on the card; the
+#: cluster sizes (the portable ones).
+GN_THREADS = 512
+GN_SMALL_THREADS = 256
+#: a block whose rows hold at most this many vectors takes 128 threads:
+#: at most 16 a thread (ResNet-50's 14x14 and 7x7 slabs)
+GN_FEW_SLOTS, GN_FEW_THREADS = 2048, 128
+GN_SM_SMEM = 233472
+GN_MAX_SMEM = 232448
+GN_HALF_SMEM = GN_SM_SMEM // 2 - 1024
+GN_CLUSTERS = (1, 2, 4, 8)
+#: the non-portable cluster size the card also schedules (an H100 GPC
+#: holds 16 or more SMs), taken only where 8 blocks cannot keep a slab's
+#: rows in shared memory
+GN_WIDE_CLUSTER = 16
+#: the tile widths tried at two blocks an SM, in bytes a row: a 128-byte
+#: line, then half a line (two 32-byte sectors) where a line-wide tile
+#: cannot keep every row on chip
+GN_LINES = (128, 64)
+
+
+class GnTiling(NamedTuple):
+    """How the kernels cover a ``[B, N, C]`` call (``csrc/groupnorm.cu``):
+    a cluster of ``cluster`` blocks owns one (sample, ``ct``-channel tile),
+    a thread reads ``vec`` channels of a row as one vector, a block of
+    ``threads`` threads owns ``rows`` rows of the slab and keeps the first
+    ``cached`` of them (x, and dy in the backward) in ``smem`` bytes of
+    shared memory."""
+    ct: int
+    vec: int
+    threads: int
+    cluster: int
+    rows: int
+    cached: int
+    smem: int
 
 
 def reset_launches() -> None:
@@ -66,10 +105,118 @@ def launch_counts(by_entry: bool = False) -> dict:
     return _LIB.entry_counts() if by_entry else _LIB.counts()
 
 
-def rows_per_chunk(N: int, C: int) -> int:
-    """Rows of a ``[N, C]`` slab one kernel block covers: about
-    ``_CHUNK_ELEMS`` elements of a tile at most 256 channels wide."""
-    return min(N, max(1, _CHUNK_ELEMS // min(C, 256)))
+def gn_smem_bytes(ct: int, vec: int, threads: int, cached: int,
+                  itemsize: int, streams: int, groups_in_tile: int) -> int:
+    """Shared memory of a block (``csrc/groupnorm.cu gn_smem``): the
+    ``streams`` caches ``[cached][ct]`` (x; and dy in the backward), each
+    rounded up to 16 bytes, the f32 reduction rows ``[2][rows][ct]`` (a
+    warp's rows once its lanes have combined by shuffles where ct/vec
+    divides 32, else each row of threads), the published partials, the
+    gathered totals and the groups' values."""
+    L = ct // vec
+    red = threads // 32 if 32 % L == 0 else threads // L
+    cache = -(-cached * ct * itemsize // 16) * 16
+    return streams * cache + 4 * (2 * red * ct + 6 * ct + 4 * groups_in_tile)
+
+
+def gn_layout(N: int, C: int, groups: int, itemsize: int, backward: bool,
+              vec: int, ct: int, threads: int, smem: int,
+              clusters: tuple = GN_CLUSTERS + (GN_WIDE_CLUSTER,)
+              ) -> GnTiling:
+    """The tiling of a ``[B, N, C]`` call at a given vector width, tile,
+    block size and shared-memory budget a block: the fewest blocks of
+    ``clusters`` whose share of the slab's rows, ``ceil(N / cluster)``,
+    fits beside the reduction (x, and dy in the backward), or the most;
+    ``cached`` is the rows of the share that fit, and the kernels read
+    the rest again from global memory (L2) in each sweep."""
+    cg = C // groups
+    streams = 2 if backward else 1
+    fixed = gn_smem_bytes(ct, vec, threads, 0, itemsize, streams, ct // cg)
+    fit = max(0, (smem - fixed) // streams // 16 * 16 // (ct * itemsize))
+    cluster = next((k for k in clusters if -(-N // k) <= fit), clusters[-1])
+    rows = -(-N // cluster)
+    cached = min(rows, fit)
+    return GnTiling(ct, vec, threads, cluster, rows, cached,
+                    gn_smem_bytes(ct, vec, threads, cached, itemsize,
+                                  streams, ct // cg))
+
+
+@functools.lru_cache(maxsize=1024)
+def gn_tiling(N: int, C: int, groups: int, itemsize: int, backward: bool,
+              align: int = 16) -> GnTiling:
+    """The kernels' tiling of a ``[B, N, C]`` call with ``groups`` groups
+    of ``itemsize``-byte values whose pointers are ``align``-byte aligned:
+
+    * ``vec``: the most channels up to 16 bytes (8 bf16, 4 f32) that
+      divide C and the alignment;
+    * ``ct``: the narrowest tile of whole groups and whole vectors that
+      divides C and is at least a 128-byte line wide (64 bf16 or 32 f32
+      channels) where C is;
+    * two blocks an SM where that caches every row: 256 threads and at
+      most 115,712 bytes of shared memory a block, so that one block's
+      barriers and arithmetic overlap the other's loads, with the fewest
+      blocks a cluster (1, 2, 4, 8, 16) whose share of the slab's rows
+      fits (:func:`gn_layout`); where a line-wide tile cannot, a tile half
+      a line wide (two 32-byte sectors a row, ``GN_LINES``) halves the
+      slab; a block whose rows hold at most 2048 vectors takes 128
+      threads instead (ResNet-50's 14x14 and 7x7 slabs: 16 or fewer a
+      thread);
+    * else one block an SM: 512 threads (the block alone keeps the SM's
+      loads in flight) and 232,448 bytes, the fewest blocks whose share
+      fits, or the most; ``cached`` is the rows of the share that fit, and
+      the kernels read the rest again from global memory (L2).
+
+    16 blocks is past the portable cluster size; an H100's GPCs hold it,
+    and only a slab that 8 blocks cannot keep on chip takes it: ResNet-50's
+    stem at 112x112x64 (G=32), 784 rows a block, two blocks an SM, all rows
+    cached: the forward in tiles of a line (64 bf16 or 32 f32 channels),
+    the backward (x and dy) in tiles of half a line. Its 56x56 slabs take
+    two blocks an SM in clusters of 4 and 8 at a line. A slab that 16
+    blocks cannot keep (the stem of a 448x448 image, 224x224x64) takes one
+    block an SM and caches part of its rows. Raises a ``ValueError`` where
+    a row's lanes outgrow a block."""
+    if C % groups:
+        raise ValueError(f"C={C} not divisible by groups={groups}")
+    cg = C // groups
+    vec = max(1, min(16, align) // itemsize)
+    while C % vec:
+        vec //= 2
+    unit = cg * vec // math.gcd(cg, vec)
+
+    def tile(line_bytes: int) -> int:
+        line = min(line_bytes // itemsize, C)
+        return next(m for m in range(unit, C + 1, unit)
+                    if C % m == 0 and m >= line)
+
+    ct = tile(GN_LINES[0])
+    if ct // vec > GN_THREADS:
+        raise ValueError(
+            f"group_norm: the CUDA GroupNorm kernels need the {ct // vec} "
+            f"vector lanes of a {ct}-channel tile (whole groups of {cg}) "
+            f"within one block of {GN_THREADS} threads")
+    args = (N, C, groups, itemsize, backward, vec)
+    for line_bytes in GN_LINES:
+        c = tile(line_bytes)
+        if c // vec <= GN_SMALL_THREADS:
+            t = gn_layout(*args, c, GN_SMALL_THREADS, GN_HALF_SMEM)
+            if t.cached == t.rows:
+                if (t.rows * (c // vec) <= GN_FEW_SLOTS
+                        and c // vec <= GN_FEW_THREADS):
+                    return gn_layout(*args, c, GN_FEW_THREADS, GN_HALF_SMEM)
+                return t
+    return gn_layout(*args, ct, GN_THREADS, GN_MAX_SMEM)
+
+
+def _tiling(tensors, groups: int, backward: bool) -> GnTiling:
+    """:func:`gn_tiling` for the call's ``x3`` (``tensors[0]``), at the
+    alignment of every tensor the kernel reads or writes in vectors."""
+    _B, N, C = tensors[0].shape
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return gn_tiling(N, C, groups, tensors[0].element_size(), backward,
+                     align)
 
 
 def _stats_plain(x3: torch.Tensor, groups: int):
@@ -143,28 +290,18 @@ def _check_cuda(tensors, what: str, C: int) -> str:
     return suffix
 
 
-def _scratch(x3: torch.Tensor, groups: int):
-    B, N, C = x3.shape
-    rows = rows_per_chunk(N, C)
-    chunks = -(-N // rows)
-    f32 = dict(dtype=torch.float32, device=x3.device)
-    partial = torch.empty((2, B, chunks, C), **f32)
-    persample = torch.empty((2, B, C), **f32)
-    stats = torch.empty((2, B, groups), **f32)
-    return rows, partial, persample, stats
-
-
 def group_norm_fwd_cuda(x3: torch.Tensor, gamma: torch.Tensor,
                         beta: torch.Tensor, groups: int,
                         relu: bool) -> torch.Tensor:
     """``group_norm_fwd_f32`` / ``group_norm_fwd_bf16``: y of the forward
-    on the card, in x's dtype."""
+    on the card, in x's dtype, one launch at :func:`gn_tiling`'s tiling."""
     B, N, C = x3.shape
     suffix = _check_cuda((x3, gamma, beta), "group_norm_fwd", C)
-    rows, partial, persample, stats = _scratch(x3, groups)
     y = torch.empty_like(x3)
-    _LIB.launch(f"group_norm_fwd_{suffix}", x3, gamma, beta, y, partial,
-                persample, stats, B, N, C, groups, rows, int(relu))
+    t = _tiling((x3, y), groups, backward=False)
+    _LIB.launch(f"group_norm_fwd_{suffix}", x3, gamma, beta, y, B, N, C,
+                groups, t.ct, t.vec, t.threads, t.cluster, t.cached,
+                int(relu))
     _LIB.count("group_norm_fwd")
     return y
 
@@ -174,22 +311,22 @@ def group_norm_bwd_cuda(x3: torch.Tensor, dy: torch.Tensor,
                         relu: bool) -> tuple:
     """``group_norm_bwd_f32`` / ``group_norm_bwd_bf16``: ``dx, dgamma,
     dbeta`` on the card in the inputs' dtype (the same outputs as
-    :func:`group_norm_bwd_plain`). Allocates the kernel's f32 scratch:
-    per-chunk and per-sample partial sums, the statistics and the group
-    coefficients."""
+    :func:`group_norm_bwd_plain`), two launches. Allocates the one f32
+    buffer the kernels share: the per-(sample, channel) sums of dy and of
+    dy * xhat, ``[2, B, C]``, summed over samples in sample order."""
     B, N, C = x3.shape
     if tuple(dy.shape) != (B, N, C):
         raise ValueError(f"dy must be x's shape {(B, N, C)}, got "
                          f"{tuple(dy.shape)}")
     suffix = _check_cuda((x3, dy, gamma, beta), "group_norm_bwd", C)
-    rows, partial, persample, stats = _scratch(x3, groups)
-    coeffs = torch.empty_like(stats)
     dx = torch.empty_like(x3)
+    t = _tiling((x3, dy, dx), groups, backward=True)
+    part = torch.empty((2, B, C), dtype=torch.float32, device=x3.device)
     dgamma = torch.empty_like(gamma)
     dbeta = torch.empty_like(beta)
     _LIB.launch(f"group_norm_bwd_{suffix}", x3, dy, gamma, beta, dx, dgamma,
-                dbeta, partial, persample, stats, coeffs, B, N, C, groups,
-                rows, int(relu))
+                dbeta, part, B, N, C, groups, t.ct, t.vec, t.threads,
+                t.cluster, t.cached, int(relu))
     _LIB.count("group_norm_bwd")
     return dx, dgamma, dbeta
 

@@ -33,33 +33,47 @@ functions here, held against the twins on the CPU.
   (:func:`f32_fwd_weight_layout`), h handed to every block through
   distributed shared memory behind mbarriers, no barrier a step, and a
   cluster barrier at the end so that no block exits while a peer may write
-  into it. :func:`f32_tiling` picks R and C by batch. The backward's
-  serial half (:func:`lstm_bwd_recurrent_plain` at R rows a tile: an f32
-  dpre workspace and f32 db partials a tile; the cluster's own split in
-  :func:`lstm_bwd_recurrent_f32_layout_plain`) reads
-  :func:`f32_rec_weight_layout`, and its parallel half is
-  :func:`lstm_bwd_wgrad_plain`. It takes E a multiple of 4 and H a
-  multiple of 8 whose tilings fit 512 threads and a block's shared memory
-  (:func:`check_f32_widths`; config #4's E=64, H=128, E=H=8 and E=H=128
-  run). Widths the earlier scalar body took (any E, 4H <= 512) outside
-  that set, e.g. E=5, H=6 or H=72, raise a ``ValueError``.
-* bf16 (tensor cores, weights resident in shared memory) takes E and H
-  multiples of 16 with E <= 128, H <= 128 and the weights within a block's
-  shared memory (:func:`check_bf16_widths`; config #4's E=64, H=128 runs).
-  Its layouts: the forward's permuted weight copy
-  (:func:`fwd_weight_layout`), and the backward's split into a serial half
+  into it. :func:`f32_tiling` picks R by batch and C as the first of R's
+  order (:data:`F32_PREFERENCE`) that fits the threads and the shared
+  memory. The backward's serial half (:func:`lstm_bwd_recurrent_plain` at
+  R rows a tile: an f32 dpre workspace and f32 db partials a tile; the
+  cluster's own split in :func:`lstm_bwd_recurrent_f32_layout_plain`)
+  reads :func:`f32_rec_weight_layout`, and its parallel half is
+  :func:`lstm_bwd_wgrad_plain`. The kernels take E a multiple of 4 and H
+  a multiple of 8 that some built tiling fits at both R
+  (:func:`check_f32_widths`): every H = 8, 16, ..., 128, and 80, 192 and
+  256 among the wider ones.
+* bf16 (tensor cores). The kernels take E and H multiples of 16 with H <=
+  128 (:func:`check_bf16_widths`). The forward has two bodies, chosen by
+  width alone (:func:`bf16_fwd_body`): where all of ``[Wx; Wh]`` fits a
+  block's shared memory (config #4's E=64, H=128) the resident body keeps
+  it there (:func:`fwd_weight_layout`); elsewhere (E > 128, or E=H=128,
+  ``imdb_lstm()``'s default) the ``xw`` body computes x . Wx for every
+  (b, t) first as a tensor-core tile product into an f32 scratch
+  (:func:`xw_xproj_layout`) and keeps only Wh resident
+  (:func:`xw_rec_weight_layout`). The backward is split into a serial half
   (:func:`lstm_bwd_recurrent_plain`: a bf16 dpre workspace and f32 db
-  partials a 16-row tile) and a parallel half
-  (:func:`lstm_bwd_wgrad_plain`, with h_{t-1} from
-  :func:`wgrad_rows_plain`).
+  partials a 16-row tile) and a parallel half (:func:`lstm_bwd_wgrad_plain`,
+  with h_{t-1} from :func:`wgrad_rows_plain`); neither holds x, so any E
+  runs.
 
-On other widths a call raises a ``ValueError`` naming the constraint.
+Widths a kernel refuses are zero-padded at the model boundary, in
+:func:`lstm_seq` and :class:`LSTMSeq` on CUDA tensors
+(:func:`padded_widths`, :func:`pad_lstm_inputs`, :func:`pad_dhs`,
+:func:`unpad_grads`): E rises to a multiple of 4 (f32) or 16 (bf16), H to
+the next width the dtype's kernels take. Padded weight rows and columns
+and their biases are zero, so a padded unit keeps c = h = 0 and gets dpre
+= 0, and the real units' values are those of the unpadded call; hs, dx,
+dWx, dWh and db are sliced back after the call. A width that needs no
+padding takes no copy. What stays refused, with a ``ValueError`` naming
+the constraint and never the twin on the card: f32 H > 256 (H=512 fits no
+portable cluster) and bf16 H > 128 (a warp owns at most 16 hidden units).
 
 Each kernel has a plain twin here (:func:`lstm_seq_plain`,
 :func:`lstm_fwd_stash_plain`, :func:`lstm_bwd_plain`). A wrapper takes its
 twin only for tensors that lie on the CPU; on CUDA tensors it launches its
-kernel or raises. Ragged batches are masked inside the kernels; nothing is
-padded.
+kernel or raises. Ragged batches are masked inside the kernels; the batch
+is never padded.
 
 Gate math follows flax's ``OptimizedLSTMCell`` exactly (i,f,g,o order,
 ``c' = f*c + i*g``, ``h' = o*tanh(c')``); :func:`pack_lstm_params` turns
@@ -68,6 +82,8 @@ JAX package's LSTM layouts serve through this one function.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -79,15 +95,17 @@ GATES = ("i", "f", "g", "o")
 
 #: the C entry points -> (source, argtypes), and the launches so far in
 #: this process, one per wrapper call that launched, by kernel:
-#: ``lstm_fwd`` (``lstm_fwd_f32``, ``lstm_fwd_bf16``), ``lstm_fwd_stash``
-#: (``lstm_fwd_stash_*``) and ``lstm_bwd`` (``lstm_bwd_recurrent_*`` then
-#: ``lstm_bwd_wgrad_*``).
+#: ``lstm_fwd`` (``lstm_fwd_f32``, ``lstm_fwd_bf16``, ``lstm_fwd_xw_bf16``),
+#: ``lstm_fwd_stash`` (``lstm_fwd_stash_*``) and ``lstm_bwd``
+#: (``lstm_bwd_recurrent_*`` then ``lstm_bwd_wgrad_*``).
 _P, _I = build.PTR, build.INT
 _LIB = build.KernelLib({
     "lstm_fwd_f32": ("lstm_fwd", [_P] * 6 + [_I] * 6),
     "lstm_fwd_stash_f32": ("lstm_fwd", [_P] * 8 + [_I] * 6),
     "lstm_fwd_bf16": ("lstm_fwd", [_P] * 4 + [_I] * 4),
     "lstm_fwd_stash_bf16": ("lstm_fwd", [_P] * 6 + [_I] * 4),
+    "lstm_fwd_xw_bf16": ("lstm_fwd", [_P] * 6 + [_I] * 4),
+    "lstm_fwd_stash_xw_bf16": ("lstm_fwd", [_P] * 8 + [_I] * 4),
     "lstm_bwd_recurrent_f32": ("lstm_bwd", [_P] * 6 + [_I] * 5),
     "lstm_bwd_wgrad_f32": ("lstm_bwd", [_P] * 10 + [_I] * 6),
     "lstm_bwd_recurrent_bf16": ("lstm_bwd", [_P] * 6 + [_I] * 3),
@@ -254,26 +272,43 @@ def rec_smem_bytes(H: int) -> int:
     return 2 * (H * (4 * H + _PAD) + 2 * BF16_ROWS * (4 * H + _PAD))
 
 
+def xw_smem_bytes(H: int) -> int:
+    """Shared memory of the bf16 ``xw`` recurrence: Wh [4H][H+8] and two h
+    tiles [16][H+8] (``csrc/lstm_fwd.cu xw_smem``)."""
+    return 2 * (4 * H * (H + _PAD) + 2 * BF16_ROWS * (H + _PAD))
+
+
+#: the widest bf16 layer: a forward warp owns 8 hidden units of 16 warps,
+#: a recurrent-backward warp 16 units of 8.
+BF16_MAX_H = 128
+
+
+def bf16_fwd_body(E: int, H: int) -> str:
+    """The bf16 forward body at these widths, by width alone: ``"resident"``
+    (all of ``[Wx; Wh]`` in shared memory, x_t one 16-byte vector a thread:
+    E <= 128) where it fits, else ``"xw"`` (x . Wx a tile product first,
+    only Wh resident). Config #4 (E=64, H=128) is resident; E=H=128 and
+    every E > 128 take ``xw``."""
+    return ("resident" if E <= 128 and fwd_smem_bytes(E, H) <= _MAX_SMEM
+            else "xw")
+
+
 def check_bf16_widths(E: int, H: int, what: str = "lstm") -> None:
     """The widths the bf16 kernels take, or a ``ValueError`` naming the
-    constraint: E and H multiples of 16 (mma k-tiles), E <= 128 (x_t is one
-    16-byte vector a thread), H <= 128 (a warp owns at most 16 hidden
-    units), and the resident weights and tiles within a block's shared
-    memory. Config #4 (E=64, H=128) takes 218 KB."""
-    if E % 16 or H % 16:
+    constraint: E and H multiples of 16 (mma k-tiles) and H <= 128 (a warp
+    owns at most 16 hidden units). The forward body is the one
+    :func:`bf16_fwd_body` picks, and at every such width its weights and
+    tiles fit a block's shared memory (config #4's resident body 218,112
+    bytes; the ``xw`` body at H=128 147,968; the recurrent backward
+    166,400)."""
+    if E <= 0 or H <= 0 or E % 16 or H % 16:
         raise ValueError(
             f"{what}: the bf16 CUDA LSTM kernels take E and H multiples of "
             f"16, got E={E}, H={H}")
-    if E > 128 or H > 128:
+    if H > BF16_MAX_H:
         raise ValueError(
-            f"{what}: the bf16 CUDA LSTM kernels take E <= 128 and H <= 128, "
-            f"got E={E}, H={H}")
-    need = max(fwd_smem_bytes(E, H), rec_smem_bytes(H))
-    if need > _MAX_SMEM:
-        raise ValueError(
-            f"{what}: the bf16 CUDA LSTM kernels keep the weights in shared "
-            f"memory: E={E}, H={H} needs {need} bytes, more than a block's "
-            f"{_MAX_SMEM}")
+            f"{what}: the bf16 CUDA LSTM kernels take H <= {BF16_MAX_H} (a "
+            f"warp owns at most 16 hidden units), got H={H}")
 
 
 def gate_permutation(hidden: int) -> torch.Tensor:
@@ -318,6 +353,73 @@ def lstm_fwd_layout_plain(wt: torch.Tensor, b: torch.Tensor,
         f = torch.sigmoid(pre[:, 1 * H:2 * H])
         g = torch.tanh(pre[:, 2 * H:3 * H])
         o = torch.sigmoid(pre[:, 3 * H:4 * H])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs.append(h.to(dt))
+        if stash:
+            cs.append(c.to(dt))
+            gates.append(torch.cat([i, f, g, o], dim=1).to(dt))
+    if not stash:
+        return torch.stack(hs, dim=1)
+    return (torch.stack(hs, dim=1), torch.stack(cs, dim=1),
+            torch.stack(gates, dim=1))
+
+
+def xw_permutation(hidden: int) -> torch.Tensor:
+    """Column p of the bf16 ``xw`` body's pre scratch holds packed gate
+    column ``perm[p]``: p = 32 q + 8 t + 2 gate + u is gate ``gate`` of
+    hidden unit 8 q + 2 t + u, so the lane of the recurrence that owns
+    units 8 q + 2 t and + 1 reads all eight of its pre values of a row as
+    eight contiguous floats."""
+    p = torch.arange(4 * hidden)
+    q, t, gate, u = p // 32, (p % 32) // 8, (p % 8) // 2, p % 2
+    return gate * hidden + 8 * q + 2 * t + u
+
+
+def xw_xproj_layout(wx: torch.Tensor) -> torch.Tensor:
+    """Wx as the bf16 ``xw`` body's x . Wx product reads it: ``[4H, E]``,
+    row p holding packed column ``xw_permutation(H)[p]`` (k contiguous:
+    mma's B operand). A layout copy made once a call."""
+    perm = xw_permutation(wx.shape[1] // 4).to(wx.device)
+    return wx[:, perm].t().contiguous()
+
+
+def xw_rec_weight_layout(wh: torch.Tensor) -> torch.Tensor:
+    """Wh as the bf16 ``xw`` recurrence keeps it: ``[4H, H]``, row n
+    holding packed column ``gate_permutation(H)[n]`` (the resident body's
+    order without the Wx rows). A layout copy made once a call."""
+    perm = gate_permutation(wh.shape[0]).to(wh.device)
+    return wh[:, perm].t().contiguous()
+
+
+def lstm_fwd_xw_layout_plain(wxt: torch.Tensor, wht: torch.Tensor,
+                             b: torch.Tensor, x: torch.Tensor,
+                             stash: bool = False):
+    """The forward of :func:`_fwd_plain` as the bf16 ``xw`` body splits it:
+    the f32 scratch ``pre = x . Wx`` for every (b, t) in
+    :func:`xw_permutation`'s column order from :func:`xw_xproj_layout`'s
+    ``wxt``, then each step ``(pre + h . Wh) + b`` with h . Wh in
+    :func:`gate_permutation`'s order from :func:`xw_rec_weight_layout`'s
+    ``wht``, both read back into the packed order. pre stays f32, as the
+    TPU kernel's x . Wx does (``preferred_element_type=f32``)."""
+    B, T, E = x.shape
+    H = wht.shape[1]
+    inv_x = torch.argsort(xw_permutation(H).to(x.device))
+    inv_h = torch.argsort(gate_permutation(H).to(x.device))
+    pre = (widen(x.reshape(B * T, E)) @ widen(wxt).t())[:, inv_x]
+    pre = pre.reshape(B, T, 4 * H)
+    whp = widen(wht).t()
+    bw = widen(b)
+    dt = x.dtype
+    h = widen(x.new_zeros(B, H))
+    c = torch.zeros_like(h)
+    hs, cs, gates = [], [], []
+    for t in range(T):
+        v = (pre[:, t] + (widen(h.to(wht.dtype)) @ whp)[:, inv_h]) + bw
+        i = torch.sigmoid(v[:, 0 * H:1 * H])
+        f = torch.sigmoid(v[:, 1 * H:2 * H])
+        g = torch.tanh(v[:, 2 * H:3 * H])
+        o = torch.sigmoid(v[:, 3 * H:4 * H])
         c = f * c + i * g
         h = o * torch.tanh(c)
         hs.append(h.to(dt))
@@ -398,27 +500,70 @@ def lstm_bwd_wgrad_plain(wx, x, hs, dpre_c, dbp) -> tuple:
 # -- the f32 cluster kernels' layouts ---------------------------------------
 
 #: the f32 tilings built (``csrc/lstm_f32.cuh``): (R rows a tile, C blocks
-#: a cluster), most preferred first within each R. R=16 runs up to 1024
-#: rows (latency-bound serving: little work a block a step), R=32 above
-#: (config #4's training batch of 2048: 64 clusters of two blocks, one
-#: wave). A thread owns one hidden unit's cells in RT rows.
-F32_TILINGS = ((16, 8), (16, 4), (16, 1), (32, 2), (32, 1))
+#: a cluster), C in 1, 2, 4, 8 (8 is the largest portable cluster) at each
+#: R. R=16 runs up to 1024 rows (latency-bound serving: little work a block
+#: a step), R=32 above (config #4's training batch of 2048: 64 clusters of
+#: two blocks, one wave). A thread owns one hidden unit's cells in RT rows.
+F32_TILINGS = ((16, 8), (16, 4), (16, 2), (16, 1),
+               (32, 8), (32, 4), (32, 2), (32, 1))
 F32_SMALL_ROWS, F32_LARGE_ROWS = 16, 32
 F32_ROWS_PER_THREAD = {F32_SMALL_ROWS: 2, F32_LARGE_ROWS: 4}
 F32_LARGE_FROM = 1025
+#: the order in which :func:`f32_tiling` tries the clusters at each R:
+#: serving tiles spread a step over the most blocks, training tiles over
+#: the fewest that hold their slice (config #4's (32, 2): 66 clusters fit
+#: the card at once, one wave at B=2048).
+F32_PREFERENCE = {F32_SMALL_ROWS: (8, 4, 2, 1), F32_LARGE_ROWS: (2, 4, 8, 1)}
 #: the most threads of an f32 block (``lstm_f32::kThreads``)
 F32_MAX_THREADS = 512
 
 
+def f32_max_threads(R: int, C: int) -> int:
+    """The most threads an f32 tiling's blocks are built for
+    (``lstm_f32::rec_max_threads``): 256 at (32, 8), whose recurrent
+    backward needs more than the 128 registers a thread of a 512-thread
+    block has; 512 elsewhere."""
+    return 256 if (R, C) == (32, 8) else F32_MAX_THREADS
+#: the widest f32 layer padding reaches: H=512 fits no portable cluster.
+F32_MAX_H = 256
+
+
+def f32_misfit(H: int, R: int, C: int):
+    """Why the f32 tiling ``(R, C)`` does not hold H, or None where it
+    does: a block's H/C units must fill whole warps (a multiple of 8), its
+    threads stay within 512 and its Wh slice and tiles within a block's
+    shared memory, in the forward and the recurrent backward."""
+    if H % C or (H // C) % 8:
+        return f"H/C={H / C:g} is not a multiple of 8 at C={C}"
+    threads = f32_threads(H, R, C)
+    if threads > f32_max_threads(R, C):
+        return (f"C={C} needs {threads} threads a block, more than "
+                f"{f32_max_threads(R, C)} threads")
+    need = max(f32_fwd_smem_bytes(H, R, C), f32_rec_smem_bytes(H, R, C))
+    if need > _MAX_SMEM:
+        return (f"C={C} needs {need} bytes of shared memory a block, more "
+                f"than {_MAX_SMEM}")
+    return None
+
+
+@functools.lru_cache(maxsize=1024)
 def f32_tiling(B: int, H: int) -> tuple:
     """``(R, C)`` of the f32 kernels at batch ``B``: the tile's batch rows
-    and the blocks of its cluster, the most preferred C whose blocks'
-    units fill whole warps (H/C a multiple of 8), else C=1. Config #4
-    (H=128): R=16, C=8 up to B=1024 (B=256: 16 tiles x 8 = 128 blocks);
-    R=32, C=2 above (B=2048: 64 x 2 = 128 blocks)."""
+    by batch, then the first cluster of ``F32_PREFERENCE[R]`` that holds H
+    (:func:`f32_misfit`: whole warps of units, the threads and the shared
+    memory). Config #4 (H=128): R=16, C=8 up to B=1024 (B=256: 16 tiles x
+    8 = 128 blocks); R=32, C=2 above (B=2048: 64 x 2 = 128 blocks). H=80
+    takes (16, 2) and (32, 2), H=192 (16, 8) and (32, 4), H=256 (16, 8)
+    and (32, 8). Raises a ``ValueError`` where none does."""
     R = F32_LARGE_ROWS if B >= F32_LARGE_FROM else F32_SMALL_ROWS
-    return R, next((c for r, c in F32_TILINGS if r == R and H % (8 * c) == 0),
-                   1)
+    whys = []
+    for C in F32_PREFERENCE[R]:
+        why = f32_misfit(H, R, C)
+        if why is None:
+            return R, C
+        whys.append(why)
+    raise ValueError(f"no f32 tiling holds H={H} at {R}-row tiles: "
+                     + "; ".join(whys))
 
 
 def f32_threads(H: int, R: int, C: int) -> int:
@@ -455,28 +600,20 @@ def f32_rec_smem_bytes(H: int, R: int, C: int) -> int:
 def check_f32_widths(E: int, H: int, what: str = "lstm") -> None:
     """The widths the f32 kernels take, or a ``ValueError`` naming the
     constraint: E a multiple of 4 (x moves in 16-byte vectors), H a
-    multiple of 8 (a warp spans 8 units), and at both tilings
-    (:func:`f32_tiling`) at most 512 threads a block and the weight slice
-    and tiles within a block's shared memory. Config #4 (E=64, H=128),
-    E=H=8, E=H=16 and E=H=128 run; H=72 does not."""
+    multiple of 8 (a warp spans 8 units), and a built tiling that holds H
+    at both R (:func:`f32_tiling`). Config #4 (E=64, H=128), E=H=8, E=H=16,
+    E=H=128, H=80, 192 and 256 run; H=72 and H=512 do not."""
     if E <= 0 or H <= 0 or E % 4 or H % 8:
         raise ValueError(
             f"{what}: the f32 CUDA LSTM kernels take E a multiple of 4 and H "
             f"a multiple of 8, got E={E}, H={H}")
     for B in (1, F32_LARGE_FROM):
-        R, C = f32_tiling(B, H)
-        threads = f32_threads(H, R, C)
-        if threads > F32_MAX_THREADS:
-            raise ValueError(
-                f"{what}: the f32 CUDA LSTM kernels take at most "
-                f"{F32_MAX_THREADS} threads a block: H={H} at {R}-row tiles "
-                f"over a cluster of {C} needs {threads}")
-        need = max(f32_fwd_smem_bytes(H, R, C), f32_rec_smem_bytes(H, R, C))
-        if need > _MAX_SMEM:
-            raise ValueError(
-                f"{what}: the f32 CUDA LSTM kernels keep the weights in shared "
-                f"memory: H={H} at {R}-row tiles over a cluster of {C} needs "
-                f"{need} bytes a block, more than {_MAX_SMEM}")
+        try:
+            f32_tiling(B, H)
+        except ValueError as e:
+            raise ValueError(f"{what}: the f32 CUDA LSTM kernels keep a "
+                             f"slice of Wh in each block of a cluster, and "
+                             f"{e}") from None
 
 
 #: the f32 kernels' occupancy queries: ints in, the most clusters the card
@@ -607,14 +744,19 @@ def lstm_bwd_recurrent_f32_layout_plain(whl: torch.Tensor, cs, gates, dhs,
 
 
 def lstm_fwd_cuda(wx, wh, b, x) -> torch.Tensor:
-    """``lstm_fwd_f32`` / ``lstm_fwd_bf16``: hs of the forward on the card,
+    """``lstm_fwd_f32`` / ``lstm_fwd_bf16`` / ``lstm_fwd_xw_bf16`` (the
+    bf16 body :func:`bf16_fwd_body` picks): hs of the forward on the card,
     in x's dtype."""
     suffix = _check_cuda((x, wh, wx, b), "lstm_fwd")
     B, T, E = x.shape
     H = wh.shape[0]
     hs = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
-    if suffix == "bf16":
+    if suffix == "bf16" and bf16_fwd_body(E, H) == "resident":
         _LIB.launch("lstm_fwd_bf16", x, fwd_weight_layout(wx, wh), b, hs, B,
+                    T, E, H)
+    elif suffix == "bf16":
+        _LIB.launch("lstm_fwd_xw_bf16", x, xw_xproj_layout(wx),
+                    xw_rec_weight_layout(wh), b, _pre_workspace(x, H), hs, B,
                     T, E, H)
     else:
         R, C = f32_tiling(B, H)
@@ -626,7 +768,8 @@ def lstm_fwd_cuda(wx, wh, b, x) -> torch.Tensor:
 
 
 def _pre_workspace(x: torch.Tensor, H: int) -> torch.Tensor:
-    """The f32 forward's scratch: x . Wx + b for every (b, t), [B, T, 4H]."""
+    """The f32 scratch of the f32 forward (x . Wx + b) and of the bf16
+    ``xw`` body (x . Wx) for every (b, t), [B, T, 4H]."""
     return torch.empty((*x.shape[:2], 4 * H), dtype=torch.float32,
                        device=x.device)
 
@@ -641,9 +784,13 @@ def lstm_fwd_stash_cuda(wx, wh, b, x) -> tuple:
     hs = torch.empty((B, T, H), dtype=x.dtype, device=x.device)
     cs = torch.empty_like(hs)
     gates = torch.empty((B, T, 4 * H), dtype=x.dtype, device=x.device)
-    if suffix == "bf16":
+    if suffix == "bf16" and bf16_fwd_body(E, H) == "resident":
         _LIB.launch("lstm_fwd_stash_bf16", x, fwd_weight_layout(wx, wh), b,
                     hs, cs, gates, B, T, E, H)
+    elif suffix == "bf16":
+        _LIB.launch("lstm_fwd_stash_xw_bf16", x, xw_xproj_layout(wx),
+                    xw_rec_weight_layout(wh), b, _pre_workspace(x, H), hs, cs,
+                    gates, B, T, E, H)
     else:
         R, C = f32_tiling(B, H)
         _LIB.launch("lstm_fwd_stash_f32", x, *f32_xproj_layout(wx, b),
@@ -740,33 +887,121 @@ def lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs) -> tuple:
     return dwx, dwh, db, dx
 
 
+@functools.lru_cache(maxsize=256)
+def padded_widths(E: int, H: int, dtype: torch.dtype) -> tuple:
+    """``(E', H')``, the widths the ``dtype`` kernels run a call of widths
+    ``(E, H)`` at: E rises to a multiple of 4 (f32) or 16 (bf16), H to the
+    next width the kernels take (:func:`check_f32_widths` up to
+    ``F32_MAX_H``, :func:`check_bf16_widths`'s multiples of 16 up to
+    ``BF16_MAX_H``). Where none does, H stays as it is, and the kernels
+    refuse the call with a ``ValueError`` naming the constraint. f32: (5,
+    6) -> (8, 8), (64, 72) -> (64, 80), (8, 4) -> (8, 8), (64, 200) -> (64,
+    256); bf16: (5, 6) -> (16, 16), (128, 128) -> (128, 128)."""
+    if dtype == torch.bfloat16:
+        Hp = -(-H // 16) * 16
+        return -(-E // 16) * 16, Hp if Hp <= BF16_MAX_H else H
+    Ep = -(-E // 4) * 4
+    for Hp in range(-(-H // 8) * 8, F32_MAX_H + 1, 8):
+        try:
+            check_f32_widths(Ep, Hp)
+        except ValueError:
+            continue
+        return Ep, Hp
+    return Ep, H
+
+
+def _pad_gate_columns(w: torch.Tensor, Hp: int) -> torch.Tensor:
+    """``[rows, 4H]`` -> ``[rows, 4Hp]``: gate g's columns at ``g Hp``,
+    zeros after them."""
+    rows, G = w.shape
+    H = G // 4
+    out = w.new_zeros(rows, 4, Hp)
+    out[:, :, :H] = w.reshape(rows, 4, H)
+    return out.reshape(rows, 4 * Hp)
+
+
+def pad_lstm_inputs(wx, wh, b, x, Ep: int, Hp: int) -> tuple:
+    """``(wx, wh, b, x)`` zero-padded to widths ``(Ep, Hp)``: the weight
+    columns and biases of padded units zero in all four gates, the Wh rows
+    of padded units and the Wx rows (and x columns) of padded features
+    zero. A padded unit then keeps c = h = 0 (its pre-activations are 0,
+    so c = sigmoid(0) c + sigmoid(0) tanh(0) = 0), adds nothing to a real
+    unit's gates and gets dpre = 0 in the backward. The same tensors where
+    nothing is padded (no copy)."""
+    E, H = x.shape[2], wh.shape[0]
+    if (Ep, Hp) == (E, H):
+        return wx, wh, b, x
+    wxp = wx.new_zeros(Ep, 4 * Hp)
+    wxp[:E] = _pad_gate_columns(wx, Hp)
+    whp = wh.new_zeros(Hp, 4 * Hp)
+    whp[:H] = _pad_gate_columns(wh, Hp)
+    bp = _pad_gate_columns(b.reshape(1, 4 * H), Hp).reshape(4 * Hp)
+    xp = torch.nn.functional.pad(x, (0, Ep - E)) if Ep > E else x
+    return wxp, whp, bp, xp
+
+
+def unpad_hs(hs: torch.Tensor, H: int) -> torch.Tensor:
+    """hs (or cs) ``[B, T, Hp]`` sliced back to the caller's H units."""
+    return hs if hs.shape[2] == H else hs[:, :, :H].contiguous()
+
+
+def pad_dhs(dhs: torch.Tensor, Hp: int) -> torch.Tensor:
+    """The incoming ``dhs [B, T, H]`` with zeros for the padded units."""
+    H = dhs.shape[2]
+    return dhs if Hp == H else torch.nn.functional.pad(dhs, (0, Hp - H))
+
+
+def unpad_grads(dwx, dwh, db, dx, E: int, H: int) -> tuple:
+    """``dwx [Ep, 4Hp], dwh [Hp, 4Hp], db [4Hp], dx [B, T, Ep]`` of a
+    padded call sliced back to the caller's ``[E, 4H], [H, 4H], [4H]`` and
+    ``[B, T, E]``: the real rows, and in each gate the real units."""
+    Hp = dwh.shape[0]
+
+    def cols(w):
+        return w.reshape(w.shape[0], 4, Hp)[:, :, :H].reshape(-1, 4 * H)
+
+    if dwx.shape[0] == E and Hp == H:
+        return dwx, dwh, db, dx
+    return (cols(dwx[:E]).contiguous(), cols(dwh[:H]).contiguous(),
+            cols(db.reshape(1, 4 * Hp)).reshape(4 * H).contiguous(),
+            dx[:, :, :E].contiguous())
+
+
 class LSTMSeq(torch.autograd.Function):
     """The differentiable whole-sequence LSTM (the counterpart of the JAX
     package's ``custom_vjp`` around ``_lstm_tbe``): the stash forward saves
     ``(wx, wh, x, hs, cs, gates)``; ``backward`` runs BPTT and returns
-    ``dwx, dwh, db, dx``. CUDA tensors go to the kernels, CPU tensors to the
-    plain twins, so the CPU tests exercise the same wiring."""
+    ``dwx, dwh, db, dx``. CUDA tensors go to the kernels, at
+    :func:`padded_widths` (padded before the forward and the backward,
+    sliced after each); CPU tensors to the plain twins, unpadded, so the
+    CPU tests exercise the same wiring."""
 
     @staticmethod
     def forward(ctx, wx, wh, b, x):
+        ctx.b_dtype = b.dtype
+        E, H = x.shape[2], wh.shape[0]
+        ctx.widths = (E, H)
         if build.on_cpu((wx, wh, b, x)):
             hs, cs, gates = lstm_fwd_stash_plain(wx, wh, b, x)
         else:
+            build.check_cuda((x, wh, wx, b), "lstm_fwd_stash", "LSTM")
+            wx, wh, b, x = pad_lstm_inputs(
+                wx, wh, b, x, *padded_widths(E, H, x.dtype))
             hs, cs, gates = lstm_fwd_stash_cuda(wx, wh, b, x)
         ctx.save_for_backward(wx, wh, x, hs, cs, gates)
-        ctx.b_dtype = b.dtype
-        return hs
+        return unpad_hs(hs, H)
 
     @staticmethod
     def backward(ctx, dhs):
         wx, wh, x, hs, cs, gates = ctx.saved_tensors
         # The head reads hs[:, -1] only, so dhs is mostly zeros; autograd
         # may hand it over in any layout. Make it the kernel's.
-        dhs = dhs.contiguous()
+        dhs = pad_dhs(dhs.contiguous(), wh.shape[0])
         if build.on_cpu((wx, wh, x, hs, cs, gates, dhs)):
             dwx, dwh, db, dx = lstm_bwd_plain(wx, wh, x, hs, cs, gates, dhs)
         else:
-            dwx, dwh, db, dx = lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs)
+            dwx, dwh, db, dx = unpad_grads(
+                *lstm_bwd_cuda(wx, wh, x, hs, cs, gates, dhs), *ctx.widths)
         return dwx, dwh, db.to(ctx.b_dtype), dx
 
 
@@ -777,16 +1012,20 @@ def lstm_seq(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
     Differentiable: when autograd needs a gradient of any input, the call
     goes through :class:`LSTMSeq` (stash forward, BPTT backward). Otherwise
     it runs the forward alone. CPU tensors take the plain twins. CUDA
-    tensors must be contiguous, on one device and all float32 or all
-    bfloat16; anything else raises, and so does a failed build or
-    launch."""
+    tensors run at :func:`padded_widths` (zero-padded, hs sliced back) and
+    must be contiguous, on one device and all float32 or all bfloat16;
+    anything else raises, and so does a width no kernel takes, a failed
+    build or a failed launch."""
     tensors = (wx, wh, b, x)
     _check(*tensors)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return LSTMSeq.apply(wx, wh, b, x)
     if build.on_cpu(tensors):
         return lstm_seq_plain(wx, wh, b, x)
-    return lstm_fwd_cuda(wx, wh, b, x)
+    build.check_cuda((x, wh, wx, b), "lstm_fwd", "LSTM")  # before any copy
+    E, H = x.shape[2], wh.shape[0]
+    padded = pad_lstm_inputs(wx, wh, b, x, *padded_widths(E, H, x.dtype))
+    return unpad_hs(lstm_fwd_cuda(*padded), H)
 
 
 def pack_lstm_params(cell_params) -> tuple:

@@ -261,6 +261,138 @@ def test_group_norm_refuses_what_it_does_not_take(card):
     assert G.launch_counts() == before
 
 
+def _check_group_norm_kernels(dtype, B, N, C, groups, relu):
+    """y and the gradients of the kernels against the twins, f32 within
+    atol 1e-5 (y) and 1e-4 of each gradient's largest magnitude, bf16
+    within one bf16 ulp of each output's largest magnitude; dy zeroed
+    within 1e-2 of the ReLU edge; two calls give the same bits."""
+    g = torch.Generator().manual_seed(1)
+    x, dy = (torch.randn(B, N, C, generator=g).cuda().to(dtype)
+             for _ in range(2))
+    gamma, beta = (torch.randn(C, generator=g).cuda().to(dtype)
+                   for _ in range(2))
+    pre = G.group_norm_fwd_plain(x, gamma, beta, groups, False).float()
+    dy = torch.where(pre.abs() > 1e-2, dy, torch.zeros_like(dy))
+    y = G.group_norm_fwd_cuda(x, gamma, beta, groups, relu)
+    y2 = G.group_norm_fwd_cuda(x, gamma, beta, groups, relu)
+    got = G.group_norm_bwd_cuda(x, dy, gamma, beta, groups, relu)
+    again = G.group_norm_bwd_cuda(x, dy, gamma, beta, groups, relu)
+    torch.cuda.synchronize()
+    ref = (G.group_norm_fwd_plain(x, gamma, beta, groups, relu),
+           *G.group_norm_bwd_plain(x, dy, gamma, beta, groups, relu))
+    assert torch.equal(y, y2)
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+    for k, (a, r) in enumerate(zip((y, *got), ref)):
+        assert a.dtype == dtype
+        if dtype == torch.bfloat16:
+            assert _grad_err(a.float(), r.float()) <= BF16_ULP
+        elif k == 0:
+            torch.testing.assert_close(a, r, rtol=0, atol=1e-5)
+        else:
+            assert _grad_err(a, r) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,C,groups,relu", [
+    (2, 112 * 112, 64, 32, True), (3, 16 * 16, 16, 8, True),
+    (3, 8 * 8, 64, 8, False), (2, 5, 24, 8, True), (2, 7, 6, 3, False)])
+def test_group_norm_kernels_at_the_stem_and_tiny_resnet_shapes(
+        card, dtype, B, N, C, groups, relu):
+    """The stem slab (clusters of 16 blocks, two an SM, every row cached),
+    tiny_resnet's slabs (C=16 at 8 groups, C=64) and channels that take 8-
+    and 4-byte vectors, at the wrappers' own tilings, held to the twins
+    (:func:`_check_group_norm_kernels`)."""
+    _check_group_norm_kernels(dtype, B, N, C, groups, relu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,relu", [
+    (224 * 224, True), (224 * 224 + 3, False), (160 * 160, True),
+    (160 * 160 + 7, False)])
+def test_group_norm_kernels_past_the_cached_rows(card, dtype, N, relu):
+    """Rows a block cannot keep in shared memory, read from global memory
+    (L2) in every sweep: the stems of a 448x448 image (224x224x64), where
+    16 blocks cache part of their rows in both kernels, and of a 320x320
+    one (160x160x64), where the backward (x and dy) caches 868 of 1600
+    rows a block in bf16 and the forward all; with a few rows more, so
+    the last block's share is ragged. Held to the twins as the cached
+    shapes are (:func:`_check_group_norm_kernels`)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    bwd = G.gn_tiling(N, 64, 32, size, True)
+    assert bwd.cluster == 16 and bwd.cached < bwd.rows
+    _check_group_norm_kernels(dtype, 2, N, 64, 32, relu)
+
+
+#: widths the kernels refuse and ``lstm_seq`` pads on the card: (E, H, B)
+#: per dtype; f32 H=192 and 256 at a batch of each tiling.
+PADDED_WIDTHS = {torch.float32: [(5, 6, 3), (64, 72, 19), (64, 192, 5),
+                                 (64, 192, 1100), (8, 256, 3)],
+                 torch.bfloat16: [(5, 6, 3), (64, 72, 19), (128, 128, 19),
+                                  (144, 64, 3)]}
+
+
+@pytest.mark.parametrize("dtype,E_,H_,B", [
+    (dt, *w) for dt, ws in PADDED_WIDTHS.items() for w in ws])
+def test_lstm_seq_at_padded_widths_on_card(card, dtype, E_, H_, B):
+    """``lstm_seq`` forward and gradient at widths the kernels take only
+    padded (or, bf16 E=H=128 and E=144, through the xw body): against the
+    twins at the caller's widths, f32 within ``KERNEL_ATOL`` 1e-5 (hs) and
+    ``BWD_RTOL`` 1e-4 of each gradient's largest magnitude, bf16 within the
+    LSTM's bf16 limits; one forward launch, then one stash forward and one
+    backward."""
+    g = torch.Generator().manual_seed(2)
+
+    def draw(*size, scale=1.0):
+        return (torch.randn(*size, generator=g) * scale).cuda().to(dtype)
+
+    wx, wh = draw(E_, 4 * H_, scale=E_ ** -0.5), draw(H_, 4 * H_,
+                                                     scale=H_ ** -0.5)
+    b, x, dhs = draw(4 * H_, scale=0.1), draw(B, 40, E_), draw(B, 40, H_,
+                                                               scale=0.1)
+    K.reset_launches()
+    with torch.no_grad():
+        hs = K.lstm_seq(wx, wh, b, x)
+    leaves = [t.clone().requires_grad_() for t in (wx, wh, b, x)]
+    grads = torch.autograd.grad(K.lstm_seq(*leaves), leaves, dhs)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {"lstm_fwd": 1, "lstm_fwd_stash": 1,
+                                 "lstm_bwd": 1}
+    ref = K.lstm_seq_plain(wx, wh, b, x)
+    plain = K.lstm_bwd_plain(wx, wh, x, *K.lstm_fwd_stash_plain(wx, wh, b,
+                                                                x), dhs)
+    assert hs.shape == ref.shape
+    for a, r in zip(grads, plain):
+        assert a.shape == r.shape and a.dtype == r.dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(hs, ref, rtol=0, atol=1e-5)
+        for a, r in zip(grads, plain):
+            assert _grad_err(a, r) <= 1e-4
+    else:
+        for a, r in ((hs, ref), *zip(grads, plain)):
+            d, m = (a.float() - r.float()).abs(), r.float().abs()
+            assert d.max() <= LSTM_BF16["top"] * m.max()
+            assert d.mean() <= LSTM_BF16["mean"] * m.mean()
+
+
+@pytest.mark.parametrize("dtype,E_,H_,what", [
+    (torch.float32, 64, 512, "shared memory"),
+    (torch.bfloat16, 64, 144, "H <= 128")])
+def test_lstm_seq_refuses_widths_past_the_padding_on_card(card, dtype, E_,
+                                                          H_, what):
+    """f32 H > 256 and bf16 H > 128: a ValueError naming the constraint,
+    nothing launched, never the twin."""
+    wx, wh, b = (torch.zeros(*s, device="cuda", dtype=dtype)
+                 for s in ((E_, 4 * H_), (H_, 4 * H_), (4 * H_,)))
+    x = torch.zeros(2, 3, E_, device="cuda", dtype=dtype)
+    K.reset_launches()
+    with pytest.raises(ValueError, match=what):
+        K.lstm_seq(wx, wh, b, x)
+    with pytest.raises(ValueError, match=what):
+        K.lstm_seq(*(t.clone().requires_grad_() for t in (wx, wh, b)), x)
+    assert not any(K.launch_counts(by_entry=True).values())
+
+
 def test_tiny_resnet_step_on_card_launches_the_group_norm_kernels(card):
     """One SingleTrainer step of tiny_resnet (9 GroupNorms: the stem, three
     in each of two blocks, two residual projections) launches each
@@ -378,13 +510,14 @@ def test_bf16_backward_launches_each_entry_once(packed):
 
 @pytest.mark.parametrize("E_,H_,what", [(24, 128, "multiples of 16"),
                                         (64, 40, "multiples of 16"),
-                                        (144, 64, "E <= 128"),
+                                        (8, 64, "multiples of 16"),
                                         (64, 144, "H <= 128"),
-                                        (128, 128, "shared memory")])
+                                        (128, 256, "H <= 128")])
 def test_bf16_widths_the_kernels_refuse_raise(card, E_, H_, what):
-    """Widths the f32 kernels take and the bf16 tensor-core kernels do not:
-    every bf16 wrapper raises a ValueError naming the constraint, and
-    nothing launches (no quiet switch to another body or to the twin)."""
+    """Widths the bf16 tensor-core kernels do not take (E or H off the mma
+    k-tile, H past the 16 units a warp owns): every bf16 wrapper raises a
+    ValueError naming the constraint, and nothing launches (no quiet
+    switch to another body or to the twin)."""
     g = torch.Generator().manual_seed(0)
     wx, wh, b = (torch.randn(*s, generator=g).cuda().bfloat16()
                  for s in ((E_, 4 * H_), (H_, 4 * H_), (4 * H_,)))

@@ -22,7 +22,8 @@ from distkeras_tpu_torch.ops.kernels import lstm as K
 #: tiles.
 SHAPES = [(3, 5, 8, 8, 16, 1), (19, 4, 12, 32, 16, 4),
           (5, 3, 8, 64, 16, 8), (40, 3, 8, 16, 32, 2),
-          (35, 2, 4, 8, 32, 1)]
+          (35, 2, 4, 8, 32, 1), (18, 2, 4, 80, 16, 2),
+          (33, 2, 8, 192, 32, 4), (34, 2, 4, 256, 32, 8)]
 
 
 def _inputs(B, T, E, H, seed=0):
@@ -42,13 +43,20 @@ def _tbe(a):
 @pytest.mark.parametrize("B,H,want", [
     (1, 128, (16, 8)), (256, 128, (16, 8)), (1024, 128, (16, 8)),
     (1025, 128, (32, 2)), (2048, 128, (32, 2)), (1, 8, (16, 1)),
-    (2048, 8, (32, 1)), (5, 32, (16, 4)), (2048, 16, (32, 2))])
+    (2048, 8, (32, 1)), (5, 32, (16, 4)), (2048, 16, (32, 2)),
+    (1, 80, (16, 2)), (2048, 80, (32, 2)), (1, 192, (16, 8)),
+    (2048, 192, (32, 4)), (1, 256, (16, 8)), (2048, 256, (32, 8)),
+    (1, 16, (16, 2))])
 def test_f32_tiling_picks_the_preferred_cluster_that_fills_warps(B, H, want):
-    """R by batch (16 up to 1024 rows, 32 above), then the most preferred
-    C whose blocks own a multiple of 8 units."""
+    """R by batch (16 up to 1024 rows, 32 above), then the first C of R's
+    order whose blocks own a multiple of 8 units within 512 threads and a
+    block's shared memory (H=192 at R=32: C=2 needs 768 threads; H=256:
+    C=4 needs 327,696 bytes)."""
     R, C = K.f32_tiling(B, H)
     assert (R, C) == want and (R, C) in K.F32_TILINGS
-    assert (H // C) % 8 == 0
+    assert (H // C) % 8 == 0 and K.f32_misfit(H, R, C) is None
+    for earlier in K.F32_PREFERENCE[R][:K.F32_PREFERENCE[R].index(C)]:
+        assert K.f32_misfit(H, R, earlier) is not None
 
 
 def test_f32_tiling_sizes_at_config_4():
@@ -68,24 +76,39 @@ def test_f32_tiling_sizes_at_config_4():
     assert K.f32_rec_smem_bytes(128, 32, 2) == 196624
 
 
+@pytest.mark.parametrize("H,R,C,threads,fwd,rec", [
+    (80, 16, 2, 320, 61456, 71696), (192, 16, 8, 192, 104464, 104464),
+    (192, 32, 4, 384, 196624, 221200), (256, 16, 8, 256, 172048, 172048),
+    (256, 32, 8, 256, 196624, 213008)])
+def test_f32_wider_tilings_fit_the_block(H, R, C, threads, fwd, rec):
+    """The tilings built for H=80, 192 and 256: threads a block and the
+    shared memory of the recurrence and the recurrent backward, each within
+    512 threads and 232,448 bytes."""
+    assert K.f32_threads(H, R, C) == threads <= K.F32_MAX_THREADS
+    assert K.f32_fwd_smem_bytes(H, R, C) == fwd <= 232448
+    assert K.f32_rec_smem_bytes(H, R, C) == rec <= 232448
+
+
 @pytest.mark.parametrize("E,H,what", [(5, 8, "multiple of 4"),
                                       (64, 12, "multiple of 8"),
                                       (64, 72, "512 threads"),
                                       (8, 120, "512 threads"),
-                                      (64, 256, "512 threads")])
+                                      (64, 512, "shared memory")])
 def test_f32_widths_the_kernels_refuse(E, H, what):
-    """Widths the earlier scalar body took (any E, 4H <= 512; H=256 not
-    even that) and the cluster body does not."""
+    """Widths no built tiling holds: the kernels' contract, which padding
+    at the model boundary reaches around (H=72 runs at 80, H=120 at 128);
+    H=512 fits no portable cluster and stays refused."""
     with pytest.raises(ValueError, match=what):
         K.check_f32_widths(E, H)
 
 
 @pytest.mark.parametrize("E,H", [(64, 128), (8, 8), (16, 16), (128, 128),
-                                 (32, 48), (4, 64)])
+                                 (32, 48), (4, 64), (64, 80), (8, 192),
+                                 (64, 256)])
 def test_f32_widths_the_kernels_take(E, H):
     """Config #4, the card tests' E=H=8 and every E a multiple of 4 (the
     x . Wx product reads E in 16-byte vectors; the recurrence never holds
-    x), among them E=H=128, which the bf16 body refuses."""
+    x), among them E=H=128, and the wider tilings' H=80, 192 and 256."""
     K.check_f32_widths(E, H)
 
 
@@ -276,3 +299,21 @@ def test_f32_tilings_mirror_the_kernels_header():
     assert K.F32_ROWS_PER_THREAD == {16: 2, 32: 4}
     assert "constexpr int kThreads = 512;" in src
     assert K.F32_MAX_THREADS == 512
+
+
+def test_f32_max_threads_mirror_the_kernels_header():
+    """``f32_max_threads`` names the block sizes ``csrc/lstm_f32.cuh``
+    builds the recurrent backward for: 256 at (32, 8), 512 elsewhere; no
+    width that fits (32, 8)'s shared memory needs more than 256."""
+    import pathlib
+
+    src = (pathlib.Path(K.__file__).resolve().parents[2] / "csrc"
+           / "lstm_f32.cuh").read_text()
+    assert "return R == 32 && C == 8 ? 256 : kThreads;" in src
+    for R, C in K.F32_TILINGS:
+        assert K.f32_max_threads(R, C) == (256 if (R, C) == (32, 8) else 512)
+    for H in range(64, 513, 8):
+        if K.f32_misfit(H, 32, 8) is None:
+            assert K.f32_threads(H, 32, 8) <= 256
+        if K.f32_threads(H, 32, 8) > 256 and H % 64 == 0:
+            assert K.f32_misfit(H, 32, 8) is not None

@@ -105,18 +105,90 @@ def test_wgrad_rows_shift_equals_the_twins_h_prev(shape):
 
 @pytest.mark.parametrize("E,H,what", [(24, 128, "multiples of 16"),
                                       (64, 40, "multiples of 16"),
-                                      (144, 64, "E <= 128"),
+                                      (8, 64, "multiples of 16"),
                                       (64, 144, "H <= 128"),
-                                      (128, 128, "shared memory")])
+                                      (128, 256, "H <= 128")])
 def test_bf16_widths_the_kernels_refuse(E, H, what):
+    """E or H off the mma k-tile, and H past the 16 units a warp owns (the
+    widths padding reaches no further than)."""
     with pytest.raises(ValueError, match=what):
         K.check_bf16_widths(E, H)
 
 
-@pytest.mark.parametrize("E,H", [(64, 128), (16, 16), (128, 96)])
+@pytest.mark.parametrize("E,H", [(64, 128), (16, 16), (128, 96), (144, 64),
+                                 (128, 128)])
 def test_bf16_widths_the_kernels_take(E, H):
-    """Config #4 (E=64, H=128: the forward keeps 218,112 bytes of shared
-    memory) and the card tests' small training width."""
+    """Config #4 (E=64, H=128: the resident forward keeps 218,112 bytes of
+    shared memory), the card tests' small training width, and E > 128 and
+    ``imdb_lstm()``'s E=H=128, which the ``xw`` body runs (x . Wx first,
+    only Wh resident: 147,968 bytes)."""
     K.check_bf16_widths(E, H)
     assert K.fwd_smem_bytes(64, 128) == 218112
     assert K.rec_smem_bytes(128) == 166400
+    assert K.xw_smem_bytes(128) == 147968
+
+
+@pytest.mark.parametrize("E,H,body", [(64, 128, "resident"),
+                                      (16, 16, "resident"),
+                                      (128, 96, "resident"),
+                                      (128, 128, "xw"), (144, 64, "xw"),
+                                      (256, 16, "xw")])
+def test_bf16_forward_body_follows_the_width_alone(E, H, body):
+    """Resident wherever ``[Wx; Wh]`` and the tiles fit a block and x_t is
+    one vector a thread (E <= 128); the ``xw`` body elsewhere."""
+    assert K.bf16_fwd_body(E, H) == body
+    assert (K.fwd_smem_bytes(E, H) <= 232448 and E <= 128) == (
+        body == "resident")
+
+
+@pytest.mark.parametrize("H", [16, 48, 128])
+def test_xw_permutation_puts_a_lanes_eight_pre_values_side_by_side(H):
+    """Every packed column once; column 32 q + 8 t + 2 gate + u of the
+    scratch is gate ``gate`` of unit 8 q + 2 t + u, so the lane owning
+    units 8 q + 2 t, + 1 reads i, i, f, f, g, g, o, o contiguously."""
+    perm = K.xw_permutation(H)
+    assert torch.equal(perm.sort().values, torch.arange(4 * H))
+    p = torch.arange(4 * H)
+    assert torch.equal(perm // H, (p % 8) // 2)
+    assert torch.equal(perm % H, 8 * (p // 32) + 2 * ((p % 32) // 8) + p % 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_xw_layouts_round_trip(shape, dtype):
+    """``[4H, E]`` and ``[4H, H]``, contiguous, read back through the
+    inverse permutations to Wx and Wh exactly."""
+    E, H = shape[2], shape[3]
+    wx, wh, *_ = _inputs(shape, dtype)
+    wxt, wht = K.xw_xproj_layout(wx), K.xw_rec_weight_layout(wh)
+    assert wxt.shape == (4 * H, E) and wxt.is_contiguous()
+    assert wht.shape == (4 * H, H) and wht.is_contiguous()
+    assert wxt.dtype == wht.dtype == dtype
+    assert torch.equal(wxt.t()[:, torch.argsort(K.xw_permutation(H))], wx)
+    assert torch.equal(wht.t()[:, torch.argsort(K.gate_permutation(H))], wh)
+
+
+@pytest.mark.parametrize("stash", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES + [(2, 6, 144, 16)])
+def test_forward_as_the_xw_body_splits_it_matches_the_twin(shape, dtype,
+                                                            stash):
+    """x . Wx for every (b, t) first (f32, in the scratch's order), then
+    (pre + h . Wh) + b each step: the twin's association, with the
+    products summed in another order. f32: within atol 1e-6. bf16: within
+    two bf16 ulps of each output's largest magnitude (a sum order can flip
+    one rounding of h, which the carry feeds on); E=144 is past the
+    resident body."""
+    wx, wh, b, x, _ = _inputs(shape, dtype)
+    got = K.lstm_fwd_xw_layout_plain(K.xw_xproj_layout(wx),
+                                     K.xw_rec_weight_layout(wh), b, x, stash)
+    ref = K.lstm_fwd_stash_plain(wx, wh, b, x)
+    if not stash:
+        got, ref = (got,), ref[:1]
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype == dtype and a.shape == r.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, r, rtol=0, atol=1e-6)
+        else:
+            err = (a.float() - r.float()).abs().max()
+            assert err <= 2 * 2.0 ** -8 * r.float().abs().max(), err

@@ -1,0 +1,225 @@
+#!/usr/bin/env python3
+"""Time the LSTM kernels at config #4, the GroupNorm kernels at every
+ResNet-50 slab and one ResNet-50 training step, in one tree of the port,
+for comparing two trees on one card.
+
+Run from the repository root on a machine with a CUDA card and ``nvcc``::
+
+    python3 tools/kernel_ab.py [--root DIR] [--seed N] [--tilings auto,...]
+
+``--root`` is the checkout whose ``distkeras_tpu_torch`` is timed (default:
+this one; a copy of another commit, unpacked with ``git archive`` into a
+directory git ignores, times that commit's kernels). The timing helpers
+and the slab table are this checkout's ``chip_smoke.py``. It prints one
+JSON line: the card's name and power limit, then, in f32 and bf16, the
+milliseconds (CUDA events, 10 back-to-back calls after a warm one, the
+median of three readings taken in turns) of ``lstm_fwd`` at B = 1, 16,
+256, the stash forward and the backward at B = 2048 (T=200, E=64, H=128),
+the GroupNorm forward and backward at each slab (B=128, G=32, the model's
+ReLU flag) with the sum over one ResNet-50 step's 53 GroupNorms, and one
+local step of ``resnet50(norm_impl="pallas")`` at B=128 split by CUDA
+events (``chip_smoke.step_split``: the forward, the backward, the update,
+and the GroupNorm calls inside them). Compare two trees in one call, in
+turns: parent, change, change, parent.
+
+``--tilings`` times the GroupNorm kernels at other layouts
+(``groupnorm.gn_layout``, launched through the C entry points) beside the
+wrappers' own (``auto``), each held to the plain twins at
+``chip_smoke.py``'s limits first: ``one``, one block of 512 threads an SM
+with clusters up to 16; ``portable``, the same with clusters up to 8,
+where the stem's backward reads part of its rows again from L2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as S  # noqa: E402  (this tree's helpers, before --root)
+
+T, E, H = 200, 64, 128
+
+
+def layouts(G, N: int, C: int, itemsize: int, kind: str):
+    """The forward's and the backward's tiling of a slab under ``kind``
+    (None: the wrappers' own)."""
+    if kind == "auto":
+        return None
+    clusters = G.GN_CLUSTERS + ((G.GN_WIDE_CLUSTER,) if kind == "one"
+                                else ())
+    out = []
+    for backward in (False, True):
+        d = G.gn_tiling(N, C, S.GN_GROUPS, itemsize, backward)
+        out.append(G.gn_layout(N, C, S.GN_GROUPS, itemsize, backward, d.vec,
+                               max(128 // itemsize, C // S.GN_GROUPS),
+                               G.GN_THREADS, G.GN_MAX_SMEM, clusters))
+    return tuple(out)
+
+
+def launchers(torch, G, x, dy, gamma, beta, relu, tilings) -> tuple:
+    """The forward and the backward at ``tilings``, through the C entry
+    points (``group_norm_fwd_*``, ``group_norm_bwd_*``) with the wrappers'
+    arguments and outputs allocated once, each held first to the plain
+    twins at ``chip_smoke.py``'s limits (f32: GN_ATOL, GN_BWD_RTOL; bf16:
+    GN_BF16_TOP)."""
+    B, N, C = x.shape
+    suffix = "f32" if x.element_size() == 4 else "bf16"
+    tf, tb = tilings
+    y, dx = torch.empty_like(x), torch.empty_like(x)
+    part = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
+    dg, db = torch.empty_like(gamma), torch.empty_like(beta)
+
+    def fwd():
+        G._LIB.launch(f"group_norm_fwd_{suffix}", x, gamma, beta, y, B, N, C,
+                      S.GN_GROUPS, tf.ct, tf.vec, tf.threads, tf.cluster,
+                      tf.cached, int(relu))
+
+    def bwd():
+        G._LIB.launch(f"group_norm_bwd_{suffix}", x, dy, gamma, beta, dx, dg,
+                      db, part, B, N, C, S.GN_GROUPS, tb.ct, tb.vec,
+                      tb.threads, tb.cluster, tb.cached, int(relu))
+
+    fwd()
+    bwd()
+    args = (gamma, beta, S.GN_GROUPS, relu)
+    y_ref = G.group_norm_fwd_plain(x, *args)
+    y_rel = S.rel_err(torch, y, y_ref)
+    y_err = (y.float() - y_ref.float()).abs().max().item()
+    dx_rel = S.rel_err(torch, dx, G.group_norm_bwd_plain(x, dy, *args)[0])
+    if x.dtype == torch.float32:
+        ok = y_err <= S.GN_ATOL and dx_rel <= S.GN_BWD_RTOL
+    else:
+        ok = max(y_rel, dx_rel) <= S.GN_BF16_TOP
+    if not ok:
+        sys.exit(f"GroupNorm at {tilings} disagrees with the twins: "
+                 f"y {y_rel}, dx {dx_rel}")
+    return fwd, bwd
+
+
+def lstm_rows(torch, K, gen) -> dict:
+    wx32 = torch.randn((E, 4 * H), device="cuda", generator=gen) / 8
+    wh32 = torch.randn((H, 4 * H), device="cuda", generator=gen) / 11
+    b32 = torch.randn(4 * H, device="cuda", generator=gen) / 10
+    out = {}
+    for name in S.DTYPES:
+        dt = getattr(torch, name)
+        wx, wh, b = (t.to(dt) for t in (wx32, wh32, b32))
+        fns = {}
+        with torch.no_grad():
+            for B in (1, 16, 256):
+                x = torch.randn((B, T, E), device="cuda",
+                                generator=gen).to(dt)
+                fns[f"lstm_fwd B={B}"] = (
+                    lambda x=x: K.lstm_fwd_cuda(wx, wh, b, x))
+            x = torch.randn((2048, T, E), device="cuda", generator=gen).to(dt)
+            fns["lstm_fwd_stash B=2048"] = (
+                lambda: K.lstm_fwd_stash_cuda(wx, wh, b, x))
+            res = K.lstm_fwd_stash_cuda(wx, wh, b, x)
+            dhs = (torch.randn((2048, T, H), device="cuda", generator=gen)
+                   / 10).to(dt)
+            fns["lstm_bwd B=2048"] = (
+                lambda: K.lstm_bwd_cuda(wx, wh, x, *res, dhs))
+            out[name] = {k: v[0] for k, v in
+                         S.interleaved_ms(torch, fns, 10).items()}
+        del res, x, dhs, fns
+    return out
+
+
+def group_norm_rows(torch, G, gen, kinds) -> dict:
+    out = {}
+    for name in S.DTYPES:
+        dt = getattr(torch, name)
+        slabs, step = {}, {k: [0.0, 0.0] for k in kinds}
+        for N, C, relu, per_step in S.GN_SLABS:
+            x, dy = (torch.randn((128, N, C), device="cuda",
+                                 generator=gen).to(dt) for _ in range(2))
+            gamma, beta = (torch.randn(C, device="cuda", generator=gen).to(dt)
+                           for _ in range(2))
+            if relu:
+                dy = S.relu_margin(torch, G, x, dy, gamma, beta,
+                                   1e-3 if name == "float32" else 1e-2)
+            args = (gamma, beta, S.GN_GROUPS, relu)
+            row, fns = {}, {}
+            for kind in kinds:
+                t = layouts(G, N, C, x.element_size(), kind)
+                if t is None:
+                    fwd = (lambda: G.group_norm_fwd_cuda(x, *args))
+                    bwd = (lambda: G.group_norm_bwd_cuda(x, dy, *args))
+                else:
+                    fwd, bwd = launchers(torch, G, x, dy, gamma, beta, relu,
+                                         t)
+                    row[f"{kind} tiling"] = [v._asdict() for v in t]
+                fns[f"{kind} fwd"], fns[f"{kind} bwd"] = fwd, bwd
+            for k, (ms, _) in S.interleaved_ms(torch, fns, 10).items():
+                row[k] = ms
+                kind, way = k.split(" ")
+                step[kind][way == "bwd"] += ms * per_step
+            slabs[f"{N}x{C}"] = row
+            del x, dy, fns
+        torch.cuda.empty_cache()
+        out[name] = {"slabs": slabs, "step_fwd_bwd": step}
+    return out
+
+
+def resnet_steps(torch, G, seed: int) -> dict:
+    """One local step of ResNet-50 at B=128 in f32 and bf16, split by CUDA
+    events (mean of 3 after a warm step)."""
+    from distkeras_tpu_torch import resnet50
+    from distkeras_tpu_torch.ops.optimizers import sgd
+
+    B = S.RESNET["batch_size"]
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.random((B, 224, 224, 3), dtype=np.float32),
+                        device="cuda")
+    y = torch.as_tensor(rng.integers(0, 1000, B).astype(np.int32),
+                        device="cuda")
+    out = {}
+    for name in S.DTYPES:
+        model = resnet50(norm_impl="pallas", seed=seed, device="cuda")
+        out[name] = S.step_split(
+            torch, model, x, y, sgd(S.RESNET["learning_rate"]),
+            timed=(G, {"group_norm_fwd_cuda": "gn_forward",
+                       "group_norm_bwd_cuda": "gn_backward"}),
+            dtype=getattr(torch, name))
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tilings", default="auto")
+    args = ap.parse_args()
+    kinds = args.tilings.split(",")
+    if not set(kinds) <= {"auto", "one", "portable"}:
+        sys.exit(f"unknown tilings {kinds}")
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device is available")
+    from distkeras_tpu_torch.ops.kernels import groupnorm as G
+    from distkeras_tpu_torch.ops.kernels import lstm as K
+
+    if not Path(K.__file__).resolve().is_relative_to(root):
+        sys.exit(f"imported {K.__file__}, not the tree at {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # as chip_smoke.py runs
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    out = {"root": str(root), "gpu": S.card_line(),
+           "lstm": lstm_rows(torch, K, gen),
+           "group_norm": group_norm_rows(torch, G, gen, kinds),
+           "resnet50_step_ms": resnet_steps(torch, G, args.seed)}
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

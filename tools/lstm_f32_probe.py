@@ -27,20 +27,9 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import cuda_ms  # noqa: E402
 
 T, E, H = 200, 64, 128
-
-
-def cuda_ms(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    for _ in range(reps):
-        fn()
-    ev[1].record()
-    torch.cuda.synchronize()
-    return ev[0].elapsed_time(ev[1]) / reps
 
 
 def main() -> None:
