@@ -85,25 +85,32 @@ and every parity phase holds the card's bf16 run to the CPU's within
    width, batch 2, 2 steps, on the card and on the CPU (the plain twins),
    from the same weights.
 
-7. ``fold_kernel`` — the dequant-fused fold kernel (``csrc/fold.cu``)
-   against its plain twin on the same CUDA tensors, bit for bit, at every
-   tensor shape of config #4's model and ResNet-50's two largest tensors,
-   both codecs, commit scales 1 and 1/3 (one row also against the JAX
-   package's numpy oracle, copied into the port, on the host copy); kernel,
-   plain and ``c.add_(q, alpha=s)`` times by CUDA events with L2 flushed
-   by a read before every call (the server finds a center cold), beside
-   the bound (bytes over 3.35 TB/s) and the floor (one 1-element launch
-   after the same flush); then the sum over one whole commit of each
-   model.
+7. ``fold_kernel`` — the dequant-fused fold kernel (``csrc/fold.cu``, one
+   launch a commit) against its plain twin on the same CUDA tensors, bit
+   for bit. One tensor at a time (``fold_compressed_``, the kernel with one
+   row) at every tensor shape of config #4's model and ResNet-50's two
+   largest tensors, both codecs, commit scales 1 and 1/3 (one row also
+   against the JAX package's numpy oracle, copied into the port, on the
+   host copy); kernel, plain and ``c.add_(q, alpha=s)`` times by CUDA
+   events with L2 flushed by a read before every call (the server finds a
+   center cold), beside the bound (bytes over 3.35 TB/s) and the floor
+   (one 1-element launch after the same flush). Then ``fold_commit``: one
+   whole commit of each model in each codec, seated and staged as the
+   server does it, folded by one launch, bit for bit against the twin on
+   the same staged buffer (config #4's also against the numpy oracle);
+   the kernel's, the twin's, the same kernel tensor by tensor and the
+   ``add_`` loop's cold times beside the bound, and the host wall of
+   ``stage_commit`` + ``fold_delta`` to the end of the fold.
 8. ``remote_train`` — remote training as a user drives it: a
    ``PSServer(discipline="dynsgd")`` with its center on the card and
    ``DynSGD(imdb_lstm(...), remote=srv.endpoint)`` at config #4's width and
    batch (4 workers, window 4, batch 2048, 3 rounds) with
    ``DKTPU_NET_COMPRESS=int8``, then a 2-round run with ``bf16``. The
    launch counts are set to 0 just before each run and read just after:
-   one fold launch per compressed tensor per folded commit, and the stash
-   forward and the backward once per local step; the model returned is the
-   server's center bit for bit.
+   one ``fold_commit`` launch per folded commit (none of a tensor alone),
+   and the stash forward and the backward once per local step; the model
+   returned is the server's center bit for bit. The server's commit and
+   pull handlers are timed one by one (p50 and max).
 9. ``remote_parity`` — one worker, batch 32, 2 rounds, full width, from
    the same weights: server and model on the card against both on the CPU,
    with codec ``none`` (centers within 1e-5) and ``int8`` (centers within
@@ -114,7 +121,8 @@ and every parity phase holds the card's bf16 run to the CPU's within
     dK/dV; ``csrc/flash_attn.cu``) against their plain twins on the same
     CUDA tensors, in f32 and bf16, at config #7's shape [8, 2048, 16, 64]
     and ragged ones (L = 40, 72, 136 and 200, D = 32 and 128, B*H = 1,
-    L = 1024 and 512): errors with their limits, two calls' bits of each
+    L = 1024 and 512, and D = 40, which the wrappers zero-pad to 48):
+    errors with their limits, two calls' bits of each
     kernel, the f32 forward's and backward's errors at each of those
     shapes but config #7's and at two with few rows (B*L*H 272 and 144)
     attributed row by row to bf16 rounding flips of p or ds
@@ -314,13 +322,15 @@ LM_ROUNDS = 2
 #: not a multiple of a tile's rows (72, 136; the forward's second
 #: warpgroup with and without rows before L), a load ring wrapped many
 #: times (L = 1024, B*H = 2) and D = 128 (two column boxes, 32-query tiles
-#: in dK/dV) at L = 512; each of those at least 1024 rows (B*L*H), since
+#: in dK/dV) at L = 512, then a head dim the kernels take only zero-padded
+#: (D = 40, run at 48); each of those at least 1024 rows (B*L*H), since
 #: one order-flipped bf16 rounding of p moves a whole output row and over
 #: fewer rows can alone pass the mean limit (an earlier forward at [1, 72,
 #: 2, 64] f32 read 1.22e-5, its largest error 4.5e-4).
 FLASH_SHAPES = ((8, LM_SEQ, 16, 64), (2, 40, 4, 64), (2, 200, 4, 64),
                 (2, 256, 4, 32), (1, LM_SEQ, 1, 64), (4, 72, 4, 64),
-                (2, 136, 4, 128), (2, 1024, 1, 64), (1, 512, 2, 128))
+                (2, 136, 4, 128), (2, 1024, 1, 64), (1, 512, 2, 128),
+                (2, 512, 2, 40))
 #: flash kernels vs their twins, as shares of the twin's largest (``top``)
 #: and mean (``mean``) magnitude. f32: the same bf16 rounding points and
 #: only the order of the f32 sums differs, so the mean error is f32 level;
@@ -1126,10 +1136,18 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
         ServingFrontend,
     )
 
+    sizes, clients = (1, 3, 17, 64), 8
     telemetry.reset()
     K.reset_launches()  # counts start at 0 just before the main path runs
     registry = ModelRegistry(model, BUCKETS, device="cuda")
-    frontend = ServingFrontend(registry).start()
+    # Each client has one request in flight, so at most clients x 64 rows
+    # wait. The default bound (DKTPU_SERVE_QUEUE, 256 rows) sheds such a
+    # load by design whenever the dispatcher falls a batch behind (a slow
+    # host did: 230 rows queued, a 64-row request shed). This phase checks
+    # that every request is answered right, so its queue holds the whole
+    # load and any error reply is a fault.
+    frontend = ServingFrontend(
+        registry, max_queue_rows=clients * max(sizes)).start()
     records, errors = [], []
     lock = threading.Lock()
 
@@ -1147,7 +1165,6 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
         with lock:
             records.append((tokens, np.array(out), version, lat))
 
-    sizes = (1, 3, 17, 64)
     seed = int(rng.integers(1 << 30))
     try:
         client = ServeClient(frontend.endpoint)
@@ -1163,7 +1180,7 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
             c.close()
 
         threads = [threading.Thread(target=worker, args=(w,))
-                   for w in range(8)]
+                   for w in range(clients)]
         for t in threads:
             t.start()
         for t in threads:
@@ -1181,6 +1198,9 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
     counters = telemetry.get().snapshot()["counters"]
     batches = int(counters.get("serving.batches", 0))
     retrace = int(counters.get("serving.retrace_after_warmup", 0))
+    depth = telemetry.get().snapshot()["gauges"].get(
+        "serving.queue_depth", {})
+    peak_rows = int(depth.get("max", 0))
 
     worst = 0.0
     with torch.inference_mode():
@@ -1199,15 +1219,18 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
           "lstm_launches_per_batch":
               (launches - len(BUCKETS)) / batches if batches else None,
           "retrace_after_warmup": retrace, "error_replies": len(errors),
+          "max_queue_rows": frontend.batcher.max_rows,
+          "peak_queue_rows": peak_rows,
           "max_abs_err_vs_cpu_plain": worst, "atol": SERVE_ATOL,
           "p50_ms": float(np.percentile(lat_ms, 50)) if len(lat_ms) else None,
           "p99_ms": float(np.percentile(lat_ms, 99)) if len(lat_ms) else None,
           "latency": "client wall clock per request, sequential and "
-                     "8 concurrent clients mixed"})
+                     f"{clients} concurrent clients mixed"})
     if errors:
         fail(f"{len(errors)} error replies, first: {errors[0]}")
-    if len(records) != 3 * len(sizes) + 8 * 4:
-        fail(f"{len(records)} of {3 * len(sizes) + 8 * 4} requests answered")
+    if len(records) != 3 * len(sizes) + clients * 4:
+        fail(f"{len(records)} of {3 * len(sizes) + clients * 4} requests "
+             "answered")
     if not worst <= SERVE_ATOL:
         fail(f"served logits differ from the CPU plain forward by {worst}")
     if retrace != 0:
@@ -1581,16 +1604,41 @@ def fold_bound_ms(n: int, codec: str) -> tuple[float, str]:
     return bound((9 if codec == "int8" else 10) * n, 2 * n, PEAK_F32_FLOPS)
 
 
-def cuda_ms_cold(torch, fn, reps: int, flush) -> float:
+#: GPU cycles of the shortest spin kernel that gives the host a head start
+#: (about 2 ms at the H100's clock).
+HEAD_START_CYCLES = 4_000_000
+
+
+def cuda_ms_cold(torch, fn, reps: int, flush, head_start: bool = False
+                 ) -> float:
     """Mean milliseconds of ``fn`` by CUDA events around each call alone,
     with ``flush`` summed before every call so the call finds its inputs
     outside L2 (after one warm call). The flush reads, so the lines it
-    leaves in L2 are clean and the timed call writes none of them back."""
+    leaves in L2 are clean and the timed call writes none of them back.
+    With ``head_start`` a spin kernel holds the card after the flush, long
+    enough for the host to enqueue ``fn``'s launches, so the time is the
+    card's alone (without it, host work inside ``fn`` longer than the flush
+    shows as idle card time between the events): the spin lasts at least
+    twice the host time of one call of ``fn``, timed after the warm one."""
     fn()
     torch.cuda.synchronize()
+    cycles = HEAD_START_CYCLES
+    if head_start:
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        spin = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        spin[0].record()
+        torch.cuda._sleep(HEAD_START_CYCLES)
+        spin[1].record()
+        torch.cuda.synchronize()
+        spin_ms = spin[0].elapsed_time(spin[1])
+        cycles = int(HEAD_START_CYCLES * max(1.0, 2.0 * host_ms / spin_ms))
     events = []
     for _ in range(reps):
         flush.sum()
+        if head_start:
+            torch.cuda._sleep(cycles)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         fn()
@@ -1616,6 +1664,100 @@ def library_fold(torch, center, q, codec: str, s: float):
     yardstick; the port never calls it, as it may contract into an FMA)."""
     other = q if codec == "int8" else q.view(torch.bfloat16)
     return center.add_(other, alpha=s)
+
+
+def fold_commit_row(torch, F, model: str, params, codec: str, rng,
+                    flush) -> dict:
+    """One whole commit of ``model`` in ``codec``, as the server folds it:
+    centers seated as the server seats them (views of one flat tensor at
+    ``center_layout``'s 64-byte offsets), the commit staged by
+    ``stage_commit`` (one pinned buffer, one copy), then one
+    ``fold_commit_`` launch, bit for bit against ``fold_commit_plain_`` on
+    the same staged buffer (and, for config #4's model, against the numpy
+    oracle on the host). Cold times by CUDA events of the kernel, the twin,
+    the same kernel one tensor at a time (``fold_compressed_``, a launch
+    a tensor) and ``c.add_(w,
+    alpha=s)`` for each tensor (no one PyTorch call folds a commit), beside
+    the bound; and the host wall of a commit, staged and folded as the
+    server does (``stage_commit`` from a ``PinnedPool`` on a stream of its
+    own, then ``fold_delta``), to its end on the card."""
+    from distkeras_tpu_torch.netps import fold as nfold
+
+    sizes = [p.numel() for p in params.values()]
+    offsets, total = F.center_layout(sizes)
+    flat0 = torch.zeros(total, device="cuda")
+    for p, off in zip(params.values(), offsets):
+        flat0[off:off + p.numel()] = p.detach().reshape(-1)
+    work = flat0.clone()
+    centers = [work[o:o + n] for o, n in zip(offsets, sizes)]
+    inputs = [fold_inputs(torch, c, codec, rng) for c in centers]
+    entries = [(enc, spec) for enc, spec, _q in inputs]
+    staged = nfold.stage_commit(entries, "cuda")
+    wires = [F.wire_view(staged.buf, r) for r in staged.rows]
+    specs = [spec for _e, spec, _q in inputs]
+    scale = 1.0 / 3.0
+    got_flat = flat0.clone()
+    got = [got_flat[o:o + n] for o, n in zip(offsets, sizes)]
+    F.fold_commit_(got, staged, scale)
+    ref_flat = flat0.clone()
+    F.fold_commit_plain_([ref_flat[o:o + n] for o, n in zip(offsets, sizes)],
+                         staged, scale)
+    torch.cuda.synchronize()
+    row = {"phase": "fold_commit", "model": model, "codec": codec,
+           "tensors": len(sizes), "params": sum(sizes),
+           "commit_scale": scale,
+           "max_abs_err": (got_flat - ref_flat).abs().max().item(),
+           "bit_equal_to_plain": bool(torch.equal(
+               got_flat.view(torch.int32), ref_flat.view(torch.int32))),
+           "tiles": staged.tiles, "staged_bytes": staged.buf.numel()}
+    if model == "imdb_lstm":
+        host = [c.cpu().numpy() for c in centers]
+        for h, (enc, spec, _q) in zip(host, inputs):
+            nfold.fold_compressed_numpy(h, enc, spec, scale)
+        row["bit_equal_to_numpy_oracle"] = all(
+            np.array_equal(g.cpu().numpy().view(np.uint32),
+                           h.view(np.uint32)) for g, h in zip(got, host))
+    s = [F.fold_scale(codec, spec, 1.0) for spec in specs]
+
+    def tensor_loop():
+        for c, q, spec in zip(centers, wires, specs):
+            F.fold_compressed_(c, q, spec, 1.0)
+
+    def add_loop():
+        for c, q, si in zip(centers, wires, s):
+            library_fold(torch, c, q, codec, si)
+
+    times = {"ms": lambda: F.fold_commit_(centers, staged, 1.0),
+             "plain_ms": lambda: F.fold_commit_plain_(centers, staged, 1.0),
+             "tensor_loop_ms": tensor_loop, "library_ms": add_loop}
+    for key, fn in times.items():
+        row[key] = cuda_ms_cold(torch, fn, FOLD_REPS, flush, head_start=True)
+    row["call_ms"] = cuda_ms_cold(torch, times["ms"], FOLD_REPS, flush)
+    row["bound_ms"] = sum(fold_bound_ms(n, codec)[0] for n in sizes)
+    row["bound_by"] = "bytes"
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["ratio_to_library"] = row["ms"] / row["library_ms"]
+    stream, pool = torch.cuda.Stream(priority=-64), nfold.PinnedPool()
+    walls = []
+    for _ in range(FOLD_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            nfold.fold_delta(centers, nfold.stage_commit(entries, "cuda",
+                                                         pool),
+                             "dynsgd", 0)
+        stream.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    row["fold_delta_wall_ms"] = float(np.median(walls[1:]))
+    row["fold_delta_wall_readings"] = walls[1:]
+    row["library"] = "c.add_(w, alpha=s) for each tensor"
+    row["timing"] = ("CUDA events around one whole commit, L2 flushed (by a "
+                     "read) and the card held by a spin kernel before it, so "
+                     "the host's enqueue is not timed (call_ms: without the "
+                     "spin, the wrapper's host time showing); "
+                     "fold_delta_wall_ms: host clock, stage_commit + "
+                     "fold_delta + stream sync, median")
+    return row
 
 
 def fold_kernel_phase(torch, F, seed: int) -> list:
@@ -1694,31 +1836,14 @@ def fold_kernel_phase(torch, F, seed: int) -> list:
                          f"scale={scale}: {row}")
                 rows.append(row)
     for model, params in models.items():
-        centers = [p.detach().reshape(-1).clone() for p in params.values()]
         for codec in ("int8", "bf16"):
-            inputs = [fold_inputs(torch, c, codec, rng) for c in centers]
-
-            def commit(fold):
-                for c, (_e, spec, q) in zip(centers, inputs):
-                    fold(c, q, spec)
-
-            times = {
-                "ms": lambda c, q, spec: F.fold_compressed_(c, q, spec, 1.0),
-                "plain_ms": lambda c, q, spec: F.fold_compressed_plain_(
-                    c, q, codec, F.fold_scale(codec, spec, 1.0)),
-                "library_ms": lambda c, q, spec: library_fold(
-                    torch, c, q, codec, F.fold_scale(codec, spec, 1.0))}
-            row = {"phase": "fold_commit", "model": model, "codec": codec,
-                   "tensors": len(centers),
-                   "params": sum(c.numel() for c in centers),
-                   "bound_ms": sum(fold_bound_ms(c.numel(), codec)[0]
-                                   for c in centers),
-                   "cold_launch_floor_ms": floor_ms,
-                   "timing": "one whole commit, every tensor's fold back to "
-                             "back, L2 flushed (by a read) before it"}
-            for key, fold in times.items():
-                row[key] = cuda_ms_cold(torch, lambda: commit(fold), 5, flush)
+            row = fold_commit_row(torch, F, model, params, codec, rng, flush)
+            row["cold_launch_floor_ms"] = floor_ms
             emit(row)
+            if not (row["bit_equal_to_plain"]
+                    and row.get("bit_equal_to_numpy_oracle", True)):
+                fail(f"the commit fold is not bit-equal to its plain twin "
+                     f"(or the oracle) on a {model} {codec} commit: {row}")
             rows.append(row)
     del models, flush
     torch.cuda.empty_cache()
@@ -1746,15 +1871,17 @@ def quant_steps():
     largest quantization step ``spec["scale"] * commit_scale`` (0 for a
     commit with no int8 tensor)."""
     from distkeras_tpu_torch.netps import server as server_mod
-    from distkeras_tpu_torch.netps.fold import commit_scale, split_entry
+    from distkeras_tpu_torch.netps.fold import commit_scale
+    from distkeras_tpu_torch.ops.kernels.fold import KIND_INT8
 
     steps = []
     real = server_mod.fold_delta
 
     def recording(center, delta, discipline, staleness):
         scale = commit_scale(discipline, staleness)
-        steps.append(max((float(spec.get("scale", 0.0)) * scale
-                          for _a, spec in map(split_entry, delta) if spec),
+        rows = delta.rows  # the server passes its staged commit
+        steps.append(max((float(f) * scale for f in
+                          rows["factor"][rows["kind"] == KIND_INT8]),
                          default=0.0))
         return real(center, delta, discipline, staleness)
 
@@ -1765,23 +1892,63 @@ def quant_steps():
         server_mod.fold_delta = real
 
 
+def time_handlers(srv, ops=("commit", "pull")) -> dict:
+    """Wrap ``srv``'s ``_op_<op>`` handlers so each call's host milliseconds
+    (the body of the server's ``netps.server.<op>`` span) are recorded:
+    ``{op: [ms, ...]}``, filled as the server answers."""
+    times = {op: [] for op in ops}
+    for op, got in times.items():
+        real = getattr(srv, f"_op_{op}")
+
+        def timed(*a, _real=real, _got=got):
+            t0 = time.perf_counter()
+            try:
+                return _real(*a)
+            finally:
+                _got.append((time.perf_counter() - t0) * 1e3)
+
+        setattr(srv, f"_op_{op}", timed)
+    return times
+
+
+def handler_stats(times: dict) -> dict:
+    """The p50 and the largest of each handler's milliseconds."""
+    out = {}
+    for op, ms in times.items():
+        out[f"server_{op}_ms_p50"] = float(np.median(ms))
+        out[f"server_{op}_ms_max"] = max(ms)
+    return out
+
+
+def remote_inputs(seed: int, rounds: int):
+    """Config #4's model on the card from ``seed`` and an ``imdb()`` frame
+    of ``rounds`` rounds of :data:`REMOTE`'s workers, window and batch."""
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.datasets import imdb
+
+    W, Kw, B = (REMOTE["num_workers"], REMOTE["communication_window"],
+                REMOTE["batch_size"])
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    df = imdb(n=rounds * W * Kw * B, vocab_size=VOCAB, seq_len=SEQ_LEN,
+              seed=seed)
+    return model, df
+
+
 def remote_train_phase(torch, K, F, gpu: str, seed: int, codec: str) -> dict:
     """``DynSGD(imdb_lstm(...), remote=srv.endpoint).train(df)`` against a
     ``PSServer(discipline="dynsgd")`` on the card, commits in ``codec``;
     returns the fold launch counts of the run."""
-    from distkeras_tpu_torch import imdb_lstm, telemetry
-    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch import telemetry
     from distkeras_tpu_torch.netps import PSClient, PSServer
     from distkeras_tpu_torch.trainers import DynSGD
 
     W, Kw, B = (REMOTE["num_workers"], REMOTE["communication_window"],
                 REMOTE["batch_size"])
     rounds = REMOTE_ROUNDS[codec]
-    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
-                      seq_len=SEQ_LEN, seed=seed, device="cuda")
-    df = imdb(n=rounds * W * Kw * B, vocab_size=VOCAB, seq_len=SEQ_LEN,
-              seed=seed)
+    model, df = remote_inputs(seed, rounds)
     srv = PSServer(discipline="dynsgd", device="cuda").start()
+    handler_ms = time_handlers(srv)
     try:
         with env_set(DKTPU_NET_COMPRESS=codec):
             trainer = DynSGD(model, worker_optimizer="sgd",
@@ -1836,6 +2003,8 @@ def remote_train_phase(torch, K, F, gpu: str, seed: int, codec: str) -> dict:
           "server_fold_ms_per_commit": fold_s / max(1, len(log)) * 1e3,
           "server_commit_ms_per_commit":
               total("netps.server.commit") / max(1, len(log)) * 1e3,
+          **handler_stats(handler_ms),
+          "server_commit_ms": handler_ms["commit"],
           "bytes_sent": snap["counters"].get("netps.bytes_sent"),
           "bytes_precompress": snap["counters"].get(
               "netps.bytes_precompress"),
@@ -1855,10 +2024,9 @@ def remote_train_phase(torch, K, F, gpu: str, seed: int, codec: str) -> dict:
     if len(log) != W * rounds:
         fail(f"{len(log)} commits folded of {W * rounds} ({evictions} "
              f"evictions)")
-    other = "bf16" if codec == "int8" else "int8"
-    if fold != {f"fold_{codec}": tensors * len(log), f"fold_{other}": 0}:
+    if fold != {"fold_commit": len(log), "fold_int8": 0, "fold_bf16": 0}:
         fail(f"fold launches {fold} for {len(log)} commits of {tensors} "
-             f"{codec} tensors")
+             f"{codec} tensors: one fold_commit a commit, none a tensor")
     if not (lstm["lstm_fwd_stash"] == lstm["lstm_bwd"] == steps
             and lstm["lstm_fwd"] == 0):
         fail(f"LSTM launches {lstm} in {steps} local steps")
@@ -2598,11 +2766,9 @@ def main() -> None:
 
     lap("fold")
     fold_rows = fold_kernel_phase(torch, F, args.seed)
-    fold_launches = {}
-    for codec in ("int8", "bf16"):
-        fold_launches.update(
-            {k: v for k, v in remote_train_phase(
-                torch, K, F, gpu, args.seed, codec).items() if v})
+    fold_launches = {codec: remote_train_phase(
+        torch, K, F, gpu, args.seed, codec)["fold_commit"]
+        for codec in ("int8", "bf16")}
     remote_parity_phase(torch, args.seed)
     torch.cuda.empty_cache()
 
@@ -2680,28 +2846,42 @@ def main() -> None:
                 "bf16_step_library_ms": step_sum(bf16, f"{pre}library_ms"),
                 "bf16_step_bound_ms": step_sum(bf16, f"{pre}bound_ms")}
 
-    def fold_entry(codec):
-        """The largest tensor's row (ResNet-50's 3x3x512x512 kernel) at
-        commit scale 1/3, and one whole IMDB commit's sums."""
-        rows = [r for r in fold_rows
-                if r["phase"] == "fold_kernel" and r["codec"] == codec]
-        top = max(rows, key=lambda r: (r["n"], -r["commit_scale"]))
-        commit = next(r for r in fold_rows if r["phase"] == "fold_commit"
-                      and r["model"] == "imdb_lstm" and r["codec"] == codec)
-        return {"name": f"fold_{codec}", "route": "cuda",
+    def fold_entry():
+        """One IMDB commit (config #4, what ``remote_train`` folds) in
+        int8, the bf16 commit beside, ResNet-50's commits and the largest
+        tensor folded alone (the same kernel, one row) after them."""
+        commit = {(r["model"], r["codec"]): r for r in fold_rows
+                  if r["phase"] == "fold_commit"}
+        i8, b16 = commit["imdb_lstm", "int8"], commit["imdb_lstm", "bf16"]
+        rn8, rn16 = commit["resnet50", "int8"], commit["resnet50", "bf16"]
+        tensor = max((r for r in fold_rows if r["phase"] == "fold_kernel"
+                      and r["codec"] == "int8"),
+                     key=lambda r: (r["n"], -r["commit_scale"]))
+        return {"name": "fold_commit", "route": "cuda",
                 "source": "distkeras_tpu_torch/csrc/fold.cu",
                 "replaces": "distkeras_tpu/ops/pallas/fold.py:68",
-                "launches": fold_launches[f"fold_{codec}"],
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": top["ms"], "plain_ms": top["plain_ms"],
-                "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-                "library_ms": top["library_ms"],
-                "cold_launch_floor_ms": top["cold_launch_floor_ms"],
-                "shape": f"{top['tensor']} n={top['n']} {codec} into f32",
-                "imdb_commit_ms": commit["ms"],
-                "imdb_commit_plain_ms": commit["plain_ms"],
-                "imdb_commit_library_ms": commit["library_ms"],
-                "imdb_commit_bound_ms": commit["bound_ms"]}
+                "launches": fold_launches["int8"],
+                "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
+                "ms": i8["ms"], "plain_ms": i8["plain_ms"],
+                "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"],
+                "library_ms": i8["library_ms"], "library": i8["library"],
+                "shape": f"one imdb_lstm commit, {i8['tensors']} tensors, "
+                         f"{i8['params']} parameters, int8 into f32",
+                "cold_launch_floor_ms": i8["cold_launch_floor_ms"],
+                "tensor_loop_ms": i8["tensor_loop_ms"],
+                "fold_delta_wall_ms": i8["fold_delta_wall_ms"],
+                "bf16_launches": fold_launches["bf16"],
+                "bf16_ms": b16["ms"], "bf16_plain_ms": b16["plain_ms"],
+                "bf16_bound_ms": b16["bound_ms"],
+                "bf16_library_ms": b16["library_ms"],
+                "resnet50_ms": rn8["ms"], "resnet50_bound_ms": rn8["bound_ms"],
+                "resnet50_library_ms": rn8["library_ms"],
+                "resnet50_bf16_ms": rn16["ms"],
+                "resnet50_bf16_bound_ms": rn16["bound_ms"],
+                "resnet50_bf16_library_ms": rn16["library_ms"],
+                "tensor_ms": tensor["ms"], "tensor_bound_ms": tensor["bound_ms"],
+                "tensor_library_ms": tensor["library_ms"],
+                "tensor_shape": f"{tensor['tensor']} n={tensor['n']} int8"}
 
     def flash_entry(kernel, line):
         """Config #7's shape in f32 (the path's); the largest error over
@@ -2745,8 +2925,7 @@ def main() -> None:
               train_launches["lstm_bwd"], bf16_train_launches["lstm_bwd"]),
         gn_entry("group_norm_fwd", 239, bwd=False),
         gn_entry("group_norm_bwd", 262, bwd=True),
-        fold_entry("int8"),
-        fold_entry("bf16"),
+        fold_entry(),
         flash_entry("fwd", 213),
         flash_entry("dq", 249),
         flash_entry("dkv", 261),

@@ -7,14 +7,15 @@ the card (the JAX package's ``netps``; frames byte-compatible both ways).
 * :mod:`~distkeras_tpu_torch.netps.server` — :class:`PSServer`: one
   handler thread per connection, idempotent ``(worker_id, seq)`` commits,
   lease-based elastic membership, graceful drain; the center is f32
-  tensors on ``device`` and compressed commits fold into it through the
-  CUDA fold kernel (``ops/kernels/fold.py``);
+  tensors on ``device`` and each commit folds into it in one launch of the
+  CUDA fold kernel (``ops/kernels/fold.py``), on the server's own stream;
 * :mod:`~distkeras_tpu_torch.netps.client` — :class:`PSClient`: deadline
   per RPC, bounded retries with full-jitter backoff, reconnect on failure,
   automatic rejoin after eviction, codec negotiation and the int8
   error-feedback residual;
 * :mod:`~distkeras_tpu_torch.netps.fold` — the fold's discipline
-  semantics and the numpy oracle;
+  semantics, the commit's staging (one packed, pinned buffer) and the
+  numpy oracle;
 * :mod:`~distkeras_tpu_torch.netps.remote` — the worker loop the async
   trainers run under ``remote="host:port"``;
 * :mod:`~distkeras_tpu_torch.netps.endpoints` — the failover walk every

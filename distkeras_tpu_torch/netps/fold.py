@@ -8,14 +8,19 @@ commit (ADAG divides by the window, the elastic disciplines send
 Staleness is the server's update counter minus the committer's pull-time
 counter.
 
-**Compressed-domain folds.** A delta tensor may arrive as an ``(array,
-spec)`` pair in its *wire* dtype (the server's handlers read frames with
-``decode=False``): int8 with a per-tensor scale, or bf16 bit-truncated.
-Those fold without a decode-to-f32 pass through
-``ops/kernels/fold.py fold_compressed_``: the CUDA kernel when the center
-lies on the card, its plain twin on the CPU. A plain f32 entry folds as
-``c += a * s`` in two ops. There is no probe and no fallback: a kernel
-that fails to build or launch raises, and so does the commit.
+**Compressed-domain folds, one launch a commit.** A delta tensor may
+arrive as an ``(array, spec)`` pair in its *wire* dtype (the server's
+handlers read frames with ``decode=False``): int8 with a per-tensor scale,
+or bf16 bit-truncated; a plain f32 entry is what the wire sends uncompressed.
+:func:`stage_commit` packs a whole commit, every entry in its wire dtype,
+into one buffer laid out by ``ops/kernels/fold.py plan_commit`` (a table at
+its head, each payload 16-byte aligned): for a center on the card in pinned
+host memory from the server's :class:`PinnedPool`, copied to the card in
+one ``non_blocking`` copy on the caller's current stream; for a center on
+the CPU in ordinary memory, in the same layout. :func:`fold_delta` then
+folds it with ``fold_commit_``: one launch of the CUDA kernel, or its plain
+twin on the CPU. There is no probe and no fallback: a kernel that fails to
+build or launch raises, and so does the commit.
 
 :func:`fold_compressed_numpy` is the JAX package's numpy oracle, kept here
 for the tests and ``chip_smoke.py``, which hold the port's folds to it bit
@@ -24,6 +29,7 @@ for bit.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -31,7 +37,9 @@ import torch
 
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.errors import ProtocolError
-from distkeras_tpu_torch.ops.kernels.fold import fold_compressed_
+from distkeras_tpu_torch.ops.kernels.fold import (StagedCommit, fold_commit_,
+                                                  pack_commit, plan_commit,
+                                                  read_table)
 
 #: every discipline the server accepts (the reference routed both elastic
 #: trainers through the plain DeltaParameterServer — the fold is
@@ -143,38 +151,94 @@ def wire_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def stage_entry(entry, device) -> tuple[torch.Tensor, Optional[dict]]:
-    """One delta entry as ``(tensor on device, spec or None)``: the copy a
-    fold needs, which the server makes before it takes its lock. Frame
-    arrays are views over the handler's frame buffer; ``.to()`` copies
-    them to the card. An entry already staged passes through."""
-    a, spec = split_entry(entry)
-    spec = spec if spec and spec.get("codec") else None
-    if not isinstance(a, torch.Tensor):
-        a = (wire_tensor(a) if spec
-             else torch.from_numpy(np.ascontiguousarray(a, np.float32)))
-    return a.to(device), spec
+class PinnedPool:
+    """Pinned host buffers that commits are staged in before their copy to
+    the card. A slot goes back to the pool with a CUDA event recorded after
+    the copy that reads it, and the next user waits on that event before
+    writing, so no slot is rewritten before its copy has landed. The pool
+    holds as many slots as commits were ever staged at once."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free: list = []
+
+    def acquire(self, nbytes: int) -> list:
+        """A ``[pinned uint8 tensor of at least nbytes, event]`` slot, free
+        to write."""
+        with self._lock:
+            slot = self._free.pop() if self._free else None
+        if slot is not None:
+            slot[1].synchronize()  # its last copy has landed
+        if slot is None or slot[0].numel() < nbytes:
+            size = 1 << max(20, (int(nbytes) - 1).bit_length())
+            slot = [torch.empty(size, dtype=torch.uint8, pin_memory=True),
+                    torch.cuda.Event()]
+        return slot
+
+    def release(self, slot: list, stream) -> None:
+        """Return ``slot`` after its copy was enqueued on ``stream``."""
+        slot[1].record(stream)
+        with self._lock:
+            self._free.append(slot)
 
 
-def _fold_entry(c: torch.Tensor, entry, scale: float) -> None:
-    t, spec = stage_entry(entry, c.device)
-    if spec is None:
-        s = float(np.float32(scale))
-        c.add_(t.reshape(c.shape) * s)
-        return
-    fold_compressed_(c, t, spec, scale)
+def stage_commit(delta, device, pool: Optional[PinnedPool] = None,
+                 offsets=None) -> StagedCommit:
+    """A commit's entries as a :class:`~distkeras_tpu_torch.ops.kernels.
+    fold.StagedCommit` on ``device``: the copy a fold needs, which the
+    server makes before it takes its lock. Every entry (an ``(array,
+    spec)`` pair or a plain array; frame arrays are views over the
+    handler's frame buffer) is packed in its wire dtype into one buffer by
+    ``plan_commit``; ``offsets`` places the centers (default: the server's
+    ``center_layout``). On the card the buffer is pinned (from ``pool``,
+    or a fresh one) and goes over in one ``non_blocking`` copy on the
+    current stream; on the CPU it is the staged buffer itself. A commit
+    already staged passes through."""
+    if isinstance(delta, StagedCommit):
+        return delta
+    entries = []
+    for entry in delta:
+        a, spec = split_entry(entry)
+        entries.append((a, spec if spec and spec.get("codec") else None))
+    plan = plan_commit(entries, offsets)
+    device = torch.device(device)
+    if device.type == "cpu":
+        buf = torch.empty(plan.nbytes, dtype=torch.uint8)
+        host = buf.numpy()
+        pack_commit(plan, host)
+        # The twin reads the table from the packed bytes themselves.
+        return StagedCommit(buf, read_table(host, len(entries))[0],
+                            plan.tiles)
+    slot = (pool.acquire(plan.nbytes) if pool is not None
+            else [torch.empty(plan.nbytes, dtype=torch.uint8,
+                              pin_memory=True), None])
+    pack_commit(plan, slot[0].numpy())
+    buf = torch.empty(plan.nbytes, dtype=torch.uint8, device=device)
+    buf.copy_(slot[0][:plan.nbytes], non_blocking=True)
+    if pool is not None:
+        pool.release(slot, torch.cuda.current_stream(device))
+    return StagedCommit(buf, plan.rows, plan.tiles)
 
 
 def fold_delta(center: Sequence[torch.Tensor], delta: Sequence,
                discipline: str, staleness: int) -> None:
     """Fold one worker-normalized commit into ``center`` (f32 tensors)
     **in place** — the body of the reference's ``handle_commit`` under the
-    lock. Delta entries may be plain arrays or ``(array, spec)`` wire
-    pairs, staged or not (:func:`stage_entry`); codec'd pairs fold in the
+    lock. ``delta`` is a staged commit (:func:`stage_commit`, what the
+    server passes) or its entries, plain arrays or ``(array, spec)`` wire
+    pairs, which are staged here against the centers where they lie; either
+    way it folds in one ``fold_commit_`` call, codec'd pairs in the
     compressed domain.
 
     Telemetry-free: the server holds its center lock across this and
     exports ``netps.fold.tensors_per_sec`` after releasing it."""
     scale = commit_scale(discipline, staleness)
-    for c, d in zip(center, delta):
-        _fold_entry(c, d, scale)
+    offsets = None
+    if center and center[0].device.type == "cuda":
+        base = next((c.data_ptr() for c in center if c.numel()), 0)
+        offsets = [(c.data_ptr() - base) // 4 if c.numel() else 0
+                   for c in center]
+    staged = (delta if isinstance(delta, StagedCommit)
+              else stage_commit(delta, center[0].device if center else "cpu",
+                                offsets=offsets))
+    fold_commit_(center, staged, scale)

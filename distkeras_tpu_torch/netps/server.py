@@ -18,24 +18,36 @@ folded under a plain lock, with the production edges of the JAX server:
   down (all joined).
 
 **The center lives on** ``device`` (``None`` means the first CUDA device,
-and raises without one) as f32 views into one flat tensor. Commits arrive
-in their wire dtype (the handlers read frames with ``decode=False``) and
-fold in place through :func:`~distkeras_tpu_torch.netps.fold.fold_delta`:
-compressed tensors through the CUDA fold kernel on the card, the plain twin
-on the CPU. Every read (pull and join replies, :meth:`center`) comes from a
-host mirror, refreshed by ONE device-to-host copy of the flat tensor under
-the lock on the first read after a fold and replaced wholesale, never
-written in place, so replies may hold it after the lock is released.
+and raises without one) as f32 views into one flat tensor, each view at a
+64-byte offset (``ops/kernels/fold.py center_layout``). Commits arrive in
+their wire dtype (the handlers read frames with ``decode=False``), are
+staged outside the lock (:func:`~distkeras_tpu_torch.netps.fold.
+stage_commit`: one packed buffer, one copy) and fold in place through
+:func:`~distkeras_tpu_torch.netps.fold.fold_delta`: one launch of the CUDA
+fold kernel a commit on the card, the plain twin on the CPU. Every read
+(pull and join replies, :meth:`center`) comes from a host mirror,
+refreshed by ONE device-to-host copy of the flat tensor under the lock on
+the first read after a fold and replaced wholesale, never written in
+place, so replies may hold it after the lock is released.
 
-The handler threads and the training threads share the card and its
-default stream: correct, and serial. The JAX server's shared-memory ring,
-device mesh, durable state and journal, warm standby and fencing, shards
-and stripes, tuner probe, chaos hooks and tracing come with later slices;
-a peer learns that from the join reply's ``caps``.
+**On the card the server works on a stream of its own**, at the highest
+priority PyTorch offers: seating the center, the staging copies (from a
+pool of pinned buffers), the fold and the mirror's copy back all go there,
+and the server waits on that stream alone, never on the device. So a
+commit and a pull do not queue behind the kernels that training threads
+of the same process put on the default stream. The flat center and the
+staging buffers are allocated under that stream, so the caching allocator
+never hands their blocks to another stream early.
+
+The JAX server's shared-memory ring, device mesh, durable state and
+journal, warm standby and fencing, shards and stripes, tuner probe, chaos
+hooks and tracing come with later slices; a peer learns that from the join
+reply's ``caps``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import socket
 import threading
 import time
@@ -47,10 +59,11 @@ import torch
 from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.errors import ProtocolError
-from distkeras_tpu_torch.netps.fold import (backend_name, check_discipline,
+from distkeras_tpu_torch.netps.fold import (PinnedPool, backend_name,
+                                            check_discipline,
                                             counter_staleness, decode_entry,
                                             fold_delta, split_entry,
-                                            stage_entry, validate_delta)
+                                            stage_commit, validate_delta)
 from distkeras_tpu_torch.ops.kernels import fold as fold_kernels
 from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.runtime.device import resolve_device
@@ -60,6 +73,9 @@ _POLL_S = 0.2
 #: once a frame's first bytes arrive, the rest must land within this —
 #: a peer that stalls mid-frame is dead, not idle.
 _FRAME_COMPLETE_S = 30.0
+#: the server stream's priority: lower is higher, and a value past the
+#: range PyTorch's stream pool offers maps to its highest.
+_STREAM_PRIORITY = -64
 #: in-memory commit-log bound: the evidence list is trimmed to this once it
 #: doubles it (dropped entries stay counted in ``commits_total``).
 _COMMIT_LOG_KEEP = 65536
@@ -81,11 +97,20 @@ class PSServer:
                  device: Optional[Union[str, torch.device]] = None):
         self.discipline = check_discipline(discipline)
         self.device = resolve_device(device)
+        #: the server's own stream and its pinned staging buffers (on the
+        #: card; None on the CPU).
+        self._stream = self._pool = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device,
+                                             priority=_STREAM_PRIORITY)
+            self._pool = PinnedPool()
         self._lock = threading.Lock()
         #: the center: f32 views (one per tensor) into one flat tensor on
-        #: ``device``; None until the first init.
+        #: ``device``, at ``_offsets`` (``center_layout``); None until the
+        #: first init.
         self._flat: Optional[torch.Tensor] = None
         self._center: list = []
+        self._offsets: list = []
         #: the host mirror: read-only numpy views of one host copy of
         #: ``_flat``; None when a fold made it stale.
         self._host: Optional[list] = None
@@ -147,36 +172,46 @@ class PSServer:
         with self._lock:
             return sorted(self._members)
 
+    def _on_stream(self):
+        """The server's stream as the current one (a no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
     def _seat_locked(self, init: list) -> None:
         """Seat the first center on the device: one flat f32 tensor, one
-        view per tensor (lock held, or construction)."""
-        total = sum(int(a.size) for a in init)
-        host = np.empty(total, np.float32)
-        off = 0
-        for a in init:
+        view per tensor at its ``center_layout`` offset (lock held, or
+        construction)."""
+        offsets, total = fold_kernels.center_layout([a.size for a in init])
+        host = np.zeros(total, np.float32)
+        for a, off in zip(init, offsets):
             host[off:off + a.size] = a.reshape(-1)
-            off += a.size
-        self._flat = torch.from_numpy(host).to(self.device, copy=True)
-        self._center = []
-        off = 0
-        for a in init:
-            self._center.append(self._flat[off:off + a.size].view(a.shape))
-            off += a.size
+        with self._on_stream():
+            self._flat = torch.from_numpy(host).to(self.device, copy=True)
+        self._offsets = offsets
+        self._center = [self._flat[off:off + a.size].view(a.shape)
+                        for a, off in zip(init, offsets)]
         self._host = None
 
     def _host_center_locked(self) -> list:
         """The host mirror (lock held): one device-to-host copy of the flat
-        center on the first read after a fold, then the same read-only
-        arrays until the next fold replaces them."""
+        center on the first read after a fold (on the card: into pinned
+        memory, on the server's stream, waiting on that stream alone), then
+        the same read-only arrays until the next fold replaces them."""
         if self._host is None:
-            flat = self._flat.to("cpu", copy=True).numpy()
+            if self._stream is None:
+                flat = self._flat.clone()
+            else:
+                with self._on_stream():
+                    flat = torch.empty(self._flat.shape,
+                                       dtype=self._flat.dtype,
+                                       pin_memory=True)
+                    flat.copy_(self._flat, non_blocking=True)
+                self._stream.synchronize()
+            flat = flat.numpy()
             flat.flags.writeable = False
-            host, off = [], 0
-            for c in self._center:
-                n = c.numel()
-                host.append(flat[off:off + n].reshape(tuple(c.shape)))
-                off += n
-            self._host = host
+            self._host = [flat[off:off + c.numel()].reshape(tuple(c.shape))
+                          for c, off in zip(self._center, self._offsets)]
         return self._host
 
     # ------------------------------------------------------------------
@@ -417,10 +452,11 @@ class PSServer:
             telemetry.counter("netps.protocol_errors").add(1)
             return self._err("protocol", str(e))
         sizes = [int(np.size(split_entry(e)[0])) for e in arrays]
-        # The host-to-device copies happen here, outside the lock: on the
-        # card they wait behind the kernels queued on the shared stream,
-        # and pulls, joins and heartbeats must not wait with them.
-        staged = [stage_entry(e, self.device) for e in arrays]
+        # Staging (the packing and the one host-to-device copy) happens
+        # here, outside the lock, so pulls, joins and heartbeats never wait
+        # on it.
+        with self._on_stream():
+            staged = stage_commit(arrays, self.device, self._pool)
         with self._lock:
             if self._draining:
                 return self._err("draining", "server is draining")
@@ -457,16 +493,18 @@ class PSServer:
                  "duplicate": duplicate, "pending": False,
                  "updates": updates, "staleness": staleness}, [])
 
-    def _fold_locked(self, wid: int, seq: int, pulled, delta: list) -> int:
+    def _fold_locked(self, wid: int, seq: int, pulled,
+                     staged: fold_kernels.StagedCommit) -> int:
         """The ONE fold (lock held): staleness from the counter rule, then
         ``fold_delta`` on the device center, the exactly-once bookkeeping,
         and the commit-log bound."""
         staleness = counter_staleness(self._updates, pulled)
         t0 = time.perf_counter()
-        fold_delta(self._center, delta, self.discipline, staleness)
+        with self._on_stream():
+            fold_delta(self._center, staged, self.discipline, staleness)
         dt = time.perf_counter() - t0
         self._host = None  # the mirror is stale from here on
-        self._fold_stats = (len(delta), dt)
+        self._fold_stats = (len(staged.rows), dt)
         self.fold_seconds += dt
         self.commit_log.append((wid, seq, staleness))
         self._last_seq[wid] = seq

@@ -109,9 +109,10 @@ def load(name: str) -> ctypes.CDLL:
 
 #: ctypes argument types of the C entry points: a pointer (a tensor's
 #: ``data_ptr()`` or the stream), an ``int``, an ``int64_t`` (an element
-#: count past 2^31) and a ``float`` (a scale rounded to f32 on the host).
+#: count past 2^31), a ``float`` (a scale rounded to f32 on the host) and a
+#: ``double`` (a scale the kernel rounds to f32 itself).
 PTR, INT = ctypes.c_void_p, ctypes.c_int
-I64, F32 = ctypes.c_int64, ctypes.c_float
+I64, F32, F64 = ctypes.c_int64, ctypes.c_float, ctypes.c_double
 
 
 class KernelLib:

@@ -34,7 +34,14 @@ can be set to the JAX kernel's own to compare the two arithmetics.
 
 A wrapper takes its twin only for tensors that lie on the CPU; on CUDA
 tensors it launches its kernel or raises. Any ``L >= 1`` works (the kernels
-mask their ragged edge); ``D`` must be a multiple of 16, at most 128. The
+mask their ragged edge). On the CPU any head dim ``D`` works, as in the
+JAX package. The kernels take a multiple of 16 up to 128
+(:func:`check_head_dim`, their contract); the CUDA wrappers zero-pad q, k,
+v and dO along D to the next such width (:func:`kernel_head_dim`) and
+slice out and the gradients back. Zero columns change no score (q is
+pre-scaled by the caller, so the scale does not see the padding) and give
+zero output columns, so a padded call computes the unpadded function; at
+D = 16, 32, ..., 128 nothing is copied. ``D > 128`` raises on CUDA. The
 JAX wrapper's ``block_size``/``block_k`` divisibility rule is a TPU tiling
 constraint and has no counterpart here.
 """
@@ -85,6 +92,30 @@ def check_head_dim(D: int) -> None:
     if D % 16 or not 16 <= D <= 128:
         raise ValueError(f"flash attention takes a head dim that is a "
                          f"multiple of 16 in [16, 128]; got {D}")
+
+
+def kernel_head_dim(D: int) -> int:
+    """The head dim a CUDA call at ``D`` runs the kernels at: ``D`` rounded
+    up to a multiple of 16. Past 128 (or below 1) :func:`check_head_dim`'s
+    ``ValueError``: no kernel keeps a wider tile."""
+    dk = max(16, -(-D // 16) * 16)
+    if D < 1 or dk > 128:
+        check_head_dim(D)
+    return dk
+
+
+def pad_head_dim(*tensors) -> tuple:
+    """``[B, L, H, D]`` tensors zero-padded along D to
+    :func:`kernel_head_dim` (as they are where D needs no padding)."""
+    D = tensors[0].shape[3]
+    dk = kernel_head_dim(D)
+    if dk == D:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, dk - D)) for t in tensors)
+
+
+def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
+    return t if t.shape[3] == D else t[..., :D].contiguous()
 
 
 def padded_head_dim(D: int) -> int:
@@ -246,8 +277,8 @@ def flash_dkv_plain(q, k, v, do, lse, delta) -> tuple:
 def _check_cuda(tensors, rows, what: str) -> str:
     """One CUDA device, one dtype of float32 or bfloat16, ``[B, L, H, D]``
     contiguous and 16-byte aligned (the kernels load 16 bytes at a time),
-    a head dim the kernels take; ``rows`` (lse, delta) f32 ``[B*H, L]``.
-    Returns the entry points' dtype suffix."""
+    a head dim the kernels take once padded; ``rows`` (lse, delta) f32
+    ``[B*H, L]``. Returns the entry points' dtype suffix."""
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in (*tensors, *rows)):
         raise ValueError(
@@ -263,7 +294,7 @@ def _check_cuda(tensors, rows, what: str) -> str:
     if len(shape) != 4 or any(tuple(t.shape) != shape for t in tensors):
         raise ValueError(f"{what} takes [B, L, H, D] tensors of one shape; "
                          f"got {[tuple(t.shape) for t in tensors]}")
-    check_head_dim(shape[3])
+    kernel_head_dim(shape[3])
     B, L, H, _ = shape
     for t in rows:
         if (t.dtype != torch.float32 or tuple(t.shape) != (B * H, L)
@@ -291,61 +322,68 @@ def flash_fwd_cuda(q, k, v, dtype=None) -> tuple:
     """``flash_fwd_*``: ``(out, lse)`` of the forward on the card, out in
     ``dtype`` (default q's). f32 inputs are rounded to bf16 once here
     (:func:`bf16_operands`); bf16 inputs are read as they are, so an f32
-    caller's copies with ``dtype=torch.float32`` give its result."""
+    caller's copies with ``dtype=torch.float32`` give its result. A head
+    dim the kernels do not take runs zero-padded (:func:`pad_head_dim`)
+    and out comes back at D."""
     _check_cuda((q, k, v), (), "flash_fwd")
     dtype = _out_dtype(dtype, q)
     B, L, H, D = q.shape
-    ops = bf16_operands(q, k, v)
-    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    ops = pad_head_dim(*bf16_operands(q, k, v))
+    dk = ops[0].shape[3]
+    out = torch.empty((B, L, H, dk), dtype=dtype, device=q.device)
     lse = torch.empty((B * H, L), dtype=torch.float32, device=q.device)
-    geometry = _geometry_arg(tma_geometry(B, L, H, D))
+    geometry = _geometry_arg(tma_geometry(B, L, H, dk))
     _LIB.launch(f"flash_fwd_{build.SUFFIXES[dtype]}", *ops, out, lse,
-                B, L, H, D, ctypes.addressof(geometry))
+                B, L, H, dk, ctypes.addressof(geometry))
     _LIB.count("flash_fwd")
-    return out, lse
+    return _unpad(out, D), lse
 
 
-def _launch_bwd(kernel: str, ops: tuple, lse, delta, dtype) -> tuple:
+def _launch_bwd(kernel: str, ops: tuple, lse, delta, dtype, D: int) -> tuple:
     """Launch ``flash_dq_*`` or ``flash_dkv_*`` on the bf16 operands
-    (:func:`bf16_operands`), writing ``dtype`` (the suffix's): returns dq,
-    or (dk, dv)."""
+    (:func:`bf16_operands`, padded by :func:`pad_head_dim`), writing
+    ``dtype`` (the suffix's): returns dq, or (dk, dv), at head dim D."""
     q = ops[0]
-    B, L, H, D = q.shape
+    B, L, H, dk = q.shape
     outs = tuple(torch.empty(q.shape, dtype=dtype, device=q.device)
                  for _ in range(1 if kernel == "flash_dq" else 2))
-    geometry = _geometry_arg(tma_geometry(B, L, H, D))
+    geometry = _geometry_arg(tma_geometry(B, L, H, dk))
     _LIB.launch(f"{kernel}_{build.SUFFIXES[dtype]}", *ops, lse, delta, *outs,
-                B, L, H, D, ctypes.addressof(geometry))
+                B, L, H, dk, ctypes.addressof(geometry))
     _LIB.count(kernel)
-    return outs
+    return tuple(_unpad(t, D) for t in outs)
+
+
+def _bwd_operands(q, k, v, do) -> tuple:
+    return pad_head_dim(*bf16_operands(q, k, v, do))
 
 
 def flash_dq_cuda(q, k, v, do, lse, delta) -> torch.Tensor:
     """``flash_dq_*``: dq on the card (the output of
     :func:`flash_dq_plain`), in q's dtype."""
     _check_cuda((q, k, v, do), (lse, delta), "flash_dq")
-    return _launch_bwd("flash_dq", bf16_operands(q, k, v, do), lse, delta,
-                       q.dtype)[0]
+    return _launch_bwd("flash_dq", _bwd_operands(q, k, v, do), lse, delta,
+                       q.dtype, q.shape[3])[0]
 
 
 def flash_dkv_cuda(q, k, v, do, lse, delta) -> tuple:
     """``flash_dkv_*``: dk and dv on the card (the outputs of
     :func:`flash_dkv_plain`), in q's dtype."""
     _check_cuda((q, k, v, do), (lse, delta), "flash_dkv")
-    return _launch_bwd("flash_dkv", bf16_operands(q, k, v, do), lse, delta,
-                       q.dtype)
+    return _launch_bwd("flash_dkv", _bwd_operands(q, k, v, do), lse, delta,
+                       q.dtype, q.shape[3])
 
 
 def flash_bwd_cuda(q, k, v, do, lse, delta, dtype=None) -> tuple:
     """dq, dk and dv on the card as the backward runs them: the inputs
-    checked and rounded to bf16 once (an f32 caller's), the copies shared
-    by ``flash_dq_*`` and then ``flash_dkv_*``; in ``dtype`` (default
-    q's)."""
+    checked, rounded to bf16 once (an f32 caller's) and padded along D
+    where the kernels need it, the copies shared by ``flash_dq_*`` and then
+    ``flash_dkv_*``; in ``dtype`` (default q's), at q's head dim."""
     _check_cuda((q, k, v, do), (lse, delta), "flash_bwd")
     dtype = _out_dtype(dtype, q)
-    ops = bf16_operands(q, k, v, do)
-    dq, = _launch_bwd("flash_dq", ops, lse, delta, dtype)
-    return (dq, *_launch_bwd("flash_dkv", ops, lse, delta, dtype))
+    ops, D = _bwd_operands(q, k, v, do), q.shape[3]
+    dq, = _launch_bwd("flash_dq", ops, lse, delta, dtype, D)
+    return (dq, *_launch_bwd("flash_dkv", ops, lse, delta, dtype, D))
 
 
 def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -364,7 +402,9 @@ class FlashAttentionFn(torch.autograd.Function):
     backward rounds dO alone and launches dQ, then dK/dV, on the saved
     copies, writing the caller's dtype. CUDA tensors go to the kernels, CPU
     tensors to the plain twins (which round at the same points, so the
-    copies give them their f32 results bit for bit)."""
+    copies give them their f32 results bit for bit). Everything saved and
+    returned is at the caller's head dim: the CUDA wrappers pad inside
+    their calls, so autograd never sees the padding."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -399,13 +439,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 
     Differentiable: when autograd needs a gradient of any input, the call
     goes through :class:`FlashAttentionFn`. CPU tensors take the plain
-    twins. CUDA tensors must be float32 or bfloat16 (one dtype), on one
-    device, with a head dim the kernels take; anything else raises, and so
-    does a failed build or launch."""
+    twins at any head dim. CUDA tensors must be float32 or bfloat16 (one
+    dtype), on one device, with a head dim of at most 128 (zero-padded to
+    the kernels' width); anything else raises, and so does a failed build
+    or launch."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"flash_attention takes q, k, v [B, L, H, D] of one "
                          f"shape; got {[tuple(t.shape) for t in (q, k, v)]}")
-    check_head_dim(q.shape[3])
     q, k, v = (t.contiguous() for t in (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v)

@@ -689,11 +689,148 @@ def test_fold_refuses_what_it_does_not_take(card):
     assert F.launch_counts() == before
 
 
+def _commit_on_card(g: torch.Generator, sizes, offsets, spare: int = 5):
+    """Centers as views of one flat card tensor at ``offsets`` (with
+    ``spare`` floats after the last), and a mixed commit for them as the
+    wire carries it: int8 (one all-zero, spec scale 0), bf16, plain f32
+    with inf and -inf, empty and ragged entries, cycling by index."""
+    from distkeras_tpu_torch.netps import wire
+
+    flat = torch.randn(max(o + n for o, n in zip(offsets, sizes)) + spare,
+                       generator=g).cuda()
+    centers = [flat[o:o + n] for o, n in zip(offsets, sizes)]
+    entries = []
+    for i, n in enumerate(sizes):
+        d = (torch.randn(n, generator=g) / 100).numpy()
+        kind = i % 4
+        if kind == 3 and n:
+            d[0], d[-1] = np.inf, -np.inf
+        if i == 4:
+            d[:] = 0.0
+        entries.append(wire.codec_encode(d, ("int8", "bf16", "none",
+                                             "int8")[kind]))
+    return flat, centers, entries
+
+
+@pytest.mark.parametrize("layout", ["seated", "misaligned"])
+def test_commit_kernel_bit_equal_to_plain_on_card(card, layout):
+    """One ``fold_commit`` launch folds a whole mixed commit (int8, a zero
+    scale, bf16, plain f32 with inf, an empty tensor, ragged sizes from 1
+    to 2,359,296 elements), bit for bit like its plain twin on the same
+    staged buffer and like the numpy oracle on the host; every center
+    either at ``center_layout``'s 64-byte offsets (the server's, the vector
+    body) or 1 and 3 floats off them (the scalar body, same launch), and
+    no float between or after the views written."""
+    from distkeras_tpu_torch.netps import fold as nfold
+
+    g = torch.Generator().manual_seed(7)
+    sizes = [2_359_296, 7, 0, 4099, 1, 70_001, 33 * 5, 16, 1_000_003]
+    offsets, _ = F.center_layout(sizes)
+    if layout == "misaligned":
+        offsets, end = [], 0
+        for i, n in enumerate(sizes):
+            offsets.append(-(-end // 16) * 16 + (1 if i % 2 else 3))
+            end = offsets[-1] + n
+    flat, centers, entries = _commit_on_card(g, sizes, offsets)
+    twin_flat = flat.clone()
+    twin = [twin_flat[o:o + n] for o, n in zip(offsets, sizes)]
+    host = [c.cpu().numpy() for c in centers]
+    staged = nfold.stage_commit(entries, "cuda", offsets=offsets)
+    F.reset_launches()
+    F.fold_commit_(centers, staged, 1.0 / 3.0)
+    torch.cuda.synchronize()
+    assert F.launch_counts() == {"fold_commit": 1, "fold_int8": 0,
+                                 "fold_bf16": 0}
+    F.fold_commit_plain_(twin, staged, 1.0 / 3.0)
+    assert torch.equal(flat.view(torch.int32), twin_flat.view(torch.int32))
+    for h, e in zip(host, entries):
+        a, spec = nfold.split_entry(e)
+        if spec:
+            nfold.fold_compressed_numpy(h, a, spec, 1.0 / 3.0)
+        else:
+            h += np.float32(1.0 / 3.0) * a
+    for c, h in zip(centers, host):
+        assert np.array_equal(c.cpu().numpy().view(np.uint32),
+                              h.view(np.uint32))
+
+
+def test_fold_delta_on_card_stages_where_the_centers_lie(card):
+    """``fold_delta`` given plain entries and centers that are separate
+    card tensors stages the commit against the centers' own addresses and
+    folds it in one launch, as the twin does on the CPU copies."""
+    from distkeras_tpu_torch.netps import fold as nfold
+
+    g = torch.Generator().manual_seed(3)
+    sizes = [513, 9, 40_000]
+    _flat, _c, entries = _commit_on_card(g, sizes, F.center_layout(sizes)[0])
+    centers = [torch.randn(n, generator=g).cuda() for n in sizes]
+    cpu = [c.cpu() for c in centers]
+    F.reset_launches()
+    nfold.fold_delta(centers, entries, "dynsgd", 2)
+    nfold.fold_delta(cpu, entries, "dynsgd", 2)
+    torch.cuda.synchronize()
+    assert F.launch_counts()["fold_commit"] == 1
+    for c, h in zip(centers, cpu):
+        assert torch.equal(c.cpu().view(torch.int32), h.view(torch.int32))
+
+
+def test_server_works_on_its_own_stream_on_card(card, monkeypatch):
+    """A ``PSServer`` on the card launches its fold on a stream of its own,
+    not the default one, at a higher priority; and a commit and a pull
+    answer while a long multi-block kernel still runs on the default
+    stream (a non-blocking stream does not wait for it)."""
+    from distkeras_tpu_torch.netps import PSClient, PSServer
+
+    streams = []
+    real = F._LIB.launch
+
+    def recording(entry, *args):
+        streams.append(torch.cuda.current_stream().cuda_stream)
+        return real(entry, *args)
+
+    monkeypatch.setattr(F._LIB, "launch", recording)
+    init = [np.zeros(4096, np.float32), np.ones(3, np.float32)]
+    delta = [np.full(4096, 0.25, np.float32), np.full(3, 1.0, np.float32)]
+    srv = PSServer(discipline="adag", device="cuda").start()
+    # Outputs allocated up front: a device or pinned allocation between two
+    # launches is an implicit synchronization of the whole card.
+    big, out, out2 = (torch.randn(16384, 16384, device="cuda")
+                      for _ in range(3))
+    try:
+        with PSClient(srv.endpoint, worker_id=0, timeout=30.0,
+                      compress="int8") as c:
+            _, upd = c.join(init=init)
+            # a first commit and pull leave the server's staging and
+            # mirror buffers cached, as they are in a run's steady state
+            upd = c.commit(delta, upd).updates
+            c.pull()
+            torch.cuda.synchronize()
+            long_done = torch.cuda.Event()
+            torch.matmul(big, big, out=out)  # about 0.2 s each
+            torch.matmul(out, big, out=out2)
+            long_done.record()
+            assert c.commit(delta, upd).applied
+            center, _ = c.pull()
+            still_running = not long_done.query()
+        torch.cuda.synchronize()
+        default = torch.cuda.default_stream().cuda_stream
+        assert streams == [srv._stream.cuda_stream] * 2
+        assert streams[0] != default
+        assert srv._stream.priority < torch.cuda.default_stream().priority
+        assert still_running, "the server waited on the default stream"
+        np.testing.assert_allclose(center[0], 0.5, rtol=1e-2)
+        np.testing.assert_allclose(center[1], 3.0, rtol=1e-2)
+    finally:
+        srv.close()
+        del big, out, out2
+
+
 def test_remote_run_on_card_folds_every_commit_through_the_kernel(
         card, monkeypatch):
     """A 2-round DynSGD remote= run with the server and the model on the
-    card, int8 commits: one fold launch per tensor per folded commit, the
-    LSTM kernels once per local step, and the model is the center."""
+    card, int8 commits: one fold launch per folded commit (the whole commit,
+    no tensor alone), the LSTM kernels once per local step, and the model
+    is the center."""
     from distkeras_tpu_torch import DynSGD, imdb_lstm
     from distkeras_tpu_torch.data import DataFrame
     from distkeras_tpu_torch.netps import PSClient, PSServer
@@ -723,7 +860,8 @@ def test_remote_run_on_card_folds_every_commit_through_the_kernel(
         srv.close()
     tensors = len(model.params)
     assert commits == W * rounds, f"{srv.evictions} evictions"
-    assert F.launch_counts() == {"fold_int8": tensors * commits,
+    assert tensors == 6
+    assert F.launch_counts() == {"fold_commit": commits, "fold_int8": 0,
                                  "fold_bf16": 0}
     counts = K.launch_counts()
     assert counts["lstm_fwd_stash"] == counts["lstm_bwd"] == W * rounds * Kw
@@ -752,10 +890,12 @@ def _flash_err(got, ref):
                                      (2, 128, 2, 128), (1, 1, 1, 16),
                                      (1, 256, 2, 48), (4, 72, 4, 64),
                                      (2, 136, 4, 128), (2, 1024, 1, 64),
-                                     (1, 512, 2, 128)])
+                                     (1, 512, 2, 128), (2, 256, 2, 8),
+                                     (2, 272, 2, 40), (1, 1024, 1, 24)])
 def test_flash_kernels_match_plain_on_card(card, B, L, H, D, dtype):
     """The three flash kernels against their plain twins (the same bf16
-    rounding points, k-tile 64), ragged L and every head-dim pad; L not a
+    rounding points, k-tile 64), ragged L and every head-dim pad (D = 8,
+    40, 24: head dims the wrappers zero-pad to 16, 48, 32); L not a
     multiple of a tile's rows (72, 136), long enough to wrap the backward's
     load ring many times (1024 at B*H = 2), and D = 128 (two column boxes,
     32-query tiles in dK/dV) at L = 512. f32 outputs: mean error within
@@ -888,9 +1028,33 @@ def test_flash_refuses_what_it_does_not_take(card):
         FA.flash_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="CUDA device"):
         FA.flash_attention(q, q.cpu(), q)
+    wide = torch.randn(1, 8, 1, 144, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
-        FA.flash_attention(q[..., :8], q[..., :8], q[..., :8])
+        FA.flash_attention(wide, wide, wide)  # past the widest tile
     assert FA.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 40])
+def test_flash_autograd_at_padded_head_dims_on_card(card, D, dtype):
+    """The autograd Function at head dims the wrappers pad: out and the
+    gradients at D, the bits of the wrappers' own calls, each kernel
+    launched once."""
+    q, k, v, do = _flash_inputs(2, 272, 2, D, dtype, seed=D)
+    out, lse = FA.flash_fwd_cuda(q, k, v)
+    delta = FA.attention_delta(do, out)
+    want = (FA.flash_dq_cuda(q, k, v, do, lse, delta),
+            *FA.flash_dkv_cuda(q, k, v, do, lse, delta))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    FA.reset_launches()
+    got = FA.flash_attention(*leaves)
+    grads = torch.autograd.grad(got, leaves, do)
+    torch.cuda.synchronize()
+    assert FA.launch_counts() == {"flash_fwd": 1, "flash_dq": 1,
+                                  "flash_dkv": 1}
+    assert got.shape == q.shape and torch.equal(got.detach(), out)
+    for g, w in zip(grads, want):
+        assert g.shape == q.shape and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("remat", [False, True])

@@ -178,9 +178,67 @@ def test_bf16_inputs_give_bf16_outputs_and_gradients():
 
 @pytest.mark.parametrize("D", [8, 24, 144])
 def test_unsupported_head_dim_raises(D):
-    q = torch.zeros(1, 4, 1, D)
+    """The kernels' own contract still refuses a head dim that is not a
+    multiple of 16 in [16, 128] (their tensor maps are built for those);
+    the CUDA wrappers pad D <= 128 up to it, and past 128 they raise with
+    it. On the CPU the wrappers take any D (below)."""
     with pytest.raises(ValueError, match="head dim"):
-        FA.flash_attention(q, q, q)
+        FA.check_head_dim(D)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.tma_geometry(1, 4, 1, D)
+    if D > 128:
+        with pytest.raises(ValueError, match="head dim"):
+            FA.kernel_head_dim(D)
+    else:
+        assert FA.kernel_head_dim(D) == -(-D // 16) * 16
+
+
+@pytest.mark.parametrize("D", [8, 24, 40, 144])
+def test_head_dims_the_kernels_pad_match_the_jax_kernel(D):
+    """``flash_attention`` with its gradient through the autograd Function
+    at head dims the CUDA kernels take only zero-padded (8, 24, 40) or not
+    at all (144), on the CPU (the twins, which take any D, and nothing
+    launched), against the JAX package's flash kernel in interpret mode,
+    which takes any D. L = 64 is one k-tile for both, so only the order of
+    the f32 sums differs: the mean error of out, dq, dk and dv within 1e-5
+    of their mean magnitude and the largest within 2e-3 of the largest (one
+    order-flipped bf16 rounding of a p or ds), as in the tiling test
+    above."""
+    q, k, v, do = _inputs(64, D, seed=D)
+    ref_out, ref_grads = _jax(q, k, v, do)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    before = FA.launch_counts()
+    out = FA.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    assert FA.launch_counts() == before
+    assert out.shape == q.shape and all(g.shape == q.shape for g in grads)
+    for name, g, r in zip(("out", "dq", "dk", "dv"),
+                          [out.detach(), *grads], [ref_out, *ref_grads]):
+        assert _mean_err(g.numpy(), r) <= 1e-5, name
+        assert _scaled_err(g.numpy(), r) <= 2e-3, name
+
+
+@pytest.mark.parametrize("D", [8, 24, 40, 100])
+def test_zero_padded_head_dim_computes_the_unpadded_function(D):
+    """What the CUDA wrappers do with a head dim the kernels do not take,
+    run through the twins: q, k, v and dO zero-padded to
+    ``kernel_head_dim(D)`` (``pad_head_dim``), the forward, dQ and dK/dV at
+    that width, sliced back to D, against the same twins at D. Zero
+    columns add exact zeros to every score and give zero output columns;
+    only the order of the f32 sums over D may differ, so out, lse, dq, dk
+    and dv agree within 1e-6 of their largest magnitude and the padded
+    columns of every output are exactly zero."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(72, D, seed=D + 1))
+    padded = FA.pad_head_dim(q, k, v, do)
+    dk_ = FA.kernel_head_dim(D)
+    assert all(t.shape[3] == dk_ and torch.equal(t[..., :D], x)
+               and not t[..., D:].any() for t, x in zip(padded, (q, k, v, do)))
+    ref = _port_grads(*(t.numpy() for t in (q, k, v, do)))
+    got = _port_grads(*(t.numpy() for t in padded))
+    assert np.abs(got[1] - ref[1]).max() <= 1e-6
+    for g, r in zip([got[0], *got[2]], [ref[0], *ref[2]]):
+        assert not g[..., D:].any()
+        assert _scaled_err(g[..., :D], r) <= 1e-6
 
 
 def test_forward_without_grad_takes_the_plain_twin_on_the_cpu():

@@ -29,7 +29,7 @@ from distkeras_tpu_torch.convert import params_from_jax
 from distkeras_tpu_torch.data import DataFrame
 from distkeras_tpu_torch.netps import PSClient, PSServer
 from distkeras_tpu_torch.netps import server as server_mod
-from distkeras_tpu_torch.netps.fold import commit_scale, split_entry
+from distkeras_tpu_torch.netps.fold import commit_scale
 from distkeras_tpu_torch.ops.kernels import fold as F
 from distkeras_tpu_torch.ops.kernels import lstm as K
 
@@ -66,8 +66,9 @@ def _quant_steps(monkeypatch) -> list:
 
     def recording(center, delta, discipline, staleness):
         scale = commit_scale(discipline, staleness)
-        steps.append(max((float(spec.get("scale", 0.0)) * scale
-                          for _a, spec in map(split_entry, delta) if spec),
+        rows = delta.rows  # the server passes its staged commit
+        steps.append(max((float(f) * scale for f in
+                          rows["factor"][rows["kind"] == F.KIND_INT8]),
                          default=0.0))
         return real(center, delta, discipline, staleness)
 

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time the LSTM kernels at config #4, the GroupNorm kernels at every
-ResNet-50 slab and one ResNet-50 training step, in one tree of the port,
-for comparing two trees on one card.
+ResNet-50 slab and one ResNet-50 training step, or (``--fold``) the
+parameter server's fold of whole commits and remote training against the
+server, in one tree of the port, for comparing two trees on one card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``::
 
     python3 tools/kernel_ab.py [--root DIR] [--seed N] [--tilings auto,...]
+    python3 tools/kernel_ab.py --fold [--root DIR] [--seed N] [--reps N]
 
 ``--root`` is the checkout whose ``distkeras_tpu_torch`` is timed (default:
 this one; a copy of another commit, unpacked with ``git archive`` into a
@@ -28,6 +30,28 @@ wrappers' own (``auto``), each held to the plain twins at
 ``chip_smoke.py``'s limits first: ``one``, one block of 512 threads an SM
 with clusters up to 16; ``portable``, the same with clusters up to 8,
 where the stem's backward reads part of its rows again from L2.
+
+``--fold`` times instead, for one commit of config #4's model (IMDB LSTM,
+6 tensors) and one of ResNet-50 (161 tensors), in int8 and bf16:
+
+* ``kernel_ms``: the fold of a commit whose wire tensors are already on the
+  card, by CUDA events with L2 flushed (by a read) and the card held by a
+  spin kernel that outlasts the host's enqueue (``chip_smoke.cuda_ms_cold``
+  with ``head_start``: the card's time alone): the tree's ``fold_commit_``
+  on a staged commit where it has one, else ``fold_compressed_`` once per
+  tensor; ``call_ms`` the same without the spin, the wrapper's host time
+  showing;
+* ``fold_delta_ms``: host clock around ``netps.fold.fold_delta(centers,
+  entries, "dynsgd", 0)`` from the host wire arrays, as the server's
+  handler receives them (both trees take that call), to the end of its
+  work on the card (median);
+* ``add_loop_ms``: ``c.add_(w, alpha=s)`` for each tensor, the yardstick;
+
+and, from ``DynSGD(imdb_lstm(...), remote=srv.endpoint)`` against a
+``PSServer`` on the card at config #4's width and batch (4 workers, window
+4, batch 2048; every kernel built and one int8 round run first, untimed;
+then int8 3 rounds and bf16 2): samples/s and the server's commit and pull
+handlers, one by one (``chip_smoke.time_handlers``: p50 and max, ms).
 """
 
 from __future__ import annotations
@@ -35,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -191,11 +216,112 @@ def resnet_steps(torch, G, seed: int) -> dict:
     return out
 
 
+def commit_rows(torch, F, nfold, seed: int, reps: int) -> dict:
+    """The commit-fold times of both models in both codecs."""
+    from distkeras_tpu_torch import imdb_lstm, resnet50
+
+    rng = np.random.default_rng(seed)
+    flush = torch.empty(S.FLUSH_BYTES // 4, device="cuda")
+    models = {
+        "imdb_lstm": imdb_lstm(vocab_size=S.VOCAB, embed_dim=S.EMBED,
+                               hidden_size=S.HIDDEN, seq_len=S.SEQ_LEN,
+                               seed=seed, device="cuda").params,
+        "resnet50": resnet50(norm_impl="pallas", seed=seed,
+                             device="cuda").params}
+    out = {}
+    for model, params in models.items():
+        sizes = [p.numel() for p in params.values()]
+        flat = torch.cat([p.detach().reshape(-1) for p in params.values()])
+        centers = list(torch.split(flat, sizes))
+        if hasattr(F, "center_layout"):  # seated as the server seats them
+            offsets, total = F.center_layout(sizes)
+            seated = torch.zeros(total, device="cuda")
+            centers = [seated[o:o + n] for o, n in zip(offsets, sizes)]
+            for c, p in zip(centers, params.values()):
+                c.copy_(p.detach().reshape(-1))
+        for codec in ("int8", "bf16"):
+            inputs = [S.fold_inputs(torch, c, codec, rng) for c in centers]
+            entries = [(enc, spec) for enc, spec, _q in inputs]
+            if hasattr(F, "fold_commit_"):
+                staged = nfold.stage_commit(entries, "cuda")
+
+                def kernel():
+                    F.fold_commit_(centers, staged, 1.0)
+            else:
+                def kernel():
+                    for c, (_e, spec, q) in zip(centers, inputs):
+                        F.fold_compressed_(c, q, spec, 1.0)
+
+            def add_loop():
+                for c, (_e, spec, q) in zip(centers, inputs):
+                    S.library_fold(torch, c, q, codec,
+                                   F.fold_scale(codec, spec, 1.0))
+
+            walls = []
+            for _ in range(reps + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nfold.fold_delta(centers, entries, "dynsgd", 0)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            out[f"{model}.{codec}"] = {
+                "tensors": len(sizes), "params": sum(sizes),
+                "kernel_ms": S.cuda_ms_cold(torch, kernel, reps, flush,
+                                            head_start=True),
+                "call_ms": S.cuda_ms_cold(torch, kernel, reps, flush),
+                "add_loop_ms": S.cuda_ms_cold(torch, add_loop, reps, flush,
+                                              head_start=True),
+                "fold_delta_ms": float(np.median(walls[1:])),
+                "bound_ms": sum(S.fold_bound_ms(n, codec)[0] for n in sizes)}
+            del inputs
+    return out
+
+
+def remote_rows(torch, seed: int) -> dict:
+    """Remote DynSGD against a server on the card, int8 then bf16."""
+    from distkeras_tpu_torch.netps import PSServer
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    W, Kw, B = (S.REMOTE["num_workers"], S.REMOTE["communication_window"],
+                S.REMOTE["batch_size"])
+    out = {}
+    runs = [("warm_up", "int8", 1)] + [(c, c, r)
+                                       for c, r in S.REMOTE_ROUNDS.items()]
+    for name, codec, rounds in runs:
+        model, df = S.remote_inputs(seed, rounds)
+        srv = PSServer(discipline="dynsgd", device="cuda").start()
+        ms = S.time_handlers(srv)
+        try:
+            with S.env_set(DKTPU_NET_COMPRESS=codec):
+                trainer = DynSGD(model, worker_optimizer="sgd",
+                                 loss="sparse_categorical_crossentropy",
+                                 remote=srv.endpoint, **S.REMOTE)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train(df)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            commits = len(srv.commit_log)
+        finally:
+            srv.close()
+        if name == "warm_up":
+            out[name] = {"seconds": wall}
+            continue
+        out[name] = {"samples_per_s": rounds * W * Kw * B / wall,
+                     "commits": commits, **S.handler_stats(ms),
+                     "commit_ms": ms["commit"]}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tilings", default="auto")
+    ap.add_argument("--fold", action="store_true",
+                    help="time whole-commit folds and remote training")
+    ap.add_argument("--reps", type=int, default=20,
+                    help="cold calls a fold reading averages (--fold)")
     args = ap.parse_args()
     kinds = args.tilings.split(",")
     if not set(kinds) <= {"auto", "one", "portable"}:
@@ -206,6 +332,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("no CUDA device is available")
+    from distkeras_tpu_torch.ops.kernels import fold as F
     from distkeras_tpu_torch.ops.kernels import groupnorm as G
     from distkeras_tpu_torch.ops.kernels import lstm as K
 
@@ -213,11 +340,20 @@ def main() -> None:
         sys.exit(f"imported {K.__file__}, not the tree at {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False  # as chip_smoke.py runs
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    out = {"root": str(root), "gpu": S.card_line(),
-           "lstm": lstm_rows(torch, K, gen),
-           "group_norm": group_norm_rows(torch, G, gen, kinds),
-           "resnet50_step_ms": resnet_steps(torch, G, args.seed)}
+    out = {"root": str(root), "gpu": S.card_line()}
+    if args.fold:
+        from distkeras_tpu_torch.netps import fold as nfold
+        from distkeras_tpu_torch.ops.kernels import build
+
+        build.build(build.all_sources())
+        F.prepare()
+        out["commit"] = commit_rows(torch, F, nfold, args.seed, args.reps)
+        out["remote"] = remote_rows(torch, args.seed)
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        out["lstm"] = lstm_rows(torch, K, gen)
+        out["group_norm"] = group_norm_rows(torch, G, gen, kinds)
+        out["resnet50_step_ms"] = resnet_steps(torch, G, args.seed)
     print(json.dumps(out), flush=True)
 
 
