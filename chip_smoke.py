@@ -156,6 +156,39 @@ and every parity phase holds the card's bf16 run to the CPU's within
     (logits) and a half (center) of the CPU run's flash-vs-dense
     distance.
 
+13. ``mlp_train`` — BASELINE config #1 as a user drives it:
+    ``SingleTrainer(mnist_mlp(device="cuda"), "adam", batch_size=1024,
+    rounds_per_program="auto")`` on ``mnist(flat=True)``, window 8, 3
+    rounds, f32 then bf16. ``cnn_train`` — configs #2 and #3:
+    ``ADAG(mnist_cnn(), "adam", num_workers=4, batch_size=2048,
+    communication_window=8)`` and ``AEASGD(cifar10_cnn(), "sgd",
+    num_workers=2, ..., rho=3.0)``, 2 rounds each, f32 then bf16, each
+    frame made once. Each row: samples/s, the host milliseconds a local
+    step and the split of one by CUDA events, peak memory, the history;
+    the losses finite, the parameters moved, and every kernel count set to
+    0 before and still 0 after (no TPU kernel's counterpart is on these
+    paths: cuDNN and cuBLAS). ``cnn_parity`` — each CNN config at full
+    width cut to 2 workers, batch 128, window 1, one round: the card's f32
+    center within 4x the CPU f32 run's mean distance from a float64 CPU
+    run, the first loss within 1e-4 of the CPU's, and bf16 as every parity
+    phase.
+14. ``workflow`` — ``examples/mnist_workflow.py``'s chain in the port on
+    the card: ``mnist()`` -> ``MinMaxTransformer`` -> ``ReshapeTransformer``
+    -> ``OneHotTransformer`` -> ``split`` -> ``ADAG(mnist_cnn(), "adam",
+    features_col="img")`` -> ``ClassPredictor``, ``ProbabilityPredictor``,
+    ``ModelPredictor`` (2,000 rows at chunk 1024) -> ``AccuracyEvaluator``,
+    ``F1Evaluator``, ``LossEvaluator``: rows predicted a second, accuracy
+    (must beat 0.5), F1 and loss; the logits within 1e-4 of the CPU plain
+    forward on the same weights and the evaluators equal on both but for
+    rows whose top two CPU logits lie within 1e-4.
+15. ``remote_cnn`` — ``ADAG(mnist_cnn(), remote=srv.endpoint)`` against
+    ``PSServer(discipline="adag", device="cuda")`` with int8 commits at
+    ``cnn_train``'s workers, batch and window, 2 rounds: one
+    ``fold_commit`` launch per folded commit and no other kernel, the
+    model equal to the server's center, the handlers' p50 and largest
+    times and samples/s. (``fold_kernel`` has the mnist_cnn commit's rows,
+    8 tensors, 421,642 parameters, in both codecs.)
+
 Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``.
@@ -240,6 +273,11 @@ GN_BF16_TOP = BF16_ULP
 #: whole update, printed beside. Written before the first run of these
 #: phases.
 BF16_PARITY_SHARE = 1.5
+#: the CNN parity rows' bf16 share, tighter: one window-1 step barely
+#: decorrelates the two bf16 runs (0.00001 and 0.037 of the CPU's
+#: bf16-vs-f32 distance, mnist_cnn and cifar10_cnn), while a card run that
+#: stayed in f32 would read about 1.0, which 1.5 lets pass.
+CNN_BF16_PARITY_SHARE = 0.3
 
 # ResNet-50 (BASELINE config #5, bench.py: "sync", batch 128, window 2,
 # sgd, lr 0.01, 224x224x3, 1000 classes), f32, cut to 3 rounds.
@@ -367,6 +405,47 @@ LM_PARITY_TRAIN = dict(num_workers=1, batch_size=2, communication_window=2,
                        learning_rate=1e-4, rho=500.0)
 LM_PARITY_LOGITS_SHARE = 0.25
 LM_PARITY_CENTER_SHARE = 0.5
+
+# BASELINE configs #1-#3 at full width (bench.py:1398-1417, learning rate
+# 0.01 as bench.py trains them): the MNIST MLP under SingleTrainer (adam,
+# batch 1024, window 8, rounds_per_program="auto") cut to 3 rounds; the
+# MNIST CNN under ADAG (adam) and the CIFAR-10 CNN under AEASGD (sgd, rho
+# 3.0, as examples/cifar10_aeasgd.py), both at batch 2048 and window 8,
+# cut to 4 and 2 workers and 2 rounds. No TPU kernel is on these paths:
+# the convolutions, pools and dense layers are cuDNN's and cuBLAS's.
+MLP_TRAIN = dict(batch_size=1024, steps_per_program=8, learning_rate=0.01,
+                 rounds_per_program="auto")
+MLP_ROUNDS = 3
+CNN_TRAIN = (
+    ("mnist_cnn", "ADAG", dict(worker_optimizer="adam", num_workers=4,
+                               batch_size=2048, communication_window=8,
+                               learning_rate=0.01)),
+    ("cifar10_cnn", "AEASGD", dict(worker_optimizer="sgd", num_workers=2,
+                                   batch_size=2048, communication_window=8,
+                                   learning_rate=0.01, rho=3.0)))
+CNN_ROUNDS = 2
+#: the CNN parity runs: the same trainers and widths cut to 2 workers,
+#: batch 128 and window 1, one round. The card's f32 center is held to a
+#: float64 CPU run from the same weights as ResNet-50's is
+#: (``RESNET_PARITY_FACTOR``: ReLU and max-pool edges flip with the sum
+#: order, and adam's eps turns f32 gradient rounding into update
+#: differences up to a share of the learning rate), bf16 to
+#: ``CNN_BF16_PARITY_SHARE``.
+CNN_PARITY = dict(num_workers=2, batch_size=128, communication_window=1)
+#: examples/mnist_workflow.py's chain on the card: mnist() rows, split
+#: 0.9, ADAG(mnist_cnn, adam, lr 0.002 as the example) with 4 workers,
+#: batch 256 and window 8 (2 rounds of the 18,000 training rows), then
+#: the predictors at chunk 1024 on the 2,000 test rows (not a multiple).
+WORKFLOW = dict(rows=20000, num_workers=4, batch_size=256,
+                communication_window=8, learning_rate=0.002,
+                chunk_size=1024)
+#: the workflow's predict rate: ClassPredictor over the test images
+#: repeated to 25 chunks of 1024 (the last 976 rows, padded), after one
+#: warm call at that size; the median of 3 calls.
+WORKFLOW_RATE_ROWS = 25 * 1024 - 48
+#: the workflow's accuracy must beat this (chance is 0.1; the synthetic
+#: classes separate).
+WORKFLOW_MIN_ACCURACY = 0.5
 
 
 def emit(obj) -> None:
@@ -725,7 +804,7 @@ def bwd_phase(torch, K, model, rng) -> dict:
 
 
 def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
-               dtype=None) -> dict:
+               dtype=None, head_start: bool = False) -> dict:
     """Milliseconds of one local training step on ``x, y`` with the
     optimizer ``tx``, split by CUDA events into the forward, the loss, the
     backward and the update; the mean of ``steps`` steps after a warm one.
@@ -734,7 +813,12 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
     the step (``key`` in the result, and its calls a step under
     ``calls``). ``dtype`` (bf16) is the mixed-precision step: the f32
     leaves and a float ``x`` cast inside the forward, as the local loop
-    does."""
+    does. Events read when the card reaches them, so where the host
+    enqueues a step more slowly than the card runs it the split is the
+    host's pace; with ``head_start`` a spin kernel holds the card before
+    each timed step for at least twice the warm step's host time, so the
+    host enqueues the whole step first and the split is the card's own
+    time (the host's milliseconds for the warm step under ``host_ms``)."""
     from torch.func import functional_call
 
     from distkeras_tpu_torch.ops import cast_floats
@@ -765,11 +849,15 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
     module.train()
     parts = {"forward": 0.0, "loss": 0.0, "backward": 0.0, "update": 0.0}
     kernel_ms = {k: 0.0 for k in spans}
+    cycles = 0
     try:
         for i in range(steps + 1):
             for v in spans.values():
                 v.clear()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            if cycles:
+                torch.cuda._sleep(cycles)
+            t0 = time.perf_counter()
             ev[0].record()
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in params.items()}
@@ -786,7 +874,11 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
             params = apply_updates(params, updates)
             del grads, updates
             ev[4].record()
+            host_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
+            if head_start and not i:
+                cycles = head_start_cycles(torch, host_ms)
+                parts_host_ms = host_ms
             if i:
                 for j, k in enumerate(parts):
                     parts[k] += ev[j].elapsed_time(ev[j + 1]) / steps
@@ -798,6 +890,8 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
         for name, fn in patched.items():
             setattr(kmod, name, fn)
     parts["step"] = sum(parts.values())
+    if head_start:
+        parts["host_ms"] = parts_host_ms
     if kmod is not None:
         parts.update(kernel_ms)
         parts["calls"] = {k: len(v) for k, v in spans.items()}
@@ -1053,17 +1147,18 @@ def center_dist(a: dict, b: dict, how: str) -> float:
     return (sum(x.sum() for x in d) / sum(x.numel() for x in d)).item()
 
 
-def bf16_parity(phase: str, out: dict, change: float, extra=None) -> None:
+def bf16_parity(phase: str, out: dict, change: float, extra=None,
+                share: float = BF16_PARITY_SHARE) -> None:
     """Hold the card's bf16 run to the CPU's: ``out[run] = (center, ...)``
     for runs ``cuda_bf16``, ``cpu_bf16`` and ``cpu`` (f32); the center's
-    mean distance card-vs-CPU at bf16 within :data:`BF16_PARITY_SHARE` of
-    the CPU's bf16-vs-f32 distance. ``extra`` adds ``{name: (card, design)}``
-    pairs held to the same share."""
+    mean distance card-vs-CPU at bf16 within ``share`` of the CPU's
+    bf16-vs-f32 distance. ``extra`` adds ``{name: (card, design)}`` pairs
+    held to the same share."""
     pairs = {"center_mean": (
         center_dist(out["cuda_bf16"][0], out["cpu_bf16"][0], "mean"),
         center_dist(out["cpu_bf16"][0], out["cpu"][0], "mean"))}
     pairs.update(extra or {})
-    row = {"phase": phase, "dtype": "bfloat16", "share": BF16_PARITY_SHARE,
+    row = {"phase": phase, "dtype": "bfloat16", "share": share,
            "center_max_abs_err_card_vs_cpu_bf16": center_dist(
                out["cuda_bf16"][0], out["cpu_bf16"][0], "max"),
            "center_max_abs_err_cpu_bf16_vs_f32": center_dist(
@@ -1075,9 +1170,9 @@ def bf16_parity(phase: str, out: dict, change: float, extra=None) -> None:
         row[f"{name}_share"] = card / design if design else None
     emit(row)
     for name, (card, design) in pairs.items():
-        if not (0 < design and card <= BF16_PARITY_SHARE * design):
+        if not (0 < design and card <= share * design):
             fail(f"{phase}: {name} card vs CPU at bf16 {card} > "
-                 f"{BF16_PARITY_SHARE} x the CPU bf16-vs-f32 {design}")
+                 f"{share} x the CPU bf16-vs-f32 {design}")
 
 
 def parity_phase(torch, seed: int) -> None:
@@ -1609,6 +1704,19 @@ def fold_bound_ms(n: int, codec: str) -> tuple[float, str]:
 HEAD_START_CYCLES = 4_000_000
 
 
+def head_start_cycles(torch, host_ms: float) -> int:
+    """Cycles of a ``torch.cuda._sleep`` spin that lasts at least twice
+    ``host_ms`` (and at least :data:`HEAD_START_CYCLES`), after the
+    card is synchronized."""
+    spin = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    spin[0].record()
+    torch.cuda._sleep(HEAD_START_CYCLES)
+    spin[1].record()
+    torch.cuda.synchronize()
+    return int(HEAD_START_CYCLES * max(
+        1.0, 2.0 * host_ms / spin[0].elapsed_time(spin[1])))
+
+
 def cuda_ms_cold(torch, fn, reps: int, flush, head_start: bool = False
                  ) -> float:
     """Mean milliseconds of ``fn`` by CUDA events around each call alone,
@@ -1626,14 +1734,7 @@ def cuda_ms_cold(torch, fn, reps: int, flush, head_start: bool = False
     if head_start:
         t0 = time.perf_counter()
         fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        spin = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        spin[0].record()
-        torch.cuda._sleep(HEAD_START_CYCLES)
-        spin[1].record()
-        torch.cuda.synchronize()
-        spin_ms = spin[0].elapsed_time(spin[1])
-        cycles = int(HEAD_START_CYCLES * max(1.0, 2.0 * host_ms / spin_ms))
+        cycles = head_start_cycles(torch, (time.perf_counter() - t0) * 1e3)
     events = []
     for _ in range(reps):
         flush.sum()
@@ -1673,7 +1774,7 @@ def fold_commit_row(torch, F, model: str, params, codec: str, rng,
     ``center_layout``'s 64-byte offsets), the commit staged by
     ``stage_commit`` (one pinned buffer, one copy), then one
     ``fold_commit_`` launch, bit for bit against ``fold_commit_plain_`` on
-    the same staged buffer (and, for config #4's model, against the numpy
+    the same staged buffer (and, but for ResNet-50's, against the numpy
     oracle on the host). Cold times by CUDA events of the kernel, the twin,
     the same kernel one tensor at a time (``fold_compressed_``, a launch
     a tensor) and ``c.add_(w,
@@ -1710,7 +1811,7 @@ def fold_commit_row(torch, F, model: str, params, codec: str, rng,
            "bit_equal_to_plain": bool(torch.equal(
                got_flat.view(torch.int32), ref_flat.view(torch.int32))),
            "tiles": staged.tiles, "staged_bytes": staged.buf.numel()}
-    if model == "imdb_lstm":
+    if model != "resnet50":
         host = [c.cpu().numpy() for c in centers]
         for h, (enc, spec, _q) in zip(host, inputs):
             nfold.fold_compressed_numpy(h, enc, spec, scale)
@@ -1763,8 +1864,9 @@ def fold_commit_row(torch, F, model: str, params, codec: str, rng,
 def fold_kernel_phase(torch, F, seed: int) -> list:
     """The fold kernel against its plain twin at every tensor of config
     #4's model and ResNet-50's largest two, both codecs, scales 1 and 1/3;
-    then one whole commit of each model."""
-    from distkeras_tpu_torch import imdb_lstm, resnet50
+    then one whole commit of each model (and of config #2's CNN, the
+    commit ``remote_cnn`` folds)."""
+    from distkeras_tpu_torch import imdb_lstm, mnist_cnn, resnet50
     from distkeras_tpu_torch.netps import fold as nfold
 
     rng = np.random.default_rng(seed)
@@ -1774,7 +1876,8 @@ def fold_kernel_phase(torch, F, seed: int) -> list:
                                hidden_size=HIDDEN, seq_len=SEQ_LEN,
                                seed=seed, device="cuda").params,
         "resnet50": resnet50(norm_impl="pallas", seed=seed,
-                             device="cuda").params}
+                             device="cuda").params,
+        "mnist_cnn": mnist_cnn(seed=seed, device="cuda").params}
     largest = sorted(models["resnet50"].items(),
                      key=lambda kv: -kv[1].numel())[:FOLD_RESNET_TENSORS]
     tensors = [(f"imdb_lstm.{k}", v)
@@ -2636,6 +2739,436 @@ def transformer_parity_phase(torch, seed: int) -> None:
                        dist("cpu_bf16", "cpu", 0, "max"))})
 
 
+def kernel_modules() -> dict:
+    """The port's kernel wrapper modules, each with its launch counts."""
+    from distkeras_tpu_torch.ops.kernels import flash_attention, fold
+    from distkeras_tpu_torch.ops.kernels import groupnorm, lstm
+
+    return {"lstm": lstm, "groupnorm": groupnorm,
+            "flash_attention": flash_attention, "fold": fold}
+
+
+def reset_all_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.reset_launches()
+
+
+def launched_kernels() -> dict:
+    """``{"module.kernel": count}`` of every kernel launched since the
+    counts were last set to 0."""
+    return {f"{name}.{k}": v for name, mod in kernel_modules().items()
+            for k, v in mod.launch_counts().items() if v}
+
+
+def check_no_kernel(phase: str) -> None:
+    """Fail if any of the port's kernels launched: configs #1-#3 in
+    process run no TPU kernel's counterpart (the JAX package computes their
+    convolutions, pools and dense layers outside Pallas), so their path is
+    cuDNN and cuBLAS through torch."""
+    launched = launched_kernels()
+    if launched:
+        fail(f"{phase}: the path is cuDNN and cuBLAS, yet the port's "
+             f"kernels launched: {launched}")
+
+
+def config_train(torch, gpu: str, phase: str, trainer, model, df,
+                 steps: int, batch: int, tx, dtype: str,
+                 extra: dict) -> dict:
+    """Run ``trainer.train(df)`` as a user would, with every kernel count
+    set to 0 just before, and emit the phase's row: samples/s (host clock
+    around ``train``), the host milliseconds a local step, the split of one
+    step by CUDA events outside the trainer, peak memory, the history.
+    Fails unless the losses are finite, the parameters moved and no kernel
+    of the port launched. Returns the row."""
+    from distkeras_tpu_torch import telemetry
+
+    telemetry.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()  # counts start at 0 just before the path runs
+    t0 = time.perf_counter()
+    trained = trainer.train(df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = launched_kernels()
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.get_history()
+    moved = max((trained.params[k] - v).abs().max().item()
+                for k, v in model.params.items())
+    features = df[trainer.features_col]
+    xb = torch.as_tensor(features[:batch], device="cuda")
+    yb = torch.as_tensor(df[trainer.label_col][:batch], device="cuda")
+    split = step_split(torch, trained, xb, yb, tx, dtype=getattr(torch, dtype))
+    card = step_split(torch, trained, xb, yb, tx, dtype=getattr(torch, dtype),
+                      head_start=True)
+    snap = telemetry.get().snapshot()
+    step_ms = wall / steps * 1e3
+    row = {"phase": phase, "gpu": gpu, "trainer": type(trainer).__name__,
+           **extra, "dtype": dtype, "compute_dtype": dtype,
+           "seconds": wall, "samples_per_s": steps * batch / wall,
+           "ms_per_local_step": step_ms, "local_steps": steps,
+           "peak_memory_gb": peak / 1e9,
+           "history": [float(v) for v in hist],
+           "worker_histories": (None if trainer.get_worker_histories()
+                                is None else
+                                trainer.get_worker_histories().tolist()),
+           "center_max_abs_change": moved, "kernel_launches": launched,
+           "input_stall_s": snap["counters"].get("input_stall_seconds"),
+           "step_split_ms": split, "card_step_split_ms": card,
+           # the card's share of a local step: its own time a step over
+           # the host wall a step in the run; far below 1 means the host
+           # (or the data plane) paces the run
+           "card_share_of_step": card["step"] / step_ms,
+           "step_split": f"one local step at B={batch} by CUDA events, "
+                         f"outside the trainer (mean of 3 after a warm "
+                         f"step): step_split_ms as the host paces it, "
+                         f"card_step_split_ms the card's own time (a spin "
+                         f"kernel first gives the host a head start; "
+                         f"host_ms: the host's time for one step); no "
+                         f"kernel of the port on this path"}
+    emit(row)
+    if not np.all(np.isfinite(hist)):
+        fail(f"{phase}: non-finite training loss: {hist}")
+    if not moved > 0:
+        fail(f"{phase}: the trained center equals its initialization")
+    check_no_kernel(f"{phase} ({row['trainer']}, {dtype})")
+    return row
+
+
+def mlp_train_phase(torch, gpu: str, seed: int, dtype: str, df) -> dict:
+    """BASELINE config #1 as a user drives it: ``SingleTrainer(mnist_mlp(
+    device="cuda"), "adam", batch_size=1024, rounds_per_program="auto")``
+    on ``mnist(flat=True)``."""
+    from distkeras_tpu_torch import SingleTrainer, mnist_mlp
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+
+    model = mnist_mlp(seed=seed, device="cuda")
+    trainer = SingleTrainer(model, "adam", "sparse_categorical_crossentropy",
+                            compute_dtype=dtype, **MLP_TRAIN)
+    steps = MLP_ROUNDS * MLP_TRAIN["steps_per_program"]
+    return config_train(
+        torch, gpu, "mlp_train", trainer, model, df, steps,
+        MLP_TRAIN["batch_size"],
+        get_optimizer("adam", MLP_TRAIN["learning_rate"]), dtype,
+        {"model": "mnist_mlp()", "config": 1, "rounds": MLP_ROUNDS,
+         **MLP_TRAIN})
+
+
+def cnn_frames(seed: int) -> dict:
+    """One frame per CNN config, enough rows for its ``CNN_ROUNDS``
+    rounds (131,072 MNIST and 65,536 CIFAR-10 images), made once and
+    reused by both dtypes and the remote run."""
+    from distkeras_tpu_torch.datasets import cifar10, mnist
+
+    frames = {}
+    for name, _trainer, kw in CNN_TRAIN:
+        n = (CNN_ROUNDS * kw["num_workers"] * kw["communication_window"]
+             * kw["batch_size"])
+        frames[name] = (mnist(n=n, seed=seed) if name == "mnist_cnn"
+                        else cifar10(n=n, seed=seed))
+    return frames
+
+
+def cnn_train_phase(torch, gpu: str, seed: int, dtype: str,
+                    frames: dict) -> list:
+    """BASELINE configs #2 and #3 as a user drives them:
+    ``ADAG(mnist_cnn(), "adam", num_workers=4, batch_size=2048,
+    communication_window=8)`` and ``AEASGD(cifar10_cnn(), "sgd",
+    num_workers=2, ..., rho=3.0)``, 2 rounds each."""
+    from distkeras_tpu_torch import models, trainers
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+
+    rows = []
+    for name, trainer_name, kw in CNN_TRAIN:
+        model = getattr(models, name)(seed=seed, device="cuda")
+        trainer = getattr(trainers, trainer_name)(
+            model, loss="sparse_categorical_crossentropy",
+            compute_dtype=dtype, **kw)
+        steps = CNN_ROUNDS * kw["num_workers"] * kw["communication_window"]
+        rows.append(config_train(
+            torch, gpu, "cnn_train", trainer, model, frames[name], steps,
+            kw["batch_size"],
+            get_optimizer(kw["worker_optimizer"], kw["learning_rate"]),
+            dtype, {"model": f"{name}()",
+                    "config": 2 if name == "mnist_cnn" else 3,
+                    "rounds": CNN_ROUNDS, **kw}))
+        del model, trainer
+        torch.cuda.empty_cache()
+    return rows
+
+
+def cnn_parity_phase(torch, seed: int) -> None:
+    """Each CNN config's trainer at full width, cut to ``CNN_PARITY``, from
+    the same weights and data: on the card, on the CPU, on the CPU in
+    float64 (the reference both f32 runs are measured against), and on the
+    card and the CPU at bf16."""
+    from distkeras_tpu_torch import models, trainers
+    from distkeras_tpu_torch.data import DataFrame
+    from distkeras_tpu_torch.datasets import cifar10, mnist
+
+    for name, trainer_name, kw in CNN_TRAIN:
+        kw = dict(kw, **CNN_PARITY)
+        n = kw["num_workers"] * kw["communication_window"] * kw["batch_size"]
+        df = (mnist if name == "mnist_cnn" else cifar10)(n=n, seed=seed + 3)
+        df64 = DataFrame({"features": df["features"].astype(np.float64),
+                          "label": df["label"]})
+        out = {}
+        for run, dev, frame, dtype in (
+                ("cuda", "cuda", df, None), ("cpu", "cpu", df, None),
+                ("cpu_f64", "cpu", df64, None),
+                ("cuda_bf16", "cuda", df, "bfloat16"),
+                ("cpu_bf16", "cpu", df, "bfloat16")):
+            model = getattr(models, name)(seed=seed + 3, device=dev)
+            if run == "cpu_f64":
+                model.module.double()
+            init = {k: v.detach().cpu().double()
+                    for k, v in model.params.items()}
+            t = getattr(trainers, trainer_name)(
+                model, loss="sparse_categorical_crossentropy",
+                compute_dtype=dtype, **kw)
+            trained = t.train(frame)
+            out[run] = ({k: v.cpu().double()
+                         for k, v in trained.params.items()},
+                        t.get_history())
+
+        def dist(a, b, how):
+            return center_dist(out[a][0], out[b][0], how)
+
+        change = max((v - init[k]).abs().max().item()
+                     for k, v in out["cpu_f64"][0].items())
+        card_vs_f64 = dist("cuda", "cpu_f64", "mean")
+        cpu_vs_f64 = dist("cpu", "cpu_f64", "mean")
+        loss_rel = float(np.abs(out["cuda"][1] - out["cpu"][1]).max()
+                         / np.abs(out["cpu"][1]).max())
+        limit = RESNET_PARITY_FACTOR * cpu_vs_f64
+        emit({"phase": "cnn_parity", "model": f"{name}()",
+              "trainer": trainer_name, **kw, "rounds": 1,
+              "center_mean_abs_err_card_vs_cpu_f64": card_vs_f64,
+              "center_mean_abs_err_cpu_vs_cpu_f64": cpu_vs_f64,
+              "limit_card_vs_cpu_f64": limit,
+              "center_max_abs_err_card_vs_cpu": dist("cuda", "cpu", "max"),
+              "center_max_abs_err_card_vs_cpu_f64": dist("cuda", "cpu_f64",
+                                                         "max"),
+              "center_max_abs_err_cpu_vs_cpu_f64": dist("cpu", "cpu_f64",
+                                                        "max"),
+              "center_max_abs_change": change,
+              "history_card": [float(v) for v in out["cuda"][1]],
+              "history_cpu": [float(v) for v in out["cpu"][1]],
+              "history_rel_err": loss_rel, "loss_rtol": RESNET_LOSS_RTOL})
+        if not change > 0:
+            fail(f"the {name} parity run's center did not move")
+        if not (0 < cpu_vs_f64 and card_vs_f64 <= limit
+                and loss_rel <= RESNET_LOSS_RTOL):
+            fail(f"{name} card training strays from the f64 reference: "
+                 f"{card_vs_f64} > {RESNET_PARITY_FACTOR} x the CPU f32 "
+                 f"run's {cpu_vs_f64}, or loss {loss_rel} > "
+                 f"{RESNET_LOSS_RTOL}")
+        bf16_parity("cnn_parity", out, change, share=CNN_BF16_PARITY_SHARE)
+
+
+def workflow_phase(torch, gpu: str, seed: int) -> None:
+    """``examples/mnist_workflow.py``'s chain in the port, on the card:
+    ``mnist()`` -> ``MinMaxTransformer`` -> ``ReshapeTransformer`` ->
+    ``OneHotTransformer`` -> ``split(0.9, seed=1)`` -> ``ADAG(mnist_cnn(),
+    "adam", features_col="img")`` -> ``ClassPredictor``,
+    ``ProbabilityPredictor``, ``ModelPredictor`` -> ``AccuracyEvaluator``,
+    ``F1Evaluator``, ``LossEvaluator``. The logits are held within
+    ``SERVE_ATOL`` of the CPU plain forward on the same weights, and the
+    evaluators on the card's predictions equal them on the CPU's, but for
+    rows whose top two CPU logits lie within ``SERVE_ATOL``."""
+    from distkeras_tpu_torch import (
+        ADAG,
+        AccuracyEvaluator,
+        ClassPredictor,
+        F1Evaluator,
+        LossEvaluator,
+        MinMaxTransformer,
+        ModelPredictor,
+        OneHotTransformer,
+        ProbabilityPredictor,
+        ReshapeTransformer,
+        mnist_cnn,
+    )
+    from distkeras_tpu_torch.data import DataFrame
+    from distkeras_tpu_torch.datasets import mnist
+
+    t0 = time.perf_counter()
+    df = mnist(n=WORKFLOW["rows"], seed=seed)
+    df = MinMaxTransformer(0.0, 1.0, input_col="features",
+                           output_col="features_norm").transform(df)
+    df = ReshapeTransformer("features_norm", "img", (28, 28, 1)).transform(df)
+    df = OneHotTransformer(10, input_col="label",
+                           output_col="label_one_hot").transform(df)
+    train_df, test_df = df.split(0.9, seed=1)
+    prep_s = time.perf_counter() - t0
+    trainer = ADAG(mnist_cnn(seed=seed, device="cuda"), "adam",
+                   "sparse_categorical_crossentropy", features_col="img",
+                   label_col="label",
+                   **{k: WORKFLOW[k] for k in (
+                       "num_workers", "batch_size", "communication_window",
+                       "learning_rate")})
+    torch.cuda.synchronize()
+    reset_all_launches()  # counts start at 0 just before the path runs
+    t0 = time.perf_counter()
+    trained = trainer.train(train_df, shuffle=True)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    kw = dict(features_col="img", chunk_size=WORKFLOW["chunk_size"])
+    classes = ClassPredictor(trained, output_col="prediction", **kw)
+    t0 = time.perf_counter()
+    pred = classes.predict(test_df)
+    predict_cold_s = time.perf_counter() - t0
+    pred = ProbabilityPredictor(trained, output_col="probability",
+                                **kw).predict(pred)
+    pred = ModelPredictor(trained, output_col="logits", **kw).predict(pred)
+    rate_df = DataFrame({"img": test_df["img"][
+        np.resize(np.arange(len(test_df)), WORKFLOW_RATE_ROWS)]})
+    classes.predict(rate_df)  # warm: the chunk shape's first calls
+    rate_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        classes.predict(rate_df)
+        rate_s.append(time.perf_counter() - t0)
+    check_no_kernel("workflow")
+
+    def evaluate(frame, col):
+        return {"accuracy": AccuracyEvaluator(col, "label").evaluate(frame),
+                "f1": F1Evaluator(col, "label").evaluate(frame)}
+
+    card = evaluate(pred, "prediction")
+    card["loss"] = LossEvaluator("sparse_categorical_crossentropy", "logits",
+                                 "label").evaluate(pred)
+    cpu_model = mnist_cnn(device="cpu")
+    cpu_model.module.load_state_dict(
+        {k: v.cpu() for k, v in trained.module.state_dict().items()})
+    cpu = ModelPredictor(cpu_model, output_col="logits",
+                         **kw).predict(test_df)
+    logits_err = float(np.abs(pred["logits"] - cpu["logits"]).max())
+    top2 = np.sort(cpu["logits"], axis=-1)[:, -2:]
+    clear = np.nonzero(top2[:, 1] - top2[:, 0] > SERVE_ATOL)[0]
+    on_card = evaluate(pred.take_rows(clear), "prediction")
+    on_cpu = evaluate(cpu.take_rows(clear), "logits")
+    cpu_loss = LossEvaluator("sparse_categorical_crossentropy", "logits",
+                             "label").evaluate(cpu)
+    probs = pred["probability"]
+    n_test = len(test_df)
+    emit({"phase": "workflow", "gpu": gpu, "trainer": "ADAG",
+          "model": "mnist_cnn()", **WORKFLOW, "train_rows": len(train_df),
+          "test_rows": n_test, "prep_s": prep_s, "train_s": train_s,
+          "train_samples_per_s": (trainer.get_history().size
+                                  * WORKFLOW["num_workers"]
+                                  * WORKFLOW["communication_window"]
+                                  * WORKFLOW["batch_size"] / train_s),
+          "predict_cold_s": predict_cold_s, "predict_rate_rows":
+          WORKFLOW_RATE_ROWS, "predict_rate_s": rate_s,
+          "rows_predicted_per_s": WORKFLOW_RATE_ROWS / float(np.median(rate_s)),
+          "history": [float(v) for v in trainer.get_history()], **card,
+          "cpu_loss": cpu_loss, "logits_max_abs_err_card_vs_cpu": logits_err,
+          "atol": SERVE_ATOL, "rows_compared": int(clear.size),
+          "evaluators_card_on_clear_rows": on_card,
+          "evaluators_cpu_on_clear_rows": on_cpu,
+          "probability_row_sum_max_err": float(np.abs(probs.sum(-1) - 1).max()),
+          "timing": "host clock; ClassPredictor.predict (staging, forward, "
+                    "copy back): predict_cold_s the first call, on the test "
+                    "rows; rows_predicted_per_s over predict_rate_rows, the "
+                    "median of predict_rate_s, after a warm call"})
+    if not np.all(np.isfinite(trainer.get_history())):
+        fail(f"workflow: non-finite training loss {trainer.get_history()}")
+    if logits_err > SERVE_ATOL:
+        fail(f"workflow: the card's logits are {logits_err} from the CPU "
+             f"plain forward on the same weights (> {SERVE_ATOL})")
+    if on_card != on_cpu:
+        fail(f"workflow: the evaluators on the card's predictions {on_card} "
+             f"differ from the CPU's {on_cpu} on the {clear.size} rows whose "
+             f"top two logits are apart")
+    if abs(card["loss"] - cpu_loss) > SERVE_ATOL:
+        fail(f"workflow: test loss {card['loss']} on the card, {cpu_loss} "
+             f"on the CPU")
+    if not card["accuracy"] > WORKFLOW_MIN_ACCURACY:
+        fail(f"workflow: test accuracy {card['accuracy']} <= "
+             f"{WORKFLOW_MIN_ACCURACY}")
+    if not (pred["prediction"].dtype == np.int32
+            and probs.shape == (n_test, 10)
+            and np.abs(probs.sum(-1) - 1).max() < 1e-5):
+        fail("workflow: the class or probability predictions are malformed")
+
+
+def remote_cnn_phase(torch, gpu: str, seed: int, df) -> dict:
+    """``ADAG(mnist_cnn(), "adam", remote=srv.endpoint).train(df)`` against
+    a ``PSServer(discipline="adag", device="cuda")``, int8 commits, on
+    ``cnn_train``'s MNIST frame at its workers, batch and window (2
+    rounds); returns the fold launch counts of the run."""
+    from distkeras_tpu_torch import ADAG, mnist_cnn, telemetry
+    from distkeras_tpu_torch.netps import PSClient, PSServer
+    from distkeras_tpu_torch.ops.kernels import fold as F
+
+    _name, _trainer, kw = CNN_TRAIN[0]
+    W, Kw, B = (kw["num_workers"], kw["communication_window"],
+                kw["batch_size"])
+    model = mnist_cnn(seed=seed, device="cuda")
+    srv = PSServer(discipline="adag", device="cuda").start()
+    handler_ms = time_handlers(srv)
+    try:
+        with env_set(DKTPU_NET_COMPRESS="int8"):
+            trainer = ADAG(model, loss="sparse_categorical_crossentropy",
+                           remote=srv.endpoint, **kw)
+            telemetry.reset()
+            torch.cuda.synchronize()
+            reset_all_launches()  # counts start at 0 just before the path
+            t0 = time.perf_counter()
+            trained = trainer.train(df)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched, fold = launched_kernels(), F.launch_counts()
+        with PSClient(srv.endpoint) as observer:
+            stats = observer.stats()
+        center = srv.center()
+        log = list(srv.commit_log)
+        evictions = srv.evictions
+    finally:
+        srv.close()
+    rounds = CNN_ROUNDS
+    steps = rounds * W * Kw
+    moved = max(float(np.abs(c - p.cpu().numpy()).max())
+                for c, p in zip(center, model.params.values()))
+    same = all(np.array_equal(p.cpu().numpy(), c)
+               for p, c in zip(trained.params.values(), center))
+    hist = trainer.get_worker_histories()
+    emit({"phase": "remote_cnn", "gpu": gpu, "trainer": "ADAG",
+          "model": "mnist_cnn()",
+          "server": "PSServer(discipline='adag', device='cuda')",
+          "codec": "int8", "rounds": rounds, **kw, "dtype": "float32",
+          "seconds": wall, "samples_per_s": steps * B / wall,
+          "history": [float(v) for v in trainer.get_history()],
+          "worker_histories": hist.tolist(), "commits": len(log),
+          "evictions": evictions, "fold_backend": stats.get("fold_backend"),
+          "launches": launched, "local_steps": steps,
+          "tensors_per_commit": len(center),
+          "params_per_commit": int(sum(c.size for c in center)),
+          "center_max_abs_change": moved,
+          "model_equals_server_center": same, **handler_stats(handler_ms),
+          "server_commit_ms": handler_ms["commit"],
+          "timing": "host clock; the handlers' times one by one"})
+    if stats.get("fold_backend") != "cuda":
+        fail(f"remote_cnn: the server folded with "
+             f"{stats.get('fold_backend')!r}, not the CUDA kernel")
+    if not np.all(np.isfinite(hist)):
+        fail(f"remote_cnn: non-finite training loss: {hist}")
+    if not moved > 0:
+        fail("remote_cnn: the center did not move")
+    if not same:
+        fail("remote_cnn: the trained model is not the server's center")
+    if len(log) != W * rounds:
+        fail(f"remote_cnn: {len(log)} commits folded of {W * rounds} "
+             f"({evictions} evictions)")
+    if (fold != {"fold_commit": len(log), "fold_int8": 0, "fold_bf16": 0}
+            or set(launched) != {"fold.fold_commit"}):
+        fail(f"remote_cnn: launches {launched} for {len(log)} commits of "
+             f"{len(center)} int8 tensors: one fold_commit a commit, no "
+             f"other kernel")
+    return fold
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2779,6 +3312,29 @@ def main() -> None:
     bf16_flash_launches = transformer_train_phase(torch, FA, gpu, args.seed,
                                                   "bfloat16")
     transformer_parity_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+
+    lap("mlp_train")
+    from distkeras_tpu_torch.datasets import mnist
+
+    mlp_df = mnist(n=MLP_ROUNDS * MLP_TRAIN["steps_per_program"]
+                   * MLP_TRAIN["batch_size"], flat=True, seed=args.seed)
+    for dtype in DTYPES:
+        mlp_train_phase(torch, gpu, args.seed, dtype, mlp_df)
+    del mlp_df
+    lap("cnn_train")
+    frames = cnn_frames(args.seed)
+    for dtype in DTYPES:
+        cnn_train_phase(torch, gpu, args.seed, dtype, frames)
+    lap("cnn_parity")
+    cnn_parity_phase(torch, args.seed)
+    lap("workflow")
+    workflow_phase(torch, gpu, args.seed)
+    lap("remote_cnn")
+    adag_fold_launches = remote_cnn_phase(torch, gpu, args.seed,
+                                          frames["mnist_cnn"])
+    del frames
+    torch.cuda.empty_cache()
 
     def entry(name, source, replaces, rows, launches, bf16_launches):
         """The largest batch's f32 row, the largest error over every f32
@@ -2848,12 +3404,14 @@ def main() -> None:
 
     def fold_entry():
         """One IMDB commit (config #4, what ``remote_train`` folds) in
-        int8, the bf16 commit beside, ResNet-50's commits and the largest
-        tensor folded alone (the same kernel, one row) after them."""
+        int8, the bf16 commit beside, ResNet-50's and config #2's CNN's
+        commits (with ``remote_cnn``'s launches) and the largest tensor
+        folded alone (the same kernel, one row) after them."""
         commit = {(r["model"], r["codec"]): r for r in fold_rows
                   if r["phase"] == "fold_commit"}
         i8, b16 = commit["imdb_lstm", "int8"], commit["imdb_lstm", "bf16"]
         rn8, rn16 = commit["resnet50", "int8"], commit["resnet50", "bf16"]
+        cn8, cn16 = commit["mnist_cnn", "int8"], commit["mnist_cnn", "bf16"]
         tensor = max((r for r in fold_rows if r["phase"] == "fold_kernel"
                       and r["codec"] == "int8"),
                      key=lambda r: (r["n"], -r["commit_scale"]))
@@ -2879,6 +3437,17 @@ def main() -> None:
                 "resnet50_bf16_ms": rn16["ms"],
                 "resnet50_bf16_bound_ms": rn16["bound_ms"],
                 "resnet50_bf16_library_ms": rn16["library_ms"],
+                "mnist_cnn_shape": f"one mnist_cnn commit, {cn8['tensors']} "
+                                   f"tensors, {cn8['params']} parameters",
+                "mnist_cnn_ms": cn8["ms"],
+                "mnist_cnn_plain_ms": cn8["plain_ms"],
+                "mnist_cnn_bound_ms": cn8["bound_ms"],
+                "mnist_cnn_library_ms": cn8["library_ms"],
+                "mnist_cnn_bf16_ms": cn16["ms"],
+                "mnist_cnn_bf16_plain_ms": cn16["plain_ms"],
+                "mnist_cnn_bf16_bound_ms": cn16["bound_ms"],
+                "mnist_cnn_bf16_library_ms": cn16["library_ms"],
+                "adag_mnist_cnn_launches": adag_fold_launches["fold_commit"],
                 "tensor_ms": tensor["ms"], "tensor_bound_ms": tensor["bound_ms"],
                 "tensor_library_ms": tensor["library_ms"],
                 "tensor_shape": f"{tensor['tensor']} n={tensor['n']} int8"}

@@ -10,6 +10,16 @@ raise where there is no card.
 
 Ported so far:
 
+* the reference's own flagships, BASELINE configs #1-#3, through its whole
+  workflow: ``mnist()`` -> the feature transformers (``MinMaxTransformer``,
+  ``ReshapeTransformer``, ``OneHotTransformer``, ...) ->
+  ``SingleTrainer(mnist_mlp(...))``, ``ADAG(mnist_cnn(...))`` or
+  ``AEASGD(cifar10_cnn(...))`` (in process, or ADAG against the networked
+  parameter server, whose folds are the CUDA ``fold_commit`` kernel) ->
+  ``ClassPredictor``/``ProbabilityPredictor``/``ModelPredictor`` ->
+  ``AccuracyEvaluator``, ``F1Evaluator``, ``LossEvaluator``; the
+  convolutions and dense layers are cuDNN's and cuBLAS's, as the JAX
+  package leaves them to XLA;
 * the IMDB LSTM classifier, trained with
   ``DynSGD(imdb_lstm(device="cuda"), ...).train(imdb(...))`` and the other
   discipline trainers (DOWNPOUR, ADAG, AEASGD, EAMSGD), with the
@@ -26,16 +36,39 @@ Ported so far:
   attention's forward, dQ and dK/dV in CUDA kernels.
 """
 
-from distkeras_tpu_torch.data import DataFrame
+from distkeras_tpu_torch.data import (
+    DataFrame,
+    DenseTransformer,
+    LabelIndexTransformer,
+    MinMaxTransformer,
+    OneHotTransformer,
+    ReshapeTransformer,
+    Transformer,
+)
+from distkeras_tpu_torch.evaluators import (
+    AccuracyEvaluator,
+    F1Evaluator,
+    LossEvaluator,
+)
 from distkeras_tpu_torch.models import (
+    MLP,
     LSTMClassifier,
     Model,
     ResNet,
+    SimpleCNN,
     TransformerLM,
+    cifar10_cnn,
     imdb_lstm,
+    mnist_cnn,
+    mnist_mlp,
     resnet50,
     small_transformer_lm,
     tiny_resnet,
+)
+from distkeras_tpu_torch.predictors import (
+    ClassPredictor,
+    ModelPredictor,
+    ProbabilityPredictor,
 )
 from distkeras_tpu_torch.trainers import (
     ADAG,
@@ -51,9 +84,13 @@ from distkeras_tpu_torch.trainers import (
 )
 
 __all__ = [
-    "ADAG", "AEASGD", "AsynchronousDistributedTrainer", "DOWNPOUR",
-    "DataFrame", "DistributedTrainer", "DynSGD", "EAMSGD", "LSTMClassifier",
-    "Model", "ResNet", "SingleTrainer", "SynchronousDistributedTrainer",
-    "Trainer", "TransformerLM", "imdb_lstm", "resnet50",
-    "small_transformer_lm", "tiny_resnet",
+    "ADAG", "AEASGD", "AccuracyEvaluator", "AsynchronousDistributedTrainer",
+    "ClassPredictor", "DOWNPOUR", "DataFrame", "DenseTransformer",
+    "DistributedTrainer", "DynSGD", "EAMSGD", "F1Evaluator",
+    "LSTMClassifier", "LabelIndexTransformer", "LossEvaluator", "MLP",
+    "MinMaxTransformer", "Model", "ModelPredictor", "OneHotTransformer",
+    "ProbabilityPredictor", "ReshapeTransformer", "ResNet", "SimpleCNN",
+    "SingleTrainer", "SynchronousDistributedTrainer", "Trainer",
+    "Transformer", "TransformerLM", "cifar10_cnn", "imdb_lstm", "mnist_cnn",
+    "mnist_mlp", "resnet50", "small_transformer_lm", "tiny_resnet",
 ]

@@ -15,6 +15,10 @@ the port module's ``state_dict``:
   ``Conv_k.weight`` ``[out, in, kh, kw]`` (OIHW), ``GN_k/scale`` and
   ``GN_k/bias`` go across as they are, and the ``stage{i}_block{j}``
   subtrees keep their names;
+* an ``MLP``'s or ``SimpleCNN``'s ``Dense_k`` as above, and a
+  ``SimpleCNN``'s ``Conv_k/kernel`` HWIO as a ResNet's, with its
+  ``Conv_k/bias``; the CNN flattens in flax's H, W, C order, so
+  ``Dense_0``'s rows come across unpermuted;
 * a TransformerLM's attention projections are ``DenseGeneral``: the
   ``query``/``key``/``value`` kernels ``[D, H, Dh]`` become
   ``Linear.weight`` ``kernel.reshape(D, H*Dh).T`` with biases ``[H, Dh]``
@@ -29,7 +33,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from distkeras_tpu_torch.models.cnn import SimpleCNN
 from distkeras_tpu_torch.models.lstm import LSTMClassifier
+from distkeras_tpu_torch.models.mlp import MLP
 from distkeras_tpu_torch.models.resnet import ResNet
 from distkeras_tpu_torch.models.transformer import TransformerLM
 from distkeras_tpu_torch.ops.kernels.lstm import pack_lstm_params
@@ -79,6 +85,21 @@ def _resnet(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def _conv_dense(tree: dict) -> dict:
+    """An ``MLP``'s or ``SimpleCNN``'s tree: ``Conv_k`` (HWIO kernel and
+    bias) and ``Dense_k`` modules."""
+    out = {}
+    for name, sub in tree.items():
+        if name.startswith("Conv_"):
+            out[f"{name}.weight"] = _t(sub["kernel"]).permute(3, 2, 0, 1)
+            out[f"{name}.bias"] = _t(sub["bias"])
+        elif name.startswith("Dense_"):
+            out.update(_dense(f"{name}.", sub))
+        else:
+            raise KeyError(f"unknown MLP/SimpleCNN module {name}")
+    return out
+
+
 def _dense_general(prefix: str, dense: dict) -> dict:
     """A ``DenseGeneral`` over the heads: ``[D, H, Dh]`` (bias ``[H, Dh]``)
     into the heads, or ``[H, Dh, D]`` (bias ``[D]``) out of them."""
@@ -113,7 +134,8 @@ def _transformer_lm(tree: dict) -> dict:
 
 
 _CONVERTERS = {LSTMClassifier: _lstm_classifier, ResNet: _resnet,
-               TransformerLM: _transformer_lm}
+               TransformerLM: _transformer_lm, MLP: _conv_dense,
+               SimpleCNN: _conv_dense}
 
 
 def params_from_jax(tree: dict, module: nn.Module) -> dict:

@@ -1,5 +1,5 @@
 """Dataset loaders of the port (copied from ``distkeras_tpu/datasets.py``;
-numpy only): IMDB and CIFAR-10; MNIST comes with the CNN slice.
+numpy only): MNIST, CIFAR-10 and IMDB.
 
 A loader returns a :class:`~distkeras_tpu_torch.data.dataframe.DataFrame`
 with ``features``/``label`` columns, from a local file the user already has
@@ -10,7 +10,9 @@ Nothing is downloaded.
 
 from __future__ import annotations
 
+import gzip
 import os
+import struct
 
 import numpy as np
 
@@ -31,9 +33,46 @@ def _synthetic_images(n, shape, num_classes, seed):
     return flat.reshape((n,) + shape).clip(0.0, 1.0), y
 
 
+def _load_idx_images(path):
+    """An IDX file (optionally gzipped): images as float32 in [0, 1]
+    ``[n, rows, cols]``, or labels as int32 ``[n]``."""
+    with gzip.open(path, "rb") if path.endswith(".gz") else open(path, "rb") as f:
+        magic, n = struct.unpack(">II", f.read(8))
+        if magic == 2051:  # images
+            rows, cols = struct.unpack(">II", f.read(8))
+            data = np.frombuffer(f.read(), np.uint8).reshape(n, rows, cols)
+            return data.astype(np.float32) / 255.0
+        if magic == 2049:  # labels
+            return np.frombuffer(f.read(), np.uint8).astype(np.int32)
+        raise ValueError(f"unknown IDX magic {magic} in {path}")
+
+
 def _mark(df: DataFrame, synthetic: bool) -> DataFrame:
     df.synthetic = synthetic
     return df
+
+
+def mnist(n: int = 60000, data_dir: str | None = None, flat: bool = False,
+          seed: int = 0) -> DataFrame:
+    """MNIST digits: ``features`` [n, 28, 28, 1] in [0,1] (or [n, 784] if
+    ``flat``), ``label`` int32 in [0, 10). ``data_dir`` holding the IDX
+    files (``train-images-idx3-ubyte.gz``, ``train-labels-idx1-ubyte.gz``)
+    reads the real digits; otherwise a synthetic stand-in, the same frame
+    as the JAX package's ``mnist`` for the same ``n``, ``seed`` and
+    ``flat``."""
+    if data_dir:
+        xi = os.path.join(data_dir, "train-images-idx3-ubyte.gz")
+        yi = os.path.join(data_dir, "train-labels-idx1-ubyte.gz")
+        if os.path.exists(xi) and os.path.exists(yi):
+            x = _load_idx_images(xi)[:n, :, :, None]
+            y = _load_idx_images(yi)[:n]
+            if flat:
+                x = x.reshape(len(x), -1)
+            return _mark(DataFrame({"features": x, "label": y}), False)
+    x, y = _synthetic_images(n, (28, 28, 1), 10, seed)
+    if flat:
+        x = x.reshape(len(x), -1)
+    return _mark(DataFrame({"features": x, "label": y}), True)
 
 
 def cifar10(n: int = 50000, data_dir: str | None = None,

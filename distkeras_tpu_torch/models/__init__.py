@@ -1,6 +1,6 @@
-"""Model zoo of the port: the :class:`Model` wrapper, the IMDB LSTM
-classifier, the GroupNorm ResNet and the transformer LM. The other models
-come with their slices."""
+"""Model zoo of the port: the :class:`Model` wrapper, the MNIST MLP, the
+MNIST and CIFAR-10 CNNs, the IMDB LSTM classifier, the GroupNorm ResNet and
+the transformer LM."""
 
 from distkeras_tpu_torch.models.base import (
     MODEL_CLASSES,
@@ -9,7 +9,9 @@ from distkeras_tpu_torch.models.base import (
     normalize_features,
     register_model,
 )
+from distkeras_tpu_torch.models.cnn import SimpleCNN, cifar10_cnn, mnist_cnn
 from distkeras_tpu_torch.models.lstm import LSTMClassifier, imdb_lstm
+from distkeras_tpu_torch.models.mlp import MLP, mnist_mlp
 from distkeras_tpu_torch.models.resnet import ResNet, resnet50, tiny_resnet
 from distkeras_tpu_torch.models.transformer import (
     TransformerLM,
@@ -18,6 +20,7 @@ from distkeras_tpu_torch.models.transformer import (
 
 __all__ = [
     "MODEL_CLASSES", "Model", "TensorSpec", "normalize_features",
-    "register_model", "LSTMClassifier", "imdb_lstm", "ResNet", "resnet50",
+    "register_model", "MLP", "mnist_mlp", "SimpleCNN", "mnist_cnn",
+    "cifar10_cnn", "LSTMClassifier", "imdb_lstm", "ResNet", "resnet50",
     "tiny_resnet", "TransformerLM", "small_transformer_lm",
 ]

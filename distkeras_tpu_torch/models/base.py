@@ -53,6 +53,17 @@ def lecun_normal(shape: tuple, fan_in: int,
     return z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout`` in train mode: keep each unit with probability
+    ``1 - rate`` and scale the kept ones by ``1/(1 - rate)``, the mask drawn
+    from ``rng`` (a generator on ``x``'s device; None: torch's default).
+    The bits cannot match flax's RNG."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def checkpointed(module: nn.Module, *args):
     """``module(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
     its activations are recomputed in the backward instead of saved. The

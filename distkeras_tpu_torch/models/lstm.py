@@ -21,6 +21,7 @@ from torch import nn
 
 from distkeras_tpu_torch.models.base import (
     Model,
+    dropout,
     lecun_normal,
     register_model,
 )
@@ -69,9 +70,7 @@ class LSTMClassifier(nn.Module):
             self.lstm_wx, self.lstm_wh, self.lstm_b)), x)
         h = hs[:, -1, :]                                  # last hidden state
         if self.training and self.dropout_rate > 0.0:
-            keep = 1.0 - self.dropout_rate
-            mask = torch.rand(h.shape, generator=rng, device=h.device) < keep
-            h = torch.where(mask, h / keep, torch.zeros_like(h))
+            h = dropout(h, self.dropout_rate, rng)
         return self.head(h)
 
 

@@ -64,25 +64,28 @@ def same_pad(x: torch.Tensor, k: int, s: int,
 
 
 class Conv(nn.Conv2d):
-    """A bias-free ``k x k`` convolution at stride ``s`` with flax's
-    ``"SAME"`` padding (none for a 1x1 window). A symmetric pad goes to
-    cuDNN as the convolution's own padding; an asymmetric one is applied by
-    :func:`same_pad` first."""
+    """A ``k x k`` convolution at stride ``s`` with flax's ``"SAME"``
+    padding (none for a 1x1 window), bias-free unless ``bias`` (a zero-init
+    bias, flax's ``nn.Conv`` default). A symmetric pad goes to cuDNN as the
+    convolution's own padding; an asymmetric one (an even window) is
+    applied by :func:`same_pad` first."""
 
     def __init__(self, in_features: int, features: int, k: int, s: int,
-                 generator: torch.Generator):
-        super().__init__(in_features, features, k, stride=s, bias=False)
+                 generator: torch.Generator, bias: bool = False):
+        super().__init__(in_features, features, k, stride=s, bias=bias)
         with torch.no_grad():
             self.weight.copy_(lecun_normal(
                 (features, in_features, k, k), k * k * in_features,
                 generator))
+            if bias:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size[0], self.stride[0]
         (hl, hh), (wl, wh) = (same_pads(n, k, s) for n in x.shape[2:])
         if hl == hh and wl == wh:
-            return F.conv2d(x, self.weight, None, s, (hl, wl))
-        return F.conv2d(same_pad(x, k, s), self.weight, None, s)
+            return F.conv2d(x, self.weight, self.bias, s, (hl, wl))
+        return F.conv2d(same_pad(x, k, s), self.weight, self.bias, s)
 
 
 def _xla_group_norm(x3: torch.Tensor, gamma: torch.Tensor,

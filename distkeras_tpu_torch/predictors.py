@@ -1,0 +1,253 @@
+"""Inference over DataFrames — the port's counterpart of
+``distkeras_tpu/predictors.py`` (parity with ``distkeras/predictors.py``).
+
+The reference maps a deserialized model's ``predict`` over Spark partitions
+and appends a prediction column (``ModelPredictor.predict(df)``). Here the
+forward runs on the model's one device under ``torch.inference_mode()``,
+in fixed ``chunk_size`` chunks: the last chunk is padded with repeats of
+its final row and the padding trimmed, so every chunk has one shape, as in
+the JAX package (where each shape is a compiled program). The multi-device
+mesh, the out-of-core sharded-store paths (``_predict_sharded*``,
+``vacuum`` and the manifests) come with the ``data/shards.py`` slice and
+are refused until then.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from distkeras_tpu_torch import telemetry
+from distkeras_tpu_torch.data.dataframe import DataFrame
+from distkeras_tpu_torch.evaluators import refuse_sharded
+from distkeras_tpu_torch.models.base import Model, normalize_features
+
+
+class Predictor:
+    """Base: ``predict(df) -> df`` with a new output column."""
+
+    def predict(self, dataframe: DataFrame) -> DataFrame:
+        raise NotImplementedError
+
+
+def vacuum(path: str) -> int:
+    """Reclaim superseded prediction columns of a sharded store: not ported
+    yet (the ``data/shards.py`` slice)."""
+    raise NotImplementedError(
+        "vacuum (sharded prediction stores) is not ported to "
+        "distkeras_tpu_torch yet; it comes with the data/shards.py slice")
+
+
+class ModelPredictor(Predictor):
+    """Append ``output_col`` with the model's raw outputs (logits).
+
+    Parity: reference ``ModelPredictor(keras_model, features_col, output_col)``.
+    ``chunk_size`` is the rows of one forward; rows are padded up then
+    trimmed. The chunk runs whole on the model's one device, so
+    ``num_workers`` (the JAX package's mesh width) and ``devices`` (its
+    multi-process forward) are refused but for one worker.
+    """
+
+    def __init__(
+        self,
+        model: Model,
+        features_col: str = "features",
+        output_col: str = "prediction",
+        chunk_size: int = 1024,
+        num_workers: Optional[int] = None,
+        devices=None,
+        normalize_uint8: Optional[bool] = None,
+    ):
+        if devices is not None:
+            raise NotImplementedError(
+                "devices= (a forward across several devices) is not ported "
+                "to distkeras_tpu_torch yet; the port predicts on the "
+                "model's one device")
+        if num_workers not in (None, 1):
+            raise NotImplementedError(
+                "num_workers= (a forward split over a device mesh) is not "
+                "ported to distkeras_tpu_torch yet; the port predicts on the "
+                "model's one device")
+        self.model = model
+        self.features_col = features_col
+        self.output_col = output_col
+        #: uint8 /255 rule: default from the model (training and inference
+        #: must agree on a store's normalization); the kwarg overrides.
+        self.normalize_uint8 = (getattr(model, "normalize_uint8", True)
+                                if normalize_uint8 is None
+                                else bool(normalize_uint8))
+        self.chunk_size = max(int(chunk_size), 1)
+        self._empty_block_cache: Optional[np.ndarray] = None
+
+    def _forward(self, x: np.ndarray) -> np.ndarray:
+        """The model's outputs for one chunk, in eval mode (no dropout), as
+        host numpy."""
+        module = self.model.module
+        was_training = module.training
+        module.eval()
+        try:
+            with torch.inference_mode():
+                xb = normalize_features(
+                    torch.as_tensor(x, device=self.model.device),
+                    self.normalize_uint8)
+                return module(xb).cpu().numpy()
+        finally:
+            module.train(was_training)
+
+    def _empty_block(self, feature_hint: Optional[np.ndarray] = None) -> np.ndarray:
+        """Zero-row block with this predictor's exact output tail shape and
+        dtype, so empty stream polls concatenate cleanly with real
+        prediction blocks. Derived from one forward of a zero row shaped by
+        the model's build-time ``sample_spec`` (or, without one, by a seen
+        feature microbatch), then the subclass ``_postprocess``."""
+        if self._empty_block_cache is None:
+            spec = (self.model.sample_spec or (None,))[0]
+            if spec is not None:
+                tail, dtype = tuple(spec.shape[1:]), spec.dtype
+            elif feature_hint is not None:
+                hint = np.asarray(feature_hint)
+                tail, dtype = hint.shape[1:], hint.dtype
+            else:
+                return np.empty((0,), np.float32)  # nothing to infer from yet
+            out = self._forward(np.zeros((1,) + tuple(tail), dtype))
+            self._empty_block_cache = self._postprocess(out[:0])
+        return self._empty_block_cache
+
+    def _postprocess(self, out: np.ndarray) -> np.ndarray:
+        """Row-wise output transform hook (identity here; softmax/argmax in
+        subclasses). Row-wise so batch and streaming paths agree exactly."""
+        return out
+
+    def _predict_array(self, x: np.ndarray) -> np.ndarray:
+        """Model outputs for an arbitrary-length feature array, in
+        fixed-shape padded chunks."""
+        tele = telemetry.get()
+        n = len(x)
+        outs = []
+        for start in range(0, n, self.chunk_size):
+            chunk = x[start : start + self.chunk_size]
+            pad = self.chunk_size - len(chunk)
+            if pad:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+            # Per-chunk batch latency: staging, the forward and the copy
+            # back (which waits for the card), so the span is the whole cost.
+            with tele.span("predict.chunk"):
+                out = self._forward(np.asarray(chunk))
+            outs.append(out[: len(out) - pad] if pad else out)
+        tele.counter("predict.rows").add(float(n))
+        if n:
+            tele.counter("predict.padded_rows").add(
+                float(-n % self.chunk_size))
+        return self._postprocess(np.concatenate(outs, axis=0))
+
+    def predict(self, dataframe) -> "DataFrame":
+        refuse_sharded(dataframe, f"{type(self).__name__}.predict")
+        x = np.asarray(dataframe[self.features_col])
+        return dataframe.with_column(self.output_col, self._predict_array(x))
+
+    def predict_stream(self, source):
+        """Yield ``predictions`` (one array per source microbatch, in order).
+
+        ``source`` yields feature arrays shaped ``[n, ...]`` (n may vary per
+        item; wrap single records as length-1 batches). Rows accumulate into
+        ``chunk_size`` compute chunks across microbatch boundaries; only the
+        final partial chunk is padded. This is the streaming-inference
+        surface (:class:`StreamingPredictor`)."""
+        sizes: deque[int] = deque()  # rows per emitted-pending microbatch
+        pending: list[np.ndarray] = []  # rows awaiting a forward pass
+        ready: list[np.ndarray] = []  # predicted rows, FIFO
+        feat_hint: list = [None]  # last seen microbatch WITH feature dims
+
+        def compute(flush: bool) -> None:
+            x = np.concatenate(pending, axis=0) if pending else None
+            if x is None or not len(x):
+                return
+            take = (len(x) // self.chunk_size) * self.chunk_size
+            if flush:
+                take = len(x)  # pad out the final partial chunk
+            if take == 0:
+                return
+            ready.append(self._predict_array(x[:take]))
+            pending.clear()
+            if take < len(x):
+                pending.append(x[take:])
+
+        def drain():
+            while sizes:
+                need = sizes[0]
+                if need == 0:
+                    # Empty microbatch (e.g. an empty poll on a stream):
+                    # emit an empty row block with the output tail shape.
+                    sizes.popleft()
+                    yield (ready[0][:0] if ready
+                           else self._empty_block(feat_hint[0]))
+                    continue
+                if sum(len(r) for r in ready) < need:
+                    return
+                parts = []
+                while need:
+                    r = ready[0]
+                    if len(r) <= need:
+                        parts.append(ready.pop(0))
+                        need -= len(parts[-1])
+                    else:
+                        parts.append(r[:need])
+                        ready[0] = r[need:]
+                        need = 0
+                sizes.popleft()
+                yield np.concatenate(parts, axis=0)
+
+        for microbatch in source:
+            mb = np.asarray(microbatch)
+            sizes.append(len(mb))
+            if mb.ndim > 1:
+                # Even a zero-row block carries the feature tail: keep it as
+                # the spec hint for empty output blocks on spec-less models.
+                feat_hint[0] = mb
+            if len(mb):  # an empty poll from a raw stream has no rows
+                pending.append(mb)
+            if sum(len(r) for r in pending) >= self.chunk_size:
+                compute(flush=False)
+            yield from drain()
+        compute(flush=True)
+        yield from drain()
+
+
+class ProbabilityPredictor(ModelPredictor):
+    """Like ModelPredictor but appends softmax probabilities."""
+
+    def _postprocess(self, out: np.ndarray) -> np.ndarray:
+        return torch.softmax(torch.from_numpy(out), dim=-1).numpy()
+
+
+class ClassPredictor(ModelPredictor):
+    """Appends the argmax class index (the notebooks' common final step)."""
+
+    def _postprocess(self, out: np.ndarray) -> np.ndarray:
+        return out.argmax(axis=-1).astype(np.int32)
+
+
+class StreamingPredictor(ModelPredictor):
+    """Continuous inference over an unbounded record stream.
+
+    Parity: the reference ships a Kafka streaming-inference example (a
+    producer pushes feature records onto a topic, a consumer maps
+    ``model.predict`` over microbatches and re-emits them with
+    predictions). This takes any iterator of feature microbatches — a
+    generator over a socket, a queue drained by a consumer thread, a file
+    tail — and yields one prediction array per input microbatch, in order
+    (``predict_stream``, on :class:`ModelPredictor`).
+
+    Records accumulate into ``chunk_size`` rows before a forward pass runs;
+    the final partial chunk is padded and flushed when the source ends.
+    ``postprocess`` follows the subclass hook, so
+    ``StreamingClassPredictor`` below emits class ids exactly like
+    :class:`ClassPredictor` does for dataframes.
+    """
+
+
+class StreamingClassPredictor(StreamingPredictor, ClassPredictor):
+    """Streaming inference emitting argmax class ids."""

@@ -1081,3 +1081,85 @@ def test_transformer_step_on_card_launches_the_flash_kernels(card, remat):
     assert FA.launch_counts() == {"flash_fwd": 4 if remat else 2,
                                   "flash_dq": 2, "flash_dkv": 2}
     assert all(torch.isfinite(p).all() for p in out.params.values())
+
+
+@pytest.mark.parametrize("name,shape", [("mnist_mlp", (784,)),
+                                        ("mnist_cnn", (28, 28, 1)),
+                                        ("cifar10_cnn", (32, 32, 3))])
+def test_config_models_on_card_match_the_cpu(card, name, shape):
+    """BASELINE configs #1-#3's models at their real widths, the same
+    weights on the card and on the CPU: logits within 1e-4 (the serving
+    rule: f32 convolutions and products summed in another order, TF32
+    off) and the loss gradient of every parameter within 1e-4 of its
+    largest magnitude; no kernel of the port launches (cuDNN and cuBLAS
+    only)."""
+    from torch.func import functional_call
+
+    from distkeras_tpu_torch import models
+    from distkeras_tpu_torch.ops.losses import get_loss
+
+    cpu = getattr(models, name)(seed=1, device="cpu")
+    gpu = getattr(models, name)(seed=1, device="cuda")
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(64,) + shape).astype(np.float32)
+    y = torch.from_numpy(rng.integers(0, 10, 64).astype(np.int64))
+    mods = (K, G, FA, F)
+    for m in mods:
+        m.reset_launches()
+    got = gpu.predict(x).cpu()
+    torch.testing.assert_close(got, cpu.predict(x), rtol=0, atol=1e-4)
+    loss = get_loss("sparse_categorical_crossentropy")
+    grads = {}
+    for model in (cpu, gpu):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in model.params.items()}
+        out = functional_call(model.module, leaves,
+                              (torch.as_tensor(x, device=model.device),))
+        g = torch.autograd.grad(loss(out, y.to(model.device)),
+                                list(leaves.values()))
+        grads[model.device.type] = {k: t.cpu() for k, t in zip(leaves, g)}
+    torch.cuda.synchronize()
+    for k, ref in grads["cpu"].items():
+        err = (grads["cuda"][k] - ref).abs().max() / ref.abs().max()
+        assert err <= 1e-4, (k, err.item())
+    assert all(not any(m.launch_counts().values()) for m in mods)
+
+
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+def test_mnist_cnn_commit_bit_equal_to_plain_on_card(card, codec):
+    """One commit of config #2's CNN (8 tensors, 421,642 parameters, what
+    ``ADAG(mnist_cnn(), remote=...)`` sends) seated and staged as the
+    server does it, folded by one ``fold_commit`` launch: bit for bit like
+    the plain twin on the same staged buffer and like the numpy oracle on
+    the host."""
+    from distkeras_tpu_torch import mnist_cnn
+    from distkeras_tpu_torch.netps import fold as nfold
+    from distkeras_tpu_torch.netps import wire
+
+    params = list(mnist_cnn(seed=2, device="cuda").params.values())
+    sizes = [p.numel() for p in params]
+    assert len(sizes) == 8 and sum(sizes) == 421_642
+    offsets, total = F.center_layout(sizes)
+    flat = torch.zeros(total, device="cuda")
+    for p, o in zip(params, offsets):
+        flat[o:o + p.numel()] = p.reshape(-1)
+    twin_flat = flat.clone()
+    centers = [flat[o:o + n] for o, n in zip(offsets, sizes)]
+    twin = [twin_flat[o:o + n] for o, n in zip(offsets, sizes)]
+    host = [c.cpu().numpy() for c in centers]
+    g = torch.Generator().manual_seed(5)
+    entries = [wire.codec_encode((torch.randn(n, generator=g) / 100).numpy(),
+                                 codec) for n in sizes]
+    staged = nfold.stage_commit(entries, "cuda")
+    F.reset_launches()
+    F.fold_commit_(centers, staged, 1.0 / 8.0)
+    torch.cuda.synchronize()
+    assert F.launch_counts() == {"fold_commit": 1, "fold_int8": 0,
+                                 "fold_bf16": 0}
+    F.fold_commit_plain_(twin, staged, 1.0 / 8.0)
+    assert torch.equal(flat.view(torch.int32), twin_flat.view(torch.int32))
+    for h, (enc, spec) in zip(host, entries):
+        nfold.fold_compressed_numpy(h, enc, spec, 1.0 / 8.0)
+    for c, h in zip(centers, host):
+        assert np.array_equal(c.cpu().numpy().view(np.uint32),
+                              h.view(np.uint32))
