@@ -189,6 +189,34 @@ and every parity phase holds the card's bf16 run to the CPU's within
     times and samples/s. (``fold_kernel`` has the mnist_cnn commit's rows,
     8 tensors, 421,642 parameters, in both codecs.)
 
+16. ``ckpt_serve`` — the persistence plane on config #4 (``TRAIN``'s
+    DynSGD at full width and batch), in f32 then bf16: two uninterrupted
+    4-round runs (their distance, 0 when the card repeats itself bit for
+    bit, is the limit below); a 2-round run with ``checkpoint_dir``,
+    ``checkpoint_every=1`` and ``metrics_path``, then a fresh trainer with
+    ``resume=True`` to 4 rounds, whose center must equal the uninterrupted
+    one within that limit, whose history is 2 rounds long, and whose
+    metrics JSONL has one record a round with samples/s and a summary a
+    run; the newest step corrupted (``integrity.corrupt_step_dir``) and a
+    further resume, which must warn, count ``resilience.ckpt_fallback_steps``
+    and run the last round again from the step before; then
+    ``serialize_model`` -> bytes -> ``deserialize_model`` on the card, whose
+    logits on 256 rows must equal the trained model's bit for bit. Every
+    run's stash forward and backward must launch once a local step and the
+    inference forward never. ``ckpt_swap`` (f32): ``ModelRegistry(model,
+    BUCKETS, directory=...)`` behind a ``ServingFrontend`` and a
+    ``ServeClient`` answers at version -1; ``Checkpointer.save(7,
+    trained.params)`` and ``poll_once()`` swap in version 7, whose warmup
+    probe launches ``lstm_fwd`` once a bucket; the answers after the swap,
+    one launch or more a batch, within ``SERVE_ATOL`` of the trained
+    weights' CPU plain forward; a newer step saved and corrupted is refused
+    (``serving.swap_failures``) and version 7 keeps answering. The rows
+    give the ms of a save (the copy to the host, the digest and the write
+    apart), of a verified restore, of ``serialize_model`` and
+    ``deserialize_model`` (with the blob's bytes) and of one swap (restore
+    + probe). The launch counts are set to 0 before each run and read after
+    it; this phase's counts are not the ``kernels`` line's.
+
 Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``.
@@ -202,6 +230,7 @@ import inspect
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -3169,6 +3198,329 @@ def remote_cnn_phase(torch, gpu: str, seed: int, df) -> dict:
     return fold
 
 
+#: ``ckpt_serve``: config #4's DynSGD run is 2 epochs of ``CKPT_SAVED``
+#: rounds (the data holds 2 rounds' rows); the interrupted run takes the
+#: first epoch, then resumes.
+CKPT_SAVED = 2
+CKPT_ROUNDS = 2 * CKPT_SAVED
+#: rows whose logits the deserialized model must give bit for bit
+CKPT_PREDICT_ROWS = 256
+#: the steps the hot swap saves: the trained weights, then a newer one
+#: that is corrupted after its save
+SWAP_STEP, SWAP_BAD_STEP = 7, 9
+#: request sizes answered after the swap
+SWAP_REQUESTS = (1, 3, 17, 64, 200)
+
+
+def span_stats(snap: dict, name: str) -> dict:
+    """Count and mean/max ms of every span whose path ends in ``name``
+    (a span nests under its caller's, e.g. ``engine_run/checkpoint.save``)."""
+    hits = [v for k, v in snap["spans"].items()
+            if k == name or k.endswith("/" + name)]
+    n = sum(h["count"] for h in hits)
+    total = sum(h["total"] for h in hits)
+    return {"count": n, "mean_ms": total / n * 1e3 if n else None,
+            "max_ms": max((h.get("max") or 0.0 for h in hits),
+                          default=0.0) * 1e3}
+
+
+def centers_apart(a, b) -> float:
+    """Largest absolute difference between two models' parameters."""
+    return max((a.params[k] - v).abs().max().item()
+               for k, v in b.params.items())
+
+
+def ckpt_run(torch, K, seed: int, dtype: str, df, epochs: int, **extra):
+    """One config #4 DynSGD run from the seed's weights through
+    ``trainer.train(df)``, the LSTM counts set to 0 just before and read
+    just after: the stash forward and the backward once a local step, the
+    inference forward never. Returns ``(trainer, model, launches, s)``."""
+    from distkeras_tpu_torch import DynSGD, imdb_lstm
+
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    trainer = DynSGD(model, worker_optimizer="sgd",
+                     loss="sparse_categorical_crossentropy", **TRAIN,
+                     num_epoch=epochs, compute_dtype=dtype, **extra)
+    torch.cuda.synchronize()
+    K.reset_launches()  # counts start at 0 just before the main path runs
+    t0 = time.perf_counter()
+    trained = trainer.train(df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    steps = len(trainer.get_history()) * TRAIN["num_workers"] * \
+        TRAIN["communication_window"]
+    for name in ("lstm_fwd_stash", "lstm_bwd"):
+        if launches[name] != steps:
+            fail(f"ckpt_serve ({dtype}): {name} launched {launches[name]} "
+                 f"times in {steps} local steps")
+    if launches["lstm_fwd"]:
+        fail(f"ckpt_serve ({dtype}): training launched the inference "
+             f"forward {launches['lstm_fwd']} times")
+    if not np.all(np.isfinite(trainer.get_worker_histories())):
+        fail(f"ckpt_serve ({dtype}): non-finite loss")
+    return trainer, trained, launches, wall
+
+
+def ckpt_serve_phase(torch, K, gpu: str, seed: int, dtype: str,
+                     workdir: str):
+    """Checkpoint, resume, fall back past a corrupt step and serialize, on
+    config #4 at ``dtype``; returns the resumed trained model."""
+    import warnings
+
+    from distkeras_tpu_torch import (
+        deserialize_model,
+        serialize_model,
+        telemetry,
+    )
+    from distkeras_tpu_torch.checkpoint import Checkpointer
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.resilience import integrity
+    from distkeras_tpu_torch.telemetry.exporters import read_jsonl
+
+    W, Kw, B = (TRAIN["num_workers"], TRAIN["communication_window"],
+                TRAIN["batch_size"])
+    df = imdb(n=CKPT_SAVED * W * Kw * B, vocab_size=VOCAB, seq_len=SEQ_LEN,
+              seed=seed)
+    ck = os.path.join(workdir, f"ckpt_{dtype}")
+    metrics = os.path.join(workdir, f"metrics_{dtype}.jsonl")
+    shutil.rmtree(ck, ignore_errors=True)
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(metrics)
+    full_t, full, full_launches, full_s = ckpt_run(torch, K, seed, dtype,
+                                                   df, 2)
+    _, again, _, again_s = ckpt_run(torch, K, seed, dtype, df, 2)
+    repeat = centers_apart(full, again)
+    del again
+
+    telemetry.reset()
+    first_t, _, first_launches, first_s = ckpt_run(
+        torch, K, seed, dtype, df, 1, checkpoint_dir=ck, checkpoint_every=1,
+        metrics_path=metrics)
+    resumed_t, resumed, resumed_launches, resumed_s = ckpt_run(
+        torch, K, seed, dtype, df, 2, checkpoint_dir=ck, checkpoint_every=1,
+        metrics_path=metrics, resume=True)
+    snap = telemetry.get().snapshot()
+    apart = centers_apart(resumed, full)
+    reader = Checkpointer(ck)
+    latest = reader.latest_step()
+    state_bytes = os.path.getsize(os.path.join(ck, str(latest), "state.pt"))
+    digest_bytes = (reader.digest(latest) or {}).get("bytes")
+    records = read_jsonl(metrics)
+    rounds = [r for r in records if "round" in r and "kind" not in r]
+    summaries = [r for r in records if r.get("kind") == "telemetry_summary"]
+
+    # the newest step corrupted: the next resume falls back one step and
+    # runs the last round again
+    integrity.corrupt_step_dir(os.path.join(ck, str(latest)))
+    before = snap["counters"].get("resilience.ckpt_fallback_steps", 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fallback_t, fallback, fallback_launches, _ = ckpt_run(
+            torch, K, seed, dtype, df, 2, checkpoint_dir=ck,
+            checkpoint_every=1, resume=True)
+    fell_back = telemetry.get().snapshot()["counters"].get(
+        "resilience.ckpt_fallback_steps", 0) - before
+    warned = [str(w.message) for w in caught
+              if "falling back" in str(w.message)]
+    fallback_apart = centers_apart(fallback, full)
+
+    t0 = time.perf_counter()
+    blob = serialize_model(resumed)
+    ser_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = deserialize_model(blob, device="cuda")
+    torch.cuda.synchronize()
+    deser_s = time.perf_counter() - t0
+    x = np.random.default_rng(seed).integers(
+        0, VOCAB, (CKPT_PREDICT_ROWS, SEQ_LEN)).astype(np.int32)
+    want, got = resumed.predict(x), loaded.predict(x)
+    logits_equal = bool(torch.equal(want, got))
+    shutil.rmtree(ck, ignore_errors=True)
+
+    rounds_s = min(full_s, again_s) / CKPT_ROUNDS   # a warm run's round
+    save = span_stats(snap, "checkpoint.save")
+    emit({"phase": "ckpt_serve", "gpu": gpu, "dtype": dtype,
+          "trainer": "DynSGD", **TRAIN, "rounds": CKPT_ROUNDS,
+          "resumed_after": CKPT_SAVED,
+          "uninterrupted_s": [full_s, again_s],
+          "uninterrupted_repeat_max_abs_diff": repeat,
+          "resumed_max_abs_diff": apart, "limit": repeat,
+          "resumed_rounds": len(resumed_t.get_history()),
+          "first_rounds": len(first_t.get_history()),
+          "history": [float(v) for v in full_t.get_history()],
+          "resumed_history": [float(v) for v in resumed_t.get_history()],
+          "launches": {"uninterrupted": full_launches,
+                       "first": first_launches,
+                       "resumed": resumed_launches,
+                       "fallback": fallback_launches},
+          "round_s_uninterrupted": rounds_s,
+          "round_s_checkpointed": (first_s + resumed_s) / CKPT_ROUNDS,
+          "save_count": save["count"], "save_ms": save["mean_ms"],
+          "save_max_ms": save["max_ms"],
+          "save_copy_ms": span_stats(snap, "checkpoint.save/copy")["mean_ms"],
+          "save_digest_ms": span_stats(snap,
+                                       "checkpoint.save/digest")["mean_ms"],
+          "save_write_ms": span_stats(snap,
+                                      "checkpoint.save/write")["mean_ms"],
+          "save_share_of_round": save["mean_ms"] / 1e3 / rounds_s,
+          "state_pt_bytes": state_bytes, "digest_bytes": digest_bytes,
+          "restore_verified_ms": span_stats(
+              snap, "checkpoint.restore")["mean_ms"],
+          "restore_verify_ms": span_stats(
+              snap, "checkpoint.restore/verify")["mean_ms"],
+          "metrics_round_records": len(rounds),
+          "metrics_summaries": len(summaries),
+          "fallback_steps_counted": fell_back,
+          "fallback_rounds": len(fallback_t.get_history()),
+          "fallback_max_abs_diff": fallback_apart,
+          "serialized_bytes": len(blob), "serialize_ms": ser_s * 1e3,
+          "deserialize_ms": deser_s * 1e3,
+          "predict_rows": CKPT_PREDICT_ROWS,
+          "deserialized_logits_bit_equal": logits_equal,
+          "timing": "host clock; save parts from the checkpoint.save spans "
+                    "of the interrupted and resumed runs' saves"})
+    if len(resumed_t.get_history()) != CKPT_ROUNDS - CKPT_SAVED:
+        fail(f"ckpt_serve ({dtype}): the resumed run ran "
+             f"{len(resumed_t.get_history())} rounds")
+    if not apart <= repeat:
+        fail(f"ckpt_serve ({dtype}): the resumed center is {apart} from the "
+             f"uninterrupted one (two uninterrupted runs: {repeat})")
+    if [r["round"] for r in rounds] != list(range(CKPT_ROUNDS)) or not all(
+            r.get("samples_per_sec", 0) > 0 for r in rounds) or len(
+            summaries) != 2:
+        fail(f"ckpt_serve ({dtype}): the metrics log has rounds "
+             f"{[r['round'] for r in rounds]} and {len(summaries)} summaries")
+    if save["count"] != CKPT_ROUNDS:
+        fail(f"ckpt_serve ({dtype}): {save['count']} saves in "
+             f"{CKPT_ROUNDS} rounds")
+    if fell_back < 1 or not warned or len(fallback_t.get_history()) != 1:
+        fail(f"ckpt_serve ({dtype}): no fallback past the corrupt step "
+             f"(counted {fell_back}, warned {warned}, "
+             f"{len(fallback_t.get_history())} rounds run)")
+    if not fallback_apart <= repeat:
+        fail(f"ckpt_serve ({dtype}): the run resumed past the corrupt step "
+             f"is {fallback_apart} from the uninterrupted one")
+    if not logits_equal:
+        fail(f"ckpt_serve ({dtype}): the deserialized model's logits differ "
+             f"by {(want - got).abs().max().item()}")
+    return resumed
+
+
+def ckpt_swap_phase(torch, K, gpu: str, seed: int, trained,
+                    workdir: str) -> dict:
+    """Hot-swap ``trained``'s weights into a running server through a
+    checkpoint directory; refuse a corrupt newer step."""
+    import warnings
+
+    from distkeras_tpu_torch import imdb_lstm, telemetry
+    from distkeras_tpu_torch.checkpoint import Checkpointer
+    from distkeras_tpu_torch.resilience import integrity
+    from distkeras_tpu_torch.serving import (
+        ModelRegistry,
+        ServeClient,
+        ServingFrontend,
+    )
+
+    serve_dir = os.path.join(workdir, "serve")
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    widths = dict(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                  seq_len=SEQ_LEN)
+    cpu_model = imdb_lstm(**widths, device="cpu")
+    cpu_model.module.load_state_dict(
+        {k: v.cpu() for k, v in trained.module.state_dict().items()})
+    rng = np.random.default_rng(seed)
+
+    def tokens(rows):
+        return rng.integers(0, VOCAB, (rows, SEQ_LEN)).astype(np.int32)
+
+    telemetry.reset()
+    incumbent = imdb_lstm(**widths, seed=seed + 1, device="cuda")
+    registry = ModelRegistry(incumbent, BUCKETS, directory=serve_dir,
+                             poll_s=3600.0, device="cuda")
+    frontend = ServingFrontend(registry).start()
+    client = ServeClient(frontend.endpoint)
+    worst, answered = 0.0, []
+
+    def answer(rows: int) -> int:
+        nonlocal worst
+        x = tokens(rows)
+        out, version = client.infer(x)
+        ref = cpu_model.predict(x).numpy()
+        worst = max(worst, float(np.abs(np.asarray(out) - ref).max()))
+        answered.append(rows)
+        return version
+
+    try:
+        _, v0 = client.infer(tokens(3))
+        ckpt = Checkpointer(serve_dir)
+        t0 = time.perf_counter()
+        ckpt.save(SWAP_STEP, trained.params, meta={"round": CKPT_ROUNDS - 1})
+        save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        K.reset_launches()  # counts start at 0 just before the swap
+        t0 = time.perf_counter()
+        swapped = registry.poll_once()
+        swap_s = time.perf_counter() - t0
+        probe = K.launch_counts()
+        batches0 = telemetry.get().snapshot()["counters"].get(
+            "serving.batches", 0)
+        K.reset_launches()  # and before the answered batches
+        versions = [answer(rows) for rows in SWAP_REQUESTS]
+        served = K.launch_counts()
+        batches = telemetry.get().snapshot()["counters"].get(
+            "serving.batches", 0) - batches0
+        ckpt.save(SWAP_BAD_STEP, trained.params,
+                  meta={"round": CKPT_ROUNDS - 1})
+        integrity.corrupt_step_dir(os.path.join(serve_dir,
+                                                str(SWAP_BAD_STEP)))
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            bad_swapped = registry.poll_once()
+        after_bad = answer(SWAP_REQUESTS[2])
+        counters = telemetry.get().snapshot()["counters"]
+    finally:
+        client.close()
+        frontend.close()
+        registry.close()
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    row = {"phase": "ckpt_swap", "gpu": gpu, "buckets": list(BUCKETS),
+           "version_before": v0, "swapped": swapped,
+           "version_after": versions, "save_ms": save_s * 1e3,
+           "swap_ms": swap_s * 1e3, "probe_launches": probe,
+           "answered_rows": answered, "answered_batches": int(batches),
+           "answered_launches": served, "max_abs_err_vs_cpu_plain": worst,
+           "atol": SERVE_ATOL, "corrupt_step_swapped": bad_swapped,
+           "version_after_corrupt_step": after_bad,
+           "swap_failures": counters.get("serving.swap_failures", 0),
+           "retrace_after_warmup": counters.get(
+               "serving.retrace_after_warmup", 0),
+           "timing": "host clock: save of the params, poll_once = restore "
+                     "(verified) + a fresh warmup probe of every bucket"}
+    emit(row)
+    if v0 != -1 or not swapped or set(versions) != {SWAP_STEP}:
+        fail(f"ckpt_swap: versions {v0} -> {versions} (swapped {swapped})")
+    if probe["lstm_fwd"] != len(BUCKETS) or probe["lstm_fwd_stash"] or \
+            probe["lstm_bwd"]:
+        fail(f"ckpt_swap: the warmup probe launched {probe}")
+    if not batches or served["lstm_fwd"] < batches:
+        fail(f"ckpt_swap: lstm_fwd launched {served['lstm_fwd']} times for "
+             f"{batches} answered batches")
+    if not worst <= SERVE_ATOL:
+        fail(f"ckpt_swap: answers differ from the CPU plain forward by "
+             f"{worst}")
+    if bad_swapped or after_bad != SWAP_STEP or \
+            counters.get("serving.swap_failures", 0) != 1:
+        fail(f"ckpt_swap: the corrupt step {SWAP_BAD_STEP} was not refused "
+             f"(swapped {bad_swapped}, version {after_bad}, failures "
+             f"{counters.get('serving.swap_failures', 0)})")
+    if counters.get("serving.retrace_after_warmup", 0):
+        fail("ckpt_swap: serving.retrace_after_warmup fired")
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3334,6 +3686,16 @@ def main() -> None:
     adag_fold_launches = remote_cnn_phase(torch, gpu, args.seed,
                                           frames["mnist_cnn"])
     del frames
+    torch.cuda.empty_cache()
+
+    lap("ckpt_serve")
+    workdir = os.path.join("build", "ckpt_serve")
+    os.makedirs(workdir, exist_ok=True)
+    resumed = ckpt_serve_phase(torch, K, gpu, args.seed, "float32", workdir)
+    ckpt_serve_phase(torch, K, gpu, args.seed, "bfloat16", workdir)
+    ckpt_swap_phase(torch, K, gpu, args.seed, resumed, workdir)
+    del resumed
+    shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, rows, launches, bf16_launches):

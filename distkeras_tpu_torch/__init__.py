@@ -33,7 +33,13 @@ Ported so far:
 * the transformer LM with flash attention, trained with
   ``AEASGD(small_transformer_lm(..., attn_impl="flash", device="cuda"),
   "adam", ...).train(df)`` (BASELINE config #7), with the causal
-  attention's forward, dQ and dK/dV in CUDA kernels.
+  attention's forward, dQ and dK/dV in CUDA kernels;
+* the persistence plane: ``checkpoint_dir=``/``resume=`` on every trainer
+  (``checkpoint.Checkpointer``, torch-native steps with sha256 sidecars),
+  the per-round metrics log (``metrics_path=``, ``metrics.MetricsLogger``),
+  ``serialize_model``/``deserialize_model`` (the JAX package's bytes: a
+  blob either package writes loads in the other) and
+  ``serving.ModelRegistry(directory=...)`` hot-swapping verified steps.
 """
 
 from distkeras_tpu_torch.data import (
@@ -70,6 +76,12 @@ from distkeras_tpu_torch.predictors import (
     ModelPredictor,
     ProbabilityPredictor,
 )
+from distkeras_tpu_torch.runtime.serialization import (
+    deserialize_model,
+    deserialize_params,
+    serialize_model,
+    serialize_params,
+)
 from distkeras_tpu_torch.trainers import (
     ADAG,
     AEASGD,
@@ -91,6 +103,8 @@ __all__ = [
     "MinMaxTransformer", "Model", "ModelPredictor", "OneHotTransformer",
     "ProbabilityPredictor", "ReshapeTransformer", "ResNet", "SimpleCNN",
     "SingleTrainer", "SynchronousDistributedTrainer", "Trainer",
-    "Transformer", "TransformerLM", "cifar10_cnn", "imdb_lstm", "mnist_cnn",
-    "mnist_mlp", "resnet50", "small_transformer_lm", "tiny_resnet",
+    "Transformer", "TransformerLM", "cifar10_cnn", "deserialize_model",
+    "deserialize_params", "imdb_lstm", "mnist_cnn", "mnist_mlp", "resnet50",
+    "serialize_model", "serialize_params", "small_transformer_lm",
+    "tiny_resnet",
 ]

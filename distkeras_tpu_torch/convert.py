@@ -1,4 +1,4 @@
-"""Parameters from the JAX package into the port.
+"""Parameters between the JAX package and the port.
 
 :func:`params_from_jax` takes a JAX model's parameter tree with its leaves
 as numpy arrays (``jax.tree.map(np.asarray, model.params)``) and returns
@@ -25,6 +25,14 @@ the port module's ``state_dict``:
   flattened, and ``out``'s ``[H, Dh, D]`` becomes ``kernel.reshape(H*Dh,
   D).T``; a LayerNorm's ``scale`` and ``bias`` become ``weight`` and
   ``bias``; the ``block_{i}`` subtrees keep their names.
+
+:func:`params_to_jax` is its inverse: the port's parameters as the JAX
+model's tree of numpy arrays, in flax's layouts and in the order flax
+creates the keys (what ``serialize_model`` writes), so
+``params_from_jax(params_to_jax(p, m), m)`` gives ``p`` back bit for bit.
+An ``LSTMClassifier`` goes out in the layout its ``cell_impl`` names:
+packed for ``"pallas"``, flax's per-gate ``OptimizedLSTMCell_0`` (keys
+sorted, as flax creates them) for ``"xla"``.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ from distkeras_tpu_torch.models.lstm import LSTMClassifier
 from distkeras_tpu_torch.models.mlp import MLP
 from distkeras_tpu_torch.models.resnet import ResNet
 from distkeras_tpu_torch.models.transformer import TransformerLM
-from distkeras_tpu_torch.ops.kernels.lstm import pack_lstm_params
+from distkeras_tpu_torch.ops.kernels.lstm import GATES, pack_lstm_params
 
 
 def _t(a) -> torch.Tensor:
@@ -157,4 +165,77 @@ def params_from_jax(tree: dict, module: nn.Module) -> dict:
                 f"{k}: JAX parameter has shape {tuple(v.shape)}, the module "
                 f"expects {tuple(ref[k].shape)}")
         out[k] = v.to(device=ref[k].device, dtype=ref[k].dtype)
+    return out
+
+
+# -- the port's parameters as the JAX package's tree ------------------------
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(device="cpu").contiguous().numpy()
+
+
+def _put(tree: dict, path: list, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _leaf_to_jax(module: nn.Module, name: str, t: torch.Tensor) -> tuple:
+    """``(jax path, numpy array)`` of the port parameter ``name``."""
+    from distkeras_tpu_torch.models.transformer import CausalSelfAttention
+
+    *mods, leaf = name.split(".")
+    owner = module.get_submodule(".".join(mods)) if mods else module
+    parent = module.get_submodule(".".join(mods[:-1])) if mods else None
+    if isinstance(owner, nn.Embedding):
+        return mods + ["embedding"], _np(t)
+    if isinstance(owner, nn.LayerNorm):
+        return mods + ["scale" if leaf == "weight" else "bias"], _np(t)
+    if isinstance(owner, nn.Conv2d) and leaf == "weight":
+        return mods + ["kernel"], _np(t.permute(2, 3, 1, 0))   # OIHW -> HWIO
+    if isinstance(owner, nn.Linear) and isinstance(parent,
+                                                   CausalSelfAttention):
+        H = parent.num_heads
+        if leaf == "bias":
+            shape = (t.numel(),) if mods[-1] == "out" else (H, -1)
+            return mods + ["bias"], _np(t.reshape(shape))
+        kernel = t.t()                                   # [in, out]
+        shape = ((H, -1, kernel.shape[1]) if mods[-1] == "out"
+                 else (kernel.shape[0], H, -1))
+        return mods + ["kernel"], _np(kernel.reshape(shape))
+    if isinstance(owner, nn.Linear) and leaf == "weight":
+        return mods + ["kernel"], _np(t.t())
+    return mods + [leaf], _np(t)
+
+
+def _lstm_to_jax(params: dict, module: LSTMClassifier) -> dict:
+    out = {"Embed_0": {"embedding": _np(params["embed.weight"])}}
+    wx, wh, b = (params[k] for k in ("lstm_wx", "lstm_wh", "lstm_b"))
+    if module.config["cell_impl"] == "pallas":
+        out.update(lstm_wx=_np(wx), lstm_wh=_np(wh), lstm_b=_np(b))
+    else:
+        H = wh.shape[0]
+        cols = {g: slice(i * H, (i + 1) * H) for i, g in enumerate(GATES)}
+        cell = {f"h{g}": {"bias": _np(b[cols[g]]),
+                          "kernel": _np(wh[:, cols[g]])} for g in sorted(cols)}
+        cell.update({f"i{g}": {"kernel": _np(wx[:, cols[g]])}
+                     for g in sorted(cols)})
+        out["OptimizedLSTMCell_0"] = cell
+    out["Dense_0"] = {"kernel": _np(params["head.weight"].t()),
+                      "bias": _np(params["head.bias"])}
+    return out
+
+
+def params_to_jax(params: dict, module: nn.Module) -> dict:
+    """The JAX parameter tree (numpy leaves, flax's layouts and key order)
+    of ``params``, a :attr:`Model.params` dict of ``module``."""
+    if type(module) not in _CONVERTERS:
+        raise NotImplementedError(
+            f"no JAX parameter conversion for {type(module).__name__}")
+    if isinstance(module, LSTMClassifier):
+        return _lstm_to_jax(params, module)
+    out: dict = {}
+    for name in module.state_dict():
+        path, value = _leaf_to_jax(module, name, params[name])
+        _put(out, path, value)
     return out

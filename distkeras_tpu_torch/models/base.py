@@ -35,6 +35,41 @@ def register_model(cls: type) -> type:
     return cls
 
 
+def _coerce(v):
+    # JSON round-trips tuples as lists; the modules take tuples back.
+    return tuple(_coerce(x) for x in v) if isinstance(v, list) else v
+
+
+class ConfigMixin:
+    """The config round trip of a registered module: :meth:`get_config`
+    gives the JAX module's dataclass fields in their order (the spec a
+    serialized model carries; the port's ``seed`` is not one of them), and
+    :meth:`from_config` rebuilds the module from them. A module stores its
+    constructor's values in ``self.config``; widths that the JAX module
+    infers from its sample input (and the spec therefore lacks) come from
+    the parameter tree through :meth:`input_widths`."""
+
+    #: the JAX module's fields, in order
+    config_fields: tuple = ()
+
+    def get_config(self) -> dict:
+        return {k: self.config[k] for k in self.config_fields}
+
+    @classmethod
+    def from_config(cls, kwargs: dict, params: Optional[dict] = None):
+        """The module built from a spec's ``kwargs``; ``params`` (a JAX
+        parameter tree of numpy arrays) supplies the input widths."""
+        kw = {k: _coerce(v) for k, v in kwargs.items()}
+        if params is not None:
+            kw.update(cls.input_widths(params))
+        return cls(**kw)
+
+    @staticmethod
+    def input_widths(params: dict) -> dict:
+        """Constructor kwargs read off a JAX parameter tree's shapes."""
+        return {}
+
+
 #: stddev of a unit normal truncated to [-2, 2] (flax's variance-scaling
 #: "normal" divides by it so the truncated draw keeps the target variance).
 _TRUNC_STD = 0.87962566103423978
@@ -122,7 +157,8 @@ def normalize_features(x: torch.Tensor,
 
 @dataclasses.dataclass
 class Model:
-    """A module on ``device`` with its input signature."""
+    """A module on ``device`` with its input signature (``sample_spec``
+    None for a deserialized model: a blob does not record it)."""
 
     module: nn.Module
     device: torch.device
@@ -178,6 +214,19 @@ class Model:
             for k, p in own.items():
                 p.copy_(params[k])
         return dataclasses.replace(self, module=module)
+
+    def spec(self) -> dict:
+        """``{"class", "kwargs"}``: the registered class name and its
+        :meth:`ConfigMixin.get_config`, as the JAX package's spec."""
+        return {"class": type(self.module).__name__,
+                "kwargs": self.module.get_config()}
+
+    def serialize(self) -> bytes:
+        """:func:`~distkeras_tpu_torch.runtime.serialization.serialize_model`
+        of this model: the JAX package's bytes for the same weights."""
+        from distkeras_tpu_torch.runtime.serialization import serialize_model
+
+        return serialize_model(self)
 
     @property
     def state_collections(self) -> tuple:

@@ -34,46 +34,67 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distkeras_tpu_torch.models.base import Model, dropout, register_model
+from distkeras_tpu_torch.models.base import (
+    ConfigMixin,
+    Model,
+    dropout,
+    register_model,
+)
 from distkeras_tpu_torch.models.mlp import dense as dense_layer
 from distkeras_tpu_torch.models.resnet import Conv
 
 
 @register_model
-class SimpleCNN(nn.Module):
+class SimpleCNN(ConfigMixin, nn.Module):
     """``images [B, H, W, C] -> logits [B, num_outputs]`` for images of
     ``input_shape`` ``(H, W, C)``. Parameters are drawn on the CPU from
     ``torch.Generator().manual_seed(seed)`` (flax's initializers: lecun
     normal kernels, zero biases), so one seed gives the same weights on
-    every device."""
+    every device.
+
+    Only the channels and the last feature map's flattened size
+    (``Dense_0``'s rows) size a parameter. ``in_channels`` and
+    ``flat_features`` give them directly, in place of ``input_shape``:
+    :meth:`from_config` reads them off a parameter tree, whose image H and
+    W no spec records."""
+
+    config_fields = ("conv_features", "kernel_size", "dense", "num_outputs",
+                     "dropout_rate")
 
     def __init__(self, conv_features: tuple = (32, 64), kernel_size: int = 3,
                  dense: tuple = (128,), num_outputs: int = 10,
                  dropout_rate: float = 0.0,
-                 input_shape: tuple = (28, 28, 1), seed: int = 0):
+                 input_shape: tuple = (28, 28, 1), seed: int = 0,
+                 in_channels: Optional[int] = None,
+                 flat_features: Optional[int] = None):
         super().__init__()
         self.config = dict(conv_features=tuple(conv_features),
                            kernel_size=kernel_size, dense=tuple(dense),
                            num_outputs=num_outputs,
-                           dropout_rate=dropout_rate,
-                           input_shape=tuple(input_shape))
+                           dropout_rate=float(dropout_rate))
         self.dropout_rate = float(dropout_rate)
         g = torch.Generator().manual_seed(seed)
-        h, w, c = input_shape
+        c = input_shape[2] if flat_features is None else in_channels
         self.convs = len(conv_features)
         for i, feat in enumerate(conv_features):
             self.add_module(f"Conv_{i}",
                             Conv(c, feat, kernel_size, 1, g, bias=True))
-            h, w, c = h // 2, w // 2, feat
-        widths = (h * w * c,) + tuple(dense) + (num_outputs,)
+            c = feat
+        if flat_features is None:
+            stride = 2 ** self.convs        # each pool floors H and W by 2
+            flat_features = ((input_shape[0] // stride)
+                             * (input_shape[1] // stride) * c)
+        widths = (flat_features,) + tuple(dense) + (num_outputs,)
         self.denses = len(widths) - 1
         for i in range(self.denses):
             self.add_module(f"Dense_{i}",
                             dense_layer(widths[i], widths[i + 1], g))
         self.to(memory_format=torch.channels_last)
 
-    def get_config(self) -> dict:
-        return dict(self.config)
+    @staticmethod
+    def input_widths(params: dict) -> dict:
+        return {"in_channels": int(np.shape(params["Conv_0"]["kernel"])[2]),
+                "flat_features": int(np.shape(params["Dense_0"]["kernel"])[0])}
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from distkeras_tpu_torch.models.base import (
+    ConfigMixin,
     Model,
     dropout,
     lecun_normal,
@@ -27,19 +28,35 @@ from distkeras_tpu_torch.models.base import (
 )
 from distkeras_tpu_torch.ops.kernels.lstm import lstm_seq, orthogonal_gates
 
+#: the JAX module's recurrence choices; the port runs both on its own path
+#: (the CUDA kernels on the card, the plain twins on the CPU), and keeps
+#: the value for the config round trip and the parameter layout of a
+#: serialized model (``"xla"``: flax's per-gate ``OptimizedLSTMCell_0``
+#: tree; ``"pallas"``: the packed ``lstm_wx``/``lstm_wh``/``lstm_b``).
+CELL_IMPLS = ("xla", "pallas")
+
+
 @register_model
-class LSTMClassifier(nn.Module):
+class LSTMClassifier(ConfigMixin, nn.Module):
     """``tokens [B, T] int -> logits [B, num_outputs]``. Parameters are
     drawn on the CPU from ``torch.Generator().manual_seed(seed)``, so one
     seed gives the same weights on every device."""
 
+    config_fields = ("vocab_size", "embed_dim", "hidden_size", "num_outputs",
+                     "dropout_rate", "cell_impl")
+
     def __init__(self, vocab_size: int = 20000, embed_dim: int = 128,
                  hidden_size: int = 128, num_outputs: int = 2,
-                 dropout_rate: float = 0.0, seed: int = 0):
+                 dropout_rate: float = 0.0, cell_impl: str = "xla",
+                 seed: int = 0):
         super().__init__()
+        if cell_impl not in CELL_IMPLS:
+            raise ValueError(f"cell_impl must be one of {CELL_IMPLS}, got "
+                             f"{cell_impl!r}")
         self.config = dict(vocab_size=vocab_size, embed_dim=embed_dim,
                            hidden_size=hidden_size, num_outputs=num_outputs,
-                           dropout_rate=dropout_rate)
+                           dropout_rate=float(dropout_rate),
+                           cell_impl=cell_impl)
         self.dropout_rate = float(dropout_rate)
         E, H = embed_dim, hidden_size
         g = torch.Generator().manual_seed(seed)
@@ -53,9 +70,6 @@ class LSTMClassifier(nn.Module):
             self.head.weight.copy_(
                 lecun_normal((H, num_outputs), H, g).t())
             self.head.bias.zero_()
-
-    def get_config(self) -> dict:
-        return dict(self.config)
 
     def forward(self, tokens: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -77,12 +91,14 @@ class LSTMClassifier(nn.Module):
 def imdb_lstm(vocab_size: int = 20000, embed_dim: int = 128,
               hidden_size: int = 128, seq_len: int = 80, seed: int = 0,
               device: Optional[Union[str, torch.device]] = None,
-              dropout_rate: float = 0.0) -> Model:
+              dropout_rate: float = 0.0, cell_impl: str = "xla") -> Model:
     """The IMDB classifier on ``device`` (default: the first CUDA device;
     raises where there is none — pass ``device="cpu"`` for the CPU), in
-    eval mode; the trainers switch it to train mode while they train."""
+    eval mode; the trainers switch it to train mode while they train.
+    ``cell_impl`` only names the JAX layout a serialized model carries."""
     module = LSTMClassifier(vocab_size=vocab_size, embed_dim=embed_dim,
                             hidden_size=hidden_size, num_outputs=2,
-                            dropout_rate=dropout_rate, seed=seed)
+                            dropout_rate=dropout_rate, cell_impl=cell_impl,
+                            seed=seed)
     return Model.build(module, np.zeros((1, seq_len), np.int32),
                        device=device)

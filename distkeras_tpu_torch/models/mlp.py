@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distkeras_tpu_torch.models.base import (
+    ConfigMixin,
     Model,
     dropout,
     lecun_normal,
@@ -45,11 +46,13 @@ def dense(in_features: int, features: int,
 
 
 @register_model
-class MLP(nn.Module):
+class MLP(ConfigMixin, nn.Module):
     """``x [B, ...] -> logits [B, num_outputs]``, ``x`` flattened to
     ``in_features``. Parameters are drawn on the CPU from
     ``torch.Generator().manual_seed(seed)``, so one seed gives the same
     weights on every device."""
+
+    config_fields = ("hidden", "num_outputs", "activation", "dropout_rate")
 
     def __init__(self, hidden: tuple = (500, 500), num_outputs: int = 10,
                  activation: str = "relu", dropout_rate: float = 0.0,
@@ -59,7 +62,8 @@ class MLP(nn.Module):
             raise ValueError(f"activation must be one of {sorted(_ACTS)}, "
                              f"got {activation!r}")
         self.config = dict(hidden=tuple(hidden), num_outputs=num_outputs,
-                           activation=activation, dropout_rate=dropout_rate,
+                           activation=activation,
+                           dropout_rate=float(dropout_rate),
                            in_features=in_features)
         self.act = _ACTS[activation]
         self.dropout_rate = float(dropout_rate)
@@ -69,8 +73,9 @@ class MLP(nn.Module):
         for i in range(self.layers):
             self.add_module(f"Dense_{i}", dense(widths[i], widths[i + 1], g))
 
-    def get_config(self) -> dict:
-        return dict(self.config)
+    @staticmethod
+    def input_widths(params: dict) -> dict:
+        return {"in_features": int(np.shape(params["Dense_0"]["kernel"])[0])}
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:

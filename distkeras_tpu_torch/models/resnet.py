@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distkeras_tpu_torch.models.base import (
+    ConfigMixin,
     Model,
     checkpointed,
     lecun_normal,
@@ -163,12 +164,15 @@ class BottleneckBlock(nn.Module):
 
 
 @register_model
-class ResNet(nn.Module):
+class ResNet(ConfigMixin, nn.Module):
     """``images [B, H, W, in_channels] -> logits [B, num_outputs]``.
     Parameters are drawn on the CPU from
     ``torch.Generator().manual_seed(seed)`` (flax's initializers: lecun
     normal kernels, GroupNorm scale 1 and bias 0, zero head bias), so one
     seed gives the same weights on every device."""
+
+    config_fields = ("stage_sizes", "base_features", "num_outputs",
+                     "stem_kernel", "groups", "remat", "norm_impl")
 
     def __init__(self, stage_sizes: tuple = (3, 4, 6, 3),
                  base_features: int = 64, num_outputs: int = 1000,
@@ -206,8 +210,9 @@ class ResNet(nn.Module):
             self.Dense_0.bias.zero_()
         self.to(memory_format=torch.channels_last)
 
-    def get_config(self) -> dict:
-        return dict(self.config)
+    @staticmethod
+    def input_widths(params: dict) -> dict:
+        return {"in_channels": int(np.shape(params["Conv_0"]["kernel"])[2])}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)      # NHWC memory as an NCHW view

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distkeras_tpu_torch.models.base import (
+    ConfigMixin,
     Model,
     checkpointed,
     lecun_normal,
@@ -157,12 +158,16 @@ class TransformerBlock(nn.Module):
 
 
 @register_model
-class TransformerLM(nn.Module):
+class TransformerLM(ConfigMixin, nn.Module):
     """``tokens [B, L] int -> logits [B, L, vocab_size]``. Parameters are
     drawn on the CPU from ``torch.Generator().manual_seed(seed)`` with
     flax's initializers (lecun normal kernels and embeddings, zero biases,
     LayerNorm scale 1 and bias 0), so one seed gives the same weights on
     every device."""
+
+    config_fields = ("vocab_size", "num_layers", "d_model", "num_heads",
+                     "d_ff", "max_seq_len", "dropout_rate", "seq_axis",
+                     "attn_impl", "remat")
 
     def __init__(self, vocab_size: int = 32000, num_layers: int = 4,
                  d_model: int = 256, num_heads: int = 8, d_ff: int = 1024,
@@ -173,7 +178,7 @@ class TransformerLM(nn.Module):
         self.config = dict(vocab_size=vocab_size, num_layers=num_layers,
                            d_model=d_model, num_heads=num_heads, d_ff=d_ff,
                            max_seq_len=max_seq_len,
-                           dropout_rate=dropout_rate, seq_axis=seq_axis,
+                           dropout_rate=float(dropout_rate), seq_axis=seq_axis,
                            attn_impl=attn_impl, remat=remat)
         self.dropout_rate = float(dropout_rate)
         self.remat = bool(remat)
@@ -192,8 +197,6 @@ class TransformerLM(nn.Module):
         self.ln_final = nn.LayerNorm(d_model, eps=LN_EPS)
         self.lm_head = _dense(d_model, vocab_size, g)
 
-    def get_config(self) -> dict:
-        return dict(self.config)
 
     def forward(self, tokens: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:

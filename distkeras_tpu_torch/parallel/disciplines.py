@@ -52,6 +52,10 @@ class Discipline:
     #: pull-based disciplines start every round from the center variable;
     #: elastic ones keep a persistent local replica.
     pulls_center: bool = True
+    #: whether training progress lives in the center (every communicating
+    #: fold). The no-comm ensemble fold trains only the locals, so a
+    #: pull-the-center elastic resume would discard all learning.
+    center_is_trained: bool = True
     #: whether the fold communicates at all (EnsembleFold does not).
     communicates: bool = True
 
@@ -160,6 +164,7 @@ class EnsembleFold(Discipline):
     ``EnsembleTrainer`` / the per-worker phase of ``AveragingTrainer``)."""
 
     pulls_center = False
+    center_is_trained = False
     communicates = False
 
 

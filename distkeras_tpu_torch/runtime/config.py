@@ -81,6 +81,13 @@ ENV_REGISTRY: dict = _declare(
            "Master switch for the telemetry registry; `0` swaps every "
            "span/counter/gauge/histogram for a no-op singleton.",
            "observability"),
+    EnvVar("DKTPU_TELEMETRY_ROTATE_MB", "float", 0.0,
+           "Size bound (MiB) for telemetry/trace JSONL files: a file at or "
+           "over the bound is rotated (atomic rename to `<path>.<n>`, "
+           "generations numbered from 1) before the next append; the "
+           "collector reads generations in order. 0 = no rotation "
+           "(unbounded growth under streaming workloads).",
+           "observability"),
     EnvVar("DKTPU_NAN_GUARD", "bool", True,
            "On-device NaN/Inf round skip in the engine round bodies; `0` "
            "disables (poisoned rounds then propagate into the center).",
@@ -96,6 +103,10 @@ ENV_REGISTRY: dict = _declare(
     EnvVar("DKTPU_FEEDER_RETRIES", "int", 0,
            "Retries (exponential backoff) for a *failed* feeder stage call "
            "before the error propagates; 0 = off.",
+           "resilience"),
+    EnvVar("DKTPU_CKPT_DIGEST", "bool", True,
+           "sha256 integrity sidecars next to each checkpoint step; `0` "
+           "disables writing (and therefore verified restore).",
            "resilience"),
     EnvVar("DKTPU_DIVERGENCE_RESET", "float", None,
            "Divergent-worker reset threshold: a worker whose round loss "

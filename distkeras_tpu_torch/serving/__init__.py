@@ -8,10 +8,12 @@ wire, answered on the card (counterpart of ``distkeras_tpu/serving/``).
   overload/deadline replies; an accepted request is never silently
   dropped (``serving/errors.py``);
 * **the wire** — the JAX package's frames, so either package's client
-  talks to either package's frontend (``serving/frontend.py``).
+  talks to either package's frontend (``serving/frontend.py``);
+* **checkpoint hot-swap** — ``ModelRegistry(directory=...)`` restores
+  newer verified steps, warmup-probes them and swaps them in between
+  batches (``serving/registry.py``).
 
-Checkpoint hot-swap and replica sets (``serving/replica.py``) come with
-later slices.
+Replica sets (``serving/replica.py``) come with a later slice.
 """
 
 from distkeras_tpu_torch.serving.batcher import (

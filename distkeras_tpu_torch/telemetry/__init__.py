@@ -1,7 +1,8 @@
 """Telemetry of the port: spans, counters, gauges and histograms in one
 process-wide registry (``DKTPU_TELEMETRY=0`` turns every call into a
-no-op). Distributed tracing, vitals and the exporters come with a later
-slice.
+no-op), the JSONL exporter (``exporters.py``) and the training monitor
+(``training.py``). Distributed tracing, vitals, Prometheus and the report
+CLI come with a later slice.
 
 Usage::
 

@@ -18,9 +18,13 @@ parameter server instead (``netps/remote.py``: W worker threads, each
 pull -> K local steps -> commit). ``compute_dtype="bfloat16"`` (or a
 ``torch.dtype``) trains in mixed precision on every one of them
 (``workers.make_local_loop``: f32 master state, the step in bf16).
-Refused with ``NotImplementedError`` until their slices: checkpoints
-(``checkpoint_dir``), the metrics log (``metrics_path``) and
-model-parallel submeshes (``parallel``). The averaging and ensemble
+``checkpoint_dir=`` (with ``checkpoint_every`` and ``resume``) saves and
+resumes the engine state through :class:`~distkeras_tpu_torch.checkpoint.
+Checkpointer`, falling back past a corrupt step; ``metrics_path=`` writes
+the per-round JSONL of :class:`~distkeras_tpu_torch.metrics.MetricsLogger`.
+Refused with ``NotImplementedError`` until their slices: model-parallel
+submeshes (``parallel``) and resuming an async trainer at another
+``num_workers`` (ROADMAP.md Queue 1 item 6). The averaging and ensemble
 trainers come with a later slice.
 """
 
@@ -142,12 +146,6 @@ class Trainer:
                 f"ignoring socket-era kwargs {sorted(legacy)}: there is no "
                 "master address/port (kept for reference-notebook "
                 "compatibility)", DeprecationWarning, stacklevel=2)
-        if checkpoint_dir:
-            raise _not_ported("checkpoint_dir= (checkpoint/resume)",
-                              "checkpoint")
-        if metrics_path:
-            raise _not_ported("metrics_path= (the per-round metrics log)",
-                              "checkpoint and metrics")
         if not normalize_uint8 and getattr(model, "normalize_uint8", True):
             import dataclasses as _dc
 
@@ -169,6 +167,8 @@ class Trainer:
                                       and dtype.is_floating_point):
             raise TypeError(f"compute_dtype must be a float dtype, got "
                             f"{compute_dtype!r}")
+        self.metrics_path = metrics_path
+        self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.resume = resume
         if rounds_per_program == "auto":
@@ -202,17 +202,220 @@ class Trainer:
             return self._dtype_override
         return self.config.dtype
 
+    def _restore_candidate(self, engine, plan, ckpt, step, meta):
+        """Restore checkpoint ``step`` (whose sidecar ``meta`` was already
+        read) onto ``engine``, integrity-verified against the digest
+        sidecar. Returns ``(state, start_round)``; raises on a missing or
+        corrupt payload so :meth:`_resume_from_checkpoint` can fall back."""
+        if not meta:
+            # Steps are offset from rounds across resumes; with the sidecar
+            # gone the raw step is only an upper bound on the true round.
+            # Resume conservatively from it, loudly.
+            warnings.warn(
+                f"checkpoint step {step} has no meta sidecar; "
+                "treating the step as the round index — if this run "
+                "chain was ever resumed or resized, data progress "
+                "may be overestimated", stacklevel=2)
+        true_round = int(meta.get("round", step))
+        saved_w = meta.get("num_workers")
+        cur_w = getattr(engine, "num_workers", None)
+        saved_spr = meta.get("samples_per_round")
+        resized = (saved_w is not None and cur_w is not None
+                   and saved_w != cur_w)
+        # Round indices mean nothing across schedules whose per-round
+        # sample count changed.
+        spr_changed = (saved_spr is not None
+                       and saved_spr != plan.samples_per_round)
+        start = 0
+        if resized or spr_changed:
+            # Carry over DATA progress (samples consumed), not the raw
+            # counter. Old checkpoints without samples_per_round meta fall
+            # back to the worker-count ratio.
+            num = saved_spr if saved_spr else saved_w
+            den = plan.samples_per_round if saved_spr else cur_w
+            start = min(((true_round + 1) * num) // den, plan.num_rounds)
+        state = ckpt.restore(engine.init_state(), step=step, verify=True)
+        if resized:
+            # W-independent state (SyncEngine) restores exactly under a
+            # resize; data progress still rescales so the resumed run
+            # neither replays nor skips a topology-dependent slice of the
+            # data. (An async engine's resize was refused before this.)
+            warnings.warn(
+                f"resuming a checkpoint saved with num_workers={saved_w} "
+                f"on num_workers={cur_w}: state restored exactly; data "
+                "progress rescaled", stacklevel=2)
+        elif spr_changed:
+            warnings.warn(
+                "resuming under a schedule whose samples/round changed "
+                f"({saved_spr} -> {plan.samples_per_round}): state "
+                "restored exactly; data progress rescaled", stacklevel=2)
+        else:
+            start = min(true_round + 1, plan.num_rounds)
+        return state, start
+
+    def _resume_from_checkpoint(self, engine, plan, ckpt):
+        """Resolve the resume point over ALL retained steps, newest first:
+        steps with an intact meta sidecar are preferred (a missing or
+        corrupt sidecar falls back to the most recent step that has one),
+        and a step whose payload fails to restore or fails its integrity
+        check falls back to the previous step. Returns ``(state, start,
+        step_offset)``; ``state`` is None when nothing was restorable
+        (fresh start)."""
+        from distkeras_tpu_torch import telemetry
+        from distkeras_tpu_torch.checkpoint import resume_candidates
+
+        steps = ckpt.steps_desc()
+        candidates = resume_candidates(
+            steps, lambda s: ckpt.meta(s) is not None)
+        if steps and candidates[0] != steps[0]:
+            telemetry.counter("resilience.ckpt_fallback_steps").add(1)
+            warnings.warn(
+                f"latest checkpoint step {steps[0]} has a missing/corrupt "
+                f"meta sidecar; falling back to step {candidates[0]}, the "
+                "most recent step with an intact sidecar", stacklevel=2)
+        last_err = None
+        for step in candidates:
+            meta = ckpt.meta(step) or {}
+            saved_w = meta.get("num_workers")
+            cur_w = getattr(engine, "num_workers", None)
+            disc = getattr(engine, "discipline", None)
+            if (saved_w is not None and cur_w is not None
+                    and saved_w != cur_w and disc is not None):
+                if not getattr(disc, "center_is_trained", True):
+                    # A configuration error, not corruption: falling back
+                    # to an older step cannot fix a topology mismatch.
+                    raise ValueError(
+                        f"cannot elastically resume {type(disc).__name__}"
+                        " (worker count changed): its training progress"
+                        " lives in the per-worker replicas, not the"
+                        " center. Resume with the original num_workers="
+                        f"{saved_w}.")
+                raise NotImplementedError(
+                    f"resuming an async trainer's checkpoint (step {step}, "
+                    f"num_workers={saved_w}) at num_workers={cur_w} needs "
+                    "the elastic re-topology (host_state/adopt_state), "
+                    "which is not ported yet: it comes with the resilience "
+                    "plane, ROADMAP.md Queue 1 item 6. Resume with "
+                    f"num_workers={saved_w}.")
+            try:
+                state, start = self._restore_candidate(
+                    engine, plan, ckpt, step, meta)
+            except Exception as e:  # corrupt/unreadable: try the next step
+                last_err = e
+                telemetry.counter("resilience.ckpt_fallback_steps").add(1)
+                telemetry.event("ckpt_fallback", {
+                    "step": step, "error": repr(e)})
+                warnings.warn(
+                    f"checkpoint step {step} failed to restore "
+                    f"({type(e).__name__}: {e}); falling back to the "
+                    "previous step", stacklevel=2)
+                continue
+            # Offset past the NEWEST retained step, not the restored one:
+            # after a fallback the skipped newer steps are still on disk,
+            # and a save at a step <= latest_step() is declined.
+            return state, start, (steps[0] + 1) - start
+        warnings.warn(
+            f"no restorable checkpoint in {self.checkpoint_dir} "
+            f"(last error: {last_err!r}); starting fresh", stacklevel=2)
+        return None, 0, (steps[0] + 1) if steps else 0
+
     def _execute(self, engine, plan):
-        """Shared run harness: run every round and keep the histories (per
+        """Shared run harness: resume from a checkpoint, run every round
+        with the per-round metrics and saves, and keep the histories (per
         worker for the async engines' ``[rounds, W]`` losses; none for the
         sync engine's ``[rounds]``, whose workers never diverge)."""
-        on_round = None
-        if self.on_round is not None:
-            def on_round(r, loss, st):
+        state = None
+        start = 0
+        # Checkpoint step = round + step_offset. A save at any step <=
+        # latest_step is declined, and a resume may map the resume round
+        # below the saved step (a sync resize rescales data progress) —
+        # the offset keeps the step sequence strictly increasing across
+        # any chain of resumes while meta["round"] records the true round.
+        step_offset = 0
+        ckpt = logger = None
+        if self.checkpoint_dir:
+            from distkeras_tpu_torch.checkpoint import Checkpointer
+
+            ckpt = Checkpointer(self.checkpoint_dir)
+            latest = ckpt.latest_step()
+            if self.resume and latest is not None:
+                state, start, step_offset = self._resume_from_checkpoint(
+                    engine, plan, ckpt)
+            elif latest is not None:
+                # Fresh run (resume=False) into a dir with prior
+                # checkpoints: rounds restart at 0, so without an offset
+                # every save would land on a step already taken.
+                step_offset = latest + 1
+        if state is None:
+            state = engine.init_state()
+        if self.metrics_path:
+            from distkeras_tpu_torch.metrics import MetricsLogger
+            from distkeras_tpu_torch.telemetry.training import (
+                DisciplineMonitor,
+            )
+
+            logger = MetricsLogger(
+                self.metrics_path,
+                samples_per_round=plan.samples_per_round,
+                # every logical worker runs on the model's one device
+                num_chips=getattr(engine, "num_chips", 1),
+                extra={"trainer": type(self).__name__},
+                monitor=DisciplineMonitor(
+                    discipline=getattr(engine, "discipline", None),
+                    num_workers=getattr(engine, "num_workers", 1)),
+            )
+
+        save_due = [False]  # a scheduled save passed while no state was out
+
+        def _meta(r):
+            return {"num_workers": getattr(engine, "num_workers", 1),
+                    "round": r,
+                    "samples_per_round": plan.samples_per_round}
+
+        def on_round(r, loss, st):
+            if logger is not None:
+                logger(r, loss, st)
+            if self.on_round is not None:
                 self.on_round(r, loss)
-        state, losses = engine.run(
-            plan, on_round=on_round,
-            rounds_per_program=self.rounds_per_program)
+            if ckpt is None or not self.checkpoint_every:
+                return
+            if (r + 1) % self.checkpoint_every == 0 or r == plan.num_rounds - 1:
+                save_due[0] = True
+            # A declined save (another writer advanced latest_step) keeps
+            # the save due, to retry at the next round instead of silently
+            # dropping it.
+            if save_due[0] and st is not None:
+                if ckpt.save(r + step_offset, st, meta=_meta(r)):
+                    save_due[0] = False
+
+        import contextlib
+
+        done = False
+        try:
+            state, losses = engine.run(
+                plan, state=state, start_round=start, on_round=on_round,
+                rounds_per_program=self.rounds_per_program)
+            if ckpt is not None and save_due[0] and plan.num_rounds > start:
+                # The final scheduled save was declined and there was no
+                # later round to retry at — persist the terminal state at
+                # the next step the directory accepts.
+                final_r = plan.num_rounds - 1
+                latest_now = ckpt.latest_step()
+                step = max(final_r + step_offset,
+                           (-1 if latest_now is None else latest_now) + 1)
+                ckpt.save(step, state, meta=_meta(final_r))
+            # Happy path closes UNsuppressed: a failed close must surface.
+            # (Checkpoint saves are synchronous: nothing of theirs is open.)
+            if logger is not None:
+                logger.close()
+            done = True
+        finally:
+            # Failure path (including a close that itself raised): close
+            # with errors suppressed so the root-cause exception
+            # propagates; MetricsLogger.close is idempotent.
+            if not done and logger is not None:
+                with contextlib.suppress(Exception):
+                    logger.close()
         losses = np.asarray(losses)
         if losses.ndim == 2:
             self.worker_histories = losses.T
@@ -378,6 +581,12 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             raise NotImplementedError(
                 "device_transform= (input_transform, on-device "
                 "augmentation) is not ported yet")
+        if self.checkpoint_dir or self.metrics_path:
+            warnings.warn(
+                "remote= training does not drive the checkpoint/metrics "
+                "harness: the parameter-server process owns the center; "
+                "checkpoint_dir/metrics_path are ignored on this path",
+                stacklevel=2)
         if (self.divergence_reset is not None or runtime_config.env_float(
                 "DKTPU_DIVERGENCE_RESET") is not None):
             raise _not_ported("divergence_reset (DKTPU_DIVERGENCE_RESET)",

@@ -1163,3 +1163,101 @@ def test_mnist_cnn_commit_bit_equal_to_plain_on_card(card, codec):
     for c, h in zip(centers, host):
         assert np.array_equal(c.cpu().numpy().view(np.uint32),
                               h.view(np.uint32))
+
+
+# -- the persistence plane on the card ----------------------------------------
+
+#: config #4's widths, the vocabulary and sequence cut for a quick test
+CKPT_WIDTHS = dict(vocab_size=2000, embed_dim=64, hidden_size=128,
+                   seq_len=40)
+CKPT_TRAIN = dict(worker_optimizer="sgd",
+                  loss="sparse_categorical_crossentropy", num_workers=2,
+                  batch_size=64, communication_window=2, learning_rate=0.01)
+
+
+def _ckpt_run(df, epochs, **extra):
+    from distkeras_tpu_torch import DynSGD, imdb_lstm
+
+    t = DynSGD(imdb_lstm(**CKPT_WIDTHS, seed=3, device="cuda"),
+               **CKPT_TRAIN, num_epoch=epochs, **extra)
+    K.reset_launches()
+    model = t.train(df)
+    torch.cuda.synchronize()
+    return t, model, K.launch_counts()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resume_is_bit_equal_on_card(card, tmp_path, dtype):
+    """2 rounds with checkpoints, then a resume to 4: the center equals an
+    uninterrupted 4-round run's bit for bit (the kernels sum in a fixed
+    order, without atomics), each run launching the stash forward and the
+    backward once a local step."""
+    from distkeras_tpu_torch.datasets import imdb
+
+    df = imdb(n=2 * 2 * 2 * 64, vocab_size=2000, seq_len=40, seed=1)
+    _, full, launches = _ckpt_run(df, 2, compute_dtype=dtype)
+    assert launches == {"lstm_fwd": 0, "lstm_fwd_stash": 16, "lstm_bwd": 16}
+    ck = dict(checkpoint_dir=str(tmp_path), checkpoint_every=1,
+              compute_dtype=dtype)
+    _ckpt_run(df, 1, **ck)
+    t, resumed, launches = _ckpt_run(df, 2, resume=True, **ck)
+    assert len(t.get_history()) == 2
+    assert launches == {"lstm_fwd": 0, "lstm_fwd_stash": 8, "lstm_bwd": 8}
+    for k, v in full.params.items():
+        assert torch.equal(resumed.params[k], v), k
+
+
+def test_deserialize_on_card_is_bit_equal(card):
+    """``serialize_model`` -> bytes -> ``deserialize_model`` on the card:
+    the same parameters and the same logits bit for bit."""
+    from distkeras_tpu_torch import (
+        deserialize_model,
+        imdb_lstm,
+        serialize_model,
+    )
+
+    model = imdb_lstm(**CKPT_WIDTHS, seed=4, device="cuda")
+    loaded = deserialize_model(serialize_model(model))
+    assert loaded.device.type == "cuda"
+    for k, v in model.params.items():
+        assert torch.equal(loaded.params[k], v), k
+    x = np.random.default_rng(0).integers(0, 2000, (64, 40)).astype(np.int32)
+    K.reset_launches()
+    assert torch.equal(loaded.predict(x), model.predict(x))
+    assert K.launch_counts()["lstm_fwd"] == 2
+
+
+def test_registry_hot_swap_launches_lstm_fwd(card, tmp_path):
+    """A verified step swapped into a registry on the card: the warmup
+    probe launches ``lstm_fwd`` once a bucket, every answer after the swap
+    comes from the new weights; a corrupt newer step is refused."""
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.checkpoint import Checkpointer
+    from distkeras_tpu_torch.resilience import integrity
+    from distkeras_tpu_torch.serving import ModelRegistry
+
+    buckets = (1, 4, 16)
+    trained = imdb_lstm(**CKPT_WIDTHS, seed=5, device="cuda")
+    registry = ModelRegistry(imdb_lstm(**CKPT_WIDTHS, seed=6, device="cuda"),
+                             buckets, directory=str(tmp_path), poll_s=3600.0,
+                             device="cuda")
+    try:
+        Checkpointer(str(tmp_path)).save(7, trained.params, meta={"r": 1})
+        K.reset_launches()
+        assert registry.poll_once() and registry.version == 7
+        assert K.launch_counts()["lstm_fwd"] == len(buckets)
+        x = np.random.default_rng(1).integers(0, 2000, (3, 40)).astype(
+            np.int32)
+        K.reset_launches()
+        got = registry.current()[0].infer([x])
+        assert K.launch_counts()["lstm_fwd"] == 1
+        np.testing.assert_array_equal(
+            got, trained.predict(np.concatenate(
+                [x, np.zeros((1, 40), np.int32)])).cpu().numpy()[:3])
+        Checkpointer(str(tmp_path)).save(9, trained.params, meta={"r": 2})
+        integrity.corrupt_step_dir(str(tmp_path / "9"))
+        with pytest.warns(UserWarning, match="candidate step 9"):
+            assert registry.poll_once() is False
+        assert registry.version == 7
+    finally:
+        registry.close()

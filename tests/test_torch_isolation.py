@@ -14,7 +14,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "distkeras_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distkeras_tpu")
+#: the card's machine has no msgpack and no orbax either: the port keeps
+#: its own msgpack codec (``runtime/msgpack.py``) and checkpoint format
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+             "distkeras_tpu")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -81,3 +84,40 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelRegistry(model, (1, 4))
     assert model.device.type == "cpu"  # the refused registry moved nothing
+
+
+def test_serialize_and_checkpoint_without_msgpack(tmp_path):
+    """With ``msgpack`` (and orbax, flax) unimportable, as on the card's
+    machine, a model serializes, deserializes, trains with checkpoints and
+    resumes."""
+    code = (
+        "import sys\n"
+        "for m in ('msgpack', 'orbax', 'flax', 'jax'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from distkeras_tpu_torch import (DataFrame, DynSGD, imdb_lstm,\n"
+        "    deserialize_model, serialize_model)\n"
+        "small = dict(vocab_size=20, embed_dim=4, hidden_size=4, seq_len=3)\n"
+        "m = imdb_lstm(**small, device='cpu')\n"
+        "back = deserialize_model(serialize_model(m), device='cpu')\n"
+        "assert all(torch.equal(back.params[k], v)\n"
+        "           for k, v in m.params.items())\n"
+        "rng = np.random.default_rng(0)\n"
+        "df = DataFrame({'features': rng.integers(0, 20, (32, 3)).astype(\n"
+        "    np.int32), 'label': rng.integers(0, 2, 32).astype(np.int32)})\n"
+        "kw = dict(loss='sparse_categorical_crossentropy', num_workers=2,\n"
+        "          batch_size=4, communication_window=2,\n"
+        f"          checkpoint_dir={str(tmp_path)!r}, checkpoint_every=1)\n"
+        "DynSGD(imdb_lstm(**small, device='cpu'), **kw).train(df)\n"
+        "t = DynSGD(imdb_lstm(**small, device='cpu'), num_epoch=2,\n"
+        "           resume=True, **kw)\n"
+        "t.train(df)\n"
+        "assert len(t.get_history()) == 2\n"
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None\n"
+        f"             and k.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

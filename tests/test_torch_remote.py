@@ -182,6 +182,24 @@ def test_two_workers_train_and_the_model_is_the_center(monkeypatch):
     assert t.get_history()[-1] < t.get_history()[0]
 
 
+def test_remote_ignores_checkpoints_and_metrics_with_a_warning(tmp_path):
+    """The parameter server owns the center on the remote path: the
+    checkpoint and metrics harness is not driven, and the trainer says so,
+    as the JAX package's does."""
+    srv = PSServer(discipline="dynsgd", device="cpu").start()
+    try:
+        t = T.DynSGD(imdb_lstm(**SMALL, device="cpu"), **_kw(1),
+                     remote=srv.endpoint,
+                     checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=1,
+                     metrics_path=str(tmp_path / "m.jsonl"))
+        with pytest.warns(UserWarning, match="are ignored on this path"):
+            t.train(DataFrame(_columns(1)))
+    finally:
+        srv.close()
+    assert not (tmp_path / "ck").exists()
+    assert not (tmp_path / "m.jsonl").exists()
+
+
 def test_remote_with_parallel_is_a_value_error(monkeypatch):
     pm = imdb_lstm(**SMALL, device="cpu")
     with pytest.raises(ValueError, match="cannot combine"):

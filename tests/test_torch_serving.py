@@ -204,12 +204,6 @@ def test_client_walks_to_the_next_replica(jax_model):
         registry.close()
 
 
-def test_registry_directory_is_not_ported_yet(jax_model, tmp_path):
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ModelRegistry(port_model(jax_model), BUCKETS, directory=str(tmp_path),
-                      device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # The wire across the two packages
 # ---------------------------------------------------------------------------

@@ -122,8 +122,6 @@ def test_nan_round_is_skipped_and_kept_in_the_history():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"checkpoint_dir": "/nonexistent"}, "checkpoint"),
-    ({"metrics_path": "m.jsonl"}, "metrics"),
     ({"parallel": {"model": 2}}, "parallel"),
 ])
 def test_unported_kwargs_raise(kwargs, match):

@@ -85,8 +85,6 @@ def test_on_round_and_rounds_per_program():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"checkpoint_dir": "/nonexistent"}, "checkpoint"),
-    ({"metrics_path": "m.jsonl"}, "metrics"),
     # remote= itself is ported (tests/test_torch_remote.py); a sharded
     # endpoint matrix is not.
     ({"remote": "127.0.0.1:1;127.0.0.1:2"}, "remote"),
