@@ -217,6 +217,42 @@ and every parity phase holds the card's bf16 run to the CPU's within
     + probe). The launch counts are set to 0 before each run and read after
     it; this phase's counts are not the ``kernels`` line's.
 
+17. ``remote_overlap`` — the durable server and the overlapped loop on
+    config #4 (``REMOTE``'s DynSGD, int8 commits, ``OVERLAP_ROUNDS``
+    rounds) against ``PSServer(discipline="dynsgd", device="cuda")``
+    three ways, each once: the serial loop without a state directory, the
+    serial loop with ``state_dir`` and ``snapshot_every=4`` (what the
+    journal costs) and ``DKTPU_NET_INFLIGHT=2`` with both. Each row:
+    samples/s (one reading an arm: it does not resolve the arms' samples/s
+    against each other), the mean
+    realized staleness, ``netps.overlap.hidden_fraction``, the journal's
+    bytes and the ms of a snapshot; one ``fold_commit`` launch per folded
+    commit, no ``(worker, seq)`` folded twice, the model equal to the
+    center. Each directory is then recovered by a fresh ``PSServer(device=
+    "cuda", state_dir=...)`` as it is and with its newest snapshot removed:
+    both centers bit-equal to the server's, one ``fold_commit`` launch per
+    replayed record, the replay's ms per record.
+18. ``ps_failover`` — the same training against ``"<primary>,<standby>"``,
+    a ``PSServer`` and a ``StandbyServer`` on the card with 1 s leases.
+    Once round 1 is folded and replicated (a record at least folded on the
+    standby) the primary stops as a dead process would (no drain); the standby must promote to epoch 1
+    holding the primary's center at the index it last replicated (the
+    primary's center is kept after every fold), the workers walk to it and
+    finish with finite losses, no ``(worker, seq)`` folds twice across the
+    two servers, no commit carrying the old epoch folds, and
+    ``fold_commit`` launches once per primary fold, replicated record and
+    standby fold. It prints the seconds from the kill to the promotion and
+    to the first commit the standby folded.
+19. ``ps_restart`` — the port's CLI, ``python -m distkeras_tpu_torch.netps
+    --device cuda --state-dir D``, in a subprocess, SIGKILLed once it has
+    folded ``RESTART_KILL_AT`` commits and started again on the same port
+    and directory while the workers ride through on retries. The journal
+    across both lives holds no ``(worker, seq)`` twice, at most
+    ``_WRITE_QUEUE`` acknowledged commits are missing from it, and the
+    restarted server's final center is bit-equal to this process's
+    recovery of its directory, which launches ``fold_commit`` once per
+    replayed record.
+
 Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``.
@@ -231,6 +267,8 @@ import json
 import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -361,6 +399,23 @@ REMOTE_PARITY = dict(num_workers=1, batch_size=32, communication_window=2,
 REMOTE_PARITY_ROUNDS = 2
 #: remote card vs CPU with codec none: the same limit as ``train_parity``.
 REMOTE_PARITY_ATOL = 1e-5
+#: the durable and failover phases, at config #4's remote run (int8): the
+#: three arms of ``remote_overlap`` (serial, serial with a state directory,
+#: ``DKTPU_NET_INFLIGHT=2`` with one) train this many rounds each, the
+#: server snapshotting every ``OVERLAP_SNAPSHOT_EVERY`` folds (so with 4
+#: workers the last snapshot covers every fold, and the fallback recovery
+#: replays the journal after the one before);  ``ps_failover`` trains
+#: ``FAILOVER_ROUNDS`` against a primary and a standby with leases (and
+#: the standby's silence budget) of ``FAILOVER_LEASE`` seconds;
+#: ``ps_restart`` trains ``RESTART_ROUNDS`` against the CLI server (its
+#: journal alone, no snapshots, so it holds both lives), SIGKILLed once it
+#: has folded ``RESTART_KILL_AT`` commits.
+OVERLAP_ROUNDS = 4
+OVERLAP_SNAPSHOT_EVERY = 4
+FAILOVER_ROUNDS = 5
+FAILOVER_LEASE = 1.0
+RESTART_ROUNDS = 5
+RESTART_KILL_AT = 8
 #: L2 is 50 MB: reading this many bytes between timed calls leaves a
 #: center and its delta cold, as the server finds them between commits.
 FLUSH_BYTES = 256 << 20
@@ -2229,6 +2284,479 @@ def remote_parity_phase(torch, seed: int) -> None:
                  f"(limit {hist_limit})")
 
 
+def remote_run(torch, K, F, seed: int, df, endpoint: str, rounds: int,
+               **env) -> dict:
+    """One ``DynSGD(imdb_lstm(...), remote=endpoint)`` run at config #4's
+    width and :data:`REMOTE`'s workers, window and batch, int8 commits and
+    ``env`` set; the launch counts are set to 0 just before ``train`` and
+    read just after. Returns the run's numbers and trainer."""
+    from distkeras_tpu_torch import imdb_lstm, telemetry
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    W, Kw, B = (REMOTE["num_workers"], REMOTE["communication_window"],
+                REMOTE["batch_size"])
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    with env_set(DKTPU_NET_COMPRESS="int8", **env):
+        trainer = DynSGD(model, worker_optimizer="sgd",
+                         loss="sparse_categorical_crossentropy",
+                         remote=endpoint, **REMOTE)
+        telemetry.reset()
+        torch.cuda.synchronize()
+        # counts start at 0 just before the main path runs
+        K.reset_launches()
+        F.reset_launches()
+        t0 = time.perf_counter()
+        trained = trainer.train(df)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    hist = trainer.get_worker_histories()
+    snap = telemetry.get().snapshot()
+    return {"trainer": trainer, "trained": trained, "wall": wall,
+            "steps": rounds * W * Kw,
+            "samples_per_s": rounds * W * Kw * B / wall,
+            "lstm": K.launch_counts(), "fold": F.launch_counts(),
+            "finite": bool(np.all(np.isfinite(hist))), "snap": snap}
+
+
+def exactly_once(log) -> bool:
+    """No ``(worker, seq)`` folded twice in ``log``."""
+    keys = [(w, s) for w, s, *_ in log]
+    return len(keys) == len(set(keys))
+
+
+def same_bits(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.asarray(x).tobytes() == np.asarray(y).tobytes()
+        for x, y in zip(a, b))
+
+
+def recover_on_card(torch, F, state_dir: str) -> dict:
+    """Build a fresh ``PSServer(device="cuda", state_dir=...)`` (not
+    started): its center, the records its recovery replayed, the
+    ``fold_commit`` launches that took (counts set to 0 just before) and
+    the replay's ms per record."""
+    from distkeras_tpu_torch.netps import PSServer
+
+    F.reset_launches()
+    srv = PSServer(discipline="dynsgd", device="cuda", state_dir=state_dir)
+    try:
+        launches = F.launch_counts()["fold_commit"]
+        out = {"center": srv.center(), "updates": srv.updates,
+               "replayed": srv.recovered_records, "launches": launches,
+               "replay_ms_per_record": (srv.recovery_seconds * 1e3
+                                        / max(1, srv.recovered_records))}
+    finally:
+        srv.close()
+    return out
+
+
+def remote_overlap_phase(torch, K, F, gpu: str, seed: int, workdir: str
+                         ) -> dict:
+    """Config #4 against ``PSServer(device="cuda")`` three ways at the same
+    rounds, each once: the serial loop without a state directory, the
+    serial loop with one (what the journal costs) and the overlapped loop
+    (``DKTPU_NET_INFLIGHT=2``) with one. One reading an arm does not
+    resolve samples/s between them (host times spread between runs of one
+    tree); that comparison is left to a benchmark cell. Each durable
+    run's directory is then recovered on the card, as it is and with its
+    newest snapshot removed (the fallback replays the journal after the
+    one before). Returns the ``fold_commit`` launches of the replays."""
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.netps import PSServer
+
+    W, Kw, B = (REMOTE["num_workers"], REMOTE["communication_window"],
+                REMOTE["batch_size"])
+    df = imdb(n=OVERLAP_ROUNDS * W * Kw * B, vocab_size=VOCAB,
+              seq_len=SEQ_LEN, seed=seed)
+    arms = (("serial", "1", False), ("serial_journal", "1", True),
+            ("overlap_journal", "2", True))
+    runs, replay_launches = {}, 0
+    for arm, inflight, durable in arms:
+        d = os.path.join(workdir, arm)
+        shutil.rmtree(d, ignore_errors=True)
+        srv = PSServer(discipline="dynsgd", device="cuda",
+                       state_dir=d if durable else None,
+                       snapshot_every=OVERLAP_SNAPSHOT_EVERY).start()
+        try:
+            run = remote_run(torch, K, F, seed, df, srv.endpoint,
+                             OVERLAP_ROUNDS, DKTPU_NET_INFLIGHT=inflight)
+            log = list(srv.commit_log)
+            center = srv.center()
+            journal_bytes = srv.journal_bytes
+            snaps, snap_s = srv.snapshots_written, srv.snapshot_seconds
+        finally:
+            srv.close()
+        model_is_center = same_bits(
+            [p.cpu().numpy() for p in run["trained"].params.values()], center)
+        stale = [st for _w, _s, st in log]
+        gauges = run["snap"]["gauges"]
+        row = {"phase": "remote_overlap", "gpu": gpu, "arm": arm,
+               "inflight": int(inflight), "state_dir": durable,
+               "snapshot_every": OVERLAP_SNAPSHOT_EVERY if durable else None,
+               "rounds": OVERLAP_ROUNDS, **REMOTE, "codec": "int8",
+               "seconds": run["wall"], "samples_per_s": run["samples_per_s"],
+               "commits": len(log), "mean_staleness": float(np.mean(stale)),
+               "max_staleness": max(stale),
+               "hidden_fraction": gauges.get(
+                   "netps.overlap.hidden_fraction", {}).get("value"),
+               "journal_bytes": journal_bytes,
+               "journal_bytes_per_commit": journal_bytes / max(1, len(log)),
+               "snapshots": snaps,
+               "snapshot_ms": snap_s * 1e3 / snaps if snaps else None,
+               "launches": {**run["lstm"], **run["fold"]},
+               "model_equals_server_center": model_is_center,
+               "timing": "host clock around trainer.train; snapshot_ms is "
+                         "the server's host time a snapshot (the fsync "
+                         "included)"}
+        if durable:
+            rec = recover_on_card(torch, F, d)
+            fallback = d + "-fallback"
+            shutil.rmtree(fallback, ignore_errors=True)
+            shutil.copytree(d, fallback)
+            newest = max(p for p in os.listdir(fallback)
+                         if p.endswith(".dks"))
+            os.unlink(os.path.join(fallback, newest))
+            back = recover_on_card(torch, F, fallback)
+            replay_launches += rec["launches"] + back["launches"]
+            row.update(
+                recovered_equal=same_bits(rec["center"], center),
+                recovered_updates=rec["updates"],
+                replayed=rec["replayed"], replay_launches=rec["launches"],
+                fallback_equal=same_bits(back["center"], center),
+                fallback_replayed=back["replayed"],
+                fallback_replay_launches=back["launches"],
+                replay_ms_per_record=back["replay_ms_per_record"])
+            shutil.rmtree(fallback, ignore_errors=True)
+        emit(row)
+        runs[arm] = row
+        steps = run["steps"]
+        if not run["finite"]:
+            fail(f"remote_overlap {arm}: non-finite losses")
+        if len(log) != W * OVERLAP_ROUNDS or not exactly_once(log):
+            fail(f"remote_overlap {arm}: {len(log)} commits folded, or one "
+                 f"twice")
+        if run["fold"] != {"fold_commit": len(log), "fold_int8": 0,
+                           "fold_bf16": 0}:
+            fail(f"remote_overlap {arm}: fold launches {run['fold']} for "
+                 f"{len(log)} commits")
+        if not (run["lstm"]["lstm_fwd_stash"] == run["lstm"]["lstm_bwd"]
+                == steps):
+            fail(f"remote_overlap {arm}: LSTM launches {run['lstm']} in "
+                 f"{steps} steps")
+        if not model_is_center:
+            fail(f"remote_overlap {arm}: the model is not the center")
+        if durable and not (row["recovered_equal"] and row["fallback_equal"]
+                            and row["recovered_updates"] == len(log)
+                            and row["replay_launches"] == row["replayed"]
+                            and row["fallback_replay_launches"]
+                            == row["fallback_replayed"]
+                            == OVERLAP_SNAPSHOT_EVERY):
+            fail(f"remote_overlap {arm}: the recovered center or its "
+                 f"replay launches are wrong: {row}")
+        shutil.rmtree(d, ignore_errors=True)
+    if runs["overlap_journal"]["hidden_fraction"] is None:
+        fail("remote_overlap: no netps.overlap.hidden_fraction gauge")
+    emit({"phase": "remote_overlap_summary", "gpu": gpu,
+          **{f"{arm}_samples_per_s": row["samples_per_s"]
+             for arm, row in runs.items()},
+          "hidden_fraction": runs["overlap_journal"]["hidden_fraction"],
+          "mean_staleness": {arm: row["mean_staleness"]
+                             for arm, row in runs.items()}})
+    return {"replay": replay_launches}
+
+
+def hard_stop(srv) -> None:
+    """Stop a server as its process's death would, without a drain: no
+    ``draining`` answer, the listener gone, every handler ended after the
+    frame it is serving."""
+    srv._stop.set()
+    try:
+        srv._listener.close()
+    except OSError:
+        pass
+    for t in [srv._accept_thread, srv._monitor_thread, *srv._threads]:
+        if t is not None:
+            t.join()
+
+
+def ps_failover_phase(torch, K, F, gpu: str, seed: int) -> dict:
+    """Config #4 against ``"<primary>,<standby>"``, both on the card, lease
+    ``FAILOVER_LEASE``: once round 1 is folded and replicated the primary
+    stops as a dead process would; the standby promotes and the workers
+    walk to it.
+    Returns the standby's ``fold_commit`` launches (replicated records and
+    its own folds): the run's count less the primary's folds."""
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.netps import PSServer, StandbyServer
+
+    W, Kw, B = (REMOTE["num_workers"], REMOTE["communication_window"],
+                REMOTE["batch_size"])
+    df = imdb(n=FAILOVER_ROUNDS * W * Kw * B, vocab_size=VOCAB,
+              seq_len=SEQ_LEN, seed=seed + 3)
+    srv = PSServer(discipline="dynsgd", device="cuda",
+                   lease_s=FAILOVER_LEASE).start()
+    sb = StandbyServer(srv.endpoint, discipline="dynsgd", device="cuda",
+                       lease_s=FAILOVER_LEASE,
+                       promote_after=FAILOVER_LEASE).start()
+    # The primary's center after each fold, by update count: what the
+    # standby must hold at whatever index it last replicated.
+    history = {}
+    real_seat, real_fold = srv._seat_locked, srv._fold_locked
+
+    def seat_and_keep(init):
+        history[0] = [np.array(a, np.float32) for a in init]
+        return real_seat(init)
+
+    def fold_and_keep(*a):
+        st = real_fold(*a)
+        history[srv._updates] = [x.copy() for x in srv._host_center_locked()]
+        return st
+
+    srv._seat_locked, srv._fold_locked = seat_and_keep, fold_and_keep
+    seen = {}
+    real_promote = sb._promote
+
+    def promote():
+        seen["center"], seen["updates"] = sb.center(), sb.updates
+        seen["log_len"] = len(sb.commit_log)
+        real_promote()
+
+    sb._promote = promote
+    real_commit = sb._op_commit
+    post = []  # (epoch the request carried, applied) after promotion
+
+    def op_commit(header, arrays):
+        reply, out = real_commit(header, arrays)
+        post.append((header.get("epoch"), bool(reply.get("applied"))))
+        if reply.get("applied") and "first_fold" not in seen:
+            seen["first_fold"] = time.monotonic()
+        return reply, out
+
+    sb._op_commit = op_commit
+    killed = {}
+
+    def killer():
+        # Round 1 folded and replicated, a record among it: the standby
+        # then holds a center it folded itself, not only a synced one.
+        while (srv.commits_total < W or sb.updates < W
+               or sb.replicated < 1) and not killed.get("cancel"):
+            time.sleep(0.005)
+        if killed.get("cancel"):
+            return
+        killed["at"] = time.monotonic()
+        hard_stop(srv)
+        killed["done"] = time.monotonic()
+
+    watcher = threading.Thread(target=killer, name="ps-killer")
+    watcher.start()
+    try:
+        run = remote_run(torch, K, F, seed + 3, df,
+                         f"{srv.endpoint},{sb.endpoint}", FAILOVER_ROUNDS,
+                         DKTPU_NET_TIMEOUT="10")
+    finally:
+        killed["cancel"] = True
+        watcher.join()
+        sb.close()
+        srv.close()
+    primary_log, sb_log = list(srv.commit_log), list(sb.commit_log)
+    after = sb_log[seen.get("log_len", len(sb_log)):]
+    fenced = run["snap"]["counters"].get("netps.failover.fenced_commits", 0)
+    promoted_center_equal = (
+        seen.get("updates", -1) in history
+        and same_bits(seen["center"], history[seen["updates"]]))
+    stale_folded = [e for e, applied in post if applied and e != sb.epoch]
+    launches = run["fold"]["fold_commit"]
+    want = len(primary_log) + sb.replicated + len(after)
+    row = {"phase": "ps_failover", "gpu": gpu, "rounds": FAILOVER_ROUNDS,
+           **REMOTE, "codec": "int8", "lease_s": FAILOVER_LEASE,
+           "promote_after": FAILOVER_LEASE, "seconds": run["wall"],
+           "samples_per_s": run["samples_per_s"],
+           "primary_commits": len(primary_log),
+           "replicated": sb.replicated, "snapshot_syncs": sb.snapshot_syncs,
+           "standby_updates_at_promotion": seen.get("updates"),
+           "primary_updates_at_kill": max(history, default=0),
+           "standby_commits_after_promotion": len(after),
+           "epoch": sb.epoch, "promoted": sb.promoted,
+           "promoted_center_equal": promoted_center_equal,
+           "kill_to_promotion_s": (sb.promoted_at - killed["at"]
+                                   if sb.promoted_at and "at" in killed
+                                   else None),
+           "kill_to_first_standby_fold_s": (
+               seen["first_fold"] - killed["at"]
+               if "first_fold" in seen and "at" in killed else None),
+           "fenced_commits": fenced, "stale_epoch_folds": len(stale_folded),
+           "fold_launches": launches, "fold_launches_expected": want,
+           "rejoins": sb.rejoins, "evictions": sb.evictions,
+           "launches": {**run["lstm"], **run["fold"]}}
+    emit(row)
+    if "at" not in killed or not sb.promoted or sb.epoch != 1:
+        fail(f"ps_failover: the primary was not killed or the standby did "
+             f"not promote to epoch 1: {row}")
+    if not promoted_center_equal:
+        fail("ps_failover: the standby's center at promotion is not the "
+             "primary's at the index it last replicated")
+    if not run["finite"]:
+        fail("ps_failover: non-finite losses")
+    if not exactly_once(primary_log + after) or not exactly_once(sb_log):
+        fail("ps_failover: a (worker, seq) was folded twice across the two "
+             "servers")
+    if stale_folded or fenced < 0:
+        fail(f"ps_failover: {len(stale_folded)} stale-epoch commits folded")
+    if launches != want:
+        fail(f"ps_failover: {launches} fold_commit launches, want {want} "
+             f"(primary folds + replicated records + standby folds)")
+    if not after:
+        fail("ps_failover: nothing was folded on the promoted standby")
+    return {"standby": launches - len(primary_log)}
+
+
+def cli_server(workdir: str) -> dict:
+    """Start the port's CLI server for ``ps_restart`` (journal only, on a
+    free port, state in ``workdir/ps_restart``) without waiting for it:
+    its start-up (torch, the card, the fold library) overlaps the phase
+    before. ``ps_restart_phase`` reads its ``NETPS_READY`` line."""
+    d = os.path.join(workdir, "ps_restart")
+    shutil.rmtree(d, ignore_errors=True)
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    cmd = [sys.executable, "-m", "distkeras_tpu_torch.netps", "--host",
+           "127.0.0.1", "--port", str(port), "--discipline", "dynsgd",
+           "--device", "cuda", "--state-dir", d, "--snapshot-every", "0"]
+    return {"dir": d, "endpoint": f"127.0.0.1:{port}", "cmd": cmd,
+            "lives": [(time.monotonic(),
+                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        text=True))]}
+
+
+def ps_restart_phase(torch, K, F, gpu: str, seed: int, cli: dict) -> dict:
+    """The port's CLI server (``python -m distkeras_tpu_torch.netps
+    --device cuda --state-dir D --snapshot-every 0``: the journal alone,
+    never pruned, so it holds both lives) in a subprocess, SIGKILLed
+    mid-run and restarted on the same port and directory while config #4
+    trains against it; the workers ride through on retries. Returns the
+    ``fold_commit`` launches of this process's replay of the final
+    directory."""
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.netps import PSClient, state
+
+    W, Kw, B = (REMOTE["num_workers"], REMOTE["communication_window"],
+                REMOTE["batch_size"])
+    d, endpoint, lives = cli["dir"], cli["endpoint"], cli["lives"]
+    df = imdb(n=RESTART_ROUNDS * W * Kw * B, vocab_size=VOCAB,
+              seq_len=SEQ_LEN, seed=seed + 4)
+
+    def ready() -> float:
+        """Seconds from the newest life's start to its ``NETPS_READY``."""
+        t0, proc = lives[-1]
+        line = proc.stdout.readline()
+        if not line.startswith("NETPS_READY"):
+            fail(f"ps_restart: the server did not start: {line!r}")
+        return time.monotonic() - t0
+
+    acked = set()
+    real_commit = PSClient.commit
+
+    def commit(self, delta, pulled_counter):
+        seq = self._seq + 1
+        res = real_commit(self, delta, pulled_counter)
+        if res.applied or res.duplicate:
+            acked.add((self.worker_id, seq))
+        return res
+
+    killed = {}
+
+    def killer():
+        with PSClient(endpoint, timeout=10.0) as observer:
+            while not killed.get("cancel"):
+                if observer.stats()["updates"] >= RESTART_KILL_AT:
+                    break
+                time.sleep(0.02)
+        if killed.get("cancel"):
+            return
+        lives[0][1].send_signal(signal.SIGKILL)
+        lives[0][1].wait()
+        killed["at"] = time.monotonic()
+        lives.append((killed["at"], subprocess.Popen(
+            cli["cmd"], stdout=subprocess.PIPE, text=True)))
+        killed["restart_s"] = ready()
+
+    PSClient.commit = commit
+    try:
+        first_start = ready()
+        watcher = threading.Thread(target=killer, name="ps-restart-killer")
+        watcher.start()
+        try:
+            run = remote_run(torch, K, F, seed + 4, df, endpoint,
+                             RESTART_ROUNDS, DKTPU_NET_RETRIES="60",
+                             DKTPU_NET_TIMEOUT="20")
+        finally:
+            killed["cancel"] = True
+            watcher.join()
+        with PSClient(endpoint, timeout=20.0) as observer:
+            live_center, live_updates = observer.pull()
+            stats = observer.stats()
+        lives[-1][1].send_signal(signal.SIGTERM)
+        drained = lives[-1][1].stdout.read()
+        lives[-1][1].wait(timeout=60)
+    finally:
+        PSClient.commit = real_commit
+        for _t0, proc in lives:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    records = state.read_journal(d)
+    journaled = [(int(r["wid"]), int(r["seq"])) for r in records]
+    lost = sorted(acked - set(journaled))
+    rec = recover_on_card(torch, F, d)
+    row = {"phase": "ps_restart", "gpu": gpu, "rounds": RESTART_ROUNDS,
+           **REMOTE, "codec": "int8", "kill_at_updates": RESTART_KILL_AT,
+           "lives": len(lives), "first_start_s": first_start,
+           "first_start_overlapped": "ps_failover",
+           "restart_s": killed.get("restart_s"),
+           "seconds": run["wall"], "samples_per_s": run["samples_per_s"],
+           "journal_records": len(journaled),
+           "acked_commits": len(acked), "lost_acked_records": lost,
+           "write_queue": state._WRITE_QUEUE,
+           "final_updates": live_updates,
+           "recovered_equal": same_bits(rec["center"], live_center),
+           "recovered_updates": rec["updates"],
+           "replayed": rec["replayed"], "replay_launches": rec["launches"],
+           "replay_ms_per_record": rec["replay_ms_per_record"],
+           "server_fold_backend": stats.get("fold_backend"),
+           "drained": drained.strip().splitlines()[-1:],
+           "model_equals_server_center": same_bits(
+               [p.cpu().numpy() for p in run["trained"].params.values()],
+               live_center),
+           "launches": run["lstm"]}
+    emit(row)
+    shutil.rmtree(d, ignore_errors=True)
+    if len(lives) != 2 or "restart_s" not in killed:
+        fail(f"ps_restart: the server was not killed and restarted: {row}")
+    if not run["finite"]:
+        fail("ps_restart: non-finite losses")
+    if len(journaled) != len(set(journaled)):
+        fail("ps_restart: a (worker, seq) is journaled twice across the two "
+             "lives")
+    if len(lost) > state._WRITE_QUEUE:
+        fail(f"ps_restart: {len(lost)} acknowledged records lost, more than "
+             f"the writer queue's {state._WRITE_QUEUE}")
+    if not (row["recovered_equal"] and rec["updates"] == live_updates):
+        fail("ps_restart: the restarted server's center is not its own "
+             "replay")
+    if rec["launches"] != rec["replayed"]:
+        fail(f"ps_restart: {rec['launches']} fold_commit launches for "
+             f"{rec['replayed']} replayed records")
+    if not row["model_equals_server_center"]:
+        fail("ps_restart: the model is not the server's center")
+    if stats.get("fold_backend") != "cuda":
+        fail(f"ps_restart: the server folded with "
+             f"{stats.get('fold_backend')!r}")
+    return {"replay": rec["launches"]}
+
+
 def flash_bound_ms(B: int, L: int, H: int, D: int, itemsize: int,
                    kernel: str) -> tuple[float, str]:
     """Least time for one flash kernel on this card: its [B, L, H, D]
@@ -3698,6 +4226,25 @@ def main() -> None:
     shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    lap("remote_overlap")
+    workdir = os.path.join("build", "netps_state")
+    os.makedirs(workdir, exist_ok=True)
+    durable = remote_overlap_phase(torch, K, F, gpu, args.seed, workdir)
+    lap("ps_failover")
+    cli = cli_server(workdir)  # starts while ps_failover runs
+    try:
+        durable.update(ps_failover_phase(torch, K, F, gpu, args.seed))
+        lap("ps_restart")
+        restart = ps_restart_phase(torch, K, F, gpu, args.seed, cli)
+    finally:
+        for _t0, proc in cli["lives"]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    durable["replay"] += restart["replay"]
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, rows, launches, bf16_launches):
         """The largest batch's f32 row, the largest error over every f32
         row, and the bf16 row at that batch beside."""
@@ -3766,7 +4313,9 @@ def main() -> None:
 
     def fold_entry():
         """One IMDB commit (config #4, what ``remote_train`` folds) in
-        int8, the bf16 commit beside, ResNet-50's and config #2's CNN's
+        int8 (with the launches of the journal replays and of the standby
+        in ``remote_overlap``, ``ps_failover`` and ``ps_restart``), the
+        bf16 commit beside, ResNet-50's and config #2's CNN's
         commits (with ``remote_cnn``'s launches) and the largest tensor
         folded alone (the same kernel, one row) after them."""
         commit = {(r["model"], r["codec"]): r for r in fold_rows
@@ -3781,6 +4330,8 @@ def main() -> None:
                 "source": "distkeras_tpu_torch/csrc/fold.cu",
                 "replaces": "distkeras_tpu/ops/pallas/fold.py:68",
                 "launches": fold_launches["int8"],
+                "replay_launches": durable["replay"],
+                "standby_launches": durable["standby"],
                 "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
                 "ms": i8["ms"], "plain_ms": i8["plain_ms"],
                 "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"],

@@ -19,15 +19,21 @@ the card (the JAX package's ``netps``; frames byte-compatible both ways).
 * :mod:`~distkeras_tpu_torch.netps.remote` — the worker loop the async
   trainers run under ``remote="host:port"``;
 * :mod:`~distkeras_tpu_torch.netps.endpoints` — the failover walk every
-  wire client rides.
+  wire client rides;
+* :mod:`~distkeras_tpu_torch.netps.state` — the durable center: journal,
+  snapshots, recovery folded on the card (``state_dir=``);
+* :mod:`~distkeras_tpu_torch.netps.standby` — :class:`StandbyServer`: a
+  warm standby tailing the primary, promotion and the epoch fence.
 
 ``python -m distkeras_tpu_torch.netps`` runs a standalone server.
 """
 
 from distkeras_tpu_torch.netps.client import CommitResult, PSClient
 from distkeras_tpu_torch.netps.errors import (
+    EpochFencedError,
     LeaseExpiredError,
     NetPSError,
+    NotPrimaryError,
     ProtocolError,
     RPCTimeoutError,
     ServerClosedError,
@@ -35,9 +41,11 @@ from distkeras_tpu_torch.netps.errors import (
 )
 from distkeras_tpu_torch.netps.fold import commit_scale, fold_delta
 from distkeras_tpu_torch.netps.server import PSServer
+from distkeras_tpu_torch.netps.standby import StandbyServer
 
 __all__ = [
-    "CommitResult", "LeaseExpiredError", "NetPSError", "PSClient",
-    "PSServer", "ProtocolError", "RPCTimeoutError", "ServerClosedError",
-    "ServerDrainingError", "commit_scale", "fold_delta",
+    "CommitResult", "EpochFencedError", "LeaseExpiredError", "NetPSError",
+    "NotPrimaryError", "PSClient", "PSServer", "ProtocolError",
+    "RPCTimeoutError", "ServerClosedError", "ServerDrainingError",
+    "StandbyServer", "commit_scale", "fold_delta",
 ]

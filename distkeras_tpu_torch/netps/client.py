@@ -30,10 +30,17 @@ residual is discarded on rejoin.
 
 Typed, **non-retryable** failures (:class:`ServerDrainingError`,
 :class:`LeaseExpiredError`, any error the server answered) surface
-immediately. With a comma-separated endpoint list the client walks to the
-next endpoint once a retry against the same one has also failed.
-Striping, the shared-memory ring, the device mesh, epochs and fencing,
-tracing and the tuner's probe come with later slices.
+immediately. With a comma-separated endpoint list (primary first, then
+standbys) the client walks to the next endpoint once a retry against the
+same one has also failed, and on every ``not_primary`` answer (an
+unpromoted standby, a fenced ex-primary), for as long as the failover
+patience window lasts (twice the lease plus one deadline). **Epochs**: a
+join adopts the server's primary epoch and every member op carries it; a
+stale one is answered ``epoch_fenced`` and handled like an eviction — the
+client re-joins (adopting the promoted primary's epoch) and a fenced
+commit reports ``evicted=True``: it was never folded. Striping, the
+shared-memory ring, the device mesh, tracing and the tuner's probe come
+with later slices.
 
 One client serves one worker thread; public methods are not safe to call
 concurrently.
@@ -51,8 +58,10 @@ from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.endpoints import EndpointWalker, budget_left
 from distkeras_tpu_torch.netps.errors import (
+    EpochFencedError,
     LeaseExpiredError,
     NetPSError,
+    NotPrimaryError,
     ProtocolError,
     RPCTimeoutError,
     ServerClosedError,
@@ -61,13 +70,17 @@ from distkeras_tpu_torch.netps.errors import (
 from distkeras_tpu_torch.resilience.backoff import full_jitter
 from distkeras_tpu_torch.runtime import config
 
-#: server error kind -> typed exception. All non-retryable: the server
-#: answered, it just said no.
+#: server error kind -> typed exception. Everything here except
+#: ``not_primary`` is non-retryable: the server answered, it just said no.
+#: ``not_primary`` is retried by walking the endpoint list; ``epoch_fenced``
+#: surfaces typed and the caller re-joins, as after an eviction.
 _ERROR_TYPES = {
     "draining": ServerDrainingError,
     "lease_expired": LeaseExpiredError,
     "uninitialized": NetPSError,
     "protocol": ProtocolError,
+    "epoch_fenced": EpochFencedError,
+    "not_primary": NotPrimaryError,
 }
 
 
@@ -90,7 +103,8 @@ class PSClient:
     speaking the wire protocol). ``timeout``/``retries``/``backoff``/
     ``compress`` default from the registry (``DKTPU_NET_TIMEOUT`` /
     ``DKTPU_NET_RETRIES`` / ``DKTPU_NET_BACKOFF`` /
-    ``DKTPU_NET_COMPRESS``)."""
+    ``DKTPU_NET_COMPRESS``). An eviction or a fence re-joins on its own
+    (a fence walks to the promoted primary first)."""
 
     def __init__(self, endpoint: str, worker_id: Optional[int] = None,
                  timeout: Optional[float] = None,
@@ -121,6 +135,9 @@ class PSClient:
         #: negotiated at join; f32 until then.
         self.codec = wire.CODEC_NONE
         self.lease_s: Optional[float] = None
+        #: the primary epoch the last join adopted (None until a join
+        #: against an epoch-aware server); stamped on every member op.
+        self.epoch: Optional[int] = None
         self._sock: Optional[socket.socket] = None
         self._req = 0
         self._ever_connected = False
@@ -128,9 +145,13 @@ class PSClient:
         self._residual: Optional[list] = None
         self._seq = -1
         self._closed = False
-        #: times this client re-joined after an eviction (worker loops
-        #: watch it to re-adopt the center on rejoin).
+        #: times this client re-joined after an eviction or a fence
+        #: (worker loops watch it to re-adopt the center on rejoin).
         self.rejoin_count = 0
+        #: times the endpoint walker moved off an endpoint.
+        self.walk_count = 0
+        #: the last join's ``(center, updates)``.
+        self._last_join: tuple = ([], -1)
 
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
@@ -187,6 +208,14 @@ class PSClient:
             try:
                 with telemetry.span(f"netps.rpc.{op}"):
                     return self._attempt(req, hdr, arrays)
+            except NotPrimaryError as e:
+                # The peer answered, but it is an unpromoted standby or a
+                # fenced ex-primary: retry by WALKING the endpoint list —
+                # the same RPC against the next endpoint (or this one,
+                # after promotion) can succeed.
+                last_exc = e
+                self._disconnect()
+                self._walk(ep_seen)
             except (socket.timeout, ConnectionError, OSError,
                     ProtocolError) as e:
                 if getattr(e, "from_reply", False):
@@ -197,18 +226,42 @@ class PSClient:
                 # same one has also failed: one flaky frame against a
                 # healthy server is not a reason to leave it.
                 if attempt >= 1 or attempt + 1 == attempts:
-                    if self._walker.walk(ep_seen):
-                        telemetry.counter("netps.endpoint_walks").add(1)
-                if not budget_left(attempt, attempts, patience):
-                    break
-                telemetry.counter("netps.retries").add(1)
-                time.sleep(full_jitter(self.backoff, min(attempt, 6)))
-                attempt += 1
+                    self._walk(ep_seen)
+            if not budget_left(attempt, attempts, patience):
+                break
+            telemetry.counter("netps.retries").add(1)
+            time.sleep(full_jitter(self.backoff, min(attempt, 6)))
+            attempt += 1
         telemetry.counter("netps.rpc_failures").add(1)
+        if isinstance(last_exc, NotPrimaryError):
+            # Every endpoint we reached is a standby or a fenced
+            # ex-primary: "nobody is primary yet" surfaces typed.
+            raise last_exc
         raise RPCTimeoutError(
             f"{op} to {self.endpoint} failed after {attempt + 1} attempts "
             f"(last: {type(last_exc).__name__}: {last_exc})",
             attempts=attempt + 1)
+
+    def _walk(self, seen_idx: int) -> None:
+        """Advance past a failure observed against ``seen_idx`` (the
+        walker's CAS; the connection to the old endpoint is already
+        dropped)."""
+        if self._walker.walk(seen_idx):
+            self.walk_count += 1
+            telemetry.counter("netps.endpoint_walks").add(1)
+
+    def _stamped(self, header: dict) -> dict:
+        """Stamp the adopted epoch into a member-op header (nothing against
+        a pre-epoch server: we never claim an epoch we were not given)."""
+        if self.epoch is not None:
+            header["epoch"] = self.epoch
+        return header
+
+    def _rejoin(self) -> None:
+        """An eviction or a fence: re-join (walking to the promoted
+        primary for a fence)."""
+        self.rejoin_count += 1
+        self.join()
 
     def _attempt(self, req: int, hdr: dict,
                  arrays: Sequence) -> tuple[dict, list]:
@@ -255,6 +308,10 @@ class PSClient:
                                 list(init or ()))
         self.worker_id = int(hdr["worker_id"])
         self.lease_s = hdr.get("lease_s")
+        # A join ADOPTS the server's epoch (a failover re-join is exactly
+        # this client arriving with a stale lineage).
+        self.epoch = (int(hdr["epoch"]) if hdr.get("epoch") is not None
+                      else None)
         caps = hdr.get("caps") or {}
         self.codec = (self.requested_codec
                       if self.requested_codec in caps.get("codecs", ())
@@ -267,16 +324,30 @@ class PSClient:
         server_seq = int(hdr.get("last_seq", -1))
         if server_seq > self._seq:
             self._seq = server_seq
-        return center, int(hdr["updates"])
+        self._last_join = (center, int(hdr["updates"]))
+        return self._last_join
+
+    def adopt_dialect(self, other: "PSClient",
+                      center: Sequence[np.ndarray] = ()) -> None:
+        """Adopt another client's join-negotiated dialect (codec, epoch,
+        lease) without a join of our own — membership is by worker_id, not
+        by connection. The overlapped loop's pull-prefetch client uses
+        this so both lanes speak the same wire. ``center`` (the joined
+        center) is what the JAX client sizes its stripes from; the port
+        does not stripe."""
+        del center
+        self.codec = other.codec
+        self.epoch = other.epoch
+        self.lease_s = other.lease_s
 
     def pull(self) -> tuple[list, int]:
         """Current center + update counter; renews the lease. An evicted
-        client transparently re-joins first."""
+        or fenced client transparently re-joins first."""
         try:
-            hdr, center = self._rpc(wire.OP_PULL, {})
-        except LeaseExpiredError:
-            self.rejoin_count += 1
-            return self.join()
+            hdr, center = self._rpc(wire.OP_PULL, self._stamped({}))
+        except (LeaseExpiredError, EpochFencedError):
+            self._rejoin()
+            return self._last_join
         return center, int(hdr["updates"])
 
     def _compress_delta(self, delta: Sequence[np.ndarray]) -> list:
@@ -309,14 +380,12 @@ class PSClient:
         seq = self._seq
         items = self._compress_delta(delta)
         try:
-            hdr, _ = self._rpc(wire.OP_COMMIT,
-                               {"seq": seq, "pulled": int(pulled_counter)},
-                               items)
-        except LeaseExpiredError:
-            # Evicted: the commit was NEVER folded; discard the window,
-            # re-join, continue from a fresh pull.
-            self.rejoin_count += 1
-            self.join()
+            hdr, _ = self._rpc(wire.OP_COMMIT, self._stamped(
+                {"seq": seq, "pulled": int(pulled_counter)}), items)
+        except (LeaseExpiredError, EpochFencedError):
+            # Evicted or fenced: the commit was NEVER folded; discard the
+            # window, re-join, continue from a fresh pull.
+            self._rejoin()
             return CommitResult(applied=False, duplicate=False,
                                 evicted=True, updates=-1, staleness=-1)
         return CommitResult(
@@ -328,11 +397,10 @@ class PSClient:
     def heartbeat(self) -> int:
         """Renew the lease; returns the server's update counter."""
         try:
-            hdr, _ = self._rpc(wire.OP_HEARTBEAT, {})
-        except LeaseExpiredError:
-            self.rejoin_count += 1
-            _center, updates = self.join()
-            return updates
+            hdr, _ = self._rpc(wire.OP_HEARTBEAT, self._stamped({}))
+        except (LeaseExpiredError, EpochFencedError):
+            self._rejoin()
+            return self._last_join[1]
         return int(hdr["updates"])
 
     def stats(self) -> dict:

@@ -1,6 +1,6 @@
 """Typed failure taxonomy of the wire transport and the parameter server
-(the port's copy of the JAX package's ``netps/errors.py``; the failover and
-sharding errors come with those slices).
+(the port's copy of the JAX package's ``netps/errors.py``; the sharding
+error comes with that slice).
 
 Every way an RPC over the wire can fail is one of these, so callers and
 tests match on type — never on message strings.
@@ -42,6 +42,24 @@ class LeaseExpiredError(NetPSError):
     """The server evicted this worker (its lease expired) before the RPC
     arrived. The hardened client reacts by re-joining; the worker loop
     discards the in-flight window and continues from a fresh pull."""
+
+
+class EpochFencedError(NetPSError):
+    """The commit carried a primary epoch the server no longer honors: a
+    standby promoted and fenced the old lineage (stale client epoch), or
+    this server itself was fenced by a higher epoch (it is the zombie).
+    The hardened client reacts like an eviction — re-join (walking the
+    endpoint list to the promoted primary), adopt the new epoch, discard
+    the stale window. Never folded: the whole point is zero stale-epoch
+    folds after a failover."""
+
+
+class NotPrimaryError(NetPSError):
+    """The peer answered but is not the primary: a warm standby that has
+    not (yet) promoted, or a fenced ex-primary. Retryable *by walking the
+    endpoint list* — the same RPC against the next endpoint (or this one
+    after promotion) can succeed, so the client treats it like a transport
+    failure rather than a terminal rejection."""
 
 
 class ServerClosedError(NetPSError):

@@ -37,9 +37,10 @@ import torch
 
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.errors import ProtocolError
-from distkeras_tpu_torch.ops.kernels.fold import (StagedCommit, fold_commit_,
-                                                  pack_commit, plan_commit,
-                                                  read_table)
+from distkeras_tpu_torch.ops.kernels.fold import (StagedCommit,
+                                                  center_layout,
+                                                  fold_commit_, pack_commit,
+                                                  plan_commit, read_table)
 
 #: every discipline the server accepts (the reference routed both elastic
 #: trainers through the plain DeltaParameterServer — the fold is
@@ -180,6 +181,22 @@ class PinnedPool:
         slot[1].record(stream)
         with self._lock:
             self._free.append(slot)
+
+
+def seat_center(arrays, device) -> tuple:
+    """``(flat, offsets, views)``: ``arrays`` as f32 views into one flat
+    tensor on ``device``, each at its ``center_layout`` offset — the layout
+    a staged commit's default offsets address. On the card the copy runs
+    on the current stream."""
+    arrays = [np.asarray(a, np.float32) for a in arrays]
+    offsets, total = center_layout([a.size for a in arrays])
+    host = np.zeros(total, np.float32)
+    for a, off in zip(arrays, offsets):
+        host[off:off + a.size] = a.reshape(-1)
+    flat = torch.from_numpy(host).to(device, copy=True)
+    views = [flat[off:off + a.size].view(a.shape)
+             for a, off in zip(arrays, offsets)]
+    return flat, offsets, views
 
 
 def stage_commit(delta, device, pool: Optional[PinnedPool] = None,

@@ -39,31 +39,46 @@ of the same process put on the default stream. The flat center and the
 staging buffers are allocated under that stream, so the caching allocator
 never hands their blocks to another stream early.
 
-The JAX server's shared-memory ring, device mesh, durable state and
-journal, warm standby and fencing, shards and stripes, tuner probe, chaos
-hooks and tracing come with later slices; a peer learns that from the join
-reply's ``caps``.
+**Durable state** (``state_dir``, :mod:`~distkeras_tpu_torch.netps.
+state`): every fold is journaled in its wire dtype (the commit frame's own
+arrays, not the staged buffer, whose pinned slot is reused), under the
+lock, because fold order is journal order; the center is snapshotted every
+``snapshot_every`` folds; a server built on a directory with state
+recovers it — the snapshot seated on the device, each journal record
+folded by one ``fold_commit`` launch on the server's stream. **Failover**
+(:mod:`~distkeras_tpu_torch.netps.standby`): the ``replicate`` op serves a
+warm standby a bounded wire-form tail of the folded commits (or one full
+sync), and the epoch fence (``fence`` op, the ``epoch`` every member op
+carries) keeps a stale lineage from ever folding.
+
+The JAX server's shared-memory ring, device mesh, shards and stripes,
+tuner probe, chaos hooks and tracing come with later slices; a peer learns
+that from the join reply's ``caps``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import socket
 import threading
 import time
+import uuid
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from distkeras_tpu_torch import telemetry
+from distkeras_tpu_torch.netps import state as _state
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.errors import ProtocolError
 from distkeras_tpu_torch.netps.fold import (PinnedPool, backend_name,
                                             check_discipline,
                                             counter_staleness, decode_entry,
-                                            fold_delta, split_entry,
-                                            stage_commit, validate_delta)
+                                            fold_delta, seat_center,
+                                            split_entry, stage_commit,
+                                            validate_delta)
 from distkeras_tpu_torch.ops.kernels import fold as fold_kernels
 from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.runtime.device import resolve_device
@@ -77,8 +92,15 @@ _FRAME_COMPLETE_S = 30.0
 #: range PyTorch's stream pool offers maps to its highest.
 _STREAM_PRIORITY = -64
 #: in-memory commit-log bound: the evidence list is trimmed to this once it
-#: doubles it (dropped entries stay counted in ``commits_total``).
+#: doubles it, and at snapshot time (dropped entries stay counted in
+#: ``commits_total``).
 _COMMIT_LOG_KEEP = 65536
+#: replication tail depth: folded commits kept (in wire form) for a
+#: standby's ``replicate`` pulls; a standby further behind gets a full
+#: snapshot sync instead.
+_REPL_BUFFER = 64
+#: max journal records per ``replicate`` reply (bounds the frame size).
+_REPL_BATCH = 16
 
 
 class PSServer:
@@ -88,13 +110,22 @@ class PSServer:
     ``center=None`` starts uninitialized: the first ``join`` carrying init
     arrays seeds it (so a CLI-launched server needs no model knowledge —
     the workers bring the parameters). ``lease_s`` defaults to
-    ``DKTPU_PS_LEASE``.
+    ``DKTPU_PS_LEASE``. ``state_dir`` makes the center durable (and, when
+    the directory holds state, recovers it: the disk is authoritative over
+    ``center``); ``snapshot_every`` defaults to
+    ``DKTPU_PS_SNAPSHOT_EVERY``. ``epoch`` is the primary epoch this server
+    starts at; ``standby=True`` serves nothing until promoted (what
+    :class:`~distkeras_tpu_torch.netps.standby.StandbyServer` passes).
     """
 
     def __init__(self, center: Optional[Sequence[np.ndarray]] = None,
                  discipline: str = "adag", host: str = "127.0.0.1",
                  port: int = 0, lease_s: Optional[float] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 state_dir: Optional[str] = None,
+                 snapshot_every: Optional[int] = None,
+                 epoch: int = 0,
+                 standby: bool = False):
         self.discipline = check_discipline(discipline)
         self.device = resolve_device(device)
         #: the server's own stream and its pinned staging buffers (on the
@@ -126,11 +157,34 @@ class PSServer:
         self._last_seq: dict = {}
         #: every worker_id ever admitted (rejoin accounting + id assignment).
         self._ever: set = set()
+        #: primary epoch: member ops carry it; a request from a lineage this
+        #: server no longer honors (or that no longer honors this server) is
+        #: fenced, never folded. Bumped only by a standby's promotion.
+        self.epoch = int(epoch)
+        #: a higher epoch exists somewhere: this server is the zombie and
+        #: never folds again (member ops answer ``not_primary``).
+        self._fenced = False
+        #: a warm standby serves nothing until it promotes.
+        self._not_primary = bool(standby)
         #: all commits ever folded — ``commit_log`` is the bounded tail of
         #: it (``len(commit_log) + dropped == commits_total`` always).
         self.commits_total = 0
+        self.snapshots_written = 0
+        #: host seconds spent writing snapshots (the fsync included).
+        self.snapshot_seconds = 0.0
         self._log_dropped = 0
         self._log_keep = _COMMIT_LOG_KEEP
+        #: per-incarnation lineage token, echoed on every ``replicate``
+        #: reply: a restarted primary may have LOST the tail of its fold
+        #: history (the bounded journal writer's queue died with it), so a
+        #: standby that sees the token change discards its state and
+        #: full-syncs — same fold index, possibly different history.
+        self.lineage = uuid.uuid4().hex
+        #: replication tail of wire-form records; populated only once a
+        #: standby's first ``replicate`` arrives.
+        self._repl: collections.deque = collections.deque(
+            maxlen=_REPL_BUFFER)
+        self._repl_on = False
         #: applied commits in fold order: (worker_id, seq, staleness) — the
         #: exactly-once evidence.
         self.commit_log: list = []
@@ -139,6 +193,39 @@ class PSServer:
         self._fold_stats = (0, 0.0)
         #: seconds spent in folds so far (host clock around each fold).
         self.fold_seconds = 0.0
+        #: journal records the construction-time recovery folded, and its
+        #: wall seconds (the server stream synchronized at its end).
+        self.recovered_records = 0
+        self.recovery_seconds = 0.0
+        #: durable state: journal + snapshots + recovery.
+        self._store: Optional[_state.StateStore] = None
+        if state_dir:
+            self._store = _state.StateStore(state_dir, snapshot_every)
+            if self.device.type == "cuda":
+                fold_kernels.prepare()  # replay launches the fold kernel
+            with self._on_stream():
+                rec = self._store.recover(self.discipline, self.device,
+                                          self._pool, seat=self._seat_locked)
+            if rec is not None:
+                # A restart resumes the folded lineage, it does not reseed.
+                self._updates = rec.updates
+                self._last_seq = dict(rec.last_seq)
+                self._ever = set(rec.last_seq)
+                self.epoch = max(self.epoch, rec.epoch)
+                self.commits_total = rec.commits_total
+                # A fence that landed on the previous incarnation is
+                # durable: the zombie stays a zombie across restarts.
+                self._fenced = rec.fenced
+                # The pre-crash commits are not in this incarnation's log.
+                self._log_dropped = rec.commits_total
+                self.recovered_records = rec.replayed
+                self.recovery_seconds = rec.replay_seconds
+                self._host = None
+            self._store.open_journal(self._updates)
+            if self._flat is not None and rec is None:
+                # Ctor-seeded center with a fresh dir: anchor the journal
+                # with the base snapshot a recovery will replay onto.
+                self._snapshot_locked()
         self.evictions = 0
         self.rejoins = 0
         self._draining = False
@@ -178,20 +265,16 @@ class PSServer:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
-    def _seat_locked(self, init: list) -> None:
-        """Seat the first center on the device: one flat f32 tensor, one
-        view per tensor at its ``center_layout`` offset (lock held, or
-        construction)."""
-        offsets, total = fold_kernels.center_layout([a.size for a in init])
-        host = np.zeros(total, np.float32)
-        for a, off in zip(init, offsets):
-            host[off:off + a.size] = a.reshape(-1)
+    def _seat_locked(self, init: list) -> list:
+        """Seat a center on the device (the first init, a recovered
+        snapshot, a standby's full sync): one flat f32 tensor, one view per
+        tensor at its ``center_layout`` offset (lock held, or
+        construction). Returns the views."""
         with self._on_stream():
-            self._flat = torch.from_numpy(host).to(self.device, copy=True)
-        self._offsets = offsets
-        self._center = [self._flat[off:off + a.size].view(a.shape)
-                        for a, off in zip(init, offsets)]
+            self._flat, self._offsets, self._center = seat_center(
+                init, self.device)
         self._host = None
+        return self._center
 
     def _host_center_locked(self) -> list:
         """The host mirror (lock held): one device-to-host copy of the flat
@@ -245,6 +328,8 @@ class PSServer:
         release the listener. Idempotent."""
         self.drain()
         self._stop.set()
+        if self._store is not None:
+            self._store.close()
         if self._accept_thread is not None:
             self._accept_thread.join()
         if self._monitor_thread is not None:
@@ -358,6 +443,18 @@ class PSServer:
         op = header.get("op", "")
         with telemetry.span(f"netps.server.{op or 'unknown'}"):
             reply, out = self._dispatch(op, header, arrays)
+        err = reply.get("error")
+        if op == wire.OP_COMMIT and err == "epoch_fenced":
+            # Every fenced commit is a commit that did NOT reach the fold.
+            telemetry.counter("netps.failover.fenced_commits").add(1)
+        elif op == wire.OP_REPLICATE and reply.get("mode") == "snapshot":
+            telemetry.counter("netps.failover.snapshot_syncs").add(1)
+        elif op == wire.OP_FENCE and reply.get("fenced"):
+            telemetry.counter("netps.failover.fences_accepted").add(1)
+            telemetry.event("netps_fenced", {"epoch": reply.get("epoch")})
+        if self._store is not None and op in (wire.OP_COMMIT, wire.OP_JOIN):
+            telemetry.gauge("netps.recovery.snapshots").set(
+                float(self.snapshots_written))
         reply["req"] = header.get("req")
         return reply, out
 
@@ -373,6 +470,10 @@ class PSServer:
             return self._op_heartbeat(header)
         if op == wire.OP_LEAVE:
             return self._op_leave(header)
+        if op == wire.OP_REPLICATE:
+            return self._op_replicate(header)
+        if op == wire.OP_FENCE:
+            return self._op_fence(header)
         if op == wire.OP_STATS:
             return self._op_stats(header)
         return {"error": "protocol", "message": f"unknown op {op!r}"}, []
@@ -387,6 +488,11 @@ class PSServer:
         # passthrough (frames arrive decode=False).
         init = [decode_entry(a) for a in arrays]
         with self._lock:
+            # A join never carries an epoch — it ADOPTS the server's — so
+            # only the fenced/standby half of the check applies.
+            err = self._check_primary_locked({})
+            if err is not None:
+                return err
             if self._draining:
                 return self._err("draining", "server is draining")
             if wid is None:
@@ -395,6 +501,10 @@ class PSServer:
             rejoin = wid in self._ever and wid not in self._members
             if self._flat is None and init:
                 self._seat_locked([np.asarray(a, np.float32) for a in init])
+                if self._store is not None:
+                    # First center this store has seen: anchor the journal
+                    # with the base snapshot recovery will replay onto.
+                    self._snapshot_locked()
             if self._flat is None:
                 return self._err(
                     "uninitialized",
@@ -414,11 +524,14 @@ class PSServer:
         # negotiation (the client compresses only with an advertised codec).
         return ({"ok": True, "worker_id": wid, "updates": updates,
                  "lease_s": self.lease_s, "last_seq": last_seq,
-                 "caps": dict(wire.CAPS)}, center)
+                 "epoch": self.epoch, "caps": dict(wire.CAPS)}, center)
 
     def _op_pull(self, header: dict) -> tuple[dict, list]:
         wid = header.get("worker_id")
         with self._lock:
+            err = self._check_primary_locked(header)
+            if err is not None:
+                return err
             if self._flat is None:
                 return self._err("uninitialized", "no center yet")
             if wid is not None:
@@ -458,6 +571,9 @@ class PSServer:
         with self._on_stream():
             staged = stage_commit(arrays, self.device, self._pool)
         with self._lock:
+            err = self._check_primary_locked(header)
+            if err is not None:
+                return err
             if self._draining:
                 return self._err("draining", "server is draining")
             if wid not in self._members:
@@ -479,7 +595,8 @@ class PSServer:
                 duplicate = True
                 staleness = -1
             else:
-                staleness = self._fold_locked(wid, seq, pulled, staged)
+                staleness = self._fold_locked(wid, seq, pulled, staged,
+                                              arrays)
             updates = self._updates
             n, dt = self._fold_stats
         if duplicate:
@@ -494,10 +611,15 @@ class PSServer:
                  "updates": updates, "staleness": staleness}, [])
 
     def _fold_locked(self, wid: int, seq: int, pulled,
-                     staged: fold_kernels.StagedCommit) -> int:
+                     staged: fold_kernels.StagedCommit,
+                     wire_delta: list) -> int:
         """The ONE fold (lock held): staleness from the counter rule, then
         ``fold_delta`` on the device center, the exactly-once bookkeeping,
-        and the commit-log bound."""
+        and the durability tail — the journal append (fold order IS journal
+        order, which is why this stays under the lock), snapshot-when-due,
+        the replication tail, and the commit-log bound. ``wire_delta`` is
+        the commit frame's own entries: each frame has a buffer of its own,
+        so the journal and the tail may hold them until written or sent."""
         staleness = counter_staleness(self._updates, pulled)
         t0 = time.perf_counter()
         with self._on_stream():
@@ -506,21 +628,99 @@ class PSServer:
         self._host = None  # the mirror is stale from here on
         self._fold_stats = (len(staged.rows), dt)
         self.fold_seconds += dt
+        self._record_fold_locked(wid, seq, staleness, list(wire_delta))
+        return staleness
+
+    def _record_fold_locked(self, wid: int, seq: int, staleness: int,
+                            wire_delta: list, epoch=None,
+                            commits_total=None) -> None:
+        """The bookkeeping of one fold (lock held), shared by the primary's
+        fold and a standby's replicated record: the commit log, the dedup
+        table, the counters, the replication tail, the journal and the
+        snapshot when due."""
+        u = self._updates
         self.commit_log.append((wid, seq, staleness))
         self._last_seq[wid] = seq
+        self._ever.add(wid)
         self._updates += 1
-        self.commits_total += 1
-        if len(self.commit_log) >= 2 * self._log_keep:
+        self.commits_total = (self.commits_total + 1 if commits_total is None
+                              else int(commits_total))
+        if epoch is not None:
+            self.epoch = max(self.epoch, int(epoch))
+        if self._repl_on:
+            self._repl.append({"u": u, "wid": wid, "seq": seq,
+                               "st": staleness, "e": self.epoch,
+                               "n": self.commits_total, "delta": wire_delta})
+        if self._store is not None:
+            self._store.append(epoch=self.epoch, wid=wid, seq=seq,
+                               staleness=staleness, updates=u,
+                               commits_total=self.commits_total,
+                               delta=wire_delta)
+            if self._store.due(self._updates):
+                self._snapshot_locked()
+        self._trim_log_locked(2 * self._log_keep)
+
+    def _trim_log_locked(self, threshold: int) -> None:
+        """Drop the oldest commit-log entries back to the keep bound once
+        the list reaches ``threshold`` (lock held) — the one place the
+        ``len(commit_log) + dropped == commits_total`` invariant is kept."""
+        if len(self.commit_log) >= threshold > self._log_keep:
             drop = len(self.commit_log) - self._log_keep
             del self.commit_log[:drop]
             self._log_dropped += drop
-        return staleness
+
+    def _snapshot_locked(self) -> None:
+        """Write one center snapshot and rotate/compact the journal (lock
+        held), then trim the commit log to its keep bound. The center comes
+        through the host mirror, which waits on the server stream only."""
+        t0 = time.perf_counter()
+        self._store.snapshot(center=self._host_center_locked(),
+                             updates=self._updates,
+                             last_seq=self._last_seq, epoch=self.epoch,
+                             commits_total=self.commits_total)
+        self.snapshot_seconds += time.perf_counter() - t0
+        self.snapshots_written += 1
+        self._trim_log_locked(self._log_keep + 1)
+
+    @property
+    def journal_bytes(self) -> int:
+        """Bytes of journal records written by this incarnation."""
+        return self._store.journal_bytes if self._store is not None else 0
+
+    def _check_primary_locked(self, header: dict):
+        """The epoch fence (lock held): None when this server may serve
+        the request, else the typed error reply. A fenced or
+        not-yet-promoted server answers ``not_primary`` (the client walks
+        its endpoint list); a request from a STALE epoch answers
+        ``epoch_fenced`` (the client re-joins and adopts the new lineage);
+        a request from a HIGHER epoch is proof somebody promoted past this
+        server — it fences itself on the spot, so a zombie primary never
+        folds again even if the promotion's ``fence`` op was lost."""
+        if self._not_primary:
+            return self._err("not_primary", "warm standby, not promoted")
+        epoch = header.get("epoch")
+        if epoch is not None and int(epoch) > self.epoch and not self._fenced:
+            self._fenced = True
+            if self._store is not None:
+                self._store.write_epoch(int(epoch), fenced=True)
+        if self._fenced:
+            return self._err("not_primary",
+                             f"fenced ex-primary (epoch {self.epoch})")
+        if epoch is not None and int(epoch) < self.epoch:
+            return self._err(
+                "epoch_fenced",
+                f"request epoch {int(epoch)} predates server epoch "
+                f"{self.epoch}: re-join the promoted primary")
+        return None
 
     def _op_heartbeat(self, header: dict) -> tuple[dict, list]:
         wid = header.get("worker_id")
         if wid is None:
             return self._err("protocol", "heartbeat requires worker_id")
         with self._lock:
+            err = self._check_primary_locked(header)
+            if err is not None:
+                return err
             if int(wid) not in self._members:
                 return self._err(
                     "lease_expired", f"worker {wid} is not a member")
@@ -540,13 +740,78 @@ class PSServer:
         capabilities without joining. Never touches membership, leases,
         the dedup table or the fold."""
         with self._lock:
-            extra = {"updates": self._updates,
+            extra = {"updates": self._updates, "epoch": self.epoch,
                      "members": len(self._members),
                      "commits_total": self.commits_total,
                      "draining": self._draining,
-                     "ready": not self._draining,
+                     # A primary that can take commits; standbys and
+                     # fenced ex-primaries answer stats but are not ready.
+                     "ready": (not self._draining and not self._fenced
+                               and not self._not_primary),
                      "fold_backend": backend_name(self._center)}
         return ({"ok": True, "caps": dict(wire.CAPS), "role": "ps",
                  "snapshot": telemetry.get().snapshot(), "ring": [],
                  **extra}, [])
+
+    def _op_replicate(self, header: dict) -> tuple[dict, list]:
+        """One pull of the journal stream by a warm standby: ``u`` is the
+        next fold index the standby needs. Answers a batch of records in
+        wire form (``mode=records``; each record header carries its array
+        count ``k``, the deltas ride flattened), or — for a fresh standby
+        (``u < 0``), one behind the tail, gapped or ahead of this primary —
+        one full state sync (``mode=snapshot``). Served during drain."""
+        u = int(header.get("u", -1))
+        with self._lock:
+            if self._not_primary or self._fenced:
+                return self._err(
+                    "not_primary", "cannot replicate from a non-primary")
+            if self._flat is None:
+                return self._err("uninitialized", "no center yet")
+            # The first replicate turns the tail on: no deployment without
+            # a standby pays its memory.
+            self._repl_on = True
+            cursor = self._updates
+            recs = [r for r in self._repl if r["u"] >= u]
+            if u == cursor:
+                recs = []
+            elif u < 0 or u > cursor or not recs or recs[0]["u"] != u:
+                # The primary's state is the authoritative lineage: one full
+                # sync the standby adopts wholesale.
+                hdr = {"ok": True, "mode": "snapshot",
+                       "updates": cursor, "epoch": self.epoch,
+                       "lineage": self.lineage,
+                       "commits_total": self.commits_total,
+                       "last_seq": {str(k): int(v)
+                                    for k, v in self._last_seq.items()}}
+                return hdr, list(self._host_center_locked())
+            recs = recs[:_REPL_BATCH]
+            headers = [{"u": r["u"], "wid": r["wid"], "seq": r["seq"],
+                        "st": r["st"], "e": r["e"], "n": r["n"],
+                        "k": len(r["delta"])} for r in recs]
+            out: list = []
+            for r in recs:
+                out.extend(r["delta"])
+            return ({"ok": True, "mode": "records", "records": headers,
+                     "updates": cursor, "epoch": self.epoch,
+                     "lineage": self.lineage}, out)
+
+    def _op_fence(self, header: dict) -> tuple[dict, list]:
+        """A promoted standby fencing the old lineage: an epoch strictly
+        above ours means we are the zombie — stop folding forever, durably.
+        An epoch at or below ours means the *fencer* is stale; refuse with
+        the typed fence error."""
+        try:
+            epoch = int(header["epoch"])
+        except (KeyError, TypeError, ValueError):
+            return self._err("protocol", "fence requires an integer epoch")
+        with self._lock:
+            if epoch > self.epoch:
+                self._fenced = True
+                if self._store is not None:
+                    self._store.write_epoch(epoch, fenced=True)
+                return {"ok": True, "fenced": True, "epoch": epoch}, []
+            return self._err(
+                "epoch_fenced",
+                f"fence epoch {epoch} does not exceed server epoch "
+                f"{self.epoch}")
 

@@ -38,7 +38,7 @@ import json
 import socket
 import struct
 import zlib
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -64,11 +64,12 @@ CODEC_INT8 = "int8"
 CODECS = (CODEC_NONE, CODEC_BF16, CODEC_INT8)
 
 #: capabilities THIS build advertises — only what the port implements: the
-#: tensor codecs and the serving ops (``infer``/``stats``). The JAX
-#: package's other bits (striping, shm, replication, sharding, tuner,
-#: tracing, tree, mesh) are absent, so a peer that gates a dialect on them
-#: speaks the plain one to the port.
-CAPS = {"codecs": list(CODECS), "serving": True}
+#: tensor codecs, warm-standby replication and fencing (``replicate``/
+#: ``fence``) and the serving ops (``infer``/``stats``). The JAX package's
+#: other bits (striping, shm, sharding, tuner, tracing, tree, mesh) are
+#: absent, so a peer that gates a dialect on them speaks the plain one to
+#: the port.
+CAPS = {"codecs": list(CODECS), "replication": True, "serving": True}
 
 #: the core parameter-server ops carried in ``header["op"]``.
 OP_JOIN = "join"
@@ -77,10 +78,49 @@ OP_COMMIT = "commit"
 OP_HEARTBEAT = "heartbeat"
 OP_LEAVE = "leave"
 
+#: warm-standby replication + failover fencing (``CAPS["replication"]``).
+OP_REPLICATE = "replicate"
+OP_FENCE = "fence"
+
 #: serving-plane ops carried in ``header["op"]`` (``stats`` is also the
 #: parameter server's membership-free scrape).
 OP_INFER = "infer"
 OP_STATS = "stats"
+
+
+class OpSpec(NamedTuple):
+    """One op's wire contract: ``cap`` is the :data:`CAPS` key whose
+    advertisement gates it (``None`` = core protocol), ``replies`` the
+    distinguished reply-header keys a handler may answer it with, beyond
+    ``ok``/``error``/``message``/``req``."""
+
+    cap: Optional[str]
+    replies: tuple
+
+
+#: the ops the port serves, with their reply fields (the JAX package's
+#: registry rows for the same ops; the striping, sharding, tree and tuner
+#: fields are never answered here). A server reply carries no key outside
+#: its op's row, and the rows stay subsets of the JAX package's, so each
+#: package can read the other's replies;
+#: ``tests/test_torch_netps_failover.py`` holds both.
+OP_REGISTRY = {
+    OP_JOIN: OpSpec(None, ("worker_id", "updates", "lease_s", "last_seq",
+                           "epoch", "caps")),
+    OP_PULL: OpSpec(None, ("updates",)),
+    OP_COMMIT: OpSpec(None, ("applied", "duplicate", "pending", "updates",
+                             "staleness")),
+    OP_HEARTBEAT: OpSpec(None, ("updates",)),
+    OP_LEAVE: OpSpec(None, ()),
+    OP_REPLICATE: OpSpec("replication",
+                         ("mode", "records", "updates", "epoch", "lineage",
+                          "commits_total", "last_seq")),
+    OP_FENCE: OpSpec("replication", ("fenced", "epoch")),
+    OP_INFER: OpSpec("serving", ("arrays", "error")),
+    OP_STATS: OpSpec(None, ("caps", "role", "snapshot", "ring", "updates",
+                            "epoch", "members", "commits_total", "draining",
+                            "ready", "fold_backend")),
+}
 
 
 def max_frame_bytes() -> int:
@@ -202,8 +242,11 @@ def parse_prefix(prefix: bytes,
     return kind, crc, length
 
 
-def decode_frame(raw: bytes) -> tuple[int, dict, list]:
-    """Verify + decode one whole raw frame: ``(kind, header, arrays)``."""
+def decode_frame(raw: bytes,
+                 decode: bool = True) -> tuple[int, dict, list]:
+    """Verify + decode one whole raw frame: ``(kind, header, arrays)``.
+    ``decode=False`` returns ``(array, spec)`` wire pairs (the journal
+    replay path — replayed deltas must re-fold in their wire dtype)."""
     kind, crc, length = parse_prefix(raw[:PREFIX_SIZE],
                                      max_frame=len(raw))
     body = raw[PREFIX_SIZE:]
@@ -212,7 +255,7 @@ def decode_frame(raw: bytes) -> tuple[int, dict, list]:
             f"frame declares {length} body bytes, got {len(body)}")
     if zlib.crc32(body) != crc:
         raise ProtocolError("frame checksum mismatch (corrupt or truncated)")
-    header, arrays = _decode_body(body)
+    header, arrays = _decode_body(body, decode=decode)
     return kind, header, arrays
 
 
@@ -313,6 +356,18 @@ def send_frame(sock: socket.socket, kind: int, header: dict,
     """Scatter-gather send of one frame; returns bytes written."""
     buffers, total = _frame_buffers(kind, header, arrays)
     _sendmsg_all(sock, buffers)
+    return total
+
+
+def write_frame(fobj, kind: int, header: dict,
+                arrays: Sequence = ()) -> int:
+    """One frame appended to a binary file object, buffer by buffer — the
+    durable journal's record writer (``netps/state.py``). The frame
+    self-validates on read through the same crc and length checks the
+    sockets use, so a torn tail is detected, not replayed."""
+    buffers, total = _frame_buffers(kind, header, arrays)
+    for b in buffers:
+        fobj.write(b)
     return total
 
 

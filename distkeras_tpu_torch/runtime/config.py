@@ -81,6 +81,11 @@ ENV_REGISTRY: dict = _declare(
            "Master switch for the telemetry registry; `0` swaps every "
            "span/counter/gauge/histogram for a no-op singleton.",
            "observability"),
+    EnvVar("DKTPU_TRACE", "bool", False,
+           "Fleet-wide distributed tracing (the JAX package's "
+           "`telemetry/tracing/`). Not ported: the port's remote worker "
+           "loop raises when it is set.",
+           "observability"),
     EnvVar("DKTPU_TELEMETRY_ROTATE_MB", "float", 0.0,
            "Size bound (MiB) for telemetry/trace JSONL files: a file at or "
            "over the bound is rotated (atomic rename to `<path>.<n>`, "
@@ -156,6 +161,11 @@ ENV_REGISTRY: dict = _declare(
            "loop). Not ported: the port's remote loop raises when it is "
            "set.",
            "network"),
+    EnvVar("DKTPU_NET_FAULTS", "str", "",
+           "Network-fault chaos plan (`kind@frame[:arg]`, the JAX "
+           "package's `resilience/faults.py`). Not ported: the port's "
+           "remote worker loop raises when it is set.",
+           "network"),
     EnvVar("DKTPU_NET_COMPRESS", "str", "none",
            "Delta codec for commits: `none` (f32), `bf16` (truncate), or "
            "`int8` (per-tensor scale).",
@@ -166,6 +176,26 @@ ENV_REGISTRY: dict = _declare(
            "client walks on failure/`not_primary` (failover); async "
            "trainers use it when `remote=` is not passed explicitly "
            "(`Job` sets it for every launched worker).",
+           "network"),
+    EnvVar("DKTPU_PS_STATE_DIR", "str", "",
+           "Directory for the netps server's durable state (write-ahead "
+           "commit journal + periodic center snapshots + sha256 sidecars); "
+           "a restarted server recovers center/counter/dedup state from it "
+           "and in-flight commits retransmit exactly-once. Empty = "
+           "in-memory only (a PS crash loses every fold).",
+           "network"),
+    EnvVar("DKTPU_PS_SNAPSHOT_EVERY", "int", 500,
+           "Folds between netps center snapshots when a state dir is set; "
+           "each snapshot rotates + compacts the journal, so on-disk state "
+           "stays bounded at ~2 snapshots plus the commits between them. "
+           "0 disables snapshots (journal-only, unbounded).",
+           "network"),
+    EnvVar("DKTPU_PS_STANDBY", "str", "",
+           "`host:port` of the PRIMARY a `python -m distkeras_tpu_torch."
+           "netps` process should run as a warm standby of: it tails the "
+           "primary's journal stream over the wire (`replicate` frames), "
+           "promotes itself when the primary's lease lapses, and fences "
+           "the old epoch. Empty = run as a primary.",
            "network"),
     EnvVar("DKTPU_PS_LEASE", "float", 10.0,
            "Membership lease (seconds); the endpoint walker's patience "

@@ -869,6 +869,111 @@ def test_remote_run_on_card_folds_every_commit_through_the_kernel(
         assert np.array_equal(p.cpu().numpy(), c)
 
 
+def _drive_commits(endpoint, n, compress, first_worker=0):
+    """Two workers commit seeded deltas from one pull a round, so every
+    other commit folds at staleness 1."""
+    from distkeras_tpu_torch.netps import PSClient
+
+    rng = np.random.default_rng(first_worker + 11)
+    init = [rng.normal(size=s).astype(np.float32)
+            for s in ((64, 33), (129,), (7, 5))]
+    clients = [PSClient(endpoint, worker_id=first_worker + i, timeout=30.0,
+                        compress=compress) for i in range(2)]
+    try:
+        for c in clients:
+            c.join(init=init)
+        done = 0
+        while done < n:
+            pulls = [c.pull() for c in clients]
+            for c, (center, upd) in zip(clients, pulls):
+                if done < n:
+                    c.commit([rng.normal(scale=0.1, size=a.shape)
+                              .astype(np.float32) for a in center], upd)
+                    done += 1
+    finally:
+        for c in clients:
+            c.close()
+
+
+@pytest.mark.parametrize("codec", ["none", "int8", "bf16"])
+def test_recovery_on_card_is_bit_equal_to_the_cpu_twin(card, tmp_path,
+                                                       codec):
+    """A card server's state directory recovers on the card (one
+    ``fold_commit`` launch per replayed record) and on the CPU (the twin)
+    to the pre-crash center, bit for bit."""
+    from distkeras_tpu_torch.netps import PSServer
+
+    d = str(tmp_path / "state")
+    srv = PSServer(discipline="dynsgd", device="cuda", state_dir=d,
+                   snapshot_every=4).start()
+    try:
+        _drive_commits(srv.endpoint, 11, codec)
+        pre = srv.center()
+    finally:
+        srv.close()
+    F.reset_launches()
+    back = PSServer(discipline="dynsgd", device="cuda", state_dir=d)
+    try:
+        assert back.updates == 11 and back.recovered_records == 3
+        assert F.launch_counts()["fold_commit"] == 3
+        got = back.center()
+    finally:
+        back.close()
+    twin = PSServer(discipline="dynsgd", device="cpu", state_dir=d)
+    try:
+        ref = twin.center()
+    finally:
+        twin.close()
+    for a, b, c in zip(pre, got, ref):
+        assert a.tobytes() == b.tobytes() == c.tobytes()
+
+
+@pytest.mark.parametrize("codec", ["none", "int8", "bf16"])
+def test_standby_on_card_replays_bit_equal_to_the_cpu_primary(card, codec):
+    """A standby on the card tails a primary on the CPU record by record
+    (each commit waits until it is replicated): one ``fold_commit`` launch
+    per replicated record, the centers bit-equal after each."""
+    import time as _time
+
+    from distkeras_tpu_torch.netps import PSClient, PSServer, StandbyServer
+
+    def wait(predicate):
+        deadline = _time.monotonic() + 20
+        while not predicate() and _time.monotonic() < deadline:
+            _time.sleep(0.01)
+        assert predicate()
+
+    rng = np.random.default_rng(5)
+    init = [rng.normal(size=s).astype(np.float32)
+            for s in ((64, 33), (129,), (7, 5))]
+    srv = PSServer(discipline="dynsgd", device="cpu", lease_s=30.0).start()
+    sb = StandbyServer(srv.endpoint, discipline="dynsgd", device="cuda",
+                       lease_s=30.0, promote_after=60.0).start()
+    clients = [PSClient(srv.endpoint, worker_id=i, timeout=30.0,
+                        compress=codec) for i in range(2)]
+    try:
+        for c in clients:
+            c.join(init=init)
+        wait(lambda: sb._flat is not None)  # the full sync
+        F.reset_launches()  # only the standby folds on the card here
+        for k in range(6):
+            c = clients[k % 2]
+            center, upd = c.pull()
+            c.commit([rng.normal(scale=0.1, size=a.shape).astype(np.float32)
+                      for a in center], upd - k % 2)
+            wait(lambda: sb.updates == srv.updates)
+            for a, b in zip(srv.center(), sb.center()):
+                assert a.tobytes() == b.tobytes()
+        assert sb.replicated == 6 and sb.snapshot_syncs == 1
+        assert F.launch_counts()["fold_commit"] == 6
+        assert [st for _w, _s, st in srv.commit_log][-6:] == [0, 1] * 3
+    finally:
+        for c in clients:
+            c.close()
+        sb.close()
+        srv.close()
+
+
 def _flash_inputs(B, L, H, D, dtype, seed=0):
     """q (pre-scaled), k, v and a cotangent [B, L, H, D] on the card."""
     g = torch.Generator().manual_seed(seed)

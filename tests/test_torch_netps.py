@@ -422,4 +422,4 @@ def test_port_fold_delta_is_the_server_fold():
     fold_delta(center, [np.full(4, 2.0, np.float32)], "dynsgd", staleness=1)
     np.testing.assert_allclose(center[0].numpy(), 1.0)
     assert wire.CAPS == {"codecs": ["none", "bf16", "int8"],
-                         "serving": True}
+                         "replication": True, "serving": True}

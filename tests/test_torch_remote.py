@@ -15,6 +15,8 @@ by up to the sum over commits of each commit's largest quantization step
 difference is held within 0.6 of the JAX trainer's own bf16-vs-f32
 distance, as in process (``tests/test_torch_precision.py`` says why)."""
 
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -223,13 +225,15 @@ def test_ps_endpoint_env_routes_to_the_server(monkeypatch):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"DKTPU_NET_INFLIGHT": "2"}, "DKTPU_NET_INFLIGHT"),
+    ({"DKTPU_NET_INFLIGHT": "2", "DKTPU_NET_SHARDS": "4"}, "item 4c"),
     ({"DKTPU_NET_SHARDS": "2"}, "DKTPU_NET_SHARDS"),
     ({"DKTPU_NET_HIER": "1"}, "DKTPU_NET_HIER"),
     ({"DKTPU_NET_AUTOTUNE": "1"}, "DKTPU_NET_AUTOTUNE"),
     ({"DKTPU_NET_TRANSPORT": "shm"}, "DKTPU_NET_TRANSPORT"),
     ({"DKTPU_NET_TRANSPORT": "mesh"}, "DKTPU_NET_TRANSPORT"),
     ({"DKTPU_PS_ENDPOINT": "127.0.0.1:1;127.0.0.1:2"}, "sharded"),
+    ({"DKTPU_NET_FAULTS": "evict@1:2"}, "item 6"),
+    ({"DKTPU_TRACE": "1"}, "item 10"),
 ])
 def test_unported_remote_options_raise(monkeypatch, env, match):
     for k, v in env.items():
@@ -238,3 +242,112 @@ def test_unported_remote_options_raise(monkeypatch, env, match):
     remote = None if "DKTPU_PS_ENDPOINT" in env else "127.0.0.1:1"
     with pytest.raises(NotImplementedError, match=match):
         T.DynSGD(pm, **_kw(1), remote=remote).train(DataFrame(_columns(1)))
+
+
+# ---------------------------------------------------------------------------
+# Compute/comms overlap (DKTPU_NET_INFLIGHT > 1), as the JAX package's
+# tests/test_netps.py test_remote_overlap_inflight_trains_and_reports_
+# hidden_fraction: the fold order depends on timing there, so the port's
+# center is held to the JAX package's numpy replay of the port's own
+# journal, bit for bit.
+# ---------------------------------------------------------------------------
+
+def _no_double_fold(log):
+    seen = set()
+    for wid, seq, _st in log:
+        assert (wid, seq) not in seen, f"({wid},{seq}) folded twice"
+        seen.add((wid, seq))
+
+
+@pytest.mark.parametrize("name,discipline", [("ADAG", "adag"),
+                                             ("DynSGD", "dynsgd")])
+def test_overlapped_loop_trains_exactly_once_and_replays_in_jax(
+        monkeypatch, tmp_path, name, discipline):
+    from distkeras_tpu.netps import state as jax_state
+    from distkeras_tpu_torch import telemetry
+
+    monkeypatch.setenv("DKTPU_NET_INFLIGHT", "2")
+    monkeypatch.setenv("DKTPU_NET_COMPRESS", "int8")
+    monkeypatch.setenv("DKTPU_NET_TIMEOUT", "5.0")
+    W, rounds = 2, 5
+    cols = _columns(W, rounds=rounds, seed=4)
+    pm = imdb_lstm(**SMALL, device="cpu", seed=3)
+    d = str(tmp_path / "state")
+    telemetry.reset()
+    srv = PSServer(discipline=discipline, device="cpu", state_dir=d,
+                   snapshot_every=3).start()
+    try:
+        t = getattr(T, name)(pm, **_kw(W), remote=srv.endpoint)
+        out = t.train(DataFrame(cols))
+        log = list(srv.commit_log)
+        center = srv.center()
+    finally:
+        srv.close()
+    assert len(log) == W * rounds
+    _no_double_fold(log)
+    for p, c in zip(out.params.values(), center):
+        np.testing.assert_array_equal(p.numpy(), c)
+    assert np.isfinite(t.get_worker_histories()).all()
+    snap = telemetry.get().snapshot()
+    assert 0.0 <= snap["gauges"]["netps.overlap.hidden_fraction"][
+        "value"] <= 1.0
+    assert snap["spans"]["netps.commit.staleness"]["count"] == W * rounds
+    assert "discipline.staleness_mean" in snap["gauges"]
+    rec = jax_state.StateStore(d).recover(discipline)
+    assert rec.updates == rec.commits_total == W * rounds
+    for a, b in zip(center, rec.center):
+        assert a.tobytes() == b.tobytes(), "JAX replay differs from the port"
+
+
+def test_serial_loop_does_not_export_the_overlap_gauge(monkeypatch):
+    from distkeras_tpu_torch import telemetry
+
+    monkeypatch.setenv("DKTPU_NET_INFLIGHT", "1")
+    telemetry.reset()
+    srv = PSServer(discipline="adag", device="cpu").start()
+    try:
+        T.ADAG(imdb_lstm(**SMALL, device="cpu"), **_kw(1),
+               remote=srv.endpoint).train(DataFrame(_columns(1)))
+    finally:
+        srv.close()
+    snap = telemetry.get().snapshot()
+    assert "netps.overlap.hidden_fraction" not in snap["gauges"]
+    assert snap["spans"]["netps.commit.staleness"]["count"] == ROUNDS
+
+
+def test_commit_queued_before_an_eviction_rejoin_is_never_folded(
+        monkeypatch):
+    """Worker 0's first commit is held on the ordered lane while the
+    worker computes ahead and queues its second; then the server revokes
+    worker 0, so the first answers ``lease_expired`` (the client re-joins)
+    and the second, queued before that rejoin, is answered ``evicted``
+    without being sent: neither is folded, nothing is folded twice, and
+    the worker goes on from the re-adopted center."""
+    monkeypatch.setenv("DKTPU_NET_INFLIGHT", "2")
+    monkeypatch.setenv("DKTPU_NET_TIMEOUT", "5.0")
+    W, rounds = 2, 5
+    srv = PSServer(discipline="adag", device="cpu").start()
+    sent = {0: 0, 1: 0}
+    real = PSClient.commit
+
+    def commit(self, delta, pulled_counter):
+        sent[self.worker_id] += 1
+        if self.worker_id == 0 and sent[0] == 1:
+            time.sleep(1.0)  # the worker computes ahead meanwhile
+            srv.revoke(0)
+        return real(self, delta, pulled_counter)
+
+    monkeypatch.setattr(PSClient, "commit", commit)
+    try:
+        t = T.ADAG(imdb_lstm(**SMALL, device="cpu"), **_kw(W),
+                   remote=srv.endpoint)
+        t.train(DataFrame(_columns(W, rounds=rounds, seed=5)))
+        log = list(srv.commit_log)
+    finally:
+        srv.close()
+    _no_double_fold(log)
+    assert sent == {0: rounds - 1, 1: rounds}  # the queued one never left
+    assert sorted(w for w, _s, _st in log) == [0] * (rounds - 2) \
+        + [1] * rounds
+    assert srv.rejoins >= 1
+    assert np.isfinite(t.get_worker_histories()).all()

@@ -84,7 +84,7 @@ def test_ragged_requests_match_jax_predict(served, jax_model):
     client.close()
     assert stats["served"] == 3 and stats["compiles"] == len(BUCKETS)
     assert stats["caps"] == {"codecs": ["none", "bf16", "int8"],
-                             "serving": True}
+                             "replication": True, "serving": True}
     assert stats["ring"] == [] and stats["ready"] is True
     counters = telemetry.get().snapshot()["counters"]
     assert counters.get("serving.retrace_after_warmup", 0) == 0
