@@ -252,6 +252,35 @@ and every parity phase holds the card's bf16 run to the CPU's within
     restarted server's final center is bit-equal to this process's
     recovery of its directory, which launches ``fold_commit`` once per
     replayed record.
+20. ``netps_config8`` — config #8 (``bench.py:1465-1468``, the AEASGD
+    transformer through the parameter server: 4 layers, d_model 512, 8
+    heads, d_ff 2048, vocab 8192, seq 128, batch 4, window 2, 12 rounds,
+    one worker, adam at lr 1e-4, alpha 0.05, bf16, flash, remat) at full
+    width through the arms the port serves: ``inprocess`` (``AEASGD(...)
+    .train(df)``), ``pr4`` (``run_remote`` over TCP, inflight 1), ``shm``
+    (the ring, inflight 2) and ``mesh`` (the in-process dispatch into the
+    server's device center, inflight 2), one warm run (2 rounds) and two
+    timed runs each against a fresh ``PSServer(device="cuda",
+    transport=...)``:
+    tokens/s (the median of the timed runs), ``shm_vs_pr4``,
+    ``mesh_vs_shm``, ``mesh_vs_inprocess``, the dialect counters and the
+    RPC spans. The counts are set to 0 before each run and read after it:
+    the losses finite and the center moved; the server's commit log holds
+    each ``(0, seq)`` once; one ``fold_commit`` launch per folded commit;
+    every commit on the arm's dialect, on the client's and on the server's
+    side, none on another, and no demotion or ring fallback (in the mesh
+    arm ``netps.mesh.folds``, the folds that came through the dispatch,
+    equals the commits); the flash kernels in
+    bf16 only, 2/1/1 a layer a step. Then a ``MeshFolder`` on the card
+    with config #8's 70 tensors folds an f32, a bf16 and two int8 commits
+    bit-equal to the numpy oracle; the mesh arm again with the server's
+    token unregistered after 4 folds (each of the worker's two clients
+    demotes once, onto the ring; the server folds at least 4 commits from
+    the dispatch and the rest from the ring, each once); and a mesh run
+    at inflight 1 whose center must equal ``pr4``'s (or lie within the
+    distance of two ``pr4`` runs, when the card does not repeat itself).
+    The arms that need an unported item (``optimized``, ``durable``,
+    ``auto``, ``hier_curve``, ``sim_drift``) are named as such.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -2757,6 +2786,352 @@ def ps_restart_phase(torch, K, F, gpu: str, seed: int, cli: dict) -> dict:
     return {"replay": rec["launches"]}
 
 
+# -- config #8: the AEASGD transformer through the parameter server ---------
+
+#: config #8 (``bench.py:1465-1468``, the run at ``:484-760``): the model,
+#: the window and the rounds; one worker, AEASGD alpha 0.05 (rho 500 at lr
+#: 1e-4), adam, bf16 with flash attention and remat, as the reference runs
+#: it on its chip.
+C8 = dict(vocab_size=8192, num_layers=4, d_model=512, num_heads=8,
+          d_ff=2048, max_seq_len=128)
+C8_SEQ, C8_BATCH, C8_WINDOW, C8_ROUNDS = 128, 4, 2, 12
+C8_ALPHA, C8_LR = 0.05, 1e-4
+#: timed runs of each arm after one warm run (the median is reported).
+C8_TIMED = 2
+#: the warm run's rounds: enough to attach every lane and launch every
+#: kernel of the arm once, at a sixth of a timed run's time.
+C8_WARM_ROUNDS = 2
+#: the span suffix of each dialect: TCP bare, then the ring and the mesh.
+C8_DIALECTS = ("", ".shm", ".mesh")
+#: the demotion drill's server goes away (its token is unregistered) once
+#: this many commits are folded.
+C8_DEMOTE_AT = 4
+#: the arms that need an item the port does not serve yet.
+C8_NOT_PORTED = {"optimized": "striping over 2 shards (item 4c)",
+                 "durable": "the journal on the striped plane (item 4c)",
+                 "auto": "the tuner (item 4e)",
+                 "hier_curve": "the per-host aggregator (item 4d)",
+                 "sim_drift": "sim/ (item 10)"}
+
+
+def c8_mesh_fold_check(torch, F, params: dict, seed: int) -> dict:
+    """Check (d): a ``MeshFolder`` seated on the card with config #8's
+    tensors folds a seeded f32, bf16 and int8 commit (scale 1, AEASGD's)
+    and one more int8 commit at scale 1/3 bit-equal to the numpy oracle,
+    one ``fold_commit`` launch each."""
+    from distkeras_tpu_torch.netps import MeshFolder, wire
+    from distkeras_tpu_torch.netps.fold import fold_compressed_numpy
+
+    rng = np.random.default_rng(seed + 8)
+    center = [v.detach().float().cpu().numpy().copy()
+              for v in params.values()]
+    folder = MeshFolder(center, device="cuda")
+    ref = [a.copy() for a in center]
+    F.reset_launches()
+    t0 = time.perf_counter()
+    for codec, scale in (("none", 1.0), ("bf16", 1.0), ("int8", 1.0),
+                         ("int8", 1.0 / 3.0)):
+        entries = []
+        for r in ref:
+            d = rng.normal(scale=1e-3, size=r.shape).astype(np.float32)
+            q, spec = wire.codec_encode(d, codec)
+            entries.append((q, spec) if spec else q)
+            if spec:
+                fold_compressed_numpy(r, q, spec, scale)
+            else:
+                r += np.float32(scale) * q
+        folder.fold(entries, scale)
+    got = folder.center_host()
+    seconds = time.perf_counter() - t0
+    launches = F.launch_counts()
+    folder.close()
+    bad = [i for i, (a, b) in enumerate(zip(got, ref))
+           if a.tobytes() != b.tobytes()]
+    return {"tensors": len(center), "commits": 4, "launches": launches,
+            "bit_equal": not bad, "tensors_off": bad[:8],
+            "seconds": seconds}
+
+
+def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
+           inflight: int = 1, on_fold=None) -> dict:
+    """One run of arm ``arm`` from the model's weights: ``inprocess`` is
+    ``AEASGD(...).train(df)`` in process (the engine's elastic fold); the
+    others ``run_remote`` against a fresh ``PSServer(device="cuda")`` of
+    that transport (``pr4`` is TCP), one worker, f32 commits. The launch
+    counts are set to 0 just before and read just after; ``on_fold(srv)``
+    runs in a thread that watches the server's commit log."""
+    from distkeras_tpu_torch import AEASGD, telemetry
+    from distkeras_tpu_torch.netps import PSServer
+    from distkeras_tpu_torch.netps.remote import run_remote
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import adam
+
+    transport = {"pr4": "tcp"}.get(arm, arm)
+    srv = watcher = None
+    telemetry.reset()
+    if arm != "inprocess":
+        srv = PSServer(discipline="aeasgd", device="cuda",
+                       transport=transport).start()
+    try:
+        if on_fold is not None:
+            watcher = threading.Thread(target=on_fold, args=(srv,))
+            watcher.start()
+        torch.cuda.synchronize()
+        F.reset_launches()  # counts start at 0 just before the run
+        FA.reset_launches()
+        t0 = time.perf_counter()
+        if srv is None:
+            trainer = AEASGD(model, "adam", "sparse_categorical_crossentropy",
+                             num_workers=1, batch_size=C8_BATCH,
+                             communication_window=C8_WINDOW,
+                             learning_rate=C8_LR, rho=C8_ALPHA / C8_LR,
+                             compute_dtype="bfloat16")
+            params = trainer.train(df).params
+            losses = np.asarray(trainer.get_worker_histories()).T
+        else:
+            params, losses = run_remote(
+                endpoint=srv.endpoint, model=model, tx=adam(C8_LR),
+                loss_fn=get_loss("sparse_categorical_crossentropy"),
+                plan=plan, discipline="aeasgd", window=C8_WINDOW,
+                alpha=C8_ALPHA, seed=0, inflight=inflight,
+                transport=transport, compress="none", loop_fn=loop)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fold, flash = F.launch_counts(), FA.launch_counts()
+        flash_entries = FA.launch_counts(by_entry=True)
+        if watcher is not None:
+            watcher.join()
+        log = list(srv.commit_log) if srv is not None else []
+        center = srv.center() if srv is not None else None
+    finally:
+        if srv is not None:
+            srv.close()
+    snap = telemetry.get().snapshot()
+    counters = snap["counters"]
+    dialect = {"tcp": ""}.get(transport, "." + transport)
+    spans = {name: span_stats(snap, name) for name in (
+        ["netps.remote.local_window"]
+        + [f"netps.{side}.pull{dialect}" for side in ("rpc", "server")]
+        + [f"netps.{side}.commit{d}" for side in ("rpc", "server")
+           for d in C8_DIALECTS] if srv is not None else [])}
+    return {"arm": arm, "transport": transport, "inflight": inflight,
+            "dialect": dialect, "rounds": plan.num_rounds,
+            "seconds": wall, "tokens_per_s": tokens / wall,
+            "params": params, "center": center, "losses": losses,
+            "log": log, "fold": fold, "flash": flash,
+            "flash_entries": flash_entries, "spans": spans,
+            "counters": {k: counters.get(k, 0) for k in (
+                "netps.shm_upgrades", "netps.mesh.upgrades",
+                "netps.mesh.folds", "netps.mesh.demotions",
+                "netps.shm_fallbacks", "netps.bytes_sent",
+                "netps.reconnects")}}
+
+
+def c8_check_run(torch, run: dict, init: dict, label: str,
+                 drill: bool = False) -> list:
+    """Checks (a)-(c) of one run (``label`` names it in a failure);
+    returns the failures. A ``drill`` run changes dialect on purpose: its
+    dialect checks are the phase's own (e)."""
+    bad, arm, rounds = [], run["arm"], run["rounds"]
+    steps = rounds * C8_WINDOW
+    if not np.all(np.isfinite(run["losses"])):
+        bad.append(f"{label}: non-finite losses {run['losses'].tolist()}")
+    moved = max((run["params"][k] - v).abs().max().item()
+                for k, v in init.items())
+    run["center_max_abs_change"] = moved
+    if not moved > 0:
+        bad.append(f"{label}: the center did not move")
+    want_flash = {"flash_fwd": 2 * C8["num_layers"] * steps,
+                  "flash_dq": C8["num_layers"] * steps,
+                  "flash_dkv": C8["num_layers"] * steps}
+    if run["flash"] != want_flash:
+        bad.append(f"{label}: flash launches {run['flash']}, want "
+                   f"{want_flash} (4 layers, remat, {steps} steps)")
+    other = {k: v for k, v in run["flash_entries"].items()
+             if v and not k.endswith("_bf16")}
+    if other:
+        bad.append(f"{label}: flash launched outside bf16: {other}")
+    if arm == "inprocess":
+        if any(run["fold"].values()):
+            bad.append(f"{label}: the fold kernel launched {run['fold']}")
+        return bad
+    seqs = [(w, s) for w, s, _st in run["log"]]
+    if sorted(seqs) != [(0, s) for s in range(rounds)]:
+        bad.append(f"{label}: commit log {seqs}, want (0, 0..{rounds - 1}) "
+                   f"once each")
+    if run["fold"].get("fold_commit") != len(run["log"]) or any(
+            v for k, v in run["fold"].items() if k != "fold_commit"):
+        bad.append(f"{label}: fold launches {run['fold']} for "
+                   f"{len(run['log'])} folded commits")
+    if not drill:
+        # Every commit went out and was served on the arm's dialect: the
+        # fold launches above came from that dialect's path.
+        for side in ("rpc", "server"):
+            got = {d or ".tcp": run["spans"][f"netps.{side}.commit{d}"][
+                "count"] for d in C8_DIALECTS}
+            want = {d or ".tcp": rounds if d == run["dialect"] else 0
+                    for d in C8_DIALECTS}
+            if got != want:
+                bad.append(f"{label}: {side} commits by dialect {got}, "
+                           f"want {want}")
+        c = run["counters"]
+        if c["netps.mesh.demotions"] or c["netps.shm_fallbacks"]:
+            bad.append(f"{label}: the client left its dialect: {c}")
+        want_mesh = len(run["log"]) if arm == "mesh" else 0
+        if c["netps.mesh.folds"] != want_mesh:
+            bad.append(f"{label}: netps.mesh.folds {c['netps.mesh.folds']}, "
+                       f"want {want_mesh}")
+    if not same_bits([v.cpu().numpy() for v in run["params"].values()],
+                     run["center"]):
+        bad.append(f"{label}: the returned params are not the server's center")
+    return bad
+
+
+def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
+    """Config #8 (``netps_loopback_aeasgd``) at full width through the arms
+    the port serves: ``inprocess``, ``pr4`` (TCP, inflight 1), ``shm`` (the
+    ring, inflight 2) and ``mesh`` (the in-process dispatch, inflight 2),
+    one warm run and ``C8_TIMED`` timed runs each; then the mesh fold's
+    bit check (d), the demotion drill (e) and a mesh run at inflight 1
+    against ``pr4``'s center (f). Returns the fold and flash launches of
+    the mesh arm's first timed run."""
+    import copy
+
+    from distkeras_tpu_torch import small_transformer_lm
+    from distkeras_tpu_torch.data.batching import make_batches
+    from distkeras_tpu_torch.netps import mesh as netps_mesh
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import adam
+    from distkeras_tpu_torch.workers import make_local_loop
+
+    t_phase = time.perf_counter()
+    model = small_transformer_lm(**C8, seq_len=C8_SEQ, attn_impl="flash",
+                                 remat=True, seed=seed, device="cuda")
+    n_params = sum(v.numel() for v in model.params.values())
+    init = {k: v.detach().clone() for k, v in model.params.items()}
+
+    def data(rounds):
+        df = lm_frame(rounds * C8_WINDOW * C8_BATCH, C8["vocab_size"],
+                      C8_SEQ, seed)
+        return (make_batches(df, "features", "label", C8_BATCH,
+                             num_workers=1, window=C8_WINDOW), df,
+                rounds * C8_WINDOW * C8_BATCH * C8_SEQ)
+
+    plan, df, tokens = data(C8_ROUNDS)
+    warm = data(C8_WARM_ROUNDS)
+    # One local loop for every remote run, as bench.py shares one jitted
+    # window; one worker, so no two threads call it at once.
+    loop = make_local_loop(copy.deepcopy(model.module),
+                           get_loss("sparse_categorical_crossentropy"),
+                           adam(C8_LR), compute_dtype=torch.bfloat16)
+    failures: list = []
+    arms = {}
+    for arm, inflight in (("inprocess", 1), ("pr4", 1), ("shm", 2),
+                          ("mesh", 2)):
+        runs = [c8_run(torch, F, FA, arm, model, warm[0], loop, *warm[1:],
+                       inflight)] + [
+            c8_run(torch, F, FA, arm, model, plan, loop, df, tokens, inflight)
+            for _ in range(C8_TIMED)]
+        for i, run in enumerate(runs):
+            failures += c8_check_run(torch, run, init, f"{arm}[{i}]")
+        arms[arm] = runs
+    timed = {arm: runs[1:] for arm, runs in arms.items()}
+    tps = {arm: float(np.median([r["tokens_per_s"] for r in runs]))
+           for arm, runs in timed.items()}
+
+    fold_check = c8_mesh_fold_check(torch, F, model.params, seed)
+    if not fold_check["bit_equal"] or fold_check["launches"].get(
+            "fold_commit") != fold_check["commits"]:
+        failures.append(f"(d) mesh fold on the card: {fold_check}")
+
+    def unregister_after(srv):
+        deadline = time.monotonic() + 120.0
+        while (len(srv.commit_log) < C8_DEMOTE_AT
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        netps_mesh.unregister(srv._mesh_token)
+
+    drill = c8_run(torch, F, FA, "mesh", model, plan, loop, df, tokens, 2,
+                   on_fold=unregister_after)
+    failures += c8_check_run(torch, drill, init, "mesh_drill", drill=True)
+    drill_c = drill["counters"]
+    served = {d or ".tcp": drill["spans"][f"netps.server.commit{d}"]["count"]
+              for d in C8_DIALECTS}
+    # Each of the worker's two clients (the commit lane and the prefetch
+    # client) was on the mesh and demotes once, onto the ring: the server
+    # folded the first commits from the dispatch, the rest from the ring.
+    if (drill_c["netps.mesh.demotions"] != 2 or drill_c["netps.shm_fallbacks"]
+            or served[".tcp"] or served[".mesh"] < C8_DEMOTE_AT
+            or not served[".shm"]
+            or served[".mesh"] + served[".shm"] != C8_ROUNDS
+            or drill_c["netps.mesh.folds"] != served[".mesh"]):
+        failures.append(f"(e) the demotion drill's counters: {drill_c}, "
+                        f"commits served by dialect {served}")
+
+    pr4_a, pr4_b = (r["center"] for r in timed["pr4"])
+    pr4_spread = max(float(np.abs(a - b).max()) for a, b in zip(pr4_a,
+                                                                pr4_b))
+    mesh1 = c8_run(torch, F, FA, "mesh", model, plan, loop, df, tokens, 1)
+    failures += c8_check_run(torch, mesh1, init, "mesh_inflight1")
+    mesh1_off = max(float(np.abs(a - b).max())
+                    for a, b in zip(mesh1["center"], pr4_a))
+    if mesh1_off > pr4_spread:
+        failures.append(f"(f) the mesh run at inflight 1 is {mesh1_off} "
+                        f"from pr4's center; two pr4 runs are {pr4_spread} "
+                        f"apart")
+
+    def arm_row(runs):
+        last = runs[-1]
+        return {"tokens_per_s": [r["tokens_per_s"] for r in runs],
+                "seconds": [r["seconds"] for r in runs],
+                "fold_launches": [r["fold"].get("fold_commit", 0)
+                                  for r in runs],
+                "flash_launches": last["flash"],
+                "counters": last["counters"], "spans": last["spans"],
+                "history": [float(v) for v in last["losses"].reshape(-1)],
+                "center_max_abs_change": last["center_max_abs_change"]}
+
+    emit({"phase": "netps_config8", "gpu": gpu,
+          "config": "netps_loopback_aeasgd (bench.py:1465-1468, run "
+                    ":484-760)", "model": "TransformerLM(attn_impl='flash', "
+                                          "remat=True)", **C8,
+          "seq_len": C8_SEQ, "params": n_params,
+          "center_mb": 4 * n_params / 1e6, "batch": C8_BATCH,
+          "window": C8_WINDOW, "rounds": C8_ROUNDS, "workers": 1,
+          "discipline": "aeasgd", "alpha": C8_ALPHA, "optimizer": "adam",
+          "learning_rate": C8_LR, "compute_dtype": "bfloat16",
+          "tokens_per_run": tokens, "timed_runs": C8_TIMED,
+          "warm_rounds": C8_WARM_ROUNDS,
+          "tokens_per_s": tps,
+          "shm_vs_pr4": tps["shm"] / tps["pr4"],
+          "mesh_vs_shm": tps["mesh"] / tps["shm"],
+          "mesh_vs_inprocess": tps["mesh"] / tps["inprocess"],
+          "arms": {arm: arm_row(runs) for arm, runs in timed.items()},
+          "warm_tokens_per_s": {arm: runs[0]["tokens_per_s"]
+                                for arm, runs in arms.items()},
+          "mesh_fold_check": fold_check,
+          "demotion_drill": {"demote_after_commits": C8_DEMOTE_AT,
+                             "counters": drill_c,
+                             "commits_served_by_dialect": served,
+                             "commits": len(drill["log"]),
+                             "fold_launches": drill["fold"],
+                             "tokens_per_s": drill["tokens_per_s"]},
+          "transport_parity": {"pr4_runs_apart": pr4_spread,
+                               "mesh_inflight1_from_pr4": mesh1_off,
+                               "bit_equal": mesh1_off == 0.0},
+          "not_ported": C8_NOT_PORTED,
+          "reduced": "none of width or depth; the arms that need an "
+                     "unported item are left out (not_ported)",
+          "seconds": time.perf_counter() - t_phase})
+    if failures:
+        fail("netps_config8: " + "; ".join(failures))
+    first = timed["mesh"][0]
+    return {"mesh_fold_launches": sum(r["fold"].get("fold_commit", 0)
+                                      for r in timed["mesh"]),
+            "mesh_commits": sum(len(r["log"]) for r in timed["mesh"]),
+            "flash": first["flash"]}
+
+
 def flash_bound_ms(B: int, L: int, H: int, D: int, itemsize: int,
                    kernel: str) -> tuple[float, str]:
     """Least time for one flash kernel on this card: its [B, L, H, D]
@@ -4245,6 +4620,10 @@ def main() -> None:
     shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    lap("netps_config8")
+    config8 = netps_config8_phase(torch, F, FA, gpu, args.seed)
+    torch.cuda.empty_cache()
+
     def entry(name, source, replaces, rows, launches, bf16_launches):
         """The largest batch's f32 row, the largest error over every f32
         row, and the bf16 row at that batch beside."""
@@ -4314,7 +4693,8 @@ def main() -> None:
     def fold_entry():
         """One IMDB commit (config #4, what ``remote_train`` folds) in
         int8 (with the launches of the journal replays and of the standby
-        in ``remote_overlap``, ``ps_failover`` and ``ps_restart``), the
+        in ``remote_overlap``, ``ps_failover`` and ``ps_restart``, and of
+        config #8's mesh arm: the traced call site's counterpart), the
         bf16 commit beside, ResNet-50's and config #2's CNN's
         commits (with ``remote_cnn``'s launches) and the largest tensor
         folded alone (the same kernel, one row) after them."""
@@ -4329,9 +4709,16 @@ def main() -> None:
         return {"name": "fold_commit", "route": "cuda",
                 "source": "distkeras_tpu_torch/csrc/fold.cu",
                 "replaces": "distkeras_tpu/ops/pallas/fold.py:68",
+                "call_sites": [
+                    "distkeras_tpu/ops/pallas/fold.py:114 fold_compressed "
+                    "(the host fold: remote_train and every server)",
+                    "distkeras_tpu/ops/pallas/fold.py:84 fold_traced (the "
+                    "mesh collective: netps_config8's mesh dispatch)"],
                 "launches": fold_launches["int8"],
                 "replay_launches": durable["replay"],
                 "standby_launches": durable["standby"],
+                "mesh_launches": config8["mesh_fold_launches"],
+                "mesh_commits": config8["mesh_commits"],
                 "max_abs_err": max(r["max_abs_err"] for r in fold_rows),
                 "ms": i8["ms"], "plain_ms": i8["plain_ms"],
                 "bound_ms": i8["bound_ms"], "bound_by": i8["bound_by"],
@@ -4389,7 +4776,8 @@ def main() -> None:
                 "bf16_bound_by": bf16["bound_by"],
                 "bf16_library_ms": bf16["library_ms"],
                 "bf16_max_abs_err": max(r["max_abs_err"] for r in rows
-                                        if r["dtype"] == "bfloat16")}
+                                        if r["dtype"] == "bfloat16"),
+                "config8_bf16_launches": config8["flash"][f"flash_{kernel}"]}
 
     lap(None)
     emit({"phase": "seconds", "from_build": time.perf_counter() - t0,

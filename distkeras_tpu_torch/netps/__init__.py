@@ -23,7 +23,14 @@ the card (the JAX package's ``netps``; frames byte-compatible both ways).
 * :mod:`~distkeras_tpu_torch.netps.state` — the durable center: journal,
   snapshots, recovery folded on the card (``state_dir=``);
 * :mod:`~distkeras_tpu_torch.netps.standby` — :class:`StandbyServer`: a
-  warm standby tailing the primary, promotion and the epoch fence.
+  warm standby tailing the primary, promotion and the epoch fence;
+* :mod:`~distkeras_tpu_torch.netps.shm` — the same-host shared-memory ring
+  (``DKTPU_NET_TRANSPORT=shm``): payloads in memory segments, a doorbell
+  on a Unix-domain socket;
+* :mod:`~distkeras_tpu_torch.netps.mesh` — the same-process dialect
+  (``DKTPU_NET_TRANSPORT=mesh``): an in-process dispatch into the server's
+  device center; :class:`MeshFolder` is the center's fold as a standalone
+  entry.
 
 ``python -m distkeras_tpu_torch.netps`` runs a standalone server.
 """
@@ -40,12 +47,18 @@ from distkeras_tpu_torch.netps.errors import (
     ServerDrainingError,
 )
 from distkeras_tpu_torch.netps.fold import commit_scale, fold_delta
+from distkeras_tpu_torch.netps.mesh import (MeshFolder, local_mesh_id,
+                                            mesh_available)
 from distkeras_tpu_torch.netps.server import PSServer
+from distkeras_tpu_torch.netps.shm import (TRANSPORTS, ShmConnection,
+                                           local_boot_id, transport_mode)
 from distkeras_tpu_torch.netps.standby import StandbyServer
 
 __all__ = [
-    "CommitResult", "EpochFencedError", "LeaseExpiredError", "NetPSError",
-    "NotPrimaryError", "PSClient", "PSServer", "ProtocolError",
+    "CommitResult", "EpochFencedError", "LeaseExpiredError", "MeshFolder",
+    "NetPSError", "NotPrimaryError", "PSClient", "PSServer", "ProtocolError",
     "RPCTimeoutError", "ServerClosedError", "ServerDrainingError",
-    "StandbyServer", "commit_scale", "fold_delta",
+    "ShmConnection", "StandbyServer", "TRANSPORTS", "commit_scale",
+    "fold_delta", "local_boot_id", "local_mesh_id", "mesh_available",
+    "transport_mode",
 ]

@@ -16,6 +16,11 @@ serves nothing until the primary has been silent for ``--promote-after``
 seconds (default: the lease), then promotes (printing ``NETPS_PROMOTED
 epoch=N``) and fences the old lineage.
 
+With ``DKTPU_NET_TRANSPORT=shm`` the server also serves the same-host
+shared-memory ring (colocated workers asking for ``shm`` upgrade to it);
+``mesh`` needs the workers in this process, so a standalone server serves
+it to nobody and only the ring and TCP are used.
+
 It prints ``NETPS_READY <host:port>`` once listening and runs until
 SIGTERM/SIGINT, then drains gracefully (late clients get a typed
 ``ServerDrainingError``). The FIRST signal prints ``NETPS_DRAINING`` at

@@ -18,9 +18,12 @@ its head, each payload 16-byte aligned): for a center on the card in pinned
 host memory from the server's :class:`PinnedPool`, copied to the card in
 one ``non_blocking`` copy on the caller's current stream; for a center on
 the CPU in ordinary memory, in the same layout. :func:`fold_delta` then
-folds it with ``fold_commit_``: one launch of the CUDA kernel, or its plain
-twin on the CPU. There is no probe and no fallback: a kernel that fails to
-build or launch raises, and so does the commit.
+folds it through :func:`fold_staged` with ``fold_commit_``: one launch of
+the CUDA kernel, or its plain twin on the CPU, after the reference mesh
+folder's element-count conservation check. Every fold of the port goes
+this way (each server dialect, recovery, a standby, ``MeshFolder``). There
+is no probe and no fallback: a kernel that fails to build or launch
+raises, and so does the commit.
 
 :func:`fold_compressed_numpy` is the JAX package's numpy oracle, kept here
 for the tests and ``chip_smoke.py``, which hold the port's folds to it bit
@@ -152,6 +155,12 @@ def wire_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+#: the priority of a server's stream (and a ``MeshFolder``'s):
+#: lower is higher, and a value past the range PyTorch's stream pool offers
+#: maps to its highest.
+STREAM_PRIORITY = -64
+
+
 class PinnedPool:
     """Pinned host buffers that commits are staged in before their copy to
     the card. A slot goes back to the pool with a CUDA event recorded after
@@ -197,6 +206,27 @@ def seat_center(arrays, device) -> tuple:
     views = [flat[off:off + a.size].view(a.shape)
              for a, off in zip(arrays, offsets)]
     return flat, offsets, views
+
+
+def host_mirror(flat: torch.Tensor, offsets, views, stream=None) -> list:
+    """A host copy of a seated center (:func:`seat_center`) as read-only
+    numpy views, one per tensor: ONE device-to-host copy of the flat
+    tensor (on the card: into pinned memory on ``stream``, waiting on that
+    stream alone; default: the current one). Read-only, so it can be
+    handed out and replaced wholesale, never written in place."""
+    if flat.device.type != "cuda":
+        host = flat.clone()
+    else:
+        stream = stream or torch.cuda.current_stream(flat.device)
+        with torch.cuda.stream(stream):
+            host = torch.empty(flat.shape, dtype=flat.dtype,
+                               pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+        stream.synchronize()
+    host = host.numpy()
+    host.flags.writeable = False
+    return [host[off:off + c.numel()].reshape(tuple(c.shape))
+            for c, off in zip(views, offsets)]
 
 
 def stage_commit(delta, device, pool: Optional[PinnedPool] = None,
@@ -249,7 +279,6 @@ def fold_delta(center: Sequence[torch.Tensor], delta: Sequence,
 
     Telemetry-free: the server holds its center lock across this and
     exports ``netps.fold.tensors_per_sec`` after releasing it."""
-    scale = commit_scale(discipline, staleness)
     offsets = None
     if center and center[0].device.type == "cuda":
         base = next((c.data_ptr() for c in center if c.numel()), 0)
@@ -258,4 +287,23 @@ def fold_delta(center: Sequence[torch.Tensor], delta: Sequence,
     staged = (delta if isinstance(delta, StagedCommit)
               else stage_commit(delta, center[0].device if center else "cpu",
                                 offsets=offsets))
-    fold_commit_(center, staged, scale)
+    fold_staged(center, staged, commit_scale(discipline, staleness))
+
+
+def fold_staged(center: Sequence[torch.Tensor], staged: StagedCommit,
+                scale: float) -> None:
+    """``center += scale * dequant(q)`` a tensor, in place, in one
+    ``fold_commit_`` call; the codecs' own scales fold in as the numpy
+    oracle folds them, bit for bit. First the element-count conservation
+    check of the reference's mesh folder: a commit that does not cover
+    every element of the center exactly once raises and leaves the center
+    untouched."""
+    if len(staged.rows) != len(center):
+        raise ValueError(f"delta has {len(staged.rows)} tensors, the "
+                         f"center {len(center)}")
+    counted = int(staged.rows["n"].sum())
+    expected = sum(c.numel() for c in center)
+    if counted != expected:
+        raise RuntimeError(f"fold conservation check: the commit covers "
+                           f"{counted} elements, the center {expected}")
+    fold_commit_(center, staged, float(scale))

@@ -41,12 +41,20 @@ the ordered lane answers them ``evicted`` without sending them),
 re-adopts the freshly pulled center (the reference's rejoining-worker
 semantics), and training continues.
 
+**Transports** (``DKTPU_NET_TRANSPORT`` or ``transport=``): every client
+of the run asks for the same dialect. Against a server of this process a
+``mesh`` worker hands its commits to the server's in-process dispatch, and
+against one on this host a ``shm`` worker rides the shared-memory ring;
+with ``DKTPU_NET_INFLIGHT>1`` the commit lane and the pull-prefetch client
+each attach a ring (or a dispatch) of their own. A pulled center may be the
+server's own read-only host mirror (the mesh dialect hands it over as is),
+so the worker copies what it keeps.
+
 Striping (``DKTPU_NET_SHARDS``) and sharded endpoints (ROADMAP Queue 1
 item 4c), the per-host aggregator (``DKTPU_NET_HIER``, item 4d), the
-self-tuning data plane (``DKTPU_NET_AUTOTUNE``, item 4e), the shm and
-mesh transports (``DKTPU_NET_TRANSPORT``, items 4g-4h), the fault plan
+self-tuning data plane (``DKTPU_NET_AUTOTUNE``, item 4e), the fault plan
 (``DKTPU_NET_FAULTS``, item 6) and tracing (``DKTPU_TRACE``, item 10) come
-with later slices: set, they raise here rather than train on the flat TCP
+with later slices: set, they raise here rather than train on the flat
 loop.
 """
 
@@ -57,12 +65,14 @@ import copy
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
 
 from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.data.batching import BatchPlan, apply_round_transform
+from distkeras_tpu_torch.netps import shm
 from distkeras_tpu_torch.netps.client import CommitResult, PSClient
 from distkeras_tpu_torch.netps.fold import check_discipline
 from distkeras_tpu_torch.ops.kernels import build
@@ -73,8 +83,9 @@ from distkeras_tpu_torch.workers import derive_seed, make_local_loop
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to distkeras_tpu_torch yet (ROADMAP Queue 1 "
-        f"item {item}); the remote worker loop runs over TCP against one "
-        f"parameter server or a primary/standby endpoint list")
+        f"item {item}); the remote worker loop runs over TCP, the shm ring "
+        f"or the mesh dispatch against one parameter server or a "
+        f"primary/standby endpoint list")
 
 
 def _refuse_unported(endpoint: str) -> None:
@@ -88,10 +99,6 @@ def _refuse_unported(endpoint: str) -> None:
     if config.env_bool("DKTPU_NET_AUTOTUNE"):
         raise _not_ported("DKTPU_NET_AUTOTUNE (the self-tuning data plane)",
                           "4e")
-    transport = config.env_str("DKTPU_NET_TRANSPORT")
-    if transport != "tcp":
-        raise _not_ported(f"DKTPU_NET_TRANSPORT={transport!r} (the shm and "
-                          f"mesh transports)", "4g-4h")
     if ";" in endpoint:
         raise _not_ported(f"the sharded endpoint {endpoint!r} (remote= or "
                           f"DKTPU_PS_ENDPOINT)", "4c")
@@ -187,6 +194,10 @@ def run_remote(
     seed: int = 0,
     compute_dtype=None,
     grad_accum: int = 1,
+    inflight: Optional[int] = None,
+    compress: Optional[str] = None,
+    transport: Optional[str] = None,
+    loop_fn=None,
 ) -> tuple[dict, np.ndarray]:
     """Train ``plan.num_workers`` threads against the server at
     ``endpoint``.
@@ -199,13 +210,24 @@ def run_remote(
     parameters. Round ``r`` of worker ``w`` draws its dropout seeds from
     ``derive_seed(seed, w, r)``.
 
-    Each :class:`PSClient` reads its deadline, retries, backoff and codec
-    from the registry (``DKTPU_NET_TIMEOUT``/``RETRIES``/``BACKOFF``/
-    ``COMPRESS``), and the loop its window from ``DKTPU_NET_INFLIGHT``.
+    ``compress`` and ``transport`` go to every :class:`PSClient` of the
+    run and ``inflight`` sets the loop's window; each defaults from the
+    registry (``DKTPU_NET_COMPRESS``/``TRANSPORT``/``INFLIGHT``), and each
+    client reads its deadline, retries and backoff there
+    (``DKTPU_NET_TIMEOUT``/``RETRIES``/``BACKOFF``). ``loop_fn`` is a prebuilt local loop (what
+    :func:`~distkeras_tpu_torch.workers.make_local_loop` returns) for a
+    run of one worker: a loop reparametrizes its module for the length of a
+    call, which two worker threads must not share.
     """
     check_discipline(discipline)
     _refuse_unported(endpoint)
-    inflight = max(1, config.env_int("DKTPU_NET_INFLIGHT"))
+    inflight = max(1, int(inflight if inflight is not None
+                          else config.env_int("DKTPU_NET_INFLIGHT")))
+    transport = transport if transport is not None else shm.transport_mode()
+    if transport not in shm.TRANSPORTS:
+        raise ValueError(f"unknown transport {transport!r}; "
+                         f"known: {list(shm.TRANSPORTS)}")
+    client_kw = dict(compress=compress, transport=transport)
     W = plan.num_workers
     dev = model.device
     if dev.type == "cuda":
@@ -217,23 +239,34 @@ def run_remote(
     names = list(model.params)
     init_leaves = [v.detach().to("cpu", torch.float32).numpy().copy()
                    for v in model.params.values()]
-    # One module per worker: functional_call reparametrizes its module for
-    # the length of a call, which concurrent threads must not share.
-    loops = [make_local_loop(
-        copy.deepcopy(model.module), loss_fn, tx, compute_dtype=compute_dtype,
-        state_collections=model.state_collections, grad_accum=grad_accum,
-        normalize_uint8=getattr(model, "normalize_uint8", True))
-        for _ in range(W)]
+    if loop_fn is None:
+        # One module per worker: functional_call reparametrizes its module
+        # for the length of a call, which concurrent threads must not share.
+        loops = [make_local_loop(
+            copy.deepcopy(model.module), loss_fn, tx,
+            compute_dtype=compute_dtype,
+            state_collections=model.state_collections, grad_accum=grad_accum,
+            normalize_uint8=getattr(model, "normalize_uint8", True))
+            for _ in range(W)]
+    elif W == 1:
+        loops = [loop_fn]
+    else:
+        raise ValueError(f"loop_fn serves one worker, not {W}: worker "
+                         f"threads must not share a loop's module")
     losses = np.full((plan.num_rounds, W), np.nan, np.float32)
     errors: list = []
     meter = _CommsMeter()
 
     def to_params(leaves) -> dict:
-        return {k: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        # np.require copies a read-only array: the mesh dialect's pull is
+        # the server's host mirror itself, which a CPU tensor made by
+        # as_tensor would alias and a worker might write into.
+        return {k: torch.as_tensor(np.require(a, np.float32, "W"),
+                                   device=dev)
                 for k, a in zip(names, leaves)}
 
     def work(w: int) -> None:
-        client = PSClient(endpoint, worker_id=w)
+        client = PSClient(endpoint, worker_id=w, **client_kw)
         pull_client = commit_lane = pull_lane = None
         if inflight > 1:
             # Two comms lanes per worker: an ORDERED commit lane (seq order
@@ -247,7 +280,8 @@ def run_remote(
         try:
             center, _counter = meter.blocking(client.join, init_leaves)
             if pull_lane is not None:
-                pull_client = PSClient(endpoint, worker_id=client.worker_id)
+                pull_client = PSClient(endpoint, worker_id=client.worker_id,
+                                       **client_kw)
                 pull_client.adopt_dialect(client, center)
             opt_state = tx.init(to_params(center))
             local = to_params(center) if elastic else None
@@ -366,6 +400,6 @@ def run_remote(
         meter.export()
     if errors:
         raise errors[0]
-    with PSClient(endpoint) as observer:
+    with PSClient(endpoint, **client_kw) as observer:
         final_leaves, _updates = observer.pull()
     return to_params(final_leaves), losses

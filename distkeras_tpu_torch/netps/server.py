@@ -51,16 +51,30 @@ warm standby a bounded wire-form tail of the folded commits (or one full
 sync), and the epoch fence (``fence`` op, the ``epoch`` every member op
 carries) keeps a stale lineage from ever folding.
 
-The JAX server's shared-memory ring, device mesh, shards and stripes,
-tuner probe, chaos hooks and tracing come with later slices; a peer learns
-that from the join reply's ``caps``.
+**Transports** (``transport=``, default ``DKTPU_NET_TRANSPORT``): TCP
+always. A ``shm`` server also serves the same-host shared-memory ring
+(:mod:`~distkeras_tpu_torch.netps.shm`): a Unix-domain doorbell listener,
+advertised with this host's boot id in the join reply, the payloads in the
+client's memory segments. A ``mesh`` server serves the ring too (the
+demotion target) and registers an in-process dispatch
+(:mod:`~distkeras_tpu_torch.netps.mesh`): a worker thread of this process
+hands its commit straight to the op dispatch, no frame and no copy
+(``netps.mesh.folds`` counts the commits folded that came that way). Same
+handlers, same dispatch, same fold into the one device center, same
+guarantees in every dialect; a fold that fails on the card raises in all
+of them.
+
+The JAX server's shards and stripes, tuner probe, chaos hooks and tracing
+come with later slices; a peer learns that from the join reply's ``caps``.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import os
 import socket
+import tempfile
 import threading
 import time
 import uuid
@@ -70,15 +84,18 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch import telemetry
+from distkeras_tpu_torch.netps import mesh as _mesh
+from distkeras_tpu_torch.netps import shm
 from distkeras_tpu_torch.netps import state as _state
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.errors import ProtocolError
-from distkeras_tpu_torch.netps.fold import (PinnedPool, backend_name,
+from distkeras_tpu_torch.netps.fold import (STREAM_PRIORITY, PinnedPool,
+                                            backend_name,
                                             check_discipline,
                                             counter_staleness, decode_entry,
-                                            fold_delta, seat_center,
-                                            split_entry, stage_commit,
-                                            validate_delta)
+                                            fold_delta, host_mirror,
+                                            seat_center, split_entry,
+                                            stage_commit, validate_delta)
 from distkeras_tpu_torch.ops.kernels import fold as fold_kernels
 from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.runtime.device import resolve_device
@@ -88,9 +105,6 @@ _POLL_S = 0.2
 #: once a frame's first bytes arrive, the rest must land within this —
 #: a peer that stalls mid-frame is dead, not idle.
 _FRAME_COMPLETE_S = 30.0
-#: the server stream's priority: lower is higher, and a value past the
-#: range PyTorch's stream pool offers maps to its highest.
-_STREAM_PRIORITY = -64
 #: in-memory commit-log bound: the evidence list is trimmed to this once it
 #: doubles it, and at snapshot time (dropped entries stay counted in
 #: ``commits_total``).
@@ -116,6 +130,8 @@ class PSServer:
     ``DKTPU_PS_SNAPSHOT_EVERY``. ``epoch`` is the primary epoch this server
     starts at; ``standby=True`` serves nothing until promoted (what
     :class:`~distkeras_tpu_torch.netps.standby.StandbyServer` passes).
+    ``transport`` (``tcp``, ``shm`` or ``mesh``; default
+    ``DKTPU_NET_TRANSPORT``) picks the dialects served beside TCP.
     """
 
     def __init__(self, center: Optional[Sequence[np.ndarray]] = None,
@@ -125,15 +141,21 @@ class PSServer:
                  state_dir: Optional[str] = None,
                  snapshot_every: Optional[int] = None,
                  epoch: int = 0,
-                 standby: bool = False):
+                 standby: bool = False,
+                 transport: Optional[str] = None):
         self.discipline = check_discipline(discipline)
+        self.transport = (transport if transport is not None
+                          else shm.transport_mode())
+        if self.transport not in shm.TRANSPORTS:
+            raise ValueError(f"unknown transport {self.transport!r}; "
+                             f"known: {list(shm.TRANSPORTS)}")
         self.device = resolve_device(device)
         #: the server's own stream and its pinned staging buffers (on the
         #: card; None on the CPU).
         self._stream = self._pool = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device,
-                                             priority=_STREAM_PRIORITY)
+                                             priority=STREAM_PRIORITY)
             self._pool = PinnedPool()
         self._lock = threading.Lock()
         #: the center: f32 views (one per tensor) into one flat tensor on
@@ -145,6 +167,7 @@ class PSServer:
         #: the host mirror: read-only numpy views of one host copy of
         #: ``_flat``; None when a fold made it stale.
         self._host: Optional[list] = None
+        self._mesh_token: Optional[str] = None
         if center is not None:
             self._seat_locked([np.asarray(a, np.float32) for a in center])
         self._updates = 0
@@ -238,6 +261,23 @@ class PSServer:
         self._accept_thread: Optional[threading.Thread] = None
         self._monitor_thread: Optional[threading.Thread] = None
         self._started = False
+        # The same-host ring: a UDS doorbell listener, advertised with this
+        # host's boot id in every join reply. A mesh server serves it too:
+        # the demotion ladder (mesh -> shm -> tcp) needs the next rung in
+        # the same join reply the mesh advertisement rides in.
+        self._boot_id = shm.local_boot_id()
+        self._uds_dir: Optional[str] = None
+        self._uds_path: Optional[str] = None
+        self._uds_listener: Optional[socket.socket] = None
+        self._uds_accept_thread: Optional[threading.Thread] = None
+        if self.transport in ("shm", "mesh"):
+            self._uds_dir = tempfile.mkdtemp(prefix="dknetps-")
+            self._uds_path = os.path.join(self._uds_dir, "ring.sock")
+            self._uds_listener = socket.socket(socket.AF_UNIX,
+                                               socket.SOCK_STREAM)
+            self._uds_listener.bind(self._uds_path)
+            self._uds_listener.listen()
+            self._uds_listener.settimeout(_POLL_S)
 
     # ------------------------------------------------------------------
     @property
@@ -282,19 +322,8 @@ class PSServer:
         memory, on the server's stream, waiting on that stream alone), then
         the same read-only arrays until the next fold replaces them."""
         if self._host is None:
-            if self._stream is None:
-                flat = self._flat.clone()
-            else:
-                with self._on_stream():
-                    flat = torch.empty(self._flat.shape,
-                                       dtype=self._flat.dtype,
-                                       pin_memory=True)
-                    flat.copy_(self._flat, non_blocking=True)
-                self._stream.synchronize()
-            flat = flat.numpy()
-            flat.flags.writeable = False
-            self._host = [flat[off:off + c.numel()].reshape(tuple(c.shape))
-                          for c, off in zip(self._center, self._offsets)]
+            self._host = host_mirror(self._flat, self._offsets, self._center,
+                                     self._stream)
         return self._host
 
     # ------------------------------------------------------------------
@@ -312,7 +341,27 @@ class PSServer:
         t = threading.Thread(target=self._monitor_loop, name="netps-monitor")
         t.start()
         self._monitor_thread = t
+        if self._uds_listener is not None:
+            t = threading.Thread(target=self._uds_accept_loop,
+                                 name="netps-shm-accept")
+            t.start()
+            self._uds_accept_thread = t
+        if self.transport == "mesh":
+            self._mesh_token = _mesh.register(self._serve_mesh)
         return self
+
+    def _serve_mesh(self, header: dict, arrays: list):
+        """One direct in-process request (the mesh dialect's data path): no
+        frame, no socket, no copy, straight into the op dispatch with the
+        payload bytes counted as received; a commit folded here counts in
+        ``netps.mesh.folds``. Runs on the CLIENT's thread; the center lock
+        serializes it as it does the socket handlers."""
+        nbytes = sum(np.asarray(split_entry(e)[0]).nbytes for e in arrays)
+        served = self._serve_frame(wire.KIND_REQUEST, nbytes, header, arrays,
+                                   dialect=".mesh")
+        if header.get("op") == wire.OP_COMMIT and served[0].get("applied"):
+            telemetry.counter("netps.mesh.folds").add(1)
+        return served
 
     def drain(self) -> None:
         """Enter draining mode: commits and joins are rejected with a typed
@@ -325,21 +374,39 @@ class PSServer:
     def close(self) -> None:
         """Graceful shutdown: :meth:`drain`, then stop and join every
         thread (accept loop, per-connection handlers, lease monitor) and
-        release the listener. Idempotent."""
+        release the listeners. Idempotent."""
+        # Unregister the mesh dispatch first: in-flight mesh clients see
+        # ConnectionError and demote to the ring or TCP (where the drain
+        # answers them typed) instead of racing a dying dispatch target.
+        if self._mesh_token is not None:
+            _mesh.unregister(self._mesh_token)
+            self._mesh_token = None
         self.drain()
         self._stop.set()
         if self._store is not None:
             self._store.close()
-        if self._accept_thread is not None:
-            self._accept_thread.join()
-        if self._monitor_thread is not None:
-            self._monitor_thread.join()
+        for t in (self._accept_thread, self._uds_accept_thread,
+                  self._monitor_thread):
+            if t is not None:
+                t.join()
         for t in list(self._threads):
             t.join()
         try:
             self._listener.close()
         except OSError:
             pass
+        if self._uds_listener is not None:
+            try:
+                self._uds_listener.close()
+            except OSError:
+                pass
+            for remove, path in ((os.unlink, self._uds_path),
+                                 (os.rmdir, self._uds_dir)):
+                try:
+                    if path and os.path.exists(path):
+                        remove(path)
+                except OSError:
+                    pass
 
     # ------------------------------------------------------------------
     def _accept_loop(self) -> None:
@@ -353,6 +420,20 @@ class PSServer:
             conn.settimeout(_POLL_S)
             t = threading.Thread(target=self._handle, args=(conn,),
                                  name="netps-handler")
+            t.start()
+            self._threads.append(t)
+
+    def _uds_accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _addr = self._uds_listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return  # listener closed under us
+            conn.settimeout(_POLL_S)
+            t = threading.Thread(target=self._handle_shm, args=(conn,),
+                                 name="netps-shm-handler")
             t.start()
             self._threads.append(t)
 
@@ -431,17 +512,58 @@ class PSServer:
                     return
                 telemetry.counter("netps.bytes_sent").add(sent)
 
+    def _handle_shm(self, conn: socket.socket) -> None:
+        """One ring connection's handler: the request/reply loop of
+        :meth:`_handle` with the payload in the client's memory segments;
+        the doorbell socket carries only 8-byte frame lengths. A bad ring
+        frame (torn slot, bad crc) is a ProtocolError and tears this
+        connection down like a corrupt TCP frame: the client reconnects
+        with fresh segments and retransmits under the same seq. The
+        segments are closed on every way out."""
+        rings = None
+        with conn:
+            try:
+                conn.settimeout(_FRAME_COMPLETE_S)
+                rings = shm.accept_attach(conn)
+                conn.settimeout(_POLL_S)
+                c2s, s2c = rings
+                while not self._stop.is_set():
+                    try:
+                        raw = wire.recv_exact(conn, wire.SHM_DOORBELL_SIZE)
+                    except socket.timeout:
+                        continue
+                    kind, nbytes, header, arrays = c2s.read_frame(
+                        wire.unpack_doorbell(raw), decode=False)
+                    served = self._serve_frame(kind, nbytes, header, arrays,
+                                               dialect=".shm")
+                    if served is None:
+                        return
+                    reply, out = served
+                    sent = s2c.write_frame(wire.KIND_REPLY, reply, out)
+                    conn.sendall(wire.pack_doorbell(sent))
+                    telemetry.counter("netps.bytes_sent").add(sent)
+            except (socket.timeout, ConnectionError, OSError):
+                return
+            except ProtocolError:
+                telemetry.counter("netps.protocol_errors").add(1)
+                return
+            finally:
+                if rings is not None:
+                    for slot in rings:
+                        slot.close()
+
     def _serve_frame(self, kind: int, nbytes: int, header: dict,
-                     arrays: list):
-        """Validate, count, dispatch under a per-op span, and stamp the
-        request-id echo. ``None`` = protocol violation, the caller tears
-        the connection down."""
+                     arrays: list, dialect: str = ""):
+        """Validate, count, dispatch under a per-op span (labeled with the
+        transport dialect: ``.shm``, ``.mesh``, bare for TCP), and stamp
+        the request-id echo. ``None`` = protocol violation, the caller
+        tears the connection down."""
         if kind != wire.KIND_REQUEST:
             telemetry.counter("netps.protocol_errors").add(1)
             return None
         telemetry.counter("netps.bytes_received").add(nbytes)
         op = header.get("op", "")
-        with telemetry.span(f"netps.server.{op or 'unknown'}"):
+        with telemetry.span(f"netps.server.{op or 'unknown'}{dialect}"):
             reply, out = self._dispatch(op, header, arrays)
         err = reply.get("error")
         if op == wire.OP_COMMIT and err == "epoch_fenced":
@@ -522,9 +644,19 @@ class PSServer:
         # last_seq lets a restarted worker process resume its sequence past
         # what this server already folded; caps is the data-plane
         # negotiation (the client compresses only with an advertised codec).
+        # A server serving a ring or a mesh replaces the static bit with its
+        # live endpoint: the client upgrades only on a boot-id (ring) or a
+        # process (mesh) match.
+        caps = dict(wire.CAPS)
+        if self._uds_path is not None:
+            caps["shm"] = {"boot_id": self._boot_id, "uds": self._uds_path}
+        if self._mesh_token is not None:
+            caps["mesh"] = {"proc": _mesh.local_mesh_id(),
+                            "token": self._mesh_token, "devices": 1,
+                            "backend": self.device.type}
         return ({"ok": True, "worker_id": wid, "updates": updates,
                  "lease_s": self.lease_s, "last_seq": last_seq,
-                 "epoch": self.epoch, "caps": dict(wire.CAPS)}, center)
+                 "epoch": self.epoch, "caps": caps}, center)
 
     def _op_pull(self, header: dict) -> tuple[dict, list]:
         wid = header.get("worker_id")

@@ -65,11 +65,15 @@ CODECS = (CODEC_NONE, CODEC_BF16, CODEC_INT8)
 
 #: capabilities THIS build advertises — only what the port implements: the
 #: tensor codecs, warm-standby replication and fencing (``replicate``/
-#: ``fence``) and the serving ops (``infer``/``stats``). The JAX package's
-#: other bits (striping, shm, sharding, tuner, tracing, tree, mesh) are
-#: absent, so a peer that gates a dialect on them speaks the plain one to
-#: the port.
-CAPS = {"codecs": list(CODECS), "replication": True, "serving": True}
+#: ``fence``), the serving ops (``infer``/``stats``), the same-host ring
+#: (``shm``) and the same-process dispatch into the device center
+#: (``mesh``). A server that actually serves a ring or a mesh replaces the
+#: static ``shm``/``mesh`` bit with its live endpoint in the join reply.
+#: The JAX package's other bits (striping, sharding, tuner, tracing, tree)
+#: are absent, so a peer that gates a dialect on them speaks the plain one
+#: to the port.
+CAPS = {"codecs": list(CODECS), "replication": True, "serving": True,
+        "shm": True, "mesh": True}
 
 #: the core parameter-server ops carried in ``header["op"]``.
 OP_JOIN = "join"
@@ -121,6 +125,60 @@ OP_REGISTRY = {
                             "epoch", "members", "commits_total", "draining",
                             "ready", "fold_backend")),
 }
+
+
+# ---------------------------------------------------------------------------
+# Shared-memory segment layout (the same-host ring dialect, ``netps/shm.py``)
+# ---------------------------------------------------------------------------
+#
+# One mmap'd file per direction (client->server and server->client), each a
+# single seqlock'd slot sized to the largest frame it has carried::
+#
+#     MAGIC(4) VERSION(4) SEQ(4) CRC32(4) LENGTH(8) RESERVED(8) | frame bytes
+#
+# The payload is a regular wire frame (prefix + body), so every header and
+# codec rule above applies unchanged. SEQ is the seqlock: the writer bumps
+# it odd before touching the slot and even after; a reader that sees an odd
+# SEQ (or a SEQ change across its copy) has raced a writer and treats the
+# frame as corrupt (ProtocolError: the connection is dead by contract).
+#
+# CRC32 covers the frame's *header section* (prefix + length-prefixed JSON
+# header: everything that drives allocation and dispatch). The array
+# payload is not checksummed on this transport: a coherent mmap on one host
+# has no lossy channel (lengths are checked, interleaving is caught by the
+# seqlock), and skipping the payload crc pass is a large share of the
+# ring's gain over loopback TCP. Socket frames keep the full-body crc.
+#
+# Strict request/reply alternation per connection means ONE slot per
+# direction suffices. The doorbell (a UDS byte stream carrying 8-byte frame
+# lengths) is the happens-before edge and the timeout surface; the segment
+# fds travel over the same UDS by SCM_RIGHTS at attach, so the files are
+# unlinked before any byte moves. The layout is the JAX package's, byte for
+# byte, so either package's ring client attaches to either package's server.
+
+SHM_MAGIC = 0x444B5348  # 'DKSH'
+SHM_VERSION = 1
+_SHM_SLOT = struct.Struct("!IIIIQQ")  # magic, version, seq, crc32, length, rsvd
+#: one network-order u32: in-place reads and writes of single slot fields
+#: (and of the frame's HLEN word).
+U32 = struct.Struct("!I")
+#: byte offsets of the seqlock and crc fields inside ``_SHM_SLOT``.
+SHM_SEQ_OFF = 8
+SHM_CRC_OFF = 12
+SHM_SLOT_HEADER = _SHM_SLOT.size
+_SHM_DOORBELL = struct.Struct("!Q")  # frame length rung across the UDS
+SHM_DOORBELL_SIZE = _SHM_DOORBELL.size
+
+
+def pack_doorbell(nbytes: int) -> bytes:
+    """The 8-byte doorbell announcing an ``nbytes`` ring frame."""
+    return _SHM_DOORBELL.pack(nbytes)
+
+
+def unpack_doorbell(raw: bytes) -> int:
+    """Frame length out of a received doorbell."""
+    (length,) = _SHM_DOORBELL.unpack(raw)
+    return length
 
 
 def max_frame_bytes() -> int:
@@ -193,10 +251,15 @@ def _byte_view(buf) -> memoryview:
     return view
 
 
-def _frame_buffers(kind: int, header: dict, arrays) -> tuple[list, int]:
+def _frame_buffers(kind: int, header: dict, arrays,
+                   body_crc: bool = True) -> tuple[list, int]:
     """``(buffers, total_bytes)`` for one frame — zero-copy: the packed
     prefix+header bytes followed by flat views into the caller's arrays.
-    ``arrays`` items are ``ndarray`` or ``(ndarray, spec_extras)``."""
+    ``arrays`` items are ``ndarray`` or ``(ndarray, spec_extras)``.
+
+    ``body_crc=False`` checksums only the length-prefixed JSON header, not
+    the array payload: the shm ring's contract (see the slot layout above).
+    Socket transports and the journal always use the full-body crc."""
     items = []
     for it in arrays:
         a, extras = it if isinstance(it, tuple) else (it, {})
@@ -209,8 +272,9 @@ def _frame_buffers(kind: int, header: dict, arrays) -> tuple[list, int]:
     views = [_byte_view(a) for a, _ in items]
     hlen = struct.pack("!I", len(hjson))
     crc = zlib.crc32(hjson, zlib.crc32(hlen))
-    for v in views:
-        crc = zlib.crc32(v, crc)
+    if body_crc:
+        for v in views:
+            crc = zlib.crc32(v, crc)
     length = 4 + len(hjson) + sum(v.nbytes for v in views)
     head = _PREFIX.pack(MAGIC, VERSION, kind, crc, length) + hlen + hjson
     return [memoryview(head), *views], PREFIX_SIZE + length

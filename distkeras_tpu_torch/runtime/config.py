@@ -147,10 +147,13 @@ ENV_REGISTRY: dict = _declare(
            "loop raises above 1.",
            "network"),
     EnvVar("DKTPU_NET_TRANSPORT", "str", "tcp",
-           "netps wire dialect: `tcp` (default), `shm` (a shared-memory "
-           "ring between colocated peers) or `mesh` (same-runtime peers "
-           "fold straight into the device center). The port serves only "
-           "`tcp`; its remote loop raises for the others.",
+           "netps wire dialect: `tcp` (default), `shm` (colocated peers, "
+           "a boot-id match negotiated in the join reply, move payloads "
+           "through a shared-memory ring with a UDS doorbell) or `mesh` "
+           "(same-process peers hand requests to the server's in-process "
+           "dispatch, folded into its device center; the ring is "
+           "negotiated beside it as the demotion target, mesh -> shm -> "
+           "tcp). Other pairs stay on the lower dialects.",
            "network"),
     EnvVar("DKTPU_NET_HIER", "bool", False,
            "Hierarchical two-level folds through a per-host aggregator. "

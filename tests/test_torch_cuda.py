@@ -869,6 +869,76 @@ def test_remote_run_on_card_folds_every_commit_through_the_kernel(
         assert np.array_equal(p.cpu().numpy(), c)
 
 
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8"])
+def test_mesh_folder_on_card_is_the_numpy_oracle_bit_for_bit(card, codec):
+    """The mesh dialect's fold entry on the card: one ``fold_commit``
+    launch a commit, bit-equal to the JAX package's numpy oracle (copied
+    into the port) for each codec, at two commit scales."""
+    from distkeras_tpu_torch.netps import MeshFolder, wire
+    from distkeras_tpu_torch.netps.fold import fold_compressed_numpy
+
+    rng = np.random.default_rng(21)
+    center = [rng.normal(size=s).astype(np.float32)
+              for s in ((64, 33), (129,), (7, 5), (0,))]
+    folder = MeshFolder([a.copy() for a in center], device="cuda")
+    assert folder.backend == "cuda" and folder.views[0].is_cuda
+    ref = [a.copy() for a in center]
+    F.reset_launches()
+    for scale in (1.0, 1.0 / 3.0):
+        entries = []
+        for r in ref:
+            q, spec = wire.codec_encode(
+                rng.normal(scale=0.1, size=r.shape).astype(np.float32),
+                codec)
+            entries.append((q, spec) if spec else q)
+            if spec:
+                fold_compressed_numpy(r, q, spec, scale)
+            else:
+                r += np.float32(scale) * q
+        folder.fold(entries, scale)
+    assert F.launch_counts()["fold_commit"] == 2
+    for a, b in zip(folder.center_host(), ref):
+        assert a.tobytes() == b.tobytes()
+    folder.close()
+
+
+@pytest.mark.parametrize("transport", ["shm", "mesh"])
+def test_transports_on_card_fold_once_through_the_kernel(card, transport):
+    """A server on the card serving the ring (``shm``) or the in-process
+    dispatch (``mesh``): every commit of a client on that dialect folds
+    once, one ``fold_commit`` launch each, into the card's center, which
+    equals a TCP server's fed the same commits."""
+    from distkeras_tpu_torch.netps import PSClient, PSServer
+
+    def run(transport_):
+        srv = PSServer(discipline="adag", device="cuda",
+                       transport=transport_).start()
+        rng = np.random.default_rng(3)
+        init = [rng.normal(size=s).astype(np.float32)
+                for s in ((64, 33), (129,))]
+        try:
+            with PSClient(srv.endpoint, worker_id=0, timeout=30.0,
+                          transport=transport_) as c:
+                center, upd = c.join(init=init)
+                F.reset_launches()
+                for _ in range(4):
+                    c.commit([rng.normal(scale=0.1, size=a.shape)
+                              .astype(np.float32) for a in center], upd)
+                    center, upd = c.pull()
+                launches = F.launch_counts()["fold_commit"]
+                active = c.active_transport
+            return srv.center(), launches, active, list(srv.commit_log)
+        finally:
+            srv.close()
+
+    got, launches, active, log = run(transport)
+    ref, _, _, _ = run("tcp")
+    assert active == transport and launches == 4
+    assert [s for _w, s, _t in log] == [0, 1, 2, 3]
+    for a, b in zip(got, ref):
+        assert a.tobytes() == b.tobytes()
+
+
 def _drive_commits(endpoint, n, compress, first_worker=0):
     """Two workers commit seeded deltas from one pull a round, so every
     other commit folds at staleness 1."""

@@ -229,8 +229,6 @@ def test_ps_endpoint_env_routes_to_the_server(monkeypatch):
     ({"DKTPU_NET_SHARDS": "2"}, "DKTPU_NET_SHARDS"),
     ({"DKTPU_NET_HIER": "1"}, "DKTPU_NET_HIER"),
     ({"DKTPU_NET_AUTOTUNE": "1"}, "DKTPU_NET_AUTOTUNE"),
-    ({"DKTPU_NET_TRANSPORT": "shm"}, "DKTPU_NET_TRANSPORT"),
-    ({"DKTPU_NET_TRANSPORT": "mesh"}, "DKTPU_NET_TRANSPORT"),
     ({"DKTPU_PS_ENDPOINT": "127.0.0.1:1;127.0.0.1:2"}, "sharded"),
     ({"DKTPU_NET_FAULTS": "evict@1:2"}, "item 6"),
     ({"DKTPU_TRACE": "1"}, "item 10"),
@@ -242,6 +240,57 @@ def test_unported_remote_options_raise(monkeypatch, env, match):
     remote = None if "DKTPU_PS_ENDPOINT" in env else "127.0.0.1:1"
     with pytest.raises(NotImplementedError, match=match):
         T.DynSGD(pm, **_kw(1), remote=remote).train(DataFrame(_columns(1)))
+
+
+def test_unknown_transport_still_raises(monkeypatch):
+    monkeypatch.setenv("DKTPU_NET_TRANSPORT", "bogus")
+    pm = imdb_lstm(**SMALL, device="cpu")
+    with pytest.raises(ValueError, match="DKTPU_NET_TRANSPORT='bogus'"):
+        T.DynSGD(pm, **_kw(1), remote="127.0.0.1:1").train(
+            DataFrame(_columns(1)))
+
+
+@pytest.mark.parametrize("transport", ["shm", "mesh"])
+@pytest.mark.parametrize("name,discipline", [("DynSGD", "dynsgd"),
+                                             ("AEASGD", "aeasgd")])
+def test_remote_trainer_over_each_transport_matches_jax(
+        monkeypatch, name, discipline, transport):
+    """``DKTPU_NET_TRANSPORT=shm|mesh`` trains config #4's small model in
+    both packages, each against its own server of that transport: the
+    port's center within 1e-5 of the JAX one, every commit folded once,
+    and the port's clients on the dialect asked for (the ring; for mesh,
+    the in-process dispatch: no ring frame and no TCP commit)."""
+    from distkeras_tpu_torch import telemetry
+
+    monkeypatch.setenv("DKTPU_NET_TRANSPORT", transport)
+    cols = _columns(1)
+    jm = jax_imdb_lstm(**SMALL, cell_impl="pallas", seed=1)
+    pm = _port_model(jm)
+    jsrv = JaxPSServer(discipline=discipline, transport=transport).start()
+    tsrv = PSServer(discipline=discipline, device="cpu").start()
+    assert tsrv.transport == transport  # the server reads the knob too
+    telemetry.reset()
+    try:
+        jout = getattr(dk, name)(jm, **_kw(1),
+                                 remote=jsrv.endpoint).train(
+            JaxDataFrame(cols))
+        pout = getattr(T, name)(pm, **_kw(1),
+                                remote=tsrv.endpoint).train(DataFrame(cols))
+        assert [s for _w, s, _t in tsrv.commit_log] == list(range(ROUNDS))
+        assert len(jsrv.commit_log) == ROUNDS
+    finally:
+        jsrv.close()
+        tsrv.close()
+    spans = telemetry.get().snapshot()["spans"]
+    assert spans[f"netps.rpc.commit.{transport}"]["count"] == ROUNDS
+    assert "netps.rpc.commit" not in spans
+    ref = params_from_jax(jax.tree_util.tree_map(np.asarray, jout.params),
+                          pm.module)
+    got = pout.module.state_dict()
+    for k, v in ref.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    telemetry.reset()
 
 
 # ---------------------------------------------------------------------------
