@@ -60,7 +60,12 @@ and every parity phase holds the card's bf16 run to the CPU's within
    ``ServeClient.infer`` with ragged and concurrent requests. Every answer
    is held against the same weights run through the plain path on the
    CPU; the launch counts are set to 0 just before and read just after,
-   and must cover every batch served.
+   and must cover every batch served. Then the serving chaos drill on the
+   same frontend (``DKTPU_NET_FAULTS`` installed in process):
+   ``serve_slow@1:0.3`` holds request 1's reply, ``serve_drop@2`` closes
+   request 2's connection before admission and the ``ServeClient``
+   retries it (one failover); every answer within ``SERVE_ATOL`` of the
+   CPU plain forward, both faults fired.
 
 5. ``gn_kernel`` — the GroupNorm kernels against their plain twins at
    every distinct ResNet-50 slab at B=128 (with the ReLU flag the model
@@ -244,9 +249,12 @@ and every parity phase holds the card's bf16 run to the CPU's within
     standby fold. It prints the seconds from the kill to the promotion and
     to the first commit the standby folded.
 19. ``ps_restart`` — the port's CLI, ``python -m distkeras_tpu_torch.netps
-    --device cuda --state-dir D``, in a subprocess, SIGKILLed once it has
-    folded ``RESTART_KILL_AT`` commits and started again on the same port
-    and directory while the workers ride through on retries. The journal
+    --device cuda --state-dir D``, in a subprocess whose environment
+    schedules ``ps_crash@8`` (``DKTPU_NET_FAULTS``) with a fired-fault
+    journal (``DKTPU_FAULTS_STATE``): it SIGKILLs itself before folding its
+    ninth commit and is started again on the same port, directory and
+    journal (and does not crash again) while the workers ride through on
+    retries. The journal
     across both lives holds no ``(worker, seq)`` twice, at most
     ``_WRITE_QUEUE`` acknowledged commits are missing from it, and the
     restarted server's final center is bit-equal to this process's
@@ -273,14 +281,44 @@ and every parity phase holds the card's bf16 run to the CPU's within
     equals the commits); the flash kernels in
     bf16 only, 2/1/1 a layer a step. Then a ``MeshFolder`` on the card
     with config #8's 70 tensors folds an f32, a bf16 and two int8 commits
-    bit-equal to the numpy oracle; the mesh arm again with the server's
-    token unregistered after 4 folds (each of the worker's two clients
-    demotes once, onto the ring; the server folds at least 4 commits from
-    the dispatch and the rest from the ring, each once); and a mesh run
+    bit-equal to the numpy oracle; the mesh arm again under
+    ``mesh_down@4`` (the dispatch of commit seq 4 fails as a lost device
+    would: the commit lane demotes once, onto the ring, and retransmits
+    that seq there; the server folds seqs 0-3 from the dispatch and 4-11
+    from the ring, each once); and a mesh run
     at inflight 1 whose center must equal ``pr4``'s (or lie within the
     distance of two ``pr4`` runs, when the card does not repeat itself).
     The arms that need an unported item (``optimized``, ``durable``,
     ``auto``, ``hier_curve``, ``sim_drift``) are named as such.
+
+21. ``ensemble_train`` — the reference's ``AveragingTrainer`` and
+    ``EnsembleTrainer`` on config #4 (``TRAIN``: 4 workers, window 4,
+    batch 2048) for 2 rounds, f32 then bf16: the stash forward and the
+    backward once a local step (32 in 32) in the run's dtype only, the
+    ensemble's 4 members pairwise apart; then each at batch 32 on the card
+    and on the CPU from the same weights and per-worker draws (f32 within
+    1e-5, bf16 within ``BF16_PARITY_SHARE``).
+22. ``fault_drills`` — the resilience plane on the card, each drill's
+    plan installed in process and cleared after it, every scheduled fault
+    fired: (a) ``ADAG(mnist_cnn())`` (config #2) with ``nan@1`` and
+    ``divergence_reset=1000``: one non-finite round, one worker reset (the
+    one ``poison_worker(1, 4)`` names), a finite center, and at
+    ``CNN_PARITY``'s cut with 4 workers the card within
+    ``RESNET_PARITY_FACTOR`` of the CPU f32 run's distance from float64;
+    (b) config #4 DynSGD with a checkpoint a round under
+    ``Supervisor(backoff_s=0, retry_on=(InjectedFault,))`` and
+    ``crash@2``: two attempts, bit-equal to the uninterrupted run, the
+    LSTM kernels once a local step over both attempts; (c) the same with
+    ``ckpt_corrupt@1`` too: the resume falls back to step 0
+    (``resilience.ckpt_corrupt_detected`` 1), bit-equal again.
+23. ``netps_chaos`` — config #4 remote DynSGD (int8) against the port's
+    server on the card: (a) one worker through the ``ChaosProxy`` under
+    ``delay@6:0.2;drop@11;dup@8;drop_r@9;partition@14:0.8``; (b) 4
+    workers with ``evict@2:0`` and a 1 s lease (at least one eviction);
+    (c) one worker on the shm ring under ``shm_delay@3:0.2;
+    shm_corrupt@6``. Each: every fault fired, each ``(worker, seq)``
+    folded once, every acknowledged commit folded, one ``fold_commit`` a
+    folded commit; (a) and (c) bit-equal to the same run without faults.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -302,6 +340,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -1332,9 +1371,10 @@ def parity_phase(torch, seed: int) -> None:
     bf16_parity("train_parity", out, change)
 
 
-def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
-    """Serve through the port's entry points; return the LSTM launches of
-    this run."""
+def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> tuple:
+    """Serve through the port's entry points, then run the serving chaos
+    drill on the same frontend (:func:`serve_drill`); return the LSTM
+    launches of the main run and the drill's."""
     from distkeras_tpu_torch import telemetry
     from distkeras_tpu_torch.netps.errors import RPCTimeoutError
     from distkeras_tpu_torch.serving import (
@@ -1398,16 +1438,18 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
         client = ServeClient(frontend.endpoint)
         stats = client.stats()
         client.close()
+        # the main path's numbers, read before the drill adds its own
+        counts = K.launch_counts()
+        snap = telemetry.get().snapshot()
+        drill = serve_drill(torch, K, frontend, cpu_model)
     finally:
         frontend.close()
         registry.close()
-    counts = K.launch_counts()
     launches = counts["lstm_fwd"]
-    counters = telemetry.get().snapshot()["counters"]
+    counters = snap["counters"]
     batches = int(counters.get("serving.batches", 0))
     retrace = int(counters.get("serving.retrace_after_warmup", 0))
-    depth = telemetry.get().snapshot()["gauges"].get(
-        "serving.queue_depth", {})
+    depth = snap["gauges"].get("serving.queue_depth", {})
     peak_rows = int(depth.get("max", 0))
 
     worst = 0.0
@@ -1433,7 +1475,8 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
           "p50_ms": float(np.percentile(lat_ms, 50)) if len(lat_ms) else None,
           "p99_ms": float(np.percentile(lat_ms, 99)) if len(lat_ms) else None,
           "latency": "client wall clock per request, sequential and "
-                     f"{clients} concurrent clients mixed"})
+                     f"{clients} concurrent clients mixed",
+          "chaos_drill": drill})
     if errors:
         fail(f"{len(errors)} error replies, first: {errors[0]}")
     if len(records) != 3 * len(sizes) + clients * 4:
@@ -1447,7 +1490,7 @@ def serve_phase(torch, K, model, cpu_model, rng, gpu: str) -> int:
         fail(f"lstm_fwd launched {launches} times for {batches} batches")
     if counts["lstm_fwd_stash"] or counts["lstm_bwd"]:
         fail(f"serving launched training kernels: {counts}")
-    return launches
+    return launches, drill["launches"]["lstm_fwd"]
 
 
 def gn_bound_ms(B: int, N: int, C: int, backward: bool,
@@ -2314,22 +2357,24 @@ def remote_parity_phase(torch, seed: int) -> None:
 
 
 def remote_run(torch, K, F, seed: int, df, endpoint: str, rounds: int,
-               **env) -> dict:
+               workers: int = None, **env) -> dict:
     """One ``DynSGD(imdb_lstm(...), remote=endpoint)`` run at config #4's
-    width and :data:`REMOTE`'s workers, window and batch, int8 commits and
-    ``env`` set; the launch counts are set to 0 just before ``train`` and
-    read just after. Returns the run's numbers and trainer."""
+    width and :data:`REMOTE`'s workers (or ``workers``), window and batch,
+    int8 commits and ``env`` set; the launch counts are set to 0 just
+    before ``train`` and read just after. Returns the run's numbers and
+    trainer."""
     from distkeras_tpu_torch import imdb_lstm, telemetry
     from distkeras_tpu_torch.trainers import DynSGD
 
-    W, Kw, B = (REMOTE["num_workers"], REMOTE["communication_window"],
-                REMOTE["batch_size"])
+    kw = dict(REMOTE, num_workers=workers or REMOTE["num_workers"])
+    W, Kw, B = (kw["num_workers"], kw["communication_window"],
+                kw["batch_size"])
     model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
                       seq_len=SEQ_LEN, seed=seed, device="cuda")
     with env_set(DKTPU_NET_COMPRESS="int8", **env):
         trainer = DynSGD(model, worker_optimizer="sgd",
                          loss="sparse_categorical_crossentropy",
-                         remote=endpoint, **REMOTE)
+                         remote=endpoint, **kw)
         telemetry.reset()
         torch.cuda.synchronize()
         # counts start at 0 just before the main path runs
@@ -2352,6 +2397,29 @@ def exactly_once(log) -> bool:
     """No ``(worker, seq)`` folded twice in ``log``."""
     keys = [(w, s) for w, s, *_ in log]
     return len(keys) == len(set(keys))
+
+
+@contextlib.contextmanager
+def acked_commits():
+    """Record, as ``(worker, seq)``, every commit a port client saw
+    acknowledged (applied, or answered as a duplicate) in the block."""
+    from distkeras_tpu_torch.netps import PSClient
+
+    acked = set()
+    real_commit = PSClient.commit
+
+    def commit(self, delta, pulled_counter):
+        seq = self._seq + 1
+        res = real_commit(self, delta, pulled_counter)
+        if res.applied or res.duplicate:
+            acked.add((self.worker_id, seq))
+        return res
+
+    PSClient.commit = commit
+    try:
+        yield acked
+    finally:
+        PSClient.commit = real_commit
 
 
 def same_bits(a, b) -> bool:
@@ -2644,9 +2712,17 @@ def cli_server(workdir: str) -> dict:
     """Start the port's CLI server for ``ps_restart`` (journal only, on a
     free port, state in ``workdir/ps_restart``) without waiting for it:
     its start-up (torch, the card, the fold library) overlaps the phase
-    before. ``ps_restart_phase`` reads its ``NETPS_READY`` line."""
+    before. ``ps_restart_phase`` reads its ``NETPS_READY`` line. Its
+    environment schedules ``ps_crash@RESTART_KILL_AT`` with a fired-fault
+    journal (``DKTPU_FAULTS_STATE``) beside the state directory, so the
+    server kills itself once and its restarted life does not."""
     d = os.path.join(workdir, "ps_restart")
     shutil.rmtree(d, ignore_errors=True)
+    fired = os.path.join(workdir, "ps_restart.fired")
+    if os.path.exists(fired):
+        os.remove(fired)
+    env = dict(os.environ, DKTPU_NET_FAULTS=f"ps_crash@{RESTART_KILL_AT}",
+               DKTPU_FAULTS_STATE=fired)
     probe = socket.socket()
     probe.bind(("127.0.0.1", 0))
     port = probe.getsockname()[1]
@@ -2655,19 +2731,21 @@ def cli_server(workdir: str) -> dict:
            "127.0.0.1", "--port", str(port), "--discipline", "dynsgd",
            "--device", "cuda", "--state-dir", d, "--snapshot-every", "0"]
     return {"dir": d, "endpoint": f"127.0.0.1:{port}", "cmd": cmd,
+            "env": env, "fired": fired,
             "lives": [(time.monotonic(),
                        subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        text=True))]}
+                                        text=True, env=env))]}
 
 
 def ps_restart_phase(torch, K, F, gpu: str, seed: int, cli: dict) -> dict:
     """The port's CLI server (``python -m distkeras_tpu_torch.netps
     --device cuda --state-dir D --snapshot-every 0``: the journal alone,
-    never pruned, so it holds both lives) in a subprocess, SIGKILLed
-    mid-run and restarted on the same port and directory while config #4
-    trains against it; the workers ride through on retries. Returns the
-    ``fold_commit`` launches of this process's replay of the final
-    directory."""
+    never pruned, so it holds both lives) in a subprocess, which its own
+    ``ps_crash@RESTART_KILL_AT`` SIGKILLs mid-run (the reference's
+    kill-the-primary drill) and which is restarted on the same port,
+    directory and fault journal while config #4 trains against it; the
+    workers ride through on retries. Returns the ``fold_commit`` launches
+    of this process's replay of the final directory."""
     from distkeras_tpu_torch.datasets import imdb
     from distkeras_tpu_torch.netps import PSClient, state
 
@@ -2685,63 +2763,58 @@ def ps_restart_phase(torch, K, F, gpu: str, seed: int, cli: dict) -> dict:
             fail(f"ps_restart: the server did not start: {line!r}")
         return time.monotonic() - t0
 
-    acked = set()
-    real_commit = PSClient.commit
-
-    def commit(self, delta, pulled_counter):
-        seq = self._seq + 1
-        res = real_commit(self, delta, pulled_counter)
-        if res.applied or res.duplicate:
-            acked.add((self.worker_id, seq))
-        return res
-
     killed = {}
 
-    def killer():
-        with PSClient(endpoint, timeout=10.0) as observer:
-            while not killed.get("cancel"):
-                if observer.stats()["updates"] >= RESTART_KILL_AT:
-                    break
-                time.sleep(0.02)
-        if killed.get("cancel"):
+    def babysitter():
+        """Restart the server once it has killed itself (a supervisor's
+        role; the crash is the server's own fault plan)."""
+        first = lives[0][1]
+        while not killed.get("cancel") and first.poll() is None:
+            time.sleep(0.02)
+        if first.poll() is None:
             return
-        lives[0][1].send_signal(signal.SIGKILL)
-        lives[0][1].wait()
         killed["at"] = time.monotonic()
+        killed["returncode"] = first.returncode
         lives.append((killed["at"], subprocess.Popen(
-            cli["cmd"], stdout=subprocess.PIPE, text=True)))
+            cli["cmd"], stdout=subprocess.PIPE, text=True, env=cli["env"])))
         killed["restart_s"] = ready()
 
-    PSClient.commit = commit
-    try:
-        first_start = ready()
-        watcher = threading.Thread(target=killer, name="ps-restart-killer")
-        watcher.start()
+    with acked_commits() as acked:
         try:
-            run = remote_run(torch, K, F, seed + 4, df, endpoint,
-                             RESTART_ROUNDS, DKTPU_NET_RETRIES="60",
-                             DKTPU_NET_TIMEOUT="20")
+            first_start = ready()
+            watcher = threading.Thread(target=babysitter,
+                                       name="ps-restart-babysitter")
+            watcher.start()
+            try:
+                run = remote_run(torch, K, F, seed + 4, df, endpoint,
+                                 RESTART_ROUNDS, DKTPU_NET_RETRIES="60",
+                                 DKTPU_NET_TIMEOUT="20")
+            finally:
+                killed["cancel"] = True
+                watcher.join()
+            with PSClient(endpoint, timeout=20.0) as observer:
+                live_center, live_updates = observer.pull()
+                stats = observer.stats()
+            lives[-1][1].send_signal(signal.SIGTERM)
+            drained = lives[-1][1].stdout.read()
+            lives[-1][1].wait(timeout=60)
         finally:
-            killed["cancel"] = True
-            watcher.join()
-        with PSClient(endpoint, timeout=20.0) as observer:
-            live_center, live_updates = observer.pull()
-            stats = observer.stats()
-        lives[-1][1].send_signal(signal.SIGTERM)
-        drained = lives[-1][1].stdout.read()
-        lives[-1][1].wait(timeout=60)
-    finally:
-        PSClient.commit = real_commit
-        for _t0, proc in lives:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            for _t0, proc in lives:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     records = state.read_journal(d)
     journaled = [(int(r["wid"]), int(r["seq"])) for r in records]
     lost = sorted(acked - set(journaled))
+    with open(cli["fired"]) as f:
+        fired = f.read().split()
+    os.remove(cli["fired"])
     rec = recover_on_card(torch, F, d)
     row = {"phase": "ps_restart", "gpu": gpu, "rounds": RESTART_ROUNDS,
-           **REMOTE, "codec": "int8", "kill_at_updates": RESTART_KILL_AT,
+           **REMOTE, "codec": "int8",
+           "faults": f"ps_crash@{RESTART_KILL_AT}",
+           "first_life_returncode": killed.get("returncode"),
+           "fired_journal": fired,
            "lives": len(lives), "first_start_s": first_start,
            "first_start_overlapped": "ps_failover",
            "restart_s": killed.get("restart_s"),
@@ -2762,8 +2835,11 @@ def ps_restart_phase(torch, K, F, gpu: str, seed: int, cli: dict) -> dict:
            "launches": run["lstm"]}
     emit(row)
     shutil.rmtree(d, ignore_errors=True)
-    if len(lives) != 2 or "restart_s" not in killed:
-        fail(f"ps_restart: the server was not killed and restarted: {row}")
+    if (len(lives) != 2 or "restart_s" not in killed
+            or killed["returncode"] != -signal.SIGKILL
+            or fired != [f"ps_crash@{RESTART_KILL_AT}"]):
+        fail(f"ps_restart: the server did not kill itself once and "
+             f"restart: {row}")
     if not run["finite"]:
         fail("ps_restart: non-finite losses")
     if len(journaled) != len(set(journaled)):
@@ -2803,8 +2879,8 @@ C8_TIMED = 2
 C8_WARM_ROUNDS = 2
 #: the span suffix of each dialect: TCP bare, then the ring and the mesh.
 C8_DIALECTS = ("", ".shm", ".mesh")
-#: the demotion drill's server goes away (its token is unregistered) once
-#: this many commits are folded.
+#: the demotion drill: ``mesh_down@C8_DEMOTE_AT`` fails commit seq 4's
+#: dispatch as a lost device would (the reference's drill).
 C8_DEMOTE_AT = 4
 #: the arms that need an item the port does not serve yet.
 C8_NOT_PORTED = {"optimized": "striping over 2 shards (item 4c)",
@@ -2853,13 +2929,12 @@ def c8_mesh_fold_check(torch, F, params: dict, seed: int) -> dict:
 
 
 def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
-           inflight: int = 1, on_fold=None) -> dict:
+           inflight: int = 1) -> dict:
     """One run of arm ``arm`` from the model's weights: ``inprocess`` is
     ``AEASGD(...).train(df)`` in process (the engine's elastic fold); the
     others ``run_remote`` against a fresh ``PSServer(device="cuda")`` of
     that transport (``pr4`` is TCP), one worker, f32 commits. The launch
-    counts are set to 0 just before and read just after; ``on_fold(srv)``
-    runs in a thread that watches the server's commit log."""
+    counts are set to 0 just before and read just after."""
     from distkeras_tpu_torch import AEASGD, telemetry
     from distkeras_tpu_torch.netps import PSServer
     from distkeras_tpu_torch.netps.remote import run_remote
@@ -2867,15 +2942,12 @@ def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
     from distkeras_tpu_torch.ops.optimizers import adam
 
     transport = {"pr4": "tcp"}.get(arm, arm)
-    srv = watcher = None
+    srv = None
     telemetry.reset()
     if arm != "inprocess":
         srv = PSServer(discipline="aeasgd", device="cuda",
                        transport=transport).start()
     try:
-        if on_fold is not None:
-            watcher = threading.Thread(target=on_fold, args=(srv,))
-            watcher.start()
         torch.cuda.synchronize()
         F.reset_launches()  # counts start at 0 just before the run
         FA.reset_launches()
@@ -2899,8 +2971,6 @@ def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
         wall = time.perf_counter() - t0
         fold, flash = F.launch_counts(), FA.launch_counts()
         flash_entries = FA.launch_counts(by_entry=True)
-        if watcher is not None:
-            watcher.join()
         log = list(srv.commit_log) if srv is not None else []
         center = srv.center() if srv is not None else None
     finally:
@@ -2999,7 +3069,6 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
 
     from distkeras_tpu_torch import small_transformer_lm
     from distkeras_tpu_torch.data.batching import make_batches
-    from distkeras_tpu_torch.netps import mesh as netps_mesh
     from distkeras_tpu_torch.ops.losses import get_loss
     from distkeras_tpu_torch.ops.optimizers import adam
     from distkeras_tpu_torch.workers import make_local_loop
@@ -3044,29 +3113,25 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
             "fold_commit") != fold_check["commits"]:
         failures.append(f"(d) mesh fold on the card: {fold_check}")
 
-    def unregister_after(srv):
-        deadline = time.monotonic() + 120.0
-        while (len(srv.commit_log) < C8_DEMOTE_AT
-               and time.monotonic() < deadline):
-            time.sleep(0.001)
-        netps_mesh.unregister(srv._mesh_token)
-
-    drill = c8_run(torch, F, FA, "mesh", model, plan, loop, df, tokens, 2,
-                   on_fold=unregister_after)
+    with fault_plan(net=f"mesh_down@{C8_DEMOTE_AT}") as (_, down):
+        drill = c8_run(torch, F, FA, "mesh", model, plan, loop, df, tokens,
+                       2)
+        missed = unfired(down)
     failures += c8_check_run(torch, drill, init, "mesh_drill", drill=True)
     drill_c = drill["counters"]
     served = {d or ".tcp": drill["spans"][f"netps.server.commit{d}"]["count"]
               for d in C8_DIALECTS}
-    # Each of the worker's two clients (the commit lane and the prefetch
-    # client) was on the mesh and demotes once, onto the ring: the server
-    # folded the first commits from the dispatch, the rest from the ring.
-    if (drill_c["netps.mesh.demotions"] != 2 or drill_c["netps.shm_fallbacks"]
-            or served[".tcp"] or served[".mesh"] < C8_DEMOTE_AT
-            or not served[".shm"]
-            or served[".mesh"] + served[".shm"] != C8_ROUNDS
+    # The committing client (the commit lane) demotes once, onto the ring,
+    # and retransmits the failed seq there: seqs below C8_DEMOTE_AT came
+    # through the dispatch, the rest through the ring, each folded once.
+    if (missed or drill_c["netps.mesh.demotions"] != 1
+            or drill_c["netps.shm_fallbacks"] or served[".tcp"]
+            or served[".mesh"] != C8_DEMOTE_AT
+            or served[".shm"] != C8_ROUNDS - C8_DEMOTE_AT
             or drill_c["netps.mesh.folds"] != served[".mesh"]):
-        failures.append(f"(e) the demotion drill's counters: {drill_c}, "
-                        f"commits served by dialect {served}")
+        failures.append(f"(e) the demotion drill: unfired {missed}, "
+                        f"counters {drill_c}, commits served by dialect "
+                        f"{served}")
 
     pr4_a, pr4_b = (r["center"] for r in timed["pr4"])
     pr4_spread = max(float(np.abs(a - b).max()) for a, b in zip(pr4_a,
@@ -3110,7 +3175,7 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
           "warm_tokens_per_s": {arm: runs[0]["tokens_per_s"]
                                 for arm, runs in arms.items()},
           "mesh_fold_check": fold_check,
-          "demotion_drill": {"demote_after_commits": C8_DEMOTE_AT,
+          "demotion_drill": {"faults": f"mesh_down@{C8_DEMOTE_AT}",
                              "counters": drill_c,
                              "commits_served_by_dialect": served,
                              "commits": len(drill["log"]),
@@ -3129,7 +3194,9 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
     return {"mesh_fold_launches": sum(r["fold"].get("fold_commit", 0)
                                       for r in timed["mesh"]),
             "mesh_commits": sum(len(r["log"]) for r in timed["mesh"]),
-            "flash": first["flash"]}
+            "flash": first["flash"],
+            "drill_fold_launches": drill["fold"].get("fold_commit", 0),
+            "drill_flash": drill["flash"]}
 
 
 def flash_bound_ms(B: int, L: int, H: int, D: int, itemsize: int,
@@ -4424,6 +4491,571 @@ def ckpt_swap_phase(torch, K, gpu: str, seed: int, trained,
     return row
 
 
+# -- the resilience plane: ensembles, fault drills, network chaos -----------
+
+#: ``ensemble_train``: config #4's training run (``TRAIN``'s 4 workers,
+#: window 4, batch 2048) for ``ENSEMBLE_ROUNDS`` rounds under
+#: ``AveragingTrainer`` and ``EnsembleTrainer``; the card-vs-CPU parity at
+#: ``ENSEMBLE_PARITY`` (full width, 4 workers, batch 32, window 2, as
+#: ``train_parity`` cuts config #4), ``ENSEMBLE_PARITY_ROUNDS`` round.
+ENSEMBLE_ROUNDS = 2
+ENSEMBLE_PARITY = dict(PARITY, num_workers=4)
+ENSEMBLE_PARITY_ROUNDS = 1
+#: ``fault_drills`` (a): config #2 (``CNN_TRAIN``'s mnist_cnn ADAG: adam,
+#: batch 2048, window 8, 4 workers), 2 rounds, round 1's batch poisoned on
+#: the seeded worker and the divergent-worker reset on; its parity at
+#: ``CNN_PARITY``'s cut with 4 workers and 2 rounds.
+DRILL_NAN = "nan@1"
+DRILL_RESET = 1000.0
+DRILL_CNN_PARITY = dict(CNN_PARITY, num_workers=4)
+#: (b) and (c): config #4's DynSGD (``TRAIN``) for ``DRILL_ROUNDS`` rounds
+#: with a checkpoint a round, under ``Supervisor(backoff_s=0)``; (b)
+#: crashes before round 2, (c) also corrupts step 1 after it is written, so
+#: the resume falls back to step 0.
+DRILL_ROUNDS = 3
+DRILL_CRASH = "crash@2"
+DRILL_CORRUPT = "ckpt_corrupt@1;crash@2"
+#: ``netps_chaos``: config #4 remote DynSGD with int8 commits against the
+#: port's server on the card. (a) one worker through the ``ChaosProxy``
+#: (frame 0 is the join, then a pull and a commit a round, so
+#: ``CHAOS_ROUNDS`` rounds reach frame 16); (b) 4 workers, the seeded one
+#: silent for twice the lease before round 2; (c) one worker on the shm
+#: ring with the ring's own faults. A short deadline so a drop costs 2 s
+#: (``DKTPU_NET_TIMEOUT``), enough retries to ride out the partition, and
+#: in (b) alone a short lease so the eviction costs 2 s (the server's
+#: ``lease_s``; (a) and (c) keep the default lease, which outlasts a
+#: dropped frame's deadline, so no worker there is evicted).
+CHAOS_WIRE = "delay@6:0.2;drop@11;dup@8;drop_r@9;partition@14:0.8;seed=3"
+CHAOS_EVICT = "evict@2:0"
+CHAOS_RING = "shm_delay@3:0.2;shm_corrupt@6"
+CHAOS_ROUNDS = 8
+CHAOS_EVICT_ROUNDS = 3
+CHAOS_LEASE = 1.0
+CHAOS_ENV = dict(DKTPU_NET_TIMEOUT="2", DKTPU_NET_RETRIES="30")
+#: the serving drill: the accepted-request index of the held reply (and
+#: the seconds it is held) and of the dropped connection.
+SERVE_SLOW_AT, SERVE_SLOW_S, SERVE_DROP_AT = 1, 0.3, 2
+#: rows of the one config #4 frame these three phases share, made once
+#: (``imdb()`` takes seconds at this size): the most any of them trains on,
+#: 3 rounds of 4 workers, window 4, batch 2048; each takes its first rows.
+RESILIENCE_ROWS = (max(ENSEMBLE_ROUNDS, DRILL_ROUNDS, CHAOS_EVICT_ROUNDS)
+                   * TRAIN["num_workers"] * TRAIN["communication_window"]
+                   * TRAIN["batch_size"])
+
+
+def first_rows(frame, n: int):
+    """The first ``n`` rows of ``frame`` as a DataFrame of their own."""
+    from distkeras_tpu_torch.data import DataFrame
+
+    if n > len(frame):
+        fail(f"the shared frame has {len(frame)} rows, {n} asked for")
+    return DataFrame(frame.head(n))
+
+
+@contextlib.contextmanager
+def fault_plan(spec: str = "", net: str = ""):
+    """Install ``spec`` (``DKTPU_FAULTS`` grammar) and ``net``
+    (``DKTPU_NET_FAULTS``) as this process's ambient plans for the block,
+    yield them, and clear every plan after it (``resilience.reset``), so
+    no fault leaks into a later phase or is used up there."""
+    from distkeras_tpu_torch import resilience
+    from distkeras_tpu_torch.resilience import faults
+
+    resilience.reset()
+    plan = resilience.FaultPlan.parse(spec) if spec else None
+    net_plan = resilience.FaultPlan.parse_net(net) if net else None
+    resilience.set_plan(plan)
+    faults.set_net_plan(net_plan)
+    try:
+        yield plan, net_plan
+    finally:
+        resilience.reset()
+
+
+def unfired(*plans) -> list:
+    """The scheduled faults of ``plans`` that did not fire."""
+    return sorted(k for p in plans if p is not None
+                  for k in set(p.faults) - set(p._fired))
+
+
+def counters(*names) -> dict:
+    from distkeras_tpu_torch import telemetry
+
+    got = telemetry.get().snapshot()["counters"]
+    return {n: got.get(n, 0) for n in names}
+
+
+def member_dict(models) -> dict:
+    """One parameter dict of a list of models (``"<i>.<name>"`` keys), so
+    the parity helpers hold every ensemble member at once."""
+    return {f"{i}.{k}": v.detach().cpu() for i, m in enumerate(models)
+            for k, v in m.params.items()}
+
+
+def ensemble_phase(torch, K, gpu: str, seed: int, frame) -> dict:
+    """``AveragingTrainer`` then ``EnsembleTrainer`` on config #4 as a user
+    drives them, in f32 and bf16: each run's LSTM counts set to 0 just
+    before ``train`` and read just after (the stash forward and the
+    backward once a local step, in the run's dtype only). Then each
+    trainer at ``ENSEMBLE_PARITY`` on the card and on the CPU from the same
+    weights and per-worker draws. Returns the main runs' launches by
+    trainer and dtype."""
+    from distkeras_tpu_torch import (AveragingTrainer, EnsembleTrainer,
+                                     imdb_lstm, telemetry)
+    from distkeras_tpu_torch.datasets import imdb
+
+    t_phase = time.perf_counter()
+    W, Kw, B = (TRAIN["num_workers"], TRAIN["communication_window"],
+                TRAIN["batch_size"])
+    steps = ENSEMBLE_ROUNDS * W * Kw
+    df = first_rows(frame, steps * B)
+    widths = dict(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                  seq_len=SEQ_LEN)
+    classes = {"AveragingTrainer": AveragingTrainer,
+               "EnsembleTrainer": EnsembleTrainer}
+    launches, rows = {}, []
+    for dtype in DTYPES:
+        for name, cls in classes.items():
+            model = imdb_lstm(**widths, seed=seed + 7, device="cuda")
+            t = cls(model, "sgd", "sparse_categorical_crossentropy",
+                    **TRAIN, compute_dtype=dtype)
+            telemetry.reset()
+            torch.cuda.synchronize()
+            K.reset_launches()  # counts start at 0 just before the path
+            t0 = time.perf_counter()
+            out = t.train(df)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, entries = K.launch_counts(), K.launch_counts(
+                by_entry=True)
+            members = out if isinstance(out, list) else [out]
+            moved = max((m.params[k] - v).abs().max().item()
+                        for m in members for k, v in model.params.items())
+            apart = [center_dist(member_dict([members[i]]),
+                                 member_dict([members[j]]), "max")
+                     for i in range(len(members))
+                     for j in range(i + 1, len(members))] \
+                if len(members) > 1 else []
+            hist = t.get_worker_histories()
+            launches.setdefault(name, {})[dtype] = counts
+            row = {"phase": "ensemble_train", "gpu": gpu, "trainer": name,
+                   "model": f"imdb_lstm({widths})", **TRAIN,
+                   "rounds": ENSEMBLE_ROUNDS, "dtype": dtype,
+                   "seconds": wall, "samples_per_s": steps * B / wall,
+                   "ms_per_local_step": wall / steps * 1e3,
+                   "local_steps": steps, "launches": counts,
+                   "launches_by_entry": entries, "members": len(members),
+                   "members_min_max_abs_apart": min(apart) if apart
+                   else None, "center_max_abs_change": moved,
+                   "worker_histories": hist.tolist()}
+            rows.append(row)
+            emit(row)
+            if not np.all(np.isfinite(hist)):
+                fail(f"ensemble_train {name} ({dtype}): non-finite loss")
+            if not moved > 0:
+                fail(f"ensemble_train {name} ({dtype}): nothing moved")
+            for k in ("lstm_fwd_stash", "lstm_bwd"):
+                if counts[k] != steps:
+                    fail(f"ensemble_train {name} ({dtype}): {k} launched "
+                         f"{counts[k]} times in {steps} local steps")
+            if counts["lstm_fwd"]:
+                fail(f"ensemble_train {name} ({dtype}): the inference "
+                     f"forward launched {counts['lstm_fwd']} times")
+            only_dtype(f"ensemble_train {name}", entries, dtype)
+            if name == "EnsembleTrainer" and not (
+                    len(members) == W and min(apart) > 0):
+                fail(f"ensemble_train ({dtype}): {len(members)} members, "
+                     f"pairwise max distances {apart}")
+            del model, t, out, members
+            torch.cuda.empty_cache()
+
+    Wp, Kp, Bp = (ENSEMBLE_PARITY["num_workers"],
+                  ENSEMBLE_PARITY["communication_window"],
+                  ENSEMBLE_PARITY["batch_size"])
+    pdf = imdb(n=ENSEMBLE_PARITY_ROUNDS * Wp * Kp * Bp, vocab_size=VOCAB,
+               seq_len=SEQ_LEN, seed=seed + 8)
+    for name, cls in classes.items():
+        out = {}
+        for run, dev, dtype in (("cuda", "cuda", None), ("cpu", "cpu", None),
+                                ("cuda_bf16", "cuda", "bfloat16"),
+                                ("cpu_bf16", "cpu", "bfloat16")):
+            model = imdb_lstm(**widths, seed=seed + 8, device=dev)
+            init = {k: v.detach().cpu().clone()
+                    for k, v in model.params.items()}
+            t = cls(model, "sgd", "sparse_categorical_crossentropy",
+                    **ENSEMBLE_PARITY, compute_dtype=dtype)
+            got = t.train(pdf)
+            members = got if isinstance(got, list) else [got]
+            out[run] = (member_dict(members), t.get_worker_histories())
+        err = center_dist(out["cuda"][0], out["cpu"][0], "max")
+        hist_err = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+        change = max((v - init[k.split(".", 1)[1]]).abs().max().item()
+                     for k, v in out["cpu"][0].items())
+        emit({"phase": "ensemble_parity", "trainer": name,
+              **ENSEMBLE_PARITY, "rounds": ENSEMBLE_PARITY_ROUNDS,
+              "members": len(members),
+              "max_abs_err_card_vs_cpu": err,
+              "history_max_abs_err": hist_err,
+              "center_max_abs_change": change, "atol": PARITY_ATOL})
+        if not (change > 0 and err <= PARITY_ATOL
+                and hist_err <= PARITY_ATOL):
+            fail(f"ensemble_parity {name}: card vs CPU {err}, history "
+                 f"{hist_err} > {PARITY_ATOL} (moved {change})")
+        bf16_parity(f"ensemble_parity {name}", out, change)
+    emit({"phase": "ensemble_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def drill_cnn_run(torch, dev: str, seed: int, kw: dict, df, double=False):
+    """One ADAG(mnist_cnn()) run under :data:`DRILL_NAN` with the reset
+    on; returns ``(params, history, counters, worker_reset events)``."""
+    from distkeras_tpu_torch import ADAG, mnist_cnn, telemetry
+
+    model = mnist_cnn(seed=seed, device=dev)
+    if double:
+        model.module.double()
+    t = ADAG(model, loss="sparse_categorical_crossentropy",
+             divergence_reset=DRILL_RESET, **kw)
+    with fault_plan(DRILL_NAN) as (plan, _):
+        telemetry.reset()
+        trained = t.train(df)
+        missed = unfired(plan)
+    got = counters("resilience.nonfinite_rounds", "resilience.worker_resets",
+                   "resilience.faults_injected")
+    resets = [e["workers"] for e in telemetry.get().events()
+              if e["kind"] == "worker_reset"]
+    if missed:
+        fail(f"fault_drills (a) on {dev}: faults {missed} did not fire")
+    return ({k: v.detach().cpu().double() for k, v in
+             trained.params.items()}, t.get_history(), got, resets, model)
+
+
+def fault_drills_phase(torch, K, gpu: str, seed: int, frames: dict,
+                       frame, workdir: str) -> dict:
+    """(a) the NaN skip and the divergent-worker reset on config #2; (b)
+    ``Supervisor`` over a ``crash@2`` on config #4 with a checkpoint a
+    round, bit-equal to the uninterrupted run; (c) the same with step 1
+    corrupted, resumed from step 0. Returns the LSTM launches of (b) and
+    (c), each counted across both attempts."""
+    from distkeras_tpu_torch import DynSGD, Supervisor, imdb_lstm, telemetry
+    from distkeras_tpu_torch.data import DataFrame
+    from distkeras_tpu_torch.datasets import mnist
+    from distkeras_tpu_torch.resilience import FaultPlan, InjectedFault
+
+    t_phase = time.perf_counter()
+    name, _trainer, kw = CNN_TRAIN[0]
+    poisoned = FaultPlan.parse(DRILL_NAN).poison_worker(
+        int(DRILL_NAN.split("@")[1]), kw["num_workers"])
+    reset_all_launches()  # the CNN path launches none of the port's kernels
+    t0 = time.perf_counter()
+    center, hist, got, resets, model = drill_cnn_run(
+        torch, "cuda", seed, kw, frames[name])
+    wall = time.perf_counter() - t0
+    check_no_kernel("fault_drills (a)")
+    finite = all(bool(np.isfinite(v.numpy()).all()) for v in center.values())
+    row_a = {"phase": "fault_drills", "drill": "nan_skip_reset",
+             "gpu": gpu, "model": f"{name}()", "trainer": "ADAG", **kw,
+             "rounds": CNN_ROUNDS, "faults": DRILL_NAN,
+             "divergence_reset": DRILL_RESET, "counters": got,
+             "reset_workers": resets, "poison_worker": poisoned,
+             "history": [float(v) for v in hist], "seconds": wall}
+    # Parity: the same plan on the card, the CPU and the CPU in float64,
+    # at the CNN parity cut with 4 workers.
+    pkw = dict(kw, **DRILL_CNN_PARITY)
+    n = CNN_ROUNDS * pkw["num_workers"] * pkw["communication_window"] * \
+        pkw["batch_size"]
+    df = mnist(n=n, seed=seed + 5)
+    df64 = DataFrame({"features": df["features"].astype(np.float64),
+                      "label": df["label"]})
+    par = {}
+    for run, dev, data in (("cuda", "cuda", df), ("cpu", "cpu", df),
+                           ("cpu_f64", "cpu", df64)):
+        par[run] = drill_cnn_run(torch, dev, seed + 5, pkw, data,
+                                 double=run == "cpu_f64")
+    init = {k: v.detach().cpu().double()
+            for k, v in par["cpu_f64"][4].params.items()}
+    card_vs_f64 = center_dist(par["cuda"][0], par["cpu_f64"][0], "mean")
+    cpu_vs_f64 = center_dist(par["cpu"][0], par["cpu_f64"][0], "mean")
+    change = max((v - init[k]).abs().max().item()
+                 for k, v in par["cpu_f64"][0].items())
+    row_a.update({"parity": {**pkw, "rounds": CNN_ROUNDS,
+                             "center_mean_abs_err_card_vs_cpu_f64":
+                                 card_vs_f64,
+                             "center_mean_abs_err_cpu_vs_cpu_f64":
+                                 cpu_vs_f64,
+                             "limit": RESNET_PARITY_FACTOR * cpu_vs_f64,
+                             "center_max_abs_change": change,
+                             "counters": {r: p[2] for r, p in par.items()},
+                             "reset_workers": {r: p[3]
+                                               for r, p in par.items()}}})
+    emit(row_a)
+    want = {"resilience.nonfinite_rounds": 1, "resilience.worker_resets": 1,
+            "resilience.faults_injected": 1}
+    for label, (c, r) in {"main": (got, resets),
+                          **{k: (p[2], p[3]) for k, p in par.items()}}.items():
+        if c != want or r != [[poisoned]]:
+            fail(f"fault_drills (a) {label}: counters {c}, resets {r}; want "
+                 f"{want} and worker {poisoned} reset once")
+    if not finite or np.isfinite(hist[1]) or not np.isfinite(hist[0]):
+        fail(f"fault_drills (a): center finite {finite}, history {hist}")
+    if not (change > 0 and 0 < cpu_vs_f64
+            and card_vs_f64 <= RESNET_PARITY_FACTOR * cpu_vs_f64):
+        fail(f"fault_drills (a): card {card_vs_f64} from the f64 run, more "
+             f"than {RESNET_PARITY_FACTOR} x the CPU f32 run's {cpu_vs_f64}")
+    del model, par
+    torch.cuda.empty_cache()
+
+    # (b) and (c): config #4 under the Supervisor.
+    W, Kw, B = (TRAIN["num_workers"], TRAIN["communication_window"],
+                TRAIN["batch_size"])
+    df = first_rows(frame, DRILL_ROUNDS * W * Kw * B)
+    widths = dict(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                  seq_len=SEQ_LEN)
+
+    def run(spec: str = "", ckdir: str = None):
+        model = imdb_lstm(**widths, seed=seed + 6, device="cuda")
+        extra = ({"checkpoint_dir": ckdir, "checkpoint_every": 1}
+                 if ckdir else {})
+        t = DynSGD(model, worker_optimizer="sgd",
+                   loss="sparse_categorical_crossentropy", **TRAIN, **extra)
+        # The uninterrupted run trains bare; a drill under the Supervisor,
+        # which retries only the injected crash: an attempt that died of
+        # anything else (a kernel's build or launch) raises here.
+        sup = (Supervisor(t, max_retries=1, backoff_s=0,
+                          retry_on=(InjectedFault,)) if ckdir else t)
+        with fault_plan(spec) as (plan, _):
+            telemetry.reset()
+            torch.cuda.synchronize()
+            K.reset_launches()  # across every attempt of the run
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                trained = sup.train(df)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            missed = unfired(plan)
+        return {"params": {k: v.detach().cpu()
+                           for k, v in trained.params.items()},
+                "attempts": getattr(sup, "attempts", 1), "seconds": wall,
+                "history_len": len(t.get_history()),
+                "finite": bool(np.all(np.isfinite(
+                    t.get_worker_histories()))),
+                "launches": K.launch_counts(), "missed": missed,
+                "warnings": [str(w.message)[:120] for w in caught
+                             if "attempt" in str(w.message)
+                             or "falling back" in str(w.message)],
+                "counters": counters(
+                    "resilience.supervisor_retries",
+                    "resilience.faults_injected",
+                    "resilience.ckpt_corrupt_detected",
+                    "resilience.ckpt_fallback_steps")}
+
+    clean = run()
+    out = {}
+    for drill, spec, attempt_rounds in (
+            ("crash_resume", DRILL_CRASH, 2 + 1),
+            ("ckpt_fallback", DRILL_CORRUPT, 2 + 2)):
+        d = os.path.join(workdir, drill)
+        shutil.rmtree(d, ignore_errors=True)
+        got = run(spec, d)
+        shutil.rmtree(d, ignore_errors=True)
+        steps = attempt_rounds * W * Kw
+        equal = all(torch.equal(got["params"][k], v)
+                    for k, v in clean["params"].items())
+        dist = center_dist(got["params"], clean["params"], "max")
+        row = {"phase": "fault_drills", "drill": drill, "gpu": gpu,
+               "trainer": "DynSGD", "model": f"imdb_lstm({widths})",
+               **TRAIN, "rounds": DRILL_ROUNDS, "faults": spec,
+               "attempts": got["attempts"], "seconds": got["seconds"],
+               "uninterrupted_seconds": clean["seconds"],
+               "retry_cost_s": got["seconds"] - clean["seconds"],
+               "resumed_history_rounds": got["history_len"],
+               "launches": got["launches"], "local_steps": steps,
+               "bit_equal_to_uninterrupted": equal,
+               "max_abs_from_uninterrupted": dist,
+               "counters": got["counters"], "warnings": got["warnings"]}
+        emit(row)
+        want_hist = 1 if drill == "crash_resume" else 2
+        corrupt = 1 if drill == "ckpt_fallback" else 0
+        if got["missed"]:
+            fail(f"fault_drills ({drill}): faults {got['missed']} did not "
+                 f"fire")
+        if got["attempts"] != 2 or got["counters"][
+                "resilience.supervisor_retries"] != 1:
+            fail(f"fault_drills ({drill}): {got['attempts']} attempts, "
+                 f"counters {got['counters']}")
+        if got["history_len"] != want_hist or got["counters"][
+                "resilience.ckpt_corrupt_detected"] != corrupt:
+            fail(f"fault_drills ({drill}): the resume ran "
+                 f"{got['history_len']} rounds (want {want_hist}), "
+                 f"counters {got['counters']}")
+        if not (got["finite"] and equal):
+            fail(f"fault_drills ({drill}): the resumed center is {dist} "
+                 f"from the uninterrupted run's")
+        for k in ("lstm_fwd_stash", "lstm_bwd"):
+            if got["launches"][k] != steps:
+                fail(f"fault_drills ({drill}): {k} launched "
+                     f"{got['launches'][k]} times in {steps} local steps "
+                     f"over both attempts")
+        out[drill] = got["launches"]
+    emit({"phase": "fault_drills_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def chaos_run(torch, K, F, seed: int, df, workers: int, rounds: int,
+              spec: str = "", transport: str = "tcp",
+              via_proxy: bool = False, lease_s: float = None) -> dict:
+    """One config #4 remote DynSGD run (int8 commits, ``workers`` workers)
+    against a fresh ``PSServer(device="cuda", lease_s=lease_s)`` under
+    the network plan ``spec``, through a ``ChaosProxy`` when
+    ``via_proxy``; every commit a worker saw acknowledged is recorded.
+    The launch counts are set to 0 just before ``train`` and read just
+    after (in ``remote_run``)."""
+    from distkeras_tpu_torch.netps import ChaosProxy, PSServer
+    from distkeras_tpu_torch.netps import shm as netps_shm
+
+    srv = PSServer(discipline="dynsgd", device="cuda", lease_s=lease_s,
+                   transport=transport).start()
+    px = None
+    try:
+        with fault_plan(net=spec) as (_, plan), acked_commits() as acked:
+            netps_shm.reset_frames()
+            if via_proxy:
+                px = ChaosProxy(srv.endpoint).start()
+            run = remote_run(torch, K, F, seed, df,
+                             px.endpoint if px else srv.endpoint, rounds,
+                             workers=workers, DKTPU_NET_TRANSPORT=transport,
+                             **CHAOS_ENV)
+            run["missed"] = unfired(plan)
+            run["frames"] = px.frames_seen if px else None
+        run.update({"log": list(srv.commit_log), "center": srv.center(),
+                    "evictions": srv.evictions, "rejoins": srv.rejoins,
+                    "acked": acked})
+    finally:
+        if px is not None:
+            px.close()
+        srv.close()
+    return run
+
+
+def netps_chaos_phase(torch, K, F, gpu: str, seed: int, frame) -> dict:
+    """(a) the wire kinds through the ``ChaosProxy``, one worker; (b) an
+    eviction among 4 workers; (c) the ring's own faults, one worker. Every
+    scheduled fault must fire, each commit fold once, ``fold_commit``
+    launch once a folded commit; (a) and (c) end bit-equal to the same
+    run without faults. Returns the fold launches of the three runs."""
+    t_phase = time.perf_counter()
+    Kw, B = REMOTE["communication_window"], REMOTE["batch_size"]
+    one = first_rows(frame, CHAOS_ROUNDS * Kw * B)
+    four = first_rows(frame,
+                      CHAOS_EVICT_ROUNDS * REMOTE["num_workers"] * Kw * B)
+    base = chaos_run(torch, K, F, seed + 9, one, 1, CHAOS_ROUNDS)
+    runs = {
+        "wire": chaos_run(torch, K, F, seed + 9, one, 1, CHAOS_ROUNDS,
+                          CHAOS_WIRE, via_proxy=True),
+        "evict": chaos_run(torch, K, F, seed + 9, four,
+                           REMOTE["num_workers"], CHAOS_EVICT_ROUNDS,
+                           CHAOS_EVICT, lease_s=CHAOS_LEASE),
+        "ring": chaos_run(torch, K, F, seed + 9, one, 1, CHAOS_ROUNDS,
+                          CHAOS_RING, transport="shm"),
+    }
+    specs = {"wire": CHAOS_WIRE, "evict": CHAOS_EVICT, "ring": CHAOS_RING}
+    failures, launches = [], {}
+    for name, run in runs.items():
+        log = run["log"]
+        folded = [(w, s) for w, s, *_ in log]
+        lost = sorted(run["acked"] - set(folded))
+        equal = (same_bits(run["center"], base["center"])
+                 if name != "evict" else None)
+        launches[name] = run["fold"].get("fold_commit", 0)
+        emit({"phase": "netps_chaos", "drill": name, "gpu": gpu,
+              "faults": specs[name], "workers": 1 if name != "evict"
+              else REMOTE["num_workers"], "window": Kw, "batch_size": B,
+              "rounds": CHAOS_ROUNDS if name != "evict"
+              else CHAOS_EVICT_ROUNDS, "codec": "int8",
+              "transport": "shm" if name == "ring" else "tcp",
+              **CHAOS_ENV,
+              "lease_s": CHAOS_LEASE if name == "evict" else "default",
+              "seconds": run["wall"], "baseline_seconds": base["wall"],
+              "commits": len(log), "acked": len(run["acked"]),
+              "acked_not_folded": lost, "exactly_once": exactly_once(log),
+              "evictions": run["evictions"], "rejoins": run["rejoins"],
+              "frames_through_proxy": run["frames"],
+              "fold_launches": run["fold"], "lstm_launches": run["lstm"],
+              "bit_equal_to_faultless": equal,
+              "counters": {k: v for k, v in run["snap"]["counters"].items()
+                           if k.startswith(("resilience.", "netps.retries",
+                                            "netps.reconnects",
+                                            "netps.rejoins",
+                                            "netps.commits",
+                                            "netps.shm_"))}})
+        if run["missed"]:
+            failures.append(f"{name}: faults {run['missed']} did not fire")
+        if not (run["finite"] and exactly_once(log) and not lost):
+            failures.append(f"{name}: finite {run['finite']}, exactly once "
+                            f"{exactly_once(log)}, acked but not folded "
+                            f"{lost}")
+        if run["fold"].get("fold_commit") != len(log) or any(
+                v for k, v in run["fold"].items() if k != "fold_commit"):
+            failures.append(f"{name}: fold launches {run['fold']} for "
+                            f"{len(log)} folded commits")
+        if equal is False:
+            failures.append(f"{name}: the center differs from the run "
+                            f"without faults")
+    if runs["evict"]["evictions"] < 1 or runs["evict"]["rejoins"] < 1:
+        failures.append(f"evict: {runs['evict']['evictions']} evictions, "
+                        f"{runs['evict']['rejoins']} rejoins")
+    emit({"phase": "netps_chaos_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    if failures:
+        fail("netps_chaos: " + "; ".join(failures))
+    launches["faultless"] = base["fold"].get("fold_commit", 0)
+    return launches
+
+
+def serve_drill(torch, K, frontend, cpu_model) -> dict:
+    """The serving frontend's chaos on a running frontend: request
+    ``SERVE_SLOW_AT`` is held ``SERVE_SLOW_S`` s, request
+    ``SERVE_DROP_AT``'s connection is closed before admission and the
+    ``ServeClient`` retries it; every answer must match the CPU plain
+    forward. Returns the drill's numbers (its own LSTM counts)."""
+    from distkeras_tpu_torch.serving import ServeClient
+    from distkeras_tpu_torch.serving import frontend as frontend_mod
+
+    spec = (f"serve_slow@{SERVE_SLOW_AT}:{SERVE_SLOW_S};"
+            f"serve_drop@{SERVE_DROP_AT}")
+    before = counters("serving.client_failovers")["serving.client_failovers"]
+    lat, worst = [], 0.0
+    with fault_plan(net=spec) as (_, plan):
+        frontend_mod.reset_request_index()
+        K.reset_launches()
+        client = ServeClient(frontend.endpoint)
+        try:
+            for i in range(4):
+                tokens = np.random.default_rng(i).integers(
+                    0, VOCAB, (3 + i, SEQ_LEN)).astype(np.int32)
+                t0 = time.perf_counter()
+                out, _v = client.infer(tokens)
+                lat.append(time.perf_counter() - t0)
+                with torch.inference_mode():
+                    ref = cpu_model.predict(tokens).numpy()
+                worst = max(worst, float(np.abs(np.asarray(out)
+                                                - ref).max()))
+        finally:
+            client.close()
+        missed = unfired(plan)
+    failovers = counters("serving.client_failovers")[
+        "serving.client_failovers"] - before
+    row = {"faults": spec, "latency_s": lat, "max_abs_err": worst,
+           "client_failovers": failovers, "launches": K.launch_counts()}
+    if missed or failovers != 1 or lat[SERVE_SLOW_AT] < SERVE_SLOW_S \
+            or not worst <= SERVE_ATOL:
+        fail(f"serve drill: unfired {missed}, {row}")
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4538,7 +5170,8 @@ def main() -> None:
     cpu_model.module.load_state_dict(
         {k: v.cpu() for k, v in trained.module.state_dict().items()})
     lap("serve")
-    serve_launches = serve_phase(torch, K, trained, cpu_model, rng, gpu)
+    serve_launches, serve_drill_launches = serve_phase(
+        torch, K, trained, cpu_model, rng, gpu)
     del trained, cpu_model
     torch.cuda.empty_cache()
 
@@ -4588,6 +5221,21 @@ def main() -> None:
     lap("remote_cnn")
     adag_fold_launches = remote_cnn_phase(torch, gpu, args.seed,
                                           frames["mnist_cnn"])
+    torch.cuda.empty_cache()
+
+    lap("ensemble_train")
+    from distkeras_tpu_torch.datasets import imdb
+
+    lstm_frame = imdb(n=RESILIENCE_ROWS, vocab_size=VOCAB, seq_len=SEQ_LEN,
+                      seed=args.seed + 7)
+    ensemble_launches = ensemble_phase(torch, K, gpu, args.seed, lstm_frame)
+    torch.cuda.empty_cache()
+    lap("fault_drills")
+    workdir = os.path.join("build", "fault_drills")
+    os.makedirs(workdir, exist_ok=True)
+    drill_launches = fault_drills_phase(torch, K, gpu, args.seed, frames,
+                                        lstm_frame, workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
     del frames
     torch.cuda.empty_cache()
 
@@ -4618,6 +5266,12 @@ def main() -> None:
                 proc.wait()
     durable["replay"] += restart["replay"]
     shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    lap("netps_chaos")
+    chaos_launches = netps_chaos_phase(torch, K, F, gpu, args.seed,
+                                       lstm_frame)
+    del lstm_frame
     torch.cuda.empty_cache()
 
     lap("netps_config8")
@@ -4782,7 +5436,7 @@ def main() -> None:
     lap(None)
     emit({"phase": "seconds", "from_build": time.perf_counter() - t0,
           "phases": laps})
-    emit({"kernels": [
+    kernels = [
         entry("lstm_fwd", "lstm_fwd.cu",
               "distkeras_tpu/ops/pallas/lstm.py:189", fwd, serve_launches,
               None),
@@ -4799,7 +5453,21 @@ def main() -> None:
         flash_entry("fwd", 213),
         flash_entry("dq", 249),
         flash_entry("dkv", 261),
-    ]})
+    ]
+    # The resilience plane's paths, each counted from 0 just
+    # before its run and read just after.
+    kernels[0]["serve_drill_launches"] = serve_drill_launches
+    for k in (kernels[1], kernels[2]):
+        k["ensemble_launches"] = {
+            trainer: {dtype: c[k["name"]] for dtype, c in runs.items()}
+            for trainer, runs in ensemble_launches.items()}
+        k["fault_drill_launches"] = {drill: c[k["name"]]
+                                     for drill, c in drill_launches.items()}
+    kernels[5]["chaos_launches"] = chaos_launches
+    kernels[5]["mesh_down_drill_launches"] = config8["drill_fold_launches"]
+    for k in kernels[6:]:
+        k["config8_drill_bf16_launches"] = config8["drill_flash"][k["name"]]
+    emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,14 @@ Ported so far:
   the per-round metrics log (``metrics_path=``, ``metrics.MetricsLogger``),
   ``serialize_model``/``deserialize_model`` (the JAX package's bytes: a
   blob either package writes loads in the other) and
-  ``serving.ModelRegistry(directory=...)`` hot-swapping verified steps.
+  ``serving.ModelRegistry(directory=...)`` hot-swapping verified steps;
+* the resilience plane: the fault plan (``DKTPU_FAULTS``,
+  ``DKTPU_NET_FAULTS``, ``resilience.FaultPlan``) and every hook that reads
+  it, the NaN round skip and the divergent-worker reset, ``Supervisor``
+  retry-with-resume, the checkpoint fallback, the parameter server's
+  chaos proxy (``netps.chaos.ChaosProxy``), the reference's
+  ``AveragingTrainer`` and ``EnsembleTrainer``, and the resume of an async
+  trainer at another ``num_workers``.
 """
 
 from distkeras_tpu_torch.data import (
@@ -76,6 +83,7 @@ from distkeras_tpu_torch.predictors import (
     ModelPredictor,
     ProbabilityPredictor,
 )
+from distkeras_tpu_torch.resilience import FaultPlan, Supervisor, supervise
 from distkeras_tpu_torch.runtime.serialization import (
     deserialize_model,
     deserialize_params,
@@ -88,8 +96,10 @@ from distkeras_tpu_torch.trainers import (
     DOWNPOUR,
     EAMSGD,
     AsynchronousDistributedTrainer,
+    AveragingTrainer,
     DistributedTrainer,
     DynSGD,
+    EnsembleTrainer,
     SingleTrainer,
     SynchronousDistributedTrainer,
     Trainer,
@@ -97,14 +107,16 @@ from distkeras_tpu_torch.trainers import (
 
 __all__ = [
     "ADAG", "AEASGD", "AccuracyEvaluator", "AsynchronousDistributedTrainer",
-    "ClassPredictor", "DOWNPOUR", "DataFrame", "DenseTransformer",
-    "DistributedTrainer", "DynSGD", "EAMSGD", "F1Evaluator",
+    "AveragingTrainer", "ClassPredictor", "DOWNPOUR", "DataFrame",
+    "DenseTransformer", "DistributedTrainer", "DynSGD", "EAMSGD",
+    "EnsembleTrainer", "F1Evaluator", "FaultPlan",
     "LSTMClassifier", "LabelIndexTransformer", "LossEvaluator", "MLP",
     "MinMaxTransformer", "Model", "ModelPredictor", "OneHotTransformer",
     "ProbabilityPredictor", "ReshapeTransformer", "ResNet", "SimpleCNN",
-    "SingleTrainer", "SynchronousDistributedTrainer", "Trainer",
+    "SingleTrainer", "Supervisor", "SynchronousDistributedTrainer",
+    "Trainer",
     "Transformer", "TransformerLM", "cifar10_cnn", "deserialize_model",
     "deserialize_params", "imdb_lstm", "mnist_cnn", "mnist_mlp", "resnet50",
     "serialize_model", "serialize_params", "small_transformer_lm",
-    "tiny_resnet",
+    "supervise", "tiny_resnet",
 ]

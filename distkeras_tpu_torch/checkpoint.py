@@ -238,6 +238,9 @@ class Checkpointer:
         e.g. ``{"num_workers": W}``) lands next to it. The write is done
         when this returns.
 
+        A scheduled ``ckpt_corrupt@step`` fault (``DKTPU_FAULTS``)
+        corrupts the step's payload right after it is written.
+
         Returns whether the step was written. A ``step <= latest_step()``
         is declined, as Orbax's manager declines it: it warns, writes
         nothing and returns False (``Trainer._execute`` offsets resumed
@@ -277,6 +280,14 @@ class Checkpointer:
                     integrity.write_digest(os.path.join(
                         self._meta_dir(), f"{step}.digest.json"), digest)
                 self._gc(step)
+        from distkeras_tpu_torch.resilience import faults
+
+        plan = faults.active_plan()
+        if plan is not None and plan.ckpt_corrupt(step):
+            # ckpt_corrupt@step injection: scribble over the payload once
+            # the write has landed. The digest above was computed from the
+            # live state, so a verified restore must detect this.
+            integrity.corrupt_step_dir(self._step_dir(step))
         return True
 
     def _write_json(self, name: str, obj: dict) -> None:

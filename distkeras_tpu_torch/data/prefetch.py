@@ -4,9 +4,10 @@
 The reference got pipelining for free from Spark's executor iterators; here a
 background thread materializes round ``r+depth`` and stages it on the device
 while the card crunches round ``r``, so the main loop's synchronous cost
-becomes a queue pop. The fault-injection hooks of the JAX package's feeder
-(``stall@r`` / ``feeder_error@r``) come with the port's fault plan in a
-later slice.
+becomes a queue pop. The fault plan's feeder hooks fire before each stage
+call: ``stall@r:s`` sleeps ``s`` seconds (the consumer's stall watchdog
+sees it) and ``feeder_error@r`` raises :class:`~distkeras_tpu_torch.
+resilience.errors.InjectedFault` once (the stage retry sees it).
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ import time
 from typing import Callable, Iterable, Iterator, Optional, Union
 
 from distkeras_tpu_torch import telemetry
-from distkeras_tpu_torch.resilience.errors import FeederStalledError
+from distkeras_tpu_torch.resilience import faults
+from distkeras_tpu_torch.resilience.errors import (
+    FeederStalledError,
+    InjectedFault,
+)
 from distkeras_tpu_torch.runtime import config
 
 #: how many per-round consumer waits :attr:`RoundFeeder.waits` retains.
@@ -102,11 +107,25 @@ class RoundFeeder:
                 continue
         return False
 
-    def _stage_with_retry(self, item, tele):
+    def _stage_once(self, r: int, item):
+        """One stage attempt, with scheduled fault injection applied first.
+        ``r`` is the ordinal the fault plan indexes by; ``item`` is what the
+        stage callback receives (== r in bounded mode)."""
+        plan = faults.active_plan()
+        if plan is not None:
+            stall = plan.feeder_stall(r)
+            if stall > 0:
+                time.sleep(stall)
+            if plan.feeder_error(r):
+                raise InjectedFault(
+                    f"feeder error injected at item {r} (DKTPU_FAULTS)")
+        return self.stage(item)
+
+    def _stage_with_retry(self, r: int, item, tele):
         attempt = 0
         while True:
             try:
-                return self.stage(item)
+                return self._stage_once(r, item)
             except Exception:
                 # Only plain Exceptions retry: KeyboardInterrupt/SystemExit
                 # and close() must still win immediately.
@@ -135,7 +154,7 @@ class RoundFeeder:
                 if self._stop.is_set():
                     return
                 t0 = time.perf_counter()
-                batch = self._stage_with_retry(item, tele)
+                batch = self._stage_with_retry(r, item, tele)
                 # Producer-side cost (gather + transform + device copy), the
                 # counterpart of the consumer's ``input_stall``.
                 stage_span.observe(time.perf_counter() - t0)

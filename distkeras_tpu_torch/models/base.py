@@ -228,6 +228,42 @@ class Model:
 
         return serialize_model(self)
 
+    def reinit_params(self, seed: int) -> dict:
+        """Fresh parameters (a :attr:`params`-shaped dict on this model's
+        device) from another seed, for ensemble diversity.
+
+        A model built through :meth:`build` draws its module's own
+        initializers again: the module rebuilt from its config (and the
+        input widths its parameters carry) with a generator seeded by
+        ``seed``. A model without a ``sample_spec`` (deserialized) or a
+        module that is not a registered one falls
+        back to permuting each float tensor's elements with
+        ``torch.Generator().manual_seed(seed)`` — a random permutation of
+        an i.i.d. init draw is another draw from the same empirical
+        distribution, and constant tensors (biases) are fixed points of it,
+        as a true re-init leaves them. The draws are the port's own: the
+        JAX package's come from its PRNG and cannot be replayed here."""
+        mod = self.module
+        if self.sample_spec is not None and isinstance(mod, ConfigMixin):
+            kw = dict(mod.config)
+            if type(mod).input_widths is not ConfigMixin.input_widths:
+                from distkeras_tpu_torch.convert import params_to_jax
+
+                kw.update(type(mod).input_widths(
+                    params_to_jax(self.params, mod)))
+            fresh = type(mod)(**kw, seed=int(seed))
+            return {k: v.detach().to(self.device)
+                    for k, v in fresh.named_parameters()}
+        g = torch.Generator().manual_seed(int(seed))
+        out = {}
+        for k, v in self.params.items():
+            if v.is_floating_point() and v.numel() > 1:
+                perm = torch.randperm(v.numel(), generator=g).to(v.device)
+                out[k] = v.reshape(-1)[perm].reshape(v.shape).clone()
+            else:
+                out[k] = v.clone()
+        return out
+
     @property
     def state_collections(self) -> tuple:
         """Names of the mutable collections: ``("buffers",)`` for a module

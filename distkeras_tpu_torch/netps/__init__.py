@@ -30,11 +30,15 @@ the card (the JAX package's ``netps``; frames byte-compatible both ways).
 * :mod:`~distkeras_tpu_torch.netps.mesh` — the same-process dialect
   (``DKTPU_NET_TRANSPORT=mesh``): an in-process dispatch into the server's
   device center; :class:`MeshFolder` is the center's fold as a standalone
-  entry.
+  entry;
+* :mod:`~distkeras_tpu_torch.netps.chaos` — :class:`ChaosProxy`: a
+  frame-aware TCP proxy that delays, drops, duplicates, truncates and
+  partitions frames on the ``DKTPU_NET_FAULTS`` schedule.
 
 ``python -m distkeras_tpu_torch.netps`` runs a standalone server.
 """
 
+from distkeras_tpu_torch.netps.chaos import ChaosProxy
 from distkeras_tpu_torch.netps.client import CommitResult, PSClient
 from distkeras_tpu_torch.netps.errors import (
     EpochFencedError,
@@ -55,10 +59,10 @@ from distkeras_tpu_torch.netps.shm import (TRANSPORTS, ShmConnection,
 from distkeras_tpu_torch.netps.standby import StandbyServer
 
 __all__ = [
-    "CommitResult", "EpochFencedError", "LeaseExpiredError", "MeshFolder",
-    "NetPSError", "NotPrimaryError", "PSClient", "PSServer", "ProtocolError",
-    "RPCTimeoutError", "ServerClosedError", "ServerDrainingError",
-    "ShmConnection", "StandbyServer", "TRANSPORTS", "commit_scale",
-    "fold_delta", "local_boot_id", "local_mesh_id", "mesh_available",
-    "transport_mode",
+    "ChaosProxy", "CommitResult", "EpochFencedError", "LeaseExpiredError",
+    "MeshFolder", "NetPSError", "NotPrimaryError", "PSClient", "PSServer",
+    "ProtocolError", "RPCTimeoutError", "ServerClosedError",
+    "ServerDrainingError", "ShmConnection", "StandbyServer", "TRANSPORTS",
+    "commit_scale", "fold_delta", "local_boot_id", "local_mesh_id",
+    "mesh_available", "transport_mode",
 ]

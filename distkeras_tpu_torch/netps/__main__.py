@@ -26,6 +26,10 @@ SIGTERM/SIGINT, then drains gracefully (late clients get a typed
 ``ServerDrainingError``). The FIRST signal prints ``NETPS_DRAINING`` at
 signal time; a SECOND signal during the drain force-exits with status 70.
 
+``DKTPU_NET_FAULTS`` in the server's environment schedules its own chaos
+(``ps_hang@R:S``, ``ps_crash@R``); with ``DKTPU_FAULTS_STATE`` the fired
+faults are journaled, so a restarted life does not crash again.
+
 The JAX server's flags for shards and aggregation-tree nodes are accepted
 and refused: those features come with later slices of the port.
 """

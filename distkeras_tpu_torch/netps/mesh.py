@@ -53,10 +53,11 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from distkeras_tpu_torch.netps import shm
+from distkeras_tpu_torch.netps import shm, wire
 from distkeras_tpu_torch.netps.fold import (STREAM_PRIORITY, PinnedPool,
                                             fold_staged, host_mirror,
                                             seat_center, stage_commit)
+from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime.device import resolve_device
 
 
@@ -110,11 +111,17 @@ def dispatch(token: str, header: dict, arrays: list):
     """One direct request against a registered mesh server: returns the
     ``(reply_header, reply_arrays)`` pair a wire frame would have carried.
     Raises ``ConnectionError`` when the peer is gone or refused the
-    request: the caller demotes, it does not read an error reply."""
+    request, or when the ``mesh_down@R`` fault drill fires for commit seq
+    R: each looks like device loss to the caller, which demotes and does
+    not read an error reply."""
     with _REG_LOCK:
         fn = _SERVERS.get(token)
     if fn is None:
         raise ConnectionError("mesh peer is gone (server closed)")
+    plan = _faults.active_net_plan()
+    if plan is not None and header.get("op") == wire.OP_COMMIT:
+        if plan.fire("mesh_down", int(header.get("seq", 0))) is not None:
+            raise ConnectionError("injected mesh_down: device mesh lost")
     served = fn(dict(header), list(arrays))
     if served is None:
         raise ConnectionError("mesh peer refused the request")

@@ -50,12 +50,16 @@ each attach a ring (or a dispatch) of their own. A pulled center may be the
 server's own read-only host mirror (the mesh dialect hands it over as is),
 so the worker copies what it keeps.
 
+**Chaos**: ``evict@R:S`` in ``DKTPU_NET_FAULTS`` silences the seeded
+worker (``FaultPlan.poison_worker(R, W)``) for S seconds (twice the lease
+when S is 0) before round R, so its lease lapses, the server evicts it and
+its next RPC re-joins.
+
 Striping (``DKTPU_NET_SHARDS``) and sharded endpoints (ROADMAP Queue 1
 item 4c), the per-host aggregator (``DKTPU_NET_HIER``, item 4d), the
-self-tuning data plane (``DKTPU_NET_AUTOTUNE``, item 4e), the fault plan
-(``DKTPU_NET_FAULTS``, item 6) and tracing (``DKTPU_TRACE``, item 10) come
-with later slices: set, they raise here rather than train on the flat
-loop.
+self-tuning data plane (``DKTPU_NET_AUTOTUNE``, item 4e) and tracing
+(``DKTPU_TRACE``, item 10) come with later slices: set, they raise here
+rather than train on the flat loop.
 """
 
 from __future__ import annotations
@@ -76,6 +80,7 @@ from distkeras_tpu_torch.netps import shm
 from distkeras_tpu_torch.netps.client import CommitResult, PSClient
 from distkeras_tpu_torch.netps.fold import check_discipline
 from distkeras_tpu_torch.ops.kernels import build
+from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.workers import derive_seed, make_local_loop
 
@@ -102,10 +107,6 @@ def _refuse_unported(endpoint: str) -> None:
     if ";" in endpoint:
         raise _not_ported(f"the sharded endpoint {endpoint!r} (remote= or "
                           f"DKTPU_PS_ENDPOINT)", "4c")
-    faults = config.env_str("DKTPU_NET_FAULTS")
-    if faults:
-        raise _not_ported(f"DKTPU_NET_FAULTS={faults!r} (the fault plan's "
-                          f"poison_worker and chaos kinds)", "6")
     if config.env_bool("DKTPU_TRACE"):
         raise _not_ported("DKTPU_TRACE (tracing's child_scope spans)", "10")
 
@@ -326,6 +327,14 @@ def run_remote(
                 settle(res)
 
             for r in range(plan.num_rounds):
+                net = _faults.active_net_plan()
+                if net is not None and net.poison_worker(r, W) == w:
+                    arg = net.fire("evict", r)
+                    if arg is not None:
+                        # Go silent past the lease: the server evicts us;
+                        # the next RPC re-joins and we continue.
+                        lease = client.lease_s or 1.0
+                        time.sleep(arg if arg > 0 else 2.0 * lease)
                 if next_pull is not None:
                     t0 = time.monotonic()
                     pulled_leaves, counter = next_pull.result()

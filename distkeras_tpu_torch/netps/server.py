@@ -64,8 +64,12 @@ handlers, same dispatch, same fold into the one device center, same
 guarantees in every dialect; a fold that fails on the card raises in all
 of them.
 
-The JAX server's shards and stripes, tuner probe, chaos hooks and tracing
-come with later slices; a peer learns that from the join reply's ``caps``.
+**Chaos** (``DKTPU_NET_FAULTS`` in the server's own process):
+``ps_hang@R:S`` and ``ps_crash@R`` fire before commit ``R`` is folded
+(:meth:`PSServer._chaos_hooks`).
+
+The JAX server's shards and stripes, tuner probe and tracing come with
+later slices; a peer learns that from the join reply's ``caps``.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
+import signal
 import socket
 import tempfile
 import threading
@@ -97,6 +102,7 @@ from distkeras_tpu_torch.netps.fold import (STREAM_PRIORITY, PinnedPool,
                                             seat_center, split_entry,
                                             stage_commit, validate_delta)
 from distkeras_tpu_torch.ops.kernels import fold as fold_kernels
+from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.runtime.device import resolve_device
 
@@ -563,6 +569,8 @@ class PSServer:
             return None
         telemetry.counter("netps.bytes_received").add(nbytes)
         op = header.get("op", "")
+        if op == wire.OP_COMMIT:
+            self._chaos_hooks()
         with telemetry.span(f"netps.server.{op or 'unknown'}{dialect}"):
             reply, out = self._dispatch(op, header, arrays)
         err = reply.get("error")
@@ -579,6 +587,26 @@ class PSServer:
                 float(self.snapshots_written))
         reply["req"] = header.get("req")
         return reply, out
+
+    def _chaos_hooks(self) -> None:
+        """The server-side chaos kinds of ``DKTPU_NET_FAULTS``, consulted
+        per commit request before its fold (no proxy can kill this process
+        for us). ``ps_hang@R:S`` sleeps S seconds HOLDING the center lock,
+        so every member's lease renewal queues behind a wedged server;
+        ``ps_crash@R`` is the kill-the-primary drill: SIGKILL, mid-run, no
+        goodbye. ``R`` counts the commits this server has folded. (The
+        JAX package's ``shard_crash`` waits for the sharded center, ROADMAP
+        Queue 1 item 4c.)"""
+        plan = _faults.active_net_plan()
+        if plan is None:
+            return
+        at = self.commits_total
+        arg = plan.fire("ps_hang", at)
+        if arg:
+            with self._lock:
+                time.sleep(arg)  # the drill: wedged while holding the lock
+        if plan.fire("ps_crash", at) is not None:
+            os.kill(os.getpid(), signal.SIGKILL)
 
     def _dispatch(self, op: str, header: dict,
                   arrays: list) -> tuple[dict, list]:

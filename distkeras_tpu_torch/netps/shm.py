@@ -31,10 +31,12 @@ and keeps only a doorbell on a Unix-domain socket.
   connection; the client reconnects with FRESH segments and retransmits
   under the same seq, and the server's dedup keeps it exactly-once.
 
-The JAX module's chaos hooks (``shm_delay``, ``shm_corrupt``) read the
-network fault plan (``DKTPU_NET_FAULTS``), which the port does not serve
-yet; they come with that plan (ROADMAP Queue 1 item 6b). The ring frame
-counter they key on is kept: :func:`reset_frames` zeroes it.
+**Chaos** (``DKTPU_NET_FAULTS``): no proxy can sit on a memory ring, so
+the transport injects its own faults in :meth:`ShmConnection.send`, keyed
+by the process-wide ring frame counter (counted while a network plan is
+active; :func:`reset_frames` zeroes it): ``shm_delay@F:S`` holds ring
+frame F for S seconds, ``shm_corrupt@F`` flips its slot crc so the server
+rejects it and the connection dies (the ring's ``truncate``).
 """
 
 from __future__ import annotations
@@ -44,13 +46,16 @@ import os
 import socket
 import tempfile
 import threading
+import time
 import zlib
 from typing import Optional
 
 import numpy as np
 
+from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.errors import ProtocolError
+from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime import config
 
 #: initial per-direction slot capacity; grows (ftruncate + remap) to fit the
@@ -199,6 +204,15 @@ class Slot:
         self._seq = (self._seq + 1) & 0xFFFFFFFF  # even: complete
         wire.U32.pack_into(mm, wire.SHM_SEQ_OFF, self._seq)
         return total
+
+    def corrupt_crc(self) -> None:
+        """Flip the slot's crc (the ``shm_corrupt`` chaos hook): the reader
+        must reject the frame and tear the connection down."""
+        with self._op_lock:
+            if self._closed:
+                raise ConnectionError("ring slot closed")
+            (crc,) = wire.U32.unpack_from(self._mm, wire.SHM_CRC_OFF)
+            wire.U32.pack_into(self._mm, wire.SHM_CRC_OFF, crc ^ 0xFFFFFFFF)
 
     def read_frame(self, length: int, decode: bool = True,
                    ) -> tuple[int, int, dict, list]:
@@ -373,9 +387,19 @@ class ShmConnection:
 
     def send(self, kind: int, header: dict, arrays=()) -> int:
         """Write the frame into the request slot and ring the doorbell;
-        returns the frame's bytes."""
+        returns the frame's bytes. The chaos hooks fire here."""
         nbytes = self.c2s.write_frame(kind, header, arrays)
-        _next_frame()
+        plan = _faults.active_net_plan()
+        if plan is not None:
+            i = _next_frame()
+            arg = plan.fire("shm_delay", i)
+            if arg:
+                telemetry.event("chaos_shm_delay",
+                                {"frame": i, "seconds": arg})
+                time.sleep(arg)
+            if plan.fire("shm_corrupt", i) is not None:
+                telemetry.event("chaos_shm_corrupt", {"frame": i})
+                self.c2s.corrupt_crc()
         self.sock.sendall(wire.pack_doorbell(nbytes))
         return nbytes
 

@@ -390,6 +390,21 @@ def recv_exact(sock: socket.socket, n: int) -> bytes:
     return bytes(buf)
 
 
+def finish_raw_frame(sock: socket.socket, prefix: bytes,
+                     max_frame: Optional[int] = None) -> bytes:
+    """Given an already-received prefix, read the body: whole raw frame."""
+    _kind, _crc, length = parse_prefix(prefix, max_frame)
+    return prefix + recv_exact(sock, length)
+
+
+def read_raw_frame(sock: socket.socket,
+                   max_frame: Optional[int] = None) -> bytes:
+    """One whole frame off ``sock`` as raw bytes, prefix checks applied but
+    body neither checksummed nor decoded — the chaos proxy forwards frames
+    opaquely, and *delivering* a corrupt frame is exactly its job."""
+    return finish_raw_frame(sock, recv_exact(sock, PREFIX_SIZE), max_frame)
+
+
 def finish_frame(sock: socket.socket, prefix: bytes,
                  max_frame: Optional[int] = None, decode: bool = True,
                  ) -> tuple[int, int, dict, list]:

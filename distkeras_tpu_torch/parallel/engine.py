@@ -15,6 +15,15 @@ State (:class:`EngineState`):
   compiled its own optimizer);
 * ``fold_state`` and ``rng``: the discipline's round state and an int seed.
 
+Resilience (``resilience/``): a scheduled ``nan@R``/``inf@R`` batch fault
+poisons one worker's rows of round R's staged batch (:func:`stage_round`),
+the NaN guard skips the round, and the run loop's
+:class:`~distkeras_tpu_torch.resilience.guard.RoundGuard` fires ``crash@R``
+and ``kill@R`` before a round and the divergent-worker reset after it
+(:meth:`AsyncEngine.reset_workers`). :meth:`AsyncEngine.host_state` and
+:meth:`AsyncEngine.adopt_state` are the elastic re-topology: a checkpoint
+written at one worker count resumed at another.
+
 All W logical workers are multiplexed on the model's one device, one after
 the other, as the JAX package's ``_multiplexed`` round runs the workers a
 chip carries; the all-reduce over chips (multi-card NCCL) is a later slice.
@@ -26,6 +35,8 @@ run loop (:func:`run_per_round`).
 
 from __future__ import annotations
 
+import contextlib
+import warnings
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -37,8 +48,12 @@ from distkeras_tpu_torch.data.prefetch import RoundFeeder
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.optimizers import get_optimizer
 from distkeras_tpu_torch.parallel.disciplines import Discipline
-from distkeras_tpu_torch.resilience.guard import nan_guard_enabled, note_losses
-from distkeras_tpu_torch.runtime import config
+from distkeras_tpu_torch.resilience import faults
+from distkeras_tpu_torch.resilience.guard import (
+    RoundGuard,
+    nan_guard_enabled,
+    note_losses,
+)
 from distkeras_tpu_torch.workers import derive_seed, make_local_loop
 
 
@@ -114,16 +129,6 @@ class AsyncEngine(RoundEngine):
         nan_guard: Optional[bool] = None,
         divergence_reset: Optional[float] = None,
     ):
-        if per_worker_init:
-            raise NotImplementedError(
-                "per_worker_init (per-replica re-initialization, the "
-                "Ensemble trainer's) is not ported yet")
-        if (divergence_reset is not None
-                or config.env_float("DKTPU_DIVERGENCE_RESET") is not None):
-            raise NotImplementedError(
-                "divergence_reset (DKTPU_DIVERGENCE_RESET) is not ported "
-                "yet; the divergent-worker reset comes with the resilience "
-                "slice")
         if int(num_workers) < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
         self.model = model
@@ -131,11 +136,18 @@ class AsyncEngine(RoundEngine):
         self.window = int(window)
         self.num_workers = int(num_workers)
         self.seed = seed
+        #: each replica starts from its own init draw (the Ensemble
+        #: trainer's diversity) instead of a copy of the model's params.
+        self.per_worker_init = bool(per_worker_init)
         #: NaN/Inf round skip: when any worker's round loss is non-finite
         #: the round keeps the previous state (one host read of the [W]
         #: loss vector per round). Default from DKTPU_NAN_GUARD.
         self.nan_guard = (nan_guard_enabled() if nan_guard is None
                           else bool(nan_guard))
+        #: opt-in divergent-worker reset threshold (RoundGuard): a worker
+        #: whose round loss strays further than this from the worker mean
+        #: re-adopts the center. None = off (DKTPU_DIVERGENCE_RESET).
+        self.divergence_reset = divergence_reset
         self.round_loss_shape = (self.num_workers,)
         self.tx = get_optimizer(optimizer, learning_rate)
         self.loss_fn = get_loss(loss)
@@ -147,17 +159,79 @@ class AsyncEngine(RoundEngine):
         )
 
     def init_state(self) -> EngineState:
-        """Every worker starts from a copy of the model's parameters, with
-        a fresh optimizer state."""
+        """Every worker starts from a copy of the model's parameters (with
+        ``per_worker_init``, worker ``i`` from its own draw
+        ``model.reinit_params(seed * 1009 + 1 + i)``), with a fresh
+        optimizer state."""
         center = {k: v.clone() for k, v in self.model.params.items()}
+        W = self.num_workers
+        if self.per_worker_init:
+            # Ensemble semantics: init diversity is the point (reference:
+            # per-executor deserialization + uniform_weights).
+            locals_ = [self.model.reinit_params(self.seed * 1009 + 1 + i)
+                       for i in range(W)]
+        else:
+            locals_ = [center] * W
+        return EngineState(
+            center=center,
+            locals_=locals_,
+            opt_state=[self.tx.init(center) for _ in range(W)],
+            fold_state=self.discipline.init_state(center),
+            rng=int(self.seed),
+        )
+
+    def host_state(self, num_workers: int) -> EngineState:
+        """The restore target for a checkpoint written at ``num_workers``:
+        this engine's state structure with ``num_workers`` per-worker
+        entries, its tensors on the ``meta`` device (shapes and dtypes
+        only; nothing is allocated until the restore reads the file)."""
+        center = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in self.model.params.items()}
+        W = int(num_workers)
+        return EngineState(
+            center=center,
+            locals_=[dict(center) for _ in range(W)],
+            opt_state=[self.tx.init(center) for _ in range(W)],
+            fold_state=self.discipline.init_state(center),
+            rng=int(self.seed),
+        )
+
+    def adopt_state(self, host: EngineState) -> EngineState:
+        """Re-topologize a restored host state (:meth:`host_state`'s
+        structure, any worker count) onto this engine's workers: the
+        elastic resume after a resize. Reference semantics: a (re)joining
+        worker pulls the center variable, so every replica restarts from
+        the restored center with a fresh optimizer state. The center, the
+        fold state and the rng carry over exactly. (The JAX package also
+        averages the replicas' model state, BatchNorm statistics; no model
+        of the port has such state collections, so there is nothing to
+        average here.)"""
+        dev = self.model.device
+        center = {k: v.to(dev) for k, v in host.center.items()}
         W = self.num_workers
         return EngineState(
             center=center,
             locals_=[center] * W,
             opt_state=[self.tx.init(center) for _ in range(W)],
-            fold_state=self.discipline.init_state(center),
-            rng=int(self.seed),
+            fold_state=host.fold_state,
+            rng=int(host.rng),
         )
+
+    def reset_workers(self, state: EngineState, worker_mask) -> EngineState:
+        """Re-join the masked workers from the center (the divergent-worker
+        reset). Reference semantics are the rejoining-worker PS pull:
+        masked replicas take the center's params and a fresh optimizer
+        state; unmasked workers, the center, the fold state and the rng are
+        untouched. ``worker_mask`` is a host ``[W]`` bool array."""
+        mask = np.asarray(worker_mask, dtype=bool)
+        if mask.shape != (self.num_workers,):
+            raise ValueError(
+                f"worker_mask must be [{self.num_workers}], got {mask.shape}")
+        return state._replace(
+            locals_=[state.center if m else p
+                     for m, p in zip(mask, state.locals_)],
+            opt_state=[self.tx.init(state.center) if m else o
+                       for m, o in zip(mask, state.opt_state)])
 
     def _round_fn(self, state: EngineState, xs: torch.Tensor,
                   ys: torch.Tensor):
@@ -175,34 +249,88 @@ class AsyncEngine(RoundEngine):
             losses.append(step_losses.mean())
         loss = torch.stack(losses)
         next_rng = derive_seed(state.rng)
-        if self.nan_guard and not bool(torch.isfinite(loss).all()):
-            # One worker's non-finite commit would poison the center for
-            # every worker: the whole round is discarded, the previous state
-            # carries forward, and the loss keeps the NaN for accounting.
-            return state._replace(rng=next_rng), loss
+        if self.nan_guard:
+            # The round's one host read of the [W] losses; the divergence
+            # reset reads this same host copy.
+            loss = loss.cpu()
+            if not bool(torch.isfinite(loss).all()):
+                # One worker's non-finite commit would poison the center for
+                # every worker: the whole round is discarded, the previous
+                # state carries forward, and the loss keeps the NaN for
+                # accounting.
+                return state._replace(rng=next_rng), loss
         fold = disc.fold(state.center, new_locals, state.fold_state,
                          window=self.window, num_workers=self.num_workers)
         return EngineState(fold.center, fold.locals_, new_opts,
                            fold.fold_state, next_rng), loss
 
 
+def _poison_rows(x: torch.Tensor, kind: str, idx: int) -> torch.Tensor:
+    """A copy of the staged batch ``x`` with worker slice ``idx`` (leading
+    axis) multiplied by NaN/Inf, so the values, and everything backprop
+    touches, go non-finite. Non-float batches (token ids) cannot carry a
+    NaN: that misfire warns instead of silently consuming the one-shot
+    fault."""
+    if not x.is_floating_point():
+        warnings.warn(
+            f"{kind}@ batch fault scheduled on a non-float batch "
+            f"(dtype {x.dtype}): cannot poison token ids — the fault is "
+            "consumed with no effect", stacklevel=2)
+        return x
+    x = x.clone()  # the staged tensor may share the plan's host memory
+    x[idx] *= float("nan") if kind == "nan" else float("inf")
+    return x
+
+
+def _maybe_poison_round(r: int, xs: torch.Tensor) -> torch.Tensor:
+    """Apply any scheduled nan/inf batch fault for round ``r`` (one-shot)."""
+    fp = faults.active_plan()
+    if fp is None:
+        return xs
+    kind = fp.batch_fault(r)
+    if kind is None:
+        return xs
+    return _poison_rows(xs, kind, fp.poison_worker(r, int(xs.shape[0])))
+
+
+def stage_round(engine, plan, r: int):
+    """Gather and device-stage round ``r``'s batch; any scheduled
+    ``nan@r``/``inf@r`` fault poisons the staged features here, the one
+    choke point every engine's staging passes through."""
+    xs, ys = engine._put_batch(*plan.round(r))
+    return _maybe_poison_round(r, xs), ys
+
+
 def run_per_round(engine, plan, state, start_round, on_round):
     """One round per host iteration, with the next rounds' batches gathered
-    and copied to the device by a :class:`RoundFeeder`. Returns ``(state,
-    losses)``, ``losses`` the ``[rounds, *engine.round_loss_shape]`` host
-    array."""
+    and copied to the device by a :class:`RoundFeeder`. The run's
+    :class:`RoundGuard` fires any ``crash@R``/``kill@R`` before round R and
+    may replace the state after it (the divergent-worker reset). Returns
+    ``(state, losses)``, ``losses`` the ``[rounds,
+    *engine.round_loss_shape]`` host array."""
     tele = telemetry.get()
+    guard = RoundGuard(engine)
     losses = []
     feeder = RoundFeeder(plan.num_rounds,
-                         lambda r: engine._put_batch(*plan.round(r)),
+                         lambda r: stage_round(engine, plan, r),
                          start_round=start_round)
     try:
         for r, (xs, ys) in feeder:
+            guard.pre_round(r)  # crash/kill fault injection, if scheduled
             with tele.span("dispatch[per-round]"):
-                state, loss = engine._round_fn(state, xs, ys)
+                new_state, loss = engine._round_fn(state, xs, ys)
             losses.append(loss)
             if on_round is not None:
-                on_round(r, loss, state)
+                on_round(r, loss, new_state)
+            # Divergent-worker reset (a no-op unless enabled).
+            state = guard.post_round(r, loss, new_state)
+    except BaseException:
+        # A crash mid-run still accounts the rounds already run (the
+        # supervised recovery reads resilience.nonfinite_rounds for faults
+        # that landed before the crash).
+        with contextlib.suppress(Exception):
+            note_losses(torch.stack(losses).cpu().numpy())
+        raise
     finally:
         feeder.close()
         # input_stall: the time the run loop sat blocked on the data plane,

@@ -109,6 +109,16 @@ ENV_REGISTRY: dict = _declare(
            "Retries (exponential backoff) for a *failed* feeder stage call "
            "before the error propagates; 0 = off.",
            "resilience"),
+    EnvVar("DKTPU_FAULTS", "str", "",
+           "Fault-injection plan, `kind@round[:arg]` entries separated by "
+           "`;` (e.g. `nan@3;stall@5:0.5;crash@7;seed=11`). Empty = no "
+           "injection. See docs/RESILIENCE.md for the fault taxonomy.",
+           "resilience"),
+    EnvVar("DKTPU_FAULTS_STATE", "str", "",
+           "Path to the fired-faults journal so one-shot faults (notably "
+           "`kill@R`) survive the process restart they cause. Empty = "
+           "in-memory only.",
+           "resilience"),
     EnvVar("DKTPU_CKPT_DIGEST", "bool", True,
            "sha256 integrity sidecars next to each checkpoint step; `0` "
            "disables writing (and therefore verified restore).",
@@ -165,9 +175,10 @@ ENV_REGISTRY: dict = _declare(
            "set.",
            "network"),
     EnvVar("DKTPU_NET_FAULTS", "str", "",
-           "Network-fault chaos plan (`kind@frame[:arg]`, the JAX "
-           "package's `resilience/faults.py`). Not ported: the port's "
-           "remote worker loop raises when it is set.",
+           "Network-fault chaos plan (`kind@frame[:arg]`, e.g. "
+           "`delay@3:0.2;drop@5;evict@2:1`), read by the chaos proxy, the "
+           "server, the remote worker loop, the shm ring, the mesh "
+           "dispatch and the serving frontend. Empty = no injection.",
            "network"),
     EnvVar("DKTPU_NET_COMPRESS", "str", "none",
            "Delta codec for commits: `none` (f32), `bf16` (truncate), or "

@@ -11,9 +11,12 @@ the :class:`~distkeras_tpu_torch.serving.batcher.MicroBatcher` and blocks
 padded-bucket forward pass on the registry's live model (on the card,
 through the CUDA kernels) and fans the rows back out.
 
-Distributed tracing, process vitals and the chaos hooks of the JAX
-frontend come with later slices; the stats reply carries an empty flight
-ring and a fixed role.
+Chaos (``DKTPU_NET_FAULTS``), keyed by the process-wide index of accepted
+``infer`` requests: ``serve_drop@F`` closes request F's connection before
+admission (the client sees a transport failure and retries or fails
+over), ``serve_slow@F:S`` holds request F's reply S seconds. Distributed
+tracing and process vitals come with a later slice; the stats reply
+carries an empty flight ring and a fixed role.
 
 :class:`ServeClient` is the other half: per-attempt deadline, full-jitter
 backoff, endpoint walking over ``wire.split_endpoints`` on connection
@@ -36,6 +39,7 @@ from distkeras_tpu_torch.fleet import ports
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.endpoints import EndpointWalker
 from distkeras_tpu_torch.netps.errors import ProtocolError, RPCTimeoutError
+from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.resilience.backoff import full_jitter
 from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.serving import errors as serrors
@@ -47,6 +51,17 @@ _FRAME_COMPLETE_S = 30.0
 #: the role the stats reply names (the JAX frontend reads it from its
 #: tracing plane, which the port does not have yet).
 ROLE = "serve"
+
+#: process-wide accepted-``infer`` index the chaos kinds key on, shared
+#: across frontends, so a replica-set drill can address "the 7th request"
+#: without caring which replica catches it.
+_REQ_INDEX = itertools.count()
+
+
+def reset_request_index() -> None:
+    """Re-arm the chaos kinds' request index from zero (tests, drills)."""
+    global _REQ_INDEX
+    _REQ_INDEX = itertools.count()
 
 
 class ServingFrontend:
@@ -180,7 +195,8 @@ class ServingFrontend:
                     raise ProtocolError(
                         f"serving frontend got frame kind {kind}, "
                         f"expected a request")
-                self._serve_request(conn, header, arrays)
+                if not self._serve_request(conn, header, arrays):
+                    return  # serve_drop: the connection dies unanswered
         except (ProtocolError, ConnectionError, OSError):
             telemetry.counter("serving.conn_errors").add(1)
         finally:
@@ -189,8 +205,9 @@ class ServingFrontend:
             except OSError:
                 pass
 
-    def _serve_request(self, conn, header: dict, arrays: list) -> None:
-        """Answer one request frame."""
+    def _serve_request(self, conn, header: dict, arrays: list) -> bool:
+        """Answer one request frame; False drops the connection unanswered
+        (the ``serve_drop`` drill)."""
         op = header.get("op")
         req = header.get("req")
         if op == wire.OP_STATS:
@@ -210,17 +227,22 @@ class ServingFrontend:
                 reply["st1"] = st1
                 reply["st2"] = time.time()
             wire.send_frame(conn, wire.KIND_REPLY, reply, [])
-            return
+            return True
         if op != wire.OP_INFER:
             wire.send_frame(conn, wire.KIND_REPLY, {
                 "error": "unknown_op", "req": req,
                 "message": f"unknown serving op {op!r}"}, [])
-            return
+            return True
         if not arrays:
             wire.send_frame(conn, wire.KIND_REPLY, {
                 "error": "serving", "req": req,
                 "message": "infer request carried no input arrays"}, [])
-            return
+            return True
+        idx = next(_REQ_INDEX)
+        plan = _faults.active_net_plan()
+        if plan is not None and plan.fire("serve_drop", idx) is not None:
+            return False  # pre-admission: the connection dies, nothing queued
+        slow = plan.fire("serve_slow", idx) if plan is not None else None
         # Wire arrays view the per-frame buffer; copy before they outlive
         # this handler's frame (the dispatch thread concatenates later).
         inputs = tuple(np.array(a, copy=True) for a in arrays)
@@ -230,8 +252,10 @@ class ServingFrontend:
             wire.send_frame(conn, wire.KIND_REPLY, {
                 "error": serrors.error_kind(e), "req": req,
                 "message": str(e)}, [])
-            return
+            return True
         pending.event.wait()
+        if slow is not None:
+            time.sleep(slow)
         elapsed = time.monotonic() - pending.admitted_at
         telemetry.histogram("serving.latency").observe(elapsed)
         telemetry.counter("serving.answered").add(1)
@@ -239,11 +263,12 @@ class ServingFrontend:
             wire.send_frame(conn, wire.KIND_REPLY, {
                 "error": serrors.error_kind(pending.error), "req": req,
                 "message": str(pending.error)}, [])
-            return
+            return True
         self.served += 1
         wire.send_frame(conn, wire.KIND_REPLY, {
             "op": op, "req": req, "version": pending.version},
             [np.ascontiguousarray(pending.result)])
+        return True
 
     # -- dispatch -----------------------------------------------------------
 

@@ -11,8 +11,9 @@ per step) for the single and synchronous ones.
 
 Ported: ``Trainer``, ``DistributedTrainer``,
 ``AsynchronousDistributedTrainer``, the discipline trainers DOWNPOUR, ADAG,
-DynSGD, AEASGD and EAMSGD, ``SingleTrainer`` and
-``SynchronousDistributedTrainer``. With ``remote="host:port"`` (or
+DynSGD, AEASGD and EAMSGD, ``SingleTrainer``,
+``SynchronousDistributedTrainer``, ``AveragingTrainer`` and
+``EnsembleTrainer``. With ``remote="host:port"`` (or
 ``DKTPU_PS_ENDPOINT``) the discipline trainers train against a networked
 parameter server instead (``netps/remote.py``: W worker threads, each
 pull -> K local steps -> commit). ``compute_dtype="bfloat16"`` (or a
@@ -21,11 +22,12 @@ pull -> K local steps -> commit). ``compute_dtype="bfloat16"`` (or a
 ``checkpoint_dir=`` (with ``checkpoint_every`` and ``resume``) saves and
 resumes the engine state through :class:`~distkeras_tpu_torch.checkpoint.
 Checkpointer`, falling back past a corrupt step; ``metrics_path=`` writes
-the per-round JSONL of :class:`~distkeras_tpu_torch.metrics.MetricsLogger`.
-Refused with ``NotImplementedError`` until their slices: model-parallel
-submeshes (``parallel``) and resuming an async trainer at another
-``num_workers`` (ROADMAP.md Queue 1 item 6). The averaging and ensemble
-trainers come with a later slice.
+the per-round JSONL of :class:`~distkeras_tpu_torch.metrics.MetricsLogger`;
+an async trainer's checkpoint resumes at another ``num_workers`` through
+the engine's elastic re-topology (``host_state``/``adopt_state``), and
+``divergence_reset=`` re-adopts the center for a worker whose loss strays.
+Refused with ``NotImplementedError`` until its slice: model-parallel
+submeshes (``parallel``, ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from distkeras_tpu_torch.parallel.disciplines import (
     DownpourFold,
     DynSGDFold,
     EAMSGDFold,
+    EnsembleFold,
 )
 from distkeras_tpu_torch.parallel.engine import AsyncEngine
 from distkeras_tpu_torch.parallel.sync import SyncEngine
@@ -234,12 +237,19 @@ class Trainer:
             num = saved_spr if saved_spr else saved_w
             den = plan.samples_per_round if saved_spr else cur_w
             start = min(((true_round + 1) * num) // den, plan.num_rounds)
+        if resized and hasattr(engine, "host_state"):
+            # Elastic resume: the checkpoint was written at another worker
+            # count. Restore on the host at the saved topology, then re-join
+            # every worker from the center (the reference's PS pull).
+            host = ckpt.restore_host(engine.host_state(saved_w), step=step,
+                                     verify=True)
+            return engine.adopt_state(host), start
         state = ckpt.restore(engine.init_state(), step=step, verify=True)
         if resized:
             # W-independent state (SyncEngine) restores exactly under a
             # resize; data progress still rescales so the resumed run
             # neither replays nor skips a topology-dependent slice of the
-            # data. (An async engine's resize was refused before this.)
+            # data.
             warnings.warn(
                 f"resuming a checkpoint saved with num_workers={saved_w} "
                 f"on num_workers={cur_w}: state restored exactly; data "
@@ -280,23 +290,16 @@ class Trainer:
             cur_w = getattr(engine, "num_workers", None)
             disc = getattr(engine, "discipline", None)
             if (saved_w is not None and cur_w is not None
-                    and saved_w != cur_w and disc is not None):
-                if not getattr(disc, "center_is_trained", True):
-                    # A configuration error, not corruption: falling back
-                    # to an older step cannot fix a topology mismatch.
-                    raise ValueError(
-                        f"cannot elastically resume {type(disc).__name__}"
-                        " (worker count changed): its training progress"
-                        " lives in the per-worker replicas, not the"
-                        " center. Resume with the original num_workers="
-                        f"{saved_w}.")
-                raise NotImplementedError(
-                    f"resuming an async trainer's checkpoint (step {step}, "
-                    f"num_workers={saved_w}) at num_workers={cur_w} needs "
-                    "the elastic re-topology (host_state/adopt_state), "
-                    "which is not ported yet: it comes with the resilience "
-                    "plane, ROADMAP.md Queue 1 item 6. Resume with "
-                    f"num_workers={saved_w}.")
+                    and saved_w != cur_w and disc is not None
+                    and not disc.center_is_trained):
+                # A configuration error, not corruption: falling back to an
+                # older step cannot fix a topology mismatch.
+                raise ValueError(
+                    f"cannot elastically resume {type(disc).__name__}"
+                    " (worker count changed): its training progress"
+                    " lives in the per-worker replicas, not the"
+                    " center. Resume with the original num_workers="
+                    f"{saved_w}.")
             try:
                 state, start = self._restore_candidate(
                     engine, plan, ckpt, step, meta)
@@ -496,6 +499,29 @@ class DistributedTrainer(Trainer):
         super().__init__(*args, **kwargs)
         self.config = self.config.replace(num_workers=num_workers)
 
+    def _run_async(self, dataframe: DataFrame, shuffle: bool,
+                   discipline: Discipline, **engine_kw):
+        """Run ``discipline`` through :class:`AsyncEngine` over the harness,
+        ``communication_window`` local steps a round (the subclasses that
+        run it define that window; ``engine_kw``: ``per_worker_init``,
+        ``divergence_reset``); returns the final engine state."""
+        engine = AsyncEngine(
+            self.model, self.worker_optimizer, self.loss, discipline,
+            window=self.communication_window,
+            num_workers=self.num_workers or 1,
+            learning_rate=self.learning_rate,
+            compute_dtype=self.compute_dtype, seed=self.seed,
+            grad_accum=self.grad_accum,
+            device_transform=self.device_transform, **engine_kw,
+        )
+        plan = make_batches(
+            dataframe, self.features_col, self.label_col, self.batch_size,
+            num_workers=engine.num_workers, window=self.communication_window,
+            num_epoch=self.num_epoch, shuffle=shuffle, seed=self.seed,
+            transform=self.transform,
+        )
+        return self._execute(engine, plan)
+
 
 class SynchronousDistributedTrainer(DistributedTrainer):
     """Per-step gradient mean over all workers (reference
@@ -547,25 +573,6 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
     def _discipline(self) -> Discipline:
         raise NotImplementedError
 
-    def _run(self, dataframe: DataFrame, shuffle: bool):
-        engine = AsyncEngine(
-            self.model, self.worker_optimizer, self.loss, self._discipline(),
-            window=self.communication_window,
-            num_workers=self.num_workers or 1,
-            learning_rate=self.learning_rate,
-            compute_dtype=self.compute_dtype, seed=self.seed,
-            grad_accum=self.grad_accum,
-            device_transform=self.device_transform,
-            divergence_reset=self.divergence_reset,
-        )
-        plan = make_batches(
-            dataframe, self.features_col, self.label_col, self.batch_size,
-            num_workers=engine.num_workers, window=self.communication_window,
-            num_epoch=self.num_epoch, shuffle=shuffle, seed=self.seed,
-            transform=self.transform,
-        )
-        return self._execute(engine, plan)
-
     def _remote_endpoint(self) -> Optional[str]:
         return (self.remote or runtime_config.env_str("DKTPU_PS_ENDPOINT")
                 or None)
@@ -574,7 +581,9 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
                       endpoint: str) -> Model:
         """The networked-PS path: W worker threads, each pull -> K local
         steps -> commit over TCP through the hardened client
-        (``netps/remote.py``); returns the server's final center."""
+        (``netps/remote.py``); returns the server's final center. It has
+        no divergent-worker reset (``divergence_reset`` raises here), as
+        the reference's remote loop has none."""
         from distkeras_tpu_torch.netps.remote import run_remote
 
         if self.device_transform is not None:
@@ -589,8 +598,12 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
                 stacklevel=2)
         if (self.divergence_reset is not None or runtime_config.env_float(
                 "DKTPU_DIVERGENCE_RESET") is not None):
-            raise _not_ported("divergence_reset (DKTPU_DIVERGENCE_RESET)",
-                              "resilience")
+            # The reference's remote loop has no reset either: the server
+            # owns the center and no worker sees another's loss.
+            raise NotImplementedError(
+                "divergence_reset (DKTPU_DIVERGENCE_RESET) acts on the "
+                "in-process engine's workers; the remote worker loop has no "
+                "divergent-worker reset (nor has the JAX package's)")
         W = self.num_workers or 1
         plan = make_batches(
             dataframe, self.features_col, self.label_col, self.batch_size,
@@ -621,7 +634,8 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             model = self._train_remote(dataframe, shuffle, endpoint)
             self.record_training_stop()
             return model
-        state = self._run(dataframe, shuffle)
+        state = self._run_async(dataframe, shuffle, self._discipline(),
+                                divergence_reset=self.divergence_reset)
         self.record_training_stop()
         return self.model.with_params(state.center)
 
@@ -684,3 +698,47 @@ class EAMSGD(AsynchronousDistributedTrainer):
 
     def _discipline(self):
         return EAMSGDFold(alpha=self.rho * self.learning_rate)
+
+
+class AveragingTrainer(DistributedTrainer):
+    """Train independent replicas, average their weights (reference
+    ``AveragingTrainer``): every worker trains alone (the no-communication
+    :class:`~distkeras_tpu_torch.parallel.disciplines.EnsembleFold`), and
+    the model returned is the mean of the replicas' parameters."""
+
+    communication_window = _config_prop("communication_window")
+
+    def __init__(self, *args, communication_window: int = 8, **kwargs):
+        super().__init__(*args, **kwargs)
+        # steps per round only (no semantic effect: the fold is a no-op)
+        self.config = self.config.replace(
+            communication_window=communication_window)
+
+    def train(self, dataframe: DataFrame, shuffle: bool = False) -> Model:
+        """Train on ``dataframe``; returns the replicas' mean as a
+        :class:`Model` on the model's device."""
+        self.record_training_start()
+        # The replicas deliberately share one init: post-hoc weight
+        # averaging is only meaningful when every replica descends within
+        # one loss basin (the reference likewise broadcast one serialized
+        # model to its executors).
+        state = self._run_async(dataframe, shuffle, EnsembleFold())
+        averaged = {k: torch.stack([p[k] for p in state.locals_]).mean(0)
+                    for k in state.center}
+        self.record_training_stop()
+        return self.model.with_params(averaged)
+
+
+class EnsembleTrainer(AveragingTrainer):
+    """Train ``num_workers`` independent models, each from its own init
+    draw, and return all of them (reference ``EnsembleTrainer``)."""
+
+    def train(self, dataframe: DataFrame,
+              shuffle: bool = False) -> list[Model]:
+        """Train on ``dataframe``; returns one :class:`Model` per worker,
+        on the model's device."""
+        self.record_training_start()
+        state = self._run_async(dataframe, shuffle, EnsembleFold(),
+                                per_worker_init=True)
+        self.record_training_stop()
+        return [self.model.with_params(p) for p in state.locals_]

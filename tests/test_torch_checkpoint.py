@@ -161,17 +161,38 @@ def test_sync_resume_resized_rescales_data_progress(tmp_path):
     assert len(t2.get_history()) == 32 - 16
 
 
-def test_async_resize_is_refused_naming_the_resilience_plane(tmp_path):
-    """An async engine's checkpoint resumed at another W needs the elastic
-    re-topology, which is not ported: refused loudly, never restarted."""
-    cols = _columns()
-    common = dict(COMMON, communication_window=2,
-                  checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=2)
-    T.DynSGD(_port_model(), num_epoch=1, **common).train(DataFrame(cols))
-    common["num_workers"] = 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        T.DynSGD(_port_model(), num_epoch=2, resume=True,
-                 **common).train(DataFrame(cols))
+@pytest.mark.parametrize("saved_w,resumed_w", [(8, 4), (4, 8)])
+def test_async_resize_resumes_as_the_jax_package(tmp_path, saved_w,
+                                                 resumed_w):
+    """An async engine's checkpoint resumed at another W (the elastic
+    re-topology, ``host_state``/``adopt_state``): every worker re-joins
+    from the restored center with a fresh optimizer, the fold state and
+    rng carry over, data progress rescales, and the run lands within 1e-5
+    of the JAX package's resized resume."""
+    cols = _columns(512)
+    kw = dict(COMMON, communication_window=2, checkpoint_every=2)
+    ck, jck = str(tmp_path / "ck"), str(tmp_path / "jck")
+    for pkg, d in ((T, ck), (dk, jck)):
+        model = _port_model() if pkg is T else _jax_model()
+        frame = DataFrame(cols) if pkg is T else dk.DataFrame(cols)
+        pkg.DynSGD(model, num_epoch=1, checkpoint_dir=d,
+                   **dict(kw, num_workers=saved_w)).train(frame)
+    resumed_t = T.DynSGD(_port_model(), num_epoch=2, resume=True,
+                         checkpoint_dir=ck, **dict(kw, num_workers=resumed_w))
+    resumed = resumed_t.train(DataFrame(cols))
+    jt = dk.DynSGD(_jax_model(), num_epoch=2, resume=True, checkpoint_dir=jck,
+                   **dict(kw, num_workers=resumed_w))
+    jm = jt.train(dk.DataFrame(cols))
+    rounds = 2 * 512 // (resumed_w * 2 * 8)
+    assert len(resumed_t.get_history()) == rounds // 2
+    assert len(jt.get_history()) == rounds // 2
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, jm.params),
+                           resumed.module)
+    for k, v in want.items():
+        np.testing.assert_allclose(resumed.params[k].numpy(), v.numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(resumed_t.get_history(), jt.get_history(),
+                               rtol=1e-5, atol=1e-5)
 
 
 class _Ensemble(T.AsynchronousDistributedTrainer):

@@ -37,6 +37,20 @@ def test_importing_every_module_loads_no_jax():
     assert int(out.stdout.strip()) >= 20  # every submodule was imported
 
 
+@pytest.mark.parametrize("module", [
+    "distkeras_tpu_torch.resilience.faults",
+    "distkeras_tpu_torch.resilience.supervisor",
+    "distkeras_tpu_torch.netps.chaos"])
+def test_resilience_plane_modules_load_no_jax(module):
+    code = (f"import sys, {module}\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _imports(path: pathlib.Path) -> set:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

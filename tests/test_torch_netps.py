@@ -4,7 +4,7 @@ package's ``tests/test_netps.py`` happy-path and membership cases, and held
 to the JAX package across the wire: a JAX client against a port server, a
 port client against a JAX server, one fixed commit stream through both
 servers (bit-identical centers, equal commit logs), and the exactly-once
-case through the JAX ``ChaosProxy``."""
+case through the port's ``ChaosProxy``."""
 
 import threading
 import time
@@ -12,11 +12,10 @@ import time
 import numpy as np
 import pytest
 
-from distkeras_tpu.netps import ChaosProxy
 from distkeras_tpu.netps import PSClient as JaxPSClient
 from distkeras_tpu.netps import PSServer as JaxPSServer
-from distkeras_tpu.resilience.faults import FaultPlan
 from distkeras_tpu_torch.netps import (
+    ChaosProxy,
     PSClient,
     PSServer,
     ServerClosedError,
@@ -26,6 +25,7 @@ from distkeras_tpu_torch.netps import (
 )
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.ops.kernels import fold as K
+from distkeras_tpu_torch.resilience.faults import FaultPlan
 
 FAST = dict(timeout=1.0, retries=3, backoff=0.01)
 
@@ -397,7 +397,7 @@ def test_fixed_commit_stream_gives_bit_identical_centers(codec, discipline):
 
 def test_retried_commit_after_dropped_ack_folds_exactly_once():
     """The server applies the commit, the ACK is lost (chaos ``drop_r``
-    in the JAX proxy), the port client retransmits the SAME seq and the
+    in the port's proxy), the port client retransmits the SAME seq and the
     port server answers duplicate — one fold."""
     srv = make_server(discipline="downpour")
     px = ChaosProxy(srv.endpoint, plan=FaultPlan.parse_net("drop_r@1")).start()

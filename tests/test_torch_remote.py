@@ -230,7 +230,6 @@ def test_ps_endpoint_env_routes_to_the_server(monkeypatch):
     ({"DKTPU_NET_HIER": "1"}, "DKTPU_NET_HIER"),
     ({"DKTPU_NET_AUTOTUNE": "1"}, "DKTPU_NET_AUTOTUNE"),
     ({"DKTPU_PS_ENDPOINT": "127.0.0.1:1;127.0.0.1:2"}, "sharded"),
-    ({"DKTPU_NET_FAULTS": "evict@1:2"}, "item 6"),
     ({"DKTPU_TRACE": "1"}, "item 10"),
 ])
 def test_unported_remote_options_raise(monkeypatch, env, match):
@@ -240,6 +239,31 @@ def test_unported_remote_options_raise(monkeypatch, env, match):
     remote = None if "DKTPU_PS_ENDPOINT" in env else "127.0.0.1:1"
     with pytest.raises(NotImplementedError, match=match):
         T.DynSGD(pm, **_kw(1), remote=remote).train(DataFrame(_columns(1)))
+
+
+def test_net_faults_evict_run_completes(monkeypatch):
+    """``DKTPU_NET_FAULTS="evict@1:0"`` (served since the fault plan came
+    to the port): the seeded worker goes silent for twice the lease before
+    round 1, the server evicts it, its next RPC re-joins, and the run
+    completes with every commit folded exactly once."""
+    from distkeras_tpu_torch import resilience
+
+    monkeypatch.setenv("DKTPU_NET_FAULTS", "evict@1:0")
+    resilience.reset()
+    srv = PSServer(discipline="dynsgd", device="cpu", lease_s=0.3).start()
+    try:
+        t = T.DynSGD(imdb_lstm(**SMALL, device="cpu"), **_kw(2),
+                     remote=srv.endpoint)
+        t.train(DataFrame(_columns(2)))
+        plan = resilience.faults.active_net_plan()
+        assert plan._fired == {("evict", 1)}
+        assert srv.evictions >= 1 and srv.rejoins >= 1
+        keys = [(w, s) for w, s, _st in srv.commit_log]
+        assert len(keys) == len(set(keys))
+        assert np.isfinite(t.get_history()).any()
+    finally:
+        srv.close()
+        resilience.reset()
 
 
 def test_unknown_transport_still_raises(monkeypatch):

@@ -89,7 +89,9 @@ def test_on_round_and_rounds_per_program():
     # endpoint matrix is not.
     ({"remote": "127.0.0.1:1;127.0.0.1:2"}, "remote"),
     ({"parallel": {"model": 2}}, "parallel"),
-    ({"divergence_reset": 1.0}, "divergence_reset"),
+    # The in-process engine resets divergent workers; the remote loop has
+    # no reset, as the reference's has none.
+    ({"divergence_reset": 1.0, "remote": "127.0.0.1:1"}, "divergence_reset"),
     ({"device_transform": lambda rng, x, y: (x, y)}, "input_transform"),
 ])
 def test_unported_kwargs_raise(kwargs, match):
