@@ -266,17 +266,24 @@ and every parity phase holds the card's bf16 run to the CPU's within
     one worker, adam at lr 1e-4, alpha 0.05, bf16, flash, remat) at full
     width through the arms the port serves: ``inprocess`` (``AEASGD(...)
     .train(df)``), ``pr4`` (``run_remote`` over TCP, inflight 1), ``shm``
-    (the ring, inflight 2) and ``mesh`` (the in-process dispatch into the
-    server's device center, inflight 2), one warm run (2 rounds) and two
-    timed runs each against a fresh ``PSServer(device="cuda",
-    transport=...)``:
+    (the ring, inflight 2), ``mesh`` (the in-process dispatch into the
+    server's device center, inflight 2) and ``optimized`` (TCP, inflight
+    2, 2 stripes, int8), one warm run (2 rounds) and two timed runs each
+    against a fresh ``PSServer(device="cuda", transport=...)``;
+    ``durable`` (``optimized`` against a server seeded with the weights
+    and journaling into a fresh directory) in 2 ABBA pairs with a
+    baseline ``optimized`` run (the reference runs at least 10):
     tokens/s (the median of the timed runs), ``shm_vs_pr4``,
-    ``mesh_vs_shm``, ``mesh_vs_inprocess``, the dialect counters and the
-    RPC spans. The counts are set to 0 before each run and read after it:
+    ``mesh_vs_shm``, ``mesh_vs_inprocess``, ``optimized_vs_pr4``,
+    ``shm_vs_tcp_optimized``, ``durable_overhead_vs_optimized`` (the
+    geometric mean of the pairs' ratios, less 1), the dialect counters and
+    the RPC spans. The counts are set to 0 before each run and read after it:
     the losses finite and the center moved; the server's commit log holds
-    each ``(0, seq)`` once; one ``fold_commit`` launch per folded commit;
-    every commit on the arm's dialect, on the client's and on the server's
-    side, none on another, and no demotion or ring fallback (in the mesh
+    each ``(0, seq)`` once (a durable run's journal too); one
+    ``fold_commit`` launch per folded commit, however many stripes carried
+    it; every commit on the arm's dialect, on the client's and on the
+    server's side (a stripe a span), none on another, and no demotion or
+    ring fallback (in the mesh
     arm ``netps.mesh.folds``, the folds that came through the dispatch,
     equals the commits); the flash kernels in
     bf16 only, 2/1/1 a layer a step. Then a ``MeshFolder`` on the card
@@ -287,9 +294,10 @@ and every parity phase holds the card's bf16 run to the CPU's within
     that seq there; the server folds seqs 0-3 from the dispatch and 4-11
     from the ring, each once); and a mesh run
     at inflight 1 whose center must equal ``pr4``'s (or lie within the
-    distance of two ``pr4`` runs, when the card does not repeat itself).
-    The arms that need an unported item (``optimized``, ``durable``,
-    ``auto``, ``hier_curve``, ``sim_drift``) are named as such.
+    distance of two ``pr4`` runs, when the card does not repeat itself);
+    and an int8 run at inflight 1 over 2 stripes bit-equal to the same run
+    over 1. The arms that need an unported item (``auto``,
+    ``hier_curve``, ``sim_drift``) are named as such.
 
 21. ``ensemble_train`` — the reference's ``AveragingTrainer`` and
     ``EnsembleTrainer`` on config #4 (``TRAIN``: 4 workers, window 4,
@@ -319,6 +327,33 @@ and every parity phase holds the card's bf16 run to the CPU's within
     shm_corrupt@6``. Each: every fault fired, each ``(worker, seq)``
     folded once, every acknowledged commit folded, one ``fold_commit`` a
     folded commit; (a) and (c) bit-equal to the same run without faults.
+24. ``netps_sharded`` — two real models through a 2-shard center
+    (``ShardSet(2, device="cuda")``): config #8's, with
+    ``DKTPU_PS_SHARD_RULES=tok_embed=split`` (the 8192 x 512 embedding
+    row-split over both shards), codec none, inflight 1, bit-equal to
+    ``pr4``'s single-server center, two launches a commit; then config #4
+    as a user drives it, ``DynSGD(imdb_lstm(...), remote=<the matrix>)``
+    (int8, 4 workers, 3 rounds): each logical seq folded once on each
+    shard, two launches a logical commit, finite losses, the model the
+    assembled center.
+25. ``sharded_center`` — config #10 (``bench.py:898-979`` at its
+    accelerator size, ``:1484-1487``): 16 tensors of 256 x 512 f32, 4
+    workers, 6 commits of 1e-3 each, against one ``PSServer`` and
+    ``ShardSet`` gangs of 2 and 4 on the card: ``folds_per_sec``,
+    ``bytes_per_sec``, ``speedup_vs_1`` and ``speedup_vs_single_ps``;
+    each point's center bit-equal to the numpy oracle, 24 launches on
+    each shard.
+26. ``shard_crash`` — two CLI shard servers (``python -m
+    distkeras_tpu_torch.netps --shard k/2 --device cuda --state-dir ...``,
+    started before ``netps_config8``) under ``shard_crash@1:4`` with a
+    fired-fault journal each: config #4 remote DynSGD (int8) against the
+    matrix; shard 1 SIGKILLs itself after 4 folds (status -9) and is
+    restarted on its port and directory; the run completes. Checked: the
+    fault fired once, on shard 1; every acknowledged logical commit
+    journaled once on each shard; a server built here on shard 1's
+    directory adopts its ``plan.json``, replays its journal (one
+    ``fold_commit`` a record) into the live shard's center, admits the
+    plan and refuses a drifted one.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -2883,11 +2918,18 @@ C8_DIALECTS = ("", ".shm", ".mesh")
 #: dispatch as a lost device would (the reference's drill).
 C8_DEMOTE_AT = 4
 #: the arms that need an item the port does not serve yet.
-C8_NOT_PORTED = {"optimized": "striping over 2 shards (item 4c)",
-                 "durable": "the journal on the striped plane (item 4c)",
-                 "auto": "the tuner (item 4e)",
+C8_NOT_PORTED = {"auto": "the tuner (item 4e)",
                  "hier_curve": "the per-host aggregator (item 4d)",
                  "sim_drift": "sim/ (item 10)"}
+#: the ``optimized`` arm's plane (``bench.py:599``): TCP, two commits in
+#: flight, two stripes, int8; ``durable`` is the same with a journal.
+C8_OPTIMIZED = dict(transport="tcp", inflight=2, shards=2, compress="int8")
+#: ABBA pairs of (durable, baseline) ``optimized`` runs. The reference runs
+#: ``max(reps + 2, 10)`` pairs; the port runs 2, for the time limit.
+C8_DURABLE_PAIRS = 2
+#: config #8 against a 2-shard center: the token embedding (8192 x 512)
+#: row-split over both shards, so the split path runs on the card.
+C8_SHARD_RULES = "tok_embed=split"
 
 
 def c8_mesh_fold_check(torch, F, params: dict, seed: int) -> dict:
@@ -2929,24 +2971,38 @@ def c8_mesh_fold_check(torch, F, params: dict, seed: int) -> dict:
 
 
 def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
-           inflight: int = 1) -> dict:
+           inflight: int = 1, *, transport: str = None, shards: int = 1,
+           compress: str = "none", state_dir: str = None,
+           shard_count: int = 0) -> dict:
     """One run of arm ``arm`` from the model's weights: ``inprocess`` is
     ``AEASGD(...).train(df)`` in process (the engine's elastic fold); the
     others ``run_remote`` against a fresh ``PSServer(device="cuda")`` of
-    that transport (``pr4`` is TCP), one worker, f32 commits. The launch
+    ``transport`` (default: the arm's name; ``pr4`` is TCP), one worker,
+    ``shards`` stripes and ``compress`` commits. With ``state_dir`` the
+    server is seeded with the model's weights and journals there (the
+    base snapshot is written before the clock starts); with
+    ``shard_count`` it is a ``ShardSet`` of that many shards. The launch
     counts are set to 0 just before and read just after."""
     from distkeras_tpu_torch import AEASGD, telemetry
-    from distkeras_tpu_torch.netps import PSServer
+    from distkeras_tpu_torch.netps import PSServer, ShardSet, state
     from distkeras_tpu_torch.netps.remote import run_remote
     from distkeras_tpu_torch.ops.losses import get_loss
     from distkeras_tpu_torch.ops.optimizers import adam
 
-    transport = {"pr4": "tcp"}.get(arm, arm)
+    transport = transport or {"pr4": "tcp"}.get(arm, arm)
     srv = None
+    servers = []
     telemetry.reset()
-    if arm != "inprocess":
-        srv = PSServer(discipline="aeasgd", device="cuda",
+    if arm != "inprocess" and shard_count:
+        srv = ShardSet(shard_count, discipline="aeasgd", device="cuda",
                        transport=transport).start()
+        servers = srv.servers
+    elif arm != "inprocess":
+        seed = ([v.detach().float().cpu().numpy()
+                 for v in model.params.values()] if state_dir else None)
+        srv = PSServer(center=seed, discipline="aeasgd", device="cuda",
+                       transport=transport, state_dir=state_dir).start()
+        servers = [srv]
     try:
         torch.cuda.synchronize()
         F.reset_launches()  # counts start at 0 just before the run
@@ -2965,17 +3021,21 @@ def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
                 endpoint=srv.endpoint, model=model, tx=adam(C8_LR),
                 loss_fn=get_loss("sparse_categorical_crossentropy"),
                 plan=plan, discipline="aeasgd", window=C8_WINDOW,
-                alpha=C8_ALPHA, seed=0, inflight=inflight,
-                transport=transport, compress="none", loop_fn=loop)
+                alpha=C8_ALPHA, seed=0, inflight=inflight, shards=shards,
+                transport=transport, compress=compress, loop_fn=loop)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fold, flash = F.launch_counts(), FA.launch_counts()
         flash_entries = FA.launch_counts(by_entry=True)
-        log = list(srv.commit_log) if srv is not None else []
+        logs = [list(x.commit_log) for x in servers]
         center = srv.center() if srv is not None else None
+        shard_plan = srv.plan if shard_count else None
+        pending = sum(len(x._pending) for x in servers)
     finally:
         if srv is not None:
             srv.close()
+    journal = ([(int(r["wid"]), int(r["seq"]))
+                for r in state.read_journal(state_dir)] if state_dir else None)
     snap = telemetry.get().snapshot()
     counters = snap["counters"]
     dialect = {"tcp": ""}.get(transport, "." + transport)
@@ -2983,12 +3043,18 @@ def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
         ["netps.remote.local_window"]
         + [f"netps.{side}.pull{dialect}" for side in ("rpc", "server")]
         + [f"netps.{side}.commit{d}" for side in ("rpc", "server")
-           for d in C8_DIALECTS] if srv is not None else [])}
+           for d in C8_DIALECTS]
+        + [f"netps.rpc.commit.s{k}{dialect}" for k in range(shards)]
+        if srv is not None else [])}
     return {"arm": arm, "transport": transport, "inflight": inflight,
-            "dialect": dialect, "rounds": plan.num_rounds,
+            "shards": shards, "compress": compress,
+            "servers": len(servers), "dialect": dialect,
+            "rounds": plan.num_rounds,
             "seconds": wall, "tokens_per_s": tokens / wall,
             "params": params, "center": center, "losses": losses,
-            "log": log, "fold": fold, "flash": flash,
+            "log": logs[0] if logs else [], "logs": logs,
+            "plan": shard_plan, "pending": pending, "journal": journal,
+            "fold": fold, "flash": flash,
             "flash_entries": flash_entries, "spans": spans,
             "counters": {k: counters.get(k, 0) for k in (
                 "netps.shm_upgrades", "netps.mesh.upgrades",
@@ -3025,25 +3091,47 @@ def c8_check_run(torch, run: dict, init: dict, label: str,
         if any(run["fold"].values()):
             bad.append(f"{label}: the fold kernel launched {run['fold']}")
         return bad
-    seqs = [(w, s) for w, s, _st in run["log"]]
-    if sorted(seqs) != [(0, s) for s in range(rounds)]:
-        bad.append(f"{label}: commit log {seqs}, want (0, 0..{rounds - 1}) "
-                   f"once each")
-    if run["fold"].get("fold_commit") != len(run["log"]) or any(
+    folded = 0
+    for k, log in enumerate(run["logs"]):
+        seqs = [(w, s) for w, s, _st in log]
+        folded += len(log)
+        if sorted(seqs) != [(0, s) for s in range(rounds)]:
+            bad.append(f"{label}: server {k}'s commit log {seqs}, want "
+                       f"(0, 0..{rounds - 1}) once each")
+    # One fold_commit launch a folded commit on each server: a striped
+    # commit is assembled and folded once, a sharded one once a shard.
+    if run["fold"].get("fold_commit") != folded or any(
             v for k, v in run["fold"].items() if k != "fold_commit"):
         bad.append(f"{label}: fold launches {run['fold']} for "
-                   f"{len(run['log'])} folded commits")
+                   f"{folded} folded commits")
+    if run["pending"]:
+        bad.append(f"{label}: {run['pending']} half-assembled stripes left")
+    if run["journal"] is not None and sorted(run["journal"]) != [
+            (0, s) for s in range(rounds)]:
+        bad.append(f"{label}: journal {run['journal']}, want each commit "
+                   f"once")
     if not drill:
         # Every commit went out and was served on the arm's dialect: the
-        # fold launches above came from that dialect's path.
+        # fold launches above came from that dialect's path. A striped
+        # commit is one client span a stripe (``.s<k>``) and one server
+        # span a stripe; a sharded one a span a shard on both sides.
+        n, stripes = run["servers"], run["shards"]
         for side in ("rpc", "server"):
             got = {d or ".tcp": run["spans"][f"netps.{side}.commit{d}"][
                 "count"] for d in C8_DIALECTS}
-            want = {d or ".tcp": rounds if d == run["dialect"] else 0
+            per = (n * stripes if side == "server"
+                   else n if stripes == 1 else 0)
+            want = {d or ".tcp": rounds * per if d == run["dialect"] else 0
                     for d in C8_DIALECTS}
             if got != want:
                 bad.append(f"{label}: {side} commits by dialect {got}, "
                            f"want {want}")
+        if stripes > 1:
+            got = [run["spans"][f"netps.rpc.commit.s{k}{run['dialect']}"][
+                "count"] for k in range(stripes)]
+            if got != [rounds] * stripes:
+                bad.append(f"{label}: commits a stripe {got}, want "
+                           f"{rounds} on each of {stripes}")
         c = run["counters"]
         if c["netps.mesh.demotions"] or c["netps.shm_fallbacks"]:
             bad.append(f"{label}: the client left its dialect: {c}")
@@ -3060,11 +3148,16 @@ def c8_check_run(torch, run: dict, init: dict, label: str,
 def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
     """Config #8 (``netps_loopback_aeasgd``) at full width through the arms
     the port serves: ``inprocess``, ``pr4`` (TCP, inflight 1), ``shm`` (the
-    ring, inflight 2) and ``mesh`` (the in-process dispatch, inflight 2),
-    one warm run and ``C8_TIMED`` timed runs each; then the mesh fold's
-    bit check (d), the demotion drill (e) and a mesh run at inflight 1
-    against ``pr4``'s center (f). Returns the fold and flash launches of
-    the mesh arm's first timed run."""
+    ring, inflight 2), ``mesh`` (the in-process dispatch, inflight 2) and
+    ``optimized`` (TCP, inflight 2, 2 stripes, int8), one warm run and
+    ``C8_TIMED`` timed runs each; ``durable`` (``optimized`` with a fresh
+    journal) in ``C8_DURABLE_PAIRS`` ABBA pairs with a baseline
+    ``optimized`` run; then the mesh fold's bit check (d), the demotion
+    drill (e), a mesh run at inflight 1 against ``pr4``'s center (f) and
+    a striped int8 run at inflight 1 against the same run unstriped (g).
+    Returns the fold and flash launches of the mesh and striped arms, and
+    what ``netps_sharded`` reuses (the model, its local loop, the data and
+    ``pr4``'s center)."""
     import copy
 
     from distkeras_tpu_torch import small_transformer_lm
@@ -3095,11 +3188,11 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
                            adam(C8_LR), compute_dtype=torch.bfloat16)
     failures: list = []
     arms = {}
-    for arm, inflight in (("inprocess", 1), ("pr4", 1), ("shm", 2),
-                          ("mesh", 2)):
+    for arm, kw in (("inprocess", {}), ("pr4", {}), ("shm", {"inflight": 2}),
+                    ("mesh", {"inflight": 2}), ("optimized", C8_OPTIMIZED)):
         runs = [c8_run(torch, F, FA, arm, model, warm[0], loop, *warm[1:],
-                       inflight)] + [
-            c8_run(torch, F, FA, arm, model, plan, loop, df, tokens, inflight)
+                       **kw)] + [
+            c8_run(torch, F, FA, arm, model, plan, loop, df, tokens, **kw)
             for _ in range(C8_TIMED)]
         for i, run in enumerate(runs):
             failures += c8_check_run(torch, run, init, f"{arm}[{i}]")
@@ -3108,6 +3201,39 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
     tps = {arm: float(np.median([r["tokens_per_s"] for r in runs]))
            for arm, runs in timed.items()}
 
+    # durable: the optimized plane with a fresh journal, in ABBA pairs with
+    # a baseline optimized run (a ratio a pair, their geometric mean).
+    ratios, durable_runs = [], []
+    for i in range(C8_DURABLE_PAIRS):
+        state_dir = os.path.join("build", "c8_durable")
+        shutil.rmtree(state_dir, ignore_errors=True)
+        pair = {}
+        for journaled in ((True, False) if i % 2 == 0 else (False, True)):
+            run = c8_run(torch, F, FA, "durable" if journaled else
+                         "optimized", model, plan, loop, df, tokens,
+                         state_dir=state_dir if journaled else None,
+                         **C8_OPTIMIZED)
+            failures += c8_check_run(torch, run, init,
+                                     f"{run['arm']}_pair{i}")
+            pair[journaled] = run["seconds"]
+            if journaled:
+                durable_runs.append(run)
+        shutil.rmtree(state_dir, ignore_errors=True)
+        ratios.append(pair[True] / pair[False])
+    durable_ratio = float(np.exp(np.mean(np.log(ratios))))
+
+    # (g) stripes change nothing that is folded: int8 at inflight 1, two
+    # stripes against one.
+    striped = {n: c8_run(torch, F, FA, f"int8_s{n}", model, plan, loop, df,
+                         tokens, transport="tcp", shards=n, compress="int8")
+               for n in (1, 2)}
+    for n, run in striped.items():
+        failures += c8_check_run(torch, run, init, f"int8_s{n}")
+    striped_equal = same_bits(striped[1]["center"], striped[2]["center"])
+    if not striped_equal:
+        failures.append("(g) the 2-stripe int8 run's center is not the "
+                        "1-stripe run's")
+
     fold_check = c8_mesh_fold_check(torch, F, model.params, seed)
     if not fold_check["bit_equal"] or fold_check["launches"].get(
             "fold_commit") != fold_check["commits"]:
@@ -3115,7 +3241,7 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
 
     with fault_plan(net=f"mesh_down@{C8_DEMOTE_AT}") as (_, down):
         drill = c8_run(torch, F, FA, "mesh", model, plan, loop, df, tokens,
-                       2)
+                       inflight=2)
         missed = unfired(down)
     failures += c8_check_run(torch, drill, init, "mesh_drill", drill=True)
     drill_c = drill["counters"]
@@ -3136,7 +3262,7 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
     pr4_a, pr4_b = (r["center"] for r in timed["pr4"])
     pr4_spread = max(float(np.abs(a - b).max()) for a, b in zip(pr4_a,
                                                                 pr4_b))
-    mesh1 = c8_run(torch, F, FA, "mesh", model, plan, loop, df, tokens, 1)
+    mesh1 = c8_run(torch, F, FA, "mesh", model, plan, loop, df, tokens)
     failures += c8_check_run(torch, mesh1, init, "mesh_inflight1")
     mesh1_off = max(float(np.abs(a - b).max())
                     for a, b in zip(mesh1["center"], pr4_a))
@@ -3171,6 +3297,23 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
           "shm_vs_pr4": tps["shm"] / tps["pr4"],
           "mesh_vs_shm": tps["mesh"] / tps["shm"],
           "mesh_vs_inprocess": tps["mesh"] / tps["inprocess"],
+          "optimized_knobs": C8_OPTIMIZED,
+          "optimized_tokens_per_sec": tps["optimized"],
+          "optimized_vs_pr4": tps["optimized"] / tps["pr4"],
+          "shm_vs_tcp_optimized": tps["shm"] / tps["optimized"],
+          "durable_tokens_per_sec": tps["optimized"] / durable_ratio,
+          "durable_overhead_vs_optimized": durable_ratio - 1.0,
+          "durable_pair_ratios": ratios,
+          "durable_pairs": C8_DURABLE_PAIRS,
+          "durable_journal_records": [len(r["journal"])
+                                      for r in durable_runs],
+          "durable_fold_launches": [r["fold"].get("fold_commit", 0)
+                                    for r in durable_runs],
+          "stripe_parity": {"runs": {f"int8_s{n}": {
+              "tokens_per_s": r["tokens_per_s"],
+              "fold_launches": r["fold"].get("fold_commit", 0)}
+              for n, r in striped.items()},
+              "bit_equal": striped_equal},
           "arms": {arm: arm_row(runs) for arm, runs in timed.items()},
           "warm_tokens_per_s": {arm: runs[0]["tokens_per_s"]
                                 for arm, runs in arms.items()},
@@ -3185,18 +3328,494 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
                                "mesh_inflight1_from_pr4": mesh1_off,
                                "bit_equal": mesh1_off == 0.0},
           "not_ported": C8_NOT_PORTED,
-          "reduced": "none of width or depth; the arms that need an "
-                     "unported item are left out (not_ported)",
+          "reduced": f"none of width or depth; durable runs "
+                     f"{C8_DURABLE_PAIRS} ABBA pairs (the reference "
+                     f"max(reps + 2, 10)); the arms that need an unported "
+                     f"item are left out (not_ported)",
           "seconds": time.perf_counter() - t_phase})
     if failures:
         fail("netps_config8: " + "; ".join(failures))
     first = timed["mesh"][0]
+    stripe_runs = timed["optimized"] + durable_runs + [striped[2]]
     return {"mesh_fold_launches": sum(r["fold"].get("fold_commit", 0)
                                       for r in timed["mesh"]),
             "mesh_commits": sum(len(r["log"]) for r in timed["mesh"]),
+            "striped_fold_launches": sum(r["fold"].get("fold_commit", 0)
+                                         for r in stripe_runs),
+            "striped_commits": sum(len(r["log"]) for r in stripe_runs),
             "flash": first["flash"],
             "drill_fold_launches": drill["fold"].get("fold_commit", 0),
-            "drill_flash": drill["flash"]}
+            "drill_flash": drill["flash"],
+            "ctx": {"model": model, "plan": plan, "loop": loop, "df": df,
+                    "tokens": tokens, "init": init,
+                    "pr4_center": pr4_a,
+                    "pr4_tokens_per_s": tps["pr4"]}}
+
+
+# -- the sharded center: config #8 and config #4 through it, config #10 ----
+
+#: config #10 (``bench.py:898-979``, sized at ``:1484-1487`` on an
+#: accelerator): 16 tensors of 256 x 512 f32 (8.4 MB), 4 workers, 6
+#: commits each of 1e-3 everywhere (ADAG, scale 1), against 1, 2 and 4
+#: shards.
+C10 = dict(tensors=16, rows=256, cols=512, workers=4, commits=6)
+C10_SHARDS = (1, 2, 4)
+C10_DELTA = 1e-3
+#: config #4 remote DynSGD (int8) through a 2-shard center: 3 rounds of
+#: ``REMOTE``'s 4 workers, window 4, batch 2048.
+SHARDED_ROUNDS = 3
+#: the ``shard_crash`` drill: shard 1 of 2 SIGKILLs itself once it has
+#: folded 4 commits; config #4 remote DynSGD (int8) rides through on
+#: retries, its leases long enough for the restart.
+SHARD_CRASH = "shard_crash@1:4"
+SHARD_CRASH_ROUNDS = 3
+SHARD_CRASH_LEASE = 60.0
+
+
+@contextlib.contextmanager
+def acked_logical_commits():
+    """Record, as ``(worker, seq)``, every logical commit a port
+    ``ShardedPSClient`` saw acknowledged (applied, or answered as a
+    duplicate) in the block."""
+    from distkeras_tpu_torch.netps import ShardedPSClient
+
+    acked = set()
+    real_commit = ShardedPSClient.commit
+
+    def commit(self, delta, pulled_counter):
+        seq = self._seq + 1
+        res = real_commit(self, delta, pulled_counter)
+        if res.applied or res.duplicate:
+            acked.add((self.worker_id, seq))
+        return res
+
+    ShardedPSClient.commit = commit
+    try:
+        yield acked
+    finally:
+        ShardedPSClient.commit = real_commit
+
+
+def netps_sharded_phase(torch, K, F, FA, gpu: str, seed: int, ctx: dict,
+                        frame) -> dict:
+    """Two real models through a 2-shard center on the card. (1) Config
+    #8's model, ``run_remote`` against ``ShardSet(2)`` under
+    ``DKTPU_PS_SHARD_RULES=tok_embed=split`` (codec none, inflight 1):
+    the token embedding is row-split, each shard folds every seq once,
+    one ``fold_commit`` a shard a commit, and the assembled center is
+    bit-equal to ``pr4``'s (one server, the same knobs). (2) Config #4 as
+    a user drives it, ``DynSGD(imdb_lstm(...), remote=<ShardSet(2)
+    endpoint>)``, int8, 4 workers, 3 rounds: each logical seq folded once
+    on each shard, two launches a logical commit, losses finite and the
+    center moved. Returns the ``fold_commit`` launches of both runs."""
+    from distkeras_tpu_torch.netps import ShardSet
+
+    t_phase = time.perf_counter()
+    failures = []
+    with env_set(DKTPU_PS_SHARD_RULES=C8_SHARD_RULES):
+        c8 = c8_run(torch, F, FA, "sharded", ctx["model"], ctx["plan"],
+                    ctx["loop"], ctx["df"], ctx["tokens"], transport="tcp",
+                    shard_count=2)
+    failures += c8_check_run(torch, c8, ctx["init"], "config8_sharded")
+    names = list(ctx["model"].params)
+    embed = c8["plan"].segments[names.index("tok_embed.weight")]
+    if [k for k, _a, _b in embed] != [0, 1]:
+        failures.append(f"config8_sharded: tok_embed.weight is not split "
+                        f"over both shards: {embed}")
+    c8_equal = same_bits(c8["center"], ctx["pr4_center"])
+    if not c8_equal:
+        failures.append("config8_sharded: the 2-shard center is not pr4's")
+    if c8["fold"].get("fold_commit") != 2 * c8["rounds"]:
+        failures.append(f"config8_sharded: {c8['fold']} for "
+                        f"{c8['rounds']} commits on 2 shards")
+
+    W = REMOTE["num_workers"]
+    rows = SHARDED_ROUNDS * W * REMOTE["communication_window"] \
+        * REMOTE["batch_size"]
+    ss = ShardSet(2, discipline="dynsgd", device="cuda").start()
+    try:
+        with acked_logical_commits() as acked:
+            run = remote_run(torch, K, F, seed + 6, first_rows(frame, rows),
+                             ss.endpoint, SHARDED_ROUNDS)
+        logs = [list(x.commit_log) for x in ss.servers]
+        center = ss.center()
+        plan = ss.plan
+    finally:
+        ss.close()
+    want = sorted((w, s) for w in range(W) for s in range(SHARDED_ROUNDS))
+    for k, log in enumerate(logs):
+        if sorted((w, s) for w, s, _ in log) != want:
+            failures.append(f"config4_sharded: shard {k} folded "
+                            f"{sorted((w, s) for w, s, _ in log)}")
+    if sorted(acked) != want:
+        failures.append(f"config4_sharded: acknowledged {sorted(acked)}")
+    if run["fold"].get("fold_commit") != 2 * len(want):
+        failures.append(f"config4_sharded: {run['fold']} for {len(want)} "
+                        f"logical commits on 2 shards")
+    if not run["finite"]:
+        failures.append("config4_sharded: non-finite losses")
+    trained = [p.cpu().numpy() for p in run["trained"].params.values()]
+    moved = max(float(np.abs(a - b.detach().cpu().numpy()).max())
+                for a, b in zip(trained,
+                                run["trainer"].model.params.values()))
+    if not moved > 0 or not same_bits(trained, center):
+        failures.append(f"config4_sharded: center moved {moved}; the model "
+                        f"is the assembled center: "
+                        f"{same_bits(trained, center)}")
+    emit({"phase": "netps_sharded", "gpu": gpu,
+          "config8": {"shards": 2, "rules": C8_SHARD_RULES,
+                      "compress": "none", "inflight": 1,
+                      "tokens_per_s": c8["tokens_per_s"],
+                      "pr4_tokens_per_s": ctx["pr4_tokens_per_s"],
+                      "vs_pr4": c8["tokens_per_s"] / ctx["pr4_tokens_per_s"],
+                      "seconds": c8["seconds"],
+                      "plan_loads": c8["plan"].loads,
+                      "plan_skew": c8["plan"].skew(),
+                      "tok_embed_segments": embed,
+                      "fold_launches": c8["fold"],
+                      "commits_per_shard": [len(x) for x in c8["logs"]],
+                      "bit_equal_to_pr4": c8_equal},
+          "config4": {"shards": 2, **REMOTE, "rounds": SHARDED_ROUNDS,
+                      "codec": "int8", "seconds": run["wall"],
+                      "samples_per_s": run["samples_per_s"],
+                      "plan_loads": plan.loads, "plan_skew": plan.skew(),
+                      "commits_per_shard": [len(x) for x in logs],
+                      "acked_logical_commits": len(acked),
+                      "fold_launches": run["fold"],
+                      "lstm_launches": run["lstm"],
+                      "center_max_abs_change": moved},
+          "seconds": time.perf_counter() - t_phase})
+    if failures:
+        fail("netps_sharded: " + "; ".join(failures))
+    return {"config8": c8["fold"].get("fold_commit", 0),
+            "config8_commits": c8["rounds"],
+            "config4": run["fold"].get("fold_commit", 0),
+            "config4_commits": len(want)}
+
+
+def sharded_center_phase(torch, F, gpu: str) -> dict:
+    """Config #10's fold-throughput curve on the card: the same 8.4 MB
+    center committed to by 4 concurrent workers, 6 commits each (then a
+    pull), against one ``PSServer`` and ``ShardSet`` gangs of 2 and 4, each
+    server's slice on the card, dialed through ``make_ps_client`` (joins
+    untimed, as the reference's barrier leaves them). Each point's
+    assembled center must be bit-equal to the numpy oracle (24 successive
+    f32 adds of 1e-3: ADAG folds at scale 1) and ``fold_commit`` must
+    have launched 24 times on each shard holding a tensor."""
+    from distkeras_tpu_torch.netps import PSServer, ShardSet, make_ps_client
+
+    t_phase = time.perf_counter()
+    n_t, rows, cols = C10["tensors"], C10["rows"], C10["cols"]
+    W, commits = C10["workers"], C10["commits"]
+    rng = np.random.default_rng(0)
+    center = [rng.standard_normal((rows, cols)).astype(np.float32)
+              for _ in range(n_t)]
+    center_bytes = sum(a.nbytes for a in center)
+    oracle = [a.copy() for a in center]
+    for _ in range(W * commits):
+        for o in oracle:
+            o += np.float32(C10_DELTA)
+    curve, failures = [], []
+    for n in C10_SHARDS:
+        if n == 1:
+            srv = PSServer(center=[a.copy() for a in center],
+                           discipline="adag", device="cuda").start()
+            endpoint, plan, holders = srv.endpoint, None, 1
+        else:
+            srv = ShardSet(n, center=[a.copy() for a in center],
+                           discipline="adag", device="cuda").start()
+            endpoint, plan = srv.endpoint, srv.plan
+            holders = sum(1 for k in range(n) if plan.shard_shapes(k))
+        try:
+            barrier = threading.Barrier(W + 1)
+            errors: list = []
+
+            def work(endpoint=endpoint, plan=plan, barrier=barrier,
+                     errors=errors):
+                client = make_ps_client(endpoint, plan=plan)
+                try:
+                    _c, counter = client.join(init=center)
+                    delta = [np.full_like(a, C10_DELTA) for a in center]
+                    barrier.wait()
+                    for _ in range(commits):
+                        client.commit(delta, counter)
+                        _c, counter = client.pull()
+                    client.leave()
+                except Exception as e:  # surfaced below, never swallowed
+                    errors.append(e)
+                    barrier.abort()
+                finally:
+                    client.close()
+
+            threads = [threading.Thread(target=work, name=f"c10-{w}")
+                       for w in range(W)]
+            for t in threads:
+                t.start()
+            try:
+                barrier.wait()  # the joins stay untimed
+            except threading.BrokenBarrierError:
+                pass
+            torch.cuda.synchronize()
+            F.reset_launches()  # counts start at 0 just before the folds
+            t0 = time.perf_counter()
+            for t in threads:
+                t.join()
+            dt = time.perf_counter() - t0
+            launches = F.launch_counts()
+            got = srv.center()
+            folds = ([len(srv.commit_log)] if n == 1
+                     else [len(x.commit_log) for x in srv.servers])
+        finally:
+            srv.close()
+        if errors:
+            fail(f"sharded_center: {n} shards: {errors[0]!r}")
+        equal = same_bits(got, oracle)
+        total = W * commits
+        point = {"shards": n, "folds_per_sec": total / dt,
+                 "bytes_per_sec": total * center_bytes / dt,
+                 "seconds": dt, "fold_launches": launches,
+                 "folds_per_shard": folds, "shards_holding": holders,
+                 "bit_equal_to_oracle": equal}
+        if plan is not None:
+            point["plan_loads"] = plan.loads
+        curve.append(point)
+        if not equal:
+            failures.append(f"{n} shards: the center is not the oracle's")
+        if launches.get("fold_commit") != total * holders or any(
+                v for k, v in launches.items() if k != "fold_commit"):
+            failures.append(f"{n} shards: {launches} for {total} commits "
+                            f"on {holders} shards")
+        if folds != [total] * len(folds):
+            failures.append(f"{n} shards: folds a shard {folds}")
+    base = curve[0]["folds_per_sec"]
+    for pt in curve:
+        pt["speedup_vs_1"] = pt["folds_per_sec"] / base
+    emit({"phase": "sharded_center", "gpu": gpu,
+          "config": "sharded_center (bench.py:898-979, sized at "
+                    ":1484-1487)", **C10, "delta": C10_DELTA,
+          "discipline": "adag", "codec": "none",
+          "center_bytes": center_bytes, "shard_curve": curve,
+          "speedup_vs_single_ps": curve[-1]["speedup_vs_1"],
+          "reduced": "none",
+          "seconds": time.perf_counter() - t_phase})
+    if failures:
+        fail("sharded_center: " + "; ".join(failures))
+    return {str(pt["shards"]): pt["fold_launches"].get("fold_commit", 0)
+            for pt in curve}
+
+
+def cli_shards(workdir: str) -> dict:
+    """Start the two CLI shard servers of the ``shard_crash`` drill
+    (``python -m distkeras_tpu_torch.netps --shard k/2``, journal only,
+    state in ``workdir/shard_crash/shard-<k>``) without waiting for them:
+    their start-up overlaps the phases before. Both environments schedule
+    ``SHARD_CRASH`` (only shard 1 fires it), each with a fired-fault
+    journal of its own, so shard 1's restarted life does not crash
+    again."""
+    root = os.path.join(workdir, "shard_crash")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    shards = []
+    for k in range(2):
+        probe = socket.socket()
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+        probe.close()
+        d = os.path.join(root, f"shard-{k}")
+        fired = os.path.join(root, f"shard-{k}.fired")
+        env = dict(os.environ, DKTPU_NET_FAULTS=SHARD_CRASH,
+                   DKTPU_FAULTS_STATE=fired)
+        cmd = [sys.executable, "-m", "distkeras_tpu_torch.netps", "--host",
+               "127.0.0.1", "--port", str(port), "--discipline", "dynsgd",
+               "--device", "cuda", "--state-dir", d, "--snapshot-every", "0",
+               "--lease", str(SHARD_CRASH_LEASE), "--shard", f"{k}/2"]
+        shards.append({"dir": d, "endpoint": f"127.0.0.1:{port}", "cmd": cmd,
+                       "env": env, "fired": fired,
+                       "lives": [(time.monotonic(), subprocess.Popen(
+                           cmd, stdout=subprocess.PIPE, text=True,
+                           env=env))]})
+    return {"root": root, "shards": shards,
+            "endpoint": ";".join(x["endpoint"] for x in shards)}
+
+
+def stop_cli(lives) -> None:
+    """Kill every life of a CLI server still running."""
+    for _t0, proc in lives:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def shard_crash_phase(torch, K, F, gpu: str, seed: int, cli: dict,
+                      frame) -> dict:
+    """The ``shard_crash`` drill: config #4 remote DynSGD (int8, 4 workers,
+    3 rounds) against the two CLI shard servers of :func:`cli_shards`;
+    shard 1 SIGKILLs itself after 4 folds (status -9) and is restarted on
+    the same port and directory (a supervisor's role) while the workers
+    ride through on retries. Checked: ``shard_crash`` fired once, on shard
+    1; every acknowledged logical commit is journaled exactly once on each
+    shard; the model is the assembled center; a server of this process
+    built on shard 1's directory adopts its ``plan.json`` (shard 1 of 2,
+    the run's plan), replays its journal with one ``fold_commit`` a record
+    into shard 1's live center, admits a join with the plan and refuses a
+    drifted one. Returns that replay's launches."""
+    from distkeras_tpu_torch.netps import (PartitionPlan, PSClient,
+                                           PSServer, ShardedPSClient,
+                                           ShardPlanError, state)
+
+    t_phase = time.perf_counter()
+    W = REMOTE["num_workers"]
+    rows = SHARD_CRASH_ROUNDS * W * REMOTE["communication_window"] \
+        * REMOTE["batch_size"]
+    shard0, shard1 = cli["shards"]
+
+    def ready(sh) -> float:
+        """Seconds from the shard's newest life's start to its
+        ``NETPS_READY``."""
+        t0, proc = sh["lives"][-1]
+        line = proc.stdout.readline()
+        if not line.startswith("NETPS_READY"):
+            fail(f"shard_crash: a shard server did not start: {line!r}")
+        return time.monotonic() - t0
+
+    killed = {}
+
+    def babysitter():
+        first = shard1["lives"][0][1]
+        while not killed.get("cancel") and first.poll() is None:
+            time.sleep(0.02)
+        if first.poll() is None:
+            return
+        killed["returncode"] = first.returncode
+        shard1["lives"].append((time.monotonic(), subprocess.Popen(
+            shard1["cmd"], stdout=subprocess.PIPE, text=True,
+            env=shard1["env"])))
+        killed["restart_s"] = ready(shard1)
+
+    try:
+        starts = [ready(shard0), ready(shard1)]
+        watcher = threading.Thread(target=babysitter,
+                                   name="shard-crash-babysitter")
+        watcher.start()
+        try:
+            with acked_logical_commits() as acked:
+                run = remote_run(torch, K, F, seed + 5,
+                                 first_rows(frame, rows), cli["endpoint"],
+                                 SHARD_CRASH_ROUNDS,
+                                 DKTPU_NET_RETRIES="60",
+                                 DKTPU_NET_TIMEOUT="20")
+        finally:
+            killed["cancel"] = True
+            watcher.join()
+        with ShardedPSClient(cli["endpoint"], timeout=20.0) as observer:
+            live_center, live_updates = observer.pull()
+            plan = observer.plan
+        backends = []
+        for sh in (shard0, shard1):
+            with PSClient(sh["endpoint"], timeout=20.0) as c:
+                backends.append(c.stats().get("fold_backend"))
+        drained = []
+        for sh in (shard0, shard1):
+            proc = sh["lives"][-1][1]
+            proc.send_signal(signal.SIGTERM)
+            drained.append(proc.stdout.read().strip().splitlines()[-1:])
+            proc.wait(timeout=60)
+    finally:
+        stop_cli(shard0["lives"])
+        stop_cli(shard1["lives"])
+    journaled = [[(int(r["wid"]), int(r["seq"]))
+                  for r in state.read_journal(sh["dir"])]
+                 for sh in (shard0, shard1)]
+    fired = []
+    for sh in (shard0, shard1):
+        if os.path.exists(sh["fired"]):
+            with open(sh["fired"]) as f:
+                fired.append(f.read().split())
+        else:
+            fired.append([])
+    # Shard 1's directory in this process: plan.json adopted, the journal
+    # replayed one launch a record, the plan's joins admitted and a drifted
+    # plan refused.
+    F.reset_launches()
+    back = PSServer(discipline="dynsgd", device="cuda",
+                    state_dir=shard1["dir"])
+    try:
+        replay = F.launch_counts()["fold_commit"]
+        replayed = back.recovered_records
+        adopted = (back.shard_index, back.shard_count,
+                   back.shard_plan.plan_hash if back.shard_plan else None)
+        back_center = back.center()
+        back.start()
+        drifted = PartitionPlan.build(plan.names, plan.shapes, 2,
+                                      rules=[(".*", 1)])
+
+        def join_with(p):
+            with PSClient(back.endpoint, timeout=20.0) as c:
+                c._join_extra = {"shard_index": 1, "plan_hash": p.plan_hash,
+                                 "shard_plan": p.to_dict()}
+                try:
+                    c.join()
+                    return "admitted"
+                except ShardPlanError:
+                    return "refused"
+
+        joins = {"plan": join_with(plan), "drifted": join_with(drifted)}
+    finally:
+        back.close()
+    live1 = plan.shard_slice(live_center, 1)
+    lost = [sorted(set(acked) - set(j)) for j in journaled]
+    trained = [p.cpu().numpy() for p in run["trained"].params.values()]
+    row = {"phase": "shard_crash", "gpu": gpu, "faults": SHARD_CRASH,
+           **REMOTE, "rounds": SHARD_CRASH_ROUNDS, "codec": "int8",
+           "lease_s": SHARD_CRASH_LEASE,
+           "first_start_s": starts, "restart_s": killed.get("restart_s"),
+           "first_life_returncode": killed.get("returncode"),
+           "lives": [len(shard0["lives"]), len(shard1["lives"])],
+           "fired_journals": fired, "seconds": run["wall"],
+           "samples_per_s": run["samples_per_s"],
+           "acked_logical_commits": len(acked),
+           "journal_records": [len(j) for j in journaled],
+           "lost_acked_records": lost, "final_updates": live_updates,
+           "server_fold_backends": backends, "drained": drained,
+           "plan_adopted": {"shard_index": adopted[0],
+                            "shard_count": adopted[1],
+                            "plan_hash_equal": adopted[2] == plan.plan_hash},
+           "joins": joins, "replayed": replayed, "replay_launches": replay,
+           "replay_equal_live": same_bits(back_center, live1),
+           "model_equals_center": same_bits(trained, live_center),
+           "launches": run["lstm"],
+           "seconds_phase": time.perf_counter() - t_phase}
+    emit(row)
+    shutil.rmtree(cli["root"], ignore_errors=True)
+    bad = []
+    if (killed.get("returncode") != -signal.SIGKILL
+            or "restart_s" not in killed or len(shard1["lives"]) != 2
+            or len(shard0["lives"]) != 1):
+        bad.append("shard 1 did not kill itself once and restart")
+    if fired != [[], ["shard_crash@1"]]:
+        bad.append(f"fired journals {fired}")
+    for k, j in enumerate(journaled):
+        if len(j) != len(set(j)):
+            bad.append(f"shard {k} journaled a (worker, seq) twice")
+    if any(lost):
+        bad.append(f"acknowledged commits not journaled: {lost}")
+    if not run["finite"]:
+        bad.append("non-finite losses")
+    if not row["model_equals_center"]:
+        bad.append("the model is not the assembled center")
+    if adopted[:2] != (1, 2) or adopted[2] != plan.plan_hash:
+        bad.append(f"the restarted shard's plan {adopted}")
+    if joins != {"plan": "admitted", "drifted": "refused"}:
+        bad.append(f"joins {joins}")
+    if replay != replayed or not row["replay_equal_live"]:
+        bad.append(f"{replay} fold_commit launches for {replayed} replayed "
+                   f"records; replay equal to the live shard: "
+                   f"{row['replay_equal_live']}")
+    if backends != ["cuda", "cuda"]:
+        bad.append(f"the shards folded with {backends}")
+    if bad:
+        fail("shard_crash: " + "; ".join(bad))
+    return {"replay": replay}
 
 
 def flash_bound_ms(B: int, L: int, H: int, D: int, itemsize: int,
@@ -5271,11 +5890,28 @@ def main() -> None:
     lap("netps_chaos")
     chaos_launches = netps_chaos_phase(torch, K, F, gpu, args.seed,
                                        lstm_frame)
-    del lstm_frame
     torch.cuda.empty_cache()
 
-    lap("netps_config8")
-    config8 = netps_config8_phase(torch, F, FA, gpu, args.seed)
+    # The drill's two CLI shard servers start while config #8 runs.
+    shard_cli = cli_shards("build")
+    try:
+        lap("netps_config8")
+        config8 = netps_config8_phase(torch, F, FA, gpu, args.seed)
+        torch.cuda.empty_cache()
+        lap("netps_sharded")
+        sharded = netps_sharded_phase(torch, K, F, FA, gpu, args.seed,
+                                      config8.pop("ctx"), lstm_frame)
+        torch.cuda.empty_cache()
+        lap("sharded_center")
+        c10_launches = sharded_center_phase(torch, F, gpu)
+        torch.cuda.empty_cache()
+        lap("shard_crash")
+        crash = shard_crash_phase(torch, K, F, gpu, args.seed, shard_cli,
+                                  lstm_frame)
+    finally:
+        for sh in shard_cli["shards"]:
+            stop_cli(sh["lives"])
+    del lstm_frame
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, rows, launches, bf16_launches):
@@ -5465,6 +6101,18 @@ def main() -> None:
                                      for drill, c in drill_launches.items()}
     kernels[5]["chaos_launches"] = chaos_launches
     kernels[5]["mesh_down_drill_launches"] = config8["drill_fold_launches"]
+    # The striping and sharded-center paths, each counted from 0 just
+    # before its run and read just after: one launch a striped logical
+    # commit, one a shard a sharded commit, one a replayed record.
+    kernels[5]["striped_launches"] = config8["striped_fold_launches"]
+    kernels[5]["striped_commits"] = config8["striped_commits"]
+    kernels[5]["sharded_launches"] = {
+        "config8_2_shards": sharded["config8"],
+        "config8_commits": sharded["config8_commits"],
+        "config4_2_shards": sharded["config4"],
+        "config4_commits": sharded["config4_commits"]}
+    kernels[5]["sharded_center_launches"] = c10_launches
+    kernels[5]["shard_crash_replay_launches"] = crash["replay"]
     for k in kernels[6:]:
         k["config8_drill_bf16_launches"] = config8["drill_flash"][k["name"]]
     emit({"kernels": kernels})

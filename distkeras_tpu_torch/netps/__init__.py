@@ -33,7 +33,12 @@ the card (the JAX package's ``netps``; frames byte-compatible both ways).
   entry;
 * :mod:`~distkeras_tpu_torch.netps.chaos` — :class:`ChaosProxy`: a
   frame-aware TCP proxy that delays, drops, duplicates, truncates and
-  partitions frames on the ``DKTPU_NET_FAULTS`` schedule.
+  partitions frames on the ``DKTPU_NET_FAULTS`` schedule;
+* :mod:`~distkeras_tpu_torch.netps.shards` — the sharded center: a
+  :class:`PartitionPlan` over N shard servers (:class:`ShardSet` in one
+  process, ``--shard K/N`` one a process), dialed through
+  :class:`ShardedPSClient` (:func:`make_ps_client` picks the client from
+  the endpoint's shape).
 
 ``python -m distkeras_tpu_torch.netps`` runs a standalone server.
 """
@@ -49,11 +54,14 @@ from distkeras_tpu_torch.netps.errors import (
     RPCTimeoutError,
     ServerClosedError,
     ServerDrainingError,
+    ShardPlanError,
 )
 from distkeras_tpu_torch.netps.fold import commit_scale, fold_delta
 from distkeras_tpu_torch.netps.mesh import (MeshFolder, local_mesh_id,
                                             mesh_available)
 from distkeras_tpu_torch.netps.server import PSServer
+from distkeras_tpu_torch.netps.shards import (PartitionPlan, ShardedPSClient,
+                                              ShardSet, make_ps_client)
 from distkeras_tpu_torch.netps.shm import (TRANSPORTS, ShmConnection,
                                            local_boot_id, transport_mode)
 from distkeras_tpu_torch.netps.standby import StandbyServer
@@ -61,8 +69,9 @@ from distkeras_tpu_torch.netps.standby import StandbyServer
 __all__ = [
     "ChaosProxy", "CommitResult", "EpochFencedError", "LeaseExpiredError",
     "MeshFolder", "NetPSError", "NotPrimaryError", "PSClient", "PSServer",
-    "ProtocolError", "RPCTimeoutError", "ServerClosedError",
-    "ServerDrainingError", "ShmConnection", "StandbyServer", "TRANSPORTS",
-    "commit_scale", "fold_delta", "local_boot_id", "local_mesh_id",
+    "PartitionPlan", "ProtocolError", "RPCTimeoutError", "ServerClosedError",
+    "ServerDrainingError", "ShardPlanError", "ShardSet", "ShardedPSClient",
+    "ShmConnection", "StandbyServer", "TRANSPORTS", "commit_scale",
+    "fold_delta", "local_boot_id", "local_mesh_id", "make_ps_client",
     "mesh_available", "transport_mode",
 ]

@@ -26,12 +26,21 @@ SIGTERM/SIGINT, then drains gracefully (late clients get a typed
 ``ServerDrainingError``). The FIRST signal prints ``NETPS_DRAINING`` at
 signal time; a SECOND signal during the drain force-exits with status 70.
 
-``DKTPU_NET_FAULTS`` in the server's environment schedules its own chaos
-(``ps_hang@R:S``, ``ps_crash@R``); with ``DKTPU_FAULTS_STATE`` the fired
-faults are journaled, so a restarted life does not crash again.
+With ``--shard K/N`` the process serves shard K (0-based) of an N-shard
+center: it adopts the partition plan from the first sharded client's join
+and persists it as ``plan.json`` under ``--state-dir``, where a restart
+finds it and refuses a drifted plan. Workers dial the gang as one ``;``
+endpoint matrix (``host:p0;host:p1``, each shard's standbys after a
+``,``).
 
-The JAX server's flags for shards and aggregation-tree nodes are accepted
-and refused: those features come with later slices of the port.
+``DKTPU_NET_FAULTS`` in the server's environment schedules its own chaos
+(``ps_hang@R:S``, ``ps_crash@R``, ``shard_crash@K:R``); with
+``DKTPU_FAULTS_STATE`` the fired faults are journaled, so a restarted life
+does not crash again.
+
+The JAX server's flags for aggregation-tree nodes (``--upstream``,
+``--tree-*``, ``--fan-in``, ``--flush-interval``) are accepted and
+refused: those features come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ from distkeras_tpu_torch.runtime import config
 ABORT_STATUS = 70
 
 #: the JAX CLI's flags whose features are not ported yet.
-_NOT_PORTED = ("shard", "upstream", "tree_level", "tree_group", "tree_spec",
+_NOT_PORTED = ("upstream", "tree_level", "tree_group", "tree_spec",
                "tree_buffer", "fan_in", "flush_interval")
 
 
@@ -80,6 +89,11 @@ def main(argv=None) -> int:
     ap.add_argument("--promote-after", type=float, default=None,
                     help="seconds of primary silence before a standby "
                          "promotes itself (default: the lease)")
+    ap.add_argument("--shard", metavar="K/N", default=None,
+                    help="serve shard K of an N-shard center (0-based); "
+                         "the partition plan is adopted from the first "
+                         "join (and persisted under --state-dir). Applies "
+                         "to primaries and standbys alike.")
     for name in _NOT_PORTED:
         ap.add_argument("--" + name.replace("_", "-"), default=None,
                         help=argparse.SUPPRESS)
@@ -87,15 +101,25 @@ def main(argv=None) -> int:
     given = [n for n in _NOT_PORTED if getattr(args, n) is not None]
     if given:
         ap.error(f"--{given[0].replace('_', '-')} is not ported to "
-                 f"distkeras_tpu_torch yet (shards and tree nodes come with "
-                 f"later slices)")
+                 f"distkeras_tpu_torch yet (aggregation-tree nodes come "
+                 f"with a later slice)")
+    shard_index = shard_count = None
+    if args.shard:
+        try:
+            k, n = args.shard.split("/", 1)
+            shard_index, shard_count = int(k), int(n)
+        except ValueError:
+            ap.error(f"--shard must be K/N (got {args.shard!r})")
+        if not 0 <= shard_index < shard_count:
+            ap.error(f"--shard {args.shard}: K must be in 0..N-1")
     state_dir = (args.state_dir if args.state_dir is not None
                  else config.env_str("DKTPU_PS_STATE_DIR") or None)
     standby_of = (args.standby if args.standby is not None
                   else config.env_str("DKTPU_PS_STANDBY") or None)
     kw = dict(discipline=args.discipline, host=args.host, port=args.port,
               lease_s=args.lease, device=args.device, state_dir=state_dir,
-              snapshot_every=args.snapshot_every)
+              snapshot_every=args.snapshot_every, shard_index=shard_index,
+              shard_count=shard_count)
     if standby_of:
         server = StandbyServer(standby_of, promote_after=args.promote_after,
                                **kw).start()

@@ -53,11 +53,25 @@ demotes at once (one strike: a lost dispatch target does not come back),
 two ring failures in a row (or the last attempt) fall back to TCP, and
 either way the retransmit keeps its seq, so the server's dedup keeps the
 commit exactly-once. RPC spans carry the dialect (``netps.rpc.commit.shm``,
-``.mesh``; bare for TCP). Striping, tracing and the tuner's probe come
-with later slices.
+``.mesh``; bare for TCP).
+
+**Striping** (``DKTPU_NET_SHARDS=N``, negotiated from the join reply's
+``striping`` bit): the tensors are striped, byte-balanced and
+deterministic, over N connections to the one server (each negotiating its
+own dialect: over ``shm`` each stripe connection attaches a ring of its
+own); pulls and commits issue one concurrent sub-RPC per stripe (span
+``netps.rpc.<op>.s<k>``) and reassemble before the caller sees anything.
+One logical commit keeps ONE ``seq`` across all stripes: the server
+assembles the stripes and folds once. A striped pull whose stripes
+straddled a concurrent fold (a torn read, seen in the echoed update
+counters) is re-pulled, counting ``netps.pull_torn_retries``; after
+``_PULL_CONSISTENT_TRIES`` torn reads it falls back to one unstriped pull.
+Tracing and the tuner's probe come with later slices.
 
 One client serves one worker thread; public methods are not safe to call
-concurrently (the dialect's fallback sweep takes a lock of its own).
+concurrently (the stripe sub-RPCs inside one call run on the client's own
+pool over disjoint connections; the dialect's fallback sweep takes a lock
+of its own).
 """
 
 from __future__ import annotations
@@ -66,6 +80,7 @@ import socket
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -83,6 +98,7 @@ from distkeras_tpu_torch.netps.errors import (
     RPCTimeoutError,
     ServerClosedError,
     ServerDrainingError,
+    ShardPlanError,
 )
 from distkeras_tpu_torch.resilience.backoff import full_jitter
 from distkeras_tpu_torch.runtime import config
@@ -98,7 +114,12 @@ _ERROR_TYPES = {
     "protocol": ProtocolError,
     "epoch_fenced": EpochFencedError,
     "not_primary": NotPrimaryError,
+    "shard_plan": ShardPlanError,
 }
+
+#: striped-pull consistency budget: whole-pull re-reads before falling back
+#: to one unstriped pull (a torn read needs a fold to land mid-pull).
+_PULL_CONSISTENT_TRIES = 3
 
 
 #: measured-bad knob pairings already warned about in this process: a fleet
@@ -106,7 +127,8 @@ _ERROR_TYPES = {
 _BAD_KNOB_COMBOS_WARNED: set = set()
 
 
-def _validate_knob_combo(codec: str, transport: str) -> None:
+def _validate_knob_combo(codec: str, transport: str,
+                        shards: int = 1) -> None:
     """One warning per process (and a telemetry event) when a measured-bad
     pairing is asked for. Advisory only: the knobs apply as asked. The
     counter and event names are the JAX package's, so one report reads
@@ -118,12 +140,25 @@ def _validate_knob_combo(codec: str, transport: str) -> None:
             "int8 loses on the shm ring: the quantize/dequantize passes "
             "cost more than the bytes they save at memcpy speed; prefer "
             "DKTPU_NET_COMPRESS=none"))
+    if transport == "shm" and shards > 1:
+        combos.append((
+            "shards>1+shm",
+            "striping over the shm ring pays a doorbell per stripe for "
+            "payloads that already move at memcpy speed; prefer "
+            "DKTPU_NET_SHARDS=1"))
     if transport == "mesh" and codec == wire.CODEC_INT8:
         combos.append((
             "int8+mesh",
             "the mesh dialect moves no wire bytes, so the int8 codec buys "
             "nothing and still pays the quantization error and the "
             "encode/decode passes; prefer DKTPU_NET_COMPRESS=none"))
+    if transport == "mesh" and shards > 1:
+        combos.append((
+            "shards>1+mesh",
+            "striping splits commits across sockets the mesh dialect "
+            "never opens: every stripe lands on the same in-process "
+            "dispatch and the server just reassembles them; prefer "
+            "DKTPU_NET_SHARDS=1"))
     for combo, why in combos:
         if combo in _BAD_KNOB_COMBOS_WARNED:
             continue
@@ -147,27 +182,44 @@ class CommitResult(NamedTuple):
     staleness: int
 
 
+class _Conn:
+    """One data connection — TCP socket or shared-memory ring — with its
+    own request-id stream (reply matching is per connection, so ids need
+    only be unique per stream)."""
+
+    __slots__ = ("sock", "ring", "req", "ever_connected", "dialect")
+
+    def __init__(self):
+        self.sock: Optional[socket.socket] = None
+        self.ring: Optional[shm.ShmConnection] = None
+        self.req = 0
+        self.ever_connected = False
+        #: the last dialect established on this connection ("tcp",
+        #: "shm"): only a same-dialect re-establishment is a reconnect; a
+        #: negotiated switch (the post-join ring upgrade, a fallback's TCP
+        #: connect) is not failure evidence.
+        self.dialect: Optional[str] = None
+
+
 class PSClient:
-    """One worker's connection to a
+    """One worker's connection(s) to a
     :class:`~distkeras_tpu_torch.netps.server.PSServer` (or anything
     speaking the wire protocol). ``timeout``/``retries``/``backoff``/
-    ``compress`` default from the registry (``DKTPU_NET_TIMEOUT`` /
-    ``DKTPU_NET_RETRIES`` / ``DKTPU_NET_BACKOFF`` /
-    ``DKTPU_NET_COMPRESS``), and ``transport`` from
-    ``DKTPU_NET_TRANSPORT``. An eviction or a fence re-joins on its own
-    (a fence walks to the promoted primary first)."""
+    ``shards``/``compress`` default from the registry
+    (``DKTPU_NET_TIMEOUT`` / ``DKTPU_NET_RETRIES`` / ``DKTPU_NET_BACKOFF``
+    / ``DKTPU_NET_SHARDS`` / ``DKTPU_NET_COMPRESS``), and ``transport``
+    from ``DKTPU_NET_TRANSPORT``. An eviction or a fence re-joins on its
+    own (a fence walks to the promoted primary first). ``endpoint`` is one
+    failover list; a ``;`` shard matrix is dialed through
+    :func:`~distkeras_tpu_torch.netps.shards.make_ps_client`."""
 
     def __init__(self, endpoint: str, worker_id: Optional[int] = None,
                  timeout: Optional[float] = None,
                  retries: Optional[int] = None,
                  backoff: Optional[float] = None,
+                 shards: Optional[int] = None,
                  compress: Optional[str] = None,
                  transport: Optional[str] = None):
-        if ";" in endpoint:
-            raise NotImplementedError(
-                f"sharded endpoint {endpoint!r}: the sharded center plane "
-                "is not ported to distkeras_tpu_torch yet; it comes with "
-                "the sharded-center slice")
         #: serializes the shm->TCP fallback sweep, the mesh demotion and
         #: the endpoint walk (the walker shares it): one transition, one
         #: teardown.
@@ -183,6 +235,10 @@ class PSClient:
                            else config.env_int("DKTPU_NET_RETRIES"))
         self.backoff = float(backoff if backoff is not None
                              else config.env_float("DKTPU_NET_BACKOFF"))
+        #: requested stripe connections; what is used is the
+        #: join-negotiated :attr:`active_shards`.
+        self.shards = max(1, int(shards if shards is not None
+                                 else config.env_int("DKTPU_NET_SHARDS")))
         requested = compress if compress is not None else wire.net_codec()
         if requested not in wire.CODECS:
             raise ValueError(f"unknown codec {requested!r}; "
@@ -195,9 +251,10 @@ class PSClient:
                              f"known: {list(shm.TRANSPORTS)}")
         #: the requested dialect; what is used is :attr:`active_transport`.
         self.transport = transport
-        _validate_knob_combo(requested, transport)
-        #: negotiated at join; f32 until then.
+        _validate_knob_combo(requested, transport, self.shards)
+        #: negotiated at join; f32 on one connection until then.
         self.codec = wire.CODEC_NONE
+        self.active_shards = 1
         #: the server's ring endpoint (``{"boot_id", "uds"}``) when the
         #: same-host check passed at join, else None (TCP).
         self.shm_info: Optional[dict] = None
@@ -208,15 +265,11 @@ class PSClient:
         #: the primary epoch the last join adopted (None until a join
         #: against an epoch-aware server); stamped on every member op.
         self.epoch: Optional[int] = None
-        self._sock: Optional[socket.socket] = None
-        self._ring: Optional[shm.ShmConnection] = None
-        self._req = 0
-        self._ever_connected = False
-        #: the last dialect established on the connection ("tcp", "shm"):
-        #: only a same-dialect re-establishment is a reconnect; a
-        #: negotiated switch (the post-join ring upgrade, a fallback's TCP
-        #: connect) is not failure evidence.
-        self._dialect: Optional[str] = None
+        self._conns = [_Conn() for _ in range(self.shards)]
+        self._pool: Optional[ThreadPoolExecutor] = None
+        #: tensor-index stripes, one list a stripe connection, from the
+        #: joined center's shapes (None: unstriped).
+        self._stripes: Optional[list] = None
         #: int8 error-feedback residual, one f32 array per delta tensor.
         self._residual: Optional[list] = None
         self._seq = -1
@@ -228,11 +281,22 @@ class PSClient:
         self.walk_count = 0
         #: the last join's ``(center, updates)``.
         self._last_join: tuple = ([], -1)
+        #: extra header fields merged into EVERY join, the re-join after an
+        #: eviction or a fence included: the sharded client rides its shard
+        #: identity and plan hash here.
+        self._join_extra: dict = {}
+        #: the last join reply's ``caps`` and the last ``plan_hash`` any
+        #: reply echoed: the sharded client's cross-check surface.
+        self.peer_caps: Optional[dict] = None
+        self.peer_plan_hash: Optional[str] = None
 
     # -- lifecycle ---------------------------------------------------------
     def close(self) -> None:
         self._closed = True
         self._disconnect()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
 
     def __enter__(self) -> "PSClient":
         return self
@@ -247,10 +311,10 @@ class PSClient:
             return "mesh"
         return "shm" if self.shm_info is not None else "tcp"
 
-    def _connect(self, deadline: float) -> socket.socket:
-        if self._sock is not None:
-            return self._sock
-        if self._ever_connected and self._dialect == "tcp":
+    def _connect(self, conn: _Conn, deadline: float) -> socket.socket:
+        if conn.sock is not None:
+            return conn.sock
+        if conn.ever_connected and conn.dialect == "tcp":
             telemetry.counter("netps.reconnects").add(1)
         # The connect spends from the SAME per-attempt budget as the send
         # and the reply.
@@ -260,86 +324,101 @@ class PSClient:
         sock = socket.create_connection(self._walker.current(),
                                         timeout=remaining)
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        self._sock = sock
-        self._ever_connected = True
-        self._dialect = "tcp"
+        conn.sock = sock
+        conn.ever_connected = True
+        conn.dialect = "tcp"
         return sock
 
-    def _connect_ring(self, uds: str, deadline: float) -> shm.ShmConnection:
+    def _connect_ring(self, conn: _Conn, uds: str,
+                      deadline: float) -> shm.ShmConnection:
         """Attach a ring with FRESH segments (the post-join upgrade, or a
         re-attach after a failed one)."""
-        if self._ring is not None:
-            return self._ring
-        if self._dialect == "shm":
+        if conn.ring is not None:
+            return conn.ring
+        if conn.dialect == "shm":
             telemetry.counter("netps.reconnects").add(1)
-        elif self._ever_connected:
+        elif conn.ever_connected:
             # The routine post-join TCP -> ring upgrade: its own counter,
             # not a reconnect (which is failure evidence).
             telemetry.counter("netps.shm_upgrades").add(1)
         # The attach (UDS connect, segments, fd passing) spends from the
         # same per-attempt budget as the doorbell round trip.
         ring = shm.ShmConnection(uds, deadline - time.monotonic())
-        self._ring = ring
+        conn.ring = ring
         # A fallback sweep may have run while we attached: it nulls
         # shm_info before closing connections, so checking after publishing
         # the ring guarantees one side closes it.
         if self.shm_info is None:
-            self._disconnect()
+            self._disconnect(conn)
             raise ConnectionError("shm fallback engaged during ring attach")
-        self._ever_connected = True
-        self._dialect = "shm"
+        conn.ever_connected = True
+        conn.dialect = "shm"
         return ring
 
-    def _disconnect(self) -> None:
-        # Snapshot-and-null, then close: a sweep and the attempt's own
-        # teardown may race, and both closes are idempotent.
-        sock, self._sock = self._sock, None
-        ring, self._ring = self._ring, None
-        if sock is not None:
-            try:
-                sock.close()
-            except OSError:
-                pass
-        if ring is not None:
-            ring.close()
+    def _disconnect(self, conn: Optional[_Conn] = None) -> None:
+        """Drop ``conn``'s socket and ring (every connection's when None)."""
+        for c in (self._conns if conn is None else (conn,)):
+            # Snapshot-and-null, then close: a sweep and the attempt's own
+            # teardown may race (from two stripe threads), and both closes
+            # are idempotent.
+            sock, c.sock = c.sock, None
+            ring, c.ring = c.ring, None
+            if sock is not None:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+            if ring is not None:
+                ring.close()
+
+    def _shard_pool(self) -> ThreadPoolExecutor:
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.active_shards,
+                thread_name_prefix="netps-stripe")
+        return self._pool
 
     # -- the guarded RPC core ----------------------------------------------
-    def _rpc(self, op: str, header: dict,
-             arrays: Sequence = ()) -> tuple[dict, list]:
+    def _rpc(self, op: str, header: dict, arrays: Sequence = (),
+             conn_idx: int = 0) -> tuple[dict, list]:
         if self._closed:
             raise ServerClosedError(f"client to {self.endpoint} is closed")
+        conn = self._conns[conn_idx]
         attempts = self.retries + 1
         patience = self._walker.patience(self.lease_s, self.timeout)
         last_exc: Optional[BaseException] = None
         attempt = 0
         while True:
-            self._req += 1
-            req = self._req
+            conn.req += 1
+            req = conn.req
             hdr = dict(header, op=op, req=req)
             if self.worker_id is not None:
                 hdr.setdefault("worker_id", int(self.worker_id))
             # The span names the dialect of THIS attempt, so the TCP
-            # attempts after a demotion are not billed to the faster one.
+            # attempts after a demotion are not billed to the faster one,
+            # and a stripe sub-RPC its stripe.
             dialect = (".mesh" if self.mesh_info is not None
                        else ".shm" if self.shm_info is not None else "")
+            label = (f"netps.rpc.{op}.s{header['shard']}{dialect}"
+                     if "shard" in header else f"netps.rpc.{op}{dialect}")
             ep_seen = self._walker.index
             try:
-                with telemetry.span(f"netps.rpc.{op}{dialect}"):
-                    return self._attempt(req, hdr, arrays)
+                with telemetry.span(label):
+                    return self._attempt(conn, req, hdr, arrays)
             except NotPrimaryError as e:
                 # The peer answered, but it is an unpromoted standby or a
                 # fenced ex-primary: retry by WALKING the endpoint list —
                 # the same RPC against the next endpoint (or this one,
                 # after promotion) can succeed.
                 last_exc = e
-                self._disconnect()
+                self._disconnect(conn)
                 self._walk(ep_seen)
             except (socket.timeout, ConnectionError, OSError,
                     ProtocolError) as e:
                 if getattr(e, "from_reply", False):
                     raise  # the server said no; asking again won't help
                 last_exc = e
-                self._disconnect()
+                self._disconnect(conn)
                 self._demote(e, last_attempt=(attempt >= 1
                                               or attempt + 1 == attempts))
                 # Walk to the next endpoint only once a retry against the
@@ -376,6 +455,8 @@ class PSClient:
             shm_swept = (not mesh_swept and last_attempt
                          and self.shm_info is not None)
             if shm_swept:
+                # Every stripe's ring goes: stale attachments would leak
+                # segments and a server handler thread.
                 self.shm_info = None
                 self._disconnect()
         if mesh_swept:
@@ -412,7 +493,7 @@ class PSClient:
         self.rejoin_count += 1
         self.join()
 
-    def _attempt(self, req: int, hdr: dict,
+    def _attempt(self, conn: _Conn, req: int, hdr: dict,
                  arrays: Sequence) -> tuple[dict, list]:
         """One connect + send + matched-reply receive under ONE deadline,
         on the dialect the join negotiated: the in-process dispatch, the
@@ -431,12 +512,12 @@ class PSClient:
         # raises the retryable taxonomy).
         info = self.shm_info
         if info is not None:
-            ring = self._connect_ring(info["uds"], deadline)
+            ring = self._connect_ring(conn, info["uds"], deadline)
             ring.settimeout(max(0.001, deadline - time.monotonic()))
             sent = ring.send(wire.KIND_REQUEST, hdr, arrays)
             set_timeout, recv_one = ring.settimeout, ring.recv
         else:
-            sock = self._connect(deadline)
+            sock = self._connect(conn, deadline)
             sock.settimeout(max(0.001, deadline - time.monotonic()))
             sent = wire.send_frame(sock, wire.KIND_REQUEST, hdr, arrays)
             set_timeout = sock.settimeout
@@ -475,14 +556,62 @@ class PSClient:
             raise exc
         return rhdr
 
+    # -- striping helpers ---------------------------------------------------
+    def _compute_stripes(self, template: Sequence[np.ndarray]) -> None:
+        """Byte-balanced greedy stripe assignment of tensor indices over the
+        active stripe connections, from the joined center's shapes (the
+        JAX client's rule). Deterministic; the indices ride in every
+        stripe header, so the server never recomputes it."""
+        n = min(self.active_shards, max(1, len(template)))
+        if n <= 1:
+            self._stripes = None
+            return
+        order = sorted(range(len(template)),
+                       key=lambda i: (-int(np.asarray(template[i]).nbytes), i))
+        loads = [0] * n
+        stripes: list = [[] for _ in range(n)]
+        for i in order:
+            k = loads.index(min(loads))
+            stripes[k].append(i)
+            loads[k] += int(np.asarray(template[i]).nbytes)
+        for st in stripes:
+            st.sort()
+        self._stripes = stripes
+
+    def _striped(self) -> bool:
+        return (self.active_shards > 1 and self._stripes is not None
+                and len(self._stripes) > 1)
+
+    @staticmethod
+    def _gather(futures: list) -> list:
+        """Results of stripe futures; waits for ALL (no connection left
+        with an in-flight reply), then re-raises the highest-priority
+        failure: a lease expiry or a fence beats a transport error (the
+        caller's re-join handles it; a retry cannot)."""
+        results, errors = [], []
+        for f in futures:
+            try:
+                results.append(f.result())
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+        if errors:
+            for e in errors:
+                if isinstance(e, (LeaseExpiredError, EpochFencedError)):
+                    raise e
+            raise errors[0]
+        return results
+
     # -- RPC surface --------------------------------------------------------
     def join(self, init: Optional[Sequence[np.ndarray]] = None,
              ) -> tuple[list, int]:
         """Become (or re-become) a member; returns ``(center, updates)``.
         ``init`` seeds an uninitialized server (first joiner wins; later
         inits are ignored — everyone adopts the server's center). The join
-        reply's ``caps`` select the codec for every later commit."""
-        hdr, center = self._rpc(wire.OP_JOIN, {"caps": wire.CAPS},
+        reply's ``caps`` select the codec, the stripes and the dialect for
+        every later pull and commit. ``_join_extra`` (the sharded client's
+        shard identity and plan) rides on every join, re-joins included."""
+        hdr, center = self._rpc(wire.OP_JOIN,
+                                dict(self._join_extra, caps=wire.CAPS),
                                 list(init or ()))
         self.worker_id = int(hdr["worker_id"])
         self.lease_s = hdr.get("lease_s")
@@ -491,9 +620,15 @@ class PSClient:
         self.epoch = (int(hdr["epoch"]) if hdr.get("epoch") is not None
                       else None)
         caps = hdr.get("caps") or {}
+        self.peer_caps = caps
+        sharding = caps.get("sharding")
+        self.peer_plan_hash = (sharding.get("plan_hash")
+                               if isinstance(sharding, dict) else None)
         self.codec = (self.requested_codec
                       if self.requested_codec in caps.get("codecs", ())
                       else wire.CODEC_NONE)
+        self.active_shards = self.shards if caps.get("striping") else 1
+        self._compute_stripes(center)
         self._negotiate_transport(caps)
         # Error feedback restarts on every (re)join: the residual belongs
         # to the window lineage the rejoin just discarded.
@@ -535,29 +670,71 @@ class PSClient:
 
     def adopt_dialect(self, other: "PSClient",
                       center: Sequence[np.ndarray] = ()) -> None:
-        """Adopt another client's join-negotiated dialect (codec, epoch,
-        lease, transport) without a join of our own — membership is by
-        worker_id, not by connection. The overlapped loop's pull-prefetch
-        client uses this so both lanes speak the same wire, each on a ring
-        (or a dispatch) of its own. ``center`` (the joined center) is what
-        the JAX client sizes its stripes from; the port does not
-        stripe."""
-        del center
+        """Adopt another client's join-negotiated dialect (codec, stripes,
+        epoch, lease, transport) without a join of our own — membership is
+        by worker_id, not by connection. The overlapped loop's
+        pull-prefetch client uses this so both lanes speak the same wire,
+        each on connections (rings, a dispatch) of its own; ``center``
+        (the joined center) sizes the stripes."""
         self.codec = other.codec
+        self.active_shards = other.active_shards
         self.epoch = other.epoch
         self.lease_s = other.lease_s
+        self.peer_caps = other.peer_caps
+        self.peer_plan_hash = other.peer_plan_hash
         with self._fallback_lock:
             self.shm_info = other.shm_info
             self.mesh_info = other.mesh_info
+        self._compute_stripes(center)
 
     def pull(self) -> tuple[list, int]:
         """Current center + update counter; renews the lease. An evicted
-        or fenced client transparently re-joins first."""
+        or fenced client transparently re-joins first. A striped pull
+        reassembles a consistency-checked center."""
         try:
+            if self._striped():
+                return self._striped_pull()
             hdr, center = self._rpc(wire.OP_PULL, self._stamped({}))
         except (LeaseExpiredError, EpochFencedError):
             self._rejoin()
             return self._last_join
+        if hdr.get("plan_hash") is not None:
+            # A shard server re-proves its plan identity on every pull;
+            # keep the latest so the sharded client can cross-check.
+            self.peer_plan_hash = hdr["plan_hash"]
+        return center, int(hdr["updates"])
+
+    def _striped_pull(self) -> tuple[list, int]:
+        """One sub-pull a stripe; a torn read (stripes from either side of
+        a concurrent fold: their update counters differ) is re-read, and
+        after ``_PULL_CONSISTENT_TRIES`` of them one unstriped pull, always
+        consistent, answers."""
+        pool = self._shard_pool()
+        stripes = self._stripes
+        total = sum(len(st) for st in stripes)
+        for _ in range(_PULL_CONSISTENT_TRIES):
+            futures = [
+                pool.submit(self._rpc, wire.OP_PULL,
+                            self._stamped({"shard": k,
+                                           "num_shards": len(stripes),
+                                           "idx": idx}), (), k)
+                for k, idx in enumerate(stripes)]
+            replies = self._gather(futures)
+            counters = {int(h["updates"]) for h, _ in replies}
+            if len(counters) == 1:
+                center: list = [None] * total
+                for (_h, arrays), idx in zip(replies, stripes):
+                    for i, a in zip(idx, arrays):
+                        center[i] = a
+                plan_hash = replies[0][0].get("plan_hash")
+                if plan_hash is not None:
+                    self.peer_plan_hash = plan_hash
+                return center, counters.pop()
+            # A fold landed between stripe reads: a torn center, re-read.
+            telemetry.counter("netps.pull_torn_retries").add(1)
+        hdr, center = self._rpc(wire.OP_PULL, self._stamped({}))
+        if hdr.get("plan_hash") is not None:
+            self.peer_plan_hash = hdr["plan_hash"]
         return center, int(hdr["updates"])
 
     def _compress_delta(self, delta: Sequence[np.ndarray]) -> list:
@@ -581,20 +758,40 @@ class PSClient:
             items.append((encoded, extras) if extras else encoded)
         return items
 
-    def commit(self, delta: Sequence[np.ndarray],
-               pulled_counter: int) -> CommitResult:
+    def commit(self, delta: Sequence[np.ndarray], pulled_counter: int,
+               seq: Optional[int] = None) -> CommitResult:
         """Fold ``delta`` (worker-normalized) into the center. The seq is
         assigned before the first transmission and reused across retries:
-        a lost ACK can never double-fold."""
-        self._seq += 1
-        seq = self._seq
+        a lost ACK can never double-fold. Striped, ONE seq spans every
+        stripe sub-RPC: the server assembles them and folds once. An
+        explicit ``seq`` is the sharded client's one logical seq (and its
+        dedup-safe same-seq retransmit after a per-shard eviction); this
+        client's own counter only ever moves forward."""
+        if seq is None:
+            self._seq += 1
+            seq = self._seq
+        else:
+            seq = int(seq)
+            self._seq = max(self._seq, seq)
         items = self._compress_delta(delta)
+        base = self._stamped({"seq": seq, "pulled": int(pulled_counter)})
         try:
-            hdr, _ = self._rpc(wire.OP_COMMIT, self._stamped(
-                {"seq": seq, "pulled": int(pulled_counter)}), items)
+            if self._striped() and len(items) == sum(
+                    len(st) for st in self._stripes):
+                hdr = self._striped_commit(base, items)
+            else:
+                hdr, _ = self._rpc(wire.OP_COMMIT, base, items)
         except (LeaseExpiredError, EpochFencedError):
             # Evicted or fenced: the commit was NEVER folded; discard the
             # window, re-join, continue from a fresh pull.
+            self._rejoin()
+            return CommitResult(applied=False, duplicate=False,
+                                evicted=True, updates=-1, staleness=-1)
+        if hdr is None:
+            # Every stripe answered ``pending``: membership churn (an
+            # eviction or a re-join purging the server's half-assembled
+            # stripe set) lost this commit. It was never folded and never
+            # will be: the evicted path's recovery.
             self._rejoin()
             return CommitResult(applied=False, duplicate=False,
                                 evicted=True, updates=-1, staleness=-1)
@@ -603,6 +800,30 @@ class PSClient:
             duplicate=bool(hdr.get("duplicate")),
             evicted=False, updates=int(hdr["updates"]),
             staleness=int(hdr.get("staleness", -1)))
+
+    def _striped_commit(self, base: dict, items: list) -> Optional[dict]:
+        """One logical commit over the stripe connections; returns the
+        fold outcome's header, or None when every stripe came back
+        ``pending`` (the server lost part of the set)."""
+        stripes = self._stripes
+        pool = self._shard_pool()
+        futures = [
+            pool.submit(self._rpc, wire.OP_COMMIT,
+                        dict(base, shard=k, num_shards=len(stripes),
+                             idx=idx),
+                        [items[i] for i in idx], k)
+            for k, idx in enumerate(stripes)]
+        replies = self._gather(futures)
+        # Exactly one stripe's reply carries the fold outcome (the one that
+        # completed the assembly, or the dedup answer); the rest say
+        # ``pending``.
+        for hdr, _ in replies:
+            if hdr.get("applied"):
+                return hdr
+        for hdr, _ in replies:
+            if hdr.get("duplicate"):
+                return hdr
+        return None
 
     def heartbeat(self) -> int:
         """Renew the lease; returns the server's update counter."""

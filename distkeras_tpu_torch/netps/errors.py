@@ -54,6 +54,15 @@ class EpochFencedError(NetPSError):
     folds after a failover."""
 
 
+class ShardPlanError(ProtocolError):
+    """A sharded-center plan violation: a peer without the ``sharding``
+    capability joined a shard server, a join carried no partition plan, or
+    the joiner's plan hash does not match the shard set's. A
+    :class:`ProtocolError` the server answers typed at join time (never
+    retried), so a mismatched or plan-unaware client can never fold a
+    partial plan silently."""
+
+
 class NotPrimaryError(NetPSError):
     """The peer answered but is not the primary: a warm standby that has
     not (yet) promoted, or a fenced ex-primary. Retryable *by walking the

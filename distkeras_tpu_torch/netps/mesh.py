@@ -39,8 +39,11 @@ a worker and a server in ONE process:
   the transport only: the center stays on the card and a fold that fails
   there raises, in every dialect.
 
-A partition plan (ROADMAP Queue 1 item 4c) and a center over more than
-one card (item 5) are not ported.
+A center over more than one card, and with it the partition plan as a
+device layout (the JAX package's ``PartitionPlan.to_partition_specs``
+feeding its multi-device folder), is not ported (ROADMAP Queue 1 item
+5). A shard server of the sharded center (``netps/shards/``) serves the
+mesh dialect like any server: its slice is its center.
 """
 
 from __future__ import annotations

@@ -50,13 +50,26 @@ each attach a ring (or a dispatch) of their own. A pulled center may be the
 server's own read-only host mirror (the mesh dialect hands it over as is),
 so the worker copies what it keeps.
 
+**Striping** (``DKTPU_NET_SHARDS`` or ``shards=``): every client of the
+run splits each pull and commit by tensors over that many connections to
+the server, one seq a commit, folded once. **Sharded endpoints** (``;``
+between shards, ``,`` between each shard's failover endpoints, through
+``remote=`` or ``DKTPU_PS_ENDPOINT``): the run builds THE
+:class:`~distkeras_tpu_torch.netps.shards.plan.PartitionPlan` once, from
+the model's parameter names (``model.params`` keys, which
+``DKTPU_PS_SHARD_RULES`` matches) and shapes and the optimizer-state
+factor measured from the optimizer's own state, emits the
+``netps_shard_plan`` event, and every worker dials the shards through a
+:class:`~distkeras_tpu_torch.netps.shards.client.ShardedPSClient`
+(:func:`~distkeras_tpu_torch.netps.shards.client.make_ps_client` picks the
+client from the endpoint's shape).
+
 **Chaos**: ``evict@R:S`` in ``DKTPU_NET_FAULTS`` silences the seeded
 worker (``FaultPlan.poison_worker(R, W)``) for S seconds (twice the lease
 when S is 0) before round R, so its lease lapses, the server evicts it and
 its next RPC re-joins.
 
-Striping (``DKTPU_NET_SHARDS``) and sharded endpoints (ROADMAP Queue 1
-item 4c), the per-host aggregator (``DKTPU_NET_HIER``, item 4d), the
+The per-host aggregator (``DKTPU_NET_HIER``, ROADMAP Queue 1 item 4d), the
 self-tuning data plane (``DKTPU_NET_AUTOTUNE``, item 4e) and tracing
 (``DKTPU_TRACE``, item 10) come with later slices: set, they raise here
 rather than train on the flat loop.
@@ -76,9 +89,12 @@ import torch
 
 from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.data.batching import BatchPlan, apply_round_transform
-from distkeras_tpu_torch.netps import shm
-from distkeras_tpu_torch.netps.client import CommitResult, PSClient
+from distkeras_tpu_torch.netps import shm, wire
+from distkeras_tpu_torch.netps.client import CommitResult
 from distkeras_tpu_torch.netps.fold import check_discipline
+from distkeras_tpu_torch.netps.shards import (is_sharded_endpoint,
+                                              make_ps_client,
+                                              plan_for_model)
 from distkeras_tpu_torch.ops.kernels import build
 from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime import config
@@ -89,26 +105,49 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to distkeras_tpu_torch yet (ROADMAP Queue 1 "
         f"item {item}); the remote worker loop runs over TCP, the shm ring "
-        f"or the mesh dispatch against one parameter server or a "
-        f"primary/standby endpoint list")
+        f"or the mesh dispatch, striped or not, against one parameter "
+        f"server, a primary/standby endpoint list or a sharded center")
 
 
-def _refuse_unported(endpoint: str) -> None:
+def _refuse_unported() -> None:
     """Raise for every data-plane option the reference's remote loop reads
     that the port does not serve."""
-    shards = config.env_int("DKTPU_NET_SHARDS")
-    if shards > 1:
-        raise _not_ported(f"DKTPU_NET_SHARDS={shards} (striping)", "4c")
     if config.env_bool("DKTPU_NET_HIER"):
         raise _not_ported("DKTPU_NET_HIER (the per-host aggregator)", "4d")
     if config.env_bool("DKTPU_NET_AUTOTUNE"):
         raise _not_ported("DKTPU_NET_AUTOTUNE (the self-tuning data plane)",
                           "4e")
-    if ";" in endpoint:
-        raise _not_ported(f"the sharded endpoint {endpoint!r} (remote= or "
-                          f"DKTPU_PS_ENDPOINT)", "4c")
     if config.env_bool("DKTPU_TRACE"):
         raise _not_ported("DKTPU_TRACE (tracing's child_scope spans)", "10")
+
+
+def _state_nbytes(state) -> int:
+    """Bytes of an optimizer state as optax would hold it: every tensor's
+    bytes, and 4 for each integer step count (optax's ``count`` is an
+    int32 scalar; the port keeps a Python int)."""
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size()
+    if isinstance(state, bool) or state is None:
+        return 0
+    if isinstance(state, int):
+        return 4
+    if isinstance(state, dict):
+        return sum(_state_nbytes(v) for v in state.values())
+    if isinstance(state, (tuple, list)):
+        return sum(_state_nbytes(v) for v in state)
+    return 0
+
+
+def _measured_opt_factor(tx, params: dict) -> float:
+    """Optimizer-state bytes per parameter byte, measured from the
+    optimizer's actual state (adagrad's accumulators 1.0, adam's moments
+    2.0 and its step count): what makes the shard plan budget center AND
+    optimizer memory. The JAX package's measure of optax's state, exactly
+    (``netps/remote.py _measured_opt_factor``)."""
+    center = sum(v.numel() * 4 for v in params.values())
+    if center <= 0:
+        return 0.0
+    return float(_state_nbytes(tx.init(params))) / float(center)
 
 
 class _CommsMeter:
@@ -196,6 +235,7 @@ def run_remote(
     compute_dtype=None,
     grad_accum: int = 1,
     inflight: Optional[int] = None,
+    shards: Optional[int] = None,
     compress: Optional[str] = None,
     transport: Optional[str] = None,
     loop_fn=None,
@@ -211,24 +251,26 @@ def run_remote(
     parameters. Round ``r`` of worker ``w`` draws its dropout seeds from
     ``derive_seed(seed, w, r)``.
 
-    ``compress`` and ``transport`` go to every :class:`PSClient` of the
-    run and ``inflight`` sets the loop's window; each defaults from the
-    registry (``DKTPU_NET_COMPRESS``/``TRANSPORT``/``INFLIGHT``), and each
-    client reads its deadline, retries and backoff there
-    (``DKTPU_NET_TIMEOUT``/``RETRIES``/``BACKOFF``). ``loop_fn`` is a prebuilt local loop (what
+    ``shards`` (stripes), ``compress`` and ``transport`` go to every
+    client of the run and ``inflight`` sets the loop's window; each
+    defaults from the registry (``DKTPU_NET_SHARDS``/``COMPRESS``/
+    ``TRANSPORT``/``INFLIGHT``), and each client reads its deadline,
+    retries and backoff there (``DKTPU_NET_TIMEOUT``/``RETRIES``/
+    ``BACKOFF``). A ``;`` shard matrix ``endpoint`` trains against a
+    sharded center under one plan built here. ``loop_fn`` is a prebuilt local loop (what
     :func:`~distkeras_tpu_torch.workers.make_local_loop` returns) for a
     run of one worker: a loop reparametrizes its module for the length of a
     call, which two worker threads must not share.
     """
     check_discipline(discipline)
-    _refuse_unported(endpoint)
+    _refuse_unported()
     inflight = max(1, int(inflight if inflight is not None
                           else config.env_int("DKTPU_NET_INFLIGHT")))
     transport = transport if transport is not None else shm.transport_mode()
     if transport not in shm.TRANSPORTS:
         raise ValueError(f"unknown transport {transport!r}; "
                          f"known: {list(shm.TRANSPORTS)}")
-    client_kw = dict(compress=compress, transport=transport)
+    client_kw = dict(shards=shards, compress=compress, transport=transport)
     W = plan.num_workers
     dev = model.device
     if dev.type == "cuda":
@@ -240,6 +282,19 @@ def run_remote(
     names = list(model.params)
     init_leaves = [v.detach().to("cpu", torch.float32).numpy().copy()
                    for v in model.params.values()]
+    shard_plan = None
+    if is_sharded_endpoint(endpoint):
+        # The sharded center: THE partition plan, built once here from the
+        # parameter names and shapes and the measured optimizer factor;
+        # every client carries it and every shard checks its hash at join.
+        shard_plan = plan_for_model(
+            init_leaves, len(wire.split_shard_endpoints(endpoint)),
+            names=names, opt_factor=_measured_opt_factor(tx, model.params))
+        telemetry.event("netps_shard_plan", {
+            "shards": shard_plan.num_shards,
+            "hash": shard_plan.plan_hash[:12],
+            "skew": round(shard_plan.skew(), 4)})
+        client_kw["plan"] = shard_plan
     if loop_fn is None:
         # One module per worker: functional_call reparametrizes its module
         # for the length of a call, which concurrent threads must not share.
@@ -267,7 +322,7 @@ def run_remote(
                 for k, a in zip(names, leaves)}
 
     def work(w: int) -> None:
-        client = PSClient(endpoint, worker_id=w, **client_kw)
+        client = make_ps_client(endpoint, worker_id=w, **client_kw)
         pull_client = commit_lane = pull_lane = None
         if inflight > 1:
             # Two comms lanes per worker: an ORDERED commit lane (seq order
@@ -281,8 +336,8 @@ def run_remote(
         try:
             center, _counter = meter.blocking(client.join, init_leaves)
             if pull_lane is not None:
-                pull_client = PSClient(endpoint, worker_id=client.worker_id,
-                                       **client_kw)
+                pull_client = make_ps_client(
+                    endpoint, worker_id=client.worker_id, **client_kw)
                 pull_client.adopt_dialect(client, center)
             opt_state = tx.init(to_params(center))
             local = to_params(center) if elastic else None
@@ -409,6 +464,7 @@ def run_remote(
         meter.export()
     if errors:
         raise errors[0]
-    with PSClient(endpoint, **client_kw) as observer:
+    with make_ps_client(endpoint, plan=shard_plan,
+                        transport=transport) as observer:
         final_leaves, _updates = observer.pull()
     return to_params(final_leaves), losses

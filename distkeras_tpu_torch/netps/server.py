@@ -64,18 +64,39 @@ handlers, same dispatch, same fold into the one device center, same
 guarantees in every dialect; a fold that fails on the card raises in all
 of them.
 
+**Striping** (``CAPS["striping"]``): a client may split one logical
+pull or commit by tensors over several connections. A striped pull
+answers the stripe's tensors (``idx``) with the update counter the client
+cross-checks; a striped commit's stripes (one ``seq``, ``num_shards``,
+``idx``) are stashed under the lock until the set is complete, then the
+assembled commit is staged and folded ONCE — one ``fold_commit`` launch
+however many stripes carried it — and a retransmitted stripe of a folded
+commit is answered as a duplicate. Half-assembled stripe sets are dropped
+on eviction and re-join.
+
+**Shards** (``netps/shards/``): a server built with ``shard_index`` and
+``shard_count`` holds one slice of a :class:`~distkeras_tpu_torch.netps.
+shards.plan.PartitionPlan`'s center. It admits only joiners that carry
+the ``sharding`` capability, claim its index and prove the plan by hash
+(every rejection the typed ``shard_plan`` error), adopts the plan from the
+first join when started empty, persists it as ``<state_dir>/plan.json``
+(which a restart adopts and holds later joins to, in either package), and
+re-proves it with ``plan_hash`` on every pull.
+
 **Chaos** (``DKTPU_NET_FAULTS`` in the server's own process):
-``ps_hang@R:S`` and ``ps_crash@R`` fire before commit ``R`` is folded
+``ps_hang@R:S`` and ``ps_crash@R`` fire before commit ``R`` is folded, and
+``shard_crash@N:R`` kills shard N once it has folded R commits
 (:meth:`PSServer._chaos_hooks`).
 
-The JAX server's shards and stripes, tuner probe and tracing come with
-later slices; a peer learns that from the join reply's ``caps``.
+The JAX server's tuner probe and tracing come with later slices; a peer
+learns that from the join reply's ``caps``.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import json
 import os
 import signal
 import socket
@@ -138,6 +159,11 @@ class PSServer:
     :class:`~distkeras_tpu_torch.netps.standby.StandbyServer` passes).
     ``transport`` (``tcp``, ``shm`` or ``mesh``; default
     ``DKTPU_NET_TRANSPORT``) picks the dialects served beside TCP.
+    ``shard_index``/``shard_count`` make it shard K of an N-shard center,
+    ``shard_plan`` (a :class:`~distkeras_tpu_torch.netps.shards.plan.
+    PartitionPlan` or its dict) the plan it serves; without one it adopts
+    the first joiner's. A ``plan.json`` in ``state_dir`` is authoritative
+    over both.
     """
 
     def __init__(self, center: Optional[Sequence[np.ndarray]] = None,
@@ -148,8 +174,28 @@ class PSServer:
                  snapshot_every: Optional[int] = None,
                  epoch: int = 0,
                  standby: bool = False,
-                 transport: Optional[str] = None):
+                 transport: Optional[str] = None,
+                 shard_index: Optional[int] = None,
+                 shard_count: Optional[int] = None,
+                 shard_plan=None):
         self.discipline = check_discipline(discipline)
+        #: sharded-center identity: which slice of which PartitionPlan this
+        #: server holds. ``None`` index means a plain (whole-center) server.
+        #: The plan may arrive later: a shard launched empty adopts it from
+        #: the first join and persists it next to the journal.
+        self.shard_index = None if shard_index is None else int(shard_index)
+        self.shard_count = (int(shard_count) if shard_count is not None
+                            else (None if self.shard_index is None else 1))
+        if self.shard_index is not None and not (
+                0 <= self.shard_index < self.shard_count):
+            raise ValueError(f"shard index {self.shard_index} outside "
+                             f"0..{self.shard_count - 1}")
+        self.shard_plan = None
+        if shard_plan is not None:
+            from distkeras_tpu_torch.netps.shards import plan as _plan_mod
+            self.shard_plan = (shard_plan if isinstance(
+                shard_plan, _plan_mod.PartitionPlan)
+                else _plan_mod.PartitionPlan.from_dict(shard_plan))
         self.transport = (transport if transport is not None
                           else shm.transport_mode())
         if self.transport not in shm.TRANSPORTS:
@@ -214,6 +260,10 @@ class PSServer:
         self._repl: collections.deque = collections.deque(
             maxlen=_REPL_BUFFER)
         self._repl_on = False
+        #: striped commits awaiting assembly: (worker_id, seq) ->
+        #: {stripe: (idx tuple, wire entries)}. The stripe that completes
+        #: the set triggers the one fold; purged on eviction and (re)join.
+        self._pending: dict = {}
         #: applied commits in fold order: (worker_id, seq, staleness) — the
         #: exactly-once evidence.
         self.commit_log: list = []
@@ -255,6 +305,22 @@ class PSServer:
                 # Ctor-seeded center with a fresh dir: anchor the journal
                 # with the base snapshot a recovery will replay onto.
                 self._snapshot_locked()
+        #: durable plan identity: a restarted shard must refuse a client
+        #: whose plan drifted from the lineage on disk, so the plan file is
+        #: authoritative over any ctor-passed plan (the center's rule).
+        self._plan_path = (os.path.join(state_dir, "plan.json")
+                           if state_dir else None)
+        if self._plan_path is not None and os.path.exists(self._plan_path):
+            from distkeras_tpu_torch.netps.shards import plan as _plan_mod
+            with open(self._plan_path, "r", encoding="utf-8") as f:
+                saved = json.load(f)
+            self.shard_plan = _plan_mod.PartitionPlan.from_dict(
+                saved["plan"])
+            if self.shard_index is None:
+                self.shard_index = int(saved["shard_index"])
+                self.shard_count = self.shard_plan.num_shards
+        elif self.shard_plan is not None:
+            self._persist_plan_locked()
         self.evictions = 0
         self.rejoins = 0
         self._draining = False
@@ -454,6 +520,7 @@ class PSServer:
                 for w in expired:
                     del self._members[w]
                     self.evictions += 1
+                    self._purge_pending(w)
             for w in expired:
                 telemetry.counter("netps.evictions").add(1)
                 telemetry.event("netps_eviction", {"worker": w})
@@ -461,14 +528,15 @@ class PSServer:
     def revoke(self, worker_id: int) -> bool:
         """Administrative lease revocation: the worker is evicted NOW (not
         at its lease deadline) and its next RPC answers ``lease_expired``.
-        Dedup state survives, as with a natural eviction. Returns whether
-        the worker was a member."""
+        Dedup state survives, as with a natural eviction; half-assembled
+        stripes are dropped. Returns whether the worker was a member."""
         wid = int(worker_id)
         with self._lock:
             present = wid in self._members
             if present:
                 del self._members[wid]
                 self.evictions += 1
+                self._purge_pending(wid)
         if present:
             telemetry.counter("netps.revocations").add(1)
             telemetry.event("netps_revocation", {"worker": wid})
@@ -594,9 +662,11 @@ class PSServer:
         for us). ``ps_hang@R:S`` sleeps S seconds HOLDING the center lock,
         so every member's lease renewal queues behind a wedged server;
         ``ps_crash@R`` is the kill-the-primary drill: SIGKILL, mid-run, no
-        goodbye. ``R`` counts the commits this server has folded. (The
-        JAX package's ``shard_crash`` waits for the sharded center, ROADMAP
-        Queue 1 item 4c.)"""
+        goodbye. ``R`` counts the commits this server has folded.
+        ``shard_crash@N:R`` kills SHARD N once it has folded R commits: the
+        ``at`` slot selects the shard (every shard process runs its own
+        plan, so the index is the one coordinate they share), polled with a
+        non-consuming peek, so shard k != N never burns the one-shot."""
         plan = _faults.active_net_plan()
         if plan is None:
             return
@@ -607,6 +677,11 @@ class PSServer:
                 time.sleep(arg)  # the drill: wedged while holding the lock
         if plan.fire("ps_crash", at) is not None:
             os.kill(os.getpid(), signal.SIGKILL)
+        if self.shard_index is not None:
+            arg = plan.pending("shard_crash", self.shard_index)
+            if arg is not None and self.commits_total >= (arg or 0):
+                plan.fire("shard_crash", self.shard_index)
+                os.kill(os.getpid(), signal.SIGKILL)
 
     def _dispatch(self, op: str, header: dict,
                   arrays: list) -> tuple[dict, list]:
@@ -632,6 +707,151 @@ class PSServer:
     def _err(kind: str, message: str) -> tuple[dict, list]:
         return {"error": kind, "message": message}, []
 
+    # -- sharded-center plan checks ------------------------------------
+    def _persist_plan_locked(self) -> None:
+        """Write the adopted plan next to the journal (tmp + rename), in
+        the JAX package's format: a restarted shard of either package
+        refuses plan drift against this file."""
+        if self._plan_path is None or self.shard_plan is None:
+            return
+        tmp = self._plan_path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"shard_index": self.shard_index,
+                       "plan": self.shard_plan.to_dict()}, f)
+        os.replace(tmp, self._plan_path)
+
+    def _sharding_caps_locked(self) -> dict:
+        """The ``sharding`` join-reply advertisement: this shard's identity
+        plus the full plan (so a plan-less joiner — an observer — can adopt
+        rather than guess)."""
+        return {"index": self.shard_index, "count": self.shard_count,
+                "plan_hash": self.shard_plan.plan_hash,
+                "plan": self.shard_plan.to_dict()}
+
+    def _check_shard_join_locked(self, header: dict,
+                                 init: list) -> Optional[tuple]:
+        """The sharded-center join contract (lock held). Every violation is
+        the typed ``shard_plan`` error: a peer that cannot prove it holds
+        THE plan never gets membership, so a partial-plan fold cannot
+        happen."""
+        claimed = header.get("shard_index")
+        if self.shard_index is None:
+            if claimed is not None:
+                return self._err(
+                    "shard_plan",
+                    f"this server is not part of a sharded deployment but "
+                    f"the join claims shard {claimed}")
+            return None
+        caps = header.get("caps")
+        if not isinstance(caps, dict) or not caps.get("sharding"):
+            return self._err(
+                "shard_plan",
+                "peer lacks the 'sharding' capability: a pre-sharding "
+                "build joining a shard server (upgrade the worker)")
+        if claimed is None:
+            return self._err(
+                "shard_plan",
+                f"join carries no shard_index; this is shard "
+                f"{self.shard_index}/{self.shard_count}: dial it through "
+                f"a sharded client, not a plain PSClient")
+        if int(claimed) != self.shard_index:
+            return self._err(
+                "shard_plan",
+                f"join claims shard {claimed} but this server is shard "
+                f"{self.shard_index}/{self.shard_count}")
+        got_hash = header.get("plan_hash")
+        if self.shard_plan is None:
+            # An empty shard meets its first client: adopt (then persist)
+            # the plan the join carries, but only a REAL plan; "adopt"
+            # from both sides means nobody holds one.
+            plan_dict = header.get("shard_plan")
+            if not isinstance(plan_dict, dict) or got_hash == "adopt":
+                return self._err(
+                    "shard_plan",
+                    "server has no partition plan yet; join must carry "
+                    "one (shard_plan + plan_hash)")
+            from distkeras_tpu_torch.netps.shards import plan as _plan_mod
+            try:
+                plan = _plan_mod.PartitionPlan.from_dict(plan_dict)
+            except Exception as e:  # noqa: BLE001 - answered typed
+                return self._err("shard_plan", f"malformed plan: {e}")
+            if plan.num_shards != self.shard_count:
+                return self._err(
+                    "shard_plan",
+                    f"plan has {plan.num_shards} shards, this deployment "
+                    f"has {self.shard_count}")
+            if got_hash != plan.plan_hash:
+                return self._err(
+                    "shard_plan",
+                    f"plan_hash {str(got_hash)[:12]}... does not match the "
+                    f"carried plan ({plan.plan_hash[:12]}...)")
+            self.shard_plan = plan
+            self._persist_plan_locked()
+        elif got_hash != "adopt" and \
+                got_hash != self.shard_plan.plan_hash:
+            return self._err(
+                "shard_plan",
+                f"plan hash mismatch: yours {str(got_hash)[:12]}..., this "
+                f"shard's {self.shard_plan.plan_hash[:12]}...: the "
+                f"deployment was re-planned; rebuild or adopt")
+        if init and self._flat is None:
+            want = self.shard_plan.shard_shapes(self.shard_index)
+            got = [tuple(np.asarray(a).shape) for a in init]
+            if got != want:
+                return self._err(
+                    "shard_plan",
+                    f"init arrays do not match shard {self.shard_index}'s "
+                    f"plan slice: got {got[:4]}..., want {want[:4]}...")
+        return None
+
+    def _purge_pending(self, wid: int, below_seq: Optional[int] = None,
+                       ) -> None:
+        """Drop stashed commit stripes of ``wid`` (lock held): all of them
+        on eviction and (re)join, or only seqs <= ``below_seq`` after a
+        fold (a folded commit's stragglers are dedup's business)."""
+        for key in [k for k in self._pending
+                    if k[0] == wid
+                    and (below_seq is None or k[1] <= below_seq)]:
+            del self._pending[key]
+
+    def _stash_stripe(self, wid: int, seq: int, num_shards: int,
+                      header: dict, arrays: list):
+        """Stash one commit stripe (lock held). Returns ``(delta, None)``
+        with the assembled entry list once the LAST stripe lands, ``(None,
+        None)`` while stripes are outstanding, or ``(None, error reply)``
+        on malformed stripe metadata."""
+        idx = header.get("idx")
+        if idx is None:
+            return None, self._err(
+                "protocol", "striped commit requires stripe indices")
+        try:
+            idx = tuple(int(i) for i in idx)
+        except (TypeError, ValueError):
+            return None, self._err("protocol", f"bad stripe indices {idx!r}")
+        if len(idx) != len(arrays):
+            return None, self._err(
+                "protocol",
+                f"stripe declares {len(idx)} tensors, carries {len(arrays)}")
+        pend = self._pending.setdefault((wid, seq), {})
+        pend[int(header.get("shard", 0))] = (idx, list(arrays))
+        if len(pend) < num_shards:
+            return None, None
+        total = sum(len(ix) for ix, _ in pend.values())
+        delta: list = [None] * total
+        for ix, arrs in pend.values():
+            for i, a in zip(ix, arrs):
+                if not 0 <= i < total or delta[i] is not None:
+                    del self._pending[(wid, seq)]
+                    return None, self._err(
+                        "protocol",
+                        f"inconsistent stripe set for ({wid}, {seq})")
+                delta[i] = a
+        del self._pending[(wid, seq)]
+        if any(d is None for d in delta):
+            return None, self._err(
+                "protocol", f"stripe set for ({wid}, {seq}) has holes")
+        return delta, None
+
     def _op_join(self, header: dict, arrays: list) -> tuple[dict, list]:
         wid = header.get("worker_id")
         # Join inits are plain tensors: decoding is a per-tensor
@@ -645,6 +865,9 @@ class PSServer:
                 return err
             if self._draining:
                 return self._err("draining", "server is draining")
+            shard_err = self._check_shard_join_locked(header, init)
+            if shard_err is not None:
+                return shard_err
             if wid is None:
                 wid = (max(self._ever) + 1) if self._ever else 0
             wid = int(wid)
@@ -661,11 +884,14 @@ class PSServer:
                     "server has no center yet; join with init arrays")
             self._ever.add(wid)
             self._members[wid] = time.monotonic() + self.lease_s
+            self._purge_pending(wid)  # a re-join abandons half-sent stripes
             if rejoin:
                 self.rejoins += 1
             center = list(self._host_center_locked())
             updates = self._updates
             last_seq = self._last_seq.get(wid, -1)
+            sharding = (self._sharding_caps_locked()
+                        if self.shard_index is not None else None)
         if rejoin:
             telemetry.counter("netps.rejoins").add(1)
             telemetry.event("netps_rejoin", {"worker": wid})
@@ -682,16 +908,29 @@ class PSServer:
             caps["mesh"] = {"proc": _mesh.local_mesh_id(),
                             "token": self._mesh_token, "devices": 1,
                             "backend": self.device.type}
+        if sharding is not None:
+            # A shard server replaces the static bit with its identity and
+            # plan, the shm upgrade's pattern.
+            caps["sharding"] = sharding
         return ({"ok": True, "worker_id": wid, "updates": updates,
                  "lease_s": self.lease_s, "last_seq": last_seq,
                  "epoch": self.epoch, "caps": caps}, center)
 
     def _op_pull(self, header: dict) -> tuple[dict, list]:
         wid = header.get("worker_id")
+        idx = header.get("idx")
         with self._lock:
             err = self._check_primary_locked(header)
             if err is not None:
                 return err
+            if header.get("want_plan") and self.shard_index is not None:
+                # Membership-free plan fetch (the observer bootstrap): the
+                # advertisement alone, no center payload, no lease.
+                if self.shard_plan is None:
+                    return self._err("uninitialized",
+                                     "shard has no plan yet")
+                return {"ok": True, "updates": self._updates,
+                        "sharding": self._sharding_caps_locked()}, []
             if self._flat is None:
                 return self._err("uninitialized", "no center yet")
             if wid is not None:
@@ -702,8 +941,25 @@ class PSServer:
                     return self._err(
                         "lease_expired", f"worker {wid} is not a member")
                 self._members[int(wid)] = time.monotonic() + self.lease_s
-            return ({"ok": True, "updates": self._updates},
-                    list(self._host_center_locked()))
+            host = self._host_center_locked()
+            if idx is None:
+                out = list(host)
+            else:
+                # One stripe of the center (a striped pull). The reply
+                # echoes the update counter; the client cross-checks the
+                # counters over its stripes and re-pulls a torn read.
+                try:
+                    out = [host[int(i)] for i in idx]
+                except (IndexError, TypeError, ValueError):
+                    return self._err(
+                        "protocol", f"bad pull stripe indices {idx!r}")
+            reply = {"ok": True, "updates": self._updates}
+            if self.shard_index is not None and self.shard_plan is not None:
+                # Every pull re-proves the plan identity: a client that
+                # kept running across a re-plan sees the hash change and
+                # fails typed instead of assembling from two plans.
+                reply["plan_hash"] = self.shard_plan.plan_hash
+            return reply, out
 
     def _op_commit(self, header: dict, arrays: list) -> tuple[dict, list]:
         wid = header.get("worker_id")
@@ -711,11 +967,9 @@ class PSServer:
         pulled = header.get("pulled", 0)
         if wid is None or seq is None:
             return self._err("protocol", "commit requires worker_id and seq")
-        if int(header.get("num_shards", 1) or 1) > 1:
-            return self._err("protocol", "striped commits are not served "
-                                         "here (no 'striping' capability)")
         wid, seq = int(wid), int(seq)
-        duplicate = False
+        num_shards = int(header.get("num_shards", 1) or 1)
+        duplicate = pending = False
         # Validate specs BEFORE any bookkeeping or fold: a bad spec that
         # raised mid-fold under the lock would leave a partially-applied
         # delta the retransmit then double-folds.
@@ -724,12 +978,13 @@ class PSServer:
         except ProtocolError as e:
             telemetry.counter("netps.protocol_errors").add(1)
             return self._err("protocol", str(e))
-        sizes = [int(np.size(split_entry(e)[0])) for e in arrays]
-        # Staging (the packing and the one host-to-device copy) happens
-        # here, outside the lock, so pulls, joins and heartbeats never wait
-        # on it.
-        with self._on_stream():
-            staged = stage_commit(arrays, self.device, self._pool)
+        staged = None
+        if num_shards <= 1:
+            # Staging (the packing and the one host-to-device copy) happens
+            # here, outside the lock, so pulls, joins and heartbeats never
+            # wait on it. A striped commit is staged once it is assembled.
+            with self._on_stream():
+                staged = stage_commit(arrays, self.device, self._pool)
         with self._lock:
             err = self._check_primary_locked(header)
             if err is not None:
@@ -741,19 +996,37 @@ class PSServer:
                     "lease_expired", f"worker {wid} is not a member")
             if self._flat is None:
                 return self._err("uninitialized", "no center yet")
-            if sizes != [c.numel() for c in self._center]:
-                # Checked before the fold: a mismatch found mid-fold would
-                # leave a partially applied delta behind.
-                return self._err(
-                    "protocol", f"commit tensor sizes {sizes[:4]}... do "
-                                f"not match the center's")
+            if staged is not None:
+                err = self._check_sizes_locked(arrays)
+                if err is not None:
+                    return err
             self._members[wid] = time.monotonic() + self.lease_s
             if seq <= self._last_seq.get(wid, -1):
                 # Retransmit after a lost ACK: already folded. Answering
                 # applied=False (instead of re-folding) is the whole
-                # exactly-once story.
+                # exactly-once story, and it covers a retransmitted stripe
+                # of an already assembled commit too.
                 duplicate = True
                 staleness = -1
+            elif staged is None:
+                delta, err = self._stash_stripe(wid, seq, num_shards, header,
+                                                arrays)
+                if err is None and delta is not None:
+                    err = self._check_sizes_locked(delta)
+                if err is not None:
+                    return err
+                if delta is None:
+                    pending = True  # more stripes to come; no fold yet
+                    staleness = -1
+                else:
+                    # The assembled commit is staged under the lock: its
+                    # (worker, seq) must go from stashed to folded with no
+                    # window in which a full retransmit could assemble it
+                    # twice.
+                    with self._on_stream():
+                        staged = stage_commit(delta, self.device, self._pool)
+                    staleness = self._fold_locked(wid, seq, pulled, staged,
+                                                  delta)
             else:
                 staleness = self._fold_locked(wid, seq, pulled, staged,
                                               arrays)
@@ -761,14 +1034,25 @@ class PSServer:
             n, dt = self._fold_stats
         if duplicate:
             telemetry.counter("netps.commits_deduped").add(1)
-        else:
+        elif not pending:
             telemetry.counter("netps.commits").add(1)
             if n and dt > 0:
                 telemetry.gauge("netps.fold.tensors_per_sec").set(
                     round(n / dt, 1))
-        return ({"ok": True, "applied": not duplicate,
-                 "duplicate": duplicate, "pending": False,
+        return ({"ok": True, "applied": not (duplicate or pending),
+                 "duplicate": duplicate, "pending": pending,
                  "updates": updates, "staleness": staleness}, [])
+
+    def _check_sizes_locked(self, entries: list):
+        """None when ``entries`` match the center's tensors element for
+        element, else the protocol error. Checked before the fold: a
+        mismatch found mid-fold would leave a partially applied delta."""
+        sizes = [int(np.size(split_entry(e)[0])) for e in entries]
+        if sizes != [c.numel() for c in self._center]:
+            return self._err(
+                "protocol", f"commit tensor sizes {sizes[:4]}... do not "
+                            f"match the center's")
+        return None
 
     def _fold_locked(self, wid: int, seq: int, pulled,
                      staged: fold_kernels.StagedCommit,
@@ -789,6 +1073,7 @@ class PSServer:
         self._fold_stats = (len(staged.rows), dt)
         self.fold_seconds += dt
         self._record_fold_locked(wid, seq, staleness, list(wire_delta))
+        self._purge_pending(wid, below_seq=seq)
         return staleness
 
     def _record_fold_locked(self, wid: int, seq: int, staleness: int,

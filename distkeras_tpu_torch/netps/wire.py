@@ -64,16 +64,21 @@ CODEC_INT8 = "int8"
 CODECS = (CODEC_NONE, CODEC_BF16, CODEC_INT8)
 
 #: capabilities THIS build advertises — only what the port implements: the
-#: tensor codecs, warm-standby replication and fencing (``replicate``/
-#: ``fence``), the serving ops (``infer``/``stats``), the same-host ring
-#: (``shm``) and the same-process dispatch into the device center
-#: (``mesh``). A server that actually serves a ring or a mesh replaces the
-#: static ``shm``/``mesh`` bit with its live endpoint in the join reply.
-#: The JAX package's other bits (striping, sharding, tuner, tracing, tree)
-#: are absent, so a peer that gates a dialect on them speaks the plain one
-#: to the port.
-CAPS = {"codecs": list(CODECS), "replication": True, "serving": True,
-        "shm": True, "mesh": True}
+#: tensor codecs, striping (one logical pull or commit split by tensors over
+#: several connections to one server, which assembles a striped commit and
+#: folds it once), warm-standby replication and fencing (``replicate``/
+#: ``fence``), the serving ops (``infer``/``stats``), the sharded center
+#: (``netps/shards/``: a shard server admits only joiners whose caps carry
+#: the bit AND whose join header carries its partition plan's hash, and
+#: replaces the bit in its join reply with its shard identity and plan),
+#: the same-host ring (``shm``) and the same-process dispatch into the
+#: device center (``mesh``). A server that actually serves a ring or a mesh
+#: replaces the static ``shm``/``mesh`` bit with its live endpoint in the
+#: join reply. The JAX package's other bits (tuner, tracing, tree) are
+#: absent, so a peer that gates a dialect on them speaks the plain one to
+#: the port.
+CAPS = {"codecs": list(CODECS), "striping": True, "replication": True,
+        "serving": True, "sharding": True, "shm": True, "mesh": True}
 
 #: the core parameter-server ops carried in ``header["op"]``.
 OP_JOIN = "join"
@@ -103,15 +108,15 @@ class OpSpec(NamedTuple):
 
 
 #: the ops the port serves, with their reply fields (the JAX package's
-#: registry rows for the same ops; the striping, sharding, tree and tuner
-#: fields are never answered here). A server reply carries no key outside
+#: registry rows for the same ops; the tree and tuner fields are never
+#: answered here). A server reply carries no key outside
 #: its op's row, and the rows stay subsets of the JAX package's, so each
 #: package can read the other's replies;
 #: ``tests/test_torch_netps_failover.py`` holds both.
 OP_REGISTRY = {
     OP_JOIN: OpSpec(None, ("worker_id", "updates", "lease_s", "last_seq",
                            "epoch", "caps")),
-    OP_PULL: OpSpec(None, ("updates",)),
+    OP_PULL: OpSpec(None, ("updates", "plan_hash", "sharding")),
     OP_COMMIT: OpSpec(None, ("applied", "duplicate", "pending", "updates",
                              "staleness")),
     OP_HEARTBEAT: OpSpec(None, ("updates",)),
@@ -125,6 +130,40 @@ OP_REGISTRY = {
                             "epoch", "members", "commits_total", "draining",
                             "ready", "fold_backend")),
 }
+
+
+#: every typed ``error`` kind a reply header may carry: the netps server's
+#: (``netps/errors.py``) and the serving plane's (``serving/errors.py``,
+#: same frames, same key). A subset of the JAX package's set.
+ERROR_KINDS = frozenset({
+    # netps core (netps/errors.py)
+    "protocol", "draining", "lease_expired", "uninitialized",
+    "not_primary", "epoch_fenced", "shard_plan",
+    # serving plane (serving/errors.py)
+    "overloaded", "deadline", "unavailable", "serving",
+})
+
+#: every frame-header key either side may read or write: request fields,
+#: reply fields and the replication-record sub-headers. A subset of the JAX
+#: package's set (the tree, tuner and tracing keys are absent).
+HEADER_KEYS = frozenset({
+    # envelope + request/reply bookkeeping
+    "op", "req", "ok", "error", "message", "arrays", "version",
+    # membership + commit protocol
+    "worker_id", "seq", "pulled", "updates", "lease_s", "last_seq",
+    "applied", "duplicate", "pending", "staleness", "epoch", "caps",
+    # striping
+    "num_shards", "shard", "idx",
+    # replication / failover
+    "u", "mode", "records", "lineage", "commits_total", "fenced",
+    "wid", "st", "e", "n", "k",
+    # sharded center
+    "want_plan", "plan_hash", "sharding", "shard_index", "shard_plan",
+    "plan", "index", "count",
+    # stats / health scrape
+    "ring", "role", "snapshot", "members", "draining", "ready",
+    "fold_backend",
+})
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +189,7 @@ OP_REGISTRY = {
 # ring's gain over loopback TCP. Socket frames keep the full-body crc.
 #
 # Strict request/reply alternation per connection means ONE slot per
-# direction suffices. The doorbell (a UDS byte stream carrying 8-byte frame
+# direction suffices; striping opens one ring per stripe connection. The doorbell (a UDS byte stream carrying 8-byte frame
 # lengths) is the happens-before edge and the timeout surface; the segment
 # fds travel over the same UDS by SCM_RIGHTS at attach, so the files are
 # unlinked before any byte moves. The layout is the JAX package's, byte for
@@ -491,3 +530,18 @@ def split_endpoints(endpoints: str) -> list[tuple[str, int]]:
     if not out:
         raise ValueError(f"no endpoints in {endpoints!r}")
     return out
+
+
+def split_shard_endpoints(endpoints: str) -> list[str]:
+    """The shard x failover endpoint matrix: ``;`` separates shards, ``,``
+    separates each shard's failover list (primary first, then standbys):
+    ``"p0:7077,s0:7078;p1:7177,s1:7178"`` is a two-shard deployment with a
+    warm standby per shard. Returns one failover-list string per shard (the
+    form :class:`~distkeras_tpu_torch.netps.client.PSClient` takes),
+    validated; an endpoint without ``;`` parses to a one-element list."""
+    groups = [g.strip() for g in endpoints.split(";") if g.strip()]
+    if not groups:
+        raise ValueError(f"no endpoints in {endpoints!r}")
+    for g in groups:
+        split_endpoints(g)  # typed error on any malformed member
+    return groups

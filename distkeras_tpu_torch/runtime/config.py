@@ -153,8 +153,9 @@ ENV_REGISTRY: dict = _declare(
            "network"),
     EnvVar("DKTPU_NET_SHARDS", "int", 1,
            "Connections a netps client stripes each pull/commit's tensors "
-           "across; 1 = one socket. The port does not stripe: its remote "
-           "loop raises above 1.",
+           "across (byte-balanced, one seq for the whole commit, which the "
+           "server assembles and folds once); 1 = one socket. Applies only "
+           "against a server whose join reply advertises `striping`.",
            "network"),
     EnvVar("DKTPU_NET_TRANSPORT", "str", "tcp",
            "netps wire dialect: `tcp` (default), `shm` (colocated peers, "
@@ -216,6 +217,27 @@ ENV_REGISTRY: dict = _declare(
            "window for a multi-endpoint list is twice this plus one RPC "
            "deadline.",
            "network"),
+    EnvVar("DKTPU_PS_SHARD_RULES", "str", "",
+           "Partition rules for the sharded center plane: `regex=target` "
+           "entries separated by `;`, first match wins, where target is a "
+           "shard index (pin) or `split` (row-split across all shards); "
+           "parameters matching no rule are byte-balanced greedily. Empty "
+           "= fully rule-free balancing. The regexes match the port's "
+           "parameter names (`model.params` keys, e.g. `tok_embed.weight`).",
+           "sharding"),
+    EnvVar("DKTPU_PS_SHARD_CAP_BYTES", "int", 0,
+           "Per-shard byte budget (center + optimizer-state factor) the "
+           "PartitionPlan must fit: tensors over the cap row-split, and a "
+           "plan whose fattest shard still exceeds it is a typed "
+           "`ShardPlanError` at build time, never an OOM at fold time. "
+           "0 = unlimited.",
+           "sharding"),
+    EnvVar("DKTPU_PS_SHARD_OPT_FACTOR", "float", -1.0,
+           "Optimizer-state byte multiplier the plan budgets per parameter "
+           "byte (adagrad accumulators ~= 1.0): shard load = center bytes "
+           "x (1 + factor). Negative = measure it from the optimizer's "
+           "actual state at launch (`plan_for_model`).",
+           "sharding"),
     EnvVar("DKTPU_SERVE_MAX_WAIT_MS", "float", 5.0,
            "Latency budget (milliseconds) the serving micro-batcher waits "
            "to coalesce concurrent requests into one batch before "

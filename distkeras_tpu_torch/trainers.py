@@ -16,7 +16,9 @@ DynSGD, AEASGD and EAMSGD, ``SingleTrainer``,
 ``EnsembleTrainer``. With ``remote="host:port"`` (or
 ``DKTPU_PS_ENDPOINT``) the discipline trainers train against a networked
 parameter server instead (``netps/remote.py``: W worker threads, each
-pull -> K local steps -> commit). ``compute_dtype="bfloat16"`` (or a
+pull -> K local steps -> commit); a ``,`` list is a primary and its
+standbys, and a ``;`` matrix (``"h:p0;h:p1"``) a sharded center, dialed
+through the sharded client under one partition plan. ``compute_dtype="bfloat16"`` (or a
 ``torch.dtype``) trains in mixed precision on every one of them
 (``workers.make_local_loop``: f32 master state, the step in bf16).
 ``checkpoint_dir=`` (with ``checkpoint_every`` and ``resume``) saves and
@@ -563,10 +565,10 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         if parallel:
             raise _not_ported("parallel= (model-parallel submeshes)",
                               "model-parallel engines")
-        #: ``"host:port"`` of a networked parameter server: the worker loop
-        #: becomes pull -> K local steps -> commit through the hardened TCP
-        #: client instead of the in-process fold. Defaults from
-        #: DKTPU_PS_ENDPOINT.
+        #: ``"host:port"`` of a networked parameter server (a ``,``
+        #: failover list, or a ``;`` shard matrix): the worker loop becomes
+        #: pull -> K local steps -> commit through the hardened client
+        #: instead of the in-process fold. Defaults from DKTPU_PS_ENDPOINT.
         self.remote = remote
         self.divergence_reset = divergence_reset
 

@@ -939,6 +939,84 @@ def test_transports_on_card_fold_once_through_the_kernel(card, transport):
         assert a.tobytes() == b.tobytes()
 
 
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_striped_commits_on_card_fold_once(card, codec):
+    """Two stripes a commit against a server on the card: the server
+    assembles each commit and folds it with ONE ``fold_commit`` launch,
+    into the center an unstriped client's identical commits give."""
+    from distkeras_tpu_torch.netps import PSClient, PSServer
+
+    def run(shards):
+        rng = np.random.default_rng(4)
+        init = [rng.normal(size=s).astype(np.float32)
+                for s in ((64, 33), (129,), (7, 5))]
+        srv = PSServer(center=init, discipline="adag", device="cuda").start()
+        try:
+            with PSClient(srv.endpoint, shards=shards, compress=codec,
+                          timeout=30.0) as c:
+                center, upd = c.join()
+                assert c.active_shards == shards
+                F.reset_launches()
+                for _ in range(4):
+                    c.commit([rng.normal(scale=0.1, size=a.shape)
+                              .astype(np.float32) for a in center], upd)
+                    center, upd = c.pull()
+                launches = F.launch_counts()["fold_commit"]
+            return srv.center(), launches, len(srv.commit_log)
+        finally:
+            srv.close()
+
+    got, launches, folded = run(2)
+    ref, _, _ = run(1)
+    assert launches == folded == 4
+    for a, b in zip(got, ref):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_shard_set_on_card_folds_once_a_shard(card):
+    """A 2-shard center on the card with a row-split tensor: one
+    ``fold_commit`` launch a shard a commit, and the assembled center is
+    bit-equal to one server's on the card fed the same commits."""
+    from distkeras_tpu_torch.netps import (PartitionPlan, PSClient,
+                                           PSServer, ShardedPSClient,
+                                           ShardSet)
+
+    rng = np.random.default_rng(8)
+    init = [rng.normal(size=s).astype(np.float32)
+            for s in ((96, 16), (33,), (8, 8))]
+    deltas = [[rng.normal(scale=0.1, size=a.shape).astype(np.float32)
+               for a in init] for _ in range(3)]
+    plan = PartitionPlan.build(["embed", "bias", "w"],
+                               [a.shape for a in init], 2,
+                               rules=[("embed", "split")])
+    ss = ShardSet(2, center=init, plan=plan, discipline="adag",
+                  device="cuda").start()
+    try:
+        with ShardedPSClient(ss.endpoint, plan=plan, timeout=30.0) as c:
+            _, counters = c.join()
+            F.reset_launches()
+            for d in deltas:
+                assert c.commit(d, counters).applied
+                _, counters = c.pull()
+            launches = F.launch_counts()["fold_commit"]
+        got = ss.center()
+    finally:
+        ss.close()
+    srv = PSServer(center=init, discipline="adag", device="cuda").start()
+    try:
+        with PSClient(srv.endpoint, timeout=30.0) as c:
+            _, upd = c.join()
+            for d in deltas:
+                c.commit(d, upd)
+                _, upd = c.pull()
+        ref = srv.center()
+    finally:
+        srv.close()
+    assert launches == 2 * len(deltas)
+    for a, b in zip(got, ref):
+        assert a.tobytes() == b.tobytes()
+
+
 def _drive_commits(endpoint, n, compress, first_worker=0):
     """Two workers commit seeded deltas from one pull a round, so every
     other commit folds at staleness 1."""

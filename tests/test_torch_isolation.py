@@ -51,6 +51,26 @@ def test_resilience_plane_modules_load_no_jax(module):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "distkeras_tpu_torch.netps.shards",
+    "distkeras_tpu_torch.netps.shards.plan",
+    "distkeras_tpu_torch.netps.shards.client",
+    "distkeras_tpu_torch.netps.shards.group"])
+def test_shard_plane_modules_load_no_jax(module):
+    """The sharded center plane, each module on its own: the plan keeps the
+    JAX package's canonical JSON without its ``to_partition_specs`` (the
+    one function there that imports jax)."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    src = (PKG / "netps" / "shards" / "plan.py").read_text()
+    assert "to_partition_specs" in src and "def to_partition_specs" not in src
+
+
 def _imports(path: pathlib.Path) -> set:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

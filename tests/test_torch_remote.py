@@ -225,20 +225,143 @@ def test_ps_endpoint_env_routes_to_the_server(monkeypatch):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"DKTPU_NET_INFLIGHT": "2", "DKTPU_NET_SHARDS": "4"}, "item 4c"),
-    ({"DKTPU_NET_SHARDS": "2"}, "DKTPU_NET_SHARDS"),
     ({"DKTPU_NET_HIER": "1"}, "DKTPU_NET_HIER"),
     ({"DKTPU_NET_AUTOTUNE": "1"}, "DKTPU_NET_AUTOTUNE"),
-    ({"DKTPU_PS_ENDPOINT": "127.0.0.1:1;127.0.0.1:2"}, "sharded"),
     ({"DKTPU_TRACE": "1"}, "item 10"),
 ])
 def test_unported_remote_options_raise(monkeypatch, env, match):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     pm = imdb_lstm(**SMALL, device="cpu")
-    remote = None if "DKTPU_PS_ENDPOINT" in env else "127.0.0.1:1"
     with pytest.raises(NotImplementedError, match=match):
-        T.DynSGD(pm, **_kw(1), remote=remote).train(DataFrame(_columns(1)))
+        T.DynSGD(pm, **_kw(1), remote="127.0.0.1:1").train(
+            DataFrame(_columns(1)))
+
+
+# ---------------------------------------------------------------------------
+# Striping (DKTPU_NET_SHARDS) and the sharded center (a ``;`` endpoint
+# matrix), held to the JAX package's trainers over the same plane. One
+# worker, serial: the tolerances of test_remote_trainer_matches_jax (the
+# int8 bound summed over every shard's commits).
+# ---------------------------------------------------------------------------
+
+def _held_to_jax(pm, pout, jout, pt, jt, steps, codec):
+    bound = 1e-5 + (sum(steps) if codec == "int8" else 0.0)
+    assert (codec == "int8") == (bool(steps) and min(steps) > 0)
+    ref = params_from_jax(jax.tree_util.tree_map(np.asarray, jout.params),
+                          pm.module)
+    got = pout.module.state_dict()
+    for k, v in ref.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-5,
+                                   atol=bound)
+    np.testing.assert_allclose(pt.get_worker_histories(),
+                               np.asarray(jt.get_worker_histories()),
+                               rtol=1e-5, atol=bound)
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_striped_remote_trainer_matches_jax(monkeypatch, codec):
+    """``DKTPU_NET_SHARDS=2`` on both sides: each commit goes out as two
+    stripes under one seq and is folded once; the port's run is bit-equal
+    to its own unstriped run (stripes change nothing that is folded) and
+    held to the JAX package's striped run."""
+    monkeypatch.setenv("DKTPU_NET_COMPRESS", codec)
+    steps = _quant_steps(monkeypatch)
+    cols = _columns(1)
+    jm = jax_imdb_lstm(**SMALL, cell_impl="pallas", seed=1)
+    pm = _port_model(jm)
+    outs = {}
+    for shards in ("1", "2"):
+        monkeypatch.setenv("DKTPU_NET_SHARDS", shards)
+        tsrv = PSServer(discipline="dynsgd", device="cpu").start()
+        try:
+            pt = T.DynSGD(pm, **_kw(1), remote=tsrv.endpoint)
+            outs[shards] = pt.train(DataFrame(cols))
+            assert [s for _w, s, _st in tsrv.commit_log] == list(
+                range(ROUNDS))
+            center = tsrv.center()
+        finally:
+            tsrv.close()
+    for a, b in zip(outs["1"].params.values(), outs["2"].params.values()):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    for p, c in zip(outs["2"].params.values(), center):
+        np.testing.assert_array_equal(p.numpy(), c)
+    jsrv = JaxPSServer(discipline="dynsgd").start()
+    try:
+        jt = dk.DynSGD(jm, **_kw(1), remote=jsrv.endpoint)
+        jout = jt.train(JaxDataFrame(cols))
+    finally:
+        jsrv.close()
+    _held_to_jax(pm, outs["2"], jout, pt, jt, steps[ROUNDS:], codec)
+
+
+@pytest.mark.parametrize("via", ["remote", "env"])
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_sharded_remote_trainer_matches_jax(monkeypatch, codec, via):
+    """A ``;`` endpoint matrix (``remote=`` or ``DKTPU_PS_ENDPOINT``) of a
+    2-shard port :class:`ShardSet`: every shard folds each seq once, the
+    model is the assembled center, and the run is held to the JAX trainer
+    against a JAX 2-shard set."""
+    from distkeras_tpu.netps.shards import ShardSet as JaxShardSet
+    from distkeras_tpu_torch.netps import ShardSet
+
+    monkeypatch.setenv("DKTPU_NET_COMPRESS", codec)
+    steps = _quant_steps(monkeypatch)
+    cols = _columns(1)
+    jm = jax_imdb_lstm(**SMALL, cell_impl="pallas", seed=1)
+    pm = _port_model(jm)
+    with JaxShardSet(2, discipline="dynsgd") as jss:
+        jt = dk.DynSGD(jm, **_kw(1), remote=jss.endpoint)
+        jout = jt.train(JaxDataFrame(cols))
+    with ShardSet(2, discipline="dynsgd", device="cpu") as ss:
+        if via == "env":
+            monkeypatch.setenv("DKTPU_PS_ENDPOINT", ss.endpoint)
+        pt = T.DynSGD(pm, **_kw(1),
+                      remote=ss.endpoint if via == "remote" else None)
+        pout = pt.train(DataFrame(cols))
+        for srv in ss.servers:
+            assert [(w, s) for w, s, _st in srv.commit_log] == [
+                (0, s) for s in range(ROUNDS)]
+        center = ss.center()
+        assert ss.plan.names == list(pm.params)  # the port's names
+    for p, c in zip(pout.params.values(), center):
+        np.testing.assert_array_equal(p.numpy(), c)
+    _held_to_jax(pm, pout, jout, pt, jt, steps, codec)
+
+
+def test_striped_overlapped_loop_is_exactly_once_and_replays_in_jax(
+        monkeypatch, tmp_path):
+    """``DKTPU_NET_INFLIGHT=2`` with ``DKTPU_NET_SHARDS=4``: both lanes
+    stripe, every seq is folded once, and the JAX package's replay of the
+    port server's journal is the port's center, bit for bit."""
+    from distkeras_tpu.netps import state as jax_state
+
+    monkeypatch.setenv("DKTPU_NET_INFLIGHT", "2")
+    monkeypatch.setenv("DKTPU_NET_SHARDS", "4")
+    monkeypatch.setenv("DKTPU_NET_COMPRESS", "int8")
+    monkeypatch.setenv("DKTPU_NET_TIMEOUT", "5.0")
+    W, rounds = 2, 4
+    cols = _columns(W, rounds=rounds, seed=4)
+    pm = imdb_lstm(**SMALL, device="cpu", seed=3)
+    d = str(tmp_path / "state")
+    srv = PSServer(discipline="dynsgd", device="cpu", state_dir=d,
+                   snapshot_every=3).start()
+    try:
+        out = T.DynSGD(pm, **_kw(W), remote=srv.endpoint).train(
+            DataFrame(cols))
+        log = list(srv.commit_log)
+        center = srv.center()
+        assert not srv._pending
+    finally:
+        srv.close()
+    assert len(log) == W * rounds
+    _no_double_fold(log)
+    for p, c in zip(out.params.values(), center):
+        np.testing.assert_array_equal(p.numpy(), c)
+    rec = jax_state.StateStore(d).recover("dynsgd")
+    assert rec.updates == rec.commits_total == W * rounds
+    for a, b in zip(center, rec.center):
+        assert a.tobytes() == b.tobytes(), "JAX replay differs from the port"
 
 
 def test_net_faults_evict_run_completes(monkeypatch):

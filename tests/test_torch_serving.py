@@ -84,7 +84,8 @@ def test_ragged_requests_match_jax_predict(served, jax_model):
     client.close()
     assert stats["served"] == 3 and stats["compiles"] == len(BUCKETS)
     assert stats["caps"] == {"codecs": ["none", "bf16", "int8"],
-                             "replication": True, "serving": True,
+                             "striping": True, "replication": True,
+                             "serving": True, "sharding": True,
                              "shm": True, "mesh": True}
     assert stats["ring"] == [] and stats["ready"] is True
     counters = telemetry.get().snapshot()["counters"]

@@ -85,9 +85,8 @@ def test_on_round_and_rounds_per_program():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    # remote= itself is ported (tests/test_torch_remote.py); a sharded
-    # endpoint matrix is not.
-    ({"remote": "127.0.0.1:1;127.0.0.1:2"}, "remote"),
+    # remote= itself is ported, a sharded endpoint matrix included
+    # (tests/test_torch_remote.py, tests/test_torch_netps_shards.py).
     ({"parallel": {"model": 2}}, "parallel"),
     # The in-process engine resets divergent workers; the remote loop has
     # no reset, as the reference's has none.
@@ -101,15 +100,34 @@ def test_unported_kwargs_raise(kwargs, match):
 
 
 def test_ps_endpoint_env_and_unknown_kwargs_raise(monkeypatch):
+    """Unknown kwargs raise; ``DKTPU_PS_ENDPOINT`` routes to the remote
+    loop, and a ``;`` matrix there into the sharded client: every shard
+    folds each of the W workers' commits once a round, and the model is
+    the assembled center."""
+    from distkeras_tpu_torch.netps import ShardSet
+    from distkeras_tpu_torch.netps.shards import client as shard_client
+
     pm = imdb_lstm(**SMALL, device="cpu")
     with pytest.raises(TypeError, match="unexpected kwargs"):
         T.DynSGD(pm, **KW, bogus=1)
-    # DKTPU_PS_ENDPOINT routes to the remote loop
-    # (tests/test_torch_remote.py); a sharded endpoint matrix there is not
-    # ported.
-    monkeypatch.setenv("DKTPU_PS_ENDPOINT", "127.0.0.1:1;127.0.0.1:2")
-    with pytest.raises(NotImplementedError, match="DKTPU_PS_ENDPOINT"):
-        T.DynSGD(pm, **KW).train(DataFrame(_columns()))
+    made = []
+    real = shard_client.ShardedPSClient.__init__
+
+    def recording(self, endpoint, *a, **kw):
+        made.append(endpoint)
+        real(self, endpoint, *a, **kw)
+
+    monkeypatch.setattr(shard_client.ShardedPSClient, "__init__", recording)
+    with ShardSet(2, discipline="dynsgd", device="cpu") as ss:
+        monkeypatch.setenv("DKTPU_PS_ENDPOINT", ss.endpoint)
+        out = T.DynSGD(pm, **KW).train(DataFrame(_columns()))
+        for srv in ss.servers:
+            assert sorted((w, s) for w, s, _ in srv.commit_log) == sorted(
+                (w, s) for w in range(W) for s in range(ROUNDS))
+        center = ss.center()
+    assert made and set(made) == {ss.endpoint}
+    for p, c in zip(out.params.values(), center):
+        np.testing.assert_array_equal(p.numpy(), c)
 
 
 def test_float32_compute_dtype_is_the_default_path():
