@@ -296,8 +296,18 @@ and every parity phase holds the card's bf16 run to the CPU's within
     at inflight 1 whose center must equal ``pr4``'s (or lie within the
     distance of two ``pr4`` runs, when the card does not repeat itself);
     and an int8 run at inflight 1 over 2 stripes bit-equal to the same run
-    over 1. The arms that need an unported item (``auto``,
-    ``hier_curve``, ``sim_drift``) are named as such.
+    over 1. Then the ``hier_curve`` arm (``bench.py:689-733``): flat
+    against a per-host aggregator on the card (``run_remote(hier=True)``,
+    the ring, inflight 1, one stripe, f32, a flush at most every 0.5 s)
+    at 1, 2 and 4 workers, 6 rounds a point, one warm run (4 workers,
+    hier) and one timed run a point: tokens/s, root commits and their
+    rate, worker commits a second; at every hier point each worker commit
+    absorbed once, the aggregator's ledger balanced with nothing open, the
+    root holding only the aggregator's commits and no more than the flat
+    run's, and ``fold_commit`` launched once an absorbed commit plus once a
+    root commit. The arms that need an unported item (``auto``,
+    ``sim_drift``, and ``hier_curve``'s ``controller_topology`` column)
+    are named as such.
 
 21. ``ensemble_train`` — the reference's ``AveragingTrainer`` and
     ``EnsembleTrainer`` on config #4 (``TRAIN``: 4 workers, window 4,
@@ -354,6 +364,21 @@ and every parity phase holds the card's bf16 run to the CPU's within
     directory adopts its ``plan.json``, replays its journal (one
     ``fold_commit`` a record) into the live shard's center, admits the
     plan and refuses a drifted one.
+27. ``netps_tree`` — the aggregation plane on the card: (a) three windows
+    (f32, bf16, int8) of three commits of config #8's 70 tensors through
+    an ``AggregatorServer(fan_in=3)`` in front of a root: each flushed
+    combined commit bit-equal to the numpy decode-then-add (the int8
+    window with a zero-scale tensor), the root's center bit-equal to the
+    same run on the CPU, 3 aggregator launches and 1 root launch a window,
+    and one pre-combine's time beside its bound; (b) config #4 remote
+    DynSGD (int8, 4 workers, 3 rounds) under ``DKTPU_NET_HIER=1`` over
+    the ring: exactly-once at both levels; (c) ``build_tree("host:2,
+    region:2")`` under ``link_down@1:3``: the cut uplink's windows
+    buffered, then drained in order, no silent loss, the root folding the
+    top node's forwarded windows; (d) a journaled ``TreeNode`` stopped as
+    its death would stop it, with a window open, and its ``TreeStandby``:
+    promotion, the children re-parented, no constituent landed twice, the
+    dead window counted lost.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -2917,10 +2942,19 @@ C8_DIALECTS = ("", ".shm", ".mesh")
 #: the demotion drill: ``mesh_down@C8_DEMOTE_AT`` fails commit seq 4's
 #: dispatch as a lost device would (the reference's drill).
 C8_DEMOTE_AT = 4
-#: the arms that need an item the port does not serve yet.
+#: the arms (and the one column) that need an item the port does not
+#: serve yet.
 C8_NOT_PORTED = {"auto": "the tuner (item 4e)",
-                 "hier_curve": "the per-host aggregator (item 4d)",
+                 "hier_curve.controller_topology":
+                     "the tuner's recommended_topology (item 4e)",
                  "sim_drift": "sim/ (item 10)"}
+#: the ``hier_curve`` arm (``bench.py:689-733``): flat against a per-host
+#: aggregator at 1, 2 and 4 workers over the ring, inflight 1, one stripe,
+#: f32 commits, a flush at most every 0.5 s; ``max(4, rounds // 2)``
+#: rounds a point, one timed run a point after the arm's warm run.
+C8_CURVE_WORKERS = (1, 2, 4)
+C8_CURVE_ROUNDS = max(4, C8_ROUNDS // 2)
+C8_HIER_FLUSH = 0.5
 #: the ``optimized`` arm's plane (``bench.py:599``): TCP, two commits in
 #: flight, two stripes, int8; ``durable`` is the same with a journal.
 C8_OPTIMIZED = dict(transport="tcp", inflight=2, shards=2, compress="int8")
@@ -3061,6 +3095,185 @@ def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
                 "netps.mesh.folds", "netps.mesh.demotions",
                 "netps.shm_fallbacks", "netps.bytes_sent",
                 "netps.reconnects")}}
+
+
+@contextlib.contextmanager
+def recorded_aggregators():
+    """Yield a list that every ``AggregatorServer`` built in the block
+    appends itself to (``run_remote`` builds its own), so a caller can
+    read the aggregator's ledger and evidence after the run."""
+    from distkeras_tpu_torch.netps import hier
+
+    made, real = [], hier.AggregatorServer
+
+    class Recorded(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    hier.AggregatorServer = Recorded
+    try:
+        yield made
+    finally:
+        hier.AggregatorServer = real
+
+
+def c8_hier_point(torch, F, FA, model, loop, workers: int, topo: str,
+                  seed: int, rounds: int) -> dict:
+    """One point of the ``hier_curve`` arm, as ``bench.py:705-733`` runs
+    it: ``run_remote`` of ``workers`` threads against a fresh
+    ``PSServer(device="cuda", transport="shm")``, ``hier`` on for
+    ``topo="hier"`` (the aggregator on the card, flushing at most every
+    ``C8_HIER_FLUSH`` s), inflight 1, one stripe, f32 commits; the shared
+    local loop at one worker (a loop serves one thread), one loop a worker
+    built by ``run_remote`` otherwise. The launch counts are set to 0 just
+    before and read just after."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.data.batching import make_batches
+    from distkeras_tpu_torch.netps import PSServer
+    from distkeras_tpu_torch.netps.remote import run_remote
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import adam
+
+    df = lm_frame(workers * C8_BATCH * C8_WINDOW * rounds, C8["vocab_size"],
+                  C8_SEQ, seed + workers)
+    plan = make_batches(df, "features", "label", C8_BATCH,
+                        num_workers=workers, window=C8_WINDOW)
+    tokens = rounds * workers * C8_WINDOW * C8_BATCH * C8_SEQ
+    telemetry.reset()
+    srv = PSServer(discipline="aeasgd", device="cuda",
+                   transport="shm").start()
+    try:
+        with recorded_aggregators() as made:
+            torch.cuda.synchronize()
+            F.reset_launches()  # counts start at 0 just before the run
+            FA.reset_launches()
+            t0 = time.perf_counter()
+            params, losses = run_remote(
+                endpoint=srv.endpoint, model=model, tx=adam(C8_LR),
+                loss_fn=get_loss("sparse_categorical_crossentropy"),
+                plan=plan, discipline="aeasgd", window=C8_WINDOW,
+                alpha=C8_ALPHA, seed=0, compute_dtype=torch.bfloat16,
+                transport="shm", hier=topo == "hier",
+                hier_flush=C8_HIER_FLUSH, inflight=1, shards=1,
+                compress="none", loop_fn=loop if workers == 1 else None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            fold, flash = F.launch_counts(), FA.launch_counts()
+        log = list(srv.commit_log)
+        center = srv.center()
+    finally:
+        srv.close()
+    snap = telemetry.get().snapshot()
+    agg = made[0] if made else None
+    return {"workers": workers, "topology": topo, "rounds": rounds,
+            "seconds": wall, "tokens": tokens,
+            "tokens_per_sec": tokens / wall,
+            "root_commits": len(log),
+            "root_commits_per_sec": len(log) / wall,
+            "worker_commits_per_sec": workers * rounds / wall,
+            "params": params, "losses": losses, "log": log,
+            "center": center, "fold": fold, "flash": flash, "agg": agg,
+            "aggregators": len(made),
+            "spans": {name: span_stats(snap, name) for name in (
+                "netps.remote.local_window", "netps.rpc.commit.shm",
+                "netps.server.commit.shm", "netps.rpc.pull.shm")},
+            "counters": {k: snap["counters"].get(k, 0) for k in (
+                "netps.hier.combined_commits", "netps.hier.worker_commits",
+                "netps.hier.lost_windows", "netps.shm_upgrades",
+                "netps.shm_fallbacks")}}
+
+
+def c8_check_hier_point(point: dict, init: dict, flat_root: int) -> list:
+    """The ``hier_curve`` checks of one point: finite losses, the center
+    moved, the returned params the root's center, the flash kernels 2/1/1
+    a layer a step; flat: each worker commit folded once at the root, one
+    ``fold_commit`` each; hier: every worker commit absorbed once, the
+    ledger balanced with nothing open after close, the root holding only
+    the aggregator's commits (each once, no more than the flat run's), and
+    one ``fold_commit`` an absorbed commit plus one a root commit."""
+    bad = []
+    W, rounds = point["workers"], point["rounds"]
+    label = f"hier_curve[{point['topology']} W={W}]"
+    if not np.all(np.isfinite(point["losses"])):
+        bad.append(f"{label}: non-finite losses")
+    moved = max((point["params"][k] - v).abs().max().item()
+                for k, v in init.items())
+    point["center_max_abs_change"] = moved
+    if not moved > 0:
+        bad.append(f"{label}: the center did not move")
+    if not same_bits([v.cpu().numpy() for v in point["params"].values()],
+                     point["center"]):
+        bad.append(f"{label}: the returned params are not the root's center")
+    steps = W * rounds * C8_WINDOW
+    want_flash = {"flash_fwd": 2 * C8["num_layers"] * steps,
+                  "flash_dq": C8["num_layers"] * steps,
+                  "flash_dkv": C8["num_layers"] * steps}
+    if point["flash"] != want_flash:
+        bad.append(f"{label}: flash launches {point['flash']}, want "
+                   f"{want_flash}")
+    every = sorted((w, s) for w in range(W) for s in range(rounds))
+    log, fold = point["log"], point["fold"]
+    if point["topology"] == "flat":
+        if point["aggregators"] or sorted((w, s) for w, s, _ in log) != every:
+            bad.append(f"{label}: root log {sorted(log)[:8]}, "
+                       f"aggregators {point['aggregators']}")
+        if fold.get("fold_commit") != len(log):
+            bad.append(f"{label}: fold launches {fold} for {len(log)} "
+                       f"commits")
+        return bad
+    agg = point["agg"]
+    if point["aggregators"] != 1 or agg is None:
+        return bad + [f"{label}: {point['aggregators']} aggregators built"]
+    absorbed = sorted((w, s) for w, s, _ in agg.commit_log)
+    ledger = {"absorbed": agg.absorbed, "forwarded": agg.forwarded,
+              "forwarded_commits": agg.forwarded_commits,
+              "lost_windows": agg.lost_windows,
+              "lost_commits": agg.lost_commits,
+              "open_commits": agg._acc_count}
+    point["ledger"] = ledger
+    if absorbed != every or agg.absorbed != W * rounds:
+        bad.append(f"{label}: absorbed {absorbed}, want each of {every} "
+                   f"once")
+    if (agg.absorbed != agg.forwarded_commits + agg.lost_commits
+            or agg._acc_count):
+        bad.append(f"{label}: the ledger does not balance: {ledger}")
+    up = agg._up.worker_id
+    if (not exactly_once(log) or {w for w, _s, _ in log} != {up}
+            or len(log) != agg.forwarded):
+        bad.append(f"{label}: root log {log} for {agg.forwarded} "
+                   f"combined commits of worker {up}")
+    if len(log) > flat_root:
+        bad.append(f"{label}: the root saw {len(log)} commits, the flat "
+                   f"run {flat_root}")
+    if (fold.get("fold_commit") != agg.absorbed + len(log)
+            or fold.get("fold_int8") or fold.get("fold_bf16")):
+        bad.append(f"{label}: fold launches {fold}, want {agg.absorbed} "
+                   f"absorbs + {len(log)} root folds")
+    return bad
+
+
+def c8_hier_curve(torch, F, FA, model, loop, init: dict, seed: int
+                  ) -> tuple:
+    """The ``hier_curve`` arm: one warm run (4 workers, hier,
+    ``C8_WARM_ROUNDS``), then one timed run a point, flat then hier at 1,
+    2 and 4 workers. Returns ``(points, failures, warm)``."""
+    failures = []
+    warm = c8_hier_point(torch, F, FA, model, loop,
+                         max(C8_CURVE_WORKERS), "hier", seed,
+                         C8_WARM_ROUNDS)
+    failures += c8_check_hier_point(warm, init, max(C8_CURVE_WORKERS)
+                                    * C8_WARM_ROUNDS)
+    points = []
+    for W in C8_CURVE_WORKERS:
+        flat = c8_hier_point(torch, F, FA, model, loop, W, "flat", seed,
+                             C8_CURVE_ROUNDS)
+        failures += c8_check_hier_point(flat, init, len(flat["log"]))
+        hier_p = c8_hier_point(torch, F, FA, model, loop, W, "hier", seed,
+                               C8_CURVE_ROUNDS)
+        failures += c8_check_hier_point(hier_p, init, len(flat["log"]))
+        points += [flat, hier_p]
+    return points, failures, warm
 
 
 def c8_check_run(torch, run: dict, init: dict, label: str,
@@ -3271,6 +3484,24 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
                         f"from pr4's center; two pr4 runs are {pr4_spread} "
                         f"apart")
 
+    curve, curve_failures, curve_warm = c8_hier_curve(
+        torch, F, FA, model, loop, init, seed)
+    failures += curve_failures
+
+    def curve_row(p):
+        row = {k: p[k] for k in (
+            "workers", "topology", "rounds", "seconds", "tokens_per_sec",
+            "root_commits", "root_commits_per_sec", "worker_commits_per_sec",
+            "counters", "spans")}
+        row["fold_launches"] = p["fold"].get("fold_commit", 0)
+        row["center_max_abs_change"] = p.get("center_max_abs_change")
+        if p["agg"] is not None:
+            row["ledger"] = p.get("ledger")
+            row["precombine_launches"] = p["agg"].absorbed
+            row["aggregator_fold_host_ms"] = (
+                1e3 * p["agg"].fold_seconds / max(1, p["agg"].absorbed))
+        return row
+
     def arm_row(runs):
         last = runs[-1]
         return {"tokens_per_s": [r["tokens_per_s"] for r in runs],
@@ -3327,6 +3558,19 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
           "transport_parity": {"pr4_runs_apart": pr4_spread,
                                "mesh_inflight1_from_pr4": mesh1_off,
                                "bit_equal": mesh1_off == 0.0},
+          "hier_curve": [curve_row(p) for p in curve],
+          "hier_curve_knobs": {"transport": "shm", "inflight": 1,
+                               "shards": 1, "compress": "none",
+                               "hier_flush": C8_HIER_FLUSH,
+                               "rounds": C8_CURVE_ROUNDS,
+                               "warm": curve_row(curve_warm)},
+          "hier_vs_flat": {W: next(p["tokens_per_sec"] for p in curve
+                                   if p["workers"] == W
+                                   and p["topology"] == "hier")
+                           / next(p["tokens_per_sec"] for p in curve
+                                  if p["workers"] == W
+                                  and p["topology"] == "flat")
+                           for W in C8_CURVE_WORKERS},
           "not_ported": C8_NOT_PORTED,
           "reduced": f"none of width or depth; durable runs "
                      f"{C8_DURABLE_PAIRS} ABBA pairs (the reference "
@@ -3337,7 +3581,12 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
         fail("netps_config8: " + "; ".join(failures))
     first = timed["mesh"][0]
     stripe_runs = timed["optimized"] + durable_runs + [striped[2]]
-    return {"mesh_fold_launches": sum(r["fold"].get("fold_commit", 0)
+    hier_points = [p for p in curve if p["topology"] == "hier"]
+    return {"hier_launches": sum(p["fold"].get("fold_commit", 0)
+                                 for p in hier_points),
+            "hier_absorbed": sum(p["agg"].absorbed for p in hier_points),
+            "hier_root_commits": sum(p["root_commits"] for p in hier_points),
+            "mesh_fold_launches": sum(r["fold"].get("fold_commit", 0)
                                       for r in timed["mesh"]),
             "mesh_commits": sum(len(r["log"]) for r in timed["mesh"]),
             "striped_fold_launches": sum(r["fold"].get("fold_commit", 0)
@@ -3816,6 +4065,519 @@ def shard_crash_phase(torch, K, F, gpu: str, seed: int, cli: dict,
     if bad:
         fail("shard_crash: " + "; ".join(bad))
     return {"replay": replay}
+
+
+# -- the aggregation plane: the per-host aggregator and the trees ----------
+
+#: ``netps_tree`` (b): config #4 remote DynSGD (int8) through a per-host
+#: aggregator over the ring: ``REMOTE``'s 4 workers, window 4, batch 2048.
+TREE_TRAIN_ROUNDS = 3
+#: (c) the partition drill: the tree, its workers and rounds, and how long
+#: the level-0 group-1 uplink is black-holed (``link_down@1:S``).
+TREE_SPEC = "host:2,region:2"
+TREE_WORKERS = 4
+TREE_ROUNDS = 4
+TREE_LINK_DOWN_S = 3.0
+#: (d) the failover drill: rounds through the node, then through its
+#: promoted standby; the standby promotes after this much silence.
+TREE_FAILOVER_ROUNDS = (3, 3)
+TREE_PROMOTE_AFTER = 1.0
+#: the failover drill's commit, every element 2**-10 (exact in f32), so a
+#: constituent landed twice moves the root's center by a whole step.
+TREE_STEP = 2.0 ** -10
+
+
+def wait_until(cond, seconds: float, what: str) -> None:
+    deadline = time.monotonic() + seconds
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"netps_tree: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def precombine_windows(init: list, seed: int) -> list:
+    """Three windows of three commits of ``init``'s tensors: f32, then
+    bf16, then int8 (``wire.codec_encode`` of seeded deltas), each delta
+    with a ``-0.0`` and a ``+0.0`` element; the int8 window's first commit
+    carries a zero-scale tensor (all zeros: scale 0, which the kernel
+    skips)."""
+    from distkeras_tpu_torch.netps import wire
+
+    rng = np.random.default_rng(seed)
+    windows = []
+    for codec in ("none", "bf16", "int8"):
+        window = []
+        for w in range(3):
+            entries = []
+            for i, a in enumerate(init):
+                d = (rng.normal(size=a.shape) * 1e-3).astype(np.float32)
+                d.reshape(-1)[0], d.reshape(-1)[-1] = -0.0, 0.0
+                if codec == "int8" and w == 0 and i == 1:
+                    d[...] = 0.0
+                q, spec = wire.codec_encode(d, codec)
+                entries.append((q, spec) if spec else q)
+            window.append(entries)
+        windows.append(window)
+    return windows
+
+
+def numpy_window(window: list) -> list:
+    """The reference aggregator's window: the first commit decoded and
+    copied, the rest decoded and added, in absorb order."""
+    from distkeras_tpu_torch.netps import wire
+
+    acc = None
+    for entries in window:
+        dec = [np.asarray(wire.codec_decode(*e) if isinstance(e, tuple)
+                          else e, np.float32) for e in entries]
+        if acc is None:
+            acc = [a.copy() for a in dec]
+        else:
+            for a, d in zip(acc, dec):
+                a += d
+    return acc
+
+
+def precombine_chain(torch, F, init: list, windows: list, device: str
+                     ) -> dict:
+    """An aggregator (``fan_in=3``) in front of a root, both on
+    ``device``; three workers commit each window's wire entries as sent.
+    Records every combined commit the aggregator flushes and the
+    ``fold_commit`` launches of each window (counts set to 0 just before
+    it, read once the root folded it)."""
+    from distkeras_tpu_torch.netps import (AggregatorServer, PSClient,
+                                           PSServer)
+
+    root = PSServer(center=init, discipline="aeasgd", device=device).start()
+    agg = AggregatorServer(upstream=root.endpoint, discipline="aeasgd",
+                           fan_in=3, flush_interval=3600.0, device=device,
+                           timeout=120.0).start()
+    sent, launches = [], []
+    real_commit = agg._up.commit
+
+    def recording(delta, pulled, *a, **kw):
+        sent.append([np.array(d, np.float32) for d in delta])
+        return real_commit(delta, pulled, *a, **kw)
+
+    agg._up.commit = recording
+    clients = [PSClient(agg.endpoint, worker_id=w, timeout=120.0)
+               for w in range(3)]
+    try:
+        for c in clients:
+            c.join()
+        for k, window in enumerate(windows):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            F.reset_launches()
+            for c, entries in zip(clients, window):
+                _, u = c.pull()
+                hdr, _ = c._rpc("commit", {"seq": k, "pulled": u}, entries)
+                if not hdr.get("applied"):
+                    fail(f"netps_tree (a): a commit was not absorbed: {hdr}")
+            wait_until(lambda: len(root.commit_log) == k + 1, 120.0,
+                       f"window {k} at the root")
+            launches.append(F.launch_counts()["fold_commit"])
+    finally:
+        for c in clients:
+            c.close()
+        agg.close()
+    center, log = root.center(), list(root.commit_log)
+    root.close()
+    return {"sent": sent, "center": center, "launches": launches,
+            "root_commits": len(log), "absorbed": agg.absorbed,
+            "fold_backend": "cuda" if agg._flat.is_cuda else "torch-cpu"}
+
+
+def precombine_times(torch, F, init: list, entries: list) -> dict:
+    """One scale-1 pre-combine of a config #8 f32 commit into a window
+    seated as the aggregator seats it, by CUDA events (L2 flushed, the card
+    held by a spin before each call): the kernel, its plain twin and the
+    per-tensor ``add_`` loop (no one PyTorch call folds a commit); the
+    bound; and the host wall of the take's device-to-host copy of the
+    window."""
+    from distkeras_tpu_torch.netps.fold import (fold_staged, host_mirror,
+                                                seat_center, stage_commit)
+
+    flat, offsets, views = seat_center(init, "cuda")
+    flat.fill_(-0.0)
+    staged = stage_commit(entries, "cuda")
+    wires = [F.wire_view(staged.buf, r) for r in staged.rows]
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+
+    def add_loop():
+        for v, w in zip(views, wires):
+            v.add_(w.view(v.shape))
+
+    out = {key: cuda_ms_cold(torch, fn, FOLD_REPS, flush, head_start=True)
+           for key, fn in (
+               ("ms", lambda: fold_staged(views, staged, 1.0)),
+               ("plain_ms", lambda: F.fold_commit_plain_(views, staged, 1.0)),
+               ("library_ms", add_loop))}
+    n = sum(v.numel() for v in views)
+    out["bound_ms"], out["bound_by"] = bound(12 * n, 2 * n, PEAK_F32_FLOPS)
+    takes = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_mirror(flat, offsets, views)
+        takes.append((time.perf_counter() - t0) * 1e3)
+    out["take_ms"] = float(np.median(takes[1:]))
+    out["params"] = n
+    out["timing"] = ("CUDA events around one fold_staged (one fold_commit "
+                     "launch) of an f32 commit at scale 1, L2 flushed and "
+                     "the card held by a spin before it; take_ms: host "
+                     "clock of the window's device-to-host copy, median "
+                     "of 5 after one")
+    del flush
+    return out
+
+
+def netps_tree_phase(torch, K, F, gpu: str, seed: int, c8init: dict,
+                     frame) -> dict:
+    """The aggregation plane on the card. (a) The pre-combine's bits at
+    config #8's width: three windows of three commits of its 70 tensors
+    (f32, bf16, int8) through an aggregator (``fan_in=3``) in front of a
+    root, both on the card: each flushed combined commit bit-equal to the
+    numpy decode-then-add, the root's center bit-equal to a CPU run of the
+    same commits and to the numpy chain, 3 aggregator launches and 1 root
+    launch a window; and the pre-combine's time beside its bound. (b)
+    Config #4 ``DynSGD(..., remote=...)`` under ``DKTPU_NET_HIER=1`` over
+    the ring, 4 workers: finite losses, the center moved, each worker
+    commit absorbed once, each combined commit folded once at the root.
+    (c) A ``build_tree("host:2,region:2", root, workers=4)`` on the card
+    under ``link_down@1:S`` (the level-0 group-1 uplink): its windows
+    buffer, then drain in order; no silent loss anywhere; the root folds
+    exactly the top node's forwarded windows. (d) A ``TreeNode`` with a
+    journal and its ``TreeStandby``; the node is stopped as its death
+    would stop it, with a window open: the standby promotes, fences and
+    joins the root, the children re-parent through their endpoint list,
+    no constituent lands twice, and the dead window is counted lost.
+    Returns the ``fold_commit`` launches of (a)-(d)."""
+    from distkeras_tpu_torch import imdb_lstm, telemetry
+    from distkeras_tpu_torch.netps import (PSClient, PSServer, TreeNode,
+                                           TreeSpec, TreeStandby,
+                                           build_tree, state)
+
+    t_phase = time.perf_counter()
+    failures = []
+
+    # (a) the pre-combine's bits and time at config #8's width.
+    init8 = [v.detach().float().cpu().numpy() for v in c8init.values()]
+    windows = precombine_windows(init8, seed + 19)
+    card = precombine_chain(torch, F, init8, windows, "cuda")
+    host = precombine_chain(torch, F, init8, windows, "cpu")
+    want = [a.copy() for a in init8]
+    window_bits = []
+    for k, window in enumerate(windows):
+        acc = numpy_window(window)
+        window_bits.append(k < len(card["sent"])
+                           and same_bits(card["sent"][k], acc))
+        for c, a in zip(want, acc):
+            c += a
+    pre = {"tensors": len(init8), "params": int(sum(a.size for a in init8)),
+           "codecs": ["none", "bf16", "int8"],
+           "windows_bit_equal": window_bits,
+           "root_equal_cpu_run": same_bits(card["center"], host["center"]),
+           "root_equal_numpy": same_bits(card["center"], want),
+           "launches_per_window": card["launches"],
+           "root_commits": card["root_commits"],
+           "absorbed": card["absorbed"],
+           "fold_backend": card["fold_backend"]}
+    if (not all(window_bits) or not pre["root_equal_cpu_run"]
+            or not pre["root_equal_numpy"] or card["launches"] != [4] * 3
+            or card["root_commits"] != 3 or card["absorbed"] != 9
+            or card["fold_backend"] != "cuda"):
+        failures.append(f"(a) the pre-combine: {pre}")
+    times = precombine_times(torch, F, init8, windows[0][0])
+    pre["times"] = times
+    del card, host, windows
+    torch.cuda.empty_cache()
+
+    # (b) config #4 remote DynSGD through a per-host aggregator.
+    W = REMOTE["num_workers"]
+    rows = TREE_TRAIN_ROUNDS * W * REMOTE["communication_window"] \
+        * REMOTE["batch_size"]
+    root = PSServer(discipline="dynsgd", device="cuda",
+                    transport="shm").start()
+    try:
+        with recorded_aggregators() as made:
+            run = remote_run(torch, K, F, seed + 9, first_rows(frame, rows),
+                             root.endpoint, TREE_TRAIN_ROUNDS,
+                             DKTPU_NET_HIER="1", DKTPU_NET_TRANSPORT="shm")
+        log, center = list(root.commit_log), root.center()
+    finally:
+        root.close()
+    every = sorted((w, s) for w in range(W) for s in range(TREE_TRAIN_ROUNDS))
+    trained = [p.cpu().numpy() for p in run["trained"].params.values()]
+    moved = max(float(np.abs(a - b.detach().cpu().numpy()).max())
+                for a, b in zip(trained,
+                                run["trainer"].model.params.values()))
+    agg = made[0] if len(made) == 1 else None
+    steps = TREE_TRAIN_ROUNDS * W * REMOTE["communication_window"]
+    trainer_row = {"workers": W, "rounds": TREE_TRAIN_ROUNDS,
+                   "transport": "shm", "codec": "int8",
+                   "seconds": run["wall"],
+                   "samples_per_s": run["samples_per_s"],
+                   "root_commits": len(log), "fold_launches": run["fold"],
+                   "lstm_launches": run["lstm"],
+                   "center_max_abs_change": moved}
+    if agg is None:
+        failures.append(f"(b) {len(made)} aggregators built")
+    else:
+        trainer_row.update(absorbed=agg.absorbed, forwarded=agg.forwarded,
+                           forwarded_commits=agg.forwarded_commits,
+                           lost_commits=agg.lost_commits,
+                           aggregator_device=str(agg.device))
+        if (sorted((w, s) for w, s, _ in agg.commit_log) != every
+                or agg.absorbed != agg.forwarded_commits + agg.lost_commits
+                or agg._acc_count or not exactly_once(log)
+                or {w for w, _s, _ in log} != {agg._up.worker_id}
+                or len(log) != agg.forwarded
+                or run["fold"].get("fold_commit") != agg.absorbed + len(log)
+                or agg.device.type != "cuda"):
+            failures.append(f"(b) exactly-once at both levels: {trainer_row}")
+    if (not run["finite"] or not moved > 0 or not same_bits(trained, center)
+            or run["lstm"].get("lstm_fwd_stash") != steps
+            or run["lstm"].get("lstm_bwd") != steps):
+        failures.append(f"(b) the run: finite {run['finite']}, moved "
+                        f"{moved}, the model the root's center "
+                        f"{same_bits(trained, center)}, {run['lstm']}")
+    del run, trained
+    torch.cuda.empty_cache()
+
+    # (c) the partition drill through a two-level tree.
+    init4 = [v.detach().float().cpu().numpy() for v in imdb_lstm(
+        vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+        seq_len=SEQ_LEN, seed=seed, device="cpu").params.values()]
+    rng = np.random.default_rng(seed + 23)
+    deltas = {(w, r): [(rng.normal(size=a.shape) * 1e-3).astype(np.float32)
+                       for a in init4]
+              for w in range(TREE_WORKERS) for r in range(TREE_ROUNDS)}
+    spec = TreeSpec.parse(TREE_SPEC)
+    key = TreeSpec.link_key(0, 1)
+    telemetry.reset()
+    root = PSServer(center=init4, discipline="adag", device="cuda").start()
+    tree = None
+    dark = None
+    try:
+        with fault_plan(net=f"link_down@{key}:{TREE_LINK_DOWN_S}") as (
+                _, net):
+            tree = build_tree(spec, root.endpoint, workers=TREE_WORKERS,
+                              discipline="adag", device="cuda",
+                              flush_interval=0.05, timeout=60.0)
+            nodes = [n for lvl in tree.nodes.values() for n in lvl.values()]
+            errors = []
+
+            def work(w: int) -> None:
+                try:
+                    with PSClient(tree.leaf_endpoint(w), worker_id=w,
+                                  timeout=60.0) as c:
+                        c.join()
+                        for r in range(TREE_ROUNDS):
+                            _, u = c.pull()
+                            if not c.commit(deltas[w, r], u).applied:
+                                errors.append(f"({w}, {r}) not applied")
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(repr(e))
+
+            torch.cuda.synchronize()
+            F.reset_launches()  # counts start at 0 just before the drill
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=work, args=(w,))
+                       for w in range(TREE_WORKERS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            dark = tree.node(0, 1).tree_stats()
+            cut = tree.node(0, 1)
+            wait_until(lambda: cut.tree_stats()["buffered_windows"] == 0
+                       and not cut.tree_stats()["link_down"], 60.0,
+                       "the partitioned uplink to drain")
+            tree.close()
+            partition_s = time.perf_counter() - t0
+            ledgers = {f"L{n.level}g{n.group}": n.tree_stats()
+                       for n in nodes}
+            tree_launches_c = F.launch_counts()
+            missed = unfired(net)
+        drained = telemetry.get().snapshot()["counters"].get(
+            "netps.tree.drained_windows", 0)
+        log, center = list(root.commit_log), root.center()
+    finally:
+        if tree is not None and dark is None:
+            tree.close()
+        root.close()
+    top = tree.node(1, 0)
+    cut_wid = cut._up.worker_id
+    from_cut = [s for w, s, _ in top.commit_log if w == cut_wid]
+    sum_want = [a + sum(deltas[w, r][i] for w in range(TREE_WORKERS)
+                        for r in range(TREE_ROUNDS))
+                for i, a in enumerate(init4)]
+    # Every delta folded once, summed in another order: within f32
+    # rounding of the values (a lost or doubled delta is ~1e-3 off).
+    off = max(float((np.abs(c - w) / (np.abs(w) + 1e-1)).max())
+              for c, w in zip(center, sum_want))
+    leaves = [tree.node(0, g) for g in range(spec.nodes_at(0, TREE_WORKERS))]
+    partition = {"spec": TREE_SPEC, "workers": TREE_WORKERS,
+                 "rounds": TREE_ROUNDS, "fault": f"link_down@{key}:"
+                                                 f"{TREE_LINK_DOWN_S}",
+                 "unfired": missed, "errors": errors,
+                 "dark": {k: dark[k] for k in (
+                     "link_down", "buffered_windows", "buffered_commits",
+                     "absorbed", "forwarded", "silent_loss")},
+                 "ledgers": ledgers, "drained_windows": drained,
+                 "root_commits": len(log),
+                 "seqs_from_the_cut_uplink": from_cut,
+                 "center_rel_off_the_sum": off,
+                 "fold_launches": tree_launches_c, "seconds": partition_s}
+    absorbed_all = sum(n.absorbed for n in nodes)
+    if (missed or errors or not dark["link_down"]
+            or dark["buffered_windows"] < 1
+            or any(v["silent_loss"] or v["dropped_commits"]
+                   or v["lost_commits"] or v["buffered_commits"]
+                   or v["open_commits"] for v in ledgers.values())
+            or sum(n.absorbed for n in leaves)
+            != TREE_WORKERS * TREE_ROUNDS
+            or top.absorbed != sum(n.forwarded for n in leaves)
+            or len(log) != top.forwarded or not exactly_once(log)
+            or any(not exactly_once(n.commit_log) for n in nodes)
+            or from_cut != list(range(cut.forwarded)) or not drained
+            or off > 2e-6
+            or tree_launches_c.get("fold_commit") != absorbed_all + len(log)):
+        failures.append(f"(c) the partition drill: {partition}")
+
+    # (d) the failover drill: a journaled node, its standby, a hard stop.
+    workdir = os.path.join("build", "netps_tree")
+    shutil.rmtree(workdir, ignore_errors=True)
+    root = PSServer(center=init4, discipline="adag", device="cuda",
+                    lease_s=30.0).start()
+    node = TreeNode(root.endpoint, level=0, group=0, spec="host:2",
+                    fan_in=1, flush_interval=0.05, device="cuda",
+                    state_dir=os.path.join(workdir, "node"),
+                    timeout=60.0).start()
+    sb = TreeStandby(node.endpoint, upstream=root.endpoint, level=0,
+                     group=0, spec="host:2", fan_in=1, flush_interval=0.05,
+                     promote_after=TREE_PROMOTE_AFTER, device="cuda",
+                     state_dir=os.path.join(workdir, "standby"),
+                     timeout=60.0).start()
+    landed = {"node": [], "standby": []}
+
+    def record(srv, label):
+        real = srv._send_window
+
+        def send(win):
+            out = real(win)
+            if out == "ok":
+                landed[label].extend(win.pairs)
+            return out
+
+        srv._send_window = send
+
+    record(node, "node")
+    record(sb, "standby")
+    step = [np.full(a.shape, TREE_STEP, np.float32) for a in init4]
+    served = f"{node.endpoint},{sb.endpoint}"
+    clients = [PSClient(served, worker_id=w, timeout=10.0, retries=20,
+                        backoff=0.05) for w in range(2)]
+    before, after = TREE_FAILOVER_ROUNDS
+    acked = 0
+    try:
+        torch.cuda.synchronize()
+        F.reset_launches()  # counts start at 0 just before the drill
+        for c in clients:
+            c.join()
+        for r in range(before + after):
+            if r == before - 1:
+                # The last window before the death stays open.
+                wait_until(lambda: node.forwarded_commits == node.absorbed,
+                           30.0, "the node's windows at the root")
+                node.flush_interval = 3600.0
+                node.set_fan_in(10 ** 6)
+            if r == before:
+                wait_until(lambda: sb._updates == node._absorbs, 30.0,
+                           "the standby to replicate the node's absorbs")
+                at_death = node.tree_stats()
+                t_kill = time.perf_counter()
+                hard_stop(node)
+                node._flusher_thread.join()
+                node._up.close()  # its uplink dies with it
+                wait_until(lambda: sb.promoted, 30.0, "the promotion")
+                promoted_s = time.perf_counter() - t_kill
+            for c in clients:
+                _, u = c.pull()
+                acked += bool(c.commit(step, u).applied)
+        wait_until(lambda: sb.forwarded_commits == sb.absorbed, 30.0,
+                   "the standby's windows at the root")
+    finally:
+        for c in clients:
+            c.close()
+        sb.close()
+        node.close()  # its final flush fails: a counted lost window
+    failover_launches = F.launch_counts()
+    log, center = list(root.commit_log), root.center()
+    root.close()
+    journals = {label: [(int(x["wid"]), int(x["seq"]), int(x["e"]))
+                        for x in state.read_journal(
+                            os.path.join(workdir, label))]
+                for label in ("node", "standby")}
+    shutil.rmtree(workdir, ignore_errors=True)
+    pairs = landed["node"] + landed["standby"]
+    k = len(pairs)
+    # Every window the root folded held one commit of one step: its
+    # center is the init plus k steps, added one at a time, bit for bit.
+    steps_center = [a.copy() for a in init4]
+    for _ in range(k):
+        for c, st in zip(steps_center, step):
+            c += st
+    k_bits = same_bits(center, steps_center)
+    node_l, sb_l = node.tree_stats(), sb.tree_stats()
+    failover = {"rounds": TREE_FAILOVER_ROUNDS, "acked": acked,
+                "promoted": sb.promoted, "epoch": sb.epoch,
+                "seconds_to_promotion": promoted_s,
+                "promote_after": TREE_PROMOTE_AFTER,
+                "open_at_death": at_death["open_commits"],
+                "node": {k_: node_l[k_] for k_ in (
+                    "absorbed", "forwarded_commits", "lost_windows",
+                    "lost_commits", "silent_loss")},
+                "standby": {k_: sb_l[k_] for k_ in (
+                    "absorbed", "forwarded_commits", "lost_windows",
+                    "lost_commits", "silent_loss")},
+                "landed_constituents": k, "root_commits": len(log),
+                "root_workers": sorted({w for w, _s, _ in log}),
+                "center_is_init_plus_landed_steps": k_bits,
+                "journal_records": {lb: len(j) for lb, j in
+                                    journals.items()},
+                "fold_launches": failover_launches}
+    total = 2 * (before + after)
+    if (not sb.promoted or sb.epoch < 1 or acked != total
+            or len(pairs) != len(set(pairs))
+            or k != node.forwarded_commits + sb.forwarded_commits
+            or k + node.lost_commits + sb.lost_commits != total
+            or at_death["open_commits"] != 2 or node.lost_windows != 1
+            or node_l["silent_loss"] or sb_l["silent_loss"]
+            or not exactly_once(log) or len({w for w, _s, _ in log}) != 2
+            or not k_bits
+            or any(len({(w, s) for w, s, _e in j}) != len(j)
+                   for j in journals.values())
+            or max(e for _w, _s, e in journals["standby"]) < 1
+            or failover_launches.get("fold_commit")
+            != node.absorbed + sb.absorbed + len(log)):
+        failures.append(f"(d) the failover drill: {failover}")
+
+    emit({"phase": "netps_tree", "gpu": gpu, "precombine": pre,
+          "aggregator_trainer": trainer_row, "partition": partition,
+          "failover": failover,
+          "reduced": "none of width: (a) at config #8's 70 tensors, (b)-(d) "
+                     "at config #4's; (c) and (d) drive raw commits of "
+                     "seeded deltas, not a trainer",
+          "seconds": time.perf_counter() - t_phase})
+    if failures:
+        fail("netps_tree: " + "; ".join(failures))
+    return {"precombine": sum(pre["launches_per_window"]),
+            "trainer": trainer_row["fold_launches"].get("fold_commit", 0),
+            "partition": tree_launches_c.get("fold_commit", 0),
+            "failover": failover_launches.get("fold_commit", 0),
+            "times": times}
 
 
 def flash_bound_ms(B: int, L: int, H: int, D: int, itemsize: int,
@@ -5899,8 +6661,9 @@ def main() -> None:
         config8 = netps_config8_phase(torch, F, FA, gpu, args.seed)
         torch.cuda.empty_cache()
         lap("netps_sharded")
+        c8ctx = config8.pop("ctx")
         sharded = netps_sharded_phase(torch, K, F, FA, gpu, args.seed,
-                                      config8.pop("ctx"), lstm_frame)
+                                      c8ctx, lstm_frame)
         torch.cuda.empty_cache()
         lap("sharded_center")
         c10_launches = sharded_center_phase(torch, F, gpu)
@@ -5911,7 +6674,11 @@ def main() -> None:
     finally:
         for sh in shard_cli["shards"]:
             stop_cli(sh["lives"])
-    del lstm_frame
+    torch.cuda.empty_cache()
+    lap("netps_tree")
+    tree = netps_tree_phase(torch, K, F, gpu, args.seed, c8ctx["init"],
+                            lstm_frame)
+    del lstm_frame, c8ctx
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, rows, launches, bf16_launches):
@@ -6113,6 +6880,26 @@ def main() -> None:
         "config4_commits": sharded["config4_commits"]}
     kernels[5]["sharded_center_launches"] = c10_launches
     kernels[5]["shard_crash_replay_launches"] = crash["replay"]
+    # The aggregation plane, each path counted from 0 just before its run
+    # and read just after: one launch an absorbed commit (the aggregator's
+    # pre-combine at scale 1) and one a commit the root folds.
+    kernels[5]["hier_launches"] = config8["hier_launches"]
+    kernels[5]["hier_absorbed"] = config8["hier_absorbed"]
+    kernels[5]["hier_root_commits"] = config8["hier_root_commits"]
+    kernels[5]["tree_launches"] = tree["partition"] + tree["failover"]
+    kernels[5]["tree_path_launches"] = {
+        k: tree[k] for k in ("precombine", "trainer", "partition",
+                             "failover")}
+    times = tree["times"]
+    kernels[5].update({
+        "precombine_shape": f"one config #8 commit, {times['params']} "
+                            f"parameters, f32 into the f32 window, scale 1",
+        "precombine_ms": times["ms"],
+        "precombine_plain_ms": times["plain_ms"],
+        "precombine_bound_ms": times["bound_ms"],
+        "precombine_bound_by": times["bound_by"],
+        "precombine_library_ms": times["library_ms"],
+        "precombine_take_ms": times["take_ms"]})
     for k in kernels[6:]:
         k["config8_drill_bf16_launches"] = config8["drill_flash"][k["name"]]
     emit({"kernels": kernels})

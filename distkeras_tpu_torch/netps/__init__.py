@@ -34,6 +34,14 @@ the card (the JAX package's ``netps``; frames byte-compatible both ways).
 * :mod:`~distkeras_tpu_torch.netps.chaos` — :class:`ChaosProxy`: a
   frame-aware TCP proxy that delays, drops, duplicates, truncates and
   partitions frames on the ``DKTPU_NET_FAULTS`` schedule;
+* :mod:`~distkeras_tpu_torch.netps.hier` — :class:`AggregatorServer`: the
+  per-host aggregator (``DKTPU_NET_HIER``) that pre-combines its workers'
+  commits on its device (one fold launch a commit) and forwards one
+  combined commit upstream a flush;
+* :mod:`~distkeras_tpu_torch.netps.tree` — N-level aggregation trees
+  (:class:`TreeSpec`, :class:`TreeNode`, :class:`TreeStandby`,
+  :func:`build_tree`): partition ride-through, typed drops, link faults
+  and demotion, and the window-conservation ledger;
 * :mod:`~distkeras_tpu_torch.netps.shards` — the sharded center: a
   :class:`PartitionPlan` over N shard servers (:class:`ShardSet` in one
   process, ``--shard K/N`` one a process), dialed through
@@ -57,6 +65,7 @@ from distkeras_tpu_torch.netps.errors import (
     ShardPlanError,
 )
 from distkeras_tpu_torch.netps.fold import commit_scale, fold_delta
+from distkeras_tpu_torch.netps.hier import AggregatorServer
 from distkeras_tpu_torch.netps.mesh import (MeshFolder, local_mesh_id,
                                             mesh_available)
 from distkeras_tpu_torch.netps.server import PSServer
@@ -65,13 +74,17 @@ from distkeras_tpu_torch.netps.shards import (PartitionPlan, ShardedPSClient,
 from distkeras_tpu_torch.netps.shm import (TRANSPORTS, ShmConnection,
                                            local_boot_id, transport_mode)
 from distkeras_tpu_torch.netps.standby import StandbyServer
+from distkeras_tpu_torch.netps.tree import (TreeDeployment, TreeNode,
+                                            TreeSpec, TreeStandby,
+                                            build_tree)
 
 __all__ = [
-    "ChaosProxy", "CommitResult", "EpochFencedError", "LeaseExpiredError",
+    "AggregatorServer", "ChaosProxy", "CommitResult", "EpochFencedError", "LeaseExpiredError",
     "MeshFolder", "NetPSError", "NotPrimaryError", "PSClient", "PSServer",
     "PartitionPlan", "ProtocolError", "RPCTimeoutError", "ServerClosedError",
     "ServerDrainingError", "ShardPlanError", "ShardSet", "ShardedPSClient",
-    "ShmConnection", "StandbyServer", "TRANSPORTS", "commit_scale",
+    "ShmConnection", "StandbyServer", "TRANSPORTS", "TreeDeployment",
+    "TreeNode", "TreeSpec", "TreeStandby", "build_tree", "commit_scale",
     "fold_delta", "local_boot_id", "local_mesh_id", "make_ps_client",
     "mesh_available", "transport_mode",
 ]

@@ -38,9 +38,18 @@ endpoint matrix (``host:p0;host:p1``, each shard's standbys after a
 ``DKTPU_FAULTS_STATE`` the fired faults are journaled, so a restarted life
 does not crash again.
 
-The JAX server's flags for aggregation-tree nodes (``--upstream``,
-``--tree-*``, ``--fan-in``, ``--flush-interval``) are accepted and
-refused: those features come with a later slice of the port.
+With ``--upstream host:port`` the process runs as an interior
+aggregation-tree node (``TreeNode``) instead: it absorbs its children's
+commits into a window on its device (one fold-kernel launch a commit),
+journals them in absorb order under ``--state-dir``, and flushes combined
+windows into the upstream — ``--tree-level``/``--tree-group`` locate it in
+the ``--tree-spec`` (``DKTPU_TREE_SPEC``) shape and key its uplink for
+``link_down``/``link_flap`` chaos, ``--tree-buffer`` bounds partition
+ride-through, ``--fan-in`` and ``--flush-interval`` set when a window
+leaves. ``--upstream`` plus ``--standby`` runs the node's warm
+``TreeStandby``, which on promotion fences the dead node AND joins the
+upstream itself. ``--shard`` and ``--upstream`` are exclusive: shard the
+root and point ``--upstream`` at its ``;`` matrix.
 """
 
 from __future__ import annotations
@@ -58,10 +67,6 @@ from distkeras_tpu_torch.runtime import config
 
 #: exit status of a second-signal forced abort.
 ABORT_STATUS = 70
-
-#: the JAX CLI's flags whose features are not ported yet.
-_NOT_PORTED = ("upstream", "tree_level", "tree_group", "tree_spec",
-               "tree_buffer", "fan_in", "flush_interval")
 
 
 def main(argv=None) -> int:
@@ -94,15 +99,30 @@ def main(argv=None) -> int:
                          "the partition plan is adopted from the first "
                          "join (and persisted under --state-dir). Applies "
                          "to primaries and standbys alike.")
-    for name in _NOT_PORTED:
-        ap.add_argument("--" + name.replace("_", "-"), default=None,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--upstream", metavar="HOST:PORT[,...]", default=None,
+                    help="run as an interior aggregation-tree node that "
+                         "absorbs its children's commits and flushes "
+                         "combined windows into this upstream (comma list "
+                         "= failover walk). With --standby, run as that "
+                         "tree node's warm TreeStandby instead.")
+    ap.add_argument("--tree-level", type=int, default=0,
+                    help="this node's level in DKTPU_TREE_SPEC / "
+                         "--tree-spec (0 = leaf-most interior level)")
+    ap.add_argument("--tree-group", type=int, default=0,
+                    help="this node's group index within its level")
+    ap.add_argument("--tree-spec", default=None,
+                    help="bottom-up tree grammar name:fanout[:codec],... "
+                         "(default DKTPU_TREE_SPEC)")
+    ap.add_argument("--tree-buffer", type=int, default=None,
+                    help="partition ride-through bound in combined "
+                         "windows (default DKTPU_TREE_BUFFER)")
+    ap.add_argument("--fan-in", type=int, default=None,
+                    help="tree node flush fan-in (default: full local "
+                         "membership)")
+    ap.add_argument("--flush-interval", type=float, default=None,
+                    help="tree node max window age (seconds) before an "
+                         "undersized window flushes anyway")
     args = ap.parse_args(argv)
-    given = [n for n in _NOT_PORTED if getattr(args, n) is not None]
-    if given:
-        ap.error(f"--{given[0].replace('_', '-')} is not ported to "
-                 f"distkeras_tpu_torch yet (aggregation-tree nodes come "
-                 f"with a later slice)")
     shard_index = shard_count = None
     if args.shard:
         try:
@@ -116,11 +136,33 @@ def main(argv=None) -> int:
                  else config.env_str("DKTPU_PS_STATE_DIR") or None)
     standby_of = (args.standby if args.standby is not None
                   else config.env_str("DKTPU_PS_STANDBY") or None)
+    tree_spec = (args.tree_spec if args.tree_spec is not None
+                 else config.env_str("DKTPU_TREE_SPEC") or None)
+    if args.upstream and shard_index is not None:
+        ap.error("--shard and --upstream are mutually exclusive: an "
+                 "interior tree node is never itself a shard (shard the "
+                 "ROOT and point --upstream at the `;` matrix instead)")
     kw = dict(discipline=args.discipline, host=args.host, port=args.port,
               lease_s=args.lease, device=args.device, state_dir=state_dir,
-              snapshot_every=args.snapshot_every, shard_index=shard_index,
-              shard_count=shard_count)
-    if standby_of:
+              snapshot_every=args.snapshot_every)
+    if not args.upstream:
+        kw.update(shard_index=shard_index, shard_count=shard_count)
+    tree_kw = dict(level=args.tree_level, group=args.tree_group,
+                   spec=tree_spec, buffer_windows=args.tree_buffer,
+                   fan_in=args.fan_in)
+    if args.flush_interval is not None:
+        tree_kw["flush_interval"] = args.flush_interval
+    if args.upstream and standby_of:
+        from distkeras_tpu_torch.netps.tree import TreeStandby
+
+        server = TreeStandby(standby_of, upstream=args.upstream,
+                             promote_after=args.promote_after,
+                             **tree_kw, **kw).start()
+    elif args.upstream:
+        from distkeras_tpu_torch.netps.tree import TreeNode
+
+        server = TreeNode(args.upstream, **tree_kw, **kw).start()
+    elif standby_of:
         server = StandbyServer(standby_of, promote_after=args.promote_after,
                                **kw).start()
     else:

@@ -60,8 +60,13 @@ def check_discipline(discipline: str) -> str:
 
 
 def counter_scalar(counter) -> int:
-    """The update counter as one int (the port serves no sharded center,
-    whose per-shard counters the JAX package reduces here)."""
+    """One scalar from a possibly per-shard counter: a sharded center's
+    pull and join return one update counter a shard; a consumer that
+    mirrors one lineage counter (the aggregator in front of a sharded
+    root) takes the MIN, so staleness charged from it can only be
+    overstated, never negative."""
+    if isinstance(counter, (tuple, list)):
+        return min(int(u) for u in counter)
     return int(counter)
 
 

@@ -69,10 +69,19 @@ worker (``FaultPlan.poison_worker(R, W)``) for S seconds (twice the lease
 when S is 0) before round R, so its lease lapses, the server evicts it and
 its next RPC re-joins.
 
-The per-host aggregator (``DKTPU_NET_HIER``, ROADMAP Queue 1 item 4d), the
-self-tuning data plane (``DKTPU_NET_AUTOTUNE``, item 4e) and tracing
-(``DKTPU_TRACE``, item 10) come with later slices: set, they raise here
-rather than train on the flat loop.
+**Hierarchical folds** (``DKTPU_NET_HIER`` or ``hier=``): a per-host
+:class:`~distkeras_tpu_torch.netps.hier.AggregatorServer` on the model's
+device is interposed, seeded with the model's parameters, on the run's
+transport; the worker threads join IT through its plain endpoint, it
+pre-combines their commits (one fold-kernel launch a commit) and forwards
+one combined commit a flush (``hier_flush`` seconds at most) to the root at
+``endpoint``, which may be a ``;`` shard matrix. It is closed after the
+workers, so every absorbed commit reaches the root before the final center
+is pulled from the root.
+
+The self-tuning data plane (``DKTPU_NET_AUTOTUNE``, ROADMAP Queue 1 item
+4e) and tracing (``DKTPU_TRACE``, item 10) come with later slices: set,
+they raise here rather than train without them.
 """
 
 from __future__ import annotations
@@ -106,14 +115,13 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to distkeras_tpu_torch yet (ROADMAP Queue 1 "
         f"item {item}); the remote worker loop runs over TCP, the shm ring "
         f"or the mesh dispatch, striped or not, against one parameter "
-        f"server, a primary/standby endpoint list or a sharded center")
+        f"server, a primary/standby endpoint list or a sharded center, "
+        f"flat or through a per-host aggregator")
 
 
 def _refuse_unported() -> None:
     """Raise for every data-plane option the reference's remote loop reads
     that the port does not serve."""
-    if config.env_bool("DKTPU_NET_HIER"):
-        raise _not_ported("DKTPU_NET_HIER (the per-host aggregator)", "4d")
     if config.env_bool("DKTPU_NET_AUTOTUNE"):
         raise _not_ported("DKTPU_NET_AUTOTUNE (the self-tuning data plane)",
                           "4e")
@@ -238,6 +246,8 @@ def run_remote(
     shards: Optional[int] = None,
     compress: Optional[str] = None,
     transport: Optional[str] = None,
+    hier: Optional[bool] = None,
+    hier_flush: Optional[float] = None,
     loop_fn=None,
 ) -> tuple[dict, np.ndarray]:
     """Train ``plan.num_workers`` threads against the server at
@@ -257,7 +267,10 @@ def run_remote(
     ``TRANSPORT``/``INFLIGHT``), and each client reads its deadline,
     retries and backoff there (``DKTPU_NET_TIMEOUT``/``RETRIES``/
     ``BACKOFF``). A ``;`` shard matrix ``endpoint`` trains against a
-    sharded center under one plan built here. ``loop_fn`` is a prebuilt local loop (what
+    sharded center under one plan built here. ``hier`` (default
+    ``DKTPU_NET_HIER``) interposes the per-host aggregator, which flushes
+    at most ``hier_flush`` seconds after a window opens (default: the
+    aggregator's). ``loop_fn`` is a prebuilt local loop (what
     :func:`~distkeras_tpu_torch.workers.make_local_loop` returns) for a
     run of one worker: a loop reparametrizes its module for the length of a
     call, which two worker threads must not share.
@@ -295,6 +308,7 @@ def run_remote(
             "hash": shard_plan.plan_hash[:12],
             "skew": round(shard_plan.skew(), 4)})
         client_kw["plan"] = shard_plan
+    hier = config.env_bool("DKTPU_NET_HIER") if hier is None else bool(hier)
     if loop_fn is None:
         # One module per worker: functional_call reparametrizes its module
         # for the length of a call, which concurrent threads must not share.
@@ -322,7 +336,9 @@ def run_remote(
                 for k, a in zip(names, leaves)}
 
     def work(w: int) -> None:
-        client = make_ps_client(endpoint, worker_id=w, **client_kw)
+        # The hier path hands workers the aggregator's plain endpoint (the
+        # aggregator's own upstream client is the sharded one).
+        client = make_ps_client(worker_endpoint, worker_id=w, **client_kw)
         pull_client = commit_lane = pull_lane = None
         if inflight > 1:
             # Two comms lanes per worker: an ORDERED commit lane (seq order
@@ -337,7 +353,8 @@ def run_remote(
             center, _counter = meter.blocking(client.join, init_leaves)
             if pull_lane is not None:
                 pull_client = make_ps_client(
-                    endpoint, worker_id=client.worker_id, **client_kw)
+                    worker_endpoint, worker_id=client.worker_id,
+                    **client_kw)
                 pull_client.adopt_dialect(client, center)
             opt_state = tx.init(to_params(center))
             local = to_params(center) if elastic else None
@@ -450,14 +467,33 @@ def run_remote(
                 pull_client.close()
             client.close()
 
-    with telemetry.span("netps.remote_train"):
-        threads = [threading.Thread(target=work, args=(w,),
-                                    name=f"netps-worker-{w}")
-                   for w in range(W)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+    agg = None
+    worker_endpoint = endpoint
+    if hier:
+        from distkeras_tpu_torch.netps.hier import AggregatorServer
+
+        # The aggregator seeds the root with this model's parameters and
+        # serves the local workers, on the run's transport and device.
+        agg_kw = {} if hier_flush is None else {"flush_interval": hier_flush}
+        agg = AggregatorServer(upstream=endpoint, init=init_leaves,
+                               discipline=discipline, transport=transport,
+                               device=dev, plan=shard_plan,
+                               **agg_kw).start()
+        worker_endpoint = agg.endpoint
+    try:
+        with telemetry.span("netps.remote_train"):
+            threads = [threading.Thread(target=work, args=(w,),
+                                        name=f"netps-worker-{w}")
+                       for w in range(W)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+    finally:
+        if agg is not None:
+            # Flushes the open window upstream before the final pull below
+            # reads the root's center.
+            agg.close()
     if inflight > 1:
         # The gauge is OVERLAP evidence; the serial loop hides nothing by
         # construction.

@@ -86,7 +86,7 @@ re-proves it with ``plan_hash`` on every pull.
 **Chaos** (``DKTPU_NET_FAULTS`` in the server's own process):
 ``ps_hang@R:S`` and ``ps_crash@R`` fire before commit ``R`` is folded, and
 ``shard_crash@N:R`` kills shard N once it has folded R commits
-(:meth:`PSServer._chaos_hooks`).
+(:meth:`PSServer._chaos_hooks`, :meth:`PSServer._crash_hook_locked`).
 
 The JAX server's tuner probe and tracing come with later slices; a peer
 learns that from the join reply's ``caps``.
@@ -165,6 +165,10 @@ class PSServer:
     the first joiner's. A ``plan.json`` in ``state_dir`` is authoritative
     over both.
     """
+
+    #: whether recovery folds the journal into the recovered center (an
+    #: aggregator's journal holds absorbed windows, never folded there).
+    _replay_journal = True
 
     def __init__(self, center: Optional[Sequence[np.ndarray]] = None,
                  discipline: str = "adag", host: str = "127.0.0.1",
@@ -284,7 +288,8 @@ class PSServer:
                 fold_kernels.prepare()  # replay launches the fold kernel
             with self._on_stream():
                 rec = self._store.recover(self.discipline, self.device,
-                                          self._pool, seat=self._seat_locked)
+                                          self._pool, seat=self._seat_locked,
+                                          replay=self._replay_journal)
             if rec is not None:
                 # A restart resumes the folded lineage, it does not reseed.
                 self._updates = rec.updates
@@ -660,28 +665,37 @@ class PSServer:
         """The server-side chaos kinds of ``DKTPU_NET_FAULTS``, consulted
         per commit request before its fold (no proxy can kill this process
         for us). ``ps_hang@R:S`` sleeps S seconds HOLDING the center lock,
-        so every member's lease renewal queues behind a wedged server;
-        ``ps_crash@R`` is the kill-the-primary drill: SIGKILL, mid-run, no
-        goodbye. ``R`` counts the commits this server has folded.
-        ``shard_crash@N:R`` kills SHARD N once it has folded R commits: the
-        ``at`` slot selects the shard (every shard process runs its own
-        plan, so the index is the one coordinate they share), polled with a
-        non-consuming peek, so shard k != N never burns the one-shot."""
+        so every member's lease renewal queues behind a wedged server. ``R``
+        counts the commits this server has folded. ``shard_crash@N:R`` kills
+        SHARD N once it has folded R commits: the ``at`` slot selects the
+        shard (every shard process runs its own plan, so the index is the
+        one coordinate they share), polled with a non-consuming peek, so
+        shard k != N never burns the one-shot. ``ps_crash@R`` is consulted
+        at the fold itself (:meth:`_crash_hook_locked`)."""
         plan = _faults.active_net_plan()
         if plan is None:
             return
-        at = self.commits_total
-        arg = plan.fire("ps_hang", at)
+        arg = plan.fire("ps_hang", self.commits_total)
         if arg:
             with self._lock:
                 time.sleep(arg)  # the drill: wedged while holding the lock
-        if plan.fire("ps_crash", at) is not None:
-            os.kill(os.getpid(), signal.SIGKILL)
         if self.shard_index is not None:
             arg = plan.pending("shard_crash", self.shard_index)
             if arg is not None and self.commits_total >= (arg or 0):
                 plan.fire("shard_crash", self.shard_index)
                 os.kill(os.getpid(), signal.SIGKILL)
+
+    def _crash_hook_locked(self) -> None:
+        """``ps_crash@R``, the kill-the-primary drill (lock held, just
+        before a fold): SIGKILL, mid-run, no goodbye, before commit R is
+        folded. Under the lock every fold sees its own count, so R is
+        never skipped; the JAX server reads the count when the request
+        arrives, where two commits in flight can both read R - 1 and the
+        drill never fires."""
+        plan = _faults.active_net_plan()
+        if plan is not None and plan.fire("ps_crash",
+                                          self.commits_total) is not None:
+            os.kill(os.getpid(), signal.SIGKILL)
 
     def _dispatch(self, op: str, header: dict,
                   arrays: list) -> tuple[dict, list]:
@@ -901,7 +915,7 @@ class PSServer:
         # A server serving a ring or a mesh replaces the static bit with its
         # live endpoint: the client upgrades only on a boot-id (ring) or a
         # process (mesh) match.
-        caps = dict(wire.CAPS)
+        caps = self._caps()
         if self._uds_path is not None:
             caps["shm"] = {"boot_id": self._boot_id, "uds": self._uds_path}
         if self._mesh_token is not None:
@@ -1025,9 +1039,11 @@ class PSServer:
                     # twice.
                     with self._on_stream():
                         staged = stage_commit(delta, self.device, self._pool)
+                    self._crash_hook_locked()
                     staleness = self._fold_locked(wid, seq, pulled, staged,
                                                   delta)
             else:
+                self._crash_hook_locked()
                 staleness = self._fold_locked(wid, seq, pulled, staged,
                                               arrays)
             updates = self._updates
@@ -1198,6 +1214,20 @@ class PSServer:
                  "snapshot": telemetry.get().snapshot(), "ring": [],
                  **extra}, [])
 
+    def _caps(self) -> dict:
+        """The static capability set a join reply starts from. An
+        aggregation-tree node replaces the ``tree`` bit with its level and
+        group identity here (the replace-the-static-bit pattern of the
+        ring, mesh and sharding advertisements in :meth:`_op_join`)."""
+        return dict(wire.CAPS)
+
+    def _repl_cursor_locked(self) -> int:
+        """The fold index replication advances by (lock held): the update
+        counter here. An aggregator answers its absorb cursor: its counter
+        mirrors the ROOT lineage and moves only on a re-pull, so it cannot
+        index the journal its standby tails."""
+        return self._updates
+
     def _op_replicate(self, header: dict) -> tuple[dict, list]:
         """One pull of the journal stream by a warm standby: ``u`` is the
         next fold index the standby needs. Answers a batch of records in
@@ -1215,7 +1245,7 @@ class PSServer:
             # The first replicate turns the tail on: no deployment without
             # a standby pays its memory.
             self._repl_on = True
-            cursor = self._updates
+            cursor = self._repl_cursor_locked()
             recs = [r for r in self._repl if r["u"] >= u]
             if u == cursor:
                 recs = []

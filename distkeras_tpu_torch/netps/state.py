@@ -140,7 +140,7 @@ class StateStore:
     # -- recovery ----------------------------------------------------------
     def recover(self, discipline: str, device=None, pool=None,
                 seat: Optional[Callable[[list], list]] = None,
-                ) -> Optional[Recovered]:
+                replay: bool = True) -> Optional[Recovered]:
         """Load the newest intact snapshot, seat it on ``device`` (the card
         when None, as :func:`~distkeras_tpu_torch.runtime.device.
         resolve_device` decides; through
@@ -148,8 +148,10 @@ class StateStore:
         center — else as views of one flat tensor in ``center_layout``,
         which the staged commits address) and replay the journal onto it,
         one ``fold_delta`` a record on the current stream, staging through
-        ``pool``'s pinned buffers. Returns None when the directory holds no
-        restorable state."""
+        ``pool``'s pinned buffers. ``replay=False`` reads the records for
+        the dedup table, epoch, cursor and commit count alone and folds
+        none (``replayed`` stays 0). Returns None when the directory holds
+        no restorable state."""
         from distkeras_tpu_torch.netps.fold import (fold_delta, seat_center,
                                                     stage_commit)
 
@@ -201,13 +203,14 @@ class StateStore:
                     telemetry.counter("netps.recovery.journal_gaps").add(1)
                     stop = True
                     break
-                fold_delta(center, stage_commit(delta, device, pool),
-                           discipline, int(rhdr["st"]))
+                if replay:
+                    fold_delta(center, stage_commit(delta, device, pool),
+                               discipline, int(rhdr["st"]))
+                    replayed += 1
                 last_seq[int(rhdr["wid"])] = int(rhdr["seq"])
                 epoch = max(epoch, int(rhdr.get("e", 0)))
                 commits_total = int(rhdr.get("n", commits_total + 1))
                 counter += 1
-                replayed += 1
             if stop:
                 break
         if device.type == "cuda":

@@ -74,11 +74,18 @@ CODECS = (CODEC_NONE, CODEC_BF16, CODEC_INT8)
 #: the same-host ring (``shm``) and the same-process dispatch into the
 #: device center (``mesh``). A server that actually serves a ring or a mesh
 #: replaces the static ``shm``/``mesh`` bit with its live endpoint in the
-#: join reply. The JAX package's other bits (tuner, tracing, tree) are
-#: absent, so a peer that gates a dialect on them speaks the plain one to
-#: the port.
+#: join reply. ``tree`` advertises the aggregation-tree plane
+#: (``netps/tree.py``): an interior tree node replaces the bit with its
+#: ``{"level", "group", "spec"}`` identity in every join reply, its
+#: ``stats`` replies carry the window-conservation ledger (``tree``) and
+#: its replicate replies the root-lineage counter (``root_u``) its warm
+#: standby seeds promotion from; a plain server's ``True`` just says the
+#: build understands the tree dialect. The JAX package's other bits
+#: (tuner, tracing) are absent, so a peer that gates a dialect on them
+#: speaks the plain one to the port.
 CAPS = {"codecs": list(CODECS), "striping": True, "replication": True,
-        "serving": True, "sharding": True, "shm": True, "mesh": True}
+        "serving": True, "sharding": True, "shm": True, "mesh": True,
+        "tree": True}
 
 #: the core parameter-server ops carried in ``header["op"]``.
 OP_JOIN = "join"
@@ -108,8 +115,8 @@ class OpSpec(NamedTuple):
 
 
 #: the ops the port serves, with their reply fields (the JAX package's
-#: registry rows for the same ops; the tree and tuner fields are never
-#: answered here). A server reply carries no key outside
+#: registry rows for the same ops; the tuner's fields are never answered
+#: here). A server reply carries no key outside
 #: its op's row, and the rows stay subsets of the JAX package's, so each
 #: package can read the other's replies;
 #: ``tests/test_torch_netps_failover.py`` holds both.
@@ -123,12 +130,12 @@ OP_REGISTRY = {
     OP_LEAVE: OpSpec(None, ()),
     OP_REPLICATE: OpSpec("replication",
                          ("mode", "records", "updates", "epoch", "lineage",
-                          "commits_total", "last_seq")),
+                          "commits_total", "last_seq", "root_u")),
     OP_FENCE: OpSpec("replication", ("fenced", "epoch")),
     OP_INFER: OpSpec("serving", ("arrays", "error")),
     OP_STATS: OpSpec(None, ("caps", "role", "snapshot", "ring", "updates",
                             "epoch", "members", "commits_total", "draining",
-                            "ready", "fold_backend")),
+                            "ready", "tree", "fold_backend")),
 }
 
 
@@ -145,7 +152,7 @@ ERROR_KINDS = frozenset({
 
 #: every frame-header key either side may read or write: request fields,
 #: reply fields and the replication-record sub-headers. A subset of the JAX
-#: package's set (the tree, tuner and tracing keys are absent).
+#: package's set (the tuner and tracing keys are absent).
 HEADER_KEYS = frozenset({
     # envelope + request/reply bookkeeping
     "op", "req", "ok", "error", "message", "arrays", "version",
@@ -157,6 +164,8 @@ HEADER_KEYS = frozenset({
     # replication / failover
     "u", "mode", "records", "lineage", "commits_total", "fenced",
     "wid", "st", "e", "n", "k",
+    # aggregation tree (replicate's root-counter rider + the stats block)
+    "root_u", "tree",
     # sharded center
     "want_plan", "plan_hash", "sharding", "shard_index", "shard_plan",
     "plan", "index", "count",

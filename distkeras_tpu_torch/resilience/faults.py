@@ -124,12 +124,10 @@ _KINDS = frozenset({
 #: device mesh would — the client must demote to its negotiated shm/TCP
 #: dialect and retransmit the SAME seq, exactly-once riding through.
 #:
-#: The port parses every kind as the JAX package does. ``preempt``,
-#: ``shard_crash``, ``link_down``, ``link_flap`` (and the compute kinds
-#: ``feed_gap`` and ``drift``) have no consumer in the port yet: the fleet
-#: scheduler, the sharded center, the aggregation tree and the stream
-#: source that read them are refused at their own entry points until
-#: their slices (ROADMAP Queue 1).
+#: The port parses every kind as the JAX package does. ``preempt`` (and
+#: the compute kinds ``feed_gap`` and ``drift``) have no consumer in the
+#: port yet: the fleet scheduler and the stream source that read them are
+#: refused at their own entry points until their slices (ROADMAP Queue 1).
 _NET_KINDS = frozenset({
     "delay", "drop", "dup", "truncate", "partition", "evict",
     "delay_r", "drop_r", "dup_r", "truncate_r",

@@ -167,8 +167,12 @@ ENV_REGISTRY: dict = _declare(
            "tcp). Other pairs stay on the lower dialects.",
            "network"),
     EnvVar("DKTPU_NET_HIER", "bool", False,
-           "Hierarchical two-level folds through a per-host aggregator. "
-           "Not ported: the port's remote loop raises when it is set.",
+           "Hierarchical two-level folds: each `run_remote` host "
+           "interposes a per-host aggregator that pre-combines its "
+           "workers' commits on its device (one fold-kernel launch a "
+           "commit) and forwards one combined commit upstream, cutting "
+           "root ingress by the worker fan-in (combined commit's pull "
+           "counter = min of constituents).",
            "network"),
     EnvVar("DKTPU_NET_AUTOTUNE", "bool", False,
            "Self-tuning data plane (codec probes and an online control "
@@ -211,6 +215,29 @@ ENV_REGISTRY: dict = _declare(
            "primary's journal stream over the wire (`replicate` frames), "
            "promotes itself when the primary's lease lapses, and fences "
            "the old epoch. Empty = run as a primary.",
+           "network"),
+    EnvVar("DKTPU_TREE_SPEC", "str", "",
+           "Aggregation-tree shape, bottom-up: `name:fanout[:codec]` "
+           "levels separated by `,`, e.g. `host:8,pool:4,region:2` — "
+           "workers flush into level-0 nodes, each level folds `fanout` "
+           "children into one combined commit, the top level flushes into "
+           "the root PS. A level's optional codec pins its uplinks "
+           "(`region:2:int8`); otherwise each link keeps its "
+           "join-negotiated codec. Empty = flat star (or the single "
+           "`DKTPU_NET_HIER` level).",
+           "network"),
+    EnvVar("DKTPU_TREE_BUFFER", "int", 32,
+           "Partition ride-through bound: combined windows a tree node "
+           "buffers while its uplink is black-holed. The buffer drains "
+           "in-order on heal (exactly-once end-to-end); past the bound "
+           "the OLDEST windows degrade to counted, typed drops "
+           "(`netps_tree_window_drop`) the staleness rule absorbs.",
+           "network"),
+    EnvVar("DKTPU_TREE_DEMOTE_AFTER", "int", 3,
+           "Consecutive uplink transport failures before a tree node "
+           "demotes that one link to plain TCP (per-link shm->TCP "
+           "fallback, dedup-preserving redial); a healthy streak "
+           "renegotiates back up. 0 disables auto-demotion.",
            "network"),
     EnvVar("DKTPU_PS_LEASE", "float", 10.0,
            "Membership lease (seconds); the endpoint walker's patience "

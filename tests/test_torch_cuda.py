@@ -1043,6 +1043,98 @@ def _drive_commits(endpoint, n, compress, first_worker=0):
             c.close()
 
 
+def _precombine_commits(codec: str, shapes, workers: int):
+    """``workers`` seeded commits encoded per ``codec`` (``mixed`` cycles
+    the codecs over tensors), each with a ``-0.0`` and a ``+0.0`` element;
+    int8 adds the zero-scale corners the kernel skips: an all-zero tensor
+    (scale 0, q = 0) and a scale-0 entry with negative q."""
+    from distkeras_tpu_torch.netps import wire
+
+    rng = np.random.default_rng(19)
+    codecs = ("none", "bf16", "int8")
+    out = []
+    for w in range(workers):
+        entries = []
+        for i, shape in enumerate(shapes):
+            d = (rng.normal(size=shape) * 1e-2).astype(np.float32)
+            if d.size:
+                d.reshape(-1)[0], d.reshape(-1)[-1] = -0.0, 0.0
+            c = codecs[(w + i) % 3] if codec == "mixed" else codec
+            if c == "int8" and i == 2 and w == 0:
+                d[:] = 0.0
+            q, spec = wire.codec_encode(d, c)
+            if c == "int8" and i == 2 and w == 1:
+                q, spec = -np.abs(q) - 1, {"codec": "int8", "scale": 0.0}
+            entries.append((q, spec) if spec else q)
+        out.append(entries)
+    return out
+
+
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8", "mixed"])
+def test_precombine_on_card_is_the_numpy_decode_then_add(card, codec):
+    """The aggregator's pre-combine on the card: one scale-1
+    ``fold_commit`` launch an absorbed commit into the device window
+    (which starts at ``-0.0``), the window bit-equal to the reference's
+    decode-then-add (the first commit copied, the rest added, zero-scale
+    int8 entries included), and one more launch at the root, whose center
+    is bit-equal to the numpy chain."""
+    from distkeras_tpu_torch.netps import (AggregatorServer, PSClient,
+                                           PSServer, wire)
+
+    shapes = ((64, 33), (4099,), (7, 5), (0,))
+    commits = _precombine_commits(codec, shapes, 3)
+    init = [np.full(shapes[0], -0.0, np.float32),
+            np.random.default_rng(2).normal(size=shapes[1]).astype(
+                np.float32),
+            np.zeros(shapes[2], np.float32), np.zeros(0, np.float32)]
+    acc = None
+    for entries in commits:
+        dec = [np.asarray(wire.codec_decode(*e) if isinstance(e, tuple)
+                          else e, np.float32) for e in entries]
+        acc = ([a.copy() for a in dec] if acc is None
+               else [a + d for a, d in zip(acc, dec)])
+    want = [c + a for c, a in zip(init, acc)]
+    root = PSServer(center=init, discipline="adag", device="cuda").start()
+    agg = AggregatorServer(upstream=root.endpoint, fan_in=8,
+                           flush_interval=3600.0, device="cuda",
+                           timeout=30.0).start()
+    try:
+        assert agg._flat.is_cuda and torch.equal(
+            torch.signbit(agg._flat), torch.ones_like(agg._flat, dtype=bool))
+        clients = [PSClient(agg.endpoint, worker_id=w, timeout=30.0)
+                   for w in range(3)]
+        try:
+            F.reset_launches()
+            for c, entries in zip(clients, commits):
+                _, u = c.join()
+                hdr, _ = c._rpc("commit", {"seq": 0, "pulled": u}, entries)
+                assert hdr["applied"], hdr
+            assert F.launch_counts() == {"fold_commit": 3, "fold_int8": 0,
+                                         "fold_bf16": 0}
+            assert clients[0].stats()["fold_backend"] == "cuda"
+            with agg._lock:
+                got, _p, count, _m, _pairs = agg._take_acc_locked(True)
+            assert count == 3
+            for a, b in zip(got, acc):
+                assert a.tobytes() == b.tobytes()
+            assert bool(torch.signbit(agg._flat).all())
+            for c, entries in zip(clients, commits):
+                _, u = c.pull()
+                hdr, _ = c._rpc("commit", {"seq": 1, "pulled": u}, entries)
+                assert hdr["applied"], hdr
+        finally:
+            for c in clients:
+                c.close()
+        agg.close()  # flushes the second window: the root folds it once
+        assert F.launch_counts()["fold_commit"] == 7
+        assert len(root.commit_log) == 1
+        for a, b in zip(root.center(), want):
+            assert a.tobytes() == b.tobytes()
+    finally:
+        agg.close()
+        root.close()
+
+
 @pytest.mark.parametrize("codec", ["none", "int8", "bf16"])
 def test_recovery_on_card_is_bit_equal_to_the_cpu_twin(card, tmp_path,
                                                        codec):

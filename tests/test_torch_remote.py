@@ -225,7 +225,6 @@ def test_ps_endpoint_env_routes_to_the_server(monkeypatch):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"DKTPU_NET_HIER": "1"}, "DKTPU_NET_HIER"),
     ({"DKTPU_NET_AUTOTUNE": "1"}, "DKTPU_NET_AUTOTUNE"),
     ({"DKTPU_TRACE": "1"}, "item 10"),
 ])
@@ -236,6 +235,61 @@ def test_unported_remote_options_raise(monkeypatch, env, match):
     with pytest.raises(NotImplementedError, match=match):
         T.DynSGD(pm, **_kw(1), remote="127.0.0.1:1").train(
             DataFrame(_columns(1)))
+
+
+@pytest.mark.parametrize("transport", ["tcp", "shm"])
+def test_dynsgd_through_the_per_host_aggregator(monkeypatch, transport):
+    """``DKTPU_NET_HIER=1``: the workers join a per-host aggregator seeded
+    with the model, which pre-combines their commits (the plain twin on
+    the CPU, one call a commit) and forwards combined commits to the root.
+    Held by invariants (the flush timing decides which commits share a
+    window): finite losses, the center moved, the model returned is the
+    root's center, only the aggregator committed to the root, and every
+    worker commit was absorbed exactly once."""
+    from distkeras_tpu_torch.netps import hier
+
+    monkeypatch.setenv("DKTPU_NET_HIER", "1")
+    monkeypatch.setenv("DKTPU_NET_TRANSPORT", transport)
+    made = []
+
+    class Recorded(hier.AggregatorServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(hier, "AggregatorServer", Recorded)
+    W = 2
+    pm = imdb_lstm(**SMALL, device="cpu", seed=2)
+    init = [v.detach().clone() for v in pm.params.values()]
+    srv = PSServer(discipline="dynsgd", device="cpu",
+                   transport=transport).start()
+    calls = []
+    real = F.fold_commit_plain_
+    monkeypatch.setattr(F, "fold_commit_plain_",
+                        lambda *a: (calls.append(1), real(*a))[1])
+    try:
+        t = T.DynSGD(pm, **_kw(W), remote=srv.endpoint)
+        out = t.train(DataFrame(_columns(W)))
+        center, log, members = srv.center(), srv.commit_log, srv.members()
+    finally:
+        srv.close()
+    (agg,) = made
+    assert agg.device.type == "cpu" and agg.transport == transport
+    pairs = sorted((w, s) for w, s, _st in agg.commit_log)
+    assert pairs == [(w, s) for w in range(W) for s in range(ROUNDS)]
+    assert agg.absorbed == W * ROUNDS
+    assert agg.forwarded_commits + agg.lost_commits == agg.absorbed
+    assert agg.lost_windows == 0 and agg._acc_count == 0
+    assert {w for w, _s, _st in log} == {agg._up.worker_id}
+    assert len(log) == agg.forwarded and members == []
+    assert len(calls) == agg.absorbed + agg.forwarded
+    hist = t.get_worker_histories()
+    assert hist.shape == (W, ROUNDS) and np.isfinite(hist).all()
+    moved = max(float((p - i).abs().max())
+                for p, i in zip(out.params.values(), init))
+    assert moved > 0
+    for p, c in zip(out.params.values(), center):
+        np.testing.assert_array_equal(p.numpy(), c)
 
 
 # ---------------------------------------------------------------------------
