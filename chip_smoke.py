@@ -305,9 +305,25 @@ and every parity phase holds the card's bf16 run to the CPU's within
     absorbed once, the aggregator's ledger balanced with nothing open, the
     root holding only the aggregator's commits and no more than the flat
     run's, and ``fold_commit`` launched once an absorbed commit plus once a
-    root commit. The arms that need an unported item (``auto``,
-    ``sim_drift``, and ``hier_curve``'s ``controller_topology`` column)
-    are named as such.
+    root commit; each point beside ``controller_topology``, what the
+    tuner's ``recommended_topology`` picks at its fan-in. The ``auto`` arm
+    (``bench.py:672-687``): the ring and ``autotune=True`` from a cold
+    start, no other data-plane knob, one warm and two timed runs with
+    every check above, held to the ring's rule (codec ``none``, one
+    stripe, read from the run's ``tuner_run_summary`` event):
+    ``auto_tokens_per_sec``, ``auto_vs_best_hand_tuned`` (over ``shm``),
+    ``auto_knobs``. (c) A TCP cold start (``autotune=True``, the control
+    loop evaluating every 3 rounds): every probe result and the winner,
+    every decision, the converged knobs; each seq folded once, one
+    ``fold_commit`` a probe of the sweep plus one a folded commit; the
+    probe's decode on the card in each codec bit-equal to the numpy
+    ``decode_entry`` (one launch a probe) and timed beside its bound; a
+    sweep against an idle journaling server leaving its center, log, dedup
+    table and journal as they were. (d) A client retuned from 1 to 2
+    stripes between seeded int8 commits: every pull equal to an unstriped
+    observer's, the center bit-equal to the same commits folded
+    unstriped. ``sim_drift``, which needs an unported item, is named as
+    such.
 
 21. ``ensemble_train`` — the reference's ``AveragingTrainer`` and
     ``EnsembleTrainer`` on config #4 (``TRAIN``: 4 workers, window 4,
@@ -378,7 +394,11 @@ and every parity phase holds the card's bf16 run to the CPU's within
     top node's forwarded windows; (d) a journaled ``TreeNode`` stopped as
     its death would stop it, with a window open, and its ``TreeStandby``:
     promotion, the children re-parented, no constituent landed twice, the
-    dead window counted lost.
+    dead window counted lost ((c) and (d) with ``probe_links=False``, so
+    their links keep f32 and their sums stay exact); (e) a leaf with
+    ``probe_links=True`` against a root on the card over TCP: the codec
+    sweep with config #8's center as the payload (one root launch a
+    probe), ``how="probed"``, one commit through the picked link.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -2942,12 +2962,20 @@ C8_DIALECTS = ("", ".shm", ".mesh")
 #: the demotion drill: ``mesh_down@C8_DEMOTE_AT`` fails commit seq 4's
 #: dispatch as a lost device would (the reference's drill).
 C8_DEMOTE_AT = 4
-#: the arms (and the one column) that need an item the port does not
-#: serve yet.
-C8_NOT_PORTED = {"auto": "the tuner (item 4e)",
-                 "hier_curve.controller_topology":
-                     "the tuner's recommended_topology (item 4e)",
-                 "sim_drift": "sim/ (item 10)"}
+#: the part of config #8 that needs an item the port does not serve yet.
+C8_NOT_PORTED = {"sim_drift": "sim/ (item 10)"}
+#: the ``auto`` arm (``bench.py:672-687``): the ring and the tuner from a
+#: cold start, no other data-plane knob; the ring's rule must hold it at
+#: codec ``none`` and one stripe.
+C8_AUTO = dict(transport="shm", autotune=True)
+C8_AUTO_RULE = {"codec": "none", "shards": 1, "transport": "shm"}
+#: the TCP cold start: the tuner's probe sweep at join over TCP, and the
+#: control loop evaluating every ``C8_TUNE_INTERVAL`` rounds mid-run.
+C8_COLD = dict(transport="tcp", autotune=True)
+C8_TUNE_INTERVAL = 3
+#: the mid-run restripe: seeded int8 commits, the client retuned from 1
+#: to 2 stripes before commit ``C8_RESTRIPE_AT``.
+C8_RESTRIPE_COMMITS, C8_RESTRIPE_AT = 4, 2
 #: the ``hier_curve`` arm (``bench.py:689-733``): flat against a per-host
 #: aggregator at 1, 2 and 4 workers over the ring, inflight 1, one stripe,
 #: f32 commits, a flush at most every 0.5 s; ``max(4, rounds // 2)``
@@ -3007,7 +3035,7 @@ def c8_mesh_fold_check(torch, F, params: dict, seed: int) -> dict:
 def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
            inflight: int = 1, *, transport: str = None, shards: int = 1,
            compress: str = "none", state_dir: str = None,
-           shard_count: int = 0) -> dict:
+           shard_count: int = 0, autotune: bool = False) -> dict:
     """One run of arm ``arm`` from the model's weights: ``inprocess`` is
     ``AEASGD(...).train(df)`` in process (the engine's elastic fold); the
     others ``run_remote`` against a fresh ``PSServer(device="cuda")`` of
@@ -3015,8 +3043,14 @@ def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
     ``shards`` stripes and ``compress`` commits. With ``state_dir`` the
     server is seeded with the model's weights and journals there (the
     base snapshot is written before the clock starts); with
-    ``shard_count`` it is a ``ShardSet`` of that many shards. The launch
-    counts are set to 0 just before and read just after."""
+    ``shard_count`` it is a ``ShardSet`` of that many shards. With
+    ``autotune`` the tuner is aboard from a cold start: no window, stripe
+    count or codec is passed, and the run's ``inflight``/``shards``/
+    ``compress`` are what its ``tuner_run_summary`` event says it
+    converged to (``tuner`` holds that event, every ``tuner_decision`` and
+    every ``tuner_probe``). The launch counts are set to 0 just before and
+    read just after; ``probe_launches`` is the server's ``netps.probes``
+    (one ``fold_commit`` launch a probe)."""
     from distkeras_tpu_torch import AEASGD, telemetry
     from distkeras_tpu_torch.netps import PSServer, ShardSet, state
     from distkeras_tpu_torch.netps.remote import run_remote
@@ -3051,12 +3085,15 @@ def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
             params = trainer.train(df).params
             losses = np.asarray(trainer.get_worker_histories()).T
         else:
+            knobs = (dict(inflight=None, shards=None, compress=None)
+                     if autotune else dict(inflight=inflight, shards=shards,
+                                           compress=compress))
             params, losses = run_remote(
                 endpoint=srv.endpoint, model=model, tx=adam(C8_LR),
                 loss_fn=get_loss("sparse_categorical_crossentropy"),
                 plan=plan, discipline="aeasgd", window=C8_WINDOW,
-                alpha=C8_ALPHA, seed=0, inflight=inflight, shards=shards,
-                transport=transport, compress=compress, loop_fn=loop)
+                alpha=C8_ALPHA, seed=0, transport=transport,
+                autotune=autotune, loop_fn=loop, **knobs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fold, flash = F.launch_counts(), FA.launch_counts()
@@ -3072,13 +3109,32 @@ def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
                 for r in state.read_journal(state_dir)] if state_dir else None)
     snap = telemetry.get().snapshot()
     counters = snap["counters"]
+    tuner = None
+    if autotune:
+        events = telemetry.get().events()
+        summary = [e for e in events if e["kind"] == "tuner_run_summary"]
+        tuner = {"summary": {k: summary[-1].get(k) for k in (
+                     "inflight", "codec", "shards", "transport", "decisions",
+                     "retunes", "fallbacks", "deferred")}
+                 if summary else None,
+                 "decisions": [{k: e.get(k) for k in (
+                     "knob", "from", "to", "trigger", "round")}
+                     for e in events if e["kind"] == "tuner_decision"],
+                 "probes": [{k: e.get(k) for k in (
+                     "codec", "probes", "seconds", "score")}
+                     for e in events if e["kind"] == "tuner_probe"]}
+        if summary:
+            inflight = summary[-1]["inflight"]
+            shards = summary[-1]["shards"] or 1
+            compress = summary[-1]["codec"]
     dialect = {"tcp": ""}.get(transport, "." + transport)
     spans = {name: span_stats(snap, name) for name in (
         ["netps.remote.local_window"]
         + [f"netps.{side}.pull{dialect}" for side in ("rpc", "server")]
         + [f"netps.{side}.commit{d}" for side in ("rpc", "server")
            for d in C8_DIALECTS]
-        + [f"netps.rpc.commit.s{k}{dialect}" for k in range(shards)]
+        + [f"netps.rpc.commit.s{k}{dialect}"
+           for k in range(max(shards, 2 if autotune else 1))]
         if srv is not None else [])}
     return {"arm": arm, "transport": transport, "inflight": inflight,
             "shards": shards, "compress": compress,
@@ -3090,11 +3146,14 @@ def c8_run(torch, F, FA, arm: str, model, plan, loop, df, tokens: int,
             "plan": shard_plan, "pending": pending, "journal": journal,
             "fold": fold, "flash": flash,
             "flash_entries": flash_entries, "spans": spans,
+            "tuner": tuner,
+            "probe_launches": int(counters.get("netps.probes", 0)),
             "counters": {k: counters.get(k, 0) for k in (
                 "netps.shm_upgrades", "netps.mesh.upgrades",
                 "netps.mesh.folds", "netps.mesh.demotions",
                 "netps.shm_fallbacks", "netps.bytes_sent",
-                "netps.reconnects")}}
+                "netps.reconnects", "netps.probes",
+                "netps.pull_torn_retries")}}
 
 
 @contextlib.contextmanager
@@ -3312,11 +3371,15 @@ def c8_check_run(torch, run: dict, init: dict, label: str,
             bad.append(f"{label}: server {k}'s commit log {seqs}, want "
                        f"(0, 0..{rounds - 1}) once each")
     # One fold_commit launch a folded commit on each server: a striped
-    # commit is assembled and folded once, a sharded one once a shard.
-    if run["fold"].get("fold_commit") != folded or any(
+    # commit is assembled and folded once, a sharded one once a shard; and
+    # one a probe the tuner's sweep sent (its decode into the scratch
+    # window).
+    want = folded + run["probe_launches"]
+    if run["fold"].get("fold_commit") != want or any(
             v for k, v in run["fold"].items() if k != "fold_commit"):
         bad.append(f"{label}: fold launches {run['fold']} for "
-                   f"{folded} folded commits")
+                   f"{folded} folded commits and {run['probe_launches']} "
+                   f"probes")
     if run["pending"]:
         bad.append(f"{label}: {run['pending']} half-assembled stripes left")
     if run["journal"] is not None and sorted(run["journal"]) != [
@@ -3355,6 +3418,276 @@ def c8_check_run(torch, run: dict, init: dict, label: str,
     if not same_bits([v.cpu().numpy() for v in run["params"].values()],
                      run["center"]):
         bad.append(f"{label}: the returned params are not the server's center")
+    return bad
+
+
+def c8_probe_window_check(torch, F, params: dict, seed: int,
+                          workdir: str) -> tuple:
+    """Check (c)'s decode and state halves at config #8's width: a server
+    on the card decodes a seeded payload of the 70 tensors under each codec
+    into its scratch window, one ``fold_commit`` launch each, bit-equal to
+    the numpy ``decode_entry`` (signed zeros and a zero-scale int8 tensor
+    included); a sweep against an idle server with a ``state_dir`` leaves
+    the center's bytes, the commit log, the dedup table and the journal's
+    length as they were; and one probe's decode times by CUDA events in
+    each codec (the window's fill and the fold, L2 flushed and the card
+    held by a spin before each), beside the fold alone, the plain twin and
+    the bound. Returns ``(row, failures)``."""
+    from distkeras_tpu_torch.netps import PSClient, PSServer, state, wire
+    from distkeras_tpu_torch.netps.fold import (decode_entry, fold_staged,
+                                                stage_commit)
+    from distkeras_tpu_torch.netps.tuner import probe_codecs
+    from distkeras_tpu_torch.ops.kernels.fold import center_layout
+    from distkeras_tpu_torch.runtime import config
+
+    bad = []
+    init = [v.detach().float().cpu().numpy() for v in params.values()]
+    n = int(sum(a.size for a in init))
+    rng = np.random.default_rng(seed + 20)
+    payloads = {}
+    for codec in wire.CODECS:
+        items = []
+        for i, a in enumerate(init):
+            d = (rng.normal(size=a.shape) * 1e-2).astype(np.float32)
+            d.reshape(-1)[0], d.reshape(-1)[-1] = -0.0, 0.0
+            if codec == "int8" and i == 1:
+                d[:] = 0.0  # scale 0: the kernel skips it, the window not
+            q, spec = wire.codec_encode(d, codec)
+            items.append((q, spec) if spec else q)
+        payloads[codec] = items
+    srv = PSServer(discipline="aeasgd", device="cuda").start()
+    bits, launches, walls = {}, {}, {}
+    try:
+        for codec, items in payloads.items():
+            F.reset_launches()
+            nbytes, got = srv._probe.decode(items, keep=True)
+            launches[codec] = F.launch_counts()["fold_commit"]
+            ref = [np.asarray(decode_entry(e), np.float32) for e in items]
+            bits[codec] = (nbytes == 4 * n and all(
+                a.tobytes() == b.tobytes() and a.shape == b.shape
+                for a, b in zip(got, ref)))
+            # The host wall of the op's whole decode: packing, the copy
+            # over, the fill, the fold and the wait on the server's stream.
+            wall = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                srv._probe.decode(items)
+                wall.append((time.perf_counter() - t0) * 1e3)
+            walls[codec] = float(np.median(wall[1:]))
+    finally:
+        srv.close()
+    if not all(bits.values()) or set(launches.values()) != {1}:
+        bad.append(f"(c) the probe decode on the card: bit-equal {bits}, "
+                   f"launches {launches}")
+
+    # A sweep against an idle server that journals: nothing moves.
+    state_dir = os.path.join(workdir, "c8_probe_state")
+    shutil.rmtree(state_dir, ignore_errors=True)
+    srv = PSServer(center=init, discipline="aeasgd", device="cuda",
+                   state_dir=state_dir).start()
+    try:
+        with PSClient(srv.endpoint, worker_id=0, timeout=60.0) as c:
+            _, u = c.join()
+            assert c.commit([np.full(a.shape, 1e-3, np.float32)
+                             for a in init], u).applied
+            wait_until(lambda: len(state.read_journal(state_dir)) == 1,
+                       30.0, "the commit's journal record")
+            before = (srv.center(), list(srv.commit_log),
+                      dict(srv._last_seq), srv.updates,
+                      len(state.read_journal(state_dir)))
+            F.reset_launches()
+            sweep = probe_codecs(c, init)
+            sweep_launches = F.launch_counts()["fold_commit"]
+            time.sleep(0.5)  # anything the sweep queued would land now
+            after = (srv.center(), list(srv.commit_log),
+                     dict(srv._last_seq), srv.updates,
+                     len(state.read_journal(state_dir)))
+    finally:
+        srv.close()
+        shutil.rmtree(state_dir, ignore_errors=True)
+    untouched = {"center_bits": same_bits(before[0], after[0]),
+                 "commit_log": before[1] == after[1],
+                 "dedup_table": before[2] == after[2],
+                 "updates": before[3] == after[3],
+                 "journal_records": [before[4], after[4]]}
+    probes = config.env_int("DKTPU_TUNE_PROBES")
+    if (not all(v for k, v in untouched.items() if k != "journal_records")
+            or before[4] != after[4]
+            or [r.codec for r in sweep] != list(wire.CODECS)
+            or sweep_launches != probes * len(wire.CODECS)):
+        bad.append(f"(c) a sweep against an idle journaling server: "
+                   f"{untouched}, sweep {sweep}, {sweep_launches} launches")
+
+    # One probe's decode by CUDA events, in each codec.
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    wire_bytes = {"none": 4, "bf16": 2, "int8": 1}
+    times = {}
+    for codec, items in payloads.items():
+        staged = stage_commit(items, "cuda")
+        offsets = [int(o) for o in staged.rows["center"]]
+        total = center_layout([int(k) for k in staged.rows["n"]])[1]
+        flat = torch.empty(total, device="cuda")
+        views = [flat[o:o + a.size].view(a.shape)
+                 for o, a in zip(offsets, init)]
+
+        def decode():
+            flat.fill_(-0.0)
+            fold_staged(views, staged, 1.0)
+
+        def plain():
+            flat.fill_(-0.0)
+            F.fold_commit_plain_(views, staged, 1.0)
+
+        row = {key: cuda_ms_cold(torch, fn, FOLD_REPS, flush,
+                                 head_start=True)
+               for key, fn in (("ms", decode),
+                               ("fold_ms", lambda: fold_staged(
+                                   views, staged, 1.0)),
+                               ("plain_ms", plain))}
+        # The decode's bytes (the payload read, the f32 window written)
+        # and the fill's write of the window.
+        w = wire_bytes[codec]
+        row["bound_ms"], row["bound_by"] = bound((w + 4 + 4) * n, 2 * n,
+                                                 PEAK_F32_FLOPS)
+        row["bytes_per_param"] = w + 4 + 4
+        row["library_ms"] = None
+        row["decode_wall_ms"] = walls[codec]
+        times[codec] = row
+        del staged, flat, views
+    del flush
+    torch.cuda.empty_cache()
+    return {"params": n, "tensors": len(init), "bit_equal": bits,
+            "launches_a_decode": launches, "sweep_untouched": untouched,
+            "sweep_launches": sweep_launches, "times": times,
+            "timing": "CUDA events around one probe decode's device work "
+                      "(the window's fill to -0.0 and one fold_commit at "
+                      "scale 1; fold_ms the fold alone), L2 flushed and the "
+                      "card held by a spin before each; bound: the payload "
+                      "read, the decoded f32 written and the window's fill "
+                      "written, over 3.35 TB/s; no one PyTorch call decodes "
+                      "a packed commit, so library_ms is null; "
+                      "decode_wall_ms: host clock of the server window's "
+                      "whole decode (packing, copy, fill, fold, stream "
+                      "wait), median of 3 after one"}, bad
+
+
+def c8_restripe_check(torch, F, params: dict, seed: int) -> tuple:
+    """Check (d): a client of a server on the card, built with two
+    connections and retuned to one stripe after its join, commits
+    ``C8_RESTRIPE_COMMITS`` seeded int8 deltas of config #8's tensors and
+    is retuned to two stripes before commit ``C8_RESTRIPE_AT``; after every
+    commit its pull (striped once retuned) must equal an unstriped
+    observer's pull of the same server, bit for bit and counter for
+    counter, and the center must equal a second server's that folded the
+    same commits from an unstriped client. One ``fold_commit`` a commit on
+    each server. Returns ``(row, failures)``."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.netps import PSClient, PSServer
+
+    init = [v.detach().float().cpu().numpy() for v in params.values()]
+    rng = np.random.default_rng(seed + 21)
+    deltas = [[(rng.normal(size=a.shape) * 1e-3).astype(np.float32)
+               for a in init] for _ in range(C8_RESTRIPE_COMMITS)]
+    telemetry.reset()
+    servers = [PSServer(center=init, discipline="aeasgd",
+                        device="cuda").start() for _ in range(2)]
+    pulls, changes, stripes = [], [], []
+    try:
+        F.reset_launches()
+        with PSClient(servers[0].endpoint, worker_id=0, shards=2,
+                      compress="int8", timeout=60.0) as c, \
+                PSClient(servers[0].endpoint, worker_id=1,
+                         timeout=60.0) as observer, \
+                PSClient(servers[1].endpoint, worker_id=0, compress="int8",
+                         timeout=60.0) as plain:
+            c.join()
+            observer.join()
+            plain.join()
+            changes.append(c.retune(shards=1, template=init))
+            for k, delta in enumerate(deltas):
+                if k == C8_RESTRIPE_AT:
+                    changes.append(c.retune(shards=2, template=init))
+                stripes.append(len(c._stripes or [0]))
+                _, u = c.pull()
+                c.commit(delta, u)
+                _, u = plain.pull()
+                plain.commit(delta, u)
+                got, gu = c.pull()
+                want, wu = observer.pull()
+                pulls.append(gu == wu and same_bits(got, want))
+        launches = F.launch_counts()["fold_commit"]
+        centers = [x.center() for x in servers]
+        logs = [[(w, q) for w, q, _ in x.commit_log] for x in servers]
+    finally:
+        for x in servers:
+            x.close()
+    torn = telemetry.get().snapshot()["counters"].get(
+        "netps.pull_torn_retries", 0)
+    row = {"commits": C8_RESTRIPE_COMMITS, "restriped_at": C8_RESTRIPE_AT,
+           "retunes": [{k: list(v) for k, v in ch.items()}
+                       for ch in changes],
+           "stripes_a_commit": stripes, "pulls_untorn": pulls,
+           "torn_retries": torn, "fold_launches": launches,
+           "bit_equal_unstriped": same_bits(centers[0], centers[1])}
+    want_log = [(0, q) for q in range(C8_RESTRIPE_COMMITS)]
+    bad = []
+    if (not all(pulls) or not row["bit_equal_unstriped"]
+            or logs != [want_log, want_log]
+            or launches != 2 * C8_RESTRIPE_COMMITS
+            or changes != [{"shards": (2, 1)}, {"shards": (1, 2)}]
+            or stripes != [1] * C8_RESTRIPE_AT + [2] * (
+                C8_RESTRIPE_COMMITS - C8_RESTRIPE_AT)):
+        bad.append(f"(d) the mid-run restripe: {row}, logs {logs}")
+    return row, bad
+
+
+@contextlib.contextmanager
+def tuner_evaluations():
+    """Yield a list that gets the round of every control-loop evaluation
+    a ``Tuner`` makes in the block (a ``maybe_decide`` that moved its
+    clock)."""
+    from distkeras_tpu_torch.netps.tuner import controller
+
+    rounds, real = [], controller.Tuner.maybe_decide
+
+    def counted(self, r, active_transport="tcp"):
+        before = self._last_eval
+        out = real(self, r, active_transport)
+        if self._last_eval != before:
+            rounds.append(r)
+        return out
+
+    controller.Tuner.maybe_decide = counted
+    try:
+        yield rounds
+    finally:
+        controller.Tuner.maybe_decide = real
+
+
+def c8_check_tuned(run: dict, label: str, rule: dict = None) -> list:
+    """The tuner's own checks of an autotuned run: one run summary, the
+    topology chosen by the fan-in crossover (flat at one worker), every
+    codec swept once with ``DKTPU_TUNE_PROBES`` probes each on TCP and
+    none on the ring, and, with ``rule``, the converged dialect."""
+    from distkeras_tpu_torch.netps import wire
+    from distkeras_tpu_torch.runtime import config
+
+    tun, bad = run["tuner"], []
+    summary = tun["summary"] if tun else None
+    if summary is None:
+        return [f"{label}: no tuner_run_summary event"]
+    topo = [d["to"] for d in tun["decisions"] if d["knob"] == "topology"]
+    if topo != ["flat"]:
+        bad.append(f"{label}: topology decisions {topo}, want ['flat']")
+    probes = config.env_int("DKTPU_TUNE_PROBES")
+    swept = [(p["codec"], p["probes"]) for p in tun["probes"]]
+    want = ([(c, probes) for c in wire.CODECS]
+            if run["transport"] == "tcp" else [])
+    if swept != want or run["probe_launches"] != len(want) * probes:
+        bad.append(f"{label}: probes {swept} ({run['probe_launches']} "
+                   f"served), want {want}")
+    if rule and any(summary[k] != v for k, v in rule.items()):
+        bad.append(f"{label}: converged to {summary}, the rule says {rule}")
     return bad
 
 
@@ -3402,13 +3735,16 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
     failures: list = []
     arms = {}
     for arm, kw in (("inprocess", {}), ("pr4", {}), ("shm", {"inflight": 2}),
-                    ("mesh", {"inflight": 2}), ("optimized", C8_OPTIMIZED)):
+                    ("mesh", {"inflight": 2}), ("optimized", C8_OPTIMIZED),
+                    ("auto", C8_AUTO)):
         runs = [c8_run(torch, F, FA, arm, model, warm[0], loop, *warm[1:],
                        **kw)] + [
             c8_run(torch, F, FA, arm, model, plan, loop, df, tokens, **kw)
             for _ in range(C8_TIMED)]
         for i, run in enumerate(runs):
             failures += c8_check_run(torch, run, init, f"{arm}[{i}]")
+            if arm == "auto":
+                failures += c8_check_tuned(run, f"auto[{i}]", C8_AUTO_RULE)
         arms[arm] = runs
     timed = {arm: runs[1:] for arm, runs in arms.items()}
     tps = {arm: float(np.median([r["tokens_per_s"] for r in runs]))
@@ -3488,11 +3824,38 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
         torch, F, FA, model, loop, init, seed)
     failures += curve_failures
 
+    # (c) the TCP cold start: the probe sweep at join over TCP, the control
+    # loop evaluating mid-run; then the probe's decode on the card and a
+    # sweep against an idle journaling server.
+    with env_set(DKTPU_TUNE_INTERVAL=str(C8_TUNE_INTERVAL)), \
+            tuner_evaluations() as evaluated:
+        cold = c8_run(torch, F, FA, "auto_tcp", model, plan, loop, df,
+                      tokens, **C8_COLD)
+    failures += c8_check_run(torch, cold, init, "auto_tcp", drill=True)
+    failures += c8_check_tuned(cold, "auto_tcp", {"transport": "tcp"})
+    want_eval = list(range(C8_TUNE_INTERVAL, C8_ROUNDS, C8_TUNE_INTERVAL))
+    if not exactly_once(cold["log"]) or evaluated != want_eval:
+        failures.append(f"(c) the TCP cold start: exactly-once "
+                        f"{exactly_once(cold['log'])}, evaluations at "
+                        f"rounds {evaluated}, want {want_eval}")
+    probe_check, probe_failures = c8_probe_window_check(
+        torch, F, model.params, seed, "build")
+    failures += probe_failures
+
+    # (d) a mid-run restripe, 1 -> 2 stripes between commits.
+    restripe, restripe_failures = c8_restripe_check(torch, F, model.params,
+                                                    seed)
+    failures += restripe_failures
+
+    from distkeras_tpu_torch.netps.tuner import recommended_topology
+
     def curve_row(p):
         row = {k: p[k] for k in (
             "workers", "topology", "rounds", "seconds", "tokens_per_sec",
             "root_commits", "root_commits_per_sec", "worker_commits_per_sec",
             "counters", "spans")}
+        # What the tuner would pick at this fan-in, beside both topologies.
+        row["controller_topology"] = recommended_topology(p["workers"])
         row["fold_launches"] = p["fold"].get("fold_commit", 0)
         row["center_max_abs_change"] = p.get("center_max_abs_change")
         if p["agg"] is not None:
@@ -3505,6 +3868,7 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
     def arm_row(runs):
         last = runs[-1]
         return {"tokens_per_s": [r["tokens_per_s"] for r in runs],
+                "tuner": [r["tuner"] for r in runs] if last["tuner"] else None,
                 "seconds": [r["seconds"] for r in runs],
                 "fold_launches": [r["fold"].get("fold_commit", 0)
                                   for r in runs],
@@ -3528,6 +3892,27 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
           "shm_vs_pr4": tps["shm"] / tps["pr4"],
           "mesh_vs_shm": tps["mesh"] / tps["shm"],
           "mesh_vs_inprocess": tps["mesh"] / tps["inprocess"],
+          "auto_tokens_per_sec": tps["auto"],
+          "auto_vs_best_hand_tuned": tps["auto"] / tps["shm"],
+          "auto_knobs": [r["tuner"]["summary"] for r in timed["auto"]],
+          "auto_rule": C8_AUTO_RULE,
+          "tcp_cold_start": {
+              "knobs": C8_COLD, "tune_interval": C8_TUNE_INTERVAL,
+              "probes": cold["tuner"]["probes"],
+              "winner": max(cold["tuner"]["probes"],
+                            key=lambda r: r["score"])["codec"]
+              if cold["tuner"]["probes"] else None,
+              "decisions": cold["tuner"]["decisions"],
+              "converged": cold["tuner"]["summary"],
+              "evaluated_rounds": evaluated,
+              "tokens_per_s": cold["tokens_per_s"],
+              "commits": len(cold["log"]),
+              "exactly_once": exactly_once(cold["log"]),
+              "fold_launches": cold["fold"],
+              "probe_launches": cold["probe_launches"],
+              "counters": cold["counters"], "spans": cold["spans"]},
+          "probe_decode": probe_check,
+          "restripe": restripe,
           "optimized_knobs": C8_OPTIMIZED,
           "optimized_tokens_per_sec": tps["optimized"],
           "optimized_vs_pr4": tps["optimized"] / tps["pr4"],
@@ -3574,8 +3959,8 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
           "not_ported": C8_NOT_PORTED,
           "reduced": f"none of width or depth; durable runs "
                      f"{C8_DURABLE_PAIRS} ABBA pairs (the reference "
-                     f"max(reps + 2, 10)); the arms that need an unported "
-                     f"item are left out (not_ported)",
+                     f"max(reps + 2, 10)); sim_drift, which needs an "
+                     f"unported item, is left out (not_ported)",
           "seconds": time.perf_counter() - t_phase})
     if failures:
         fail("netps_config8: " + "; ".join(failures))
@@ -3593,6 +3978,13 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
                                          for r in stripe_runs),
             "striped_commits": sum(len(r["log"]) for r in stripe_runs),
             "flash": first["flash"],
+            "auto_fold_launches": sum(r["fold"].get("fold_commit", 0)
+                                      for r in timed["auto"]),
+            "auto_commits": sum(len(r["log"]) for r in timed["auto"]),
+            "cold_fold_launches": cold["fold"].get("fold_commit", 0),
+            "cold_commits": len(cold["log"]),
+            "cold_probe_launches": cold["probe_launches"],
+            "probe_decode": probe_check,
             "drill_fold_launches": drill["fold"].get("fold_commit", 0),
             "drill_flash": drill["flash"],
             "ctx": {"model": model, "plan": plan, "loop": loop, "df": df,
@@ -4364,7 +4756,8 @@ def netps_tree_phase(torch, K, F, gpu: str, seed: int, c8init: dict,
                 _, net):
             tree = build_tree(spec, root.endpoint, workers=TREE_WORKERS,
                               discipline="adag", device="cuda",
-                              flush_interval=0.05, timeout=60.0)
+                              flush_interval=0.05, timeout=60.0,
+                              probe_links=False)
             nodes = [n for lvl in tree.nodes.values() for n in lvl.values()]
             errors = []
 
@@ -4454,12 +4847,12 @@ def netps_tree_phase(torch, K, F, gpu: str, seed: int, c8init: dict,
     node = TreeNode(root.endpoint, level=0, group=0, spec="host:2",
                     fan_in=1, flush_interval=0.05, device="cuda",
                     state_dir=os.path.join(workdir, "node"),
-                    timeout=60.0).start()
+                    timeout=60.0, probe_links=False).start()
     sb = TreeStandby(node.endpoint, upstream=root.endpoint, level=0,
                      group=0, spec="host:2", fan_in=1, flush_interval=0.05,
                      promote_after=TREE_PROMOTE_AFTER, device="cuda",
                      state_dir=os.path.join(workdir, "standby"),
-                     timeout=60.0).start()
+                     timeout=60.0, probe_links=False).start()
     landed = {"node": [], "standby": []}
 
     def record(srv, label):
@@ -4564,12 +4957,23 @@ def netps_tree_phase(torch, K, F, gpu: str, seed: int, c8init: dict,
             != node.absorbed + sb.absorbed + len(log)):
         failures.append(f"(d) the failover drill: {failover}")
 
+    # (e) a leaf's uplink probe sweep: one TreeNode with probe_links
+    # against a root on the card over TCP, config #8's center as the
+    # payload; then one commit through the link it picked.
+    probe_link, probe_link_launches = tree_probe_link(torch, F, init8, seed)
+    if probe_link["failures"]:
+        failures += probe_link.pop("failures")
+    else:
+        probe_link.pop("failures")
+
     emit({"phase": "netps_tree", "gpu": gpu, "precombine": pre,
           "aggregator_trainer": trainer_row, "partition": partition,
-          "failover": failover,
-          "reduced": "none of width: (a) at config #8's 70 tensors, (b)-(d) "
-                     "at config #4's; (c) and (d) drive raw commits of "
-                     "seeded deltas, not a trainer",
+          "failover": failover, "probe_link": probe_link,
+          "reduced": "none of width: (a) and (e) at config #8's 70 "
+                     "tensors, (b)-(d) at config #4's; (c), (d) and (e) "
+                     "drive raw commits of seeded deltas, not a trainer; "
+                     "(c) and (d) keep their links' negotiated codec "
+                     "(probe_links=False), so their sums stay exact",
           "seconds": time.perf_counter() - t_phase})
     if failures:
         fail("netps_tree: " + "; ".join(failures))
@@ -4577,7 +4981,76 @@ def netps_tree_phase(torch, K, F, gpu: str, seed: int, c8init: dict,
             "trainer": trainer_row["fold_launches"].get("fold_commit", 0),
             "partition": tree_launches_c.get("fold_commit", 0),
             "failover": failover_launches.get("fold_commit", 0),
+            "probe_link": probe_link_launches,
+            "probe_link_probes": probe_link["root_probes"],
             "times": times}
+
+
+def tree_probe_link(torch, F, init: list, seed: int) -> tuple:
+    """Check (e) of ``netps_tree``: a ``TreeNode`` on the card with
+    ``probe_links=True`` (the default) joins a root on the card over TCP,
+    sweeps the codecs over its uplink with its center as the payload (the
+    root decodes each probe into its scratch window: one ``fold_commit``
+    a probe) and retunes to the winner; its ``netps_tree_link_codec``
+    event must read ``how="probed"`` and name the codec its uplink runs.
+    Then one seeded commit through the leaf: absorbed once, folded once at
+    the root. Returns ``(row, fold_commit launches)``; the row's
+    ``failures`` lists what failed."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.netps import PSClient, PSServer, TreeNode, wire
+    from distkeras_tpu_torch.runtime import config
+
+    rng = np.random.default_rng(seed + 24)
+    delta = [(rng.normal(size=a.shape) * 1e-3).astype(np.float32)
+             for a in init]
+    telemetry.reset()
+    root = PSServer(center=init, discipline="adag", device="cuda").start()
+    node = None
+    try:
+        torch.cuda.synchronize()
+        F.reset_launches()  # counts start at 0 just before the leaf joins
+        t0 = time.perf_counter()
+        node = TreeNode(root.endpoint, level=0, group=0, spec="host:1",
+                        fan_in=1, flush_interval=0.05, device="cuda",
+                        timeout=60.0, probe_links=True).start()
+        sweep_s = time.perf_counter() - t0
+        with PSClient(node.endpoint, worker_id=0, timeout=60.0) as c:
+            _, u = c.join()
+            applied = c.commit(delta, u).applied
+        wait_until(lambda: node.forwarded == 1, 60.0,
+                   "the leaf's window to land at the root")
+        leaf, node = node, None
+        link, uplink = leaf.link_codec, leaf._up.codec
+        leaf.close()
+        launches = F.launch_counts()
+        log = list(root.commit_log)
+    finally:
+        if node is not None:
+            node.close()
+        root.close()
+    events = telemetry.get().events()
+    picks = [{k: e.get(k) for k in ("how", "codec")} for e in events
+             if e["kind"] == "netps_tree_link_codec"]
+    probes = [{k: e.get(k) for k in ("codec", "probes", "seconds", "score")}
+              for e in events if e["kind"] == "tuner_probe"]
+    served = int(telemetry.get().snapshot()["counters"].get("netps.probes",
+                                                            0))
+    per = config.env_int("DKTPU_TUNE_PROBES")
+    row = {"tensors": len(init), "params": int(sum(a.size for a in init)),
+           "transport": "tcp", "link_codec_events": picks, "probes": probes,
+           "winner": max(probes, key=lambda r: r["score"])["codec"]
+           if probes else None,
+           "link_codec": link, "uplink_codec": uplink,
+           "root_probes": served, "sweep_seconds": sweep_s,
+           "commit_applied": applied, "root_commits": len(log),
+           "fold_launches": launches, "failures": []}
+    if (picks != [{"how": "probed", "codec": link}] or link != uplink
+            or [p["codec"] for p in probes] != list(wire.CODECS)
+            or served != per * len(wire.CODECS) or not applied
+            or len(log) != 1 or not exactly_once(log)
+            or launches.get("fold_commit") != served + 2):
+        row["failures"].append(f"(e) the leaf's probe sweep: {row}")
+    return row, launches.get("fold_commit", 0)
 
 
 def flash_bound_ms(B: int, L: int, H: int, D: int, itemsize: int,
@@ -6889,7 +7362,35 @@ def main() -> None:
     kernels[5]["tree_launches"] = tree["partition"] + tree["failover"]
     kernels[5]["tree_path_launches"] = {
         k: tree[k] for k in ("precombine", "trainer", "partition",
-                             "failover")}
+                             "failover", "probe_link")}
+    # The self-tuning plane, each path counted from 0 just before its run
+    # and read just after: the probe op's decode is one launch a probe into
+    # the server's scratch window (the new call site), beside one a folded
+    # commit.
+    probe = config8["probe_decode"]
+    kernels[5]["call_sites"].append(
+        "distkeras_tpu/netps/server.py:939 _op_probe's decode (the tuner's "
+        "probe: one scale-1 fold into a -0.0 scratch window, "
+        "netps/fold.py ProbeWindow)")
+    kernels[5].update({
+        "auto_launches": config8["auto_fold_launches"],
+        "auto_commits": config8["auto_commits"],
+        "cold_start_launches": config8["cold_fold_launches"],
+        "cold_start_commits": config8["cold_commits"],
+        "probe_launches": config8["cold_probe_launches"]
+        + tree["probe_link_probes"],
+        "probe_launches_by_path": {
+            "tcp_cold_start_sweep": config8["cold_probe_launches"],
+            "tree_uplink_sweep": tree["probe_link_probes"],
+            "idle_server_sweep": probe["sweep_launches"]},
+        "probe_shape": f"one config #8 probe, {probe['params']} parameters "
+                       f"in {probe['tensors']} tensors, into the f32 "
+                       f"scratch window, scale 1",
+        "probe_bit_equal": probe["bit_equal"],
+        **{f"probe_{codec}_{k}": probe["times"][codec][k]
+           for codec in ("none", "bf16", "int8")
+           for k in ("ms", "fold_ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "decode_wall_ms")}})
     times = tree["times"]
     kernels[5].update({
         "precombine_shape": f"one config #8 commit, {times['params']} "

@@ -46,7 +46,15 @@ the card (the JAX package's ``netps``; frames byte-compatible both ways).
   :class:`PartitionPlan` over N shard servers (:class:`ShardSet` in one
   process, ``--shard K/N`` one a process), dialed through
   :class:`ShardedPSClient` (:func:`make_ps_client` picks the client from
-  the endpoint's shape).
+  the endpoint's shape);
+* :mod:`~distkeras_tpu_torch.netps.tuner` — the self-tuning data plane
+  (``DKTPU_NET_AUTOTUNE=1``): join-time codec probes over the negotiated
+  connection (the server decodes each probe as a commit, on the card, into
+  a scratch window) and an online :class:`Tuner` that retunes
+  compression, the overlap window, striping and the aggregator's fan-in
+  mid-run through the renegotiation paths a rejoin uses, guardrailed
+  (floors, a bounded retune rate, an oscillation fallback, failover
+  deferral); :class:`MarginalThroughputPolicy` gates elastic expansion.
 
 ``python -m distkeras_tpu_torch.netps`` runs a standalone server.
 """
@@ -77,14 +85,20 @@ from distkeras_tpu_torch.netps.standby import StandbyServer
 from distkeras_tpu_torch.netps.tree import (TreeDeployment, TreeNode,
                                             TreeSpec, TreeStandby,
                                             build_tree)
+from distkeras_tpu_torch.netps.tuner import (MarginalThroughputPolicy,
+                                             Tuner, TunerConfig,
+                                             probe_codecs,
+                                             recommended_topology)
 
 __all__ = [
-    "AggregatorServer", "ChaosProxy", "CommitResult", "EpochFencedError", "LeaseExpiredError",
-    "MeshFolder", "NetPSError", "NotPrimaryError", "PSClient", "PSServer",
+    "AggregatorServer", "ChaosProxy", "CommitResult", "EpochFencedError",
+    "LeaseExpiredError", "MarginalThroughputPolicy", "MeshFolder",
+    "NetPSError", "NotPrimaryError", "PSClient", "PSServer",
     "PartitionPlan", "ProtocolError", "RPCTimeoutError", "ServerClosedError",
     "ServerDrainingError", "ShardPlanError", "ShardSet", "ShardedPSClient",
     "ShmConnection", "StandbyServer", "TRANSPORTS", "TreeDeployment",
-    "TreeNode", "TreeSpec", "TreeStandby", "build_tree", "commit_scale",
-    "fold_delta", "local_boot_id", "local_mesh_id", "make_ps_client",
-    "mesh_available", "transport_mode",
+    "TreeNode", "TreeSpec", "TreeStandby", "Tuner", "TunerConfig",
+    "build_tree", "commit_scale", "fold_delta", "local_boot_id",
+    "local_mesh_id", "make_ps_client", "mesh_available", "probe_codecs",
+    "recommended_topology", "transport_mode",
 ]

@@ -66,7 +66,13 @@ assembles the stripes and folds once. A striped pull whose stripes
 straddled a concurrent fold (a torn read, seen in the echoed update
 counters) is re-pulled, counting ``netps.pull_torn_retries``; after
 ``_PULL_CONSISTENT_TRIES`` torn reads it falls back to one unstriped pull.
-Tracing and the tuner's probe come with later slices.
+
+**Self-tuning** (``netps/tuner/``): :meth:`PSClient.probe` sends one timed
+micro-A/B round trip of a payload under a candidate codec to a peer that
+advertises ``tuner``, and :meth:`PSClient.retune` adopts a new codec or
+stripe count mid-run through the state the join negotiation writes, so a
+retransmit after a retune keeps its seq and dedups as before. Tracing
+comes with a later slice.
 
 One client serves one worker thread; public methods are not safe to call
 concurrently (the stripe sub-RPCs inside one call run on the client's own
@@ -686,6 +692,76 @@ class PSClient:
             self.shm_info = other.shm_info
             self.mesh_info = other.mesh_info
         self._compute_stripes(center)
+
+    # -- self-tuning surface (netps/tuner/) ---------------------------------
+    def probe(self, arrays: Sequence[np.ndarray],
+              codec: Optional[str] = None) -> Optional[dict]:
+        """One timed micro-A/B round trip under ``codec`` (default: the
+        negotiated one): the payload travels and is decoded as a commit
+        is, but the server's ``probe`` op touches nothing else. Returns the
+        reply header, or None when the joined peer does not speak the
+        probe dialect (no ``tuner`` caps bit, or the codec not
+        advertised)."""
+        caps = self.peer_caps or {}
+        if not caps.get("tuner"):
+            return None
+        use = codec if codec is not None else self.codec
+        if use != wire.CODEC_NONE and use not in caps.get("codecs", ()):
+            return None
+        items: list = []
+        for a in arrays:
+            a = np.ascontiguousarray(a, np.float32)
+            if use == wire.CODEC_NONE:
+                items.append(a)
+                continue
+            encoded, extras = wire.codec_encode(a, use)
+            items.append((encoded, extras) if extras else encoded)
+        hdr, _ = self._rpc(wire.OP_PROBE,
+                           self._stamped({"probe_codec": use}), items)
+        return hdr
+
+    def retune(self, codec: Optional[str] = None,
+               shards: Optional[int] = None,
+               template: Optional[Sequence[np.ndarray]] = None) -> dict:
+        """Adopt a new wire dialect MID-RUN through the state the join
+        negotiation writes: membership, seq, epoch and exactly-once are
+        untouched (a retransmit after a retune carries its original seq
+        and dedups as before). Returns ``{knob: (old, new)}`` of what
+        changed; a codec the peer never advertised, or a stripe count
+        outside ``[1, connections]`` (1 without ``striping``), is clamped,
+        not an error. The caller quiesces its own in-flight commits first:
+        one logical commit finishes under ONE dialect. ``template`` (the
+        center's shapes) sizes the new stripes."""
+        caps = self.peer_caps or {}
+        changed: dict = {}
+        if codec is not None and codec != self.codec:
+            if codec == wire.CODEC_NONE or codec in caps.get("codecs", ()):
+                changed["codec"] = (self.codec, codec)
+                self.codec = codec
+                # The residual belongs to the old codec's lineage: error
+                # feedback restarts, as on a rejoin.
+                self._residual = None
+                # A rejoin renegotiates from the retuned preference, so a
+                # failover does not undo the controller's decision.
+                self.requested_codec = codec
+        if shards is not None:
+            want = max(1, min(int(shards), len(self._conns)))
+            if not caps.get("striping"):
+                want = 1
+            if want != self.active_shards:
+                changed["shards"] = (self.active_shards, want)
+                self.active_shards = want
+                self.shards = max(self.shards, want)
+                if template is not None:
+                    self._compute_stripes(template)
+                else:
+                    self._stripes = None
+                # The stripe pool is sized to active_shards: rebuilt on
+                # its next use.
+                pool, self._pool = self._pool, None
+                if pool is not None:
+                    pool.shutdown(wait=True)
+        return changed
 
     def pull(self) -> tuple[list, int]:
         """Current center + update counter; renews the lease. An evicted

@@ -21,9 +21,16 @@ the CPU in ordinary memory, in the same layout. :func:`fold_delta` then
 folds it through :func:`fold_staged` with ``fold_commit_``: one launch of
 the CUDA kernel, or its plain twin on the CPU, after the reference mesh
 folder's element-count conservation check. Every fold of the port goes
-this way (each server dialect, recovery, a standby, ``MeshFolder``). There
-is no probe and no fallback: a kernel that fails to build or launch
-raises, and so does the commit.
+this way (each server dialect, recovery, a standby, ``MeshFolder``, the
+aggregator's pre-combine). There is no fallback: a kernel that fails to
+build or launch raises, and so does the commit.
+
+**The probe's decode** (:class:`ProbeWindow`, the tuner's ``probe`` op)
+decodes a payload the way a commit is decoded: staged in its own layout,
+then one scale-1 ``fold_commit_`` into a scratch window filled with
+``-0.0``. ``-0.0 + x`` is ``x`` bit for bit, so the window then holds the
+reference's host decode (``decode_entry``) exactly; the window is never
+the center.
 
 :func:`fold_compressed_numpy` is the JAX package's numpy oracle, kept here
 for the tests and ``chip_smoke.py``, which hold the port's folds to it bit
@@ -32,6 +39,7 @@ for bit.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional, Sequence
 
@@ -97,6 +105,22 @@ def decode_entry(entry) -> np.ndarray:
     """One delta entry -> a plain f32-domain array (join inits)."""
     a, spec = split_entry(entry)
     return wire.codec_decode(a, spec) if spec else np.asarray(a)
+
+
+def exact_zero_scale(entry):
+    """An int8 wire entry of scale 0 decoded to f32 (``q * 0.0``: ``±0``
+    by q's sign), every other entry as it is. The fold kernel skips a
+    zero-scale entry; a decode-then-add turns a ``-0.0`` window element
+    into ``+0.0``. A malformed spec passes through for the caller's own
+    validation to refuse."""
+    a, spec = split_entry(entry)
+    if spec and spec.get("codec") == wire.CODEC_INT8:
+        try:
+            if float(spec["scale"]) == 0.0:
+                return wire.codec_decode(np.asarray(a), spec)
+        except (KeyError, TypeError, ValueError):
+            pass
+    return entry
 
 
 def validate_delta(delta) -> bool:
@@ -312,3 +336,52 @@ def fold_staged(center: Sequence[torch.Tensor], staged: StagedCommit,
         raise RuntimeError(f"fold conservation check: the commit covers "
                            f"{counted} elements, the center {expected}")
     fold_commit_(center, staged, float(scale))
+
+
+class ProbeWindow:
+    """A server's scratch window for the ``probe`` op's decode: one flat
+    f32 tensor on the server's ``device``, grown to the largest probe seen
+    and reused while it is large enough. It is never the center. One probe
+    decodes at a time (a lock), since two probes (a tree node's sweep and
+    a worker's) share the window. ``stream`` and ``pool`` are the
+    server's (None on the CPU)."""
+
+    def __init__(self, device, stream=None, pool: Optional[PinnedPool] = None):
+        self.device = torch.device(device)
+        self._stream = stream
+        self._pool = pool
+        self._lock = threading.Lock()
+        self._flat: Optional[torch.Tensor] = None
+
+    def decode(self, delta, keep: bool = False) -> tuple:
+        """Decode a probe's entries (plain arrays or ``(array, spec)`` wire
+        pairs) as a commit is decoded: staged with :func:`stage_commit` in
+        the payload's own layout (a probe may come before any join, so
+        there is no center to lay it out by), folded at scale 1 by one
+        ``fold_commit_`` into the window at ``-0.0``, and the stream waited
+        on, so the time of this call is the decode's. Returns ``(f32
+        bytes decoded, host copies of the decoded tensors or None)``; the
+        copies only with ``keep``. Raises what staging raises for a
+        malformed payload (``TypeError``, ``ValueError``)."""
+        entries = [exact_zero_scale(e) for e in delta]
+        shapes = [np.shape(split_entry(e)[0]) for e in entries]
+        stream = (torch.cuda.stream(self._stream) if self._stream is not None
+                  else contextlib.nullcontext())
+        with self._lock, stream:
+            staged = stage_commit(entries, self.device, self._pool)
+            offsets = [int(o) for o in staged.rows["center"]]
+            sizes = [int(n) for n in staged.rows["n"]]
+            total = center_layout(sizes)[1]
+            if self._flat is None or self._flat.numel() < total:
+                self._flat = torch.empty(max(total, 1), dtype=torch.float32,
+                                         device=self.device)
+            flat = self._flat[:total]
+            flat.fill_(-0.0)
+            views = [flat[o:o + n].view(shape)
+                     for o, n, shape in zip(offsets, sizes, shapes)]
+            fold_staged(views, staged, 1.0)
+            if self._stream is not None:
+                self._stream.synchronize()
+            decoded = (host_mirror(flat, offsets, views, self._stream)
+                       if keep else None)
+        return 4 * sum(sizes), decoded

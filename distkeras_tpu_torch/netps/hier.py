@@ -65,11 +65,10 @@ from typing import Optional, Sequence
 import numpy as np
 
 from distkeras_tpu_torch import telemetry
-from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.errors import NetPSError
 from distkeras_tpu_torch.netps.fold import (check_discipline, counter_scalar,
-                                            fold_staged, host_mirror,
-                                            split_entry)
+                                            exact_zero_scale, fold_staged,
+                                            host_mirror)
 from distkeras_tpu_torch.netps.server import PSServer
 from distkeras_tpu_torch.netps.shards import make_ps_client
 from distkeras_tpu_torch.runtime import config
@@ -82,22 +81,6 @@ _FLUSH_INTERVAL_S = 0.02
 #: constituent ``(wid, seq)`` pairs a window keeps for the lost-window and
 #: drop events (the reference's bound).
 _PAIRS_KEEP = 512
-
-
-def _exact_zero_scale(entry):
-    """An int8 wire entry of scale 0 decoded to f32 (``q * 0.0``: ``±0``
-    by q's sign), every other entry as it is. The fold kernel skips a
-    zero-scale entry; the reference's aggregator adds its decode, which
-    turns a ``-0.0`` window element into ``+0.0``. A malformed spec passes
-    through for the commit's own validation to refuse."""
-    a, spec = split_entry(entry)
-    if spec and spec.get("codec") == wire.CODEC_INT8:
-        try:
-            if float(spec["scale"]) == 0.0:
-                return wire.codec_decode(np.asarray(a), spec)
-        except (KeyError, TypeError, ValueError):
-            pass
-    return entry
 
 
 def _read_only(center) -> list:
@@ -189,7 +172,8 @@ class _AbsorbWindow:
             t.join()
 
     def set_fan_in(self, fan_in: Optional[int]) -> None:
-        """Retune the flush fan-in mid-run: ``None`` combines the full
+        """Retune the flush fan-in mid-run (the tuner's HIER lever,
+        ``netps/tuner/controller.py``): ``None`` combines the full
         membership, ``1`` makes the aggregator a pass-through forwarder.
         Wakes the flusher so a now-satisfied window flushes at once; the
         open window's accounting is untouched."""
@@ -199,7 +183,7 @@ class _AbsorbWindow:
 
     def _op_commit(self, header: dict, arrays: list) -> tuple[dict, list]:
         return super()._op_commit(header,
-                                  [_exact_zero_scale(e) for e in arrays])
+                                  [exact_zero_scale(e) for e in arrays])
 
     def _fold_locked(self, wid: int, seq: int, pulled, staged,
                      wire_delta: list) -> int:

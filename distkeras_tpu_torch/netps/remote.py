@@ -79,9 +79,24 @@ one combined commit a flush (``hier_flush`` seconds at most) to the root at
 workers, so every absorbed commit reaches the root before the final center
 is pulled from the root.
 
-The self-tuning data plane (``DKTPU_NET_AUTOTUNE``, ROADMAP Queue 1 item
-4e) and tracing (``DKTPU_TRACE``, item 10) come with later slices: set,
-they raise here rather than train without them.
+**Self-tuning** (``DKTPU_NET_AUTOTUNE`` or ``autotune=``): a
+:class:`~distkeras_tpu_torch.netps.tuner.controller.Tuner` closes the loop
+from the live gauges to the knobs. Knobs the caller or the environment
+pinned are its starting point; an unpinned window starts at 2, an unpinned
+transport asks for the top of the ladder (``mesh``) and an unpinned stripe
+count on TCP opens 2 connections, so the controller can widen into them.
+An unpinned ``hier`` is chosen by the fan-in crossover. Worker 0 runs the
+join-time codec probes (on TCP) or applies the ring's rule (f32, one
+stripe) and evaluates the control loop at round boundaries; every worker
+drains its ordered commit lane before it adopts a retuned dialect, so one
+commit finishes under one codec and striping. With the tuner aboard both
+comms lanes always exist. Autotune against a ``;`` shard matrix that the
+workers would dial directly is refused before any worker starts: the
+sharded client has no probe or retune (nor has the JAX package's, whose
+run fails there).
+
+Tracing (``DKTPU_TRACE``, ROADMAP Queue 1 item 10) comes with a later
+slice: set, it raises here rather than train without it.
 """
 
 from __future__ import annotations
@@ -104,6 +119,8 @@ from distkeras_tpu_torch.netps.fold import check_discipline
 from distkeras_tpu_torch.netps.shards import (is_sharded_endpoint,
                                               make_ps_client,
                                               plan_for_model)
+from distkeras_tpu_torch.netps.tuner import (Tuner, TunerState,
+                                             autotune_enabled)
 from distkeras_tpu_torch.ops.kernels import build
 from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime import config
@@ -116,15 +133,13 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"item {item}); the remote worker loop runs over TCP, the shm ring "
         f"or the mesh dispatch, striped or not, against one parameter "
         f"server, a primary/standby endpoint list or a sharded center, "
-        f"flat or through a per-host aggregator")
+        f"flat or through a per-host aggregator, tuned by hand or by "
+        f"DKTPU_NET_AUTOTUNE")
 
 
 def _refuse_unported() -> None:
     """Raise for every data-plane option the reference's remote loop reads
     that the port does not serve."""
-    if config.env_bool("DKTPU_NET_AUTOTUNE"):
-        raise _not_ported("DKTPU_NET_AUTOTUNE (the self-tuning data plane)",
-                          "4e")
     if config.env_bool("DKTPU_TRACE"):
         raise _not_ported("DKTPU_TRACE (tracing's child_scope spans)", "10")
 
@@ -248,6 +263,7 @@ def run_remote(
     transport: Optional[str] = None,
     hier: Optional[bool] = None,
     hier_flush: Optional[float] = None,
+    autotune: Optional[bool] = None,
     loop_fn=None,
 ) -> tuple[dict, np.ndarray]:
     """Train ``plan.num_workers`` threads against the server at
@@ -270,21 +286,47 @@ def run_remote(
     sharded center under one plan built here. ``hier`` (default
     ``DKTPU_NET_HIER``) interposes the per-host aggregator, which flushes
     at most ``hier_flush`` seconds after a window opens (default: the
-    aggregator's). ``loop_fn`` is a prebuilt local loop (what
+    aggregator's). ``autotune`` (default ``DKTPU_NET_AUTOTUNE``) puts the
+    self-tuning controller aboard (see the module docstring); what it
+    converged to is the run's ``tuner_run_summary`` event. ``loop_fn`` is
+    a prebuilt local loop (what
     :func:`~distkeras_tpu_torch.workers.make_local_loop` returns) for a
     run of one worker: a loop reparametrizes its module for the length of a
     call, which two worker threads must not share.
     """
     check_discipline(discipline)
     _refuse_unported()
+    W = plan.num_workers
+    explicit_inflight = (inflight is not None
+                         or config.env_is_set("DKTPU_NET_INFLIGHT"))
     inflight = max(1, int(inflight if inflight is not None
                           else config.env_int("DKTPU_NET_INFLIGHT")))
+    autotune = autotune_enabled() if autotune is None else bool(autotune)
+    tuner = None
+    if autotune:
+        # Explicit knobs win where set; the controller fills the rest. An
+        # unpinned window starts at 2 (the overlap must exist before
+        # hidden_fraction can be measured); an unpinned transport asks for
+        # the top of the ladder, which the join negotiates down.
+        tuner = Tuner(W, inflight=inflight if explicit_inflight
+                      else max(inflight, 2))
+        inflight = tuner.inflight
+        if transport is None and not config.env_is_set(
+                "DKTPU_NET_TRANSPORT"):
+            transport = "mesh"
+        if (shards is None and not config.env_is_set("DKTPU_NET_SHARDS")
+                and transport not in ("shm", "mesh")):
+            # Striping headroom on TCP: connections are made at
+            # construction, so a client that may be retuned up to 2
+            # stripes needs 2 now (the active stripes still start at what
+            # the join negotiates). An unpinned transport read from the
+            # environment counts as TCP here, as in the JAX package.
+            shards = 2
     transport = transport if transport is not None else shm.transport_mode()
     if transport not in shm.TRANSPORTS:
         raise ValueError(f"unknown transport {transport!r}; "
                          f"known: {list(shm.TRANSPORTS)}")
     client_kw = dict(shards=shards, compress=compress, transport=transport)
-    W = plan.num_workers
     dev = model.device
     if dev.type == "cuda":
         # Every kernel built before any worker joins: a first-use build
@@ -309,6 +351,17 @@ def run_remote(
             "skew": round(shard_plan.skew(), 4)})
         client_kw["plan"] = shard_plan
     hier = config.env_bool("DKTPU_NET_HIER") if hier is None else bool(hier)
+    if (tuner is not None and not hier
+            and not config.env_is_set("DKTPU_NET_HIER")):
+        # Nobody pinned the topology: the fan-in crossover picks it.
+        hier = tuner.choose_topology() == "hier"
+    if tuner is not None and not hier and shard_plan is not None:
+        raise ValueError(
+            "DKTPU_NET_AUTOTUNE against a sharded endpoint (a ';' shard "
+            "matrix the workers dial directly) is not supported: the "
+            "sharded client has no probe or retune; pin the data-plane "
+            "knobs by hand, or put a per-host aggregator in front "
+            "(DKTPU_NET_HIER=1)")
     if loop_fn is None:
         # One module per worker: functional_call reparametrizes its module
         # for the length of a call, which concurrent threads must not share.
@@ -340,17 +393,23 @@ def run_remote(
         # aggregator's own upstream client is the sharded one).
         client = make_ps_client(worker_endpoint, worker_id=w, **client_kw)
         pull_client = commit_lane = pull_lane = None
-        if inflight > 1:
+        if inflight > 1 or tuner is not None:
             # Two comms lanes per worker: an ORDERED commit lane (seq order
             # is the exactly-once contract) and a pull-prefetch lane on its
             # own client, so a slow commit cannot serialize the next
-            # round's pull behind it.
+            # round's pull behind it. With the tuner aboard they always
+            # exist: it may widen a serial start mid-run.
             commit_lane = ThreadPoolExecutor(
                 1, thread_name_prefix=f"netps-commit-{w}")
             pull_lane = ThreadPoolExecutor(
                 1, thread_name_prefix=f"netps-pull-{w}")
         try:
             center, _counter = meter.blocking(client.join, init_leaves)
+            if tuner is not None and w == 0:
+                # The join-time micro A/B: one worker probes, the winner
+                # reaches everyone through the target generation.
+                tuner.startup(client, center)
+            tstate = TunerState()
             if pull_lane is not None:
                 pull_client = make_ps_client(
                     worker_endpoint, worker_id=client.worker_id,
@@ -424,6 +483,22 @@ def run_remote(
                     if elastic:
                         local = to_params(pulled_leaves)
                         opt_state = tx.init(local)
+                if tuner is not None:
+                    if w == 0:
+                        # The overlap gauge live, so the control loop reads
+                        # this run's evidence.
+                        meter.export()
+                        tuner.maybe_decide(r, client.active_transport)
+                    if tuner.generation != tstate.generation:
+                        # Quiesce the ordered lane first: one logical
+                        # commit finishes under ONE codec and striping (a
+                        # retransmit keeps its seq either way).
+                        while pending:
+                            drain_one()
+                        changed = tuner.apply_to(client, pulled_leaves,
+                                                 tstate)
+                        if changed and pull_client is not None:
+                            pull_client.adopt_dialect(client, pulled_leaves)
                 start = local if elastic else pulled
                 xs, ys = _worker_round(plan, r, w)
                 with telemetry.span("netps.remote.local_window"):
@@ -446,7 +521,10 @@ def run_remote(
                     settle(meter.blocking(client.commit, host_delta,
                                           counter))
                     continue
-                while len(pending) >= inflight:
+                # The tuner retargets the window mid-run; a narrowed one
+                # drains deeper before the next submit.
+                bound = tuner.inflight if tuner is not None else inflight
+                while len(pending) >= max(1, bound):
                     drain_one()
                 pending.append(commit_lane.submit(
                     meter.timed, guarded_commit, host_delta, counter,
@@ -456,6 +534,10 @@ def run_remote(
                                                  pull_client.pull)
             while pending:
                 drain_one()
+            if tuner is not None and w == 0:
+                # The converged dialect and the decision counts, as the
+                # ``tuner_run_summary`` event.
+                tuner.export_summary(client)
             client.leave()
         except BaseException as e:  # noqa: BLE001 - surfaced on the caller
             errors.append(e)
@@ -480,6 +562,8 @@ def run_remote(
                                device=dev, plan=shard_plan,
                                **agg_kw).start()
         worker_endpoint = agg.endpoint
+        if tuner is not None:
+            tuner.attach_aggregator(agg)
     try:
         with telemetry.span("netps.remote_train"):
             threads = [threading.Thread(target=work, args=(w,),
@@ -494,7 +578,7 @@ def run_remote(
             # Flushes the open window upstream before the final pull below
             # reads the root's center.
             agg.close()
-    if inflight > 1:
+    if inflight > 1 or tuner is not None:
         # The gauge is OVERLAP evidence; the serial loop hides nothing by
         # construction.
         meter.export()

@@ -88,8 +88,19 @@ re-proves it with ``plan_hash`` on every pull.
 ``shard_crash@N:R`` kills shard N once it has folded R commits
 (:meth:`PSServer._chaos_hooks`, :meth:`PSServer._crash_hook_locked`).
 
-The JAX server's tuner probe and tracing come with later slices; a peer
-learns that from the join reply's ``caps``.
+**The tuner's probe** (``CAPS["tuner"]``, op ``probe``): a timed round
+trip that pays the commit path's real decode cost and touches nothing
+else. The payload is validated like a commit's, staged in its own layout
+and decoded by one scale-1 ``fold_commit`` launch into the server's
+scratch window at ``-0.0`` (:class:`~distkeras_tpu_torch.netps.fold.
+ProbeWindow`), outside the center lock; the lock is taken only for the
+epoch fence and to renew a member's lease. A probe never creates
+membership, consumes a seq, folds into the center, journals or dedups;
+the reply says how many f32 bytes were decoded (``probe_bytes``) and how
+long the decode took on the device (``decode_s``).
+
+The JAX server's tracing comes with a later slice; a peer learns that from
+the join reply's ``caps``.
 """
 
 from __future__ import annotations
@@ -116,7 +127,7 @@ from distkeras_tpu_torch.netps import state as _state
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.errors import ProtocolError
 from distkeras_tpu_torch.netps.fold import (STREAM_PRIORITY, PinnedPool,
-                                            backend_name,
+                                            ProbeWindow, backend_name,
                                             check_discipline,
                                             counter_staleness, decode_entry,
                                             fold_delta, host_mirror,
@@ -213,6 +224,8 @@ class PSServer:
             self._stream = torch.cuda.Stream(self.device,
                                              priority=STREAM_PRIORITY)
             self._pool = PinnedPool()
+        #: the probe op's scratch window (never the center).
+        self._probe = ProbeWindow(self.device, self._stream, self._pool)
         self._lock = threading.Lock()
         #: the center: f32 views (one per tensor) into one flat tensor on
         #: ``device``, at ``_offsets`` (``center_layout``); None until the
@@ -713,6 +726,8 @@ class PSServer:
             return self._op_replicate(header)
         if op == wire.OP_FENCE:
             return self._op_fence(header)
+        if op == wire.OP_PROBE:
+            return self._op_probe(header, arrays)
         if op == wire.OP_STATS:
             return self._op_stats(header)
         return {"error": "protocol", "message": f"unknown op {op!r}"}, []
@@ -974,6 +989,32 @@ class PSServer:
                 # fails typed instead of assembling from two plans.
                 reply["plan_hash"] = self.shard_plan.plan_hash
             return reply, out
+
+    def _op_probe(self, header: dict, arrays: list) -> tuple[dict, list]:
+        """The tuner's timed micro-A/B round trip: decode the payload as a
+        commit is decoded (one ``fold_commit`` launch into the scratch
+        window, outside the lock) and answer its f32 bytes and the
+        decode's seconds. The center, the journal, the dedup table and
+        membership are never touched: a member's probe renews its lease
+        like any round trip, a non-member's (a pre-join A/B) creates
+        nothing."""
+        t0 = time.monotonic()
+        try:
+            validate_delta(arrays)
+            nbytes, _ = self._probe.decode(arrays)
+        except (ProtocolError, TypeError, ValueError) as e:
+            return self._err("protocol", f"bad probe payload: {e}")
+        decode_s = time.monotonic() - t0
+        with self._lock:
+            err = self._check_primary_locked(header)
+            if err is not None:
+                return err
+            wid = header.get("worker_id")
+            if wid is not None and int(wid) in self._members:
+                self._members[int(wid)] = time.monotonic() + self.lease_s
+        telemetry.counter("netps.probes").add(1)
+        return {"ok": True, "probe_bytes": nbytes,
+                "decode_s": round(decode_s, 6)}, []
 
     def _op_commit(self, header: dict, arrays: list) -> tuple[dict, list]:
         wid = header.get("worker_id")

@@ -18,11 +18,12 @@ a failure domain of its own:
 
 * **Per-link codecs.** A level may pin its uplinks' codec in the spec
   (``region:2:int8``); the pinned codec reaches the uplink through the
-  dial's ``compress``. Otherwise a link keeps its join-negotiated codec.
-  The reference's timed probe sweep of the codecs (its ``probe_links``
-  switch) needs the tuner's ``probe`` op, which comes with the self-tuning
-  data plane (ROADMAP item 4e); until then a link behaves as the
-  reference's does against a peer without the tuner bit.
+  dial's ``compress`` and a retune. Otherwise, with ``probe_links`` (the
+  default), the node runs the tuner's timed probe sweep of the codecs
+  over its uplink (:func:`~distkeras_tpu_torch.netps.tuner.probe.
+  probe_codecs`, the center as the payload) and retunes to the winner;
+  against a peer without the ``tuner`` bit, or when the sweep fails, the
+  link keeps its join-negotiated codec.
 
 * **Partition ride-through.** A black-holed uplink buffers up to
   ``DKTPU_TREE_BUFFER`` combined windows in host memory; on heal the buffer
@@ -67,6 +68,7 @@ from distkeras_tpu_torch.netps.hier import (_FLUSH_INTERVAL_S,
                                             AggregatorServer, _AbsorbWindow)
 from distkeras_tpu_torch.netps.shards import make_ps_client
 from distkeras_tpu_torch.netps.standby import StandbyServer
+from distkeras_tpu_torch.netps.tuner.probe import best_codec, probe_codecs
 from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime import config
 
@@ -227,8 +229,8 @@ class _TreeUplink:
     :class:`~distkeras_tpu_torch.netps.hier._AbsorbWindow`."""
 
     def _init_tree_state(self, *, level, group, spec, buffer_windows,
-                         link_codec, demote_after, timeout, retries,
-                         backoff) -> None:
+                         link_codec, probe_links, demote_after, timeout,
+                         retries, backoff) -> None:
         self.level = int(level)
         self.group = int(group)
         self.spec: Optional[TreeSpec] = _parse_spec(spec)
@@ -246,7 +248,9 @@ class _TreeUplink:
         #: would send one window twice under two seqs.
         self._drain_lock = threading.Lock()
         self._requested_link_codec = link_codec
-        #: the codec this uplink runs (pinned, or join-negotiated).
+        self._probe_links = bool(probe_links)
+        #: the codec this uplink runs (pinned, probed, or the client's
+        #: join-negotiated default).
         self.link_codec: Optional[str] = None
         self.dropped_windows = 0
         self.dropped_commits = 0
@@ -311,17 +315,37 @@ class _TreeUplink:
 
     # -- per-link codec ------------------------------------------------
     def _negotiate_link_codec(self) -> None:
-        """Record THIS link's codec: the spec's pinned one (already
-        requested through the dial's ``compress``) or the join-negotiated
-        default. The reference's timed probe sweep needs the ``probe`` op
-        of the self-tuning data plane (ROADMAP item 4e); without it a link
-        keeps its negotiated codec, as the reference's does against a peer
-        that lacks the tuner bit."""
+        """Pick THIS link's codec: the spec's pinned codec if any
+        (``how="pinned"``), else the tuner's timed probe sweep with the
+        center as the payload, retuned to the winner (``how="probed"``;
+        skipped with ``probe_links=False``, and empty against a peer
+        without the ``tuner`` bit). Best-effort: with no evidence, or when
+        the sweep fails, the join-negotiated default stands
+        (``how="default"``); a failed probe leaves a working link."""
         up = self._up
         if up is None:
             return
-        how = "pinned" if self._requested_link_codec else "default"
-        self.link_codec = getattr(up, "codec", None)
+        picked, how = None, "default"
+        try:
+            if self._requested_link_codec and hasattr(up, "retune"):
+                up.retune(codec=self._requested_link_codec)
+                picked, how = self._requested_link_codec, "pinned"
+            elif self._probe_links and hasattr(up, "probe"):
+                with self._lock:
+                    # The served center: read-only arrays, replaced
+                    # wholesale, so the sweep may hold them unlocked.
+                    template = list(self._host or ())
+                if template:
+                    results = probe_codecs(up, template)
+                    picked = best_codec(results)
+                    if results:
+                        how = "probed"
+                    if picked is not None and picked != up.codec:
+                        up.retune(codec=picked)
+        except (NetPSError, OSError, ValueError):
+            picked = None
+        self.link_codec = (picked if picked is not None
+                           else getattr(up, "codec", None))
         telemetry.counter("netps.tree.codec_negotiations").add(1)
         telemetry.event("netps_tree_link_codec", {
             "level": self.level, "group": self.group,
@@ -585,13 +609,14 @@ class TreeNode(_TreeUplink, AggregatorServer):
     accepts applies (``device`` included: the card by default); on top,
     ``level``/``group`` locate the node in ``spec`` (and key its uplink for
     ``link_down``/``link_flap``), ``state_dir`` arms the node's own
-    lineage, ``buffer_windows`` bounds partition ride-through and
-    ``link_codec`` pins the uplink's codec (default: the spec level's).
+    lineage, ``buffer_windows`` bounds partition ride-through,
+    ``link_codec`` pins the uplink's codec (default: the spec level's) and
+    ``probe_links`` runs the codec probe sweep on an unpinned uplink.
     """
 
     def __init__(self, upstream: str, *, level: int = 0, group: int = 0,
                  spec=None, buffer_windows: Optional[int] = None,
-                 link_codec: Optional[str] = None,
+                 link_codec: Optional[str] = None, probe_links: bool = True,
                  demote_after: Optional[int] = None,
                  timeout: Optional[float] = None,
                  retries: Optional[int] = None,
@@ -601,6 +626,7 @@ class TreeNode(_TreeUplink, AggregatorServer):
         self._init_tree_state(level=level, group=group, spec=spec,
                               buffer_windows=buffer_windows,
                               link_codec=link_codec,
+                              probe_links=probe_links,
                               demote_after=demote_after, timeout=timeout,
                               retries=retries, backoff=backoff)
         super().__init__(upstream, timeout=timeout, retries=retries,
@@ -633,12 +659,14 @@ class TreeStandby(_TreeUplink, _AbsorbWindow, StandbyServer):
     retransmits dedup against the replicated table. If the same partition
     severs the uplink, promotion completes on the last replicated root
     counter (``root_u``) and the flusher redials while windows buffer.
+    ``link_codec`` and ``probe_links`` are :class:`TreeNode`'s, applied to
+    the uplink promotion dials.
     """
 
     def __init__(self, primary_endpoint: str, *, upstream: str,
                  level: int = 0, group: int = 0, spec=None,
                  buffer_windows: Optional[int] = None,
-                 link_codec: Optional[str] = None,
+                 link_codec: Optional[str] = None, probe_links: bool = True,
                  demote_after: Optional[int] = None,
                  fan_in: Optional[int] = None,
                  flush_interval: float = _FLUSH_INTERVAL_S,
@@ -650,6 +678,7 @@ class TreeStandby(_TreeUplink, _AbsorbWindow, StandbyServer):
         self._init_tree_state(level=level, group=group, spec=spec,
                               buffer_windows=buffer_windows,
                               link_codec=link_codec,
+                              probe_links=probe_links,
                               demote_after=demote_after, timeout=timeout,
                               retries=retries, backoff=backoff)
         super().__init__(primary_endpoint, **kw)

@@ -80,12 +80,17 @@ CODECS = (CODEC_NONE, CODEC_BF16, CODEC_INT8)
 #: ``stats`` replies carry the window-conservation ledger (``tree``) and
 #: its replicate replies the root-lineage counter (``root_u``) its warm
 #: standby seeds promotion from; a plain server's ``True`` just says the
-#: build understands the tree dialect. The JAX package's other bits
-#: (tuner, tracing) are absent, so a peer that gates a dialect on them
-#: speaks the plain one to the port.
+#: build understands the tree dialect. ``tuner`` advertises the ``probe``
+#: op the self-tuning data plane's join-time micro A/B rides on
+#: (``netps/tuner/``): a timed round trip that is decoded like a commit,
+#: on the server's device, but never touches the center, the journal, the
+#: dedup table or membership; a peer without the bit answers the typed
+#: unknown-op error and the client's autotuner leaves it alone. The JAX
+#: package's ``tracing`` bit is absent, so a peer that gates trace context
+#: on it speaks the plain dialect to the port.
 CAPS = {"codecs": list(CODECS), "striping": True, "replication": True,
         "serving": True, "sharding": True, "shm": True, "mesh": True,
-        "tree": True}
+        "tree": True, "tuner": True}
 
 #: the core parameter-server ops carried in ``header["op"]``.
 OP_JOIN = "join"
@@ -103,6 +108,9 @@ OP_FENCE = "fence"
 OP_INFER = "infer"
 OP_STATS = "stats"
 
+#: the tuner's timed micro-A/B round trip (see ``CAPS["tuner"]``).
+OP_PROBE = "probe"
+
 
 class OpSpec(NamedTuple):
     """One op's wire contract: ``cap`` is the :data:`CAPS` key whose
@@ -115,8 +123,7 @@ class OpSpec(NamedTuple):
 
 
 #: the ops the port serves, with their reply fields (the JAX package's
-#: registry rows for the same ops; the tuner's fields are never answered
-#: here). A server reply carries no key outside
+#: registry rows for the same ops). A server reply carries no key outside
 #: its op's row, and the rows stay subsets of the JAX package's, so each
 #: package can read the other's replies;
 #: ``tests/test_torch_netps_failover.py`` holds both.
@@ -136,6 +143,7 @@ OP_REGISTRY = {
     OP_STATS: OpSpec(None, ("caps", "role", "snapshot", "ring", "updates",
                             "epoch", "members", "commits_total", "draining",
                             "ready", "tree", "fold_backend")),
+    OP_PROBE: OpSpec("tuner", ("probe_bytes", "decode_s")),
 }
 
 
@@ -152,7 +160,9 @@ ERROR_KINDS = frozenset({
 
 #: every frame-header key either side may read or write: request fields,
 #: reply fields and the replication-record sub-headers. A subset of the JAX
-#: package's set (the tuner and tracing keys are absent).
+#: package's set (the tracing keys are absent). A probe request's
+#: ``probe_codec`` is not here, as it is not in the JAX package's set: the
+#: server never reads it (each entry's spec says how it decodes).
 HEADER_KEYS = frozenset({
     # envelope + request/reply bookkeeping
     "op", "req", "ok", "error", "message", "arrays", "version",
@@ -172,6 +182,8 @@ HEADER_KEYS = frozenset({
     # stats / health scrape
     "ring", "role", "snapshot", "members", "draining", "ready",
     "fold_backend",
+    # tuner probe
+    "probe_bytes", "decode_s",
 })
 
 

@@ -175,9 +175,59 @@ ENV_REGISTRY: dict = _declare(
            "counter = min of constituents).",
            "network"),
     EnvVar("DKTPU_NET_AUTOTUNE", "bool", False,
-           "Self-tuning data plane (codec probes and an online control "
-           "loop). Not ported: the port's remote loop raises when it is "
-           "set.",
+           "Self-tuning data plane (`netps/tuner/`): join-time micro A/B "
+           "probes pick the codec per connection, and an online control "
+           "loop over the live gauges retunes compression/inflight/"
+           "striping mid-run through the existing renegotiation paths, "
+           "with hysteresis and an oscillation fallback to the static "
+           "knobs. Explicit `DKTPU_NET_*` knobs still win where set. "
+           "Off by default.",
+           "network"),
+    EnvVar("DKTPU_TUNE_INTERVAL", "int", 8,
+           "Rounds between online-controller evaluations when "
+           "`DKTPU_NET_AUTOTUNE=1` — the control loop's clock; larger "
+           "values react slower but measure cleaner windows.",
+           "network"),
+    EnvVar("DKTPU_TUNE_COOLDOWN", "int", 16,
+           "Rounds a knob rests after the controller retunes it "
+           "(per-knob hysteresis) — a knob can never be retuned faster "
+           "than this regardless of what the gauges say.",
+           "network"),
+    EnvVar("DKTPU_TUNE_PROBES", "int", 3,
+           "Timed probe round trips per candidate codec in the join-time "
+           "micro A/B (each carries the full center payload; the score "
+           "is logical f32 bytes per second of round trip).",
+           "network"),
+    EnvVar("DKTPU_TUNE_MAX_RETUNES", "int", 8,
+           "Total mid-run retunes the controller may take before it "
+           "freezes at whatever it converged to (bounded retune rate).",
+           "network"),
+    EnvVar("DKTPU_TUNE_OSC_LIMIT", "int", 3,
+           "Consecutive back-to-previous flips of one knob before the "
+           "controller declares oscillation, restores that knob's static "
+           "initial value, and freezes it for the rest of the run.",
+           "network"),
+    EnvVar("DKTPU_TUNE_HIER_FANIN", "int", 4,
+           "Per-host worker fan-in at/above which the controller picks "
+           "hierarchical aggregation over flat topology (the bench "
+           "`hier_curve` crossover; below it the aggregator's combining "
+           "window costs more than it saves).",
+           "network"),
+    EnvVar("DKTPU_TUNE_MIN_GAIN", "float", 0.1,
+           "Fractional commit-rate improvement a grown worker count must "
+           "show over the best smaller count for the marginal-throughput "
+           "expansion policy to keep expanding that job "
+           "(`netps/tuner/fleet.py`).",
+           "network"),
+    EnvVar("DKTPU_TUNE_HIDDEN_FLOOR", "float", 0.5,
+           "Target floor for `netps.overlap.hidden_fraction`: measured "
+           "overlap below it means comms the compute loop still sees, "
+           "and the controller widens inflight / shrinks the wire.",
+           "network"),
+    EnvVar("DKTPU_TUNE_STALE_CEIL", "float", 4.0,
+           "Ceiling for `discipline.staleness_mean` (rounds): measured "
+           "staleness above it means the overlap window outran the "
+           "center, and the controller narrows inflight.",
            "network"),
     EnvVar("DKTPU_NET_FAULTS", "str", "",
            "Network-fault chaos plan (`kind@frame[:arg]`, e.g. "
@@ -346,3 +396,12 @@ def env_float(name: str) -> Optional[float]:
 def env_str(name: str) -> str:
     var = _entry(name, "str")
     return os.environ.get(name, "").strip() or str(var.default)
+
+
+def env_is_set(name: str) -> bool:
+    """Whether a registered variable was EXPLICITLY set (even to its
+    default value): for callers whose own defaulting must yield to an
+    operator's explicit choice (the autotuner never overrides a hand-set
+    knob)."""
+    _registered(name)
+    return name in os.environ

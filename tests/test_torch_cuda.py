@@ -1135,6 +1135,51 @@ def test_precombine_on_card_is_the_numpy_decode_then_add(card, codec):
         root.close()
 
 
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8", "mixed"])
+def test_probe_decode_on_card_is_the_twin_bit_for_bit(card, codec):
+    """The ``probe`` op's decode on the card: one scale-1 ``fold_commit``
+    launch a probe into a ``-0.0`` scratch window on a server's stream,
+    bit-equal to the plain twin's window and to the numpy
+    ``decode_entry`` (zero-scale int8 entries and signed zeros included);
+    a smaller probe after a larger one reuses the window, refilled first;
+    and through the server's op, the center, the log and the counter are
+    untouched."""
+    from distkeras_tpu_torch.netps import PSClient, PSServer
+    from distkeras_tpu_torch.netps.fold import (STREAM_PRIORITY, PinnedPool,
+                                                ProbeWindow, decode_entry)
+
+    stream = torch.cuda.Stream(priority=STREAM_PRIORITY)
+    win = ProbeWindow("cuda", stream, PinnedPool())
+    twin = ProbeWindow("cpu")
+    for shapes in (((64, 33), (4099,), (7, 5), (0,)), ((5,), (3, 3))):
+        (entries,) = _precombine_commits(codec, shapes, 1)
+        F.reset_launches()
+        nbytes, got = win.decode(entries, keep=True)
+        assert F.launch_counts() == {"fold_commit": 1, "fold_int8": 0,
+                                     "fold_bf16": 0}
+        _n, plain = twin.decode(entries, keep=True)
+        ref = [np.asarray(decode_entry(e), np.float32) for e in entries]
+        assert nbytes == sum(r.nbytes for r in ref)
+        for a, b, c in zip(got, plain, ref):
+            assert a.tobytes() == b.tobytes() == c.tobytes()
+            assert a.shape == c.shape
+    init = [np.ones((64, 33), np.float32), np.zeros(4099, np.float32)]
+    srv = PSServer(center=init, discipline="adag", device="cuda").start()
+    try:
+        with PSClient(srv.endpoint, worker_id=0, timeout=30.0) as c:
+            c.join()
+            F.reset_launches()
+            for codec_ in ("none", "bf16", "int8"):
+                hdr = c.probe([a + 0.5 for a in init], codec=codec_)
+                assert hdr["probe_bytes"] == sum(a.nbytes for a in init)
+            assert F.launch_counts()["fold_commit"] == 3
+            assert srv.commit_log == [] and srv.updates == 0
+            for a, b in zip(srv.center(), init):
+                assert a.tobytes() == b.tobytes()
+    finally:
+        srv.close()
+
+
 @pytest.mark.parametrize("codec", ["none", "int8", "bf16"])
 def test_recovery_on_card_is_bit_equal_to_the_cpu_twin(card, tmp_path,
                                                        codec):

@@ -424,4 +424,5 @@ def test_port_fold_delta_is_the_server_fold():
     assert wire.CAPS == {"codecs": ["none", "bf16", "int8"],
                          "striping": True, "replication": True,
                          "serving": True, "sharding": True,
-                         "shm": True, "mesh": True, "tree": True}
+                         "shm": True, "mesh": True, "tree": True,
+                         "tuner": True}

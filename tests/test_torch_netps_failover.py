@@ -256,6 +256,7 @@ def _server_replies():
         assert send(wire.OP_REPLICATE, u=upd)["mode"] == "records"
         send(wire.OP_HEARTBEAT, **member)
         send(wire.OP_STATS, ring=0)
+        assert send(wire.OP_PROBE, arrays=ones, **member)["probe_bytes"]
         send(wire.OP_LEAVE, worker_id=wid)
         assert send(wire.OP_FENCE, epoch=0)["error"] == "epoch_fenced"
         assert send(wire.OP_FENCE, epoch=4)["fenced"]
@@ -267,7 +268,7 @@ def _server_replies():
 @pytest.mark.parametrize("op", [wire.OP_JOIN, wire.OP_PULL, wire.OP_COMMIT,
                                 wire.OP_HEARTBEAT, wire.OP_LEAVE,
                                 wire.OP_REPLICATE, wire.OP_FENCE,
-                                wire.OP_STATS])
+                                wire.OP_STATS, wire.OP_PROBE])
 def test_every_server_reply_stays_inside_its_registry_row(op):
     replies = [r for o, r in _server_replies() if o == op]
     assert replies

@@ -38,7 +38,7 @@ PKGS = {
     "port": dict(server=lambda **kw: PSServer(device="cpu", **kw),
                  client=PSClient, tree=tree, faults=faults,
                  telemetry=telemetry, state=netps_state,
-                 node_kw=dict(device="cpu")),
+                 node_kw=dict(device="cpu", probe_links=False)),
     "jax": dict(server=JaxPSServer, client=JaxPSClient, tree=jax_tree,
                 faults=jax_faults, telemetry=jax_telemetry, state=jax_state,
                 node_kw=dict(probe_links=False)),

@@ -225,7 +225,6 @@ def test_ps_endpoint_env_routes_to_the_server(monkeypatch):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"DKTPU_NET_AUTOTUNE": "1"}, "DKTPU_NET_AUTOTUNE"),
     ({"DKTPU_TRACE": "1"}, "item 10"),
 ])
 def test_unported_remote_options_raise(monkeypatch, env, match):

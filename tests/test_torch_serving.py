@@ -86,7 +86,8 @@ def test_ragged_requests_match_jax_predict(served, jax_model):
     assert stats["caps"] == {"codecs": ["none", "bf16", "int8"],
                              "striping": True, "replication": True,
                              "serving": True, "sharding": True,
-                             "shm": True, "mesh": True, "tree": True}
+                             "shm": True, "mesh": True, "tree": True,
+                             "tuner": True}
     assert stats["ring"] == [] and stats["ready"] is True
     counters = telemetry.get().snapshot()["counters"]
     assert counters.get("serving.retrace_after_warmup", 0) == 0
