@@ -88,7 +88,30 @@ and every parity phase holds the card's bf16 run to the CPU's within
    (forward and its GroupNorm share, backward and its GroupNorm share,
    update), and a parity run (``resnet_parity``): the same trainer at full
    width, batch 2, 2 steps, on the card and on the CPU (the plain twins),
-   from the same weights.
+   from the same weights. Then ``sharded_feed``: config #5 fed from a
+   uint8 shard store, as ``examples/imagenet_disk.py`` feeds it. (a) 768
+   random 224x224x3 uint8 rows and their labels written through
+   ``ShardWriter`` in shards of 128 rows (115.6 MB; a round's 2 x 128 rows
+   span two shards), round 0 of the sharded plan bit-equal to the in-RAM
+   plan's; (b) three arms of ``SynchronousDistributedTrainer(resnet50(
+   norm_impl="pallas"), compute_dtype="bfloat16")``, 3 rounds each:
+   ``device`` (the store, ``device_transform=flip_crop_transform()``),
+   ``host`` (the store, ``transform=`` the example's numpy crop and flip)
+   and ``ram`` (the rows in an in-RAM ``DataFrame``): samples/s, ms a
+   local step, ``input_stall_seconds``, the staging ms a round timed alone
+   over the plan, the ``native.gather*`` counters (no fallback); 53
+   launches of each GroupNorm kernel a step, in bf16 only, counted from 0
+   just before each run; (c) ``flip_crop`` on a 256-row batch on the card
+   bit-equal to the CPU's, by CUDA events beside its bound; (d) one round
+   from the store, the native gather against numpy
+   (``DKTPU_NO_NATIVE=1``), median of 5 in turns, bit-equal; (e) config
+   #3 (``AEASGD(cifar10_cnn())``, bf16) from RAM with the native gather
+   and with numpy, after a warm run, A B B A: samples/s and the stall;
+   (f) ``ModelPredictor.predict`` over the store on the card equal to the
+   in-RAM predict within 1e-5, ``AccuracyEvaluator`` equal on both
+   frames, a second predict versioning the column and ``vacuum``
+   reclaiming the first. The native loader (``native/loader.cc``) is
+   built with g++ in the ``build`` phase.
 
 7. ``fold_kernel`` — the dequant-fused fold kernel (``csrc/fold.cu``, one
    launch a commit) against its plain twin on the same CUDA tensors, bit
@@ -1925,6 +1948,388 @@ def resnet_parity_phase(torch, seed: int) -> None:
              f"{card_vs_f64} > {RESNET_PARITY_FACTOR} x the CPU f32 run's "
              f"{cpu_vs_f64}, or loss {loss_rel} > {RESNET_LOSS_RTOL}")
     bf16_parity("resnet_parity", out, change)
+
+
+# Config #5 fed from a uint8 shard store, the reference's
+# examples/imagenet_disk.py: RESNET's trainer in bf16 for RESNET_ROUNDS
+# rounds over 768 rows of 224x224x3 uint8 (115.6 MB) in shards of 128 rows,
+# so each round's 2 x 128 rows span two shards.
+FEED_ROWS = RESNET_ROUNDS * RESNET["steps_per_program"] * RESNET["batch_size"]
+FEED_ROWS_PER_SHARD = 128
+FEED_DTYPE = "bfloat16"
+#: the augmentation on the card: one 256-row batch (a round's rows)
+FEED_AUG_BATCH = 256
+FEED_AUG_REPS = 20
+#: the gather of one round from the store, native against numpy, in turns
+FEED_GATHER_READS = 5
+#: config #3's data-paced pair: native gather against DKTPU_NO_NATIVE=1,
+#: after one warm run, in the order A B B A
+FEED_PAIR_ORDER = ("native", "numpy", "numpy", "native")
+#: the sharded predictor: chunk rows, and the limit against the in-RAM
+#: predict of the same rows (tests/test_torch_workflow.py's f32 atol)
+FEED_PREDICT_CHUNK = 256
+FEED_PREDICT_ATOL = 1e-5
+
+
+def host_augment(feats, labels, rng):
+    """``examples/imagenet_disk.py``'s ``augment``, copied (this script
+    imports nothing of the JAX package): per-image random horizontal flip
+    and random crop from the 4-pixel reflect-padded image, on the host, a
+    ``Trainer(transform=...)``."""
+    n, h, w, _ = feats.shape
+    out = np.where(
+        (rng.random(n) < 0.5)[:, None, None, None], feats[:, :, ::-1], feats)
+    pad = 4
+    padded = np.pad(out, ((0, 0), (pad, pad), (pad, pad), (0, 0)),
+                    mode="reflect")
+    ys = rng.integers(0, 2 * pad + 1, size=n)
+    xs = rng.integers(0, 2 * pad + 1, size=n)
+    windows = np.lib.stride_tricks.sliding_window_view(
+        padded, (h, w), axis=(1, 2))
+    out = windows[np.arange(n), ys, xs].transpose(0, 2, 3, 1)
+    return np.ascontiguousarray(out), labels
+
+
+def native_counters(snap: dict) -> dict:
+    c = snap["counters"]
+    return {k: c.get(f"native.{k}", 0.0)
+            for k in ("gather_calls", "gather_bytes",
+                      "gather_fallback_calls")}
+
+
+def feed_store(gpu: str, seed: int, workdir: str):
+    """(a) The store: ``FEED_ROWS`` random uint8 images and labels written
+    through ``ShardWriter``; round 0 of the sharded plan bit-equal to the
+    in-RAM plan's. Returns ``(sdf, ram frame, x, y)``."""
+    from distkeras_tpu_torch import ShardedDataFrame, ShardWriter
+    from distkeras_tpu_torch.data import DataFrame, make_batches
+
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, size=(FEED_ROWS, 224, 224, 3), dtype=np.uint8)
+    y = rng.integers(0, 1000, size=FEED_ROWS).astype(np.int32)
+    root = os.path.join(workdir, "store")
+    t0 = time.perf_counter()
+    with ShardWriter(root, rows_per_shard=FEED_ROWS_PER_SHARD) as w:
+        for lo in range(0, FEED_ROWS, FEED_ROWS_PER_SHARD):
+            w.append(features=x[lo:lo + FEED_ROWS_PER_SHARD],
+                     label=y[lo:lo + FEED_ROWS_PER_SHARD])
+    write_s = time.perf_counter() - t0
+    sdf = ShardedDataFrame(root)
+    ram = DataFrame({"features": x, "label": y})
+    B, Kw = RESNET["batch_size"], RESNET["steps_per_program"]
+    splan = make_batches(sdf, "features", "label", B, 1, window=Kw)
+    rplan = make_batches(ram, "features", "label", B, 1, window=Kw)
+    (sx, sy), (rx, ry) = splan.round(0), rplan.round(0)
+    equal = bool(np.array_equal(sx, rx) and np.array_equal(sy, ry))
+    emit({"phase": "sharded_feed", "part": "store", "gpu": gpu,
+          "rows": FEED_ROWS, "row_bytes": int(x[0].nbytes),
+          "store_mb": x.nbytes / 1e6, "rows_per_shard": FEED_ROWS_PER_SHARD,
+          "shards": sdf.store.num_shards, "write_s": write_s,
+          "plan": type(splan).__name__, "round_rows": int(sx.shape[0]
+                                                          * sx.shape[1]
+                                                          * sx.shape[2]),
+          "round0_shards": sdf.store.shards_for_rows(0, Kw * B),
+          "round0_bit_equal_to_ram": equal})
+    if type(splan).__name__ != "ShardedBatchPlan" or not equal:
+        fail(f"the shard store's round 0 ({type(splan).__name__}) is not "
+             f"bit-equal to the in-RAM plan's")
+    return sdf, ram, x, y
+
+
+def feed_arm(torch, G, gpu: str, seed: int, arm: str, frame,
+             extra: dict) -> tuple:
+    """(b) One arm: ``SynchronousDistributedTrainer(resnet50(norm_impl=
+    "pallas"))`` in bf16 trained on ``frame`` as a user would, the
+    GroupNorm counts set to 0 just before and read just after; then the
+    staging of each round timed alone over the same plan. Returns
+    ``(trained, launches)``."""
+    from distkeras_tpu_torch import SynchronousDistributedTrainer, resnet50
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.data import make_batches
+
+    B, Kw = RESNET["batch_size"], RESNET["steps_per_program"]
+    steps = RESNET_ROUNDS * Kw
+    model = resnet50(norm_impl="pallas", seed=seed, device="cuda")
+    trainer = SynchronousDistributedTrainer(
+        model, "sgd", "sparse_categorical_crossentropy", **RESNET,
+        compute_dtype=FEED_DTYPE, **extra)
+    telemetry.reset()
+    torch.cuda.synchronize()
+    G.reset_launches()  # counts start at 0 just before the main path runs
+    t0 = time.perf_counter()
+    trained = trainer.train(frame)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = G.launch_counts()
+    entries = G.launch_counts(by_entry=True)
+    snap = telemetry.get().snapshot()
+    hist = trainer.get_history()
+    moved = max((trained.params[k] - v).abs().max().item()
+                for k, v in model.params.items())
+    plan = make_batches(frame, "features", "label", B, 1, window=Kw,
+                        transform=extra.get("transform"))
+    stage_ms = []
+    for r in range(plan.num_rounds):
+        t0 = time.perf_counter()
+        plan.round(r)
+        stage_ms.append((time.perf_counter() - t0) * 1e3)
+    native = native_counters(snap)
+    emit({"phase": "sharded_feed", "part": "train", "arm": arm, "gpu": gpu,
+          "trainer": "SynchronousDistributedTrainer",
+          "model": "resnet50(norm_impl='pallas')", "rounds": RESNET_ROUNDS,
+          **RESNET, "dtype": FEED_DTYPE,
+          "frame": type(frame).__name__,
+          "augment": ("device_transform=flip_crop_transform()"
+                      if "device_transform" in extra else
+                      "transform=host_augment" if "transform" in extra
+                      else None),
+          "seconds": wall, "samples_per_s": steps * B / wall,
+          "ms_per_local_step": wall / steps * 1e3,
+          "input_stall_s": snap["counters"].get("input_stall_seconds"),
+          "stage_ms_per_round": float(np.mean(stage_ms)),
+          "stage_ms": stage_ms,
+          "stage": "plan.round(r) on the host alone, after the run: the "
+                   "gather (and the host transform, in the host arm); the "
+                   "store's pages warm",
+          **{f"native_{k}": v for k, v in native.items()},
+          "launches": launches, "launches_by_entry": entries,
+          "local_steps": steps, "gn_per_step": GN_PER_STEP,
+          "history": [float(v) for v in hist],
+          "center_max_abs_change": moved})
+    if not np.all(np.isfinite(hist)):
+        fail(f"sharded_feed {arm}: non-finite loss {hist}")
+    if not moved > 0:
+        fail(f"sharded_feed {arm}: the trained ResNet-50 equals its init")
+    want = GN_PER_STEP * steps
+    if launches != {"group_norm_fwd": want, "group_norm_bwd": want}:
+        fail(f"sharded_feed {arm}: GroupNorm launches {launches} in {steps} "
+             f"local steps; want {GN_PER_STEP} of each a step ({want})")
+    only_dtype(f"sharded_feed {arm} ResNet-50", entries, FEED_DTYPE)
+    if native["gather_fallback_calls"] or not native["gather_calls"]:
+        fail(f"sharded_feed {arm}: the rounds were not all gathered "
+             f"natively: {native}")
+    del model, trainer
+    return trained, launches
+
+
+def feed_augment(torch, gpu: str, seed: int, x) -> dict:
+    """(c) ``flip_crop`` on a ``FEED_AUG_BATCH``-row uint8 batch on the
+    card, bit-equal to the CPU's on the same batch and draws; its CUDA-event
+    ms beside its bound (the batch read and written once) and the host
+    times of the CPU ``flip_crop`` and of ``host_augment``."""
+    from distkeras_tpu_torch.ops.augment import flip_crop
+
+    pad = 4
+    cpu = torch.from_numpy(np.ascontiguousarray(x[:FEED_AUG_BATCH]))
+    gen = torch.Generator().manual_seed(seed)
+    flip = torch.rand(FEED_AUG_BATCH, generator=gen) < 0.5
+    ys = torch.randint(0, 2 * pad + 1, (FEED_AUG_BATCH,), generator=gen)
+    xs = torch.randint(0, 2 * pad + 1, (FEED_AUG_BATCH,), generator=gen)
+    card = cpu.cuda()
+    got = flip_crop(card, flip, ys, xs, pad)
+    t0 = time.perf_counter()
+    want = flip_crop(cpu, flip, ys, xs, pad)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    equal = bool(torch.equal(got.cpu(), want))
+    draws = tuple(t.cuda() for t in (flip, ys, xs))
+    ms = cuda_ms(torch, lambda: flip_crop(card, *draws, pad), FEED_AUG_REPS)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    host_augment(x[:FEED_AUG_BATCH], None, rng)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    bound_ms, bound_by = bound(2 * cpu.numel(), 0, PEAK_BF16_FLOPS)
+    row = {"phase": "sharded_feed", "part": "augment", "gpu": gpu,
+           "shape": list(cpu.shape), "dtype": "uint8", "pad": pad,
+           "bit_equal_to_cpu": equal, "ms": ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "cpu_flip_crop_ms": cpu_ms,
+           "host_augment_ms": host_ms,
+           "timing": f"CUDA events, mean of {FEED_AUG_REPS} after a warm "
+                     "call, the draws already on the card; the host times "
+                     "one call each"}
+    emit(row)
+    if not equal:
+        fail("flip_crop on the card differs from the CPU's")
+    return row
+
+
+def feed_gather(gpu: str, sdf, x) -> dict:
+    """(d) One round from the store (``2 x 128`` rows) through
+    ``ShardStore.gather``, native against numpy (``DKTPU_NO_NATIVE=1``), in
+    turns, and the same for the in-RAM array: host ms, medians of
+    ``FEED_GATHER_READS``, bit-equal."""
+    B, Kw = RESNET["batch_size"], RESNET["steps_per_program"]
+    idx = np.arange(Kw * B).reshape(1, Kw, B)
+    times = {k: [] for k in ("store_native", "store_numpy", "ram_native",
+                             "ram_numpy")}
+    outs = {}
+    from distkeras_tpu_torch.data.native_loader import gather_rows
+
+    for _ in range(FEED_GATHER_READS):
+        for how in ("native", "numpy"):
+            with contextlib.ExitStack() as stack:
+                if how == "numpy":
+                    stack.enter_context(env_set(DKTPU_NO_NATIVE="1"))
+                for where, fn in (
+                        ("store", lambda: sdf.store.gather("features", idx)),
+                        ("ram", lambda: gather_rows(x, idx))):
+                    t0 = time.perf_counter()
+                    outs[f"{where}_{how}"] = fn()
+                    times[f"{where}_{how}"].append(
+                        (time.perf_counter() - t0) * 1e3)
+    equal = all(np.array_equal(outs[k], x[idx]) for k in outs)
+    med = {f"{k}_ms": float(np.median(v)) for k, v in times.items()}
+    row = {"phase": "sharded_feed", "part": "gather", "gpu": gpu,
+           "rows": int(idx.size), "mb": idx.size * x[0].nbytes / 1e6,
+           **med, "readings_ms": times, "bit_equal": equal,
+           "store_numpy_over_native": med["store_numpy_ms"]
+           / med["store_native_ms"],
+           "ram_numpy_over_native": med["ram_numpy_ms"]
+           / med["ram_native_ms"],
+           "timing": f"host clock, median of {FEED_GATHER_READS} in turns; "
+                     "the store's pages warm (just written)"}
+    emit(row)
+    if not equal:
+        fail("the native gather differs from numpy's fancy indexing")
+    return row
+
+
+def feed_pairs(torch, gpu: str, seed: int) -> dict:
+    """(e) Config #3 (``AEASGD(cifar10_cnn())``, ``CNN_TRAIN``'s widths,
+    bf16, ``CNN_ROUNDS`` rounds) from the in-RAM frame, with the native
+    gather and with ``DKTPU_NO_NATIVE=1``, after a warm run, in the order
+    ``FEED_PAIR_ORDER``: samples/s and ``input_stall_seconds`` of each."""
+    from distkeras_tpu_torch import telemetry, trainers
+    from distkeras_tpu_torch.datasets import cifar10
+    from distkeras_tpu_torch.models import cifar10_cnn
+
+    name, trainer_name, kw = CNN_TRAIN[1]
+    n = CNN_ROUNDS * kw["num_workers"] * kw["communication_window"] \
+        * kw["batch_size"]
+    frame = cifar10(n=n, seed=seed)
+    runs = []
+    for how in ("warm",) + FEED_PAIR_ORDER:
+        model = cifar10_cnn(seed=seed, device="cuda")
+        trainer = getattr(trainers, trainer_name)(
+            model, loss="sparse_categorical_crossentropy",
+            compute_dtype=FEED_DTYPE, **kw)
+        with contextlib.ExitStack() as stack:
+            if how == "numpy":
+                stack.enter_context(env_set(DKTPU_NO_NATIVE="1"))
+            telemetry.reset()
+            torch.cuda.synchronize()
+            reset_all_launches()
+            t0 = time.perf_counter()
+            trainer.train(frame)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        snap = telemetry.get().snapshot()
+        hist = trainer.get_history()
+        if not np.all(np.isfinite(hist)):
+            fail(f"sharded_feed pairs ({how}): non-finite loss {hist}")
+        check_no_kernel(f"sharded_feed pairs ({how})")
+        native = native_counters(snap)
+        if how == "numpy" and native["gather_calls"]:
+            fail(f"DKTPU_NO_NATIVE=1 still gathered natively: {native}")
+        if how != "numpy" and native["gather_fallback_calls"]:
+            fail(f"the native gather fell back to numpy: {native}")
+        runs.append({"gather": how, "seconds": wall,
+                     "samples_per_s": n / wall,
+                     "input_stall_s": snap["counters"].get(
+                         "input_stall_seconds"), **native})
+        del model, trainer
+    timed = runs[1:]
+    rate = {how: [r["samples_per_s"] for r in timed if r["gather"] == how]
+            for how in ("native", "numpy")}
+    row = {"phase": "sharded_feed", "part": "data_paced_pair", "gpu": gpu,
+           "config": 3, "model": f"{name}()", "trainer": trainer_name,
+           "dtype": FEED_DTYPE, "rounds": CNN_ROUNDS, **kw,
+           "round_mb": kw["num_workers"] * kw["communication_window"]
+           * kw["batch_size"] * frame["features"][0].nbytes / 1e6,
+           "runs": runs,
+           "native_over_numpy": float(np.mean(rate["native"])
+                                      / np.mean(rate["numpy"]))}
+    emit(row)
+    return row
+
+
+def feed_predict(torch, gpu: str, sdf, ram, trained, root: str) -> dict:
+    """(f) ``ModelPredictor(trained).predict(sdf)`` over the store on the
+    card against the in-RAM predict of the same rows; ``AccuracyEvaluator``
+    on the sharded frame against the same column in RAM; a second predict
+    versions the column and ``vacuum`` reclaims the first."""
+    from distkeras_tpu_torch import AccuracyEvaluator, ModelPredictor
+    from distkeras_tpu_torch.data import DataFrame
+    from distkeras_tpu_torch.data.shards import _shard_file
+    from distkeras_tpu_torch.predictors import vacuum
+
+    pred = ModelPredictor(trained, chunk_size=FEED_PREDICT_CHUNK)
+    t0 = time.perf_counter()
+    out = pred.predict(sdf)
+    predict_s = time.perf_counter() - t0
+    col = np.concatenate([c["prediction"] for c in
+                          out.iter_column_chunks("prediction")])
+    ref = pred.predict(ram)["prediction"]
+    err = float(np.abs(col - ref).max())
+    acc = AccuracyEvaluator().evaluate(out)
+    acc_ram = AccuracyEvaluator().evaluate(
+        DataFrame({"prediction": col, "label": ram["label"]}))
+    out2 = pred.predict(out)
+    spec = dict(out2.store.columns["prediction"])
+    garbage = out2.store.manifest.get("garbage")
+    shards = out2.store.num_shards
+    old = [os.path.join(root, _shard_file(s, "prediction"))
+           for s in range(shards)]
+    kept = all(os.path.exists(p) for p in old)
+    removed = vacuum(root)
+    gone = not any(os.path.exists(p) for p in old)
+    again = np.concatenate([c["prediction"] for c in
+                            out2.iter_column_chunks("prediction")])
+    row = {"phase": "sharded_feed", "part": "predict", "gpu": gpu,
+           "rows": len(col), "chunk_size": FEED_PREDICT_CHUNK,
+           "seconds": predict_s, "rows_per_s": len(col) / predict_s,
+           "max_abs_err_vs_ram": err, "atol": FEED_PREDICT_ATOL,
+           "accuracy_sharded": acc, "accuracy_ram": acc_ram,
+           "second_column": spec, "garbage": garbage,
+           "old_files_kept_until_vacuum": kept, "vacuum_removed": removed,
+           "old_files_gone": gone,
+           "second_equals_first": bool(np.array_equal(again, col))}
+    emit(row)
+    if not err <= FEED_PREDICT_ATOL:
+        fail(f"the sharded predict strays from the in-RAM one: {err}")
+    if acc != acc_ram:
+        fail(f"AccuracyEvaluator on the sharded frame {acc} != {acc_ram}")
+    if not (spec.get("file", "").startswith("prediction.")
+            and garbage == ["prediction"] and kept and removed == shards
+            and gone and row["second_equals_first"]):
+        fail(f"the second predict or vacuum misbehaved: {row}")
+    return row
+
+
+def sharded_feed_phase(torch, G, gpu: str, seed: int, workdir: str) -> dict:
+    """Config #5 trained from a uint8 shard store as the reference's
+    ``examples/imagenet_disk.py`` does, (a)-(f); returns the GroupNorm
+    launches of each arm of (b)."""
+    sdf, ram, x, y = feed_store(gpu, seed, workdir)
+    from distkeras_tpu_torch.ops.augment import flip_crop_transform
+
+    launches, trained = {}, None
+    for arm, frame, extra in (
+            ("device", sdf, {"device_transform": flip_crop_transform()}),
+            ("host", sdf, {"transform": host_augment}),
+            ("ram", ram, {})):
+        model, launches[arm] = feed_arm(torch, G, gpu, seed, arm, frame,
+                                        extra)
+        if arm == "device":
+            trained = model
+        del model
+        torch.cuda.empty_cache()
+    feed_augment(torch, gpu, seed, x)
+    feed_gather(gpu, sdf, x)
+    feed_pairs(torch, gpu, seed)
+    torch.cuda.empty_cache()
+    feed_predict(torch, gpu, sdf, ram, trained, sdf.store.path)
+    del trained
+    return launches
 
 
 def fold_bound_ms(n: int, codec: str) -> tuple[float, str]:
@@ -6921,6 +7326,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     try:
+        from distkeras_tpu_torch.data import native_loader
         from distkeras_tpu_torch.ops.kernels import build
         from distkeras_tpu_torch.ops.kernels import flash_attention as FA
         from distkeras_tpu_torch.ops.kernels import fold as F
@@ -6942,10 +7348,23 @@ def main() -> None:
     ptxas = {k: [ln.strip() for ln in v.with_suffix(".log").read_text()
                  .splitlines() if "Used" in ln or "spill" in ln]
              for k, v in libs.items() if v.with_suffix(".log").exists()}
+    cuda_s = time.perf_counter() - t0
+    # The native data-plane loop (host C++, g++: nvcc's host compiler),
+    # built from the checkout before any phase gathers a round.
+    cxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60)
+    t1 = time.perf_counter()
+    native_lib = native_loader.build()
+    native_loader.get_lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "cuda_seconds": cuda_s,
           "per_source_s": dict(build.BUILD_SECONDS),
           "libraries": {k: str(v) for k, v in libs.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "native_loader": {"library": str(native_lib),
+                            "seconds": time.perf_counter() - t1,
+                            "compiler": cxx.stdout.splitlines()[0],
+                            "threads": native_loader.num_threads()}})
     flash_log = libs["flash_attn"].with_suffix(".log")
     flash_regs = flash_registers(flash_log.read_text()
                                  if flash_log.exists() else "")
@@ -7037,6 +7456,13 @@ def main() -> None:
     bf16_gn_launches = resnet_train_phase(torch, G, gpu, args.seed,
                                           "bfloat16")
     resnet_parity_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    lap("sharded_feed")
+    workdir = os.path.join("build", "sharded_feed")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    feed_launches = sharded_feed_phase(torch, G, gpu, args.seed, workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
     lap("fold")
@@ -7218,7 +7644,11 @@ def main() -> None:
                 "bf16_max_abs_err": max(r[err_key] for r in bf16),
                 "bf16_step_ms": step_sum(bf16, f"{pre}ms"),
                 "bf16_step_library_ms": step_sum(bf16, f"{pre}library_ms"),
-                "bf16_step_bound_ms": step_sum(bf16, f"{pre}bound_ms")}
+                "bf16_step_bound_ms": step_sum(bf16, f"{pre}bound_ms"),
+                # config #5 fed from the uint8 shard store, each arm
+                # counted from 0 just before its run and read just after
+                "sharded_feed_bf16_launches": {
+                    arm: c[name] for arm, c in feed_launches.items()}}
 
     def fold_entry():
         """One IMDB commit (config #4, what ``remote_train`` folds) in

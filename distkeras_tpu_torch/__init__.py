@@ -46,7 +46,17 @@ Ported so far:
   retry-with-resume, the checkpoint fallback, the parameter server's
   chaos proxy (``netps.chaos.ChaosProxy``), the reference's
   ``AveragingTrainer`` and ``EnsembleTrainer``, and the resume of an async
-  trainer at another ``num_workers``.
+  trainer at another ``num_workers``;
+* the out-of-core data plane: ``ShardWriter``/``write_shards`` (and
+  ``merge_manifests`` after parallel ``part=k`` writers) lay a dataset out
+  as ``.npy`` shards the JAX package reads too, and
+  ``trainer.train(ShardedDataFrame(root))`` gathers each round from disk
+  through the native threaded gather (``data/native_loader.py``, host
+  C++), with the crop and flip on the card under
+  ``device_transform=ops.augment.flip_crop_transform()``;
+  ``ModelPredictor.predict`` and the evaluators stream a sharded store
+  shard by shard, and ``predictors.vacuum`` reclaims superseded
+  prediction columns.
 """
 
 from distkeras_tpu_torch.data import (
@@ -56,7 +66,12 @@ from distkeras_tpu_torch.data import (
     MinMaxTransformer,
     OneHotTransformer,
     ReshapeTransformer,
+    ShardedDataFrame,
+    ShardStore,
+    ShardWriter,
     Transformer,
+    merge_manifests,
+    write_shards,
 )
 from distkeras_tpu_torch.evaluators import (
     AccuracyEvaluator,
@@ -112,11 +127,12 @@ __all__ = [
     "EnsembleTrainer", "F1Evaluator", "FaultPlan",
     "LSTMClassifier", "LabelIndexTransformer", "LossEvaluator", "MLP",
     "MinMaxTransformer", "Model", "ModelPredictor", "OneHotTransformer",
-    "ProbabilityPredictor", "ReshapeTransformer", "ResNet", "SimpleCNN",
+    "ProbabilityPredictor", "ReshapeTransformer", "ResNet", "ShardStore",
+    "ShardWriter", "ShardedDataFrame", "SimpleCNN",
     "SingleTrainer", "Supervisor", "SynchronousDistributedTrainer",
     "Trainer",
     "Transformer", "TransformerLM", "cifar10_cnn", "deserialize_model",
-    "deserialize_params", "imdb_lstm", "mnist_cnn", "mnist_mlp", "resnet50",
-    "serialize_model", "serialize_params", "small_transformer_lm",
-    "supervise", "tiny_resnet",
+    "deserialize_params", "imdb_lstm", "merge_manifests", "mnist_cnn",
+    "mnist_mlp", "resnet50", "serialize_model", "serialize_params",
+    "small_transformer_lm", "supervise", "tiny_resnet", "write_shards",
 ]

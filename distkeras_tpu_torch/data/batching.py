@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 
 from distkeras_tpu_torch.data.dataframe import DataFrame
+from distkeras_tpu_torch.data.native_loader import gather_rows
 
 
 def apply_round_transform(transform, seed: int, r: int, workers, xs, ys):
@@ -91,10 +92,10 @@ class BatchPlan:
 
     def round(self, r: int) -> tuple[np.ndarray, np.ndarray]:
         """Materialize round ``r``: ``[W, K, B, ...]`` feature + label arrays
-        (numpy fancy indexing: bit-identical to the JAX package's native
-        threaded gather)."""
+        through the native threaded gather (``data/native_loader.py``),
+        bit-identical to numpy's fancy indexing."""
         idx = self.index[r]
-        xs, ys = self.x[idx], self.y[idx]
+        xs, ys = gather_rows(self.x, idx), gather_rows(self.y, idx)
         if self.transform is not None:
             xs, ys = apply_round_transform(
                 self.transform, self.transform_seed, r,
@@ -124,13 +125,19 @@ def make_batches(
     transform applied to every staged round, deterministically seeded per
     (seed, round, worker) — see :func:`apply_round_transform`.
 
-    Memmap-backed columns stay on disk (``np.asarray`` of a memmap is a
-    view). Sharded stores (the JAX package's ``ShardedDataFrame``) come with
-    a later slice of the port.
+    A :class:`~.shards.ShardedDataFrame` routes to the disk-backed planner
+    (``shards.make_sharded_batches``): the same trainer call, with the rows
+    left on disk and gathered round by round. Memmap-backed columns in a
+    plain DataFrame also stay on disk (``np.asarray`` of a memmap is a
+    view).
     """
     if getattr(df, "is_sharded", False):
-        raise NotImplementedError(
-            "sharded DataFrames are not ported yet; pass an in-RAM DataFrame")
+        from distkeras_tpu_torch.data.shards import make_sharded_batches
+
+        return make_sharded_batches(
+            df, features_col, label_col, batch_size, num_workers,
+            window=window, num_epoch=num_epoch, shuffle=shuffle, seed=seed,
+            transform=transform)
     x = np.asarray(df[features_col])
     y = np.asarray(df[label_col])
     n = len(x)

@@ -9,11 +9,12 @@ here, over the numpy-backed
 :class:`~distkeras_tpu_torch.data.dataframe.DataFrame`. They run once on the
 host before training, as columnar numpy.
 
-``MinMaxTransformer`` computes the JAX package's numpy formula
-``((x - offset) * scale) + bias`` in float32; the JAX package may take its
-native loader's C++ loop for it (a later slice of the port), which a
-compiler may contract into a fused multiply-add, so the two agree within
-one float32 ulp.
+``MinMaxTransformer`` computes ``((x - offset) * scale) + bias`` in
+float32 through the native loader's C++ loop (``data/native_loader.py
+scale_f32``), as the JAX package does: the same source and flags, so the
+two packages agree bit for bit on one machine. The numpy formula
+(``DKTPU_NO_NATIVE=1``) agrees with the loop within one float32 ulp, as a
+compiler may contract the loop into a fused multiply-add.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from distkeras_tpu_torch.data.dataframe import DataFrame
+from distkeras_tpu_torch.data.native_loader import scale_f32
 
 
 class Transformer:
@@ -103,10 +105,7 @@ class MinMaxTransformer(Transformer):
         if scale == 0.0:
             out = np.full_like(x, self.o_min)
         else:
-            # o_min added apart from i_min, so that a huge scale (a
-            # degenerate input range) cannot cancel it away in float32
-            out = (((x - np.float32(i_min)) * np.float32(scale))
-                   + np.float32(self.o_min)).astype(np.float32)
+            out = scale_f32(x, i_min, scale, bias=self.o_min)
         return df.with_column(self.output_col, out)
 
 

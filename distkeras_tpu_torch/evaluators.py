@@ -5,12 +5,14 @@ The reference's ``AccuracyEvaluator`` compares a prediction column with a
 label column over a Spark DataFrame; its notebooks also lean on Spark-ML's
 MulticlassClassificationEvaluator (F1). Both live here as plain columnar
 numpy, a host-side reduction; ``LossEvaluator`` runs the port's loss
-registry on CPU tensors. Sharded stores (``ShardedDataFrame``) come with
-the ``data/shards.py`` slice and are refused until then.
+registry on CPU tensors. A sharded store (``ShardedDataFrame``) evaluates
+as a bounded-memory stream, one shard's rows at a time
+(``iter_column_chunks``), accumulated chunk by chunk.
 """
 
 from __future__ import annotations
 
+import warnings
 from collections import defaultdict
 
 import numpy as np
@@ -26,28 +28,28 @@ def _to_class_indices(col: np.ndarray) -> np.ndarray:
     return col.reshape(-1).astype(np.int64)
 
 
-def refuse_sharded(dataframe, what: str) -> None:
-    """``NotImplementedError`` for a sharded store (``is_sharded``), which
-    the port reads only once its ``data/shards.py`` slice lands."""
-    if getattr(dataframe, "is_sharded", False):
-        raise NotImplementedError(
-            f"{what} over a sharded store (ShardedDataFrame) is not ported "
-            f"to distkeras_tpu_torch yet; it comes with the data/shards.py "
-            f"slice. Pass an in-RAM DataFrame")
-
-
 class Evaluator:
-    """Base: ``evaluate(df) -> float`` over an in-RAM :class:`DataFrame`."""
+    """Base: ``evaluate(df) -> float`` over an in-RAM :class:`DataFrame` or
+    a ``ShardedDataFrame`` (one shard's rows at a time)."""
 
     def __init__(self, prediction_col: str = "prediction", label_col: str = "label"):
         self.prediction_col = prediction_col
         self.label_col = label_col
 
-    def _indices(self, dataframe):
-        """(pred_indices, label_indices) of the whole frame."""
-        refuse_sharded(dataframe, type(self).__name__)
-        return (_to_class_indices(dataframe[self.prediction_col]),
-                _to_class_indices(dataframe[self.label_col]))
+    def _column_chunks(self, dataframe):
+        """``{col: rows}`` of the prediction and label columns, per
+        bounded chunk (the whole frame when it is in RAM)."""
+        cols = (self.prediction_col, self.label_col)
+        if getattr(dataframe, "is_sharded", False):
+            yield from dataframe.iter_column_chunks(*cols)
+        else:
+            yield {c: dataframe[c] for c in cols}
+
+    def _chunks(self, dataframe):
+        """(pred_indices, label_indices) per bounded chunk."""
+        for chunk in self._column_chunks(dataframe):
+            yield (_to_class_indices(chunk[self.prediction_col]),
+                   _to_class_indices(chunk[self.label_col]))
 
     def evaluate(self, dataframe) -> float:
         raise NotImplementedError
@@ -61,8 +63,11 @@ class AccuracyEvaluator(Evaluator):
     """
 
     def evaluate(self, dataframe) -> float:
-        pred, label = self._indices(dataframe)
-        return int((pred == label).sum()) / len(label) if len(label) else 0.0
+        correct = total = 0
+        for pred, label in self._chunks(dataframe):
+            correct += int((pred == label).sum())
+            total += len(label)
+        return correct / total if total else 0.0
 
 
 class F1Evaluator(Evaluator):
@@ -70,16 +75,18 @@ class F1Evaluator(Evaluator):
     notebooks' Spark-ML MulticlassClassificationEvaluator equivalent)."""
 
     def evaluate(self, dataframe) -> float:
-        pred, label = self._indices(dataframe)
         tp: dict = defaultdict(int)
         fp: dict = defaultdict(int)
         fn: dict = defaultdict(int)
-        for c in set(np.unique(label)) | set(np.unique(pred)):
-            tp[c] += int(np.sum((pred == c) & (label == c)))
-            fp[c] += int(np.sum((pred == c) & (label != c)))
-            fn[c] += int(np.sum((pred != c) & (label == c)))
+        classes: set = set()
+        for pred, label in self._chunks(dataframe):
+            classes.update(np.unique(label).tolist())
+            for c in set(np.unique(label)) | set(np.unique(pred)):
+                tp[c] += int(np.sum((pred == c) & (label == c)))
+                fp[c] += int(np.sum((pred == c) & (label != c)))
+                fn[c] += int(np.sum((pred != c) & (label == c)))
         scores = []
-        for c in sorted(set(np.unique(label).tolist())):
+        for c in sorted(classes):  # macro over classes present in labels
             denom = 2 * tp[c] + fp[c] + fn[c]
             scores.append(2 * tp[c] / denom if denom else 0.0)
         return float(np.mean(scores)) if scores else 0.0
@@ -87,16 +94,37 @@ class F1Evaluator(Evaluator):
 
 class LossEvaluator(Evaluator):
     """Mean loss of a prediction column vs labels under a registry loss
-    (``ops/losses.py``), on CPU tensors."""
+    (``ops/losses.py``), on CPU tensors.
+
+    A sharded store accumulates ``chunk_loss * chunk_rows / total``: exact
+    when the loss is mean-reduced over rows (every registry loss is), so a
+    custom callable warns there."""
 
     def __init__(self, loss: str = "sparse_categorical_crossentropy",
                  prediction_col: str = "prediction", label_col: str = "label"):
         super().__init__(prediction_col, label_col)
+        self._custom_loss = not isinstance(loss, str)
         self.loss_fn = get_loss(loss)
 
-    def evaluate(self, dataframe) -> float:
-        refuse_sharded(dataframe, "LossEvaluator")
+    def _one(self, pred, label) -> float:
         with torch.no_grad():
-            return float(self.loss_fn(
-                torch.as_tensor(np.asarray(dataframe[self.prediction_col])),
-                torch.as_tensor(np.asarray(dataframe[self.label_col]))))
+            return float(self.loss_fn(torch.as_tensor(np.asarray(pred)),
+                                      torch.as_tensor(np.asarray(label))))
+
+    def evaluate(self, dataframe) -> float:
+        if not getattr(dataframe, "is_sharded", False):
+            return self._one(dataframe[self.prediction_col],
+                             dataframe[self.label_col])
+        if self._custom_loss:
+            warnings.warn(
+                "LossEvaluator over a sharded store assumes the loss is "
+                "mean-reduced per row (chunk losses are row-weighted); "
+                "a sum-reduced custom callable will not match the "
+                "in-RAM result", stacklevel=2)
+        total = n = 0.0
+        for chunk in self._column_chunks(dataframe):
+            k = len(chunk[self.label_col])
+            total += self._one(chunk[self.prediction_col],
+                               chunk[self.label_col]) * k
+            n += k
+        return total / n if n else 0.0

@@ -296,6 +296,14 @@ def run_remote(
     """
     check_discipline(discipline)
     _refuse_unported()
+    if getattr(plan, "is_local", False):
+        # Each worker thread gathers its rows from the plan's in-RAM
+        # arrays; the JAX package's loop dies of an AttributeError here.
+        raise ValueError(
+            "remote= training from a sharded store (ShardedDataFrame) is "
+            "not supported: the remote worker loop gathers each round from "
+            "an in-RAM DataFrame's arrays; train in process, or load the "
+            "rows into a DataFrame")
     W = plan.num_workers
     explicit_inflight = (inflight is not None
                          or config.env_is_set("DKTPU_NET_INFLIGHT"))

@@ -6,14 +6,20 @@ and appends a prediction column (``ModelPredictor.predict(df)``). Here the
 forward runs on the model's one device under ``torch.inference_mode()``,
 in fixed ``chunk_size`` chunks: the last chunk is padded with repeats of
 its final row and the padding trimmed, so every chunk has one shape, as in
-the JAX package (where each shape is a compiled program). The multi-device
-mesh, the out-of-core sharded-store paths (``_predict_sharded*``,
-``vacuum`` and the manifests) come with the ``data/shards.py`` slice and
+the JAX package (where each shape is a compiled program). A sharded store
+(``ShardedDataFrame``) is predicted shard by shard into a new, versioned
+column of the same store (``_predict_sharded``; :func:`vacuum` reclaims
+superseded columns). The forward across several devices and the
+multi-process sharded predictor come with ROADMAP.md Queue 1 item 5 and
 are refused until then.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
+import uuid
 from collections import deque
 from typing import Optional
 
@@ -22,7 +28,11 @@ import torch
 
 from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.data.dataframe import DataFrame
-from distkeras_tpu_torch.evaluators import refuse_sharded
+from distkeras_tpu_torch.data.shards import (
+    ShardedDataFrame,
+    ShardStore,
+    _shard_file,
+)
 from distkeras_tpu_torch.models.base import Model, normalize_features
 
 
@@ -33,12 +43,97 @@ class Predictor:
         raise NotImplementedError
 
 
+def _observe_shards(stream):
+    """Pass-through over a per-shard prediction stream that records per-shard
+    rows and wall time (histograms ``predict.shard_rows`` and
+    ``predict.shard_seconds``): the skew between shards.
+
+    Timed around the generator resume only: the consumer's work after each
+    yield (the per-shard ``np.save``) must not bleed into the next shard's
+    observation."""
+    tele = telemetry.get()
+    rows = tele.histogram("predict.shard_rows")
+    secs = tele.histogram("predict.shard_seconds")
+    it = iter(stream)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            out = next(it)
+        except StopIteration:
+            return
+        secs.observe(time.perf_counter() - t0)
+        rows.observe(float(len(out)))
+        yield out
+
+
+def _unlink_column_files(path: str, physical: str, num_shards: int) -> int:
+    """Best-effort removal of a superseded physical column's shard files;
+    returns how many files were removed. Missing files are fine (already
+    cleaned); memmapped readers holding the old manifest survive the
+    unlink (POSIX)."""
+    removed = 0
+    for s in range(num_shards):
+        try:
+            os.remove(os.path.join(path, _shard_file(s, physical)))
+            removed += 1
+        except OSError:
+            pass
+    return removed
+
+
+def _publish_manifest(path: str, manifest: dict, tag: str = "") -> None:
+    """Atomic manifest publish (tmp + rename), the one write path of both
+    the predict publish and :func:`vacuum`; ``tag`` disambiguates the tmp
+    name."""
+    tmp = os.path.join(path, f".manifest.json{tag}.tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f)
+    os.replace(tmp, os.path.join(path, "manifest.json"))
+
+
+def _rotate_garbage(manifest: dict, old_physical: Optional[str]) -> None:
+    """Install this publish's superseded physical column as the manifest's
+    ``garbage`` list (replacing the previous publish's, which the caller
+    reclaims): the deferred-deletion rotation."""
+    if old_physical is not None:
+        manifest["garbage"] = [old_physical]
+    else:
+        manifest.pop("garbage", None)
+
+
 def vacuum(path: str) -> int:
-    """Reclaim superseded prediction columns of a sharded store: not ported
-    yet (the ``data/shards.py`` slice)."""
-    raise NotImplementedError(
-        "vacuum (sharded prediction stores) is not ported to "
-        "distkeras_tpu_torch yet; it comes with the data/shards.py slice")
+    """Reclaim superseded prediction columns' shard files now; returns the
+    number of files removed.
+
+    Re-predicting an existing column writes a fresh versioned physical
+    column and records the old one under the manifest's ``garbage`` list
+    instead of deleting it: a reader that opened the store before the
+    re-predict may keep reading its column files for as long as it holds
+    that manifest. Garbage is reclaimed by the next predict run over the
+    same store, or by this call."""
+    store = ShardStore.open(path)
+    garbage = list(store.manifest.get("garbage", []))
+    removed = 0
+    for physical in garbage:
+        removed += _unlink_column_files(path, physical, store.num_shards)
+    if garbage:
+        manifest = dict(store.manifest)
+        _rotate_garbage(manifest, None)
+        _publish_manifest(path, manifest)
+    return removed
+
+
+def _refuse_multiprocess() -> None:
+    """The sharded predictor across processes (the JAX package's
+    ``_predict_sharded_multiprocess``, over ``jax.process_count()``) waits
+    for the port's process group."""
+    dist = torch.distributed
+    if (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        raise NotImplementedError(
+            "predicting a sharded store across processes is not ported to "
+            "distkeras_tpu_torch yet; it comes with ROADMAP.md Queue 1 "
+            "item 5 (the torch.distributed group)")
 
 
 class ModelPredictor(Predictor):
@@ -144,7 +239,8 @@ class ModelPredictor(Predictor):
         return self._postprocess(np.concatenate(outs, axis=0))
 
     def predict(self, dataframe) -> "DataFrame":
-        refuse_sharded(dataframe, f"{type(self).__name__}.predict")
+        if getattr(dataframe, "is_sharded", False):
+            return self._predict_sharded(dataframe)
         x = np.asarray(dataframe[self.features_col])
         return dataframe.with_column(self.output_col, self._predict_array(x))
 
@@ -214,6 +310,52 @@ class ModelPredictor(Predictor):
             yield from drain()
         compute(flush=True)
         yield from drain()
+
+
+    def _predict_sharded(self, sdf) -> ShardedDataFrame:
+        """Out-of-core inference: predictions stream to disk as a new column
+        of the same store (bounded RAM: a shard's rows plus one compute
+        chunk); returns a ShardedDataFrame that includes it.
+
+        Rows buffer across shard boundaries (``predict_stream``, one shard a
+        microbatch), so only the final partial chunk is padded. The column
+        is written under a fresh physical name when it exists already, and
+        the manifest swaps atomically at the end: a crash mid-stream leaves
+        the existing column intact. The superseded version goes on the
+        manifest's ``garbage`` list (see :func:`vacuum`), and the previous
+        publish's garbage is reclaimed here."""
+        _refuse_multiprocess()
+        store = sdf.store
+        if store.count() == 0:
+            raise ValueError(f"store {store.path} has no rows to predict")
+        prior_garbage = list(store.manifest.get("garbage", []))
+        physical = self.output_col
+        old_physical = None
+        if self.output_col in store.columns:
+            old = store.columns[self.output_col]
+            old_physical = (old.get("file", self.output_col)
+                            if isinstance(old, dict) else self.output_col)
+            physical = f"{self.output_col}.{uuid.uuid4().hex[:8]}"
+        meta: dict = {}
+        source = (chunk[self.features_col]
+                  for chunk in sdf.iter_column_chunks(self.features_col))
+        for s, out in enumerate(
+                _observe_shards(self.predict_stream(source))):
+            meta.update(dtype=str(out.dtype), shape=list(out.shape[1:]))
+            np.save(os.path.join(store.path, _shard_file(s, physical)), out)
+
+        manifest = dict(store.manifest)
+        manifest["columns"] = dict(manifest["columns"])
+        colspec = {"dtype": meta["dtype"], "shape": meta["shape"]}
+        if physical != self.output_col:
+            colspec["file"] = physical
+        manifest["columns"][self.output_col] = colspec
+        _rotate_garbage(manifest, old_physical)
+        _publish_manifest(store.path, manifest)
+        for stale in prior_garbage:
+            _unlink_column_files(store.path, stale, store.num_shards)
+        return ShardedDataFrame(ShardStore.open(store.path),
+                                num_partitions=sdf.num_partitions)
 
 
 class ProbabilityPredictor(ModelPredictor):

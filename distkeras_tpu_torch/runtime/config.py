@@ -63,7 +63,7 @@ class EnvVar:
     kind: str
     default: object
     doc: str
-    # "observability" | "resilience" | "network" | "serving"
+    # "observability" | "resilience" | "network" | "serving" | "data"
     category: str
 
 
@@ -341,6 +341,11 @@ ENV_REGISTRY: dict = _declare(
            "Seconds between ModelRegistry checkpoint-directory polls for "
            "hot-swap candidates.",
            "serving"),
+    EnvVar("DKTPU_NO_NATIVE", "bool", False,
+           "`1` disables the native (C++) data-plane loops; every gather "
+           "and scale falls back to numpy (bit-identical, slower) and is "
+           "counted as a fallback.",
+           "data"),
 )
 
 _FALSE_STRINGS = frozenset({"0", "false", "no", "off"})

@@ -28,6 +28,9 @@ the per-round JSONL of :class:`~distkeras_tpu_torch.metrics.MetricsLogger`;
 an async trainer's checkpoint resumes at another ``num_workers`` through
 the engine's elastic re-topology (``host_state``/``adopt_state``), and
 ``divergence_reset=`` re-adopts the center for a worker whose loss strays.
+``train`` takes an in-RAM ``DataFrame`` or a ``ShardedDataFrame`` (the
+rounds gathered from disk, ``data/shards.py``), with a host ``transform=``
+and an on-device ``device_transform=`` (``ops/augment.py``) in process.
 Refused with ``NotImplementedError`` until its slice: model-parallel
 submeshes (``parallel``, ROADMAP.md Queue 1 item 9).
 """
@@ -194,6 +197,9 @@ class Trainer:
         #: -> (features, labels)`` applied to every staged round on the host
         #: (see ``data.batching.apply_round_transform``).
         self.transform = transform
+        #: optional on-device ``fn(gen, x, y) -> (x, y)`` run on each
+        #: step's batch before the uint8 /255 cast (``ops/augment.py``;
+        #: ``workers.make_local_loop``'s ``input_transform``).
         self.device_transform = device_transform
         self.history: np.ndarray | None = None
         self.worker_histories: np.ndarray | None = None
@@ -585,13 +591,21 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         steps -> commit over TCP through the hardened client
         (``netps/remote.py``); returns the server's final center. It has
         no divergent-worker reset (``divergence_reset`` raises here), as
-        the reference's remote loop has none."""
+        the reference's remote loop has none, and takes neither a
+        ``device_transform`` (the reference's loop drops it) nor a
+        ``ShardedDataFrame`` (``run_remote`` raises before any worker
+        starts; the reference's loop dies of an ``AttributeError``)."""
         from distkeras_tpu_torch.netps.remote import run_remote
 
         if self.device_transform is not None:
+            # The JAX package's remote worker loop builds its local loop
+            # without the hook and drops the transform without a word.
             raise NotImplementedError(
-                "device_transform= (input_transform, on-device "
-                "augmentation) is not ported yet")
+                "device_transform= (the local loop's input_transform) on "
+                "the remote= path: the JAX package's remote worker loop "
+                "drops it, so the port refuses it rather than train "
+                "unaugmented; train in process, or augment on the host "
+                "with transform=")
         if self.checkpoint_dir or self.metrics_path:
             warnings.warn(
                 "remote= training does not drive the checkpoint/metrics "

@@ -29,6 +29,13 @@ from distkeras_tpu_torch.ops.optimizers import (
 from distkeras_tpu_torch.ops.precision import cast_floats
 
 
+#: the last part of the augmentation seeds, ``derive_seed(rng, k, 0,
+#: AUGMENT_STREAM)``. ``SeedSequence`` reads missing trailing parts as
+#: zeros, so only a non-zero fourth part keeps these seeds apart from the
+#: dropout seeds ``(rng, k)`` and ``(rng, k, i)``.
+AUGMENT_STREAM = 1
+
+
 def derive_seed(*parts: int) -> int:
     """A 64-bit seed mixed from non-negative integer parts
     (``numpy.SeedSequence``): the port's counterpart of ``jax.random``'s
@@ -73,8 +80,17 @@ def make_local_loop(
     f32 before the loss, and autograd carries the cast back, so the master
     parameters, their gradients and the optimizer state stay f32.
 
+    ``input_transform(gen, x, y) -> (x, y)`` runs on each step's device
+    batch before the uint8 ``/255`` cast and before the ``grad_accum``
+    split, the JAX loop's order (``ops/augment.py``: the crop and flip on
+    the card). ``gen`` is a CPU ``torch.Generator`` seeded with
+    ``derive_seed(rng, k, 0, AUGMENT_STREAM)`` at step ``k``: the
+    augmentation is deterministic in (seed, round, worker, step), survives
+    a checkpoint and resume exactly, and leaves the dropout seeds the same
+    with or without it.
+
     Not ported yet, and refused rather than ignored: ``state_collections``
-    (the BatchNorm slice) and ``input_transform`` (on-device augmentation).
+    (the BatchNorm slice).
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -88,9 +104,6 @@ def make_local_loop(
             f"state_collections={tuple(state_collections)} (mutable model "
             "state such as BatchNorm statistics) is not ported yet; it comes "
             "with the BatchNorm slice")
-    if input_transform is not None:
-        raise NotImplementedError(
-            "input_transform (on-device augmentation) is not ported yet")
     takes_rng = "rng" in inspect.signature(module.forward).parameters
 
     def cast_input(x):
@@ -141,7 +154,12 @@ def make_local_loop(
         losses = []
         try:
             for k in range(xs.shape[0]):
-                loss, grads = grad_of_step(params, xs[k], ys[k], rng, k)
+                x, y = xs[k], ys[k]
+                if input_transform is not None:
+                    gen = torch.Generator()
+                    gen.manual_seed(derive_seed(rng, k, 0, AUGMENT_STREAM))
+                    x, y = input_transform(gen, x, y)
+                loss, grads = grad_of_step(params, x, y, rng, k)
                 updates, opt_state = tx.update(grads, opt_state, params)
                 params = apply_updates(params, updates)
                 losses.append(loss)

@@ -71,6 +71,30 @@ def test_shard_plane_modules_load_no_jax(module):
     assert "to_partition_specs" in src and "def to_partition_specs" not in src
 
 
+@pytest.mark.parametrize("module", [
+    "distkeras_tpu_torch.data.shards",
+    "distkeras_tpu_torch.data.native_loader",
+    "distkeras_tpu_torch.ops.augment",
+    "distkeras_tpu_torch.predictors"])
+def test_data_plane_modules_load_no_jax_nor_its_native_library(module):
+    """The out-of-core data plane, each module on its own, with the native
+    loader built and loaded: no JAX, and the process maps the port's own
+    library under ``build/native/``, never the JAX package's
+    ``distkeras_tpu/native/_loader.so``."""
+    code = (f"import sys, {module}\n"
+            "from distkeras_tpu_torch.data import native_loader as n\n"
+            "lib = n.get_lib()\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert 'distkeras_tpu/native' not in maps\n"
+            "assert str(n.library_path()) in maps, maps\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _imports(path: pathlib.Path) -> set:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

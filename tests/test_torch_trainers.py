@@ -91,7 +91,10 @@ def test_on_round_and_rounds_per_program():
     # The in-process engine resets divergent workers; the remote loop has
     # no reset, as the reference's has none.
     ({"divergence_reset": 1.0, "remote": "127.0.0.1:1"}, "divergence_reset"),
-    ({"device_transform": lambda rng, x, y: (x, y)}, "input_transform"),
+    # In process device_transform is ported (tests/test_torch_augment.py);
+    # the remote loop refuses it, as the reference's drops it unapplied.
+    ({"device_transform": lambda gen, x, y: (x, y), "remote": "127.0.0.1:1"},
+     "input_transform"),
 ])
 def test_unported_kwargs_raise(kwargs, match):
     pm = imdb_lstm(**SMALL, device="cpu")

@@ -99,8 +99,15 @@ def test_unported_options_raise():
         make_local_loop(pm.module, loss, tx, compute_dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="state_collections"):
         make_local_loop(pm.module, loss, tx, state_collections=("batch_stats",))
-    with pytest.raises(NotImplementedError, match="input_transform"):
-        make_local_loop(pm.module, loss, tx, input_transform=lambda *a: a)
+    # input_transform is ported (tests/test_torch_augment.py): it runs on
+    # each step's batch, here the identity, leaving the step as it was.
+    xs, ys = _batches(K=2, B=4)
+    plain = make_local_loop(pm.module, loss, tx)
+    ident = make_local_loop(pm.module, loss, tx,
+                            input_transform=lambda gen, x, y: (x, y))
+    a, b = (f(pm.params, tx.init(pm.params), torch.from_numpy(xs),
+              torch.from_numpy(ys))[0] for f in (plain, ident))
+    assert all(torch.equal(a[k], b[k]) for k in a)
     with pytest.raises(ValueError, match="grad_accum"):
         make_local_loop(pm.module, loss, tx, grad_accum=0)
     loop = make_local_loop(pm.module, loss, tx, grad_accum=3)

@@ -5,9 +5,11 @@ evaluators (``distkeras_tpu_torch/data/transformers.py``,
 MNIST CNN -> predict -> evaluate) on both packages.
 
 Tolerances: ``OneHot``, ``Reshape``, ``LabelIndex`` (with ``classes_``)
-and ``Dense`` exact; ``MinMax`` within one float32 ulp (the JAX package
-may take its native loader's C++ loop, which a compiler may contract into
-a fused multiply-add). On the same converted weights ``ModelPredictor``
+and ``Dense`` exact; ``MinMax`` within one float32 ulp (both packages run
+the same C++ loop, ``native/loader.cc``, bit-equal on one machine, held
+so in ``tests/test_torch_native_loader.py``; the ulp leaves room for a
+compiler that contracts it into a fused multiply-add or for
+``DKTPU_NO_NATIVE=1`` on one side). On the same converted weights ``ModelPredictor``
 within 1e-5 and ``ProbabilityPredictor`` within 1e-6 of the JAX
 predictors; ``ClassPredictor`` equal but for rows whose top two JAX logits
 lie within 1e-5. ``Accuracy`` and ``F1`` equal to the JAX evaluators;
@@ -183,19 +185,29 @@ def test_predict_stream_over_uneven_microbatches_equals_predict(models, cls):
         assert b.shape == ref_empty.shape and b.dtype == ref_empty.dtype
 
 
-def test_sharded_frames_and_devices_are_refused(models):
+def test_sharded_frames_and_devices_are_refused(models, tmp_path):
+    """Sharded frames are ported (tests/test_torch_shards.py holds them to
+    the JAX package): the predictors and evaluators take a store and give
+    its in-RAM values, ``vacuum`` reclaims a superseded column. A forward
+    across several devices stays refused."""
+    from distkeras_tpu_torch.data import ShardedDataFrame, write_shards
+
     _, pm = models
-
-    class Sharded:
-        is_sharded = True
-
-    with pytest.raises(NotImplementedError, match="data/shards.py"):
-        P.ModelPredictor(pm).predict(Sharded())
-    with pytest.raises(NotImplementedError, match="data/shards.py"):
-        P.vacuum("/nonexistent")
-    for ev in (E.AccuracyEvaluator(), E.F1Evaluator(), E.LossEvaluator()):
-        with pytest.raises(NotImplementedError, match="data/shards.py"):
-            ev.evaluate(Sharded())
+    cols = _images(ROWS)
+    cols["label"] = np.arange(ROWS, dtype=np.int32) % 10
+    write_shards(str(tmp_path), cols, 50)
+    kw = dict(features_col="img", output_col="p", chunk_size=CHUNK)
+    out = P.ModelPredictor(pm, **kw).predict(ShardedDataFrame(str(tmp_path)))
+    col = np.concatenate([c["p"] for c in out.iter_column_chunks("p")])
+    ram = DataFrame(dict(cols, p=P.ModelPredictor(pm, **kw).predict(
+        DataFrame(cols))["p"]))
+    np.testing.assert_array_equal(col, ram["p"])
+    for ev in (E.AccuracyEvaluator("p"), E.F1Evaluator("p"),
+               E.LossEvaluator(prediction_col="p")):
+        assert ev.evaluate(out) == pytest.approx(ev.evaluate(ram), abs=1e-6)
+    assert P.vacuum(str(tmp_path)) == 0
+    P.ModelPredictor(pm, **kw).predict(out)
+    assert P.vacuum(str(tmp_path)) == out.store.num_shards
     with pytest.raises(NotImplementedError, match="devices"):
         P.ModelPredictor(pm, devices=["cuda:0", "cuda:1"])
     with pytest.raises(NotImplementedError, match="num_workers"):
