@@ -422,6 +422,29 @@ and every parity phase holds the card's bf16 run to the CPU's within
     ``probe_links=True`` against a root on the card over TCP: the codec
     sweep with config #8's center as the payload (one root launch a
     probe), ``how="probed"``, one commit through the picked link.
+28. ``observability`` — the observability plane: (a) config #4's remote
+    DynSGD (int8, 4 workers, window 4, batch 2048, 3 rounds) against the
+    port's CLI server (``python -m distkeras_tpu_torch.netps --device
+    cuda`` with ``DKTPU_TRACE=1``, a trace directory and
+    ``DKTPU_VITALS_S=0.5``), untraced, traced, traced, untraced, then
+    ``python -m distkeras_tpu_torch.telemetry report --trace <dir>`` in a
+    subprocess without ``DKTPU_TRACE``: it exits 0 with the critical path,
+    every traced commit a complete trace and no WARNING line; the server's
+    fold launches (counted in its process, written at its exit) equal the
+    commits it folded and each run launches the stash forward and the
+    backward 48 times; samples/s traced beside untraced, and beside
+    ``remote_train``'s int8 run; (b) one worker at batch 32, traced and
+    untraced, from the same weights, against a CUDA server in process:
+    the final centers bit-equal; (c) ``telemetry scrape <ep> --json`` (one
+    line: ``fold_backend`` ``cuda``, role ``ps``, a non-empty ring),
+    ``telemetry health --targets ps=<ep> --samples 2`` (exit 0) and the
+    server's Prometheus text parsed back, ``device.bytes_in_use`` above 0;
+    (d) a second traced CLI server under ``ps_crash@2`` leaves a flight
+    dump for ``fault:ps_crash`` before its SIGKILL, and SIGTERM to (a)'s
+    leaves one for ``sigterm``; (e) ``serve``'s 44 requests on the traced
+    run's model, untraced then traced: every ``serve.request`` trace
+    complete (``serve.wire``, ``serve.queue``, ``serve.batch``),
+    ``ServeClient.stats(ring=8)`` a non-empty ring, p50 and p99 beside.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
 card's name and power limit, and as the last line ``{"ok": true,
@@ -443,6 +466,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import warnings
 
 import numpy as np
@@ -2774,7 +2798,7 @@ def remote_train_phase(torch, K, F, gpu: str, seed: int, codec: str) -> dict:
     if not (lstm["lstm_fwd_stash"] == lstm["lstm_bwd"] == steps
             and lstm["lstm_fwd"] == 0):
         fail(f"LSTM launches {lstm} in {steps} local steps")
-    return fold
+    return dict(fold, samples_per_s=steps * B / wall)
 
 
 def remote_parity_phase(torch, seed: int) -> None:
@@ -7315,6 +7339,496 @@ def serve_drill(torch, K, frontend, cpu_model) -> dict:
     return row
 
 
+# -- the observability plane (phase 28) ------------------------------------
+
+#: config #4's remote runs against the traced CLI server, as
+#: ``remote_train`` runs them (int8, 4 workers, window 4, batch 2048), in
+#: this order; each traced run's commits are complete traces.
+OBS_ROUNDS = REMOTE_ROUNDS["int8"]
+OBS_ORDER = ("untraced", "traced", "traced", "untraced")
+#: the flight-dump drill: the traced CLI server SIGKILLs itself before it
+#: folds commit ``OBS_CRASH_AT`` (``ps_crash@R``).
+OBS_CRASH_AT = 2
+OBS_VITALS_S = "0.5"
+OBS_RING = 8
+#: the span names every traced served request carries (client and server).
+OBS_SERVE_SPANS = frozenset({"serve.request", "serve.wire", "serve.queue",
+                             "serve.batch"})
+#: how a CLI server of this phase is started: the module as ``python -m``
+#: runs it, with an exit hook that writes the process's fold launch counts
+#: (the wrappers' own counts, which live in that process) to the file named
+#: by the first argument.
+OBS_CLI = (
+    "import atexit, json, runpy, sys\n"
+    "from distkeras_tpu_torch.ops.kernels import fold\n"
+    "out = sys.argv.pop(1)\n"
+    "def dump():\n"
+    "    with open(out, 'w') as f:\n"
+    "        json.dump(fold.launch_counts(), f)\n"
+    "atexit.register(dump)\n"
+    "runpy.run_module('distkeras_tpu_torch.netps', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+
+
+def obs_cli(workdir: str, **env) -> dict:
+    """Start one traced CLI server of the phase (``python -m
+    distkeras_tpu_torch.netps --device cuda``, dynsgd, on a free port,
+    ``DKTPU_TRACE=1`` with its trace directory ``workdir``) without waiting
+    for it: its start-up overlaps the work before its first use."""
+    os.makedirs(workdir, exist_ok=True)
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    launches = os.path.join(workdir, "fold_launches.json")
+    cmd = [sys.executable, "-c", OBS_CLI, launches, "--host", "127.0.0.1",
+           "--port", str(port), "--discipline", "dynsgd", "--device", "cuda"]
+    full_env = dict(os.environ, DKTPU_TRACE="1", DKTPU_TRACE_DIR=workdir,
+                    **env)
+    full_env.pop("DKTPU_TRACE_ROLE", None)
+    return {"dir": workdir, "endpoint": f"127.0.0.1:{port}",
+            "launches": launches, "t0": time.monotonic(),
+            "proc": subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                                     env=full_env)}
+
+
+def obs_ready(cli: dict) -> float:
+    """Seconds from the CLI server's start to its ``NETPS_READY``."""
+    line = cli["proc"].stdout.readline()
+    if not line.startswith("NETPS_READY"):
+        fail(f"observability: the CLI server did not start: {line!r}")
+    return time.monotonic() - cli["t0"]
+
+
+def obs_env(trace_dir: str, traced: bool) -> dict:
+    """This process's tracing switch for one arm."""
+    return ({"DKTPU_TRACE": "1", "DKTPU_TRACE_DIR": trace_dir} if traced
+            else {"DKTPU_TRACE": "0"})
+
+
+def obs_cli_start(*args, cwd: str = None) -> subprocess.Popen:
+    """Start ``python -m distkeras_tpu_torch.telemetry <args>`` in a
+    subprocess without ``DKTPU_TRACE`` (an operator's shell), the checkout
+    on its path; the health CLI runs in the phase's directory, away from
+    the repository's benchmark files that its sentinels would read.
+    :func:`obs_cli_wait` collects it."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DKTPU_TRACE")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.getcwd()] + [p for p in [env.get("PYTHONPATH")] if p])
+    return subprocess.Popen(
+        [sys.executable, "-m", "distkeras_tpu_torch.telemetry", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=cwd)
+
+
+def obs_cli_wait(proc: subprocess.Popen) -> subprocess.CompletedProcess:
+    out, err = proc.communicate(timeout=300)
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def obs_spans(trace_dir: str) -> dict:
+    """The collector-merged span records of ``trace_dir``, by trace id."""
+    from distkeras_tpu_torch.telemetry import tracing
+
+    traces = {}
+    for rec in tracing.TelemetryCollector.from_dir(trace_dir).records():
+        if rec.get("kind") == tracing.SPAN_KIND and rec.get("trace"):
+            traces.setdefault(rec["trace"], []).append(rec)
+    return traces
+
+
+def obs_remote_run(torch, K, seed: int, df, endpoint: str, traced: bool,
+                   trace_dir: str) -> tuple:
+    """One config #4 remote run (int8) on ``df`` against ``endpoint``, the
+    model built from ``seed``; returns its row and the trained model. The
+    LSTM launch counts start at 0 just before the run."""
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    W, Kw, B = (REMOTE["num_workers"], REMOTE["communication_window"],
+                REMOTE["batch_size"])
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    with env_set(DKTPU_NET_COMPRESS="int8", **obs_env(trace_dir, traced)):
+        trainer = DynSGD(model, worker_optimizer="sgd",
+                         loss="sparse_categorical_crossentropy",
+                         remote=endpoint, **REMOTE)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        trained = trainer.train(df)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lstm = K.launch_counts()
+    steps = OBS_ROUNDS * W * Kw
+    hist = trainer.get_worker_histories()
+    if not np.all(np.isfinite(hist)):
+        fail(f"observability: non-finite remote loss ({'traced' if traced else 'untraced'}): {hist}")
+    if not (lstm["lstm_fwd_stash"] == lstm["lstm_bwd"] == steps
+            and lstm["lstm_fwd"] == 0):
+        fail(f"observability: LSTM launches {lstm} in {steps} local steps")
+    return {"traced": traced, "seconds": wall,
+            "samples_per_s": steps * B / wall, "launches": lstm}, trained
+
+
+def obs_bit_parity(torch, seed: int, trace_dir: str) -> dict:
+    """(b): one worker, batch 32, traced and untraced, from the same
+    weights and data, against a CUDA server in process each: the final
+    centers bit-equal, the commit logs equal."""
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.netps import PSServer
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    W, Kw, B = (REMOTE_PARITY["num_workers"],
+                REMOTE_PARITY["communication_window"],
+                REMOTE_PARITY["batch_size"])
+    df = imdb(n=REMOTE_PARITY_ROUNDS * W * Kw * B, vocab_size=VOCAB,
+              seq_len=SEQ_LEN, seed=seed + 9)
+    out = {}
+    for traced in (False, True):
+        model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
+                          hidden_size=HIDDEN, seq_len=SEQ_LEN,
+                          seed=seed + 9, device="cuda")
+        srv = PSServer(discipline="dynsgd", device="cuda").start()
+        try:
+            with env_set(DKTPU_NET_COMPRESS="int8",
+                         **obs_env(trace_dir, traced)):
+                DynSGD(model, worker_optimizer="sgd",
+                       loss="sparse_categorical_crossentropy",
+                       remote=srv.endpoint, **REMOTE_PARITY).train(df)
+            out[traced] = (srv.center(), list(srv.commit_log))
+        finally:
+            srv.close()
+    same = all(a.tobytes() == b.tobytes()
+               for a, b in zip(out[False][0], out[True][0]))
+    row = {"center_bit_equal": same,
+           "commits": len(out[True][1]),
+           "commit_logs_equal": out[False][1] == out[True][1],
+           "center_max_abs_diff": max(float(np.abs(a - b).max())
+                                      for a, b in zip(out[False][0],
+                                                      out[True][0]))}
+    if not (same and row["commit_logs_equal"] and row["commits"] > 0):
+        fail(f"observability (b): tracing changed what was folded: {row}")
+    return row
+
+
+def obs_serve(torch, K, model, traced: bool, trace_dir: str,
+              frontend) -> dict:
+    """(e): ``serve_phase``'s 44 requests (12 sequential, 8 concurrent
+    clients x 4) against ``frontend``, traced or not; the LSTM launch
+    counts start at 0 just before."""
+    from distkeras_tpu_torch.serving import ServeClient
+
+    sizes, clients = (1, 3, 17, 64), 8
+    lat, errors, ring = [], [], None
+    lock = threading.Lock()
+
+    def one(client, rows: int, s: int) -> None:
+        tokens = np.random.default_rng(s).integers(
+            0, VOCAB, (rows, SEQ_LEN)).astype(np.int32)
+        t0 = time.perf_counter()
+        try:
+            out, _version = client.infer(tokens)
+        except Exception as e:  # noqa: BLE001 - every miss fails the phase
+            with lock:
+                errors.append(f"{type(e).__name__}: {e}")
+            return
+        dt = time.perf_counter() - t0
+        if out.shape != (rows, 2) or not np.all(np.isfinite(out)):
+            with lock:
+                errors.append(f"bad answer {out.shape} for {rows} rows")
+        with lock:
+            lat.append(dt)
+
+    with env_set(**obs_env(trace_dir, traced)):
+        K.reset_launches()
+        client = ServeClient(frontend.endpoint)
+        for r in range(3):
+            for k, rows in enumerate(sizes):
+                one(client, rows, 10 * r + k)
+        client.close()
+
+        def worker(w: int) -> None:
+            c = ServeClient(frontend.endpoint)
+            for k in range(4):
+                one(c, sizes[(w + k) % len(sizes)], 1000 + 10 * w + k)
+            c.close()
+
+        threads = [threading.Thread(target=worker, args=(w,))
+                   for w in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        launches = K.launch_counts()
+        client = ServeClient(frontend.endpoint)
+        ring = client.stats(ring=OBS_RING)["ring"]
+        client.close()
+    if any(t.is_alive() for t in threads):
+        fail("observability (e): a serving client thread did not finish")
+    if errors or len(lat) != 3 * len(sizes) + clients * 4:
+        fail(f"observability (e): {len(lat)} answers, errors {errors[:3]}")
+    ms = np.array(lat) * 1e3
+    return {"traced": traced, "requests": len(lat),
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "lstm_fwd_launches": launches["lstm_fwd"],
+            "training_launches": launches["lstm_fwd_stash"]
+            + launches["lstm_bwd"], "ring": len(ring)}
+
+
+def observability_phase(torch, K, F, gpu: str, seed: int,
+                        untraced_sps: float) -> dict:
+    """Phase 28, the observability plane on the card: (a) config #4's
+    traced remote run against a traced CLI server, rendered by the report
+    CLI; (b) tracing folds the same bits; (c) scrape, health and
+    Prometheus against (a)'s server; (d) the flight dumps of a fired
+    ``ps_crash`` and of SIGTERM; (e) traced serving. Returns the launch
+    counts of its paths."""
+    from distkeras_tpu_torch.netps import PSClient
+    from distkeras_tpu_torch.netps.errors import NetPSError
+    from distkeras_tpu_torch.serving import ModelRegistry, ServingFrontend
+    from distkeras_tpu_torch.telemetry import exporters, tracing
+
+    t_phase = time.perf_counter()
+    split, mark = {}, [t_phase]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        split[name] = now - mark[0]
+        mark[0] = now
+
+    root = os.path.abspath(os.path.join("build", "observability"))
+    shutil.rmtree(root, ignore_errors=True)
+    trace_dir, crash_dir = (os.path.join(root, "trace"),
+                            os.path.join(root, "crash"))
+    srv = obs_cli(trace_dir, DKTPU_VITALS_S=OBS_VITALS_S)
+    crash = obs_cli(crash_dir, DKTPU_NET_FAULTS=f"ps_crash@{OBS_CRASH_AT}")
+    tracing.set_role("trainer")
+    out = {}
+    try:
+        # (b) in process while both CLI servers start; this process keeps
+        # one trace stream, so (b)'s traced commits are in (a)'s report
+        parity = obs_bit_parity(torch, seed, trace_dir)
+        _model, df = remote_inputs(seed, OBS_ROUNDS)
+        del _model
+        lap("b_parity")
+        ready_s = obs_ready(srv)
+        lap("cli_wait")
+        ep = srv["endpoint"]
+        # (a) untraced and traced runs against the one server, in turns
+        runs, trained = [], None
+        for arm in OBS_ORDER:
+            row, model = obs_remote_run(torch, K, seed, df, ep,
+                                        arm == "traced", trace_dir)
+            runs.append(row)
+            if arm == "traced":
+                trained = model
+            else:
+                del model
+        del df
+        lap("a_runs")
+        # (c) scrape, health and Prometheus against the live server, the
+        # two CLIs side by side while (d) runs
+        scraping = obs_cli_start("scrape", ep, "--json")
+        checking = obs_cli_start("health", "--targets", f"ps={ep}",
+                                 "--samples", "2", cwd=root)
+        # (d) the fault's dump: a client commits until the server dies
+        obs_ready(crash)
+        crash_client = PSClient(crash["endpoint"], worker_id=0,
+                                timeout=2.0, retries=2, backoff=0.05)
+        acked = 0
+        try:
+            _c, u = crash_client.join(init=[np.zeros(4096, np.float32)])
+            for _ in range(OBS_CRASH_AT + 2):
+                crash_client.commit([np.ones(4096, np.float32)], u)
+                acked += 1
+        except (NetPSError, OSError):
+            pass
+        finally:
+            crash_client.close()
+        crash_rc = crash["proc"].wait(timeout=60)
+        scrape, health = obs_cli_wait(scraping), obs_cli_wait(checking)
+        lines = scrape.stdout.splitlines()
+        if scrape.returncode != 0 or len(lines) != 1:
+            fail(f"observability (c): scrape rc {scrape.returncode}, "
+                 f"{len(lines)} lines: {scrape.stderr[-500:]}")
+        stats = json.loads(lines[0])
+        snap = stats.get("snapshot") or {}
+        prom = exporters.prometheus_text(
+            types.SimpleNamespace(snapshot=lambda: snap))
+        parsed = exporters.parse_prometheus(prom)
+        dev_bytes = parsed.get("dktpu_gauge", {}).get(
+            (("name", "device_bytes_in_use"),))
+        lap("cd_cli_and_crash")
+        # (e) traced serving, on the model the traced run trained
+        registry = ModelRegistry(trained, BUCKETS, device="cuda")
+        frontend = ServingFrontend(registry, max_queue_rows=8 * 64).start()
+        try:
+            serve = [obs_serve(torch, K, trained, traced, trace_dir,
+                               frontend)
+                     for traced in (False, True)]
+        finally:
+            frontend.close()
+            registry.close()
+        del trained
+        lap("e_serve")
+        # SIGTERM: the server dumps its ring, drains and writes its
+        # telemetry beside its trace stream
+        srv["proc"].send_signal(signal.SIGTERM)
+        srv_rc = srv["proc"].wait(timeout=120)
+        srv_tail = srv["proc"].stdout.read()
+        with open(srv["launches"]) as f:
+            fold = json.load(f)
+        lap("sigterm")
+        report = obs_cli_wait(obs_cli_start("report", "--trace", trace_dir))
+        # the numbers the rendered report prints, structured
+        rep = tracing.trace_report(
+            tracing.TelemetryCollector.from_dir(trace_dir).records())
+        lap("report")
+    finally:
+        tracing.set_role("")
+        for cli in (srv, crash):
+            if cli["proc"].poll() is None:
+                cli["proc"].kill()
+                cli["proc"].wait()
+    def dumps(d: str) -> list:
+        found = []
+        for name in sorted(os.listdir(d)):
+            if name.startswith("flight-"):
+                with open(os.path.join(d, name)) as f:
+                    found += [(name, json.loads(ln)["reason"]) for ln in f
+                              if '"flight_dump"' in ln]
+        return found
+
+    traced_runs = [r for r in runs if r["traced"]]
+    untraced_runs = [r for r in runs if not r["traced"]]
+    traced_sps = float(np.median([r["samples_per_s"] for r in traced_runs]))
+    plain_sps = float(np.median([r["samples_per_s"]
+                                 for r in untraced_runs]))
+    traces = obs_spans(trace_dir)
+    serve_traces = [names for names in (
+        {s["name"] for s in spans} for spans in traces.values())
+        if "serve.request" in names]
+    complete_serves = sum(OBS_SERVE_SPANS <= names
+                          for names in serve_traces)
+    W, Kw = REMOTE["num_workers"], REMOTE["communication_window"]
+    steps = OBS_ROUNDS * W * Kw
+    commits_per_run = OBS_ROUNDS * W
+    crash_dumps, srv_dumps = dumps(crash_dir), dumps(trace_dir)
+    out = {
+        "phase": "observability", "gpu": gpu,
+        "server": "python -m distkeras_tpu_torch.netps --discipline dynsgd "
+                  "--device cuda (DKTPU_TRACE=1, DKTPU_VITALS_S="
+                  f"{OBS_VITALS_S})",
+        "cli_ready_s": ready_s,
+        **REMOTE, "rounds": OBS_ROUNDS, "codec": "int8",
+        "runs": runs, "order": list(OBS_ORDER),
+        "traced_samples_per_s": traced_sps,
+        "untraced_samples_per_s": plain_sps,
+        "traced_over_untraced": traced_sps / plain_sps,
+        "remote_train_untraced_samples_per_s": untraced_sps,
+        "server_commits": stats.get("commits_total"),
+        "server_fold_launches": fold,
+        "report_rc": report.returncode,
+        "report_warnings": [ln for ln in report.stdout.splitlines()
+                            if ln.startswith("WARNING")],
+        "trace_commits": rep.get("commits"),
+        "trace_complete": rep.get("complete"),
+        "trace_completeness": rep.get("completeness"),
+        "trace_orphans": len(rep.get("orphans", [])),
+        "trace_skew_violations": rep.get("skew_violations"),
+        "trace_e2e_p50_ms": (rep.get("e2e_p50_s") or 0) * 1e3,
+        "trace_e2e_p99_ms": (rep.get("e2e_p99_s") or 0) * 1e3,
+        "critical_path_p50_ms": {
+            seg: h["p50_s"] * 1e3
+            for seg, h in (rep.get("segments") or {}).items()},
+        "critical_path_total_ms": {
+            seg: h["total_s"] * 1e3
+            for seg, h in (rep.get("segments") or {}).items()},
+        "processes": rep.get("processes"),
+        "bit_parity": parity,
+        "scrape": {"role": stats.get("role"),
+                   "fold_backend": stats.get("fold_backend"),
+                   "ring": len(stats.get("ring") or []),
+                   "caps_tracing": (stats.get("caps") or {}).get("tracing")},
+        "health_rc": health.returncode,
+        "health": health.stdout.splitlines()[:3],
+        "prometheus_lines": len(prom.splitlines()),
+        "device_bytes_in_use": dev_bytes,
+        "crash": {"acked_commits": acked, "rc": crash_rc,
+                  "dumps": crash_dumps},
+        "sigterm": {"rc": srv_rc, "dumps": srv_dumps,
+                    "drained": srv_tail.strip().splitlines()[-1:]},
+        "serve": serve,
+        "serve_traces": len(serve_traces),
+        "serve_traces_complete": complete_serves,
+        "seconds": time.perf_counter() - t_phase, "split_s": split,
+        "timing": "host clock; samples/s is the remote run's wall clock "
+                  "over its samples, untraced and traced against the same "
+                  "CLI server in the order given; serving latency is the "
+                  "client's wall clock a request"}
+    emit(out)
+    traced_commits = commits_per_run * len(traced_runs) + parity["commits"]
+    if report.returncode != 0 or "Critical path" not in report.stdout:
+        fail(f"observability (a): report --trace rc {report.returncode}: "
+             f"{report.stderr[-800:]}")
+    if out["report_warnings"]:
+        fail(f"observability (a): the report warns: "
+             f"{out['report_warnings']}")
+    if not (rep.get("commits") == rep.get("complete") == traced_commits
+            and rep.get("completeness") == 1.0):
+        fail(f"observability (a): {rep.get('complete')} complete of "
+             f"{rep.get('commits')} commit traces, {traced_commits} "
+             f"traced commits")
+    if stats.get("commits_total") != commits_per_run * len(OBS_ORDER):
+        fail(f"observability (a): the server folded "
+             f"{stats.get('commits_total')} commits of "
+             f"{commits_per_run * len(OBS_ORDER)}")
+    if fold != {"fold_commit": stats.get("commits_total"), "fold_int8": 0,
+                "fold_bf16": 0}:
+        fail(f"observability (a): the server's fold launches {fold} for "
+             f"{stats.get('commits_total')} commits")
+    if any(r["launches"]["lstm_fwd_stash"] != steps for r in runs):
+        fail(f"observability (a): stash launches {runs}")
+    if not (stats.get("fold_backend") == "cuda" and stats.get("role") == "ps"
+            and stats.get("ring")):
+        fail(f"observability (c): scrape {out['scrape']}")
+    if health.returncode != 0:
+        fail(f"observability (c): health rc {health.returncode}: "
+             f"{health.stdout[-800:]} {health.stderr[-800:]}")
+    if not (dev_bytes or 0) > 0:
+        fail(f"observability (c): device.bytes_in_use {dev_bytes}")
+    if crash_rc != -signal.SIGKILL or acked != OBS_CRASH_AT or not any(
+            reason == "fault:ps_crash" for _n, reason in crash_dumps):
+        fail(f"observability (d): ps_crash drill {out['crash']}")
+    if srv_rc != 0 or not any(reason == "sigterm"
+                              for _n, reason in srv_dumps):
+        fail(f"observability (d): SIGTERM rc {srv_rc}, dumps {srv_dumps}")
+    traced_serve = serve[1]
+    if not (len(serve_traces) == complete_serves
+            == traced_serve["requests"] and traced_serve["ring"] > 0):
+        fail(f"observability (e): {complete_serves} complete of "
+             f"{len(serve_traces)} serve traces for "
+             f"{traced_serve['requests']} requests, ring "
+             f"{traced_serve['ring']}")
+    if any(s["training_launches"] or s["lstm_fwd_launches"] <= 0
+           for s in serve):
+        fail(f"observability (e): serving launches {serve}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"stash": {arm: [r["launches"]["lstm_fwd_stash"] for r in runs
+                            if r["traced"] == (arm == "traced")]
+                      for arm in ("traced", "untraced")},
+            "bwd": {arm: [r["launches"]["lstm_bwd"] for r in runs
+                          if r["traced"] == (arm == "traced")]
+                    for arm in ("traced", "untraced")},
+            "fold": fold["fold_commit"], "commits": stats["commits_total"],
+            "serve": {("traced" if s["traced"] else "untraced"):
+                      s["lstm_fwd_launches"] for s in serve}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7467,9 +7981,11 @@ def main() -> None:
 
     lap("fold")
     fold_rows = fold_kernel_phase(torch, F, args.seed)
-    fold_launches = {codec: remote_train_phase(
-        torch, K, F, gpu, args.seed, codec)["fold_commit"]
-        for codec in ("int8", "bf16")}
+    remote_runs = {codec: remote_train_phase(torch, K, F, gpu, args.seed,
+                                             codec)
+                   for codec in ("int8", "bf16")}
+    fold_launches = {codec: r["fold_commit"]
+                     for codec, r in remote_runs.items()}
     remote_parity_phase(torch, args.seed)
     torch.cuda.empty_cache()
 
@@ -7578,6 +8094,10 @@ def main() -> None:
     tree = netps_tree_phase(torch, K, F, gpu, args.seed, c8ctx["init"],
                             lstm_frame)
     del lstm_frame, c8ctx
+    torch.cuda.empty_cache()
+    lap("observability")
+    obs = observability_phase(torch, K, F, gpu, args.seed,
+                              remote_runs["int8"]["samples_per_s"])
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, rows, launches, bf16_launches):
@@ -7833,6 +8353,15 @@ def main() -> None:
         "precombine_take_ms": times["take_ms"]})
     for k in kernels[6:]:
         k["config8_drill_bf16_launches"] = config8["drill_flash"][k["name"]]
+    # The observability plane's paths, each counted from 0 just before its
+    # run and read just after: config #4's remote runs against the traced
+    # CLI server (its fold launches counted in that process), and the
+    # served requests, untraced and traced.
+    kernels[0]["observability_launches"] = obs["serve"]
+    kernels[1]["observability_launches"] = obs["stash"]
+    kernels[2]["observability_launches"] = obs["bwd"]
+    kernels[5]["observability_launches"] = obs["fold"]
+    kernels[5]["observability_commits"] = obs["commits"]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

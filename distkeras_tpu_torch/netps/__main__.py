@@ -50,6 +50,15 @@ leaves. ``--upstream`` plus ``--standby`` runs the node's warm
 ``TreeStandby``, which on promotion fences the dead node AND joins the
 upstream itself. ``--shard`` and ``--upstream`` are exclusive: shard the
 root and point ``--upstream`` at its ``;`` matrix.
+
+The process labels its trace and flight streams with its role (``ps``,
+``standby``, ``shard<K>``, ``tree<L>g<G>``, ``tree<L>g<G>-standby``; an
+explicit ``DKTPU_TRACE_ROLE`` wins), flight-dumps on an unhandled crash
+and on the first SIGTERM (``DKTPU_TRACE=1``), samples vitals every
+``DKTPU_VITALS_S`` seconds, and at exit writes its telemetry beside its
+trace stream as ``telemetry-<role>-<pid>.jsonl`` in ``DKTPU_TRACE_DIR``
+(falling back to the state dir), which ``python -m
+distkeras_tpu_torch.telemetry report --trace <dir>`` merges.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from distkeras_tpu_torch.netps.fold import SUPPORTED_DISCIPLINES
 from distkeras_tpu_torch.netps.server import PSServer
 from distkeras_tpu_torch.netps.standby import StandbyServer
 from distkeras_tpu_torch.runtime import config
+from distkeras_tpu_torch.telemetry import tracing
 
 #: exit status of a second-signal forced abort.
 ABORT_STATUS = 70
@@ -147,6 +157,23 @@ def main(argv=None) -> int:
               snapshot_every=args.snapshot_every)
     if not args.upstream:
         kw.update(shard_index=shard_index, shard_count=shard_count)
+    # Label this process for the trace and flight streams (an explicit
+    # DKTPU_TRACE_ROLE wins) and arm the crash-path flight-recorder dump
+    # before anything can fail.
+    if args.upstream and standby_of:
+        tracing.set_role(f"tree{args.tree_level}g{args.tree_group}-standby")
+    elif args.upstream:
+        tracing.set_role(f"tree{args.tree_level}g{args.tree_group}")
+    elif standby_of:
+        tracing.set_role("standby")
+    elif shard_index is not None:
+        tracing.set_role(f"shard{shard_index}")
+    else:
+        tracing.set_role("ps")
+    tracing.install_crash_hooks()
+    from distkeras_tpu_torch.telemetry.vitals import start_vitals
+
+    start_vitals()  # no-op unless DKTPU_VITALS_S is set
     tree_kw = dict(level=args.tree_level, group=args.tree_group,
                    spec=tree_spec, buffer_windows=args.tree_buffer,
                    fan_in=args.fan_in)
@@ -175,6 +202,10 @@ def main(argv=None) -> int:
         if signals_seen[0] == 1:
             os.write(1, b"NETPS_DRAINING\n")
             stop.set()
+            # Dump the flight ring while the process is still healthy: the
+            # drain may take seconds and a second signal force-exits. A
+            # no-op with tracing off; once per reason.
+            tracing.flight_dump("sigterm")
         else:
             os.write(1, b"NETPS_ABORTED\n")
             os._exit(ABORT_STATUS)
@@ -188,6 +219,21 @@ def main(argv=None) -> int:
             announced = True
             print(f"NETPS_PROMOTED epoch={server.epoch}", flush=True)
     server.close()
+    trace_d = tracing.trace_dir()
+    if trace_d:
+        # Final telemetry dump beside the trace stream: the collector
+        # merges this process's counters and events into the timeline.
+        from distkeras_tpu_torch import telemetry
+
+        try:
+            os.makedirs(trace_d, exist_ok=True)
+            telemetry.write_jsonl(
+                telemetry.get(),
+                os.path.join(trace_d,
+                             f"telemetry-{tracing.role()}-{os.getpid()}"
+                             ".jsonl"))
+        except OSError:
+            pass
     print(f"NETPS_DRAINED commits={server.commits_total} "
           f"epoch={server.epoch} snapshots={server.snapshots_written} "
           f"evictions={server.evictions} rejoins={server.rejoins}",

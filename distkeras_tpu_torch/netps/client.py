@@ -71,8 +71,17 @@ counters) is re-pulled, counting ``netps.pull_torn_retries``; after
 micro-A/B round trip of a payload under a candidate codec to a peer that
 advertises ``tuner``, and :meth:`PSClient.retune` adopts a new codec or
 stripe count mid-run through the state the join negotiation writes, so a
-retransmit after a retune keeps its seq and dedups as before. Tracing
-comes with a later slice.
+retransmit after a retune keeps its seq and dedups as before.
+
+**Tracing** (``DKTPU_TRACE=1``, ``telemetry/tracing/``): every commit is one
+trace rooted here (``commit`` with ``commit.encode``/``commit.wire``/
+``commit.ack`` children; a pull is ``pull``/``pull.wire``), and its ids ride
+the request header as ``trace``/``parent``, but only to a peer whose join
+reply advertised ``CAPS["tracing"]``: a peer without the bit is sent zero
+new bytes. Rejoins and heartbeats carry the ``ct0`` clock stamp the server
+echoes as ``st1``/``st2``. Stripe sub-RPCs run on pool threads and adopt the
+captured context (``_rpc_traced``), so each stripe's ``<op>.wire`` span has
+its root. A fenced pull, commit or heartbeat dumps the flight ring.
 
 One client serves one worker thread; public methods are not safe to call
 concurrently (the stripe sub-RPCs inside one call run on the client's own
@@ -108,6 +117,8 @@ from distkeras_tpu_torch.netps.errors import (
 )
 from distkeras_tpu_torch.resilience.backoff import full_jitter
 from distkeras_tpu_torch.runtime import config
+from distkeras_tpu_torch.telemetry import tracing
+from distkeras_tpu_torch.telemetry.tracing import clock as _traceclock
 
 #: server error kind -> typed exception. Everything here except
 #: ``not_primary`` is non-retryable: the server answered, it just said no.
@@ -499,6 +510,48 @@ class PSClient:
         self.rejoin_count += 1
         self.join()
 
+    # -- distributed tracing (telemetry/tracing/) ----------------------------
+    def _trace_peer(self) -> bool:
+        """Whether the joined peer advertised ``CAPS["tracing"]``: the gate
+        on every trace and clock header field. A peer that never said the
+        bit is sent zero new bytes (absent JSON key = absent wire byte)."""
+        return bool((self.peer_caps or {}).get("tracing"))
+
+    def _traced(self, header: dict) -> dict:
+        """Attach the ambient trace context to an outgoing header (no-op
+        with tracing off, outside any scope, or against an untraced peer)."""
+        if self._trace_peer():
+            header.update(tracing.wire_fields())
+        return header
+
+    def _rpc_traced(self, ctx, op: str, header: dict, arrays: Sequence = (),
+                    conn_idx: int = 0) -> tuple[dict, list]:
+        """One stripe sub-RPC under the captured trace context: pool
+        threads do not inherit thread-locals, so the fan-out captures the
+        commit or pull root and re-establishes it here, giving every
+        stripe its own ``<op>.wire`` child span carrying the wire fields."""
+        with tracing.adopt(ctx):
+            with tracing.child_scope(f"{op}.wire",
+                                     shard=header.get("shard")):
+                return self._rpc(op, self._traced(header), arrays, conn_idx)
+
+    def _clock_stamp(self, header: dict):
+        """Stamp ``ct0`` (this clock's send time) for the NTP-style
+        exchange, only against a peer that already proved it speaks the
+        tracing dialect. Returns the stamp for :func:`observe_reply`."""
+        if not (tracing.enabled() and self._trace_peer()):
+            return None
+        ct0 = time.time()
+        header["ct0"] = ct0
+        return ct0
+
+    @staticmethod
+    def _fenced(exc: BaseException) -> None:
+        """A fence is flight-recorder evidence: dump the discarded
+        lineage's last seconds before re-joining past it."""
+        if isinstance(exc, EpochFencedError):
+            tracing.flight_dump("epoch_fenced")
+
     def _attempt(self, conn: _Conn, req: int, hdr: dict,
                  arrays: Sequence) -> tuple[dict, list]:
         """One connect + send + matched-reply receive under ONE deadline,
@@ -616,9 +669,14 @@ class PSClient:
         reply's ``caps`` select the codec, the stripes and the dialect for
         every later pull and commit. ``_join_extra`` (the sharded client's
         shard identity and plan) rides on every join, re-joins included."""
-        hdr, center = self._rpc(wire.OP_JOIN,
-                                dict(self._join_extra, caps=wire.CAPS),
-                                list(init or ()))
+        join_hdr = dict(self._join_extra, caps=wire.CAPS)
+        # The clock exchange rides only once the peer has PROVED the
+        # tracing dialect (a previous join's caps): the first join of a
+        # fresh client stays byte-identical to an untraced one.
+        ct0 = self._clock_stamp(join_hdr)
+        hdr, center = self._rpc(wire.OP_JOIN, join_hdr, list(init or ()))
+        if ct0 is not None:
+            _traceclock.observe_reply(ct0, hdr, time.time())
         self.worker_id = int(hdr["worker_id"])
         self.lease_s = hdr.get("lease_s")
         # A join ADOPTS the server's epoch (a failover re-join is exactly
@@ -768,10 +826,14 @@ class PSClient:
         or fenced client transparently re-joins first. A striped pull
         reassembles a consistency-checked center."""
         try:
-            if self._striped():
-                return self._striped_pull()
-            hdr, center = self._rpc(wire.OP_PULL, self._stamped({}))
-        except (LeaseExpiredError, EpochFencedError):
+            with tracing.trace_scope("pull", wid=self.worker_id):
+                if self._striped():
+                    return self._striped_pull()
+                with tracing.child_scope("pull.wire"):
+                    hdr, center = self._rpc(
+                        wire.OP_PULL, self._traced(self._stamped({})))
+        except (LeaseExpiredError, EpochFencedError) as e:
+            self._fenced(e)
             self._rejoin()
             return self._last_join
         if hdr.get("plan_hash") is not None:
@@ -788,9 +850,10 @@ class PSClient:
         pool = self._shard_pool()
         stripes = self._stripes
         total = sum(len(st) for st in stripes)
+        ctx = tracing.current()
         for _ in range(_PULL_CONSISTENT_TRIES):
             futures = [
-                pool.submit(self._rpc, wire.OP_PULL,
+                pool.submit(self._rpc_traced, ctx, wire.OP_PULL,
                             self._stamped({"shard": k,
                                            "num_shards": len(stripes),
                                            "idx": idx}), (), k)
@@ -849,33 +912,43 @@ class PSClient:
         else:
             seq = int(seq)
             self._seq = max(self._seq, seq)
-        items = self._compress_delta(delta)
-        base = self._stamped({"seq": seq, "pulled": int(pulled_counter)})
-        try:
-            if self._striped() and len(items) == sum(
-                    len(st) for st in self._stripes):
-                hdr = self._striped_commit(base, items)
-            else:
-                hdr, _ = self._rpc(wire.OP_COMMIT, base, items)
-        except (LeaseExpiredError, EpochFencedError):
-            # Evicted or fenced: the commit was NEVER folded; discard the
-            # window, re-join, continue from a fresh pull.
-            self._rejoin()
-            return CommitResult(applied=False, duplicate=False,
-                                evicted=True, updates=-1, staleness=-1)
-        if hdr is None:
-            # Every stripe answered ``pending``: membership churn (an
-            # eviction or a re-join purging the server's half-assembled
-            # stripe set) lost this commit. It was never folded and never
-            # will be: the evicted path's recovery.
-            self._rejoin()
-            return CommitResult(applied=False, duplicate=False,
-                                evicted=True, updates=-1, staleness=-1)
-        return CommitResult(
-            applied=bool(hdr.get("applied")),
-            duplicate=bool(hdr.get("duplicate")),
-            evicted=False, updates=int(hdr["updates"]),
-            staleness=int(hdr.get("staleness", -1)))
+        # The trace root: one commit = one trace, client-rooted. Segments
+        # recorded here (encode/wire/ack) and on every process the wire
+        # fields reach (queue/fold/fsync/replicate) share its trace id.
+        with tracing.trace_scope("commit", wid=self.worker_id, seq=seq):
+            with tracing.child_scope("commit.encode"):
+                items = self._compress_delta(delta)
+            base = self._stamped({"seq": seq, "pulled": int(pulled_counter)})
+            try:
+                if self._striped() and len(items) == sum(
+                        len(st) for st in self._stripes):
+                    hdr = self._striped_commit(base, items)
+                else:
+                    with tracing.child_scope("commit.wire"):
+                        hdr, _ = self._rpc(wire.OP_COMMIT,
+                                           self._traced(base), items)
+            except (LeaseExpiredError, EpochFencedError) as e:
+                # Evicted or fenced: the commit was NEVER folded; discard
+                # the window, re-join, continue from a fresh pull.
+                self._fenced(e)
+                self._rejoin()
+                return CommitResult(applied=False, duplicate=False,
+                                    evicted=True, updates=-1, staleness=-1)
+            if hdr is None:
+                # Every stripe answered ``pending``: membership churn (an
+                # eviction or a re-join purging the server's half-assembled
+                # stripe set) lost this commit. It was never folded and
+                # never will be: the evicted path's recovery.
+                self._rejoin()
+                return CommitResult(applied=False, duplicate=False,
+                                    evicted=True, updates=-1, staleness=-1)
+            with tracing.child_scope("commit.ack",
+                                     applied=bool(hdr.get("applied"))):
+                return CommitResult(
+                    applied=bool(hdr.get("applied")),
+                    duplicate=bool(hdr.get("duplicate")),
+                    evicted=False, updates=int(hdr["updates"]),
+                    staleness=int(hdr.get("staleness", -1)))
 
     def _striped_commit(self, base: dict, items: list) -> Optional[dict]:
         """One logical commit over the stripe connections; returns the
@@ -883,8 +956,9 @@ class PSClient:
         ``pending`` (the server lost part of the set)."""
         stripes = self._stripes
         pool = self._shard_pool()
+        ctx = tracing.current()
         futures = [
-            pool.submit(self._rpc, wire.OP_COMMIT,
+            pool.submit(self._rpc_traced, ctx, wire.OP_COMMIT,
                         dict(base, shard=k, num_shards=len(stripes),
                              idx=idx),
                         [items[i] for i in idx], k)
@@ -902,18 +976,27 @@ class PSClient:
         return None
 
     def heartbeat(self) -> int:
-        """Renew the lease; returns the server's update counter."""
+        """Renew the lease; returns the server's update counter. A traced
+        heartbeat doubles as the clock exchange's steady drumbeat: every
+        renewal is another four-timestamp sample, and the min-rtt one
+        wins."""
+        hb = self._stamped({})
+        ct0 = self._clock_stamp(hb)
         try:
-            hdr, _ = self._rpc(wire.OP_HEARTBEAT, self._stamped({}))
-        except (LeaseExpiredError, EpochFencedError):
+            hdr, _ = self._rpc(wire.OP_HEARTBEAT, hb)
+        except (LeaseExpiredError, EpochFencedError) as e:
+            self._fenced(e)
             self._rejoin()
             return self._last_join[1]
+        if ct0 is not None:
+            _traceclock.observe_reply(ct0, hdr, time.time())
         return int(hdr["updates"])
 
-    def stats(self) -> dict:
+    def stats(self, ring: int = 0) -> dict:
         """One membership-free scrape of the peer (op ``stats``): its
-        telemetry snapshot and state, ``caps`` included."""
-        hdr, _ = self._rpc(wire.OP_STATS, {"ring": 0})
+        telemetry snapshot and state, ``caps`` included, plus the flight
+        ring's most recent ``ring`` records (none by default)."""
+        hdr, _ = self._rpc(wire.OP_STATS, {"ring": int(ring)})
         return hdr
 
     def leave(self) -> None:

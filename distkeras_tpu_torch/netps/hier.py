@@ -73,6 +73,7 @@ from distkeras_tpu_torch.netps.server import PSServer
 from distkeras_tpu_torch.netps.shards import make_ps_client
 from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.runtime.device import resolve_device
+from distkeras_tpu_torch.telemetry import tracing
 
 #: default seconds an under-fan-in window may age before it is flushed
 #: anyway (a straggler must not hold the whole host's progress).
@@ -126,6 +127,9 @@ class _AbsorbWindow:
         #: constituent (wid, seq) identities of the open window, named by a
         #: lost window's ``netps_lost_window`` event (bounded).
         self._acc_pairs: list = []
+        #: trace ids of the open window's traced commits, linked from the
+        #: combined commit's ``hier.flush`` trace (bounded).
+        self._acc_traces: list = []
         #: combined commits forwarded upstream / worker commits absorbed.
         self.forwarded = 0
         self.absorbed = 0
@@ -193,10 +197,15 @@ class _AbsorbWindow:
         lineage) does not move and the center (the root's) is untouched."""
         pulled = counter_scalar(pulled)
         staleness = self._updates - pulled
-        t0 = time.perf_counter()
-        with self._on_stream():
-            fold_staged(self._center, staged, 1.0)
-        dt = time.perf_counter() - t0
+        with tracing.child_scope("commit.fold", wid=wid, seq=seq,
+                                 hier=True):
+            t0 = time.perf_counter()
+            with self._on_stream():
+                fold_staged(self._center, staged, 1.0)
+            dt = time.perf_counter() - t0
+        ctx = tracing.current()
+        if ctx is not None and len(self._acc_traces) < 64:
+            self._acc_traces.append(ctx.trace)
         self._fold_stats = (len(staged.rows), dt)
         self.fold_seconds += dt
         if not self._acc_count:
@@ -217,17 +226,20 @@ class _AbsorbWindow:
         u = self._absorbs
         self._absorbs += 1
         if self._repl_on:
-            self._repl.append({"u": u, "wid": wid, "seq": seq,
-                               "st": staleness, "e": self.epoch,
-                               "n": self.commits_total,
-                               "delta": list(wire_delta)})
+            rec = {"u": u, "wid": wid, "seq": seq, "st": staleness,
+                   "e": self.epoch, "n": self.commits_total,
+                   "delta": list(wire_delta)}
+            if ctx is not None:
+                rec["tr"] = ctx.trace
+            self._repl.append(rec)
         if self._store is not None:
-            self._store.append(epoch=self.epoch, wid=wid, seq=seq,
-                               staleness=staleness, updates=u,
-                               commits_total=self.commits_total,
-                               delta=list(wire_delta))
-            if self._store.due(self._absorbs):
-                self._snapshot_locked()
+            with tracing.child_scope("commit.fsync", wid=wid, seq=seq):
+                self._store.append(epoch=self.epoch, wid=wid, seq=seq,
+                                   staleness=staleness, updates=u,
+                                   commits_total=self.commits_total,
+                                   delta=list(wire_delta))
+                if self._store.due(self._absorbs):
+                    self._snapshot_locked()
         self._trim_log_locked(2 * self._log_keep)
         self._purge_pending(wid, below_seq=seq)
         self._flush_cv.notify_all()
@@ -247,16 +259,18 @@ class _AbsorbWindow:
                 or time.monotonic() - self._acc_t0 >= self.flush_interval)
 
     def _take_acc_locked(self, force: bool):
-        """The open window as ``(acc, pulled, count, members, pairs)`` when
-        it is due (fan-in reached, older than ``flush_interval``, or
-        ``force``), else None."""
+        """The open window as ``(acc, pulled, count, members, traces,
+        pairs)`` when it is due (fan-in reached, older than
+        ``flush_interval``, or ``force``), else None."""
         if not self._acc_count or not (force or self._window_due_locked()):
             return None
         taken = (self._take_window_locked(), self._acc_pulled,
-                 self._acc_count, len(self._acc_members), self._acc_pairs)
+                 self._acc_count, len(self._acc_members), self._acc_traces,
+                 self._acc_pairs)
         self._acc_pulled = None
         self._acc_count = 0
         self._acc_members = set()
+        self._acc_traces = []
         self._acc_pairs = []
         return taken
 
@@ -438,9 +452,14 @@ class AggregatorServer(_AbsorbWindow, PSServer):
             taken = self._take_acc_locked(force)
         if taken is None:
             return False
-        acc, pulled, count, members, pairs = taken
+        acc, pulled, count, members, traces, pairs = taken
         try:
-            res = self._up.commit(acc, pulled)
+            # The combined commit gets its own trace, LINKING the
+            # constituent worker traces (a fan-in is a DAG, not a tree:
+            # links connect one upstream fold to its N origins).
+            with tracing.trace_scope("hier.flush", count=count,
+                                     links=traces[:16]):
+                res = self._up.commit(acc, pulled)
         except (NetPSError, OSError):
             self._lose_window(pairs, count)
             return True

@@ -95,8 +95,9 @@ workers would dial directly is refused before any worker starts: the
 sharded client has no probe or retune (nor has the JAX package's, whose
 run fails there).
 
-Tracing (``DKTPU_TRACE``, ROADMAP Queue 1 item 10) comes with a later
-slice: set, it raises here rather than train without it.
+Tracing (``DKTPU_TRACE=1``) needs nothing here: each worker's client roots
+one trace a commit and a pull, and the server's spans join it over the
+wire (``netps/client.py``, ``netps/server.py``).
 """
 
 from __future__ import annotations
@@ -125,23 +126,6 @@ from distkeras_tpu_torch.ops.kernels import build
 from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.workers import derive_seed, make_local_loop
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to distkeras_tpu_torch yet (ROADMAP Queue 1 "
-        f"item {item}); the remote worker loop runs over TCP, the shm ring "
-        f"or the mesh dispatch, striped or not, against one parameter "
-        f"server, a primary/standby endpoint list or a sharded center, "
-        f"flat or through a per-host aggregator, tuned by hand or by "
-        f"DKTPU_NET_AUTOTUNE")
-
-
-def _refuse_unported() -> None:
-    """Raise for every data-plane option the reference's remote loop reads
-    that the port does not serve."""
-    if config.env_bool("DKTPU_TRACE"):
-        raise _not_ported("DKTPU_TRACE (tracing's child_scope spans)", "10")
 
 
 def _state_nbytes(state) -> int:
@@ -295,7 +279,6 @@ def run_remote(
     call, which two worker threads must not share.
     """
     check_discipline(discipline)
-    _refuse_unported()
     if getattr(plan, "is_local", False):
         # Each worker thread gathers its rows from the plan's in-RAM
         # arrays; the JAX package's loop dies of an AttributeError here.

@@ -99,8 +99,18 @@ membership, consumes a seq, folds into the center, journals or dedups;
 the reply says how many f32 bytes were decoded (``probe_bytes``) and how
 long the decode took on the device (``decode_s``).
 
-The JAX server's tracing comes with a later slice; a peer learns that from
-the join reply's ``caps``.
+**Tracing** (``DKTPU_TRACE=1``): a request whose header carries
+``trace``/``parent`` is dispatched under that context (``header_ctx`` +
+``adopt``), so a commit's server spans join the client's trace:
+``commit.queue`` is the wait for the center lock, ``commit.fold`` is the
+window ``fold_seconds`` times (the host call that enqueues the fold on the
+server's stream: on the card it closes at the launch, not at the kernel's
+end, and tracing adds no synchronize), and
+``commit.fsync`` is the journal append plus a snapshot when due. The
+replication tail carries the trace id (``tr``) so a standby's
+``commit.replicate`` joins it. A request stamped ``ct0`` is answered
+``st1``/``st2`` (the clock exchange); an untraced peer sees no new key. The
+``stats`` op answers this process's role and the head of its flight ring.
 """
 
 from __future__ import annotations
@@ -137,6 +147,7 @@ from distkeras_tpu_torch.ops.kernels import fold as fold_kernels
 from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.runtime.device import resolve_device
+from distkeras_tpu_torch.telemetry import tracing as _tracing
 
 #: handler/accept poll tick: how often blocked threads wake to check stop.
 _POLL_S = 0.2
@@ -655,10 +666,17 @@ class PSServer:
             return None
         telemetry.counter("netps.bytes_received").add(nbytes)
         op = header.get("op", "")
+        # Clock + trace plumbing, both strictly echo-shaped: ``st1``/
+        # ``st2`` are answered ONLY when the request stamped ``ct0``, and
+        # the trace context exists ONLY when the request carried ``trace``:
+        # an untraced peer sees zero new bytes in either direction.
+        st1 = time.time() if "ct0" in header else None
+        tctx = _tracing.header_ctx(header)
         if op == wire.OP_COMMIT:
             self._chaos_hooks()
         with telemetry.span(f"netps.server.{op or 'unknown'}{dialect}"):
-            reply, out = self._dispatch(op, header, arrays)
+            with _tracing.adopt(tctx):
+                reply, out = self._dispatch(op, header, arrays)
         err = reply.get("error")
         if op == wire.OP_COMMIT and err == "epoch_fenced":
             # Every fenced commit is a commit that did NOT reach the fold.
@@ -671,6 +689,9 @@ class PSServer:
         if self._store is not None and op in (wire.OP_COMMIT, wire.OP_JOIN):
             telemetry.gauge("netps.recovery.snapshots").set(
                 float(self.snapshots_written))
+        if st1 is not None:
+            reply["st1"] = st1
+            reply["st2"] = time.time()
         reply["req"] = header.get("req")
         return reply, out
 
@@ -1040,7 +1061,15 @@ class PSServer:
             # wait on it. A striped commit is staged once it is assembled.
             with self._on_stream():
                 staged = stage_commit(arrays, self.device, self._pool)
+        # Queue-behind-fold: the wait for the center lock is the commit
+        # path's contention segment, measured around the acquire (a scope
+        # cannot wrap it) and emitted as a child of the request's carried
+        # context (a no-op untraced).
+        tctx = _tracing.current()
+        q_wall, q0 = time.time(), time.perf_counter()
         with self._lock:
+            _tracing.emit("commit.queue", tctx, q_wall,
+                          time.perf_counter() - q0, wid=wid, seq=seq)
             err = self._check_primary_locked(header)
             if err is not None:
                 return err
@@ -1122,10 +1151,14 @@ class PSServer:
         the commit frame's own entries: each frame has a buffer of its own,
         so the journal and the tail may hold them until written or sent."""
         staleness = counter_staleness(self._updates, pulled)
-        t0 = time.perf_counter()
-        with self._on_stream():
-            fold_delta(self._center, staged, self.discipline, staleness)
-        dt = time.perf_counter() - t0
+        # The span covers exactly the window fold_seconds times: the host
+        # call that enqueues the fold on the server's stream.
+        with _tracing.child_scope("commit.fold", wid=wid, seq=seq,
+                                  staleness=staleness):
+            t0 = time.perf_counter()
+            with self._on_stream():
+                fold_delta(self._center, staged, self.discipline, staleness)
+            dt = time.perf_counter() - t0
         self._host = None  # the mirror is stale from here on
         self._fold_stats = (len(staged.rows), dt)
         self.fold_seconds += dt
@@ -1150,16 +1183,23 @@ class PSServer:
         if epoch is not None:
             self.epoch = max(self.epoch, int(epoch))
         if self._repl_on:
-            self._repl.append({"u": u, "wid": wid, "seq": seq,
-                               "st": staleness, "e": self.epoch,
-                               "n": self.commits_total, "delta": wire_delta})
+            rec = {"u": u, "wid": wid, "seq": seq, "st": staleness,
+                   "e": self.epoch, "n": self.commits_total,
+                   "delta": wire_delta}
+            ctx = _tracing.current()
+            if ctx is not None:
+                # The tail carries the trace id so the standby's apply span
+                # joins the originating commit's trace.
+                rec["tr"] = ctx.trace
+            self._repl.append(rec)
         if self._store is not None:
-            self._store.append(epoch=self.epoch, wid=wid, seq=seq,
-                               staleness=staleness, updates=u,
-                               commits_total=self.commits_total,
-                               delta=wire_delta)
-            if self._store.due(self._updates):
-                self._snapshot_locked()
+            with _tracing.child_scope("commit.fsync", wid=wid, seq=seq):
+                self._store.append(epoch=self.epoch, wid=wid, seq=seq,
+                                   staleness=staleness, updates=u,
+                                   commits_total=self.commits_total,
+                                   delta=wire_delta)
+                if self._store.due(self._updates):
+                    self._snapshot_locked()
         self._trim_log_locked(2 * self._log_keep)
 
     def _trim_log_locked(self, threshold: int) -> None:
@@ -1237,10 +1277,15 @@ class PSServer:
         return {"ok": True}, []
 
     def _op_stats(self, header: dict) -> tuple[dict, list]:
-        """Membership-free scrape: this process's telemetry snapshot and
-        the server's state, with ``caps`` echoed so an observer can probe
-        capabilities without joining. Never touches membership, leases,
-        the dedup table or the fold."""
+        """Live telemetry scrape over the wire (``python -m
+        distkeras_tpu_torch.telemetry scrape host:port``): this process's
+        telemetry snapshot, the server's state and the flight ring's most
+        recent ``ring`` records, with ``caps`` echoed so an observer can
+        probe capabilities without joining. Not behind the primary check
+        (a standby or a fenced ex-primary is the process a postmortem wants
+        to ask); never touches membership, leases, the dedup table or the
+        fold."""
+        n = max(0, int(header.get("ring", 64) or 0))
         with self._lock:
             extra = {"updates": self._updates, "epoch": self.epoch,
                      "members": len(self._members),
@@ -1251,8 +1296,12 @@ class PSServer:
                      "ready": (not self._draining and not self._fenced
                                and not self._not_primary),
                      "fold_backend": backend_name(self._center)}
-        return ({"ok": True, "caps": dict(wire.CAPS), "role": "ps",
-                 "snapshot": telemetry.get().snapshot(), "ring": [],
+        # The ring rides the JSON header: round-trip through json with a str
+        # fallback first, as event fields may carry non-JSON scalars.
+        ring = json.loads(json.dumps(_tracing.ring_head(n), default=str))
+        return ({"ok": True, "caps": dict(wire.CAPS),
+                 "role": _tracing.role(),
+                 "snapshot": telemetry.get().snapshot(), "ring": ring,
                  **extra}, [])
 
     def _caps(self) -> dict:
@@ -1301,9 +1350,14 @@ class PSServer:
                                     for k, v in self._last_seq.items()}}
                 return hdr, list(self._host_center_locked())
             recs = recs[:_REPL_BATCH]
-            headers = [{"u": r["u"], "wid": r["wid"], "seq": r["seq"],
-                        "st": r["st"], "e": r["e"], "n": r["n"],
-                        "k": len(r["delta"])} for r in recs]
+            headers = []
+            for r in recs:
+                h = {"u": r["u"], "wid": r["wid"], "seq": r["seq"],
+                     "st": r["st"], "e": r["e"], "n": r["n"],
+                     "k": len(r["delta"])}
+                if "tr" in r:
+                    h["tr"] = r["tr"]
+                headers.append(h)
             out: list = []
             for r in recs:
                 out.extend(r["delta"])

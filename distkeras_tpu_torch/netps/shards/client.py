@@ -35,6 +35,10 @@ Per-shard counters: the server's update counter is per shard, so ``pull``
 returns a TUPLE of counters (opaque to the worker loop, which hands it
 back to ``commit``) and staleness is charged per shard from its own
 counter — DynSGD's scaling sees each shard's true local staleness.
+
+Tracing: a logical pull or commit is one trace rooted here (``pull`` /
+``commit``); the fan-out legs run on pool threads, which adopt the
+caller's context, so every shard's sub-client spans join that trace.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from distkeras_tpu_torch.netps.client import CommitResult, PSClient
 from distkeras_tpu_torch.netps.errors import ShardPlanError
 from distkeras_tpu_torch.netps.shards.plan import (PartitionPlan,
                                                    plan_for_model)
+from distkeras_tpu_torch.telemetry import tracing
 
 
 def is_sharded_endpoint(endpoint: str) -> bool:
@@ -135,11 +140,21 @@ class ShardedPSClient:
         self.close()
 
     # -- fan-out plumbing ----------------------------------------------
+    @staticmethod
+    def _run_adopted(ctx, fn):
+        """One fan-out leg under the caller's trace context (pool threads
+        do not inherit thread-locals; each sub-client's own spans then
+        join the logical operation's trace instead of rooting orphans)."""
+        with tracing.adopt(ctx):
+            return fn()
+
     def _fan(self, fns) -> list:
         """Run one callable per shard concurrently; wait for ALL, then
         re-raise the first failure (everything drained: no sub-client is
         left with an in-flight reply)."""
-        futures = [self._pool.submit(fn) for fn in fns]
+        ctx = tracing.current()
+        futures = [self._pool.submit(self._run_adopted, ctx, fn)
+                   for fn in fns]
         results, errors = [], []
         for f in futures:
             try:
@@ -255,7 +270,11 @@ class ShardedPSClient:
         exactly what per-shard staleness accounting charges."""
         if self.plan is None:
             self._fetch_plan()
+        with tracing.trace_scope("pull", wid=self.worker_id,
+                                 shards=len(self._subs)):
+            return self._pull_traced()
 
+    def _pull_traced(self) -> tuple[list, tuple]:
         def pull_one(k: int):
             sub = self._subs[k]
             out = sub.pull()
@@ -292,6 +311,14 @@ class ShardedPSClient:
                     f"shards")
         else:
             pulled = [int(pulled_counter)] * len(self._subs)
+        # The logical commit's trace root: every shard's sub-commit (and
+        # every segment it fans into on the shard servers) joins this one
+        # trace through the _fan adoption.
+        with tracing.trace_scope("commit", wid=self.worker_id, seq=seq,
+                                 shards=len(self._subs)):
+            return self._commit_traced(delta, pulled, seq)
+
+    def _commit_traced(self, delta, pulled, seq) -> CommitResult:
         slices = self.plan.scatter(list(delta))
 
         def commit_one(k: int) -> CommitResult:

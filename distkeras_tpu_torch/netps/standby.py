@@ -56,6 +56,7 @@ from distkeras_tpu_torch.netps.errors import ProtocolError
 from distkeras_tpu_torch.netps.fold import (decode_entry, fold_delta,
                                             stage_commit)
 from distkeras_tpu_torch.netps.server import PSServer
+from distkeras_tpu_torch.telemetry import tracing
 
 
 class StandbyServer(PSServer):
@@ -254,7 +255,7 @@ class StandbyServer(PSServer):
         on the standby's stream, then the bookkeeping the primary's fold
         ran, the standby's own journal included."""
         wid, seq, st = int(rec["wid"]), int(rec["seq"]), int(rec["st"])
-        t0 = time.perf_counter()
+        t_wall, t0 = time.time(), time.perf_counter()
         with self._on_stream():
             fold_delta(self._center, stage_commit(delta, self.device,
                                                   self._pool),
@@ -265,6 +266,15 @@ class StandbyServer(PSServer):
                                  epoch=rec.get("e", 0),
                                  commits_total=rec.get(
                                      "n", self.commits_total + 1))
+        if rec.get("tr"):
+            # The record carried the originating commit's trace id (``tr``)
+            # across the replication stream: this span joins that trace,
+            # closing the commit-to-standby leg of the critical path. The
+            # empty parent is deliberate: the client's span ids never cross
+            # the replicate link, only the trace does.
+            tracing.emit("commit.replicate",
+                         tracing.TraceContext(str(rec["tr"]), ""),
+                         t_wall, time.perf_counter() - t0, wid=wid, seq=seq)
 
     # ------------------------------------------------------------------
     def _promote(self) -> None:

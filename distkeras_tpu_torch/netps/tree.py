@@ -71,6 +71,7 @@ from distkeras_tpu_torch.netps.standby import StandbyServer
 from distkeras_tpu_torch.netps.tuner.probe import best_codec, probe_codecs
 from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime import config
+from distkeras_tpu_torch.telemetry import tracing
 
 #: link-key stride: ``link_key = level * _LINK_STRIDE + group`` (the
 #: fault-plan grammar forces the key into one integer; a level holds at
@@ -209,6 +210,7 @@ class _Window(NamedTuple):
     pulled: int
     count: int
     members: int
+    traces: list
     pairs: list
 
 
@@ -446,7 +448,10 @@ class _TreeUplink:
         discarded), or ``down`` (died in transport inside the client's
         bounded retry budget; the window stays buffered)."""
         try:
-            res = self._up.commit(win.acc, win.pulled)
+            with tracing.trace_scope("hier.flush", count=win.count,
+                                     level=self.level, group=self.group,
+                                     links=win.traces[:16]):
+                res = self._up.commit(win.acc, win.pulled)
         except (NetPSError, OSError):
             return "down"
         return "evicted" if res.evicted else "ok"
@@ -717,6 +722,7 @@ class TreeStandby(_TreeUplink, _AbsorbWindow, StandbyServer):
         cursor (``_updates`` until promotion) advances as the primary's
         absorb cursor did."""
         wid, seq, st = int(rec["wid"]), int(rec["seq"]), int(rec["st"])
+        t0, p0 = time.time(), time.perf_counter()
         self.commit_log.append((wid, seq, st))
         self._last_seq[wid] = seq
         self._ever.add(wid)
@@ -731,6 +737,10 @@ class TreeStandby(_TreeUplink, _AbsorbWindow, StandbyServer):
             if self._store.due(self._updates):
                 self._snapshot_locked()
         self._trim_log_locked(2 * self._log_keep)
+        if rec.get("tr"):
+            tracing.emit("commit.replicate",
+                         tracing.TraceContext(str(rec["tr"]), ""),
+                         t0, time.perf_counter() - p0, wid=wid, seq=seq)
 
     def _snapshot_locked(self) -> None:
         """The snapshot cursor indexes this standby's OWN journal: the

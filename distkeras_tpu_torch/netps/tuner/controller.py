@@ -30,9 +30,8 @@ Hysteresis and guardrails, in order of authority:
   renegotiates the dialect anyway — and the undelivered generation is
   retried at the next round (``tuner.deferred``).
 
-The JAX package wraps :meth:`Tuner.apply_to`'s retune in a
-``tuner.retune`` trace scope; the port has no tracing yet (ROADMAP item
-10), so the retune is counted and logged but not traced.
+:meth:`Tuner.apply_to`'s retune runs in a ``tuner.retune`` trace scope
+(a trace root of its own under ``DKTPU_TRACE=1``).
 """
 
 from __future__ import annotations
@@ -44,6 +43,7 @@ from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.netps import wire
 from distkeras_tpu_torch.netps.tuner.probe import best_codec, probe_codecs
 from distkeras_tpu_torch.runtime import config
+from distkeras_tpu_torch.telemetry import tracing
 
 #: codec -> numeric gauge value (``tuner.knob.codec``): report-friendly
 #: ordering by wire size (none > bf16 > int8).
@@ -381,8 +381,10 @@ class Tuner:
                 self.deferred += 1
             telemetry.counter("tuner.deferred").add(1)
             return None
-        changed = client.retune(codec=codec, shards=shards,
-                                template=template)
+        with tracing.trace_scope("tuner.retune", generation=gen,
+                                 codec=codec, shards=shards):
+            changed = client.retune(codec=codec, shards=shards,
+                                    template=template)
         state.generation = gen
         return changed
 

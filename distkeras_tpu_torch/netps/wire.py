@@ -85,12 +85,18 @@ CODECS = (CODEC_NONE, CODEC_BF16, CODEC_INT8)
 #: (``netps/tuner/``): a timed round trip that is decoded like a commit,
 #: on the server's device, but never touches the center, the journal, the
 #: dedup table or membership; a peer without the bit answers the typed
-#: unknown-op error and the client's autotuner leaves it alone. The JAX
-#: package's ``tracing`` bit is absent, so a peer that gates trace context
-#: on it speaks the plain dialect to the port.
+#: unknown-op error and the client's autotuner leaves it alone.
+#: ``tracing`` advertises distributed-trace context propagation
+#: (``telemetry/tracing/``): with ``DKTPU_TRACE=1`` a client adds
+#: ``trace``/``parent`` ids (and the NTP-style ``ct0`` clock-exchange
+#: timestamp on join/heartbeat) to request headers, but ONLY after the
+#: peer's caps carried the bit, so a peer without it sees zero new bytes;
+#: the server answers the clock fields (``st1``/``st2``) only on requests
+#: that carried ``ct0``. JSON headers make the gate structural: an absent
+#: key is an absent byte. Either package stitches the other's traces.
 CAPS = {"codecs": list(CODECS), "striping": True, "replication": True,
         "serving": True, "sharding": True, "shm": True, "mesh": True,
-        "tree": True, "tuner": True}
+        "tree": True, "tuner": True, "tracing": True}
 
 #: the core parameter-server ops carried in ``header["op"]``.
 OP_JOIN = "join"
@@ -159,8 +165,8 @@ ERROR_KINDS = frozenset({
 })
 
 #: every frame-header key either side may read or write: request fields,
-#: reply fields and the replication-record sub-headers. A subset of the JAX
-#: package's set (the tracing keys are absent). A probe request's
+#: reply fields, the replication-record sub-headers and the trace/clock
+#: plumbing. A subset of the JAX package's set. A probe request's
 #: ``probe_codec`` is not here, as it is not in the JAX package's set: the
 #: server never reads it (each entry's spec says how it decodes).
 HEADER_KEYS = frozenset({
@@ -173,7 +179,7 @@ HEADER_KEYS = frozenset({
     "num_shards", "shard", "idx",
     # replication / failover
     "u", "mode", "records", "lineage", "commits_total", "fenced",
-    "wid", "st", "e", "n", "k",
+    "wid", "st", "e", "n", "k", "tr",
     # aggregation tree (replicate's root-counter rider + the stats block)
     "root_u", "tree",
     # sharded center
@@ -184,6 +190,8 @@ HEADER_KEYS = frozenset({
     "fold_backend",
     # tuner probe
     "probe_bytes", "decode_s",
+    # tracing + clock exchange
+    "trace", "parent", "ct0", "st1", "st2",
 })
 
 

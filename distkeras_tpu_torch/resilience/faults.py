@@ -59,6 +59,7 @@ from typing import Optional
 
 from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.runtime import config
+from distkeras_tpu_torch.telemetry import tracing
 
 #: fault kinds and whether they take an argument.
 _KINDS = frozenset({
@@ -216,9 +217,8 @@ class FaultPlan:
     def _fire(self, kind: str, at: int) -> Optional[float]:
         """The fault's arg if (kind, at) is scheduled and not yet fired;
         marks it fired (and journals it) as a side effect, and counts it
-        (``resilience.faults_injected``, event ``fault_injected``). The
-        JAX package also dumps its tracing flight ring here; the port's
-        tracing plane (ROADMAP Queue 1 item 10) brings that dump."""
+        (``resilience.faults_injected``, event ``fault_injected``), and
+        dumps the tracing flight ring (a no-op with tracing off)."""
         key = (kind, at)
         with self._lock:
             if key not in self.faults or key in self._fired:
@@ -232,6 +232,10 @@ class FaultPlan:
                 f.write(f"{kind}@{at}\n")
         telemetry.counter("resilience.faults_injected").add(1)
         telemetry.event("fault_injected", {"fault": kind, "at": at})
+        # Dump the flight ring BEFORE the fault takes effect: a kind like
+        # ``ps_crash`` SIGKILLs this very process, and the ring is the only
+        # record of what it was doing in its final seconds.
+        tracing.flight_dump(f"fault:{kind}")
         return arg if arg is not None else 0.0
 
     def pending(self, kind: str, at: int) -> Optional[float]:

@@ -82,9 +82,31 @@ ENV_REGISTRY: dict = _declare(
            "span/counter/gauge/histogram for a no-op singleton.",
            "observability"),
     EnvVar("DKTPU_TRACE", "bool", False,
-           "Fleet-wide distributed tracing (the JAX package's "
-           "`telemetry/tracing/`). Not ported: the port's remote worker "
-           "loop raises when it is set.",
+           "Fleet-wide distributed tracing (`telemetry/tracing/`): commit "
+           "and serve requests carry a `(trace, parent)` context across "
+           "processes (capability-gated — peers without `CAPS['tracing']` "
+           "see zero new bytes) and every process records span/flight "
+           "evidence. Off by default: no trace ids, no extra wire fields, "
+           "no span records.",
+           "observability"),
+    EnvVar("DKTPU_TRACE_DIR", "str", "",
+           "Directory for per-process trace streams "
+           "(`trace-<role>-<pid>.jsonl`, appended per span so a SIGKILL "
+           "loses at most one torn line) and flight-recorder dumps "
+           "(`flight-<role>-<pid>.jsonl`). Empty = fall back to "
+           "`DKTPU_PS_STATE_DIR`; with neither set, spans still ride the "
+           "in-memory telemetry event stream and the flight ring.",
+           "observability"),
+    EnvVar("DKTPU_TRACE_RING", "int", 256,
+           "Flight-recorder capacity: recent telemetry events + trace "
+           "spans kept in a bounded in-memory ring per process, dumped on "
+           "fault injection, epoch fencing, SIGTERM, and unhandled crash.",
+           "observability"),
+    EnvVar("DKTPU_TRACE_ROLE", "str", "",
+           "Role label (`ps`, `standby`, `shard0`, `worker1`, `serve`, "
+           "...) stamped into every trace/flight/process-info record this "
+           "process writes; the netps CLI and the fleet `Job` launcher set "
+           "it automatically, so only hand-launched processes need it.",
            "observability"),
     EnvVar("DKTPU_TELEMETRY_ROTATE_MB", "float", 0.0,
            "Size bound (MiB) for telemetry/trace JSONL files: a file at or "
@@ -92,6 +114,44 @@ ENV_REGISTRY: dict = _declare(
            "generations numbered from 1) before the next append; the "
            "collector reads generations in order. 0 = no rotation "
            "(unbounded growth under streaming workloads).",
+           "observability"),
+    EnvVar("DKTPU_HEALTH_TARGETS", "str", "",
+           "Ad-hoc scrape targets for the health plane's `MetricsHub`: "
+           "`[name=]host:port` entries separated by `;` (or `,`), merged "
+           "with the in-process registry fleet components populate "
+           "automatically. Re-read every sweep, so targets can be added "
+           "while the hub runs.",
+           "observability"),
+    EnvVar("DKTPU_HEALTH_INTERVAL", "float", 2.0,
+           "Seconds between `MetricsHub` scrape sweeps over the registered "
+           "targets (each sweep is one `stats` frame per target — no "
+           "membership, no lease traffic).",
+           "observability"),
+    EnvVar("DKTPU_HEALTH_RING", "int", 240,
+           "Points kept per metric time-series ring in the hub (per "
+           "target, per metric). At the default 2 s interval, 240 points "
+           "is an 8-minute window — enough to cover the default slow "
+           "burn-rate window with slack.",
+           "observability"),
+    EnvVar("DKTPU_HEALTH_DOWN_AFTER", "int", 3,
+           "Consecutive missed scrapes after which a previously-reachable "
+           "target is declared down (the `target_down` sentinel fires a "
+           "page alert; supervisors consulting `MetricsHub.is_down` may "
+           "restart it).",
+           "observability"),
+    EnvVar("DKTPU_HEALTH_SLO", "str", "",
+           "SLO specs for the health plane: inline JSON (starts with `[` "
+           "or `{`) or a path to a JSON file. Each spec names a hub "
+           "metric, a stat (`value`/`mean`/`rate`/`p99`/...), one bound "
+           "(`max` or `min`), burn-rate windows (`fast_s`/`slow_s`), and "
+           "a severity (`page` dumps the flight recorder on fire).",
+           "observability"),
+    EnvVar("DKTPU_VITALS_S", "float", 0.0,
+           "Process-vitals sample interval (seconds): periodic "
+           "`runtime.rss_mb`, `runtime.open_fds`, and (once the process "
+           "has touched the card) `device.bytes_in_use` gauges feeding the "
+           "hub via the stats op. 0 = off; the netps CLI and the serving "
+           "frontend start the sampler when set.",
            "observability"),
     EnvVar("DKTPU_NAN_GUARD", "bool", True,
            "On-device NaN/Inf round skip in the engine round bodies; `0` "

@@ -67,14 +67,22 @@ class PendingRequest:
     its admission timestamp (the latency span origin), and the event its
     handler thread blocks on until ``result``/``error`` is set."""
 
-    __slots__ = ("arrays", "rows", "admitted_at", "deadline_at", "event",
-                 "result", "error", "version")
+    __slots__ = ("arrays", "rows", "admitted_at", "admitted_wall", "trace",
+                 "deadline_at", "event", "result", "error", "version")
 
     def __init__(self, arrays: Sequence, rows: int,
                  deadline_s: Optional[float] = None):
         self.arrays = tuple(arrays)
         self.rows = int(rows)
         self.admitted_at = time.monotonic()
+        #: wall-clock twin of ``admitted_at``: trace spans are stamped in
+        #: wall time so the collector can align them across processes.
+        self.admitted_wall = time.time()
+        #: the request's :class:`~distkeras_tpu_torch.telemetry.tracing.
+        #: TraceContext` (set by the frontend when the wire header carried
+        #: one); the dispatch thread emits its queue and batch spans under
+        #: it.
+        self.trace = None
         self.deadline_at = (self.admitted_at + deadline_s
                             if deadline_s is not None else None)
         self.event = threading.Event()

@@ -14,9 +14,16 @@ through the CUDA kernels) and fans the rows back out.
 Chaos (``DKTPU_NET_FAULTS``), keyed by the process-wide index of accepted
 ``infer`` requests: ``serve_drop@F`` closes request F's connection before
 admission (the client sees a transport failure and retries or fails
-over), ``serve_slow@F:S`` holds request F's reply S seconds. Distributed
-tracing and process vitals come with a later slice; the stats reply
-carries an empty flight ring and a fixed role.
+over), ``serve_slow@F:S`` holds request F's reply S seconds.
+
+Tracing (``DKTPU_TRACE=1``): a request whose header carries ``trace``/
+``parent`` gets two server spans under that context, ``serve.queue`` (its
+wait behind the coalescing batcher) and ``serve.batch`` (the shared
+forward pass it rode: on the card, the host call that launches the
+bucket's kernels and copies the logits back, which waits for them). The
+stats reply answers this process's role and, when asked (``ring``), the
+head of its flight ring; ``start()`` starts the vitals sampler
+(``DKTPU_VITALS_S``).
 
 :class:`ServeClient` is the other half: per-attempt deadline, full-jitter
 backoff, endpoint walking over ``wire.split_endpoints`` on connection
@@ -27,6 +34,7 @@ exceptions in ``serving/errors.py`` (never retried: the server answered).
 from __future__ import annotations
 
 import itertools
+import json
 import socket
 import threading
 import time
@@ -44,13 +52,10 @@ from distkeras_tpu_torch.resilience.backoff import full_jitter
 from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.serving import errors as serrors
 from distkeras_tpu_torch.serving.batcher import MicroBatcher, bucket_for
+from distkeras_tpu_torch.telemetry import tracing
 
 _POLL_S = 0.2
 _FRAME_COMPLETE_S = 30.0
-
-#: the role the stats reply names (the JAX frontend reads it from its
-#: tracing plane, which the port does not have yet).
-ROLE = "serve"
 
 #: process-wide accepted-``infer`` index the chaos kinds key on, shared
 #: across frontends, so a replica-set drill can address "the 7th request"
@@ -107,6 +112,9 @@ class ServingFrontend:
         if self._started:
             return self
         self._started = True
+        from distkeras_tpu_torch.telemetry.vitals import start_vitals
+
+        start_vitals()  # no-op unless DKTPU_VITALS_S is set
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._listener.bind((self.host, self.port))
@@ -213,14 +221,20 @@ class ServingFrontend:
         if op == wire.OP_STATS:
             st1 = time.time() if "ct0" in header else None
             b, version = self.registry.current()
+            n = max(0, int(header.get("ring", 0) or 0))
+            # Ring records may carry non-JSON payloads (exception reprs):
+            # round-trip through default=str so one odd record cannot
+            # poison the stats reply frame.
+            ring = json.loads(json.dumps(tracing.ring_head(n),
+                                         default=str)) if n else []
             reply = {
                 "op": op, "req": req, "version": version,
                 "queue_rows": self.batcher.depth_rows(),
                 "served": self.served, "compiles": b.compiles(),
-                "caps": wire.CAPS, "role": ROLE,
+                "caps": wire.CAPS, "role": tracing.role(),
                 "ready": self.ready,
                 "snapshot": telemetry.get().snapshot(),
-                "ring": []}
+                "ring": ring}
             if st1 is not None:
                 # NTP-style clock exchange, answered as the JAX frontend
                 # does for a request that carried ``ct0``.
@@ -246,8 +260,10 @@ class ServingFrontend:
         # Wire arrays view the per-frame buffer; copy before they outlive
         # this handler's frame (the dispatch thread concatenates later).
         inputs = tuple(np.array(a, copy=True) for a in arrays)
+        tctx = tracing.header_ctx(header)
         try:
             pending = self.batcher.submit(inputs, int(inputs[0].shape[0]))
+            pending.trace = tctx
         except serrors.ServingError as e:
             wire.send_frame(conn, wire.KIND_REPLY, {
                 "error": serrors.error_kind(e), "req": req,
@@ -279,6 +295,7 @@ class ServingFrontend:
                 continue
             bucketed, version = self.registry.current()
             rows = sum(p.rows for p in batch)
+            d_wall, d0 = time.time(), time.perf_counter()
             try:
                 with telemetry.span("serving.dispatch"):
                     joined = tuple(
@@ -291,6 +308,19 @@ class ServingFrontend:
                     p.answer(error=serrors.ServingError(
                         f"dispatch failed: {type(e).__name__}: {e}"))
                 continue
+            d_dur = time.perf_counter() - d0
+            for p in batch:
+                if p.trace is not None:
+                    # Two server-side segments per traced request: how long
+                    # it queued behind the coalescing wait, and the shared
+                    # forward pass it rode (the same span for every member:
+                    # the batch IS the shared resource).
+                    tracing.emit("serve.queue", p.trace, p.admitted_wall,
+                                 max(0.0, d_wall - p.admitted_wall),
+                                 rows=p.rows)
+                    tracing.emit("serve.batch", p.trace, d_wall, d_dur,
+                                 rows=rows, requests=len(batch),
+                                 version=version)
             telemetry.counter("serving.batches").add(1)
             telemetry.counter("serving.batched_rows").add(rows)
             bucket = bucket_for(rows, bucketed.buckets)
@@ -320,9 +350,11 @@ _ERROR_TYPES = {
 class ServeClient:
     """Inference client for a replica set: ``"host:port[,host:port...]"``
     endpoints walked in order on connection failure, typed server errors
-    raised immediately. The port sends no trace context (it has no tracing
-    plane yet), so its requests are the plain dialect every frontend
-    reads."""
+    raised immediately. With ``DKTPU_TRACE=1`` each ``infer`` is one trace
+    (``serve.request`` with a ``serve.wire`` child) whose ids ride the
+    request header, but only to a replica set whose ``stats`` advertised
+    ``CAPS["tracing"]`` (asked once, at the first traced ``infer``): a peer
+    without the bit is sent zero new bytes."""
 
     def __init__(self, endpoints: str, timeout: Optional[float] = None,
                  retries: Optional[int] = None,
@@ -337,6 +369,9 @@ class ServeClient:
         self._sock: Optional[socket.socket] = None
         self._req = itertools.count()
         self._lock = threading.Lock()
+        #: the replica set's advertised caps, learned by the first traced
+        #: ``infer`` (None = not asked yet).
+        self._peer_caps: Optional[dict] = None
 
     @property
     def endpoints(self) -> list:
@@ -414,16 +449,44 @@ class ServeClient:
 
     # -- ops ----------------------------------------------------------------
 
+    def _traced(self, header: dict) -> dict:
+        """Trace-context wire fields, gated on the replica set having
+        advertised ``CAPS["tracing"]``: a peer that never did is sent zero
+        new bytes (absent JSON keys), the same rule as PSClient's."""
+        if tracing.enabled() and (self._peer_caps or {}).get("tracing"):
+            header.update(tracing.wire_fields())
+        return header
+
+    def _learn_caps(self) -> None:
+        """One-shot capability discovery: serving has no ``join``, so the
+        first traced ``infer`` asks ``stats`` for the peer's caps. A failed
+        probe records ``{}`` (trace locally, send nothing): the data path
+        must not inherit the probe's failure."""
+        if self._peer_caps is not None or not tracing.enabled():
+            return
+        try:
+            self._peer_caps = dict(self.stats().get("caps") or {})
+        except (serrors.ServingError, RPCTimeoutError, OSError):
+            self._peer_caps = {}
+
     def infer(self, *arrays) -> tuple[np.ndarray, int]:
         """One inference round-trip: ``(outputs, model_version)`` for the
         caller's rows (leading axis)."""
         arrays = tuple(np.ascontiguousarray(a) for a in arrays)
-        header, out = self._rpc({"op": wire.OP_INFER}, arrays)
+        rows = int(arrays[0].shape[0]) if arrays and arrays[0].ndim else 0
+        self._learn_caps()
+        with tracing.trace_scope("serve.request", rows=rows):
+            with tracing.child_scope("serve.wire"):
+                header, out = self._rpc(
+                    self._traced({"op": wire.OP_INFER}), arrays)
         return out[0], int(header.get("version", -1))
 
-    def stats(self) -> dict:
-        """The replica's live stats frame."""
-        header, _ = self._rpc({"op": wire.OP_STATS}, [])
+    def stats(self, ring: int = 0) -> dict:
+        """The replica's live stats frame; ``ring`` > 0 also returns the
+        head of its flight-recorder ring (the scrape CLI's path)."""
+        header, _ = self._rpc(
+            {"op": wire.OP_STATS, **({"ring": int(ring)} if ring else {})},
+            [])
         return header
 
     def prefer_ready(self, probe_timeout: float = 0.5) -> list:

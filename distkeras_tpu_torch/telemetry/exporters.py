@@ -1,53 +1,30 @@
-"""Telemetry exporters: append-only JSONL (the port's copy of
-``distkeras_tpu/telemetry/exporters.py``; the Prometheus text format comes
-with the observability slice, ROADMAP.md Queue 1 item 10).
+"""Telemetry exporters: append-only JSONL and Prometheus text format (the
+port's copy of ``distkeras_tpu/telemetry/exporters.py``; both packages
+write and read the same records and the same exposition text).
 
-JSONL records are shape-compatible with ``MetricsLogger``'s per-round
-records (one JSON object per line); telemetry adds records carrying a
-``kind`` field (``process_info``, ``telemetry_summary``, plus any
-:meth:`Telemetry.event` records), so one ``run.jsonl`` holds the round
-stream and the aggregate dump together, and the JAX package's
-``python -m distkeras_tpu.telemetry report`` renders it.
+JSONL records are shape-compatible with ``MetricsLogger``'s per-round records
+(one JSON object per line); telemetry adds records carrying a ``kind`` field
+(``telemetry_summary``, plus any :meth:`Telemetry.event` records), so one
+``run.jsonl`` can hold the round stream and the aggregate dump together and
+``python -m distkeras_tpu_torch.telemetry report`` renders both.
+
+The Prometheus dump is the text exposition format (histograms as cumulative
+``le`` buckets) for scraping or one-shot file drops; :func:`parse_prometheus`
+is the matching reader used by the round-trip tests.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import socket
+import re
 import time
-import uuid
 from typing import Optional, TextIO, Union
 
 from distkeras_tpu_torch.runtime import config
-from distkeras_tpu_torch.telemetry.core import Telemetry
+from distkeras_tpu_torch.telemetry.core import BUCKET_BOUNDS, Telemetry
 
 SUMMARY_KIND = "telemetry_summary"
-PROCESS_INFO_KIND = "process_info"
-
-_BOOT_ID: list = [None]
-
-
-def boot_id() -> str:
-    """The kernel boot id, or a per-process fallback uuid where /proc is
-    absent."""
-    if _BOOT_ID[0] is None:
-        try:
-            with open("/proc/sys/kernel/random/boot_id") as f:
-                _BOOT_ID[0] = f.read().strip()
-        except OSError:
-            _BOOT_ID[0] = uuid.uuid4().hex
-    return _BOOT_ID[0]
-
-
-def process_info_record() -> dict:
-    """The stream-identity record: who wrote this file, on which clock
-    (the port exchanges no clock samples, so its offset is 0 and its rtt
-    unknown)."""
-    return {"kind": PROCESS_INFO_KIND, "ts": time.time(),
-            "host": socket.gethostname(), "pid": os.getpid(),
-            "role": "proc",
-            "boot_id": boot_id(), "clock_offset_s": 0.0, "clock_rtt_s": None}
 
 
 def rotate_jsonl(path: str) -> Optional[str]:
@@ -80,15 +57,18 @@ def write_jsonl(tele: Telemetry, path_or_file: Union[str, TextIO],
     ``since`` (a :meth:`Telemetry.mark`) windows the dump to activity after
     the mark — how per-run clients (MetricsLogger) share the process-global
     registry without re-attributing a previous run's work. Each dump leads
-    with one ``process_info`` identity record (host/pid/role/boot_id);
-    path dumps rotate first when ``DKTPU_TELEMETRY_ROTATE_MB`` says the
-    file is due."""
+    with one ``process_info`` identity record (host/pid/role/boot_id +
+    clock-offset estimate) so the cross-process collector can attribute
+    and align the stream; path dumps rotate first when
+    ``DKTPU_TELEMETRY_ROTATE_MB`` says the file is due."""
     if since is not None:
         summary, events = tele.delta(since)
     else:
         summary, events = tele.snapshot(), tele.events()
 
     def _write(f: TextIO) -> None:
+        from distkeras_tpu_torch.telemetry.tracing import process_info_record
+
         f.write(json.dumps(process_info_record()) + "\n")
         for ev in events:
             f.write(json.dumps(ev) + "\n")
@@ -143,3 +123,67 @@ def read_jsonl(path: str, strict: bool = False) -> list[dict]:
             f"{path}: skipped {len(bad)} malformed interior JSONL line(s) "
             f"(first at line {bad[0]})", stacklevel=2)
     return records
+
+
+def _sanitize(name: str) -> str:
+    return re.sub(r"[^a-zA-Z0-9_]", "_", name)
+
+
+def prometheus_text(tele: Telemetry) -> str:
+    """The registry in Prometheus text exposition format.
+
+    Spans/histograms become one ``dktpu_span_seconds`` histogram family with
+    a ``span`` label; counters and gauges become ``dktpu_counter_total`` /
+    ``dktpu_gauge`` families with a ``name`` label — fixed families keep the
+    dump schema-stable as instrumentation points are added.
+    """
+    snap = tele.snapshot()
+    out = []
+    out.append("# TYPE dktpu_counter_total counter")
+    for name, value in sorted(snap["counters"].items()):
+        out.append(f'dktpu_counter_total{{name="{_sanitize(name)}"}} {value}')
+    out.append("# TYPE dktpu_gauge gauge")
+    for name, g in sorted(snap["gauges"].items()):
+        out.append(f'dktpu_gauge{{name="{_sanitize(name)}"}} '
+                   f'{g.get("value", 0.0)}')
+    out.append("# TYPE dktpu_span_seconds histogram")
+    for name, h in sorted(snap["spans"].items()):
+        label = _sanitize(name)
+        cum = 0
+        for bound, c in zip(BUCKET_BOUNDS, h.get("buckets", [])):
+            cum += c
+            out.append(
+                f'dktpu_span_seconds_bucket{{span="{label}",le="{bound!r}"}} '
+                f"{cum}")
+        out.append(
+            f'dktpu_span_seconds_bucket{{span="{label}",le="+Inf"}} '
+            f'{h.get("count", 0)}')
+        out.append(f'dktpu_span_seconds_sum{{span="{label}"}} '
+                   f'{h.get("total", 0.0)}')
+        out.append(f'dktpu_span_seconds_count{{span="{label}"}} '
+                   f'{h.get("count", 0)}')
+    return "\n".join(out) + "\n"
+
+
+_PROM_LINE = re.compile(
+    r'^(?P<metric>[a-zA-Z0-9_]+)(?:\{(?P<labels>[^}]*)\})?\s+(?P<value>\S+)$')
+
+
+def parse_prometheus(text: str) -> dict:
+    """Parse :func:`prometheus_text` output back into
+    ``{metric: {label_tuple: value}}`` (the round-trip test's reader)."""
+    parsed: dict = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _PROM_LINE.match(line)
+        if not m:
+            continue
+        labels = tuple(
+            tuple(kv.split("=", 1)) for kv in
+            (m.group("labels") or "").split(",") if "=" in kv)
+        labels = tuple((k, v.strip('"')) for k, v in labels)
+        parsed.setdefault(m.group("metric"), {})[labels] = float(
+            m.group("value"))
+    return parsed

@@ -1113,7 +1113,8 @@ def test_precombine_on_card_is_the_numpy_decode_then_add(card, codec):
                                          "fold_bf16": 0}
             assert clients[0].stats()["fold_backend"] == "cuda"
             with agg._lock:
-                got, _p, count, _m, _pairs = agg._take_acc_locked(True)
+                got, _p, count, _m, _traces, _pairs = \
+                    agg._take_acc_locked(True)
             assert count == 3
             for a, b in zip(got, acc):
                 assert a.tobytes() == b.tobytes()
@@ -1709,3 +1710,72 @@ def test_sharded_resnet_round_stages_bit_equal_on_card(card, tmp_path):
     assert G.launch_counts() == {"group_norm_fwd": 9 * 3,
                                  "group_norm_bwd": 9 * 3}
     assert all(torch.isfinite(p).all() for p in out.params.values())
+
+
+def _traced_remote_on_card(monkeypatch, tmp_path, traced):
+    """One 2-round DynSGD remote= run (one worker, int8: 2 commits) with
+    the server and the model on the card, traced or not; the server's
+    center, its commit log and the fold launches of the run."""
+    from distkeras_tpu_torch import DynSGD, imdb_lstm
+    from distkeras_tpu_torch.data import DataFrame
+    from distkeras_tpu_torch.netps import PSServer
+
+    monkeypatch.setenv("DKTPU_NET_COMPRESS", "int8")
+    monkeypatch.setenv("DKTPU_TRACE", "1" if traced else "0")
+    monkeypatch.setenv("DKTPU_TRACE_DIR", str(tmp_path))
+    rng = np.random.default_rng(0)
+    n = 2 * 8 * 2
+    df = DataFrame({"features": rng.integers(0, 50, (n, 6)).astype(np.int32),
+                    "label": rng.integers(0, 2, n).astype(np.int32)})
+    model = imdb_lstm(vocab_size=50, embed_dim=8, hidden_size=8, seq_len=6,
+                      seed=1, device="cuda")
+    srv = PSServer(discipline="dynsgd", device="cuda").start()
+    try:
+        F.reset_launches()
+        DynSGD(model, worker_optimizer="sgd",
+               loss="sparse_categorical_crossentropy", num_workers=1,
+               batch_size=8, communication_window=2, learning_rate=0.1,
+               remote=srv.endpoint).train(df)
+        torch.cuda.synchronize()
+        return srv.center(), list(srv.commit_log), F.launch_counts()
+    finally:
+        srv.close()
+
+
+def test_traced_remote_run_on_card_folds_the_untraced_bits(card, monkeypatch,
+                                                            tmp_path):
+    """Tracing adds no synchronize and changes no fold: a traced run's
+    center is the untraced run's bit for bit, one fold launch a commit, and
+    every commit is a complete trace whose fold span is the server's."""
+    from distkeras_tpu_torch.telemetry import tracing
+    from distkeras_tpu_torch.telemetry.tracing import context, recorder
+
+    try:
+        plain, plain_log, plain_fold = _traced_remote_on_card(
+            monkeypatch, tmp_path, traced=False)
+        traced, log, fold = _traced_remote_on_card(monkeypatch, tmp_path,
+                                                   traced=True)
+    finally:
+        context._reset_stream()
+        recorder._reset()
+    assert log == plain_log and len(log) == 2
+    assert fold == plain_fold == {"fold_commit": 2, "fold_int8": 0,
+                                  "fold_bf16": 0}
+    for a, b in zip(plain, traced):
+        assert a.tobytes() == b.tobytes()
+    rep = tracing.trace_report(
+        tracing.TelemetryCollector.from_dir(str(tmp_path)).records())
+    assert (rep["commits"], rep["complete"]) == (2, 2)
+    assert rep["segments"]["fold"]["count"] == 2
+
+
+def test_vitals_read_the_card_once_cuda_is_up(card):
+    """``device.bytes_in_use`` is this process's allocated card memory,
+    present once CUDA is initialized."""
+    from distkeras_tpu_torch.telemetry import vitals
+
+    x = torch.ones(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    out = vitals.sample_vitals()
+    assert out["device.bytes_in_use"] >= x.numel() * 4
+    assert out["device.bytes_in_use"] == float(torch.cuda.memory_allocated())

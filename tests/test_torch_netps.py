@@ -425,4 +425,4 @@ def test_port_fold_delta_is_the_server_fold():
                          "striping": True, "replication": True,
                          "serving": True, "sharding": True,
                          "shm": True, "mesh": True, "tree": True,
-                         "tuner": True}
+                         "tuner": True, "tracing": True}

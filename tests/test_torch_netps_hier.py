@@ -182,7 +182,8 @@ def test_port_window_starts_at_negative_zero_and_folds_once_a_commit():
                                 u).applied
         assert len(calls) == 3 and agg._acc_count == 3
         with agg._lock:
-            acc, pulled, count, members, pairs = agg._take_acc_locked(True)
+            acc, pulled, count, members, _traces, pairs = \
+                agg._take_acc_locked(True)
         assert (pulled, count, members, pairs) == (0, 3, 1,
                                                    [(0, 0), (0, 1), (0, 2)])
         for a in acc:

@@ -224,16 +224,41 @@ def test_ps_endpoint_env_routes_to_the_server(monkeypatch):
         srv.close()
 
 
-@pytest.mark.parametrize("env,match", [
-    ({"DKTPU_TRACE": "1"}, "item 10"),
-])
-def test_unported_remote_options_raise(monkeypatch, env, match):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    pm = imdb_lstm(**SMALL, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        T.DynSGD(pm, **_kw(1), remote="127.0.0.1:1").train(
-            DataFrame(_columns(1)))
+def test_traced_remote_run_trains_and_writes_complete_traces(
+        monkeypatch, tmp_path):
+    """``DKTPU_TRACE=1`` no longer stops the remote loop: two workers
+    train, every folded commit is one complete trace in the directory,
+    and the JAX package's report reads the same numbers."""
+    from distkeras_tpu.telemetry import tracing as jax_tracing
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.telemetry import tracing
+    from distkeras_tpu_torch.telemetry.tracing import context, recorder
+
+    monkeypatch.setenv("DKTPU_TRACE", "1")
+    monkeypatch.setenv("DKTPU_TRACE_DIR", str(tmp_path))
+    srv = PSServer(discipline="dynsgd", device="cpu").start()
+    try:
+        pm = imdb_lstm(**SMALL, device="cpu")
+        out = T.DynSGD(pm, **_kw(2), remote=srv.endpoint).train(
+            DataFrame(_columns(2)))
+        log = list(srv.commit_log)
+        center = srv.center()
+    finally:
+        srv.close()
+        context._reset_stream()
+        recorder._reset()
+        telemetry.reset()
+    assert len(log) == 2 * ROUNDS
+    for a, b in zip(center, out.module.state_dict().values()):
+        np.testing.assert_array_equal(a, b.numpy())
+    recs = tracing.TelemetryCollector.from_dir(str(tmp_path)).records()
+    rep = tracing.trace_report(recs)
+    assert rep["commits"] == len(log) and rep["completeness"] == 1.0
+    assert rep["orphans"] == [] and rep["pulls"] >= len(log)
+    ref = jax_tracing.trace_report(
+        jax_tracing.TelemetryCollector.from_dir(str(tmp_path)).records())
+    assert (ref["commits"], ref["complete"]) == (rep["commits"],
+                                                 rep["complete"])
 
 
 @pytest.mark.parametrize("transport", ["tcp", "shm"])
