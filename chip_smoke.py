@@ -446,9 +446,33 @@ and every parity phase holds the card's bf16 run to the CPU's within
     complete (``serve.wire``, ``serve.queue``, ``serve.batch``),
     ``ServeClient.stats(ring=8)`` a non-empty ring, p50 and p99 beside.
 
-Then ``seconds`` (each phase's wall time), the ``kernels`` line, the
-card's name and power limit, and as the last line ``{"ok": true,
-"device": {...}}``.
+29. ``moe_train`` (run after the flash phases) — ``SingleTrainer(
+    MoETransformerLM(attn_impl="flash"))`` at the class's own defaults
+    (vocab 32000, 4 layers, d_model 256, 8 heads, d_ff 1024, 8 experts,
+    capacity factor 1.5; 34.8 M parameters), batch 8 at length 512, adam
+    under ``warmup_cosine_decay_schedule``, 2 rounds of 2 steps, in f32
+    and bf16 with ``num_selected`` 1 and 2: the loss finite and moving,
+    each flash kernel launched once a layer a step (16) and nothing else,
+    a step split (flash forward and backward, the dispatch and combine
+    einsums) and ``moe_parity``: one step at B=2 on the card and on the
+    CPU, the card routed as the CPU routed (its own picks off the CPU's
+    only where the two runs' probability difference explains it), the
+    logits, the gradients and the sown values within a share of the
+    design's yardstick (f32: the CPU's flash-vs-dense distance; bf16:
+    the CPU's bf16-vs-f32), the expert fractions equal.
+30. ``bn_carry`` — ``examples/keras_batchnorm.py``'s model built natively
+    (Dense 64, ``models.base.BatchNorm``, relu, Dense 64, BatchNorm,
+    relu, Dense 4 over 16 features) on its 4096-row blobs under ADAG (4
+    workers, batch 32, window 4, 2 epochs), sgd and adam with
+    ``mu_dtype=bfloat16``; no kernel of the port may launch. Checked: one
+    fold's statistics bit-equal to the mean of the four workers' own
+    windows; the card within rtol 1e-4 of the CPU over 2 rounds; a blob
+    round trip and a checkpoint resume bit-equal; ``EnsembleTrainer``'s
+    members keep distinct statistics.
+
+Then ``seconds`` (each phase's wall time), the ``kernels`` line (the
+flash entries with ``moe_launches``), the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -643,11 +667,12 @@ LM_ROUNDS = 2
 #: (D = 40, run at 48); each of those at least 1024 rows (B*L*H), since
 #: one order-flipped bf16 rounding of p moves a whole output row and over
 #: fewer rows can alone pass the mean limit (an earlier forward at [1, 72,
-#: 2, 64] f32 read 1.22e-5, its largest error 4.5e-4).
+#: 2, 64] f32 read 1.22e-5, its largest error 4.5e-4); last the MoE LM's
+#: (``moe_train``: MOE_BATCH, MOE_SEQ, 8 heads of 32).
 FLASH_SHAPES = ((8, LM_SEQ, 16, 64), (2, 40, 4, 64), (2, 200, 4, 64),
                 (2, 256, 4, 32), (1, LM_SEQ, 1, 64), (4, 72, 4, 64),
                 (2, 136, 4, 128), (2, 1024, 1, 64), (1, 512, 2, 128),
-                (2, 512, 2, 40))
+                (2, 512, 2, 40), (8, 512, 8, 32))
 #: flash kernels vs their twins, as shares of the twin's largest (``top``)
 #: and mean (``mean``) magnitude. f32: the same bf16 rounding points and
 #: only the order of the f32 sums differs, so the mean error is f32 level;
@@ -1087,12 +1112,12 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
     """Milliseconds of one local training step on ``x, y`` with the
     optimizer ``tx``, split by CUDA events into the forward, the loss, the
     backward and the update; the mean of ``steps`` steps after a warm one.
-    With ``timed = (module, {wrapper name: key})`` it also sums CUDA events
-    around every call of each named kernel wrapper of ``module`` inside
-    the step (``key`` in the result, and its calls a step under
-    ``calls``). ``dtype`` (bf16) is the mixed-precision step: the f32
-    leaves and a float ``x`` cast inside the forward, as the local loop
-    does. Events read when the card reaches them, so where the host
+    With ``timed = (module, {wrapper name: key})`` (or a list of such
+    pairs) it also sums CUDA events around every call of each named
+    function of ``module`` inside the step (``key`` in the result, and its
+    calls a step under ``calls``). ``dtype`` (bf16) is the
+    mixed-precision step: the f32 leaves and a float ``x`` cast inside the
+    forward, as the local loop does. Events read when the card reaches them, so where the host
     enqueues a step more slowly than the card runs it the split is the
     host's pace; with ``head_start`` a spin kernel holds the card before
     each timed step for at least twice the warm step's host time, so the
@@ -1108,10 +1133,11 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
     params = model.params
     opt = tx.init(params)
     module = model.module
-    kmod, names = timed if timed is not None else (None, {})
-    spans = {key: [] for key in names.values()}
-    patched = {}
-    if kmod is not None:
+    pairs = ([] if timed is None else [timed] if isinstance(timed, tuple)
+             else list(timed))
+    spans = {key: [] for _, names in pairs for key in names.values()}
+    patched = []
+    if pairs:
         def wrap(fn, key):
             def call(*args, **kwargs):
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1122,9 +1148,10 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
                 return out
             return call
 
-        for name, key in names.items():
-            patched[name] = getattr(kmod, name)
-            setattr(kmod, name, wrap(patched[name], key))
+        for kmod, names in pairs:
+            for name, key in names.items():
+                patched.append((kmod, name, getattr(kmod, name)))
+                setattr(kmod, name, wrap(patched[-1][2], key))
     module.train()
     parts = {"forward": 0.0, "loss": 0.0, "backward": 0.0, "update": 0.0}
     kernel_ms = {k: 0.0 for k in spans}
@@ -1166,12 +1193,12 @@ def step_split(torch, model, x, y, tx, steps: int = 3, timed=None,
                                         for a, b in v) / steps
     finally:
         module.eval()
-        for name, fn in patched.items():
+        for kmod, name, fn in patched:
             setattr(kmod, name, fn)
     parts["step"] = sum(parts.values())
     if head_start:
         parts["host_ms"] = parts_host_ms
-    if kmod is not None:
+    if pairs:
         parts.update(kernel_ms)
         parts["calls"] = {k: len(v) for k, v in spans.items()}
     return parts
@@ -7829,6 +7856,591 @@ def observability_phase(torch, K, F, gpu: str, seed: int,
                       s["lstm_fwd_launches"] for s in serve}}
 
 
+
+# -- the remaining model slices: the MoE LM and mutable model state ----------
+
+#: ``moe_train``: ``MoETransformerLM``'s own defaults with flash attention
+#: (about 35 M parameters), batch 8 at length 512, adam under a
+#: warmup-cosine schedule, MOE_ROUNDS rounds of MOE_STEPS steps.
+MOE = dict(vocab_size=32000, num_layers=4, d_model=256, num_heads=8,
+           d_ff=1024, num_experts=8, capacity_factor=1.5, max_seq_len=2048)
+MOE_SEQ = 512
+MOE_BATCH = 8
+MOE_STEPS = 2
+MOE_ROUNDS = 2
+MOE_PEAK_LR = 3e-4
+#: the card-vs-CPU step: one batch of MOE_PARITY_BATCH at full width.
+MOE_PARITY_BATCH = 2
+#: the bf16 card-vs-CPU step's share of the CPU's bf16-vs-f32 distance:
+#: below a card step that stayed in f32 (the control, routed and held
+#: alike, read 0.996-1.013 on an H100), above the bf16 readings (logits
+#: 0.75, 0.72; gradients 0.59, 0.59; sown values 0.094, 0.60 at K = 1,
+#: 2), which repeat to the bit from run to run.
+MOE_BF16_PARITY_SHARE = 0.85
+
+#: ``bn_carry``: ``examples/keras_batchnorm.py``'s model and data, built
+#: natively (Dense 64, BatchNorm, relu, Dense 64, BatchNorm, relu, Dense
+#: 4 over 16 features), under ADAG as the example runs it.
+BN_ROWS, BN_FEATURES, BN_CLASSES, BN_HIDDEN = 4096, 16, 4, 64
+BN_TRAIN = dict(num_workers=4, batch_size=32, communication_window=4,
+                num_epoch=2)
+BN_ARMS = {"sgd": ("sgd", 0.05), "adam_mu_bf16": ("adam", 0.005)}
+#: card vs CPU over BN_PARITY_ROUNDS rounds: params and statistics
+BN_PARITY_ROUNDS = 2
+BN_PARITY_RTOL, BN_PARITY_ATOL = 1e-4, 1e-5
+
+
+def routing_recorder(model, ref=None):
+    """Wrap every MoE layer's ``route`` of ``model``: record its
+    probabilities, their deciding gaps (the smallest difference between
+    neighbours among the K + 1 largest: the picks and their order hold
+    while none closes) and its picks, one entry a layer a forward. With ``ref``
+    (another recorder, of a run on the same inputs) the layer routes every
+    token as ``ref`` did, with its own probabilities as the gates, and
+    counts where its own picks differ (``off``) and where no difference
+    of the two runs' probabilities explains it (``bad``: a token's picks
+    can swap only where its gap in ``ref`` is at most twice the largest
+    change of its probabilities): the rule that holds a card step to a
+    CPU step on the same routing. ``max_dp`` is the largest probability
+    change seen."""
+    rec = {"p": [], "idx": [], "gap": [], "off": 0, "bad": 0,
+           "max_dp": 0.0}
+    calls = [0]
+    for name in model.module.blocks:
+        moe = getattr(model.module, name).moe
+        own = moe.route
+
+        def route(p, own=own, moe=moe):
+            gates, idx = own(p)
+            srt = p.detach().sort(dim=-1, descending=True).values
+            K = moe.num_selected
+            # the smallest of the top K + 1's adjacent gaps: the picks and
+            # their order hold unless one of them closes
+            rec["gap"].append((srt[:, :K] - srt[:, 1:K + 1]).min(-1)
+                              .values.cpu())
+            rec["p"].append(p.detach().cpu())
+            if ref is not None:
+                c = calls[0]
+                want_idx = ref["idx"][c].to(idx.device)
+                dp = (p.detach().cpu() - ref["p"][c]).abs().max(-1).values
+                off = (idx.cpu() != ref["idx"][c]).any(-1)
+                rec["off"] += int(off.sum())
+                rec["bad"] += int((off & (ref["gap"][c] > 2 * dp)).sum())
+                rec["max_dp"] = max(rec["max_dp"], float(dp.max()))
+                idx = want_idx
+                gates = p.gather(-1, idx)
+                if K > 1:
+                    gates = gates / gates.sum(-1, keepdim=True)
+            calls[0] += 1
+            rec["idx"].append(idx.cpu())
+            return gates, idx
+
+        moe.route = route
+    return rec
+
+
+def moe_step(torch, model, x, y, dtype):
+    """One training step's forward and backward as the local loop runs it
+    (parameters cast to ``dtype`` inside): the loss, the logits, the f32
+    gradients and each layer's sown values, all on the host."""
+    from torch.func import functional_call
+
+    from distkeras_tpu_torch.ops import cast_floats
+    from distkeras_tpu_torch.ops.losses import (collect_aux_loss,
+                                                get_loss)
+
+    module = model.module
+    module.train()
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in model.params.items()}
+    x = torch.as_tensor(x, device=model.device)
+    y = torch.as_tensor(y, device=model.device)
+    logits, inter = functional_call(
+        module, cast_floats(leaves, dtype), (x,),
+        {"return_intermediates": True})
+    loss = get_loss("sparse_categorical_crossentropy")(logits.float(), y)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    module.eval()
+    sown = {name: {k: v[0].detach().float().cpu()
+                   for k, v in inter["intermediates"][name]["moe"].items()}
+            for name in module.blocks}
+    return {"loss": loss.item(), "logits": logits.detach().float().cpu(),
+            "grads": {k: g.cpu() for k, g in zip(leaves, grads)},
+            "aux": collect_aux_loss(inter).item(), "sown": sown}
+
+
+def moe_build(torch, seed: int, K: int, device: str, attn_impl="flash"):
+    from distkeras_tpu_torch import small_moe_lm
+
+    return small_moe_lm(**MOE, seq_len=MOE_SEQ, num_selected=K,
+                        attn_impl=attn_impl, seed=seed, device=device)
+
+
+def moe_parity(torch, seed: int, K: int, dtype: str, x, y) -> dict:
+    """One step at full width, batch MOE_PARITY_BATCH: the card (the flash
+    kernels) against the CPU (the twins) from the same seed, the card
+    routed as the CPU routed (``routing_recorder``; a pick of its own off
+    the CPU's must be explained by the two runs' probability difference),
+    the logits, the gradients and the sown values held within a share of
+    the design's yardstick: in f32 the CPU's flash-vs-dense distance, in
+    bf16 the CPU's bf16-vs-f32 distance (``MOE_BF16_PARITY_SHARE``), each
+    yardstick run routed as the CPU reference run too; the expert
+    fractions equal. In bf16 a control, the card's step in f32 routed
+    alike, must stay outside that share: the check tells a card step that
+    computed in f32 from one in bf16."""
+    dt = getattr(torch, dtype)
+    ref_model = moe_build(torch, seed, K, "cpu")
+    ref_rec = routing_recorder(ref_model)
+    ref = moe_step(torch, ref_model, x, y, dt)
+    del ref_model
+    card_model = moe_build(torch, seed, K, "cuda")
+    card_rec = routing_recorder(card_model, ref_rec)
+    card = moe_step(torch, card_model, x, y, dt)
+    del card_model
+    control = None
+    if dtype == "bfloat16":
+        ctl_model = moe_build(torch, seed, K, "cuda")
+        routing_recorder(ctl_model, ref_rec)
+        control = moe_step(torch, ctl_model, x, y, torch.float32)
+        del ctl_model
+    torch.cuda.empty_cache()
+    if dtype == "float32":
+        yard_model = moe_build(torch, seed, K, "cpu", "dense")
+        yard_dt, share = dt, (LM_PARITY_LOGITS_SHARE, LM_PARITY_CENTER_SHARE)
+    else:
+        yard_model = moe_build(torch, seed, K, "cpu")
+        yard_dt, share = torch.float32, (MOE_BF16_PARITY_SHARE,
+                                         MOE_BF16_PARITY_SHARE)
+    routing_recorder(yard_model, ref_rec)
+    yard = moe_step(torch, yard_model, x, y, yard_dt)
+    del yard_model
+
+    def grad_mean(a, b):
+        d = [(a["grads"][k] - b["grads"][k]).abs() for k in b["grads"]]
+        return (sum(v.sum() for v in d) / sum(v.numel() for v in d)).item()
+
+    def logit_max(a, b):
+        return (a["logits"] - b["logits"]).abs().max().item()
+
+    def sown_max(a, b):
+        return max((a["sown"][n][k] - b["sown"][n][k]).abs().max().item()
+                   for n in b["sown"] for k in b["sown"][n])
+
+    fraction_equal = all(torch.equal(run["sown"][n]["expert_fraction"],
+                                     ref["sown"][n]["expert_fraction"])
+                         for run in (card, yard) for n in ref["sown"])
+    row = {"phase": "moe_parity", "num_selected": K, "dtype": dtype,
+           "batch": int(x.shape[0]), "seq_len": int(x.shape[1]),
+           "loss_card": card["loss"], "loss_cpu": ref["loss"],
+           "loss_abs_err": abs(card["loss"] - ref["loss"]),
+           "logits_max_abs_err_card_vs_cpu": logit_max(card, ref),
+           "logits_max_abs_err_yardstick": logit_max(yard, ref),
+           "grad_mean_abs_err_card_vs_cpu": grad_mean(card, ref),
+           "grad_mean_abs_err_yardstick": grad_mean(yard, ref),
+           "yardstick": ("CPU dense vs CPU flash" if dtype == "float32"
+                         else "CPU f32 vs CPU bf16"),
+           "shares": share, "aux_loss_card": card["aux"],
+           "aux_loss_cpu": ref["aux"],
+           "sown_max_abs_err_card_vs_cpu": sown_max(card, ref),
+           "sown_max_abs_err_yardstick": sown_max(yard, ref),
+           "expert_fraction_equal": fraction_equal,
+           "tokens_routed": sum(int(t.shape[0]) for t in ref_rec["idx"]),
+           "card_picks_off_cpu": card_rec["off"],
+           "card_picks_off_unexplained": card_rec["bad"],
+           "router_prob_max_abs_err_card_vs_cpu": card_rec["max_dp"],
+           "min_deciding_gap_cpu": min(float(g.min())
+                                       for g in ref_rec["gap"])}
+    if control is not None:
+        row.update(
+            control="the card's step in f32, routed as the CPU's bf16 step",
+            logits_max_abs_err_control=logit_max(control, ref),
+            grad_mean_abs_err_control=grad_mean(control, ref),
+            sown_max_abs_err_control=sown_max(control, ref))
+        for name in ("logits_max_abs_err", "grad_mean_abs_err",
+                     "sown_max_abs_err"):
+            row[f"{name}_control_share"] = (row[f"{name}_control"]
+                                            / row[f"{name}_yardstick"])
+    emit(row)
+    if card_rec["bad"]:
+        fail(f"moe_parity K={K} {dtype}: the card routed "
+             f"{card_rec['bad']} tokens away from the CPU's picks where the "
+             "gap exceeds twice the two runs' probability difference")
+    for name, s in (("logits_max_abs_err", share[0]),
+                    ("grad_mean_abs_err", share[1]),
+                    ("sown_max_abs_err", share[1])):
+        got, design = row[f"{name}_card_vs_cpu"], row[f"{name}_yardstick"]
+        if not (0 < design and got <= s * design):
+            fail(f"moe_parity K={K} {dtype}: {name} card vs CPU {got} > "
+                 f"{s} x the yardstick {design}")
+        if control is not None and not row[f"{name}_control"] > s * design:
+            fail(f"moe_parity K={K} {dtype}: the card's f32 control passes "
+                 f"the bf16 check ({name} {row[f'{name}_control']} <= {s} x "
+                 f"{design}), so the check cannot tell f32 from bf16")
+    if not fraction_equal:
+        fail(f"moe_parity K={K} {dtype}: the expert fractions differ on "
+             "the same routing")
+    return row
+
+
+def moe_train_phase(torch, FA, gpu: str, seed: int, dtype: str,
+                    K: int) -> dict:
+    """``SingleTrainer(MoETransformerLM(...))`` at full width as a user
+    drives it, at ``compute_dtype=dtype`` with ``num_selected=K``: flash
+    counts set to 0 just before ``train`` and read just after (each kernel
+    once a layer a step, no remat); then a step split by CUDA events and
+    the card-vs-CPU step (:func:`moe_parity`). Returns the launches."""
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.models import moe as moe_mod
+    from distkeras_tpu_torch.ops.optimizers import adam
+    from distkeras_tpu_torch.ops.schedules import (
+        warmup_cosine_decay_schedule)
+
+    steps = MOE_ROUNDS * MOE_STEPS
+    head = MOE["d_model"] // MOE["num_heads"]
+    if (MOE_BATCH, MOE_SEQ, MOE["num_heads"], head) not in FLASH_SHAPES:
+        fail("moe_train: the flash kernels are not held against their "
+             "twins at the MoE LM's shape (FLASH_SHAPES)")
+    t0 = time.perf_counter()
+    model = moe_build(torch, seed, K, "cuda")
+    df = lm_frame(steps * MOE_BATCH, MOE["vocab_size"], MOE_SEQ, seed + K)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.params.values())
+    sched = warmup_cosine_decay_schedule(0.0, MOE_PEAK_LR, 2, 4 * steps)
+    trainer = SingleTrainer(model, "adam", "sparse_categorical_crossentropy",
+                            batch_size=MOE_BATCH, num_epoch=1,
+                            steps_per_program=MOE_STEPS,
+                            learning_rate=sched, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()  # every count 0 just before the main path
+    t0 = time.perf_counter()
+    trained = trainer.train(df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FA.launch_counts()
+    entries = FA.launch_counts(by_entry=True)
+    others = {k: v for k, v in launched_kernels().items()
+              if not k.startswith("flash_attention.")}
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.get_history()
+    moved = max((trained.params[k] - v).abs().max().item()
+                for k, v in model.params.items())
+    x = torch.as_tensor(df["features"][:MOE_BATCH], device="cuda")
+    y = torch.as_tensor(df["label"][:MOE_BATCH], device="cuda")
+    del model
+    split = step_split(
+        torch, trained, x, y, adam(MOE_PEAK_LR),
+        timed=[(FA, {"flash_fwd_cuda": "flash_fwd",
+                     "flash_bwd_cuda": "flash_bwd"}),
+               (moe_mod, {"dispatch_tokens": "dispatch_einsum",
+                          "combine_tokens": "combine_einsum"})],
+        dtype=getattr(torch, dtype), head_start=True)
+    del trained
+    torch.cuda.empty_cache()
+    L = MOE["num_layers"]
+    want = {"flash_fwd": L * steps, "flash_dq": L * steps,
+            "flash_dkv": L * steps}
+    step_ms = split["step"]
+    share = {k: split[k] / step_ms for k in
+             ("flash_fwd", "flash_bwd", "dispatch_einsum", "combine_einsum")}
+    T = MOE_BATCH * MOE_SEQ
+    C = max(1, int(np.ceil(MOE["capacity_factor"] * K * T
+                           / MOE["num_experts"])))
+    row = {"phase": "moe_train", "gpu": gpu, "trainer": "SingleTrainer",
+           "model": "MoETransformerLM(attn_impl='flash')", **MOE,
+           "num_selected": K, "capacity": C, "seq_len": MOE_SEQ,
+           "batch_size": MOE_BATCH, "params": n_params,
+           "optimizer": "adam, warmup_cosine_decay_schedule(0, "
+                        f"{MOE_PEAK_LR}, 2, {4 * steps})",
+           "rounds": MOE_ROUNDS, "steps_per_program": MOE_STEPS,
+           "local_steps": steps, "dtype": dtype,
+           "reduced": f"{steps} steps; depth and widths are the class's "
+                      "own defaults",
+           "dispatch_tensor_gb": K * T * MOE["num_experts"] * C * 4 / 1e9,
+           "setup_s": setup_s, "seconds": wall,
+           "tokens_per_s": steps * T / wall,
+           "ms_per_local_step": wall / steps * 1e3,
+           "history": [float(v) for v in hist], "launches": launches,
+           "launches_wanted": want, "launches_by_entry": entries,
+           "other_kernels": others, "center_max_abs_change": moved,
+           "peak_memory_gb": peak / 1e9, "step_split_ms": split,
+           "step_share": share,
+           "step_split": "one local step at B=8, L=512 by CUDA events, "
+                         "outside the trainer (mean of 3 after a warm "
+                         "step, a spin kernel holding the card until the "
+                         "host enqueued the step); flash_fwd/flash_bwd "
+                         "around each kernel wrapper call, dispatch/"
+                         "combine_einsum around each forward einsum (their "
+                         "backward is inside 'backward')"}
+    emit(row)
+    if not (np.all(np.isfinite(hist)) and moved > 0
+            and hist[0] != hist[-1]):
+        fail(f"moe_train K={K} {dtype}: the loss is not finite or did not "
+             f"move: {hist}, center change {moved}")
+    if launches != want:
+        fail(f"moe_train K={K} {dtype}: flash launches {launches} in "
+             f"{steps} steps; want {want} (once a layer a step)")
+    if others:
+        fail(f"moe_train K={K} {dtype}: other kernels launched: {others}")
+    if split["calls"] != {"flash_fwd": L, "flash_bwd": L,
+                          "dispatch_einsum": L, "combine_einsum": L}:
+        fail(f"moe_train K={K} {dtype}: the step split timed "
+             f"{split['calls']}")
+    only_dtype("moe", entries, dtype)
+    moe_parity(torch, seed, K, dtype,
+               df["features"][:MOE_PARITY_BATCH],
+               df["label"][:MOE_PARITY_BATCH])
+    return launches
+
+
+_BN_NET = []
+
+
+def bn_net_class():
+    """The port's counterpart of ``examples/keras_batchnorm.py``'s keras
+    model, registered so a blob of it deserializes (defined once, after
+    torch is imported)."""
+    if _BN_NET:
+        return _BN_NET[0]
+    from torch import nn
+
+    from distkeras_tpu_torch.models.base import (BatchNorm, ConfigMixin,
+                                                 register_model)
+
+    @register_model
+    class KerasBNNet(ConfigMixin, nn.Module):
+        config_fields = ("features", "hidden", "num_classes")
+
+        def __init__(self, features=BN_FEATURES, hidden=BN_HIDDEN,
+                     num_classes=BN_CLASSES, seed: int = 0):
+            super().__init__()
+            import torch
+
+            self.config = dict(features=features, hidden=hidden,
+                               num_classes=num_classes)
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)  # nn.Linear draws from it
+                self.Dense_0 = nn.Linear(features, hidden)
+                self.BatchNorm_0 = BatchNorm(hidden, momentum=0.9)
+                self.Dense_1 = nn.Linear(hidden, hidden)
+                self.BatchNorm_1 = BatchNorm(hidden, momentum=0.9)
+                self.Dense_2 = nn.Linear(hidden, num_classes)
+
+        def forward(self, x):
+            import torch
+
+            x = torch.relu(self.BatchNorm_0(self.Dense_0(x)))
+            x = torch.relu(self.BatchNorm_1(self.Dense_1(x)))
+            return self.Dense_2(x)
+
+    _BN_NET.append(KerasBNNet)
+    return KerasBNNet
+
+
+def bn_frame(seed: int):
+    """The example's data: deliberately unnormalized blobs (x25 + 11)."""
+    from distkeras_tpu_torch.data import DataFrame
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=4.0, size=(BN_CLASSES, BN_FEATURES))
+    y = rng.integers(0, BN_CLASSES, size=BN_ROWS)
+    x = ((centers[y] + rng.normal(scale=0.5, size=(BN_ROWS, BN_FEATURES)))
+         * 25 + 11).astype(np.float32)
+    return DataFrame({"features": x, "label": y.astype(np.int32)})
+
+
+def bn_model(torch, seed: int, device: str):
+    from distkeras_tpu_torch.models.base import Model
+
+    return Model.build(bn_net_class()(seed=seed),
+                       np.zeros((1, BN_FEATURES), np.float32), device=device)
+
+
+def bn_optimizer(arm: str):
+    from distkeras_tpu_torch.ops.optimizers import adam
+
+    name, lr = BN_ARMS[arm]
+    return (name if name == "sgd" else adam(lr, mu_dtype="bfloat16")), lr
+
+
+def bn_state_equal(a, b) -> bool:
+    """Parameters and buffers of two models bit-equal."""
+    sa, sb = a.module.state_dict(), b.module.state_dict()
+    return set(sa) == set(sb) and all(
+        sa[k].shape == sb[k].shape and bool((sa[k].cpu() == sb[k].cpu())
+                                            .all()) for k in sa)
+
+
+def bn_carry_phase(torch, gpu: str, seed: int, workdir: str) -> dict:
+    """Mutable model state through the engines on the card: the example's
+    BatchNorm model under ADAG (4 workers, batch 32, window 4) in two arms
+    (sgd, and adam with ``mu_dtype=bfloat16``), every kernel count 0 just
+    before each run (the path is cuBLAS: none may launch). Checked: the
+    statistics after a fold equal the mean of the four workers' own
+    windows; the card's run within ``BN_PARITY_*`` of the same run on the
+    CPU; ``EnsembleTrainer``'s members keep distinct statistics; a
+    serialize/deserialize round trip and a checkpoint resume bit-equal."""
+    from distkeras_tpu_torch import ADAG, EnsembleTrainer
+    from distkeras_tpu_torch.data import make_batches
+    from distkeras_tpu_torch.parallel import ADAGFold, AsyncEngine
+    from distkeras_tpu_torch.runtime.serialization import (deserialize_model,
+                                                           serialize_model)
+    from distkeras_tpu_torch.workers import derive_seed
+
+    df = bn_frame(seed)
+    W, Kw, B = (BN_TRAIN["num_workers"], BN_TRAIN["communication_window"],
+                BN_TRAIN["batch_size"])
+    rows = {}
+    for arm in BN_ARMS:
+        opt, lr = bn_optimizer(arm)
+        model = bn_model(torch, seed, "cuda")
+        init = {k: v.clone() for k, v in model.module.state_dict().items()}
+        t = ADAG(model, opt, "sparse_categorical_crossentropy",
+                 learning_rate=lr, **BN_TRAIN)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        trained = t.train(df)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_no_kernel(f"bn_carry {arm}")
+        hist = t.get_worker_histories()
+        stats_moved = max((trained.state["buffers"][k] - init[k]).abs()
+                          .max().item() for k in trained.state["buffers"])
+        # the fold: one round by hand, the statistics against the workers'
+        eng = AsyncEngine(model, bn_optimizer(arm)[0],
+                          "sparse_categorical_crossentropy", ADAGFold(),
+                          window=Kw, num_workers=W, learning_rate=lr)
+        plan = make_batches(df, "features", "label", B, num_workers=W,
+                            window=Kw)
+        st = eng.init_state()
+        xs, ys = (torch.as_tensor(a).to("cuda") for a in plan.round(0))
+        new, _ = eng._round_fn(st, xs, ys)
+        own = [eng._local_loop(st.center, eng.tx.init(st.center), xs[w],
+                               ys[w], rng=derive_seed(st.rng, w),
+                               state=st.model_state[w])[2]
+               for w in range(W)]
+        fold_mean = all(torch.equal(new.model_state[w][k], torch.stack(
+            [o[k] for o in own]).mean(0)) for w in range(W) for k in own[0])
+        workers_apart = min((own[0][k] - own[1][k]).abs().max().item()
+                            for k in own[0])
+        # card vs CPU, BN_PARITY_ROUNDS rounds from the same weights
+        rows_n = BN_PARITY_ROUNDS * W * Kw * B
+        small = {"features": df["features"][:rows_n],
+                 "label": df["label"][:rows_n]}
+        from distkeras_tpu_torch.data import DataFrame
+
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            m = bn_model(torch, seed, dev)
+            runs[dev] = ADAG(m, bn_optimizer(arm)[0],
+                             "sparse_categorical_crossentropy",
+                             learning_rate=lr, **{**BN_TRAIN,
+                                                  "num_epoch": 1}).train(
+                DataFrame(small))
+        card_sd = runs["cuda"].module.state_dict()
+        cpu_sd = runs["cpu"].module.state_dict()
+        # A bias that feeds a BatchNorm has a gradient of 0 in exact
+        # arithmetic (the batch mean removes it): adam's normalised step
+        # turns its rounding noise into moves up to the rate, on the card
+        # and on the CPU apart, and the running mean follows it; any
+        # nearly cancelling gradient does the same to a few elements. So
+        # the adam arm holds every element within twice the rate a local
+        # step, and each other tensor by its mean error; sgd every element.
+        if arm == "sgd":
+            noise, noise_err = None, None
+            close = all(torch.allclose(card_sd[k].cpu(), v,
+                                       rtol=BN_PARITY_RTOL,
+                                       atol=BN_PARITY_ATOL)
+                        for k, v in cpu_sd.items())
+            rel = max(((card_sd[k].cpu() - v).abs()
+                       / (BN_PARITY_ATOL / BN_PARITY_RTOL + v.abs()))
+                      .max().item() for k, v in cpu_sd.items())
+        else:
+            noise = 2 * lr * BN_PARITY_ROUNDS * Kw
+            fed = {"Dense_0.bias", "Dense_1.bias", "BatchNorm_0.mean",
+                   "BatchNorm_1.mean"}
+            noise_err = max((card_sd[k].cpu() - v).abs().max().item()
+                            for k, v in cpu_sd.items())
+            rel = max(((card_sd[k].cpu() - v).abs().mean()
+                       / (BN_PARITY_ATOL / BN_PARITY_RTOL + v.abs().mean()))
+                      .item() for k, v in cpu_sd.items() if k not in fed)
+            close = noise_err <= noise and rel <= BN_PARITY_RTOL
+        # serialize / deserialize on the card
+        blob = serialize_model(trained)
+        back = deserialize_model(blob, device="cuda")
+        probe = torch.as_tensor(df["features"][:256], device="cuda")
+        round_trip = (bn_state_equal(back, trained) and torch.equal(
+            back.predict(probe), trained.predict(probe)))
+        # checkpoint resume against the uninterrupted run
+        ck = os.path.join(workdir, arm)
+        shutil.rmtree(ck, ignore_errors=True)
+        half = {**BN_TRAIN, "num_epoch": 1}
+        ADAG(bn_model(torch, seed, "cuda"), bn_optimizer(arm)[0],
+             "sparse_categorical_crossentropy", learning_rate=lr, **half,
+             checkpoint_dir=ck, checkpoint_every=1).train(df)
+        resumed = ADAG(bn_model(torch, seed, "cuda"), bn_optimizer(arm)[0],
+                       "sparse_categorical_crossentropy", learning_rate=lr,
+                       **BN_TRAIN, checkpoint_dir=ck, checkpoint_every=1,
+                       resume=True).train(df)
+        resume_equal = bn_state_equal(resumed, trained)
+        row = {"phase": "bn_carry", "gpu": gpu, "arm": arm,
+               "trainer": "ADAG", "model": "Dense 64, BatchNorm, relu, "
+               "Dense 64, BatchNorm, relu, Dense 4 (16 features)",
+               "optimizer": arm, "learning_rate": lr, **BN_TRAIN,
+               "rows": BN_ROWS, "seconds": wall,
+               "samples_per_s": plan.samples_per_round * plan.num_rounds
+               * BN_TRAIN["num_epoch"] / wall,
+               "history": [float(v) for v in t.get_history()],
+               "stats_max_abs_change": stats_moved,
+               "fold_state_is_workers_mean": fold_mean,
+               "workers_stats_min_max_abs_apart": workers_apart,
+               "card_vs_cpu_rel_err": rel,
+               "card_vs_cpu_rel_err_is": "max" if arm == "sgd" else
+               "mean a tensor, the pre-BN biases and running means aside",
+               "card_vs_cpu_max_abs_err": noise_err,
+               "adam_noise_bound": noise,
+               "card_vs_cpu_close": close,
+               "parity": f"{BN_PARITY_ROUNDS} rounds, params and statistics "
+                         f"within rtol {BN_PARITY_RTOL}, atol "
+                         f"{BN_PARITY_ATOL}",
+               "blob_bytes": len(blob), "round_trip_bit_equal": round_trip,
+               "resume_bit_equal": resume_equal}
+        rows[arm] = row
+        emit(row)
+        if not (np.all(np.isfinite(hist)) and stats_moved > 0.1):
+            fail(f"bn_carry {arm}: loss not finite or statistics did not "
+                 f"move ({stats_moved})")
+        if not (fold_mean and workers_apart > 0):
+            fail(f"bn_carry {arm}: the folded statistics are not the mean "
+                 f"of the workers' (apart {workers_apart})")
+        if not close:
+            fail(f"bn_carry {arm}: card vs CPU beyond rtol "
+                 f"{BN_PARITY_RTOL}/atol {BN_PARITY_ATOL} ({rel}; largest "
+                 f"{noise_err} against {noise})")
+        if not round_trip:
+            fail(f"bn_carry {arm}: the blob round trip is not bit-equal")
+        if not resume_equal:
+            fail(f"bn_carry {arm}: the resumed run is not bit-equal to the "
+                 "uninterrupted one")
+    # EnsembleTrainer: every member keeps its own statistics
+    reset_all_launches()
+    members = EnsembleTrainer(bn_model(torch, seed, "cuda"), "sgd",
+                              "sparse_categorical_crossentropy",
+                              learning_rate=0.05, **{
+                                  **BN_TRAIN, "num_epoch": 1}).train(df)
+    check_no_kernel("bn_carry ensemble")
+    stats = [torch.cat([v.ravel() for v in m.state["buffers"].values()])
+             for m in members]
+    apart = min((stats[i] - stats[j]).abs().max().item()
+                for i in range(len(stats)) for j in range(i + 1, len(stats)))
+    emit({"phase": "bn_carry", "trainer": "EnsembleTrainer",
+          "members": len(members), "stats_min_max_abs_apart": apart})
+    if not apart > 0:
+        fail("bn_carry: EnsembleTrainer members share their statistics")
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7996,6 +8608,18 @@ def main() -> None:
     bf16_flash_launches = transformer_train_phase(torch, FA, gpu, args.seed,
                                                   "bfloat16")
     transformer_parity_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+
+    lap("moe_train")
+    moe_launches = {f"{dtype}_k{K}": moe_train_phase(torch, FA, gpu,
+                                                     args.seed, dtype, K)
+                    for dtype in DTYPES for K in (1, 2)}
+    torch.cuda.empty_cache()
+    lap("bn_carry")
+    workdir = os.path.join("build", "bn_carry")
+    os.makedirs(workdir, exist_ok=True)
+    bn_carry_phase(torch, gpu, args.seed, workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
     lap("mlp_train")
@@ -8353,6 +8977,18 @@ def main() -> None:
         "precombine_take_ms": times["take_ms"]})
     for k in kernels[6:]:
         k["config8_drill_bf16_launches"] = config8["drill_flash"][k["name"]]
+        # the MoE LM (moe_train), each arm counted from 0 just before its
+        # run and read just after: once a layer a step
+        k["moe_launches"] = {arm: c[k["name"]]
+                             for arm, c in moe_launches.items()}
+        # and held against its twin at the MoE LM's shape (flash_kernel)
+        for r in flash_rows:
+            if (r["name"] == k["name"] and (r["B"], r["L"], r["H"], r["D"])
+                    == (MOE_BATCH, MOE_SEQ, MOE["num_heads"],
+                        MOE["d_model"] // MOE["num_heads"])):
+                k.update({f"moe_shape_{r['dtype']}_{f}": r[f]
+                          for f in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")})
     # The observability plane's paths, each counted from 0 just before its
     # run and read just after: config #4's remote runs against the traced
     # CLI server (its fold launches counted in that process), and the

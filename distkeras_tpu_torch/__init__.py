@@ -56,7 +56,15 @@ Ported so far:
   ``device_transform=ops.augment.flip_crop_transform()``;
   ``ModelPredictor.predict`` and the evaluators stream a sharded store
   shard by shard, and ``predictors.vacuum`` reclaims superseded
-  prediction columns.
+  prediction columns;
+* the remaining model slices: the MoE transformer LM
+  (``MoETransformerLM``, ``small_moe_lm``; its attention on the flash
+  kernels, ``ops.losses.collect_aux_loss`` reading its router values);
+  mutable model state (``models.BatchNorm``, flax's; ``Model.state``)
+  through every engine, checkpoint, blob and the remote loop; Keras 3
+  models through ``models.from_keras`` on keras's torch backend; learning-
+  rate schedules (``ops/schedules.py``) and the optimizers' ``mu_dtype``,
+  ``accumulator_dtype``, ``mask`` and ``weight_decay_mask``.
 """
 
 from distkeras_tpu_torch.data import (
@@ -82,6 +90,7 @@ from distkeras_tpu_torch.models import (
     MLP,
     LSTMClassifier,
     Model,
+    MoETransformerLM,
     ResNet,
     SimpleCNN,
     TransformerLM,
@@ -90,6 +99,7 @@ from distkeras_tpu_torch.models import (
     mnist_cnn,
     mnist_mlp,
     resnet50,
+    small_moe_lm,
     small_transformer_lm,
     tiny_resnet,
 )
@@ -126,7 +136,8 @@ __all__ = [
     "DenseTransformer", "DistributedTrainer", "DynSGD", "EAMSGD",
     "EnsembleTrainer", "F1Evaluator", "FaultPlan",
     "LSTMClassifier", "LabelIndexTransformer", "LossEvaluator", "MLP",
-    "MinMaxTransformer", "Model", "ModelPredictor", "OneHotTransformer",
+    "MinMaxTransformer", "Model", "ModelPredictor", "MoETransformerLM",
+    "OneHotTransformer",
     "ProbabilityPredictor", "ReshapeTransformer", "ResNet", "ShardStore",
     "ShardWriter", "ShardedDataFrame", "SimpleCNN",
     "SingleTrainer", "Supervisor", "SynchronousDistributedTrainer",
@@ -134,5 +145,6 @@ __all__ = [
     "Transformer", "TransformerLM", "cifar10_cnn", "deserialize_model",
     "deserialize_params", "imdb_lstm", "merge_manifests", "mnist_cnn",
     "mnist_mlp", "resnet50", "serialize_model", "serialize_params",
-    "small_transformer_lm", "supervise", "tiny_resnet", "write_shards",
+    "small_moe_lm", "small_transformer_lm", "supervise", "tiny_resnet",
+    "write_shards",
 ]

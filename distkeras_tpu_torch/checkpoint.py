@@ -2,7 +2,9 @@
 ``distkeras_tpu/checkpoint.py``.
 
 The full engine state (center, per-worker locals, optimizer state, fold
-state, rng) checkpoints every K fold rounds, and ``restore`` resumes it in
+state, rng, and a stateful model's per-worker state: BatchNorm running
+statistics, the optimizers' update counts that drive a schedule)
+checkpoints every K fold rounds, and ``restore`` resumes it in
 a fresh process. The card's machine has no Orbax, so the format is the
 port's own, in torch's:
 

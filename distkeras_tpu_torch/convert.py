@@ -26,6 +26,15 @@ the port module's ``state_dict``:
   D).T``; a LayerNorm's ``scale`` and ``bias`` become ``weight`` and
   ``bias``; the ``block_{i}`` subtrees keep their names.
 
+Any other module built of flax-named layers (the MoE LM's stacked expert
+bank ``block_{i}.moe.experts.{up,down}.{kernel,bias}`` with the expert id
+leading, ``router`` as a ``Dense``; ``models.base.BatchNorm``'s ``scale``
+and ``bias``; a user's module registered under its flax name) goes
+through the generic converter, each parameter from its flax path. The
+mutable state goes with :func:`state_from_jax` / :func:`state_to_jax`:
+flax's ``batch_stats/<path>/{mean,var}`` are the buffers ``<path>.mean``
+and ``<path>.var``.
+
 :func:`params_to_jax` is its inverse: the port's parameters as the JAX
 model's tree of numpy arrays, in flax's layouts and in the order flax
 creates the keys (what ``serialize_model`` writes), so
@@ -45,7 +54,6 @@ from distkeras_tpu_torch.models.cnn import SimpleCNN
 from distkeras_tpu_torch.models.lstm import LSTMClassifier
 from distkeras_tpu_torch.models.mlp import MLP
 from distkeras_tpu_torch.models.resnet import ResNet
-from distkeras_tpu_torch.models.transformer import TransformerLM
 from distkeras_tpu_torch.ops.kernels.lstm import GATES, pack_lstm_params
 
 
@@ -122,50 +130,111 @@ def _layer_norm(prefix: str, ln: dict) -> dict:
     return {f"{prefix}weight": _t(ln["scale"]), f"{prefix}bias": _t(ln["bias"])}
 
 
-def _transformer_lm(tree: dict) -> dict:
-    out = {"tok_embed.weight": _t(tree["tok_embed"]["embedding"]),
-           "pos_embed.weight": _t(tree["pos_embed"]["embedding"]),
-           **_layer_norm("ln_final.", tree["ln_final"]),
-           **_dense("lm_head.", tree["lm_head"])}
-    for name, block in tree.items():
-        if not name.startswith("block_"):
-            continue
-        p = f"{name}."
-        out.update(_layer_norm(f"{p}ln_attn.", block["ln_attn"]))
-        out.update(_layer_norm(f"{p}ln_mlp.", block["ln_mlp"]))
-        out.update(_dense(f"{p}mlp_up.", block["mlp_up"]))
-        out.update(_dense(f"{p}mlp_down.", block["mlp_down"]))
-        for proj in ("query", "key", "value", "out"):
-            out.update(_dense_general(f"{p}attn.{proj}.",
-                                      block["attn"][proj]))
-    return out
+def _get(tree: dict, path: list):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _leaf_from_jax(module: nn.Module, name: str, tree: dict) -> torch.Tensor:
+    """The port parameter ``name`` read off the JAX ``tree``: the inverse
+    of :func:`_leaf_to_jax`, module type by module type."""
+    from distkeras_tpu_torch.models.transformer import CausalSelfAttention
+
+    *mods, leaf = name.split(".")
+    owner = module.get_submodule(".".join(mods)) if mods else module
+    parent = module.get_submodule(".".join(mods[:-1])) if mods else None
+    if isinstance(owner, nn.Embedding):
+        return _t(_get(tree, mods + ["embedding"]))
+    if isinstance(owner, nn.LayerNorm):
+        return _t(_get(tree, mods + ["scale" if leaf == "weight"
+                                     else "bias"]))
+    if isinstance(owner, nn.Conv2d) and leaf == "weight":
+        return _t(_get(tree, mods + ["kernel"])).permute(3, 2, 0, 1)
+    if isinstance(owner, nn.Linear) and isinstance(parent,
+                                                   CausalSelfAttention):
+        return _dense_general("", _get(tree, mods))[leaf]
+    if isinstance(owner, nn.Linear) and leaf == "weight":
+        return _t(_get(tree, mods + ["kernel"])).t().contiguous()
+    return _t(_get(tree, mods + [leaf]))
+
+
+def _generic(tree: dict, module: nn.Module) -> dict:
+    """Any module built of flax-named layers (``nn.Linear`` as ``Dense``,
+    ``DenseGeneral`` attention projections, ``nn.Embedding``,
+    ``nn.LayerNorm``, ``nn.Conv2d``, ``models.base.BatchNorm``, the MoE's
+    stacked expert bank): each parameter from its flax path."""
+    return {name: _leaf_from_jax(module, name, tree)
+            for name, _ in module.named_parameters()}
 
 
 _CONVERTERS = {LSTMClassifier: _lstm_classifier, ResNet: _resnet,
-               TransformerLM: _transformer_lm, MLP: _conv_dense,
-               SimpleCNN: _conv_dense}
+               MLP: _conv_dense, SimpleCNN: _conv_dense}
 
 
-def params_from_jax(tree: dict, module: nn.Module) -> dict:
-    """``module``'s ``state_dict`` filled from the JAX parameter ``tree``
-    (numpy leaves), on the module's device and checked against its shapes.
-    Load it with ``module.load_state_dict(...)``."""
-    convert = _CONVERTERS.get(type(module))
-    if convert is None:
-        raise NotImplementedError(
-            f"no JAX parameter conversion for {type(module).__name__}")
-    out = convert(tree)
-    ref = module.state_dict()
+def _check(out: dict, ref: dict, what: str) -> dict:
     if set(out) != set(ref):
-        raise KeyError(f"converted keys {sorted(out)} != module keys "
+        raise KeyError(f"converted keys {sorted(out)} != module {what} "
                        f"{sorted(ref)}")
     for k, v in out.items():
         if tuple(v.shape) != tuple(ref[k].shape):
             raise ValueError(
-                f"{k}: JAX parameter has shape {tuple(v.shape)}, the module "
-                f"expects {tuple(ref[k].shape)}")
+                f"{k}: JAX {what[:-1]} has shape {tuple(v.shape)}, the "
+                f"module expects {tuple(ref[k].shape)}")
         out[k] = v.to(device=ref[k].device, dtype=ref[k].dtype)
     return out
+
+
+def params_from_jax(tree: dict, module: nn.Module) -> dict:
+    """``module``'s parameters (``{name: tensor}``, the ``state_dict``
+    less its buffers) filled from the JAX parameter ``tree`` (numpy
+    leaves), on the module's device and checked against its shapes. A
+    module of the zoo takes its own converter; any other module built of
+    flax-named layers the generic one. A module with buffers loads them
+    with :func:`state_from_jax` beside."""
+    convert = _CONVERTERS.get(type(module))
+    if hasattr(module, "params_from_jax"):
+        out = module.params_from_jax(tree)
+    elif convert is None:
+        out = _generic(tree, module)
+    else:
+        out = convert(tree)
+    return _check(out, dict(module.named_parameters()), "parameters")
+
+
+def state_from_jax(state: dict, module: nn.Module) -> dict:
+    """The module's flat buffer dict from a JAX model's ``state`` (flax's
+    ``{"batch_stats": tree}``, numpy leaves: ``<path>/mean`` and
+    ``<path>/var`` become the buffers ``<path>.mean``, ``<path>.var``; the
+    Keras adapter reads its own ``keras_state``)."""
+    if hasattr(module, "state_from_jax"):
+        out = module.state_from_jax(state)
+    else:
+        out = {}
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, path + [k])
+            else:
+                out[".".join(path)] = _t(node)
+
+        walk(state.get("batch_stats", {}), [])
+    return _check(out, dict(module.named_buffers()), "buffers")
+
+
+def state_to_jax(bufs: dict, module: nn.Module) -> dict:
+    """The JAX model's ``state`` of a flat buffer dict (numpy leaves,
+    flax's order): ``{"batch_stats": tree}``, or the Keras adapter's own;
+    ``{}`` for none."""
+    if not bufs:
+        return {}
+    if hasattr(module, "state_to_jax"):
+        return module.state_to_jax(bufs)
+    out: dict = {}
+    for name in dict(module.named_buffers()):
+        _put(out, name.split("."), _np(bufs[name]))
+    return {"batch_stats": out}
 
 
 # -- the port's parameters as the JAX package's tree ------------------------
@@ -229,13 +298,25 @@ def _lstm_to_jax(params: dict, module: LSTMClassifier) -> dict:
 def params_to_jax(params: dict, module: nn.Module) -> dict:
     """The JAX parameter tree (numpy leaves, flax's layouts and key order)
     of ``params``, a :attr:`Model.params` dict of ``module``."""
-    if type(module) not in _CONVERTERS:
-        raise NotImplementedError(
-            f"no JAX parameter conversion for {type(module).__name__}")
+    if hasattr(module, "params_to_jax"):
+        return module.params_to_jax(params)
     if isinstance(module, LSTMClassifier):
         return _lstm_to_jax(params, module)
     out: dict = {}
-    for name in module.state_dict():
+    for name, _ in module.named_parameters():
         path, value = _leaf_to_jax(module, name, params[name])
         _put(out, path, value)
+    for name, sub in module.named_modules():
+        if name and getattr(sub, "flax_lifted", False):
+            # a lifted transform (``nn.vmap``) hands its subtree back
+            # with the keys sorted
+            *head, last = name.split(".")
+            parent = _get(out, head)
+            parent[last] = _sorted(parent[last])
     return out
+
+
+def _sorted(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree

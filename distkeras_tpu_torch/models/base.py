@@ -8,6 +8,15 @@ it), and the ``normalize_uint8`` flag of the one input-normalization rule
 training engine needs is a functional view of them: :attr:`Model.params`
 (named tensors, the counterpart of the JAX ``Model.params`` tree, run
 through ``torch.func.functional_call``) and :meth:`Model.with_params`.
+
+Mutable model state (BatchNorm running statistics: the flax ``batch_stats``
+collection) is the module's buffers. :attr:`Model.state` is its view,
+``{"buffers": {name: tensor}}`` (a module may name its collection and
+shape its view otherwise through ``pack_state``/``unpack_state``: the
+Keras adapter's ``{"keras_state": [...]}``), :meth:`Model.with_state`
+puts a state into a copy of the module, and the engines carry the flat
+``{name: tensor}`` buffer dict (:func:`state_buffers`) through training.
+:class:`BatchNorm` is flax's ``nn.BatchNorm``.
 """
 
 from __future__ import annotations
@@ -117,6 +126,91 @@ def checkpointed(module: nn.Module, *args):
     return checkpoint(run, *params, *args, use_reentrant=False)
 
 
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over the last axis, with its arithmetic:
+
+    * in train mode (``use_running_average = not train``) the batch
+      statistics are reduced in float32 over every other axis, the
+      variance one-pass as ``max(E[x^2] - E[x]^2, 0)``
+      (``use_fast_variance=True``, flax's default) or two-pass, and the
+      running averages decay by ``momentum`` (flax's 0.99: the weight of
+      the old value, where torch's momentum is the weight of the new one)
+      toward the batch mean and the *biased* batch variance;
+    * in eval mode the running ``mean`` and ``var`` normalize;
+    * ``y = (x - mean) * (rsqrt(var + epsilon) * scale) + bias``, epsilon
+      1e-5, in float32 and cast to the promoted dtype of ``x``, ``scale``
+      and ``bias``.
+
+    The running statistics are the float32 buffers ``mean`` and ``var``
+    (flax's ``batch_stats``); train mode updates them in place, which is
+    how ``torch.func.functional_call`` hands a step's new state back to
+    the local loop. ``scale`` and ``bias`` are flax's parameter names."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99,
+                 epsilon: float = 1e-5, use_fast_variance: bool = True):
+        super().__init__()
+        self.momentum, self.epsilon = float(momentum), float(epsilon)
+        self.use_fast_variance = bool(use_fast_variance)
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            xf = x.to(torch.float32)
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            if self.use_fast_variance:
+                var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            else:
+                var = ((xf - mean) ** 2).mean(dims)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        out = torch.promote_types(torch.promote_types(x.dtype,
+                                                      self.scale.dtype),
+                                  self.bias.dtype)
+        y = x - mean
+        y = y * (torch.rsqrt(var + self.epsilon) * self.scale)
+        return (y + self.bias).to(out)
+
+
+def state_of(module: nn.Module) -> Optional[dict]:
+    """The module's mutable state as the model presents it: None without
+    buffers, else its ``pack_state(buffers)`` or ``{"buffers": buffers}``
+    (tensors detached, sharing the module's storage)."""
+    bufs = {k: v.detach() for k, v in module.named_buffers()}
+    return pack_buffers(module, bufs) if bufs else None
+
+
+def pack_buffers(module: nn.Module, bufs: dict) -> dict:
+    """The :func:`state_of` view of a flat buffer dict: the module's
+    ``pack_state(bufs)``, else ``{"buffers": bufs}``."""
+    pack = getattr(module, "pack_state", None)
+    return pack(bufs) if pack is not None else {"buffers": bufs}
+
+
+def state_buffers(module: nn.Module, state: Optional[dict]) -> dict:
+    """The flat ``{buffer name: tensor}`` dict of a :func:`state_of`-shaped
+    ``state`` (``{}`` for None): what the engines carry and what
+    ``functional_call`` takes beside the parameters."""
+    if not state:
+        return {}
+    unpack = getattr(module, "unpack_state", None)
+    return dict(unpack(state) if unpack is not None else state["buffers"])
+
+
+def mean_buffers(states: list) -> dict:
+    """The element-wise mean of W flat buffer dicts (the fold's average of
+    the workers' running statistics)."""
+    return {k: torch.stack([s[k] for s in states]).mean(0)
+            for k in states[0]}
+
+
 class TensorSpec(NamedTuple):
     """Shape and numpy dtype of one model input."""
 
@@ -182,14 +276,25 @@ class Model:
         return cls(module=module, device=dev, sample_spec=spec,
                    normalize_uint8=normalize_uint8)
 
-    def apply(self, *inputs) -> torch.Tensor:
+    def apply(self, *inputs, state: Optional[dict] = None) -> torch.Tensor:
         """Forward pass on the model's device. Inputs may be numpy arrays or
-        tensors; uint8 inputs are normalized ``x/255`` first."""
+        tensors; uint8 inputs are normalized ``x/255`` first. ``state`` (a
+        :attr:`state`-shaped dict) runs the forward on those statistics
+        instead of the module's own, in inference mode: read, never
+        updated."""
         xs = tuple(
             normalize_features(torch.as_tensor(a, device=self.device),
                                self.normalize_uint8)
             for a in inputs)
-        return self.module(*xs)
+        if state is None:
+            return self.module(*xs)
+        was_training = self.module.training
+        self.module.eval()
+        try:
+            return functional_call(self.module,
+                                   state_buffers(self.module, state), xs)
+        finally:
+            self.module.train(was_training)
 
     def predict(self, *inputs) -> torch.Tensor:
         """:meth:`apply` under ``torch.inference_mode()``."""
@@ -213,6 +318,28 @@ class Model:
         with torch.no_grad():
             for k, p in own.items():
                 p.copy_(params[k])
+        return dataclasses.replace(self, module=module)
+
+    @property
+    def state(self) -> Optional[dict]:
+        """The mutable collections (:func:`state_of`): None for a module
+        without buffers, ``{"buffers": {name: tensor}}`` for one with
+        BatchNorm statistics, the module's own view where it defines one
+        (the Keras adapter's ``{"keras_state": [...]}``)."""
+        return state_of(self.module)
+
+    def with_state(self, state: Optional[dict]) -> "Model":
+        """The same model with ``state`` (a :attr:`state`-shaped dict) in a
+        copy of the module, on this model's device."""
+        module = copy.deepcopy(self.module)
+        bufs = state_buffers(module, state)
+        own = dict(module.named_buffers())
+        if set(bufs) != set(own):
+            raise KeyError(f"state {sorted(bufs)} does not match the "
+                           f"module's buffers {sorted(own)}")
+        with torch.no_grad():
+            for k, b in own.items():
+                b.copy_(bufs[k])
         return dataclasses.replace(self, module=module)
 
     def spec(self) -> dict:
@@ -267,5 +394,7 @@ class Model:
     @property
     def state_collections(self) -> tuple:
         """Names of the mutable collections: ``("buffers",)`` for a module
-        with buffers (BatchNorm running statistics), ``()`` otherwise."""
-        return ("buffers",) if any(True for _ in self.module.buffers()) else ()
+        with buffers (BatchNorm running statistics), the module's own
+        collection name where it packs its state, ``()`` otherwise."""
+        state = self.state
+        return tuple(state) if state else ()

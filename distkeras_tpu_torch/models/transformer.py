@@ -99,7 +99,7 @@ class CausalSelfAttention(nn.Module):
                 f"seq_axis={seq_axis!r} (sequence parallelism, attn_impl "
                 f"'gather' or 'ring') is not ported yet: it comes with "
                 f"ops/ring_attention.py and the model-parallel engines "
-                f"(ROADMAP.md Queue 1 items 8 and 9)")
+                f"(ROADMAP.md Queue 1 item 9)")
         if d_model % num_heads:
             raise ValueError(f"d_model={d_model} not divisible by "
                              f"num_heads={num_heads}")

@@ -10,6 +10,11 @@ kernels), the same worker-side discipline normalization, and the server's
 fold. Commit order is whatever the network and the OS deliver — the
 reference's architecture, end to end.
 
+Mutable model state (BatchNorm running statistics) stays per worker and
+unsynced, as in the JAX package's loop: each worker threads its own copy
+through its windows, and the trained model keeps the model's own state,
+since the server only ever carries parameters.
+
 **Compute/communication overlap** (``DKTPU_NET_INFLIGHT``): with the
 default of 1 the loop is serial — round *r*'s commit is ACKed before round
 *r+1* begins. Raising it double-buffers the loop: round *r*'s commit (and
@@ -125,6 +130,7 @@ from distkeras_tpu_torch.netps.tuner import (Tuner, TunerState,
 from distkeras_tpu_torch.ops.kernels import build
 from distkeras_tpu_torch.resilience import faults as _faults
 from distkeras_tpu_torch.runtime import config
+from distkeras_tpu_torch.models.base import state_buffers
 from distkeras_tpu_torch.workers import derive_seed, make_local_loop
 
 
@@ -368,6 +374,7 @@ def run_remote(
         raise ValueError(f"loop_fn serves one worker, not {W}: worker "
                          f"threads must not share a loop's module")
     losses = np.full((plan.num_rounds, W), np.nan, np.float32)
+    init_bufs = state_buffers(model.module, model.state)
     errors: list = []
     meter = _CommsMeter()
 
@@ -407,6 +414,10 @@ def run_remote(
                     **client_kw)
                 pull_client.adopt_dialect(client, center)
             opt_state = tx.init(to_params(center))
+            # Each worker threads its own model state (BatchNorm running
+            # statistics) through its windows, never synced: the
+            # reference's socket server only ever carried parameters.
+            mstate = {k: v.clone() for k, v in init_bufs.items()} or None
             local = to_params(center) if elastic else None
             readopt = False
             rejoins_seen = 0
@@ -493,10 +504,10 @@ def run_remote(
                 start = local if elastic else pulled
                 xs, ys = _worker_round(plan, r, w)
                 with telemetry.span("netps.remote.local_window"):
-                    new, opt_state, _state, window_losses = loops[w](
+                    new, opt_state, mstate, window_losses = loops[w](
                         start, opt_state, torch.as_tensor(xs).to(dev),
                         torch.as_tensor(ys).to(dev),
-                        rng=derive_seed(seed, w, r))
+                        rng=derive_seed(seed, w, r), state=mstate)
                     if elastic:
                         delta = {k: alpha * (new[k] - pulled[k])
                                  for k in names}

@@ -2,8 +2,9 @@
 
 Trainers accept a Keras loss *string* or any callable
 ``loss_fn(outputs, labels) -> scalar``. All classification losses take
-**logits**, with optax's arithmetic: log-softmax fused into the loss. The
-MoE auxiliary loss (``collect_aux_loss``) comes with the MoE slice.
+**logits**, with optax's arithmetic: log-softmax fused into the loss.
+:func:`collect_aux_loss` reads the MoE router's auxiliary losses off a
+forward's intermediates.
 """
 
 from __future__ import annotations
@@ -60,3 +61,32 @@ def get_loss(loss: Union[str, LossFn]) -> LossFn:
         return _LOSSES[loss]
     except KeyError:
         raise KeyError(f"unknown loss {loss!r}; known: {sorted(_LOSSES)}") from None
+
+
+def collect_aux_loss(mutated_variables) -> torch.Tensor:
+    """Mean of every ``aux_loss`` value under ``intermediates``.
+
+    Models with auxiliary objectives (the MoE router's Switch
+    load-balancing loss, ``models/moe.py``) return them per layer when a
+    forward is asked for its intermediates
+    (``module(x, return_intermediates=True)``, the port's counterpart of
+    flax's ``mutable=["intermediates"]``); this takes the mean of every
+    value found under a key ``aux_loss`` in ``mutated_variables
+    ["intermediates"]``, each reduced to its float32 mean first. Returns a
+    float32 zero when there is none, so it is safe for aux-free models."""
+    vals = []
+
+    def walk(node, under_aux):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, under_aux or str(k) == "aux_loss")
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, under_aux)
+        elif under_aux:
+            vals.append(torch.as_tensor(node).to(torch.float32).mean())
+
+    walk(mutated_variables.get("intermediates", {}), False)
+    if not vals:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.stack(vals).mean()

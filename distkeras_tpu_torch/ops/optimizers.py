@@ -11,6 +11,19 @@ accumulator starting at 0.1, rmsprop's eps inside the square root), so the
 port's updates follow the JAX package's step for step; ``torch.optim``
 differs in several of these. A :class:`GradientTransformation` passes
 through untouched.
+
+``learning_rate`` is a float or a schedule, any callable from the update
+count to a rate (``ops/schedules.py`` holds optax's): update ``n`` (from
+0) scales by ``-schedule(n)`` and the count, kept in the optimizer state,
+steps after it, as in optax's ``scale_by_schedule``. So a checkpoint
+resume continues the count and a fresh ``init`` restarts it. The dtype
+options keep the jitted optax update's rounding: adam's step uses the
+float32 first moment and stores it cast to ``mu_dtype`` afterwards; the
+sgd trace stores its accumulator in ``accumulator_dtype``; a decay times
+a stored low-precision moment is the decay rounded to that dtype times
+the moment, in float32 (:func:`_decayed`). ``mask`` / ``weight_decay_mask``
+(a ``{name: bool}`` dict, or a callable from the params to one) pick the
+parameters that take weight decay.
 """
 
 from __future__ import annotations
@@ -67,27 +80,66 @@ def scale(step: float) -> GradientTransformation:
                                        state))
 
 
-def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
-    """Momentum: ``t = g + decay * t``; the update is ``t`` (or
-    ``g + decay * t`` with Nesterov)."""
-    def update(g, state, params=None):
-        new = {k: v + decay * state[k] for k, v in g.items()}
-        if nesterov:
-            return {k: v + decay * new[k] for k, v in g.items()}, new
-        return new, new
+def _dtype(dtype) -> Optional[torch.dtype]:
+    """A ``torch.dtype`` from a dtype or its name (``"bfloat16"``)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = getattr(dtype, "__name__", None) or str(dtype)
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise TypeError(f"not a dtype: {dtype!r}")
+    return out
 
-    return GradientTransformation(_zeros, update)
+
+def _cast(tree: Params, dtype: Optional[torch.dtype]) -> Params:
+    return tree if dtype is None else {k: v.to(dtype)
+                                       for k, v in tree.items()}
+
+
+def _decayed(decay: float, t: torch.Tensor) -> torch.Tensor:
+    """``decay * t`` for a moment stored in ``t.dtype``, as the jitted optax
+    update computes it: the Python constant rounds to the moment's dtype
+    (a weak-typed JAX scalar), the product stays float32 (XLA keeps the
+    bf16 product unrounded inside the fused update)."""
+    if t.dtype == torch.float32:
+        return decay * t
+    return float(torch.tensor(decay, dtype=t.dtype)) * t.to(torch.float32)
+
+
+def _zeros_in(params: Params, dtype: Optional[torch.dtype]) -> Params:
+    return {k: torch.zeros_like(v, dtype=dtype) for k, v in params.items()}
+
+
+def trace(decay: float, nesterov: bool = False,
+          accumulator_dtype=None) -> GradientTransformation:
+    """Momentum: ``t = g + decay * t``; the update is ``t`` (or
+    ``g + decay * t`` with Nesterov); ``t`` is stored in
+    ``accumulator_dtype`` (None: the params')."""
+    acc = _dtype(accumulator_dtype)
+
+    def update(g, state, params=None):
+        new = {k: v + _decayed(decay, state[k]) for k, v in g.items()}
+        out = ({k: v + decay * new[k] for k, v in g.items()} if nesterov
+               else new)
+        return out, _cast(new, acc)
+
+    return GradientTransformation(lambda params: _zeros_in(params, acc),
+                                  update)
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                  eps_root: float = 0.0,
+                  eps_root: float = 0.0, mu_dtype=None,
                   nesterov: bool = False) -> GradientTransformation:
+    mu_dtype = _dtype(mu_dtype)
+
     def init(params):
-        return {"count": 0, "mu": _zeros(params), "nu": _zeros(params)}
+        return {"count": 0, "mu": _zeros_in(params, mu_dtype),
+                "nu": _zeros(params)}
 
     def update(g, state, params=None):
         count = state["count"] + 1
-        mu = {k: (1 - b1) * v + b1 * state["mu"][k] for k, v in g.items()}
+        mu = {k: (1 - b1) * v + _decayed(b1, state["mu"][k])
+              for k, v in g.items()}
         nu = {k: (1 - b2) * (v ** 2) + b2 * state["nu"][k]
               for k, v in g.items()}
         bc1 = _bias_correction(b1, count)
@@ -100,7 +152,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         bc2 = _bias_correction(b2, count)
         out = {k: mu_hat[k] / (torch.sqrt(nu[k] / bc2 + eps_root) + eps)
                for k in g}
-        return out, {"count": count, "mu": mu, "nu": nu}
+        return out, {"count": count, "mu": _cast(mu, mu_dtype), "nu": nu}
 
     return GradientTransformation(init, update)
 
@@ -174,48 +226,57 @@ def scale_by_adadelta(rho: float = 0.9,
     return GradientTransformation(init, update)
 
 
-def add_decayed_weights(weight_decay: float) -> GradientTransformation:
+def add_decayed_weights(weight_decay: float,
+                        mask=None) -> GradientTransformation:
+    """``g + weight_decay * p``, on the parameters ``mask`` selects
+    (optax's ``masked`` wrapper: a ``{name: bool}`` dict or a callable
+    from the params to one; None: every parameter); the others pass
+    through."""
     def update(g, state, params=None):
         if params is None:
             raise ValueError("add_decayed_weights needs the params")
-        return {k: v + weight_decay * params[k] for k, v in g.items()}, state
+        on = mask(params) if callable(mask) else mask
+        return {k: v + weight_decay * params[k]
+                if on is None or on[k] else v for k, v in g.items()}, state
 
     return GradientTransformation(lambda params: (), update)
 
 
+def scale_by_schedule(step_size_fn) -> GradientTransformation:
+    """``step_size_fn(count) * g``, the count (from 0) stepping after each
+    update (optax ``scale_by_schedule``)."""
+    def update(g, state, params=None):
+        step = float(np.float32(step_size_fn(state["count"])))
+        return ({k: v * step for k, v in g.items()},
+                {"count": state["count"] + 1})
+
+    return GradientTransformation(lambda params: {"count": 0}, update)
+
+
 def _lr(learning_rate) -> GradientTransformation:
     if callable(learning_rate):
-        raise NotImplementedError(
-            "learning-rate schedules are not ported yet; pass a float")
+        return scale_by_schedule(lambda count: -learning_rate(count))
     return scale(-learning_rate)
-
-
-def _no(name: str, value) -> None:
-    if value is not None:
-        raise NotImplementedError(f"{name}= is not ported yet")
 
 
 def sgd(learning_rate, momentum: Optional[float] = None,
         nesterov: bool = False, accumulator_dtype=None):
-    _no("accumulator_dtype", accumulator_dtype)
-    parts = [] if momentum is None else [trace(momentum, nesterov)]
+    parts = [] if momentum is None else [
+        trace(momentum, nesterov, accumulator_dtype)]
     return chain(*parts, _lr(learning_rate))
 
 
 def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
          mu_dtype=None, *, nesterov: bool = False):
-    _no("mu_dtype", mu_dtype)
-    return chain(scale_by_adam(b1, b2, eps, eps_root, nesterov),
+    return chain(scale_by_adam(b1, b2, eps, eps_root, mu_dtype, nesterov),
                  _lr(learning_rate))
 
 
 def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
           mu_dtype=None, weight_decay: float = 1e-4, mask=None, *,
           nesterov: bool = False):
-    _no("mu_dtype", mu_dtype)
-    _no("mask", mask)
-    return chain(scale_by_adam(b1, b2, eps, eps_root, nesterov),
-                 add_decayed_weights(weight_decay), _lr(learning_rate))
+    return chain(scale_by_adam(b1, b2, eps, eps_root, mu_dtype, nesterov),
+                 add_decayed_weights(weight_decay, mask), _lr(learning_rate))
 
 
 def adagrad(learning_rate, initial_accumulator_value: float = 0.1,
@@ -237,8 +298,8 @@ def rmsprop(learning_rate, decay: float = 0.9, eps: float = 1e-8,
 
 def adadelta(learning_rate=None, rho: float = 0.9, eps: float = 1e-6,
              weight_decay: float = 0.0, weight_decay_mask=None):
-    _no("weight_decay_mask", weight_decay_mask)
-    parts = [add_decayed_weights(weight_decay), scale_by_adadelta(rho, eps)]
+    parts = [add_decayed_weights(weight_decay, weight_decay_mask),
+             scale_by_adadelta(rho, eps)]
     if learning_rate is not None:
         parts.append(_lr(learning_rate))
     return chain(*parts)

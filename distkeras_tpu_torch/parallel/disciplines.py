@@ -52,6 +52,11 @@ class Discipline:
     #: pull-based disciplines start every round from the center variable;
     #: elastic ones keep a persistent local replica.
     pulls_center: bool = True
+    #: whether mutable model state (BatchNorm running statistics) is
+    #: averaged over the workers after each round. Communicating
+    #: disciplines sync it; the no-comm ensemble fold keeps each member's
+    #: statistics, which must match that member's own params.
+    syncs_state: bool = True
     #: whether training progress lives in the center (every communicating
     #: fold). The no-comm ensemble fold trains only the locals, so a
     #: pull-the-center elastic resume would discard all learning.
@@ -164,6 +169,7 @@ class EnsembleFold(Discipline):
     ``EnsembleTrainer`` / the per-worker phase of ``AveragingTrainer``)."""
 
     pulls_center = False
+    syncs_state = False
     center_is_trained = False
     communicates = False
 

@@ -13,7 +13,11 @@ State (:class:`EngineState`):
   every worker the center at each fold; elastic ones keep their own);
 * ``opt_state`` — ``[W]`` per-worker optimizer states (each reference worker
   compiled its own optimizer);
-* ``fold_state`` and ``rng``: the discipline's round state and an int seed.
+* ``fold_state`` and ``rng``: the discipline's round state and an int seed;
+* ``model_state`` — ``[W]`` per-worker flat buffer dicts (BatchNorm
+  running statistics; None for a stateless model): each worker threads
+  its own through its window, and a discipline that ``syncs_state``
+  replaces every worker's by their mean after the round.
 
 Resilience (``resilience/``): a scheduled ``nan@R``/``inf@R`` batch fault
 poisons one worker's rows of round R's staged batch (:func:`stage_round`),
@@ -45,6 +49,7 @@ import torch
 from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.data.batching import BatchPlan
 from distkeras_tpu_torch.data.prefetch import RoundFeeder
+from distkeras_tpu_torch.models.base import mean_buffers, state_buffers
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.optimizers import get_optimizer
 from distkeras_tpu_torch.parallel.disciplines import Discipline
@@ -63,6 +68,14 @@ class EngineState(NamedTuple):
     opt_state: list
     fold_state: Any
     rng: int
+    model_state: Any = None
+
+
+def initial_buffers(model) -> Optional[dict]:
+    """A copy of ``model``'s flat buffer dict (None when stateless): the
+    state every worker starts from."""
+    bufs = state_buffers(model.module, model.state)
+    return {k: v.clone() for k, v in bufs.items()} or None
 
 
 class RoundEngine:
@@ -172,12 +185,15 @@ class AsyncEngine(RoundEngine):
                        for i in range(W)]
         else:
             locals_ = [center] * W
+        bufs = initial_buffers(self.model)
         return EngineState(
             center=center,
             locals_=locals_,
             opt_state=[self.tx.init(center) for _ in range(W)],
             fold_state=self.discipline.init_state(center),
             rng=int(self.seed),
+            model_state=None if bufs is None else [
+                {k: v.clone() for k, v in bufs.items()} for _ in range(W)],
         )
 
     def host_state(self, num_workers: int) -> EngineState:
@@ -188,12 +204,17 @@ class AsyncEngine(RoundEngine):
         center = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
                   for k, v in self.model.params.items()}
         W = int(num_workers)
+        bufs = state_buffers(self.model.module, self.model.state)
         return EngineState(
             center=center,
             locals_=[dict(center) for _ in range(W)],
             opt_state=[self.tx.init(center) for _ in range(W)],
             fold_state=self.discipline.init_state(center),
             rng=int(self.seed),
+            model_state=[{k: torch.empty(v.shape, dtype=v.dtype,
+                                         device="meta")
+                          for k, v in bufs.items()}
+                         for _ in range(W)] if bufs else None,
         )
 
     def adopt_state(self, host: EngineState) -> EngineState:
@@ -202,19 +223,23 @@ class AsyncEngine(RoundEngine):
         elastic resume after a resize. Reference semantics: a (re)joining
         worker pulls the center variable, so every replica restarts from
         the restored center with a fresh optimizer state. The center, the
-        fold state and the rng carry over exactly. (The JAX package also
-        averages the replicas' model state, BatchNorm statistics; no model
-        of the port has such state collections, so there is nothing to
-        average here.)"""
+        fold state and the rng carry over exactly; the model state
+        (BatchNorm statistics) is the mean of the saved workers', on every
+        worker."""
         dev = self.model.device
         center = {k: v.to(dev) for k, v in host.center.items()}
         W = self.num_workers
+        mean = (None if not host.model_state else
+                {k: v.to(dev) for k, v in
+                 mean_buffers(host.model_state).items()})
         return EngineState(
             center=center,
             locals_=[center] * W,
             opt_state=[self.tx.init(center) for _ in range(W)],
             fold_state=host.fold_state,
             rng=int(host.rng),
+            model_state=None if mean is None else [
+                {k: v.clone() for k, v in mean.items()} for _ in range(W)],
         )
 
     def reset_workers(self, state: EngineState, worker_mask) -> EngineState:
@@ -238,14 +263,17 @@ class AsyncEngine(RoundEngine):
         """One fold round on ``[W, K, B, ...]`` batches: returns the new
         state and the ``[W]`` per-worker window-mean losses."""
         disc = self.discipline
-        new_locals, new_opts, losses = [], [], []
+        new_locals, new_opts, new_bufs, losses = [], [], [], []
         for w in range(self.num_workers):
             start = state.center if disc.pulls_center else state.locals_[w]
-            params, opt, _, step_losses = self._local_loop(
+            params, opt, bufs, step_losses = self._local_loop(
                 start, state.opt_state[w], xs[w], ys[w],
-                rng=derive_seed(state.rng, w))
+                rng=derive_seed(state.rng, w),
+                state=(None if state.model_state is None
+                       else state.model_state[w]))
             new_locals.append(params)
             new_opts.append(opt)
+            new_bufs.append(bufs)
             losses.append(step_losses.mean())
         loss = torch.stack(losses)
         next_rng = derive_seed(state.rng)
@@ -261,8 +289,16 @@ class AsyncEngine(RoundEngine):
                 return state._replace(rng=next_rng), loss
         fold = disc.fold(state.center, new_locals, state.fold_state,
                          window=self.window, num_workers=self.num_workers)
+        model_state = None
+        if state.model_state is not None:
+            model_state = new_bufs
+            if disc.syncs_state:
+                # Running statistics average over the workers (they are
+                # not gradient-like deltas); ensemble members keep their own.
+                mean = mean_buffers(new_bufs)
+                model_state = [mean] * self.num_workers
         return EngineState(fold.center, fold.locals_, new_opts,
-                           fold.fold_state, next_rng), loss
+                           fold.fold_state, next_rng, model_state), loss
 
 
 def _poison_rows(x: torch.Tensor, kind: str, idx: int) -> torch.Tensor:

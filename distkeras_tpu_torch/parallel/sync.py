@@ -14,6 +14,13 @@ over cards (multi-card NCCL) is a later slice.
 
 ``window`` means steps per round (the JAX engine's scan length): it has no
 semantic effect.
+
+Mutable model state (BatchNorm running statistics) threads through the
+steps in ``SyncState.model_state``. The JAX engine averages each chip's
+copy over the chips after the window (``pmean``); with the W workers on
+one card there is one copy, updated from the merged batch's statistics,
+which is the JAX engine's one-chip multiplex (``workers_per_chip=W``)
+step for step, and what the warning below says.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.optimizers import get_optimizer
-from distkeras_tpu_torch.parallel.engine import RoundEngine
+from distkeras_tpu_torch.parallel.engine import RoundEngine, initial_buffers
 from distkeras_tpu_torch.resilience.guard import nan_guard_enabled
 from distkeras_tpu_torch.workers import derive_seed, make_local_loop
 
@@ -34,6 +41,7 @@ class SyncState(NamedTuple):
     params: Any
     opt_state: Any
     rng: int
+    model_state: Any = None
 
 
 class SyncEngine(RoundEngine):
@@ -82,9 +90,11 @@ class SyncEngine(RoundEngine):
         )
 
     def init_state(self) -> SyncState:
-        """The model's parameters, copied, with a fresh optimizer state."""
+        """The model's parameters and state, copied, with a fresh optimizer
+        state."""
         params = {k: v.clone() for k, v in self.model.params.items()}
-        return SyncState(params, self.tx.init(params), int(self.seed))
+        return SyncState(params, self.tx.init(params), int(self.seed),
+                         initial_buffers(self.model))
 
     def _merge(self, a: torch.Tensor) -> torch.Tensor:
         """``[W, K, B, ...]`` -> ``[K, W*B, ...]``, worker-major within a
@@ -98,12 +108,12 @@ class SyncEngine(RoundEngine):
                   ys: torch.Tensor):
         """K synchronous steps on ``[W, K, B, ...]`` batches: returns the new
         state and the round loss, the mean of the K step losses."""
-        params, opt, _, losses = self._local_loop(
+        params, opt, bufs, losses = self._local_loop(
             state.params, state.opt_state, self._merge(xs), self._merge(ys),
-            rng=derive_seed(state.rng, 0))
+            rng=derive_seed(state.rng, 0), state=state.model_state)
         next_rng = derive_seed(state.rng)
         if self.nan_guard and not bool(torch.isfinite(losses).all()):
             # A non-finite step poisons the params: the whole round is
             # discarded and the loss keeps the NaN for accounting.
             return state._replace(rng=next_rng), losses.mean()
-        return SyncState(params, opt, next_rng), losses.mean()
+        return SyncState(params, opt, next_rng, bufs), losses.mean()

@@ -6,7 +6,10 @@ and appends a prediction column (``ModelPredictor.predict(df)``). Here the
 forward runs on the model's one device under ``torch.inference_mode()``,
 in fixed ``chunk_size`` chunks: the last chunk is padded with repeats of
 its final row and the padding trimmed, so every chunk has one shape, as in
-the JAX package (where each shape is a compiled program). A sharded store
+the JAX package (where each shape is a compiled program). The module runs
+in eval mode, so a stateful model predicts with its running statistics
+(its BatchNorm buffers, ``Model.state``), as the JAX package's predictors
+apply ``model.state``. A sharded store
 (``ShardedDataFrame``) is predicted shard by shard into a new, versioned
 column of the same store (``_predict_sharded``; :func:`vacuum` reclaims
 superseded columns). The forward across several devices and the

@@ -8,8 +8,10 @@ bytes::
 The spec is ``{"class", "kwargs", "format_version": 2}`` in that order
 (plain ``json.dumps``), ``kwargs`` the JAX module's fields. The payload is
 the JAX package's parameter tree: flax's nested dict of numpy arrays in
-flax's layouts and key order (``convert.params_to_jax``), so a blob either
-package writes loads in the other. Version-1 blobs (the params alone)
+flax's layouts and key order (``convert.params_to_jax``), and the model's
+mutable state as the JAX package holds it (``convert.state_to_jax``:
+``{"batch_stats": ...}`` for BatchNorm statistics, ``{}`` for none), so a
+blob either package writes loads in the other. Version-1 blobs (the params alone)
 still load. No pickle anywhere: the payload is msgpack
 (``runtime/msgpack.py``, standard library only, since the card's machine
 has no ``msgpack``), the spec plain JSON.
@@ -88,11 +90,14 @@ def _spec_bytes(model) -> bytes:
 def serialize_model(model) -> bytes:
     """A ``Model`` -> self-describing bytes (architecture spec + weights),
     byte-equal to the JAX package's blob of the same module and weights."""
-    from distkeras_tpu_torch.convert import params_to_jax
+    from distkeras_tpu_torch.convert import params_to_jax, state_to_jax
+    from distkeras_tpu_torch.models.base import state_buffers
 
     spec_bytes = _spec_bytes(model)
+    bufs = state_buffers(model.module, model.state)
     payload = msgpack.msgpack_serialize(
-        {"params": params_to_jax(model.params, model.module), "state": {}},
+        {"params": params_to_jax(model.params, model.module),
+         "state": state_to_jax(bufs, model.module)},
         in_place=True)
     return MAGIC + struct.pack("<I", len(spec_bytes)) + spec_bytes + payload
 
@@ -112,8 +117,10 @@ def deserialize_model(data: bytes,
     on ``device`` (default: the first CUDA device; raises where there is
     none — pass ``device="cpu"`` for the CPU). The module is rebuilt from
     the spec and loaded through ``convert.params_from_jax``; the model has
-    no ``sample_spec`` (the blob does not record the input shapes)."""
-    from distkeras_tpu_torch.convert import params_from_jax
+    no ``sample_spec`` (the blob does not record the input shapes). A
+    blob's mutable state (format 2: flax's ``batch_stats``, the Keras
+    adapter's ``keras_state``) loads into the module's buffers."""
+    from distkeras_tpu_torch.convert import params_from_jax, state_from_jax
     from distkeras_tpu_torch.models.base import MODEL_CLASSES, Model
     from distkeras_tpu_torch.runtime.device import resolve_device
 
@@ -138,12 +145,10 @@ def deserialize_model(data: bytes,
         params, state = restored["params"], restored["state"] or None
     else:
         params, state = restored, None
-    if state:
-        raise NotImplementedError(
-            f"the blob carries mutable model state ({sorted(state)}); no "
-            "model of the port has any")
     params = _float32(params)
     module = cls.from_config(spec["kwargs"], params=params)
-    module.load_state_dict(params_from_jax(params, module))
+    module.load_state_dict({**params_from_jax(params, module),
+                            **state_from_jax(_float32(state or {}),
+                                             module)})
     module.to(dev).eval()
     return Model(module=module, device=dev, sample_spec=None)

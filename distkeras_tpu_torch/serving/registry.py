@@ -18,7 +18,11 @@ replacement under the registry lock, taken by the frontend's dispatch
 thread *between* batches: no batch ever sees half-old half-new weights,
 and the old version keeps answering until the instant the new one is
 proven. The steps it reads are params-shaped: ``Checkpointer.save(step,
-model.params)``, as the JAX registry reads them.
+model.params)``, as the JAX registry reads them. A stateful model's
+running statistics are the module's buffers: they move onto the
+registry's device with the module, and a restored candidate
+(``with_params``, a copy of the module) carries them, so every version
+serves with the statistics it was built with.
 
 A candidate that fails restore or probe is remembered and skipped
 (``serving.swap_failures``); the registry falls back to the next-newest

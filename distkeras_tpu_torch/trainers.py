@@ -46,7 +46,7 @@ import torch
 
 from distkeras_tpu_torch.data.batching import make_batches
 from distkeras_tpu_torch.data.dataframe import DataFrame
-from distkeras_tpu_torch.models.base import Model
+from distkeras_tpu_torch.models.base import Model, mean_buffers, pack_buffers
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.optimizers import get_optimizer, sgd
 from distkeras_tpu_torch.parallel.disciplines import (
@@ -100,10 +100,10 @@ def _config_prop(name: str) -> property:
     return property(_get, _set)
 
 
-def _not_ported(what: str, slice_: str) -> NotImplementedError:
+def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to distkeras_tpu_torch yet; it comes with "
-        f"the {slice_} slice")
+        f"the model-parallel engines (ROADMAP.md Queue 1 item 9)")
 
 
 class Trainer:
@@ -144,8 +144,11 @@ class Trainer:
         legacy = {k: kwargs.pop(k) for k in list(kwargs)
                   if k in _LEGACY_SOCKET_KWARGS}
         if "parallel" in kwargs:
-            raise _not_ported("parallel= (model-parallel submeshes)",
-                              "model-parallel engines")
+            raise _not_ported("parallel= (model-parallel submeshes, expert "
+                              "sharding)")
+        if "aux_loss_weight" in kwargs:
+            raise _not_ported("aux_loss_weight= (the MoE router loss in "
+                              "ParallelTrainer's objective)")
         if kwargs:
             raise TypeError(
                 f"{type(self).__name__} got unexpected kwargs: {sorted(kwargs)}")
@@ -456,7 +459,26 @@ class Trainer:
         )
         state = self._execute(engine, plan)
         self.record_training_stop()
-        return self.model.with_params(state.params)
+        return self._finish_model(state.params, state)
+
+    def _finish_model(self, params: dict, engine_state,
+                      worker: Optional[int] = None,
+                      state_reduce: bool = False) -> Model:
+        """The model with the trained ``params`` and, for a stateful model,
+        the engine's trained model state (BatchNorm running statistics):
+        the sync engine's one copy, worker ``worker``'s of the async
+        engine's ``[W]`` (synced disciplines keep every copy equal, so 0 is
+        canonical), or with ``state_reduce`` their mean (the
+        ``AveragingTrainer``)."""
+        m = self.model.with_params(params)
+        bufs = getattr(engine_state, "model_state", None)
+        if bufs is None:
+            return m
+        if state_reduce:
+            bufs = mean_buffers(bufs)
+        elif worker is not None:
+            bufs = bufs[worker]
+        return m.with_state(pack_buffers(m.module, bufs))
 
     # -- timing parity (reference Trainer.record_training_start/stop) -------
     def record_training_start(self):
@@ -569,8 +591,8 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
                 "and parallel= (model-parallel submeshes) cannot combine: "
                 "the remote worker loop runs whole-model replicas")
         if parallel:
-            raise _not_ported("parallel= (model-parallel submeshes)",
-                              "model-parallel engines")
+            raise _not_ported("parallel= (model-parallel submeshes, expert "
+                              "sharding)")
         #: ``"host:port"`` of a networked parameter server (a ``,``
         #: failover list, or a ``;`` shard matrix): the worker loop becomes
         #: pull -> K local steps -> commit through the hardened client
@@ -653,7 +675,7 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         state = self._run_async(dataframe, shuffle, self._discipline(),
                                 divergence_reset=self.divergence_reset)
         self.record_training_stop()
-        return self.model.with_params(state.center)
+        return self._finish_model(state.center, state, worker=0)
 
 
 class DOWNPOUR(AsynchronousDistributedTrainer):
@@ -742,7 +764,7 @@ class AveragingTrainer(DistributedTrainer):
         averaged = {k: torch.stack([p[k] for p in state.locals_]).mean(0)
                     for k in state.center}
         self.record_training_stop()
-        return self.model.with_params(averaged)
+        return self._finish_model(averaged, state, state_reduce=True)
 
 
 class EnsembleTrainer(AveragingTrainer):
@@ -757,4 +779,5 @@ class EnsembleTrainer(AveragingTrainer):
         state = self._run_async(dataframe, shuffle, EnsembleFold(),
                                 per_worker_init=True)
         self.record_training_stop()
-        return [self.model.with_params(p) for p in state.locals_]
+        return [self._finish_model(p, state, worker=i)
+                for i, p in enumerate(state.locals_)]

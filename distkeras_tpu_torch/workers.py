@@ -89,8 +89,16 @@ def make_local_loop(
     a checkpoint and resume exactly, and leaves the dropout seeds the same
     with or without it.
 
-    Not ported yet, and refused rather than ignored: ``state_collections``
-    (the BatchNorm slice).
+    ``state_collections`` names the model's mutable collections
+    (``Model.state_collections``: BatchNorm running statistics); ``state``
+    is then the flat ``{buffer name: tensor}`` dict
+    (``models.base.state_buffers``; None: the module's own buffers). Each
+    forward runs on a copy of it through ``functional_call``, the train-mode
+    BatchNorm updates that copy in place, and the copy goes on to the next
+    micro-batch and the next step, so the state threads through the
+    window in order and comes back as the third result. It is never cast
+    to ``compute_dtype``: running statistics stay in their stored
+    precision. Stateless models pass ``state`` through untouched.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -99,11 +107,7 @@ def make_local_loop(
             and compute_dtype.is_floating_point):
         raise TypeError(f"compute_dtype must be a float torch.dtype or None, "
                         f"got {compute_dtype!r}")
-    if tuple(state_collections or ()):
-        raise NotImplementedError(
-            f"state_collections={tuple(state_collections)} (mutable model "
-            "state such as BatchNorm statistics) is not ported yet; it comes "
-            "with the BatchNorm slice")
+    stateful = bool(tuple(state_collections or ()))
     takes_rng = "rng" in inspect.signature(module.forward).parameters
 
     def cast_input(x):
@@ -112,7 +116,7 @@ def make_local_loop(
             return x.to(compute_dtype or torch.float32) / 255.0
         return cast_floats(x, compute_dtype)
 
-    def loss_and_grads(params, x, y, seed):
+    def loss_and_grads(params, st, x, y, seed):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         kwargs = {}
@@ -120,15 +124,19 @@ def make_local_loop(
             gen = torch.Generator(device=x.device)
             gen.manual_seed(seed)
             kwargs["rng"] = gen
-        out = functional_call(module, cast_floats(leaves, compute_dtype),
-                              (cast_input(x),), kwargs)
+        # The forward updates the copy in place (models/base.py BatchNorm).
+        st = {k: v.clone() for k, v in st.items()} if stateful else st
+        tensors = cast_floats(leaves, compute_dtype)
+        if stateful:
+            tensors = {**tensors, **st}
+        out = functional_call(module, tensors, (cast_input(x),), kwargs)
         loss = loss_fn(out.to(torch.float32), y)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
+        return loss.detach(), st, dict(zip(leaves, grads))
 
-    def grad_of_step(p, x, y, rng, k):
+    def grad_of_step(p, st, x, y, rng, k):
         if grad_accum == 1:
-            return loss_and_grads(p, x, y, derive_seed(rng, k))
+            return loss_and_grads(p, st, x, y, derive_seed(rng, k))
         B = x.shape[0]
         if B % grad_accum:
             raise ValueError(
@@ -137,18 +145,21 @@ def make_local_loop(
         ym = y.reshape((grad_accum, B // grad_accum) + tuple(y.shape[1:]))
         l_sum, g_sum = None, None
         for i in range(grad_accum):
-            loss, g = loss_and_grads(p, xm[i], ym[i], derive_seed(rng, k, i))
+            loss, st, g = loss_and_grads(p, st, xm[i], ym[i],
+                                         derive_seed(rng, k, i))
             if g_sum is None:
                 l_sum, g_sum = loss, g
             else:
                 l_sum = l_sum + loss
                 g_sum = {n: v + g[n] for n, v in g_sum.items()}
         inv = 1.0 / grad_accum
-        return l_sum * inv, {n: v * inv for n, v in g_sum.items()}
+        return l_sum * inv, st, {n: v * inv for n, v in g_sum.items()}
 
     def local_steps(params, opt_state, xs, ys, rng: Optional[int] = None,
                     state=None):
         rng = 0 if rng is None else int(rng)
+        if stateful and state is None:
+            state = {k: v.detach() for k, v in module.named_buffers()}
         was_training = module.training
         module.train()
         losses = []
@@ -159,7 +170,7 @@ def make_local_loop(
                     gen = torch.Generator()
                     gen.manual_seed(derive_seed(rng, k, 0, AUGMENT_STREAM))
                     x, y = input_transform(gen, x, y)
-                loss, grads = grad_of_step(params, x, y, rng, k)
+                loss, state, grads = grad_of_step(params, state, x, y, rng, k)
                 updates, opt_state = tx.update(grads, opt_state, params)
                 params = apply_updates(params, updates)
                 losses.append(loss)

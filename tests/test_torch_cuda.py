@@ -1779,3 +1779,56 @@ def test_vitals_read_the_card_once_cuda_is_up(card):
     out = vitals.sample_vitals()
     assert out["device.bytes_in_use"] >= x.numel() * 4
     assert out["device.bytes_in_use"] == float(torch.cuda.memory_allocated())
+
+
+@pytest.mark.parametrize("K_sel", [1, 2])
+def test_moe_lm_on_card_launches_flash_and_matches_the_twin(card, K_sel):
+    """The MoE LM (flash attention) on the card: one forward launches the
+    flash forward once a layer, and its logits stay within the CPU run's
+    own flash-vs-dense distance of the CPU's (the kernels round q, k, v to
+    bf16 as the twins do; routing may differ only at near-ties, so the
+    comparison is on the logits' mean)."""
+    from distkeras_tpu_torch import small_moe_lm
+
+    kw = dict(vocab_size=256, num_layers=2, d_model=64, num_heads=4,
+              d_ff=128, num_experts=4, max_seq_len=256, seq_len=128,
+              num_selected=K_sel)
+    tokens = np.random.default_rng(0).integers(0, 256, (2, 128)).astype(
+        np.int32)
+    FA.reset_launches()
+    card = small_moe_lm(**kw, attn_impl="flash", device="cuda")
+    got = card.predict(tokens).cpu()
+    assert FA.launch_counts()["flash_fwd"] == 2
+    cpu = small_moe_lm(**kw, attn_impl="flash", device="cpu").predict(tokens)
+    dense = small_moe_lm(**kw, attn_impl="dense", device="cpu").predict(
+        tokens)
+    design = (cpu - dense).abs().mean().item()
+    assert (got - cpu).abs().mean().item() <= max(design, 1e-6)
+
+
+def test_batchnorm_training_on_card_matches_the_cpu(card):
+    """A BatchNorm model through ADAG on the card and on the CPU from the
+    same weights: parameters and running statistics within rtol 1e-4."""
+    from torch import nn
+
+    from distkeras_tpu_torch import ADAG
+    from distkeras_tpu_torch.data import DataFrame
+    from distkeras_tpu_torch.models.base import BatchNorm, Model
+
+    def build(dev):
+        torch.manual_seed(0)
+        net = nn.Sequential(nn.Linear(8, 32), BatchNorm(32, momentum=0.9),
+                            nn.ReLU(), nn.Linear(32, 3))
+        return Model.build(net, np.zeros((1, 8), np.float32), device=dev)
+
+    rng = np.random.default_rng(1)
+    df = DataFrame({"features": (rng.normal(size=(512, 8)) * 20 + 7)
+                    .astype(np.float32),
+                    "label": rng.integers(0, 3, 512).astype(np.int32)})
+    kw = dict(loss="sparse_categorical_crossentropy", num_workers=4,
+              batch_size=16, communication_window=4, learning_rate=0.05)
+    got = ADAG(build("cuda"), **kw).train(df).module.state_dict()
+    want = ADAG(build("cpu"), **kw).train(df).module.state_dict()
+    assert "1.mean" in want
+    for k, v in want.items():
+        torch.testing.assert_close(got[k].cpu(), v, rtol=1e-4, atol=1e-5)

@@ -179,3 +179,30 @@ def test_serialize_and_checkpoint_without_msgpack(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_keras_is_imported_only_inside_the_adapters_functions():
+    """The card's machine has no keras, and keras under another backend
+    loads that backend's framework: importing every module of the port
+    loads no keras (nor tensorflow), and the one module that names keras
+    imports it inside a function."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import distkeras_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('keras', 'tensorflow'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for path in PKG.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                       ast.ImportFrom))]
+        names = [a.name for n in top for a in n.names] + [
+            n.module or "" for n in top if isinstance(n, ast.ImportFrom)]
+        assert not any(n.split(".")[0] == "keras" for n in names), path
+        if path.name != "keras_adapter.py":
+            assert "import keras" not in path.read_text(), path

@@ -97,8 +97,20 @@ def test_unported_options_raise():
     loss = get_loss(LOSS)
     with pytest.raises(TypeError, match="compute_dtype"):
         make_local_loop(pm.module, loss, tx, compute_dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="state_collections"):
-        make_local_loop(pm.module, loss, tx, state_collections=("batch_stats",))
+    # state_collections is ported (tests/test_torch_batchnorm.py holds
+    # BatchNorm models against the JAX package): a stateless module's
+    # state passes through the window untouched, the step unchanged.
+    xs, ys = _batches(K=2, B=4)
+    stated = make_local_loop(pm.module, loss, tx,
+                             state_collections=("buffers",))
+    plain_out = make_local_loop(pm.module, loss, tx)(
+        pm.params, tx.init(pm.params), torch.from_numpy(xs),
+        torch.from_numpy(ys))
+    stated_out = stated(pm.params, tx.init(pm.params), torch.from_numpy(xs),
+                        torch.from_numpy(ys), state={})
+    assert stated_out[2] == {}
+    assert all(torch.equal(plain_out[0][k], stated_out[0][k])
+               for k in plain_out[0])
     # input_transform is ported (tests/test_torch_augment.py): it runs on
     # each step's batch, here the identity, leaving the step as it was.
     xs, ys = _batches(K=2, B=4)
