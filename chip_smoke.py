@@ -345,8 +345,14 @@ and every parity phase holds the card's bf16 run to the CPU's within
     table and journal as they were. (d) A client retuned from 1 to 2
     stripes between seeded int8 commits: every pull equal to an unstriped
     observer's, the center bit-equal to the same commits folded
-    unstriped. ``sim_drift``, which needs an unported item, is named as
-    such.
+    unstriped. ``sim_drift`` (``bench.py:769-815``): one more ``pr4`` run
+    after the timed arms with ``DKTPU_TRACE=1`` into a trace directory of
+    its own; the simulator fits its timing model from that stream, replays
+    the run and reports predicted against measured tokens/s (a null ratio
+    fails the phase; a ratio outside the band is reported, as the
+    reference only records it). Then ``hier_crossover`` replays the
+    phase's own ``hier_curve``: the predicted and measured crossover and
+    the largest held-out error.
 
 21. ``ensemble_train`` — the reference's ``AveragingTrainer`` and
     ``EnsembleTrainer`` on config #4 (``TRAIN``: 4 workers, window 4,
@@ -469,9 +475,36 @@ and every parity phase holds the card's bf16 run to the CPU's within
     windows; the card within rtol 1e-4 of the CPU over 2 rounds; a blob
     round trip and a checkpoint resume bit-equal; ``EnsembleTrainer``'s
     members keep distinct statistics.
+31. ``elastic_parity`` (after ``observability``) — config #4 at full width
+    (DynSGD, sgd lr 0.01, batch 2048, window 4, int8 commits, 3 rounds)
+    as an ``ElasticTraining`` job on a one-slot ``FleetScheduler`` and
+    through ``run_remote`` with one worker, the same plan and seed, each
+    against its own ``PSServer`` on the card: the two centers bit-equal,
+    12 stash-forward and 12 backward launches and one ``fold_commit`` a
+    commit in each run.
+32. ``fleet_card`` — one pool of 4 slots on the card (the reference's
+    fleet chaos smoke): ``acme/imdb`` (config #4 as ``ElasticTraining``, up
+    to 4 workers, floor 1, 12 items, int8 commits into its PS on the
+    card), ``serve/imdb`` (a ``ServingService`` of config #4's model in
+    f32, floor 1, up to 2 replicas, a client sending 1, 3, 17 and 64 rows
+    the whole run) and ``corp/mlp`` (priority 5, gang 2, an MLP
+    ``ElasticTraining``) submitted after acme's 4th commit; once corp
+    runs, ``preempt@R:1`` with R one past the fleet's commits. Checked:
+    both training jobs done, acme's 12 items committed once each, no
+    ``(wid, seq)`` folded twice, no floor violation, acme shrunk and
+    re-expanded, the serving tenant never below one replica and its
+    refused drain counted, every request answered (or shed with its typed
+    error) within ``SERVE_ATOL`` of the CPU forward, ``fold_commit`` = the
+    int8 commits applied, stash forward = backward = the local steps run
+    (retried windows included), and the telemetry report's fleet rollup
+    naming all three tenants.
+33. ``sim`` — every scenario of ``distkeras_tpu_torch.sim`` at its default
+    size with seed 0, twice (the same bytes, every check passing), and the
+    CLI's ``run preemption_storm --json`` once: host only, no kernel.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line (the
-flash entries with ``moe_launches``), the card's name and power limit,
+flash entries with ``moe_launches``, the LSTM and fold entries with
+``fleet_launches``), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -3418,8 +3451,13 @@ C8_DIALECTS = ("", ".shm", ".mesh")
 #: the demotion drill: ``mesh_down@C8_DEMOTE_AT`` fails commit seq 4's
 #: dispatch as a lost device would (the reference's drill).
 C8_DEMOTE_AT = 4
-#: the part of config #8 that needs an item the port does not serve yet.
-C8_NOT_PORTED = {"sim_drift": "sim/ (item 10)"}
+#: the traced shot (``bench.py:769-815``): one extra ``pr4`` run after the
+#: timed arms with ``DKTPU_TRACE=1`` into a trace directory of its own; the
+#: simulator fits its timing model from that stream and replays the run
+#: (``sim.calibrate.sim_drift``). A ratio outside ``DKTPU_SIM_BAND_PCT``
+#: is a finding the line reports, as the reference only records it; a
+#: null ratio (the calibration read nothing) fails the phase.
+C8_TRACE_DIR = os.path.join("build", "c8_trace")
 #: the ``auto`` arm (``bench.py:672-687``): the ring and the tuner from a
 #: cold start, no other data-plane knob; the ring's rule must hold it at
 #: codec ``none`` and one stripe.
@@ -4147,6 +4185,33 @@ def c8_check_tuned(run: dict, label: str, rule: dict = None) -> list:
     return bad
 
 
+def c8_sim_drift(torch, F, FA, model, plan, loop, df, tokens: int) -> tuple:
+    """The traced shot and the simulator's replay of it: one ``pr4`` run
+    (TCP, inflight 1, one stripe, f32 commits) with ``DKTPU_TRACE=1`` into
+    :data:`C8_TRACE_DIR`, then ``TelemetryCollector.from_dir(...).records()``
+    into ``sim_drift(records, tokens / seconds, tokens_per_round=window *
+    batch * seq_len)``. Returns the block and the run."""
+    from distkeras_tpu_torch.sim.calibrate import sim_drift
+    from distkeras_tpu_torch.telemetry import tracing
+    from distkeras_tpu_torch.telemetry.tracing import context, recorder
+
+    shutil.rmtree(C8_TRACE_DIR, ignore_errors=True)
+    os.makedirs(C8_TRACE_DIR)
+    context._reset_stream()
+    try:
+        with env_set(DKTPU_TRACE="1", DKTPU_TRACE_DIR=C8_TRACE_DIR):
+            run = c8_run(torch, F, FA, "pr4", model, plan, loop, df, tokens)
+    finally:
+        context._reset_stream()
+        recorder._reset()
+    records = tracing.TelemetryCollector.from_dir(C8_TRACE_DIR).records()
+    shutil.rmtree(C8_TRACE_DIR, ignore_errors=True)
+    block = sim_drift(records, tokens / run["seconds"],
+                      tokens_per_round=C8_WINDOW * C8_BATCH * C8_SEQ)
+    block["trace_records"] = len(records)
+    return block, run
+
+
 def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
     """Config #8 (``netps_loopback_aeasgd``) at full width through the arms
     the port serves: ``inprocess``, ``pr4`` (TCP, inflight 1), ``shm`` (the
@@ -4205,6 +4270,12 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
     timed = {arm: runs[1:] for arm, runs in arms.items()}
     tps = {arm: float(np.median([r["tokens_per_s"] for r in runs]))
            for arm, runs in timed.items()}
+
+    drift, traced = c8_sim_drift(torch, F, FA, model, plan, loop, df, tokens)
+    failures += c8_check_run(torch, traced, init, "traced_pr4")
+    if drift["value"] is None:
+        failures.append(f"sim_drift read nothing from the traced run: "
+                        f"{drift}")
 
     # durable: the optimized plane with a fresh journal, in ABBA pairs with
     # a baseline optimized run (a ratio a pair, their geometric mean).
@@ -4333,6 +4404,28 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
                 "history": [float(v) for v in last["losses"].reshape(-1)],
                 "center_max_abs_change": last["center_max_abs_change"]}
 
+    # The simulator's crossover replay on this phase's own curve (the
+    # reference reads its BENCH_SUMMARY.json; the card's curve is this one).
+    from distkeras_tpu_torch.sim.calibrate import hier_crossover
+
+    rows = [curve_row(p) for p in curve]
+    try:
+        xo = hier_crossover(summary={"configs": [{
+            "metric": "netps_loopback_aeasgd", "hier_curve": rows}]})
+        crossover = {k: xo[k] for k in (
+            "predicted_crossover_workers", "measured_crossover_workers",
+            "crossover_reproduced", "max_held_out_error_pct",
+            "within_band", "band_pct", "calibration", "predicted_ratio",
+            "measured_ratio", "predicted_ingress_cut",
+            "measured_ingress_cut")}
+        crossover["points"] = [{k: pt[k] for k in (
+            "workers", "topology", "measured_tokens_per_sec",
+            "predicted_tokens_per_sec", "error_pct", "held_out")}
+            for pt in xo["points"]]
+    except (KeyError, ValueError, ZeroDivisionError) as e:
+        crossover = None
+        failures.append(f"hier_crossover on the phase's curve: {e!r}")
+
     emit({"phase": "netps_config8", "gpu": gpu,
           "config": "netps_loopback_aeasgd (bench.py:1465-1468, run "
                     ":484-760)", "model": "TransformerLM(attn_impl='flash', "
@@ -4399,7 +4492,7 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
           "transport_parity": {"pr4_runs_apart": pr4_spread,
                                "mesh_inflight1_from_pr4": mesh1_off,
                                "bit_equal": mesh1_off == 0.0},
-          "hier_curve": [curve_row(p) for p in curve],
+          "hier_curve": rows,
           "hier_curve_knobs": {"transport": "shm", "inflight": 1,
                                "shards": 1, "compress": "none",
                                "hier_flush": C8_HIER_FLUSH,
@@ -4412,11 +4505,16 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
                                   if p["workers"] == W
                                   and p["topology"] == "flat")
                            for W in C8_CURVE_WORKERS},
-          "not_ported": C8_NOT_PORTED,
+          "sim_drift": drift,
+          "sim_drift_traced_run": {
+              "seconds": traced["seconds"],
+              "tokens_per_s": traced["tokens_per_s"],
+              "commits": len(traced["log"]),
+              "fold_launches": traced["fold"].get("fold_commit", 0)},
+          "hier_crossover": crossover,
           "reduced": f"none of width or depth; durable runs "
                      f"{C8_DURABLE_PAIRS} ABBA pairs (the reference "
-                     f"max(reps + 2, 10)); sim_drift, which needs an "
-                     f"unported item, is left out (not_ported)",
+                     f"max(reps + 2, 10))",
           "seconds": time.perf_counter() - t_phase})
     if failures:
         fail("netps_config8: " + "; ".join(failures))
@@ -8441,6 +8539,476 @@ def bn_carry_phase(torch, gpu: str, seed: int, workdir: str) -> dict:
     return rows
 
 
+# -- the fleet control plane and the simulator -------------------------------
+
+#: ``elastic_parity``: config #4 (DynSGD, sgd lr 0.01, batch 2048, window 4,
+#: int8 commits) at full width, one worker, as an ``ElasticTraining`` job on
+#: a one-slot ``FleetScheduler`` and through ``run_remote``: the same plan
+#: and seed, so the two centers must be the same bits (one claimant takes
+#: the items in round-major order, ``run_remote``'s serial path; the JAX
+#: package's own pair is bit-equal too, ``tests/test_torch_fleet.py``).
+ELASTIC = dict(batch_size=2048, communication_window=4, learning_rate=0.01)
+ELASTIC_ROUNDS = 3
+#: ``fleet_card``: one pool of 4 slots on the one card (the reference's
+#: ``tests/smoke_fleet_chaos.py`` on the card): ``acme/imdb`` (config #4 as
+#: ``ElasticTraining``, up to 4 workers, floor 1, ``FLEET_ROUNDS`` rounds),
+#: ``serve/imdb`` (a ``ServingService`` of the same model in f32, floor 1,
+#: up to 2 replicas) and ``corp/mlp`` (priority 5, gang 2, the smoke's MLP
+#: ``ElasticTraining``) submitted after acme's ``FLEET_CORP_AFTER``-th
+#: commit. Once corp runs, ``preempt@R:1`` is installed with R one past
+#: the fleet's commits then: the forced preemption finds every job at its
+#: floor, so the serving drain is refused and acme is drained and requeued.
+FLEET_CAPACITY = 4
+FLEET_ROUNDS = 3
+FLEET_CORP_AFTER = 4
+FLEET_REQUESTS = (1, 3, 17, 64)
+FLEET_MLP = dict(rows=512, batch_size=16, window=4, num_epoch=3, workers=2,
+                 learning_rate=0.1)
+FLEET_TIMEOUT_S = 300.0
+
+
+def elastic_inputs(seed: int, workers: int, rounds: int):
+    """Config #4's model on the card from ``seed`` and the plan of an
+    ``imdb()`` frame of ``rounds`` rounds of ``workers`` x window x batch."""
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.data.batching import make_batches
+    from distkeras_tpu_torch.datasets import imdb
+
+    Kw, B = ELASTIC["communication_window"], ELASTIC["batch_size"]
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    df = imdb(n=rounds * workers * Kw * B, vocab_size=VOCAB,
+              seq_len=SEQ_LEN, seed=seed)
+    return model, make_batches(df, "features", "label", B,
+                               num_workers=workers, window=Kw)
+
+
+def elastic_parity_phase(torch, K, F, gpu: str, seed: int) -> dict:
+    """``elastic_parity``: see :data:`ELASTIC`. The launch counts are set
+    to 0 just before each run and read just after. Returns the elastic
+    run's counts."""
+    from distkeras_tpu_torch.fleet import (ElasticTraining, FleetJob,
+                                           FleetScheduler)
+    from distkeras_tpu_torch.netps import PSServer
+    from distkeras_tpu_torch.netps.remote import run_remote
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+
+    Kw, B, lr = (ELASTIC["communication_window"], ELASTIC["batch_size"],
+                 ELASTIC["learning_rate"])
+    loss = get_loss("sparse_categorical_crossentropy")
+    steps = ELASTIC_ROUNDS * Kw
+    runs = {}
+    with env_set(DKTPU_NET_COMPRESS="int8"):
+        model, plan = elastic_inputs(seed, 1, ELASTIC_ROUNDS)
+        rt = ElasticTraining(model=model, tx=get_optimizer("sgd", lr),
+                             loss_fn=loss, plan=plan, discipline="dynsgd",
+                             seed=seed)
+        sched = FleetScheduler(capacity=1, tick_s=0.005)
+        job = sched.submit(FleetJob("parity", "acme", rt, min_gang=1,
+                                    max_workers=1))
+        torch.cuda.synchronize()
+        K.reset_launches()
+        F.reset_launches()
+        t0 = time.perf_counter()
+        sched.run(timeout=FLEET_TIMEOUT_S)
+        torch.cuda.synchronize()
+        runs["elastic"] = dict(
+            seconds=time.perf_counter() - t0, lstm=K.launch_counts(),
+            fold=F.launch_counts(), log=list(rt.server.commit_log),
+            params=rt.result().params, losses=rt.losses, state=job.state)
+        sched.close()
+        model, plan = elastic_inputs(seed, 1, ELASTIC_ROUNDS)
+        srv = PSServer(discipline="dynsgd", device="cuda").start()
+        try:
+            torch.cuda.synchronize()
+            K.reset_launches()
+            F.reset_launches()
+            t0 = time.perf_counter()
+            params, losses = run_remote(
+                endpoint=srv.endpoint, model=model,
+                tx=get_optimizer("sgd", lr), loss_fn=loss, plan=plan,
+                discipline="dynsgd", window=Kw, seed=seed)
+            torch.cuda.synchronize()
+            runs["run_remote"] = dict(
+                seconds=time.perf_counter() - t0, lstm=K.launch_counts(),
+                fold=F.launch_counts(), log=list(srv.commit_log),
+                params=params, losses=losses, state="done")
+        finally:
+            srv.close()
+    a, b = runs["elastic"], runs["run_remote"]
+    equal = all(torch.equal(a["params"][k], b["params"][k])
+                for k in b["params"])
+    diff = max((a["params"][k] - b["params"][k]).abs().max().item()
+               for k in b["params"])
+    failures = []
+    for name, r in runs.items():
+        if r["state"] != "done" or len(r["log"]) != ELASTIC_ROUNDS:
+            failures.append(f"{name}: {r['state']}, {len(r['log'])} commits")
+        if not (r["lstm"]["lstm_fwd_stash"] == r["lstm"]["lstm_bwd"] == steps
+                and r["lstm"]["lstm_fwd"] == 0):
+            failures.append(f"{name}: LSTM launches {r['lstm']} in {steps} "
+                            f"local steps")
+        if r["fold"] != {"fold_commit": len(r["log"]), "fold_int8": 0,
+                         "fold_bf16": 0}:
+            failures.append(f"{name}: fold launches {r['fold']} for "
+                            f"{len(r['log'])} commits")
+    if not equal:
+        failures.append(f"the elastic center is {diff} from run_remote's")
+    if not np.array_equal(a["losses"], b["losses"]):
+        failures.append("the elastic losses are not run_remote's")
+    emit({"phase": "elastic_parity", "gpu": gpu,
+          "config": "config #4: imdb_lstm at full width, DynSGD, sgd",
+          **ELASTIC, "rounds": ELASTIC_ROUNDS, "workers": 1,
+          "codec": "int8", "discipline": "dynsgd",
+          "center_bit_equal": equal, "center_max_abs_diff": diff,
+          "losses_equal": bool(np.array_equal(a["losses"], b["losses"])),
+          **{f"{name}_{k}": v for name, r in runs.items() for k, v in (
+              ("seconds", r["seconds"]),
+              ("samples_per_s", steps * B / r["seconds"]),
+              ("launches", {**r["lstm"], **r["fold"]}),
+              ("staleness", [st for _w, _s, st in r["log"]]))}})
+    if failures:
+        fail("elastic_parity: " + "; ".join(failures))
+    return {**a["lstm"], **a["fold"]}
+
+
+def fleet_mlp_runtime(torch, seed: int):
+    """``corp/mlp``: the reference smoke's MLP (16 hidden, 3 classes on 4
+    features, seeded blobs) as an ``ElasticTraining`` job on the card."""
+    from distkeras_tpu_torch.data import DataFrame
+    from distkeras_tpu_torch.data.batching import make_batches
+    from distkeras_tpu_torch.fleet import ElasticTraining
+    from distkeras_tpu_torch.models import MLP, Model
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+
+    rng = np.random.default_rng(seed + 12)
+    centers = rng.normal(scale=4.0, size=(3, 4))
+    y = rng.integers(0, 3, size=FLEET_MLP["rows"])
+    x = (centers[y] + rng.normal(scale=0.5, size=(len(y), 4))).astype(
+        np.float32)
+    torch.manual_seed(seed + 12)
+    model = Model.build(MLP(hidden=(16,), num_outputs=3, in_features=4),
+                        np.zeros((1, 4), np.float32), device="cuda")
+    frame = DataFrame({"features": x, "label": y.astype(np.int32)})
+    plan = make_batches(frame, "features", "label", FLEET_MLP["batch_size"],
+                        num_workers=FLEET_MLP["workers"],
+                        window=FLEET_MLP["window"],
+                        num_epoch=FLEET_MLP["num_epoch"], shuffle=True,
+                        seed=seed)
+    rt = ElasticTraining(
+        model=model, tx=get_optimizer("sgd", FLEET_MLP["learning_rate"]),
+        loss_fn=get_loss("sparse_categorical_crossentropy"), plan=plan,
+        discipline="adag", seed=seed + 2)
+    return rt, x, y
+
+
+def fleet_card_phase(torch, K, F, gpu: str, seed: int,
+                     remote_samples_per_s: float) -> dict:
+    """``fleet_card``: see :data:`FLEET_CAPACITY`. Every kernel count is set
+    to 0 just before the scheduler starts and read after the last training
+    job is done. Returns ``{kernel: launches}``."""
+    from distkeras_tpu_torch import imdb_lstm, telemetry
+    from distkeras_tpu_torch.fleet import (DONE, FAILED, RUNNING,
+                                           ElasticTraining, FleetJob,
+                                           FleetScheduler)
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+    from distkeras_tpu_torch.serving import (ServeClient, ServingError,
+                                             ServingService)
+    from distkeras_tpu_torch.telemetry.report import build_report
+
+    Kw, B = ELASTIC["communication_window"], ELASTIC["batch_size"]
+    workdir = os.path.join("build", "fleet_card")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    model, plan = elastic_inputs(seed, FLEET_CAPACITY, FLEET_ROUNDS)
+    acme = ElasticTraining(
+        model=model, tx=get_optimizer("sgd", ELASTIC["learning_rate"]),
+        loss_fn=get_loss("sparse_categorical_crossentropy"), plan=plan,
+        discipline="dynsgd", seed=seed)
+    windows = [0]
+    acme.ensure_started()
+
+    def counted(loop):
+        def run(*a, **kw):
+            out = loop(*a, **kw)
+            with lock:
+                windows[0] += 1
+            return out
+        return run
+
+    lock = threading.Lock()
+    acme._loops = [counted(lp) for lp in acme._loops]
+    serve_model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
+                            hidden_size=HIDDEN, seq_len=SEQ_LEN,
+                            seed=seed + 3, device="cuda")
+    cpu_model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
+                          hidden_size=HIDDEN, seq_len=SEQ_LEN, device="cpu")
+    cpu_model.module.load_state_dict(
+        {k: v.cpu() for k, v in serve_model.module.state_dict().items()})
+    rng = np.random.default_rng(seed + 4)
+    requests = {n: rng.integers(0, VOCAB, (n, SEQ_LEN)).astype(np.int32)
+                for n in FLEET_REQUESTS}
+    want = {n: cpu_model.predict(x).numpy() for n, x in requests.items()}
+    svc = ServingService(serve_model, buckets=BUCKETS)
+    corp_rt, corp_x, corp_y = fleet_mlp_runtime(torch, seed)
+
+    sched = FleetScheduler(capacity=FLEET_CAPACITY, tick_s=0.02)
+    jobs = {"acme/imdb": sched.submit(FleetJob(
+                "imdb", "acme", acme, min_gang=1, max_workers=FLEET_CAPACITY)),
+            "serve/imdb": sched.submit(FleetJob(
+                "imdb", "serve", svc, min_gang=1, max_workers=2,
+                kind="serving"))}
+    served = {"answered": 0, "shed": 0, "failed": [], "max_err": 0.0}
+    floor, times = [], {}
+    stop = threading.Event()
+
+    def client_loop():
+        i = 0
+        while not stop.is_set():
+            eps = svc.endpoints()
+            if not eps:
+                time.sleep(0.005)
+                continue
+            n = FLEET_REQUESTS[i % len(FLEET_REQUESTS)]
+            i += 1
+            c = ServeClient(eps, timeout=10.0, retries=5, backoff=0.02)
+            try:
+                out, _v = c.infer(requests[n])
+                err = float(np.abs(out - want[n]).max())
+                served["answered"] += 1
+                served["max_err"] = max(served["max_err"], err)
+            except ServingError:
+                served["shed"] += 1
+            except Exception as e:  # noqa: BLE001 - a request lost
+                served["failed"].append(repr(e))
+            finally:
+                c.close()
+
+    def watch():
+        while not stop.is_set():
+            st = sched.stats()
+            now = time.perf_counter()
+            for jid, row in st.items():
+                if row["state"] == RUNNING:
+                    times.setdefault(jid, [now, None])
+                if row["state"] in (DONE, FAILED) and jid in times:
+                    times[jid][1] = times[jid][1] or now
+            if st["serve/imdb"]["state"] == RUNNING:
+                floor.append(st["serve/imdb"]["active"])
+            time.sleep(0.005)
+
+    telemetry.reset()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    threads = [threading.Thread(target=client_loop, name="fleet-client"),
+               threading.Thread(target=watch, name="fleet-watch")]
+    stack = contextlib.ExitStack()
+    t0 = time.perf_counter()
+    try:
+        stack.enter_context(env_set(DKTPU_NET_COMPRESS="int8"))
+        sched.start()
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+
+        def wait_for(cond, what):
+            while not cond():
+                if time.monotonic() > deadline:
+                    fail(f"fleet_card: timed out waiting for {what}: "
+                         f"{sched.stats()}")
+                time.sleep(0.005)
+
+        wait_for(lambda: acme.progress() >= FLEET_CORP_AFTER,
+                 f"acme's commit {FLEET_CORP_AFTER}")
+        jobs["corp/mlp"] = sched.submit(FleetJob(
+            "mlp", "corp", corp_rt, priority=5, min_gang=2,
+            max_workers=FLEET_MLP["workers"]))
+        wait_for(lambda: jobs["corp/mlp"].state != "queued",
+                 "corp's placement")
+        at = sum(j.runtime.progress() for j in jobs.values()) + 1
+        _plan, net = stack.enter_context(fault_plan(net=f"preempt@{at}:1"))
+        wait_for(lambda: all(jobs[j].state in (DONE, FAILED)
+                             for j in ("acme/imdb", "corp/mlp")),
+                 "the training jobs")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launched_kernels()
+        missed = unfired(net)
+    finally:
+        stop.set()
+        for t in threads:
+            if t.ident is not None:
+                t.join()
+        sched.close()
+        stack.close()
+    counters = telemetry.get().snapshot()["counters"]
+    jsonl = os.path.join(workdir, "fleet_run.jsonl")
+    telemetry.write_jsonl(telemetry.get(), jsonl)
+    rollup = build_report(jsonl)["fleet"]
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    logs = {"acme/imdb": list(acme.server.commit_log),
+            "corp/mlp": list(corp_rt.server.commit_log)}
+    stats = sched.stats()
+    failures = []
+    for jid in ("acme/imdb", "corp/mlp"):
+        if jobs[jid].state != DONE:
+            failures.append(f"{jid} ended {jobs[jid].state} "
+                            f"({jobs[jid].error!r})")
+        pairs = [(w, q) for w, q, _st in logs[jid]]
+        if len(pairs) != len(set(pairs)):
+            failures.append(f"{jid}: a (wid, seq) was folded twice")
+    items = FLEET_ROUNDS * FLEET_CAPACITY
+    if not (acme._queue.committed == acme.progress() == items
+            == len(logs["acme/imdb"]) and acme.done()
+            and not np.isnan(acme.losses).any()):
+        failures.append(f"acme/imdb committed {acme._queue.committed} "
+                        f"items ({len(logs['acme/imdb'])} folds) of {items}")
+    if sched.floor_violations:
+        failures.append(f"{sched.floor_violations} floor violations")
+    a = stats["acme/imdb"]
+    if not (a["shrinks"] >= 1 and a["expands"] >= 1):
+        failures.append(f"acme/imdb never shrank and re-expanded: {a}")
+    refused = counters.get("fleet.serving_drains_refused", 0)
+    if not floor or min(floor) < 1 or refused < 1 or missed:
+        failures.append(f"the serving floor: min replicas "
+                        f"{min(floor) if floor else None}, drains refused "
+                        f"{refused}, unfired {missed}")
+    if served["failed"] or not served["answered"]:
+        failures.append(f"requests: {served['answered']} answered, "
+                        f"{served['shed']} shed, failed "
+                        f"{served['failed'][:3]}")
+    if served["max_err"] > SERVE_ATOL:
+        failures.append(f"served logits {served['max_err']} from the CPU "
+                        f"forward (limit {SERVE_ATOL})")
+    folds = len(logs["acme/imdb"]) + len(logs["corp/mlp"])
+    fold = {k: launches.get(f"fold.{k}", 0) for k in (
+        "fold_commit", "fold_int8", "fold_bf16")}
+    if fold != {"fold_commit": folds, "fold_int8": 0, "fold_bf16": 0}:
+        failures.append(f"fold launches {fold} for {folds} applied int8 "
+                        f"commits")
+    lstm = {k: launches.get(f"lstm.{k}", 0) for k in (
+        "lstm_fwd", "lstm_fwd_stash", "lstm_bwd")}
+    if not (lstm["lstm_fwd_stash"] == lstm["lstm_bwd"] == Kw * windows[0]):
+        failures.append(f"LSTM launches {lstm} for {windows[0]} windows of "
+                        f"{Kw} local steps (retried windows included)")
+    if lstm["lstm_fwd"] < served["answered"]:
+        failures.append(f"{lstm['lstm_fwd']} forward launches for "
+                        f"{served['answered']} answered requests")
+    others = {k: v for k, v in launches.items()
+              if not k.startswith(("lstm.", "fold."))}
+    if others:
+        failures.append(f"kernels off the path launched: {others}")
+    tenants = {r["tenant"] for r in rollup}
+    if not {"acme", "serve", "corp"} <= tenants:
+        failures.append(f"the report's fleet rollup names {sorted(tenants)}")
+
+    def tenant(jid):
+        row = {k: stats[jid][k] for k in ("state", "shrinks", "expands",
+                                          "preemptions", "requeues",
+                                          "restarts")}
+        span = times.get(jid, [None, None])
+        # the serving tenant runs until the scheduler closes: to the end
+        row["seconds"] = ((span[1] or t0 + wall) - span[0]) if span[0] \
+            else None
+        if jid in logs:
+            st = [x for _w, _q, x in logs[jid]]
+            row.update(commits=len(st), staleness_mean=float(np.mean(st)),
+                       staleness_max=int(max(st)))
+        else:
+            row.update(requests_answered=served["answered"],
+                       requests_shed=served["shed"],
+                       min_replicas=min(floor) if floor else None,
+                       served_progress=svc.progress())
+        return row
+
+    acc = float((corp_rt.result().predict(corp_x).argmax(-1).cpu().numpy()
+                 == corp_y).mean())
+    acme_sps = items * Kw * B / (times["acme/imdb"][1]
+                                 - times["acme/imdb"][0])
+    emit({"phase": "fleet_card", "gpu": gpu, "capacity": FLEET_CAPACITY,
+          "tenants": {jid: tenant(jid) for jid in jobs},
+          "acme_config": {"config": "config #4 (imdb_lstm at full width)",
+                          **ELASTIC, "rounds": FLEET_ROUNDS,
+                          "items": items, "discipline": "dynsgd",
+                          "codec": "int8"},
+          "corp_config": {"model": "MLP(hidden=(16,), 3 classes, 4 "
+                                   "features)", **FLEET_MLP,
+                          "discipline": "adag", "priority": 5,
+                          "accuracy": acc},
+          "acme_samples_per_s": acme_sps,
+          "run_remote_4_workers_samples_per_s": remote_samples_per_s,
+          "acme_vs_run_remote": acme_sps / remote_samples_per_s,
+          "preempt_fault": f"preempt@{at}:1",
+          "serving_drains_refused": refused,
+          "liveness_requeues": counters.get("fleet.liveness_requeues", 0),
+          "floor_violations": sched.floor_violations,
+          "serve_max_abs_err": served["max_err"],
+          "serve_atol": SERVE_ATOL, "windows_run": windows[0],
+          "launches": launches, "seconds": wall,
+          "report_tenants": sorted(tenants)})
+    if failures:
+        fail("fleet_card: " + "; ".join(failures))
+    return lstm | fold
+
+
+def sim_phase(gpu: str) -> None:
+    """``sim``: every entry of ``SCENARIOS`` at its default size with seed
+    0, twice (the outputs must be the same bytes and each scenario's own
+    checks must pass), then ``python -m distkeras_tpu_torch.sim run
+    preemption_storm --seed 0 --json`` once (exit 0, the same output).
+    Host only: the simulator touches no device, and no kernel may launch."""
+    from distkeras_tpu_torch.sim import SCENARIOS, run_scenario
+
+    reset_all_launches()
+    rows, failures, outs = {}, [], {}
+    for name in SCENARIOS:
+        texts, secs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = run_scenario(name, seed=0)
+            secs.append(time.perf_counter() - t0)
+            texts.append(json.dumps(out, sort_keys=True))
+        outs[name] = out
+        rows[name] = {"seconds": secs, "identical": texts[0] == texts[1],
+                      "ok": out["ok"], "checks": out["checks"],
+                      "virtual_s": out.get("virtual_s"),
+                      "events": out.get("events")}
+        if texts[0] != texts[1] or not out["ok"]:
+            failures.append(f"{name}: identical {texts[0] == texts[1]}, "
+                            f"checks {out['checks']}")
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "distkeras_tpu_torch.sim",
+                          "run", "preemption_storm", "--seed", "0",
+                          "--json"], capture_output=True, text=True,
+                         timeout=300)
+    cli_s = time.perf_counter() - t0
+    try:
+        same = json.loads(cli.stdout) == json.loads(json.dumps(
+            outs["preemption_storm"]))
+    except ValueError:
+        same = False
+    if cli.returncode != 0 or not same:
+        failures.append(f"the CLI: rc {cli.returncode}, same output {same}, "
+                        f"stderr {cli.stderr[-400:]}")
+    if launched_kernels():
+        failures.append(f"kernels launched: {launched_kernels()}")
+    emit({"phase": "sim", "gpu": gpu,
+          "host_only": "the simulator runs on the host, as the JAX "
+                       "package's does; the card is idle in this phase",
+          "scenarios": rows,
+          "crossover_curve": "BENCH_SUMMARY.json of the repository (the "
+                             "reference's recorded curve; the card's own "
+                             "curve is replayed in netps_config8)",
+          "cli": {"argv": cli.args[1:], "returncode": cli.returncode,
+                  "same_output": same, "seconds": cli_s}})
+    if failures:
+        fail("sim: " + "; ".join(failures))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8723,6 +9291,15 @@ def main() -> None:
     obs = observability_phase(torch, K, F, gpu, args.seed,
                               remote_runs["int8"]["samples_per_s"])
     torch.cuda.empty_cache()
+    lap("elastic_parity")
+    elastic = elastic_parity_phase(torch, K, F, gpu, args.seed)
+    torch.cuda.empty_cache()
+    lap("fleet_card")
+    fleet = fleet_card_phase(torch, K, F, gpu, args.seed,
+                             remote_runs["int8"]["samples_per_s"])
+    torch.cuda.empty_cache()
+    lap("sim")
+    sim_phase(gpu)
 
     def entry(name, source, replaces, rows, launches, bf16_launches):
         """The largest batch's f32 row, the largest error over every f32
@@ -8998,6 +9575,16 @@ def main() -> None:
     kernels[2]["observability_launches"] = obs["bwd"]
     kernels[5]["observability_launches"] = obs["fold"]
     kernels[5]["observability_commits"] = obs["commits"]
+    # The fleet control plane's paths, each counted from 0 just before its
+    # run and read just after: the one-worker elastic job (elastic_parity)
+    # and the pool of three tenants (fleet_card: the serving replicas'
+    # forwards, acme's windows, both jobs' folded int8 commits).
+    kernels[0]["fleet_launches"] = {"fleet_card": fleet["lstm_fwd"]}
+    for k in kernels[1:3]:
+        k["fleet_launches"] = {"elastic_parity": elastic[k["name"]],
+                               "fleet_card": fleet[k["name"]]}
+    kernels[5]["fleet_launches"] = {"elastic_parity": elastic["fold_commit"],
+                                    "fleet_card": fleet["fold_commit"]}
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

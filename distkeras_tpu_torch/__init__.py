@@ -64,7 +64,15 @@ Ported so far:
   through every engine, checkpoint, blob and the remote loop; Keras 3
   models through ``models.from_keras`` on keras's torch backend; learning-
   rate schedules (``ops/schedules.py``) and the optimizers' ``mu_dtype``,
-  ``accumulator_dtype``, ``mask`` and ``weight_decay_mask``.
+  ``accumulator_dtype``, ``mask`` and ``weight_decay_mask``;
+* the fleet control plane and its simulator: ``FleetScheduler`` places
+  many tenants' jobs (``FleetJob``) on one pool of worker slots (quotas, gang
+  floors, preemption by shrink or drain, ``preempt@R``), an
+  ``ElasticTraining`` job trains through a claim queue against its own
+  parameter server on the card, a ``serving.ServingService`` tenant runs
+  replicas the scheduler never drains below their floor, and
+  ``python -m distkeras_tpu_torch.sim`` drives the same scheduler and
+  health plane on a virtual clock at a thousand workers.
 """
 
 from distkeras_tpu_torch.data import (
@@ -85,6 +93,11 @@ from distkeras_tpu_torch.evaluators import (
     AccuracyEvaluator,
     F1Evaluator,
     LossEvaluator,
+)
+from distkeras_tpu_torch.fleet import (
+    ElasticTraining,
+    FleetJob,
+    FleetScheduler,
 )
 from distkeras_tpu_torch.models import (
     MLP,
@@ -134,7 +147,8 @@ __all__ = [
     "ADAG", "AEASGD", "AccuracyEvaluator", "AsynchronousDistributedTrainer",
     "AveragingTrainer", "ClassPredictor", "DOWNPOUR", "DataFrame",
     "DenseTransformer", "DistributedTrainer", "DynSGD", "EAMSGD",
-    "EnsembleTrainer", "F1Evaluator", "FaultPlan",
+    "ElasticTraining", "EnsembleTrainer", "F1Evaluator", "FaultPlan",
+    "FleetJob", "FleetScheduler",
     "LSTMClassifier", "LabelIndexTransformer", "LossEvaluator", "MLP",
     "MinMaxTransformer", "Model", "ModelPredictor", "MoETransformerLM",
     "OneHotTransformer",

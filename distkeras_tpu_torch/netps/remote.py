@@ -234,6 +234,36 @@ def _worker_round(plan: BatchPlan, r: int, w: int):
     return xs, ys
 
 
+def local_window(loop, start: dict, pulled: dict, opt_state, xs, ys, *,
+                 rng: int, state, discipline: str, alpha: float,
+                 window: int):
+    """One worker window: ``loop``'s K local steps from ``start`` on the
+    round's ``xs``/``ys`` (host arrays, moved to the pulled center's
+    device), then the worker-side discipline normalization of the window's
+    delta against ``pulled`` (the elastic term ``alpha * (new - pulled)``
+    for AEASGD/EAMSGD, ``(new - pulled) / window`` for ADAG, the raw
+    difference otherwise). Returns ``(host_delta, local, opt_state, state,
+    losses)``: the delta as host numpy in ``pulled``'s key order, the
+    elastic worker's new local parameters (None for the other
+    disciplines) and the window's ``[K]`` losses. The serial path of
+    :func:`run_remote` and the fleet's ``ElasticTraining`` both run their
+    windows through it, so one window computes the same bits in both."""
+    dev = next(iter(pulled.values())).device
+    new, opt_state, state, losses = loop(
+        start, opt_state, torch.as_tensor(xs).to(dev),
+        torch.as_tensor(ys).to(dev), rng=rng, state=state)
+    local = None
+    if discipline in ("aeasgd", "eamsgd"):
+        delta = {k: alpha * (new[k] - v) for k, v in pulled.items()}
+        local = {k: new[k] - delta[k] for k in pulled}
+    else:
+        delta = {k: new[k] - v for k, v in pulled.items()}
+        if discipline == "adag":
+            delta = {k: d / float(window) for k, d in delta.items()}
+    return ([d.cpu().numpy() for d in delta.values()], local, opt_state,
+            state, losses)
+
+
 def run_remote(
     *,
     endpoint: str,
@@ -504,20 +534,14 @@ def run_remote(
                 start = local if elastic else pulled
                 xs, ys = _worker_round(plan, r, w)
                 with telemetry.span("netps.remote.local_window"):
-                    new, opt_state, mstate, window_losses = loops[w](
-                        start, opt_state, torch.as_tensor(xs).to(dev),
-                        torch.as_tensor(ys).to(dev),
-                        rng=derive_seed(seed, w, r), state=mstate)
+                    host_delta, new_local, opt_state, mstate, \
+                        window_losses = local_window(
+                            loops[w], start, pulled, opt_state, xs, ys,
+                            rng=derive_seed(seed, w, r), state=mstate,
+                            discipline=discipline, alpha=alpha,
+                            window=window)
                     if elastic:
-                        delta = {k: alpha * (new[k] - pulled[k])
-                                 for k in names}
-                        local = {k: new[k] - delta[k] for k in names}
-                    else:
-                        delta = {k: new[k] - pulled[k] for k in names}
-                        if discipline == "adag":
-                            delta = {k: d / float(window)
-                                     for k, d in delta.items()}
-                    host_delta = [delta[k].cpu().numpy() for k in names]
+                        local = new_local
                     losses[r, w] = float(window_losses.mean())
                 if commit_lane is None:
                     settle(meter.blocking(client.commit, host_delta,

@@ -11,9 +11,10 @@ at a smaller worker count — when marginal throughput has flattened, the
 free slot is left for a tenant that can still use it.
 
 Shrink paths (preemption, floors, gang minimums) are untouched: the policy
-only gates *expansion*, so it can never cause a floor violation. The JAX
-package's fleet scheduler consults it; the port's scheduler does not yet
-(ROADMAP item 10).
+only gates *expansion*, so it can never cause a floor violation. The
+port's :class:`~distkeras_tpu_torch.fleet.scheduler.FleetScheduler`
+consults it (``expansion_policy=``, the default under
+``DKTPU_NET_AUTOTUNE``), as the JAX package's does.
 """
 
 from __future__ import annotations

@@ -125,10 +125,12 @@ _KINDS = frozenset({
 #: device mesh would — the client must demote to its negotiated shm/TCP
 #: dialect and retransmit the SAME seq, exactly-once riding through.
 #:
-#: The port parses every kind as the JAX package does. ``preempt`` (and
-#: the compute kinds ``feed_gap`` and ``drift``) have no consumer in the
-#: port yet: the fleet scheduler and the stream source that read them are
-#: refused at their own entry points until their slices (ROADMAP Queue 1).
+#: The port parses every kind as the JAX package does. ``preempt@R[:N]``
+#: is read by the fleet scheduler (``FleetScheduler._consult_chaos``: N
+#: workers forcibly preempted once the fleet's cumulative commits cross R).
+#: The compute kinds ``feed_gap`` and ``drift`` have no consumer in the
+#: port yet: the stream source that reads them comes with the port's
+#: ``streaming/`` (ROADMAP Queue 1).
 _NET_KINDS = frozenset({
     "delay", "drop", "dup", "truncate", "partition", "evict",
     "delay_r", "drop_r", "dup_r", "truncate_r",

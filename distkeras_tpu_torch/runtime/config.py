@@ -63,7 +63,8 @@ class EnvVar:
     kind: str
     default: object
     doc: str
-    # "observability" | "resilience" | "network" | "serving" | "data"
+    # "observability" | "resilience" | "network" | "serving" | "data" |
+    # "sim" | "fleet"
     category: str
 
 
@@ -406,6 +407,46 @@ ENV_REGISTRY: dict = _declare(
            "and scale falls back to numpy (bit-identical, slower) and is "
            "counted as a fallback.",
            "data"),
+    EnvVar("DKTPU_SIM_SEED", "int", 0,
+           "Default RNG seed for the fleet simulator (`distkeras_tpu.sim`): "
+           "every `SimEngine()` built without an explicit seed draws from "
+           "one `random.Random(seed)`, so two runs of the same scenario are "
+           "bit-identical. Pass `--seed` / `SimEngine(seed=...)` to "
+           "override per run.",
+           "sim"),
+    EnvVar("DKTPU_SIM_BAND_PCT", "float", 20.0,
+           "Calibration tolerance (percent) for the simulator's replay "
+           "gates: `sim_drift` and the `hier_crossover` held-out "
+           "predictions must land within this band of the measured "
+           "throughput or the gate (and the bench-regression sentinel "
+           "watching `sim_drift.within_band`) reports a miss.",
+           "sim"),
+    EnvVar("DKTPU_FLEET_CAPACITY", "int", 0,
+           "Worker-slot capacity of a FleetScheduler constructed without an "
+           "explicit `capacity=`; 0 = no default (the constructor then "
+           "requires one).",
+           "fleet"),
+    EnvVar("DKTPU_FLEET_TICK", "float", 0.05,
+           "Seconds between FleetScheduler passes in `run()`/`start()` "
+           "(reap finished workers, fire preempt faults, place queued "
+           "jobs, expand elastically).",
+           "fleet"),
+    EnvVar("DKTPU_FLEET_PREEMPT_GRACE", "float", 0.0,
+           "Seconds a preempted worker gets to exit at a round boundary "
+           "before the scheduler revokes its lease on the job's parameter "
+           "server; 0 = revoke immediately (the worker's in-flight window "
+           "is discarded by the eviction path, never double-folded).",
+           "fleet"),
+    EnvVar("DKTPU_FLEET_QUOTA", "str", "",
+           "Per-tenant worker-slot quotas for a FleetScheduler constructed "
+           "without explicit `quotas=`: `tenant=N` entries separated by "
+           "`;` (e.g. `acme=4;bidco=2`). Empty = every tenant may use the "
+           "whole pool.",
+           "fleet"),
+    EnvVar("DKTPU_FLEET_MAX_RESTARTS", "int", 3,
+           "Per-job budget of crashed-worker restarts the FleetScheduler "
+           "performs before declaring the job failed and draining it.",
+           "fleet"),
 )
 
 _FALSE_STRINGS = frozenset({"0", "false", "no", "off"})

@@ -11,9 +11,10 @@ wire, answered on the card (counterpart of ``distkeras_tpu/serving/``).
   talks to either package's frontend (``serving/frontend.py``);
 * **checkpoint hot-swap** — ``ModelRegistry(directory=...)`` restores
   newer verified steps, warmup-probes them and swaps them in between
-  batches (``serving/registry.py``).
-
-Replica sets (``serving/replica.py``) come with a later slice.
+  batches (``serving/registry.py``);
+* **replica sets** — ``ServingReplicaSet`` runs N frontends a client walks
+  on failure, and ``ServingService`` runs them as a fleet tenant the
+  scheduler never drains below its floor (``serving/replica.py``).
 """
 
 from distkeras_tpu_torch.serving.batcher import (
@@ -30,6 +31,10 @@ from distkeras_tpu_torch.serving.errors import (
 from distkeras_tpu_torch.serving.frontend import ServeClient, ServingFrontend
 from distkeras_tpu_torch.serving.model import BucketedModel
 from distkeras_tpu_torch.serving.registry import ModelRegistry
+from distkeras_tpu_torch.serving.replica import (
+    ServingReplicaSet,
+    ServingService,
+)
 
 __all__ = [
     "BucketedModel",
@@ -41,6 +46,8 @@ __all__ = [
     "ServeClient",
     "ServingError",
     "ServingFrontend",
+    "ServingReplicaSet",
+    "ServingService",
     "bucket_for",
     "parse_buckets",
 ]

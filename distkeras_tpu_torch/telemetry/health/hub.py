@@ -179,9 +179,9 @@ class MetricsHub:
                  use_registry: bool = True,
                  clock: Optional[Callable[[], float]] = None) -> None:
         self._static = dict(targets or {})
-        #: the hub's timeline: injectable, so the windowed-measure and
-        #: burn-rate math can run on a fixed or virtual clock; None = wall
-        #: clock.
+        #: the hub's timeline. Injectable so the simulator
+        #: (``distkeras_tpu_torch.sim``) can run the real windowed-measure /
+        #: burn-rate math on a virtual clock; None = wall clock.
         self._clock: Callable[[], float] = clock or time.time
         self.interval = (env_float("DKTPU_HEALTH_INTERVAL")
                          if interval is None else float(interval))
@@ -197,6 +197,9 @@ class MetricsHub:
         self._thread: Optional[threading.Thread] = None
         self._on_sweep: List[Callable[["MetricsHub"], None]] = []
         self.sweeps = 0
+        #: cumulative histogram state behind :meth:`feed`'s span kind,
+        #: keyed (target, metric).
+        self._fed_spans: Dict[Tuple[str, str], list] = {}
 
     # -- target management -------------------------------------------------
 
@@ -355,6 +358,84 @@ class MetricsHub:
         if cum < c0:  # process restarted: counter reset — re-base, no point
             return
         self._ring(t.rates, name).append((now, (cum - c0) / dt))
+
+    # -- the metric-feed seam ----------------------------------------------
+
+    def _feed_target(self, name: str, role: Optional[str]) -> TargetState:
+        """Lock held. Fed targets join ``_static`` so a stray
+        ``scrape_once`` does not garbage-collect their rings."""
+        t = self._targets.get(name)
+        if t is None:
+            t = TargetState(name=name, endpoint=name)
+            self._targets[name] = t
+            self._static.setdefault(name, name)
+        if role is not None:
+            t.role = role
+        return t
+
+    def feed(self, target: str, metric: str, value: float, *,
+             kind: str = "gauge", ts: Optional[float] = None,
+             role: Optional[str] = None) -> None:
+        """Inject one synthesized observation as if a scrape returned it
+        — the seam the fleet simulator (and any replay tool) uses to run
+        the REAL ring/window/burn-rate/hysteresis machinery against
+        series that never crossed a socket. The point is stamped by the
+        hub's own clock (``clock=``) unless ``ts`` is given.
+
+        ``kind``: ``"gauge"`` appends a point; ``"counter"`` takes the
+        cumulative total and derives the same reset-safe rate a scrape
+        would; ``"span"`` takes one duration sample and accumulates it
+        into a cumulative histogram snapshot (so windowed p99s diff
+        exactly like scraped ones). A fed point also counts as liveness:
+        misses reset, ``ever_up`` latches — pair with :meth:`feed_miss`
+        to simulate a target going dark."""
+        ts = self._clock() if ts is None else float(ts)
+        with self._lock:
+            t = self._feed_target(target, role)
+            t.misses = 0
+            t.down = False
+            t.ever_up = True
+            t.last_ok = ts
+            t.last_error = None
+            if kind == "gauge":
+                self._ring(t.gauges, metric).append((ts, float(value)))
+            elif kind == "counter":
+                self._rate_point(t, metric, ts, float(value))
+            elif kind == "span":
+                self._feed_span(t, metric, ts, float(value))
+            else:
+                raise ValueError(
+                    f"feed kind must be gauge/counter/span, got {kind!r}")
+
+    def feed_miss(self, target: str, role: Optional[str] = None) -> None:
+        """The feed-side mirror of a failed scrape: one more consecutive
+        miss; ``down`` flips after ``down_after`` of them (real
+        :meth:`is_down` semantics — a never-up target stays PENDING)."""
+        with self._lock:
+            t = self._feed_target(target, role)
+            t.misses += 1
+            t.last_error = "fed miss"
+            if t.misses >= self.down_after:
+                t.down = True
+
+    def _feed_span(self, t: TargetState, metric: str, ts: float,
+                   dur_s: float) -> None:
+        """Accumulate one duration sample into the target's cumulative
+        histogram for ``metric`` (same bucket walk as
+        ``telemetry.core``) and snapshot it into the span ring."""
+        import bisect
+
+        from distkeras_tpu_torch.telemetry.core import BUCKET_BOUNDS
+
+        key = (t.name, metric)
+        count, total, buckets = self._fed_spans.setdefault(
+            key, [0, 0.0, [0] * (len(BUCKET_BOUNDS) + 1)])
+        count += 1
+        total += dur_s
+        buckets[bisect.bisect_left(BUCKET_BOUNDS, dur_s)] += 1
+        self._fed_spans[key] = [count, total, buckets]
+        self._ring(t.spans, metric).append(
+            (ts, count, total, tuple(buckets)))
 
     # -- the loop ----------------------------------------------------------
 

@@ -125,6 +125,23 @@ class TelemetryCollector:
         merged.sort(key=_sort_ts)
         return merged
 
+    def write(self, path_or_file) -> int:
+        """Dump the merged timeline as JSONL; returns the record count."""
+        import json
+
+        recs = self.records()
+
+        def _write(f) -> None:
+            for rec in recs:
+                f.write(json.dumps(rec) + "\n")
+
+        if isinstance(path_or_file, str):
+            with open(path_or_file, "w", encoding="utf-8") as f:
+                _write(f)
+        else:
+            _write(path_or_file)
+        return len(recs)
+
 
 def _sort_ts(rec: dict) -> float:
     ts = rec.get("ts")

@@ -1832,3 +1832,143 @@ def test_batchnorm_training_on_card_matches_the_cpu(card):
     assert "1.mean" in want
     for k, v in want.items():
         torch.testing.assert_close(got[k].cpu(), v, rtol=1e-4, atol=1e-5)
+
+
+# -- the fleet control plane: elastic jobs and serving replicas -------------
+
+def _elastic_plan(workers, rounds, window=2, batch=16, seed=0):
+    from distkeras_tpu_torch.data import DataFrame
+    from distkeras_tpu_torch.data.batching import make_batches
+
+    rng = np.random.default_rng(seed)
+    n = workers * rounds * window * batch
+    df = DataFrame({"features": rng.integers(0, 2000, (n, 40)).astype(
+        np.int32), "label": rng.integers(0, 2, n).astype(np.int32)})
+    return make_batches(df, "features", "label", batch, num_workers=workers,
+                        window=window)
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_elastic_training_on_card_is_run_remote_bit_for_bit(card, codec,
+                                                            monkeypatch):
+    """One slot on a one-slot scheduler against ``run_remote`` with one
+    worker, the same plan and seed, each against its own server on the
+    card: the same center bits, and a stash forward and a backward a local
+    step and one ``fold_commit`` a commit in each."""
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.fleet import (ElasticTraining, FleetJob,
+                                           FleetScheduler)
+    from distkeras_tpu_torch.netps import PSServer
+    from distkeras_tpu_torch.netps.remote import run_remote
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+
+    monkeypatch.setenv("DKTPU_NET_COMPRESS", codec)
+    loss = get_loss("sparse_categorical_crossentropy")
+    plan = _elastic_plan(1, 3)
+    rt = ElasticTraining(model=imdb_lstm(**CKPT_WIDTHS, seed=8),
+                         tx=get_optimizer("sgd", 0.05), loss_fn=loss,
+                         plan=plan, discipline="dynsgd", seed=2)
+    assert rt.device.type == "cuda"  # device=None is the card
+    sched = FleetScheduler(capacity=1, tick_s=0.005)
+    sched.submit(FleetJob("j", "t", rt, min_gang=1, max_workers=1))
+    K.reset_launches()
+    F.reset_launches()
+    sched.run(timeout=300)
+    sched.close()
+    launches = (K.launch_counts(), F.launch_counts())
+    srv = PSServer(discipline="dynsgd", device="cuda").start()
+    try:
+        K.reset_launches()
+        F.reset_launches()
+        params, losses = run_remote(
+            endpoint=srv.endpoint, model=imdb_lstm(**CKPT_WIDTHS, seed=8),
+            tx=get_optimizer("sgd", 0.05), loss_fn=loss, plan=plan,
+            discipline="dynsgd", window=plan.window, seed=2)
+        assert (K.launch_counts(), F.launch_counts()) == launches
+    finally:
+        srv.close()
+    assert launches == ({"lstm_fwd": 0, "lstm_fwd_stash": 6, "lstm_bwd": 6},
+                        {"fold_commit": 3, "fold_int8": 0, "fold_bf16": 0})
+    for k, v in rt.result().params.items():
+        assert v.device.type == "cuda" and torch.equal(v, params[k]), k
+    np.testing.assert_array_equal(rt.losses, losses)
+
+
+def test_elastic_training_on_card_survives_shrink_and_expand(card):
+    """``preempt@2:2`` squeezes a 4-slot job to its floor of 2; it
+    re-expands, every planned item is committed once, and the LSTM kernels
+    ran every window the workers started (retried ones included)."""
+    import threading
+
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.fleet import (ElasticTraining, FleetJob,
+                                           FleetScheduler)
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+    from distkeras_tpu_torch.resilience import faults
+
+    plan = _elastic_plan(4, 3, seed=1)
+    rt = ElasticTraining(model=imdb_lstm(**CKPT_WIDTHS, seed=9),
+                         tx=get_optimizer("sgd", 0.05),
+                         loss_fn=get_loss("sparse_categorical_crossentropy"),
+                         plan=plan, discipline="adag", lease_s=5.0)
+    rt.ensure_started()
+    windows = [0]
+    lock = threading.Lock()
+
+    def counted(loop):
+        def run(*a, **kw):
+            out = loop(*a, **kw)
+            with lock:
+                windows[0] += 1
+            return out
+        return run
+
+    rt._loops = [counted(lp) for lp in rt._loops]
+    sched = FleetScheduler(capacity=4, tick_s=0.005)
+    faults.set_net_plan(faults.FaultPlan.parse_net("preempt@2:2"))
+    try:
+        job = sched.submit(FleetJob("j", "t", rt, min_gang=2, max_workers=4))
+        K.reset_launches()
+        F.reset_launches()
+        sched.run(timeout=300)
+    finally:
+        faults.set_net_plan(None)
+        sched.close()
+    assert job.state == "done" and job.shrinks >= 2 and job.expands >= 2
+    assert sched.floor_violations == 0
+    pairs = [(w, s) for w, s, _st in rt.server.commit_log]
+    assert len(pairs) == len(set(pairs)) == 12 == rt.progress()
+    assert K.launch_counts()["lstm_fwd_stash"] == \
+        K.launch_counts()["lstm_bwd"] == plan.window * windows[0]
+    assert F.launch_counts()["fold_commit"] == 12
+
+
+def test_replica_set_on_card_answers_as_the_cpu_and_fails_over(card):
+    """Two replicas on the card: answers within 1e-4 of the CPU forward of
+    the same weights (the serve phase's limit), one ``lstm_fwd`` a batch,
+    and a killed replica's client walks to the survivor."""
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.serving import ServeClient, ServingReplicaSet
+
+    model = imdb_lstm(**CKPT_WIDTHS, seed=10)
+    cpu = imdb_lstm(**CKPT_WIDTHS, device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                model.module.state_dict().items()})
+    rs = ServingReplicaSet(model, n=2, buckets=(1, 4, 16)).start()
+    try:
+        client = ServeClient(rs.endpoints(), timeout=10.0, retries=3)
+        rng = np.random.default_rng(3)
+        for i, n in enumerate((1, 3, 16, 5)):
+            if i == 2:
+                rs.kill(0)
+            x = rng.integers(0, 2000, (n, 40)).astype(np.int32)
+            K.reset_launches()
+            out, _v = client.infer(x)
+            assert K.launch_counts()["lstm_fwd"] == 1
+            np.testing.assert_allclose(out, cpu.predict(x).numpy(),
+                                       rtol=0, atol=1e-4)
+        client.close()
+    finally:
+        rs.close()

@@ -95,6 +95,35 @@ def test_data_plane_modules_load_no_jax_nor_its_native_library(module):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "distkeras_tpu_torch.fleet",
+    "distkeras_tpu_torch.fleet.job",
+    "distkeras_tpu_torch.fleet.scheduler",
+    "distkeras_tpu_torch.fleet.placement",
+    "distkeras_tpu_torch.fleet.run",
+    "distkeras_tpu_torch.sim",
+    "distkeras_tpu_torch.sim.core",
+    "distkeras_tpu_torch.sim.model",
+    "distkeras_tpu_torch.sim.cluster",
+    "distkeras_tpu_torch.sim.fleet_driver",
+    "distkeras_tpu_torch.sim.calibrate",
+    "distkeras_tpu_torch.sim.scenarios",
+    "distkeras_tpu_torch.sim.__main__",
+    "distkeras_tpu_torch.streaming",
+    "distkeras_tpu_torch.streaming.items",
+    "distkeras_tpu_torch.serving.replica"])
+def test_fleet_and_sim_modules_load_no_jax(module):
+    """The fleet control plane, its simulator, the claim queue and the
+    replica sets, each module on its own."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def _imports(path: pathlib.Path) -> set:
     names = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -116,13 +145,18 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 
 def test_entry_points_raise_without_a_card(monkeypatch):
     from distkeras_tpu_torch import (
+        ElasticTraining,
         TransformerLM,
         imdb_lstm,
         resnet50,
         small_transformer_lm,
     )
     from distkeras_tpu_torch.models import Model
-    from distkeras_tpu_torch.serving import ModelRegistry
+    from distkeras_tpu_torch.serving import (
+        ModelRegistry,
+        ServingReplicaSet,
+        ServingService,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     small = dict(vocab_size=10, embed_dim=4, hidden_size=4, seq_len=3)
@@ -142,6 +176,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelRegistry(model, (1, 4))
     assert model.device.type == "cpu"  # the refused registry moved nothing
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingReplicaSet(model, n=1, buckets=(1, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingService(model, buckets=(1, 4))
+    from distkeras_tpu_torch.data import DataFrame
+    from distkeras_tpu_torch.data.batching import make_batches
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+
+    df = DataFrame({"features": np.zeros((8, 3), np.int32),
+                    "label": np.zeros(8, np.int32)})
+    plan = make_batches(df, "features", "label", 2, num_workers=2, window=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticTraining(model=model, tx=get_optimizer("sgd", 0.1),
+                        loss_fn=get_loss("sparse_categorical_crossentropy"),
+                        plan=plan)
+    assert model.device.type == "cpu"  # nothing was moved
 
 
 def test_serialize_and_checkpoint_without_msgpack(tmp_path):
