@@ -501,10 +501,52 @@ and every parity phase holds the card's bf16 run to the CPU's within
 33. ``sim`` — every scenario of ``distkeras_tpu_torch.sim`` at its default
     size with seed 0, twice (the same bytes, every check passing), and the
     CLI's ``run preemption_storm --json`` once: host only, no kernel.
+34. ``streaming_config11`` — BASELINE config #11 (``bench.py``
+    ``_measure_streaming``) on the card: a ``StreamingTraining`` job (MLP
+    16 hidden on 4 features, 3 classes; 2 workers, ADAG, sgd 0.1, its
+    parameter server on the card) on a 2-slot ``FleetScheduler``, fed 90
+    records of K=2 x B=16 by a ``StreamProducer`` under
+    ``feed_gap@8:0.2;drift@30`` with its connections severed at record 45,
+    a ``ModelRegistry`` hot-swapping its checkpoints through the drift
+    watch's regression gate (floor 0.5). Checked (the reference's streaming
+    chaos smoke, leg 1): the job done with no error, both drills fired, a
+    reconnect, the drift paged and cleared with a positive recovery time,
+    every ``(wid, seq)`` folded once (90), the journal's committed set
+    ``range(90)``, the served step past record 30 with its event
+    timestamp, served accuracy on the drifted held-out set above 0.8, the
+    report's Streaming section filled, freshness under 60 s, one
+    ``fold_commit`` a commit and no other kernel. Printed: items/s, the
+    recovery time, freshness p50/p99, swaps and the served accuracy.
+35. ``streaming_kill`` — the smoke's leg 2 on config #4 at full width: a
+    child process runs a one-worker ``StreamingTraining`` (DynSGD) of 12
+    records of K=2 x B=256 against a durable ``python -m
+    distkeras_tpu_torch.netps --device cuda`` server (state directory,
+    fold journal, started during ``streaming_config11``); ``kill@6``
+    SIGKILLs it, a second child resumes. Checked: the first child died of
+    SIGKILL, the journal then held ``range(6)``, nothing replayed, the
+    stream finished with every record in the journal, the server's journal
+    one fold a record and its fold launches (counted in its process) one a
+    record, the resumed child's stash forward and backward once a step.
+36. ``stream_engine`` — ``AsyncEngine.run_stream`` of config #4 (DynSGD,
+    2 workers, window 2, batch 2048) over an endless generator with
+    ``max_items=4``: a finite ``[4, 2]`` loss, ``on_item`` seeing 0..3, the
+    stash forward and the backward once a local step; then
+    ``SyncEngine.run_stream`` of ResNet-50 in bf16 at ``RESNET``'s widths,
+    2 items: 53 launches of each GroupNorm kernel a step, bf16 entry points
+    only.
+37. ``raced`` — ``racelab.run_raced`` of config #4 at full width (DynSGD,
+    4 threads, one local loop each, ``overlap_first_round``, the center on
+    the card, 6 rounds): the first 4 commits realize staleness 0..3, one
+    ``fold_commit`` a commit, the stash forward and the backward once a
+    step, the center finite, the last windows' mean loss below the first
+    windows'; then one worker, whose center is bit-equal to a plain loop
+    applying its window deltas through ``fold_delta`` on the card.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line (the
 flash entries with ``moe_launches``, the LSTM and fold entries with
-``fleet_launches``), the card's name and power limit,
+``fleet_launches``; #1 stash, #2 and the fold with ``streaming_launches``,
+``raced_launches``, #1 stash, #2 and GroupNorm with
+``stream_engine_launches``), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -9009,6 +9051,666 @@ def sim_phase(gpu: str) -> None:
         fail("sim: " + "; ".join(failures))
 
 
+#: ``streaming_config11``: BASELINE config #11 as ``bench.py``'s
+#: ``_measure_streaming`` defines it (the reference's
+#: ``tests/smoke_streaming_chaos.py`` leg 1 checks), on the card: an MLP
+#: (16 hidden, 3 classes on 4 features) trained by a ``StreamingTraining``
+#: job (2 workers, ADAG, sgd 0.1, its parameter server on the card) on a
+#: ``FleetScheduler`` pool of 2 slots, off a ``StreamProducer`` socket feed
+#: of 90 records of K=2 x B=16 whose labels rotate from record 30 on
+#: (``drift@30``), held silent 0.2 s at record 8 (``feed_gap@8:0.2``) and
+#: severed at record 45, the producer at most 24 records ahead of the
+#: job's progress; a ``ModelRegistry`` hot-swaps its checkpoints (every 8
+#: committed records) through the drift watch's regression gate.
+STREAM = dict(total=90, drift_at=30, workers=2, k=2, batch=16, features=4,
+              classes=3, checkpoint_every=8, fast=8, slow=40, ahead=24,
+              sever_at=45, capacity=2, tick_s=0.02, regress_floor=0.5,
+              poll_s=0.1, learning_rate=0.1, held_out=64)
+STREAM_FAULTS = "feed_gap@8:0.2;drift@30;seed=3"
+STREAM_TIMEOUT_S = 420.0
+STREAM_MIN_ACCURACY = 0.8
+STREAM_MAX_FRESHNESS_S = 60.0
+#: ``streaming_kill``: the reference smoke's leg 2 on config #4 at full
+#: width: a one-worker ``StreamingTraining`` child (DynSGD, sgd lr 0.01,
+#: records of K=2 x B=256 ``imdb()`` rows) against a durable ``python -m
+#: distkeras_tpu_torch.netps --device cuda`` server with a state directory;
+#: ``kill@6`` SIGKILLs the child as it claims record 6, and a second child
+#: resumes from the offset journal and the newest checkpoint.
+STREAM_KILL = dict(total=12, kill_at=6, k=2, batch=256, checkpoint_every=4,
+                   learning_rate=0.01)
+#: ``stream_engine``: ``AsyncEngine.run_stream`` of config #4 (DynSGD, 2
+#: workers, window 2, batch 2048, sgd lr 0.01) over an endless generator,
+#: bounded by ``max_items``; then ``SyncEngine.run_stream`` of config #5's
+#: ResNet-50 in bf16 at ``RESNET``'s widths, 2 items.
+STREAM_ENGINE = dict(items=4, workers=2, window=2, batch=2048,
+                     learning_rate=0.01)
+STREAM_ENGINE_RESNET_ITEMS = 2
+#: ``raced``: ``run_raced`` of config #4 at full width (DynSGD) on 4 worker
+#: threads, each with its own local loop, the first round held at a barrier
+#: (``overlap_first_round``), each worker cycling its shard of 2 windows of
+#: K=2 x B=256 rows over 6 rounds (every worker's second window starts
+#: once all first-round commits landed); then one worker for 3 rounds,
+#: replayed through ``fold_delta`` on the card. The local optimizer is adam at 3e-3
+#: (fresh each window, as the reference's raced workers start theirs):
+#: config #4's sgd at 0.01 moves the LSTM's loss by less than its noise in
+#: a dozen windows (0.6929 -> 0.6940 over 4 windows on the CPU at B=128,
+#: lr 0.05), so the falling-loss check needs an optimizer that learns in
+#: that many steps.
+RACED = dict(workers=4, rounds=6, shard=2, window=2, batch=256,
+             optimizer="adam", learning_rate=3e-3, one_worker_rounds=3)
+
+
+def stream_blobs(rng, centers, k: int, b: int):
+    """``k`` x ``b`` rows of the config #11 blobs: labels and features."""
+    y = rng.integers(0, len(centers), size=(k, b))
+    x = (centers[y] + rng.normal(scale=0.5, size=(k, b, centers.shape[1]))
+         ).astype(np.float32)
+    return x, y.astype(np.int32)
+
+
+def streaming_config11_phase(torch, K, F, gpu: str, seed: int,
+                             workdir: str) -> dict:
+    """``streaming_config11``: see :data:`STREAM`. Every kernel count is set
+    to 0 just before the scheduler starts and read after the job is done.
+    Returns the fold counts and the commits folded."""
+    from distkeras_tpu_torch import checkpoint as ckpt_mod
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.fleet import DONE, FleetJob, FleetScheduler
+    from distkeras_tpu_torch.models import MLP, Model
+    from distkeras_tpu_torch.netps.fold import backend_name
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+    from distkeras_tpu_torch.serving import ModelRegistry
+    from distkeras_tpu_torch.streaming import (DriftWatch, OffsetJournal,
+                                               SocketSource,
+                                               StreamingTraining,
+                                               StreamProducer, WindowedEval)
+    from distkeras_tpu_torch.telemetry.report import build_report
+
+    S = STREAM
+    C, D = S["classes"], S["features"]
+
+    def build():
+        return Model.build(MLP(hidden=(16,), num_outputs=C, in_features=D,
+                               seed=seed),
+                           np.zeros((1, D), np.float32), device="cuda")
+
+    rng = np.random.default_rng(seed + 7)
+    centers = rng.normal(scale=4.0, size=(C, D))
+    xh, yh = stream_blobs(rng, centers, 1, S["held_out"])
+    xh, yh_drift = xh[0], ((yh[0] + 1) % C).astype(np.int32)
+
+    def held_out_loss(cand) -> float:
+        logits = np.asarray(cand.infer((xh,)), np.float64)
+        logp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+        return float(-logp[np.arange(len(yh_drift)), yh_drift].mean())
+
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    journal_path = os.path.join(workdir, "offsets.json")
+    telemetry.reset()
+    with fault_plan(STREAM_FAULTS) as (plan, _net):
+        prod = StreamProducer()
+        watch = DriftWatch(window=WindowedEval(fast=S["fast"],
+                                               slow=S["slow"]))
+        rt = StreamingTraining(
+            model=build(), tx=get_optimizer("sgd", S["learning_rate"]),
+            loss_fn=get_loss("sparse_categorical_crossentropy"),
+            source=SocketSource(prod.endpoint, drift_classes=C),
+            num_workers=S["workers"], discipline="adag", seed=seed,
+            journal=journal_path, checkpoint_dir=ckpt_dir,
+            checkpoint_every=S["checkpoint_every"], drift_watch=watch,
+            max_pending=8, device="cuda")
+        severed = []
+
+        def produce():
+            prng = np.random.default_rng(seed + 11)
+            t0 = time.monotonic()
+            for i in range(S["total"]):
+                while (i - rt.progress() > S["ahead"]
+                       and time.monotonic() - t0 < STREAM_TIMEOUT_S):
+                    time.sleep(0.02)
+                prod.feed(*stream_blobs(prng, centers, S["k"], S["batch"]))
+                if i == S["sever_at"]:
+                    # the source kill: reconnect-and-resume is part of the
+                    # measured run
+                    prod.kill_connections()
+                    severed.append(rt.progress())
+            prod.end()
+
+        registry = ModelRegistry(
+            build(), (S["held_out"],), directory=ckpt_dir,
+            poll_s=S["poll_s"],
+            quality_gate=watch.regression_gate(
+                held_out_loss, regress_floor=S["regress_floor"]),
+            device="cuda")
+        registry.start()
+        sched = FleetScheduler(capacity=S["capacity"], tick_s=S["tick_s"])
+        job = sched.submit(FleetJob("stream", "bench", rt, priority=0,
+                                    min_gang=1, max_workers=S["workers"]))
+        producer = threading.Thread(target=produce, daemon=True)
+        torch.cuda.synchronize()
+        reset_all_launches()  # counts start at 0 just before the main path
+        producer.start()
+        t0 = time.perf_counter()
+        sched.start()
+        try:
+            ok = sched.wait(timeout=STREAM_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+        finally:
+            sched.close()
+            registry.close()
+            prod.close()
+        torch.cuda.synchronize()
+        fold = F.launch_counts()
+        others = {k: v for k, v in launched_kernels().items()
+                  if not k.startswith("fold.")}
+        not_fired = unfired(plan)
+    producer.join(timeout=10)
+    reg = telemetry.get()
+    events = reg.events()
+    kinds = {e["kind"] for e in events}
+    fired = {e.get("fault") for e in events if e["kind"] == "fault_injected"}
+    reconnects = int(reg.counter("stream.source_reconnects").value)
+    pairs = [(w, s) for w, s, _st in rt.server.commit_log]
+    journal = OffsetJournal(journal_path)
+    journal_ok = journal.load()
+    committed = journal.committed_offsets_upto(S["total"])
+    registry.poll_once()  # the final checkpoint
+    bm, version = registry.current()
+    meta = ckpt_mod.read_meta(ckpt_dir, version) or {}
+    acc = float((np.asarray(bm.infer((xh,))).argmax(-1) == yh_drift).mean())
+    jsonl = os.path.join(workdir, "run.jsonl")
+    telemetry.write_jsonl(reg, jsonl)
+    strm = build_report(jsonl).get("streaming") or {}
+    fresh = sorted(e["seconds"] for e in events
+                   if e["kind"] == "serve_freshness")
+    n = len(fresh)
+    failures = []
+    if not ok or job.state != DONE or rt.errors:
+        failures.append(f"the job ended {job.state} (drained {ok}), errors "
+                        f"{rt.errors[:2]}")
+    if not {"feed_gap", "drift"} <= fired or not_fired:
+        failures.append(f"drills fired {sorted(fired)}, unfired {not_fired}")
+    if reconnects < 1:
+        failures.append("the severed feed connection never reconnected")
+    if not {"stream_drift_detected", "stream_drift_recovered"} <= kinds:
+        failures.append(f"the drift page: events {sorted(kinds)}")
+    if not (watch.last_recovery_s or 0) > 0 or watch.paging:
+        failures.append(f"recovery {watch.last_recovery_s}, still paging "
+                        f"{watch.paging}")
+    if len(pairs) != S["total"] or len(set(pairs)) != len(pairs):
+        failures.append(f"{len(pairs)} folds ({len(set(pairs))} distinct) "
+                        f"for {S['total']} records")
+    if not journal_ok or committed != set(range(S["total"])):
+        failures.append(f"the journal holds {len(committed)} of "
+                        f"{S['total']} records")
+    if version < 0 or not meta.get("items", 0) > S["drift_at"] \
+            or meta.get("event_ts") is None:
+        failures.append(f"served step {version}, meta {meta}")
+    if not acc > STREAM_MIN_ACCURACY:
+        failures.append(f"served accuracy on the drifted world {acc}")
+    if not (strm.get("items_committed", 0) >= S["total"]
+            and strm.get("drift_events", 0) >= 1
+            and strm.get("source_reconnects", 0) >= 1
+            and strm.get("freshness_count", 0) >= 1
+            and "recovery_s" in strm and "candidate_loss" in strm):
+        failures.append(f"the report's Streaming section: {strm}")
+    fmax = strm.get("freshness_max_s")
+    if fmax is None or not fmax < STREAM_MAX_FRESHNESS_S:
+        failures.append(f"freshness_max_s {fmax}")
+    if fold != {"fold_commit": len(pairs), "fold_int8": 0, "fold_bf16": 0}:
+        failures.append(f"fold launches {fold} for {len(pairs)} commits")
+    if others:
+        failures.append(f"other kernels launched: {others}")
+    if backend_name(rt.server._center) != "cuda":
+        failures.append("the job's parameter server folds off the card")
+    emit({"phase": "streaming_config11", "gpu": gpu,
+          "config": "BASELINE config #11 (bench.py _measure_streaming): "
+                    "MLP(16) on 4 features, 3 classes; ADAG, sgd 0.1",
+          **S, "faults": STREAM_FAULTS, "seconds": wall,
+          "items_per_s": S["total"] / wall,
+          "drift_recovery_s": watch.last_recovery_s,
+          "drift_events": watch.drift_events,
+          "freshness_p50_s": fresh[n // 2] if n else None,
+          "freshness_p99_s": fresh[min(n - 1, int(n * 0.99))] if n else None,
+          "swaps": n, "served_step": version,
+          "served_acc_drifted": acc, "source_reconnects": reconnects,
+          "severed_at_progress": severed,
+          "staleness": [st for _w, _s, st in rt.server.commit_log],
+          "fold_backend": backend_name(rt.server._center),
+          "launches": fold, "commits": len(pairs),
+          "fold_launches_per_commit": fold["fold_commit"] / max(len(pairs),
+                                                                1),
+          "report_streaming": strm})
+    if failures:
+        fail("streaming_config11: " + "; ".join(failures))
+    return {"fold_commit": fold["fold_commit"], "commits": len(pairs)}
+
+
+def stream_child(argv) -> int:
+    """The ``streaming_kill`` child: one life of a one-worker
+    ``StreamingTraining`` of config #4 against the CLI server at
+    ``argv[1]``, reading ``argv[0]/stream.bin``, journaling to
+    ``argv[0]/offsets.json`` and checkpointing under ``argv[0]/ckpt``,
+    resumed from both. ``DKTPU_FAULTS`` in its environment may SIGKILL it.
+    At its end it writes what it delivered and launched to
+    ``argv[0]/child.json``."""
+    work, endpoint, seed = argv[0], argv[1], int(argv[2])
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.ops.kernels import lstm
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+    from distkeras_tpu_torch.streaming import (FileTailSource,
+                                               StreamingTraining)
+
+    S = STREAM_KILL
+    src = FileTailSource(os.path.join(work, "stream.bin"), poll_s=0.02)
+    delivered = []
+
+    class Recorder:
+        drift_from = None
+
+        def read(self, start_index, skip):
+            for rec in src.read(start_index, skip):
+                delivered.append(rec.index)
+                yield rec
+
+        def close(self):
+            src.close()
+
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    rt = StreamingTraining(
+        model=model, tx=get_optimizer("sgd", S["learning_rate"]),
+        loss_fn=get_loss("sparse_categorical_crossentropy"),
+        source=Recorder(), num_workers=1, discipline="dynsgd", seed=seed,
+        endpoint=endpoint, journal=os.path.join(work, "offsets.json"),
+        checkpoint_dir=os.path.join(work, "ckpt"),
+        checkpoint_every=S["checkpoint_every"], resume=True, device="cuda")
+    rt.ensure_started()
+    lstm.reset_launches()
+    rt.worker_main(0, lambda: True)
+    rt.close()
+    with open(os.path.join(work, "child.json"), "w") as f:
+        json.dump({"delivered": delivered, "lstm": lstm.launch_counts(),
+                   "committed": rt.journal.items_committed,
+                   "errors": [repr(e) for e in rt.errors]}, f)
+    return 1 if rt.errors else 0
+
+
+#: how ``streaming_kill`` starts a child: this file's :func:`stream_child`
+#: through ``python -c`` from the repository root.
+STREAM_CHILD = ("import sys, chip_smoke\n"
+                "sys.exit(chip_smoke.stream_child(sys.argv[1:]))\n")
+
+
+def stream_kill_server(workdir: str) -> dict:
+    """Start ``streaming_kill``'s durable CLI server (dynsgd, on the card,
+    its state and fold journal in ``workdir/ps-state``, no compaction, its
+    fold launches written at its exit) without waiting for it: its start
+    overlaps ``streaming_config11``."""
+    state = os.path.join(workdir, "ps-state")
+    os.makedirs(state, exist_ok=True)
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    launches = os.path.join(workdir, "fold_launches.json")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DKTPU_FAULTS", "DKTPU_FAULTS_STATE",
+                        "DKTPU_NET_FAULTS")}
+    cmd = [sys.executable, "-c", OBS_CLI, launches, "--host", "127.0.0.1",
+           "--port", str(port), "--discipline", "dynsgd", "--device", "cuda",
+           "--state-dir", state, "--snapshot-every", "100000"]
+    return {"dir": workdir, "state": state, "launches": launches,
+            "endpoint": f"127.0.0.1:{port}", "t0": time.monotonic(),
+            "proc": subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                                     env=env)}
+
+
+def streaming_kill_phase(torch, gpu: str, seed: int, srv: dict) -> dict:
+    """``streaming_kill``: see :data:`STREAM_KILL`. The resumed child's
+    LSTM counts start at 0 after its start-up; the server's fold counts
+    cover both lives. Returns ``{kernel: launches}``."""
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.netps import state as netps_state
+    from distkeras_tpu_torch.streaming import (OffsetJournal,
+                                               StreamFileWriter,
+                                               replayed_offsets)
+
+    S = STREAM_KILL
+    work = srv["dir"]
+    n, k, b = S["total"], S["k"], S["batch"]
+    frame = imdb(n=n * k * b, vocab_size=VOCAB, seq_len=SEQ_LEN,
+                 seed=seed + 31)
+    xs = frame["features"].reshape(n, k, b, SEQ_LEN)
+    ys = frame["label"].reshape(n, k, b)
+    w = StreamFileWriter(os.path.join(work, "stream.bin"))
+    for i in range(n):
+        w.append(xs[i], ys[i], ts=float(i))
+    w.end()
+    line = srv["proc"].stdout.readline()
+    if not line.startswith("NETPS_READY"):
+        fail(f"streaming_kill: the CLI server did not start: {line!r}")
+    ready_s = time.monotonic() - srv["t0"]
+    env = dict(os.environ, DKTPU_FAULTS=f"kill@{S['kill_at']}",
+               DKTPU_FAULTS_STATE=os.path.join(work, "faults.state"))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.getcwd()] + [p for p in [env.get("PYTHONPATH")] if p])
+    cmd = [sys.executable, "-c", STREAM_CHILD, work, srv["endpoint"],
+           str(seed)]
+    failures, lives = [], []
+    try:
+        for life in (1, 2):
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                               timeout=300)
+            lives.append({"returncode": r.returncode,
+                          "seconds": time.perf_counter() - t0,
+                          "stderr_tail": r.stderr[-600:]})
+            if life == 1:
+                if r.returncode != -signal.SIGKILL:
+                    fail(f"streaming_kill: the first child ended "
+                         f"{r.returncode}, not by its scheduled SIGKILL: "
+                         f"{r.stderr[-1200:]}")
+                j = OffsetJournal(os.path.join(work, "offsets.json"))
+                before = (j.committed_offsets_upto(n) if j.load()
+                          else set())
+            elif r.returncode != 0:
+                fail(f"streaming_kill: the resumed child failed "
+                     f"({r.returncode}): {r.stderr[-1200:]}")
+        srv["proc"].send_signal(signal.SIGTERM)
+        srv_rc = srv["proc"].wait(timeout=120)
+    finally:
+        if srv["proc"].poll() is None:
+            srv["proc"].kill()
+            srv["proc"].wait()
+    with open(os.path.join(work, "child.json")) as f:
+        child = json.load(f)
+    with open(srv["launches"]) as f:
+        fold = json.load(f)
+    j = OffsetJournal(os.path.join(work, "offsets.json"))
+    after = j.committed_offsets_upto(n) if j.load() else set()
+    replay = replayed_offsets(before, child["delivered"])
+    records = netps_state.read_journal(srv["state"])
+    pairs = [(int(r["wid"]), int(r["seq"])) for r in records]
+    steps = (n - S["kill_at"]) * k
+    lstm = child["lstm"]
+    if before != set(range(S["kill_at"])):
+        failures.append(f"the journal at the kill holds {sorted(before)}")
+    if replay:
+        failures.append(f"the resume replayed {sorted(replay)}")
+    if child["committed"] != n or after != set(range(n)):
+        failures.append(f"the stream ended with {child['committed']} "
+                        f"committed, the journal holding {len(after)}")
+    if len(pairs) != n or len(set(pairs)) != n:
+        failures.append(f"the PS journal holds {len(pairs)} folds "
+                        f"({len(set(pairs))} distinct) for {n} records")
+    if fold.get("fold_commit") != n or srv_rc != 0:
+        failures.append(f"server fold launches {fold} (exit {srv_rc}) for "
+                        f"{n} records")
+    if not (lstm["lstm_fwd_stash"] == lstm["lstm_bwd"] == steps
+            and lstm["lstm_fwd"] == 0):
+        failures.append(f"the resumed child's LSTM launches {lstm} in "
+                        f"{steps} local steps")
+    emit({"phase": "streaming_kill", "gpu": gpu,
+          "config": "config #4 at full width (imdb_lstm: vocab 20000, "
+                    "embed 64, hidden 128, seq 200), DynSGD, one worker",
+          **S, "server_ready_s": ready_s, "lives": lives,
+          "journal_at_kill": sorted(before),
+          "delivered_after_resume": child["delivered"],
+          "replayed": sorted(replay), "ps_journal_folds": len(pairs),
+          "server_exit": srv_rc, "server_fold_launches": fold,
+          "resumed_child_launches": lstm})
+    if failures:
+        fail("streaming_kill: " + "; ".join(failures))
+    return {**lstm, "fold_commit": fold["fold_commit"]}
+
+
+def endless(x, y, shape: tuple, seed: int):
+    """An endless source of round batches ``(x[idx], y[idx])``, ``idx`` a
+    fresh draw of ``shape`` rows of the pool ``x``, ``y`` for each item;
+    the pool is made before the run, so the source costs one gather an
+    item (the staging a stream's feeder hides)."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    while True:
+        idx = rng.permutation(len(y))[:n].reshape(shape)
+        yield x[idx], y[idx]
+
+
+def stream_engine_phase(torch, K, G, gpu: str, seed: int) -> dict:
+    """``stream_engine``: see :data:`STREAM_ENGINE`. Each run's counts are
+    set to 0 just before it and read just after. Returns ``{"lstm": ...,
+    "groupnorm": ...}``."""
+    from distkeras_tpu_torch import imdb_lstm, resnet50
+    from distkeras_tpu_torch.parallel import AsyncEngine, DynSGDFold
+    from distkeras_tpu_torch.parallel.sync import SyncEngine
+
+    from distkeras_tpu_torch.datasets import imdb
+
+    E = STREAM_ENGINE
+    W, Kw, B = E["workers"], E["window"], E["batch"]
+    frame = imdb(n=2 * W * Kw * B, vocab_size=VOCAB, seq_len=SEQ_LEN,
+                 seed=seed + 41)
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    eng = AsyncEngine(model, "sgd", "sparse_categorical_crossentropy",
+                      DynSGDFold(), window=Kw, num_workers=W,
+                      learning_rate=E["learning_rate"], seed=seed)
+    seen = []
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    state, losses = eng.run_stream(
+        endless(frame["features"], frame["label"], (W, Kw, B), seed),
+        on_item=lambda i, loss, st: seen.append(i), max_items=E["items"])
+    torch.cuda.synchronize()
+    async_s = time.perf_counter() - t0
+    lstm = K.launch_counts()
+    async_others = {k: v for k, v in launched_kernels().items()
+                    if not k.startswith("lstm.")}
+    moved = max((state.center[k] - v).abs().max().item()
+                for k, v in model.params.items())
+    steps = E["items"] * W * Kw
+    del model, eng, state
+    torch.cuda.empty_cache()
+
+    RB, RK = RESNET["batch_size"], RESNET["steps_per_program"]
+    rmodel = resnet50(norm_impl="pallas", seed=seed, device="cuda")
+    reng = SyncEngine(rmodel, "sgd", "sparse_categorical_crossentropy",
+                      num_workers=1, learning_rate=RESNET["learning_rate"],
+                      compute_dtype=torch.bfloat16, seed=seed)
+
+    pool = resnet_data(RK * RB, seed + 43)
+    rseen = []
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    _rstate, rlosses = reng.run_stream(
+        endless(pool["features"], pool["label"], (1, RK, RB), seed),
+        on_item=lambda i, loss, st: rseen.append(i),
+        max_items=STREAM_ENGINE_RESNET_ITEMS)
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    gn = G.launch_counts()
+    entries = G.launch_counts(by_entry=True)
+    sync_others = {k: v for k, v in launched_kernels().items()
+                   if not k.startswith("groupnorm.")}
+    rsteps = STREAM_ENGINE_RESNET_ITEMS * RK
+    del rmodel, reng, _rstate
+    torch.cuda.empty_cache()
+    failures = []
+    if losses.shape != (E["items"], W) or not np.all(np.isfinite(losses)):
+        failures.append(f"async losses {losses.tolist()}")
+    if seen != list(range(E["items"])) or not moved > 0:
+        failures.append(f"async items seen {seen}, center moved {moved}")
+    if not (lstm["lstm_fwd_stash"] == lstm["lstm_bwd"] == steps
+            and lstm["lstm_fwd"] == 0) or async_others:
+        failures.append(f"async launches {lstm} {async_others} in {steps} "
+                        f"local steps")
+    if rlosses.shape != (STREAM_ENGINE_RESNET_ITEMS,) \
+            or not np.all(np.isfinite(rlosses)) \
+            or rseen != list(range(STREAM_ENGINE_RESNET_ITEMS)):
+        failures.append(f"sync losses {rlosses.tolist()}, seen {rseen}")
+    want = GN_PER_STEP * rsteps
+    if gn != {"group_norm_fwd": want, "group_norm_bwd": want} or sync_others:
+        failures.append(f"sync GroupNorm launches {gn} {sync_others} in "
+                        f"{rsteps} steps; want {GN_PER_STEP} of each a step")
+    other = {k: v for k, v in entries.items() if v and not k.endswith("_bf16")}
+    if other:
+        failures.append(f"the bf16 run launched {other}")
+    emit({"phase": "stream_engine", "gpu": gpu,
+          "async": {"config": "config #4 at full width, DynSGD",
+                    **E, "seconds": async_s,
+                    "samples_per_s": steps * B / async_s,
+                    "losses": losses.tolist(), "launches": lstm,
+                    "local_steps": steps, "center_max_abs_change": moved},
+          "sync": {"config": "config #5: resnet50(norm_impl='pallas'), "
+                             "bf16", **RESNET,
+                   "items": STREAM_ENGINE_RESNET_ITEMS, "seconds": sync_s,
+                   "samples_per_s": rsteps * RB / sync_s,
+                   "losses": rlosses.tolist(), "launches": gn,
+                   "launches_by_entry": entries, "local_steps": rsteps,
+                   "gn_per_step": GN_PER_STEP}})
+    if failures:
+        fail("stream_engine: " + "; ".join(failures))
+    return {"lstm": lstm, "groupnorm": gn}
+
+
+def raced_phase(torch, K, F, gpu: str, seed: int) -> dict:
+    """``raced``: see :data:`RACED`. The counts are set to 0 just before
+    each run and read just after. Returns ``{"race": ..., "one_worker":
+    ...}`` launch counts."""
+    import copy
+
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.netps.fold import (fold_delta, host_mirror,
+                                                seat_center)
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import get_optimizer
+    from distkeras_tpu_torch.racelab import run_raced
+    from distkeras_tpu_torch.workers import derive_seed, make_local_loop
+
+    R = RACED
+    W, Kw, B = R["workers"], R["window"], R["batch"]
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    names = list(model.params)
+    init = [v.detach().cpu().numpy().copy() for v in model.params.values()]
+    tx = get_optimizer(R["optimizer"], R["learning_rate"])
+    loss_fn = get_loss("sparse_categorical_crossentropy")
+    frame = imdb(n=W * R["shard"] * Kw * B, vocab_size=VOCAB,
+                 seq_len=SEQ_LEN, seed=seed + 53)
+    fx = frame["features"].reshape(W, R["shard"], Kw, B, SEQ_LEN)
+    fy = frame["label"].reshape(W, R["shard"], Kw, B)
+
+    def batches(workers: int, rounds: int) -> list:
+        return [[(fx[w, r % R["shard"]], fy[w, r % R["shard"]])
+                 for r in range(rounds)] for w in range(workers)]
+
+    def window_fn(workers: int, record: list):
+        """``local_steps`` on the port's local loops, one per worker
+        thread (handed out on a thread's first call), recording each
+        window's mean loss per thread and each (pulled, new) pair. A
+        thread's second window waits until every thread has made its
+        first commit (entered its second window), so the first W commits
+        are the W first-round ones, each pulled at counter 0: staleness
+        0..W-1 in commit order. The later rounds race freely."""
+        pool = [make_local_loop(copy.deepcopy(model.module), loss_fn, tx)
+                for _ in range(workers)]
+        mine, lock, losses = {}, threading.Lock(), {}
+        second = threading.Barrier(workers)
+
+        def steps(flat, batch):
+            me = threading.get_ident()
+            with lock:
+                if me not in mine:
+                    mine[me] = pool.pop()
+                    losses[me] = []
+            if len(losses[me]) == 1:
+                second.wait(timeout=300)
+            params = {k: torch.as_tensor(a, device="cuda")
+                      for k, a in zip(names, flat)}
+            xs, ys = (torch.as_tensor(a, device="cuda") for a in batch)
+            new, _opt, _st, step_losses = mine[me](
+                params, tx.init(params), xs, ys,
+                rng=derive_seed(seed, len(losses[me])), state=None)
+            losses[me].append(float(step_losses.mean()))
+            out = [new[k] for k in names]
+            if record is not None:
+                record.append(([a.copy() for a in flat],
+                               [o.detach().cpu().numpy() for o in out]))
+            return out
+
+        return steps, losses
+
+    steps, losses = window_fn(W, None)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    center, ps = run_raced(center=init, local_steps=steps,
+                           worker_batches=batches(W, R["rounds"]),
+                           window=Kw, discipline="dynsgd",
+                           overlap_first_round=True, device="cuda")
+    torch.cuda.synchronize()
+    race_s = time.perf_counter() - t0
+    race = {**K.launch_counts(), **F.launch_counts()}
+    race_others = {k: v for k, v in launched_kernels().items()
+                   if not k.startswith(("lstm.", "fold."))}
+    first = float(np.mean([v[0] for v in losses.values()]))
+    last = float(np.mean([v[-1] for v in losses.values()]))
+    commits = len(ps.commit_log)
+
+    record1: list = []
+    steps1, _losses1 = window_fn(1, record1)
+    rounds1 = R["one_worker_rounds"]
+    torch.cuda.synchronize()
+    reset_all_launches()
+    center1, ps1 = run_raced(center=init, local_steps=steps1,
+                             worker_batches=batches(1, rounds1), window=Kw,
+                             discipline="dynsgd", device="cuda")
+    torch.cuda.synchronize()
+    one = {**K.launch_counts(), **F.launch_counts()}
+    # the plain loop: the same window deltas through fold_delta on a
+    # center seated on the card, one commit after another
+    flat, offsets, views = seat_center(init, "cuda")
+    for pulled, new in record1:
+        fold_delta(views, [n - p for n, p in zip(new, pulled)], "dynsgd", 0)
+    plain = host_mirror(flat, offsets, views)
+    bit_equal = all(np.array_equal(a, b) for a, b in zip(center1, plain))
+    failures = []
+    if ps.commit_log[:W] != list(range(W)) or commits != W * R["rounds"]:
+        failures.append(f"commit log {ps.commit_log}")
+    steps_run = commits * Kw
+    if not (race["lstm_fwd_stash"] == race["lstm_bwd"] == steps_run
+            and race["lstm_fwd"] == 0 and race["fold_commit"] == commits
+            and race["fold_int8"] == race["fold_bf16"] == 0) or race_others:
+        failures.append(f"race launches {race} {race_others} for {commits} "
+                        f"commits of {Kw} steps")
+    if not all(np.all(np.isfinite(a)) for a in center):
+        failures.append("the raced center is not finite")
+    if not last < first:
+        failures.append(f"the last windows' mean loss {last} is not below "
+                        f"the first's {first}")
+    if not bit_equal or ps1.commit_log != [0] * rounds1 \
+            or one["fold_commit"] != rounds1:
+        failures.append(f"one worker: bit-equal {bit_equal}, log "
+                        f"{ps1.commit_log}, launches {one}")
+    emit({"phase": "raced", "gpu": gpu,
+          "config": "config #4 at full width, DynSGD, center on the card",
+          **R, "seconds": race_s, "commit_log": ps.commit_log,
+          "first_window_loss": first, "last_window_loss": last,
+          "window_losses": [v for v in losses.values()],
+          "launches": race, "commits": commits,
+          "one_worker_launches": one,
+          "one_worker_bit_equal_to_plain_fold_loop": bit_equal})
+    if failures:
+        fail("raced: " + "; ".join(failures))
+    return {"race": race, "one_worker": one}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9300,6 +10002,27 @@ def main() -> None:
     torch.cuda.empty_cache()
     lap("sim")
     sim_phase(gpu)
+    lap("streaming_config11")
+    workdir = os.path.join("build", "streaming")
+    shutil.rmtree(workdir, ignore_errors=True)
+    # the durable CLI server of streaming_kill starts while config #11 runs
+    kill_srv = stream_kill_server(os.path.join(workdir, "kill"))
+    try:
+        config11 = streaming_config11_phase(torch, K, F, gpu, args.seed,
+                                            os.path.join(workdir, "c11"))
+        torch.cuda.empty_cache()
+        lap("streaming_kill")
+        kill = streaming_kill_phase(torch, gpu, args.seed, kill_srv)
+    finally:
+        if kill_srv["proc"].poll() is None:
+            kill_srv["proc"].kill()
+            kill_srv["proc"].wait()
+    shutil.rmtree(workdir, ignore_errors=True)
+    lap("stream_engine")
+    engine = stream_engine_phase(torch, K, G, gpu, args.seed)
+    lap("raced")
+    raced = raced_phase(torch, K, F, gpu, args.seed)
+    torch.cuda.empty_cache()
 
     def entry(name, source, replaces, rows, launches, bf16_launches):
         """The largest batch's f32 row, the largest error over every f32
@@ -9585,6 +10308,24 @@ def main() -> None:
                                "fleet_card": fleet[k["name"]]}
     kernels[5]["fleet_launches"] = {"elastic_parity": elastic["fold_commit"],
                                     "fleet_card": fleet["fold_commit"]}
+    # The streaming plane's paths, each counted from 0 just before its run
+    # and read just after: config #11's job (its parameter server's folds,
+    # one a commit), the resumed config #4 child of streaming_kill (its
+    # windows; its CLI server's folds over both lives, counted in that
+    # process), the engines' run_stream and the raced server.
+    for k in kernels[1:3]:
+        k["streaming_launches"] = {"streaming_kill_resumed_child":
+                                   kill[k["name"]]}
+        k["stream_engine_launches"] = engine["lstm"][k["name"]]
+        k["raced_launches"] = {arm: c[k["name"]] for arm, c in raced.items()}
+    for k in kernels[3:5]:
+        k["stream_engine_launches"] = engine["groupnorm"][k["name"]]
+    kernels[5]["streaming_launches"] = {
+        "config11": config11["fold_commit"],
+        "config11_commits": config11["commits"],
+        "streaming_kill_server": kill["fold_commit"]}
+    kernels[5]["raced_launches"] = {arm: c["fold_commit"]
+                                    for arm, c in raced.items()}
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

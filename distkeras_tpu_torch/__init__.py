@@ -72,7 +72,16 @@ Ported so far:
   parameter server on the card, a ``serving.ServingService`` tenant runs
   replicas the scheduler never drains below their floor, and
   ``python -m distkeras_tpu_torch.sim`` drives the same scheduler and
-  health plane on a virtual clock at a thousand workers.
+  health plane on a virtual clock at a thousand workers;
+* the streaming continual-training loop (``streaming/``): stream sources
+  with the ``feed_gap``/``drift`` drills, the durable ``OffsetJournal``,
+  ``DriftWatch`` and the registry's regression gate, and
+  ``StreamingTraining`` (a fleet tenant whose parameter server folds on
+  the card) with its Supervisor wrapper ``StreamingSession``; the engines'
+  ``run_stream``; the raced parameter server (``racelab.py``, its center
+  on the card) and the reference's utilities (``utils.py``,
+  ``models.base.uniform_weights``). The JAX package's top level exports
+  none of these, so neither does this one.
 """
 
 from distkeras_tpu_torch.data import (

@@ -398,3 +398,28 @@ class Model:
         collection name where it packs its state, ``()`` otherwise."""
         state = self.state
         return tuple(state) if state else ()
+
+
+def uniform_weights(model: Model, bounds: tuple[float, float] = (-0.5, 0.5),
+                    seed: int = 0) -> Model:
+    """Re-init every floating parameter uniformly in ``[lo, hi)``.
+
+    Parity: ``distkeras/utils.py -> uniform_weights(model, constraints)``
+    and the JAX package's ``models/base.py uniform_weights``. Non-floating
+    parameters and the module's buffers (mutable state) are left as they
+    are. The draws come from one ``torch.Generator`` on the model's device
+    seeded with ``seed``, parameter after parameter in the module's order:
+    one seed gives the same weights on one device, but the values are not
+    ``jax.random``'s (nor, between a CPU and a CUDA generator, each
+    other's)."""
+    lo, hi = bounds
+    gen = torch.Generator(device=model.device).manual_seed(int(seed))
+    new = {}
+    for k, v in model.params.items():
+        if v.is_floating_point():
+            new[k] = torch.empty(v.shape, dtype=v.dtype,
+                                 device=v.device).uniform_(lo, hi,
+                                                           generator=gen)
+        else:
+            new[k] = v
+    return model.with_params(new)

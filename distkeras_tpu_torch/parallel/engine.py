@@ -33,8 +33,10 @@ the other, as the JAX package's ``_multiplexed`` round runs the workers a
 chip carries; the all-reduce over chips (multi-card NCCL) is a later slice.
 
 :class:`RoundEngine` is what this engine shares with
-``parallel/sync.py SyncEngine``: the host copy of a round's batches and the
-run loop (:func:`run_per_round`).
+``parallel/sync.py SyncEngine``: the host copy of a round's batches, the
+run loop (:func:`run_per_round`) and the open-ended one
+(:meth:`RoundEngine.run_stream`, :func:`run_stream`: the JAX package's
+``AsyncEngine.run_stream`` and ``SyncEngine.run_stream``).
 """
 
 from __future__ import annotations
@@ -119,6 +121,14 @@ class RoundEngine:
                                           on_round)
         note_losses(losses)
         return state, losses
+
+    def run_stream(self, items, state=None, on_item=None, start_index=0,
+                   max_items=None):
+        """Train on an open-ended batch source (``(xs, ys)`` host batches
+        shaped ``[W, K, B, ...]`` like one BatchPlan round) — no epoch
+        schedule, no round count; see :func:`run_stream`."""
+        return run_stream(self, items, state=state, on_item=on_item,
+                          start_index=start_index, max_items=max_items)
 
 
 class AsyncEngine(RoundEngine):
@@ -369,12 +379,94 @@ def run_per_round(engine, plan, state, start_round, on_round):
         raise
     finally:
         feeder.close()
-        # input_stall: the time the run loop sat blocked on the data plane,
-        # the compute-vs-data split.
-        stall = tele.histogram("input_stall")
-        for w in feeder.waits:
-            stall.observe(w)
-        tele.counter("input_stall_seconds").add(float(feeder.wait_seconds))
+        _record_feed_waits(engine, feeder)
     host = (torch.stack(losses).cpu().numpy() if losses
             else np.zeros((0, *engine.round_loss_shape), np.float32))
     return state, host
+
+
+def _record_feed_waits(engine, feeder) -> None:
+    """input_stall: the time the run loop sat blocked on the data plane,
+    the compute-vs-data split. ``engine.feed_wait_seconds`` is the
+    feeder's running sum, which keeps counting the waits an open-ended
+    stream evicts from the bounded ``feeder.waits``."""
+    engine.feed_wait_seconds = float(feeder.wait_seconds)
+    tele = telemetry.get()
+    stall = tele.histogram("input_stall")
+    for w in feeder.waits:
+        stall.observe(w)
+    tele.counter("input_stall_seconds").add(engine.feed_wait_seconds)
+
+
+def run_stream(engine, items, state=None, on_item=None, start_index=0,
+               max_items=None, fetch_every=64):
+    """Run an **open-ended** item source through an engine's round function.
+
+    Where :func:`run_per_round` walks a BatchPlan's fixed epoch schedule,
+    this loop has no epoch bookkeeping at all: ``items`` is any iterable of
+    host batches ``(xs, ys)`` — including an unbounded live stream — staged
+    through the same :class:`RoundFeeder` lookahead (so stream stalls hit
+    the stall watchdog and surface as ``FeederStalledError``, exactly like
+    a dried-up BatchPlan gather), and each item runs between the run's
+    :class:`RoundGuard` ``pre_round`` (``crash@i``/``kill@i``) and
+    ``post_round`` (the divergent-worker reset). Both engines run through
+    here unchanged: each only needs its ``_round_fn(state, xs, ys)``.
+
+    ``on_item(i, loss, state)`` sees the round's loss as the round returns
+    it (on the device unless the engine's NaN guard read it to the host).
+    ``max_items`` bounds consumption of an endless source (tests, bounded
+    sessions); losses are fetched to the host in chunks of
+    ``fetch_every``, so an unbounded run holds O(fetch_every) device
+    scalars, not O(items), and :func:`note_losses` counts the non-finite
+    items on the way out, also when the run raises. Returns ``(state,
+    host_losses)`` for the items actually consumed, ``[items,
+    *engine.round_loss_shape]`` (the JAX package's flattens the async
+    engine's ``[W]`` per-item losses into one axis; here an item stays a
+    row, so :func:`note_losses` counts items, not workers)."""
+    import itertools
+
+    tele = telemetry.get()
+    guard = RoundGuard(engine)
+    if state is None:
+        state = engine.init_state()
+    if max_items is not None:
+        items = itertools.islice(items, max_items)
+    host: list = []
+    pending: list = []
+
+    def drain() -> None:
+        if pending:
+            host.extend(torch.stack(pending).cpu().numpy())
+            pending.clear()
+
+    feeder = RoundFeeder(items, lambda batch: engine._put_batch(*batch),
+                         start_round=start_index)
+    with tele.span("engine_run"):
+        try:
+            for i, (xs, ys) in feeder:
+                guard.pre_round(i)  # crash/kill fault injection
+                with tele.span("dispatch[stream]"):
+                    new_state, loss = engine._round_fn(state, xs, ys)
+                pending.append(loss)
+                if on_item is not None:
+                    on_item(i, loss, new_state)
+                state = guard.post_round(i, loss, new_state)
+                if len(pending) >= fetch_every:
+                    # The incremental fetch bounds the live device losses
+                    # an endless run holds.
+                    with tele.span("retire[stream]"):
+                        drain()
+        except BaseException:
+            with contextlib.suppress(Exception):
+                drain()
+                note_losses(np.asarray(host))
+            raise
+        finally:
+            feeder.close()
+            _record_feed_waits(engine, feeder)
+    with tele.span("retire[stream]"):
+        drain()
+    losses = (np.asarray(host, np.float32) if host
+              else np.zeros((0, *engine.round_loss_shape), np.float32))
+    note_losses(losses)
+    return state, losses

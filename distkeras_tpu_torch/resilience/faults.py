@@ -29,12 +29,10 @@ Syntax (``;``-separated entries)::
                    after it is written (exercises the hash-sidecar
                    fallback restore)
 ``feed_gap@R:S``   the stream source goes silent for S seconds before
-                   delivering item R (the JAX package's
-                   ``streaming/source.py``; the port has no stream source
-                   yet, so nothing consumes it here)
-``drift@R``        distribution shift injected at stream item R (the JAX
-                   package's ``streaming/source.py``; not consumed in the
-                   port yet)
+                   delivering item R (``streaming/source.py``)
+``drift@R``        distribution shift injected at stream item R: every
+                   label from R on rotated one class forward
+                   (``streaming/source.py``)
 ``seed=N``         seeds deterministic choices (which worker's batch rows
                    get poisoned)
 =================  ==========================================================
@@ -128,9 +126,10 @@ _KINDS = frozenset({
 #: The port parses every kind as the JAX package does. ``preempt@R[:N]``
 #: is read by the fleet scheduler (``FleetScheduler._consult_chaos``: N
 #: workers forcibly preempted once the fleet's cumulative commits cross R).
-#: The compute kinds ``feed_gap`` and ``drift`` have no consumer in the
-#: port yet: the stream source that reads them comes with the port's
-#: ``streaming/`` (ROADMAP Queue 1).
+#: The compute kinds ``feed_gap`` and ``drift`` are consumed by the stream
+#: sources (``streaming/source.py _SourceBase._apply_faults``): the gap
+#: holds record R back before delivery, the drift rotates every label
+#: from record R on, for good.
 _NET_KINDS = frozenset({
     "delay", "drop", "dup", "truncate", "partition", "evict",
     "delay_r", "drop_r", "dup_r", "truncate_r",

@@ -407,6 +407,45 @@ ENV_REGISTRY: dict = _declare(
            "and scale falls back to numpy (bit-identical, slower) and is "
            "counted as a fallback.",
            "data"),
+    EnvVar("DKTPU_STREAM_POLL_S", "float", 0.05,
+           "Seconds a FileTailSource sleeps between polls of its feed file "
+           "when no complete frame is available yet (the tail-follow "
+           "cadence).",
+           "streaming"),
+    EnvVar("DKTPU_STREAM_RECONNECT_S", "float", 10.0,
+           "Cap (seconds) on a SocketSource's exponential reconnect "
+           "backoff after the feed connection drops; each reconnect "
+           "resumes delivery at the next undelivered record index.",
+           "streaming"),
+    EnvVar("DKTPU_STREAM_EVAL_FAST", "int", 64,
+           "Fast (recent) window size, in committed items, of the "
+           "streaming windowed eval — the numerator of the drift ratio.",
+           "streaming"),
+    EnvVar("DKTPU_STREAM_EVAL_SLOW", "int", 512,
+           "Slow (baseline) window size, in committed items, of the "
+           "streaming windowed eval — the denominator of the drift ratio.",
+           "streaming"),
+    EnvVar("DKTPU_STREAM_DRIFT_FACTOR", "float", 2.0,
+           "Fast-window/slow-window loss ratio past which the streaming "
+           "DriftWatch declares drift: the `stream:loss_divergence` page "
+           "fires and checkpoint-on-drift triggers.",
+           "streaming"),
+    EnvVar("DKTPU_STREAM_REGRESS_FLOOR", "float", 0.25,
+           "Fractional regression tolerance of the hot-swap quality gate: "
+           "a candidate whose held-out loss exceeds the best accepted "
+           "loss by more than this fraction is refused "
+           "(rollback-on-regression).",
+           "streaming"),
+    EnvVar("DKTPU_STREAM_CKPT_EVERY", "int", 16,
+           "Committed items between streaming center checkpoints (the "
+           "hot-swap cadence); drift detection forces an immediate "
+           "checkpoint regardless. 0 disables interval checkpoints.",
+           "streaming"),
+    EnvVar("DKTPU_STREAM_MAX_PENDING", "int", 8,
+           "Backpressure bound on stream records admitted but not yet "
+           "claimed by a worker; the reader blocks at this depth so a "
+           "fast feed cannot balloon host memory.",
+           "streaming"),
     EnvVar("DKTPU_SIM_SEED", "int", 0,
            "Default RNG seed for the fleet simulator (`distkeras_tpu.sim`): "
            "every `SimEngine()` built without an explicit seed draws from "

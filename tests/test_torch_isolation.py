@@ -111,10 +111,17 @@ def test_data_plane_modules_load_no_jax_nor_its_native_library(module):
     "distkeras_tpu_torch.sim.__main__",
     "distkeras_tpu_torch.streaming",
     "distkeras_tpu_torch.streaming.items",
+    "distkeras_tpu_torch.streaming.source",
+    "distkeras_tpu_torch.streaming.journal",
+    "distkeras_tpu_torch.streaming.evaluate",
+    "distkeras_tpu_torch.streaming.runtime",
+    "distkeras_tpu_torch.racelab",
+    "distkeras_tpu_torch.utils",
     "distkeras_tpu_torch.serving.replica"])
 def test_fleet_and_sim_modules_load_no_jax(module):
-    """The fleet control plane, its simulator, the claim queue and the
-    replica sets, each module on its own."""
+    """The fleet control plane, its simulator, the streaming loop, the
+    raced server, the utilities and the replica sets, each module on its
+    own."""
     code = (f"import sys, {module}\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
@@ -193,6 +200,35 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                         loss_fn=get_loss("sparse_categorical_crossentropy"),
                         plan=plan)
     assert model.device.type == "cpu"  # nothing was moved
+    from distkeras_tpu_torch.models import MLP
+    from distkeras_tpu_torch.racelab import RacedParameterServer, run_raced
+    from distkeras_tpu_torch.streaming import (
+        StreamingTraining,
+        StreamProducer,
+        SocketSource,
+    )
+
+    prod = StreamProducer()
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            StreamingTraining(
+                model=model, tx=get_optimizer("sgd", 0.1),
+                loss_fn=get_loss("sparse_categorical_crossentropy"),
+                source=SocketSource(prod.endpoint))
+    finally:
+        prod.close()
+    assert model.device.type == "cpu"  # nothing was moved
+    center = [np.zeros((2, 2), np.float32)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RacedParameterServer(center, "adag")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_raced(center=center, local_steps=lambda p, b: p,
+                  worker_batches=[[None]], window=1)
+    # AsyncEngine.run_stream / SyncEngine.run_stream run on the model's
+    # device: the model a user builds for them takes the card or raises.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model.build(MLP(hidden=(4,), num_outputs=2, in_features=3),
+                    np.zeros((1, 3), np.float32))
 
 
 def test_serialize_and_checkpoint_without_msgpack(tmp_path):
