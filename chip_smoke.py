@@ -541,13 +541,30 @@ and every parity phase holds the card's bf16 run to the CPU's within
     step, the center finite, the last windows' mean loss below the first
     windows'; then one worker, whose center is bit-equal to a plain loop
     applying its window deltas through ``fold_delta`` on the card.
+38. ``ranks`` — training across the ranks of a ``torch.distributed``
+    group, every rank a child process (``python chip_smoke.py
+    --ranks-child``) that the port's ``job_deployment.Job`` launches on
+    this host with the rendezvous environment and supervises, each
+    rank's launch counts set to 0 just before its run and written at its
+    end. ``nccl1``: one rank of an NCCL group trains config #4 as
+    ``train`` does (48 stash forwards and 48 backwards; its center
+    bit-equal to ``train``'s, a one-rank all-reduce being an identity),
+    then config #5 in bf16 at batch 128 for one round of 2 steps (106
+    launches of each GroupNorm kernel, bf16 entry points only).
+    ``gloo2``: two ranks on the one card over gloo (NCCL refuses two ranks
+    on one device; the line says so, and counts the collectives staged
+    through the host) train config #4 as 2 ranks x 2 workers: 24 and 24
+    launches a rank, the two centers bit-equal, within ``train_parity``'s
+    limit of ``train``'s (the 4-term sum in another order). No run on two
+    or more cards is made here: the card's machine has one.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line (the
 flash entries with ``moe_launches``, the LSTM and fold entries with
 ``fleet_launches``; #1 stash, #2 and the fold with ``streaming_launches``,
 ``raced_launches``, #1 stash, #2 and GroupNorm with
-``stream_engine_launches``), the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``.
+``stream_engine_launches``; #1 stash and #2 with ``ranks_launches``, one
+entry a rank, GroupNorm with ``ranks_bf16_launches``), the card's name
+and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -584,6 +601,8 @@ TRAIN_ROUNDS = 3
 PARITY = dict(num_workers=2, batch_size=32, communication_window=2,
               learning_rate=0.01)
 PARITY_ROUNDS = 2
+#: ``train``'s samples/s of config #4 by dtype (its widths, no group)
+TRAIN_SAMPLES_PER_S: dict = {}
 #: ``imdb_lstm()`` at its own defaults (E=H=128, seq_len 80), trained in
 #: bf16 as config #4's run is, cut to 2 rounds.
 IMDB_ROUNDS = 2
@@ -1300,6 +1319,7 @@ def train_phase(torch, K, gpu: str, seed: int, dtype: str = "float32",
     from distkeras_tpu_torch.ops.optimizers import sgd
     from distkeras_tpu_torch.trainers import DynSGD
 
+    widths_given = widths
     widths = widths or dict(vocab_size=VOCAB, embed_dim=EMBED,
                             hidden_size=HIDDEN, seq_len=SEQ_LEN)
     model = imdb_lstm(**widths, seed=seed, device="cuda")
@@ -1333,6 +1353,8 @@ def train_phase(torch, K, gpu: str, seed: int, dtype: str = "float32",
                                   "lstm_bwd_cuda": "lstm_bwd_ms"}),
                        dtype=getattr(torch, dtype))
     snap = telemetry.get().snapshot()
+    if widths_given is None:
+        TRAIN_SAMPLES_PER_S[dtype] = steps * B / wall
     emit({"phase": "train", "gpu": gpu, "trainer": "DynSGD",
           "model": f"imdb_lstm({widths})", "rounds": rounds, **TRAIN,
           "dtype": dtype,
@@ -8830,7 +8852,11 @@ def fleet_card_phase(torch, K, F, gpu: str, seed: int,
                 c.close()
 
     def watch():
-        while not stop.is_set():
+        # one last pass after ``stop``: the main thread may see the jobs
+        # end before this loop's next poll does, and their end times must
+        # still be read
+        while True:
+            last = stop.is_set()
             st = sched.stats()
             now = time.perf_counter()
             for jid, row in st.items():
@@ -8840,6 +8866,8 @@ def fleet_card_phase(torch, K, F, gpu: str, seed: int,
                     times[jid][1] = times[jid][1] or now
             if st["serve/imdb"]["state"] == RUNNING:
                 floor.append(st["serve/imdb"]["active"])
+            if last:
+                return
             time.sleep(0.005)
 
     telemetry.reset()
@@ -9711,10 +9739,214 @@ def raced_phase(torch, K, F, gpu: str, seed: int) -> dict:
     return {"race": race, "one_worker": one}
 
 
+#: the ``ranks`` phase: config #4's run as ``train`` runs it (DynSGD, 4
+#: workers, window 4, batch 2048, 3 rounds, f32) and config #5's as
+#: ``resnet_train`` runs it in bf16 (batch 128, 2 steps a round), cut to
+#: one round, each in child processes that ``job_deployment.Job`` starts on
+#: this host: ``nccl1`` is one rank of an NCCL group, ``gloo2`` two ranks
+#: of a gloo group on the one card (NCCL refuses two ranks on one device).
+RANKS_PARTS = {"nccl1": 1, "gloo2": 2}
+RANKS_RESNET_ROUNDS = 1
+RANKS_TIMEOUT_S = 420.0
+
+
+def ranks_child(part: str, out: str, seed: str) -> int:
+    """One rank of the ``ranks`` phase (``--ranks-child PART OUT SEED``),
+    in the environment ``Job`` rendered: it joins the group (``nccl1``: the
+    card's NCCL; ``gloo2``: gloo with the tensors on the card), trains
+    config #4 with its launch counts set to 0 just before and read just
+    after, and, for ``nccl1``, config #5 in bf16 the same way; it writes
+    its center to ``OUT/PART-rank<r>.pt`` and its counts and times to
+    ``OUT/PART-rank<r>.json``. It prints nothing."""
+    import torch
+
+    from distkeras_tpu_torch import (DynSGD, SynchronousDistributedTrainer,
+                                     imdb_lstm, resnet50)
+    from distkeras_tpu_torch.datasets import imdb
+    from distkeras_tpu_torch.ops import collectives
+    from distkeras_tpu_torch.ops.kernels import groupnorm as G
+    from distkeras_tpu_torch.ops.kernels import lstm as K
+    from distkeras_tpu_torch.runtime import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = int(seed)
+    dev = mesh.distributed_initialize(
+        backend="nccl" if part == "nccl1" else "gloo", timeout=180)
+    r = mesh.rank()
+    res = {"rank": r, "world": mesh.world_size(), "device": str(dev),
+           "backend": torch.distributed.get_backend()}
+    W, Kw, B = (TRAIN["num_workers"], TRAIN["communication_window"],
+                TRAIN["batch_size"])
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    df = imdb(n=TRAIN_ROUNDS * W * Kw * B, vocab_size=VOCAB,
+              seq_len=SEQ_LEN, seed=seed)
+    trainer = DynSGD(model, worker_optimizer="sgd",
+                     loss="sparse_categorical_crossentropy", **TRAIN,
+                     compute_dtype="float32")
+    collectives.reset_host_staged()
+    torch.cuda.synchronize()
+    collectives.barrier()
+    K.reset_launches()  # counts start at 0 just before the main path runs
+    t0 = time.perf_counter()
+    trained = trainer.train(df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res.update(lstm=K.launch_counts(), lstm_seconds=wall,
+               lstm_samples_per_s=TRAIN_ROUNDS * W * Kw * B / wall,
+               workers_per_rank=W // mesh.world_size(),
+               history=[float(v) for v in trainer.get_history()],
+               host_staged=dict(collectives.HOST_STAGED))
+    torch.save({k: v.detach().cpu() for k, v in trained.params.items()},
+               os.path.join(out, f"{part}-rank{r}.pt"))
+    del model, trained, trainer
+    torch.cuda.empty_cache()
+    if part == "nccl1":
+        Bn, Kn = RESNET["batch_size"], RESNET["steps_per_program"]
+        steps = RANKS_RESNET_ROUNDS * Kn
+        model = resnet50(norm_impl="pallas", seed=seed, device="cuda")
+        rdf = resnet_data(steps * Bn, seed)
+        trainer = SynchronousDistributedTrainer(
+            model, "sgd", "sparse_categorical_crossentropy", **RESNET,
+            compute_dtype="bfloat16")
+        torch.cuda.synchronize()
+        G.reset_launches()
+        t0 = time.perf_counter()
+        trainer.train(rdf)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res.update(gn=G.launch_counts(),
+                   gn_entries=G.launch_counts(by_entry=True),
+                   gn_seconds=wall, gn_samples_per_s=steps * Bn / wall,
+                   gn_history=[float(v) for v in trainer.get_history()])
+    with open(os.path.join(out, f"{part}-rank{r}.json"), "w") as f:
+        json.dump(res, f)
+    mesh.distributed_shutdown()
+    return 0
+
+
+def ranks_phase(torch, gpu: str, seed: int, center: dict,
+                train_samples_per_s: float) -> dict:
+    """``ranks``: training across ranks, each part's ranks launched by the
+    port's ``Job`` on this host (``python chip_smoke.py --ranks-child``,
+    one process a rank) and supervised to their end. ``center`` is
+    ``train``'s config #4 center from the same seed in this process, with
+    no group. Returns the children's launch counts by part."""
+    from distkeras_tpu_torch.job_deployment import Job, Punchcard
+
+    out = os.path.join("build", "ranks")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    W, Kw = TRAIN["num_workers"], TRAIN["communication_window"]
+    steps = TRAIN_ROUNDS * W * Kw
+    gn_steps = RANKS_RESNET_ROUNDS * RESNET["steps_per_program"]
+    launches = {}
+    for part, n in RANKS_PARTS.items():
+        card = Punchcard(job_name=f"chip-smoke-ranks-{part}",
+                         script="chip_smoke.py", hosts=["localhost"] * n,
+                         args=["--ranks-child", part, out, str(seed)])
+        job = Job(card, python=sys.executable)
+        t0 = time.perf_counter()
+        cmds = job.launch(dry_run=False)
+        rcs = job.supervise(timeout=RANKS_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if rcs != [0] * n:
+            fail(f"ranks {part}: the ranks exited {rcs}")
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(out, f"{part}-rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        centers = [torch.load(os.path.join(out, f"{part}-rank{r}.pt"),
+                              weights_only=True) for r in range(n)]
+        apart = max((centers[0][k] - v).abs().max().item()
+                    for k, v in center.items())
+        ranks_equal = all(torch.equal(c[k], centers[0][k])
+                          for c in centers[1:] for k in center)
+        staged = [x["host_staged"] for x in ranks]
+        row = {"phase": "ranks", "part": part, "gpu": gpu, "ranks": n,
+               "backend": ranks[0]["backend"],
+               "devices": [x["device"] for x in ranks],
+               "model": "imdb_lstm (config #4)", "trainer": "DynSGD",
+               **TRAIN, "rounds": TRAIN_ROUNDS,
+               "workers_per_rank": ranks[0]["workers_per_rank"],
+               "launches": [x["lstm"] for x in ranks],
+               "seconds": [x["lstm_seconds"] for x in ranks],
+               "samples_per_s": [x["lstm_samples_per_s"] for x in ranks],
+               "train_samples_per_s_no_group": train_samples_per_s,
+               "job_seconds": wall, "command": cmds[0],
+               "center_vs_no_group_max_abs": apart,
+               "centers_bit_equal_across_ranks": ranks_equal,
+               "host_staged": staged,
+               "history": ranks[0]["history"]}
+        if part == "gloo2":
+            row["note"] = ("gloo on purpose: two ranks share the one card, "
+                           "which NCCL refuses; every collective of the "
+                           "run was staged through the host (host_staged)")
+        if part == "nccl1":
+            x = ranks[0]
+            row.update({"resnet": "resnet50(norm_impl='pallas') (config #5)",
+                        "resnet_trainer": "SynchronousDistributedTrainer",
+                        "resnet_dtype": "bfloat16", **{
+                            f"resnet_{k}": v for k, v in RESNET.items()},
+                        "resnet_rounds": RANKS_RESNET_ROUNDS,
+                        "resnet_launches": x["gn"],
+                        "resnet_launches_by_entry": x["gn_entries"],
+                        "resnet_seconds": x["gn_seconds"],
+                        "resnet_samples_per_s": x["gn_samples_per_s"],
+                        "resnet_history": x["gn_history"]})
+        emit(row)
+        per_rank = steps // n
+        for x in ranks:
+            if x["world"] != n:
+                fail(f"ranks {part}: a rank saw a world of {x['world']}")
+            if (x["lstm"]["lstm_fwd_stash"], x["lstm"]["lstm_bwd"],
+                    x["lstm"]["lstm_fwd"]) != (per_rank, per_rank, 0):
+                fail(f"ranks {part}: rank {x['rank']} launched {x['lstm']}, "
+                     f"want {per_rank} stash forwards and backwards")
+            if not np.all(np.isfinite(x["history"])):
+                fail(f"ranks {part}: non-finite loss {x['history']}")
+        if not ranks_equal:
+            fail(f"ranks {part}: the ranks' centers differ")
+        if part == "nccl1":
+            if ranks[0]["backend"] != "nccl":
+                fail(f"ranks nccl1 ran on {ranks[0]['backend']}")
+            if apart != 0.0:
+                fail(f"ranks nccl1: the one-rank NCCL center is "
+                     f"{apart} from the run without a group (a one-rank "
+                     "all-reduce is an identity)")
+            want = 53 * gn_steps
+            gn = ranks[0]["gn"]
+            if (gn["group_norm_fwd"], gn["group_norm_bwd"]) != (want, want):
+                fail(f"ranks nccl1: ResNet-50 launched {gn}, want {want} "
+                     "of each GroupNorm kernel")
+            if not all(k.endswith("_bf16") for k, v in
+                       ranks[0]["gn_entries"].items() if v):
+                fail(f"ranks nccl1: an f32 GroupNorm entry launched in bf16: "
+                     f"{ranks[0]['gn_entries']}")
+            if not np.all(np.isfinite(ranks[0]["gn_history"])):
+                fail(f"ranks nccl1: non-finite ResNet-50 loss")
+        else:
+            if ranks[0]["backend"] != "gloo":
+                fail(f"ranks gloo2 ran on {ranks[0]['backend']}")
+            if not apart <= PARITY_ATOL:
+                fail(f"ranks gloo2: the centers are {apart} from the run "
+                     f"without a group (limit {PARITY_ATOL}, train_parity's)")
+        launches[part] = {"lstm": [x["lstm"] for x in ranks],
+                          "gn": ranks[0].get("gn")}
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ranks-child", nargs=3, metavar=("PART", "OUT", "SEED"),
+                    help="run one rank of the ranks phase (what the phase's "
+                         "Job launches; not for direct use)")
     args = ap.parse_args()
+    if args.ranks_child:
+        sys.exit(ranks_child(*args.ranks_child))
     try:
         import torch
     except ImportError:
@@ -9819,6 +10051,9 @@ def main() -> None:
 
     lap("train")
     trained, train_launches = train_phase(torch, K, gpu, args.seed)
+    # config #4's center without a group, for the ranks phase's check
+    train_center = {k: v.detach().cpu().clone()
+                    for k, v in trained.params.items()}
     bf16_trained, bf16_train_launches = train_phase(
         torch, K, gpu, args.seed, "bfloat16")
     del bf16_trained
@@ -10023,6 +10258,9 @@ def main() -> None:
     lap("raced")
     raced = raced_phase(torch, K, F, gpu, args.seed)
     torch.cuda.empty_cache()
+    lap("ranks")
+    ranks = ranks_phase(torch, gpu, args.seed, train_center,
+                        TRAIN_SAMPLES_PER_S["float32"])
 
     def entry(name, source, replaces, rows, launches, bf16_launches):
         """The largest batch's f32 row, the largest error over every f32
@@ -10326,6 +10564,15 @@ def main() -> None:
         "streaming_kill_server": kill["fold_commit"]}
     kernels[5]["raced_launches"] = {arm: c["fold_commit"]
                                     for arm, c in raced.items()}
+    # Training across ranks, each rank's counts set to 0 just before its
+    # run and read just after, in its own process: config #4 on a one-rank
+    # NCCL group and on two gloo ranks (one list entry a rank), config #5
+    # in bf16 on the one-rank NCCL group.
+    for k in kernels[1:3]:
+        k["ranks_launches"] = {part: [c[k["name"]] for c in r["lstm"]]
+                               for part, r in ranks.items()}
+    for k in kernels[3:5]:
+        k["ranks_bf16_launches"] = {"nccl1": ranks["nccl1"]["gn"][k["name"]]}
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

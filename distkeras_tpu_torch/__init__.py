@@ -81,7 +81,15 @@ Ported so far:
   ``run_stream``; the raced parameter server (``racelab.py``, its center
   on the card) and the reference's utilities (``utils.py``,
   ``models.base.uniform_weights``). The JAX package's top level exports
-  none of these, so neither does this one.
+  none of these, so neither does this one;
+* training across the ranks of a ``torch.distributed`` group
+  (``distributed_initialize``, ``data_mesh``, ``hybrid_mesh``,
+  ``device_count`` and the ``*_AXIS`` names; ``ops/collectives.py``): the
+  async trainers fold with one all-reduce a round, the sync trainers
+  average each step's gradient over the ranks, checkpoints hold every
+  rank's workers; ``job_deployment.Job``/``Punchcard`` launch the ranks
+  and the parameter-server plane; the predictor across processes and
+  devices; ``roofline.py``, the scaling model with the H100's link figures.
 """
 
 from distkeras_tpu_torch.data import (
@@ -131,6 +139,17 @@ from distkeras_tpu_torch.predictors import (
     ProbabilityPredictor,
 )
 from distkeras_tpu_torch.resilience import FaultPlan, Supervisor, supervise
+from distkeras_tpu_torch.runtime.mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
+    data_mesh,
+    device_count,
+    distributed_initialize,
+    hybrid_mesh,
+)
 from distkeras_tpu_torch.runtime.serialization import (
     deserialize_model,
     deserialize_params,
@@ -154,19 +173,22 @@ from distkeras_tpu_torch.trainers import (
 
 __all__ = [
     "ADAG", "AEASGD", "AccuracyEvaluator", "AsynchronousDistributedTrainer",
-    "AveragingTrainer", "ClassPredictor", "DOWNPOUR", "DataFrame",
-    "DenseTransformer", "DistributedTrainer", "DynSGD", "EAMSGD",
-    "ElasticTraining", "EnsembleTrainer", "F1Evaluator", "FaultPlan",
+    "AveragingTrainer", "ClassPredictor", "DATA_AXIS", "DOWNPOUR",
+    "DataFrame", "DenseTransformer", "DistributedTrainer", "DynSGD",
+    "EAMSGD", "EXPERT_AXIS", "ElasticTraining", "EnsembleTrainer",
+    "F1Evaluator", "FaultPlan",
     "FleetJob", "FleetScheduler",
     "LSTMClassifier", "LabelIndexTransformer", "LossEvaluator", "MLP",
-    "MinMaxTransformer", "Model", "ModelPredictor", "MoETransformerLM",
-    "OneHotTransformer",
-    "ProbabilityPredictor", "ReshapeTransformer", "ResNet", "ShardStore",
-    "ShardWriter", "ShardedDataFrame", "SimpleCNN",
+    "MODEL_AXIS", "MinMaxTransformer", "Model", "ModelPredictor",
+    "MoETransformerLM", "OneHotTransformer", "PIPE_AXIS",
+    "ProbabilityPredictor", "ReshapeTransformer", "ResNet", "SEQ_AXIS",
+    "ShardStore", "ShardWriter", "ShardedDataFrame", "SimpleCNN",
     "SingleTrainer", "Supervisor", "SynchronousDistributedTrainer",
     "Trainer",
-    "Transformer", "TransformerLM", "cifar10_cnn", "deserialize_model",
-    "deserialize_params", "imdb_lstm", "merge_manifests", "mnist_cnn",
+    "Transformer", "TransformerLM", "cifar10_cnn", "data_mesh",
+    "deserialize_model", "deserialize_params", "device_count",
+    "distributed_initialize", "hybrid_mesh", "imdb_lstm",
+    "merge_manifests", "mnist_cnn",
     "mnist_mlp", "resnet50", "serialize_model", "serialize_params",
     "small_moe_lm", "small_transformer_lm", "supervise", "tiny_resnet",
     "write_shards",

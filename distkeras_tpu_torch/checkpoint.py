@@ -24,6 +24,15 @@ port's own, in torch's:
 Saves are synchronous: every tensor is on the host, and the file written,
 before :meth:`Checkpointer.save` returns, so a save never aliases the live
 state the engine reuses next round.
+
+Across the ranks of a process group (``runtime/mesh.py``) every rank calls
+:meth:`Checkpointer.save` with the same gathered state: rank 0 decides
+whether the step is declined and writes ``state.pt``, every rank writes
+the meta sidecar through its own temporary file (``.p<rank>.tmp``; on
+per-host disks that is what lets each rank find the topology at resume),
+and the integrity digest is written and checked only in a single process,
+as the JAX package does. Every rank restores the whole state and keeps
+its own slice (the engines' ``local_state``).
 """
 
 from __future__ import annotations
@@ -248,10 +257,13 @@ class Checkpointer:
         nothing and returns False (``Trainer._execute`` offsets resumed
         step counters for exactly this reason)."""
         from distkeras_tpu_torch import telemetry
+        from distkeras_tpu_torch.ops import collectives
         from distkeras_tpu_torch.resilience import integrity
-        from distkeras_tpu_torch.runtime import config
+        from distkeras_tpu_torch.runtime import config, mesh
 
-        latest = self.latest_step()
+        ranks, rank = mesh.world_size(), mesh.rank()
+        # rank 0's view decides, so every rank declines or writes together
+        latest = collectives.broadcast_object(self.latest_step())
         if latest is not None and step <= latest:
             warnings.warn(
                 f"checkpoint save at step {step} was declined "
@@ -264,28 +276,35 @@ class Checkpointer:
         tele = telemetry.get()
         with tele.span("checkpoint.save"):
             with tele.span("copy"):
-                flat = _host_flat(state)
+                flat = _host_flat(state) if rank == 0 else None
             with tele.span("digest"):
+                # single-process only, as the JAX package's
                 digest = (integrity.tree_digest(_rebuild(state, flat))
-                          if config.env_bool("DKTPU_CKPT_DIGEST") else None)
+                          if ranks == 1
+                          and config.env_bool("DKTPU_CKPT_DIGEST") else None)
             with tele.span("write"):
-                tmp = os.path.join(self.directory,
-                                   f".{step}.tmp-{os.getpid()}")
-                shutil.rmtree(tmp, ignore_errors=True)
-                os.makedirs(tmp)
-                torch.save(flat, os.path.join(tmp, STATE_FILE))
-                os.replace(tmp, self._step_dir(step))
+                if rank == 0:
+                    tmp = os.path.join(self.directory,
+                                       f".{step}.tmp-{os.getpid()}")
+                    shutil.rmtree(tmp, ignore_errors=True)
+                    os.makedirs(tmp)
+                    torch.save(flat, os.path.join(tmp, STATE_FILE))
+                    os.replace(tmp, self._step_dir(step))
+                # the step is on disk before any rank writes its sidecar,
+                # so rank 0's sweep below keeps every rank's
+                collectives.barrier()
                 os.makedirs(self._meta_dir(), exist_ok=True)
                 if meta is not None:
                     self._write_json(f"{step}.json", meta)
                 if digest is not None:
                     integrity.write_digest(os.path.join(
                         self._meta_dir(), f"{step}.digest.json"), digest)
-                self._gc(step)
+                if rank == 0:
+                    self._gc(step)
         from distkeras_tpu_torch.resilience import faults
 
         plan = faults.active_plan()
-        if plan is not None and plan.ckpt_corrupt(step):
+        if plan is not None and plan.ckpt_corrupt(step) and rank == 0:
             # ckpt_corrupt@step injection: scribble over the payload once
             # the write has landed. The digest above was computed from the
             # live state, so a verified restore must detect this.
@@ -293,7 +312,9 @@ class Checkpointer:
         return True
 
     def _write_json(self, name: str, obj: dict) -> None:
-        tmp = os.path.join(self._meta_dir(), f".{name}.p0.tmp")
+        from distkeras_tpu_torch.runtime import mesh
+
+        tmp = os.path.join(self._meta_dir(), f".{name}.p{mesh.rank()}.tmp")
         with open(tmp, "w") as f:
             json.dump(obj, f)
         os.replace(tmp, os.path.join(self._meta_dir(), name))
@@ -304,6 +325,8 @@ class Checkpointer:
         re-used step number; reap tmp files and directories orphaned by a
         crash between write and rename: this process's own at once, a
         peer's only once an hour old (a live peer may still rename it)."""
+        from distkeras_tpu_torch.runtime import mesh
+
         steps = scan_steps(self.directory)
         for old in steps[self.max_to_keep:]:
             shutil.rmtree(self._step_dir(old), ignore_errors=True)
@@ -318,7 +341,8 @@ class Checkpointer:
                     stale = name not in live
                 elif ".tmp" not in name:
                     continue
-                elif name.endswith(own) or name.endswith(".p0.tmp"):
+                elif (name.endswith(own)
+                      or name.endswith(f".p{mesh.rank()}.tmp")):
                     stale = not name.startswith(f".{step}.")
                 else:
                     try:
@@ -360,7 +384,12 @@ class Checkpointer:
 
     def _verify(self, step: int, restored: Any) -> None:
         """Raise CheckpointCorruptError when ``step``'s digest sidecar
-        exists and the restored tree does not hash to it."""
+        exists and the restored tree does not hash to it (single-process
+        only, as the save's digest)."""
+        from distkeras_tpu_torch.runtime import mesh
+
+        if mesh.world_size() > 1:
+            return
         digest = self.digest(step)
         if digest is None:
             return

@@ -133,3 +133,21 @@ def imdb(n: int = 25000, vocab_size: int = 20000, seq_len: int = 80,
     use_sent = rng.random(size=(n, seq_len)) < 0.3
     x = np.where(use_sent, sentiment_tok, base).astype(np.int32)
     return _mark(DataFrame({"features": x, "label": y}), True)
+
+
+def synthetic_lm(n: int = 4096, vocab_size: int = 1024, seq_len: int = 128,
+                 seed: int = 0) -> DataFrame:
+    """Next-token-predictable synthetic corpus for transformer benchmarks: a
+    noisy order-1 Markov chain with Dirichlet(0.05) transition rows (so an
+    LM can beat uniform loss); bit-equal to the JAX package's for the same
+    arguments. ``features`` are tokens ``[:, :-1]``, ``label`` ``[:, 1:]``."""
+    rng = np.random.default_rng(seed)
+    trans = rng.dirichlet(np.full(vocab_size, 0.05), size=vocab_size)
+    x = np.zeros((n, seq_len), np.int32)
+    x[:, 0] = rng.integers(0, vocab_size, size=n)
+    u = rng.random(size=(n, seq_len))
+    cum = trans.cumsum(axis=1)
+    for t in range(1, seq_len):
+        x[:, t] = (cum[x[:, t - 1]] < u[:, t : t + 1]).sum(axis=1)
+    df = DataFrame({"features": x[:, :-1], "label": x[:, 1:]})
+    return _mark(df, True)

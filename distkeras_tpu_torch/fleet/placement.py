@@ -14,9 +14,8 @@ parent's ``primary,standby`` failover list (the top level's is the root
 endpoint the caller passes, matrix and all), and
 :meth:`TreePlacement.leaf_endpoint` is what a worker's
 ``DKTPU_PS_ENDPOINT`` should carry. A launcher renders these into
-``python -m distkeras_tpu_torch.netps --upstream ...`` launch lines (the
-JAX package's ``Punchcard``/``Job`` do; the port's job deployment is a
-later slice).
+``python -m distkeras_tpu_torch.netps --upstream ...`` launch lines
+(``job_deployment.Job.render_tree_commands``).
 """
 
 from __future__ import annotations

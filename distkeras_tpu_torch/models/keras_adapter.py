@@ -34,7 +34,6 @@ not run on the card's machine for that reason.
 from __future__ import annotations
 
 import copy
-import os
 from typing import Any, Optional, Union
 
 import numpy as np
@@ -42,10 +41,11 @@ import torch
 from torch import nn
 
 from distkeras_tpu_torch.models.base import MODEL_CLASSES, Model
+from distkeras_tpu_torch.runtime import config
 
 
 def _keras():
-    os.environ.setdefault("KERAS_BACKEND", "torch")
+    config.env_setdefault("KERAS_BACKEND", "torch")
     import keras
 
     if keras.backend.backend() != "torch":

@@ -489,8 +489,11 @@ class PSClient:
         dropped). The next endpoint is another process: neither its ring
         nor its dispatch were negotiated with this one."""
         def teardown():
-            self.shm_info = None
-            self.mesh_info = None
+            # Runs under _fallback_lock: the walker wraps on_walk in its
+            # shared lock, which is that lock; the analyzer cannot see
+            # through the callback indirection.
+            self.shm_info = None  # dk: disable=DK202
+            self.mesh_info = None  # dk: disable=DK202
             self._disconnect()
 
         if self._walker.walk(seen_idx, on_walk=teardown):

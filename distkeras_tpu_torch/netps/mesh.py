@@ -41,8 +41,8 @@ a worker and a server in ONE process:
 
 A center over more than one card, and with it the partition plan as a
 device layout (the JAX package's ``PartitionPlan.to_partition_specs``
-feeding its multi-device folder), is not ported (ROADMAP Queue 1 item
-5). A shard server of the sharded center (``netps/shards/``) serves the
+feeding its multi-device folder), comes with the model-parallel layouts
+(ROADMAP Queue 1 item 9). A shard server of the sharded center (``netps/shards/``) serves the
 mesh dialect like any server: its slice is its center.
 """
 

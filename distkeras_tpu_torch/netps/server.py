@@ -1176,7 +1176,9 @@ class PSServer:
         u = self._updates
         self.commit_log.append((wid, seq, staleness))
         self._last_seq[wid] = seq
-        self._ever.add(wid)
+        # Caller holds the center lock (the _locked suffix): lexically
+        # outside any `with`, hence the suppression.
+        self._ever.add(wid)  # dk: disable=DK202
         self._updates += 1
         self.commits_total = (self.commits_total + 1 if commits_total is None
                               else int(commits_total))
@@ -1242,7 +1244,10 @@ class PSServer:
             return self._err("not_primary", "warm standby, not promoted")
         epoch = header.get("epoch")
         if epoch is not None and int(epoch) > self.epoch and not self._fenced:
-            self._fenced = True
+            # Caller holds the center lock (every _op_* takes it before
+            # calling in): lexically outside the `with`, hence the
+            # suppression.
+            self._fenced = True  # dk: disable=DK202
             if self._store is not None:
                 self._store.write_epoch(int(epoch), fenced=True)
         if self._fenced:

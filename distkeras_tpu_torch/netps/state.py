@@ -253,7 +253,7 @@ class StateStore:
         buffer, which nobody mutates and the queue keeps alive), written in
         their wire dtype so replay is the same arithmetic. Blocks only when
         the writer is ``_WRITE_QUEUE`` records behind."""
-        hdr = {"op": "journal", "u": int(updates), "wid": int(wid),
+        hdr = {"op": "journal", "u": int(updates), "wid": int(wid),  # dk: disable=DK401
                "seq": int(seq), "st": int(staleness), "e": int(epoch),
                "n": int(commits_total)}
         if self._writer is None:
@@ -315,7 +315,7 @@ class StateStore:
         self.barrier()
         path = os.path.join(self.state_dir,
                             _name(_SNAP_PREFIX, updates, _SNAP_SUFFIX))
-        hdr = {"op": "snapshot", "updates": int(updates),
+        hdr = {"op": "snapshot", "updates": int(updates),  # dk: disable=DK401
                "last_seq": {str(k): int(v) for k, v in last_seq.items()},
                "epoch": int(epoch), "commits_total": int(commits_total)}
         tmp = path + ".tmp"

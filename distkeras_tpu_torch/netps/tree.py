@@ -808,11 +808,14 @@ class TreeStandby(_TreeUplink, _AbsorbWindow, StandbyServer):
                      "uplink": up is not None}})
         if up is not None:
             self._negotiate_link_codec()
-        t = threading.Thread(target=self._fence_loop, args=(epoch,),
+        # Both joined in close() through the _fence_thread and
+        # _flusher_thread attributes (netps/standby.py, netps/hier.py): an
+        # indirection the static join-tracking cannot follow.
+        t = threading.Thread(target=self._fence_loop, args=(epoch,),  # dk: disable=DK203
                              name="netps-standby-fence")
         t.start()
         self._fence_thread = t
-        t2 = threading.Thread(target=self._flusher_loop,
+        t2 = threading.Thread(target=self._flusher_loop,  # dk: disable=DK203
                               name="netps-tree-flush")
         t2.start()
         self._flusher_thread = t2

@@ -68,8 +68,8 @@ def recommended_topology(num_workers: int,
 
 
 class TunerConfig(NamedTuple):
-    """The controller's knobs-about-knobs (the ``DKTPU_TUNE_*`` variables
-    of ``runtime/config.py`` — see :meth:`from_env`)."""
+    """The controller's knobs-about-knobs (the tuner env vars of
+    ``runtime/config.py`` — see :meth:`from_env`)."""
 
     interval: int
     cooldown: int

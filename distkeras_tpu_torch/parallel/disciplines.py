@@ -7,8 +7,9 @@ The reference implements each discipline twice — a worker half
 variable). Here :meth:`Discipline.commit` is the worker half for ONE worker
 and :meth:`Discipline.fold` the server half for one round: every worker's
 commit, summed in worker order, added to the center. Where the JAX package
-sums across chips with a ``psum``, the port's workers share one device and
-the sum is a plain ordered loop.
+sums across chips with a ``psum``, each rank of the port sums its own
+workers' commits in a plain ordered loop and the ranks' sums meet in one
+all-reduce (``reduce``; the identity without a process group).
 
 Commits within a round are modeled as serialized in worker order, which
 makes staleness explicit (worker ``i``'s commit lands after ``i`` fresher
@@ -27,7 +28,7 @@ Ensemble   no communication: workers train independently
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 Params = dict  # name -> tensor
 
@@ -78,20 +79,28 @@ class Discipline:
         return fold_state
 
     def fold(self, center: Params, locals_: Sequence[Params], fold_state, *,
-             window: int, num_workers: int) -> FoldResult:
+             window: int, num_workers: int,
+             worker_ids: Optional[Sequence[int]] = None,
+             reduce: Optional[Callable] = None) -> FoldResult:
         """One round's server half: ``center += sum of every worker's
-        commit``, summed in worker order (``locals_[w]`` is worker ``w``'s
-        params after its K local steps). Pull-based disciplines hand every
-        worker the new center."""
+        commit``, summed in worker order (``locals_[i]`` is worker
+        ``worker_ids[i]``'s params after its K local steps; ids ``0..`` by
+        default). ``reduce(total)`` sums this rank's total with the other
+        ranks' (one all-reduce; the reference's ``psum``), and the center
+        moves by the result; the center itself is never reduced.
+        Pull-based disciplines hand every worker the new center."""
         if not self.communicates:
             return FoldResult(center, list(locals_), self.advance(fold_state))
+        ids = range(len(locals_)) if worker_ids is None else worker_ids
         total, new_locals = None, []
-        for w, local in enumerate(locals_):
+        for w, local in zip(ids, locals_):
             c, new_local = self.commit(center, local, fold_state, worker_id=w,
                                        window=window, num_workers=num_workers)
             total = c if total is None else {k: v + c[k]
                                              for k, v in total.items()}
             new_locals.append(new_local)
+        if reduce is not None:
+            total = reduce(total)
         new_center = {k: v + total[k] for k, v in center.items()}
         if self.pulls_center:
             new_locals = [new_center] * len(locals_)

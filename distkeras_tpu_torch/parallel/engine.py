@@ -28,9 +28,19 @@ and ``kill@R`` before a round and the divergent-worker reset after it
 :meth:`AsyncEngine.adopt_state` are the elastic re-topology: a checkpoint
 written at one worker count resumed at another.
 
-All W logical workers are multiplexed on the model's one device, one after
-the other, as the JAX package's ``_multiplexed`` round runs the workers a
-chip carries; the all-reduce over chips (multi-card NCCL) is a later slice.
+Across ranks (a ``torch.distributed`` group, ``runtime/mesh.py``) each
+rank carries the global logical workers ``[rank*m, (rank+1)*m)``, as the
+JAX package's ``local_worker_ids`` does: it runs them one after the other
+on its device, sums their commits in worker order, and folds with ONE
+all-reduce of that sum (``ops/collectives.py``), the JAX package's
+``_multiplexed`` round and its single ``psum`` over the ``data`` axis. The
+center becomes ``center + total``; the center itself is never
+all-reduced. The ``[W]`` losses are all-gathered worker-major, so the NaN
+guard and the :class:`RoundGuard` take the same branch on every rank.
+:meth:`AsyncEngine.global_state` gathers every rank's ``[m]`` slices into
+the ``[W]`` state a checkpoint holds, and :meth:`AsyncEngine.local_state`
+keeps a rank's own. Without a group the world is one rank and all W
+workers run on the model's device.
 
 :class:`RoundEngine` is what this engine shares with
 ``parallel/sync.py SyncEngine``: the host copy of a round's batches, the
@@ -52,6 +62,7 @@ from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.data.batching import BatchPlan
 from distkeras_tpu_torch.data.prefetch import RoundFeeder
 from distkeras_tpu_torch.models.base import mean_buffers, state_buffers
+from distkeras_tpu_torch.ops import collectives
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.optimizers import get_optimizer
 from distkeras_tpu_torch.parallel.disciplines import Discipline
@@ -61,6 +72,7 @@ from distkeras_tpu_torch.resilience.guard import (
     nan_guard_enabled,
     note_losses,
 )
+from distkeras_tpu_torch.runtime import mesh
 from distkeras_tpu_torch.workers import derive_seed, make_local_loop
 
 
@@ -83,14 +95,46 @@ def initial_buffers(model) -> Optional[dict]:
 class RoundEngine:
     """The round loop both engines share. A subclass sets ``model`` and
     ``num_workers``, and defines ``init_state()``, ``_round_fn(state, xs,
-    ys) -> (state, loss)`` on ``[W, K, B, ...]`` device batches, and
-    ``round_loss_shape``, the shape of one round's loss."""
+    ys) -> (state, loss)`` on ``[m, K, B, ...]`` device batches (this
+    rank's workers; all W without a group), and ``round_loss_shape``, the
+    shape of one round's loss.
+
+    ``local_workers`` are the global worker ids this rank carries
+    (:func:`~distkeras_tpu_torch.runtime.mesh.local_worker_ids`)."""
 
     round_loss_shape: tuple = ()
 
+    def _bind_ranks(self) -> None:
+        """Place the W logical workers on the group's ranks: ``m`` a rank,
+        this rank's ``local_workers`` (the reference's ``_mesh`` rule)."""
+        self.workers_per_rank = mesh.workers_per_rank(self.num_workers)
+        self.local_workers = mesh.local_worker_ids(self.num_workers)
+        #: ranks of the group (1 without one); ``num_chips`` for the
+        #: per-card metrics, as the JAX engines count chips
+        self.num_chips = mesh.world_size()
+
+    def _local_rows(self, xs, ys):
+        """This rank's workers' rows of a ``[W, ...]`` host round."""
+        if len(self.local_workers) == self.num_workers:
+            return xs, ys
+        lo, hi = self.local_workers[0], self.local_workers[-1] + 1
+        return xs[lo:hi], ys[lo:hi]
+
     def _put_batch(self, xs: np.ndarray, ys: np.ndarray):
-        dev = self.model.device
-        return torch.as_tensor(xs).to(dev), torch.as_tensor(ys).to(dev)
+        return mesh.put_global((xs, ys), self.model.device)
+
+    def global_state(self, state):
+        """The state a checkpoint holds, the same on every rank (the
+        rank's own state where nothing is per worker)."""
+        return state
+
+    def local_state(self, state):
+        """This rank's part of a :meth:`global_state`."""
+        return state
+
+    def restore_target(self):
+        """The structure a checkpoint of this engine restores into."""
+        return self.init_state()
 
     def run(
         self,
@@ -132,8 +176,9 @@ class RoundEngine:
 
 
 class AsyncEngine(RoundEngine):
-    """Runs a :class:`Discipline` over ``num_workers`` logical workers on
-    the model's device."""
+    """Runs a :class:`Discipline` over ``num_workers`` logical workers: all
+    of them on the model's device, or ``m`` a rank across the group's
+    ranks."""
 
     def __init__(
         self,
@@ -158,6 +203,7 @@ class AsyncEngine(RoundEngine):
         self.discipline = discipline
         self.window = int(window)
         self.num_workers = int(num_workers)
+        self._bind_ranks()
         self.seed = seed
         #: each replica starts from its own init draw (the Ensemble
         #: trainer's diversity) instead of a copy of the model's params.
@@ -182,17 +228,17 @@ class AsyncEngine(RoundEngine):
         )
 
     def init_state(self) -> EngineState:
-        """Every worker starts from a copy of the model's parameters (with
-        ``per_worker_init``, worker ``i`` from its own draw
-        ``model.reinit_params(seed * 1009 + 1 + i)``), with a fresh
-        optimizer state."""
+        """This rank's workers start from a copy of the model's parameters
+        (with ``per_worker_init``, worker ``i`` from its own draw
+        ``model.reinit_params(seed * 1009 + 1 + i)``, ``i`` global), with a
+        fresh optimizer state."""
         center = {k: v.clone() for k, v in self.model.params.items()}
-        W = self.num_workers
+        W = len(self.local_workers)
         if self.per_worker_init:
             # Ensemble semantics: init diversity is the point (reference:
             # per-executor deserialization + uniform_weights).
             locals_ = [self.model.reinit_params(self.seed * 1009 + 1 + i)
-                       for i in range(W)]
+                       for i in self.local_workers]
         else:
             locals_ = [center] * W
         bufs = initial_buffers(self.model)
@@ -229,16 +275,16 @@ class AsyncEngine(RoundEngine):
 
     def adopt_state(self, host: EngineState) -> EngineState:
         """Re-topologize a restored host state (:meth:`host_state`'s
-        structure, any worker count) onto this engine's workers: the
-        elastic resume after a resize. Reference semantics: a (re)joining
-        worker pulls the center variable, so every replica restarts from
-        the restored center with a fresh optimizer state. The center, the
-        fold state and the rng carry over exactly; the model state
-        (BatchNorm statistics) is the mean of the saved workers', on every
-        worker."""
+        structure, any worker count) onto this rank's workers: the
+        elastic resume after a resize (of the workers or of the ranks).
+        Reference semantics: a (re)joining worker pulls the center
+        variable, so every replica restarts from the restored center with
+        a fresh optimizer state. The center, the fold state and the rng
+        carry over exactly; the model state (BatchNorm statistics) is the
+        mean of every saved worker's, on every worker."""
         dev = self.model.device
         center = {k: v.to(dev) for k, v in host.center.items()}
-        W = self.num_workers
+        W = len(self.local_workers)
         mean = (None if not host.model_state else
                 {k: v.to(dev) for k, v in
                  mean_buffers(host.model_state).items()})
@@ -257,35 +303,87 @@ class AsyncEngine(RoundEngine):
         reset). Reference semantics are the rejoining-worker PS pull:
         masked replicas take the center's params and a fresh optimizer
         state; unmasked workers, the center, the fold state and the rng are
-        untouched. ``worker_mask`` is a host ``[W]`` bool array."""
+        untouched. ``worker_mask`` is a host ``[W]`` bool array over the
+        global workers (every rank reads the same gathered losses); a rank
+        applies its own workers' entries."""
         mask = np.asarray(worker_mask, dtype=bool)
         if mask.shape != (self.num_workers,):
             raise ValueError(
                 f"worker_mask must be [{self.num_workers}], got {mask.shape}")
+        mask = mask[self.local_workers]
         return state._replace(
             locals_=[state.center if m else p
                      for m, p in zip(mask, state.locals_)],
             opt_state=[self.tx.init(state.center) if m else o
                        for m, o in zip(mask, state.opt_state)])
 
+    def global_state(self, state: EngineState) -> EngineState:
+        """The ``[W]`` state of every rank, on every rank: each rank's
+        ``[m]`` locals, optimizer states and model states gathered in rank
+        order (the center, the fold state and the rng are the same on
+        every rank). A pull discipline's locals are the center. Without a
+        group, the state itself."""
+        if not mesh.group_active():
+            return state
+        dev = self.model.device
+
+        def gather(xs):
+            host = [_to(x, "cpu") for x in xs]
+            return [_to(x, dev) for part in collectives.all_gather_object(host)
+                    for x in part]
+
+        locals_ = ([state.center] * self.num_workers
+                   if self.discipline.pulls_center
+                   else gather(state.locals_))
+        return state._replace(
+            locals_=locals_, opt_state=gather(state.opt_state),
+            model_state=(None if state.model_state is None
+                         else gather(state.model_state)))
+
+    def local_state(self, state: EngineState) -> EngineState:
+        """This rank's ``[m]`` slices of a ``[W]`` :meth:`global_state`."""
+        if len(state.locals_) == len(self.local_workers):
+            return state
+        lo, hi = self.local_workers[0], self.local_workers[-1] + 1
+        return state._replace(
+            locals_=list(state.locals_[lo:hi]),
+            opt_state=list(state.opt_state[lo:hi]),
+            model_state=(None if state.model_state is None
+                         else list(state.model_state[lo:hi])))
+
+    def restore_target(self) -> EngineState:
+        """:meth:`init_state` with ``[W]`` per-worker entries (the structure
+        :meth:`global_state` writes)."""
+        init = self.init_state()
+        W = self.num_workers
+        if len(init.locals_) == W:
+            return init
+        return init._replace(
+            locals_=[init.locals_[0]] * W,
+            opt_state=[init.opt_state[0]] * W,
+            model_state=(None if init.model_state is None
+                         else [init.model_state[0]] * W))
+
     def _round_fn(self, state: EngineState, xs: torch.Tensor,
                   ys: torch.Tensor):
-        """One fold round on ``[W, K, B, ...]`` batches: returns the new
-        state and the ``[W]`` per-worker window-mean losses."""
+        """One fold round on this rank's ``[m, K, B, ...]`` batches: returns
+        the new state and the ``[W]`` per-worker window-mean losses of every
+        rank, worker-major."""
         disc = self.discipline
         new_locals, new_opts, new_bufs, losses = [], [], [], []
-        for w in range(self.num_workers):
-            start = state.center if disc.pulls_center else state.locals_[w]
+        for j, w in enumerate(self.local_workers):
+            start = state.center if disc.pulls_center else state.locals_[j]
             params, opt, bufs, step_losses = self._local_loop(
-                start, state.opt_state[w], xs[w], ys[w],
+                start, state.opt_state[j], xs[j], ys[j],
                 rng=derive_seed(state.rng, w),
                 state=(None if state.model_state is None
-                       else state.model_state[w]))
+                       else state.model_state[j]))
             new_locals.append(params)
             new_opts.append(opt)
             new_bufs.append(bufs)
             losses.append(step_losses.mean())
-        loss = torch.stack(losses)
+        # all_gather gives [ranks, m]; worker-major reshape -> [W]
+        loss = collectives.all_gather(torch.stack(losses)).reshape(-1)
         next_rng = derive_seed(state.rng)
         if self.nan_guard:
             # The round's one host read of the [W] losses; the divergence
@@ -298,17 +396,34 @@ class AsyncEngine(RoundEngine):
                 # accounting.
                 return state._replace(rng=next_rng), loss
         fold = disc.fold(state.center, new_locals, state.fold_state,
-                         window=self.window, num_workers=self.num_workers)
+                         window=self.window, num_workers=self.num_workers,
+                         worker_ids=self.local_workers,
+                         reduce=lambda t: collectives.all_reduce(t, "sum"))
         model_state = None
         if state.model_state is not None:
             model_state = new_bufs
             if disc.syncs_state:
                 # Running statistics average over the workers (they are
-                # not gradient-like deltas); ensemble members keep their own.
-                mean = mean_buffers(new_bufs)
-                model_state = [mean] * self.num_workers
+                # not gradient-like deltas): the rank's m workers, then the
+                # ranks. Ensemble members keep their own.
+                mean = collectives.all_reduce(mean_buffers(new_bufs), "mean")
+                model_state = [mean] * len(self.local_workers)
         return EngineState(fold.center, fold.locals_, new_opts,
                            fold.fold_state, next_rng, model_state), loss
+
+
+def _to(tree, device):
+    """``tree`` (dicts, lists, tuples and NamedTuples over tensors and
+    scalars) with every tensor on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
 
 
 def _poison_rows(x: torch.Tensor, kind: str, idx: int) -> torch.Tensor:
@@ -328,23 +443,46 @@ def _poison_rows(x: torch.Tensor, kind: str, idx: int) -> torch.Tensor:
     return x
 
 
-def _maybe_poison_round(r: int, xs: torch.Tensor) -> torch.Tensor:
-    """Apply any scheduled nan/inf batch fault for round ``r`` (one-shot)."""
+def _maybe_poison_round(r: int, xs: torch.Tensor,
+                        local_workers=None, num_workers=None) -> torch.Tensor:
+    """Apply any scheduled nan/inf batch fault for round ``r`` (one-shot).
+    The poisoned worker is drawn over the ``num_workers`` global workers;
+    ``xs`` holds ``local_workers``' rows (all of them by default), and a
+    rank that does not carry the poisoned worker consumes the fault with
+    nothing to poison: the gathered losses still skip the round on every
+    rank."""
     fp = faults.active_plan()
     if fp is None:
         return xs
     kind = fp.batch_fault(r)
     if kind is None:
         return xs
-    return _poison_rows(xs, kind, fp.poison_worker(r, int(xs.shape[0])))
+    W = int(xs.shape[0]) if num_workers is None else int(num_workers)
+    w = fp.poison_worker(r, W)
+    if local_workers is None:
+        return _poison_rows(xs, kind, w)
+    if w not in local_workers:
+        return xs
+    return _poison_rows(xs, kind, local_workers.index(w))
 
 
 def stage_round(engine, plan, r: int):
-    """Gather and device-stage round ``r``'s batch; any scheduled
-    ``nan@r``/``inf@r`` fault poisons the staged features here, the one
-    choke point every engine's staging passes through."""
-    xs, ys = engine._put_batch(*plan.round(r))
-    return _maybe_poison_round(r, xs), ys
+    """Gather and device-stage round ``r``'s batch for this rank's
+    workers; any scheduled ``nan@r``/``inf@r`` fault poisons the staged
+    features here, the one choke point every engine's staging passes
+    through. An in-RAM plan is sliced from ``plan.round(r)``; a sharded
+    plan (``is_local``) across ranks gathers only this rank's workers'
+    rows from disk (``round_local``), as the JAX package's
+    ``_stage_round_raw`` does on a multi-process mesh."""
+    lw = engine.local_workers
+    if len(lw) == engine.num_workers:
+        xs, ys = plan.round(r)
+    elif getattr(plan, "is_local", False):
+        xs, ys = plan.round_local(r, lw)
+    else:
+        xs, ys = engine._local_rows(*plan.round(r))
+    xs, ys = engine._put_batch(xs, ys)
+    return _maybe_poison_round(r, xs, lw, engine.num_workers), ys
 
 
 def run_per_round(engine, plan, state, start_round, on_round):
@@ -439,8 +577,9 @@ def run_stream(engine, items, state=None, on_item=None, start_index=0,
             host.extend(torch.stack(pending).cpu().numpy())
             pending.clear()
 
-    feeder = RoundFeeder(items, lambda batch: engine._put_batch(*batch),
-                         start_round=start_index)
+    feeder = RoundFeeder(
+        items, lambda batch: engine._put_batch(*engine._local_rows(*batch)),
+        start_round=start_index)
     with tele.span("engine_run"):
         try:
             for i, (xs, ys) in feeder:

@@ -12,19 +12,21 @@ in eval mode, so a stateful model predicts with its running statistics
 apply ``model.state``. A sharded store
 (``ShardedDataFrame``) is predicted shard by shard into a new, versioned
 column of the same store (``_predict_sharded``; :func:`vacuum` reclaims
-superseded columns). The forward across several devices and the
-multi-process sharded predictor come with ROADMAP.md Queue 1 item 5 and
-are refused until then.
+superseded columns); across the ranks of a process group each rank
+predicts the shards its own disk holds
+(``_predict_sharded_multiprocess``). ``devices=`` (or ``num_workers=``)
+splits each chunk over several devices, the rows kept in order.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
 import uuid
 from collections import deque
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +39,9 @@ from distkeras_tpu_torch.data.shards import (
     _shard_file,
 )
 from distkeras_tpu_torch.models.base import Model, normalize_features
+from distkeras_tpu_torch.ops import collectives
+from distkeras_tpu_torch.runtime import mesh
+from distkeras_tpu_torch.runtime.device import resolve_device
 
 
 class Predictor:
@@ -126,17 +131,32 @@ def vacuum(path: str) -> int:
     return removed
 
 
-def _refuse_multiprocess() -> None:
-    """The sharded predictor across processes (the JAX package's
-    ``_predict_sharded_multiprocess``, over ``jax.process_count()``) waits
-    for the port's process group."""
-    dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "predicting a sharded store across processes is not ported to "
-            "distkeras_tpu_torch yet; it comes with ROADMAP.md Queue 1 "
-            "item 5 (the torch.distributed group)")
+def _forward_devices(model: Model, num_workers: Optional[int],
+                     devices: Optional[Sequence]) -> list:
+    """The devices one chunk is split over (the JAX package's forward mesh,
+    ``data_mesh(num_workers, devices)``): ``devices`` (torch devices or
+    their names), or the first ``num_workers`` cards visible to this
+    process for a model on the card (the model's device when one), or the
+    model's one device."""
+    if devices is not None:
+        # a card that is not there raises, as every entry point does
+        devs = [resolve_device(d) for d in devices]
+    elif num_workers is None:
+        devs = [model.device]
+    elif model.device.type == "cuda":
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [model.device]
+    if num_workers is not None:
+        if num_workers > len(devs):
+            raise ValueError(
+                f"num_workers={num_workers} exceeds available devices "
+                f"({len(devs)})")
+        devs = devs[:num_workers]
+    if not devs:
+        raise ValueError("devices= is empty")
+    return devs
 
 
 class ModelPredictor(Predictor):
@@ -144,9 +164,11 @@ class ModelPredictor(Predictor):
 
     Parity: reference ``ModelPredictor(keras_model, features_col, output_col)``.
     ``chunk_size`` is the rows of one forward; rows are padded up then
-    trimmed. The chunk runs whole on the model's one device, so
-    ``num_workers`` (the JAX package's mesh width) and ``devices`` (its
-    multi-process forward) are refused but for one worker.
+    trimmed. ``devices`` (torch devices; or ``num_workers``, the first N
+    cards) splits every chunk into equal contiguous parts, one a device,
+    and joins the outputs in row order: the JAX package's forward over a
+    ``data`` mesh, ``chunk_size`` rounded down to a multiple of the device
+    count. By default the chunk runs whole on the model's device.
     """
 
     def __init__(
@@ -159,41 +181,43 @@ class ModelPredictor(Predictor):
         devices=None,
         normalize_uint8: Optional[bool] = None,
     ):
-        if devices is not None:
-            raise NotImplementedError(
-                "devices= (a forward across several devices) is not ported "
-                "to distkeras_tpu_torch yet; the port predicts on the "
-                "model's one device")
-        if num_workers not in (None, 1):
-            raise NotImplementedError(
-                "num_workers= (a forward split over a device mesh) is not "
-                "ported to distkeras_tpu_torch yet; the port predicts on the "
-                "model's one device")
         self.model = model
         self.features_col = features_col
         self.output_col = output_col
+        self.devices = _forward_devices(model, num_workers, devices)
+        W = len(self.devices)
+        # one module a device: the model's own where it lives, a copy
+        # elsewhere (the JAX package replicates its params over the mesh)
+        self._modules = [model.module if d == model.device
+                         else copy.deepcopy(model.module).to(d)
+                         for d in self.devices]
         #: uint8 /255 rule: default from the model (training and inference
         #: must agree on a store's normalization); the kwarg overrides.
         self.normalize_uint8 = (getattr(model, "normalize_uint8", True)
                                 if normalize_uint8 is None
                                 else bool(normalize_uint8))
-        self.chunk_size = max(int(chunk_size), 1)
+        self.chunk_size = max(int(chunk_size) // W, 1) * W
         self._empty_block_cache: Optional[np.ndarray] = None
 
     def _forward(self, x: np.ndarray) -> np.ndarray:
         """The model's outputs for one chunk, in eval mode (no dropout), as
-        host numpy."""
-        module = self.model.module
-        was_training = module.training
-        module.eval()
+        host numpy: split into one contiguous part a device, every part
+        launched before any is read back, joined in row order."""
+        parts = (np.array_split(x, len(self.devices))
+                 if len(self.devices) > 1 else [x])
+        modes = [m.training for m in self._modules]
+        for m in self._modules:
+            m.eval()
         try:
             with torch.inference_mode():
-                xb = normalize_features(
-                    torch.as_tensor(x, device=self.model.device),
-                    self.normalize_uint8)
-                return module(xb).cpu().numpy()
+                outs = [m(normalize_features(torch.as_tensor(p, device=d),
+                                             self.normalize_uint8))
+                        for m, d, p in zip(self._modules, self.devices,
+                                           parts) if len(p)]
+                return np.concatenate([o.cpu().numpy() for o in outs])
         finally:
-            module.train(was_training)
+            for m, mode in zip(self._modules, modes):
+                m.train(mode)
 
     def _empty_block(self, feature_hint: Optional[np.ndarray] = None) -> np.ndarray:
         """Zero-row block with this predictor's exact output tail shape and
@@ -326,8 +350,10 @@ class ModelPredictor(Predictor):
         the manifest swaps atomically at the end: a crash mid-stream leaves
         the existing column intact. The superseded version goes on the
         manifest's ``garbage`` list (see :func:`vacuum`), and the previous
-        publish's garbage is reclaimed here."""
-        _refuse_multiprocess()
+        publish's garbage is reclaimed here. In a process group of more
+        than one rank, :meth:`_predict_sharded_multiprocess` runs instead."""
+        if mesh.world_size() > 1:
+            return self._predict_sharded_multiprocess(sdf)
         store = sdf.store
         if store.count() == 0:
             raise ValueError(f"store {store.path} has no rows to predict")
@@ -355,6 +381,104 @@ class ModelPredictor(Predictor):
         manifest["columns"][self.output_col] = colspec
         _rotate_garbage(manifest, old_physical)
         _publish_manifest(store.path, manifest)
+        for stale in prior_garbage:
+            _unlink_column_files(store.path, stale, store.num_shards)
+        return ShardedDataFrame(ShardStore.open(store.path),
+                                num_partitions=sdf.num_partitions)
+
+
+    def _shard_assignment(self, store, nproc: int, pid: int) -> list:
+        """Which global shards this rank predicts, by residency.
+
+        A host may hold only the shard files its own workers read
+        (``data/shards.py``), so a contiguous split could ask a rank for
+        shards it does not hold. Each rank reports which feature shards are
+        on its disk, the bitmaps are all-gathered, and:
+
+        * every rank holds everything (a shared filesystem): balanced
+          contiguous ranges;
+        * partial residency: shard ``s`` goes to its ``s % n_holders``-th
+          holder (deterministic from the gathered bitmap);
+        * a shard nobody holds: a contract error naming it.
+        """
+        S = store.num_shards
+        fcol = store.columns.get(self.features_col, {})
+        physical_feat = (fcol.get("file", self.features_col)
+                         if isinstance(fcol, dict) else self.features_col)
+        present = np.array(
+            [os.path.exists(os.path.join(
+                store.path, _shard_file(s, physical_feat)))
+             for s in range(S)], dtype=np.int32)
+        held = np.stack(collectives.all_gather_object(present))
+        held = held.reshape(nproc, S)
+        if held.all():  # shared filesystem: balanced contiguous split
+            return list(range(pid * S // nproc, (pid + 1) * S // nproc))
+        orphans = np.flatnonzero(held.sum(axis=0) == 0)
+        if orphans.size:
+            raise ValueError(
+                f"sharded predict residency contract violated: feature "
+                f"shards {orphans.tolist()} of column "
+                f"{self.features_col!r} are present on NO process's disk. "
+                "Multi-process predict runs where the data lives: every "
+                "shard must be held by at least one process (or use a "
+                "shared filesystem).")
+        mine = []
+        for s in range(S):
+            holders = np.flatnonzero(held[:, s])
+            if holders[s % len(holders)] == pid:
+                mine.append(s)
+        return mine
+
+    def _predict_sharded_multiprocess(self, sdf) -> ShardedDataFrame:
+        """Out-of-core inference across the ranks of a process group.
+
+        Each rank takes the shards its own disk holds
+        (:meth:`_shard_assignment`) and runs its own forward: no collective
+        per chunk, so ranks with different chunk counts cannot deadlock.
+        Output files keep the global shard ids (beside their features). The
+        column spec is derived from one zero-row forward, so every rank,
+        one that owned no shard included, computes the same manifest and
+        publishes it after a barrier (its own tmp file, then a rename).
+        Re-predicting a column writes a fresh versioned physical name,
+        agreed across ranks (rank 0's draw, broadcast); the superseded one
+        joins ``garbage``, and what the previous publish deferred is
+        reclaimed after this publish's barrier, each rank cleaning what its
+        disk holds."""
+        store = sdf.store
+        if store.count() == 0:
+            raise ValueError(f"store {store.path} has no rows to predict")
+        nproc, pid = mesh.world_size(), mesh.rank()
+        my_shards = self._shard_assignment(store, nproc, pid)
+
+        physical = self.output_col
+        old_physical = None
+        if self.output_col in store.columns:
+            old = store.columns[self.output_col]
+            old_physical = (old.get("file", self.output_col)
+                            if isinstance(old, dict) else self.output_col)
+            tag = collectives.broadcast_object(uuid.uuid4().hex[:8])
+            physical = f"{self.output_col}.{tag}"
+
+        prior_garbage = list(store.manifest.get("garbage", []))
+        source = (store.read_shard(s, self.features_col) for s in my_shards)
+        for s, out in zip(my_shards,
+                          _observe_shards(self.predict_stream(source))):
+            np.save(os.path.join(store.path, _shard_file(s, physical)), out)
+
+        # The column spec, whatever shards this rank owned.
+        fshape, fdtype = store.column_spec(self.features_col)
+        empty = self._empty_block(np.zeros((0,) + fshape, fdtype))
+        colspec: dict = {"dtype": str(empty.dtype),
+                         "shape": list(empty.shape[1:])}
+        if physical != self.output_col:
+            colspec["file"] = physical
+        collectives.barrier()
+        manifest = dict(store.manifest)
+        manifest["columns"] = dict(manifest["columns"])
+        manifest["columns"][self.output_col] = colspec
+        _rotate_garbage(manifest, old_physical)
+        _publish_manifest(store.path, manifest, tag=f".p{pid}")
+        collectives.barrier()
         for stale in prior_garbage:
             _unlink_column_files(store.path, stale, store.num_shards)
         return ShardedDataFrame(ShardStore.open(store.path),

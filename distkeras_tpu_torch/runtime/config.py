@@ -64,7 +64,7 @@ class EnvVar:
     default: object
     doc: str
     # "observability" | "resilience" | "network" | "serving" | "data" |
-    # "sim" | "fleet"
+    # "sim" | "fleet" | "interop" | "ranks"
     category: str
 
 
@@ -486,6 +486,37 @@ ENV_REGISTRY: dict = _declare(
            "Per-job budget of crashed-worker restarts the FleetScheduler "
            "performs before declaring the job failed and draining it.",
            "fleet"),
+    # Interop variables (not DKTPU_-prefixed): written, never branched on.
+    EnvVar("KERAS_BACKEND", "str", "",
+           "Set (never read for branching) to `torch` before any keras "
+           "import so the Keras-3 adapter runs on the torch backend.",
+           "interop"),
+    EnvVar("KERAS_HOME", "str", "",
+           "Written by `utils.set_keras_base_directory` (reference-parity "
+           "shim) to point Keras-3's home at `<path>/.keras`.",
+           "interop"),
+    # The process group's rendezvous (torch.distributed's env:// names),
+    # rendered by job_deployment.Job and read by
+    # runtime.mesh.distributed_initialize.
+    EnvVar("MASTER_ADDR", "str", "",
+           "Host of rank 0's rendezvous store (torch.distributed); "
+           "`Job` renders the first host.",
+           "ranks"),
+    EnvVar("MASTER_PORT", "int", 0,
+           "Port of rank 0's rendezvous store; `Job` renders a "
+           "pool-allocated port.",
+           "ranks"),
+    EnvVar("WORLD_SIZE", "int", 0,
+           "Ranks in the process group (one per host line of the "
+           "punchcard); 0 = no group.",
+           "ranks"),
+    EnvVar("RANK", "int", 0,
+           "This process's rank in the group.",
+           "ranks"),
+    EnvVar("LOCAL_RANK", "int", 0,
+           "This process's card on its host (`cuda:LOCAL_RANK`); `Job` "
+           "renders 0, one rank a host.",
+           "ranks"),
 )
 
 _FALSE_STRINGS = frozenset({"0", "false", "no", "off"})
@@ -550,3 +581,14 @@ def env_is_set(name: str) -> bool:
     knob)."""
     _registered(name)
     return name in os.environ
+
+
+def env_set(name: str, value: str) -> None:
+    """Write a registered variable (interop shims only)."""
+    _registered(name)
+    os.environ[name] = value
+
+
+def env_setdefault(name: str, value: str) -> str:
+    _registered(name)
+    return os.environ.setdefault(name, value)

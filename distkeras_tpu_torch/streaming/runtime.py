@@ -378,7 +378,7 @@ class StreamingTraining:
         lock: blocking the commit path on an in-flight checkpoint save
         just to set a sticky bool would serialize drift detection behind
         the checkpoint's I/O."""
-        self._ckpt_due = True
+        self._ckpt_due = True  # dk: disable=DK202 - sticky flag, cleared under _ckpt_lock
 
     def _commit_done(self, rec, loss: float, staleness: int, client) -> None:
         suffix = telemetry.label_suffix()
@@ -405,7 +405,7 @@ class StreamingTraining:
 
     def _maybe_checkpoint(self, client, force: bool = False) -> None:
         if not self.checkpoint_dir:
-            self._ckpt_due = False
+            self._ckpt_due = False  # dk: disable=DK202 - no checkpointing: flag is inert
             return
         n = (self.journal.items_committed if self.journal
              else self.queue.committed)

@@ -2,7 +2,11 @@
 
 Same names, same constructor kwargs, same ``train(dataframe) -> model``
 entry point. Underneath, ``num_workers`` logical workers run on the model's
-one device, on the card unless the model was built with ``device="cpu"``:
+device, on the card unless the model was built with ``device="cpu"``; in a
+``torch.distributed`` group (``runtime/mesh.py distributed_initialize``)
+each rank carries ``num_workers / ranks`` of them, under the reference's
+``_mesh`` rule with ranks for chips (``runtime/mesh.py
+workers_per_rank``), and a checkpoint holds every rank's workers; all
 through :class:`~distkeras_tpu_torch.parallel.engine.AsyncEngine`
 (``parallel/disciplines.py`` folds, ``workers.py`` local steps) for the
 discipline trainers, and through
@@ -47,6 +51,7 @@ import torch
 from distkeras_tpu_torch.data.batching import make_batches
 from distkeras_tpu_torch.data.dataframe import DataFrame
 from distkeras_tpu_torch.models.base import Model, mean_buffers, pack_buffers
+from distkeras_tpu_torch.ops import collectives
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.optimizers import get_optimizer, sgd
 from distkeras_tpu_torch.parallel.disciplines import (
@@ -255,7 +260,9 @@ class Trainer:
             host = ckpt.restore_host(engine.host_state(saved_w), step=step,
                                      verify=True)
             return engine.adopt_state(host), start
-        state = ckpt.restore(engine.init_state(), step=step, verify=True)
+        # Every rank restores the whole state and keeps its own slice.
+        state = engine.local_state(ckpt.restore(
+            engine.restore_target(), step=step, verify=True))
         if resized:
             # W-independent state (SyncEngine) restores exactly under a
             # resize; data progress still rescales so the resumed run
@@ -362,7 +369,8 @@ class Trainer:
                 step_offset = latest + 1
         if state is None:
             state = engine.init_state()
-        if self.metrics_path:
+        if self.metrics_path and collectives.is_main_process():
+            # One log a run: rank 0's (every rank sees the same [W] losses).
             from distkeras_tpu_torch.metrics import MetricsLogger
             from distkeras_tpu_torch.telemetry.training import (
                 DisciplineMonitor,
@@ -399,7 +407,9 @@ class Trainer:
             # the save due, to retry at the next round instead of silently
             # dropping it.
             if save_due[0] and st is not None:
-                if ckpt.save(r + step_offset, st, meta=_meta(r)):
+                # Every rank takes part: the gather, then rank 0 writes.
+                if ckpt.save(r + step_offset, engine.global_state(st),
+                             meta=_meta(r)):
                     save_due[0] = False
 
         import contextlib
@@ -417,7 +427,8 @@ class Trainer:
                 latest_now = ckpt.latest_step()
                 step = max(final_r + step_offset,
                            (-1 if latest_now is None else latest_now) + 1)
-                ckpt.save(step, state, meta=_meta(final_r))
+                ckpt.save(step, engine.global_state(state),
+                          meta=_meta(final_r))
             # Happy path closes UNsuppressed: a failed close must surface.
             # (Checkpoint saves are synchronous: nothing of theirs is open.)
             if logger is not None:
@@ -430,6 +441,9 @@ class Trainer:
             if not done and logger is not None:
                 with contextlib.suppress(Exception):
                     logger.close()
+        # Every worker's state, on every rank (the ensemble trainers read
+        # all the locals).
+        state = engine.global_state(state)
         losses = np.asarray(losses)
         if losses.ndim == 2:
             self.worker_histories = losses.T
@@ -520,8 +534,8 @@ class SingleTrainer(Trainer):
 
 class DistributedTrainer(Trainer):
     """Base for multi-worker trainers (reference ``DistributedTrainer``).
-    ``num_workers`` is a logical worker count; every worker runs on the
-    model's device (``None`` means one worker)."""
+    ``num_workers`` is a logical worker count (``None`` means one worker),
+    ``num_workers / ranks`` of them on each rank's device."""
 
     num_workers = _config_prop("num_workers")
 

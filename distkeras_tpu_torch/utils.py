@@ -13,6 +13,7 @@ import numpy as np
 
 from distkeras_tpu_torch.data.dataframe import DataFrame
 from distkeras_tpu_torch.models.base import Model, uniform_weights  # noqa: F401 (re-export)
+from distkeras_tpu_torch.runtime import config
 from distkeras_tpu_torch.runtime.serialization import (
     deserialize_model,
     serialize_model,
@@ -25,7 +26,7 @@ def set_keras_base_directory(path: str = ".") -> None:
     Nothing in the port touches a Keras home directory, but ported
     notebooks may still call it, so it accepts the call and points Keras
     3's home (``KERAS_HOME``) at ``<path>/.keras``."""
-    os.environ["KERAS_HOME"] = os.path.join(path, ".keras")
+    config.env_set("KERAS_HOME", os.path.join(path, ".keras"))
 
 
 def serialize_keras_model(model: Model) -> bytes:

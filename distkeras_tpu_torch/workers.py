@@ -54,6 +54,7 @@ def make_local_loop(
     grad_accum: int = 1,
     input_transform: Optional[Callable] = None,
     normalize_uint8: bool = True,
+    grad_transform: Optional[Callable] = None,
 ):
     """Build ``local_steps(params, opt_state, xs, ys, rng, state) ->
     (params, opt_state, state, losses)``.
@@ -88,6 +89,10 @@ def make_local_loop(
     augmentation is deterministic in (seed, round, worker, step), survives
     a checkpoint and resume exactly, and leaves the dropout seeds the same
     with or without it.
+
+    ``grad_transform(grads, loss) -> (grads, loss)`` runs after each
+    step's backward (after the ``grad_accum`` mean), before the optimizer
+    update: the sync engine's gradient all-reduce hook across ranks.
 
     ``state_collections`` names the model's mutable collections
     (``Model.state_collections``: BatchNorm running statistics); ``state``
@@ -171,6 +176,8 @@ def make_local_loop(
                     gen.manual_seed(derive_seed(rng, k, 0, AUGMENT_STREAM))
                     x, y = input_transform(gen, x, y)
                 loss, state, grads = grad_of_step(params, state, x, y, rng, k)
+                if grad_transform is not None:
+                    grads, loss = grad_transform(grads, loss)
                 updates, opt_state = tx.update(grads, opt_state, params)
                 params = apply_updates(params, updates)
                 losses.append(loss)

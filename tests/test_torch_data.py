@@ -102,3 +102,27 @@ def test_run_config_maps_dtypes_to_torch():
     assert RunConfig(compute_dtype="bfloat16").dtype is torch.bfloat16
     assert RunConfig(compute_dtype="float32").replace(
         batch_size=7).batch_size == 7
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n=64, vocab_size=32, seq_len=16),
+    dict(n=17, vocab_size=101, seq_len=9, seed=5),
+])
+def test_synthetic_lm_is_bit_equal_to_jax(kw):
+    from distkeras_tpu.datasets import synthetic_lm as jax_synthetic_lm
+    from distkeras_tpu_torch.datasets import synthetic_lm
+
+    mine, ref = synthetic_lm(**kw), jax_synthetic_lm(**kw)
+    for col in ("features", "label"):
+        assert mine[col].dtype == ref[col].dtype
+        np.testing.assert_array_equal(mine[col], ref[col])
+    assert mine.synthetic is True
+
+
+def test_synthetic_lm_is_next_token_shifted():
+    from distkeras_tpu_torch.datasets import synthetic_lm
+
+    df = synthetic_lm(n=64, vocab_size=32, seq_len=16)
+    assert df["features"].shape == (64, 15) == df["label"].shape
+    np.testing.assert_array_equal(df["features"][:, 1:], df["label"][:, :-1])
+    assert df["features"].max() < 32

@@ -293,3 +293,39 @@ def test_keras_is_imported_only_inside_the_adapters_functions():
         assert not any(n.split(".")[0] == "keras" for n in names), path
         if path.name != "keras_adapter.py":
             assert "import keras" not in path.read_text(), path
+
+
+@pytest.mark.parametrize("module", [
+    "distkeras_tpu_torch.runtime.mesh",
+    "distkeras_tpu_torch.ops.collectives",
+    "distkeras_tpu_torch.roofline",
+    "distkeras_tpu_torch.job_deployment"])
+def test_rank_plane_modules_load_no_jax(module):
+    """The process group, its collectives, the scaling model and the job
+    launcher, each module on its own."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_a_group_asked_for_nccl_without_a_card_raises(monkeypatch):
+    """No fallback to gloo or to one rank: NCCL without a card (the
+    default device is the card) raises, and so does NCCL on the CPU; no
+    group is left behind."""
+    from distkeras_tpu_torch.runtime import mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rendezvous = dict(master_addr="127.0.0.1", master_port=1, world_size=1,
+                      rank=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.distributed_initialize(backend="nccl", **rendezvous)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.distributed_initialize(**rendezvous)
+    with pytest.raises(ValueError, match="NCCL backend needs a CUDA"):
+        mesh.distributed_initialize(backend="nccl", device="cpu",
+                                    **rendezvous)
+    assert not mesh.group_active() and mesh.rank_device() is None

@@ -185,11 +185,14 @@ def test_predict_stream_over_uneven_microbatches_equals_predict(models, cls):
         assert b.shape == ref_empty.shape and b.dtype == ref_empty.dtype
 
 
-def test_sharded_frames_and_devices_are_refused(models, tmp_path):
+def test_sharded_frames_and_devices_are_refused(models, tmp_path,
+                                                monkeypatch):
     """Sharded frames are ported (tests/test_torch_shards.py holds them to
     the JAX package): the predictors and evaluators take a store and give
     its in-RAM values, ``vacuum`` reclaims a superseded column. A forward
-    across several devices stays refused."""
+    across several devices is ported too
+    (tests/test_torch_predict_ranks.py): it is refused only for devices
+    that are not there, as every entry point refuses a missing card."""
     from distkeras_tpu_torch.data import ShardedDataFrame, write_shards
 
     _, pm = models
@@ -208,9 +211,10 @@ def test_sharded_frames_and_devices_are_refused(models, tmp_path):
     assert P.vacuum(str(tmp_path)) == 0
     P.ModelPredictor(pm, **kw).predict(out)
     assert P.vacuum(str(tmp_path)) == out.store.num_shards
-    with pytest.raises(NotImplementedError, match="devices"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         P.ModelPredictor(pm, devices=["cuda:0", "cuda:1"])
-    with pytest.raises(NotImplementedError, match="num_workers"):
+    with pytest.raises(ValueError, match="num_workers=2 exceeds"):
         P.ModelPredictor(pm, num_workers=2)
     assert P.ModelPredictor(pm, num_workers=1, chunk_size=7).chunk_size == 7
 
