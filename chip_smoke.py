@@ -761,12 +761,15 @@ LM_ROUNDS = 2
 #: (D = 40, run at 48); each of those at least 1024 rows (B*L*H), since
 #: one order-flipped bf16 rounding of p moves a whole output row and over
 #: fewer rows can alone pass the mean limit (an earlier forward at [1, 72,
-#: 2, 64] f32 read 1.22e-5, its largest error 4.5e-4); last the MoE LM's
-#: (``moe_train``: MOE_BATCH, MOE_SEQ, 8 heads of 32).
+#: 2, 64] f32 read 1.22e-5, its largest error 4.5e-4); then the MoE LM's
+#: (``moe_train``: MOE_BATCH, MOE_SEQ, 8 heads of 32); last one rank's
+#: share of config #6's heads under two-way tensor parallelism (the
+#: ``parallel`` phase's parts b and e: 8 of the 16 heads).
+TP_FLASH_SHAPE = (8, LM_SEQ, LM["num_heads"] // 2, 64)
 FLASH_SHAPES = ((8, LM_SEQ, 16, 64), (2, 40, 4, 64), (2, 200, 4, 64),
                 (2, 256, 4, 32), (1, LM_SEQ, 1, 64), (4, 72, 4, 64),
                 (2, 136, 4, 128), (2, 1024, 1, 64), (1, 512, 2, 128),
-                (2, 512, 2, 40), (8, 512, 8, 32))
+                (2, 512, 2, 40), (8, 512, 8, 32), TP_FLASH_SHAPE)
 #: flash kernels vs their twins, as shares of the twin's largest (``top``)
 #: and mean (``mean``) magnitude. f32: the same bf16 rounding points and
 #: only the order of the f32 sums differs, so the mean error is f32 level;
@@ -780,10 +783,12 @@ FLASH_LSE_ATOL = 1e-5
 #: the shapes at which the f32 forward's and backward's errors against the
 #: twins are attributed to bf16 rounding flips (``flash_flips.
 #: forward_flips``, ``backward_flips``): each of FLASH_SHAPES but config
-#: #7's, and two with few rows (B*L*H 272 and 144) where one flip of p or
-#: ds can alone pass the mean limit, so that only this measure, which rows
-#: cannot dilute, holds them.
-FLASH_FLIP_SHAPES = tuple(s for s in FLASH_SHAPES if s != FLASH_SHAPES[0]) \
+#: #7's and its tensor-parallel share (over 10^5 rows each, which the mean
+#: limit holds), and two with few rows (B*L*H 272 and 144) where one flip
+#: of p or ds can alone pass the mean limit, so that only this measure,
+#: which rows cannot dilute, holds them.
+FLASH_FLIP_SHAPES = tuple(s for s in FLASH_SHAPES
+                          if s not in (FLASH_SHAPES[0], TP_FLASH_SHAPE)) \
     + ((1, 136, 2, 128), (1, 72, 2, 64))
 #: the small transformer run on the card and on the CPU from one seed
 #: (2 layers, d_model 128, 4 heads of 32, d_ff 512, vocab 1024, L 256,
@@ -9938,15 +9943,556 @@ def ranks_phase(torch, gpu: str, seed: int, center: dict,
     return launches
 
 
+
+# -- the model-parallel engines -----------------------------------------------
+
+#: ``parallel``: config #6 (bench.py ``transformer_lm_flash``: the
+#: TransformerLM at LM's widths, flash attention, no remat, adam 1e-4,
+#: batch 8 at length 2048) through ``ParallelTrainer(parallel={"data":
+#: 1})`` on a one-rank NCCL group, PAR_A_ROUNDS rounds of 2 steps in bf16
+#: (part a); then two gloo ranks sharing the card (NCCL refuses two ranks
+#: on one device) run, in turn, config #6's widths cut to PAR_LAYERS
+#: layers under tensor (b), pipeline (c) and sequence (d) parallelism,
+#: config #7's model (flash, remat) cut alike under AEASGD with
+#: ``parallel={"model": 2}`` (e), and ``moe_train``'s MoE LM with its
+#: experts split over two ranks (f); (g) is config #8's center over two
+#: devices (two shards on the one card) in this process.
+PAR_A = dict(worker_optimizer="adam", learning_rate=1e-4, batch_size=8,
+             steps_per_program=2)
+PAR_A_ROUNDS = 2
+PAR_LAYERS = 2
+#: (c) runs f32 sgd (no adam step turns rounding noise into a step of
+#: about lr), at this rate
+PAR_PIPE = dict(worker_optimizer="sgd", learning_rate=1e-2, batch_size=8,
+                steps_per_program=2, num_microbatches=4)
+#: (c)'s f32 limit: the pipelined and one-process runs are one function,
+#: summed in another order (the microbatches change the matmuls' shapes)
+PAR_PIPE_ATOL = 1e-5
+PAR_E = dict(num_workers=1, batch_size=8, communication_window=2,
+             learning_rate=1e-4, rho=500.0)
+PAR_MOE = dict(worker_optimizer="adam", learning_rate=MOE_PEAK_LR,
+               batch_size=MOE_BATCH, steps_per_program=2,
+               aux_loss_weight=0.01)
+PAR_PARTS = {"nccl1": 1, "gloo2": 2}
+PAR_TIMEOUT_S = 600.0
+
+
+def par_lm(torch, seed: int, layers: int, device: str, **kw):
+    from distkeras_tpu_torch import small_transformer_lm
+
+    return small_transformer_lm(**dict(LM, num_layers=layers),
+                                seq_len=LM_SEQ, seed=seed, device=device,
+                                **kw)
+
+
+def par_frame(rows: int, seed: int):
+    return lm_frame(rows, LM["vocab_size"], LM_SEQ, seed)
+
+
+def par_moe_frame(seed: int):
+    return lm_frame(2 * MOE_BATCH, MOE["vocab_size"], MOE_SEQ, seed + 5)
+
+
+def flops_per_token(model) -> float:
+    """bench.py's train FLOPs a token: 6 x the matmul parameters (every
+    parameter but the embeddings) + 6 x L x d_model a layer (the causal
+    scores and values)."""
+    cfg = model.module.config
+    p_embed = (cfg["vocab_size"] + cfg["max_seq_len"]) * cfg["d_model"]
+    p_mm = sum(p.numel() for p in model.params.values()) - p_embed
+    return 6 * p_mm + 6 * LM_SEQ * cfg["d_model"] * cfg["num_layers"]
+
+
+def par_train(torch, FA, F, trainer, df, dtype=None) -> dict:
+    """``trainer.train(df)`` with every count set to 0 just before and
+    read just after; the trained params on the host."""
+    from distkeras_tpu_torch.ops import collectives
+
+    collectives.reset_host_staged()
+    torch.cuda.synchronize()
+    collectives.barrier()
+    FA.reset_launches()
+    F.reset_launches()
+    t0 = time.perf_counter()
+    trained = trainer.train(df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"params": {k: v.detach().cpu() for k, v in
+                       trained.params.items()},
+            "launches": FA.launch_counts(),
+            "entries": {k: v for k, v in
+                        FA.launch_counts(by_entry=True).items() if v},
+            "seconds": wall, "history": [float(h) for h in
+                                         trainer.get_history()],
+            "host_staged": dict(collectives.HOST_STAGED)}
+
+
+def parallel_child(part: str, out: str, seed: str) -> int:
+    """One rank of the ``parallel`` phase (``--parallel-child PART OUT
+    SEED``), in the environment ``Job`` rendered: ``nccl1`` runs (a) on a
+    one-rank NCCL group; ``gloo2`` runs (b) to (f) in turn on two gloo
+    ranks sharing the card. Each part's launch counts are set to 0 just
+    before its run and read just after; the results go to
+    ``OUT/PART-rank<r>.pt``. It prints nothing."""
+    import torch
+
+    from distkeras_tpu_torch import AEASGD, ParallelTrainer
+    from distkeras_tpu_torch.ops.kernels import build
+    from distkeras_tpu_torch.ops.kernels import flash_attention as FA
+    from distkeras_tpu_torch.ops.kernels import fold as F
+    from distkeras_tpu_torch.runtime import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build(["flash_attn", "fold"])
+    seed = int(seed)
+    mesh.distributed_initialize(
+        backend="nccl" if part == "nccl1" else "gloo", timeout=300)
+    r = mesh.rank()
+    res = {"rank": r, "world": mesh.world_size(),
+           "backend": torch.distributed.get_backend()}
+    loss = "sparse_categorical_crossentropy"
+    if part == "nccl1":
+        model = par_lm(torch, seed, LM["num_layers"], "cuda",
+                       attn_impl="flash")
+        df = par_frame(PAR_A_ROUNDS * 2 * PAR_A["batch_size"], seed)
+        t = ParallelTrainer(model, parallel={"data": 1}, loss=loss,
+                            compute_dtype="bfloat16", **PAR_A)
+        res["a"] = par_train(torch, FA, F, t, df)
+        res["a"]["strategy"] = t._resolve_strategy()
+        res["a"]["flops_per_token"] = flops_per_token(model)
+    else:
+        rows = 2 * PAR_A["batch_size"]
+        df = par_frame(rows, seed + 1)
+        model = par_lm(torch, seed, PAR_LAYERS, "cuda", attn_impl="flash")
+        t = ParallelTrainer(model, parallel={"data": 1, "model": 2},
+                            loss=loss, compute_dtype="bfloat16", **PAR_A)
+        res["b"] = par_train(torch, FA, F, t, df)
+        model = par_lm(torch, seed, PAR_LAYERS, "cuda")
+        t = ParallelTrainer(model, parallel={"data": 1, "pipe": 2},
+                            loss=loss, **PAR_PIPE)
+        res["c"] = par_train(torch, FA, F, t, df)
+        model = par_lm(torch, seed, PAR_LAYERS, "cuda", seq_axis="seq",
+                       attn_impl="ring")
+        t = ParallelTrainer(model, parallel={"data": 1, "seq": 2},
+                            loss=loss, compute_dtype="bfloat16", **PAR_A)
+        res["d"] = par_train(torch, FA, F, t, df)
+        model = par_lm(torch, seed, PAR_LAYERS, "cuda", attn_impl="flash",
+                       remat=True)
+        t = AEASGD(model, "adam", loss, parallel={"model": 2},
+                   compute_dtype="bfloat16", **PAR_E)
+        res["e"] = par_train(torch, FA, F, t, df)
+        model = moe_build(torch, seed, 1, "cuda")
+        ref = torch.load(os.path.join(out, "moe_ref.pt"), weights_only=True)
+        rec = routing_recorder(model, ref)
+        t = ParallelTrainer(model, parallel={"data": 1, "expert": 2},
+                            loss=loss, compute_dtype="bfloat16", **PAR_MOE)
+        res["f"] = par_train(torch, FA, F, t, par_moe_frame(seed))
+        res["f"].update(picks_off=rec["off"], picks_off_unexplained=rec["bad"],
+                        router_prob_max_abs_err=rec["max_dp"])
+    torch.save(res, os.path.join(out, f"{part}-rank{r}.pt"))
+    mesh.distributed_shutdown()
+    return 0
+
+
+def par_one(torch, FA, F, model, df, **kw) -> dict:
+    """The one-process run: ``ParallelTrainer(parallel={"data": 1})`` with
+    no group (or the async trainer given as ``trainer``)."""
+    from distkeras_tpu_torch import ParallelTrainer
+
+    make = kw.pop("trainer", None)
+    t = (make(model) if make is not None else ParallelTrainer(
+        model, loss="sparse_categorical_crossentropy", **kw))
+    out = par_train(torch, FA, F, t, df)
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_references(torch, FA, F, seed: int) -> dict:
+    """The one-process runs that (b) to (e) are held to, each beside its
+    f32 yardstick where the part runs bf16 (the bf16 limit is
+    ``BF16_PARITY_SHARE`` of the one-process bf16-vs-f32 distance, as
+    ``transformer_parity`` holds the card to the CPU)."""
+    from distkeras_tpu_torch import AEASGD
+
+    df = par_frame(2 * PAR_A["batch_size"], seed + 1)
+    refs = {}
+    for dt in ("bfloat16", "float32"):
+        refs[f"b_{dt}"] = par_one(
+            torch, FA, F, par_lm(torch, seed, PAR_LAYERS, "cuda",
+                                 attn_impl="flash"), df,
+            parallel={"data": 1}, compute_dtype=dt, **PAR_A)
+        refs[f"d_{dt}"] = par_one(
+            torch, FA, F, par_lm(torch, seed, PAR_LAYERS, "cuda",
+                                 seq_axis="seq", attn_impl="ring"), df,
+            parallel={"data": 1}, compute_dtype=dt, **PAR_A)
+        refs[f"e_{dt}"] = par_one(
+            torch, FA, F, par_lm(torch, seed, PAR_LAYERS, "cuda",
+                                 attn_impl="flash", remat=True), df,
+            trainer=lambda m, dt=dt: AEASGD(
+                m, "adam", "sparse_categorical_crossentropy",
+                compute_dtype=dt, **PAR_E))
+    refs["c"] = par_one(torch, FA, F, par_lm(torch, seed, PAR_LAYERS,
+                                             "cuda"), df,
+                        parallel={"data": 1, "pipe": 1}, **PAR_PIPE)
+    refs["init"] = {k: v.detach().cpu() for k, v in par_lm(
+        torch, seed, PAR_LAYERS, "cpu").params.items()}
+    return refs
+
+
+def par_moe_reference(torch, FA, F, seed: int, out: str) -> dict:
+    """The MoE LM's one-process runs: bf16, its routing recorded and saved
+    for (f) to route by, then f32 routed alike (the yardstick)."""
+    runs = {}
+    ref_rec = None
+    for dt in ("bfloat16", "float32"):
+        model = moe_build(torch, seed, 1, "cuda")
+        rec = routing_recorder(model, ref_rec)
+        runs[dt] = par_one(torch, FA, F, model, par_moe_frame(seed),
+                           parallel={"data": 1}, compute_dtype=dt,
+                           **PAR_MOE)
+        if ref_rec is None:
+            ref_rec = rec
+            torch.save({k: ref_rec[k] for k in ("p", "idx", "gap")},
+                       os.path.join(out, "moe_ref.pt"))
+    runs["init"] = {k: v.detach().cpu() for k, v in
+                    moe_build(torch, seed, 1, "cpu").params.items()}
+    return runs
+
+
+def par_plain_loop(torch, seed: int, df) -> tuple:
+    """Config #6's 4 steps as a plain port loop: the model, the loss, adam
+    and ``cast_floats``, on the same batches the trainer's plan gives."""
+    from torch.func import functional_call
+
+    from distkeras_tpu_torch.data.batching import make_batches
+    from distkeras_tpu_torch.ops import cast_floats
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.optimizers import (apply_updates,
+                                                    get_optimizer)
+
+    model = par_lm(torch, seed, LM["num_layers"], "cuda", attn_impl="flash")
+    module = model.module
+    module.train()
+    loss_fn = get_loss("sparse_categorical_crossentropy")
+    tx = get_optimizer("adam", PAR_A["learning_rate"])
+    params = {k: v.detach().clone() for k, v in model.params.items()}
+    opt = tx.init(params)
+    plan = make_batches(df, "features", "label", PAR_A["batch_size"],
+                        num_workers=1, window=PAR_A["steps_per_program"])
+    losses = []
+    for r in range(plan.num_rounds):
+        xs, ys = plan.round(r)
+        for k in range(xs.shape[1]):
+            x = torch.as_tensor(np.ascontiguousarray(xs[0, k])).cuda()
+            y = torch.as_tensor(np.ascontiguousarray(ys[0, k])).cuda()
+            leaves = {n: v.detach().requires_grad_(True)
+                      for n, v in params.items()}
+            out = functional_call(module, cast_floats(leaves,
+                                                      torch.bfloat16), (x,))
+            loss = loss_fn(out.to(torch.float32), y)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+            updates, opt = tx.update(grads, opt, params)
+            params = apply_updates(params, updates)
+            losses.append(loss.item())
+    torch.cuda.synchronize()
+    return {k: v.detach().cpu() for k, v in params.items()}, losses
+
+
+def par_mesh_fold(torch, F, seed: int) -> dict:
+    """(g): config #8's center as a ``MeshFolder`` over two devices (two
+    shards on the one card) and over one, folding the same int8 commit:
+    bit-equal, one ``fold_commit`` launch a device shard."""
+    from distkeras_tpu_torch import small_transformer_lm
+    from distkeras_tpu_torch.netps import MeshFolder, wire
+
+    model = small_transformer_lm(**C8, seq_len=C8_SEQ, seed=seed,
+                                 device="cpu")
+    center = [v.detach().float().numpy().copy()
+              for v in model.params.values()]
+    rng = np.random.default_rng(seed + 27)
+    entries = []
+    for a in center:
+        d = rng.normal(scale=1e-3, size=a.shape).astype(np.float32)
+        entries.append(wire.codec_encode(d, "int8"))
+    one = MeshFolder([a.copy() for a in center], device="cuda")
+    two = MeshFolder([a.copy() for a in center],
+                     devices=["cuda:0", "cuda:0"])
+    F.reset_launches()
+    one.fold(entries, 1.0)
+    torch.cuda.synchronize()
+    one_launches = F.launch_counts()["fold_commit"]
+    F.reset_launches()
+    t0 = time.perf_counter()
+    two.fold(entries, 1.0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = F.launch_counts()["fold_commit"]
+    a, b = one.center_host(), two.center_host()
+    split = sum(any(s) for s in two._specs)
+    row = {"tensors": len(center), "tensors_split": split,
+           "devices": [str(d) for d in two.devices],
+           "launches": launches, "one_device_launches": one_launches,
+           "bit_equal": all(x.tobytes() == y.tobytes()
+                            for x, y in zip(a, b)), "seconds": seconds}
+    one.close()
+    two.close()
+    return row
+
+
+def parallel_phase(torch, FA, F, gpu: str, seed: int) -> dict:
+    """``parallel``: the model-parallel engines through the entry points a
+    user calls, each part's ranks launched by the port's ``Job`` on this
+    host (``python chip_smoke.py --parallel-child``); the one-process
+    runs they are held to run here, each alone on the card (before the
+    gloo ranks start), so that every part's seconds are uncontended.
+    No run spans two cards: the machine has one. Returns the launch
+    counts by part."""
+    from distkeras_tpu_torch.job_deployment import Job, Punchcard
+
+    if TP_FLASH_SHAPE not in FLASH_SHAPES or TP_FLASH_SHAPE != (
+            PAR_A["batch_size"], LM_SEQ, LM["num_heads"] // 2,
+            LM["d_model"] // LM["num_heads"]) or PAR_E["batch_size"] != \
+            PAR_A["batch_size"]:
+        fail("parallel: the flash kernels are not held against their twins "
+             "at one rank's heads under tensor parallelism (FLASH_SHAPES)")
+
+    out = os.path.join("build", "parallel")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    jobs = {}
+
+    def launch(part):
+        n = PAR_PARTS[part]
+        card = Punchcard(job_name=f"chip-smoke-parallel-{part}",
+                         script="chip_smoke.py", hosts=["localhost"] * n,
+                         args=["--parallel-child", part, out, str(seed)])
+        job = Job(card, python=sys.executable)
+        jobs[part] = (job, time.perf_counter(), job.launch(dry_run=False))
+
+    def wait(part):
+        job, t0, cmds = jobs[part]
+        rcs = job.supervise(timeout=PAR_TIMEOUT_S)
+        if rcs != [0] * PAR_PARTS[part]:
+            fail(f"parallel {part}: the ranks exited {rcs}")
+        return ([torch.load(os.path.join(out, f"{part}-rank{r}.pt"),
+                            weights_only=False)
+                 for r in range(PAR_PARTS[part])],
+                time.perf_counter() - t0, cmds[0])
+
+    failures = []
+    # (a) config #6 at full size, one NCCL rank, alone on the card; then,
+    # each alone on the card in this process, the plain loop (a) is held
+    # to, (f)'s routing reference and the one-process references; then
+    # (b) to (f) on two gloo ranks
+    launch("nccl1")
+    ranks, job_s, cmd = wait("nccl1")
+    a = ranks[0]["a"]
+    df = par_frame(PAR_A_ROUNDS * 2 * PAR_A["batch_size"], seed)
+    plain, plain_losses = par_plain_loop(torch, seed, df)
+    torch.cuda.empty_cache()
+    bit_equal = all(torch.equal(a["params"][k], v) for k, v in plain.items())
+    apart = center_dist(a["params"], plain, "max")
+    steps = PAR_A_ROUNDS * PAR_A["steps_per_program"]
+    tokens_s = steps * PAR_A["batch_size"] * LM_SEQ / a["seconds"]
+    mfu = a["flops_per_token"] * tokens_s / PEAK_BF16_FLOPS
+    want = {"flash_fwd": LM["num_layers"] * steps,
+            "flash_dq": LM["num_layers"] * steps,
+            "flash_dkv": LM["num_layers"] * steps}
+    emit({"phase": "parallel", "part": "a", "gpu": gpu,
+          "config": "config #6 (bench.py transformer_lm_flash) at full size",
+          **LM, "seq_len": LM_SEQ, "attn_impl": "flash", **PAR_A,
+          "rounds": PAR_A_ROUNDS, "steps": steps, "dtype": "bfloat16",
+          "trainer": "ParallelTrainer(parallel={'data': 1})",
+          "strategy": a["strategy"], "backend": ranks[0]["backend"],
+          "world": ranks[0]["world"], "seconds": a["seconds"],
+          "job_seconds": job_s, "tokens_per_s": tokens_s,
+          "flops_per_token": a["flops_per_token"],
+          "mfu_vs_bf16_peak": mfu, "peak_flops": PEAK_BF16_FLOPS,
+          "launches": a["launches"], "entries": a["entries"],
+          "history": a["history"], "plain_loop_losses": plain_losses,
+          "params_bit_equal_to_plain_loop": bit_equal,
+          "params_max_abs_err_vs_plain_loop": apart,
+          "host_staged": a["host_staged"], "command": cmd})
+    if ranks[0]["backend"] != "nccl" or ranks[0]["world"] != 1:
+        failures.append(f"a ran on {ranks[0]['backend']} over "
+                        f"{ranks[0]['world']} ranks")
+    if a["launches"] != {**a["launches"], **want} or not all(
+            k.endswith("_bf16") for k in a["entries"]):
+        failures.append(f"a launched {a['entries']}, want {want} bf16")
+    if not bit_equal:
+        failures.append(f"a is {apart} from the plain loop, not bit-equal")
+    moe = par_moe_reference(torch, FA, F, seed, out)
+    refs = par_references(torch, FA, F, seed)
+    launch("gloo2")
+    ranks, job_s, cmd = wait("gloo2")
+    if [x["backend"] for x in ranks] != ["gloo"] * 2:
+        failures.append(f"gloo2 ran on {[x['backend'] for x in ranks]}")
+    launches = {"a": a["launches"]}
+
+    def bf16_limit(part, got, one, f32, init, extra):
+        d = center_dist(got, one, "mean")
+        design = center_dist(one, f32, "mean")
+        change = center_dist(one, init, "max")
+        row = {"phase": "parallel", "part": part, "gpu": gpu,
+               "ranks": 2, "backend": "gloo",
+               "params_mean_abs_err_vs_one_process": d,
+               "params_max_abs_err_vs_one_process": center_dist(got, one,
+                                                                 "max"),
+               "one_process_bf16_vs_f32_mean": design,
+               "limit": BF16_PARITY_SHARE * design,
+               "limit_rule": f"{BF16_PARITY_SHARE} x the one-process "
+                             "bf16-vs-f32 mean distance "
+                             "(transformer_parity's bf16 share)",
+               "max_abs_change": change, **extra}
+        emit(row)
+        if not (0 < design and d <= BF16_PARITY_SHARE * design):
+            failures.append(f"{part}: {d} from the one-process run, limit "
+                            f"{BF16_PARITY_SHARE} x {design}")
+
+    def replicated_equal(part, names):
+        p0, p1 = ranks[0][part]["params"], ranks[1][part]["params"]
+        return all(torch.equal(p0[k], p1[k]) for k in names)
+
+    def ranks_equal(part):
+        """Rank 1's gathered parameters bit-equal to rank 0's (which are
+        held to the one-process run): every rank assembled the same whole
+        tensors, and its replicated copies stayed in step."""
+        p0, p1 = ranks[0][part]["params"], ranks[1][part]["params"]
+        same = list(p0) == list(p1) and replicated_equal(part, list(p0))
+        if not same:
+            failures.append(f"{part}: rank 1's gathered parameters differ "
+                            "from rank 0's")
+        return same
+
+    def common(part, x):
+        return {"seconds": [r[part]["seconds"] for r in ranks],
+                "launches": [r[part]["launches"] for r in ranks],
+                "entries": [r[part]["entries"] for r in ranks],
+                "history": x["history"],
+                "host_staged": [r[part]["host_staged"] for r in ranks],
+                "job_seconds": job_s}
+
+    per_rank = {k: PAR_LAYERS * 2 for k in ("flash_fwd", "flash_dq",
+                                            "flash_dkv")}
+    rep_names = [k for k in refs["b_float32"]["params"]
+                 if "ln_" in k or k.endswith("out.bias")
+                 or k.endswith("mlp_down.bias")]
+    b = ranks[0]["b"]
+    bf16_limit("b", b["params"], refs["b_bfloat16"]["params"],
+               refs["b_float32"]["params"], refs["init"], {
+                   "grid": {"data": 1, "model": 2}, "layers": PAR_LAYERS,
+                   "heads_per_rank": LM["num_heads"] // 2,
+                   "replicated_bit_equal_across_ranks":
+                       replicated_equal("b", rep_names),
+                   "gathered_bit_equal_across_ranks": ranks_equal("b"),
+                   "tokens_per_s": 2 * PAR_A["batch_size"] * LM_SEQ
+                   / max(r["b"]["seconds"] for r in ranks),
+                   **common("b", b)})
+    for r in ranks:
+        if {**r["b"]["launches"], **per_rank} != r["b"]["launches"] or \
+                not all(k.endswith("_bf16") for k in r["b"]["entries"]):
+            failures.append(f"b: rank {r['rank']} launched "
+                            f"{r['b']['entries']}, want {per_rank} bf16")
+    c = ranks[0]["c"]
+    c_err = center_dist(c["params"], refs["c"]["params"], "max")
+    emit({"phase": "parallel", "part": "c", "gpu": gpu, "ranks": 2,
+          "grid": {"data": 1, "pipe": 2}, "layers": PAR_LAYERS,
+          "dtype": "float32", "attn_impl": "dense (the engine's stages)",
+          **PAR_PIPE, "params_max_abs_err_vs_one_process": c_err,
+          "limit": PAR_PIPE_ATOL,
+          "max_abs_change": center_dist(refs["c"]["params"], refs["init"],
+                                        "max"),
+          "gathered_bit_equal_across_ranks": ranks_equal("c"),
+          **common("c", c)})
+    if not c_err <= PAR_PIPE_ATOL:
+        failures.append(f"c: {c_err} from the one-process run, limit "
+                        f"{PAR_PIPE_ATOL}")
+    if any(sum(r["c"]["launches"].values()) for r in ranks):
+        failures.append("c: a flash kernel launched under dense stages")
+    d = ranks[0]["d"]
+    bf16_limit("d", d["params"], refs["d_bfloat16"]["params"],
+               refs["d_float32"]["params"], refs["init"], {
+                   "grid": {"data": 1, "seq": 2}, "attn_impl": "ring",
+                   "seq_len": LM_SEQ, "seq_per_rank": LM_SEQ // 2,
+                   "gathered_bit_equal_across_ranks": ranks_equal("d"),
+                   **common("d", d)})
+    e = ranks[0]["e"]
+    remat = {"flash_fwd": 2 * PAR_LAYERS * 2, "flash_dq": PAR_LAYERS * 2,
+             "flash_dkv": PAR_LAYERS * 2}
+    bf16_limit("e", e["params"], refs["e_bfloat16"]["params"],
+               refs["e_float32"]["params"], refs["init"], {
+                   "trainer": "AEASGD(parallel={'model': 2})",
+                   "model": "config #7 (flash, remat) cut to 2 layers",
+                   **PAR_E, "want_launches_per_rank": remat,
+                   "gathered_bit_equal_across_ranks": ranks_equal("e"),
+                   **common("e", e)})
+    for r in ranks:
+        if {**r["e"]["launches"], **remat} != r["e"]["launches"]:
+            failures.append(f"e: rank {r['rank']} launched "
+                            f"{r['e']['launches']}, want {remat} under remat")
+    f = ranks[0]["f"]
+    moe_flash = {k: MOE["num_layers"] * 2 for k in per_rank}
+    bf16_limit("f", f["params"], moe["bfloat16"]["params"],
+               moe["float32"]["params"], moe["init"], {
+                   "model": "moe_train's MoETransformerLM (K=1, flash)",
+                   "grid": {"data": 1, "expert": 2},
+                   "experts_per_rank": MOE["num_experts"] // 2, **PAR_MOE,
+                   "routing": "every run routed as the one-process bf16 "
+                              "run (routing_recorder)",
+                   "picks_off": [r["f"]["picks_off"] for r in ranks],
+                   "picks_off_unexplained": [r["f"]["picks_off_unexplained"]
+                                             for r in ranks],
+                   "router_prob_max_abs_err": [
+                       r["f"]["router_prob_max_abs_err"] for r in ranks],
+                   "replicated_bit_equal_across_ranks": replicated_equal(
+                       "f", [k for k in f["params"] if "experts" not in k]),
+                   "gathered_bit_equal_across_ranks": ranks_equal("f"),
+                   **common("f", f)})
+    for r in ranks:
+        if {**r["f"]["launches"], **moe_flash} != r["f"]["launches"]:
+            failures.append(f"f: rank {r['rank']} launched "
+                            f"{r['f']['launches']}, want {moe_flash}")
+        if r["f"]["picks_off_unexplained"]:
+            failures.append(f"f: rank {r['rank']} routed "
+                            f"{r['f']['picks_off_unexplained']} tokens off "
+                            "the reference beyond the probability change")
+    g = par_mesh_fold(torch, F, seed)
+    emit({"phase": "parallel", "part": "g", "gpu": gpu,
+          "config": "config #8's center (TransformerLM C8) as a "
+                    "MeshFolder over two devices, one int8 commit", **g})
+    if not g["bit_equal"] or g["launches"] != 2 or g["one_device_launches"] \
+            != 1:
+        failures.append(f"g: {g}")
+    for part in "bcdef":
+        launches[part] = [r[part]["launches"] for r in ranks]
+    launches["g"] = g["launches"]
+    shutil.rmtree(out, ignore_errors=True)
+    if failures:
+        fail("parallel: " + "; ".join(failures))
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ranks-child", nargs=3, metavar=("PART", "OUT", "SEED"),
                     help="run one rank of the ranks phase (what the phase's "
                          "Job launches; not for direct use)")
+    ap.add_argument("--parallel-child", nargs=3,
+                    metavar=("PART", "OUT", "SEED"),
+                    help="run one rank of the parallel phase (what the "
+                         "phase's Job launches; not for direct use)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build the flash and fold kernels, run the "
+                         "parallel phase alone and stop (no kernels line, "
+                         "no ok line)")
     args = ap.parse_args()
     if args.ranks_child:
         sys.exit(ranks_child(*args.ranks_child))
+    if args.parallel_child:
+        sys.exit(parallel_child(*args.parallel_child))
     try:
         import torch
     except ImportError:
@@ -9971,6 +10517,13 @@ def main() -> None:
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
+    if args.parallel_only:
+        build.build(["fold", "flash_attn"])
+        launches = parallel_phase(torch, FA, F, gpu, args.seed)
+        emit({"phase": "seconds", "from_build": time.perf_counter() - t0,
+              "parallel_launches": launches})
+        print(card_line(), flush=True)
+        return
     libs = build.build(["lstm_fwd", "lstm_bwd", "groupnorm", "fold",
                         "flash_attn"])
     ptxas = {k: [ln.strip() for ln in v.with_suffix(".log").read_text()
@@ -10261,6 +10814,9 @@ def main() -> None:
     lap("ranks")
     ranks = ranks_phase(torch, gpu, args.seed, train_center,
                         TRAIN_SAMPLES_PER_S["float32"])
+    torch.cuda.empty_cache()
+    lap("parallel")
+    parallel = parallel_phase(torch, FA, F, gpu, args.seed)
 
     def entry(name, source, replaces, rows, launches, bf16_launches):
         """The largest batch's f32 row, the largest error over every f32
@@ -10519,12 +11075,17 @@ def main() -> None:
         # run and read just after: once a layer a step
         k["moe_launches"] = {arm: c[k["name"]]
                              for arm, c in moe_launches.items()}
-        # and held against its twin at the MoE LM's shape (flash_kernel)
+        # and held against its twin at the MoE LM's shape and at one
+        # rank's heads under tensor parallelism (flash_kernel)
+        shapes = {(MOE_BATCH, MOE_SEQ, MOE["num_heads"],
+                   MOE["d_model"] // MOE["num_heads"]): "moe_shape",
+                  TP_FLASH_SHAPE: "tp_shape"}
         for r in flash_rows:
-            if (r["name"] == k["name"] and (r["B"], r["L"], r["H"], r["D"])
-                    == (MOE_BATCH, MOE_SEQ, MOE["num_heads"],
-                        MOE["d_model"] // MOE["num_heads"])):
-                k.update({f"moe_shape_{r['dtype']}_{f}": r[f]
+            if r["name"] != k["name"]:
+                continue
+            tag = shapes.get((r["B"], r["L"], r["H"], r["D"]))
+            if tag:
+                k.update({f"{tag}_{r['dtype']}_{f}": r[f]
                           for f in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")})
     # The observability plane's paths, each counted from 0 just before its
@@ -10573,6 +11134,18 @@ def main() -> None:
                                for part, r in ranks.items()}
     for k in kernels[3:5]:
         k["ranks_bf16_launches"] = {"nccl1": ranks["nccl1"]["gn"][k["name"]]}
+    # The model-parallel engines (parallel), each part's counts set to 0
+    # just before its run and read just after, in its ranks' processes:
+    # config #6 on a one-rank NCCL group (a), then each of two gloo ranks
+    # on its own heads (b, e), on its sequence blocks (d), on its experts'
+    # model (f); the pipeline's dense stages launch none (c); config #8's
+    # center over two devices folds one launch a device (g).
+    for k in kernels[6:]:
+        k["parallel_launches"] = {
+            "a_config6_nccl1": parallel["a"][k["name"]],
+            **{f"{part}_gloo2": [c[k["name"]] for c in parallel[part]]
+               for part in "bcdef"}}
+    kernels[5]["parallel_mesh_launches"] = parallel["g"]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -89,7 +89,12 @@ Ported so far:
   average each step's gradient over the ranks, checkpoints hold every
   rank's workers; ``job_deployment.Job``/``Punchcard`` launch the ranks
   and the parameter-server plane; the predictor across processes and
-  devices; ``roofline.py``, the scaling model with the H100's link figures.
+  devices; ``roofline.py``, the scaling model with the H100's link figures;
+* model parallelism over a grid of ranks: ``ParallelTrainer`` (alias
+  ``TransformerTrainer``; tensor, sequence, expert and pipeline
+  parallelism, ``parallel/``), the async trainers' ``parallel=`` (each
+  worker a row of ranks), ``ops/ring_attention.py``, and a center over
+  several devices in ``netps.mesh.MeshFolder(devices=...)``.
 """
 
 from distkeras_tpu_torch.data import (
@@ -166,9 +171,11 @@ from distkeras_tpu_torch.trainers import (
     DistributedTrainer,
     DynSGD,
     EnsembleTrainer,
+    ParallelTrainer,
     SingleTrainer,
     SynchronousDistributedTrainer,
     Trainer,
+    TransformerTrainer,
 )
 
 __all__ = [
@@ -180,12 +187,13 @@ __all__ = [
     "FleetJob", "FleetScheduler",
     "LSTMClassifier", "LabelIndexTransformer", "LossEvaluator", "MLP",
     "MODEL_AXIS", "MinMaxTransformer", "Model", "ModelPredictor",
-    "MoETransformerLM", "OneHotTransformer", "PIPE_AXIS",
+    "MoETransformerLM", "OneHotTransformer", "PIPE_AXIS", "ParallelTrainer",
     "ProbabilityPredictor", "ReshapeTransformer", "ResNet", "SEQ_AXIS",
     "ShardStore", "ShardWriter", "ShardedDataFrame", "SimpleCNN",
     "SingleTrainer", "Supervisor", "SynchronousDistributedTrainer",
     "Trainer",
-    "Transformer", "TransformerLM", "cifar10_cnn", "data_mesh",
+    "Transformer", "TransformerLM", "TransformerTrainer", "cifar10_cnn",
+    "data_mesh",
     "deserialize_model", "deserialize_params", "device_count",
     "distributed_initialize", "hybrid_mesh", "imdb_lstm",
     "merge_manifests", "mnist_cnn",

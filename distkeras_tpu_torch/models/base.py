@@ -116,12 +116,20 @@ def checkpointed(module: nn.Module, *args):
     ``torch.func.functional_call``, which swaps its parameters in only
     while the forward runs; a recompute that read ``module``'s attributes
     in the backward would see the module's own weights instead and give
-    wrong gradients without an error."""
+    wrong gradients without an error. The recompute also runs under the
+    grid axes that the forward saw (``runtime/mesh.py axis_context``): on
+    the card autograd recomputes on its own device thread, where the
+    engine's thread-local axes are not set."""
+    from distkeras_tpu_torch.runtime import mesh
+
     names, params = zip(*module.named_parameters())
     n = len(names)
+    axes, batch = mesh.ambient(), mesh.global_batch_group()
 
     def run(*flat):
-        return functional_call(module, dict(zip(names, flat[:n])), flat[n:])
+        with mesh.axis_context(axes, global_batch=batch):
+            return functional_call(module, dict(zip(names, flat[:n])),
+                                   flat[n:])
 
     return checkpoint(run, *params, *args, use_reentrant=False)
 
@@ -318,6 +326,11 @@ class Model:
         with torch.no_grad():
             for k, p in own.items():
                 p.copy_(params[k])
+        return dataclasses.replace(self, module=module)
+
+    def with_module(self, module: nn.Module) -> "Model":
+        """The same model around another module (the JAX package's
+        ``Model.with_module``): the caller keeps the parameters alike."""
         return dataclasses.replace(self, module=module)
 
     @property

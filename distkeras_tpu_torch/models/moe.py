@@ -30,8 +30,28 @@ when asked (``return_intermediates=True``: ``(logits, {"intermediates":
 {"block_i": {"moe": {"aux_loss": (v,), ...}}}})``), nothing is kept on
 the module between calls, and ``ops.losses.collect_aux_loss`` takes their
 mean. Training ignores them, as the JAX package's engines do unless
-``ParallelTrainer(aux_loss_weight=...)`` asks (a model-parallel engine,
-ROADMAP.md Queue 1 item 9, like expert sharding and ``seq_axis``).
+``ParallelTrainer(aux_loss_weight=...)`` asks.
+
+**Expert parallelism.** With the expert bank split over an ``expert``
+axis (``parallel/sharding.py MOE_RULES``: its leading axis), every rank
+of the axis holds the same tokens (the batch is split over ``data``
+only), so each computes the replicated router and masks, runs its
+``E/ep`` experts on its slice of the dispatched ``[E, C, d]`` and
+all-gathers the experts' outputs before the combine. The JAX package
+lets GSPMD turn the einsums into all-to-alls; the gather is the port's
+own formulation of the same result (``ops/collectives.py``: an
+``enter_parallel`` before the dispatch, a ``gather_replicated`` after the
+experts).
+
+**The batch the statistics see.** Under the JAX ``GSPMDEngine`` the
+module sees the global batch; under ``SPMDEngine`` each ``(data, seq)``
+shard its own block. Where the engine marks the ``data`` axis as the
+global batch (``runtime/mesh.py global_batch_group``, the port's GSPMD
+route) the capacity counts every rank's tokens, each expert's queue
+positions continue after the lower data ranks' (an exclusive prefix sum
+of the per-selection counts), and the router loss is the product of the
+data means of ``frac`` and the probability mass; otherwise all three are
+the rank's own.
 
 Module names follow the flax tree (``block_{i}.moe.router``,
 ``block_{i}.moe.experts.{up,down}.{kernel,bias}``), so
@@ -58,7 +78,12 @@ from distkeras_tpu_torch.models.transformer import (
     LN_EPS,
     CausalSelfAttention,
     _dense,
+    embed_tokens,
+    lm_logits,
 )
+from distkeras_tpu_torch.ops import collectives
+from distkeras_tpu_torch.runtime import mesh
+from distkeras_tpu_torch.runtime.mesh import EXPERT_AXIS
 
 
 def top_k(probs: torch.Tensor, k: int) -> tuple:
@@ -163,7 +188,10 @@ class MoEMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> tuple:
         B, L, D = x.shape
         T, E, K = B * L, self.num_experts, self.num_selected
-        C = self.capacity(T)
+        gb = mesh.global_batch_group()
+        if gb is not None and gb.trivial:
+            gb = None
+        C = self.capacity(T * (1 if gb is None else gb.size))
         xf = x.reshape(T, D)
         probs = self.router(xf).to(torch.float32).softmax(dim=-1)
         gates, idx = self.route(probs)
@@ -172,6 +200,8 @@ class MoEMLP(nn.Module):
         # slot before any secondary one.
         oh = onehot_k.transpose(0, 1).reshape(K * T, E)
         pos = (torch.cumsum(oh, dim=0) - 1.0) * oh
+        if gb is not None:
+            pos = pos + self._queue_offset(onehot_k, gb) * oh
         keep = (pos < C) * oh                                    # [K*T, E]
         disp = F.one_hot(pos.long().clamp(0, C - 1), C).to(torch.float32)
         disp = (disp * keep[..., None]).reshape(K, T, E, C)
@@ -180,12 +210,47 @@ class MoEMLP(nn.Module):
         dispatch = disp.sum(dim=0)                               # [T, E, C]
         combine = (disp * gates.t()[:, :, None, None]).sum(dim=0)
         frac = onehot_k.sum(dim=1).mean(dim=0) / K
-        inter = {"aux_loss": (E * torch.sum(frac * probs.mean(dim=0)),),
+        mass = probs.mean(dim=0)
+        kept = combine.sum(dim=(1, 2)).mean()
+        if gb is not None:
+            # The global batch's means (equal shards): pmean, whose
+            # gradient is the pmean of the ranks' gradients.
+            frac = collectives.psum_mean(frac, gb)
+            mass = collectives.psum_mean(mass, gb)
+            kept = collectives.psum_mean(kept, gb)
+        inter = {"aux_loss": (E * torch.sum(frac * mass),),
                  "expert_fraction": (frac,),
-                 "combine_mass": (combine.sum(dim=(1, 2)).mean(),)}
-        expert_out = self.experts(dispatch_tokens(dispatch, xf))  # [E, C, D]
-        out = combine_tokens(combine, expert_out)
+                 "combine_mass": (kept,)}
+        El = self.experts.up.kernel.shape[0]
+        if El == E:
+            expert_out = self.experts(dispatch_tokens(dispatch, xf))
+        else:
+            ep = mesh.ambient_group(EXPERT_AXIS)
+            if ep is None:
+                raise RuntimeError(
+                    "the expert bank holds an expert-parallel shard but no "
+                    "'expert' axis is set: run it through a model-parallel "
+                    "engine (runtime/mesh.py axis_context)")
+            e0 = ep.index * El
+            xin = collectives.enter_parallel(xf, ep)
+            local = self.experts(dispatch_tokens(dispatch[:, e0:e0 + El], xin))
+            expert_out = collectives.gather_replicated(local, ep, 0)
+        out = combine_tokens(combine, expert_out)              # [T, D]
         return out.to(x.dtype).reshape(B, L, D), inter
+
+    def _queue_offset(self, onehot_k: torch.Tensor, gb) -> torch.Tensor:
+        """``[K*T, E]``: what the global batch's queue positions add to
+        this rank's selection-major ``cumsum``, every selection's row
+        block: the other ranks' picks of the earlier selections, and the
+        lower ranks' picks of its own."""
+        T, K, E = onehot_k.shape
+        mine = onehot_k.sum(dim=0)                               # [K, E]
+        every = collectives.all_gather(mine, group=gb.pg)        # [dp, K, E]
+        total = every.sum(dim=0)
+        lower = every[:gb.index].sum(dim=0)
+        offset = ((torch.cumsum(total, 0) - total)
+                  - (torch.cumsum(mine, 0) - mine) + lower)
+        return offset.repeat_interleave(T, dim=0)
 
 
 class MoETransformerBlock(nn.Module):
@@ -257,18 +322,21 @@ class MoETransformerLM(ConfigMixin, nn.Module):
         self.ln_final = nn.LayerNorm(d_model, eps=LN_EPS)
         self.lm_head = _dense(d_model, vocab_size, g)
 
+    @property
+    def seq_axis(self) -> Optional[str]:
+        return self.config["seq_axis"]
+
+    @property
+    def attn_impl(self) -> str:
+        return self.config["attn_impl"]
+
     def forward(self, tokens: torch.Tensor,
                 return_intermediates: bool = False):
-        B, L = tokens.shape
-        if L > self.pos_embed.num_embeddings:
-            raise ValueError(f"sequence length {L} exceeds max_seq_len="
-                             f"{self.pos_embed.num_embeddings}")
-        x = self.tok_embed(tokens) + self.pos_embed(
-            torch.arange(L, device=tokens.device))[None]
+        x = embed_tokens(self, tokens, self.config["seq_axis"])
         inter = {}
         for name in self.blocks:
             x, inter[name] = getattr(self, name)(x)
-        logits = self.lm_head(self.ln_final(x))
+        logits = lm_logits(self, x)
         if return_intermediates:
             return logits, {"intermediates": inter}
         return logits

@@ -39,9 +39,10 @@ a shard over it raises :class:`~distkeras_tpu_torch.netps.errors.
 ShardPlanError` listing every load — the operator adds shards, never
 silently OOMs.
 
-The JAX package's ``to_partition_specs`` (the plan as ``PartitionSpec``
-rules for its multi-device mesh folder) is left out: the port's
-counterpart comes with its several-card slice.
+:meth:`PartitionPlan.to_partition_specs` is the plan as partition rules
+(``parallel/sharding.py Spec``) for the multi-device
+``netps.mesh.MeshFolder``: the rows the shard servers own become the rows
+each device owns.
 """
 
 from __future__ import annotations
@@ -239,6 +240,17 @@ class PartitionPlan:
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), sort_keys=True,
                           separators=(",", ":"))
+
+    def to_partition_specs(self, axis: str = "fold") -> list:
+        """The wire plan as a device plan: ``(pattern, Spec)`` rules, one
+        exact-match rule a tensor. A row-split tensor splits axis 0 over
+        the ``axis`` devices; pinned and balanced tensors replicate. The
+        result feeds ``parallel.sharding.param_path_specs`` unchanged."""
+        from distkeras_tpu_torch.parallel.sharding import Spec
+
+        return [(f"^{re.escape(name)}$",
+                 Spec(axis) if len(segs) > 1 else Spec())
+                for name, segs in zip(self.names, self.segments)]
 
     @classmethod
     def from_dict(cls, d: dict) -> "PartitionPlan":

@@ -1,6 +1,9 @@
 """Training engines of the port: the discipline folds, the async engine
-that multiplexes logical workers on one device, and the synchronous engine
-that merges them into one batch."""
+that multiplexes logical workers on one device, the synchronous engine
+that merges them into one batch, and the model-parallel engines over a
+grid of ranks (``sharding``, ``spmd``, ``gspmd``, ``pipeline``,
+``pipeline_engine``, ``async_tp``, ``runner``), imported from their
+modules."""
 
 from distkeras_tpu_torch.parallel.disciplines import (
     ADAGFold,

@@ -180,6 +180,11 @@ class AsyncEngine(RoundEngine):
     of them on the model's device, or ``m`` a rank across the group's
     ranks."""
 
+    #: the process group a round's fold, losses and model-state mean run
+    #: over (None: every rank of the world; the async x TP engine's
+    #: ``data`` axis, ``parallel/async_tp.py``)
+    _fold_pg = None
+
     def __init__(
         self,
         model,
@@ -364,26 +369,39 @@ class AsyncEngine(RoundEngine):
             model_state=(None if init.model_state is None
                          else [init.model_state[0]] * W))
 
+    def _worker_seed(self, rng: int, worker: int) -> int:
+        """The seed of ``worker``'s window this round."""
+        return derive_seed(rng, worker)
+
+    def _worker_context(self):
+        """What the workers' local steps run inside (the model-parallel
+        axes of ``parallel/async_tp.py``; nothing here)."""
+        return contextlib.nullcontext()
+
     def _round_fn(self, state: EngineState, xs: torch.Tensor,
                   ys: torch.Tensor):
         """One fold round on this rank's ``[m, K, B, ...]`` batches: returns
         the new state and the ``[W]`` per-worker window-mean losses of every
         rank, worker-major."""
         disc = self.discipline
+        pg = self._fold_pg
         new_locals, new_opts, new_bufs, losses = [], [], [], []
-        for j, w in enumerate(self.local_workers):
-            start = state.center if disc.pulls_center else state.locals_[j]
-            params, opt, bufs, step_losses = self._local_loop(
-                start, state.opt_state[j], xs[j], ys[j],
-                rng=derive_seed(state.rng, w),
-                state=(None if state.model_state is None
-                       else state.model_state[j]))
-            new_locals.append(params)
-            new_opts.append(opt)
-            new_bufs.append(bufs)
-            losses.append(step_losses.mean())
+        with self._worker_context():
+            for j, w in enumerate(self.local_workers):
+                start = (state.center if disc.pulls_center
+                         else state.locals_[j])
+                params, opt, bufs, step_losses = self._local_loop(
+                    start, state.opt_state[j], xs[j], ys[j],
+                    rng=self._worker_seed(state.rng, w),
+                    state=(None if state.model_state is None
+                           else state.model_state[j]))
+                new_locals.append(params)
+                new_opts.append(opt)
+                new_bufs.append(bufs)
+                losses.append(step_losses.mean())
         # all_gather gives [ranks, m]; worker-major reshape -> [W]
-        loss = collectives.all_gather(torch.stack(losses)).reshape(-1)
+        loss = collectives.all_gather(torch.stack(losses),
+                                      group=pg).reshape(-1)
         next_rng = derive_seed(state.rng)
         if self.nan_guard:
             # The round's one host read of the [W] losses; the divergence
@@ -398,7 +416,8 @@ class AsyncEngine(RoundEngine):
         fold = disc.fold(state.center, new_locals, state.fold_state,
                          window=self.window, num_workers=self.num_workers,
                          worker_ids=self.local_workers,
-                         reduce=lambda t: collectives.all_reduce(t, "sum"))
+                         reduce=lambda t: collectives.all_reduce(
+                             t, "sum", group=pg))
         model_state = None
         if state.model_state is not None:
             model_state = new_bufs
@@ -406,7 +425,8 @@ class AsyncEngine(RoundEngine):
                 # Running statistics average over the workers (they are
                 # not gradient-like deltas): the rank's m workers, then the
                 # ranks. Ensemble members keep their own.
-                mean = collectives.all_reduce(mean_buffers(new_bufs), "mean")
+                mean = collectives.all_reduce(mean_buffers(new_bufs), "mean",
+                                              group=pg)
                 model_state = [mean] * len(self.local_workers)
         return EngineState(fold.center, fold.locals_, new_opts,
                            fold.fold_state, next_rng, model_state), loss
@@ -485,9 +505,11 @@ def stage_round(engine, plan, r: int):
     return _maybe_poison_round(r, xs, lw, engine.num_workers), ys
 
 
-def run_per_round(engine, plan, state, start_round, on_round):
+def run_per_round(engine, plan, state, start_round, on_round, stage=None):
     """One round per host iteration, with the next rounds' batches gathered
-    and copied to the device by a :class:`RoundFeeder`. The run's
+    and copied to the device by a :class:`RoundFeeder`: ``stage(r)``, by
+    default :func:`stage_round` (the step engines give their own rows and
+    sequence blocks, ``parallel/runner.py``). The run's
     :class:`RoundGuard` fires any ``crash@R``/``kill@R`` before round R and
     may replace the state after it (the divergent-worker reset). Returns
     ``(state, losses)``, ``losses`` the ``[rounds,
@@ -495,9 +517,10 @@ def run_per_round(engine, plan, state, start_round, on_round):
     tele = telemetry.get()
     guard = RoundGuard(engine)
     losses = []
-    feeder = RoundFeeder(plan.num_rounds,
-                         lambda r: stage_round(engine, plan, r),
-                         start_round=start_round)
+    if stage is None:
+        def stage(r):
+            return stage_round(engine, plan, r)
+    feeder = RoundFeeder(plan.num_rounds, stage, start_round=start_round)
     try:
         for r, (xs, ys) in feeder:
             guard.pre_round(r)  # crash/kill fault injection, if scheduled

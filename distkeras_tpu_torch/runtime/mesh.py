@@ -22,8 +22,19 @@ multiplexed on the model's device, as before the group existed.
 Axis names (fixed so layouts compose across the package): ``data`` (one
 dist-keras worker a slice), ``model`` (tensor parallel), ``seq``
 (sequence parallel), ``pipe`` (pipeline stages), ``expert`` (MoE experts).
-A grid may name any of them; the engines take only ``data`` (the
-model-parallel engines are a later slice).
+A grid may name any of them.
+
+The JAX package turns each axis into collectives XLA inserts (GSPMD) or a
+``shard_map`` binds; here each rank runs its own program, so an axis is a
+``torch.distributed`` subgroup: :meth:`RankMesh.bind` creates every
+subgroup of every axis, in one order on every rank (gloo and NCCL need
+each ``new_group`` made by all ranks), and :meth:`RankMesh.group` gives
+this rank's :class:`AxisGroup` along an axis (its ranks, its size, this
+rank's index on it). An engine binds its mesh and sets the groups as the
+ambient axes (:func:`axis_context`, the counterpart of the ambient mesh
+a ``shard_map`` body sees); a module reads them with :func:`ambient`.
+With one rank on an axis (or no process group) the group is trivial and
+every collective on it is the identity.
 
 The reference's ``replicated`` and ``batch_sharding`` are sharding
 objects for XLA; the port's engines place every tensor on the rank's one
@@ -32,9 +43,12 @@ device, so no caller needs them and they are not ported.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import itertools
 import math
+import threading
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -148,6 +162,7 @@ def distributed_shutdown() -> None:
     if group_active():
         dist.destroy_process_group()
     _RANK_DEVICE[0] = None
+    _BOUND.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +188,147 @@ class RankMesh:
         """The ranks as an array shaped like the grid (the reference's
         ``Mesh.devices``)."""
         return np.asarray(self.ranks).reshape(self.sizes)
+
+    def coords(self, r: Optional[int] = None) -> dict:
+        """``{axis: index}`` of rank ``r`` (default: this process's) on
+        the grid."""
+        r = rank() if r is None else int(r)
+        if r not in self.ranks:
+            raise ValueError(f"rank {r} is not on the grid {self.shape}")
+        flat = self.ranks.index(r)
+        return dict(zip(self.axis_names,
+                        np.unravel_index(flat, self.sizes)))
+
+    def index(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 for an axis the grid
+        lacks, as the reference's ``axis_index`` of a unit axis)."""
+        if axis not in self.axis_names:
+            return 0
+        return int(self.coords()[axis])
+
+    def axis_ranks(self, axis: str, r: Optional[int] = None) -> tuple:
+        """The ranks that share every coordinate of rank ``r`` (default:
+        this process's) but ``axis``, in ``axis`` order: its group along
+        ``axis``."""
+        r = rank() if r is None else int(r)
+        if axis not in self.axis_names:
+            return (r,)
+        grid = self.devices
+        c = self.coords(r)
+        idx = tuple(slice(None) if a == axis else int(c[a])
+                    for a in self.axis_names)
+        return tuple(int(x) for x in grid[idx].reshape(-1))
+
+    def bind(self) -> "RankMesh":
+        """Create the subgroups of every axis (once a grid; every rank of
+        the group must call it, in the same order as its other
+        collectives). Without a process group, or on a grid of one rank,
+        there is nothing to create. A grid over fewer ranks than the group
+        holds raises: each rank runs one slot of the grid."""
+        key = (self.axis_names, self.sizes, self.ranks)
+        with _BIND_LOCK:
+            if key in _BOUND:
+                return self
+            if group_active():
+                if self.size != world_size():
+                    raise ValueError(
+                        f"mesh {self.shape} covers {self.size} of the "
+                        f"group's {world_size()} ranks; each rank runs one "
+                        "slot of the grid, so its axes' sizes must multiply "
+                        "to the rank count")
+                groups = {}
+                for axis in self.axis_names:
+                    others = [a for a in self.axis_names if a != axis]
+                    sizes = [self.shape[a] for a in others]
+                    for combo in itertools.product(*map(range, sizes)):
+                        fixed = dict(zip(others, combo))
+                        idx = tuple(slice(None) if a == axis
+                                    else fixed[a] for a in self.axis_names)
+                        members = tuple(int(x) for x in
+                                        self.devices[idx].reshape(-1))
+                        pg = dist.new_group(list(members))
+                        if rank() in members:
+                            groups[axis] = pg
+                _BOUND[key] = groups
+            else:
+                _BOUND[key] = {}
+        return self
+
+    def group(self, axis: str) -> "AxisGroup":
+        """This rank's :class:`AxisGroup` along ``axis`` (binds the grid
+        on first use; a trivial group for an axis the grid lacks)."""
+        self.bind()
+        members = self.axis_ranks(axis)
+        pg = _BOUND[(self.axis_names, self.sizes, self.ranks)].get(axis)
+        return AxisGroup(axis, members, self.index(axis), pg)
+
+    def groups(self) -> dict:
+        """``{axis: AxisGroup}`` for every axis of the grid."""
+        return {a: self.group(a) for a in self.axis_names}
+
+
+_BIND_LOCK = threading.Lock()
+#: (axis_names, sizes, ranks) -> {axis: this rank's process group}
+_BOUND: dict = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """This rank's subgroup along one axis of a :class:`RankMesh`:
+    ``ranks`` in axis order, ``index`` this rank's place in them, ``pg``
+    the ``torch.distributed`` group (None without a process group)."""
+
+    name: str
+    ranks: tuple
+    index: int
+    pg: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def trivial(self) -> bool:
+        """One rank on the axis: every collective on it is the
+        identity."""
+        return self.size == 1 or self.pg is None
+
+
+_AMBIENT = threading.local()
+
+
+def ambient() -> dict:
+    """The axes an engine set for the code it runs (:func:`axis_context`):
+    ``{axis: AxisGroup}``, empty outside any engine."""
+    return getattr(_AMBIENT, "axes", {})
+
+
+def ambient_group(axis: str) -> Optional[AxisGroup]:
+    """The ambient :class:`AxisGroup` along ``axis`` (None when unset)."""
+    return ambient().get(axis)
+
+
+def global_batch_group() -> Optional[AxisGroup]:
+    """The ambient ``data`` group over which a module's batch-wide
+    statistics are global (``axis_context(global_batch=...)``): set by the
+    GSPMD engine, whose JAX counterpart runs the module on the whole
+    batch. None: every batch statistic is this rank's own."""
+    return getattr(_AMBIENT, "global_batch", None)
+
+
+@contextlib.contextmanager
+def axis_context(groups: dict, global_batch: Optional[AxisGroup] = None):
+    """Set ``groups`` (``{axis: AxisGroup}``) as the ambient axes for the
+    code inside (this thread), and ``global_batch`` as the
+    :func:`global_batch_group`, restoring the previous ones after."""
+    prev = (getattr(_AMBIENT, "axes", {}),
+            getattr(_AMBIENT, "global_batch", None))
+    _AMBIENT.axes = dict(groups)
+    _AMBIENT.global_batch = global_batch
+    try:
+        yield
+    finally:
+        _AMBIENT.axes, _AMBIENT.global_batch = prev
 
 
 def _ranks(devices: Optional[Sequence[int]]) -> list:

@@ -35,8 +35,14 @@ the engine's elastic re-topology (``host_state``/``adopt_state``), and
 ``train`` takes an in-RAM ``DataFrame`` or a ``ShardedDataFrame`` (the
 rounds gathered from disk, ``data/shards.py``), with a host ``transform=``
 and an on-device ``device_transform=`` (``ops/augment.py``) in process.
-Refused with ``NotImplementedError`` until its slice: model-parallel
-submeshes (``parallel``, ROADMAP.md Queue 1 item 9).
+
+Model parallelism: :class:`ParallelTrainer` (alias
+:class:`TransformerTrainer`) trains over a grid of the group's ranks,
+``parallel={axis: size}``, through the step engines
+(``parallel/gspmd.py``, ``spmd.py``, ``pipeline_engine.py`` behind
+``runner.py WindowedStepEngine``); the communicating async trainers take
+``parallel={"model": tp[, "seq": sp]}``, each worker a row of ranks
+(``parallel/async_tp.py``).
 """
 
 from __future__ import annotations
@@ -105,12 +111,6 @@ def _config_prop(name: str) -> property:
     return property(_get, _set)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to distkeras_tpu_torch yet; it comes with "
-        f"the model-parallel engines (ROADMAP.md Queue 1 item 9)")
-
-
 class Trainer:
     """Base trainer (reference ``Trainer``): owns model, optimizer, loss,
     timing. Hyperparameters normalize into ``self.config``
@@ -149,11 +149,17 @@ class Trainer:
         legacy = {k: kwargs.pop(k) for k in list(kwargs)
                   if k in _LEGACY_SOCKET_KWARGS}
         if "parallel" in kwargs:
-            raise _not_ported("parallel= (model-parallel submeshes, expert "
-                              "sharding)")
-        if "aux_loss_weight" in kwargs:
-            raise _not_ported("aux_loss_weight= (the MoE router loss in "
-                              "ParallelTrainer's objective)")
+            # Targeted, not a bare TypeError: a user who learned parallel=
+            # on ADAG will try it on the ensemble/averaging/sync trainers.
+            raise ValueError(
+                f"{type(self).__name__} does not host model-parallel "
+                "submeshes. parallel={'model': tp, 'seq': sp} is supported "
+                "by the communicating async trainers (DOWNPOUR/ADAG/DynSGD/"
+                "AEASGD/EAMSGD — each worker becomes a tp[ x sp] submesh); "
+                "for model-parallel synchronous training use "
+                "ParallelTrainer(parallel={'data': ..., 'model': ...}). "
+                "Averaging/Ensemble fold non-communicating replicas and "
+                "have no submesh variant.")
         if kwargs:
             raise TypeError(
                 f"{type(self).__name__} got unexpected kwargs: {sorted(kwargs)}")
@@ -544,20 +550,22 @@ class DistributedTrainer(Trainer):
         self.config = self.config.replace(num_workers=num_workers)
 
     def _run_async(self, dataframe: DataFrame, shuffle: bool,
-                   discipline: Discipline, **engine_kw):
-        """Run ``discipline`` through :class:`AsyncEngine` over the harness,
-        ``communication_window`` local steps a round (the subclasses that
-        run it define that window; ``engine_kw``: ``per_worker_init``,
-        ``divergence_reset``); returns the final engine state."""
-        engine = AsyncEngine(
-            self.model, self.worker_optimizer, self.loss, discipline,
-            window=self.communication_window,
-            num_workers=self.num_workers or 1,
-            learning_rate=self.learning_rate,
-            compute_dtype=self.compute_dtype, seed=self.seed,
-            grad_accum=self.grad_accum,
-            device_transform=self.device_transform, **engine_kw,
-        )
+                   discipline: Discipline, engine=None, **engine_kw):
+        """Run ``discipline`` through :class:`AsyncEngine` (or ``engine``,
+        already built) over the harness, ``communication_window`` local
+        steps a round (the subclasses that run it define that window;
+        ``engine_kw``: ``per_worker_init``, ``divergence_reset``); returns
+        the final engine state."""
+        if engine is None:
+            engine = AsyncEngine(
+                self.model, self.worker_optimizer, self.loss, discipline,
+                window=self.communication_window,
+                num_workers=self.num_workers or 1,
+                learning_rate=self.learning_rate,
+                compute_dtype=self.compute_dtype, seed=self.seed,
+                grad_accum=self.grad_accum,
+                device_transform=self.device_transform, **engine_kw,
+            )
         plan = make_batches(
             dataframe, self.features_col, self.label_col, self.batch_size,
             num_workers=engine.num_workers, window=self.communication_window,
@@ -604,18 +612,61 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
                 "remote= or DKTPU_PS_ENDPOINT (networked parameter server) "
                 "and parallel= (model-parallel submeshes) cannot combine: "
                 "the remote worker loop runs whole-model replicas")
-        if parallel:
-            raise _not_ported("parallel= (model-parallel submeshes, expert "
-                              "sharding)")
         #: ``"host:port"`` of a networked parameter server (a ``,``
         #: failover list, or a ``;`` shard matrix): the worker loop becomes
         #: pull -> K local steps -> commit through the hardened client
         #: instead of the in-process fold. Defaults from DKTPU_PS_ENDPOINT.
         self.remote = remote
         self.divergence_reset = divergence_reset
+        #: each async worker as a model-parallel row of ranks:
+        #: ``parallel={"model": 2}`` makes every logical worker a tp=2
+        #: tensor-parallel replica (AsyncTPEngine over a (data, model)
+        #: grid); ``rules`` overrides the partition rules (default
+        #: TRANSFORMER_TP_RULES).
+        self.parallel = dict(parallel) if parallel else None
+        self.rules = rules
 
     def _discipline(self) -> Discipline:
         raise NotImplementedError
+
+    def _tp_engine(self):
+        """The async x TP engine for ``parallel={"model": tp[, "seq":
+        sp]}``: ``num_workers`` workers (default: the ranks over tp*sp),
+        each a ``model`` (x ``seq``) row of the group's ranks."""
+        from distkeras_tpu_torch.models.transformer import seq_sharded
+        from distkeras_tpu_torch.parallel.async_tp import (
+            AsyncTPEngine,
+            tp_layout,
+        )
+        from distkeras_tpu_torch.parallel.sharding import TRANSFORMER_TP_RULES
+        from distkeras_tpu_torch.runtime.mesh import (
+            device_count,
+            hybrid_mesh,
+        )
+
+        axes = dict(self.parallel)
+        tp = int(axes.pop("model", 1))
+        sp = int(axes.pop("seq", 1))
+        if axes:
+            raise ValueError(
+                f"async parallel supports only {{'model': n}} and "
+                f"{{'seq': s}}, got extra axes {sorted(axes)}; pipeline/"
+                "expert parallel compose via ParallelTrainer instead")
+        model = self.model
+        layout = tp_layout(self.num_workers, tp, sp,
+                           getattr(model.module, "seq_axis", None),
+                           device_count())
+        if sp > 1:
+            model = seq_sharded(model, self.parallel)
+        rules = self.rules if self.rules is not None else TRANSFORMER_TP_RULES
+        return AsyncTPEngine(
+            model, self.worker_optimizer, self.loss, self._discipline(),
+            hybrid_mesh(layout), window=self.communication_window,
+            rules=rules, learning_rate=self.learning_rate,
+            compute_dtype=self.compute_dtype, seed=self.seed,
+            grad_accum=self.grad_accum,
+            device_transform=self.device_transform,
+            divergence_reset=self.divergence_reset)
 
     def _remote_endpoint(self) -> Optional[str]:
         return (self.remote or runtime_config.env_str("DKTPU_PS_ENDPOINT")
@@ -683,10 +734,20 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         self.record_training_start()
         endpoint = self._remote_endpoint()
         if endpoint:
+            # Re-checked here: the endpoint may come from DKTPU_PS_ENDPOINT
+            # after construction, and dropping a requested layout silently
+            # would be worse than refusing.
+            if self.parallel:
+                raise ValueError(
+                    f"parameter-server endpoint {endpoint!r} (remote= or "
+                    "DKTPU_PS_ENDPOINT) cannot combine with parallel=: the "
+                    "remote worker loop runs whole-model replicas")
             model = self._train_remote(dataframe, shuffle, endpoint)
             self.record_training_stop()
             return model
+        engine = self._tp_engine() if self.parallel else None
         state = self._run_async(dataframe, shuffle, self._discipline(),
+                                engine=engine,
                                 divergence_reset=self.divergence_reset)
         self.record_training_stop()
         return self._finish_model(state.center, state, worker=0)
@@ -750,6 +811,150 @@ class EAMSGD(AsynchronousDistributedTrainer):
 
     def _discipline(self):
         return EAMSGDFold(alpha=self.rho * self.learning_rate)
+
+
+class ParallelTrainer(Trainer):
+    """One trainer for the model-parallel engines (tensor, sequence,
+    expert and pipeline parallelism) with the reference's
+    ``train(dataframe)`` and the whole run harness (checkpoint and resume,
+    metrics JSONL, ``rounds_per_program``) the data-parallel trainers get
+    from :meth:`Trainer._execute`.
+
+    ``parallel`` is the grid of the group's ranks, ``{axis: size}`` with at
+    most one ``-1`` (inferred): ``{'data': -1, 'model': 2}`` (dp x tp),
+    ``{'data': 2, 'pipe': 4}`` (dp x pp), ``{'data': 2, 'expert': 4}``
+    (dp x ep MoE), ``{'data': -1, 'seq': 2, 'model': 2}`` (dp x sp x tp).
+    Without a ``data`` axis one of size 1 leads the grid.
+
+    ``strategy`` picks the engine; ``"auto"`` resolves from the grid and
+    the model: a ``pipe`` axis -> ``PipelineEngine`` (GPipe microbatches),
+    a ``seq`` axis or a ring-sharded or flash-attention module ->
+    ``SPMDEngine`` (each rank its own block), anything else ->
+    ``GSPMDEngine`` (the module sees the global batch).
+
+    ``batch_size`` is the **global** per-step batch (the grid is one
+    logical worker), unlike the data-parallel trainers' per-worker batch;
+    it must divide by the ``data`` axis (and ``num_microbatches`` for the
+    pipeline)."""
+
+    def __init__(self, model: Model, parallel: Optional[dict] = None,
+                 strategy: str = "auto", tp_rules=None,
+                 steps_per_program: int = 4, num_microbatches: int = 4,
+                 aux_loss_weight: float = 0.0, **kwargs):
+        super().__init__(model, **kwargs)
+        if self.grad_accum != 1:
+            raise ValueError(
+                "ParallelTrainer does not support grad_accum: the step "
+                "engines have no accumulation path, so the kwarg would be "
+                "silently ignored. Raise batch_size (the engines shard it "
+                "over the data axis) or use a data-parallel trainer.")
+        self.parallel = dict(parallel) if parallel else {"data": -1}
+        if "data" not in self.parallel:
+            self.parallel = {"data": 1, **self.parallel}
+        if strategy not in ("auto", "spmd", "gspmd", "pipeline"):
+            raise ValueError(
+                f"strategy must be auto|spmd|gspmd|pipeline, got {strategy!r}")
+        self.strategy = strategy
+        self.tp_rules = tp_rules
+        self.steps_per_program = int(steps_per_program)
+        self.num_microbatches = int(num_microbatches)
+        self.aux_loss_weight = float(aux_loss_weight)
+
+    def _resolve_strategy(self) -> str:
+        if self.strategy != "auto":
+            return self.strategy
+        if self.parallel.get("pipe", 1) != 1:
+            return "pipeline"
+        mod = self.model.module
+        if (self.parallel.get("seq", 1) != 1
+                or getattr(mod, "seq_axis", None) is not None
+                or getattr(mod, "attn_impl", None) == "flash"):
+            # flash and ring/gather run under SPMDEngine (GSPMDEngine
+            # refuses them at construction, as the JAX one does)
+            return "spmd"
+        return "gspmd"
+
+    def _default_rules(self):
+        from distkeras_tpu_torch.parallel.sharding import (
+            MOE_RULES,
+            TRANSFORMER_TP_RULES,
+        )
+
+        if self.parallel.get("expert", 1) != 1:
+            return MOE_RULES
+        return TRANSFORMER_TP_RULES
+
+    def _build_engine(self):
+        from distkeras_tpu_torch.models.transformer import seq_sharded
+        from distkeras_tpu_torch.parallel.runner import WindowedStepEngine
+        from distkeras_tpu_torch.runtime.mesh import hybrid_mesh
+
+        strat = self._resolve_strategy()
+        layout = dict(self.parallel)
+        if strat == "spmd":
+            layout.setdefault("seq", 1)
+        mesh = hybrid_mesh(layout)
+        model = self.model
+        if mesh.shape.get("seq", 1) > 1:  # resolved: -1 is inferred here
+            model = seq_sharded(model, self.parallel)
+        rules = (self.tp_rules if self.tp_rules is not None
+                 else self._default_rules())
+        common = dict(learning_rate=self.learning_rate, seed=self.seed,
+                      compute_dtype=self.compute_dtype)
+        if strat == "pipeline":
+            from distkeras_tpu_torch.parallel.pipeline_engine import (
+                PipelineEngine,
+            )
+
+            inner = PipelineEngine(
+                model, self.worker_optimizer, self.loss, mesh,
+                num_microbatches=self.num_microbatches, **common)
+        elif strat == "spmd":
+            from distkeras_tpu_torch.parallel.spmd import SPMDEngine
+
+            inner = SPMDEngine(
+                model, self.worker_optimizer, self.loss, mesh, rules,
+                aux_loss_weight=self.aux_loss_weight, **common)
+        else:
+            from distkeras_tpu_torch.parallel.gspmd import GSPMDEngine
+
+            inner = GSPMDEngine(
+                model, self.worker_optimizer, self.loss, mesh, rules,
+                aux_loss_weight=self.aux_loss_weight, **common)
+        return WindowedStepEngine(inner, self.steps_per_program)
+
+    def train(self, dataframe: DataFrame, shuffle: bool = False) -> Model:
+        """Train on ``dataframe``; returns the trained (whole) parameters
+        as a :class:`Model` on the model's device, on every rank."""
+        from distkeras_tpu_torch.runtime.mesh import world_size
+
+        self.record_training_start()
+        engine = self._build_engine()
+        # A sharded store across ranks plans one worker a data rank, so
+        # each rank stages only its own rows (the engine merges the
+        # rank-major stack back into the global batch).
+        plan_workers, per_worker_batch = 1, self.batch_size
+        if getattr(dataframe, "is_sharded", False) and world_size() > 1:
+            plan_workers = engine.dp_size
+            if self.batch_size % plan_workers:
+                raise ValueError(
+                    f"batch_size={self.batch_size} must divide by the data-"
+                    f"parallel size {plan_workers} for multi-process sharded "
+                    "stores (rows are staged per dp rank)")
+            per_worker_batch = self.batch_size // plan_workers
+        plan = make_batches(
+            dataframe, self.features_col, self.label_col, per_worker_batch,
+            num_workers=plan_workers, window=self.steps_per_program,
+            num_epoch=self.num_epoch, shuffle=shuffle, seed=self.seed,
+            transform=self.transform,
+        )
+        state = self._execute(engine, plan)
+        self.record_training_stop()
+        return self.model.with_params(state.params)
+
+
+#: The flagship model's spelling of the same trainer.
+TransformerTrainer = ParallelTrainer
 
 
 class AveragingTrainer(DistributedTrainer):

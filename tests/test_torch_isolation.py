@@ -58,9 +58,16 @@ def test_resilience_plane_modules_load_no_jax(module):
     "distkeras_tpu_torch.netps.shards.group"])
 def test_shard_plane_modules_load_no_jax(module):
     """The sharded center plane, each module on its own: the plan keeps the
-    JAX package's canonical JSON without its ``to_partition_specs`` (the
-    one function there that imports jax)."""
+    JAX package's canonical JSON, and its ``to_partition_specs`` (the one
+    function there that imports jax) gives the port's own specs, loading
+    no JAX either."""
     code = (f"import sys, {module}\n"
+            "from distkeras_tpu_torch.netps.shards.plan import "
+            "PartitionPlan, SPLIT\n"
+            "plan = PartitionPlan.build(['a', 'b'], [(4, 2), (3,)], 2, "
+            "rules=[('^a$', SPLIT)])\n"
+            "specs = [tuple(s) for _, s in plan.to_partition_specs()]\n"
+            "assert specs == [('fold',), ()], specs\n"
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -68,7 +75,7 @@ def test_shard_plane_modules_load_no_jax(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     src = (PKG / "netps" / "shards" / "plan.py").read_text()
-    assert "to_partition_specs" in src and "def to_partition_specs" not in src
+    assert "def to_partition_specs" in src
 
 
 @pytest.mark.parametrize("module", [
@@ -329,3 +336,24 @@ def test_a_group_asked_for_nccl_without_a_card_raises(monkeypatch):
         mesh.distributed_initialize(backend="nccl", device="cpu",
                                     **rendezvous)
     assert not mesh.group_active() and mesh.rank_device() is None
+
+
+@pytest.mark.parametrize("module", [
+    "distkeras_tpu_torch.parallel.sharding",
+    "distkeras_tpu_torch.parallel.runner",
+    "distkeras_tpu_torch.parallel.spmd",
+    "distkeras_tpu_torch.parallel.gspmd",
+    "distkeras_tpu_torch.parallel.pipeline",
+    "distkeras_tpu_torch.parallel.pipeline_engine",
+    "distkeras_tpu_torch.parallel.async_tp",
+    "distkeras_tpu_torch.ops.ring_attention"])
+def test_model_parallel_modules_load_no_jax(module):
+    """The model-parallel engines, the partition rules and ring attention,
+    each module on its own."""
+    code = (f"import sys, {module}\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -328,17 +328,20 @@ def test_single_trainer_matches_jax(K, optimizer):
 
 
 def test_model_parallel_options_stay_refused():
-    """``seq_axis`` (and the trainers' ``parallel=`` / ``aux_loss_weight``)
-    belong to the model-parallel engines, ROADMAP.md Queue 1 item 9."""
+    """``seq_axis`` builds, and ``parallel=`` / ``aux_loss_weight`` belong
+    to ``ParallelTrainer``: the single trainer refuses the first with the
+    JAX package's guidance and does not take the second, as there."""
     from distkeras_tpu_torch.models.moe import MoETransformerLM
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MoETransformerLM(**{k: v for k, v in SMALL.items()
-                            if k != "seq_len"}, seq_axis="seq")
+    sp = MoETransformerLM(**{k: v for k, v in SMALL.items()
+                             if k != "seq_len"}, seq_axis="seq")
+    assert sp.seq_axis == "seq"
     pm = small_moe_lm(**SMALL, device="cpu")
-    for kw in ({"parallel": {"expert": 2}}, {"aux_loss_weight": 0.01}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            T.SingleTrainer(pm, **kw)
+    with pytest.raises(ValueError, match="ParallelTrainer"):
+        T.SingleTrainer(pm, parallel={"expert": 2})
+    with pytest.raises(TypeError, match="aux_loss_weight"):
+        T.SingleTrainer(pm, aux_loss_weight=0.01)
+    T.ParallelTrainer(pm, parallel={"data": 1}, aux_loss_weight=0.01)
 
 
 def test_moe_lm_blob_is_the_jax_packages_bytes():

@@ -274,6 +274,91 @@ def test_port_mesh_folder_within_the_jax_traced_fold(codec):
         theirs.close()
 
 
+def _two_virtual_devices(monkeypatch):
+    """The JAX folder lays its center over every ``jax.devices()``: two of
+    the conftest's eight here."""
+    devices = jax.devices()
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: devices[:2])
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_mesh_folder_over_two_devices_is_bit_equal(codec, monkeypatch):
+    """``devices=["cpu", "cpu"]``: the tensors whose length two divides
+    split along axis 0 (one plain fold a device), the others replicate;
+    the center is bit-equal to the one-device folder's, to the JAX
+    ``MeshFolder``'s on two virtual devices and to the numpy oracle."""
+    _two_virtual_devices(monkeypatch)
+    rng = np.random.default_rng(13)
+    center = [rng.normal(size=(16, 4)).astype(np.float32),
+              rng.normal(size=(8,)).astype(np.float32),
+              rng.normal(size=(3, 5)).astype(np.float32)]
+    commits = _commits(codec, center, rng)
+    two = _mesh.MeshFolder([a.copy() for a in center],
+                           devices=["cpu", "cpu"])
+    one = _mesh.MeshFolder([a.copy() for a in center], device="cpu")
+    theirs = jax_mesh.MeshFolder([a.copy() for a in center])
+    assert theirs.num_devices == two.num_devices == 2
+    assert [any(s) for s in two._specs] == [True, True, False]
+    assert [any(a is not None for a in s) for s in theirs._specs] == \
+        [True, True, False]
+    assert [v.shape for v in two._seats[1].views] == [(8, 4), (4,), (3, 5)]
+    try:
+        for entries in commits:
+            two.fold(entries, 0.25)
+            one.fold(entries, 0.25)
+            theirs.fold(entries, 0.25)
+        for i, (a, b, c, d) in enumerate(zip(
+                two.center_host(), one.center_host(), theirs.center_host(),
+                _oracle(center, commits, 0.25))):
+            assert a.tobytes() == b.tobytes() == c.tobytes() == d.tobytes(), \
+                f"tensor {i} diverged under codec {codec!r}"
+        assert two.folds == len(commits)
+    finally:
+        for f in (two, one, theirs):
+            f.close()
+
+
+def test_mesh_folder_takes_the_plan_as_its_layout(monkeypatch):
+    """``PartitionPlan.to_partition_specs`` gives the JAX plan's specs
+    (one exact-match rule a tensor, row-split tensors over the ``fold``
+    axis), and a folder built with the plan splits exactly those tensors
+    and folds bit-equal to numpy; a split commit of the wrong size fails
+    the conservation check with nothing folded."""
+    from distkeras_tpu.netps.shards.plan import PartitionPlan as JaxPlan
+    from distkeras_tpu_torch.netps.shards.plan import SPLIT, PartitionPlan
+
+    _two_virtual_devices(monkeypatch)
+    rng = np.random.default_rng(3)
+    center = [rng.normal(size=(8, 3)).astype(np.float32),
+              rng.normal(size=(6,)).astype(np.float32)]
+    args = (["big", "small"], [(8, 3), (6,)], 2)
+    plan = PartitionPlan.build(*args, rules=[("^big$", SPLIT)])
+    jplan = JaxPlan.build(*args, rules=[("^big$", SPLIT)])
+    ours = plan.to_partition_specs()
+    theirs = jplan.to_partition_specs()
+    assert [p for p, _ in ours] == [p for p, _ in theirs]
+    assert [tuple(s) for _, s in ours] == [tuple(s) for _, s in theirs]
+    folder = _mesh.MeshFolder([a.copy() for a in center],
+                              devices=["cpu", "cpu"], plan=plan)
+    jfolder = jax_mesh.MeshFolder([a.copy() for a in center], plan=jplan)
+    try:
+        assert [any(s) for s in folder._specs] == [True, False]
+        delta = [rng.normal(scale=0.1, size=a.shape).astype(np.float32)
+                 for a in center]
+        with pytest.raises(RuntimeError, match="conservation"):
+            folder.fold([delta[0][:6], delta[1]], 0.5)
+        folder.fold(delta, 0.5)
+        jfolder.fold(delta, 0.5)
+        want = [c + np.float32(0.5) * d for c, d in zip(center, delta)]
+        for a, b, c in zip(folder.center_host(), jfolder.center_host(),
+                           want):
+            assert a.tobytes() == b.tobytes() == c.tobytes()
+        assert folder.folds == 1
+    finally:
+        folder.close()
+        jfolder.close()
+
+
 def test_mesh_folder_conservation_check_and_refusals(monkeypatch):
     center = leaves()
     folder = _mesh.MeshFolder(center, device="cpu")

@@ -125,7 +125,9 @@ def test_nan_round_is_skipped_and_kept_in_the_history():
     ({"parallel": {"model": 2}}, "parallel"),
 ])
 def test_unported_kwargs_raise(kwargs, match):
+    """``parallel=`` is the async and parallel trainers' option: the sync
+    trainers refuse it with the JAX package's ``ValueError``."""
     pm = resnet.tiny_resnet(device="cpu")
     for cls in (T.SingleTrainer, T.SynchronousDistributedTrainer):
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             cls(pm, **KW, **kwargs).train(DataFrame(_columns(1)))

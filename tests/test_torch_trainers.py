@@ -86,7 +86,8 @@ def test_on_round_and_rounds_per_program():
 
 @pytest.mark.parametrize("kwargs,match", [
     # remote= itself is ported, a sharded endpoint matrix included
-    # (tests/test_torch_remote.py, tests/test_torch_netps_shards.py).
+    # (tests/test_torch_remote.py, tests/test_torch_netps_shards.py);
+    # parallel= too (tests/test_torch_async_tp.py), here short of ranks.
     ({"parallel": {"model": 2}}, "parallel"),
     # The in-process engine resets divergent workers; the remote loop has
     # no reset, as the reference's has none.
@@ -97,8 +98,11 @@ def test_on_round_and_rounds_per_program():
      "input_transform"),
 ])
 def test_unported_kwargs_raise(kwargs, match):
+    """``parallel={"model": 2}`` is ported: in one process it needs two
+    ranks and raises the JAX package's ``ValueError``."""
     pm = imdb_lstm(**SMALL, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    exc = ValueError if "parallel" in kwargs else NotImplementedError
+    with pytest.raises(exc, match=match):
         T.DynSGD(pm, **KW, **kwargs).train(DataFrame(_columns()))
 
 

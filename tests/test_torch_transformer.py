@@ -275,9 +275,25 @@ def test_state_dict_names_follow_the_flax_tree():
 
 @pytest.mark.parametrize("attn_impl", ["gather", "ring", "dense", "flash"])
 def test_sequence_parallelism_is_refused(attn_impl):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        transformer.TransformerLM(**SMALL, seq_axis="seq",
-                                  attn_impl=attn_impl)
+    """A sequence-parallel module builds (``seq_axis``, every attention)
+    and, with no ``seq`` axis set, computes the dense logits; the GSPMD
+    engine refuses it with the JAX engine's message, as it refuses flash;
+    an unknown attention raises."""
+    from distkeras_tpu_torch.models.base import Model
+    from distkeras_tpu_torch.parallel.gspmd import GSPMDEngine
+    from distkeras_tpu_torch.runtime.mesh import hybrid_mesh
+
+    sp = transformer.TransformerLM(**SMALL, seq_axis="seq",
+                                   attn_impl=attn_impl)
+    dense = transformer.TransformerLM(**SMALL)
+    x = torch.from_numpy(_tokens(2, 16, seed=3))
+    with torch.no_grad():
+        np.testing.assert_allclose(sp(x).numpy(), dense(x).numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    model = Model.build(sp, np.zeros((1, 16), np.int32), device="cpu")
+    with pytest.raises(ValueError, match="SPMDEngine"):
+        GSPMDEngine(model, "sgd", "sparse_categorical_crossentropy",
+                    hybrid_mesh({"data": 1}))
     with pytest.raises(ValueError, match="attn_impl"):
         transformer.TransformerLM(**SMALL, attn_impl="paged")
 
