@@ -556,20 +556,47 @@ and every parity phase holds the card's bf16 run to the CPU's within
     through the host) train config #4 as 2 ranks x 2 workers: 24 and 24
     launches a rank, the two centers bit-equal, within ``train_parity``'s
     limit of ``train``'s (the 4-term sum in another order). No run on two
-    or more cards is made here: the card's machine has one.
+    or more cards is made here: the card's machine has one. Each rank then
+    trains config #4 again with ``rounds_per_program=3``: on the NCCL group
+    one captured graph (the fold's all-reduce and the losses' all-gather
+    inside it), on the gloo ranks a host loop; bit-equal to the rank's
+    per-round run, the same launches plus one warm-up round a capture.
+39. ``blocked`` — the multi-round programs: each part trains twice from
+    one seed, one round a program and then R rounds a program (one
+    captured CUDA graph a block size), with its launch counts set to 0
+    just before each run and read just after, and a profiled repeat of
+    each run for the card's busy share: (a) config #1 under "auto" for 28
+    rounds (past auto's 16-round head), (b) config #4 in f32 and bf16 at
+    R=3 (stash forward and backward in the graph), (c) config #5 in bf16
+    at R=2 for 4 rounds with the crop and flip on the card (both
+    GroupNorm kernels; the transform's draws staged with each block), (d)
+    config #6 on ``parallel``'s one-rank NCCL group at R=2 (flash's three
+    kernels; run in that phase's nccl1 child), (e) a small MLP under
+    ``nan@2`` at R=4. Checked: every blocked run in graph mode, bit-equal
+    to its per-round run (or, (a), (c), (d) only, within
+    ``BLOCKED_ATOL``), its launch counts the per-round run's plus its
+    warm-up rounds' (one round a capture, on scratch state, counted as
+    launches and as warm-up launches), the kernels that the profiler saw
+    the card run in each profiled run equal to the launches the wrappers
+    counted in it (``DEVICE_FAMILIES``), and (e) skipping exactly round 2.
+    ``--blocked-only`` runs (a), (b), (c) and (e) alone.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line (the
 flash entries with ``moe_launches``, the LSTM and fold entries with
 ``fleet_launches``; #1 stash, #2 and the fold with ``streaming_launches``,
 ``raced_launches``, #1 stash, #2 and GroupNorm with
 ``stream_engine_launches``; #1 stash and #2 with ``ranks_launches``, one
-entry a rank, GroupNorm with ``ranks_bf16_launches``), the card's name
+entry a rank, GroupNorm with ``ranks_bf16_launches``; #1 stash and #2
+with ``blocked_launches``, GroupNorm and flash with
+``blocked_bf16_launches``, each the blocked run's launches, its warm-up
+rounds' share of them and the per-round run's), the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import inspect
 import json
@@ -6236,6 +6263,58 @@ def launched_kernels() -> dict:
             for k, v in mod.launch_counts().items() if v}
 
 
+def warmup_kernels() -> dict:
+    """``{"module.kernel": count}`` of the launches that warm-up rounds
+    before a CUDA graph capture made since the counts were last set to 0
+    (``ops/kernels/build.py launch_tape``), which :func:`launched_kernels`
+    holds too."""
+    return {f"{name}.{k}": v for name, mod in kernel_modules().items()
+            for k, v in mod.warmup_counts().items() if v}
+
+
+#: the device kernels that one counted launch runs once each, by the
+#: counted kernels that run them (the profiler's kernel name, its template
+#: arguments and parameters left out): in a profile, a family's kernel
+#: events equal the sum of its counted launches
+DEVICE_FAMILIES = {
+    ("lstm.lstm_fwd", "lstm.lstm_fwd_stash"):
+        ("lstm_fwd_cluster", "lstm_fwd_tc", "lstm_fwd_xw_tc"),
+    ("lstm.lstm_bwd",): ("lstm_bwd_rec_cluster", "lstm_bwd_rec_tc"),
+    ("groupnorm.group_norm_fwd",): ("gn_fwd",),
+    ("groupnorm.group_norm_bwd",): ("gn_bwd",),
+    ("flash_attention.flash_fwd",): ("flash_fwd_kernel",),
+    ("flash_attention.flash_dq",): ("flash_dq_kernel",),
+    ("flash_attention.flash_dkv",): ("flash_dkv_kernel",),
+}
+
+
+def device_kernel_name(name: str) -> str:
+    """A profiler's CUDA kernel name without its return type, namespaces,
+    template arguments and parameters: ``void ns::gn_fwd<float, 4>(...)``
+    gives ``gn_fwd``."""
+    head = re.split(r"[<(]", name.replace("(anonymous namespace)", ""), 1)[0]
+    return head.split("::")[-1].split()[-1] if head.split() else head
+
+
+def device_family_counts(torch, prof) -> dict:
+    """``{family: kernel events}`` (:data:`DEVICE_FAMILIES`, keyed by its
+    counted kernels joined by ``+``) of the device kernels ``prof`` saw."""
+    cuda = torch.autograd.DeviceType.CUDA
+    seen = collections.Counter(
+        device_kernel_name(e.name())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == cuda)
+    return {"+".join(counted): sum(seen[k] for k in kernels)
+            for counted, kernels in DEVICE_FAMILIES.items()}
+
+
+def family_launches(launches: dict) -> dict:
+    """``launches`` (``{"module.kernel": count}``) summed as
+    :func:`device_family_counts` keys its families."""
+    return {"+".join(counted): sum(launches.get(k, 0) for k in counted)
+            for counted in DEVICE_FAMILIES}
+
+
 def check_no_kernel(phase: str) -> None:
     """Fail if any of the port's kernels launched: configs #1-#3 in
     process run no TPU kernel's counterpart (the JAX package computes their
@@ -9803,9 +9882,40 @@ def ranks_child(part: str, out: str, seed: str) -> int:
                workers_per_rank=W // mesh.world_size(),
                history=[float(v) for v in trainer.get_history()],
                host_staged=dict(collectives.HOST_STAGED))
+    # The same run as multi-round programs of BLOCKED_LSTM_R rounds: on
+    # the NCCL group the fold's all-reduce and the losses' all-gather are
+    # captured into the graph; a gloo group runs its blocks eagerly.
+    from distkeras_tpu_torch import telemetry
+
+    blocked = DynSGD(model, worker_optimizer="sgd",
+                     loss="sparse_categorical_crossentropy", **TRAIN,
+                     compute_dtype="float32",
+                     rounds_per_program=BLOCKED_LSTM_R)
+    telemetry.reset()
+    torch.cuda.synchronize()
+    collectives.barrier()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    blocked_trained = blocked.train(df)
+    torch.cuda.synchronize()
+    snap = telemetry.get().snapshot()
+    counters = snap["counters"]
+    res.update(blocked_lstm=K.launch_counts(),
+               blocked_warmup=K.warmup_counts(),
+               blocked_captures=sum(
+                   v["count"] for k, v in snap["spans"].items()
+                   if k.endswith("program.capture")),
+               blocked_seconds=time.perf_counter() - t0,
+               blocked_blocks={k: counters.get(f"program.blocks.{k}", 0)
+                               for k in ("graph", "eager")},
+               blocked_bit_equal=all(
+                   torch.equal(v, blocked_trained.params[k])
+                   for k, v in trained.params.items()) and (
+                   blocked.get_history().tolist()
+                   == trainer.get_history().tolist()))
     torch.save({k: v.detach().cpu() for k, v in trained.params.items()},
                os.path.join(out, f"{part}-rank{r}.pt"))
-    del model, trained, trainer
+    del model, trained, trainer, blocked, blocked_trained
     torch.cuda.empty_cache()
     if part == "nccl1":
         Bn, Kn = RESNET["batch_size"], RESNET["steps_per_program"]
@@ -9884,6 +9994,16 @@ def ranks_phase(torch, gpu: str, seed: int, center: dict,
                "centers_bit_equal_across_ranks": ranks_equal,
                "host_staged": staged,
                "history": ranks[0]["history"]}
+        row.update({"blocked_rounds_per_program": BLOCKED_LSTM_R,
+                    "blocked_launches": [x["blocked_lstm"] for x in ranks],
+                    "blocked_warmup_launches": [x["blocked_warmup"]
+                                                for x in ranks],
+                    "blocked_captures": [x["blocked_captures"]
+                                         for x in ranks],
+                    "blocked_blocks": [x["blocked_blocks"] for x in ranks],
+                    "blocked_seconds": [x["blocked_seconds"] for x in ranks],
+                    "blocked_bit_equal": [x["blocked_bit_equal"]
+                                          for x in ranks]})
         if part == "gloo2":
             row["note"] = ("gloo on purpose: two ranks share the one card, "
                            "which NCCL refuses; every collective of the "
@@ -9902,9 +10022,26 @@ def ranks_phase(torch, gpu: str, seed: int, center: dict,
                         "resnet_history": x["gn_history"]})
         emit(row)
         per_rank = steps // n
+        blocks = -(-TRAIN_ROUNDS // BLOCKED_LSTM_R)
+        mode = "graph" if part == "nccl1" else "eager"
         for x in ranks:
             if x["world"] != n:
                 fail(f"ranks {part}: a rank saw a world of {x['world']}")
+            # the blocked run launches the per-round run's kernels plus
+            # one warm-up round a capture (none in a gloo group's host loop)
+            warm = {k: v // TRAIN_ROUNDS * x["blocked_captures"]
+                    for k, v in x["lstm"].items()}
+            replayed = {k: v - x["blocked_warmup"][k]
+                        for k, v in x["blocked_lstm"].items()}
+            if x["blocked_blocks"][mode] != blocks or not \
+                    x["blocked_bit_equal"] or replayed != x["lstm"] or \
+                    x["blocked_warmup"] != warm or \
+                    x["blocked_captures"] != (1 if mode == "graph" else 0):
+                fail(f"ranks {part}: the blocked run ran {x['blocked_blocks']}"
+                     f" (want {blocks} {mode} blocks), bit-equal "
+                     f"{x['blocked_bit_equal']}, launched {x['blocked_lstm']}"
+                     f" ({x['blocked_warmup']} in {x['blocked_captures']} "
+                     f"warm-up rounds) against {x['lstm']}")
             if (x["lstm"]["lstm_fwd_stash"], x["lstm"]["lstm_bwd"],
                     x["lstm"]["lstm_fwd"]) != (per_rank, per_rank, 0):
                 fail(f"ranks {part}: rank {x['rank']} launched {x['lstm']}, "
@@ -9942,6 +10079,326 @@ def ranks_phase(torch, gpu: str, seed: int, center: dict,
     shutil.rmtree(out, ignore_errors=True)
     return launches
 
+
+
+# -- the multi-round programs -------------------------------------------------
+
+#: ``blocked``: each part trains twice from one seed, one round a program
+#: (``rounds_per_program=1``), then R rounds a program (one captured CUDA
+#: graph a block on the card, ``parallel/program.py``), and the two runs
+#: are compared. (a) config #1 (``mlp_train``'s trainer) under "auto",
+#: past auto's 16-round head; (b) config #4 (``train``'s DynSGD at its
+#: widths, 4 workers), f32 then bf16, R=3 (kernels #1 stash and #2 inside
+#: the graph, the DynSGD scales rotating through their table); (c) config
+#: #5 (``resnet_train``'s trainer) in bf16, R=2 (kernels #6 and #7 inside
+#: the graph); (d) config #6 on a one-rank NCCL group, R=2 (kernels #3-#5;
+#: ``parallel``'s nccl1 child runs it beside its part a); (e) a small MLP
+#: with ``nan@2`` inside a block of 4, which the graph's select skips.
+BLOCKED_MLP_ROUNDS = 28
+BLOCKED_LSTM_R = 3
+BLOCKED_RESNET_R = 2
+BLOCKED_RESNET_ROUNDS = 4
+BLOCKED_PAR_R = 2
+BLOCKED_FAULT = "nan@2"
+BLOCKED_FAULT_R = 4
+BLOCKED_FAULT_ROUNDS = 8
+BLOCKED_FAULT_MLP = dict(num_workers=2, batch_size=64,
+                         communication_window=2, learning_rate=0.05)
+#: a part whose blocked run is not bit-equal to its per-round run is held
+#: to this largest parameter difference (f32, PARITY_ATOL: the
+#: card-vs-CPU LSTM parities' limit); (b) must be bit-equal
+BLOCKED_ATOL = PARITY_ATOL
+
+
+def busy_share(torch, prof, wall: float, skip=()):
+    """The time the card was busy over ``wall`` seconds: the union of the
+    intervals of every device activity ``prof`` recorded (kernels, copies
+    and fills, inside graphs too; overlaps counted once), leaving out the
+    activity that starts inside a ``skip`` window (wall-clock ns, the
+    profiler's clock). None when the profiler saw no device activity."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda
+                   and not any(a <= e.start_ns() < b for a, b in skip))
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e9 / wall if busy > 0 else None
+
+
+def blocked_run(torch, make, df, profile: bool = False) -> dict:
+    """``make().train(df)`` with every launch count set to 0 just before
+    and read just after; with ``profile``, under ``torch.profiler`` for
+    the card's busy share (a separate run: the profiler's own cost stays
+    out of the timed one)."""
+    from distkeras_tpu_torch import telemetry
+
+    trainer = make()
+    telemetry.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    trained = trainer.train(df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = telemetry.get().snapshot()
+    capture = sum(v.get("total", 0.0) for k, v in snap["spans"].items()
+                  if k.endswith("program.capture"))
+    captures = sum(v.get("count", 0) for k, v in snap["spans"].items()
+                   if k.endswith("program.capture"))
+    if prof is not None:
+        # the captures (the warm-up round's kernels, then host work) are
+        # in the run's wall: the share is also read over the rest of it
+        prof.__exit__(None, None, None)
+        windows = [(e["t0_ns"], e["t1_ns"]) for e in telemetry.get().events()
+                   if e["kind"] == "program_capture"]
+        # what the card ran against what the wrappers counted (the warm-up
+        # rounds' launches and every replay's included)
+        return {"busy_share": busy_share(torch, prof, wall),
+                "busy_share_after_capture": busy_share(
+                    torch, prof, wall - capture, skip=windows),
+                "profiled_seconds": wall,
+                "device_kernels": device_family_counts(torch, prof),
+                "counted_kernels": family_launches(launched_kernels())}
+    counters = snap["counters"]
+    mode = ("graph" if counters.get("program.blocks.graph") else
+            "eager" if counters.get("program.blocks.eager") else "per-round")
+    gauge = snap["gauges"].get("program.rounds_per_program") or {}
+    return {"seconds": wall, "peak_memory_gb":
+            torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launched_kernels(), "warmup": warmup_kernels(),
+            "captures": captures, "history": np.asarray(
+                trainer.get_history(), np.float64),
+            "params": {k: v.detach().cpu() for k, v in
+                       trained.params.items()},
+            "mode": mode, "blocks": {k: counters.get(f"program.blocks.{k}")
+                                     for k in ("graph", "eager")},
+            "R": gauge.get("value") if gauge.get("count") else 1,
+            "capture_s": capture}
+
+
+def blocked_pair(torch, gpu: str, part: str, make, df, rounds: int,
+                 extra: dict, bit_equal_required: bool = False,
+                 profile: bool = True) -> dict:
+    """Part ``part`` of ``blocked``: ``make(rpp)`` builds the trainer,
+    ``rpp`` 1 for the per-round run, None for the part's own R. Returns
+    the row (emitted by the caller)."""
+    t_part = time.perf_counter()
+    # The profiled runs first: they also warm the process for the timed
+    # runs (a part's first run pays its first calls).
+    busy = {k: blocked_run(torch, lambda: make(rpp), df, profile=True)
+            if profile else {}
+            for k, rpp in (("per_round", 1), ("blocked", None))}
+    runs = {"per_round": blocked_run(torch, lambda: make(1), df),
+            "blocked": blocked_run(torch, lambda: make(None), df)}
+    for k, extra in busy.items():
+        runs[k].update(extra)
+    a, b = runs["per_round"], runs["blocked"]
+    hist_equal = bool(np.array_equal(a["history"], b["history"],
+                                     equal_nan=True))
+    params_equal = all(torch.equal(v, b["params"][k])
+                       for k, v in a["params"].items())
+    diff = max((v.double() - b["params"][k].double()).abs().max().item()
+               for k, v in a["params"].items())
+    hdiff = float(np.nanmax(np.abs(a["history"] - b["history"]))) if \
+        a["history"].size else 0.0
+    row = {"phase": "blocked", "part": part, "gpu": gpu, **extra,
+           "rounds": rounds, "mode": b["mode"], "blocks": b["blocks"],
+           "rounds_per_program": b["R"], "capture_s": b["capture_s"],
+           "ms_per_round": {k: r["seconds"] / rounds * 1e3
+                            for k, r in runs.items()},
+           # the blocked run's wall holds its captures (the first block of
+           # each size): its rounds' ms without them
+           "blocked_ms_per_round_after_capture":
+               (b["seconds"] - b["capture_s"]) / rounds * 1e3,
+           "busy_share": {k: r.get("busy_share") for k, r in runs.items()},
+           "busy_share_after_capture": {
+               k: r.get("busy_share_after_capture")
+               for k, r in runs.items()},
+           "peak_memory_gb": {k: r["peak_memory_gb"]
+                              for k, r in runs.items()},
+           "bit_equal": hist_equal and params_equal,
+           "params_max_abs_diff": diff, "history_max_abs_diff": hdiff,
+           "limit": 0.0 if bit_equal_required else BLOCKED_ATOL,
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           # of the blocked run's launches, its warm-up rounds' (one a
+           # capture, on scratch state)
+           "blocked_warmup_launches": b["warmup"], "captures": b["captures"],
+           "device_kernels": {k: r.get("device_kernels")
+                              for k, r in runs.items()},
+           "history": [float(v) for v in b["history"]],
+           "seconds": time.perf_counter() - t_part}
+    problems = []
+    if b["mode"] != "graph":
+        problems.append(f"ran in mode {b['mode']}, not graph")
+    replayed = {k: v - b["warmup"].get(k, 0)
+                for k, v in b["launches"].items()}
+    replayed = {k: v for k, v in replayed.items() if v}
+    if a["launches"] != replayed:
+        problems.append(f"launched {b['launches']} with {b['warmup']} in "
+                        f"its warm-up rounds, the per-round run "
+                        f"{a['launches']}")
+    one_round = {k: v // rounds for k, v in a["launches"].items()}
+    if any(v % rounds for v in a["launches"].values()) or b["warmup"] != {
+            k: v * b["captures"] for k, v in one_round.items()}:
+        problems.append(f"warm-up launches {b['warmup']} are not "
+                        f"{b['captures']} rounds of {one_round}")
+    for k, r in runs.items():
+        if profile and r["device_kernels"] != r["counted_kernels"]:
+            problems.append(f"{k}: the card ran {r['device_kernels']}, the "
+                            f"wrappers counted {r['counted_kernels']}")
+    if not row["bit_equal"] and (bit_equal_required
+                                 or not diff <= BLOCKED_ATOL
+                                 or not hdiff <= BLOCKED_ATOL):
+        problems.append(f"parameters {diff} and history {hdiff} from the "
+                        f"per-round run (limit {row['limit']})")
+    row["problems"] = problems
+    return row
+
+
+def blocked_phase(torch, gpu: str, seed: int) -> dict:
+    """``blocked``, parts (a), (b), (c) and (e) in this process (see
+    BLOCKED_MLP_ROUNDS). Returns the rows of parts (b) and (c) by part."""
+    from distkeras_tpu_torch import (DynSGD, SingleTrainer,
+                                     SynchronousDistributedTrainer, ADAG,
+                                     imdb_lstm, mnist_mlp, resnet50)
+    from distkeras_tpu_torch.datasets import imdb, mnist
+
+    t_phase = time.perf_counter()
+    rows, launches = [], {}
+    loss = "sparse_categorical_crossentropy"
+
+    # (a) config #1 under "auto"
+    mlp = dict(MLP_TRAIN)
+    mlp.pop("rounds_per_program")
+    df = mnist(n=BLOCKED_MLP_ROUNDS * mlp["steps_per_program"]
+               * mlp["batch_size"], flat=True, seed=seed)
+    model = mnist_mlp(seed=seed, device="cuda")
+    rows.append(blocked_pair(
+        torch, gpu, "a", lambda rpp: SingleTrainer(
+            model, "adam", loss, rounds_per_program=rpp or "auto", **mlp),
+        df, BLOCKED_MLP_ROUNDS,
+        {"config": 1, "model": "mnist_mlp()", "trainer": "SingleTrainer",
+         "optimizer": "adam", **mlp, "dtype": "float32",
+         "rounds_per_program_asked": "auto"}))
+    del df, model
+
+    # (b) config #4, f32 then bf16
+    W, Kw, B = (TRAIN["num_workers"], TRAIN["communication_window"],
+                TRAIN["batch_size"])
+    df = imdb(n=TRAIN_ROUNDS * W * Kw * B, vocab_size=VOCAB,
+              seq_len=SEQ_LEN, seed=seed)
+    model = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED, hidden_size=HIDDEN,
+                      seq_len=SEQ_LEN, seed=seed, device="cuda")
+    for dtype in DTYPES:
+        row = blocked_pair(
+            torch, gpu, f"b_{dtype}", lambda rpp, dt=dtype: DynSGD(
+                model, worker_optimizer="sgd", loss=loss, **TRAIN,
+                compute_dtype=dt, rounds_per_program=rpp or BLOCKED_LSTM_R),
+            df, TRAIN_ROUNDS,
+            {"config": 4, "model": "imdb_lstm (config #4)",
+             "trainer": "DynSGD", **TRAIN, "dtype": dtype,
+             "rounds_per_program_asked": BLOCKED_LSTM_R},
+            bit_equal_required=True)
+        got = row["launches"]["per_round"]
+        steps = TRAIN_ROUNDS * W * Kw
+        for name in ("lstm.lstm_fwd_stash", "lstm.lstm_bwd"):
+            if got.get(name) != steps:
+                row["problems"].append(f"{name} launched {got.get(name)} "
+                                       f"times in {steps} local steps")
+        rows.append(row)
+        launches[f"b_{dtype}"] = row
+    del df, model
+    torch.cuda.empty_cache()
+
+    # (c) config #5 in bf16, with the crop and flip on the card
+    # (sharded_feed's device arm): the draws staged with each block
+    from distkeras_tpu_torch.ops.augment import flip_crop_transform
+
+    Bn, Kn = RESNET["batch_size"], RESNET["steps_per_program"]
+    df = resnet_data(BLOCKED_RESNET_ROUNDS * Kn * Bn, seed)
+    model = resnet50(norm_impl="pallas", seed=seed, device="cuda")
+    row = blocked_pair(
+        torch, gpu, "c", lambda rpp: SynchronousDistributedTrainer(
+            model, "sgd", loss, **RESNET, compute_dtype="bfloat16",
+            device_transform=flip_crop_transform(),
+            rounds_per_program=rpp or BLOCKED_RESNET_R),
+        df, BLOCKED_RESNET_ROUNDS,
+        {"config": 5, "model": "resnet50(norm_impl='pallas')",
+         "trainer": "SynchronousDistributedTrainer", **RESNET,
+         "device_transform": "flip_crop_transform()",
+         "dtype": "bfloat16", "rounds_per_program_asked": BLOCKED_RESNET_R})
+    want = 53 * BLOCKED_RESNET_ROUNDS * Kn
+    got = row["launches"]["per_round"]
+    for name in ("groupnorm.group_norm_fwd", "groupnorm.group_norm_bwd"):
+        if got.get(name) != want:
+            row["problems"].append(f"{name} launched {got.get(name)} times, "
+                                   f"want {want}")
+    rows.append(row)
+    launches["c"] = row
+    del df, model
+    torch.cuda.empty_cache()
+
+    # (e) nan@2 inside a block of 4
+    from distkeras_tpu_torch.data import DataFrame
+
+    kw = BLOCKED_FAULT_MLP
+    n = (BLOCKED_FAULT_ROUNDS * kw["num_workers"]
+         * kw["communication_window"] * kw["batch_size"])
+    frame = mnist(n=n, flat=True, seed=seed + 3)
+    df = DataFrame({"features": frame["features"].astype(np.float32) / 255,
+                    "label": frame["label"]})
+    model = mnist_mlp(hidden=(64,), seed=seed, device="cuda")
+
+    class Faulted:
+        """The ADAG trainer with BLOCKED_FAULT installed around its run."""
+
+        def __init__(self, rpp):
+            self.t = ADAG(model, "sgd", loss,
+                          rounds_per_program=rpp or BLOCKED_FAULT_R, **kw)
+
+        def train(self, d):
+            with fault_plan(BLOCKED_FAULT):
+                return self.t.train(d)
+
+        def get_history(self):
+            return self.t.get_history()
+
+    row = blocked_pair(
+        torch, gpu, "e", Faulted, df, BLOCKED_FAULT_ROUNDS,
+        {"model": "mnist_mlp(hidden=(64,))", "trainer": "ADAG",
+         "optimizer": "sgd", **kw, "dtype": "float32",
+         "faults": BLOCKED_FAULT,
+         "rounds_per_program_asked": BLOCKED_FAULT_R}, profile=False)
+    h = np.asarray(row["history"])
+    skipped = [i for i, v in enumerate(h) if not np.isfinite(v)]
+    row["skipped_rounds"] = skipped
+    if skipped != [2]:
+        row["problems"].append(f"rounds {skipped} non-finite, want [2]")
+    rows.append(row)
+    del df, model
+    torch.cuda.empty_cache()
+
+    for row in rows:
+        emit(row)
+    bad = [f"({r['part']}) {p}" for r in rows for p in r["problems"]]
+    if bad:
+        fail(f"blocked: {bad}")
+    emit({"phase": "blocked_seconds", "gpu": gpu,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 # -- the model-parallel engines -----------------------------------------------
@@ -10061,6 +10518,18 @@ def parallel_child(part: str, out: str, seed: str) -> int:
         res["a"] = par_train(torch, FA, F, t, df)
         res["a"]["strategy"] = t._resolve_strategy()
         res["a"]["flops_per_token"] = flops_per_token(model)
+        # blocked (d): the same run, one round a program, then
+        # BLOCKED_PAR_R rounds a captured program
+        res["blocked_d"] = blocked_pair(
+            torch, "", "d", lambda rpp: ParallelTrainer(
+                model, parallel={"data": 1}, loss=loss,
+                compute_dtype="bfloat16",
+                rounds_per_program=rpp or BLOCKED_PAR_R, **PAR_A),
+            df, PAR_A_ROUNDS,
+            {"config": 6, "model": "TransformerLM (config #6, flash)",
+             "trainer": "ParallelTrainer", "parallel": {"data": 1},
+             "backend": res["backend"], **PAR_A, "dtype": "bfloat16",
+             "rounds_per_program_asked": BLOCKED_PAR_R})
     else:
         rows = 2 * PAR_A["batch_size"]
         df = par_frame(rows, seed + 1)
@@ -10289,6 +10758,18 @@ def parallel_phase(torch, FA, F, gpu: str, seed: int) -> dict:
     launch("nccl1")
     ranks, job_s, cmd = wait("nccl1")
     a = ranks[0]["a"]
+    blocked_d = dict(ranks[0]["blocked_d"], gpu=gpu)
+    steps_d = PAR_A_ROUNDS * PAR_A["steps_per_program"]
+    for name in ("fwd", "dq", "dkv"):
+        got = blocked_d["launches"]["per_round"].get(
+            f"flash_attention.flash_{name}")
+        want_d = LM["num_layers"] * steps_d
+        if got != want_d:
+            blocked_d["problems"].append(f"flash_{name} launched {got} "
+                                         f"times, want {want_d}")
+    emit(blocked_d)
+    if blocked_d["problems"]:
+        fail(f"blocked: (d) {blocked_d['problems']}")
     df = par_frame(PAR_A_ROUNDS * 2 * PAR_A["batch_size"], seed)
     plain, plain_losses = par_plain_loop(torch, seed, df)
     torch.cuda.empty_cache()
@@ -10468,6 +10949,7 @@ def parallel_phase(torch, FA, F, gpu: str, seed: int) -> dict:
     for part in "bcdef":
         launches[part] = [r[part]["launches"] for r in ranks]
     launches["g"] = g["launches"]
+    launches["blocked_d"] = blocked_d
     shutil.rmtree(out, ignore_errors=True)
     if failures:
         fail("parallel: " + "; ".join(failures))
@@ -10484,6 +10966,10 @@ def main() -> None:
                     metavar=("PART", "OUT", "SEED"),
                     help="run one rank of the parallel phase (what the "
                          "phase's Job launches; not for direct use)")
+    ap.add_argument("--blocked-only", action="store_true",
+                    help="build the LSTM and GroupNorm kernels, run the "
+                         "blocked phase's parts (a), (b), (c) and (e) alone "
+                         "and stop (no kernels line, no ok line)")
     ap.add_argument("--parallel-only", action="store_true",
                     help="build the flash and fold kernels, run the "
                          "parallel phase alone and stop (no kernels line, "
@@ -10517,6 +11003,12 @@ def main() -> None:
     emit({"phase": "card", "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
     t0 = time.perf_counter()
+    if args.blocked_only:
+        build.build(["lstm_fwd", "lstm_bwd", "groupnorm"])
+        blocked_phase(torch, gpu, args.seed)
+        emit({"phase": "seconds", "from_build": time.perf_counter() - t0})
+        print(card_line(), flush=True)
+        return
     if args.parallel_only:
         build.build(["fold", "flash_attn"])
         launches = parallel_phase(torch, FA, F, gpu, args.seed)
@@ -10817,6 +11309,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     lap("parallel")
     parallel = parallel_phase(torch, FA, F, gpu, args.seed)
+    torch.cuda.empty_cache()
+    lap("blocked")
+    blocked = blocked_phase(torch, gpu, args.seed)
 
     def entry(name, source, replaces, rows, launches, bf16_launches):
         """The largest batch's f32 row, the largest error over every f32
@@ -11146,6 +11641,29 @@ def main() -> None:
             **{f"{part}_gloo2": [c[k["name"]] for c in parallel[part]]
                for part in "bcdef"}}
     kernels[5]["parallel_mesh_launches"] = parallel["g"]
+    # The multi-round programs (blocked), each run's counts set to 0 just
+    # before it and read just after: config #4 as captured graphs of 3
+    # rounds in f32 and bf16 (b), config #5 in bf16 of 2 (c), config #6 of
+    # 2 on a one-rank NCCL group (d, in parallel's nccl1 child); the
+    # replays add what their capture recorded.
+    # Each blocked count holds its run's warm-up rounds (one a capture, on
+    # scratch state), shown beside it; the device's own count of each
+    # kernel in the profiled repeat of the run matched the wrappers'.
+    def blocked_entry(row, name):
+        return {"launches": row["launches"]["blocked"][name],
+                "warmup": row["blocked_warmup_launches"].get(name, 0),
+                "per_round": row["launches"]["per_round"][name]}
+
+    for k in kernels[1:3]:
+        k["blocked_launches"] = {
+            part: blocked_entry(blocked[part], f"lstm.{k['name']}")
+            for part in ("b_float32", "b_bfloat16")}
+    for k in kernels[3:5]:
+        k["blocked_bf16_launches"] = blocked_entry(
+            blocked["c"], f"groupnorm.{k['name']}")
+    for k in kernels[6:]:
+        k["blocked_bf16_launches"] = blocked_entry(
+            parallel["blocked_d"], f"flash_attention.{k['name']}")
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -362,6 +362,11 @@ class Checkpointer:
         """The ``meta`` dict saved with ``step`` (None if absent)."""
         return read_meta(self.directory, step)
 
+    def close(self) -> None:
+        """Nothing to wait for or release: every save is synchronous (the
+        JAX package's ``close`` waits for its asynchronous writes). Safe to
+        call more than once."""
+
     def latest_step(self) -> Optional[int]:
         steps = scan_steps(self.directory)
         return steps[0] if steps else None

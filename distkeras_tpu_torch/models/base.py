@@ -361,6 +361,22 @@ class Model:
         return {"class": type(self.module).__name__,
                 "kwargs": self.module.get_config()}
 
+    @property
+    def num_params(self) -> int:
+        """The number of parameters (every element of :attr:`params`)."""
+        return sum(int(v.numel()) for v in self.params.values())
+
+    def summary(self) -> str:
+        """The module's class and parameter count, then one line a
+        parameter: its name, shape and dtype (the JAX package's
+        ``Model.summary``, with the port's names)."""
+        lines = [f"Model: {type(self.module).__name__}  "
+                 f"({self.num_params:,} params)"]
+        for name, v in self.params.items():
+            dtype = str(v.dtype).replace("torch.", "")
+            lines.append(f"  {name}: {tuple(v.shape)} {dtype}")
+        return "\n".join(lines)
+
     def serialize(self) -> bytes:
         """:func:`~distkeras_tpu_torch.runtime.serialization.serialize_model`
         of this model: the JAX package's bytes for the same weights."""

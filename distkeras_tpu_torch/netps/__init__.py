@@ -76,7 +76,7 @@ from distkeras_tpu_torch.netps.fold import commit_scale, fold_delta
 from distkeras_tpu_torch.netps.hier import AggregatorServer
 from distkeras_tpu_torch.netps.mesh import (MeshFolder, local_mesh_id,
                                             mesh_available)
-from distkeras_tpu_torch.netps.server import PSServer
+from distkeras_tpu_torch.netps.server import PSServer, serve
 from distkeras_tpu_torch.netps.shards import (PartitionPlan, ShardedPSClient,
                                               ShardSet, make_ps_client)
 from distkeras_tpu_torch.netps.shm import (TRANSPORTS, ShmConnection,
@@ -100,5 +100,5 @@ __all__ = [
     "TreeNode", "TreeSpec", "TreeStandby", "Tuner", "TunerConfig",
     "build_tree", "commit_scale", "fold_delta", "local_boot_id",
     "local_mesh_id", "make_ps_client", "mesh_available", "probe_codecs",
-    "recommended_topology", "transport_mode",
+    "recommended_topology", "serve", "transport_mode",
 ]

@@ -1390,3 +1390,13 @@ class PSServer:
                 f"fence epoch {epoch} does not exceed server epoch "
                 f"{self.epoch}")
 
+
+
+def serve(center: Optional[Sequence[np.ndarray]] = None,
+          discipline: str = "adag", host: str = "127.0.0.1",
+          port: int = 0, lease_s: Optional[float] = None,
+          device: Optional[Union[str, torch.device]] = None) -> PSServer:
+    """Construct and start a :class:`PSServer` (the JAX package's
+    ``serve``; ``device`` is the port server's: None is the card)."""
+    return PSServer(center, discipline=discipline, host=host, port=port,
+                    lease_s=lease_s, device=device).start()

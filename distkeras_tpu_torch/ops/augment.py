@@ -54,25 +54,36 @@ def flip_crop(images: torch.Tensor, flip: torch.Tensor, ys: torch.Tensor,
     return images[b, rows[:, :, None], cols[:, None, :]]
 
 
+def draw_flip_crop(gen: torch.Generator, batch: int,
+                   pad: int = 4) -> tuple:
+    """The draws of :func:`random_flip_crop` for ``batch`` images, on the
+    CPU: B flips with probability 1/2, then B row and B column offsets
+    uniform in ``[0, 2*pad]``, in that order from ``gen``."""
+    flip = torch.rand(batch, generator=gen) < 0.5
+    ys = torch.randint(0, 2 * pad + 1, (batch,), generator=gen)
+    xs = torch.randint(0, 2 * pad + 1, (batch,), generator=gen)
+    return flip, ys, xs
+
+
 def random_flip_crop(gen: torch.Generator, images: torch.Tensor,
                      pad: int = 4) -> torch.Tensor:
     """Per-image random horizontal flip and random ``pad``-reflected crop
-    of ``images`` (``[B, H, W, C]``): B flips with probability 1/2, then B
-    row and B column offsets uniform in ``[0, 2*pad]``, drawn in that
-    order from ``gen`` (a CPU generator), then :func:`flip_crop`."""
-    B = images.shape[0]
-    flip = torch.rand(B, generator=gen) < 0.5
-    ys = torch.randint(0, 2 * pad + 1, (B,), generator=gen)
-    xs = torch.randint(0, 2 * pad + 1, (B,), generator=gen)
-    return flip_crop(images, flip, ys, xs, pad)
+    of ``images`` (``[B, H, W, C]``): :func:`draw_flip_crop` from ``gen``
+    (a CPU generator), then :func:`flip_crop`."""
+    return flip_crop(images, *draw_flip_crop(gen, images.shape[0], pad), pad)
 
 
 def flip_crop_transform(pad: int = 4):
     """A ``Trainer(device_transform=...)``: ``fn(gen, x, y) -> (x, y)``
     applying :func:`random_flip_crop` to the features and passing the
-    labels through."""
+    labels through. Its halves, ``fn.draw(gen, x_shape)`` and
+    ``fn.apply(draws, x, y)``, are the same work split at the draws, so a
+    captured multi-round program stages the draws with its block
+    (``workers.staged_draws``)."""
 
     def transform(gen, x, y):
         return random_flip_crop(gen, x, pad=pad), y
 
+    transform.draw = lambda gen, shape: draw_flip_crop(gen, shape[0], pad)
+    transform.apply = lambda draws, x, y: (flip_crop(x, *draws, pad), y)
     return transform

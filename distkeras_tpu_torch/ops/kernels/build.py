@@ -16,6 +16,8 @@ machine class has no ``nvcc``.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -115,6 +117,56 @@ PTR, INT = ctypes.c_void_p, ctypes.c_int
 I64, F32, F64 = ctypes.c_int64, ctypes.c_float, ctypes.c_double
 
 
+#: the open :func:`launch_tape` s, ``{CUDA stream handle: (mode, tape)}``.
+#: Keyed by the stream the launches go to, not by thread: autograd runs a
+#: backward's launches on its own device thread, on the forward's stream,
+#: and another thread's launches on its own stream stay out of the tape.
+_TAPES: dict = {}
+_TAPES_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def launch_tape(mode: str, stream):
+    """Watch the launches made on ``stream`` (a ``torch.cuda.Stream``)
+    inside the body. ``mode="record"`` (a CUDA graph capture, which
+    launches nothing until it replays) counts none of them as it is made
+    and writes them to the yielded :class:`collections.Counter` for
+    :func:`replay_launches`. ``mode="warmup"`` (a round on scratch state
+    before a capture, which launches every kernel for real) counts them as
+    any launch and adds them to the warm-up counts too
+    (:meth:`KernelLib.warmup_counts`), so a run can tell them apart."""
+    if mode not in ("record", "warmup"):
+        raise ValueError(f"mode must be 'record' or 'warmup', got {mode!r}")
+    key = stream.cuda_stream
+    tape: collections.Counter = collections.Counter()
+    with _TAPES_LOCK:
+        if key in _TAPES:
+            raise RuntimeError("a launch tape is already open on this stream")
+        _TAPES[key] = (mode, tape)
+    try:
+        yield tape
+    finally:
+        with _TAPES_LOCK:
+            del _TAPES[key]
+
+
+def _tape_of(stream: Optional[int]):
+    """The ``(mode, tape)`` watching ``stream`` (a handle; None: the
+    current stream of the current device), or None."""
+    if not _TAPES:
+        return None
+    if stream is None:
+        stream = torch.cuda.current_stream().cuda_stream
+    return _TAPES.get(stream)
+
+
+def replay_launches(tape: collections.Counter) -> None:
+    """Count the launches one replay of a captured graph makes: the ones
+    its capture recorded (:func:`launch_tape`)."""
+    for (lib, kind, name), n in tape.items():
+        lib._add(kind, name, n)
+
+
 class KernelLib:
     """The C entry points of one kernel module, and its launch counts.
 
@@ -133,6 +185,7 @@ class KernelLib:
         self._fns: dict = {}
         self._launches = dict.fromkeys(counted, 0)
         self._entry_launches = dict.fromkeys(entries, 0)
+        self._warmup = dict.fromkeys(counted, 0)
         self._lock = threading.Lock()
 
     def _fn(self, entry: str):
@@ -164,8 +217,7 @@ class KernelLib:
             rc = self._fn(entry)(*ptrs, stream)
         if rc != 0:
             raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
-        with self._lock:
-            self._entry_launches[entry] += 1
+        self._tally("entry", entry, stream)
 
     def query(self, entry: str, *args) -> int:
         """Call an entry point that launches nothing (ints in, an int out;
@@ -174,13 +226,29 @@ class KernelLib:
         return self._fn(entry)(*args, None)
 
     def count(self, name: str) -> None:
+        """Add one launch of kernel ``name``, made on the current stream."""
+        self._tally("kernel", name, None)
+
+    def _tally(self, kind: str, name: str, stream: Optional[int]) -> None:
+        tape = _tape_of(stream)
+        if tape is not None and tape[0] == "record":
+            tape[1][(self, kind, name)] += 1
+            return
+        self._add(kind, name, 1)
+        if tape is not None and kind == "kernel":
+            with self._lock:
+                self._warmup[name] += 1
+
+    def _add(self, kind: str, name: str, n: int) -> None:
+        counts = self._launches if kind == "kernel" else self._entry_launches
         with self._lock:
-            self._launches[name] += 1
+            counts[name] += n
 
     def reset(self) -> None:
         """Set every kernel's launch count to 0."""
         with self._lock:
-            for counts in (self._launches, self._entry_launches):
+            for counts in (self._launches, self._entry_launches,
+                           self._warmup):
                 for name in counts:
                     counts[name] = 0
 
@@ -188,6 +256,12 @@ class KernelLib:
         """``{kernel name: launches}``."""
         with self._lock:
             return dict(self._launches)
+
+    def warmup_counts(self) -> dict:
+        """``{kernel name: launches}`` of the warm-up rounds before a
+        capture (:func:`launch_tape`), which :meth:`counts` holds too."""
+        with self._lock:
+            return dict(self._warmup)
 
     def entry_counts(self) -> dict:
         """``{C entry point: successful calls}`` (``lstm_bwd_bf16``, ...)."""

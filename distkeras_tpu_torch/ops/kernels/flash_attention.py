@@ -85,6 +85,12 @@ def launch_counts(by_entry: bool = False) -> dict:
     return _LIB.entry_counts() if by_entry else _LIB.counts()
 
 
+def warmup_counts() -> dict:
+    """The launches of :func:`launch_counts` that the warm-up rounds before
+    a CUDA graph capture made (``parallel/program.py``)."""
+    return _LIB.warmup_counts()
+
+
 def check_head_dim(D: int) -> None:
     """The kernels take a head dim that is a multiple of 16, at most 128
     (one bf16 k-step of the tensor cores' product; the widest tile a block

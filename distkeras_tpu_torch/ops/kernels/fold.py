@@ -96,6 +96,12 @@ def launch_counts() -> dict:
     return _LIB.counts()
 
 
+def warmup_counts() -> dict:
+    """The launches of :func:`launch_counts` that the warm-up rounds before
+    a CUDA graph capture made (``parallel/program.py``)."""
+    return _LIB.warmup_counts()
+
+
 def prepare() -> None:
     """Build and bind the fold kernel now. A server on the card calls this
     before it takes commits: a first-use build inside a fold, under the

@@ -105,6 +105,12 @@ def launch_counts(by_entry: bool = False) -> dict:
     return _LIB.entry_counts() if by_entry else _LIB.counts()
 
 
+def warmup_counts() -> dict:
+    """The launches of :func:`launch_counts` that the warm-up rounds before
+    a CUDA graph capture made (``parallel/program.py``)."""
+    return _LIB.warmup_counts()
+
+
 def gn_smem_bytes(ct: int, vec: int, threads: int, cached: int,
                   itemsize: int, streams: int, groups_in_tile: int) -> int:
     """Shared memory of a block (``csrc/groupnorm.cu gn_smem``): the

@@ -124,6 +124,12 @@ def launch_counts(by_entry: bool = False) -> dict:
     return _LIB.entry_counts() if by_entry else _LIB.counts()
 
 
+def warmup_counts() -> dict:
+    """The launches of :func:`launch_counts` that the warm-up rounds before
+    a CUDA graph capture made (``parallel/program.py``)."""
+    return _LIB.warmup_counts()
+
+
 def _fwd_plain(wx, wh, b, x, stash: bool):
     """The forward in ``x``'s dtype, at the TPU kernel's rounding points:
     the products of the stored values summed in the wide dtype, the h/c
@@ -321,11 +327,21 @@ def gate_permutation(hidden: int) -> torch.Tensor:
     return gate * hidden + 8 * q + u
 
 
+@functools.lru_cache(maxsize=64)
+def _permutation_on(kind: str, hidden: int,
+                    device: torch.device) -> torch.Tensor:
+    """:func:`gate_permutation` (``kind="gate"``) or :func:`xw_permutation`
+    (``"xw"``) on ``device``, copied there once: a layout call inside a
+    captured CUDA graph cannot copy from the host."""
+    make = gate_permutation if kind == "gate" else xw_permutation
+    return make(hidden).to(device)
+
+
 def fwd_weight_layout(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     """``[Wx; Wh]`` as the bf16 forward reads it: ``[4H, E+H]``, row n
     holding packed gate column ``gate_permutation(H)[n]`` (k contiguous:
     mma's B operand). A layout copy made once a call."""
-    perm = gate_permutation(wh.shape[0]).to(wx.device)
+    perm = _permutation_on("gate", wh.shape[0], wx.device)
     return torch.cat([wx, wh], dim=0)[:, perm].t().contiguous()
 
 
@@ -380,7 +396,7 @@ def xw_xproj_layout(wx: torch.Tensor) -> torch.Tensor:
     """Wx as the bf16 ``xw`` body's x . Wx product reads it: ``[4H, E]``,
     row p holding packed column ``xw_permutation(H)[p]`` (k contiguous:
     mma's B operand). A layout copy made once a call."""
-    perm = xw_permutation(wx.shape[1] // 4).to(wx.device)
+    perm = _permutation_on("xw", wx.shape[1] // 4, wx.device)
     return wx[:, perm].t().contiguous()
 
 
@@ -388,7 +404,7 @@ def xw_rec_weight_layout(wh: torch.Tensor) -> torch.Tensor:
     """Wh as the bf16 ``xw`` recurrence keeps it: ``[4H, H]``, row n
     holding packed column ``gate_permutation(H)[n]`` (the resident body's
     order without the Wx rows). A layout copy made once a call."""
-    perm = gate_permutation(wh.shape[0]).to(wh.device)
+    perm = _permutation_on("gate", wh.shape[0], wh.device)
     return wh[:, perm].t().contiguous()
 
 

@@ -33,6 +33,8 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from distkeras_tpu_torch.ops import host_numbers
+
 Params = dict  # name -> tensor
 
 
@@ -49,8 +51,15 @@ def _full(params: Params, value: float) -> Params:
     return {k: torch.full_like(v, value) for k, v in params.items()}
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    """``1 - decay**count`` in float32, as optax computes it."""
+def _bias_correction(decay: float, count):
+    """``1 - decay**count`` in float32, as optax computes it: a float, or
+    inside a multi-round program (``count`` a tensor) the table entry of
+    that count (``ops/host_numbers.py``). Divide by it with
+    :func:`host_numbers.divide`."""
+    if isinstance(count, torch.Tensor):
+        return host_numbers.divisor(("bias_correction", float(decay)),
+                                    lambda c: _bias_correction(decay, c),
+                                    count)
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
 
 
@@ -143,14 +152,15 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         nu = {k: (1 - b2) * (v ** 2) + b2 * state["nu"][k]
               for k, v in g.items()}
         bc1 = _bias_correction(b1, count)
+        div = host_numbers.divide
         if nesterov:
             bc1_next = _bias_correction(b1, count + 1)
-            mu_hat = {k: b1 * (mu[k] / bc1_next) + (1 - b1) * (v / bc1)
+            mu_hat = {k: b1 * div(mu[k], bc1_next) + (1 - b1) * div(v, bc1)
                       for k, v in g.items()}
         else:
-            mu_hat = {k: m / bc1 for k, m in mu.items()}
+            mu_hat = {k: div(m, bc1) for k, m in mu.items()}
         bc2 = _bias_correction(b2, count)
-        out = {k: mu_hat[k] / (torch.sqrt(nu[k] / bc2 + eps_root) + eps)
+        out = {k: mu_hat[k] / (torch.sqrt(div(nu[k], bc2) + eps_root) + eps)
                for k in g}
         return out, {"count": count, "mu": _cast(mu, mu_dtype), "nu": nu}
 
@@ -195,9 +205,10 @@ def _rms_like(decay: float, eps: float, initial_scale: float,
         if bias_correction:
             new["count"] = state["count"] + 1
             bc = _bias_correction(decay, new["count"])
-            nu_hat = {k: n / bc for k, n in nu_hat.items()}
+            div = host_numbers.divide
+            nu_hat = {k: div(n, bc) for k, n in nu_hat.items()}
             if centered:
-                mu_hat = {k: m / bc for k, m in mu_hat.items()}
+                mu_hat = {k: div(m, bc) for k, m in mu_hat.items()}
         out = {}
         for k, v in g.items():
             n = nu_hat[k] - mu_hat[k] * mu_hat[k] if centered else nu_hat[k]
@@ -244,9 +255,17 @@ def add_decayed_weights(weight_decay: float,
 
 def scale_by_schedule(step_size_fn) -> GradientTransformation:
     """``step_size_fn(count) * g``, the count (from 0) stepping after each
-    update (optax ``scale_by_schedule``)."""
+    update (optax ``scale_by_schedule``). Inside a multi-round program the
+    step is read from a table of ``step_size_fn`` over the counts
+    (``ops/host_numbers.py``)."""
+    def step_of(count: int) -> float:
+        return float(np.float32(step_size_fn(count)))
+
     def update(g, state, params=None):
-        step = float(np.float32(step_size_fn(state["count"])))
+        count = state["count"]
+        step = (host_numbers.factor(("schedule", step_size_fn), step_of,
+                                    count)
+                if isinstance(count, torch.Tensor) else step_of(count))
         return ({k: v * step for k, v in g.items()},
                 {"count": state["count"] + 1})
 

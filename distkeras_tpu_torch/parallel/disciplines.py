@@ -30,6 +30,10 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional, Sequence
 
+import torch
+
+from distkeras_tpu_torch.ops import host_numbers
+
 Params = dict  # name -> tensor
 
 
@@ -132,15 +136,28 @@ class DynSGDFold(Discipline):
     round and the order rotates by one each round: worker ``i``'s staleness
     at round ``r`` is ``(i + r) mod W`` with the global worker id, so every
     worker's data shard gets the same weight over any W consecutive rounds.
-    ``fold_state`` is the round counter (an int)."""
+    ``fold_state`` is the round counter (an int; inside a multi-round
+    program a 0-dim tensor, and the scale is read from a table over the W
+    stalenesses, ``ops/host_numbers.py``)."""
 
     def init_state(self, params):
         return 0
 
+    @staticmethod
+    def _scale_of(staleness: int) -> float:
+        return 1.0 / (float(staleness) + 1.0)
+
     def commit(self, center, local, fold_state, *, worker_id, window,
                num_workers):
-        staleness = float((int(worker_id) + int(fold_state)) % num_workers)
-        return _scale(_sub(local, center), 1.0 / (staleness + 1.0)), local
+        if isinstance(fold_state, torch.Tensor):
+            scale = host_numbers.factor(
+                ("dynsgd", int(num_workers)), self._scale_of,
+                (int(worker_id) + fold_state) % num_workers,
+                size=num_workers)
+        else:
+            scale = self._scale_of(
+                (int(worker_id) + int(fold_state)) % num_workers)
+        return _scale(_sub(local, center), scale), local
 
     def advance(self, fold_state):
         return fold_state + 1

@@ -52,6 +52,7 @@ run loop (:func:`run_per_round`) and the open-ended one
 from __future__ import annotations
 
 import contextlib
+import time
 import warnings
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -65,6 +66,7 @@ from distkeras_tpu_torch.models.base import mean_buffers, state_buffers
 from distkeras_tpu_torch.ops import collectives
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.optimizers import get_optimizer
+from distkeras_tpu_torch.parallel import program
 from distkeras_tpu_torch.parallel.disciplines import Discipline
 from distkeras_tpu_torch.resilience import faults
 from distkeras_tpu_torch.resilience.guard import (
@@ -136,6 +138,30 @@ class RoundEngine:
         """The structure a checkpoint of this engine restores into."""
         return self.init_state()
 
+    # -- multi-round programs ------------------------------------------------
+    def _program_device(self) -> torch.device:
+        """The device this rank's rounds run on."""
+        return self.model.device
+
+    def _round_steps(self, xs: torch.Tensor) -> int:
+        """Optimizer steps a round of the ``[n, m, K, B, ...]`` block
+        ``xs`` takes: K."""
+        return int(xs.shape[2])
+
+    def _put_block(self, xs: np.ndarray, ys: np.ndarray):
+        """A ``[n, m, K, B, ...]`` host block on this rank's device."""
+        return mesh.put_global((xs, ys), self.model.device)
+
+    def multi_round_fn(self, rounds: int):
+        """The program of ``rounds`` consecutive rounds
+        (:func:`make_multi_round_fn`): ``fn(state, xs, ys, rounds_left)
+        -> (state, losses)`` over ``[rounds, m, K, B, ...]`` blocks,
+        ``losses`` ``[rounds, *round_loss_shape]``, ``rounds_left`` the
+        run's rounds from this block on. The same rounds as calling
+        ``_round_fn`` ``rounds`` times, bit for bit; on the card one
+        captured CUDA graph (``parallel/program.py``)."""
+        return make_multi_round_fn(self, rounds)
+
     def run(
         self,
         plan: BatchPlan,
@@ -150,21 +176,19 @@ class RoundEngine:
         after each round.
 
         ``rounds_per_program`` (an int >= 1 or ``"auto"``, checked by the
-        trainer that takes it from the user) is accepted as in the JAX
-        package and, as there, does not change the result. It has nothing
-        to block here: eager PyTorch compiles no program, so every round is
-        one host iteration whatever its value."""
+        trainer that takes it from the user) runs that many rounds as one
+        program (:func:`run_rounds`): one captured CUDA graph on the card,
+        a host loop on the CPU. The losses and the final state are the
+        per-round run's, bit for bit; only the block-final ``on_round``
+        call of a block carries a state (interior calls get ``None``)."""
         if plan.num_workers != self.num_workers:
             raise ValueError(
                 f"plan built for {plan.num_workers} workers, the engine has "
                 f"{self.num_workers}")
         if state is None:
             state = self.init_state()
-        with telemetry.get().span("engine_run"):
-            state, losses = run_per_round(self, plan, state, start_round,
-                                          on_round)
-        note_losses(losses)
-        return state, losses
+        return run_rounds(self, plan, state, start_round, on_round,
+                          rounds_per_program)
 
     def run_stream(self, items, state=None, on_item=None, start_index=0,
                    max_items=None):
@@ -223,6 +247,8 @@ class AsyncEngine(RoundEngine):
         #: re-adopts the center. None = off (DKTPU_DIVERGENCE_RESET).
         self.divergence_reset = divergence_reset
         self.round_loss_shape = (self.num_workers,)
+        #: the per-step on-device augmentation (``workers.py``)
+        self.device_transform = device_transform
         self.tx = get_optimizer(optimizer, learning_rate)
         self.loss_fn = get_loss(loss)
         self._local_loop = make_local_loop(
@@ -403,7 +429,7 @@ class AsyncEngine(RoundEngine):
         loss = collectives.all_gather(torch.stack(losses),
                                       group=pg).reshape(-1)
         next_rng = derive_seed(state.rng)
-        if self.nan_guard:
+        if self.nan_guard and not program.in_program():
             # The round's one host read of the [W] losses; the divergence
             # reset reads this same host copy.
             loss = loss.cpu()
@@ -413,6 +439,19 @@ class AsyncEngine(RoundEngine):
                 # state carries forward, and the loss keeps the NaN for
                 # accounting.
                 return state._replace(rng=next_rng), loss
+        new_state = self._fold_round(state, new_locals, new_opts, new_bufs,
+                                     next_rng)
+        if self.nan_guard and program.in_program():
+            # Inside a program the same skip is a select on the device.
+            new_state = program.select(torch.isfinite(loss).all(), new_state,
+                                       state._replace(rng=next_rng))
+        return new_state, loss
+
+    def _fold_round(self, state: EngineState, new_locals, new_opts, new_bufs,
+                    next_rng) -> EngineState:
+        """The round's server half: the fold and the model-state mean."""
+        disc = self.discipline
+        pg = self._fold_pg
         fold = disc.fold(state.center, new_locals, state.fold_state,
                          window=self.window, num_workers=self.num_workers,
                          worker_ids=self.local_workers,
@@ -429,7 +468,7 @@ class AsyncEngine(RoundEngine):
                                               group=pg)
                 model_state = [mean] * len(self.local_workers)
         return EngineState(fold.center, fold.locals_, new_opts,
-                           fold.fold_state, next_rng, model_state), loss
+                           fold.fold_state, next_rng, model_state)
 
 
 def _to(tree, device):
@@ -505,6 +544,68 @@ def stage_round(engine, plan, r: int):
     return _maybe_poison_round(r, xs, lw, engine.num_workers), ys
 
 
+def _maybe_poison_block(rs, xs: torch.Tensor, local_workers=None,
+                        num_workers=None) -> torch.Tensor:
+    """The block twin of :func:`_maybe_poison_round` over ``[n, m, ...]``:
+    round ``rs[j]``'s fault poisons row ``j`` of the block, as it would
+    have poisoned that round staged alone."""
+    fp = faults.active_plan()
+    if fp is None:
+        return xs
+    for j, r in enumerate(rs):
+        row = xs[j]
+        poisoned = _maybe_poison_round(r, row, local_workers, num_workers)
+        if poisoned is not row:
+            xs = xs.clone()
+            xs[j] = poisoned
+    return xs
+
+
+def stage_block(engine, plan, rs) -> tuple:
+    """Gather and device-stage the rounds ``rs`` as one ``[n, m, K, B,
+    ...]`` block (this rank's workers at dim 1), with any ``nan@r`` /
+    ``inf@r`` fault of those rounds in its row. A step engine stages the
+    block in its own layout (``_stage_block``, ``parallel/runner.py``)."""
+    hook = getattr(engine, "_stage_block", None)
+    if hook is not None:
+        return hook(plan, rs)
+    lw = engine.local_workers
+    rounds = []
+    for r in rs:
+        if len(lw) == engine.num_workers:
+            rounds.append(plan.round(r))
+        elif getattr(plan, "is_local", False):
+            rounds.append(plan.round_local(r, lw))
+        else:
+            rounds.append(engine._local_rows(*plan.round(r)))
+    xs, ys = engine._put_block(np.stack([b[0] for b in rounds]),
+                               np.stack([b[1] for b in rounds]))
+    return _maybe_poison_block(list(rs), xs, lw, engine.num_workers), ys
+
+
+def run_rounds(engine, plan, state, start_round, on_round, rounds_per_program,
+               stage=None):
+    """Dispatch to the per-round, blocked or auto-sized run loop (shared by
+    every engine). ``rounds_per_program`` is an int (R rounds a program)
+    or ``"auto"``: probe the per-round wall time and pick R to fill
+    ``_AUTO_TARGET_S`` of device work a program. The result is the same
+    either way (see :func:`make_multi_round_fn`). ``stage(r)`` stages one
+    round for the per-round loop (default :func:`stage_round`)."""
+    with telemetry.get().span("engine_run"):
+        if rounds_per_program == "auto":
+            state, losses = run_auto(engine, plan, state, start_round,
+                                     on_round, stage=stage)
+        elif int(rounds_per_program) > 1:
+            state, losses = run_blocked(engine, plan, state, start_round,
+                                        on_round, int(rounds_per_program))
+        else:
+            state, losses = run_per_round(engine, plan, state, start_round,
+                                          on_round, stage=stage)
+    # The rounds the NaN guard skipped show up here as non-finite rows.
+    note_losses(losses)
+    return state, losses
+
+
 def run_per_round(engine, plan, state, start_round, on_round, stage=None):
     """One round per host iteration, with the next rounds' batches gathered
     and copied to the device by a :class:`RoundFeeder`: ``stage(r)``, by
@@ -541,22 +642,212 @@ def run_per_round(engine, plan, state, start_round, on_round, stage=None):
     finally:
         feeder.close()
         _record_feed_waits(engine, feeder)
-    host = (torch.stack(losses).cpu().numpy() if losses
-            else np.zeros((0, *engine.round_loss_shape), np.float32))
+    with tele.span("retire[per-round]"):
+        host = (torch.stack(losses).cpu().numpy() if losses
+                else np.zeros((0, *engine.round_loss_shape), np.float32))
     return state, host
 
 
-def _record_feed_waits(engine, feeder) -> None:
+def _record_feed_waits(engine, *feeders) -> None:
     """input_stall: the time the run loop sat blocked on the data plane,
-    the compute-vs-data split. ``engine.feed_wait_seconds`` is the
-    feeder's running sum, which keeps counting the waits an open-ended
-    stream evicts from the bounded ``feeder.waits``."""
-    engine.feed_wait_seconds = float(feeder.wait_seconds)
+    the compute-vs-data split. ``engine.feed_waits`` are the per-round
+    (per-block) waits, ``engine.feed_wait_seconds`` the feeders' running
+    sum, which keeps counting the waits an open-ended stream evicts from
+    the bounded ``feeder.waits``."""
+    engine.feed_waits = [w for f in feeders for w in f.waits]
+    engine.feed_wait_seconds = float(sum(f.wait_seconds for f in feeders))
     tele = telemetry.get()
     stall = tele.histogram("input_stall")
-    for w in feeder.waits:
+    for w in engine.feed_waits:
         stall.observe(w)
     tele.counter("input_stall_seconds").add(engine.feed_wait_seconds)
+
+
+#: auto-R sizing (the JAX package's constants). The probe measures the
+#: steady per-round cost over a run of rounds with one fence at its end;
+#: R then targets ~64 ms of device work a program, at most 64 rounds and
+#: at most 256 MB of staged block.
+_AUTO_MAX_R = 64
+_AUTO_BLOCK_BYTES = 256e6
+_AUTO_PROBE_ROUNDS = 15
+_AUTO_TARGET_S = 0.064
+
+
+def _auto_size_r(steady_s: float, round_bytes: int) -> int:
+    """Rounds a program from a measured steady per-round time and the
+    bytes one round stages. In a group every rank must run the same
+    programs (a different R is a different sequence of collectives), but
+    the clocks differ: rank 0's R is broadcast to every rank."""
+    R = max(1, min(_AUTO_MAX_R,
+                   max(1, int(_AUTO_BLOCK_BYTES / max(round_bytes, 1))),
+                   int(np.ceil(_AUTO_TARGET_S / max(steady_s, 1e-6)))))
+    if mesh.group_active():
+        R = int(collectives.broadcast_object(int(R), src=0))
+    return R
+
+
+def _fence(x) -> None:
+    """Wait for the device work behind ``x`` (a tensor, or a tuple whose
+    last item is one)."""
+    if isinstance(x, tuple):
+        x = x[-1]
+    if isinstance(x, torch.Tensor) and x.is_cuda:
+        torch.cuda.synchronize(x.device)
+
+
+def probe_steady(dispatch_round, n: int = _AUTO_PROBE_ROUNDS) -> float:
+    """Steady per-round seconds: ``n`` calls of ``dispatch_round()`` and
+    one fence at the end (on the value of the last)."""
+    t0 = time.perf_counter()
+    fence = None
+    for _ in range(n):
+        fence = dispatch_round()
+    _fence(fence)
+    return max((time.perf_counter() - t0) / n, 1e-6)
+
+
+def run_auto(engine, plan, state, start_round, on_round, stage=None):
+    """``rounds_per_program="auto"``: round ``start_round`` alone (its
+    first calls), then ``_AUTO_PROBE_ROUNDS`` probe rounds per round with
+    one fence, then the rest in blocks of ``R = _auto_size_r(steady,
+    round_bytes)`` rounds. The losses and the final state are any fixed-R
+    run's. ``on_round`` sees the probe rounds after the probe, only the
+    last of them with a state; a run resumed past its end returns an
+    empty history."""
+    shape = (0, *engine.round_loss_shape)
+    if start_round >= plan.num_rounds:
+        return state, np.zeros(shape, np.float32)
+    if stage is None:
+        def stage(r):
+            return stage_round(engine, plan, r)
+    tele = telemetry.get()
+    guard = RoundGuard(engine)
+    losses = []
+    r = start_round
+    xs, ys = stage(r)
+    guard.pre_round(r)
+    with tele.span("dispatch[auto]"):
+        state, loss = engine._round_fn(state, xs, ys)
+    losses.append(loss)
+    if on_round is not None:
+        on_round(r, loss, state)
+    state = guard.post_round(r, loss, state)
+    r += 1
+    _fence(loss)
+    # The probe: rounds with one fence at the end; callbacks wait until
+    # after it (a callback that reads the loss would fence every round).
+    pending = []
+    n = 0
+    round_bytes = 1
+    t0 = time.perf_counter()
+    while r < plan.num_rounds and n < _AUTO_PROBE_ROUNDS:
+        xs, ys = stage(r)
+        round_bytes = int(xs.nbytes + ys.nbytes)
+        guard.pre_round(r)
+        with tele.span("dispatch[auto]"):
+            state, loss = engine._round_fn(state, xs, ys)
+        state = guard.post_round(r, loss, state)
+        losses.append(loss)
+        pending.append(r)
+        r += 1
+        n += 1
+    steady = 1e-6
+    if n:
+        _fence(loss)
+        steady = max((time.perf_counter() - t0) / n, 1e-6)
+    head = torch.stack([x.cpu() for x in losses]).numpy()
+    if on_round is not None:
+        for i, rr in enumerate(pending):
+            on_round(rr, head[1 + i], state if i == len(pending) - 1 else None)
+    if r >= plan.num_rounds:
+        return state, head
+    # rounds left is the same on every rank, so the clamp keeps the
+    # broadcast R agreed
+    R = min(_auto_size_r(steady, round_bytes), plan.num_rounds - r)
+    engine.auto_rounds_per_program = R
+    state, rest = run_blocked(engine, plan, state, r, on_round, R,
+                              mode="auto")
+    return state, np.concatenate([head, rest], axis=0)
+
+
+def run_blocked(engine, plan, state, start_round, on_round, R,
+                mode="blocked"):
+    """The run loop with ``R`` rounds a program (one call of
+    ``engine.multi_round_fn(n)`` a block; the last block may be shorter).
+    The losses are the per-round path's; ``on_round`` fires once a round,
+    but only the block-final call carries a state (interior rounds'
+    states never exist outside the program). Crash and kill faults land at
+    the boundary of the block holding their round; the divergence reset
+    runs once a block, on its last round's losses. ``mode`` names the
+    spans, ``dispatch[<mode>]`` and ``retire[<mode>]`` ("blocked", or
+    "auto" when :func:`run_auto` sized R). The first block is staged
+    before the rest's feeder starts, so a program's capture never runs
+    beside the feeder's staging."""
+    tele = telemetry.get()
+    guard = RoundGuard(engine)
+    auto = mode == "auto"
+    tele.gauge("program.rounds_per_program").set(R)
+    starts = list(range(start_round, plan.num_rounds, R))
+    shape = (0, *engine.round_loss_shape)
+    if not starts:
+        return state, np.zeros(shape, np.float32)
+
+    def stage(i):
+        rs = range(starts[i], min(starts[i] + R, plan.num_rounds))
+        return stage_block(engine, plan, rs)
+
+    losses: list = []
+    # Two feeders: the first block's, done before its program runs (and is
+    # captured), and the rest's, which starts once the first block ran.
+    feeders = (RoundFeeder(1, stage),
+               RoundFeeder(len(starts), stage, start_round=1))
+
+    def blocks():
+        for feeder in feeders:
+            yield from feeder
+
+    try:
+        for i, (xs, ys) in blocks():
+            n = int(xs.shape[0])
+            for rr in range(starts[i], starts[i] + n):
+                guard.pre_round(rr)
+            with (tele.span("dispatch[auto]") if auto
+                  else tele.span("dispatch[blocked]")):
+                new_state, block_losses = engine.multi_round_fn(n)(
+                    state, xs, ys, plan.num_rounds - starts[i])
+            with (tele.span("retire[auto]") if auto
+                  else tele.span("retire[blocked]")):
+                host = block_losses.cpu().numpy()
+            losses.append(host)
+            if on_round is not None:
+                for j in range(n):
+                    on_round(starts[i] + j, host[j],
+                             new_state if j == n - 1 else None)
+            state = guard.post_round(starts[i] + n - 1, block_losses[-1],
+                                     new_state, host_loss=host[-1])
+    except BaseException:
+        with contextlib.suppress(Exception):
+            if losses:
+                note_losses(np.concatenate(losses, axis=0))
+        raise
+    finally:
+        for feeder in feeders:
+            feeder.close()
+        _record_feed_waits(engine, *feeders)
+    return state, np.concatenate(losses, axis=0)
+
+
+def make_multi_round_fn(engine, rounds: int):
+    """The engine's cached program of ``rounds`` rounds
+    (``parallel/program.py Program``; ``engine._multi_fns``, as the JAX
+    package caches its jitted scans)."""
+    fns = getattr(engine, "_multi_fns", None)
+    if fns is None:
+        fns = engine._multi_fns = {}
+    fn = fns.get(rounds)
+    if fn is None:
+        fn = fns[rounds] = program.Program(engine, rounds)
+    return fn
 
 
 def run_stream(engine, items, state=None, on_item=None, start_index=0,

@@ -3,8 +3,8 @@
 
 The data-parallel engines speak rounds (``_round_fn(state, xs, ys)`` over
 ``[W, K, B, ...]`` batches), which is what gives their trainers
-checkpoint and resume, metrics and ``rounds_per_program`` through
-``Trainer._execute``. :class:`WindowedStepEngine` gives the step engines
+checkpoint and resume, metrics and ``rounds_per_program`` (R rounds as
+one program, ``parallel/program.py``) through ``Trainer._execute``. :class:`WindowedStepEngine` gives the step engines
 (``spmd.py``, ``gspmd.py``, ``pipeline_engine.py``) the same: one round
 is ``window`` steps, the round's loss their mean, and the plan has one
 logical worker (the whole grid), so a checkpoint's meta never sees a
@@ -24,8 +24,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from distkeras_tpu_torch import telemetry
-from distkeras_tpu_torch.resilience.guard import note_losses
 from distkeras_tpu_torch.runtime.mesh import DATA_AXIS
 
 
@@ -82,11 +80,11 @@ class WindowedStepEngine:
     def _local_ranks(self) -> list:
         return local_dp_ranks(self.mesh)
 
-    def _stage_round(self, plan, r: int):
-        """This rank's block of round ``r`` on its device: the plan's
+    def _host_round(self, plan, r: int) -> tuple:
+        """This rank's block of round ``r`` as host tensors: the plan's
         whole round (or, from a sharded store with one worker a ``data``
         rank, only this rank's rows), merged rank-major, then cut to the
-        rank's rows and sequence block."""
+        rank's rows and sequence block, with any ``nan@r`` fault in it."""
         from distkeras_tpu_torch.parallel.engine import _maybe_poison_round
 
         if plan.num_workers > 1 and getattr(plan, "is_local", False):
@@ -97,10 +95,25 @@ class WindowedStepEngine:
             xs, ys = plan.round(r)
             xs = self.inner.local_block(merge_rank_major(xs))
             ys = self.inner.local_block(merge_rank_major(ys))
-        dev = self.inner.device
         xs = torch.as_tensor(np.ascontiguousarray(xs))
         xs = _maybe_poison_round(r, xs[None])[0]  # one worker: the grid
-        return xs.to(dev), torch.as_tensor(np.ascontiguousarray(ys)).to(dev)
+        return xs, torch.as_tensor(np.ascontiguousarray(ys))
+
+    def _stage_round(self, plan, r: int):
+        """Round ``r``'s ``[K, b, ...]`` block on this rank's device."""
+        dev = self.inner.device
+        xs, ys = self._host_round(plan, r)
+        return xs.to(dev), ys.to(dev)
+
+    def _stage_block(self, plan, rs):
+        """Rounds ``rs`` as one ``[n, K, b, ...]`` block in the engine's
+        own layout (the JAX adapter's ``_put_block`` /
+        ``_stage_local_block``): each round staged as
+        :meth:`_stage_round` stages it, stacked."""
+        dev = self.inner.device
+        rounds = [self._host_round(plan, r) for r in rs]
+        return (torch.stack([x for x, _ in rounds]).to(dev),
+                torch.stack([y for _, y in rounds]).to(dev))
 
     def _round_fn(self, state, xs: torch.Tensor, ys: torch.Tensor):
         losses = []
@@ -109,14 +122,30 @@ class WindowedStepEngine:
             losses.append(loss)
         return state, torch.stack(losses).mean()
 
+    # -- multi-round programs -------------------------------------------------
+    def _program_device(self) -> torch.device:
+        return self.inner.device
+
+    def _round_steps(self, xs: torch.Tensor) -> int:
+        """Steps a round of the ``[n, K, b, ...]`` block takes: K."""
+        return int(xs.shape[1])
+
+    def multi_round_fn(self, rounds: int):
+        """``rounds`` rounds as one program (``parallel/engine.py
+        make_multi_round_fn``): one captured CUDA graph on the card."""
+        from distkeras_tpu_torch.parallel.engine import make_multi_round_fn
+
+        return make_multi_round_fn(self, rounds)
+
     # -- the run --------------------------------------------------------------
     def run(self, plan, state=None, start_round: int = 0,
             on_round: Optional[Callable] = None,
             rounds_per_program: "int | str" = 1):
-        """Rounds ``start_round..num_rounds`` (``rounds_per_program`` is
-        accepted and changes nothing, as in the port's other engines);
-        returns ``(state, losses)``, ``losses`` ``[rounds]``."""
-        from distkeras_tpu_torch.parallel.engine import run_per_round
+        """Rounds ``start_round..num_rounds``, ``rounds_per_program`` of
+        them a program (``parallel/engine.py run_rounds``: blocks of R
+        rounds, or ``"auto"``); returns ``(state, losses)``, ``losses``
+        ``[rounds]``, the same for every R."""
+        from distkeras_tpu_torch.parallel.engine import run_rounds
 
         sharded = getattr(plan, "is_local", False) and self.mesh.size > 1
         allowed = {self.dp_size} if sharded else {1, self.dp_size}
@@ -128,9 +157,6 @@ class WindowedStepEngine:
                 f"{plan.num_workers}")
         if state is None:
             state = self.init_state()
-        with telemetry.get().span("engine_run"):
-            state, losses = run_per_round(
-                self, plan, state, start_round, on_round,
-                stage=lambda r: self._stage_round(plan, r))
-        note_losses(losses)
-        return state, losses
+        return run_rounds(self, plan, state, start_round, on_round,
+                          rounds_per_program,
+                          stage=lambda r: self._stage_round(plan, r))

@@ -57,7 +57,7 @@ from distkeras_tpu_torch.runtime.mesh import (
     SEQ_AXIS,
     RankMesh,
 )
-from distkeras_tpu_torch.workers import derive_seed
+from distkeras_tpu_torch.workers import derive_seed, seeded_generator
 
 
 class SPMDState(NamedTuple):
@@ -228,9 +228,7 @@ class ShardedStep:
                   for k, v in params.items()}
         kwargs = {}
         if self._takes_rng:
-            gen = torch.Generator(device=x.device)
-            gen.manual_seed(seed)
-            kwargs["rng"] = gen
+            kwargs["rng"] = seeded_generator(x.device, seed)
         aux_w = self.aux_loss_weight
         if aux_w and self._takes_inter:
             kwargs["return_intermediates"] = True

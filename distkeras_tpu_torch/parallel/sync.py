@@ -37,6 +37,7 @@ import torch
 from distkeras_tpu_torch.ops import collectives
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.optimizers import get_optimizer
+from distkeras_tpu_torch.parallel import program
 from distkeras_tpu_torch.parallel.engine import RoundEngine, initial_buffers
 from distkeras_tpu_torch.resilience.guard import nan_guard_enabled
 from distkeras_tpu_torch.runtime import mesh
@@ -89,9 +90,12 @@ class SyncEngine(RoundEngine):
         self.seed = seed
         #: NaN/Inf round skip: a round with a non-finite step loss keeps the
         #: previous params and optimizer state (one host read of the [K]
-        #: step losses per round). Default from DKTPU_NAN_GUARD.
+        #: step losses per round; a select on the device inside a
+        #: multi-round program). Default from DKTPU_NAN_GUARD.
         self.nan_guard = (nan_guard_enabled() if nan_guard is None
                           else bool(nan_guard))
+        #: the per-step on-device augmentation (``workers.py``)
+        self.device_transform = device_transform
         self.tx = get_optimizer(optimizer, learning_rate)
         self.loss_fn = get_loss(loss)
         self._local_loop = make_local_loop(
@@ -138,9 +142,18 @@ class SyncEngine(RoundEngine):
             # Running statistics re-sync: each rank saw its own rows.
             bufs = collectives.all_reduce(bufs, "mean")
         next_rng = derive_seed(state.rng)
-        if self.nan_guard and not bool(torch.isfinite(losses).all()):
+        new_state = SyncState(params, opt, next_rng, bufs)
+        if not self.nan_guard:
+            return new_state, losses.mean()
+        kept = state._replace(rng=next_rng)
+        if program.in_program():
+            # Inside a multi-round program the skip is a select on the
+            # device (no host read).
+            return (program.select(torch.isfinite(losses).all(), new_state,
+                                   kept), losses.mean())
+        if not bool(torch.isfinite(losses).all()):
             # A non-finite step poisons the params: the whole round is
             # discarded and the loss keeps the NaN for accounting. The
             # losses are the ranks' mean, so every rank skips together.
-            return state._replace(rng=next_rng), losses.mean()
-        return SyncState(params, opt, next_rng, bufs), losses.mean()
+            return kept, losses.mean()
+        return new_state, losses.mean()

@@ -6,7 +6,8 @@ Two layers of defense, split by cost:
 * **In the round** (on unless ``DKTPU_NAN_GUARD=0``): the engine's round
   keeps the *previous* state when any worker's round loss went non-finite
   (one host read of the ``[W]`` loss vector a round, which the round makes
-  anyway). :func:`nan_guard_enabled` is the policy switch; the skip itself
+  anyway; inside a multi-round program a select on the device, with no
+  host read, ``parallel/program.py``). :func:`nan_guard_enabled` is the policy switch; the skip itself
   lives in ``parallel/engine.py``; :func:`note_losses` is the post-hoc
   accounting of the rounds it skipped.
 * **Host-side** (:class:`RoundGuard`): fault injection (``crash@R`` /
@@ -58,7 +59,9 @@ class RoundGuard:
         self._inject = self.plan is not None and bool(self.plan)
 
     def pre_round(self, round_idx: int) -> None:
-        """Crash/kill injection, fired before the round runs."""
+        """Crash/kill injection, fired before the round runs (a blocked run
+        fires it for every round of a block before the block runs: the
+        fault lands at the block's boundary)."""
         if not self._inject:
             return
         if self.plan.kill(round_idx):
@@ -69,17 +72,22 @@ class RoundGuard:
             raise InjectedFault(
                 f"crash injected at round {round_idx} (DKTPU_FAULTS)")
 
-    def post_round(self, round_idx: int, loss, state):
+    def post_round(self, round_idx: int, loss, state, host_loss=None):
         """Divergent-worker reset: when a worker's loss strays more than
         ``divergence_reset`` from the (finite) worker mean — or went
         non-finite while the round as a whole survived — re-adopt the
         center for that worker (the reference's rejoining-worker PS pull).
         ``loss`` is the round's ``[W]`` losses, on the host already when
-        the NaN guard read them (then ``.cpu()`` copies nothing). Returns
-        the (possibly replaced) state."""
+        the NaN guard read them (then ``.cpu()`` copies nothing);
+        ``host_loss``, when given, is their host copy (a block's last round,
+        which the blocked run loop already fetched). A blocked run calls
+        this once a block, with the block's last round. Returns the
+        (possibly replaced) state."""
         if self.divergence_reset is None:
             return state
-        host = loss.detach().cpu().numpy().reshape(-1).astype(np.float64)
+        host = np.asarray(host_loss if host_loss is not None
+                          else loss.detach().cpu().numpy())
+        host = host.reshape(-1).astype(np.float64)
         if host.size < 2:
             return state
         finite = host[np.isfinite(host)]

@@ -42,6 +42,29 @@ def _to_numpy(tree):
     return tree
 
 
+def register_model_class(name: str, cls: type) -> None:
+    """Make ``cls`` reconstructible from a serialized spec as ``name``
+    (the registry ``models.base.register_model`` fills)."""
+    from distkeras_tpu_torch.models.base import MODEL_CLASSES
+
+    MODEL_CLASSES[name] = cls
+
+
+def get_model_class(name: str) -> type:
+    """The module class registered as ``name``; an unknown name raises a
+    ``KeyError`` that names ``register_model``."""
+    from distkeras_tpu_torch.models.base import MODEL_CLASSES
+
+    try:
+        return MODEL_CLASSES[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown model class {name!r}; known: {sorted(MODEL_CLASSES)}. "
+            "Custom modules must be registered with "
+            "distkeras_tpu_torch.models.register_model before "
+            "deserialization.") from None
+
+
 def serialize_params(params: Any) -> bytes:
     """Parameter tree -> msgpack bytes (the weights-only path; flax's
     ``to_bytes`` of a tree of dicts and arrays: insertion order kept)."""
@@ -121,7 +144,7 @@ def deserialize_model(data: bytes,
     blob's mutable state (format 2: flax's ``batch_stats``, the Keras
     adapter's ``keras_state``) loads into the module's buffers."""
     from distkeras_tpu_torch.convert import params_from_jax, state_from_jax
-    from distkeras_tpu_torch.models.base import MODEL_CLASSES, Model
+    from distkeras_tpu_torch.models.base import Model
     from distkeras_tpu_torch.runtime.device import resolve_device
 
     if data[:len(MAGIC)] != MAGIC:
@@ -132,14 +155,7 @@ def deserialize_model(data: bytes,
     off += 4
     spec = json.loads(data[off:off + spec_len].decode("utf-8"))
     off += spec_len
-    try:
-        cls = MODEL_CLASSES[spec["class"]]
-    except KeyError:
-        raise KeyError(
-            f"unknown model class {spec['class']!r}; known: "
-            f"{sorted(MODEL_CLASSES)}. Custom modules must be registered "
-            "with distkeras_tpu_torch.models.register_model before "
-            "deserialization.") from None
+    cls = get_model_class(spec["class"])
     restored = msgpack.msgpack_restore(data[off:])
     if spec.get("format_version", 1) >= 2:
         params, state = restored["params"], restored["state"] or None

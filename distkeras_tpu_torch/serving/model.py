@@ -83,6 +83,16 @@ class BucketedModel:
         """Input shapes run so far (warmup included)."""
         return self._compiles
 
+    def set_params(self, params) -> None:
+        """Swap in new parameters (a ``Model.params``-shaped dict of
+        tensors or arrays): a copy of the model with them, then one
+        attribute store, atomic under the GIL, so a batch in flight runs
+        wholly on the old or wholly on the new weights. The same shapes
+        run again: no bucket is warmed again."""
+        dev = self.model.device
+        self.model = self.model.with_params(
+            {k: torch.as_tensor(v).to(dev) for k, v in params.items()})
+
     # -- inference ----------------------------------------------------------
 
     def infer(self, arrays: Sequence[np.ndarray],

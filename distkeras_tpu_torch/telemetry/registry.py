@@ -72,6 +72,21 @@ _METRICS = [
        "Per-round retire fence: the blocking loss fetch."),
     _m("retire[stream]", "span", "engine",
        "Streaming retire fence: end-of-run drain."),
+    _m("dispatch[blocked]", "span", "engine",
+       "Host call of one multi-round program (a block of R rounds): the "
+       "state and batch copies and the graph replay (or the host loop)."),
+    _m("retire[blocked]", "span", "engine",
+       "Per-block retire fence: the blocking fetch of the block's losses."),
+    _m("retire[auto]", "span", "engine",
+       "Per-block retire fence of the blocks auto sizing chose."),
+    _m("program.capture", "span", "engine",
+       "Warm-up round and CUDA graph capture of one multi-round program."),
+    _m("program.blocks.graph", "counter", "engine",
+       "Blocks a multi-round program ran as a replayed CUDA graph."),
+    _m("program.blocks.eager", "counter", "engine",
+       "Blocks a multi-round program ran as a host loop of rounds."),
+    _m("program.rounds_per_program", "gauge", "engine",
+       "Rounds a program of the current blocked run (auto's choice)."),
     _m("input_stall", "histogram", "engine",
        "Consumer time blocked on the data plane, per round."),
     _m("input_stall_seconds", "counter", "engine",

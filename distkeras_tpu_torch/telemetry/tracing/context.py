@@ -192,6 +192,12 @@ def refresh_process_info() -> None:
         _stream_write(process_info_record())
 
 
+def stream_path() -> Optional[str]:
+    """The live trace-stream path, once anything has been written (None
+    before, and in a child process until it writes its own)."""
+    return _WRITER["path"] if _WRITER["pid"] == os.getpid() else None
+
+
 def _reset_stream() -> None:
     """Tests only: drop the open stream so the next span re-resolves the
     directory/role."""

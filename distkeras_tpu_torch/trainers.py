@@ -115,7 +115,15 @@ class Trainer:
     """Base trainer (reference ``Trainer``): owns model, optimizer, loss,
     timing. Hyperparameters normalize into ``self.config``
     (:class:`RunConfig`); the reference's kwarg names stay readable and
-    assignable as properties over it."""
+    assignable as properties over it.
+
+    ``rounds_per_program`` (an int >= 1, or ``"auto"``: 16 rounds one at
+    a time, then R sized from their wall time) runs R rounds as one
+    program: one captured CUDA graph on the card, a host loop on the CPU
+    (``parallel/program.py``). The history and the trained model are the
+    per-round run's bit for bit; ``on_round`` still fires once a round,
+    and a checkpoint waits for the block's last round, the one whose state
+    exists outside the program."""
 
     batch_size = _config_prop("batch_size")
     num_epoch = _config_prop("num_epoch")

@@ -15,6 +15,7 @@ Python loop whose heavy parts are the model's own kernels.
 from __future__ import annotations
 
 import inspect
+import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -36,13 +37,76 @@ from distkeras_tpu_torch.ops.precision import cast_floats
 AUGMENT_STREAM = 1
 
 
-def derive_seed(*parts: int) -> int:
+def derive_seed(*parts):
     """A 64-bit seed mixed from non-negative integer parts
     (``numpy.SeedSequence``): the port's counterpart of ``jax.random``'s
     ``fold_in`` / ``split`` chains, used for per-round, per-worker,
-    per-step and per-micro-batch dropout generators."""
+    per-step and per-micro-batch dropout generators. When the first part
+    is a :class:`SeedRef` (a round being captured into a CUDA graph), the
+    seed is one too, derived when the graph replays."""
+    if parts and isinstance(parts[0], SeedRef):
+        return SeedRef(parts[0], tuple(int(p) for p in parts[1:]))
     return int(np.random.SeedSequence([int(p) for p in parts])
                .generate_state(1, np.uint64)[0])
+
+
+class SeedRef:
+    """A seed of a round captured into a CUDA graph (``parallel/
+    program.py``): ``derive_seed(parent, *parts)`` of the block's first
+    rng, which the host knows only at each replay. The root (no parent) is
+    that rng; :meth:`resolve` computes the seed from it, as the per-round
+    path's chain of :func:`derive_seed` calls does."""
+
+    __slots__ = ("parent", "parts")
+
+    def __init__(self, parent: "Optional[SeedRef]" = None,
+                 parts: tuple = ()):
+        self.parent = parent
+        self.parts = parts
+
+    def resolve(self, root: int, memo: Optional[dict] = None) -> int:
+        if self.parent is None:
+            return int(root)
+        memo = {} if memo is None else memo
+        got = memo.get(id(self))
+        if got is None:
+            got = memo[id(self)] = derive_seed(
+                self.parent.resolve(root, memo), *self.parts)
+        return got
+
+
+#: where a captured round's generators and a transform's draws come from
+#: (``parallel/program.py`` sets them for the capture): ``generator(device,
+#: SeedRef) -> torch.Generator`` and ``draws(transform, SeedRef, x) ->
+#: tuple of device tensors``.
+_CAPTURE_HOOKS = threading.local()
+
+
+def seeded_generator(device, seed) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed``; for a
+    :class:`SeedRef` (inside a capture) the capturing program's generator,
+    which it seeds before every replay."""
+    if isinstance(seed, SeedRef):
+        make = getattr(_CAPTURE_HOOKS, "generator", None)
+        if make is None:
+            raise RuntimeError("a SeedRef outside a captured program")
+        return make(torch.device(device), seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def staged_draws(transform, seed: SeedRef, x: torch.Tensor) -> tuple:
+    """``transform.draw(gen, x.shape)`` for a step of a captured round:
+    the capturing program's device buffers, which it fills before every
+    replay with the draws of a CPU generator seeded from ``seed``."""
+    if not (hasattr(transform, "draw") and hasattr(transform, "apply")):
+        raise RuntimeError("a device_transform inside a captured program "
+                           "must have draw and apply halves")
+    make = getattr(_CAPTURE_HOOKS, "draws", None)
+    if make is None:
+        raise RuntimeError("a SeedRef outside a captured program")
+    return make(transform, seed, x)
 
 
 def make_local_loop(
@@ -88,7 +152,10 @@ def make_local_loop(
     ``derive_seed(rng, k, 0, AUGMENT_STREAM)`` at step ``k``: the
     augmentation is deterministic in (seed, round, worker, step), survives
     a checkpoint and resume exactly, and leaves the dropout seeds the same
-    with or without it.
+    with or without it. A transform may come in halves as well,
+    ``draw(gen, x_shape)`` (its CPU draws) and ``apply(draws, x, y)``
+    (the same work on the device given them): a captured multi-round
+    program then stages the draws with its block (:func:`staged_draws`).
 
     ``grad_transform(grads, loss) -> (grads, loss)`` runs after each
     step's backward (after the ``grad_accum`` mean), before the optimizer
@@ -126,9 +193,7 @@ def make_local_loop(
                   for k, v in params.items()}
         kwargs = {}
         if takes_rng:
-            gen = torch.Generator(device=x.device)
-            gen.manual_seed(seed)
-            kwargs["rng"] = gen
+            kwargs["rng"] = seeded_generator(x.device, seed)
         # The forward updates the copy in place (models/base.py BatchNorm).
         st = {k: v.clone() for k, v in st.items()} if stateful else st
         tensors = cast_floats(leaves, compute_dtype)
@@ -162,7 +227,8 @@ def make_local_loop(
 
     def local_steps(params, opt_state, xs, ys, rng: Optional[int] = None,
                     state=None):
-        rng = 0 if rng is None else int(rng)
+        rng = 0 if rng is None else (
+            rng if isinstance(rng, SeedRef) else int(rng))
         if stateful and state is None:
             state = {k: v.detach() for k, v in module.named_buffers()}
         was_training = module.training
@@ -172,9 +238,16 @@ def make_local_loop(
             for k in range(xs.shape[0]):
                 x, y = xs[k], ys[k]
                 if input_transform is not None:
-                    gen = torch.Generator()
-                    gen.manual_seed(derive_seed(rng, k, 0, AUGMENT_STREAM))
-                    x, y = input_transform(gen, x, y)
+                    aug = derive_seed(rng, k, 0, AUGMENT_STREAM)
+                    if isinstance(aug, SeedRef):
+                        # a captured round: the draws are staged with the
+                        # block (parallel/program.py)
+                        x, y = input_transform.apply(
+                            staged_draws(input_transform, aug, x), x, y)
+                    else:
+                        gen = torch.Generator()
+                        gen.manual_seed(aug)
+                        x, y = input_transform(gen, x, y)
                 loss, state, grads = grad_of_step(params, state, x, y, rng, k)
                 if grad_transform is not None:
                     grads, loss = grad_transform(grads, loss)

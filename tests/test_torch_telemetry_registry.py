@@ -24,7 +24,10 @@ RECEIVERS = frozenset({"telemetry", "tele", "tel", "t", "_t"})
 #: names only the port emits (no row in the JAX package's registry).
 PORT_ONLY = {"checkpoint.save", "copy", "digest", "write", "load", "verify",
              "native.scale_calls", "native.scale_fallback_calls",
-             "netps.remote.local_window", "serving.dispatch_errors"}
+             "netps.remote.local_window", "serving.dispatch_errors",
+             "dispatch[blocked]", "retire[blocked]", "retire[auto]",
+             "program.capture", "program.blocks.graph",
+             "program.blocks.eager", "program.rounds_per_program"}
 
 
 def _call_name(node):

@@ -649,3 +649,30 @@ def rank_major_probe(case: dict) -> dict:
         out[name] = {"x": x.numpy(), "loss": float(loss),
                      "params": _np_tree(eng.global_state(st).params)}
     return out
+
+
+def blocked_auto() -> dict:
+    """An ``AsyncEngine`` (ADAG, adam, 4 workers: 2 a rank) over 24 rounds
+    per round and under ``rounds_per_program="auto"``; rank 0's auto R
+    (``engine.auto_rounds_per_program``) is every rank's. Returns this
+    rank's R, the program mode and both runs' losses."""
+    from distkeras_tpu_torch.data import DataFrame, make_batches
+    from distkeras_tpu_torch.models import MLP, Model
+    from distkeras_tpu_torch.parallel.disciplines import get_discipline
+    from distkeras_tpu_torch.parallel.engine import AsyncEngine
+
+    model = Model.build(MLP(hidden=(16,), num_outputs=3, in_features=8),
+                        np.zeros((1, 8), np.float32), device="cpu")
+    plan = make_batches(DataFrame(blob_columns(24 * 4 * 2 * 8)), "features",
+                        "label", batch_size=8, num_workers=4, window=2,
+                        num_epoch=1)
+    out = {}
+    for key, rpp in (("per_round", 1), ("blocked", "auto")):
+        eng = AsyncEngine(model, "adam", "sparse_categorical_crossentropy",
+                          get_discipline("adag"), window=2, num_workers=4,
+                          learning_rate=0.05)
+        _, losses = eng.run(plan, rounds_per_program=rpp)
+        out[key] = losses.tolist()
+    out["R"] = eng.auto_rounds_per_program
+    out["mode"] = eng._program_seat.mode
+    return out
