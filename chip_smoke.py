@@ -580,6 +580,23 @@ and every parity phase holds the card's bf16 run to the CPU's within
     the card run in each profiled run equal to the launches the wrappers
     counted in it (``DEVICE_FAMILIES``), and (e) skipping exactly round 2.
     ``--blocked-only`` runs (a), (b), (c) and (e) alone.
+40. ``analysis`` — dk-check for the port, on this machine (no JAX here),
+    (a) and (b) each in a process of its own while (c) runs:
+    (a) ``python -m distkeras_tpu_torch.analysis`` over the port, 0
+    findings; (b) the interleave suite
+    (``distkeras_tpu_torch.analysis.interleave``, ``--interleave-child``)
+    with every server's center on the card, scenario by scenario within
+    ``INTERLEAVE_BUDGET_S`` (a cut is a whole scenario, and the phase's
+    line names those that ran on the card), each at the CPU's counts
+    (``INTERLEAVE_COUNTS``) with no violation, its fold launches counted;
+    (c) the lock-order witness over a ``PSServer`` on the card holding
+    config #4's center, with ``WITNESS_CLIENTS`` racing ``PSClient``s
+    committing ``WITNESS_COMMITS`` int8 deltas each: no inversion, the
+    witnessed ``server.PSServer`` edges within the port's static lock
+    graph, the fold kernel launched once a commit (counts set to 0 just
+    before the commits, read just after) and the center bit-equal to the
+    numpy oracle folded in the server's commit order.
+    ``--analysis-only`` runs it alone.
 
 Then ``seconds`` (each phase's wall time), the ``kernels`` line (the
 flash entries with ``moe_launches``, the LSTM and fold entries with
@@ -589,7 +606,8 @@ flash entries with ``moe_launches``, the LSTM and fold entries with
 entry a rank, GroupNorm with ``ranks_bf16_launches``; #1 stash and #2
 with ``blocked_launches``, GroupNorm and flash with
 ``blocked_bf16_launches``, each the blocked run's launches, its warm-up
-rounds' share of them and the per-round run's), the card's name
+rounds' share of them and the per-round run's; the fold with
+``analysis_launches``), the card's name
 and power limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -10956,6 +10974,280 @@ def parallel_phase(torch, FA, F, gpu: str, seed: int) -> dict:
     return launches
 
 
+#: ``analysis``: the interleave suite's counts on the CPU (the JAX
+#: package's, scenario by scenario; ``tests/test_torch_interleave.py``),
+#: which the card's run must equal: (complete, crash points, transitions)
+INTERLEAVE_COUNTS = {"dedup": (924, 0, 11088), "fence": (11550, 0, 127050),
+                     "journal": (924, 2506, 35180),
+                     "tree_flush": (630, 0, 4410)}
+#: the scenarios in the order the card runs them, cheapest first; a
+#: scenario starts only if the suite's seconds so far plus its own, at the
+#: rate a transition the suite has shown, stay within the budget (the cut
+#: is a whole scenario, never part of one)
+INTERLEAVE_ORDER = ("dedup", "tree_flush", "journal", "fence")
+INTERLEAVE_BUDGET_S = 120.0
+#: the witness run: racing clients x int8 commits each, config #4's center
+WITNESS_CLIENTS, WITNESS_COMMITS = 4, 5
+
+
+def witness_oracle(center: list, deltas: dict, commit_log) -> list:
+    """The numpy oracle of the witness run: each client's int8 wire items
+    as its error-feedback encoder makes them (``netps/client.py
+    _compress_delta``: the residual added, encoded, carried), folded at
+    ADAG's scale 1 (``fold_compressed_numpy``) in the server's fold order,
+    ``commit_log``'s."""
+    from distkeras_tpu_torch.netps import wire
+    from distkeras_tpu_torch.netps.fold import fold_compressed_numpy
+
+    sent = {}
+    for wid, seq_deltas in deltas.items():
+        residual = [np.zeros_like(a) for a in center]
+        for k, delta in enumerate(seq_deltas):
+            items = []
+            for i, d in enumerate(delta):
+                d = d + residual[i]
+                q, spec = wire.codec_encode(d, "int8")
+                residual[i] = d - wire.codec_decode(q, spec)
+                items.append((q, spec))
+            sent[(wid, k)] = items
+    out = [a.copy() for a in center]
+    seqs = {}
+    for wid, seq, _staleness in commit_log:
+        seqs.setdefault(wid, []).append(seq)
+    rank = {(wid, s): k for wid, ss in seqs.items()
+            for k, s in enumerate(sorted(ss))}
+    for wid, seq, _staleness in commit_log:
+        for o, (q, spec) in zip(out, sent[(wid, rank[(wid, seq)])]):
+            fold_compressed_numpy(o, q, spec, 1.0)
+    return out
+
+
+def interleave_child(out: str) -> int:
+    """The ``analysis`` phase's interleave suite (``--interleave-child
+    OUT``), in a process of its own: every scenario with its servers'
+    centers on the card, in ``INTERLEAVE_ORDER``, within
+    ``INTERLEAVE_BUDGET_S``; the fold's launch counts set to 0 just before
+    and read just after. Writes its counts, seconds and launches to ``OUT``
+    as JSON. It prints nothing."""
+    import torch
+
+    from distkeras_tpu_torch.analysis import interleave
+    from distkeras_tpu_torch.ops.kernels import fold as F
+
+    suite, ran, cut = {}, [], []
+    torch.cuda.synchronize()
+    F.reset_launches()  # counts start at 0 just before the suite runs
+    t0 = time.perf_counter()
+    done = 0  # transitions run so far
+    for name in INTERLEAVE_ORDER:
+        spent = time.perf_counter() - t0
+        if done and spent + spent / done * INTERLEAVE_COUNTS[name][2] > \
+                INTERLEAVE_BUDGET_S:
+            cut.append(name)
+            continue
+        t1 = time.perf_counter()
+        r, = interleave.run_suite([name], device="cuda")
+        suite[name] = {"complete": r.complete, "crashed": r.crashed,
+                       "transitions": r.transitions,
+                       "violations": len(r.violations),
+                       "first_violations": [repr(v) for v in
+                                            r.violations[:3]],
+                       "seconds": time.perf_counter() - t1}
+        ran.append(name)
+        done += r.transitions
+    torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump({"scenarios": suite, "ran_on_card": ran, "cut": cut,
+                   "seconds": time.perf_counter() - t0,
+                   "fold_launches": F.launch_counts()}, f)
+    return 0
+
+
+def analysis_phase(torch, F, gpu: str, seed: int) -> dict:
+    """``analysis``: (a) the port's dk-check CLI over the port and (b) the
+    interleave suite (:func:`interleave_child`) each in a process of its
+    own (no JAX on this machine), both while (c) runs here. (a) must find
+    nothing; (b) runs every server's center on the card, scenario by
+    scenario within ``INTERLEAVE_BUDGET_S``, each at the CPU's counts with
+    no violation; (c) the lock-order witness over a ``PSServer`` on the
+    card with ``WITNESS_CLIENTS`` racing ``PSClient``s committing
+    ``WITNESS_COMMITS`` int8 deltas each: no inversion, the witnessed
+    server edges within the port's static lock graph, one fold launch a
+    commit, the center bit-equal to the numpy oracle. Returns the fold
+    launches of (b) and (c)."""
+    from distkeras_tpu_torch import imdb_lstm
+    from distkeras_tpu_torch.analysis import core, witness
+    from distkeras_tpu_torch.analysis.rules_concurrency import (
+        _find_cycles, build_lock_graph)
+    from distkeras_tpu_torch.netps import PSClient, PSServer
+
+    t_phase = time.perf_counter()
+    failures = []
+    here = os.path.dirname(os.path.abspath(__file__))
+    suite_out = os.path.join(here, "build", "analysis_interleave.json")
+    os.makedirs(os.path.dirname(suite_out), exist_ok=True)
+    if os.path.exists(suite_out):
+        os.remove(suite_out)
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "distkeras_tpu_torch.analysis", "--format",
+         "json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=here)
+    suite_proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"),
+         "--interleave-child", suite_out], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=here)
+    try:
+        # (c) the witness over a server on the card
+        params = imdb_lstm(vocab_size=VOCAB, embed_dim=EMBED,
+                           hidden_size=HIDDEN, seq_len=SEQ_LEN, seed=seed,
+                           device="cpu").params
+        center = [v.detach().float().numpy().copy() for v in params.values()]
+        rng = np.random.default_rng(seed + 29)
+        deltas = {w: [[rng.normal(scale=1e-3, size=a.shape).astype(
+            np.float32) for a in center] for _ in range(WITNESS_COMMITS)]
+            for w in range(WITNESS_CLIENTS)}
+        modules, errs = core.parse_modules([os.path.join(
+            os.path.dirname(os.path.abspath(__file__)),
+            "distkeras_tpu_torch")])
+        static_edges, _, _ = build_lock_graph(modules)
+        errors: list = []
+        with witness() as w:
+            srv = PSServer(center=[a.copy() for a in center],
+                           discipline="adag", lease_s=60.0,
+                           device="cuda").start()
+            try:
+                clients = [PSClient(srv.endpoint, worker_id=i,
+                                    compress="int8", transport="tcp")
+                           for i in range(WITNESS_CLIENTS)]
+                counters = [c.join()[1] for c in clients]
+                barrier = threading.Barrier(WITNESS_CLIENTS + 1)
+
+                def work(i):
+                    try:
+                        barrier.wait()
+                        upd = counters[i]
+                        for delta in deltas[i]:
+                            clients[i].commit(delta, upd)
+                            _center, upd = clients[i].pull()
+                    except Exception as e:  # surfaced below
+                        errors.append(e)
+                        barrier.abort()
+
+                threads = [threading.Thread(target=work, args=(i,),
+                                            name=f"witness-{i}")
+                           for i in range(WITNESS_CLIENTS)]
+                for t in threads:
+                    t.start()
+                torch.cuda.synchronize()
+                F.reset_launches()  # counts start at 0 just before the folds
+                t1 = time.perf_counter()
+                try:
+                    barrier.wait()
+                except threading.BrokenBarrierError:
+                    pass
+                for t in threads:
+                    t.join()
+                torch.cuda.synchronize()
+                witness_s = time.perf_counter() - t1
+                witness_launches = F.launch_counts()
+                got = [np.asarray(a) for a in srv.center()]
+                log = list(srv.commit_log)
+                for c in clients:
+                    c.leave()
+                    c.close()
+            finally:
+                srv.close()
+        if errors:
+            fail(f"analysis: witness client: {errors[0]!r}")
+        commits = WITNESS_CLIENTS * WITNESS_COMMITS
+        edges = w.edges()
+        server_edges = {e for e in edges if "server.PSServer" in e[0]
+                        or "server.PSServer" in e[1]}
+        oracle = witness_oracle(center, deltas, log)
+        bit_equal = same_bits(got, oracle)
+        row = {"phase": "analysis_witness", "gpu": gpu, "device": "cuda",
+               "clients": WITNESS_CLIENTS, "commits_each": WITNESS_COMMITS,
+               "codec": "int8", "discipline": "adag",
+               "center": f"config #4 imdb_lstm, {len(center)} tensors, "
+                         f"{sum(a.size for a in center)} parameters",
+               "folds": len(log), "fold_launches": witness_launches,
+               "inversions": w.cycles(), "witnessed_edges": len(edges),
+               "server_edges": sorted(server_edges),
+               "static_edges": len(static_edges),
+               "static_cycles": _find_cycles(static_edges),
+               "server_edges_within_static": server_edges <= static_edges,
+               "bit_equal_to_numpy_oracle": bit_equal,
+               "seconds": witness_s}
+        emit(row)
+        if row["inversions"] or row["static_cycles"]:
+            failures.append(f"witness: lock-order cycle {row['inversions']} "
+                            f"{row['static_cycles']}")
+        if not row["server_edges_within_static"]:
+            failures.append(f"witness: server edges {server_edges} outside "
+                            "the static graph")
+        if len(log) != commits or witness_launches.get("fold_commit") != \
+                commits or any(v for k, v in witness_launches.items()
+                               if k != "fold_commit"):
+            failures.append(f"witness: {len(log)} folds, launches "
+                            f"{witness_launches} for {commits} commits")
+        if not bit_equal:
+            failures.append("witness: the center is not the numpy oracle's")
+    finally:
+        done = {}
+        for name, proc in (("cli", cli), ("suite", suite_proc)):
+            try:
+                done[name] = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                done[name] = proc.communicate()
+    # (b) the interleave suite, centers on the card
+    suite_err = done["suite"][1]
+    if suite_proc.returncode != 0 or not os.path.exists(suite_out):
+        fail(f"analysis: the interleave child exited "
+             f"{suite_proc.returncode}: {suite_err[-2000:]}")
+    with open(suite_out) as f:
+        res = json.load(f)
+    suite, ran, cut = res["scenarios"], res["ran_on_card"], res["cut"]
+    suite_s, suite_launches = res["seconds"], res["fold_launches"]
+    for name, sc in suite.items():
+        if (sc["complete"], sc["crashed"], sc["transitions"]) != \
+                INTERLEAVE_COUNTS[name]:
+            failures.append(f"interleave {name}: {sc} is not the CPU's "
+                            f"{INTERLEAVE_COUNTS[name]}")
+        if sc["violations"]:
+            failures.append(f"interleave {name}: {sc['first_violations']}")
+    emit({"phase": "analysis_interleave", "gpu": gpu, "device": "cuda",
+          "scenarios": suite, "ran_on_card": ran, "cut": cut,
+          "budget_s": INTERLEAVE_BUDGET_S, "seconds": suite_s,
+          "schedules": sum(v["complete"] + v["crashed"]
+                           for v in suite.values()),
+          "fold_launches": suite_launches})
+    out, err = done["cli"]
+    # (a) the port's dk-check over the port
+    try:
+        found = json.loads(out)
+    except ValueError:
+        found = None
+    emit({"phase": "analysis_dkcheck", "gpu": gpu, "exit": cli.returncode,
+          "findings": None if found is None else found["count"],
+          "first": None if found is None else found["findings"][:5],
+          "stderr_tail": err[-400:] if cli.returncode else ""})
+    if cli.returncode != 0 or found is None or found["count"]:
+        failures.append(f"dk-check: exit {cli.returncode}, "
+                        f"{None if found is None else found['count']} "
+                        "finding(s)")
+    print(card_line(), flush=True)
+    emit({"phase": "analysis", "gpu": gpu,
+          "seconds": time.perf_counter() - t_phase,
+          "interleave_seconds": suite_s, "interleave_ran_on_card": ran,
+          "interleave_cut": cut})
+    if failures:
+        fail("analysis: " + "; ".join(failures))
+    return {"interleave": suite_launches.get("fold_commit", 0),
+            "witness": witness_launches.get("fold_commit", 0),
+            "witness_commits": commits}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10966,6 +11258,9 @@ def main() -> None:
                     metavar=("PART", "OUT", "SEED"),
                     help="run one rank of the parallel phase (what the "
                          "phase's Job launches; not for direct use)")
+    ap.add_argument("--interleave-child", metavar="OUT",
+                    help="run the analysis phase's interleave suite on the "
+                         "card (what the phase starts; not for direct use)")
     ap.add_argument("--blocked-only", action="store_true",
                     help="build the LSTM and GroupNorm kernels, run the "
                          "blocked phase's parts (a), (b), (c) and (e) alone "
@@ -10974,11 +11269,16 @@ def main() -> None:
                     help="build the flash and fold kernels, run the "
                          "parallel phase alone and stop (no kernels line, "
                          "no ok line)")
+    ap.add_argument("--analysis-only", action="store_true",
+                    help="build the fold kernel, run the analysis phase "
+                         "alone and stop (no kernels line, no ok line)")
     args = ap.parse_args()
     if args.ranks_child:
         sys.exit(ranks_child(*args.ranks_child))
     if args.parallel_child:
         sys.exit(parallel_child(*args.parallel_child))
+    if args.interleave_child:
+        sys.exit(interleave_child(args.interleave_child))
     try:
         import torch
     except ImportError:
@@ -11007,6 +11307,13 @@ def main() -> None:
         build.build(["lstm_fwd", "lstm_bwd", "groupnorm"])
         blocked_phase(torch, gpu, args.seed)
         emit({"phase": "seconds", "from_build": time.perf_counter() - t0})
+        print(card_line(), flush=True)
+        return
+    if args.analysis_only:
+        build.build(["fold"])
+        launches = analysis_phase(torch, F, gpu, args.seed)
+        emit({"phase": "seconds", "from_build": time.perf_counter() - t0,
+              "analysis_launches": launches})
         print(card_line(), flush=True)
         return
     if args.parallel_only:
@@ -11312,6 +11619,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     lap("blocked")
     blocked = blocked_phase(torch, gpu, args.seed)
+    torch.cuda.empty_cache()
+    lap("analysis")
+    analysis = analysis_phase(torch, F, gpu, args.seed)
 
     def entry(name, source, replaces, rows, launches, bf16_launches):
         """The largest batch's f32 row, the largest error over every f32
@@ -11664,6 +11974,14 @@ def main() -> None:
     for k in kernels[6:]:
         k["blocked_bf16_launches"] = blocked_entry(
             parallel["blocked_d"], f"flash_attention.{k['name']}")
+    # dk-check's phase (analysis), each run's counts set to 0 just before
+    # it and read just after: the interleave suite's zero-delta commits on
+    # servers whose centers sit on the card, and the witness run's racing
+    # int8 commits (one launch a commit).
+    kernels[5]["analysis_launches"] = {
+        "interleave": analysis["interleave"],
+        "witness": analysis["witness"],
+        "witness_commits": analysis["witness_commits"]}
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

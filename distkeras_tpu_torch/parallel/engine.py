@@ -404,6 +404,7 @@ class AsyncEngine(RoundEngine):
         axes of ``parallel/async_tp.py``; nothing here)."""
         return contextlib.nullcontext()
 
+    @program.captured
     def _round_fn(self, state: EngineState, xs: torch.Tensor,
                   ys: torch.Tensor):
         """One fold round on this rank's ``[m, K, B, ...]`` batches: returns
@@ -431,8 +432,9 @@ class AsyncEngine(RoundEngine):
         next_rng = derive_seed(state.rng)
         if self.nan_guard and not program.in_program():
             # The round's one host read of the [W] losses; the divergence
-            # reset reads this same host copy.
-            loss = loss.cpu()
+            # reset reads this same host copy. Never inside a capture: a
+            # program's round takes the select below.
+            loss = loss.cpu()  # dk: disable=DK102
             if not bool(torch.isfinite(loss).all()):
                 # One worker's non-finite commit would poison the center for
                 # every worker: the whole round is discarded, the previous

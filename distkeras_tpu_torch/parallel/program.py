@@ -140,6 +140,15 @@ def in_program() -> bool:
     return host_numbers.active() is not None
 
 
+def captured(fn):
+    """Mark ``fn`` as a round that a program captures (each engine's
+    ``_round_fn``); returns ``fn`` unchanged. dk-check's DK1xx rules
+    (``analysis/rules_torch.py``) read the mark from the source and check
+    the body as captured code: no host reads, host I/O, device-to-host
+    reads, telemetry or mutation of enclosing state."""
+    return fn
+
+
 # -- the programs -------------------------------------------------------------
 class _Seat:
     """What every program of one engine shares: the mode, the tables, and
@@ -267,7 +276,9 @@ class _Captured:
                 for i in range(n):
                     st, loss = engine._round_fn(st, self.sx[i], self.sy[i])
                     losses.append(loss)
-                self.losses = torch.stack(losses)
+                # The graph's static output buffer: bound once at
+                # capture, refilled by every replay.
+                self.losses = torch.stack(losses)  # dk: disable=DK105
                 body, self.out_rng = _split_rng(st)
                 out, spec = flatten(body)
                 if spec != seat.spec:

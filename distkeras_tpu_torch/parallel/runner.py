@@ -24,6 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from distkeras_tpu_torch.parallel import program
 from distkeras_tpu_torch.runtime.mesh import DATA_AXIS
 
 
@@ -115,6 +116,7 @@ class WindowedStepEngine:
         return (torch.stack([x for x, _ in rounds]).to(dev),
                 torch.stack([y for _, y in rounds]).to(dev))
 
+    @program.captured
     def _round_fn(self, state, xs: torch.Tensor, ys: torch.Tensor):
         losses = []
         for k in range(xs.shape[0]):

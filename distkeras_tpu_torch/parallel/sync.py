@@ -130,6 +130,7 @@ class SyncEngine(RoundEngine):
         moved = a.transpose(0, 1)
         return moved.reshape((moved.shape[0], -1) + tuple(moved.shape[3:]))
 
+    @program.captured
     def _round_fn(self, state: SyncState, xs: torch.Tensor,
                   ys: torch.Tensor):
         """K synchronous steps on this rank's ``[m, K, B, ...]`` batches:

@@ -592,3 +592,57 @@ def env_set(name: str, value: str) -> None:
 def env_setdefault(name: str, value: str) -> str:
     _registered(name)
     return os.environ.setdefault(name, value)
+
+
+# -- docs generation --------------------------------------------------------
+
+def iter_env_vars(category: Optional[str] = None):
+    for var in ENV_REGISTRY.values():
+        if category is None or var.category == category:
+            yield var
+
+
+def render_env_table(category: Optional[str] = None) -> str:
+    """The markdown env-var table for ``category`` (None = all, with a
+    category column). Injected between ``<!-- dk-env:begin ... -->`` /
+    ``<!-- dk-env:end -->`` markers by ``python -m
+    distkeras_tpu_torch.analysis --write-env-docs``; DK303 reports a
+    table in ``distkeras_tpu_torch/docs/`` that no longer matches this
+    rendering."""
+    rows = list(iter_env_vars(category))
+    with_cat = category is None
+    head = "| Variable | Type | Default | Description |"
+    sep = "|---|---|---|---|"
+    if with_cat:
+        head = "| Variable | Type | Default | Category | Description |"
+        sep = "|---|---|---|---|---|"
+    out = [head, sep]
+    for v in rows:
+        default = "unset" if v.default in (None, "") else f"`{v.default}`"
+        cells = [f"`{v.name}`", v.kind, default]
+        if with_cat:
+            cells.append(v.category)
+        cells.append(v.doc)
+        out.append("| " + " | ".join(cells) + " |")
+    return "\n".join(out)
+
+
+def splice_env_docs(text: str, path_hint: str = "") -> str:
+    """Replace every ``<!-- dk-env:begin [category=X] -->`` ...
+    ``<!-- dk-env:end -->`` block in ``text`` with the freshly rendered
+    table for that category."""
+    import re
+
+    def sub(m) -> str:
+        category = m.group("cat") or None
+        return (m.group("open") + "\n" + render_env_table(category)
+                + "\n" + m.group("close"))
+
+    pat = re.compile(
+        r"(?P<open><!-- dk-env:begin(?: category=(?P<cat>[\w-]+))? -->)"
+        r".*?(?P<close><!-- dk-env:end -->)",
+        re.DOTALL)
+    out, n = pat.subn(sub, text)
+    if n == 0 and path_hint:
+        raise ValueError(f"no dk-env marker block found in {path_hint}")
+    return out

@@ -26,7 +26,7 @@ the live :mod:`distkeras_tpu_torch.telemetry` registry object.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 #: metric kinds, matching the four name-taking telemetry accessors.
 KINDS = ("counter", "gauge", "histogram", "span")
@@ -458,6 +458,19 @@ for _entry in _METRICS:
     METRIC_REGISTRY[_entry.name] = _entry
 del _entry
 
+#: category names in declaration order (the docs table order).
+CATEGORIES = tuple(dict.fromkeys(m.category for m in _METRICS))
+
+
+def iter_metrics(category: Optional[str] = None) -> Iterable[Metric]:
+    if category is not None and category not in CATEGORIES:
+        raise ValueError(f"unknown metric category {category!r}; "
+                         f"known: {list(CATEGORIES)}")
+    for m in _METRICS:
+        if category is None or m.category == category:
+            yield m
+
+
 def declared(kind: str, name: str) -> bool:
     """Is the exact literal ``name`` a declared ``kind`` metric?"""
     m = METRIC_REGISTRY.get(name)
@@ -475,3 +488,49 @@ def declared_prefix(kind: str, leading: str) -> bool:
                and (leading.startswith(m.name)
                     or m.name.startswith(leading))
                for m in _METRICS)
+
+
+def render_metric_table(category: Optional[str] = None) -> str:
+    """The markdown metric table for ``category`` (None = all, with a
+    category column). Injected between ``<!-- dk-metric:begin ... -->`` /
+    ``<!-- dk-metric:end -->`` markers by ``python -m
+    distkeras_tpu_torch.analysis --write-metric-docs``; DK602 reports a
+    table in ``distkeras_tpu_torch/docs/`` that no longer matches this
+    rendering."""
+    rows = list(iter_metrics(category))
+    with_cat = category is None
+    head = "| Name | Kind | Description |"
+    sep = "|---|---|---|"
+    if with_cat:
+        head = "| Name | Kind | Category | Description |"
+        sep = "|---|---|---|---|"
+    out = [head, sep]
+    for m in rows:
+        name = f"`{m.name}*`" if m.dynamic else f"`{m.name}`"
+        cells = [name, m.kind]
+        if with_cat:
+            cells.append(m.category)
+        cells.append(m.doc)
+        out.append("| " + " | ".join(cells) + " |")
+    return "\n".join(out)
+
+
+def splice_metric_docs(text: str, path_hint: str = "") -> str:
+    """Replace every ``<!-- dk-metric:begin [category=X] -->`` ...
+    ``<!-- dk-metric:end -->`` block in ``text`` with the freshly
+    rendered table for that category."""
+    import re
+
+    def sub(m) -> str:
+        category = m.group("cat") or None
+        return (m.group("open") + "\n" + render_metric_table(category)
+                + "\n" + m.group("close"))
+
+    pat = re.compile(
+        r"(?P<open><!-- dk-metric:begin(?: category=(?P<cat>[\w-]+))? -->)"
+        r".*?(?P<close><!-- dk-metric:end -->)",
+        re.DOTALL)
+    out, n = pat.subn(sub, text)
+    if n == 0 and path_hint:
+        raise ValueError(f"no dk-metric marker block found in {path_hint}")
+    return out
