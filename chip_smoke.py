@@ -149,10 +149,13 @@ and every parity phase holds the card's bf16 run to the CPU's within
     dK/dV; ``csrc/flash_attn.cu``) against their plain twins on the same
     CUDA tensors, in f32 and bf16, at config #7's shape [8, 2048, 16, 64]
     and ragged ones (L = 40, 72, 136 and 200, D = 32 and 128, B*H = 1,
-    L = 1024 and 512, and D = 40, which the wrappers zero-pad to 48):
-    errors with their limits, two calls' bits of each
+    L = 1024 and 512, and D = 40, which the wrappers zero-pad to 48), and
+    at the widest tile, DP = 256: config #6 at 4 heads of 256 [8, 2048, 4,
+    256], then L = 136 and 512 and D = 160 and 192 (TMA's zeros up to the
+    tile): errors with their limits, two calls' bits of each
     kernel, the f32 forward's and backward's errors at each of those
-    shapes but config #7's and at two with few rows (B*L*H 272 and 144)
+    shapes but config #7's and its tensor-parallel share, and at three with
+    few rows (B*L*H 272, 144, 272)
     attributed row by row to bf16 rounding flips of p or ds
     (``flash_fwd_flips``, ``flash_bwd_flips``: no row left over), kernel
     and plain times by CUDA events, ``F.scaled_dot_product_attention``'s
@@ -166,7 +169,7 @@ and every parity phase holds the card's bf16 run to the CPU's within
     outputs) against SDPA's backward, with the ratio and the share of the
     backward's own bound (S and dP once: five causal products), the two
     kernels' summed bounds beside it; the ``flash_build`` line before the
-    phases gives the registers and spills of the 18 flash kernel
+    phases gives the registers and spills of the 24 flash kernel
     instantiations from the compiler's report (a spill fails the run).
 11. ``transformer_train`` — BASELINE config #7 as a user drives it:
     ``AEASGD(small_transformer_lm(vocab 32768, 8 layers, d_model 1024,
@@ -182,7 +185,10 @@ and every parity phase holds the card's bf16 run to the CPU's within
     4 heads, L 256) from one seed: logits and the center after one AEASGD
     round, on the card and on the CPU (the twins), held within a quarter
     (logits) and a half (center) of the CPU run's flash-vs-dense
-    distance.
+    distance; then the same at 2 heads of 256 (d_model 512, the DP = 256
+    kernels), ``transformer_parity_hd256``, its logits within a half
+    (``LM_PARITY_HD256_LOGITS_SHARE``: f32-level differences before the
+    kernels move bf16 roundings of q, k and v there).
 
 13. ``mlp_train`` — BASELINE config #1 as a user drives it:
     ``SingleTrainer(mnist_mlp(device="cuda"), "adam", batch_size=1024,
@@ -285,8 +291,8 @@ and every parity phase holds the card's bf16 run to the CPU's within
     replayed record.
 20. ``netps_config8`` — config #8 (``bench.py:1465-1468``, the AEASGD
     transformer through the parameter server: 4 layers, d_model 512, 8
-    heads, d_ff 2048, vocab 8192, seq 128, batch 4, window 2, 12 rounds,
-    one worker, adam at lr 1e-4, alpha 0.05, bf16, flash, remat) at full
+    heads, d_ff 2048, vocab 8192, seq 128, batch 4, window 2, 12 rounds
+    in the bench, cut to 8 here, one worker, adam at lr 1e-4, alpha 0.05, bf16, flash, remat) at full
     width through the arms the port serves: ``inprocess`` (``AEASGD(...)
     .train(df)``), ``pr4`` (``run_remote`` over TCP, inflight 1), ``shm``
     (the ring, inflight 2), ``mesh`` (the in-process dispatch into the
@@ -807,14 +813,24 @@ LM_ROUNDS = 2
 #: one order-flipped bf16 rounding of p moves a whole output row and over
 #: fewer rows can alone pass the mean limit (an earlier forward at [1, 72,
 #: 2, 64] f32 read 1.22e-5, its largest error 4.5e-4); then the MoE LM's
-#: (``moe_train``: MOE_BATCH, MOE_SEQ, 8 heads of 32); last one rank's
+#: (``moe_train``: MOE_BATCH, MOE_SEQ, 8 heads of 32); then one rank's
 #: share of config #6's heads under two-way tensor parallelism (the
-#: ``parallel`` phase's parts b and e: 8 of the 16 heads).
+#: ``parallel`` phase's parts b and e: 8 of the 16 heads); last the widest
+#: tile, DP = 256: config #6 at 4 heads of 256 (``parallel`` part a_hd256),
+#: then its edges, the forward's rows past L (136), the ring wrapped (512)
+#: and head dims TMA fills with zeros up to the tile (160, 192).
 TP_FLASH_SHAPE = (8, LM_SEQ, LM["num_heads"] // 2, 64)
+#: config #6 with its 16 heads of 64 replaced by 4 heads of 256 (the same
+#: 170,010,624 parameters and attention FLOPs: H x Dh is still 1024)
+LM_HD256 = dict(LM, num_heads=4)
+HD256_FLASH_SHAPE = (8, LM_SEQ, LM_HD256["num_heads"],
+                     LM["d_model"] // LM_HD256["num_heads"])
 FLASH_SHAPES = ((8, LM_SEQ, 16, 64), (2, 40, 4, 64), (2, 200, 4, 64),
                 (2, 256, 4, 32), (1, LM_SEQ, 1, 64), (4, 72, 4, 64),
                 (2, 136, 4, 128), (2, 1024, 1, 64), (1, 512, 2, 128),
-                (2, 512, 2, 40), (8, 512, 8, 32), TP_FLASH_SHAPE)
+                (2, 512, 2, 40), (8, 512, 8, 32), TP_FLASH_SHAPE,
+                HD256_FLASH_SHAPE, (2, 136, 4, 256), (1, 512, 2, 256),
+                (2, 200, 4, 160), (4, 72, 4, 192))
 #: flash kernels vs their twins, as shares of the twin's largest (``top``)
 #: and mean (``mean``) magnitude. f32: the same bf16 rounding points and
 #: only the order of the f32 sums differs, so the mean error is f32 level;
@@ -829,12 +845,18 @@ FLASH_LSE_ATOL = 1e-5
 #: twins are attributed to bf16 rounding flips (``flash_flips.
 #: forward_flips``, ``backward_flips``): each of FLASH_SHAPES but config
 #: #7's and its tensor-parallel share (over 10^5 rows each, which the mean
-#: limit holds), and two with few rows (B*L*H 272 and 144) where one flip
-#: of p or ds can alone pass the mean limit, so that only this measure,
-#: which rows cannot dilute, holds them.
+#: limit holds), and three with few rows (B*L*H 272, 144 and 272) where one
+#: flip of p or ds can alone pass the mean limit, so that only this
+#: measure, which rows cannot dilute, holds them. Config #6's at heads of
+#: 256 is kept: at D = 256 a flip moves more of a row, and there the f32
+#: dK/dV's mean error reads near the mean limit (9.55e-6 of 1e-5 on an
+#: H100), so its rows are attributed too.
 FLASH_FLIP_SHAPES = tuple(s for s in FLASH_SHAPES
                           if s not in (FLASH_SHAPES[0], TP_FLASH_SHAPE)) \
-    + ((1, 136, 2, 128), (1, 72, 2, 64))
+    + ((1, 136, 2, 128), (1, 72, 2, 64), (1, 136, 2, 256))
+#: the flash kernel instantiations of csrc/flash_attn.cu: forward, dQ and
+#: dK/dV, f32 and bf16 outputs, at DP = 32, 64, 128 and 256.
+FLASH_KERNELS = 3 * 2 * 4
 #: the small transformer run on the card and on the CPU from one seed
 #: (2 layers, d_model 128, 4 heads of 32, d_ff 512, vocab 1024, L 256,
 #: batch 2, one AEASGD round of window 2): the card-vs-CPU distance may
@@ -853,6 +875,18 @@ LM_PARITY_TRAIN = dict(num_workers=1, batch_size=2, communication_window=2,
                        learning_rate=1e-4, rho=500.0)
 LM_PARITY_LOGITS_SHARE = 0.25
 LM_PARITY_CENTER_SHARE = 0.5
+#: the same run at heads of 256 (2 layers, d_model 512, 2 heads of 256),
+#: the DP = 256 kernels. Its center and its bf16 run keep LM_PARITY's
+#: shares; its logits are held to half (not a quarter) of the CPU's
+#: flash-vs-dense distance: at d_model 512 an f32-level difference in the
+#: q, k and v projections (the card's other sum order) moves some of their
+#: bf16 roundings, and with each a whole row or column of scores, which
+#: the quarter (set at d_model 128, where such moves are rare) does not
+#: allow for. The CPU alone reads 0.34 of that distance between its f32
+#: run and one with the ops outside the kernel in float64 (the row prints
+#: it beside), and an H100 against it 0.33.
+LM_PARITY_HD256 = dict(LM_PARITY, d_model=512, num_heads=2)
+LM_PARITY_HD256_LOGITS_SHARE = 0.5
 
 # BASELINE configs #1-#3 at full width (bench.py:1398-1417, learning rate
 # 0.01 as bench.py trains them): the MNIST MLP under SingleTrainer (adam,
@@ -3553,12 +3587,13 @@ def ps_restart_phase(torch, K, F, gpu: str, seed: int, cli: dict) -> dict:
 #: it on its chip.
 C8 = dict(vocab_size=8192, num_layers=4, d_model=512, num_heads=8,
           d_ff=2048, max_seq_len=128)
-C8_SEQ, C8_BATCH, C8_WINDOW, C8_ROUNDS = 128, 4, 2, 12
+#: 8 rounds a run, cut from the bench's 12 for the script's time limit.
+C8_SEQ, C8_BATCH, C8_WINDOW, C8_ROUNDS = 128, 4, 2, 8
 C8_ALPHA, C8_LR = 0.05, 1e-4
 #: timed runs of each arm after one warm run (the median is reported).
 C8_TIMED = 2
 #: the warm run's rounds: enough to attach every lane and launch every
-#: kernel of the arm once, at a sixth of a timed run's time.
+#: kernel of the arm once, at a quarter of a timed run's time.
 C8_WARM_ROUNDS = 2
 #: the span suffix of each dialect: TCP bare, then the ring and the mesh.
 C8_DIALECTS = ("", ".shm", ".mesh")
@@ -4626,9 +4661,9 @@ def netps_config8_phase(torch, F, FA, gpu: str, seed: int) -> dict:
               "commits": len(traced["log"]),
               "fold_launches": traced["fold"].get("fold_commit", 0)},
           "hier_crossover": crossover,
-          "reduced": f"none of width or depth; durable runs "
-                     f"{C8_DURABLE_PAIRS} ABBA pairs (the reference "
-                     f"max(reps + 2, 10))",
+          "reduced": f"none of width; {C8_ROUNDS} rounds a run (the "
+                     f"bench's 12); durable runs {C8_DURABLE_PAIRS} ABBA "
+                     f"pairs (the reference max(reps + 2, 10))",
           "seconds": time.perf_counter() - t_phase})
     if failures:
         fail("netps_config8: " + "; ".join(failures))
@@ -5966,7 +6001,8 @@ def ptxas_kernels(log: str, name) -> list:
 
 
 def flash_registers(log: str) -> list:
-    """The 18 flash kernel instantiations' registers and spills."""
+    """The flash kernel instantiations' registers and spills
+    (FLASH_KERNELS)."""
     def name(ln):
         m = re.search(
             r"(flash_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|f)Li(\d+)E", ln)
@@ -6173,18 +6209,23 @@ def bf16_forward(torch, model, x):
         model.params, torch.bfloat16), (x,)).float()
 
 
-def transformer_parity_phase(torch, seed: int) -> None:
-    """A small transformer from one seed: logits, then one AEASGD round,
-    on the card (the kernels) and on the CPU (the twins), and on the CPU
-    with dense f32 attention, the yardstick for the rounding the design
-    puts in."""
+def transformer_parity_phase(torch, seed: int, cfg: dict = LM_PARITY,
+                             phase: str = "transformer_parity",
+                             logits_share: float = LM_PARITY_LOGITS_SHARE,
+                             f64_beside: bool = False) -> None:
+    """A small transformer (``cfg``) from one seed: logits, then one AEASGD
+    round, on the card (the kernels) and on the CPU (the twins), and on
+    the CPU with dense f32 attention, the yardstick for the rounding the
+    design puts in. With ``f64_beside``, also the CPU's logits with every
+    op outside the flash twin in float64: how far f32 rounding before the
+    kernel's bf16 roundings moves them (what sets
+    LM_PARITY_HD256_LOGITS_SHARE)."""
     from distkeras_tpu_torch import AEASGD, small_transformer_lm
 
     W, Kw, B = (LM_PARITY_TRAIN["num_workers"],
                 LM_PARITY_TRAIN["communication_window"],
                 LM_PARITY_TRAIN["batch_size"])
-    df = lm_frame(W * Kw * B, LM_PARITY["vocab_size"], LM_PARITY_SEQ,
-                  seed + 3)
+    df = lm_frame(W * Kw * B, cfg["vocab_size"], LM_PARITY_SEQ, seed + 3)
     probe = df["features"][:B]
     out = {}
     for run, dev, impl, dtype in (
@@ -6192,7 +6233,7 @@ def transformer_parity_phase(torch, seed: int) -> None:
             ("cpu_dense", "cpu", "dense", None),
             ("card_bf16", "cuda", "flash", "bfloat16"),
             ("cpu_bf16", "cpu", "flash", "bfloat16")):
-        model = small_transformer_lm(**LM_PARITY, seq_len=LM_PARITY_SEQ,
+        model = small_transformer_lm(**cfg, seq_len=LM_PARITY_SEQ,
                                      attn_impl=impl, seed=seed + 3,
                                      device=dev)
         if dtype is None:
@@ -6206,6 +6247,17 @@ def transformer_parity_phase(torch, seed: int) -> None:
         trained = t.train(df)
         out[run] = (logits, {k: v.cpu() for k, v in trained.params.items()},
                     t.get_history())
+
+    upstream = {}
+    if f64_beside:
+        model = small_transformer_lm(**cfg, seq_len=LM_PARITY_SEQ,
+                                     attn_impl="flash", seed=seed + 3,
+                                     device="cpu")
+        with torch.no_grad():
+            f64 = model.module.double()(torch.as_tensor(probe)).float()
+        upstream["logits_max_abs_err_cpu_f32_vs_f64_outside_flash"] = (
+            f64 - out["cpu"][0]).abs().max().item()
+        del model
 
     def dist(a, b, i, how):
         x, y = out[a][i], out[b][i]
@@ -6223,18 +6275,20 @@ def transformer_parity_phase(torch, seed: int) -> None:
     center_design = dist("cpu", "cpu_dense", 1, "mean")
     change = max((v - init[k]).abs().max().item()
                  for k, v in out["cpu"][1].items())
-    emit({"phase": "transformer_parity", "trainer": "AEASGD",
-          "model": "TransformerLM(attn_impl='flash')", **LM_PARITY,
+    emit({"phase": phase, "trainer": "AEASGD",
+          "model": "TransformerLM(attn_impl='flash')", **cfg,
+          "head_dim": cfg["d_model"] // cfg["num_heads"],
           "seq_len": LM_PARITY_SEQ, **LM_PARITY_TRAIN, "rounds": 1,
           "logits_max_abs_err_card_vs_cpu": logits_card,
           "logits_max_abs_err_cpu_flash_vs_dense": logits_design,
+          **upstream,
           "center_mean_abs_err_card_vs_cpu": center_card,
           "center_mean_abs_err_cpu_flash_vs_dense": center_design,
           "center_max_abs_err_card_vs_cpu": dist("card", "cpu", 1, "max"),
           "center_max_abs_err_cpu_flash_vs_dense":
               dist("cpu", "cpu_dense", 1, "max"),
           "center_max_abs_change": change,
-          "logits_share": LM_PARITY_LOGITS_SHARE,
+          "logits_share": logits_share,
           "center_share": LM_PARITY_CENTER_SHARE,
           "history": {k: [float(h) for h in v[2]] for k, v in out.items()},
           "compared": "logits by their largest error; the center by its "
@@ -6242,20 +6296,19 @@ def transformer_parity_phase(torch, seed: int) -> None:
                       "noise into steps of about lr of either sign, so a "
                       "few elements differ by that in every pair of runs)"})
     if not change > 0:
-        fail("the transformer parity run's center did not move")
+        fail(f"{phase}: the run's center did not move")
     if not (0 < logits_design and logits_card
-            <= LM_PARITY_LOGITS_SHARE * logits_design):
-        fail(f"transformer logits, card vs CPU {logits_card} > "
-             f"{LM_PARITY_LOGITS_SHARE} x the CPU flash-vs-dense "
-             f"{logits_design}")
+            <= logits_share * logits_design):
+        fail(f"{phase}: logits, card vs CPU {logits_card} > "
+             f"{logits_share} x the CPU flash-vs-dense {logits_design}")
     if not (0 < center_design and center_card
             <= LM_PARITY_CENTER_SHARE * center_design):
-        fail(f"transformer center, card vs CPU {center_card} > "
+        fail(f"{phase}: center, card vs CPU {center_card} > "
              f"{LM_PARITY_CENTER_SHARE} x the CPU flash-vs-dense "
              f"{center_design}")
     bf16 = {"cuda_bf16": (out["card_bf16"][1],), "cpu_bf16": (
         out["cpu_bf16"][1],), "cpu": (out["cpu"][1],)}
-    bf16_parity("transformer_parity", bf16, change, extra={
+    bf16_parity(phase, bf16, change, extra={
         "logits_max": (dist("card_bf16", "cpu_bf16", 0, "max"),
                        dist("cpu_bf16", "cpu", 0, "max"))})
 
@@ -10431,7 +10484,10 @@ def blocked_phase(torch, gpu: str, seed: int) -> dict:
 #: config #7's model (flash, remat) cut alike under AEASGD with
 #: ``parallel={"model": 2}`` (e), and ``moe_train``'s MoE LM with its
 #: experts split over two ranks (f); (g) is config #8's center over two
-#: devices (two shards on the one card) in this process.
+#: devices (two shards on the one card) in this process. Part a_hd256 is
+#: part a at 4 heads of 256 (``LM_HD256``: the DP = 256 kernels) and its
+#: plain loop from the same initial parameters, in the nccl1 child after
+#: part a and blocked (d).
 PAR_A = dict(worker_optimizer="adam", learning_rate=1e-4, batch_size=8,
              steps_per_program=2)
 PAR_A_ROUNDS = 2
@@ -10452,10 +10508,11 @@ PAR_PARTS = {"nccl1": 1, "gloo2": 2}
 PAR_TIMEOUT_S = 600.0
 
 
-def par_lm(torch, seed: int, layers: int, device: str, **kw):
+def par_lm(torch, seed: int, layers: int, device: str, cfg: dict = LM,
+           **kw):
     from distkeras_tpu_torch import small_transformer_lm
 
-    return small_transformer_lm(**dict(LM, num_layers=layers),
+    return small_transformer_lm(**dict(cfg, num_layers=layers),
                                 seq_len=LM_SEQ, seed=seed, device=device,
                                 **kw)
 
@@ -10480,12 +10537,14 @@ def flops_per_token(model) -> float:
 
 def par_train(torch, FA, F, trainer, df, dtype=None) -> dict:
     """``trainer.train(df)`` with every count set to 0 just before and
-    read just after; the trained params on the host."""
+    read just after; the trained params on the host, and the card's peak
+    memory over the run."""
     from distkeras_tpu_torch.ops import collectives
 
     collectives.reset_host_staged()
     torch.cuda.synchronize()
     collectives.barrier()
+    torch.cuda.reset_peak_memory_stats()
     FA.reset_launches()
     F.reset_launches()
     t0 = time.perf_counter()
@@ -10499,6 +10558,7 @@ def par_train(torch, FA, F, trainer, df, dtype=None) -> dict:
                         FA.launch_counts(by_entry=True).items() if v},
             "seconds": wall, "history": [float(h) for h in
                                          trainer.get_history()],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "host_staged": dict(collectives.HOST_STAGED)}
 
 
@@ -10548,6 +10608,23 @@ def parallel_child(part: str, out: str, seed: str) -> int:
              "trainer": "ParallelTrainer", "parallel": {"data": 1},
              "backend": res["backend"], **PAR_A, "dtype": "bfloat16",
              "rounds_per_program_asked": BLOCKED_PAR_R})
+        # a_hd256: part a at 4 heads of 256, then its plain loop from the
+        # same initial parameters, kept on the host meanwhile; only the
+        # comparison leaves the process
+        del model, t
+        model = par_lm(torch, seed, LM["num_layers"], "cuda", cfg=LM_HD256,
+                       attn_impl="flash")
+        init = {k: v.detach().cpu() for k, v in model.params.items()}
+        t = ParallelTrainer(model, parallel={"data": 1}, loss=loss,
+                            compute_dtype="bfloat16", **PAR_A)
+        hd = res["a_hd256"] = par_train(torch, FA, F, t, df)
+        hd["flops_per_token"] = flops_per_token(model)
+        plain, hd["plain_loop_losses"] = par_plain_loop(
+            torch, seed, df, (model.module, init))
+        hd["bit_equal"] = all(torch.equal(hd["params"][k], v)
+                              for k, v in plain.items())
+        hd["apart"] = center_dist(hd["params"], plain, "max")
+        hd["params"] = None
     else:
         rows = 2 * PAR_A["batch_size"]
         df = par_frame(rows, seed + 1)
@@ -10647,9 +10724,11 @@ def par_moe_reference(torch, FA, F, seed: int, out: str) -> dict:
     return runs
 
 
-def par_plain_loop(torch, seed: int, df) -> tuple:
+def par_plain_loop(torch, seed: int, df, start: tuple = None) -> tuple:
     """Config #6's 4 steps as a plain port loop: the model, the loss, adam
-    and ``cast_floats``, on the same batches the trainer's plan gives."""
+    and ``cast_floats``, on the same batches the trainer's plan gives, from
+    ``start`` (a module and its initial parameters) or part a's model built
+    from ``seed``. Returns the parameters on the host and the losses."""
     from torch.func import functional_call
 
     from distkeras_tpu_torch.data.batching import make_batches
@@ -10658,12 +10737,15 @@ def par_plain_loop(torch, seed: int, df) -> tuple:
     from distkeras_tpu_torch.ops.optimizers import (apply_updates,
                                                     get_optimizer)
 
-    model = par_lm(torch, seed, LM["num_layers"], "cuda", attn_impl="flash")
-    module = model.module
+    if start is None:
+        model = par_lm(torch, seed, LM["num_layers"], "cuda",
+                       attn_impl="flash")
+        start = (model.module, model.params)
+    module, init = start
     module.train()
     loss_fn = get_loss("sparse_categorical_crossentropy")
     tx = get_optimizer("adam", PAR_A["learning_rate"])
-    params = {k: v.detach().clone() for k, v in model.params.items()}
+    params = {k: v.detach().to("cuda", copy=True) for k, v in init.items()}
     opt = tx.init(params)
     plan = make_batches(df, "features", "label", PAR_A["batch_size"],
                         num_workers=1, window=PAR_A["steps_per_program"])
@@ -10728,6 +10810,66 @@ def par_mesh_fold(torch, F, seed: int) -> dict:
     return row
 
 
+def par_speed(run: dict, steps: int) -> dict:
+    """Tokens/s, ms a step, MFU against the bf16 peak and peak memory of a
+    config #6 run of ``steps`` steps (``par_train``'s result)."""
+    tokens_s = steps * PAR_A["batch_size"] * LM_SEQ / run["seconds"]
+    return {"seconds": run["seconds"], "tokens_per_s": tokens_s,
+            "ms_per_step": run["seconds"] / steps * 1e3,
+            "mfu_vs_bf16_peak": run["flops_per_token"] * tokens_s
+            / PEAK_BF16_FLOPS,
+            "peak_memory_gb": run["peak_memory_gb"]}
+
+
+def parallel_hd256(rank: dict, a: dict, gpu: str, steps: int,
+                   want: dict) -> dict:
+    """Part a_hd256: config #6 at 4 heads of 256 through
+    ``ParallelTrainer({"data": 1})`` on the one-rank NCCL group (the nccl1
+    child's ``rank`` result), against its plain loop there (bit-equal),
+    each flash kernel launched once a layer a step through the bf16 entry
+    points (at head dim 256 every launch runs the DP = 256 kernels), its
+    speed beside part a's. A reading, not a claim: the two do the same work
+    (the same parameters and attention FLOPs), but part a is its process's
+    first training and a_hd256 follows it and blocked (d) in that process.
+    Returns its launches and the failures found."""
+    from distkeras_tpu_torch.ops.kernels import flash_attention as FA
+
+    hd = rank["a_hd256"]
+    bit_equal, apart = hd["bit_equal"], hd["apart"]
+    head_dim = LM["d_model"] // LM_HD256["num_heads"]
+    speed, speed_a = par_speed(hd, steps), par_speed(a, steps)
+    emit({"phase": "parallel", "part": "a_hd256", "gpu": gpu,
+          "config": "config #6 at 4 heads of 256 (16 heads of 64 in "
+                    "bench.py)", **LM_HD256, "head_dim": head_dim,
+          "kernel_tile": FA.padded_head_dim(head_dim), "seq_len": LM_SEQ,
+          "attn_impl": "flash", **PAR_A, "steps": steps, "dtype": "bfloat16",
+          "trainer": "ParallelTrainer(parallel={'data': 1})",
+          "backend": rank["backend"], "world": rank["world"],
+          "flops_per_token": hd["flops_per_token"], **speed,
+          "heads_of_64": speed_a,
+          "tokens_per_s_ratio_to_heads_of_64": speed["tokens_per_s"]
+          / speed_a["tokens_per_s"],
+          "launches": hd["launches"], "entries": hd["entries"],
+          "history": hd["history"],
+          "plain_loop_losses": hd["plain_loop_losses"],
+          "params_bit_equal_to_plain_loop": bit_equal,
+          "params_max_abs_err_vs_plain_loop": apart,
+          "reading": "the same work as part a; part a is the first training "
+                     "of the nccl1 process, a_hd256 runs after it and "
+                     "blocked (d) there; a reading, not a claim"})
+    failures = []
+    if hd["launches"] != {**hd["launches"], **want} or sorted(
+            hd["entries"]) != sorted(f"{k}_bf16" for k in want):
+        failures.append(f"a_hd256 launched {hd['entries']}, want {want} "
+                        f"bf16")
+    if not bit_equal:
+        failures.append(f"a_hd256 is {apart} from the plain loop, not "
+                        f"bit-equal")
+    if not all(np.isfinite(hd["history"])):
+        failures.append(f"a_hd256's losses are not finite: {hd['history']}")
+    return {"launches": hd["launches"], "failures": failures}
+
+
 def parallel_phase(torch, FA, F, gpu: str, seed: int) -> dict:
     """``parallel``: the model-parallel engines through the entry points a
     user calls, each part's ranks launched by the port's ``Job`` on this
@@ -10744,6 +10886,11 @@ def parallel_phase(torch, FA, F, gpu: str, seed: int) -> dict:
             PAR_A["batch_size"]:
         fail("parallel: the flash kernels are not held against their twins "
              "at one rank's heads under tensor parallelism (FLASH_SHAPES)")
+    if HD256_FLASH_SHAPE not in FLASH_SHAPES or HD256_FLASH_SHAPE != (
+            PAR_A["batch_size"], LM_SEQ, LM_HD256["num_heads"],
+            LM["d_model"] // LM_HD256["num_heads"]):
+        fail("parallel: the flash kernels are not held against their twins "
+             "at config #6's heads of 256 (FLASH_SHAPES)")
 
     out = os.path.join("build", "parallel")
     shutil.rmtree(out, ignore_errors=True)
@@ -10822,6 +10969,8 @@ def parallel_phase(torch, FA, F, gpu: str, seed: int) -> dict:
         failures.append(f"a launched {a['entries']}, want {want} bf16")
     if not bit_equal:
         failures.append(f"a is {apart} from the plain loop, not bit-equal")
+    hd256 = parallel_hd256(ranks[0], a, gpu, steps, want)
+    failures += hd256.pop("failures")
     moe = par_moe_reference(torch, FA, F, seed, out)
     refs = par_references(torch, FA, F, seed)
     launch("gloo2")
@@ -10967,6 +11116,7 @@ def parallel_phase(torch, FA, F, gpu: str, seed: int) -> dict:
     for part in "bcdef":
         launches[part] = [r[part]["launches"] for r in ranks]
     launches["g"] = g["launches"]
+    launches["a_hd256"] = hd256["launches"]
     launches["blocked_d"] = blocked_d
     shutil.rmtree(out, ignore_errors=True)
     if failures:
@@ -11349,9 +11499,9 @@ def main() -> None:
     flash_regs = flash_registers(flash_log.read_text()
                                  if flash_log.exists() else "")
     emit({"phase": "flash_build", "kernels": flash_regs})
-    if flash_log.exists() and len(flash_regs) != 18:
-        fail(f"expected 18 flash kernel instantiations in the build report, "
-             f"found {len(flash_regs)}")
+    if flash_log.exists() and len(flash_regs) != FLASH_KERNELS:
+        fail(f"expected {FLASH_KERNELS} flash kernel instantiations in the "
+             f"build report, found {len(flash_regs)}")
     spilled = [r for r in flash_regs
                if r.get("spill_stores") or r.get("spill_loads")]
     if spilled:
@@ -11465,6 +11615,9 @@ def main() -> None:
     bf16_flash_launches = transformer_train_phase(torch, FA, gpu, args.seed,
                                                   "bfloat16")
     transformer_parity_phase(torch, args.seed)
+    transformer_parity_phase(torch, args.seed, LM_PARITY_HD256,
+                             "transformer_parity_hd256",
+                             LM_PARITY_HD256_LOGITS_SHARE, f64_beside=True)
     torch.cuda.empty_cache()
 
     lap("moe_train")
@@ -11880,11 +12033,13 @@ def main() -> None:
         # run and read just after: once a layer a step
         k["moe_launches"] = {arm: c[k["name"]]
                              for arm, c in moe_launches.items()}
-        # and held against its twin at the MoE LM's shape and at one
-        # rank's heads under tensor parallelism (flash_kernel)
+        # and held against its twin at the MoE LM's shape, at one rank's
+        # heads under tensor parallelism and at config #6's heads of 256,
+        # the DP = 256 kernels (flash_kernel)
         shapes = {(MOE_BATCH, MOE_SEQ, MOE["num_heads"],
                    MOE["d_model"] // MOE["num_heads"]): "moe_shape",
-                  TP_FLASH_SHAPE: "tp_shape"}
+                  TP_FLASH_SHAPE: "tp_shape",
+                  HD256_FLASH_SHAPE: "hd256_shape"}
         for r in flash_rows:
             if r["name"] != k["name"]:
                 continue
@@ -11944,10 +12099,13 @@ def main() -> None:
     # config #6 on a one-rank NCCL group (a), then each of two gloo ranks
     # on its own heads (b, e), on its sequence blocks (d), on its experts'
     # model (f); the pipeline's dense stages launch none (c); config #8's
-    # center over two devices folds one launch a device (g).
+    # center over two devices folds one launch a device (g); config #6 at
+    # 4 heads of 256 on the one-rank NCCL group, the DP = 256 kernels
+    # (a_hd256).
     for k in kernels[6:]:
         k["parallel_launches"] = {
             "a_config6_nccl1": parallel["a"][k["name"]],
+            "a_hd256_config6_nccl1": parallel["a_hd256"][k["name"]],
             **{f"{part}_gloo2": [c[k["name"]] for c in parallel[part]]
                for part in "bcdef"}}
     kernels[5]["parallel_mesh_launches"] = parallel["g"]

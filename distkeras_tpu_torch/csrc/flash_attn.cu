@@ -57,8 +57,8 @@
 //   cudaGetDriverEntryPoint (no -lcuda), and passed as __grid_constant__
 //   kernel parameters. TMA's zero fill past D and past L takes the place
 //   of padding. A tile lands in the 128-byte swizzle (64 bf16 a row; D =
-//   128 takes two column boxes) or, at DP = 32, the 64-byte one: the
-//   layouts wgmma's descriptors read.
+//   128 takes two column boxes, D = 256 four) or, at DP = 32, the 64-byte
+//   one: the layouts wgmma's descriptors read.
 // - Scores (S = Q K^T, dP = dO V^T; S^T = K Q^T, dP^T = V dO^T in dK/dV)
 //   read both operands from shared memory, K-major. The products with p
 //   or ds (acc += bf16(p) V, dq += ds K, dv += bf16(p)^T dO, dk += ds^T Q)
@@ -70,7 +70,8 @@
 //   dK/dV's k-tile 0 loops over every q-tile.
 //
 // The forward: a block is a 128-row q-tile, two consumer warpgroups of 64
-// rows (warps 0-7) and the producer warp (warp 8), 288 threads. The two
+// rows (warps 0-7) and the producer warp (warp 8), 288 threads (at DP =
+// 256 one warpgroup of 64 rows and the producer, below). The two
 // warpgroups share every K/V tile of the ring (its "empty" barrier counts
 // both), so a K/V tile crosses L2 once per 128 query rows. Warpgroup w's
 // diagonal k-tile is 2 qt + w: warpgroup 0 stops before the block's last
@@ -89,12 +90,45 @@
 // were slower.
 //
 // The backward: a block is one consumer warpgroup (warps 0-3) and the
-// producer warp (warp 4); with two blocks on an SM (one at DP = 128) one
+// producer warp (warp 4); with two blocks on an SM (one at DP >= 128) one
 // block's exponentials overlap the other's products. The dQ ring holds the
 // K and V tiles; the dK/dV ring the Q and dO tiles, with their lse and
 // delta rows written by the producer's lanes. dK/dV holds dk, dv, S^T and
 // dP^T in registers: at DP = 128 its q-tile is 32 queries (64 + 64 + 16 +
 // 16 floats a thread), else 64.
+//
+// DP = 256 (head dims 144 .. 256, zero-filled past D by TMA), a simple
+// kernel first, one block an SM in all three:
+// - Registers. ptxas allots registers by whole warpgroups, so a block of
+//   two consumer warpgroups and the producer warp (288 threads) counts as
+//   384 and caps a thread at 168; a block of one and the producer (160
+//   threads) at 255. The forward's O accumulator is 64 x 256 f32 over a
+//   warpgroup, 128 floats a thread, with 32 of scores and 16 of p: past
+//   168 (built so, it spilled 360 bytes), so at DP = 256 the forward's
+//   block is one warpgroup of 64 rows (fwd_groups), and a K/V tile crosses
+//   L2 once per 64 query rows instead of 128. dQ's accumulator (128) with S
+//   and dP (32 + 32) fits 255 (218 registers, no spill). P V and dS K are
+//   wgmma m64n256k16, the widest N it has; S and dP take 16 k-steps of
+//   m64n64k16.
+// - dK/dV: one warpgroup's dk and dv over all of D would be 128 + 128
+//   floats a thread before S^T and dP^T, past 255 at any q-tile. So two
+//   blocks share each k-tile (dkv_halves, blockIdx.z), each computing the
+//   whole S^T and dP^T over all of D and owning half of D of dk and dv (64
+//   + 64 + 16 + 16 floats a thread, as at DP = 128): the two score
+//   products are computed twice, 6 products' work where the function needs
+//   4, and each block loads the same K, V, Q and dO tiles. Not taken: two
+//   consumer warpgroups in one block sharing the tiles (the 168-register
+//   cap above spilled 168 bytes), and one warpgroup owning dv (from P^T
+//   alone) and another dk (from dS^T, which needs S^T and dP^T): 5
+//   products' work, but the dk side does 3 products to the dv side's 2,
+//   the same critical path, with a code path for each and the same cap.
+// - Shared memory. dQ's Q and dO tiles (64 KB) and three stages of a
+//   64-key K and V tile (64 KB each) would be 256 KB against the 227 KB a
+//   block may have: dQ's K/V ring is 2 stages deep at DP = 256 (kv_stages,
+//   192 KB), and the forward's, which holds one Q tile, takes the same
+//   depth (160 KB; three stages would just fit). dK/dV holds K
+//   and V (64 KB) and three stages of 32-query Q and dO tiles (96 KB): 160
+//   KB, its ring stays 3 deep.
 
 #include <cuda.h>  // CUtensorMap and the encoder's types; no libcuda link
 #include <cuda_bf16.h>
@@ -133,12 +167,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 // ---------------------------------------------------------------------------
 // wgmma on tiles that TMA brings into shared memory.
 
-constexpr int kStages = 3;        // depth of the load ring
-constexpr int kBwdThreads = 160;  // one consumer warpgroup + the producer warp
-constexpr int kProducer = 4;      // the backward's producer warp
-constexpr int kQTile = 2 * kTile;  // query rows of a forward block
-constexpr int kFwdThreads = 288;  // two consumer warpgroups + the producer warp
-constexpr int kFwdProducer = 8;   // the forward's producer warp
+constexpr int kStages = 3;        // depth of a load ring (but kv_stages)
+constexpr int kBwdThreads = 160;  // dQ: one consumer warpgroup + the producer
+constexpr int kProducer = 4;      // dQ's producer warp
 // exp(x - m) is taken as exp2f(x log2(e) - m log2(e)), one fused
 // multiply-add and the hardware's base-2 exponential, where the accurate
 // expf costs a longer instruction sequence. The two were timed against
@@ -146,7 +177,7 @@ constexpr int kFwdProducer = 8;   // the forward's producer warp
 // the script of that comparison is not kept.
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The head dim a tile holds (zeros past D): 32, 64 or 128.
+// The head dim a tile holds (zeros past D): 32, 64, 128 or 256.
 template <int DP>
 __host__ __device__ constexpr int box_cols() {  // columns of a box
   return DP < 64 ? DP : 64;
@@ -156,10 +187,66 @@ __host__ __device__ constexpr int swizzle_bytes() {  // 64 or 128
   return 2 * box_cols<DP>();
 }
 // dK/dV's q-tile, the N of its score products, and the rows of every TMA
-// box: 64, or 32 at DP = 128 so that dK, dV and the two score tiles fit in
-// one thread's registers.
+// box: 64, or 32 at DP >= 128 so that dK, dV and the two score tiles fit in
+// one thread's registers (and, at DP = 256, three stages of Q and dO fit in
+// shared memory).
 template <int DP>
-__host__ __device__ constexpr int q_tile() { return DP == 128 ? 32 : 64; }
+__host__ __device__ constexpr int q_tile() { return DP >= 128 ? 32 : 64; }
+// Depth of the forward's and dQ's K/V ring: kStages, or 2 at DP = 256,
+// where the 64 KB of Q (or Q and dO) and three 64 KB stages of K and V
+// would pass the 227 KB a block may have.
+template <int DP>
+__host__ __device__ constexpr int kv_stages() {
+  return DP == 256 ? 2 : kStages;
+}
+// The forward's consumer warpgroups, each 64 query rows of the block's
+// q-tile: two (288 threads with the producer warp), or one at DP = 256
+// (160 threads), whose 128-float accumulator needs more registers than a
+// 288-thread block may give (ptxas allots registers by whole warpgroups,
+// so 288 threads cap a thread at 168).
+template <int DP>
+__host__ __device__ constexpr int fwd_groups() { return DP == 256 ? 1 : 2; }
+template <int DP>
+__host__ __device__ constexpr int fwd_threads() {
+  return 128 * fwd_groups<DP>() + 32;
+}
+// The blocks of one dK/dV k-tile, each owning NC = DP / halves columns of
+// dk and dv: one, or two at DP = 256 (one warpgroup's dk and dv over all
+// of D would be 256 floats a thread).
+template <int DP>
+__host__ __device__ constexpr int dkv_halves() { return DP == 256 ? 2 : 1; }
+
+// The dynamic shared memory a block asks for: 1024 bytes of alignment
+// slack, the tiles it keeps (the forward's fwd_groups Q tiles, dQ's Q and
+// dO, dK/dV's K and V), its ring's stages (a K and a V tile; dK/dV a
+// q-tile of Q and dO and its lse and delta rows) and an 8-byte barrier for
+// each load it waits on. Each fits the 227 KB a block may have on the H100
+// (checked below for every tile width), and flash_shared_bytes reports it.
+constexpr size_t kSmemLimit = 227 * 1024;
+template <int DP>
+constexpr size_t fwd_smem() {
+  return 1024 + (fwd_groups<DP>() + 2 * kv_stages<DP>()) * kTile * DP * 2 +
+         8 * (1 + 2 * kv_stages<DP>());
+}
+template <int DP>
+constexpr size_t dq_smem() {
+  return 1024 + (2 + 2 * kv_stages<DP>()) * kTile * DP * 2 +
+         8 * (1 + 2 * kv_stages<DP>());
+}
+template <int DP>
+constexpr size_t dkv_smem() {
+  return 1024 + 2 * kTile * DP * 2 +
+         kStages * (2 * q_tile<DP>() * DP * 2 + 2 * q_tile<DP>() * 4) +
+         8 * (1 + 2 * kStages);
+}
+template <int DP>
+constexpr bool smem_fits() {
+  return fwd_smem<DP>() <= kSmemLimit && dq_smem<DP>() <= kSmemLimit &&
+         dkv_smem<DP>() <= kSmemLimit;
+}
+static_assert(smem_fits<32>() && smem_fits<64>() && smem_fits<128>() &&
+                  smem_fits<256>(),
+              "a flash kernel's block asks for more shared memory than 227 KB");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -367,6 +454,55 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, "
+      "%68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, "
+      "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, "
+      "%101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // Keep the compiler from moving reads or writes of these registers across
 // this point: a wgmma's results exist only after its wait, and its A
 // registers must hold their values until then.
@@ -391,10 +527,11 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[K / 4],
   for (int i = 0; i < K / 4; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
 }
 
-// acc (64 x DP over the warpgroup) += A * the R x DP tile at `tile`, read
-// MN-major (its R = K rows are the product's K), A in registers (pack_a).
-template <int DP, int R>
-__device__ __forceinline__ void frags_times_tile_mn(float (&acc)[DP / 2],
+// acc (64 x N over the warpgroup) += A * N columns of the R x DP tile
+// whose first column box is at `tile`, read MN-major (its R = K rows are
+// the product's K), A in registers (pack_a). N = DP takes the whole tile.
+template <int DP, int R, int N = DP>
+__device__ __forceinline__ void frags_times_tile_mn(float (&acc)[N / 2],
                                                     const uint32_t (&a)[R / 4],
                                                     uint32_t tile) {
 #pragma unroll
@@ -507,37 +644,39 @@ __device__ __forceinline__ void rescale(float (&acc)[DP / 2],
   }
 }
 
-// out and lse for one 128-row q-tile of one (batch, head): the producer
-// warp loads the two 64-row Q tiles once, then the K and V tiles of the
-// k-tiles 0 .. 2 qt + 1 (none past L) into a ring of kStages; consumer
+// out and lse for one q-tile of FW x 64 rows of one (batch, head) (FW =
+// fwd_groups: 128 rows, or 64 at DP = 256): the producer warp loads the
+// q-tile's 64-row Q tiles once, then the K and V tiles of the k-tiles 0 ..
+// FW qt + FW - 1 (none past L) into a ring of kv_stages; consumer
 // warpgroup w owns rows 64w .. 64w + 63 of the tile, whose diagonal k-tile
-// is 2 qt + w. Each k-tile: S = Q K^T (wgmma, shared-memory operands),
+// is FW qt + w. Each k-tile: S = Q K^T (wgmma, shared-memory operands),
 // the online softmax, acc = acc corr + bf16(p) V (A from registers, V
-// read MN-major); both warpgroups free the stage. Then out = acc / l and
+// read MN-major); every warpgroup frees the stage. Then out = acc / l and
 // lse = m + log(l).
 template <typename T, int DP>
-__global__ void __launch_bounds__(kFwdThreads, DP == 128 ? 1 : 2)
+__global__ void __launch_bounds__(fwd_threads<DP>(), DP >= 128 ? 1 : 2)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, T* __restrict__ out,
                  float* __restrict__ lse, int L, int H, int D) {
   constexpr uint32_t TILE = kTile * DP * 2;
+  constexpr int NS = kv_stages<DP>(), FW = fwd_groups<DP>(), QR = FW * kTile;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t qs = aligned_smem(smem);  // warpgroup w's Q at qs + w TILE
-  const uint32_t ring = qs + 2 * TILE;     // stage s: K at 2s, V at 2s + 1
-  const uint32_t bars = ring + 2 * kStages * TILE;
-  const uint32_t qbar = bars, full = bars + 8, empty = full + 8 * kStages;
+  const uint32_t ring = qs + FW * TILE;    // stage s: K at 2s, V at 2s + 1
+  const uint32_t bars = ring + 2 * NS * TILE;
+  const uint32_t qbar = bars, full = bars + 8, empty = full + 8 * NS;
   const int bh = blockIdx.x, h = bh % H, b = bh / H;
   const int qt = gridDim.y - 1 - blockIdx.y;  // the longest rows first
   // The k-tiles that reach the block's rows, none past L; warpgroup 1 runs
   // only where some of its rows lie before L.
-  const int nk = min(2 * qt + 2, (L + kTile - 1) / kTile);
-  const bool two = qt * kQTile + kTile < L;
+  const int nk = min(FW * qt + FW, (L + kTile - 1) / kTile);
+  const bool two = FW == 2 && qt * QR + kTile < L;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, two ? 256 : 128);
     }
@@ -545,16 +684,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (warp == kFwdProducer) {
+  if (warp == 4 * FW) {  // the producer, after the consumers' warps
     if (lane == 0) {
       mbar_expect_tx(qbar, (two ? 2 : 1) * TILE);
-      tma_tile<DP, kTile>(qs, &tq, qbar, h, qt * kQTile, b);
+      tma_tile<DP, kTile>(qs, &tq, qbar, h, qt * QR, b);
       if (two)
-        tma_tile<DP, kTile>(qs + TILE, &tq, qbar, h, qt * kQTile + kTile, b);
+        tma_tile<DP, kTile>(qs + TILE, &tq, qbar, h, qt * QR + kTile, b);
       for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % kStages;
+        const int s = kt % NS;
         const uint32_t f = full + 8 * s, st = ring + 2 * s * TILE;
-        mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        mbar_wait(empty + 8 * s, ((kt / NS) & 1) ^ 1);
         mbar_expect_tx(f, 2 * TILE);
         tma_tile<DP, kTile>(st, &tk, f, h, kt * kTile, b);
         tma_tile<DP, kTile>(st + TILE, &tv, f, h, kt * kTile, b);
@@ -566,11 +705,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = warp / 4;
   if (wg == 1 && !two) return;
   const int g = lane / 4, t = lane % 4, wr = (warp % 4) * 16 + g;
-  const int diag = 2 * qt + wg;  // this warpgroup's diagonal k-tile
-  // Warpgroup 0 stops at its diagonal: nothing waits for it to free the
-  // stage of k-tile 2 qt + 1, the last one loaded.
+  const int diag = FW * qt + wg;  // this warpgroup's diagonal k-tile
+  // Warpgroup 0 of two stops at its diagonal: nothing waits for it to free
+  // the stage of k-tile 2 qt + 1, the last one loaded.
   const int last = min(diag, nk - 1);
-  const int row = qt * kQTile + wg * kTile + wr;  // and row + 8
+  const int row = qt * QR + wg * kTile + wr;  // and row + 8
   const uint32_t qw = qs + wg * TILE;
   float acc[DP / 2];
 #pragma unroll
@@ -581,9 +720,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
   mbar_wait(qbar, 0);
   for (int kt = 0; kt <= last; ++kt) {
-    const int s = kt % kStages;
+    const int s = kt % NS;
     const uint32_t ks = ring + 2 * s * TILE, vs = ks + TILE;
-    mbar_wait(full + 8 * s, (kt / kStages) & 1);
+    mbar_wait(full + 8 * s, (kt / NS) & 1);
     // The product overwrites sc; zeros tell the compiler that the last
     // tile's scores (packed into a since) need not stay alive up to here.
 #pragma unroll
@@ -624,13 +763,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
 // dq for one 64-row q-tile of one (batch, head): the producer warp loads
 // the Q and dO tiles once, then the K and V tiles of k-tiles 0..the
-// diagonal into a ring of kStages; the consumer warpgroup computes
+// diagonal into a ring of kv_stages; the consumer warpgroup computes
 // S = Q K^T and dP = dO V^T (wgmma, shared-memory operands), p =
 // exp(s - lse) (masked on the diagonal tile), ds = p (dp - delta), and
 // dq += bf16(ds) K (A from registers, K read MN-major), then frees the
 // stage.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kBwdThreads, DP == 128 ? 1 : 2)
+__global__ void __launch_bounds__(kBwdThreads, DP >= 128 ? 1 : 2)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
@@ -639,18 +778,19 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                 const float* __restrict__ delta, T* __restrict__ dq, int L,
                 int H, int D) {
   constexpr uint32_t TILE = kTile * DP * 2;
+  constexpr int NS = kv_stages<DP>();
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t qs = aligned_smem(smem), dos = qs + TILE;
   const uint32_t ring = qs + 2 * TILE;  // stage s: K at 2s, V at 2s + 1
-  const uint32_t bars = ring + 2 * kStages * TILE;
-  const uint32_t qbar = bars, full = bars + 8, empty = full + 8 * kStages;
+  const uint32_t bars = ring + 2 * NS * TILE;
+  const uint32_t qbar = bars, full = bars + 8, empty = full + 8 * NS;
   const int bh = blockIdx.x, h = bh % H, b = bh / H;
   const int qt = gridDim.y - 1 - blockIdx.y;  // the longest rows first
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 128);
     }
@@ -664,9 +804,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
       tma_tile<DP, kTile>(qs, &tq, qbar, h, qt * kTile, b);
       tma_tile<DP, kTile>(dos, &tdo, qbar, h, qt * kTile, b);
       for (int kt = 0; kt <= qt; ++kt) {
-        const int s = kt % kStages;
+        const int s = kt % NS;
         const uint32_t f = full + 8 * s, st = ring + 2 * s * TILE;
-        mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        mbar_wait(empty + 8 * s, ((kt / NS) & 1) ^ 1);
         mbar_expect_tx(f, 2 * TILE);
         tma_tile<DP, kTile>(st, &tk, f, h, kt * kTile, b);
         tma_tile<DP, kTile>(st + TILE, &tv, f, h, kt * kTile, b);
@@ -690,9 +830,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
 
   mbar_wait(qbar, 0);
   for (int kt = 0; kt <= qt; ++kt) {
-    const int s = kt % kStages;
+    const int s = kt % NS;
     const uint32_t ks = ring + 2 * s * TILE, vs = ks + TILE;
-    mbar_wait(full + 8 * s, (kt / kStages) & 1);
+    mbar_wait(full + 8 * s, (kt / NS) & 1);
     float sc[32], dp[32];
     wg_fence();
     tile_times_tile_t<DP, kTile>(sc, qs, ks);
@@ -732,15 +872,17 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     (size_t)H * D, t);
 }
 
-// dk and dv for one 64-key k-tile of one (batch, head): the producer warp
-// loads the K and V tiles once, then, for each q-tile from the diagonal to
-// the end, the Q and dO tiles and their lse and delta rows into the ring;
-// the consumer warpgroup computes the transposed scores S^T = K Q^T and
-// dP^T = V dO^T, p (masked where the query precedes the key or lies past
-// L), dv += bf16(p)^T dO and dk += ds^T Q (A from registers, dO and Q
-// read MN-major), then frees the stage.
+// dk and dv, columns NC z .. NC z + NC - 1 (z = blockIdx.z, NC = DP /
+// dkv_halves), for one 64-key k-tile of one (batch, head): the producer
+// warp loads the K and V tiles once, then, for each q-tile from the
+// diagonal to the end, the Q and dO tiles and their lse and delta rows
+// into the ring; the consumer warpgroup computes the transposed scores S^T
+// = K Q^T and dP^T = V dO^T over all of D, p (masked where the query
+// precedes the key or lies past L), dv += bf16(p)^T dO and dk += ds^T Q
+// over its columns (A from registers, dO and Q read MN-major), then frees
+// the stage.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kBwdThreads, DP == 128 ? 1 : 2)
+__global__ void __launch_bounds__(kBwdThreads, DP >= 128 ? 1 : 2)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
@@ -748,7 +890,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dk,
                  T* __restrict__ dv, int L, int H, int D) {
-  constexpr int QT = q_tile<DP>();
+  constexpr int QT = q_tile<DP>(), NC = DP / dkv_halves<DP>();
   constexpr uint32_t KTILE = kTile * DP * 2, QTILE = QT * DP * 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t ks = aligned_smem(smem), vs = ks + KTILE;
@@ -800,11 +942,14 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  const int g = lane / 4, t = lane % 4;
+  const int g = lane / 4, t = lane % 4, z = blockIdx.z;
   const int key = kt * kTile + warp * 16 + g;  // and key + 8
-  float dk_acc[DP / 2], dv_acc[DP / 2];
+  // The block's columns z NC .. of a Q or dO tile: NC / 64 column boxes
+  // of QT rows each.
+  const uint32_t cols = z * (NC / box_cols<DP>()) * QT * 2 * box_cols<DP>();
+  float dk_acc[NC / 2], dv_acc[NC / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   mbar_wait(kvbar, 0);
   for (int qi = q0; qi < nq; ++qi) {
@@ -849,8 +994,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(dv_acc);
     fence_regs(dk_acc);
     wg_fence();
-    frags_times_tile_mn<DP, QT>(dv_acc, pa, dos);
-    frags_times_tile_mn<DP, QT>(dk_acc, da, qs);
+    frags_times_tile_mn<DP, QT, NC>(dv_acc, pa, dos + cols);
+    frags_times_tile_mn<DP, QT, NC>(dk_acc, da, qs + cols);
     wg_commit();
     wg_wait_all();
     fence_regs(pa);
@@ -859,13 +1004,14 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(dk_acc);
     mbar_arrive(empty + 8 * s);
   }
-  const size_t base = ((size_t)b * L * H + h) * D, rs = (size_t)H * D;
-  store_tile<T, DP>(dk + base, dk_acc, key, L, D, rs, t);
-  store_tile<T, DP>(dv + base, dv_acc, key, L, D, rs, t);
+  const size_t base = ((size_t)b * L * H + h) * D + z * NC;
+  const size_t rs = (size_t)H * D;
+  store_tile<T, NC>(dk + base, dk_acc, key, L, D - z * NC, rs, t);
+  store_tile<T, NC>(dv + base, dv_acc, key, L, D - z * NC, rs, t);
 }
 
 int check_shape(int B, int L, int H, int D) {
-  if (B < 1 || L < 1 || H < 1 || D < 16 || D > 128 || D % 16 != 0 ||
+  if (B < 1 || L < 1 || H < 1 || D < 16 || D > 256 || D % 16 != 0 ||
       (L + kTile - 1) / kTile > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -965,12 +1111,12 @@ int fwd(const bf16* q, const bf16* k, const bf16* v, T* out, float* lse,
   const bf16* const src[3] = {q, k, v};
   int rc = encode_inputs<DP>(m, src, g, B, L, H, D);
   if (rc != 0) return rc;
-  const size_t bytes =
-      1024 + (2 + 2 * kStages) * kTile * DP * 2 + 8 * (1 + 2 * kStages);
+  constexpr int FW = fwd_groups<DP>();
+  const size_t bytes = fwd_smem<DP>();
   rc = prepare(flash_fwd_kernel<T, DP>, bytes);
   if (rc != 0) return rc;
-  const dim3 grid(B * H, (L + kQTile - 1) / kQTile);
-  flash_fwd_kernel<T, DP><<<grid, kFwdThreads, bytes, s>>>(
+  const dim3 grid(B * H, (L + FW * kTile - 1) / (FW * kTile));
+  flash_fwd_kernel<T, DP><<<grid, fwd_threads<DP>(), bytes, s>>>(
       m[0], m[1], m[2], out, lse, L, H, D);
   return (int)cudaGetLastError();
 }
@@ -983,8 +1129,7 @@ int dq_(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
   const bf16* const src[4] = {q, k, v, dout};
   int rc = encode_inputs<DP>(m, src, g, B, L, H, D);
   if (rc != 0) return rc;
-  const size_t bytes =
-      1024 + (2 + 2 * kStages) * kTile * DP * 2 + 8 * (1 + 2 * kStages);
+  const size_t bytes = dq_smem<DP>();
   rc = prepare(flash_dq_kernel<T, DP>, bytes);
   if (rc != 0) return rc;
   const dim3 grid(B * H, (L + kTile - 1) / kTile);
@@ -1001,13 +1146,10 @@ int dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
   const bf16* const src[4] = {q, k, v, dout};
   int rc = encode_inputs<DP>(m, src, g, B, L, H, D);
   if (rc != 0) return rc;
-  constexpr int QT = q_tile<DP>();
-  const size_t bytes = 1024 + 2 * kTile * DP * 2 +
-                       kStages * (2 * QT * DP * 2 + 2 * QT * 4) +
-                       8 * (1 + 2 * kStages);
+  const size_t bytes = dkv_smem<DP>();
   rc = prepare(flash_dkv_kernel<T, DP>, bytes);
   if (rc != 0) return rc;
-  const dim3 grid(B * H, (L + kTile - 1) / kTile);
+  const dim3 grid(B * H, (L + kTile - 1) / kTile, dkv_halves<DP>());
   flash_dkv_kernel<T, DP><<<grid, kBwdThreads, bytes, s>>>(
       m[0], m[1], m[2], m[3], lse, delta, dk, dv, L, H, D);
   return (int)cudaGetLastError();
@@ -1023,7 +1165,8 @@ int fwd_any(const bf16* q, const bf16* k, const bf16* v, T* out, float* lse,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 32) return fwd<T, 32>(q, k, v, out, lse, B, L, H, D, g, s);
   if (D <= 64) return fwd<T, 64>(q, k, v, out, lse, B, L, H, D, g, s);
-  return fwd<T, 128>(q, k, v, out, lse, B, L, H, D, g, s);
+  if (D <= 128) return fwd<T, 128>(q, k, v, out, lse, B, L, H, D, g, s);
+  return fwd<T, 256>(q, k, v, out, lse, B, L, H, D, g, s);
 }
 
 template <typename T>
@@ -1038,7 +1181,9 @@ int dq_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
     return dq_<T, 32>(q, k, v, dout, lse, delta, dq, B, L, H, D, g, s);
   if (D <= 64)
     return dq_<T, 64>(q, k, v, dout, lse, delta, dq, B, L, H, D, g, s);
-  return dq_<T, 128>(q, k, v, dout, lse, delta, dq, B, L, H, D, g, s);
+  if (D <= 128)
+    return dq_<T, 128>(q, k, v, dout, lse, delta, dq, B, L, H, D, g, s);
+  return dq_<T, 256>(q, k, v, dout, lse, delta, dq, B, L, H, D, g, s);
 }
 
 template <typename T>
@@ -1053,10 +1198,34 @@ int dkv_any(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
     return dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, g, s);
   if (D <= 64)
     return dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, g, s);
-  return dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, g, s);
+  if (D <= 128)
+    return dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, g, s);
+  return dkv<T, 256>(q, k, v, dout, lse, delta, dk, dv, B, L, H, D, g, s);
+}
+
+template <int DP>
+int smem_of(int kernel) {
+  return kernel == 0   ? (int)fwd_smem<DP>()
+         : kernel == 1 ? (int)dq_smem<DP>()
+         : kernel == 2 ? (int)dkv_smem<DP>()
+                       : -1;
 }
 
 }  // namespace
+
+// The dynamic shared memory a block of kernel 0 (the forward), 1 (dQ) or 2
+// (dK/dV) asks for at tile width dp (32, 64, 128 or 256), as its launch
+// passes it; -1 for another kernel or width. Launches nothing.
+extern "C" int flash_shared_bytes(int kernel, int dp, void* stream) {
+  (void)stream;
+  switch (dp) {
+    case 32: return smem_of<32>(kernel);
+    case 64: return smem_of<64>(kernel);
+    case 128: return smem_of<128>(kernel);
+    case 256: return smem_of<256>(kernel);
+    default: return -1;
+  }
+}
 
 // The forward: q, k, v [B, L, H, D] bf16 (an f32 caller's rounded once)
 // -> out [B, L, H, D], written in f32 (flash_fwd_f32) or bf16, and lse

@@ -35,15 +35,20 @@ can be set to the JAX kernel's own to compare the two arithmetics.
 A wrapper takes its twin only for tensors that lie on the CPU; on CUDA
 tensors it launches its kernel or raises. Any ``L >= 1`` works (the kernels
 mask their ragged edge). On the CPU any head dim ``D`` works, as in the
-JAX package. The kernels take a multiple of 16 up to 128
-(:func:`check_head_dim`, their contract); the CUDA wrappers zero-pad q, k,
-v and dO along D to the next such width (:func:`kernel_head_dim`) and
-slice out and the gradients back. Zero columns change no score (q is
-pre-scaled by the caller, so the scale does not see the padding) and give
-zero output columns, so a padded call computes the unpadded function; at
-D = 16, 32, ..., 128 nothing is copied. ``D > 128`` raises on CUDA. The
-JAX wrapper's ``block_size``/``block_k`` divisibility rule is a TPU tiling
-constraint and has no counterpart here.
+JAX package. The kernels take a multiple of 16 up to 256
+(:func:`check_head_dim`, their contract), each at the tile width
+:func:`padded_head_dim` (32, 64, 128 or 256; TMA fills zeros past D); the
+CUDA wrappers zero-pad q, k, v and dO along D to the next multiple of 16
+(:func:`kernel_head_dim`) and slice out and the gradients back. Zero
+columns change no score (q is pre-scaled by the caller, so the scale does
+not see the padding) and give zero output columns, so a padded call
+computes the unpadded function; at D = 16, 32, ..., 256 nothing is copied.
+``D > 256`` raises on CUDA: the JAX kernel's D axis is one whole block of
+any width, and 256 is the widest tile the port's kernels keep in shared
+memory (``csrc/flash_attn.cu`` checks at build time that each kernel's
+block fits the 227 KB it may have; :func:`shared_bytes` reads what a
+block asks for). The JAX wrapper's ``block_size``/``block_k``
+divisibility rule is a TPU tiling constraint and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ from distkeras_tpu_torch.ops.kernels import build
 BLOCK = 64
 #: the running max's start and the masked score (``_NEG`` of the TPU kernel).
 NEG = -1e30
+#: the widest head dim the kernels take (their widest tile, ``DP = 256``).
+MAX_HEAD_DIM = 256
 
 #: the C entry points -> (source, argtypes), and the launches so far in
 #: this process by kernel: ``flash_fwd``, ``flash_dq`` and ``flash_dkv``,
@@ -71,6 +78,10 @@ _LIB = build.KernelLib({
     **{f"flash_dkv_{s}": ("flash_attn", [_P] * 8 + [_I] * 4 + [_P])
        for s in build.SUFFIXES.values()},
 }, ("flash_fwd", "flash_dq", "flash_dkv"))
+#: the shared-memory query: ints in, bytes out (nothing launches; not
+#: counted).
+_QUERY = build.KernelLib({"flash_shared_bytes": ("flash_attn", [_I] * 2)},
+                         ())
 
 
 def reset_launches() -> None:
@@ -92,20 +103,20 @@ def warmup_counts() -> dict:
 
 
 def check_head_dim(D: int) -> None:
-    """The kernels take a head dim that is a multiple of 16, at most 128
+    """The kernels take a head dim that is a multiple of 16, at most 256
     (one bf16 k-step of the tensor cores' product; the widest tile a block
-    keeps in shared memory)."""
-    if D % 16 or not 16 <= D <= 128:
+    keeps in shared memory, and the widest N of ``wgmma``)."""
+    if D % 16 or not 16 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"flash attention takes a head dim that is a "
-                         f"multiple of 16 in [16, 128]; got {D}")
+                         f"multiple of 16 in [16, {MAX_HEAD_DIM}]; got {D}")
 
 
 def kernel_head_dim(D: int) -> int:
     """The head dim a CUDA call at ``D`` runs the kernels at: ``D`` rounded
-    up to a multiple of 16. Past 128 (or below 1) :func:`check_head_dim`'s
+    up to a multiple of 16. Past 256 (or below 1) :func:`check_head_dim`'s
     ``ValueError``: no kernel keeps a wider tile."""
     dk = max(16, -(-D // 16) * 16)
-    if D < 1 or dk > 128:
+    if D < 1 or dk > MAX_HEAD_DIM:
         check_head_dim(D)
     return dk
 
@@ -125,9 +136,22 @@ def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
 
 
 def padded_head_dim(D: int) -> int:
-    """The head dim a kernel tile holds (zeros past ``D``): 32, 64 or
-    128."""
-    return 32 if D <= 32 else 64 if D <= 64 else 128
+    """The head dim a kernel tile holds (zeros past ``D``): 32, 64, 128 or
+    256."""
+    return 32 if D <= 32 else 64 if D <= 64 else 128 if D <= 128 else 256
+
+
+def shared_bytes(kernel: str, D: int) -> int:
+    """The dynamic shared memory a block of ``kernel`` (``"fwd"``, ``"dq"``
+    or ``"dkv"``) asks for at head dim ``D``, as ``csrc/flash_attn.cu``
+    computes it for the launch (``fwd_smem``, ``dq_smem``, ``dkv_smem``).
+    Builds the kernels if needed; a question to the card's library, so it
+    needs ``nvcc`` and raises without one."""
+    n = _QUERY.query("flash_shared_bytes", ("fwd", "dq", "dkv").index(kernel),
+                     padded_head_dim(kernel_head_dim(D)))
+    if n < 0:
+        raise RuntimeError(f"flash_shared_bytes refused {kernel} at D = {D}")
+    return n
 
 
 def tma_geometry(B: int, L: int, H: int, D: int) -> dict:
@@ -141,9 +165,9 @@ def tma_geometry(B: int, L: int, H: int, D: int) -> dict:
       (TMA takes multiples of 16 bytes; D is a multiple of 16);
     * ``box``: ``(columns, 1, rows, 1)``: a box row is one swizzle span, so
       ``columns`` is ``min(DP, 64)`` bf16 (``DP`` the padded head dim) and a
-      tile of ``DP = 128`` takes ``boxes = 2`` column boxes; ``rows`` is
-      the dK/dV kernel's q-tile, 64, or 32 at ``DP = 128`` (the other
-      kernels' 64-row tiles take two such boxes);
+      tile of ``DP = 128`` takes ``boxes = 2`` column boxes, ``DP = 256``
+      four; ``rows`` is the dK/dV kernel's q-tile, 64, or 32 at ``DP >=
+      128`` (the other kernels' 64-row tiles take two such boxes);
     * ``swizzle``: the span in bytes, 128, or 64 at ``DP = 32``: the
       shared-memory layouts that ``wgmma``'s descriptors read.
 
@@ -152,7 +176,7 @@ def tma_geometry(B: int, L: int, H: int, D: int) -> dict:
     dp = padded_head_dim(D)
     cols = min(dp, 64)
     return {"dims": (D, H, L, B), "strides": (2 * D, 2 * H * D, 2 * L * H * D),
-            "box": (cols, 1, 32 if dp == 128 else 64, 1),
+            "box": (cols, 1, 32 if dp >= 128 else 64, 1),
             "swizzle": 2 * cols, "boxes": dp // cols, "padded": dp}
 
 
@@ -446,7 +470,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     Differentiable: when autograd needs a gradient of any input, the call
     goes through :class:`FlashAttentionFn`. CPU tensors take the plain
     twins at any head dim. CUDA tensors must be float32 or bfloat16 (one
-    dtype), on one device, with a head dim of at most 128 (zero-padded to
+    dtype), on one device, with a head dim of at most 256 (zero-padded to
     the kernels' width); anything else raises, and so does a failed build
     or launch."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:

@@ -33,6 +33,7 @@ from distkeras_tpu.ops.pallas.flash_attention import (
 from distkeras_tpu_torch.ops.kernels import flash_attention as FA
 from distkeras_tpu_torch.ops.kernels.flash_flips import (
     backward_flips, flip_steps, forward_flips)
+import torch_flash_smem as smem
 
 H = 2
 
@@ -101,9 +102,11 @@ def _mean_err(got, ref):
     return float(np.abs(got - ref).mean() / max(np.abs(ref).mean(), 1e-30))
 
 
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 160, 256])
 @pytest.mark.parametrize("L", [40, 64, 128, 256])
 def test_twins_match_the_jax_kernel_at_its_tiling(L, D):
+    """At head dims up to 256 (160 and 256: the widest tile, ``DP = 256``,
+    of the CUDA kernels), with the tolerances of the module doc."""
     q, k, v, do = _inputs(L, D)
     ref_out, ref_grads = _jax(q, k, v, do)
     _, bk = _jax_tiles(L)
@@ -176,34 +179,56 @@ def test_bf16_inputs_give_bf16_outputs_and_gradients():
                                rtol=2 ** -8, atol=1e-6)
 
 
-@pytest.mark.parametrize("D", [8, 24, 144])
+@pytest.mark.parametrize("D", [8, 24, 272])
 def test_unsupported_head_dim_raises(D):
     """The kernels' own contract still refuses a head dim that is not a
-    multiple of 16 in [16, 128] (their tensor maps are built for those);
-    the CUDA wrappers pad D <= 128 up to it, and past 128 they raise with
+    multiple of 16 in [16, 256] (their tensor maps are built for those);
+    the CUDA wrappers pad D <= 256 up to it, and past 256 they raise with
     it. On the CPU the wrappers take any D (below)."""
     with pytest.raises(ValueError, match="head dim"):
         FA.check_head_dim(D)
     with pytest.raises(ValueError, match="head dim"):
         FA.tma_geometry(1, 4, 1, D)
-    if D > 128:
+    if D > 256:
         with pytest.raises(ValueError, match="head dim"):
             FA.kernel_head_dim(D)
     else:
         assert FA.kernel_head_dim(D) == -(-D // 16) * 16
 
 
-@pytest.mark.parametrize("D", [8, 24, 40, 144])
+@pytest.mark.parametrize("D", [144, 160, 176, 192, 208, 224, 240, 256])
+def test_kernel_head_dim_takes_the_widths_past_128(D):
+    """Every multiple of 16 in (128, 256] is a width the kernels take, at
+    the 256-wide tile (``DP = 256``, TMA's zeros past D), with a
+    tensor-map geometry. The JAX kernel takes these head dims; the port's
+    raised at them before that tile."""
+    assert FA.kernel_head_dim(D) == D
+    FA.check_head_dim(D)
+    assert FA.padded_head_dim(D) == 256
+    assert FA.tma_geometry(1, 4, 1, D)["padded"] == 256
+
+
+def test_kernel_head_dim_takes_every_width_up_to_256_and_no_more():
+    """``kernel_head_dim`` takes every D in 1..256 (the next multiple of 16,
+    at least 16) and raises with "head dim" past 256 and below 1."""
+    for D in range(1, 257):
+        assert FA.kernel_head_dim(D) == max(16, -(-D // 16) * 16)
+    for D in (0, 257, 272, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            FA.kernel_head_dim(D)
+
+
+@pytest.mark.parametrize("D", [8, 24, 40, 144, 200])
 def test_head_dims_the_kernels_pad_match_the_jax_kernel(D):
     """``flash_attention`` with its gradient through the autograd Function
-    at head dims the CUDA kernels take only zero-padded (8, 24, 40) or not
-    at all (144), on the CPU (the twins, which take any D, and nothing
-    launched), against the JAX package's flash kernel in interpret mode,
-    which takes any D. L = 64 is one k-tile for both, so only the order of
-    the f32 sums differs: the mean error of out, dq, dk and dv within 1e-5
-    of their mean magnitude and the largest within 2e-3 of the largest (one
-    order-flipped bf16 rounding of a p or ds), as in the tiling test
-    above."""
+    at head dims the CUDA kernels take only zero-padded (8, 24, 40, 200) or
+    at the widest tile (144), on the CPU (the twins, which take any D, and
+    nothing launched), against the JAX package's flash kernel in interpret
+    mode, which takes any D. L = 64 is one k-tile for both, so only the
+    order of the f32 sums differs: the mean error of out, dq, dk and dv
+    within 1e-5 of their mean magnitude and the largest within 2e-3 of the
+    largest (one order-flipped bf16 rounding of a p or ds), as in the
+    tiling test above."""
     q, k, v, do = _inputs(64, D, seed=D)
     ref_out, ref_grads = _jax(q, k, v, do)
     leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
@@ -252,13 +277,20 @@ def test_forward_without_grad_takes_the_plain_twin_on_the_cpu():
                                   "flash_dkv": 0}
 
 
-@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128, 144, 160,
+                               176, 192, 208, 224, 240, 256])
 def test_tma_geometry_fits_the_backward_kernels(D):
     """The backward kernels' tensor maps over [B, L, H, D] bf16 (the
     wrapper's helper, which the C entry points check and encode): dims
     innermost first, byte strides TMA takes (multiples of 16), a box row
     that fits its swizzle span, column boxes that cover the padded head
-    dim (two at D > 64), and box rows that tile a 64-key tile."""
+    dim (two at D > 64, four at D > 128), and box rows that tile a 64-key
+    tile. Each kernel's shared memory at its ring depth (the sizes
+    ``csrc/flash_attn.cu`` asks for, written out in
+    ``tests/torch_flash_smem.py``, which a card test holds to the built
+    library's report; the C side also checks the limit when it builds)
+    fits the 227 KB a block may have; at the 256-wide tile the forward's
+    and dQ's K/V ring is 2 stages deep."""
     B, L, Hh = 3, 200, 5
     g = FA.tma_geometry(B, L, Hh, D)
     assert g["dims"] == (D, Hh, L, B)
@@ -269,9 +301,17 @@ def test_tma_geometry_fits_the_backward_kernels(D):
     assert cols * 2 <= g["swizzle"] and g["swizzle"] in (64, 128)
     assert cols * 2 % 16 == 0 and FA.BLOCK % rows == 0
     assert g["padded"] >= D and g["boxes"] * cols == g["padded"]
-    assert g["boxes"] == (2 if D > 64 else 1)
-    if D == 128:
+    assert g["boxes"] == (4 if D > 128 else 2 if D > 64 else 1)
+    if D in (128, 256):
         assert (cols, rows, g["swizzle"]) == (64, 32, 128)
+    stages = {k: smem.ring_stages(k, D) for k in ("fwd", "dq", "dkv")}
+    assert stages == ({"fwd": 2, "dq": 2, "dkv": 3} if D > 128 else
+                      {"fwd": 3, "dq": 3, "dkv": 3})
+    for kernel in ("fwd", "dq", "dkv"):
+        assert smem.shared_bytes(kernel, D) <= smem.SMEM_LIMIT, kernel
+    if D > 128:   # a third stage would not fit in dQ: its ring is 2 deep
+        assert smem.shared_bytes("dq", D) + 2 * FA.BLOCK * 256 * 2 \
+            > smem.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("L,D", [(40, 32), (136, 64), (72, 128)])

@@ -32,6 +32,25 @@ Tolerances, and why:
   half its mean, each plus 1e-3 of the model's largest gradient (the key
   bias's gradient, 0 in exact arithmetic, is all rounding);
 * ``remat=True`` recomputes the same CPU arithmetic: the same bits.
+
+At 2 heads of 256 (d_model 512, the CUDA kernels' widest tile), under
+flash:
+
+* each layer's attention, the JAX kernel (interpret mode) on the port's own
+  q, k, v against the port's output: f32 level, as above (mean within 1e-5
+  of the mean magnitude, largest within 2e-3);
+* the logits and the loss against the JAX model's: the two models' q, k and
+  v projections agree at f32 level (9e-7 of their largest in layer 0), but
+  over 40 x 512 elements that moves some bf16 roundings of q, k and v (42
+  of 122,880 in layer 0 at L = 40, against 0 to 4 a projection at d_model
+  64), and
+  each moves scores at bf16 level; layer 1's inputs then differ by 1e-3
+  and 4 % of its roundings move. So they are held to a share of the JAX
+  model's own flash-vs-dense distance, the rounding the design puts in:
+  the logits' mean error within 1/4 of that distance's mean (read 0.14)
+  and the largest within 1/2 of its largest (read 0.25-0.31), the loss
+  within 1/4 of its loss distance (read 0.064);
+* the gradients as at heads of 32 (read at most 0.43 of the limit).
 """
 
 import jax
@@ -52,13 +71,15 @@ from distkeras_tpu_torch.ops.losses import get_loss
 
 SMALL = dict(vocab_size=256, num_layers=2, d_model=64, num_heads=2,
              d_ff=128, max_seq_len=256)
+#: the same model with 2 heads of 256
+HD256 = dict(SMALL, d_model=512)
 
 
-def _pair(attn_impl, seed=0, **kwargs):
+def _pair(attn_impl, seed=0, cfg=SMALL, **kwargs):
     """The JAX model and the port's, with the JAX weights."""
-    jm = JaxModel.build(JaxLM(**SMALL, attn_impl=attn_impl, **kwargs),
+    jm = JaxModel.build(JaxLM(**cfg, attn_impl=attn_impl, **kwargs),
                         jnp.zeros((1, 1), jnp.int32), seed=seed)
-    pm = small_transformer_lm(**SMALL, attn_impl=attn_impl, device="cpu",
+    pm = small_transformer_lm(**cfg, attn_impl=attn_impl, device="cpu",
                               **kwargs)
     pm.module.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.asarray, jm.params), pm.module))
@@ -205,18 +226,76 @@ def test_dense_lm_loss_gradients_match_jax():
 
 def test_flash_lm_loss_gradients_match_jax():
     """At L = 64, where the JAX kernel's tile is the port's."""
-    jm, pm = _pair("flash", seed=1)
-    jm_dense, _ = _pair("dense", seed=1)
+    _check_flash_lm_loss_gradients(SMALL)
+
+
+def _check_flash_lm_loss_gradients(cfg, loss_share=None):
+    """The LM loss within 1e-5 of the JAX flash model's or, with
+    ``loss_share``, within that share of the JAX flash-vs-dense loss
+    distance; the gradients within the flash-vs-dense distance."""
+    jm, pm = _pair("flash", seed=1, cfg=cfg)
+    jm_dense, _ = _pair("dense", seed=1, cfg=cfg)
     x, y = _lm_batch(64)
     ref_loss, ref = _jax_grads(jm, pm, x, y)
-    _, ref_dense = _jax_grads(jm_dense, pm, x, y)
+    dense_loss, ref_dense = _jax_grads(jm_dense, pm, x, y)
     loss, grads = _port_grads(pm, x, y)
-    assert abs(loss - ref_loss) <= 1e-5
+    if loss_share is None:
+        assert abs(loss - ref_loss) <= 1e-5
+    else:
+        assert abs(loss - ref_loss) <= loss_share * abs(dense_loss - ref_loss)
     floor = 1e-3 * max(r.abs().max().item() for r in ref.values())
     for k, g in grads.items():
         d, design = (g - ref[k]).abs(), (ref_dense[k] - ref[k]).abs()
         assert d.max() <= design.max() + floor, k
         assert d.mean() <= 0.5 * design.mean() + floor, k
+
+
+@pytest.mark.parametrize("L", [40, 64])
+def test_flash_logits_match_jax_at_heads_of_256(L, monkeypatch):
+    """2 heads of 256 under flash, the weights carried across by
+    ``convert.params_from_jax``: every layer takes flash at head dim 256,
+    its attention is the JAX kernel's on the same q, k, v at f32 level,
+    and the logits are within the shares of the module doc of the JAX
+    model's flash-vs-dense distance."""
+    from distkeras_tpu.ops.pallas.flash_attention import (
+        flash_attention as jax_flash)
+
+    seen = []
+    real = FA.flash_fwd_plain
+
+    def recording(q, k, v, *args, **kwargs):
+        out = real(q, k, v, *args, **kwargs)
+        seen.append((q, k, v, out[0]))
+        return out
+
+    monkeypatch.setattr(FA, "flash_fwd_plain", recording)
+    jm, pm = _pair("flash", cfg=HD256)
+    jm_dense, _ = _pair("dense", cfg=HD256)
+    x = _tokens(2, L)
+    ref = np.asarray(jm.apply(jm.params, jnp.asarray(x)))
+    dense = np.asarray(jm_dense.apply(jm_dense.params, jnp.asarray(x)))
+    got = pm.predict(x).numpy()
+    assert got.shape == (2, L, HD256["vocab_size"])
+    assert [tuple(s[0].shape) for s in seen] == \
+        [(2, L, 2, 256)] * HD256["num_layers"]
+    for q, k, v, out in seen:
+        want = np.asarray(jax_flash(*(jnp.asarray(t.numpy()) for t in
+                                      (q, k, v)), block_size=L,
+                                    interpret=True))
+        err = np.abs(out.numpy() - want)
+        assert err.mean() <= 1e-5 * np.abs(want).mean()
+        assert err.max() <= 2e-3 * np.abs(want).max()
+    err, design = np.abs(got - ref), np.abs(dense - ref)
+    assert err.mean() <= 0.25 * design.mean()
+    assert err.max() <= 0.5 * design.max()
+
+
+def test_flash_lm_loss_gradients_match_jax_at_heads_of_256():
+    """The LM loss and its gradients at 2 heads of 256, L = 64: the loss
+    within 1/4 of the JAX flash-vs-dense loss distance (module doc), the
+    gradients as at heads of 32 (``test_flash_lm_loss_gradients_match_jax``):
+    within the JAX package's own flash-vs-dense distance."""
+    _check_flash_lm_loss_gradients(HD256, loss_share=0.25)
 
 
 @pytest.mark.parametrize("attn_impl", ["dense", "flash"])
